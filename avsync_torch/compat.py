@@ -1,0 +1,101 @@
+"""Reference `.pth` checkpoints and the weight bridge from the JAX package.
+
+The port's `LipNet` keeps the reference PyTorch key names and layouts
+(`conv1.weight` (O, I, kt, kh, kw), `gru1.weight_ih_l0` (3H, D), `fc.weight`
+(out, in), ...), so a reference checkpoint loads with `load_state_dict`.
+
+`lipnet_params_from_jax` turns the JAX package's LipNet params (a nested dict
+of numpy arrays, as `avsync.models.LipNet` initializes or restores them) into
+that state dict:
+
+  * Flax conv kernel (kt, kh, kw, I, O)  ->  Conv3d weight (O, I, kt, kh, kw)
+  * GRU w_ih / w_hh (D, 3H)              ->  (3H, D); same [r, z, n] order
+  * The FIRST GRU's input features are flattened conv maps: the JAX package
+    orders them (H, W, C), the reference and the port (C, H, W), so that
+    GRU's input rows are permuted.
+  * Dense kernel (in, out)               ->  Linear weight (out, in)
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+# Conv-output geometry for the default 50x100 input: (C, H, W).
+DEFAULT_CONV_SHAPE: Tuple[int, int, int] = (96, 6, 12)
+
+
+def conv_shape_for(cfg) -> Tuple[int, int, int]:
+    """(C, H, W) of the conv-stack output for an AvsyncConfig's geometry."""
+    h, w = cfg.data.img_height, cfg.data.img_width
+    for _ in cfg.model.conv_channels:
+        h, w = h // 2, w // 2
+    return (cfg.model.conv_channels[-1], h, w)
+
+
+def chw_to_hwc_perm(conv_shape: Tuple[int, int, int]) -> np.ndarray:
+    """Index array p with hwc_flat = chw_flat[p]: position i of the (H, W, C)
+    flattening holds element p[i] of the (C, H, W) flattening."""
+    C, H, W = conv_shape
+    return np.arange(C * H * W).reshape(C, H, W).transpose(1, 2, 0).reshape(-1)
+
+
+def unwrap_state_dict(ckpt: Mapping[str, Any]) -> Mapping[str, Any]:
+    """Both reference layouts: a bare state dict, or one wrapped under
+    'model_state_dict' beside epoch/optimizer entries."""
+    if "model_state_dict" in ckpt:
+        return ckpt["model_state_dict"]
+    return ckpt
+
+
+def load_pth(path: str) -> Dict[str, torch.Tensor]:
+    """Load a reference LipNet `.pth` (either layout) as a state dict on the
+    CPU."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    return {k: torch.as_tensor(v) for k, v in unwrap_state_dict(ckpt).items()}
+
+
+def lipnet_params_from_jax(
+    params: Mapping[str, Any],
+    num_conv: int = 3,
+    num_gru: int = 2,
+    conv_shape: Tuple[int, int, int] = DEFAULT_CONV_SHAPE,
+) -> Dict[str, torch.Tensor]:
+    """JAX-layout LipNet params (nested dict of arrays) -> the port's
+    float32 state dict."""
+    sd: Dict[str, np.ndarray] = {}
+    for i in range(1, num_conv + 1):
+        conv = params[f"conv{i}"]
+        sd[f"conv{i}.weight"] = np.asarray(conv["kernel"]).transpose(4, 3, 0, 1, 2)
+        sd[f"conv{i}.bias"] = np.asarray(conv["bias"])
+
+    # inverse of the (C,H,W)->(H,W,C) map: chw_flat = hwc_flat[inv]
+    inv = np.argsort(chw_to_hwc_perm(conv_shape))
+    for g in range(1, num_gru + 1):
+        layer = params[f"gru{g}"]
+        for suffix, name in (("", "fwd"), ("_reverse", "bwd")):
+            w_ih = np.asarray(layer[f"w_ih_{name}"]).T  # (3H, D)
+            if g == 1:
+                w_ih = w_ih[:, inv]
+            sd[f"gru{g}.weight_ih_l0{suffix}"] = w_ih
+            sd[f"gru{g}.weight_hh_l0{suffix}"] = np.asarray(layer[f"w_hh_{name}"]).T
+            sd[f"gru{g}.bias_ih_l0{suffix}"] = np.asarray(layer[f"b_ih_{name}"])
+            sd[f"gru{g}.bias_hh_l0{suffix}"] = np.asarray(layer[f"b_hh_{name}"])
+
+    sd["fc.weight"] = np.asarray(params["fc"]["kernel"]).T
+    sd["fc.bias"] = np.asarray(params["fc"]["bias"])
+    return {
+        k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+        for k, v in sd.items()
+    }
+
+
+def save_lipnet_pth(state_dict: Mapping[str, torch.Tensor], path: str) -> None:
+    """Write a state dict as a reference-loadable bare `.pth` (CPU float32)."""
+    torch.save(
+        {k: v.detach().to("cpu", torch.float32).contiguous()
+         for k, v in state_dict.items()},
+        path,
+    )

@@ -1,0 +1,5 @@
+"""Models of the port."""
+
+from avsync_torch.models.lipnet import LipNet
+
+__all__ = ["LipNet"]

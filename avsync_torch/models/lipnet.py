@@ -1,0 +1,151 @@
+"""LipNet encoder in PyTorch (port of `avsync/models/lipnet.py`).
+
+Three [Conv3D -> ReLU -> MaxPool3D(1,2,2) -> Dropout3d] blocks (32/64/96
+channels, kernels (3,5,5)/(3,5,5)/(3,3,3)), flatten to (B, T, 96*6*12 =
+6912), two bidirectional GRU(256) layers each followed by dropout,
+Linear(512 -> vocab) and log_softmax.
+
+The modules keep the reference checkpoint's key names and layouts
+(`conv1.weight`, `gru1.weight_ih_l0_reverse`, `fc.bias`, ...), so
+`load_state_dict` takes a reference `.pth` directly; weights of the JAX
+package come across through `avsync_torch.compat.lipnet_params_from_jax`.
+Inside, activations are NCDHW and the per-frame features flatten in
+(C, H, W) order, as in the reference; the public input is the JAX package's
+(B, T, H, W, 1).
+
+Kernel routing (float32 only):
+  * `ModelConfig.fused_conv_pool`: conv1 (Cin = 1, even H/W, odd kernel,
+    Cout <= 32 — the JAX gate of `lipnet.py:99-109`) runs the fused
+    conv+ReLU+pool kernel, one launch per forward;
+  * `ModelConfig.use_pallas_gru`: each BiGRU layer runs its recurrence in
+    the GRU kernel, both directions in one launch.
+On the CPU the same calls take the kernels' plain versions.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from avsync_torch.config import ModelConfig
+from avsync_torch.ops.conv import conv_relu_pool
+from avsync_torch.ops.cuda.convpool import conv1_pool_block
+from avsync_torch.ops.gru import GRUWeights, bigru
+
+
+def _uniform(shape, bound: float, generator: Optional[torch.Generator]) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape).uniform_(-bound, bound, generator=generator))
+
+
+class ConvPoolBlock(nn.Module):
+    """Conv3D(SAME) -> ReLU -> MaxPool3D(1,2,2) on NCDHW; params `weight`
+    (Cout, Cin, kt, kh, kw) and `bias` (Cout,), initialised like nn.Conv3d."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: Tuple[int, int, int],
+                 fused: bool = False, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        bound = 1.0 / math.sqrt(cin * math.prod(kernel_size))
+        self.weight = _uniform((cout, cin, *kernel_size), bound, generator)
+        self.bias = _uniform((cout,), bound, generator)
+        kt, kh, kw = kernel_size
+        self.fused = (fused and cin == 1 and kt % 2 == 1 and kh % 2 == 1
+                      and kw % 2 == 1 and 4 * cout <= 128)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused and x.shape[3] % 2 == 0 and x.shape[4] % 2 == 0:
+            return conv1_pool_block(x, self.weight, self.bias)
+        return conv_relu_pool(x, self.weight, self.bias)
+
+
+class BiGRU(nn.Module):
+    """Bidirectional single-layer GRU with nn.GRU's parameter names
+    (`weight_ih_l0`, ..., `bias_hh_l0_reverse`) and initialisation."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, use_kernel: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        H = hidden_dim
+        bound = 1.0 / math.sqrt(H)
+        for suffix in ("", "_reverse"):
+            self.register_parameter(f"weight_ih_l0{suffix}",
+                                    _uniform((3 * H, input_dim), bound, generator))
+            self.register_parameter(f"weight_hh_l0{suffix}",
+                                    _uniform((3 * H, H), bound, generator))
+            self.register_parameter(f"bias_ih_l0{suffix}", _uniform((3 * H,), bound, generator))
+            self.register_parameter(f"bias_hh_l0{suffix}", _uniform((3 * H,), bound, generator))
+        self.use_kernel = use_kernel
+
+    def _weights(self, suffix: str) -> GRUWeights:
+        return GRUWeights(getattr(self, f"weight_ih_l0{suffix}"),
+                          getattr(self, f"weight_hh_l0{suffix}"),
+                          getattr(self, f"bias_ih_l0{suffix}"),
+                          getattr(self, f"bias_hh_l0{suffix}"))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return bigru(x, self._weights(""), self._weights("_reverse"), self.use_kernel)
+
+
+class Linear(nn.Module):
+    """nn.Linear's params and init, drawn from an explicit generator."""
+
+    def __init__(self, din: int, dout: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        bound = 1.0 / math.sqrt(din)
+        self.weight = _uniform((dout, din), bound, generator)
+        self.bias = _uniform((dout,), bound, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
+
+
+class LipNet(nn.Module):
+    """(B, T, H, W, 1) clips in [0, 1] -> (B, T, vocab) log-probs."""
+
+    def __init__(self, cfg: ModelConfig = ModelConfig(),
+                 img_hw: Tuple[int, int] = (50, 100),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.family != "pytorch":
+            raise NotImplementedError("only the 'pytorch' LipNet family is ported")
+        if cfg.compute_dtype not in (None, "float32"):
+            raise NotImplementedError(
+                f"compute_dtype={cfg.compute_dtype!r}: the port computes in float32 only")
+        self.cfg = cfg
+        cin = 1
+        h, w = img_hw
+        for i, (ch, kern) in enumerate(zip(cfg.conv_channels, cfg.conv_kernels)):
+            self.add_module(f"conv{i + 1}", ConvPoolBlock(
+                cin, ch, tuple(kern), fused=cfg.fused_conv_pool, generator=generator))
+            cin, h, w = ch, h // 2, w // 2
+        self.conv_output_dim = cin * h * w
+        # torch Dropout3d zeroes whole channels, as the JAX broadcast dropout
+        self.conv_dropout = nn.Dropout3d(cfg.dropout_rate)
+        dim = self.conv_output_dim
+        for i in range(cfg.num_gru_layers):
+            self.add_module(f"gru{i + 1}", BiGRU(
+                dim, cfg.hidden_dim, use_kernel=cfg.use_pallas_gru, generator=generator))
+            dim = 2 * cfg.hidden_dim
+        self.gru_dropout = nn.Dropout(cfg.dropout_rate)
+        self.fc = Linear(dim, cfg.vocab_size, generator=generator)
+
+    def _conv_stack(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 4, 1, 2, 3)  # (B, 1, T, H, W)
+        for i in range(len(self.cfg.conv_channels)):
+            x = self.conv_dropout(getattr(self, f"conv{i + 1}")(x))
+        B, C, T, h, w = x.shape
+        return x.permute(0, 2, 1, 3, 4).reshape(B, T, C * h * w)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self._conv_stack(x)
+        for i in range(self.cfg.num_gru_layers):
+            x = self.gru_dropout(getattr(self, f"gru{i + 1}")(x))
+        return F.log_softmax(self.fc(x), dim=-1)
+
+    def conv_features(self, x: torch.Tensor) -> torch.Tensor:
+        """Conv stack only: (B, T, C*h*w) features in (C, H, W) order."""
+        return self._conv_stack(x)

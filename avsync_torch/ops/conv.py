@@ -1,0 +1,46 @@
+"""SAME-padded Conv3D and MaxPool3D(1,2,2) (port of `avsync/ops/conv.py`).
+
+The port keeps PyTorch's NCDHW layout inside the model: (B, C, T, H, W)
+activations and (O, I, kt, kh, kw) weights, which is also the reference
+checkpoint layout. These blocks are plain convolutions that the JAX package
+leaves to XLA outside any Pallas kernel; here they go to `F.conv3d` /
+`F.max_pool3d`. Float32 convolutions run in full fp32: cuDNN would use TF32
+by default, so each call turns TF32 off for its own scope.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def fp32_convs():
+    """Context in which cuDNN convolutions run in full fp32 (TF32 off); the
+    other cuDNN flags keep their current values."""
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
+
+
+def conv3d(x: torch.Tensor, weight: torch.Tensor,
+           bias: torch.Tensor | None = None) -> torch.Tensor:
+    """NCDHW stride-1 conv3d with symmetric SAME padding (k-1)//2 for odd
+    kernels — torch's `padding=(1,2,2)` / `(1,1,1)` in the reference."""
+    kt, kh, kw = weight.shape[2:]
+    with fp32_convs():
+        return F.conv3d(x, weight, bias, padding=((kt - 1) // 2, (kh - 1) // 2,
+                                                  (kw - 1) // 2))
+
+
+def max_pool3d(x: torch.Tensor,
+               window: Tuple[int, int, int] = (1, 2, 2)) -> torch.Tensor:
+    """NCDHW max pool, VALID, stride = window: 50x100 -> 25x50 -> 12x25 -> 6x12."""
+    return F.max_pool3d(x, window)
+
+
+def conv_relu_pool(x: torch.Tensor, weight: torch.Tensor,
+                   bias: torch.Tensor | None = None) -> torch.Tensor:
+    """One LipNet block: Conv3D -> ReLU -> MaxPool3D(1,2,2), NCDHW."""
+    return max_pool3d(F.relu(conv3d(x, weight, bias)))

@@ -1,0 +1,52 @@
+"""Bidirectional GRU with torch-GRU cell semantics (port of `avsync/ops/gru.py`).
+
+Same structure as the JAX package:
+
+  * the input projection for ALL timesteps is hoisted out of the recurrence
+    as one large (B*T, D) x (D, 3H) product per direction (`F.linear`, a
+    plain matmul outside any kernel, as the JAX package leaves it to XLA);
+  * the recurrence runs either in the hand-written CUDA kernel
+    (`use_kernel=True`, `ModelConfig.use_pallas_gru`; both directions in one
+    launch) or in the plain step loop.
+
+Weights here are torch's: weight_ih (3H, D), weight_hh (3H, H), gate order
+[r, z, n]. The kernel wrapper takes the JAX right-multiply layout, which is
+the transpose view of torch's — no copy.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from avsync_torch.ops.cuda.gru import bigru_recurrence, gru_recurrence_ref
+
+
+class GRUWeights(NamedTuple):
+    """One direction, torch layout."""
+
+    weight_ih: torch.Tensor  # (3H, D)
+    weight_hh: torch.Tensor  # (3H, H)
+    bias_ih: torch.Tensor  # (3H,)
+    bias_hh: torch.Tensor  # (3H,)
+
+
+def input_projection(x: torch.Tensor, w: GRUWeights) -> torch.Tensor:
+    """(B, T, D) -> gi (B, T, 3H) = x @ weight_ih^T + bias_ih."""
+    return F.linear(x, w.weight_ih, w.bias_ih)
+
+
+def bigru(x: torch.Tensor, fwd: GRUWeights, bwd: GRUWeights,
+          use_kernel: bool = False) -> torch.Tensor:
+    """Bidirectional GRU: (B, T, D) -> (B, T, 2H) = [forward | backward]."""
+    gi_f = input_projection(x, fwd)
+    gi_b = input_projection(x, bwd)
+    if use_kernel:
+        return bigru_recurrence(gi_f, gi_b, fwd.weight_hh.t(), bwd.weight_hh.t(),
+                                fwd.bias_hh, bwd.bias_hh)
+    return torch.cat([
+        gru_recurrence_ref(gi_f, fwd.weight_hh.t(), fwd.bias_hh, False),
+        gru_recurrence_ref(gi_b, bwd.weight_hh.t(), bwd.bias_hh, True),
+    ], dim=-1)

@@ -1,0 +1,91 @@
+"""Vocabulary and greedy CTC decoding on tensors (port of `avsync/text.py`).
+
+  * 37-character GRID charset with blank=0 and <pad>=38;
+  * `.align` / plain-transcript parsing with sil/sp removal;
+  * greedy CTC decode: argmax -> drop repeats -> drop blanks -> left-pack,
+    batched and fixed-shape, on whatever device the log-probs live on;
+  * `decode_batch` renders the packed indices to strings on the host.
+
+Beam search (`beam_width > 1`) is not ported yet and raises.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+
+CHARACTERS: str = "abcdefghijklmnopqrstuvwxyz0123456789 "
+BLANK_ID: int = 0
+PAD_ID: int = len(CHARACTERS) + 1  # 38
+VOCAB_SIZE: int = len(CHARACTERS) + 2  # 39: blank + 37 chars + <pad>
+
+CHAR_TO_IDX = {c: i + 1 for i, c in enumerate(CHARACTERS)}
+CHAR_TO_IDX["<blank>"] = BLANK_ID
+CHAR_TO_IDX["<pad>"] = PAD_ID
+IDX_TO_CHAR = {i: c for c, i in CHAR_TO_IDX.items()}
+
+
+def indices_to_text(indices: Sequence[int]) -> str:
+    """Map indices back to text, skipping blank, pad and unknown ids."""
+    out = []
+    for idx in indices:
+        idx = int(idx)
+        if idx == BLANK_ID or idx == PAD_ID:
+            continue
+        ch = IDX_TO_CHAR.get(idx)
+        if ch is not None and len(ch) == 1:
+            out.append(ch)
+    return "".join(out)
+
+
+def parse_align_text(content: str) -> str:
+    """GRID `.align` content or a plain transcript -> sentence: a first line
+    without digits is a plain transcript; otherwise each line's third token
+    is a word, `sil`/`sp` are removed by substring replacement (as the
+    reference does) and the result is lowercased."""
+    first_line = content.split("\n")[0]
+    if not any(ch.isdigit() for ch in first_line):
+        return content.strip().lower()
+    words: List[str] = []
+    for line in content.strip().split("\n"):
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        parts = line.split()
+        if len(parts) >= 3:
+            words.append(parts[2])
+        elif len(parts) == 1:
+            words.append(parts[0])
+    return " ".join(words).replace("sil", "").replace("sp", "").strip().lower()
+
+
+def ctc_greedy_decode(
+    log_probs: torch.Tensor, blank_id: int = BLANK_ID
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, T, V) log-probs (or logits) -> (decoded (B, T) int64 left-packed
+    and padded with blank_id, lengths (B,))."""
+    pred = log_probs.argmax(dim=-1)  # (B, T)
+    prev = torch.cat(
+        [torch.full_like(pred[:, :1], blank_id), pred[:, :-1]], dim=1
+    )
+    keep = (pred != prev) & (pred != blank_id)
+    B, T = pred.shape
+    # position of each kept symbol = number of kept symbols before it;
+    # dropped symbols go to an overflow column T that is cut off
+    pos = torch.where(keep, keep.cumsum(dim=1) - 1, torch.full_like(pred, T))
+    out = torch.full((B, T + 1), blank_id, dtype=pred.dtype, device=pred.device)
+    out.scatter_(1, pos, torch.where(keep, pred, torch.full_like(pred, blank_id)))
+    return out[:, :T], keep.sum(dim=1)
+
+
+def decode_batch(log_probs, blank_id: int = BLANK_ID,
+                 beam_width: int = 0) -> List[str]:
+    """Decode (B, T, V) log-probs (tensor or array) to strings."""
+    if beam_width and beam_width > 1:
+        raise NotImplementedError("beam search is not ported yet")
+    decoded, lengths = ctc_greedy_decode(torch.as_tensor(log_probs), blank_id)
+    decoded = decoded.cpu().numpy()
+    lengths = lengths.cpu().numpy()
+    return [indices_to_text(decoded[b, : int(lengths[b])])
+            for b in range(decoded.shape[0])]

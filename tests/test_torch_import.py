@@ -1,0 +1,72 @@
+"""The port stands alone: no module of `avsync_torch` imports jax, flax or
+anything of the `avsync` package, and its entry points refuse to fall back
+to the CPU silently."""
+
+import ast
+import json
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import avsync_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "avsync_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "avsync")
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(avsync_torch.__path__, "avsync_torch."))
+
+
+def test_every_module_imports_without_jax_or_avsync():
+    """In a fresh interpreter (this one has jax loaded by conftest)."""
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    loaded = json.loads(out.strip().splitlines()[-1])
+    bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"the port pulled in {bad}"
+    assert "avsync_torch.predictor" in loaded and "avsync_torch.serving" in loaded
+
+
+@pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix() for p in
+                                        [*PORT.rglob("*.py"), ROOT / "chip_smoke.py",
+                                         ROOT / "scripts" / "torch_forward_breakdown.py"]))
+def test_no_import_statement_names_jax_or_avsync(path):
+    tree = ast.parse((ROOT / path).read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    bad = [n for n in names if n.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_lipreader_without_device_raises_when_cuda_is_absent(monkeypatch):
+    from avsync_torch.predictor import LipReader
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LipReader(params={}, device=None)
+
+
+def test_config_json_round_trips_with_the_jax_package():
+    from avsync.config import AvsyncConfig as JaxConfig, ModelConfig as JaxModelConfig
+    from avsync_torch.config import AvsyncConfig, ModelConfig
+
+    ours = AvsyncConfig(model=ModelConfig(use_pallas_gru=True, fused_conv_pool=True))
+    assert JaxConfig.from_json(ours.to_json()).to_dict() == ours.to_dict()
+    theirs = JaxConfig(model=JaxModelConfig(hidden_dim=8, conv_channels=(2, 3, 4)))
+    assert AvsyncConfig.from_json(theirs.to_json()).to_dict() == theirs.to_dict()
