@@ -14,6 +14,9 @@ that state dict:
     orders them (H, W, C), the reference and the port (C, H, W), so that
     GRU's input rows are permuted.
   * Dense kernel (in, out)               ->  Linear weight (out, in)
+
+`lipnet_params_to_jax` is its inverse: it hands a port-trained model (or a
+dict of its gradients) back in the JAX package's layout.
 """
 
 from __future__ import annotations
@@ -90,6 +93,41 @@ def lipnet_params_from_jax(
         k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
         for k, v in sd.items()
     }
+
+
+def lipnet_params_to_jax(
+    state_dict: Mapping[str, Any],
+    num_conv: int = 3,
+    num_gru: int = 2,
+    conv_shape: Tuple[int, int, int] = DEFAULT_CONV_SHAPE,
+) -> Dict[str, Any]:
+    """The inverse of `lipnet_params_from_jax`: the port's state dict (or a
+    same-keyed dict of gradients) -> the JAX package's nested param dict of
+    float32 numpy arrays, the first GRU's input rows permuted back from
+    (C, H, W) to (H, W, C) order."""
+    def np32(t):
+        t = t.detach().cpu() if hasattr(t, "detach") else t
+        return np.ascontiguousarray(np.asarray(t, dtype=np.float32))
+
+    sd = unwrap_state_dict(state_dict)
+    params: Dict[str, Any] = {}
+    for i in range(1, num_conv + 1):
+        params[f"conv{i}"] = {"kernel": np32(sd[f"conv{i}.weight"]).transpose(2, 3, 4, 1, 0),
+                              "bias": np32(sd[f"conv{i}.bias"])}
+    perm = chw_to_hwc_perm(conv_shape)
+    for g in range(1, num_gru + 1):
+        layer: Dict[str, np.ndarray] = {}
+        for suffix, name in (("", "fwd"), ("_reverse", "bwd")):
+            w_ih = np32(sd[f"gru{g}.weight_ih_l0{suffix}"])  # (3H, D)
+            if g == 1:
+                w_ih = w_ih[:, perm]
+            layer[f"w_ih_{name}"] = w_ih.T
+            layer[f"w_hh_{name}"] = np32(sd[f"gru{g}.weight_hh_l0{suffix}"]).T
+            layer[f"b_ih_{name}"] = np32(sd[f"gru{g}.bias_ih_l0{suffix}"])
+            layer[f"b_hh_{name}"] = np32(sd[f"gru{g}.bias_hh_l0{suffix}"])
+        params[f"gru{g}"] = layer
+    params["fc"] = {"kernel": np32(sd["fc.weight"]).T, "bias": np32(sd["fc.bias"])}
+    return params
 
 
 def save_lipnet_pth(state_dict: Mapping[str, torch.Tensor], path: str) -> None:

@@ -16,10 +16,15 @@ Inside, activations are NCDHW and the per-frame features flatten in
 Kernel routing (float32 only):
   * `ModelConfig.fused_conv_pool`: conv1 (Cin = 1, even H/W, odd kernel,
     Cout <= 32 — the JAX gate of `lipnet.py:99-109`) runs the fused
-    conv+ReLU+pool kernel, one launch per forward;
+    conv+ReLU+pool kernel, one launch per forward, and its weight-gradient
+    kernel once per backward;
   * `ModelConfig.use_pallas_gru`: each BiGRU layer runs its recurrence in
-    the GRU kernel, both directions in one launch.
+    the GRU kernel, both directions in one launch, and its backward in the
+    GRU backward kernel, one launch per layer.
 On the CPU the same calls take the kernels' plain versions.
+
+Dropout (training only) draws its masks from a torch.Generator the caller
+passes to `forward`, so a step's masks depend on nothing global.
 """
 
 from __future__ import annotations
@@ -123,27 +128,43 @@ class LipNet(nn.Module):
                 cin, ch, tuple(kern), fused=cfg.fused_conv_pool, generator=generator))
             cin, h, w = ch, h // 2, w // 2
         self.conv_output_dim = cin * h * w
-        # torch Dropout3d zeroes whole channels, as the JAX broadcast dropout
-        self.conv_dropout = nn.Dropout3d(cfg.dropout_rate)
         dim = self.conv_output_dim
         for i in range(cfg.num_gru_layers):
             self.add_module(f"gru{i + 1}", BiGRU(
                 dim, cfg.hidden_dim, use_kernel=cfg.use_pallas_gru, generator=generator))
             dim = 2 * cfg.hidden_dim
-        self.gru_dropout = nn.Dropout(cfg.dropout_rate)
         self.fc = Linear(dim, cfg.vocab_size, generator=generator)
 
-    def _conv_stack(self, x: torch.Tensor) -> torch.Tensor:
+    def _dropout(self, x: torch.Tensor, mask_shape, train: bool,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Inverted dropout at `cfg.dropout_rate` with a mask of `mask_shape`
+        (broadcast over x) drawn from `generator`; identity unless training."""
+        rate = self.cfg.dropout_rate
+        if not train or rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("training with dropout needs an explicit torch.Generator")
+        keep = torch.rand(mask_shape, generator=generator, device=x.device) >= rate
+        return x * keep.to(x.dtype) * (1.0 / (1.0 - rate))
+
+    def _conv_stack(self, x: torch.Tensor, train: bool = False,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = x.permute(0, 4, 1, 2, 3)  # (B, 1, T, H, W)
         for i in range(len(self.cfg.conv_channels)):
-            x = self.conv_dropout(getattr(self, f"conv{i + 1}")(x))
+            x = getattr(self, f"conv{i + 1}")(x)
+            # Dropout3d: whole channels, as the JAX broadcast dropout
+            x = self._dropout(x, (*x.shape[:2], 1, 1, 1), train, generator)
         B, C, T, h, w = x.shape
         return x.permute(0, 2, 1, 3, 4).reshape(B, T, C * h * w)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self._conv_stack(x)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`train=True` applies dropout with masks from `generator`, a
+        torch.Generator on the model's device (never the global RNG)."""
+        x = self._conv_stack(x, train, generator)
         for i in range(self.cfg.num_gru_layers):
-            x = self.gru_dropout(getattr(self, f"gru{i + 1}")(x))
+            x = getattr(self, f"gru{i + 1}")(x)
+            x = self._dropout(x, x.shape, train, generator)
         return F.log_softmax(self.fc(x), dim=-1)
 
     def conv_features(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,9 @@
 """Hand-written Hopper (sm_90a) kernels, each beside its plain PyTorch twin.
 
-  * `convpool` — fused conv1 + ReLU + MaxPool (csrc/conv1_pool.cu)
-  * `gru`      — whole-sequence GRU recurrence (csrc/gru_fwd.cu)
+  * `convpool` — fused conv1 + ReLU + MaxPool (csrc/conv1_pool.cu) and its
+                 weight gradient (csrc/conv1_pool_bwd.cu)
+  * `gru`      — whole-sequence GRU recurrence (csrc/gru_fwd.cu) and its
+                 backward (csrc/gru_bwd.cu)
 
 Kernels are built with nvcc at first use (`build`), never at import.
 """

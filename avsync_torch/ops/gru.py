@@ -5,9 +5,14 @@ Same structure as the JAX package:
   * the input projection for ALL timesteps is hoisted out of the recurrence
     as one large (B*T, D) x (D, 3H) product per direction (`F.linear`, a
     plain matmul outside any kernel, as the JAX package leaves it to XLA);
-  * the recurrence runs either in the hand-written CUDA kernel
-    (`use_kernel=True`, `ModelConfig.use_pallas_gru`; both directions in one
-    launch) or in the plain step loop.
+  * the recurrence runs either in the hand-written CUDA kernels
+    (`use_kernel=True`, `ModelConfig.use_pallas_gru`): `BiGRURecurrence`, an
+    autograd Function whose forward is K2 and whose backward is K3, both
+    directions in one launch each, as the JAX package's `custom_vjp` around
+    `pallas_gru_scan`/`pallas_gru_bwd` (`avsync/ops/gru.py:133-175`); or in
+    the plain step loop, differentiated by autograd.
+  * the input projection stays outside the Function, so its gradients
+    (dx, dW_ih, db_ih) are autograd's, as they are XLA's in the JAX package.
 
 Weights here are torch's: weight_ih (3H, D), weight_hh (3H, H), gate order
 [r, z, n]. The kernel wrapper takes the JAX right-multiply layout, which is
@@ -21,7 +26,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from avsync_torch.ops.cuda.gru import bigru_recurrence, gru_recurrence_ref
+from avsync_torch.ops.cuda.gru import (bigru_recurrence, bigru_recurrence_bwd,
+                                       gru_recurrence_ref)
 
 
 class GRUWeights(NamedTuple):
@@ -38,14 +44,34 @@ def input_projection(x: torch.Tensor, w: GRUWeights) -> torch.Tensor:
     return F.linear(x, w.weight_ih, w.bias_ih)
 
 
+class BiGRURecurrence(torch.autograd.Function):
+    """Both directions' recurrences: forward K2, backward K3 (their plain
+    versions on the CPU). Inputs (gi_f, gi_b, w_hh_f, w_hh_b, b_hh_f, b_hh_b)
+    in the JAX right-multiply layout (a torch weight_hh enters as its `.t()`
+    view); output (B, T, 2H). The residuals are the JAX package's: gi, out,
+    w_hh and b_hh; the backward recomputes the gates."""
+
+    @staticmethod
+    def forward(ctx, gi_f, gi_b, w_hh_f, w_hh_b, b_hh_f, b_hh_b):
+        out = bigru_recurrence(gi_f, gi_b, w_hh_f, w_hh_b, b_hh_f, b_hh_b)
+        ctx.save_for_backward(gi_f, gi_b, out, w_hh_f, w_hh_b, b_hh_f, b_hh_b)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        gi_f, gi_b, out, w_hh_f, w_hh_b, b_hh_f, b_hh_b = ctx.saved_tensors
+        return bigru_recurrence_bwd(gi_f, gi_b, out, g.contiguous(), w_hh_f, w_hh_b,
+                                    b_hh_f, b_hh_b)
+
+
 def bigru(x: torch.Tensor, fwd: GRUWeights, bwd: GRUWeights,
           use_kernel: bool = False) -> torch.Tensor:
     """Bidirectional GRU: (B, T, D) -> (B, T, 2H) = [forward | backward]."""
     gi_f = input_projection(x, fwd)
     gi_b = input_projection(x, bwd)
     if use_kernel:
-        return bigru_recurrence(gi_f, gi_b, fwd.weight_hh.t(), bwd.weight_hh.t(),
-                                fwd.bias_hh, bwd.bias_hh)
+        return BiGRURecurrence.apply(gi_f, gi_b, fwd.weight_hh.t(), bwd.weight_hh.t(),
+                                     fwd.bias_hh, bwd.bias_hh)
     return torch.cat([
         gru_recurrence_ref(gi_f, fwd.weight_hh.t(), fwd.bias_hh, False),
         gru_recurrence_ref(gi_b, bwd.weight_hh.t(), bwd.bias_hh, True),

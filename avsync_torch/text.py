@@ -1,6 +1,7 @@
 """Vocabulary and greedy CTC decoding on tensors (port of `avsync/text.py`).
 
   * 37-character GRID charset with blank=0 and <pad>=38;
+  * text -> label indices (unknown characters -> <pad>);
   * `.align` / plain-transcript parsing with sil/sp removal;
   * greedy CTC decode: argmax -> drop repeats -> drop blanks -> left-pack,
     batched and fixed-shape, on whatever device the log-probs live on;
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 CHARACTERS: str = "abcdefghijklmnopqrstuvwxyz0123456789 "
@@ -24,6 +26,12 @@ CHAR_TO_IDX = {c: i + 1 for i, c in enumerate(CHARACTERS)}
 CHAR_TO_IDX["<blank>"] = BLANK_ID
 CHAR_TO_IDX["<pad>"] = PAD_ID
 IDX_TO_CHAR = {i: c for c, i in CHAR_TO_IDX.items()}
+
+
+def text_to_indices(text: str) -> np.ndarray:
+    """Map text to label indices; unknown characters map to <pad>
+    (`dataset.py:164-174`)."""
+    return np.array([CHAR_TO_IDX.get(ch, PAD_ID) for ch in text], dtype=np.int32)
 
 
 def indices_to_text(indices: Sequence[int]) -> str:
@@ -58,6 +66,11 @@ def parse_align_text(content: str) -> str:
         elif len(parts) == 1:
             words.append(parts[0])
     return " ".join(words).replace("sil", "").replace("sp", "").strip().lower()
+
+
+def load_align_file(path: str) -> str:
+    with open(path) as f:
+        return parse_align_text(f.read())
 
 
 def ctc_greedy_decode(

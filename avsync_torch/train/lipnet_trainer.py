@@ -1,0 +1,383 @@
+"""LipNet CTC training on one GPU (port of `avsync/train/lipnet_trainer.py`).
+
+The reference's semantics (`trainer.py:9-170`): Adam(lr, betas (0.9,
+0.999), eps 1e-8), CTC loss with blank=0 / mean over target length /
+zero_infinity, global-norm gradient clipping at 1.0, per-epoch train and
+validation loss means, periodic checkpoints and a final snapshot, the loss
+curve. With `ModelConfig.fused_conv_pool` and `use_pallas_gru` on, a step
+runs the hand-written CUDA kernels K1 (conv1 block) and K2 (GRU recurrence)
+forward and K3 (GRU backward) and K4 (conv1 weight gradient) backward.
+
+Full fp32: every forward and backward runs with TF32 off for both cuDNN and
+cuBLAS (`fp32_step`). The conv calls' own scope (`ops/conv.fp32_convs`) is
+not enough for training: it covers the forward call only, and autograd runs
+the conv's backward later, in `loss.backward()`, outside that `with`, under
+the process-wide `torch.backends.cudnn.allow_tf32`, which is True by
+default. Gradients of conv2/conv3 would then keep about 3 decimal digits
+where the JAX reference computes in fp32.
+
+Not ported: `remat` (jax.checkpoint), the TF model family and a mesh over
+more than one device raise NotImplementedError; the device-cached
+whole-epoch scan of the JAX trainer waits with the batcher's device cache.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+import json
+import os
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from avsync_torch.config import AvsyncConfig
+from avsync_torch.models.lipnet import LipNet
+from avsync_torch.ops.ctc import ctc_loss_mean
+from avsync_torch.predictor import resolve_device
+from avsync_torch.utils.checkpoint import CheckpointManager
+from avsync_torch.utils.logging import Logger, format_time
+from avsync_torch.utils.signals import sigterm_flag
+
+
+@contextlib.contextmanager
+def fp32_step() -> Iterator[None]:
+    """TF32 off for cuDNN and cuBLAS while the block runs (a step's forward
+    AND backward); the previous flags come back after."""
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
+                                        benchmark=torch.backends.cudnn.benchmark,
+                                        deterministic=torch.backends.cudnn.deterministic,
+                                        allow_tf32=False):
+            yield
+    finally:
+        matmul.allow_tf32 = prev
+
+
+def make_optimizer(params, learning_rate: float = 1e-4) -> torch.optim.Adam:
+    """Adam with torch defaults (`trainer.py:23`). The learning rate is a
+    runtime value: `train_step` sets it on every step, so a schedule changes
+    it without rebuilding anything. Clipping runs in `train_step`, before
+    the update (`trainer.py:64-70`)."""
+    return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+
+
+def keras_lr_schedule(epoch: int, lr: float) -> float:
+    """The TF stack's LearningRateScheduler (`train.py:611-618`): flat for 30
+    epochs, halve each epoch until 60, then exp(-0.1) decay per epoch.
+    `epoch` is 0-based as Keras passes it."""
+    if epoch < 30:
+        return lr
+    if epoch < 60:
+        return lr * 0.5
+    return lr * float(np.exp(-0.1))
+
+
+def device_batch(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
+    """Video float32 on the device, labels on the device, label lengths on
+    the host (F.ctc_loss reads them there)."""
+    return {
+        "video": torch.as_tensor(batch["video"], dtype=torch.float32).to(device),
+        "labels": torch.as_tensor(np.asarray(batch["labels"]), dtype=torch.long).to(device),
+        "label_lengths": torch.as_tensor(np.asarray(batch["label_lengths"]), dtype=torch.long),
+    }
+
+
+def train_step(model: LipNet, optimizer: torch.optim.Optimizer, batch: Dict[str, torch.Tensor],
+               lr: float, generator: Optional[torch.Generator] = None,
+               grad_clip_norm: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One update: CTC loss of the training forward (dropout masks from
+    `generator`), backward, clip to `grad_clip_norm`, Adam at `lr`.
+    Returns (loss, pre-clip global gradient norm) as device scalars; nothing
+    here waits for the device."""
+    with fp32_step():
+        optimizer.zero_grad(set_to_none=True)
+        log_probs = model(batch["video"], train=True, generator=generator)
+        loss = ctc_loss_mean(log_probs, batch["labels"], batch["label_lengths"])
+        loss.backward()
+        grad_norm = torch.nn.utils.clip_grad_norm_(model.parameters(), grad_clip_norm)
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        optimizer.step()
+    return loss.detach(), grad_norm.detach()
+
+
+def eval_step(model: LipNet, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(loss, log_probs) of the inference forward."""
+    with fp32_step(), torch.no_grad():
+        log_probs = model(batch["video"])
+        return ctc_loss_mean(log_probs, batch["labels"], batch["label_lengths"]), log_probs
+
+
+@dataclass
+class TrainState:
+    """What a training run carries: the model, its optimizer and the number
+    of optimizer steps taken (the dropout masks of step s are drawn from a
+    generator seeded with (seed, s), as the JAX package folds s into its
+    key)."""
+
+    model: LipNet
+    optimizer: torch.optim.Adam
+    step: int = 0
+
+
+class LipNetTrainer:
+    """Host training loop over device steps. Loaders are iterables of
+    batches (dicts as `LipNetBatcher` yields them, or numpy)."""
+
+    # How often train_epoch polls the stop_check callback (in batches).
+    PREEMPT_CHECK_EVERY = 16
+    # At most this many steps in flight before the host reads a loss back.
+    LAG = 4
+
+    def __init__(self, config: AvsyncConfig, device=None, log: Optional[Logger] = None):
+        if config.train.remat:
+            raise NotImplementedError("remat: rematerialisation is not ported")
+        if config.model.family != "pytorch":
+            raise NotImplementedError("only the 'pytorch' LipNet family is ported")
+        if any(n > 1 for n in config.train.mesh_shape):
+            raise NotImplementedError(
+                f"mesh_shape={config.train.mesh_shape}: the port trains on one device")
+        self.config = config
+        self.device = resolve_device(device)
+        self.log = log or Logger(None, console=True)
+        self.current_lr = float(config.train.learning_rate)
+        self.dropout_gen = torch.Generator(device=self.device)
+        self.train_losses: list = []
+        self.val_losses: list = []
+        self.lr_history: list = []
+        self.epoch_seconds: list = []  # wall seconds per completed epoch
+        self._preempted = False
+
+    # -- state -------------------------------------------------------------
+    def init_state(self, model: Optional[LipNet] = None) -> TrainState:
+        """A fresh state around `model`, or around a new LipNet at the
+        configured geometry with weights drawn from the training seed."""
+        if model is None:
+            d = self.config.data
+            model = LipNet(self.config.model, img_hw=(d.img_height, d.img_width),
+                           generator=torch.Generator().manual_seed(self.config.train.seed))
+            model.to(self.device)
+        return TrainState(model, make_optimizer(model.parameters(), self.current_lr), 0)
+
+    def _step_generator(self, step: int) -> torch.Generator:
+        return self.dropout_gen.manual_seed(self.config.train.seed * 1_000_003 + step)
+
+    # -- epoch loops ---------------------------------------------------------
+    def train_epoch(self, state: TrainState, loader: Iterable,
+                    stop_check: Optional[Callable[[], bool]] = None) -> Tuple[TrainState, float]:
+        """One pass over the loader; returns the mean training loss.
+
+        Losses stay on the device until LAG steps later, so the host keeps
+        enqueueing while the device works; reading a loss LAG steps back
+        bounds the batches in flight (and surfaces a failing step within
+        LAG steps). The epoch-end drain is the device sync. `stop_check` is
+        polled every PREEMPT_CHECK_EVERY batches."""
+        state.model.train()
+        pending, losses = [], []
+        for batch in loader:
+            if (stop_check is not None and pending
+                    and len(pending) % self.PREEMPT_CHECK_EVERY == 0 and stop_check()):
+                if hasattr(loader, "close"):
+                    loader.close()  # release the prefetch worker and decode pool
+                break
+            loss, _ = train_step(state.model, state.optimizer, device_batch(batch, self.device),
+                                 self.current_lr, self._step_generator(state.step),
+                                 self.config.train.grad_clip_norm)
+            pending.append(loss)
+            state.step += 1
+            if len(pending) - len(losses) > self.LAG:
+                losses.append(float(pending[len(losses)]))
+        losses += [float(loss) for loss in pending[len(losses):]]
+        return state, sum(losses) / max(len(losses), 1)
+
+    def validate(self, state: TrainState, loader: Iterable) -> float:
+        state.model.eval()
+        total, n = 0.0, 0
+        for batch in loader:
+            loss, _ = eval_step(state.model, device_batch(batch, self.device))
+            total += float(loss)
+            n += 1
+        return total / max(n, 1)
+
+    # -- full run --------------------------------------------------------------
+    def _snapshot(self, state: TrainState) -> dict:
+        return {"model": copy.deepcopy(state.model.state_dict()),
+                "optimizer": copy.deepcopy(state.optimizer.state_dict()),
+                "step": state.step}
+
+    def _save(self, ckpt: CheckpointManager, label: int, state: TrainState, metrics: dict):
+        ckpt.save(label, state.model.state_dict(), state.optimizer.state_dict(),
+                  config=self.config, metrics=metrics,
+                  losses={"train": list(self.train_losses), "val": list(self.val_losses)},
+                  optimizer_steps=state.step)
+
+    def _load_history(self, history_path: str, start_epoch: int) -> None:
+        """Carry an interrupted run's history, cut to its completed epochs."""
+        try:
+            with open(history_path) as f:
+                h = json.load(f)
+        except (OSError, ValueError):
+            return  # unreadable prior history: start the lists fresh
+        self.train_losses = list(h.get("loss", []))[:start_epoch]
+        self.val_losses = list(h.get("val_loss", []))[:start_epoch]
+        self.lr_history = list(h.get("lr", []))[:start_epoch]
+        self.epoch_seconds = list(h.get("epoch_seconds", []))[:start_epoch]
+        self.epoch_seconds += [None] * (len(self.train_losses) - len(self.epoch_seconds))
+
+    def train(self, train_loader_fn: Callable[[], Iterable],
+              val_loader_fn: Callable[[], Iterable], epochs: Optional[int] = None,
+              checkpoint_dir: Optional[str] = None, state: Optional[TrainState] = None,
+              lr_schedule: Optional[Callable[[int, float], float]] = None,
+              early_stopping_patience: Optional[int] = None,
+              example_fn: Optional[Callable[[TrainState, int], None]] = None,
+              history_path: Optional[str] = None, start_epoch: int = 0) -> TrainState:
+        """Full run; the loader fns are called once per epoch.
+
+        `epochs` is the TOTAL budget: a resumed run passes `start_epoch`, the
+        epochs already completed, and epoch numbers, the LR schedule (fast-
+        forwarded through the completed epochs) and checkpoint labels stay
+        absolute. Checkpoints every `checkpoint_every` epochs and a final
+        snapshot labelled one past the last epoch reached, each with
+        `epochs_completed` in its metrics (plus `preempted` or
+        `early_stopped`). SIGTERM stops at the next batch boundary that
+        polls, after which the final snapshot is written."""
+        cfg = self.config.train
+        epochs = epochs if epochs is not None else cfg.epochs
+        ckpt = CheckpointManager(checkpoint_dir or cfg.checkpoint_dir)
+        stop_logged = [False]
+
+        def stop_now() -> bool:
+            if self._preempted and not stop_logged[0]:
+                stop_logged[0] = True
+                self.log.log("preemption signal observed: checkpointing and stopping")
+            return self._preempted
+
+        tb_train = tb_val = None
+        if cfg.tensorboard:
+            from avsync_torch.utils.tb import SummaryWriter
+
+            stamp = time.strftime("%Y%m%d-%H%M%S")
+            tb_train = SummaryWriter(os.path.join(cfg.log_dir, stamp, "train"))
+            tb_val = SummaryWriter(os.path.join(cfg.log_dir, stamp, "validation"))
+            self.log.log(f"TensorBoard events -> {cfg.log_dir}/{stamp}")
+
+        if state is None:
+            state = self.init_state()
+        if start_epoch >= epochs:
+            self.log.log(f"Epoch budget already met ({start_epoch}/{epochs}); nothing to train")
+        elif start_epoch:
+            self.log.log(f"Resuming at epoch {start_epoch + 1}/{epochs}...")
+        else:
+            self.log.log(f"Starting training for {epochs} epochs...")
+        if start_epoch and lr_schedule is not None:
+            for e in range(1, start_epoch + 1):  # the schedule is multiplicative
+                self.current_lr = float(lr_schedule(e - 1, self.current_lr))
+        if start_epoch and history_path and not self.train_losses and os.path.exists(history_path):
+            self._load_history(history_path, start_epoch)
+
+        t0 = time.time()
+        best_val, best, stall = float("inf"), None, 0
+        final_epoch = completed = start_epoch
+        early_stopped = False
+        with sigterm_flag(self):
+            for epoch in range(start_epoch + 1, epochs + 1):
+                if stop_now():
+                    break
+                final_epoch = epoch
+                if lr_schedule is not None:
+                    self.current_lr = float(lr_schedule(epoch - 1, self.current_lr))
+                te = time.time()
+                state, train_loss = self.train_epoch(state, train_loader_fn(),
+                                                     stop_check=stop_now)
+                if stop_now():
+                    self.train_losses.append(train_loss)
+                    self.log.log(f"Preempted during epoch {epoch} "
+                                 f"(train_loss={train_loss:.4f}); checkpointing")
+                    break
+                val_loss = self.validate(state, val_loader_fn())
+                completed = epoch
+                self.train_losses.append(train_loss)
+                self.val_losses.append(val_loss)
+                self.lr_history.append(self.current_lr)
+                self.epoch_seconds.append(round(time.time() - te, 3))
+                self.log.log(f"Epoch {epoch}/{epochs} | train_loss={train_loss:.4f} "
+                             f"val_loss={val_loss:.4f} | lr={self.current_lr:.2e} | "
+                             f"time={format_time(time.time() - te)}")
+                if tb_train is not None:
+                    tb_train.add_scalar("epoch_loss", train_loss, epoch)
+                    tb_train.add_scalar("epoch_lr", self.current_lr, epoch)
+                    tb_train.flush()
+                    tb_val.add_scalar("epoch_loss", val_loss, epoch)
+                    tb_val.flush()
+                if example_fn is not None:
+                    example_fn(state, epoch)
+                if epoch % cfg.checkpoint_every == 0:
+                    self._save(ckpt, epoch, state, {"train_loss": train_loss,
+                                                    "val_loss": val_loss,
+                                                    "epochs_completed": epoch})
+                    self.log.log(f"Saved checkpoint: epoch_{epoch}")
+                if early_stopping_patience is not None:
+                    if val_loss < best_val:
+                        best_val, stall, best = val_loss, 0, self._snapshot(state)
+                    else:
+                        stall += 1
+                        if stall >= early_stopping_patience:
+                            self.log.log(f"Early stopping at epoch {epoch} (no val "
+                                         f"improvement for {stall} epochs); restoring "
+                                         "best weights")
+                            state.model.load_state_dict(best["model"])
+                            state.optimizer.load_state_dict(best["optimizer"])
+                            state.step = best["step"]
+                            early_stopped = True
+                            break
+            # the final snapshot, inside the handler's scope so that a second
+            # SIGTERM cannot kill the write; a relaunch whose budget is met
+            # writes none
+            if start_epoch < epochs:
+                final = {"epochs_completed": completed}
+                if stop_logged[0]:
+                    final["preempted"] = True
+                if early_stopped:
+                    final["early_stopped"] = True  # --resume auto: the run is done
+                self._save(ckpt, final_epoch + 1, state, final)
+        if tb_train is not None:
+            tb_train.close()
+            tb_val.close()
+        if history_path:
+            with open(history_path, "w") as f:
+                json.dump({"loss": self.train_losses, "val_loss": self.val_losses,
+                           "lr": self.lr_history, "epoch_seconds": self.epoch_seconds},
+                          f, indent=2)
+        self.log.log(f"Training completed in {format_time(time.time() - t0)}. Model saved.")
+        return state
+
+    def plot_losses(self, out_path: str = "training_history.png") -> bool:
+        """Loss-curve artifact (`trainer.py:159-170`); matplotlib is optional:
+        without it nothing is drawn and this returns False."""
+        try:
+            import matplotlib
+        except ImportError:
+            self.log.log("matplotlib is not installed: no loss plot")
+            return False
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        plt.figure(figsize=(10, 5))
+        plt.plot(self.train_losses, label="Training Loss")
+        plt.plot(self.val_losses, label="Validation Loss")
+        plt.xlabel("Epoch")
+        plt.ylabel("Loss")
+        plt.title("Training and Validation Loss")
+        plt.legend()
+        plt.grid(True)
+        plt.savefig(out_path)
+        plt.close()
+        return True

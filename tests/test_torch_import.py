@@ -37,11 +37,13 @@ def test_every_module_imports_without_jax_or_avsync():
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"the port pulled in {bad}"
     assert "avsync_torch.predictor" in loaded and "avsync_torch.serving" in loaded
+    assert {"avsync_torch.train.lipnet_trainer", "avsync_torch.data.pipeline",
+            "avsync_torch.utils.checkpoint", "avsync_torch.cli"} <= set(loaded)
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix() for p in
                                         [*PORT.rglob("*.py"), ROOT / "chip_smoke.py",
-                                         ROOT / "scripts" / "torch_forward_breakdown.py"]))
+                                         *(ROOT / "scripts").glob("torch_*.py")]))
 def test_no_import_statement_names_jax_or_avsync(path):
     tree = ast.parse((ROOT / path).read_text())
     names = []

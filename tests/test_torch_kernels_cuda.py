@@ -18,6 +18,13 @@ pytestmark = pytest.mark.cuda
 
 K1_TOL = dict(atol=1e-4, rtol=1e-4)  # as tests/test_pallas_convpool.py
 K2_TOL = dict(atol=1e-5, rtol=1e-4)  # as tests/test_pallas_gru.py
+K3_TOL = dict(atol=1e-5, rtol=1e-4)  # dgi: as tests/test_pallas_gru.py
+# dW_hh, db_hh: sums over B*T = 600 (row, step) terms in another order than
+# the plain version's per-step matmuls
+K3_SUM_TOL = dict(atol=1e-4, rtol=1e-4)
+# dW, db of the conv1 block: sums over up to B*T*H/2*W/2 = 750,000 routed
+# positions (atol 1e-3 / rtol 1e-4 as tests/test_pallas_convpool.py)
+K4_TOL = dict(atol=1e-3, rtol=1e-4)
 
 
 @pytest.fixture
@@ -109,3 +116,122 @@ def test_model_kernel_path_matches_plain_path(dev):
     torch.cuda.synchronize()
     assert (convpool.launches - k1, gru.launches - k2) == (1, cfg.num_gru_layers)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def _gru_bwd_case(g, dev, B, T, H):
+    k = H ** -0.5
+    gi = torch.randn(B, T, 3 * H, generator=g).to(dev)
+    w = ((torch.rand(H, 3 * H, generator=g) * 2 - 1) * k).to(dev)
+    b = ((torch.rand(3 * H, generator=g) * 2 - 1) * k).to(dev)
+    return gi, w, b
+
+
+@pytest.mark.parametrize("B,T,H", [(1, 75, 256), (2, 75, 256), (4, 75, 256), (8, 75, 256),
+                                   (8, 1, 256), (3, 7, 256), (2, 5, 8)])
+def test_gru_bwd_both_directions_match_plain(dev, B, T, H):
+    g = _gen(7)
+    (gf, wf, bf), (gb, wb, bb) = (_gru_bwd_case(g, dev, B, T, H) for _ in range(2))
+    out = torch.cat([gru.gru_recurrence_ref(gf, wf, bf, False),
+                     gru.gru_recurrence_ref(gb, wb, bb, True)], -1)
+    cot = torch.randn(B, T, 2 * H, generator=g).to(dev)
+    want_f = gru.gru_recurrence_bwd_ref(gf, out[..., :H], cot[..., :H], wf, bf, False)
+    want_b = gru.gru_recurrence_bwd_ref(gb, out[..., H:], cot[..., H:], wb, bb, True)
+    before = gru.bwd_launches
+    got = gru.bigru_recurrence_bwd(gf, gb, out, cot, wf, wb, bf, bb)
+    again = gru.bigru_recurrence_bwd(gf, gb, out, cot, wf, wb, bf, bb)
+    torch.cuda.synchronize()
+    assert gru.bwd_launches == before + 2
+    for d, want in enumerate((want_f, want_b)):
+        torch.testing.assert_close(got[d], want[0], **K3_TOL)
+        torch.testing.assert_close(got[2 + d], want[1], **K3_SUM_TOL)
+        torch.testing.assert_close(got[4 + d], want[2], **K3_SUM_TOL)
+    for a, b in zip(got, again):  # no float atomics: a repeat is bit-identical
+        assert torch.equal(a, b)
+
+
+def test_gru_bwd_torch_layout_weight_gets_its_layout_back(dev):
+    g = _gen(8)
+    H = 256
+    gi = torch.randn(4, 9, 3 * H, generator=g).to(dev)
+    w_torch = (torch.rand(3 * H, H, generator=g) * 0.1 - 0.05).to(dev)
+    b = (torch.rand(3 * H, generator=g) * 0.1).to(dev)
+    out = gru.gru_recurrence_ref(gi, w_torch.t(), b, True)
+    cot = torch.randn(4, 9, H, generator=g).to(dev)
+    dgi, dw, db = gru.gru_recurrence_bwd(gi, out, cot, w_torch.t(), b, True)
+    want = gru.gru_recurrence_bwd_ref(gi, out, cot, w_torch.t(), b, True)
+    assert dw.stride() == w_torch.t().stride()
+    torch.testing.assert_close(dgi, want[0], **K3_TOL)
+    torch.testing.assert_close(dw, want[1], **K3_SUM_TOL)
+    torch.testing.assert_close(db, want[2], **K3_SUM_TOL)
+
+
+@pytest.mark.parametrize("B,T,H,W,k,C", [
+    (1, 75, 50, 100, (3, 5, 5), 32), (2, 75, 50, 100, (3, 5, 5), 32),
+    (4, 75, 50, 100, (3, 5, 5), 32), (8, 75, 50, 100, (3, 5, 5), 32),
+    (3, 7, 10, 18, (3, 3, 3), 5), (2, 4, 12, 70, (1, 3, 5), 7), (1, 1, 2, 2, (3, 5, 5), 32)])
+def test_conv1_pool_bwd_matches_plain(dev, B, T, H, W, k, C):
+    g = _gen(9)
+    x = torch.rand(B, T, H, W, 1, generator=g).to(dev)
+    w = (torch.rand(*k, 1, C, generator=g) - 0.5).to(dev)
+    b = (torch.rand(C, generator=g) - 0.5).to(dev)
+    cot = torch.randn(B, T, H // 2, W // 2, C, generator=g).to(dev)
+    want = convpool.conv1_pool_bwd_ref(x, w, b, cot)
+    before = convpool.bwd_launches
+    got = convpool.conv1_pool_bwd(x, w, b, cot)
+    x_n, w_n = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).contiguous()
+    got_n = convpool.conv1_pool_block_bwd(x_n, w_n, b, cot.permute(0, 4, 1, 2, 3))
+    again = convpool.conv1_pool_bwd(x, w, b, cot)
+    torch.cuda.synchronize()
+    assert convpool.bwd_launches == before + 3
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a, r, **K4_TOL)
+    torch.testing.assert_close(got_n[0], want[0].permute(4, 3, 0, 1, 2), **K4_TOL)
+    torch.testing.assert_close(got_n[1], want[1], **K4_TOL)
+    for a, r in zip(got, again):  # no float atomics: a repeat is bit-identical
+        assert torch.equal(a, r)
+
+
+def test_conv1_pool_bwd_tie_routes_to_the_first_position(dev):
+    g = _gen(10)
+    x = torch.ones(1, 3, 4, 4, 1, device=dev)
+    w = (torch.rand(3, 3, 3, 1, 2, generator=g) - 0.2).to(dev)
+    b = torch.rand(2, generator=g).to(dev)
+    cot = 2 * convpool.conv1_pool_ref(x, w, b)
+    got = convpool.conv1_pool_bwd(x, w, b, cot)
+    want = convpool.conv1_pool_bwd_ref(x, w, b, cot)
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a, r, atol=1e-4, rtol=1e-4)
+
+
+def test_model_gradients_kernel_path_match_plain_path(dev):
+    """Full-width LipNet, both kernel flags on: after loss.backward() every
+    parameter has a finite gradient, and it matches the plain path's (same
+    weights, same batch, dropout off) within 1e-3 of that gradient's
+    largest magnitude (fp32 sums over up to 10^6 terms in another order)."""
+    from avsync_torch.config import ModelConfig
+    from avsync_torch.models import LipNet
+    from avsync_torch.ops.ctc import ctc_loss_mean
+    from avsync_torch.train.lipnet_trainer import fp32_step
+
+    cfg = ModelConfig(use_pallas_gru=True, fused_conv_pool=True, dropout_rate=0.0)
+    fast = LipNet(cfg, generator=_gen(11)).to(dev)
+    plain = LipNet(ModelConfig(dropout_rate=0.0), generator=_gen(12)).to(dev)
+    plain.load_state_dict(fast.state_dict())
+    g = _gen(13)
+    x = torch.rand(2, 75, 50, 100, 1, generator=g).to(dev)
+    labels = torch.randint(1, 38, (2, 20), generator=g).to(dev)
+    lengths = torch.tensor([20, 13])
+    counts = (convpool.launches, convpool.bwd_launches, gru.launches, gru.bwd_launches)
+    grads = []
+    for m in (fast, plain):
+        with fp32_step():
+            ctc_loss_mean(m(x), labels, lengths).backward()
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+    torch.cuda.synchronize()
+    after = (convpool.launches, convpool.bwd_launches, gru.launches, gru.bwd_launches)
+    assert tuple(a - b for a, b in zip(after, counts)) == (1, 1, 2, 2)
+    for name, want in grads[1].items():
+        got = grads[0][name]
+        assert got is not None and torch.isfinite(got).all(), name
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= 1e-3 * scale + 1e-7, name
