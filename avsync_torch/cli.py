@@ -1,13 +1,18 @@
-"""Command line of the port (port of `avsync/cli.py`: train, test, infer).
+"""Command line of the port (port of `avsync/cli.py`: train, test, infer,
+misalign-train, misalign-eval).
 
     python -m avsync_torch.cli train --data_path data --epochs 50 --export_pth lipnet.pth
     python -m avsync_torch.cli test --data_path data --checkpoint lipnet.pth
     python -m avsync_torch.cli infer clip.npy --checkpoint lipnet.pth
+    python -m avsync_torch.cli misalign-train --data_path data --checkpoint lipnet.pth
+    python -m avsync_torch.cli misalign-eval --data_path data --checkpoint lipnet.pth
 
 Every command runs on the card unless `--device cpu` is given. `train` and
 `test` build the JAX package's default LipNet (or the `--config` JSON's)
-with both kernel flags on unless the config file turns them off; they run
-with TF32 off for cuDNN and cuBLAS, as the JAX reference computes in fp32.
+with both LipNet kernel flags on, the `misalign-*` commands with conv1's
+and the MFCC stage's (`fused_conv_pool`, `AudioConfig.use_pallas`), unless
+the config file turns them off; all run with TF32 off for cuDNN and
+cuBLAS, as the JAX reference computes in fp32.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import os
 import sys
 from typing import List, Optional, Sequence
 
-from avsync_torch.config import AvsyncConfig, ModelConfig
+from avsync_torch.config import AudioConfig, AvsyncConfig, ModelConfig
 
 
 def _config(path: Optional[str]) -> AvsyncConfig:
@@ -239,6 +244,289 @@ def cmd_infer(args) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# misalign-train / misalign-eval
+# ---------------------------------------------------------------------------
+
+# Clips per chunk of the eval sweep: one chunk's (clips, frames, bins) power
+# spectrogram is the sweep's largest intermediate (254 MB at 512 clips).
+_SWEEP_CLIP_CHUNK = 512
+
+
+def _detector_config_from_args(args) -> AvsyncConfig:
+    """The `--config` JSON (or the defaults with conv1's and the MFCC
+    stage's kernel flags on), then the command line's scalars over it, as
+    the JAX package's `_config_from_args` applies them."""
+    base = _config(args.config) if args.config else AvsyncConfig(
+        model=ModelConfig(fused_conv_pool=True), audio=AudioConfig(use_pallas=True))
+
+    def arg(name, fallback):
+        v = getattr(args, name, None)
+        return fallback if v is None else v
+
+    det = base.detector
+    return dataclasses.replace(
+        base,
+        data=dataclasses.replace(base.data, data_path=args.data_path,
+                                 batch_size=arg("batch_size", base.data.batch_size)),
+        audio=dataclasses.replace(base.audio,
+                                  sample_rate=arg("sample_rate", base.audio.sample_rate),
+                                  n_mfcc=arg("n_mfcc", base.audio.n_mfcc)),
+        detector=dataclasses.replace(
+            det, hidden_dim=arg("hidden_dim", det.hidden_dim),
+            max_shift_frames=arg("max_shift_frames", det.max_shift_frames),
+            num_negative_samples=arg("num_negatives", det.num_negative_samples),
+            batch_size=arg("batch_size", det.batch_size), epochs=arg("epochs", det.epochs),
+            lr=arg("lr", det.lr), weight_decay=arg("weight_decay", det.weight_decay)),
+        train=dataclasses.replace(base.train, seed=arg("seed", base.train.seed)),
+    )
+
+
+def _bank_cache_path(cfg: AvsyncConfig, video_paths, checkpoint, cache_dir):
+    """(path, key) of a cached FeatureBank, or (None, key) without a cache
+    directory. The key fingerprints what the bank is a function of: the
+    ordered clips with their (size, mtime), the frozen LipNet checkpoint's,
+    the geometry and the audio settings (as the JAX package's), and the
+    port's (C, H, W) order of the visual statistics, so a bank the JAX
+    package wrote into the same directory ((H, W, C) order) never loads."""
+    import hashlib
+
+    def stat(p):
+        try:
+            st = os.stat(p)
+            return [p, st.st_size, st.st_mtime_ns]
+        except OSError:
+            return [p, -1, -1]
+
+    d = cfg.data
+    key_doc = {
+        "videos": [stat(p) for p in video_paths],
+        "checkpoint": stat(checkpoint) if checkpoint else None,
+        "audio": [cfg.audio.sample_rate, cfg.audio.n_mfcc, cfg.audio.max_audio_samples],
+        "fps": cfg.detector.default_fps,
+        "geometry": [d.img_height, d.img_width, d.max_video_length, d.roi_mode, d.roi_host,
+                     d.standardize_clips],
+        "model": [cfg.model.family, tuple(cfg.model.conv_channels), cfg.model.compute_dtype,
+                  cfg.model.packed_conv],
+        "visual_order": "chw",
+    }
+    key = hashlib.sha256(json.dumps(key_doc, sort_keys=True).encode()).hexdigest()
+    if not cache_dir:
+        return None, key
+    return os.path.join(cache_dir, f"bank_{key[:16]}.npz"), key
+
+
+def _build_bank(cfg: AvsyncConfig, src, model, video_paths, device, checkpoint=None,
+                cache_dir=None):
+    """The FeatureBank of an ordered list of clips of `src`, through the
+    `.npz` cache in `cache_dir` when one is given."""
+    from avsync_torch.data.pipeline import LipNetBatcher
+    from avsync_torch.data.video import get_video_fps, load_audio_for_video
+    from avsync_torch.features import build_feature_bank, load_feature_bank, save_feature_bank
+    from avsync_torch.ops.audio import resample_host
+
+    cache_path, key = _bank_cache_path(cfg, video_paths, checkpoint, cache_dir)
+    if cache_path is not None:
+        bank = load_feature_bank(cache_path, key, device)
+        if bank is not None:
+            return bank
+    clips = LipNetBatcher(src.subset(video_paths), cfg, device=device).epoch(
+        shuffle=False, drop_last=False)
+    audio_list, fps_list = [], []
+    for p in video_paths:
+        a, sr = load_audio_for_video(p, cfg.audio.sample_rate)
+        if sr != cfg.audio.sample_rate:
+            a = resample_host(a, sr, cfg.audio.sample_rate)
+        audio_list.append(a)
+        fps_list.append(get_video_fps(p, cfg.detector.default_fps))
+    bank = build_feature_bank(model, clips, audio_list, fps_list, cfg)
+    if cache_path is not None:
+        save_feature_bank(cache_path, bank, key)
+    return bank
+
+
+def _plot_roc(labels, probs, out_path: str) -> bool:
+    """ROC artifact (`misalignment_detection_train.py:283-296`); matplotlib
+    is optional: without it (or with one class only) nothing is drawn."""
+    import numpy as np
+
+    from avsync_torch.eval import auroc, roc_curve
+
+    labels = np.asarray(labels)
+    if labels.size == 0 or len(np.unique(labels)) < 2:
+        return False
+    try:
+        import matplotlib
+    except ImportError:
+        return False
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fpr, tpr, _ = roc_curve(labels, probs)
+    plt.figure(figsize=(6, 6))
+    plt.plot(fpr, tpr, label=f"ROC AUC = {auroc(labels, probs):.3f}")
+    plt.plot([0, 1], [0, 1], "k--")
+    plt.xlabel("False Positive Rate")
+    plt.ylabel("True Positive Rate")
+    plt.legend(loc="lower right")
+    plt.tight_layout()
+    plt.savefig(out_path)
+    plt.close()
+    return True
+
+
+def cmd_misalign_train(args) -> int:
+    import random
+    import time
+    from datetime import datetime
+
+    import numpy as np
+
+    from avsync_torch.compat import save_detector_pth
+    from avsync_torch.data.grid import GridDataSource, discover_speakers, split_videos
+    from avsync_torch.predictor import load_lipnet, resolve_device
+    from avsync_torch.train.detector_trainer import DetectorTrainer
+    from avsync_torch.utils.logging import Logger, format_time
+
+    _no_tf32()
+    device = resolve_device(args.device)
+    log_folder = os.path.join(args.log_dir,
+                              f"misalignment_{datetime.now().strftime('%Y%m%d_%H%M%S')}")
+    os.makedirs(log_folder, exist_ok=True)
+    logger = Logger(os.path.join(log_folder, "training.log"), console=args.verbose)
+    t0 = time.time()
+    logger.log("=" * 60)
+    logger.log("Misalignment Detection Training")
+    logger.log("=" * 60)
+    logger.log(f"Log folder: {log_folder}")
+    logger.log(f"Arguments: {vars(args)}")
+
+    cfg = _detector_config_from_args(args)
+    random.seed(cfg.train.seed)
+    np.random.seed(cfg.train.seed)
+    speakers = args.speakers or discover_speakers(cfg.data.data_path)
+    src = GridDataSource(cfg.data.data_path, speakers)
+    video_paths = [s.video_path for s in src.samples]
+    if args.max_samples:
+        random.shuffle(video_paths)
+        video_paths = video_paths[:args.max_samples]
+    logger.log(f"Using {len(video_paths)} videos from {len(speakers)} speakers")
+    print(f"Using {len(video_paths)} videos")
+
+    lipnet = load_lipnet(cfg, _load_state_dict(args.checkpoint), device)
+    train_p, val_p, test_p = split_videos(video_paths, seed=cfg.train.seed)
+    logger.log(f"Train: {len(train_p)}, Val: {len(val_p)}, Test: {len(test_p)}")
+    banks = {name: _build_bank(cfg, src, lipnet, paths, device, checkpoint=args.checkpoint,
+                               cache_dir=args.bank_cache)
+             for name, paths in (("train", train_p), ("val", val_p), ("test", test_p))}
+    logger.log("Feature banks built (on the device)")
+
+    input_dim = banks["train"].visual.shape[1] + 2 * cfg.audio.n_mfcc
+    det_cfg = {"sample_rate": cfg.audio.sample_rate, "n_mfcc": cfg.audio.n_mfcc,
+               "max_shift_frames": cfg.detector.max_shift_frames}
+
+    def save(state, path):
+        save_detector_pth(state.model.state_dict(), path, input_dim, cfg.detector.hidden_dim,
+                          det_cfg)
+
+    trainer = DetectorTrainer(cfg, device=device, log=logger)
+    state, summary = trainer.train(
+        banks["train"], len(train_p), banks["val"], len(val_p), save_every=args.save_every,
+        save_fn=lambda st, epoch: save(st, os.path.join(log_folder,
+                                                        f"checkpoint_epoch_{epoch}.pth")))
+
+    logger.log("")
+    logger.log("Evaluating on test set...")
+    _, test_m = trainer.run_epoch(state, banks["test"], len(test_p), seed=cfg.train.seed + 999,
+                                  train=False)
+    logger.log(f"Test -> loss: {test_m['loss']:.4f}, acc: {test_m['acc']:.3f}, "
+               f"auc: {test_m['auc']:.3f}")
+    for path in (os.path.join(log_folder, os.path.basename(args.detector_checkpoint)),
+                 args.detector_checkpoint):
+        save(state, path)
+    roc_path = os.path.join(log_folder, "roc.png")
+    if _plot_roc(test_m["labels"], test_m["probs"], roc_path):
+        logger.log(f"ROC saved to {roc_path}")
+    else:
+        logger.log("no ROC plot (matplotlib missing or one class only)")
+    logger.log("")
+    logger.log("=" * 60)
+    logger.log("Training completed!")
+    logger.log(f"Total time: {format_time(time.time() - t0)}")
+    logger.log(f"Best val AUC: {summary['best_val_auc']:.3f}")
+    logger.log(f"Test AUC: {test_m['auc']:.3f}")
+    logger.log(f"Model saved to: {args.detector_checkpoint}")
+    logger.log(f"Logs saved to: {log_folder}")
+    logger.log("=" * 60)
+    logger.close()
+    print(f"Done. Best val AUC {summary['best_val_auc']:.3f}, test AUC {test_m['auc']:.3f}. "
+          f"Logs: {log_folder}")
+    return 0
+
+
+def cmd_misalign_eval(args) -> int:
+    """Score every clip aligned and shifted by +-s frames for each magnitude
+    s in [min_shift, max_shift], and report the AUROC per magnitude and
+    overall (the sliding-shift evaluation of BASELINE.json)."""
+    import numpy as np
+    import torch
+
+    from avsync_torch.compat import load_detector_pth
+    from avsync_torch.data.grid import GridDataSource, discover_speakers
+    from avsync_torch.eval import auroc
+    from avsync_torch.features import gather_features
+    from avsync_torch.models.detector import MisalignmentDetector
+    from avsync_torch.ops.conv import fp32_step
+    from avsync_torch.predictor import load_lipnet, resolve_device
+
+    _no_tf32()
+    cfg = _detector_config_from_args(args)
+    device = resolve_device(args.device)
+    det_state, meta = load_detector_pth(args.detector_checkpoint)
+    detector = MisalignmentDetector(det_state["classifier.0.weight"].shape[1],
+                                    int(meta.get("hidden_dim", cfg.detector.hidden_dim)),
+                                    generator=torch.Generator())
+    detector.load_state_dict(det_state)
+    detector.to(device).eval()
+    lipnet = load_lipnet(cfg, _load_state_dict(args.checkpoint), device)
+
+    speakers = args.speakers or discover_speakers(cfg.data.data_path)
+    src = GridDataSource(cfg.data.data_path, speakers)
+    paths = [s.video_path for s in src.samples]
+    if args.max_samples:
+        paths = paths[:args.max_samples]
+    bank = _build_bank(cfg, src, lipnet, paths, device, checkpoint=args.checkpoint,
+                       cache_dir=args.bank_cache)
+    n = len(paths)
+
+    rng = np.random.default_rng(cfg.train.seed)
+    mags = list(range(args.min_shift, args.max_shift + 1))
+    rows = [np.zeros(n, np.int32)]  # the aligned row first, then one sign draw per magnitude
+    for s in mags:
+        rows.append(rng.choice([-1, 1], size=n).astype(np.int32) * s)
+    shift_rows = torch.from_numpy(np.stack(rows)).to(device)
+    idx = torch.arange(n, device=device)
+    parts = []
+    with fp32_step(), torch.inference_mode():
+        for c0 in range(0, n, _SWEEP_CLIP_CHUNK):
+            sub = idx[c0:c0 + _SWEEP_CLIP_CHUNK]
+            parts.append(torch.stack([
+                torch.sigmoid(detector(gather_features(bank, sub, row[c0:c0 + len(sub)],
+                                                       cfg.audio)))
+                for row in shift_rows]))
+    scored = torch.cat(parts, dim=1).cpu().numpy()
+    aligned = scored[0]
+    results = {str(s): auroc(np.r_[np.ones(n), np.zeros(n)], np.r_[aligned, shifted])
+               for s, shifted in zip(mags, scored[1:])}
+    overall = auroc(np.r_[np.ones(n), np.zeros(n * len(mags))], scored.reshape(-1))
+    out = {"auroc_by_shift": results, "overall_auroc": overall, "num_clips": n}
+    print(json.dumps(out, indent=2))
+    if args.output:
+        with open(args.output, "w") as f:
+            json.dump(out, f, indent=2)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m avsync_torch.cli")
     sub = p.add_subparsers(dest="command", required=True)
@@ -289,6 +577,40 @@ def build_parser() -> argparse.ArgumentParser:
     inf.add_argument("--device", default=None,
                      help="torch device; default: the GPU (fails without one)")
     inf.set_defaults(func=cmd_infer)
+
+    def detector_inputs(sp):
+        sp.add_argument("--checkpoint", type=str, default="lipnet_final.pth",
+                        help="frozen LipNet: reference .pth or a port checkpoint directory")
+        sp.add_argument("--detector_checkpoint", type=str, default="misalignment_detector.pth")
+        sp.add_argument("--max_samples", type=int, default=None)
+        sp.add_argument("--bank_cache", type=str, default=None,
+                        help="directory for persisted FeatureBanks (keyed by corpus and "
+                             "checkpoint fingerprints); repeat runs over an unchanged "
+                             "corpus skip the feature extraction")
+
+    m = sub.add_parser("misalign-train", help="train the misalignment detector")
+    common(m)
+    detector_inputs(m)
+    m.add_argument("--epochs", type=int, default=None)
+    m.add_argument("--lr", type=float, default=None)
+    m.add_argument("--weight_decay", type=float, default=None)
+    m.add_argument("--hidden_dim", type=int, default=None)
+    m.add_argument("--max_shift_frames", type=int, default=None)
+    m.add_argument("--num_negatives", type=int, default=None)
+    m.add_argument("--sample_rate", type=int, default=None)
+    m.add_argument("--n_mfcc", type=int, default=None)
+    m.add_argument("--log_dir", type=str, default="logs")
+    m.add_argument("--verbose", action="store_true")
+    m.add_argument("--save_every", type=int, default=5)
+    m.set_defaults(func=cmd_misalign_train)
+
+    e = sub.add_parser("misalign-eval", help="sliding-shift AUROC sweep over a corpus")
+    common(e)
+    detector_inputs(e)
+    e.add_argument("--min_shift", type=int, default=5)
+    e.add_argument("--max_shift", type=int, default=20)
+    e.add_argument("--output", type=str, default=None)
+    e.set_defaults(func=cmd_misalign_eval)
     return p
 
 

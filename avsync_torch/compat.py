@@ -17,6 +17,12 @@ that state dict:
 
 `lipnet_params_to_jax` is its inverse: it hands a port-trained model (or a
 dict of its gradients) back in the JAX package's layout.
+
+The misalignment detector crosses the same way (`detector_params_from_jax`
+/ `detector_params_to_jax`): its fc1 reads visual statistics that the JAX
+package orders (H, W, C) and the reference and the port (C, H, W), so fc1's
+mean and std column blocks are permuted; a reference detector `.pth`
+(`load_detector_pth` / `save_detector_pth`) needs no permutation.
 """
 
 from __future__ import annotations
@@ -130,10 +136,73 @@ def lipnet_params_to_jax(
     return params
 
 
+def _cpu32(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v).detach().to("cpu", torch.float32).contiguous()
+            for k, v in state_dict.items()}
+
+
 def save_lipnet_pth(state_dict: Mapping[str, torch.Tensor], path: str) -> None:
     """Write a state dict as a reference-loadable bare `.pth` (CPU float32)."""
-    torch.save(
-        {k: v.detach().to("cpu", torch.float32).contiguous()
-         for k, v in state_dict.items()},
-        path,
-    )
+    torch.save(_cpu32(state_dict), path)
+
+
+# ---------------------------------------------------------------------------
+# misalignment detector
+# ---------------------------------------------------------------------------
+
+def _detector_column_perm(conv_shape: Tuple[int, int, int], n_audio_feats: int) -> np.ndarray:
+    """p with jax_cols = torch_cols[p] for fc1's input columns: the mean and
+    the std blocks of the visual statistics go from (C, H, W) to (H, W, C)
+    order; the audio statistics stay put (`avsync/compat.py:146-154`)."""
+    vis = int(np.prod(conv_shape))
+    perm = chw_to_hwc_perm(conv_shape)
+    return np.concatenate([perm, perm + vis, np.arange(2 * vis, 2 * vis + n_audio_feats)])
+
+
+def detector_params_from_jax(params: Mapping[str, Any],
+                             conv_shape: Tuple[int, int, int] = DEFAULT_CONV_SHAPE,
+                             n_audio_feats: int = 40) -> Dict[str, torch.Tensor]:
+    """The JAX package's detector params ({"fc1": {kernel (in, hidden),
+    bias}, "fc2": ...}, arrays) -> the port's float32 state dict under the
+    reference key names, fc1's visual columns permuted back to (C, H, W)."""
+    w1 = np.asarray(params["fc1"]["kernel"]).T  # (hidden, in), JAX column order
+    full = _detector_column_perm(conv_shape, n_audio_feats)
+    if w1.shape[1] != len(full):
+        raise ValueError(f"detector input_dim {w1.shape[1]} != {len(full)} for conv shape "
+                         f"{conv_shape} and {n_audio_feats} audio statistics")
+    sd = {"classifier.0.weight": w1[:, np.argsort(full)],
+          "classifier.0.bias": np.asarray(params["fc1"]["bias"]),
+          "classifier.3.weight": np.asarray(params["fc2"]["kernel"]).T,
+          "classifier.3.bias": np.asarray(params["fc2"]["bias"])}
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def detector_params_to_jax(state_dict: Mapping[str, Any],
+                           conv_shape: Tuple[int, int, int] = DEFAULT_CONV_SHAPE,
+                           n_audio_feats: int = 40) -> Dict[str, Any]:
+    """The inverse of `detector_params_from_jax` (also for a same-keyed dict
+    of gradients): nested float32 numpy arrays in the JAX layout."""
+    sd = _cpu32(unwrap_state_dict(state_dict))
+    w1 = sd["classifier.0.weight"].numpy()[:, _detector_column_perm(conv_shape, n_audio_feats)]
+    return {"fc1": {"kernel": np.ascontiguousarray(w1.T),
+                    "bias": sd["classifier.0.bias"].numpy()},
+            "fc2": {"kernel": np.ascontiguousarray(sd["classifier.3.weight"].numpy().T),
+                    "bias": sd["classifier.3.bias"].numpy()}}
+
+
+def load_detector_pth(path: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+    """A detector `.pth` (the reference's self-describing layout, or a bare
+    state dict) -> (state dict on the CPU, metadata: input_dim / hidden_dim /
+    config where saved)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    meta = {k: ckpt[k] for k in ("input_dim", "hidden_dim", "config") if k in ckpt}
+    return {k: torch.as_tensor(v) for k, v in unwrap_state_dict(ckpt).items()}, meta
+
+
+def save_detector_pth(state_dict: Mapping[str, torch.Tensor], path: str, input_dim: int,
+                      hidden_dim: int, config: Mapping[str, Any]) -> None:
+    """Write a detector checkpoint in the reference's self-describing layout
+    (`misalignment_detection_train.py:312-318`): model_state_dict (CPU
+    float32), input_dim, hidden_dim, config."""
+    torch.save({"model_state_dict": _cpu32(state_dict), "input_dim": int(input_dim),
+                "hidden_dim": int(hidden_dim), "config": dict(config)}, path)

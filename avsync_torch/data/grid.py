@@ -14,6 +14,7 @@ and both split policies: the PyTorch stack's 70/15/15 *speaker* split
 
 from __future__ import annotations
 
+import copy
 import os
 import random
 from dataclasses import dataclass
@@ -171,6 +172,13 @@ class GridDataSource:
     @property
     def video_paths(self) -> List[str]:
         return [s.video_path for s in self.samples]
+
+    def subset(self, video_paths: Sequence[str]) -> "GridDataSource":
+        """A source over `video_paths` (clips of this one), in that order."""
+        by_path = {s.video_path: s for s in self.samples}
+        sub = copy.copy(self)
+        sub.samples = [by_path[p] for p in video_paths]
+        return sub
 
     def labels_batch(
         self,

@@ -1,11 +1,18 @@
-"""Host-side clip decode (port of the `.npy` branch of `avsync/data/video.py`).
+"""Host-side clip and audio decode (port of the `.npy` branch and the WAV
+reader/writer of `avsync/data/video.py`).
 
-Container decode (mp4/mpg through the C++ libav ingest) is not ported yet.
+Container decode (mp4/mpg video, their fps and audio streams, through the
+C++ libav ingest) is not ported yet: it raises. A clip's audio comes from a
+sibling `.wav` (the synthetic corpus, an offline dump), else it is silence
+with a warning, as the JAX package does for `.npy` clips.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+import warnings
+import wave
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -28,3 +35,56 @@ def decode_video_gray(video_path: str, max_frames: Optional[int] = None) -> np.n
     if max_frames is not None:
         frames = frames[:max_frames]
     return frames
+
+
+def get_video_fps(video_path: str, fallback: float = 25.0) -> float:
+    """FPS of a clip (`misalignment_detection_train.py:91-97`): a `.npy`
+    clip carries none, so the fallback."""
+    if video_path.endswith(".npy"):
+        return fallback
+    raise NotImplementedError(f"{video_path}: container fps probing is not ported yet")
+
+
+def load_wav(path: str) -> Tuple[np.ndarray, int]:
+    """Stdlib WAV reader -> (mono float32 in [-1, 1], sample_rate); PCM 8/16/
+    32-bit and float32 WAVs."""
+    with wave.open(path, "rb") as w:
+        sr, n, ch, width = w.getframerate(), w.getnframes(), w.getnchannels(), w.getsampwidth()
+        raw = w.readframes(n)
+    if width == 2:
+        data = np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0
+    elif width == 4:
+        # int32 PCM or float32: the wave module hides the format tag, so sniff
+        # (float32 PCM stays within a few units of 1)
+        as_f = np.frombuffer(raw, dtype="<f4")
+        if np.all(np.isfinite(as_f)) and np.abs(as_f).max(initial=0.0) <= 64.0:
+            data = as_f.astype(np.float32)
+        else:
+            data = np.frombuffer(raw, dtype="<i4").astype(np.float32) / 2147483648.0
+    elif width == 1:
+        data = (np.frombuffer(raw, dtype=np.uint8).astype(np.float32) - 128.0) / 128.0
+    else:
+        raise ValueError(f"unsupported WAV sample width {width} in {path}")
+    if ch > 1:
+        data = data.reshape(-1, ch).mean(axis=1)
+    return data, sr
+
+
+def save_wav(path: str, data: np.ndarray, sr: int) -> None:
+    """PCM16 mono WAV writer."""
+    pcm16 = (np.clip(np.asarray(data, np.float32), -1.0, 1.0) * 32767.0).astype("<i2")
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(pcm16.tobytes())
+
+
+def load_audio_for_video(video_path: str, fallback_sr: int = 16000) -> Tuple[np.ndarray, int]:
+    """Audio of a clip: its sibling `.wav` (same basename), else silence at
+    `fallback_sr` with a warning (container audio is not ported yet)."""
+    wav_path = os.path.splitext(video_path)[0] + ".wav"
+    if os.path.exists(wav_path):
+        return load_wav(wav_path)
+    warnings.warn(f"no audio source for {video_path} (no sibling .wav); returning silence")
+    return np.zeros(0, np.float32), fallback_sr

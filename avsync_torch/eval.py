@@ -1,16 +1,58 @@
-"""Transcript metrics: CER, WER and exact-match accuracy (port of the host
-half of `avsync/eval.py`).
+"""Transcript and detector metrics on the host (port of `avsync/eval.py`):
+CER, WER and exact-match accuracy; AUROC, accuracy at 0.5 and ROC points.
 
 `calculate_cer`/`calculate_wer` follow the reference (`train.py:945-993`):
 Levenshtein distance normalised by the target's length, and for an empty
-target 1.0 if the prediction is non-empty, else 0.0.
+target 1.0 if the prediction is non-empty, else 0.0. `auroc` is the
+Mann-Whitney statistic with average ranks, as the JAX package computes it,
+here in float64 numpy.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
+
+
+def auroc(labels, scores) -> float:
+    """ROC-AUC via the Mann-Whitney statistic with average ranks (tie-correct,
+    as sklearn.roc_auc_score); NaN when one class is absent
+    (`misalignment_detection_train.py:276-279`)."""
+    labels = np.asarray(labels, np.float64).reshape(-1)
+    scores = np.asarray(scores, np.float64).reshape(-1)
+    n_pos = float(labels.sum())
+    n_neg = len(labels) - n_pos
+    if n_pos == 0 or n_neg == 0:
+        return float("nan")
+    sorted_s = np.sort(scores)
+    ranks = (np.searchsorted(sorted_s, scores, "left")
+             + np.searchsorted(sorted_s, scores, "right") + 1) / 2.0
+    return (float(np.sum(ranks * labels)) - n_pos * (n_pos + 1.0) / 2.0) / (n_pos * n_neg)
+
+
+def binary_accuracy(labels, scores, threshold: float = 0.5) -> float:
+    """accuracy_score(labels, probs > 0.5) (`misalignment_detection_train.py:274-275`)."""
+    labels = np.asarray(labels, np.float64).reshape(-1)
+    scores = np.asarray(scores, np.float64).reshape(-1)
+    return float(np.sum((scores > threshold) == labels) / max(len(labels), 1))
+
+
+def roc_curve(labels, scores) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """ROC points (fpr, tpr, thresholds) for plotting
+    (`misalignment_detection_train.py:283-296`); thresholds are the distinct
+    scores in decreasing order, sklearn-style, after a sentinel above them."""
+    labels = np.asarray(labels).astype(np.float64)
+    scores = np.asarray(scores).astype(np.float64)
+    order = np.argsort(-scores, kind="stable")
+    labels, scores = labels[order], scores[order]
+    distinct = np.r_[np.where(np.diff(scores))[0], len(scores) - 1]
+    tps = np.cumsum(labels)[distinct]
+    fps = (distinct + 1) - tps
+    n_pos = labels.sum()
+    n_neg = len(labels) - n_pos
+    return (np.r_[0.0, fps / max(n_neg, 1)], np.r_[0.0, tps / max(n_pos, 1)],
+            np.r_[scores[distinct][0] + 1.0, scores[distinct]])
 
 
 def edit_distance(a: Sequence, b: Sequence) -> int:

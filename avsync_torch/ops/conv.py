@@ -10,7 +10,8 @@ by default, so each call turns TF32 off for its own scope.
 
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+from typing import Iterator, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +23,20 @@ def fp32_convs():
     cudnn = torch.backends.cudnn
     return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                        deterministic=cudnn.deterministic, allow_tf32=False)
+
+
+@contextlib.contextmanager
+def fp32_step() -> Iterator[None]:
+    """TF32 off for cuDNN and cuBLAS while the block runs (a step's forward
+    AND backward); the previous flags come back after."""
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        with fp32_convs():
+            yield
+    finally:
+        matmul.allow_tf32 = prev
 
 
 def conv3d(x: torch.Tensor, weight: torch.Tensor,

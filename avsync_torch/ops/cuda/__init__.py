@@ -4,6 +4,7 @@
                  weight gradient (csrc/conv1_pool_bwd.cu)
   * `gru`      — whole-sequence GRU recurrence (csrc/gru_fwd.cu) and its
                  backward (csrc/gru_bwd.cu)
+  * `mfcc`     — fused mel -> dB -> DCT -> MFCC statistics (csrc/mel_stats.cu)
 
 Kernels are built with nvcc at first use (`build`), never at import.
 """

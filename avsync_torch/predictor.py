@@ -1,25 +1,33 @@
-"""Serving API: load a checkpoint once, predict many times (port of the
-LipNet half of `avsync/predictor.py`).
+"""Serving API: load checkpoints once, predict many times (port of
+`avsync/predictor.py`).
 
 `LipReader` turns (T, H, W) frames or `.npy` clips into transcripts with
-greedy CTC. It runs on the card unless the caller passes `device="cpu"`;
-with `device=None` and no GPU it raises instead of falling back. Ported so
-far: the heuristic mouth ROI for native-size frames and the pre-cropped
-path; not yet the detector/variance/model ROI modes, int8 or a mesh.
+greedy CTC; `MisalignmentScorer` turns (frames, audio, fps, shifts) into
+audio-visual sync probabilities. Both run on the card unless the caller
+passes `device="cpu"`; with `device=None` and no GPU they raise instead of
+falling back. Ported so far: the heuristic mouth ROI for native-size frames
+and the pre-cropped path; not yet the detector/variance/model ROI modes,
+int8 or a mesh.
 """
 
 from __future__ import annotations
 
-from typing import List, Mapping, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from avsync_torch import text as textlib
-from avsync_torch.compat import conv_shape_for, lipnet_params_from_jax, load_pth
+from avsync_torch.compat import (conv_shape_for, detector_params_from_jax,
+                                 lipnet_params_from_jax, load_detector_pth, load_pth)
 from avsync_torch.config import AvsyncConfig
+from avsync_torch.data.video import decode_video_gray, get_video_fps, load_audio_for_video
+from avsync_torch.features import visual_stats
+from avsync_torch.models.detector import MisalignmentDetector
 from avsync_torch.models.lipnet import LipNet
 from avsync_torch.ops import image as imglib
+from avsync_torch.ops.audio import resample_host, shifted_audio_stats
+from avsync_torch.ops.conv import fp32_step
 
 
 def resolve_device(device=None) -> torch.device:
@@ -67,6 +75,36 @@ def prepare_clip(frames: np.ndarray, cfg: AvsyncConfig,
     return preprocess(x, cfg)
 
 
+def _require_heuristic_roi(cfg: AvsyncConfig) -> None:
+    if cfg.data.roi_mode != "heuristic":
+        raise NotImplementedError(
+            f"roi_mode={cfg.data.roi_mode!r}: only the heuristic ROI is ported")
+
+
+def lipnet_state(cfg: AvsyncConfig, checkpoint: Optional[str] = None,
+                 params: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
+    """LipNet weights in the port's (reference) layout from exactly one of a
+    reference `.pth` (either layout), a state dict, or the JAX package's
+    nested param dict (through the weight bridge)."""
+    if (checkpoint is None) == (params is None):
+        raise ValueError("pass exactly one of checkpoint= or params=")
+    if checkpoint is not None:
+        return load_pth(checkpoint)
+    if "conv1.weight" in params:
+        return dict(params)
+    m = cfg.model
+    return lipnet_params_from_jax(params, num_conv=len(m.conv_channels),
+                                  num_gru=m.num_gru_layers, conv_shape=conv_shape_for(cfg))
+
+
+def load_lipnet(cfg: AvsyncConfig, state: Mapping, device: torch.device) -> LipNet:
+    """An eval-mode LipNet at the configured geometry holding `state`."""
+    d = cfg.data
+    model = LipNet(cfg.model, img_hw=(d.img_height, d.img_width), generator=torch.Generator())
+    model.load_state_dict(state)
+    return model.to(device).eval()
+
+
 class LipReader:
     """Greedy-CTC lipreading from LipNet weights.
 
@@ -80,25 +118,9 @@ class LipReader:
                  config: Optional[AvsyncConfig] = None, device=None):
         self.cfg = config or AvsyncConfig()
         self.device = resolve_device(device)
-        if self.cfg.data.roi_mode != "heuristic":
-            raise NotImplementedError(
-                f"roi_mode={self.cfg.data.roi_mode!r}: only the heuristic ROI is ported")
-        if (checkpoint is None) == (params is None):
-            raise ValueError("pass exactly one of checkpoint= or params=")
-        m = self.cfg.model
-        if checkpoint is not None:
-            state = load_pth(checkpoint)
-        elif "conv1.weight" in params:
-            state = params
-        else:
-            state = lipnet_params_from_jax(
-                params, num_conv=len(m.conv_channels), num_gru=m.num_gru_layers,
-                conv_shape=conv_shape_for(self.cfg))
-        d = self.cfg.data
-        self.model = LipNet(m, img_hw=(d.img_height, d.img_width),
-                            generator=torch.Generator())
-        self.model.load_state_dict(state)
-        self.model.to(self.device).eval()
+        _require_heuristic_roi(self.cfg)
+        self.model = load_lipnet(self.cfg, lipnet_state(self.cfg, checkpoint, params),
+                                 self.device)
 
     def _prepare(self, frames: np.ndarray) -> torch.Tensor:
         return prepare_clip(frames, self.cfg, self.device)
@@ -126,8 +148,6 @@ class LipReader:
         return self._decode(self._logprobs(self._prepare(frames)))[0]
 
     def _load(self, video_path: str) -> np.ndarray:
-        from avsync_torch.data.video import decode_video_gray
-
         frames = decode_video_gray(video_path, max_frames=self.cfg.data.max_video_length)
         if frames.size == 0:
             raise ValueError(f"no frames decoded from {video_path}")
@@ -147,3 +167,93 @@ class LipReader:
             clips = torch.cat([preprocess(torch.as_tensor(r).to(self.device), self.cfg)
                                for r in rows], dim=0)
         return self._decode(self._logprobs(clips))
+
+
+class MisalignmentScorer:
+    """Audio-visual sync probability for (clip, shift) pairs.
+
+    Weights: the detector from `detector_checkpoint` (a reference detector
+    `.pth`) or `detector_params` (a state dict, or the JAX package's
+    {"fc1", "fc2"} params, which go through the weight bridge); the frozen
+    LipNet from `lipnet_checkpoint` or `lipnet_params`, as `LipReader` takes
+    them. One batch of B requests x K shifts runs the device preprocess, the
+    conv visual statistics (K1 with `ModelConfig.fused_conv_pool`), the
+    shift -> MFCC -> statistics of all B*K audio rows at once (K5 with
+    `AudioConfig.use_pallas`) and the detector, with TF32 off.
+    """
+
+    def __init__(self, detector_checkpoint: Optional[str] = None,
+                 lipnet_checkpoint: Optional[str] = None,
+                 config: Optional[AvsyncConfig] = None, device=None,
+                 detector_params: Optional[Mapping] = None,
+                 lipnet_params: Optional[Mapping] = None):
+        self.cfg = config or AvsyncConfig()
+        self.device = resolve_device(device)
+        _require_heuristic_roi(self.cfg)
+        if (detector_checkpoint is None) == (detector_params is None):
+            raise ValueError("pass exactly one of detector_checkpoint= or detector_params=")
+        n_audio = 2 * self.cfg.audio.n_mfcc
+        if detector_checkpoint is not None:
+            det_state, meta = load_detector_pth(detector_checkpoint)
+        elif "fc1" in detector_params:
+            det_state, meta = detector_params_from_jax(
+                detector_params, conv_shape_for(self.cfg), n_audio), {}
+        else:
+            det_state, meta = dict(detector_params), {}
+        w1 = det_state["classifier.0.weight"]
+        hidden = int(meta.get("hidden_dim", w1.shape[0]))
+        self.detector = MisalignmentDetector(w1.shape[1], hidden, self.cfg.detector.dropout,
+                                             generator=torch.Generator())
+        self.detector.load_state_dict(det_state)
+        self.detector.to(self.device).eval()
+        self.lipnet = load_lipnet(self.cfg, lipnet_state(self.cfg, lipnet_checkpoint,
+                                                         lipnet_params), self.device)
+
+    def prepare_raw(self, frames: np.ndarray, audio: np.ndarray, fps: float,
+                    shifts: Sequence[int] = (0,)):
+        """Host half: one request -> payload (frames (1, T, H, W) in their
+        own dtype, audio (1, S) float32 zero-padded, audio_len (1,) int32,
+        fps (1,) float32, shifts (1, K) int32)."""
+        S = self.cfg.audio.max_audio_samples
+        a = np.asarray(audio, np.float32)[:S]
+        buf = np.zeros((1, S), np.float32)
+        buf[0, :len(a)] = a
+        return (pad_frames(frames, self.cfg)[None], buf, np.array([len(a)], np.int32),
+                np.array([fps], np.float32), np.asarray(shifts, np.int32)[None])
+
+    def score_payload_batch(self, payload) -> List[np.ndarray]:
+        """Device half: a stacked payload of B rows -> B arrays of K sync
+        probabilities."""
+        frames, audio, lens, fps, shifts = (torch.as_tensor(p).to(self.device)
+                                            for p in payload)
+        B, K = shifts.shape
+        with fp32_step(), torch.inference_mode():
+            vis = visual_stats(self.lipnet, preprocess(frames, self.cfg))
+            astats = shifted_audio_stats(audio.repeat_interleave(K, 0),
+                                         lens.repeat_interleave(K), shifts.reshape(-1),
+                                         fps.repeat_interleave(K), self.cfg.audio)
+            feats = torch.cat([vis.repeat_interleave(K, 0), astats], dim=-1)
+            probs = torch.sigmoid(self.detector(feats)).reshape(B, K)
+        return list(probs.cpu().numpy())
+
+    def score_arrays(self, frames: np.ndarray, audio: np.ndarray, fps: float,
+                     shifts: Sequence[int] = (0,)) -> np.ndarray:
+        """(T, H, W) frames + mono audio at the configured rate -> (K,) sync
+        probabilities, one per shift (in video frames)."""
+        return self.score_payload_batch(self.prepare_raw(frames, audio, fps, shifts))[0]
+
+    def score(self, video_path: str, shift_frames: int = 0) -> float:
+        """Sync probability of a `.npy` clip and its sibling `.wav`."""
+        frames, audio, fps = decode_av(video_path, self.cfg)
+        return float(self.score_arrays(frames, audio, fps, shifts=(shift_frames,))[0])
+
+
+def decode_av(video_path: str, cfg: AvsyncConfig):
+    """(frames, audio at the configured rate, fps) of a clip on the host."""
+    frames = decode_video_gray(video_path, max_frames=cfg.data.max_video_length)
+    if frames.size == 0:
+        raise ValueError(f"no frames decoded from {video_path}")
+    audio, sr = load_audio_for_video(video_path, cfg.audio.sample_rate)
+    if sr != cfg.audio.sample_rate:
+        audio = resample_host(audio, sr, cfg.audio.sample_rate)
+    return frames, audio, get_video_fps(video_path, cfg.detector.default_fps)

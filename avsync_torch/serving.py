@@ -1,11 +1,11 @@
-"""Serving: dynamic batching in front of a LipReader (port of the
-transcription half of `avsync/serving.py`).
+"""Serving: dynamic batching in front of a LipReader or a
+MisalignmentScorer (port of the services of `avsync/serving.py`).
 
 `ServingStats` and `DynamicBatcher` are the port's own copies of the JAX
-package's (which are framework-free); `TranscribeService` is the torch
-counterpart. A single worker thread owns all inference: concurrent
-requests coalesce into batches, padded with zero rows to power-of-two
-buckets. The HTTP daemon is not ported yet.
+package's (which are framework-free); `TranscribeService` and
+`SyncScoreService` are the torch counterparts. A single worker thread owns
+all inference: concurrent requests coalesce into batches, padded with zero
+rows to power-of-two buckets. The HTTP daemon is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,7 +21,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-__all__ = ["DynamicBatcher", "ServingStats", "TranscribeService"]
+from avsync_torch.predictor import decode_av
+
+__all__ = ["DynamicBatcher", "ServingStats", "SyncScoreService", "TranscribeService"]
 
 
 class ServingStats:
@@ -243,6 +245,59 @@ class TranscribeService:
             if b >= self.batcher.max_batch:
                 return
             b = min(2 * b, self.batcher.max_batch)
+
+    def close(self) -> None:
+        self.batcher.close()
+
+
+class SyncScoreService:
+    """A `predictor.MisalignmentScorer` behind a DynamicBatcher.
+
+    Concurrent (clip, audio, fps, shifts) requests coalesce into one device
+    pass per batch (`MisalignmentScorer.score_payload_batch`): uint8 frames
+    are preprocessed per batch on the device and the visual features never
+    visit the host. Requests batch with those of the same frame geometry
+    and shift count; others run as their own groups. Rows the batcher pads
+    carry audio length 0 and fps 0, and give finite probabilities that
+    nobody reads.
+    """
+
+    def __init__(self, scorer, max_batch: int = 8, max_wait_ms: float = 10.0,
+                 stats: Optional[ServingStats] = None):
+        self.scorer = scorer
+        self.stats = stats or ServingStats()
+        self.batcher = DynamicBatcher(scorer.score_payload_batch, max_batch=max_batch,
+                                      max_wait_ms=max_wait_ms, stats=self.stats)
+
+    def score_arrays(self, frames, audio, fps, shifts=(0,),
+                     timeout: Optional[float] = None) -> np.ndarray:
+        payload = self.scorer.prepare_raw(frames, audio, fps, tuple(shifts))
+        return self.batcher.infer(payload, timeout=timeout)
+
+    def warmup(self, shifts=(0,), frames: Optional[np.ndarray] = None,
+               audio: Optional[np.ndarray] = None, fps: float = 25.0) -> None:
+        """Run every power-of-two bucket once before traffic, for the shift
+        count (and optionally the frame geometry) the clients will send.
+        Call before serving starts: it runs on the caller's thread."""
+        d = self.scorer.cfg.data
+        if frames is None:
+            frames = np.zeros((d.max_video_length, d.img_height, d.img_width), np.uint8)
+        if audio is None:
+            audio = np.zeros(1024, np.float32)
+        parts = self.scorer.prepare_raw(frames, audio, fps, tuple(shifts))
+        b = 1
+        while True:
+            self.scorer.score_payload_batch(tuple(np.concatenate([p] * b, axis=0)
+                                                  for p in parts))
+            if b >= self.batcher.max_batch:
+                return
+            b = min(2 * b, self.batcher.max_batch)
+
+    def score_path(self, video_path: str, shifts=(0,),
+                   timeout: Optional[float] = None) -> np.ndarray:
+        """Sync probabilities of a `.npy` clip and its sibling `.wav`."""
+        frames, audio, fps = decode_av(video_path, self.scorer.cfg)
+        return self.score_arrays(frames, audio, fps, shifts, timeout=timeout)
 
     def close(self) -> None:
         self.batcher.close()

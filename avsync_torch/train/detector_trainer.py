@@ -1,0 +1,220 @@
+"""Misalignment-detector training on one GPU (port of
+`avsync/train/detector_trainer.py`).
+
+The reference's semantics (`misalignment_detection_train.py:253-280,
+345-486`): Adam(lr 1e-3, weight_decay 1e-5) with torch's coupled L2 (the
+decay joins the gradient before the moments: exactly the JAX package's
+`optax.chain(add_decayed_weights, adam)`), weighted BCE with logits,
+accuracy at 0.5 and ROC-AUC per epoch, best-val-AUC selection (the latest
+tie wins), periodic snapshots and a SIGTERM snapshot.
+
+Features come from a `FeatureBank` on the device: each step gathers its
+(clip, shift) pairs and computes their audio statistics there (K5 with
+`AudioConfig.use_pallas`), then runs the detector's forward and backward,
+with TF32 off (`ops/conv.fp32_step`). No gradient reaches the audio: only
+the detector's parameters are trained. `run_epoch` is a per-step loop in
+the JAX package's batch order, ragged tail included, in place of its
+whole-epoch scan (which replays the same loop); the losses stay on the
+device until the epoch ends.
+
+Not ported: a mesh over more than one device raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import copy
+import time
+from dataclasses import dataclass
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from avsync_torch.compat import conv_shape_for, detector_params_from_jax
+from avsync_torch.config import AudioConfig, AvsyncConfig
+from avsync_torch.eval import auroc, binary_accuracy
+from avsync_torch.features import FeatureBank, gather_features, sample_shift_labels
+from avsync_torch.models.detector import MisalignmentDetector
+from avsync_torch.ops.conv import fp32_step
+from avsync_torch.predictor import resolve_device
+from avsync_torch.utils.logging import Logger, format_time
+from avsync_torch.utils.signals import sigterm_flag
+
+
+def make_detector_optimizer(params, lr: float, weight_decay: float) -> torch.optim.Adam:
+    """torch.optim.Adam(lr, weight_decay=wd) (`misalignment_detection_train.py:412`):
+    L2 coupled into the gradient, not decoupled AdamW."""
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=weight_decay)
+
+
+def weighted_bce(logits: torch.Tensor, labels: torch.Tensor,
+                 weights: torch.Tensor) -> torch.Tensor:
+    """sum(BCE-with-logits * w) / max(sum(w), 1)."""
+    bce = F.binary_cross_entropy_with_logits(logits, labels, reduction="none")
+    return (bce * weights).sum() / weights.sum().clamp(min=1.0)
+
+
+def detector_train_step(model: MisalignmentDetector, optimizer: torch.optim.Optimizer,
+                        bank: FeatureBank, video_idx: torch.Tensor, shifts: torch.Tensor,
+                        labels: torch.Tensor, weights: torch.Tensor, audio_cfg: AudioConfig,
+                        generator: Optional[torch.Generator] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One update on the gathered (clip, shift) batch, dropout masks from
+    `generator`. Returns (loss, sigmoid of the pre-update logits) as device
+    tensors; nothing here waits for the device."""
+    with fp32_step():
+        with torch.no_grad():
+            feats = gather_features(bank, video_idx, shifts, audio_cfg)
+        optimizer.zero_grad(set_to_none=True)
+        logits = model(feats, train=True, generator=generator)
+        loss = weighted_bce(logits, labels, weights)
+        loss.backward()
+        optimizer.step()
+    return loss.detach(), torch.sigmoid(logits.detach())
+
+
+def detector_eval_step(model: MisalignmentDetector, bank: FeatureBank, video_idx: torch.Tensor,
+                       shifts: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
+                       audio_cfg: AudioConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(loss, probabilities) of the inference forward."""
+    with fp32_step(), torch.no_grad():
+        logits = model(gather_features(bank, video_idx, shifts, audio_cfg))
+        return weighted_bce(logits, labels, weights), torch.sigmoid(logits)
+
+
+@dataclass
+class DetectorState:
+    """The detector, its optimizer and the number of optimizer steps taken
+    (step s draws its dropout masks from a generator seeded with (seed, s))."""
+
+    model: MisalignmentDetector
+    optimizer: torch.optim.Adam
+    step: int = 0
+
+
+class DetectorTrainer:
+    """Host loop over device steps on one GPU (or the CPU, `device="cpu"`)."""
+
+    def __init__(self, config: AvsyncConfig, device=None, log: Optional[Logger] = None):
+        if any(n > 1 for n in config.train.mesh_shape):
+            raise NotImplementedError(
+                f"mesh_shape={config.train.mesh_shape}: the port trains on one device")
+        self.config = config
+        self.device = resolve_device(device)
+        self.log = log or Logger(None, console=True)
+        self.dropout_gen = torch.Generator(device=self.device)
+        self._preempted = False
+
+    def init_state(self, feature_dim: int, params: Optional[Mapping] = None) -> DetectorState:
+        """A fresh detector with weights drawn from the training seed, or
+        `params`: a state dict, or the JAX package's {"fc1", "fc2"} params
+        (through the weight bridge)."""
+        det = self.config.detector
+        model = MisalignmentDetector(feature_dim, det.hidden_dim, det.dropout,
+                                     generator=torch.Generator().manual_seed(
+                                         self.config.train.seed))
+        if params is not None:
+            if "fc1" in params:
+                params = detector_params_from_jax(params, conv_shape_for(self.config),
+                                                  2 * self.config.audio.n_mfcc)
+            model.load_state_dict(params)
+        model.to(self.device)
+        return DetectorState(model, make_detector_optimizer(model.parameters(), det.lr,
+                                                            det.weight_decay))
+
+    def _step_generator(self, step: int) -> torch.Generator:
+        return self.dropout_gen.manual_seed(self.config.train.seed * 1_000_003 + step)
+
+    def run_epoch(self, state: DetectorState, bank: FeatureBank, n_videos: int, seed: int,
+                  train: bool = True, batch_size: Optional[int] = None
+                  ) -> Tuple[DetectorState, Dict]:
+        """One pass over the shift-contrastive plan drawn from `seed`
+        (`run_epoch`, `misalignment_detection_train.py:253-280`): loss (the
+        batch losses weighted by their sizes, summed in float64 in batch
+        order), acc, auc, and the plan's labels and probabilities."""
+        det = self.config.detector
+        B = batch_size or det.batch_size
+        video_idx, shifts, labels = sample_shift_labels(
+            n_videos, det.max_shift_frames, det.num_negative_samples,
+            np.random.default_rng(seed), shuffle=train)
+        vi_d, sh_d, lb_d = (torch.from_numpy(a).to(self.device)
+                            for a in (video_idx, shifts, labels))
+        ones = torch.ones(B, device=self.device)
+        losses, sizes, probs = [], [], []
+        for i in range(0, len(video_idx), B):
+            vi, sh, lb = vi_d[i:i + B], sh_d[i:i + B], lb_d[i:i + B]
+            w = ones[:len(vi)]
+            if train:
+                loss, p = detector_train_step(state.model, state.optimizer, bank, vi, sh, lb,
+                                              w, self.config.audio,
+                                              self._step_generator(state.step))
+                state.step += 1
+            else:
+                loss, p = detector_eval_step(state.model, bank, vi, sh, lb, w,
+                                             self.config.audio)
+            losses.append(loss)
+            sizes.append(len(vi))
+            probs.append(p)
+        total = 0.0
+        if losses:
+            for loss, n in zip(torch.stack(losses).cpu().numpy(), sizes):
+                total += float(loss) * n
+        probs = torch.cat(probs).cpu().numpy() if probs else np.zeros(0, np.float32)
+        return state, {"loss": total / max(len(video_idx), 1),
+                       "acc": binary_accuracy(labels, probs), "auc": auroc(labels, probs),
+                       "labels": labels, "probs": probs}
+
+    def train(self, bank: FeatureBank, train_videos: int, val_bank: FeatureBank,
+              val_videos: int, epochs: Optional[int] = None, save_every: Optional[int] = None,
+              save_fn=None) -> Tuple[DetectorState, Dict[str, float]]:
+        """Full run with best-val-AUC selection
+        (`misalignment_detection_train.py:418-444`): `save_fn(state, epoch)`
+        every `save_every` epochs. A SIGTERM stops at the epoch boundary
+        after a snapshot through `save_fn` (validation is skipped when it
+        lands during the training pass)."""
+        epochs = epochs or self.config.detector.epochs
+        seed = self.config.train.seed
+        state = self.init_state(bank.visual.shape[1] + 2 * self.config.audio.n_mfcc)
+        best, best_auc = None, -1.0
+        t0 = time.time()
+        with sigterm_flag(self):
+            for epoch in range(1, epochs + 1):
+                te = time.time()
+                state, tr = self.run_epoch(state, bank, train_videos, seed=seed + epoch)
+                if self._preempted:
+                    self.log.log(f"preemption signal observed during epoch {epoch}: "
+                                 "snapshotting and stopping")
+                    if save_fn:
+                        save_fn(state, epoch)
+                    break
+                _, va = self.run_epoch(state, val_bank, val_videos, seed=seed + 10_000 + epoch,
+                                       train=False)
+                self.log.log(
+                    f"Epoch {epoch:02d}/{epochs} | train_loss={tr['loss']:.4f} "
+                    f"train_acc={tr['acc']:.3f} | val_loss={va['loss']:.4f} "
+                    f"val_acc={va['acc']:.3f} val_auc={va['auc']:.3f} | "
+                    f"time={time.time() - te:.1f}s")
+                # >=: ties go to the LATEST epoch, the reference's effective
+                # behaviour (its best_state aliases the live tensors, so the
+                # last epoch's weights ship; `avsync/train/detector_trainer.py:364-373`)
+                if not np.isnan(va["auc"]) and va["auc"] >= best_auc:
+                    best_auc = va["auc"]
+                    best = copy.deepcopy(state.model.state_dict())
+                    self.log.log(f"  -> New best model (val_auc={best_auc:.3f})")
+                saved = False
+                if save_every and save_fn and epoch % save_every == 0:
+                    save_fn(state, epoch)
+                    self.log.log(f"  -> Checkpoint saved: epoch {epoch}")
+                    saved = True
+                if self._preempted:
+                    self.log.log(f"preemption signal observed after epoch {epoch}: "
+                                 "snapshotting and stopping")
+                    if save_fn and not saved:
+                        save_fn(state, epoch)
+                    break
+        if best is not None:
+            state.model.load_state_dict(best)
+        self.log.log(f"Training done in {format_time(time.time() - t0)}")
+        return state, {"best_val_auc": best_auc}

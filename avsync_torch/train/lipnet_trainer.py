@@ -23,41 +23,24 @@ whole-epoch scan of the JAX trainer waits with the batcher's device cache.
 
 from __future__ import annotations
 
-import contextlib
 import copy
 import json
 import os
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from avsync_torch.config import AvsyncConfig
 from avsync_torch.models.lipnet import LipNet
+from avsync_torch.ops.conv import fp32_step
 from avsync_torch.ops.ctc import ctc_loss_mean
 from avsync_torch.predictor import resolve_device
 from avsync_torch.utils.checkpoint import CheckpointManager
 from avsync_torch.utils.logging import Logger, format_time
 from avsync_torch.utils.signals import sigterm_flag
-
-
-@contextlib.contextmanager
-def fp32_step() -> Iterator[None]:
-    """TF32 off for cuDNN and cuBLAS while the block runs (a step's forward
-    AND backward); the previous flags come back after."""
-    matmul = torch.backends.cuda.matmul
-    prev = matmul.allow_tf32
-    matmul.allow_tf32 = False
-    try:
-        with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
-                                        benchmark=torch.backends.cudnn.benchmark,
-                                        deterministic=torch.backends.cudnn.deterministic,
-                                        allow_tf32=False):
-            yield
-    finally:
-        matmul.allow_tf32 = prev
 
 
 def make_optimizer(params, learning_rate: float = 1e-4) -> torch.optim.Adam:

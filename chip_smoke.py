@@ -6,9 +6,9 @@
 Phases (any failure exits non-zero; no phase's failure is caught):
   1. card: nvidia-smi name and power limit, torch/CUDA versions, TF32 flags
      (both set off: the port computes in full fp32);
-  2. build: nvcc builds every kernel of the serving and training paths from
-     avsync_torch/csrc/ (one process per source, started together);
-  3. kernels: each kernel (K1 conv1_pool, K2 gru_fwd, K3 gru_bwd, K4
+  2. build: nvcc builds every kernel of the serving, training and detector
+     paths from avsync_torch/csrc/ (one process per source, started together);
+  3. kernels: each LipNet kernel (K1 conv1_pool, K2 gru_fwd, K3 gru_bwd, K4
      conv1_pool_bwd) against its plain PyTorch version on the card, at the
      main paths' shapes and at odd ones, with the tolerance beside the max
      error, and for K3/K4 a repeat launch that must give the same bits; then
@@ -24,16 +24,37 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      gru_fwd once per BiGRU layer, and no backward kernel. Log-probs are held
      against the same reader with both flags off (plain path, on the card);
   5. training slice: a GRID-layout corpus of (75, 50, 100) uint8 clips
-     written with numpy; `cli train` at full width with both kernel flags on
+     (and 3 s of audio each) written with numpy; `cli train` at full width with both kernel flags on
      for 2 epochs with a checkpoint, `--resume auto` for a third, `cli test`;
      the counters zeroed before and checked after against the steps taken;
      one step of the kernel path against the plain path (loss and every
      gradient); TF32 read from inside train_step's backward; the loss falling
      over 20 steps on one repeated batch; the train step's time on both paths;
-  6. the kernels: a text line with the state of every TPU kernel of the
+  6. K5 mel_stats against its plain version at the detector's shapes (B = 1,
+     8, 32, 40, 512 at F=121, K=1025, M=128, C=20, n_valid 0, 1, 2, partial,
+     F) and odd ones, a repeat launch bit-identical, and its times at B = 32
+     (a train step), 40 (a scorer batch of 8 x 5 shifts) and 512 (an eval
+     chunk) beside the plain version, the `use_pallas=False` composition and
+     the bound;
+  7. detector serving slice: MisalignmentScorer + SyncScoreService at full
+     width with conv1's and the MFCC stage's kernel flags on, seeded random
+     LipNet and detector weights through both bridges; 32 requests from 16
+     threads with shifts (-10, -5, 0, 5, 10), half native frames, half crops,
+     audio lengths from 0 to 48,000. Each batch must launch conv1_pool and
+     mel_stats once and no GRU or backward kernel; probabilities held against
+     the same scorer with both flags off, audio statistics against the XLA
+     path;
+  8. detector training slice: the training slice's corpus (with a sibling
+     .wav per clip) and its trained LipNet; `cli misalign-train` for 2 epochs
+     with a snapshot each, `cli misalign-eval` over shifts 5..20, launch
+     counts against the banks, steps, eval batches and sweep rows; one
+     detector step of the kernel path against the plain path; the loss
+     falling over 20 steps on one repeated batch; the step's time on both
+     paths;
+  9. the kernels: a text line with the state of every TPU kernel of the
      JAX package, and one JSON line with the measured numbers (launches from
-     the training slice, the serving slice's beside them for K1/K2);
-  7. the card's name/power line, then the status JSON as the last line.
+     the training slices, the serving slices' beside them);
+  10. the card's name/power line, then the status JSON as the last line.
 
 Exits with 2 and prints no result without a GPU or outside a checkout.
 """
@@ -73,6 +94,9 @@ SLICE_ATOL = 1e-4  # log-probs, kernel path vs plain path on the card
 # terms in another order, through two 75-step recurrences)
 STEP_LOSS_RTOL, STEP_GRAD_RTOL = 1e-5, 1e-3
 OVERFIT_LR, OVERFIT_STEPS = 1e-3, 20  # the repeated-batch check
+K5_TOL = dict(atol=1e-4, rtol=1e-5)  # tests/test_pallas_mfcc.py:31
+PROB_ATOL = 1e-4  # sync probabilities, kernel path vs plain path on the card
+DET_SHIFTS = (-10, -5, 0, 5, 10)  # the detector serving slice's shifts per request
 MAX_BATCH = 8  # the slice's TranscribeService(max_batch=8)
 BUCKETS = (1, 2, 4, 8)  # the padded batch sizes it can form
 
@@ -516,7 +540,7 @@ def run_slice(dev):
           f"conv1_pool_bwd={got['conv1_pool_bwd']} (expected 0: serving runs no backward)",
           flush=True)
     if (stats["requests"] != n_req or k1 != n_batches or k2 != n_layers * n_batches
-            or got["gru_bwd"] or got["conv1_pool_bwd"]):
+            or got["gru_bwd"] or got["conv1_pool_bwd"] or got["mel_stats"]):
         raise SystemExit("launch counts do not match the batches served")
     if not set(stats["batches"]) <= set(BUCKETS):
         raise SystemExit(f"a batch size outside the checked buckets {BUCKETS}")
@@ -564,13 +588,26 @@ GRID_WORDS = (("bin", "lay", "place", "set"), ("blue", "green", "red", "white"),
                "nine"), ("again", "now", "please", "soon"))
 
 
+def syllable_audio(r, n: int):
+    """n samples of noise under a syllable-rate envelope (2-5 Hz), numpy."""
+    import numpy as np
+
+    t = np.arange(n) / 16000.0
+    env = 0.5 + 0.5 * np.sin(2 * np.pi * r.uniform(2.0, 5.0) * t + r.uniform(0, 2 * np.pi))
+    return (0.3 * env ** 2 * r.standard_normal(n)).astype(np.float32)
+
+
 def write_grid_corpus(root: str, n_speakers: int, clips: int, seed: int):
     """A GRID-layout corpus (<root>/sN/video/*.npy + <root>/sN/align/*.align)
-    of (75, 50, 100) uint8 mouth crops and GRID-grammar transcripts, drawn
+    of (75, 50, 100) uint8 mouth crops and GRID-grammar transcripts, and a
+    sibling 3 s, 16 kHz PCM16 .wav per clip (the port's `save_wav`), drawn
     with numpy from `seed`."""
     import numpy as np
 
+    from avsync_torch.data.video import save_wav
+
     r = np.random.default_rng(seed)
+    audio_r = np.random.default_rng(seed + 1)
     for s in range(1, n_speakers + 1):
         vdir, adir = (os.path.join(root, f"s{s}", d) for d in ("video", "align"))
         os.makedirs(vdir)
@@ -579,6 +616,7 @@ def write_grid_corpus(root: str, n_speakers: int, clips: int, seed: int):
             name = f"clip{c:03d}"
             np.save(os.path.join(vdir, name + ".npy"),
                     r.integers(0, 256, (75, 50, 100), dtype=np.uint8))
+            save_wav(os.path.join(vdir, name + ".wav"), syllable_audio(audio_r, 48000), 16000)
             words = [str(r.choice(slot)) for slot in GRID_WORDS]
             lines, t = ["0 9375 sil"], 9375
             for w in words:
@@ -590,16 +628,18 @@ def write_grid_corpus(root: str, n_speakers: int, clips: int, seed: int):
 
 
 def counts():
-    from avsync_torch.ops.cuda import convpool, gru
+    from avsync_torch.ops.cuda import convpool, gru, mfcc
 
     return {"conv1_pool": convpool.launches, "gru_fwd": gru.launches,
-            "gru_bwd": gru.bwd_launches, "conv1_pool_bwd": convpool.bwd_launches}
+            "gru_bwd": gru.bwd_launches, "conv1_pool_bwd": convpool.bwd_launches,
+            "mel_stats": mfcc.launches}
 
 
 def zero_counts():
-    from avsync_torch.ops.cuda import convpool, gru
+    from avsync_torch.ops.cuda import convpool, gru, mfcc
 
     convpool.launches = convpool.bwd_launches = gru.launches = gru.bwd_launches = 0
+    mfcc.launches = 0
 
 
 def run_training(dev, workdir: str):
@@ -656,7 +696,7 @@ def run_training(dev, workdir: str):
     steps = 3 * steps_per_epoch
     forwards = 3 * val_b + 3 * test_b  # validation per epoch, a test pass per command
     want = {"conv1_pool": steps + forwards, "gru_fwd": 2 * (steps + forwards),
-            "gru_bwd": 2 * steps, "conv1_pool_bwd": steps}
+            "gru_bwd": 2 * steps, "conv1_pool_bwd": steps, "mel_stats": 0}
     print(f"  train 2 epochs + resume 1 + test: wall_s={wall:.2f}, {steps} train steps, "
           f"{forwards} eval forwards", flush=True)
     print(f"  launches: {got} (expected {want}: per train step conv1_pool 1, gru_fwd 2, "
@@ -745,6 +785,342 @@ def run_training(dev, workdir: str):
     return got
 
 
+# ---------------------------------------------------------------------------
+# 6. K5 and the detector slices
+# ---------------------------------------------------------------------------
+
+def check_mel_stats(dev):
+    import numpy as np
+    import torch
+
+    from avsync_torch.config import AudioConfig
+    from avsync_torch.ops import audio, audio_ref
+    from avsync_torch.ops.cuda import mfcc
+
+    g = torch.Generator(device="cpu").manual_seed(12)
+    cfg = AudioConfig()
+    hop, S = cfg.hop_length, cfg.max_audio_samples
+    melT, dctT, _ = audio.device_constants(cfg, dev)
+    F, K, M, C = 121, 1025, 128, 20
+    band = int(mfcc._band_table(melT)[1].sum().item())  # the band sums' terms
+    nnz = int((melT != 0).sum().item())
+
+    def spectra(n):
+        """Power spectrograms of noise clips whose lengths give n valid frames."""
+        lengths = torch.where(n > 0, (n - 1) * hop, 0).to(torch.int32)
+        x = (torch.rand(len(n), S, generator=g) - 0.5) * (torch.arange(S)[None, :]
+                                                           < lengths[:, None])
+        return audio.power_spectrogram(x.to(dev), cfg), lengths.to(dev)
+
+    def random_power(B, F, K):  # ~100 dB of spread, so the top_db clamp bites
+        return (torch.rand(B, F, K, generator=g) ** 8
+                * 10.0 ** (torch.rand(B, F, 1, generator=g) * 9 - 6)).to(dev)
+
+    def cycle(B, F):  # n_valid 0, 1, 2, a partial count, F
+        return torch.tensor([(0, 1, 2, F // 2 + 3, F)[i % 5] for i in range(B)],
+                            dtype=torch.int32)
+
+    print(f"mel_stats (K5) vs mel_stats_ref (filterbank: {nnz} nonzeros of {K * M}, "
+          f"bands of {band} bins in all):", flush=True)
+    errs = []
+    for B in (1, 8, 32, 40, 512):
+        n = cycle(B, F)
+        power, _ = spectra(n)
+        n = n.to(dev)
+        got = mfcc.mel_stats(power, n, melT, dctT)
+        errs.append(max_err(got, mfcc.mel_stats_ref(power, n, melT, dctT), K5_TOL,
+                            f"B={B} F={F} K={K} M={M} C={C} n_valid 0/1/2/{F // 2 + 3}/{F}"))
+        if B == 32:
+            same_bits([got], [mfcc.mel_stats(power, n, melT, dctT)], f"B={B} F={F}")
+    mel8k = torch.from_numpy(audio_ref.mel_filterbank(8000, 256, 40).astype(np.float32).T.copy())
+    dct13 = torch.from_numpy(audio_ref.dct_ortho_matrix(13, 40).astype(np.float32).T.copy())
+    odd = [("F=21 K=129 M=40 C=13", random_power(5, 21, 129), cycle(5, 21), mel8k, dct13),
+           ("F=21 K=129 M=40 C=13 dense random melT", random_power(5, 21, 129), cycle(5, 21),
+            torch.rand(129, 40, generator=g) * 0.05, dct13),
+           ("F=1 K=1025 M=128 C=20", random_power(3, 1, K),
+            torch.tensor([0, 1, 1], dtype=torch.int32), melT, dctT)]
+    for what, power, n, mT, dT in odd:
+        n, mT, dT = n.to(dev), mT.to(dev), dT.to(dev)
+        errs.append(max_err(mfcc.mel_stats(power, n, mT, dT),
+                            mfcc.mel_stats_ref(power, n, mT, dT), K5_TOL, what))
+
+    # times with every clip 3 s long (n = F): the train step, a scorer batch of
+    # 8 requests x 5 shifts, the eval sweep's chunk
+    times = {}
+    for B in (32, 40, 512):
+        n = torch.full((B,), F, dtype=torch.int32)
+        power, lengths = spectra(n)
+        n = n.to(dev)
+        out = mfcc.mel_stats(power, n, melT, dctT)
+        max_err(audio.stats_from_power(power, lengths, cfg), out, K5_TOL,
+                f"B={B}: use_pallas=False composition vs kernel (yardstick sanity)")
+        ms = time_ms(lambda: mfcc.mel_stats(power, n, melT, dctT))
+        plain = time_ms(lambda: mfcc.mel_stats_ref(power, n, melT, dctT))
+        lib = time_ms(lambda: audio.stats_from_power(power, lengths, cfg))
+        rows = B * F
+        n_bytes = 4 * (B * F * K + B + M * C + B * 2 * C) + 4 * (band + 3 * M)
+        n_ops = 2 * rows * (band + M * C) + 3 * rows * M + 4 * rows * C
+        dense = 2 * rows * (K * M + M * C)
+        bms, by = bound_ms(n_bytes, n_ops)
+        times[B] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
+        print(f"  B={B} F={F}: kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
+              f"bound_ms={bms:.4f} ({by}: {n_bytes / 1e6:.2f} MB, banded {n_ops / 1e9:.4f} "
+              f"GFLOP, dense {dense / 1e9:.3f} GFLOP)", flush=True)
+    return dict(name="mel_stats", route="cuda", source="avsync_torch/csrc/mel_stats.cu",
+                replaces="avsync/ops/pallas/mfcc.py:60", max_abs_err=max(errs),
+                **times[32], shape="B=32 F=121 K=1025 M=128 C=20 (a detector train step)",
+                times_B40=times[40], times_B512=times[512],
+                library_note="library_ms: the use_pallas=False composition from the same "
+                             "power (ops/audio.stats_from_power: cuBLAS fp32 einsums + torch "
+                             "elementwise and reductions); no single PyTorch call computes "
+                             "this function")
+
+
+def seeded_jax_layout_detector_params(input_dim: int, hidden: int, seed: int):
+    """Detector weights as the JAX package lays them out, drawn with numpy
+    (uniform +-1/sqrt(fan_in), as nn.Linear)."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    b1, b2 = input_dim ** -0.5, hidden ** -0.5
+    return {"fc1": {"kernel": r.uniform(-b1, b1, (input_dim, hidden)).astype(np.float32),
+                    "bias": r.uniform(-b1, b1, hidden).astype(np.float32)},
+            "fc2": {"kernel": r.uniform(-b2, b2, (hidden, 1)).astype(np.float32),
+                    "bias": r.uniform(-b2, b2, 1).astype(np.float32)}}
+
+
+def run_detector_serving(dev):
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from avsync_torch.config import AudioConfig, AvsyncConfig, ModelConfig
+    from avsync_torch.ops.audio import shifted_audio_stats
+    from avsync_torch.predictor import MisalignmentScorer
+    from avsync_torch.serving import SyncScoreService
+
+    cfg = AvsyncConfig(model=ModelConfig(fused_conv_pool=True), audio=AudioConfig(use_pallas=True))
+    plain_cfg = AvsyncConfig()
+    lip = seeded_jax_layout_params(cfg, seed=0)
+    det = seeded_jax_layout_detector_params(2 * 6912 + 40, 256, seed=1)
+    scorer = MisalignmentScorer(config=cfg, device=dev, detector_params=det, lipnet_params=lip)
+    plain = MisalignmentScorer(config=plain_cfg, device=dev, detector_params=det,
+                               lipnet_params=lip)
+    if not scorer.lipnet.conv1.fused or plain.lipnet.conv1.fused:
+        raise SystemExit("the detector slice's scorers do not route conv1 as configured")
+    svc = SyncScoreService(scorer, max_batch=MAX_BATCH, max_wait_ms=5.0)
+    t0 = time.perf_counter()
+    svc.warmup(DET_SHIFTS)
+    svc.warmup(DET_SHIFTS, frames=np.zeros((75, 288, 360), np.uint8))
+    torch.cuda.synchronize()
+    print(f"detector serving slice: full width (conv 32/64/96, 50x100, T=75; detector "
+          f"13864 -> 256 -> 1; MFCC 16 kHz, 48000 samples, 121 frames), shifts {DET_SHIFTS}, "
+          f"warmup {time.perf_counter() - t0:.2f} s", flush=True)
+
+    r = np.random.default_rng(8)
+    n_req, n_threads = 32, 16
+    clips = [r.integers(0, 256, (75, 288, 360), dtype=np.uint8) if i % 2 == 0
+             else r.integers(0, 256, (75, 50, 100), dtype=np.uint8) for i in range(n_req)]
+    lengths = r.integers(1, 48001, n_req)
+    lengths[0], lengths[1] = 0, 48000
+    audios = [syllable_audio(r, int(n)) for n in lengths]
+    answers = [None] * n_req
+    errors = []
+
+    def client(tid):
+        try:
+            for i in range(tid, n_req, n_threads):
+                answers[i] = svc.score_arrays(clips[i], audios[i], 25.0, DET_SHIFTS, timeout=300)
+        except Exception as e:  # noqa: BLE001 — reported and failed below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(n_threads)]
+    zero_counts()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    got = counts()
+    if errors or any(t.is_alive() for t in threads) or any(a is None for a in answers):
+        raise SystemExit(f"detector serving failed: {errors}")
+    stats = svc.stats.snapshot()
+    svc.close()
+    n_batches = sum(stats["batches"].values())
+    print(f"  requests={stats['requests']} threads={n_threads} batches={stats['batches']} "
+          f"p50_ms={stats['latency_ms']['p50']} p99_ms={stats['latency_ms']['p99']} "
+          f"requests_per_s={n_req / wall:.2f} wall_s={wall:.3f}", flush=True)
+    print(f"  launches: {got} (expected conv1_pool and mel_stats {n_batches} each, one per "
+          f"batch; no GRU or backward kernel)", flush=True)
+    if (stats["requests"] != n_req or got["conv1_pool"] != n_batches
+            or got["mel_stats"] != n_batches
+            or got["gru_fwd"] or got["gru_bwd"] or got["conv1_pool_bwd"]):
+        raise SystemExit("detector serving launch counts do not match the batches served")
+    if not set(stats["batches"]) <= set(BUCKETS):
+        raise SystemExit(f"a batch size outside the checked buckets {BUCKETS}")
+
+    worst = 0.0
+    for i in range(n_req):
+        a = np.asarray(answers[i])
+        want = plain.score_arrays(clips[i], audios[i], 25.0, DET_SHIFTS)
+        if a.shape != (len(DET_SHIFTS),) or not np.isfinite(a).all():
+            raise SystemExit(f"request {i}: bad probabilities {a}")
+        worst = max(worst, float(np.abs(a - want).max()))
+    print(f"  probabilities kernel path vs plain path: max_abs_err={worst:.3e} "
+          f"(tol {PROB_ATOL}) {'ok' if worst <= PROB_ATOL else 'FAIL'}", flush=True)
+    if worst > PROB_ATOL:
+        raise SystemExit("the detector's kernel path disagrees with its plain path")
+    buf = np.zeros((n_req, 48000), np.float32)
+    for i, a in enumerate(audios):
+        buf[i, :len(a)] = a
+    K = len(DET_SHIFTS)
+    rows = (torch.from_numpy(buf).to(dev).repeat_interleave(K, 0),
+            torch.from_numpy(lengths.astype(np.int32)).to(dev).repeat_interleave(K),
+            torch.tensor(DET_SHIFTS * n_req, dtype=torch.int32, device=dev),
+            torch.full((n_req * K,), 25.0, device=dev))
+    with torch.inference_mode():
+        max_err(shifted_audio_stats(*rows, cfg.audio),
+                shifted_audio_stats(*rows, dataclasses.replace(cfg.audio, use_pallas=False)),
+                K5_TOL, f"audio statistics of the {n_req * K} served (clip, shift) rows, "
+                        "K5 vs the XLA path")
+    print(f"  sample probabilities: {np.round(answers[0], 4).tolist()} (no audio), "
+          f"{np.round(answers[1], 4).tolist()} (48000 samples)", flush=True)
+    return got
+
+
+def run_detector_training(dev, workdir: str):
+    """The port's `cli misalign-train` at full width with conv1's and the
+    MFCC stage's kernel flags, on the training slice's corpus and its trained
+    LipNet, then `cli misalign-eval`; then one detector step of the kernel
+    path against the plain path, the loss falling on one repeated batch, and
+    the detector step's time on both paths."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+
+    from avsync_torch import cli
+    from avsync_torch.config import (AudioConfig, AvsyncConfig, DetectorConfig, ModelConfig,
+                                     TrainConfig)
+    from avsync_torch.data.grid import GridDataSource, split_videos
+    from avsync_torch.features import gather_features, sample_shift_labels
+    from avsync_torch.models.detector import MisalignmentDetector
+    from avsync_torch.ops.conv import fp32_step
+    from avsync_torch.predictor import load_lipnet
+    from avsync_torch.train.detector_trainer import (detector_train_step, make_detector_optimizer,
+                                                     weighted_bce)
+
+    data, ck = os.path.join(workdir, "grid"), os.path.join(workdir, "ckpt")
+    det_path, logs = os.path.join(workdir, "detector.pth"), os.path.join(workdir, "det_logs")
+    sweep_json = os.path.join(workdir, "sweep.json")
+    cfg = AvsyncConfig(model=ModelConfig(fused_conv_pool=True), audio=AudioConfig(use_pallas=True),
+                       detector=DetectorConfig(epochs=2), train=TrainConfig(seed=0))
+    cfg_path = os.path.join(workdir, "detector_config.json")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    src = GridDataSource(data)
+    paths = src.video_paths
+    train_p, val_p, test_p = split_videos(paths, seed=cfg.train.seed)
+    bsz, det = cfg.data.batch_size, cfg.detector
+    plan = 1 + det.num_negative_samples  # plan entries per clip
+    bank_batches = sum(math.ceil(len(p) / bsz) for p in (train_p, val_p, test_p, paths))
+    steps = det.epochs * math.ceil(plan * len(train_p) / det.batch_size)
+    evals = (det.epochs * math.ceil(plan * len(val_p) / det.batch_size)
+             + math.ceil(plan * len(test_p) / det.batch_size))
+    sweep_rows = math.ceil(len(paths) / cli._SWEEP_CLIP_CHUNK) * (1 + 16)
+    print(f"detector training slice: full width, {len(paths)} clips with audio "
+          f"(train {len(train_p)}, val {len(val_p)}, test {len(test_p)}), the LipNet trained "
+          f"above, batch {det.batch_size}, {det.epochs} epochs", flush=True)
+    common = ["--data_path", data, "--config", cfg_path, "--checkpoint", ck,
+              "--detector_checkpoint", det_path]
+    zero_counts()
+    t0 = time.perf_counter()
+    rc = [cli.main(["misalign-train", *common, "--log_dir", logs, "--save_every", "1"]),
+          cli.main(["misalign-eval", *common, "--min_shift", "5", "--max_shift", "20",
+                    "--output", sweep_json])]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    if rc != [0, 0]:
+        raise SystemExit(f"cli misalign-train/misalign-eval returned {rc}")
+    want = {"conv1_pool": bank_batches, "gru_fwd": 0, "gru_bwd": 0, "conv1_pool_bwd": 0,
+            "mel_stats": steps + evals + sweep_rows}
+    print(f"  misalign-train + misalign-eval: wall_s={wall:.2f}; launches {got} (expected "
+          f"{want}: conv1_pool once per bank batch of {bsz} clips ({bank_batches}), mel_stats "
+          f"once per train step ({steps}), eval batch ({evals}) and sweep row "
+          f"({sweep_rows}))", flush=True)
+    if got != want:
+        raise SystemExit("detector launch counts do not match what the commands ran")
+    (run,) = os.listdir(logs)
+    written = sorted(os.listdir(os.path.join(logs, run)))
+    with open(sweep_json) as f:
+        sweep = json.load(f)
+    aurocs = list(sweep["auroc_by_shift"].values()) + [sweep["overall_auroc"]]
+    print(f"  log folder {written}; sweep over {sweep['num_clips']} clips: overall AUROC "
+          f"{sweep['overall_auroc']:.4f} (random LipNet and a 2-epoch detector on noise: "
+          f"a check of the path, not of accuracy)", flush=True)
+    if (not {"checkpoint_epoch_1.pth", "checkpoint_epoch_2.pth", "detector.pth"} <= set(written)
+            or sweep["num_clips"] != len(paths) or len(sweep["auroc_by_shift"]) != 16
+            or not all(np.isfinite(aurocs))):
+        raise SystemExit("the detector run left the wrong snapshots or sweep")
+
+    # one step, kernel path vs plain path: same weights, same batch, dropout 0
+    lipnet = load_lipnet(cfg, cli._load_state_dict(ck), dev)
+    bank = cli._build_bank(cfg, src, lipnet, train_p, dev)
+    vi, sh, lb = (torch.from_numpy(a[:det.batch_size]).to(dev) for a in sample_shift_labels(
+        len(train_p), det.max_shift_frames, det.num_negative_samples, np.random.default_rng(0)))
+    w = torch.ones(len(vi), device=dev)
+    dim = bank.visual.shape[1] + 2 * cfg.audio.n_mfcc
+    model = MisalignmentDetector(dim, det.hidden_dim, 0.0,
+                                 generator=torch.Generator().manual_seed(2)).to(dev)
+    plain_audio = dataclasses.replace(cfg.audio, use_pallas=False)
+    losses, grads = [], []
+    for audio_cfg in (cfg.audio, plain_audio):
+        model.zero_grad(set_to_none=True)
+        with fp32_step():
+            with torch.no_grad():
+                feats = gather_features(bank, vi, sh, audio_cfg)
+            loss = weighted_bce(model(feats), lb, w)
+            loss.backward()
+        losses.append(loss.item())
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
+    loss_err = abs(losses[0] - losses[1]) / abs(losses[1])
+    worst = max(((grads[0][n] - g).abs().max() / g.abs().max()).item()
+                for n, g in grads[1].items())
+    print(f"  one detector step B={det.batch_size}, kernel path vs plain path: loss "
+          f"{losses[0]:.6f} vs {losses[1]:.6f} (rel err {loss_err:.2e}, tol {STEP_LOSS_RTOL}); "
+          f"every gradient: max err / max |grad| = {worst:.2e} (tol {STEP_GRAD_RTOL})",
+          flush=True)
+    if loss_err > STEP_LOSS_RTOL or worst > STEP_GRAD_RTOL:
+        raise SystemExit("the detector step's kernel path disagrees with its plain path")
+
+    opt = make_detector_optimizer(model.parameters(), OVERFIT_LR, det.weight_decay)
+    first = detector_train_step(model, opt, bank, vi, sh, lb, w, cfg.audio)[0].item()
+    for _ in range(OVERFIT_STEPS - 2):
+        detector_train_step(model, opt, bank, vi, sh, lb, w, cfg.audio)
+    last = detector_train_step(model, opt, bank, vi, sh, lb, w, cfg.audio)[0].item()
+    print(f"  repeated batch, lr {OVERFIT_LR}, {OVERFIT_STEPS} steps: loss {first:.4f} -> "
+          f"{last:.4f}", flush=True)
+    if not last < first:
+        raise SystemExit("the detector's loss did not fall over the repeated batch")
+
+    step_ms = {}  # lr 0: the update runs, the weights stay
+    for name, audio_cfg in (("kernel_path", cfg.audio), ("plain_path", plain_audio)):
+        m = MisalignmentDetector(dim, det.hidden_dim, det.dropout,
+                                 generator=torch.Generator().manual_seed(3)).to(dev)
+        o = make_detector_optimizer(m.parameters(), 0.0, det.weight_decay)
+        gen = torch.Generator(device=dev)
+        step_ms[name] = time_ms(lambda: detector_train_step(m, o, bank, vi, sh, lb, w, audio_cfg,
+                                                            gen.manual_seed(0)))
+    print(f"  detector train step B={det.batch_size} (CUDA events, median of 20): "
+          f"kernel_path_ms={step_ms['kernel_path']:.4f} "
+          f"plain_path_ms={step_ms['plain_path']:.4f}", flush=True)
+    return got
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "avsync_torch", "csrc")):
         print("chip_smoke: run from a checkout of the repository (avsync_torch/ missing)",
@@ -771,7 +1147,7 @@ def main() -> int:
 
     from avsync_torch.ops.cuda import build
 
-    names = ["conv1_pool", "gru_fwd", "gru_bwd", "conv1_pool_bwd"]
+    names = ["conv1_pool", "gru_fwd", "gru_bwd", "conv1_pool_bwd", "mel_stats"]
     t0 = time.perf_counter()
     secs = build.build(names)
     print(f"build: {sorted(secs)} in {time.perf_counter() - t0:.1f} s "
@@ -785,11 +1161,18 @@ def main() -> int:
     k2 = check_gru(dev)
     k3 = check_gru_bwd(dev)
     k4 = check_conv1_pool_bwd(dev)
+    k5 = check_mel_stats(dev)
     k1["launches_serving"], k2["launches_serving"] = run_slice(dev)
+    served = run_detector_serving(dev)
     with tempfile.TemporaryDirectory() as workdir:
         trained = run_training(dev, workdir)
+        detector = run_detector_training(dev, workdir)
     for k in (k1, k2, k3, k4):
         k["launches"] = trained[k["name"]]
+    k5["launches"], k5["launches_serving"] = detector["mel_stats"], served["mel_stats"]
+    k1["launches_detector"] = detector["conv1_pool"]
+    k1["launches_detector_serving"] = served["conv1_pool"]
+    for k in (k1, k2, k3, k4, k5):
         if not k["launches"] or k.get("launches_serving") == 0:
             raise SystemExit(f"{k['name']} was not launched on its main path")
 
@@ -797,13 +1180,12 @@ def main() -> int:
           "K2 pallas_gru_scan (avsync/ops/pallas/gru.py:357)=ported+checked; "
           "K3 pallas_gru_bwd (avsync/ops/pallas/gru.py:276)=ported+checked; "
           "K4 conv1_pool_bwd (avsync/ops/pallas/convpool.py:244)=ported+checked; "
-          "K5 pallas_mel_stats (avsync/ops/pallas/mfcc.py:60)=not yet ported "
-          "(detector slice)", flush=True)
+          "K5 pallas_mel_stats (avsync/ops/pallas/mfcc.py:60)=ported+checked", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [{**{k: d[k] for k in keys},
                          **{k: v for k, v in d.items() if k not in keys}}
-                        for d in (k1, k2, k3, k4)]}
+                        for d in (k1, k2, k3, k4, k5)]}
     print(json.dumps(line), flush=True)
     if any(m.split(".")[0] in ("jax", "flax", "avsync") for m in sys.modules):
         raise SystemExit("the port pulled in jax or the avsync package")

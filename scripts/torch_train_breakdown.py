@@ -112,7 +112,10 @@ def main() -> int:
         wall_ms = (time.perf_counter() - t0) * 1e3
     per_kernel = {}
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        # device work only: a user annotation (e.g. "Optimizer.step#Adam.step")
+        # is a range on the device's timeline, not a kernel
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
             dur_ms = evt.time_range.elapsed_us() / 1e3
             per_kernel[evt.name] = per_kernel.get(evt.name, 0.0) + dur_ms / n
     busy = sum(per_kernel.values())

@@ -39,6 +39,9 @@ def test_every_module_imports_without_jax_or_avsync():
     assert "avsync_torch.predictor" in loaded and "avsync_torch.serving" in loaded
     assert {"avsync_torch.train.lipnet_trainer", "avsync_torch.data.pipeline",
             "avsync_torch.utils.checkpoint", "avsync_torch.cli"} <= set(loaded)
+    assert {"avsync_torch.ops.audio", "avsync_torch.ops.audio_ref", "avsync_torch.ops.cuda.mfcc",
+            "avsync_torch.models.detector", "avsync_torch.features",
+            "avsync_torch.train.detector_trainer"} <= set(loaded)
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix() for p in
@@ -62,6 +65,20 @@ def test_lipreader_without_device_raises_when_cuda_is_absent(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LipReader(params={}, device=None)
+
+
+@pytest.mark.parametrize("make", ["scorer", "detector_trainer"])
+def test_detector_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch, make):
+    from avsync_torch.config import AvsyncConfig
+    from avsync_torch.predictor import MisalignmentScorer
+    from avsync_torch.train.detector_trainer import DetectorTrainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        if make == "scorer":
+            MisalignmentScorer(detector_params={}, lipnet_params={})
+        else:
+            DetectorTrainer(AvsyncConfig())
 
 
 def test_config_json_round_trips_with_the_jax_package():

@@ -12,7 +12,7 @@ machine with one (and nvcc), run:
 import pytest
 import torch
 
-from avsync_torch.ops.cuda import convpool, gru
+from avsync_torch.ops.cuda import convpool, gru, mfcc
 
 pytestmark = pytest.mark.cuda
 
@@ -25,6 +25,7 @@ K3_SUM_TOL = dict(atol=1e-4, rtol=1e-4)
 # dW, db of the conv1 block: sums over up to B*T*H/2*W/2 = 750,000 routed
 # positions (atol 1e-3 / rtol 1e-4 as tests/test_pallas_convpool.py)
 K4_TOL = dict(atol=1e-3, rtol=1e-4)
+K5_TOL = dict(atol=1e-4, rtol=1e-5)  # as tests/test_pallas_mfcc.py:31
 
 
 @pytest.fixture
@@ -235,3 +236,72 @@ def test_model_gradients_kernel_path_match_plain_path(dev):
         assert got is not None and torch.isfinite(got).all(), name
         scale = want.abs().max().item()
         assert (got - want).abs().max().item() <= 1e-3 * scale + 1e-7, name
+
+
+def _mel_case(g, dev, B, F, sr, n_fft, M, C, dense=False):
+    from avsync_torch.ops import audio_ref
+
+    melT = torch.from_numpy(audio_ref.mel_filterbank(sr, n_fft, M).astype("float32").T.copy())
+    if dense:
+        melT = torch.rand(melT.shape, generator=g) * 0.05
+    dctT = torch.from_numpy(audio_ref.dct_ortho_matrix(C, M).astype("float32").T.copy())
+    K = n_fft // 2 + 1
+    power = (torch.rand(B, F, K, generator=g) ** 8
+             * 10.0 ** (torch.rand(B, F, 1, generator=g) * 9 - 6))
+    n = torch.tensor([(0, 1, 2, F, max(1, F // 2))[i % 5] for i in range(B)], dtype=torch.int32)
+    return power.to(dev), n.to(dev), melT.to(dev), dctT.to(dev)
+
+
+@pytest.mark.parametrize("B,F,sr,n_fft,M,C,dense", [
+    (1, 121, 16000, 2048, 128, 20, False), (8, 121, 16000, 2048, 128, 20, False),
+    (32, 121, 16000, 2048, 128, 20, False), (40, 121, 16000, 2048, 128, 20, False),
+    (5, 21, 8000, 256, 40, 13, False), (3, 1, 8000, 256, 40, 13, False),
+    (5, 21, 8000, 256, 40, 13, True)])
+def test_mel_stats_matches_plain(dev, B, F, sr, n_fft, M, C, dense):
+    """n_valid cycles through 0, 1, 2, F and a partial count; a repeat
+    launch gives the same bits (fixed-order reductions, no float atomics)."""
+    power, n, melT, dctT = _mel_case(_gen(14), dev, B, F, sr, n_fft, M, C, dense)
+    want = mfcc.mel_stats_ref(power, n, melT, dctT)
+    before = mfcc.launches
+    got = mfcc.mel_stats(power, n, melT, dctT)
+    again = mfcc.mel_stats(power, n, melT, dctT)
+    torch.cuda.synchronize()
+    assert mfcc.launches == before + 2
+    torch.testing.assert_close(got, want, **K5_TOL)
+    assert torch.equal(got, again)
+    assert torch.isfinite(got).all() and not got[n == 0].any()
+
+
+def test_audio_stats_on_the_card_go_through_k5_only(dev, monkeypatch):
+    """`audio_stats(use_pallas=True)` on a CUDA tensor launches K5 and never
+    reaches the plain version; it agrees with the XLA-path composition."""
+    import dataclasses
+
+    from avsync_torch.config import AudioConfig
+    from avsync_torch.ops import audio
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on the card")
+
+    g = _gen(15)
+    x = (torch.rand(6, 48000, generator=g) - 0.5).to(dev)
+    lengths = torch.tensor([48000, 30000, 0, 400, 399, 1], dtype=torch.int32).to(dev)
+    cfg = AudioConfig(use_pallas=True)
+    monkeypatch.setattr(mfcc, "mel_stats_ref", refuse)
+    before = mfcc.launches
+    got = audio.audio_stats(x, lengths, cfg)
+    torch.cuda.synchronize()
+    assert mfcc.launches == before + 1
+    monkeypatch.undo()
+    want = audio.audio_stats(x, lengths, dataclasses.replace(cfg, use_pallas=False))
+    torch.testing.assert_close(got, want, **K5_TOL)
+
+
+def test_mel_stats_refuses_what_the_kernel_does_not_take(dev):
+    melT = torch.rand(60000, 4, device=dev)
+    dctT = torch.rand(4, 2, device=dev)
+    n = torch.ones(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        mfcc.mel_stats(torch.rand(1, 3, 60000, device=dev), n, melT, dctT)
+    with pytest.raises(ValueError, match="int32"):
+        mfcc.mel_stats(torch.rand(1, 3, 60000, device=dev), n.long(), melT, dctT)
