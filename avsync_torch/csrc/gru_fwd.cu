@@ -14,27 +14,46 @@
 // What bounds it on the H100: not bytes (w_hh 0.79 MB + gi 1.8 MB + out
 // 0.6 MB per direction at B=8, T=75, H=256) and barely operations (0.24
 // GFLOP per direction), but the chain of T dependent steps: each step needs
-// the whole h_{t-1} from the step before, so the latency of one step (a
-// (B, H) x (H, 3H) product, the gates, and one exchange of h) times T is
-// the floor that matters.
+// the whole h_{t-1} from the step before, so the latency of one step times T
+// is the floor that matters. The earlier design (a K-split product reduced
+// through shared memory and __syncthreads, 2,048 scattered one-word DSMEM
+// stores per CTA and a full cluster barrier per step) took ~5 us per step
+// at B=8, of which ~2.5 us was the exchange (push + cluster barrier) and
+// ~1.5 us the product, its weights read from shared memory.
 //
-// Design. Like the TPU kernel, w_hh and h stay on chip for all T steps. In
-// f32 w_hh is 768 KiB at H = 256, more than one SM's shared memory, so a
-// thread-block cluster of 8 CTAs splits it:
-//   * one cluster per (direction, tile of BT batch rows); CTA k of the
-//     cluster owns hidden units [k*U, (k+1)*U), U = H/8, and keeps their r, z
-//     and n columns of w_hh in shared memory (H x 3U floats: 96 KB at
-//     H = 256) for the whole launch;
-//   * every CTA holds a full copy of h_{t-1} (H x BT floats) in a
-//     double-buffered shared array;
-//   * per step each CTA computes its 3U columns of h W_hh for its BT rows
-//     (the K = H sum split over warps, partial sums reduced through shared
-//     memory), the gates and its U units of h_t; it writes them to out and
-//     pushes them into the next h buffer of all 8 CTAs through distributed
-//     shared memory; one cluster barrier ends the step. Double buffering
-//     makes that one barrier per step enough;
-//   * the step's gi values are loaded before the product, so their latency
-//     hides behind it.
+// Design. w_hh and h stay on chip for all T steps; a thread-block cluster
+// of 8 CTAs splits w_hh, and each CTA keeps its part in REGISTERS:
+//   * one cluster per (direction, tile of BT batch rows); CTA k owns hidden
+//     units [k*U, (k+1)*U), U = H/8. Warp w owns 4 of them; its lane
+//     (kq = lane/4, uq = lane%4) holds the r, z, n weights of unit uq for
+//     the H/8 rows k of w_hh in [kq*U, (kq+1)*U), the units of CTA kq (96
+//     registers at H = 256);
+//   * per step each lane multiplies its k values of h_{t-1}, CTA kq's slice
+//     of the shared copy, read as float4 (slices padded so the 8 kq lanes
+//     hit disjoint banks, 4 lanes per address), into 3 x BT partial sums.
+//     (Reading k = i*8 + kq one float at a time, at 224 registers, left the
+//     loads unbatched: ~0.6 us of each step.) A transposing
+//     butterfly over the 8 kq lanes (shuffles, no shared memory, no CTA
+//     barrier) leaves each lane with the full r, z, n sums of one (unit,
+//     row), in a fixed order, so repeats give the same bits;
+//   * that lane applies the gates and stores h_t into the next h buffer of
+//     all 8 CTAs with st.async, each store completing 4 bytes of the
+//     transaction count of that CTA's mbarrier for the buffer (the warp's
+//     4 x BT values are consecutive: one coalesced store per peer and
+//     warp). No fence and no arrival on the writer's side: a first version
+//     that stored, then arrived with release semantics at cluster scope,
+//     spent ~1.3 us of each step in that release;
+//   * a CTA waits only on its own mbarrier for the buffer it is about to
+//     read, whose phase completes when the bytes of the whole h_{t-1} have
+//     landed (thread 0 posts that count once per phase); there is no
+//     cluster-wide barrier in the loop. Double buffering is safe without an
+//     "empty" barrier: a lane pushes h_t into buffer (t+1)&1 only after its
+//     CTA has received all of h_{t-1}, which every CTA pushes only after
+//     its last read of that buffer for step t-1;
+//   * each step's gi values are loaded one step ahead, and the output is
+//     stored after the pushes, so no global latency sits on the chain.
+// Rows per cluster: the fewest (1, 2 or 4) for which every cluster of the
+// launch is resident at once (the occupancy query, cached per device).
 // Both directions of a bidirectional layer share one launch (grid.y is the
 // direction) and write their halves of the (B, T, 2H) output directly.
 // Accuracy: expf / tanhf, no fast-math.
@@ -42,12 +61,18 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+#include <cstdint>
+
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int CLUSTER = 8;  // CTAs per cluster; each owns H/8 hidden units
-constexpr int NT = 256;     // threads per CTA
+constexpr int UPW = 4;      // hidden units per warp
+constexpr int KQ = 8;       // K-slices per warp: lane = kq * UPW + uq
+constexpr int MAX_KPL = 32; // k values per lane (H/8): H <= 256
+constexpr int MAX_NT = 32 * (MAX_KPL / UPW);  // 8 warps at H = 256
 
 struct GruParams {
   const float* gi[2];   // per direction; gi[d][b*gi_sb + t*gi_st + col]
@@ -62,8 +87,75 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-template <int BT>
-__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT, 1)
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Address of the same shared variable in CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t peer_addr(uint32_t local, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(local), "r"(rank));
+  return out;
+}
+
+// Store v into a peer's shared memory; the store completes 4 bytes of the
+// transaction count of the peer's mbarrier `bar` when it has landed (no
+// fence on the writer's side).
+__device__ __forceinline__ void st_peer(uint32_t addr, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];"
+               ::"r"(addr), "f"(v), "r"(bar) : "memory");
+}
+
+// The barrier's next phase completes when `bytes` more have landed.
+__device__ __forceinline__ void expect_bytes(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes) : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed (acquire at
+// cluster scope: the data came from the peers). A phase
+// that never completes (a broken invariant) traps after ~seconds instead of
+// hanging the card.
+__device__ __forceinline__ void wait_phase(uint32_t bar, uint32_t parity) {
+  for (long long spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{ .reg .pred p;\n"
+        "  mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "  selp.u32 %0, 1, 0, p; }"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (spin > (1ll << 22)) __trap();
+  }
+}
+
+// Sum over the 8 kq lanes (lane bits 2-4) of v[N][3]: halving the rows over
+// bit `mask` while more than one row is held, then a butterfly. Each add is
+// (own + partner's) of the same pair, so both lanes of a pair get the same
+// bits and the tree is fixed.
+template <int N>
+__device__ __forceinline__ void halve(float (&v)[N][3], int lane, int mask) {
+  const bool hi = lane & mask;
+#pragma unroll
+  for (int r = 0; r < N / 2; ++r)
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      const float send = hi ? v[r][g] : v[r + N / 2][g];
+      const float keep = hi ? v[r + N / 2][g] : v[r][g];
+      v[r][g] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
+    }
+}
+
+template <int N>
+__device__ __forceinline__ void butterfly(float (&v)[N][3], int mask) {
+#pragma unroll
+  for (int g = 0; g < 3; ++g) v[0][g] += __shfl_xor_sync(0xffffffffu, v[0][g], mask);
+}
+
+// BT: batch rows per cluster (1, 2 or 4). NK: k values per lane (H/8) when
+// known at compile time, 0 = read H at run time (H/8 <= MAX_KPL).
+template <int BT, int NK>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(MAX_NT, 1)
 gru_fwd_kernel(const GruParams p) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -71,152 +163,199 @@ gru_fwd_kernel(const GruParams p) {
   const int b0 = blockIdx.z * BT;
   const int H = p.H, T = p.T;
   const int U = H / CLUSTER;
-  const int U3 = 3 * U;
-  const int S = NT / U;              // K-slices of the h W_hh product
-  const int L = (H + S - 1) / S;     // slice length
-  const int tid = threadIdx.x;
+  const int nk = NK ? NK : H / KQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kq = lane / UPW, uq = lane % UPW;
+  const int ul = warp * UPW + uq;  // unit within the CTA
+  const bool unit_ok = ul < U;
+  const int j = rank * U + (unit_ok ? ul : 0);  // hidden unit
   const bool rev = (p.reverse_mask >> d) & 1;
 
+  // after the reduction: the lane's batch row, and whether it is the one
+  // lane of its duplicates that writes
+  const int rb = BT == 4 ? ((lane >> 4) & 1) * 2 + ((lane >> 3) & 1)
+                         : (BT == 2 ? (lane >> 4) & 1 : 0);
+  const bool writer =
+      unit_ok && (BT == 4 ? !(lane & 4) : (BT == 2 ? !(lane & 12) : !(lane & 28)));
+  const int gb = b0 + rb;
+  const bool row_ok = writer && gb < p.B;
+
   extern __shared__ float4 smem4[];
-  float* s_w = reinterpret_cast<float*>(smem4);  // [H][3U]: r | z | n columns
-  float* s_h = s_w + H * U3;                     // [2][H][BT]
-  float* s_red = s_h + 2 * H * BT;               // [S][3][BT][U]
+  // [2][8 CTA slices][slice]: slice r holds units [r*U, (r+1)*U) as [U][BT],
+  // padded to a stride S = 4 (mod 32) floats so that the 8 kq lanes' float4
+  // reads of 8 slices fall in 8 disjoint groups of 4 banks
+  const int S = U * BT + (36 - (U * BT) % 32) % 32;
+  float* s_h = reinterpret_cast<float*>(smem4);
+  __shared__ alignas(8) uint64_t s_bar[2];        // one per h buffer
 
-  const float* W = p.w_hh[d];
-  for (int i = tid; i < H * U3; i += NT) {
-    const int k = i / U3, c = i % U3;
-    const int col = (c / U) * H + rank * U + (c % U);
-    s_w[i] = W[k * p.w_sk + col * p.w_sc];
+  float w[MAX_KPL][3];
+  {
+    const float* W = p.w_hh[d];
+#pragma unroll
+    for (int i = 0; i < MAX_KPL; ++i) {
+      const bool ok = unit_ok && i < nk;
+      const long long k = ok ? kq * U + i : 0;
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+        w[i][g] = ok ? W[k * p.w_sk + (long long)(g * H + j) * p.w_sc] : 0.f;
+    }
   }
-  for (int i = tid; i < H * BT; i += NT) s_h[i] = 0.f;  // h_0 = 0
-
-  // finalize role: one (batch row, unit) per thread
-  const bool fin = tid < BT * U;
-  const int fb = tid / U, fu = tid % U;
-  const int gb = b0 + fb;
-  const bool row_ok = fin && gb < p.B;
-  const int jr = rank * U + fu;
-  float bhr = 0.f, bhz = 0.f, bhn = 0.f;
-  if (fin) {
-    bhr = p.b_hh[d][jr];
-    bhz = p.b_hh[d][H + jr];
-    bhn = p.b_hh[d][2 * H + jr];
-  }
+  float bh[3] = {0.f, 0.f, 0.f};
+  if (writer)
+#pragma unroll
+    for (int g = 0; g < 3; ++g) bh[g] = p.b_hh[d][g * H + j];
   const float* gi_row = p.gi[d] + (row_ok ? gb : 0) * p.gi_sb;
-  float* out_row = p.out + (row_ok ? gb : 0) * p.o_sb + d * p.o_sd + jr;
+  float* out_row = p.out + (row_ok ? gb : 0) * p.o_sb + d * p.o_sd + j;
 
-  // product role: column u, K-slice s
-  const int du = tid % U, ds = tid / U;
-  const bool dot = ds < S;
-  const int k0 = ds * L;
-  const int k1 = min(H, k0 + L);
+  // a phase of a buffer's barrier: thread 0's arrival with the bytes of one
+  // whole h (every CTA's slice), which the peers' stores then complete
+  const uint32_t h_bytes = H * BT * sizeof(float);
+  const uint32_t bar0 = smem_addr(&s_bar[0]);
+  // h_0 = 0; the padding stays 0 (it meets zero weights in the product)
+  for (int i = threadIdx.x; i < 2 * CLUSTER * S; i += blockDim.x) s_h[i] = 0.f;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar0 + 8 * q) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    // buffer 1 is first filled by step 0's pushes, buffer 0 by step 1's
+    if (T > 1) expect_bytes(bar0 + 8, h_bytes);
+    if (T > 2) expect_bytes(bar0, h_bytes);
+  }
+  cluster.sync();  // barriers and h_0 initialised before any push
 
-  cluster.sync();  // every CTA's shared memory is initialised before any push
+  // this lane's slot in every CTA's two h buffers
+  const int own = rank * S + ul * BT + rb;
+  const uint32_t slot0 = smem_addr(s_h + own);
 
-  int cur = 0;
+  // this step's gi values, loaded during the step before
+  float gi_t[3] = {0.f, 0.f, 0.f};
+  if (row_ok)
+#pragma unroll
+    for (int q = 0; q < 3; ++q) gi_t[q] = gi_row[(rev ? T - 1 : 0) * p.gi_st + q * H + j];
+
   for (int i = 0; i < T; ++i) {
     const int t = rev ? T - 1 - i : i;
-    float xr = 0.f, xz = 0.f, xn = 0.f;
-    if (row_ok) {
-      const float* g = gi_row + t * p.gi_st;
-      xr = g[jr];
-      xz = g[H + jr];
-      xn = g[2 * H + jr];
+    const int cur = i & 1;
+    if (i > 0) {
+      wait_phase(bar0 + 8 * cur, ((i - 1) >> 1) & 1);
+      // the buffer's next filling, by step i + 1's pushes, if there is one
+      if (threadIdx.x == 0 && i + 2 < T) expect_bytes(bar0 + 8 * cur, h_bytes);
     }
-    const float* hcur = s_h + cur * H * BT;
 
-    if (dot) {
-      float acc[3][BT];
+    const float* hcur = s_h + cur * CLUSTER * S;
+    float acc[BT][3];
 #pragma unroll
-      for (int g = 0; g < 3; ++g)
+    for (int b = 0; b < BT; ++b)
 #pragma unroll
-        for (int b = 0; b < BT; ++b) acc[g][b] = 0.f;
-      for (int k = k0; k < k1; ++k) {
-        const float* wk = s_w + k * U3 + du;
-        const float wr = wk[0], wz = wk[U], wn = wk[2 * U];
-        float hv[BT];
-        if constexpr (BT % 4 == 0) {
-          const float4* h4 = reinterpret_cast<const float4*>(hcur + k * BT);
+      for (int g = 0; g < 3; ++g) acc[b][g] = 0.f;
+    // lane kq's k values [kq*U, (kq+1)*U) are slice kq: float4 c holds
+    // PER k values x BT rows
+    constexpr int PER = 4 / BT;
+    const float4* hs = reinterpret_cast<const float4*>(hcur + kq * S);
 #pragma unroll
-          for (int q = 0; q < BT / 4; ++q) {
-            const float4 v = h4[q];
-            hv[4 * q] = v.x; hv[4 * q + 1] = v.y;
-            hv[4 * q + 2] = v.z; hv[4 * q + 3] = v.w;
-          }
-        } else {
+    for (int c = 0; c < MAX_KPL / PER; ++c) {
+      if (NK == 0 && c * PER >= nk) break;
+      const float4 v = hs[c];
+      const float e[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-          for (int b = 0; b < BT; ++b) hv[b] = hcur[k * BT + b];
-        }
-#pragma unroll
-        for (int b = 0; b < BT; ++b) {
-          acc[0][b] = fmaf(hv[b], wr, acc[0][b]);
-          acc[1][b] = fmaf(hv[b], wz, acc[1][b]);
-          acc[2][b] = fmaf(hv[b], wn, acc[2][b]);
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < 3; ++g)
+      for (int kk = 0; kk < PER; ++kk)
 #pragma unroll
         for (int b = 0; b < BT; ++b)
-          s_red[((ds * 3 + g) * BT + b) * U + du] = acc[g][b];
-    }
-    __syncthreads();
-
-    if (fin) {
-      float ghr = 0.f, ghz = 0.f, ghn = 0.f;
-      for (int s = 0; s < S; ++s) {
-        const float* rs = s_red + (s * 3 * BT + fb) * U + fu;
-        ghr += rs[0];
-        ghz += rs[BT * U];
-        ghn += rs[2 * BT * U];
-      }
-      ghr += bhr;
-      ghz += bhz;
-      ghn += bhn;
-      const float hp = hcur[jr * BT + fb];
-      const float r = sigmoidf(xr + ghr);
-      const float z = sigmoidf(xz + ghz);
-      const float n = tanhf(xn + r * ghn);
-      const float hn = (1.f - z) * n + z * hp;
-      if (row_ok) out_row[t * p.o_st] = hn;
-      float* nxt = s_h + (cur ^ 1) * H * BT + jr * BT + fb;
 #pragma unroll
-      for (int q = 0; q < CLUSTER; ++q) *cluster.map_shared_rank(nxt, q) = hn;
+          for (int g = 0; g < 3; ++g)
+            acc[b][g] = fmaf(e[kk * BT + b], w[c * PER + kk][g], acc[b][g]);
     }
-    cluster.sync();  // h_t complete everywhere; s_red free for the next step
-    cur ^= 1;
+
+    float s[3];
+    if constexpr (BT == 4) {
+      halve<4>(acc, lane, 16);
+      float (&a2)[2][3] = reinterpret_cast<float (&)[2][3]>(acc);
+      halve<2>(a2, lane, 8);
+      butterfly<2>(a2, 4);
+#pragma unroll
+      for (int g = 0; g < 3; ++g) s[g] = a2[0][g];
+    } else if constexpr (BT == 2) {
+      halve<2>(acc, lane, 16);
+      butterfly<2>(acc, 8);
+      butterfly<2>(acc, 4);
+#pragma unroll
+      for (int g = 0; g < 3; ++g) s[g] = acc[0][g];
+    } else {
+      butterfly<1>(acc, 16);
+      butterfly<1>(acc, 8);
+      butterfly<1>(acc, 4);
+#pragma unroll
+      for (int g = 0; g < 3; ++g) s[g] = acc[0][g];
+    }
+
+    const bool push = i + 1 < T;  // the last h_t feeds no further step
+    float hn = 0.f;
+    if (writer) {
+      const float hp = hcur[own];
+      const float r = sigmoidf(gi_t[0] + (s[0] + bh[0]));
+      const float z = sigmoidf(gi_t[1] + (s[1] + bh[1]));
+      const float n = tanhf(gi_t[2] + r * (s[2] + bh[2]));
+      hn = (1.f - z) * n + z * hp;
+      if (push) {
+        const uint32_t slot = slot0 + (cur ^ 1) * CLUSTER * S * sizeof(float);
+        const uint32_t bar = bar0 + 8 * (cur ^ 1);
+#pragma unroll
+        for (int q = 0; q < CLUSTER; ++q) st_peer(peer_addr(slot, q), hn, peer_addr(bar, q));
+      }
+    }
+    if (row_ok) {
+      out_row[t * p.o_st] = hn;
+      if (push) {
+        const float* g = gi_row + (rev ? t - 1 : t + 1) * p.gi_st;
+#pragma unroll
+        for (int q = 0; q < 3; ++q) gi_t[q] = g[q * H + j];
+      }
+    }
   }
+  cluster.sync();  // no CTA leaves while a peer may still touch its memory
 }
 
 size_t smem_bytes(int H, int BT) {
-  const int U = H / CLUSTER;
-  const int S = NT / U;
-  return sizeof(float) *
-         ((size_t)H * 3 * U + 2 * (size_t)H * BT + (size_t)S * 3 * BT * U);
+  const int ubt = H / CLUSTER * BT;
+  return sizeof(float) * 2 * CLUSTER * (size_t)(ubt + (36 - ubt % 32) % 32);
 }
 
-constexpr size_t MAX_SMEM = 232448;  // per-block opt-in limit on sm_90
+template <int BT, int NK>
+cudaError_t launch(const GruParams& p, int ndir, cudaStream_t stream) {
+  const int nt = 32 * ((p.H / CLUSTER + UPW - 1) / UPW);
+  const dim3 grid(CLUSTER, ndir, (p.B + BT - 1) / BT);
+  gru_fwd_kernel<BT, NK><<<grid, nt, smem_bytes(p.H, BT), stream>>>(p);
+  return cudaGetLastError();
+}
 
-// Rows per cluster: the smallest power of two >= B, at most 8, small enough
-// that every (row, unit) pair has its own thread and the shared arrays fit.
-int rows_per_cluster(int B, int H) {
-  const int U = H / CLUSTER;
-  int bt = 1;
-  while (bt < B && bt < 8) bt *= 2;
-  while (bt > 1 && (bt * U > NT || smem_bytes(H, bt) > MAX_SMEM)) bt /= 2;
-  return bt;
+// Clusters of one instantiation that can be resident at once on `device`
+// (8-warp CTAs: the most any H takes), queried once per device.
+constexpr int MAX_DEVICES = 64;
+std::atomic<int> resident[MAX_DEVICES][3];  // [device][log2 BT]; 0 = not asked yet
+
+template <int BT>
+int resident_clusters(int device) {
+  const int slot = BT == 1 ? 0 : (BT == 2 ? 1 : 2);
+  int n = device < MAX_DEVICES ? resident[device][slot].load() : 0;
+  if (n > 0) return n;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CLUSTER, 1, 1);
+  cfg.blockDim = dim3(MAX_NT, 1, 1);
+  cfg.dynamicSmemBytes = smem_bytes(MAX_KPL * KQ, BT);
+  if (cudaOccupancyMaxActiveClusters(&n, gru_fwd_kernel<BT, 0>, &cfg) != cudaSuccess ||
+      n < 1) {
+    cudaGetLastError();
+    n = 1;
+  }
+  if (device < MAX_DEVICES) resident[device][slot].store(n);
+  return n;
 }
 
 template <int BT>
-cudaError_t launch(const GruParams& p, int ndir, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p.H, BT);
-  cudaError_t e = cudaFuncSetAttribute(
-      gru_fwd_kernel<BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(CLUSTER, ndir, (p.B + BT - 1) / BT);
-  gru_fwd_kernel<BT><<<grid, NT, smem, stream>>>(p);
-  return cudaGetLastError();
+cudaError_t launch_bt(const GruParams& p, int ndir, cudaStream_t stream) {
+  return p.H == MAX_KPL * KQ ? launch<BT, MAX_KPL>(p, ndir, stream)
+                             : launch<BT, 0>(p, ndir, stream);
 }
 
 }  // namespace
@@ -228,19 +367,25 @@ extern "C" int avs_gru_fwd(
     long long o_sb, long long o_st, long long o_sd,
     int B, int T, int H, int ndir, int reverse_mask, int device,
     void* stream) {
-  if (H % CLUSTER != 0 || H / CLUSTER > NT || ndir < 1 || ndir > 2)
+  if (H % KQ != 0 || H < KQ || H / KQ > MAX_KPL || ndir < 1 || ndir > 2 || B < 1 ||
+      T < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (T == 0) return 0;
+  int cur = -1;
+  cudaError_t e = cudaGetDevice(&cur);
+  if (e == cudaSuccess && cur != device) e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
   GruParams p{{gi0, gi1}, {w0, w1}, {b0, b1}, out,
               gi_sb, gi_st, w_sk, w_sc, o_sb, o_st, o_sd,
               B, T, H, reverse_mask};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  switch (rows_per_cluster(B, H)) {
-    case 8: e = launch<8>(p, ndir, s); break;
-    case 4: e = launch<4>(p, ndir, s); break;
-    case 2: e = launch<2>(p, ndir, s); break;
-    default: e = launch<1>(p, ndir, s); break;
+  // the fewest rows per cluster whose clusters all fit at once
+  if (ndir * B <= resident_clusters<1>(device)) {
+    e = launch_bt<1>(p, ndir, s);
+  } else if (ndir * ((B + 1) / 2) <= resident_clusters<2>(device)) {
+    e = launch_bt<2>(p, ndir, s);
+  } else {
+    e = launch_bt<4>(p, ndir, s);
   }
   return static_cast<int>(e);
 }

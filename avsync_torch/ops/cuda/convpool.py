@@ -5,9 +5,10 @@ gradient: CUDA kernels and their plain twins.
     `avsync_torch/csrc/conv1_pool.cu` (K1), plain version `conv1_pool_ref`,
     launches counted in `launches`;
   * dW/db: port of `conv1_pool_bwd`, kernel `avsync_torch/csrc/
-    conv1_pool_bwd.cu` (K4; per-CTA partials, then a fixed-order sum in a
-    second kernel of the same launch), plain version `conv1_pool_bwd_ref`,
-    launches counted in `bwd_launches`;
+    conv1_pool_bwd.cu` (K4; per-CTA partials over the tile and frame chunks
+    that `bwd_grid` chooses, then a fixed-order sum in a second kernel of the
+    same launch), plain version `conv1_pool_bwd_ref`, launches counted in
+    `bwd_launches`;
   * `Conv1Pool`, the autograd Function around both that the model's fused
     conv1 block calls (the JAX package's `custom_vjp`,
     `convpool.py:154-196`).
@@ -46,16 +47,27 @@ bwd_launches = 0
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 11
              + [ctypes.c_int, ctypes.c_void_p])
 # avs_conv1_pool_bwd(x, w, bias, g, partial, dw, db, B, T, H, W, kt, kh, kw,
-#                    C, n_chunks, 4 x strides, 2 w strides, 5 g strides,
-#                    2 dw strides, device, stream)
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_longlong] * 13
+#                    C, n_chunks, tile_rows, tile_cols, 4 x strides,
+#                    2 w strides, 5 g strides, 2 dw strides, device, stream)
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_longlong] * 13
                  + [ctypes.c_int, ctypes.c_void_p])
-# Frame chunks of the backward grid: each CTA walks B*T/N_CHUNKS frames and
-# writes one partial. Fixed, so that the partials (and dW's bits) do not
-# depend on the card.
-N_CHUNKS = 64
-TILE_H2, TILE_W2 = 8, 32  # pooled tile of one CTA (as in the .cu sources)
+BWD_THREADS = 256  # threads per CTA of the backward kernel: positions per tile, at most
+BWD_MAX_TILE_COLS = 64
+# CTAs the backward grid aims at: two per SM of an H100 (132 SMs). A constant,
+# so that the partials (and dW's bits) do not depend on the card.
+BWD_TARGET_CTAS = 264
 MAX_CHANNELS, MAX_TAPS = 32, 128  # what the backward kernel takes
+
+
+def bwd_grid(B: int, T: int, H2: int, W2: int):
+    """(tile_rows, tile_cols, tiles, n_chunks) of K4's grid for a pooled
+    (H2, W2) frame: full-width tiles of at most BWD_THREADS positions (5 x 50
+    for LipNet's 25 x 50: no dead position), and enough chunks of the B*T
+    frames to fill BWD_TARGET_CTAS CTAs."""
+    cols = min(W2, BWD_MAX_TILE_COLS)
+    rows = max(1, min(H2, BWD_THREADS // cols))
+    tiles = -(-H2 // rows) * -(-W2 // cols)
+    return rows, cols, tiles, max(1, min(B * T, BWD_TARGET_CTAS // tiles))
 
 
 def _windows(x: torch.Tensor, kt: int, kh: int, kw: int):
@@ -201,11 +213,11 @@ def _launch_bwd(x, x_strides, w, w_strides, bias, g, g_strides, dw, dw_strides, 
     if C > MAX_CHANNELS or taps > MAX_TAPS:
         raise ValueError(f"conv1_pool_bwd kernel takes at most {MAX_CHANNELS} channels "
                          f"and {MAX_TAPS} taps (got C={C}, {taps} taps)")
-    tiles = -(-(H // 2) // TILE_H2) * -(-(W // 2) // TILE_W2)
-    partial = torch.empty(tiles * N_CHUNKS, taps * C + C, device=dev, dtype=torch.float32)
+    rows, cols, tiles, n_chunks = bwd_grid(B, T, H // 2, W // 2)
+    partial = torch.empty(tiles * n_chunks, taps * C + C, device=dev, dtype=torch.float32)
     fn = build.function("conv1_pool_bwd", "avs_conv1_pool_bwd", _BWD_ARGTYPES)
     err = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), g.data_ptr(), partial.data_ptr(),
-             dw.data_ptr(), db.data_ptr(), B, T, H, W, kt, kh, kw, C, N_CHUNKS,
+             dw.data_ptr(), db.data_ptr(), B, T, H, W, kt, kh, kw, C, n_chunks, rows, cols,
              *x_strides, *w_strides, *g_strides, *dw_strides,
              dev.index, torch.cuda.current_stream(dev).cuda_stream)
     build.check("conv1_pool_bwd", err, "conv1_pool_bwd launch")

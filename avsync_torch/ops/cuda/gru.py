@@ -37,6 +37,7 @@ bwd_launches = 0
 #             reverse_mask, device, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 7
              + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+MAX_HIDDEN = 256  # the forward kernel's register-resident w_hh (csrc/gru_fwd.cu)
 # avs_gru_bwd(gi0, gi1, out0, out1, g0, g1, w0, w1, b0, b1, dgi0, dgi1,
 #             dgh0, dgh1, dw0, dw1, db0, db1, 10 strides, B, T, H, ndir,
 #             reverse_mask, device, stream)
@@ -74,8 +75,9 @@ def _launch(gis, w_hhs, b_hhs, reverse_mask: int) -> torch.Tensor:
     if threeH != 3 * H or w0.shape != (H, threeH):
         raise ValueError(f"gru: gi {tuple(gi0.shape)} and w_hh {tuple(w0.shape)} "
                          "do not match (B, T, 3H) x (H, 3H)")
-    if H % 8:
-        raise ValueError("gru kernel needs H divisible by 8 (cluster of 8 CTAs)")
+    if H % 8 or H > MAX_HIDDEN:
+        raise ValueError(f"gru kernel needs H divisible by 8 (cluster of 8 CTAs) and at "
+                         f"most {MAX_HIDDEN} (w_hh held in registers); got H={H}")
     for t in (*gis, *w_hhs, *b_hhs):
         if t.device != dev or t.dtype != torch.float32:
             raise ValueError(f"gru: every input must be float32 on {dev}")

@@ -218,13 +218,17 @@ def check_gru(dev):
 
     print("gru_fwd (K2) vs gru_recurrence_ref:", flush=True)
     errs = []
-    for B, T, H in [(B, 75, 256) for B in BUCKETS] + [(3, 75, 256), (12, 9, 256), (2, 5, 8)]:
+    # the serving buckets, then ragged batch tiles and every rows-per-cluster choice
+    shapes = [(B, 75, 256) for B in BUCKETS] + [(B, 75, 256) for B in (3, 5, 7, 9, 16)]
+    for B, T, H in shapes + [(12, 9, 256), (2, 5, 8), (9, 6, 40)]:
         gf, wf, bf = case(B, T, H)
         gb, wb, bb = case(B, T, H)
         want = torch.cat([gru.gru_recurrence_ref(gf, wf, bf, False),
                           gru.gru_recurrence_ref(gb, wb, bb, True)], -1)
-        errs.append(max_err(gru.bigru_recurrence(gf, gb, wf, wb, bf, bb), want, K2_TOL,
-                            f"both directions B={B} T={T} H={H}"))
+        got = gru.bigru_recurrence(gf, gb, wf, wb, bf, bb)
+        errs.append(max_err(got, want, K2_TOL, f"both directions B={B} T={T} H={H}"))
+        if (B, T) == (8, 75):
+            same_bits([got], [gru.bigru_recurrence(gf, gb, wf, wb, bf, bb)], f"B={B} T={T} H={H}")
     for B, T, H in [(8, 1, 256), (8, 7, 256), (1, 75, 256)]:
         gi, w, b = case(B, T, H)
         for rev in (False, True):
@@ -236,8 +240,12 @@ def check_gru(dev):
                         gru.gru_recurrence_ref(gi, w, b), K2_TOL,
                         "strided (transposed torch-layout) w_hh B=4 T=6 H=256"))
 
-    # times at the serving path's shape: one BiGRU layer, B=8, T=75, H=256
+    # times at the serving path's shape: one BiGRU layer, B=8, T=75, H=256;
+    # the kernel alone also at B=1, the serving path's smallest bucket
     B, T, H, D = 8, 75, 256, 6912
+    gf, wf, bf = case(1, T, H)
+    gb, wb, bb = case(1, T, H)
+    ms_b1 = time_ms(lambda: gru.bigru_recurrence(gf, gb, wf, wb, bf, bb))
     gf, wf, bf = case(B, T, H)
     gb, wb, bb = case(B, T, H)
     ms = time_ms(lambda: gru.bigru_recurrence(gf, gb, wf, wb, bf, bb))
@@ -257,13 +265,15 @@ def check_gru(dev):
     bms, by = bound_ms(n_bytes, n_ops)
     print(f"  both directions B=8 T=75 H=256: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
           f"bound_ms={bms:.4f} ({by}: {n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.3f} GFLOP) "
-          f"per_step_us={ms / T * 1e3:.2f}", flush=True)
+          f"per_step_us={ms / T * 1e3:.2f}; B=1: kernel_ms={ms_b1:.4f} "
+          f"per_step_us={ms_b1 / T * 1e3:.2f}", flush=True)
     print(f"  BiGRU layer D=6912: port (2 matmuls + kernel) layer_ms={layer_ms:.4f} "
           f"torch.nn.GRU library_ms={lib_ms:.4f}", flush=True)
     return dict(name="gru_fwd", route="cuda", source="avsync_torch/csrc/gru_fwd.cu",
                 replaces="avsync/ops/pallas/gru.py:357", max_abs_err=max(errs),
                 ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib_ms,
                 layer_ms=layer_ms, shape="both directions B=8 T=75 H=256",
+                per_step_us=ms / T * 1e3, ms_B1=ms_b1, per_step_us_B1=ms_b1 / T * 1e3,
                 library_note="library_ms and layer_ms time the whole BiGRU layer "
                              "(D=6912): torch.nn.GRU vs the port's matmuls + kernel")
 
@@ -378,7 +388,11 @@ def check_conv1_pool_bwd(dev):
     errs = []
     shapes = [(B, 75, 50, 100, (3, 5, 5), 32) for B in BUCKETS]
     shapes += [(3, 7, 10, 18, (3, 3, 3), 5), (2, 4, 12, 70, (1, 3, 5), 7),
-               (1, 1, 2, 2, (3, 5, 5), 32)]
+               (1, 1, 2, 2, (3, 5, 5), 32),
+               # a pooled frame (27 x 51) the tile does not divide; 77 frames
+               # against 52 chunks; C < 32 at full width; columns past one tile
+               (2, 5, 54, 102, (3, 5, 5), 32), (7, 11, 50, 100, (3, 5, 5), 32),
+               (1, 3, 50, 100, (3, 5, 5), 20), (1, 2, 20, 200, (3, 5, 5), 9)]
     for B, T, H, W, k, C in shapes:
         x, w, b, cot = case(B, T, H, W, k, C)
         want = convpool.conv1_pool_bwd_ref(x, w, b, cot)
@@ -401,6 +415,20 @@ def check_conv1_pool_bwd(dev):
     for name, a, r in zip(("dkernel", "dbias"), convpool.conv1_pool_bwd(x, w, b, cot),
                           convpool.conv1_pool_bwd_ref(x, w, b, cot)):
         errs.append(max_err(a, r, K4_TOL, f"{name} tie case (constant input)"))
+    # near ties: input 1 + 1e-7 noise and weights of one sign put the four
+    # pre-pool values of most windows within a few ulp; on a cotangent that
+    # is nonzero only where K1 pooled a positive value, db is its channel
+    # sum exactly when K4 routes where the forward pooled
+    x = (1.0 + 1e-7 * torch.rand(2, 6, 50, 100, 1, generator=g)).to(dev)
+    w = (0.01 + 0.001 * torch.rand(3, 5, 5, 1, 32, generator=g)).to(dev)
+    b = (torch.rand(32, generator=g) - 0.6).to(dev)
+    pooled = convpool.conv1_pool_fused(x, w, b)
+    cot = torch.randn(2, 6, 25, 50, 32, generator=g).to(dev) * (pooled > 0)
+    got = convpool.conv1_pool_bwd(x, w, b, cot)
+    for name, a, r in zip(("dkernel", "dbias"), got, convpool.conv1_pool_bwd_ref(x, w, b, cot)):
+        errs.append(max_err(a, r, K4_TOL, f"{name} near-tie case"))
+    errs.append(max_err(got[1], cot.sum(dim=(0, 1, 2, 3)), K4_TOL,
+                        "dbias near-tie case vs the cotangent's sum where K1 > 0 (routing)"))
 
     # times at the training path's shape: B=8, T=75, 50x100, C=32, k=(3,5,5)
     B, T, H, W, C, taps = 8, 75, 50, 100, 32, 75

@@ -116,3 +116,20 @@ def test_cpu_backward_does_not_count_as_a_kernel_launch():
     before = convpool.bwd_launches
     _port(x, w, b, g)
     assert convpool.bwd_launches == before
+
+
+@pytest.mark.parametrize("B,T,H2,W2", [(8, 75, 25, 50), (2, 5, 27, 51), (7, 11, 25, 50),
+                                       (1, 2, 10, 100), (3, 7, 5, 9), (1, 1, 1, 1)])
+def test_bwd_grid_covers_every_pooled_position(B, T, H2, W2):
+    """K4's grid (`bwd_grid`, chosen in Python, run on the card): tiles of at
+    most BWD_THREADS positions cover the pooled frame, the LipNet frame (25 x
+    50) with no dead position, and the chunks split the B*T frames within
+    the CTA target."""
+    rows, cols, tiles, chunks = convpool.bwd_grid(B, T, H2, W2)
+    assert 1 <= rows * cols <= convpool.BWD_THREADS
+    assert tiles == -(-H2 // rows) * -(-W2 // cols)
+    assert rows * -(-H2 // rows) >= H2 and cols * -(-W2 // cols) >= W2
+    assert 1 <= chunks <= B * T and (tiles * chunks <= convpool.BWD_TARGET_CTAS or chunks == 1)
+    if (H2, W2) == (25, 50):
+        assert (rows, cols) == (5, 50) and tiles * rows * cols == H2 * W2
+        assert tiles * chunks > convpool.BWD_TARGET_CTAS - tiles  # the card is filled

@@ -61,8 +61,11 @@ def test_conv1_pool_matches_plain(dev, B, T, H, W, k, C):
 
 
 @pytest.mark.parametrize("B,T,H", [(8, 75, 256), (3, 75, 256), (12, 9, 256), (1, 1, 256),
-                                   (2, 5, 8)])
+                                   (2, 5, 8), (1, 75, 256), (5, 75, 256), (7, 75, 256),
+                                   (9, 75, 256), (16, 75, 256), (9, 6, 40)])
 def test_gru_both_directions_match_plain(dev, B, T, H):
+    """Every rows-per-cluster choice and ragged batch tile; a repeat launch
+    gives the same bits (fixed-order sums, no float atomics)."""
     g = _gen(2)
     k = H ** -0.5
     args = []
@@ -75,9 +78,11 @@ def test_gru_both_directions_match_plain(dev, B, T, H):
                       gru.gru_recurrence_ref(gb, wb, bb, True)], -1)
     before = gru.launches
     got = gru.bigru_recurrence(gf, gb, wf, wb, bf, bb)
+    again = gru.bigru_recurrence(gf, gb, wf, wb, bf, bb)
     torch.cuda.synchronize()
-    assert gru.launches == before + 1
+    assert gru.launches == before + 2
     torch.testing.assert_close(got, want, **K2_TOL)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("reverse", [False, True])
@@ -96,6 +101,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     gi = torch.randn(2, 3, 30, device=dev)  # H = 10, not a multiple of 8
     with pytest.raises(ValueError, match="divisible by 8"):
         gru.gru_recurrence(gi, torch.randn(10, 30, device=dev), torch.randn(30, device=dev))
+    gi = torch.randn(2, 3, 3 * 264, device=dev)  # H = 264 > the register-resident 256
+    with pytest.raises(ValueError, match="at most 256"):
+        gru.gru_recurrence(gi, torch.randn(264, 3 * 264, device=dev),
+                           torch.randn(3 * 264, device=dev))
     x = torch.rand(1, 2, 4, 4, 1, device=dev, dtype=torch.float64)
     with pytest.raises(ValueError, match="float32"):
         convpool.conv1_pool_fused(x, torch.rand(3, 3, 3, 1, 2, device=dev),
@@ -169,7 +178,11 @@ def test_gru_bwd_torch_layout_weight_gets_its_layout_back(dev):
 @pytest.mark.parametrize("B,T,H,W,k,C", [
     (1, 75, 50, 100, (3, 5, 5), 32), (2, 75, 50, 100, (3, 5, 5), 32),
     (4, 75, 50, 100, (3, 5, 5), 32), (8, 75, 50, 100, (3, 5, 5), 32),
-    (3, 7, 10, 18, (3, 3, 3), 5), (2, 4, 12, 70, (1, 3, 5), 7), (1, 1, 2, 2, (3, 5, 5), 32)])
+    (3, 7, 10, 18, (3, 3, 3), 5), (2, 4, 12, 70, (1, 3, 5), 7), (1, 1, 2, 2, (3, 5, 5), 32),
+    # a pooled frame (27 x 51) the 5 x 51 tile does not divide; 77 and 3 frames
+    # against 52 and 88 chunks; C < 32 at full width; columns past one tile
+    (2, 5, 54, 102, (3, 5, 5), 32), (7, 11, 50, 100, (3, 5, 5), 32),
+    (1, 3, 50, 100, (3, 5, 5), 20), (1, 2, 20, 200, (3, 5, 5), 9)])
 def test_conv1_pool_bwd_matches_plain(dev, B, T, H, W, k, C):
     g = _gen(9)
     x = torch.rand(B, T, H, W, 1, generator=g).to(dev)
@@ -202,6 +215,27 @@ def test_conv1_pool_bwd_tie_routes_to_the_first_position(dev):
     want = convpool.conv1_pool_bwd_ref(x, w, b, cot)
     for a, r in zip(got, want):
         torch.testing.assert_close(a, r, atol=1e-4, rtol=1e-4)
+
+
+def test_conv1_pool_bwd_near_ties_route_as_the_forward(dev):
+    """A near-constant input (1 + 1e-7 noise) and weights of one sign: the
+    four pre-pool values of most windows lie within a few ulp. dW/db match
+    the plain version, and K4 routes exactly where K1 pooled a positive
+    value: on a cotangent that is nonzero only there, db is its channel sum
+    (a routing that differed would miss a whole cotangent value, ~1)."""
+    g = _gen(16)
+    B, T, H, W, C = 2, 6, 50, 100, 32
+    x = (1.0 + 1e-7 * torch.rand(B, T, H, W, 1, generator=g)).to(dev)
+    w = (0.01 + 0.001 * torch.rand(3, 5, 5, 1, C, generator=g)).to(dev)
+    b = (torch.rand(C, generator=g) - 0.6).to(dev)
+    pooled = convpool.conv1_pool_fused(x, w, b)
+    cot = torch.randn(B, T, H // 2, W // 2, C, generator=g).to(dev) * (pooled > 0)
+    got = convpool.conv1_pool_bwd(x, w, b, cot)
+    want = convpool.conv1_pool_bwd_ref(x, w, b, cot)
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a, r, **K4_TOL)
+    torch.testing.assert_close(got[1], cot.sum(dim=(0, 1, 2, 3)), **K4_TOL)
+    assert 0 < int((pooled > 0).sum()) < pooled.numel()
 
 
 def test_model_gradients_kernel_path_match_plain_path(dev):
