@@ -37,10 +37,11 @@
 //     through g's strides) into shared memory; the cotangent's copy is
 //     waited for only after the recompute, so it hides behind it;
 //   * each thread recomputes the four pre-pool values of its pooled
-//     position for a block of 16 channels in registers, in K1's order (fmaf
-//     over dt, dh, dw from 0, then + bias), so the routing sees the values
-//     the forward pooled, and overwrites the cotangent with the routed value
-//     (0 where nothing is routed) beside the routed position's input offset;
+//     position for a block of 16 channels in registers with K1's own loop
+//     (conv1_recompute.cuh: fmaf over dt, dh, dw from 0, then + bias), so
+//     the routing sees the values the forward pooled, and overwrites the
+//     cotangent with the routed value (0 where nothing is routed) beside
+//     the routed position's input offset;
 //   * dW: thread (channel = lane, a run of ceil(taps/8) consecutive taps =
 //     warp) walks the tile's positions, four per iteration so that the
 //     offsets and values of the next positions are in flight while the
@@ -66,6 +67,8 @@
 
 #include <atomic>
 
+#include "conv1_recompute.cuh"
+
 namespace {
 
 constexpr int NT = 256;          // threads per CTA; positions per tile, at most
@@ -89,19 +92,6 @@ struct ConvPoolBwdParams {
   long long g_sb, g_st, g_sh, g_sw, g_sc;
   long long dw_tap, dw_c;
 };
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src),
-               "r"(valid ? 4 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
 
 // KT/KH/KW == 0 means "read the size from the params" (generic path); TQ is
 // the taps per warp, ceil(taps / NWARP), or MAXTQ for the generic path.
@@ -156,24 +146,10 @@ conv1_pool_bwd_kernel(const ConvPoolBwdParams p) {
   // at compile time
   constexpr bool runs_aligned = KW != 0 && TQ % (KW ? KW : 1) == 0;
 
-  const int pt = (kt - 1) / 2, ph = (kh - 1) / 2, pw = (kw - 1) / 2;
-  const int h_in0 = 2 * h2_0 - ph, w_in0 = 2 * w2_0 - pw;
-
   for (int f = blockIdx.y; f < p.B * p.T; f += p.n_chunks) {
     const int b = f / p.T, t = f % p.T;
-    const float* xb = p.x + b * p.x_sb;
-    for (int i = tid; i < kt * IH * IW; i += NT) {
-      const int dt = i / (IH * IW);
-      const int r = (i / IW) % IH;
-      const int cc = i % IW;
-      const int ti = t + dt - pt, hi = h_in0 + r, wi = w_in0 + cc;
-      const bool row = ti >= 0 && ti < p.T && hi >= 0 && hi < p.H;
-      const bool ok0 = row && wi >= 0 && wi < p.W, ok1 = row && wi + 1 >= 0 && wi + 1 < p.W;
-      const float* src = xb + ti * p.x_st + hi * p.x_sh + wi * p.x_sw;
-      float* dst = reinterpret_cast<float*>(s_x + i);
-      cp_async4(dst, ok0 ? src : p.x, ok0);
-      cp_async4(dst + 1, ok1 ? src + p.x_sw : p.x, ok1);
-    }
+    conv1_stage_halo(s_x, p.x, b, t, h2_0, w2_0, kt, kh, kw, IH, IW, p.T, p.H, p.W, p.x_sb,
+                     p.x_st, p.x_sh, p.x_sw);
     cp_async_commit();
     if (in_tile) {
       const float* gb = p.g + b * p.g_sb + t * p.g_st + h2 * p.g_sh + w2 * p.g_sw;
@@ -187,37 +163,8 @@ conv1_pool_bwd_kernel(const ConvPoolBwdParams p) {
     if (in_tile) {
       for (int c0 = 0; c0 < C; c0 += CB) {
         float acc[4][CB];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int c = 0; c < CB; ++c) acc[j][c] = 0.f;
-
-        for (int dt = 0; dt < kt; ++dt) {
-#pragma unroll
-          for (int dh = 0; dh < kh; ++dh) {
-            const float2* xs = s_x + (dt * IH + 2 * ty + dh) * IW + 2 * tx;
-            const float* ws = s_w + ((dt * kh + dh) * kw) * cpad + c0;
-#pragma unroll
-            for (int dw = 0; dw < kw; ++dw) {
-              const float2 top = xs[dw], bot = xs[IW + dw];
-              const float v0 = top.x, v1 = top.y, v2 = bot.x, v3 = bot.y;
-              const float4* w4 = reinterpret_cast<const float4*>(ws + dw * cpad);
-#pragma unroll
-              for (int q = 0; q < CB / 4; ++q) {
-                const float4 wv4 = w4[q];
-                const float wv[4] = {wv4.x, wv4.y, wv4.z, wv4.w};
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                  const int c = 4 * q + e;
-                  acc[0][c] = fmaf(v0, wv[e], acc[0][c]);
-                  acc[1][c] = fmaf(v1, wv[e], acc[1][c]);
-                  acc[2][c] = fmaf(v2, wv[e], acc[2][c]);
-                  acc[3][c] = fmaf(v3, wv[e], acc[3][c]);
-                }
-              }
-            }
-          }
-        }
+        conv1_window_sums<KT, KH, KW, CB>(acc, s_x + 2 * ty * IW + 2 * tx, s_w + c0, kt, kh,
+                                          kw, IH, IW, cpad);
 
         cp_async_wait<0>();  // this thread's cotangent row
 #pragma unroll

@@ -19,49 +19,68 @@
 //
 // What bounds it on the H100: at B=8, T=75, H=256 the three products per
 // direction (gh recompute, dgh W_hh^T, dW_hh) are 1.42 GFLOP for both
-// directions (0.021 ms at 67 TFLOP/s fp32) against about 13 MB of traffic
-// (0.004 ms). Neither is the limit: only dh carries the chain, and the 75
-// dependent steps (each a (B, H) x (H, 3H) and a (B, 3H) x (3H, H) product,
-// the gate math and one exchange of dh) set the floor, as for the forward.
+// directions (0.021 ms at 67 TFLOP/s fp32) against about 13 MB of traffic.
+// Neither is the limit: only dh carries the chain, so the latency of one
+// step times T (75 dependent (B, 3H) x (3H, H) products, gate math and one
+// exchange) is the floor. The earlier design (one cluster of 8 CTAs per 8
+// rows) spent, per step at B=8: the gh recompute 1.6 us and the h_prev
+// staging 1.3 us, though neither depends on the chain; the dh product 2.1
+// us, w_hh read from shared memory; the K-split reduce and gates 1.2 us;
+// the cluster barrier 1.0 us: 6.5 us per step, 0.49 ms of chain. Its dW_hh
+// reduction (96 CTAs, synchronous loads) took 0.07-0.09 ms.
 //
-// Design, two kernels per launch:
-//   (a) the chain. Like gru_fwd.cu, one thread-block cluster of 8 CTAs per
-//       (direction, tile of BT batch rows); CTA k owns hidden units
-//       [k U, (k+1) U), U = H / 8, and keeps their r, z and n columns of
-//       w_hh in shared memory for the whole launch (rows padded by one
-//       float so that both products read it without bank conflicts). Per
-//       step each CTA
-//         * recomputes gh for its 3U columns from h_prev, which it reads
-//           from `out` (the next step's h_prev is copied in with cp.async
-//           while this step computes: it does not depend on the chain);
-//         * forms a, the gate gradients, dgi and dgh for its units
-//           (one (row, unit) per thread; that thread keeps dh and a z in
-//           registers from step to step) and writes dgi and dgh;
-//         * computes its partial dh_prev = dgh[:, cols_k] W_hh[:, cols_k]^T
-//           over all H units and sends each unit's partial to the CTA that
-//           owns the unit through distributed shared memory;
-//       one cluster barrier ends the step; the receive buffers are double
-//       buffered, so that one barrier per step is enough. The owner sums the
-//       8 partials in rank order: no float atomics, the same sum every run.
-//   (b) the reduction: dW_hh = h_prev^T dgh and db_hh = sum dgh over the
-//       K = B T (row, step) pairs, a tiled fp32 product (64 x 64 output tile
-//       per CTA, 4 x 4 per thread). Each output element is summed by one
-//       thread in a fixed order, so two runs give bit-identical dW_hh.
-//       h_prev is read from `out` shifted by one step, zero at the
-//       direction's first step; dW_hh is written through strides, so a
-//       torch-layout (3H, H) weight gets its gradient without a transpose.
-// Accuracy: expf / tanhf, no fast-math.
+// Design, four kernels per launch:
+//   (a) gh = h_prev W_hh + b_hh for every (row, step), a tiled fp32 product
+//       (64 x 64 output tiles, cp.async double buffering), h_prev read from
+//       `out` shifted by one step: the recompute leaves the chain;
+//   (b) the chain, K2's scheme (gru_fwd.cu) run backwards. One cluster of 8
+//       CTAs per (direction, tile of BT rows); CTA k owns hidden units
+//       [k U, (k+1) U), U = H/8. The exchange broadcasts each CTA's dgh
+//       slice (3U x BT values) to all 8 peers, so that each CTA multiplies
+//       the whole dgh by its own units' rows of w_hh: the other choice,
+//       sending each owner its partial dh (H x BT values out per CTA, 3x
+//       fewer bytes), needs the CTA's own dgh complete in shared memory
+//       before its product (a CTA barrier per step) and a second pass over
+//       the received partials. With the broadcast, lane (kq, uq) of warp w
+//       holds W_hh[j, cols of CTA kq] for its unit j (3U registers), reads
+//       CTA kq's dgh slice as float4 (r, z, n, 0) per (unit, row) (slices
+//       padded so the 8 kq lanes hit disjoint banks), and a fixed shuffle
+//       tree over the kq lanes gives each lane the whole dh of one (unit,
+//       row): no shared-memory reduction, no CTA barrier. That lane adds a
+//       z, applies the gate math (gi, gh, g and h_prev of the step were
+//       loaded during the step before), pushes its (r, z, n) dgh with one
+//       16-byte st.async to each peer, completing the peer mbarrier's
+//       transaction count, then stores dgi and dgh. A CTA waits only on its
+//       own mbarrier for the buffer it reads; no cluster barrier in the loop.
+//       Rows per cluster: the fewest (1, 2 or 4) whose clusters all fit at
+//       once (occupancy query, cached per device);
+//   (c) dW_hh = h_prev^T dgh and db_hh = sum dgh, the same tiled product
+//       over K = B T split into a fixed number of chunks (more CTAs than
+//       the 96 output tiles give), each writing a partial;
+//   (d) a fixed-order sum of the chunks' partials, written through dW_hh's
+//       strides (a torch-layout (3H, H) weight gets its gradient without a
+//       transpose) and into db_hh.
+// Every sum runs in a fixed order: no float atomics, a repeat launch gives
+// the same bits. H above 256 (3U registers would not fit) takes a generic
+// chain: one thread per (unit, row), w_hh's rows of the CTA's units in
+// shared memory where they fit, else read through L2; the wrapper pads H to
+// a multiple of 8. Accuracy: expf / tanhf, no fast-math.
 
 #include <cooperative_groups.h>
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include "cluster_exchange.cuh"
+#include "cp_async.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int CLUSTER = 8;  // CTAs per cluster; each owns H/8 hidden units
-constexpr int NT = 256;     // threads per CTA
+constexpr int CLUSTER = 8;   // CTAs per cluster; each owns H/8 hidden units
+constexpr int UPW = 4;       // hidden units per warp
+constexpr int MAX_KPL = 32;  // units per CTA in registers (H/8): H <= 256
+constexpr int MAX_NT = 32 * (MAX_KPL / UPW);  // 8 warps at H = 256
+constexpr int NT = 256;      // threads of the product, sum and generic kernels
 
 struct GruBwdParams {
   const float* gi[2];    // gi[d][b*gi_sb + t*gi_st + col], (B, T, 3H)
@@ -70,378 +89,541 @@ struct GruBwdParams {
   const float* w_hh[2];  // w[k*w_sk + col*w_sc], (H, 3H) logical
   const float* b_hh[2];  // (3H,), contiguous
   float* dgi[2];         // (B, T, 3H), contiguous
-  float* dgh[2];         // (B, T, 3H), contiguous scratch for the reduction
   float* dw[2];          // dw[k*dw_sk + col*dw_sc], (H, 3H) logical
   float* db[2];          // (3H,), contiguous
+  float* gh;             // [ndir][B][T][3H] scratch: h_prev W_hh + b_hh
+  float* dgh;            // [ndir][B][T][3H] scratch
+  float* partial;        // [ndir][n_chunks][H + 1][3H] scratch: dW_hh rows, db_hh
   long long gi_sb, gi_st, o_sb, o_st, g_sb, g_st, w_sk, w_sc, dw_sk, dw_sc;
-  int B, T, H, reverse_mask;  // bit d set: direction d ran backwards in time
+  int B, T, H, ndir, reverse_mask, n_chunks, w_in_smem;  // reverse_mask bit d: backwards
 };
 
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.f / (1.f + expf(-x));
+// ---------------------------------------------------------------------------
+// (a), (c): a 64 x 64 tile of C = A B over a range of K, fp32 FMAs
+// ---------------------------------------------------------------------------
+
+constexpr int TM = 64, TN = 64, TK = 16, TPAD = TM + 4;
+
+struct Tiles {
+  float a[2][TK][TPAD];  // a[buf][k][m]; rows padded: A's k-fast copies spread over banks
+  float b[2][TK][TPAD];  // b[buf][k][n]
+};
+
+// acc[r][c] += sum over k in [k_begin, k_end), in order, of A(m0 + 4 ty + r, k)
+// B(k, n0 + 4 tx + c), ty = tid / 16, tx = tid % 16. a_src(m, k, ok) and
+// b_src(k, n, ok) give each element's address and whether it exists (else it
+// is 0). A_M_FAST: consecutive threads copy consecutive m of A (else k), to
+// follow A's contiguous index in memory; B is copied n-fast. With `colsum`,
+// threads tid < 64 also sum B's column n0 + tid over the range.
+template <bool A_M_FAST, class ASrc, class BSrc>
+__device__ __forceinline__ void tile_product(ASrc a_src, BSrc b_src, int m0, int n0,
+                                             int k_begin, int k_end, Tiles& s,
+                                             float (&acc)[4][4], float* colsum) {
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  auto stage = [&](int k0, int buf) {
+#pragma unroll
+    for (int e = tid; e < TK * TM; e += NT) {
+      const int kk = A_M_FAST ? e / TM : e % TK, mm = A_M_FAST ? e % TM : e / TK;
+      bool ok;
+      const float* src = a_src(m0 + mm, k0 + kk, ok);
+      cp_async4(&s.a[buf][kk][mm], src, ok);
+    }
+#pragma unroll
+    for (int e = tid; e < TK * TN; e += NT) {
+      const int kk = e / TN, nn = e % TN;
+      bool ok;
+      const float* src = b_src(k0 + kk, n0 + nn, ok);
+      cp_async4(&s.b[buf][kk][nn], src, ok);
+    }
+    cp_async_commit();
+  };
+  const int nk = (k_end - k_begin + TK - 1) / TK;
+  if (nk > 0) stage(k_begin, 0);
+  for (int c = 0; c < nk; ++c) {
+    const int buf = c & 1;
+    if (c + 1 < nk) {
+      stage(k_begin + (c + 1) * TK, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < TK; ++kk) {
+      const float4 a4 = *reinterpret_cast<const float4*>(&s.a[buf][kk][ty * 4]);
+      const float4 b4 = *reinterpret_cast<const float4*>(&s.b[buf][kk][tx * 4]);
+      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(av[r], bv[q], acc[r][q]);
+    }
+    if (colsum != nullptr && tid < TN) {
+#pragma unroll
+      for (int kk = 0; kk < TK; ++kk) *colsum += s.b[buf][kk][tid];
+    }
+    __syncthreads();  // the buffer is staged again two chunks on
+  }
+}
+
+// h_prev of (row b, time t) of direction d: out at the direction's previous
+// step, or nothing (0) at its first step.
+__device__ __forceinline__ const float* hprev_src(const GruBwdParams& p, int d, bool rev,
+                                                  int m, int k, bool ok_mk, bool& ok) {
+  const int b = m / p.T, t = m % p.T;
+  const int tp = rev ? t + 1 : t - 1;
+  ok = ok_mk && tp >= 0 && tp < p.T;
+  return ok ? p.out[d] + b * p.o_sb + tp * p.o_st + k : p.out[d];
+}
+
+// (a) grid (3H / 64, B T / 64, ndir)
+__global__ void __launch_bounds__(NT) gru_bwd_gh_kernel(const GruBwdParams p) {
+  __shared__ __align__(16) Tiles s;
+  const int d = blockIdx.z;
+  const int n0 = blockIdx.x * TN, m0 = blockIdx.y * TM;
+  const int H = p.H, H3 = 3 * H, M = p.B * p.T;
+  const bool rev = (p.reverse_mask >> d) & 1;
+  const float* W = p.w_hh[d];
+  auto a_src = [&](int m, int k, bool& ok) {
+    return hprev_src(p, d, rev, m, k, m < M && k < H, ok);
+  };
+  auto b_src = [&](int k, int n, bool& ok) {
+    ok = k < H && n < H3;
+    return ok ? W + k * p.w_sk + n * p.w_sc : W;
+  };
+  float acc[4][4] = {};
+  tile_product<false>(a_src, b_src, m0, n0, 0, H, s, acc, nullptr);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int n = n0 + tx * 4;
+  if (n >= H3) return;  // H3 is a multiple of 24: a float4 is in or out whole
+  const float* bias = p.b_hh[d] + n;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int m = m0 + ty * 4 + r;
+    if (m < M)
+      *reinterpret_cast<float4*>(p.gh + ((size_t)d * M + m) * H3 + n) =
+          make_float4(acc[r][0] + bias[0], acc[r][1] + bias[1], acc[r][2] + bias[2],
+                      acc[r][3] + bias[3]);
+  }
+}
+
+// (c) grid (3H / 64, H / 64, ndir * n_chunks): chunk k of K = B T
+__global__ void __launch_bounds__(NT) gru_bwd_dw_kernel(const GruBwdParams p) {
+  __shared__ __align__(16) Tiles s;
+  const int d = blockIdx.z / p.n_chunks, chunk = blockIdx.z % p.n_chunks;
+  const int n0 = blockIdx.x * TN, m0 = blockIdx.y * TM;
+  const int H = p.H, H3 = 3 * H, M = p.B * p.T;
+  const int len = (M + p.n_chunks - 1) / p.n_chunks;
+  const int k_begin = min(M, chunk * len), k_end = min(M, k_begin + len);
+  const bool rev = (p.reverse_mask >> d) & 1;
+  const float* dgh = p.dgh + (size_t)d * M * H3;
+  // A(unit m, (row, step) k) = h_prev; B(k, col n) = dgh
+  auto a_src = [&](int m, int k, bool& ok) {
+    return hprev_src(p, d, rev, k, m, m < H && k < k_end, ok);
+  };
+  auto b_src = [&](int k, int n, bool& ok) {
+    ok = k < k_end && n < H3;
+    return ok ? dgh + (size_t)k * H3 + n : dgh;
+  };
+  float acc[4][4] = {};
+  float colsum = 0.f;
+  tile_product<true>(a_src, b_src, m0, n0, k_begin, k_end, s, acc,
+                     blockIdx.y == 0 ? &colsum : nullptr);
+  float* part = p.partial + ((size_t)d * p.n_chunks + chunk) * (H + 1) * H3;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int n = n0 + tx * 4;
+  if (n < H3) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int m = m0 + ty * 4 + r;
+      if (m < H)
+        *reinterpret_cast<float4*>(part + (size_t)m * H3 + n) =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    }
+  }
+  if (blockIdx.y == 0 && threadIdx.x < TN && n0 + threadIdx.x < H3)
+    part[(size_t)H * H3 + n0 + threadIdx.x] = colsum;
+}
+
+// (d) one thread per output of dW_hh and db_hh: the chunks' partials in order
+__global__ void __launch_bounds__(NT) gru_bwd_sum_kernel(const GruBwdParams p) {
+  const int H3 = 3 * p.H;
+  const long long per_dir = (long long)(p.H + 1) * H3;
+  const long long i = (long long)blockIdx.x * NT + threadIdx.x;
+  if (i >= p.ndir * per_dir) return;
+  const int d = static_cast<int>(i / per_dir);
+  const long long o = i % per_dir;
+  const float* src = p.partial + (size_t)d * p.n_chunks * per_dir + o;
+  float s = src[0];
+  for (int c = 1; c < p.n_chunks; ++c) s += src[c * per_dir];
+  const int k = static_cast<int>(o / H3), col = static_cast<int>(o % H3);
+  if (k < p.H) {
+    p.dw[d][k * p.dw_sk + col * p.dw_sc] = s;
+  } else {
+    p.db[d][col] = s;
+  }
 }
 
 // ---------------------------------------------------------------------------
-// (a) the chain
+// (b) the chain
 // ---------------------------------------------------------------------------
 
-template <int BT>
-__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT, 1)
+// Exchange buffers: [2][8 CTA slices][S]; slice q holds CTA q's dgh as
+// [U][BT] float4 (r, z, n, 0), S = slice_stride(4 U BT).
+size_t chain_smem_bytes(int H, int BT) {
+  return sizeof(float) * 2 * CLUSTER * (size_t)slice_stride(4 * (H / CLUSTER) * BT);
+}
+
+// BT: batch rows per cluster (1, 2 or 4). NK: units per CTA (H/8) when known
+// at compile time, 0 = read H at run time (H/8 <= MAX_KPL).
+template <int BT, int NK>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(MAX_NT, 1)
 gru_bwd_chain_kernel(const GruBwdParams p) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int d = blockIdx.y;
   const int b0 = blockIdx.z * BT;
-  const int H = p.H, T = p.T;
+  const int H = p.H, H3 = 3 * H, T = p.T;
   const int U = H / CLUSTER;
-  const int U3 = 3 * U;
-  const int WS = U3 + 1;             // padded row of the w_hh slice
-  const int S = NT / U;              // K-slices of the h W_hh product
-  const int L = (H + S - 1) / S;     // slice length
-  const int tid = threadIdx.x;
+  const int nk = NK ? NK : U;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kq = lane / UPW, uq = lane % UPW;
+  const int ul = warp * UPW + uq;  // unit within the CTA
+  const bool unit_ok = ul < U;
+  const int j = rank * U + (unit_ok ? ul : 0);  // hidden unit
   const bool rev = (p.reverse_mask >> d) & 1;
+  const int rb = row_of_lane<BT>(lane);
+  const bool writer = unit_ok && first_of_row<BT>(lane);
+  const int gb = b0 + rb;
+  const bool row_ok = writer && gb < p.B;
 
   extern __shared__ float4 smem4[];
-  float* s_w = reinterpret_cast<float*>(smem4);  // [H][WS]: r | z | n columns
-  float* s_h = s_w + H * WS;                     // [2][H][BT] h_prev
-  float* s_red = s_h + 2 * H * BT;               // [S][3][BT][U]
-  float* s_dgh = s_red + S * 3 * BT * U;         // [3U][BT]
-  float* s_rcv = s_dgh + U3 * BT;                // [2][CLUSTER][BT][U]
+  const int S = slice_stride(4 * U * BT);
+  float* s_d = reinterpret_cast<float*>(smem4);
+  __shared__ alignas(8) uint64_t s_bar[2];  // one per exchange buffer
 
-  const float* W = p.w_hh[d];
-  for (int i = tid; i < H * U3; i += NT) {
-    const int k = i / U3, c = i % U3;
-    const int col = (c / U) * H + rank * U + (c % U);
-    s_w[k * WS + c] = W[k * p.w_sk + col * p.w_sc];
-  }
-
-  const float* outd = p.out[d];
-  // h_prev of iteration i (the forward's i-th step) into s_h[buf]: out at
-  // the direction's previous step, or 0 at its first step and past B.
-  auto stage_hprev = [&](int i, int buf, bool async) {
-    float* dst = s_h + buf * H * BT;
-    const int tp = rev ? T - i : i - 1;  // time index of step i - 1
-    for (int e = tid; e < H * BT; e += NT) {
-      const int b = e / H, k = e % H;
-      float* s = dst + k * BT + b;
-      if (i > 0 && b0 + b < p.B) {
-        const float* src = outd + (b0 + b) * p.o_sb + tp * p.o_st + k;
-        if (async) {
-          __pipeline_memcpy_async(s, src, sizeof(float));
-        } else {
-          *s = *src;
-        }
-      } else {
-        *s = 0.f;
-      }
+  // W_hh[j, g H + kq U + i]: unit j's row, CTA kq's columns of gate g
+  float w[MAX_KPL][3];
+  {
+    const float* W = p.w_hh[d] + (long long)j * p.w_sk;
+#pragma unroll
+    for (int i = 0; i < MAX_KPL; ++i) {
+      const bool ok = unit_ok && i < nk;
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+        w[i][g] = ok ? W[(long long)(g * H + kq * U + i) * p.w_sc] : 0.f;
     }
-  };
-  stage_hprev(T - 1, 0, false);
-
-  // finalize role: one (batch row, unit) per thread
-  const bool fin = tid < BT * U;
-  const int fb = tid / U, fu = tid % U;
-  const int gb = b0 + fb;
-  const bool row_ok = fin && gb < p.B;
-  const int jr = rank * U + fu;
-  float bhr = 0.f, bhz = 0.f, bhn = 0.f;
-  if (fin) {
-    bhr = p.b_hh[d][jr];
-    bhz = p.b_hh[d][H + jr];
-    bhn = p.b_hh[d][2 * H + jr];
   }
-  const int rb = row_ok ? gb : 0;
-  const float* gi_row = p.gi[d] + rb * p.gi_sb;
-  const float* g_row = p.g[d] + rb * p.g_sb + jr;
-  const long long drow = (long long)rb * T * 3 * H;
-  float* dgi_row = p.dgi[d] + drow + jr;
-  float* dgh_row = p.dgh[d] + drow + jr;
+  const int rr = row_ok ? gb : 0;
+  const float* gi_row = p.gi[d] + rr * p.gi_sb + j;
+  const float* gh_row = p.gh + ((size_t)d * p.B + rr) * T * H3 + j;
+  const float* g_row = p.g[d] + rr * p.g_sb + j;
+  const float* o_row = p.out[d] + rr * p.o_sb + j;
+  float* dgi_row = p.dgi[d] + (size_t)rr * T * H3 + j;
+  float* dgh_row = p.dgh + ((size_t)d * p.B + rr) * T * H3 + j;
 
-  // product role: column u, K-slice s
-  const int du = tid % U, ds = tid / U;
-  const bool dot = ds < S;
-  const int k0 = ds * L;
-  const int k1 = min(H, k0 + L);
+  // a phase of a buffer's barrier: thread 0's arrival with the bytes of the
+  // whole dgh (every CTA's slice), which the peers' stores then complete
+  const uint32_t bytes = 16 * H * BT;
+  const uint32_t bar0 = smem_addr(&s_bar[0]);
+  if (threadIdx.x == 0) {
+    init_barriers(bar0);
+    // buffer 1 is first filled by iteration 0's pushes, buffer 0 by iteration 1's
+    if (T > 1) expect_bytes(bar0 + 8, bytes);
+    if (T > 2) expect_bytes(bar0, bytes);
+  }
+  cluster.sync();  // barriers initialised before any push
 
-  float dh = 0.f;  // gradient into h_t from later steps, for (fb, jr)
-  float az = 0.f;  // a * z of the previous iteration (the direct term)
+  // this lane's float4 slot in every CTA's two buffers
+  const uint32_t slot0 = smem_addr(s_d + rank * S + (ul * BT + rb) * 4);
 
-  cluster.sync();  // w_hh slices and the first h_prev are in place
+  // the step's inputs, loaded during the step before: gi, gh (r, z, n), g, h_prev
+  float x[3] = {0.f, 0.f, 0.f}, gh[3] = {0.f, 0.f, 0.f}, gv = 0.f, hp = 0.f;
+  auto load_step = [&](int i) {  // forward step i
+    const int t = rev ? T - 1 - i : i;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      x[q] = gi_row[t * p.gi_st + q * H];
+      gh[q] = gh_row[t * H3 + q * H];
+    }
+    gv = g_row[t * p.g_st];
+    hp = i > 0 ? o_row[(rev ? t + 1 : t - 1) * p.o_st] : 0.f;
+  };
+  if (row_ok) load_step(T - 1);
 
-  int cur = 0;
+  float az = 0.f;  // a z of the step after, for this lane's (unit, row)
   for (int s = 0; s < T; ++s) {
     const int i = T - 1 - s;  // forward step index, walked backwards
     const int t = rev ? T - 1 - i : i;
-    if (i > 0) stage_hprev(i - 1, cur ^ 1, true);  // overlaps this step
-    __pipeline_commit();
-
-    float xr = 0.f, xz = 0.f, xn = 0.f, gv = 0.f;
-    if (row_ok) {
-      const float* gt = gi_row + t * p.gi_st;
-      xr = gt[jr];
-      xz = gt[H + jr];
-      xn = gt[2 * H + jr];
-      gv = g_row[t * p.g_st];
-    }
-    const float* hcur = s_h + cur * H * BT;
-
-    if (dot) {
-      float acc[3][BT];
+    const int cur = s & 1;
+    float dh = 0.f;
+    if (s > 0) {
+      wait_phase(bar0 + 8 * cur, ((s - 1) >> 1) & 1);
+      // the buffer's next filling, by iteration s + 1's pushes, if there is one
+      if (threadIdx.x == 0 && s + 2 < T) expect_bytes(bar0 + 8 * cur, bytes);
+      float acc[BT][1];
 #pragma unroll
-      for (int gg = 0; gg < 3; ++gg)
+      for (int b = 0; b < BT; ++b) acc[b][0] = 0.f;
+      const float4* ds = reinterpret_cast<const float4*>(s_d + cur * CLUSTER * S + kq * S);
 #pragma unroll
-        for (int b = 0; b < BT; ++b) acc[gg][b] = 0.f;
-      for (int k = k0; k < k1; ++k) {
-        const float* wk = s_w + k * WS + du;
-        const float wr = wk[0], wz = wk[U], wn = wk[2 * U];
-        float hv[BT];
-        if constexpr (BT % 4 == 0) {
-          const float4* h4 = reinterpret_cast<const float4*>(hcur + k * BT);
-#pragma unroll
-          for (int q = 0; q < BT / 4; ++q) {
-            const float4 v = h4[q];
-            hv[4 * q] = v.x; hv[4 * q + 1] = v.y;
-            hv[4 * q + 2] = v.z; hv[4 * q + 3] = v.w;
-          }
-        } else {
-#pragma unroll
-          for (int b = 0; b < BT; ++b) hv[b] = hcur[k * BT + b];
-        }
+      for (int c = 0; c < MAX_KPL; ++c) {
+        if (NK == 0 && c >= nk) break;
 #pragma unroll
         for (int b = 0; b < BT; ++b) {
-          acc[0][b] = fmaf(hv[b], wr, acc[0][b]);
-          acc[1][b] = fmaf(hv[b], wz, acc[1][b]);
-          acc[2][b] = fmaf(hv[b], wn, acc[2][b]);
+          const float4 v = ds[c * BT + b];
+          acc[b][0] = fmaf(v.x, w[c][0], acc[b][0]);
+          acc[b][0] = fmaf(v.y, w[c][1], acc[b][0]);
+          acc[b][0] = fmaf(v.z, w[c][2], acc[b][0]);
         }
       }
-#pragma unroll
-      for (int gg = 0; gg < 3; ++gg)
-#pragma unroll
-        for (int b = 0; b < BT; ++b)
-          s_red[((ds * 3 + gg) * BT + b) * U + du] = acc[gg][b];
+      float sum[1];
+      reduce_kq<BT, 1>(acc, lane, sum);
+      dh = az + sum[0];
     }
-    __syncthreads();
-
-    if (fin) {
-      if (s > 0) {  // the partials the cluster sent at the previous step
-        const float* rcv = s_rcv + ((s - 1) & 1) * CLUSTER * BT * U + fb * U + fu;
-        float sum = az;
-#pragma unroll
-        for (int q = 0; q < CLUSTER; ++q) sum += rcv[q * BT * U];
-        dh = sum;
-      }
-      float ghr = 0.f, ghz = 0.f, ghn = 0.f;
-      for (int sl = 0; sl < S; ++sl) {
-        const float* rs = s_red + (sl * 3 * BT + fb) * U + fu;
-        ghr += rs[0];
-        ghz += rs[BT * U];
-        ghn += rs[2 * BT * U];
-      }
-      ghr += bhr;
-      ghz += bhz;
-      ghn += bhn;
-      const float hp = hcur[jr * BT + fb];
-      const float r = sigmoidf(xr + ghr);
-      const float z = sigmoidf(xz + ghz);
-      const float n = tanhf(xn + r * ghn);
+    if (writer) {
+      const float r = sigmoidf(x[0] + gh[0]);
+      const float z = sigmoidf(x[1] + gh[1]);
+      const float n = tanhf(x[2] + r * gh[2]);
       const float a = gv + dh;
       const float dn = a * (1.f - z);
       const float dz = a * (hp - n);
       const float dpre_n = dn * (1.f - n * n);
-      const float dr = dpre_n * ghn;
+      const float dr = dpre_n * gh[2];
       const float dpre_r = dr * r * (1.f - r);
       const float dpre_z = dz * z * (1.f - z);
       const float dgh_n = dpre_n * r;
+      if (s + 1 < T) {  // the first forward step's dgh feeds no further dh
+        const uint32_t slot = slot0 + (cur ^ 1) * CLUSTER * S * sizeof(float);
+        const uint32_t bar = bar0 + 8 * (cur ^ 1);
+        const float4 v = make_float4(dpre_r, dpre_z, dgh_n, 0.f);
+#pragma unroll
+        for (int q = 0; q < CLUSTER; ++q) st_peer4(peer_addr(slot, q), v, peer_addr(bar, q));
+      }
+      az = a * z;
       if (row_ok) {
-        const long long o = (long long)t * 3 * H;
+        const size_t o = (size_t)t * H3;
         dgi_row[o] = dpre_r;
         dgi_row[o + H] = dpre_z;
         dgi_row[o + 2 * H] = dpre_n;
         dgh_row[o] = dpre_r;
         dgh_row[o + H] = dpre_z;
         dgh_row[o + 2 * H] = dgh_n;
+        if (i > 0) load_step(i - 1);
       }
-      s_dgh[fu * BT + fb] = dpre_r;
-      s_dgh[(U + fu) * BT + fb] = dpre_z;
-      s_dgh[(2 * U + fu) * BT + fb] = dgh_n;
-      az = a * z;
     }
-    __syncthreads();
-
-    // partial dh_prev[j] = sum over this CTA's 3U columns of dgh W_hh[j, col]
-    float* snd = s_rcv + (s & 1) * CLUSTER * BT * U + rank * BT * U;
-    for (int j = tid; j < H; j += NT) {
-      float acc[BT];
-#pragma unroll
-      for (int b = 0; b < BT; ++b) acc[b] = 0.f;
-      const float* wj = s_w + j * WS;
-      for (int c = 0; c < U3; ++c) {
-        const float w = wj[c];
-        float dv[BT];
-        if constexpr (BT % 4 == 0) {
-          const float4* d4 = reinterpret_cast<const float4*>(s_dgh + c * BT);
-#pragma unroll
-          for (int q = 0; q < BT / 4; ++q) {
-            const float4 v = d4[q];
-            dv[4 * q] = v.x; dv[4 * q + 1] = v.y;
-            dv[4 * q + 2] = v.z; dv[4 * q + 3] = v.w;
-          }
-        } else {
-#pragma unroll
-          for (int b = 0; b < BT; ++b) dv[b] = s_dgh[c * BT + b];
-        }
-#pragma unroll
-        for (int b = 0; b < BT; ++b) acc[b] = fmaf(dv[b], w, acc[b]);
-      }
-      const int owner = j / U;
-#pragma unroll
-      for (int b = 0; b < BT; ++b)
-        *cluster.map_shared_rank(snd + b * U + (j % U), owner) = acc[b];
-    }
-    __pipeline_wait_prior(0);  // the next h_prev has landed
-    cluster.sync();  // partials delivered everywhere; buffers free to reuse
-    cur ^= 1;
   }
+  cluster.sync();  // no CTA leaves while a peer may still touch its memory
 }
 
-size_t chain_smem_bytes(int H, int BT) {
-  const int U = H / CLUSTER;
-  const int S = NT / U;
-  return sizeof(float) *
-         ((size_t)H * (3 * U + 1) + 2 * (size_t)H * BT +
-          (size_t)S * 3 * BT * U + (size_t)3 * U * BT +
-          2 * (size_t)CLUSTER * BT * U);
-}
-
-constexpr size_t MAX_SMEM = 232448;  // per-block opt-in limit on sm_90
-
-// Rows per cluster: the smallest power of two >= B, at most 8, small enough
-// that every (row, unit) pair has its own thread and the shared arrays fit.
-int rows_per_cluster(int B, int H) {
-  const int U = H / CLUSTER;
-  int bt = 1;
-  while (bt < B && bt < 8) bt *= 2;
-  while (bt > 1 && (bt * U > NT || chain_smem_bytes(H, bt) > MAX_SMEM)) bt /= 2;
-  return bt;
+// The generic chain, any H divisible by 8: one thread per (unit, row), the
+// whole dh dot product in order; w_hh's rows of the CTA's units [U][3H] in
+// shared memory when `w_in_smem`, else read from global memory (L2).
+size_t generic_smem_bytes(int H, int BT, bool w_in_smem) {
+  const size_t U = H / CLUSTER;
+  return chain_smem_bytes(H, BT) + sizeof(float) * (U * BT + (w_in_smem ? U * 3 * H : 0));
 }
 
 template <int BT>
-cudaError_t launch_chain(const GruBwdParams& p, int ndir, cudaStream_t stream) {
-  const size_t smem = chain_smem_bytes(p.H, BT);
-  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      gru_bwd_chain_kernel<BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(CLUSTER, ndir, (p.B + BT - 1) / BT);
-  gru_bwd_chain_kernel<BT><<<grid, NT, smem, stream>>>(p);
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT, 1)
+gru_bwd_chain_generic_kernel(const GruBwdParams p) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int d = blockIdx.y;
+  const int b0 = blockIdx.z * BT;
+  const int H = p.H, H3 = 3 * H, T = p.T;
+  const int U = H / CLUSTER;
+  const bool rev = (p.reverse_mask >> d) & 1;
+
+  extern __shared__ float4 smem4[];
+  const int S = slice_stride(4 * U * BT);
+  float* s_d = reinterpret_cast<float*>(smem4);  // [2][8][S] exchange buffers
+  float* s_az = s_d + 2 * CLUSTER * S;           // [U * BT] a z of the step after
+  float* s_w = s_az + U * BT;                    // [U][3H] when w_in_smem
+  __shared__ alignas(8) uint64_t s_bar[2];
+
+  const float* W = p.w_hh[d] + (long long)rank * U * p.w_sk;
+  long long wj = p.w_sk, wc = p.w_sc;  // w(unit ul, col) = W[ul * wj + col * wc]
+  if (p.w_in_smem) {
+    for (int e = threadIdx.x; e < U * H3; e += NT)
+      s_w[e] = W[(e / H3) * p.w_sk + (long long)(e % H3) * p.w_sc];
+    W = s_w;
+    wj = H3;
+    wc = 1;
+  }
+  for (int e = threadIdx.x; e < U * BT; e += NT) s_az[e] = 0.f;
+  const uint32_t bytes = 16 * H * BT;
+  const uint32_t bar0 = smem_addr(&s_bar[0]);
+  if (threadIdx.x == 0) {
+    init_barriers(bar0);
+    if (T > 1) expect_bytes(bar0 + 8, bytes);
+    if (T > 2) expect_bytes(bar0, bytes);
+  }
+  cluster.sync();
+
+  for (int s = 0; s < T; ++s) {
+    const int i = T - 1 - s;
+    const int t = rev ? T - 1 - i : i;
+    const int cur = s & 1;
+    if (s > 0) {
+      wait_phase(bar0 + 8 * cur, ((s - 1) >> 1) & 1);
+      if (threadIdx.x == 0 && s + 2 < T) expect_bytes(bar0 + 8 * cur, bytes);
+    }
+    const float* buf = s_d + cur * CLUSTER * S;
+    for (int e = threadIdx.x; e < U * BT; e += NT) {
+      const int ul = e / BT, rb = e % BT;
+      const int j = rank * U + ul, gb = b0 + rb;
+      const bool ok = gb < p.B;
+      float dh = 0.f;
+      if (s > 0) {
+        const float* wr = W + ul * wj;
+        float acc = 0.f;
+        for (int q = 0; q < CLUSTER; ++q)
+          for (int c = 0; c < U; ++c) {
+            const float4 v = *reinterpret_cast<const float4*>(buf + q * S + (c * BT + rb) * 4);
+            const long long col = q * U + c;
+            acc = fmaf(v.x, wr[col * wc], acc);
+            acc = fmaf(v.y, wr[(col + H) * wc], acc);
+            acc = fmaf(v.z, wr[(col + 2 * H) * wc], acc);
+          }
+        dh = s_az[e] + acc;
+      }
+      float x[3] = {0.f, 0.f, 0.f}, gh[3] = {0.f, 0.f, 0.f}, gv = 0.f, hp = 0.f;
+      const size_t drow = ((size_t)gb * T + t) * H3 + j;
+      const size_t hrow = (((size_t)d * p.B + gb) * T + t) * H3 + j;
+      if (ok) {
+        for (int q = 0; q < 3; ++q) {
+          x[q] = p.gi[d][gb * p.gi_sb + t * p.gi_st + q * H + j];
+          gh[q] = p.gh[hrow + q * H];
+        }
+        gv = p.g[d][gb * p.g_sb + t * p.g_st + j];
+        if (i > 0) hp = p.out[d][gb * p.o_sb + (rev ? t + 1 : t - 1) * p.o_st + j];
+      }
+      const float r = sigmoidf(x[0] + gh[0]);
+      const float z = sigmoidf(x[1] + gh[1]);
+      const float n = tanhf(x[2] + r * gh[2]);
+      const float a = gv + dh;
+      const float dn = a * (1.f - z);
+      const float dz = a * (hp - n);
+      const float dpre_n = dn * (1.f - n * n);
+      const float dpre_r = dpre_n * gh[2] * r * (1.f - r);
+      const float dpre_z = dz * z * (1.f - z);
+      const float dgh_n = dpre_n * r;
+      if (s + 1 < T) {
+        const uint32_t slot =
+            smem_addr(s_d + (cur ^ 1) * CLUSTER * S + rank * S + (ul * BT + rb) * 4);
+        const uint32_t bar = bar0 + 8 * (cur ^ 1);
+        const float4 v = make_float4(dpre_r, dpre_z, dgh_n, 0.f);
+        for (int q = 0; q < CLUSTER; ++q) st_peer4(peer_addr(slot, q), v, peer_addr(bar, q));
+      }
+      s_az[e] = a * z;
+      if (ok) {
+        float* dgi = p.dgi[d] + drow;
+        float* dgh = p.dgh + hrow;
+        dgi[0] = dpre_r;
+        dgi[H] = dpre_z;
+        dgi[2 * H] = dpre_n;
+        dgh[0] = dpre_r;
+        dgh[H] = dpre_z;
+        dgh[2 * H] = dgh_n;
+      }
+    }
+  }
+  cluster.sync();
+}
+
+template <int BT, int NK>
+cudaError_t launch_chain(const GruBwdParams& p, cudaStream_t stream) {
+  const int nt = 32 * ((p.H / CLUSTER + UPW - 1) / UPW);
+  const dim3 grid(CLUSTER, p.ndir, (p.B + BT - 1) / BT);
+  gru_bwd_chain_kernel<BT, NK><<<grid, nt, chain_smem_bytes(p.H, BT), stream>>>(p);
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// (b) dW_hh = h_prev^T dgh, db_hh = sum dgh
-// ---------------------------------------------------------------------------
+template <int BT>
+cudaError_t launch_chain_bt(const GruBwdParams& p, cudaStream_t stream) {
+  return p.H == MAX_KPL * CLUSTER ? launch_chain<BT, MAX_KPL>(p, stream)
+                                  : launch_chain<BT, 0>(p, stream);
+}
 
-constexpr int RT = 64;  // output tile: RT rows (k) x RT columns (col)
-constexpr int RK = 16;  // (row, step) pairs per shared-memory chunk
+std::atomic<int> resident[3][MAX_DEVICES];  // [log2 BT][device]
 
-__global__ void __launch_bounds__(NT)
-gru_bwd_reduce_kernel(const GruBwdParams p) {
-  const int d = blockIdx.z;
-  const int c0 = blockIdx.x * RT, k0 = blockIdx.y * RT;
-  const int H = p.H, T = p.T, H3 = 3 * H;
-  const int M = p.B * T;
-  const bool rev = (p.reverse_mask >> d) & 1;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
+template <int BT>
+int resident_bt(int device) {
+  return resident_clusters(resident[BT == 1 ? 0 : (BT == 2 ? 1 : 2)], device,
+                           gru_bwd_chain_kernel<BT, 0>, CLUSTER, MAX_NT,
+                           chain_smem_bytes(MAX_KPL * CLUSTER, BT));
+}
 
-  __shared__ __align__(16) float s_a[RK][RT];  // h_prev[m][k0 + kk]
-  __shared__ __align__(16) float s_b[RK][RT];  // dgh[m][c0 + cc]
+std::atomic<bool> generic_opted_in[3][MAX_DEVICES];
 
-  const float* outd = p.out[d];
-  const float* dghd = p.dgh[d];
-  float acc[4][4] = {};
-  float dbacc = 0.f;
-  const bool do_db = blockIdx.y == 0 && tid < RT && c0 + tid < H3;
+template <int BT>
+cudaError_t launch_generic(GruBwdParams p, int device, cudaStream_t stream) {
+  cudaError_t e = opt_in_smem(generic_opted_in[BT == 1 ? 0 : (BT == 2 ? 1 : 2)], device,
+                              gru_bwd_chain_generic_kernel<BT>);
+  if (e != cudaSuccess) return e;
+  p.w_in_smem = generic_smem_bytes(p.H, BT, true) <= MAX_DYN_SMEM;
+  const dim3 grid(CLUSTER, p.ndir, (p.B + BT - 1) / BT);
+  gru_bwd_chain_generic_kernel<BT>
+      <<<grid, NT, generic_smem_bytes(p.H, BT, p.w_in_smem), stream>>>(p);
+  return cudaGetLastError();
+}
 
-  for (int m0 = 0; m0 < M; m0 += RK) {
-    for (int e = tid; e < RK * RT; e += NT) {
-      const int mm = e / RT, kk = e % RT;
-      const int m = m0 + mm;
-      float va = 0.f, vb = 0.f;
-      if (m < M) {
-        const int b = m / T, t = m % T;
-        const int tp = rev ? t + 1 : t - 1;
-        if (k0 + kk < H && tp >= 0 && tp < T)
-          va = outd[b * p.o_sb + tp * p.o_st + k0 + kk];
-        if (c0 + kk < H3) vb = dghd[(long long)m * H3 + c0 + kk];
-      }
-      s_a[mm][kk] = va;
-      s_b[mm][kk] = vb;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int mm = 0; mm < RK; ++mm) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&s_a[mm][ty * 4]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&s_b[mm][tx * 4]);
-      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-    }
-    if (do_db) {
-#pragma unroll
-      for (int mm = 0; mm < RK; ++mm) dbacc += s_b[mm][tid];
-    }
-    __syncthreads();
+cudaError_t launch_chain_any(const GruBwdParams& p, int device, cudaStream_t stream) {
+  if (p.H <= MAX_KPL * CLUSTER) {
+    // the fewest rows per cluster whose clusters all fit at once
+    if (p.ndir * p.B <= resident_bt<1>(device)) return launch_chain_bt<1>(p, stream);
+    if (p.ndir * ((p.B + 1) / 2) <= resident_bt<2>(device)) return launch_chain_bt<2>(p, stream);
+    return launch_chain_bt<4>(p, stream);
   }
-
-  float* dw = p.dw[d];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int k = k0 + ty * 4 + r;
-    if (k >= H) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int col = c0 + tx * 4 + c;
-      if (col < H3) dw[k * p.dw_sk + col * p.dw_sc] = acc[r][c];
-    }
-  }
-  if (do_db) p.db[d][c0 + tid] = dbacc;
+  // generic: the most rows (up to 4, at most B rounded up) whose buffers fit
+  if (p.B > 2 && generic_smem_bytes(p.H, 4, false) <= MAX_DYN_SMEM)
+    return launch_generic<4>(p, device, stream);
+  if (p.B > 1 && generic_smem_bytes(p.H, 2, false) <= MAX_DYN_SMEM)
+    return launch_generic<2>(p, device, stream);
+  if (generic_smem_bytes(p.H, 1, false) <= MAX_DYN_SMEM) return launch_generic<1>(p, device, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// The largest H (a multiple of 8) whose chain fits the card's shared memory.
+extern "C" int avs_gru_bwd_max_hidden() {
+  int h = 8;
+  while (generic_smem_bytes(h + 8, 1, false) <= MAX_DYN_SMEM) h += 8;
+  return h;
+}
+
+// Scratch: gh and dgh (ndir * B * T * 3H floats each) and `partial`
+// (ndir * n_chunks * (H + 1) * 3H floats), allocated by the wrapper.
 extern "C" int avs_gru_bwd(
     const float* gi0, const float* gi1, const float* out0, const float* out1,
     const float* g0, const float* g1, const float* w0, const float* w1,
-    const float* b0, const float* b1, float* dgi0, float* dgi1, float* dgh0,
-    float* dgh1, float* dw0, float* dw1, float* db0, float* db1,
+    const float* b0, const float* b1, float* dgi0, float* dgi1, float* dw0, float* dw1,
+    float* db0, float* db1, float* gh, float* dgh, float* partial,
     long long gi_sb, long long gi_st, long long o_sb, long long o_st,
     long long g_sb, long long g_st, long long w_sk, long long w_sc,
     long long dw_sk, long long dw_sc,
-    int B, int T, int H, int ndir, int reverse_mask, int device, void* stream) {
-  if (H % CLUSTER != 0 || H / CLUSTER > NT || ndir < 1 || ndir > 2 || B < 1 ||
-      T < 1)
+    int B, int T, int H, int ndir, int reverse_mask, int n_chunks, int device, void* stream) {
+  if (H % CLUSTER != 0 || H < CLUSTER || ndir < 1 || ndir > 2 || B < 1 || T < 1 ||
+      n_chunks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  GruBwdParams p{{gi0, gi1}, {out0, out1}, {g0, g1}, {w0, w1}, {b0, b1},
-                 {dgi0, dgi1}, {dgh0, dgh1}, {dw0, dw1}, {db0, db1},
-                 gi_sb, gi_st, o_sb, o_st, g_sb, g_st, w_sk, w_sc, dw_sk, dw_sc,
-                 B, T, H, reverse_mask};
+  cudaError_t e = use_device(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const GruBwdParams p{{gi0, gi1}, {out0, out1}, {g0, g1}, {w0, w1}, {b0, b1},
+                       {dgi0, dgi1}, {dw0, dw1}, {db0, db1}, gh, dgh, partial,
+                       gi_sb, gi_st, o_sb, o_st, g_sb, g_st, w_sk, w_sc, dw_sk, dw_sc,
+                       B, T, H, ndir, reverse_mask, n_chunks, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  switch (rows_per_cluster(B, H)) {
-    case 8: e = launch_chain<8>(p, ndir, s); break;
-    case 4: e = launch_chain<4>(p, ndir, s); break;
-    case 2: e = launch_chain<2>(p, ndir, s); break;
-    default: e = launch_chain<1>(p, ndir, s); break;
-  }
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((3 * H + RT - 1) / RT, (H + RT - 1) / RT, ndir);
-  gru_bwd_reduce_kernel<<<grid, NT, 0, s>>>(p);
+  const int H3 = 3 * H, M = B * T;
+  gru_bwd_gh_kernel<<<dim3((H3 + TN - 1) / TN, (M + TM - 1) / TM, ndir), NT, 0, s>>>(p);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  if ((e = launch_chain_any(p, device, s)) != cudaSuccess) return static_cast<int>(e);
+  gru_bwd_dw_kernel<<<dim3((H3 + TN - 1) / TN, (H + TM - 1) / TM, ndir * n_chunks), NT, 0,
+                      s>>>(p);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  const long long n_out = (long long)ndir * (H + 1) * H3;
+  gru_bwd_sum_kernel<<<(unsigned)((n_out + NT - 1) / NT), NT, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -56,13 +56,16 @@
 // launch is resident at once (the occupancy query, cached per device).
 // Both directions of a bidirectional layer share one launch (grid.y is the
 // direction) and write their halves of the (B, T, 2H) output directly.
+// H above 256 (its w_hh part would not fit in registers) takes a generic
+// kernel with the same exchange: one thread per (unit, row), the CTA's
+// columns of w_hh in shared memory where they fit, else read through L2.
+// The wrapper pads H to a multiple of 8 with zero units.
 // Accuracy: expf / tanhf, no fast-math.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include <atomic>
-#include <cstdint>
+#include "cluster_exchange.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -82,75 +85,6 @@ struct GruParams {
   long long gi_sb, gi_st, w_sk, w_sc, o_sb, o_st, o_sd;
   int B, T, H, reverse_mask;  // bit d set: direction d walks time backwards
 };
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Address of the same shared variable in CTA `rank` of the cluster.
-__device__ __forceinline__ uint32_t peer_addr(uint32_t local, int rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(local), "r"(rank));
-  return out;
-}
-
-// Store v into a peer's shared memory; the store completes 4 bytes of the
-// transaction count of the peer's mbarrier `bar` when it has landed (no
-// fence on the writer's side).
-__device__ __forceinline__ void st_peer(uint32_t addr, float v, uint32_t bar) {
-  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];"
-               ::"r"(addr), "f"(v), "r"(bar) : "memory");
-}
-
-// The barrier's next phase completes when `bytes` more have landed.
-__device__ __forceinline__ void expect_bytes(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(bytes) : "memory");
-}
-
-// Wait until the phase of `bar` with this parity has completed (acquire at
-// cluster scope: the data came from the peers). A phase
-// that never completes (a broken invariant) traps after ~seconds instead of
-// hanging the card.
-__device__ __forceinline__ void wait_phase(uint32_t bar, uint32_t parity) {
-  for (long long spin = 0;; ++spin) {
-    uint32_t done;
-    asm volatile(
-        "{ .reg .pred p;\n"
-        "  mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-        "  selp.u32 %0, 1, 0, p; }"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (spin > (1ll << 22)) __trap();
-  }
-}
-
-// Sum over the 8 kq lanes (lane bits 2-4) of v[N][3]: halving the rows over
-// bit `mask` while more than one row is held, then a butterfly. Each add is
-// (own + partner's) of the same pair, so both lanes of a pair get the same
-// bits and the tree is fixed.
-template <int N>
-__device__ __forceinline__ void halve(float (&v)[N][3], int lane, int mask) {
-  const bool hi = lane & mask;
-#pragma unroll
-  for (int r = 0; r < N / 2; ++r)
-#pragma unroll
-    for (int g = 0; g < 3; ++g) {
-      const float send = hi ? v[r][g] : v[r + N / 2][g];
-      const float keep = hi ? v[r + N / 2][g] : v[r][g];
-      v[r][g] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
-    }
-}
-
-template <int N>
-__device__ __forceinline__ void butterfly(float (&v)[N][3], int mask) {
-#pragma unroll
-  for (int g = 0; g < 3; ++g) v[0][g] += __shfl_xor_sync(0xffffffffu, v[0][g], mask);
-}
 
 // BT: batch rows per cluster (1, 2 or 4). NK: k values per lane (H/8) when
 // known at compile time, 0 = read H at run time (H/8 <= MAX_KPL).
@@ -173,10 +107,8 @@ gru_fwd_kernel(const GruParams p) {
 
   // after the reduction: the lane's batch row, and whether it is the one
   // lane of its duplicates that writes
-  const int rb = BT == 4 ? ((lane >> 4) & 1) * 2 + ((lane >> 3) & 1)
-                         : (BT == 2 ? (lane >> 4) & 1 : 0);
-  const bool writer =
-      unit_ok && (BT == 4 ? !(lane & 4) : (BT == 2 ? !(lane & 12) : !(lane & 28)));
+  const int rb = row_of_lane<BT>(lane);
+  const bool writer = unit_ok && first_of_row<BT>(lane);
   const int gb = b0 + rb;
   const bool row_ok = writer && gb < p.B;
 
@@ -184,7 +116,7 @@ gru_fwd_kernel(const GruParams p) {
   // [2][8 CTA slices][slice]: slice r holds units [r*U, (r+1)*U) as [U][BT],
   // padded to a stride S = 4 (mod 32) floats so that the 8 kq lanes' float4
   // reads of 8 slices fall in 8 disjoint groups of 4 banks
-  const int S = U * BT + (36 - (U * BT) % 32) % 32;
+  const int S = slice_stride(U * BT);
   float* s_h = reinterpret_cast<float*>(smem4);
   __shared__ alignas(8) uint64_t s_bar[2];        // one per h buffer
 
@@ -214,10 +146,7 @@ gru_fwd_kernel(const GruParams p) {
   // h_0 = 0; the padding stays 0 (it meets zero weights in the product)
   for (int i = threadIdx.x; i < 2 * CLUSTER * S; i += blockDim.x) s_h[i] = 0.f;
   if (threadIdx.x == 0) {
-#pragma unroll
-    for (int q = 0; q < 2; ++q)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar0 + 8 * q) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    init_barriers(bar0);
     // buffer 1 is first filled by step 0's pushes, buffer 0 by step 1's
     if (T > 1) expect_bytes(bar0 + 8, h_bytes);
     if (T > 2) expect_bytes(bar0, h_bytes);
@@ -268,26 +197,7 @@ gru_fwd_kernel(const GruParams p) {
     }
 
     float s[3];
-    if constexpr (BT == 4) {
-      halve<4>(acc, lane, 16);
-      float (&a2)[2][3] = reinterpret_cast<float (&)[2][3]>(acc);
-      halve<2>(a2, lane, 8);
-      butterfly<2>(a2, 4);
-#pragma unroll
-      for (int g = 0; g < 3; ++g) s[g] = a2[0][g];
-    } else if constexpr (BT == 2) {
-      halve<2>(acc, lane, 16);
-      butterfly<2>(acc, 8);
-      butterfly<2>(acc, 4);
-#pragma unroll
-      for (int g = 0; g < 3; ++g) s[g] = acc[0][g];
-    } else {
-      butterfly<1>(acc, 16);
-      butterfly<1>(acc, 8);
-      butterfly<1>(acc, 4);
-#pragma unroll
-      for (int g = 0; g < 3; ++g) s[g] = acc[0][g];
-    }
+    reduce_kq<BT, 3>(acc, lane, s);
 
     const bool push = i + 1 < T;  // the last h_t feeds no further step
     float hn = 0.f;
@@ -317,8 +227,97 @@ gru_fwd_kernel(const GruParams p) {
 }
 
 size_t smem_bytes(int H, int BT) {
-  const int ubt = H / CLUSTER * BT;
-  return sizeof(float) * 2 * CLUSTER * (size_t)(ubt + (36 - ubt % 32) % 32);
+  return sizeof(float) * 2 * CLUSTER * (size_t)slice_stride(H / CLUSTER * BT);
+}
+
+// The generic kernel, any H divisible by 8: one thread per (unit, row), the
+// whole h W_hh dot product in order; the CTA's columns of w_hh [H][3U] in
+// shared memory when `w_in_smem`, else read from global memory (L2). The h
+// buffers and their exchange are the register kernel's.
+constexpr int GNT = 256;  // threads of the generic kernel
+
+size_t generic_smem_bytes(int H, int BT, bool w_in_smem) {
+  return smem_bytes(H, BT) + (w_in_smem ? sizeof(float) * (size_t)H * 3 * (H / CLUSTER) : 0);
+}
+
+template <int BT>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(GNT, 1)
+gru_fwd_generic_kernel(const GruParams p, int w_in_smem) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int d = blockIdx.y;
+  const int b0 = blockIdx.z * BT;
+  const int H = p.H, T = p.T;
+  const int U = H / CLUSTER;
+  const bool rev = (p.reverse_mask >> d) & 1;
+
+  extern __shared__ float4 smem4[];
+  const int S = slice_stride(U * BT);
+  float* s_h = reinterpret_cast<float*>(smem4);  // [2][8][S] h buffers
+  float* s_w = s_h + 2 * CLUSTER * S;            // [H][3U] when w_in_smem
+  __shared__ alignas(8) uint64_t s_bar[2];
+
+  // w(k, gate g, unit ul) = W[k * wk + g * wg + ul * wu]
+  const float* W = p.w_hh[d] + (long long)rank * U * p.w_sc;
+  long long wk = p.w_sk, wg = (long long)H * p.w_sc, wu = p.w_sc;
+  if (w_in_smem) {
+    for (int e = threadIdx.x; e < H * 3 * U; e += GNT) {
+      const int k = e / (3 * U), c = e % (3 * U);
+      s_w[e] = W[k * p.w_sk + ((c / U) * H + c % U) * p.w_sc];
+    }
+    W = s_w;
+    wk = 3 * U;
+    wg = U;
+    wu = 1;
+  }
+  const uint32_t h_bytes = H * BT * sizeof(float);
+  const uint32_t bar0 = smem_addr(&s_bar[0]);
+  for (int i = threadIdx.x; i < 2 * CLUSTER * S; i += GNT) s_h[i] = 0.f;
+  if (threadIdx.x == 0) {
+    init_barriers(bar0);
+    if (T > 1) expect_bytes(bar0 + 8, h_bytes);
+    if (T > 2) expect_bytes(bar0, h_bytes);
+  }
+  cluster.sync();
+
+  for (int i = 0; i < T; ++i) {
+    const int t = rev ? T - 1 - i : i;
+    const int cur = i & 1;
+    if (i > 0) {
+      wait_phase(bar0 + 8 * cur, ((i - 1) >> 1) & 1);
+      if (threadIdx.x == 0 && i + 2 < T) expect_bytes(bar0 + 8 * cur, h_bytes);
+    }
+    const float* hcur = s_h + cur * CLUSTER * S;
+    for (int e = threadIdx.x; e < U * BT; e += GNT) {
+      const int ul = e / BT, rb = e % BT;
+      const int j = rank * U + ul, gb = b0 + rb;
+      float acc[3] = {0.f, 0.f, 0.f};
+      for (int q = 0; q < CLUSTER; ++q)
+        for (int c = 0; c < U; ++c) {
+          const float hv = hcur[q * S + c * BT + rb];
+          const float* wr = W + (long long)(q * U + c) * wk + ul * wu;
+#pragma unroll
+          for (int g = 0; g < 3; ++g) acc[g] = fmaf(hv, wr[g * wg], acc[g]);
+        }
+      float x[3] = {0.f, 0.f, 0.f};
+      if (gb < p.B)
+#pragma unroll
+        for (int g = 0; g < 3; ++g) x[g] = p.gi[d][gb * p.gi_sb + t * p.gi_st + g * H + j];
+      const float* bh = p.b_hh[d] + j;
+      const int own = rank * S + ul * BT + rb;
+      const float r = sigmoidf(x[0] + (acc[0] + bh[0]));
+      const float z = sigmoidf(x[1] + (acc[1] + bh[H]));
+      const float n = tanhf(x[2] + r * (acc[2] + bh[2 * H]));
+      const float hn = (1.f - z) * n + z * hcur[own];
+      if (i + 1 < T) {
+        const uint32_t slot = smem_addr(s_h + (cur ^ 1) * CLUSTER * S + own);
+        const uint32_t bar = bar0 + 8 * (cur ^ 1);
+        for (int q = 0; q < CLUSTER; ++q) st_peer(peer_addr(slot, q), hn, peer_addr(bar, q));
+      }
+      if (gb < p.B) p.out[gb * p.o_sb + t * p.o_st + d * p.o_sd + j] = hn;
+    }
+  }
+  cluster.sync();
 }
 
 template <int BT, int NK>
@@ -329,27 +328,15 @@ cudaError_t launch(const GruParams& p, int ndir, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Clusters of one instantiation that can be resident at once on `device`
-// (8-warp CTAs: the most any H takes), queried once per device.
-constexpr int MAX_DEVICES = 64;
-std::atomic<int> resident[MAX_DEVICES][3];  // [device][log2 BT]; 0 = not asked yet
+// Clusters of one instantiation that can be resident at once (8-warp CTAs:
+// the most any H takes), queried once per device.
+std::atomic<int> resident[3][MAX_DEVICES];  // [log2 BT][device]
 
 template <int BT>
-int resident_clusters(int device) {
-  const int slot = BT == 1 ? 0 : (BT == 2 ? 1 : 2);
-  int n = device < MAX_DEVICES ? resident[device][slot].load() : 0;
-  if (n > 0) return n;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CLUSTER, 1, 1);
-  cfg.blockDim = dim3(MAX_NT, 1, 1);
-  cfg.dynamicSmemBytes = smem_bytes(MAX_KPL * KQ, BT);
-  if (cudaOccupancyMaxActiveClusters(&n, gru_fwd_kernel<BT, 0>, &cfg) != cudaSuccess ||
-      n < 1) {
-    cudaGetLastError();
-    n = 1;
-  }
-  if (device < MAX_DEVICES) resident[device][slot].store(n);
-  return n;
+int resident_bt(int device) {
+  return resident_clusters(resident[BT == 1 ? 0 : (BT == 2 ? 1 : 2)], device,
+                           gru_fwd_kernel<BT, 0>, CLUSTER, MAX_NT,
+                           smem_bytes(MAX_KPL * KQ, BT));
 }
 
 template <int BT>
@@ -358,7 +345,28 @@ cudaError_t launch_bt(const GruParams& p, int ndir, cudaStream_t stream) {
                              : launch<BT, 0>(p, ndir, stream);
 }
 
+std::atomic<bool> generic_opted_in[3][MAX_DEVICES];
+
+template <int BT>
+cudaError_t launch_generic(const GruParams& p, int ndir, int device, cudaStream_t stream) {
+  cudaError_t e = opt_in_smem(generic_opted_in[BT == 1 ? 0 : (BT == 2 ? 1 : 2)], device,
+                              gru_fwd_generic_kernel<BT>);
+  if (e != cudaSuccess) return e;
+  const bool w_in_smem = generic_smem_bytes(p.H, BT, true) <= MAX_DYN_SMEM;
+  const dim3 grid(CLUSTER, ndir, (p.B + BT - 1) / BT);
+  gru_fwd_generic_kernel<BT>
+      <<<grid, GNT, generic_smem_bytes(p.H, BT, w_in_smem), stream>>>(p, w_in_smem);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// The largest H (a multiple of 8) whose h buffers fit the card's shared memory.
+extern "C" int avs_gru_fwd_max_hidden() {
+  int h = 8;
+  while (smem_bytes(h + 8, 1) <= MAX_DYN_SMEM) h += 8;
+  return h;
+}
 
 extern "C" int avs_gru_fwd(
     const float* gi0, const float* gi1, const float* w0, const float* w1,
@@ -367,22 +375,26 @@ extern "C" int avs_gru_fwd(
     long long o_sb, long long o_st, long long o_sd,
     int B, int T, int H, int ndir, int reverse_mask, int device,
     void* stream) {
-  if (H % KQ != 0 || H < KQ || H / KQ > MAX_KPL || ndir < 1 || ndir > 2 || B < 1 ||
-      T < 0)
+  if (H % KQ != 0 || H < KQ || ndir < 1 || ndir > 2 || B < 1 || T < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (T == 0) return 0;
-  int cur = -1;
-  cudaError_t e = cudaGetDevice(&cur);
-  if (e == cudaSuccess && cur != device) e = cudaSetDevice(device);
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   GruParams p{{gi0, gi1}, {w0, w1}, {b0, b1}, out,
               gi_sb, gi_st, w_sk, w_sc, o_sb, o_st, o_sd,
               B, T, H, reverse_mask};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (H > MAX_KPL * KQ) {
+    // generic: the most rows (up to 4, at most B rounded up) whose buffers fit
+    if (B > 2 && smem_bytes(H, 4) <= MAX_DYN_SMEM) return launch_generic<4>(p, ndir, device, s);
+    if (B > 1 && smem_bytes(H, 2) <= MAX_DYN_SMEM) return launch_generic<2>(p, ndir, device, s);
+    if (smem_bytes(H, 1) <= MAX_DYN_SMEM) return launch_generic<1>(p, ndir, device, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   // the fewest rows per cluster whose clusters all fit at once
-  if (ndir * B <= resident_clusters<1>(device)) {
+  if (ndir * B <= resident_bt<1>(device)) {
     e = launch_bt<1>(p, ndir, s);
-  } else if (ndir * ((B + 1) / 2) <= resident_clusters<2>(device)) {
+  } else if (ndir * ((B + 1) / 2) <= resident_bt<2>(device)) {
     e = launch_bt<2>(p, ndir, s);
   } else {
     e = launch_bt<4>(p, ndir, s);

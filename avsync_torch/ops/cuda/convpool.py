@@ -2,8 +2,9 @@
 gradient: CUDA kernels and their plain twins.
 
   * forward: port of `avsync/ops/pallas/convpool.py:conv1_pool_fused`, kernel
-    `avsync_torch/csrc/conv1_pool.cu` (K1), plain version `conv1_pool_ref`,
-    launches counted in `launches`;
+    `avsync_torch/csrc/conv1_pool.cu` (K1; a CTA per tile and chunk of
+    frames, as `fwd_grid` chooses), plain version `conv1_pool_ref`, launches
+    counted in `launches`;
   * dW/db: port of `conv1_pool_bwd`, kernel `avsync_torch/csrc/
     conv1_pool_bwd.cu` (K4; per-CTA partials over the tile and frame chunks
     that `bwd_grid` chooses, then a fixed-order sum in a second kernel of the
@@ -18,8 +19,9 @@ raises. The counters count kernel launches only.
 
 The plain versions accumulate the taps with `addcmul_` in the kernels' order
 (taps dt, dh, dw from zero, then the bias). On the card that is one fused
-multiply-add per tap, as in the kernels, so the pre-pool values, and with
-them the pool routing of the backward, agree bit for bit.
+multiply-add per tap, as in the kernels (which share that loop,
+`csrc/conv1_recompute.cuh`), so the pre-pool values, and with them the pool
+routing of the backward, agree bit for bit.
 
 Layouts: `conv1_pool_fused` takes and returns the JAX package's
 (B, T, H, W, 1) x (kt, kh, kw, 1, C) -> (B, T, H/2, W/2, C), so tests compare
@@ -42,9 +44,10 @@ from avsync_torch.ops.cuda import build
 launches = 0
 bwd_launches = 0
 
-# avs_conv1_pool(x, w, bias, out, B, T, H, W, kt, kh, kw, C, 4 x strides,
-#                2 w strides, 5 out strides, device, stream)
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 11
+# avs_conv1_pool(x, w, bias, out, B, T, H, W, kt, kh, kw, C, n_chunks,
+#                tile_rows, tile_cols, 4 x strides, 2 w strides, 5 out strides,
+#                device, stream)
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_longlong] * 11
              + [ctypes.c_int, ctypes.c_void_p])
 # avs_conv1_pool_bwd(x, w, bias, g, partial, dw, db, B, T, H, W, kt, kh, kw,
 #                    C, n_chunks, tile_rows, tile_cols, 4 x strides,
@@ -57,6 +60,7 @@ BWD_MAX_TILE_COLS = 64
 # so that the partials (and dW's bits) do not depend on the card.
 BWD_TARGET_CTAS = 264
 MAX_CHANNELS, MAX_TAPS = 32, 128  # what the backward kernel takes
+MAX_SMEM = 232448  # shared memory one CTA can opt in to on sm_90
 
 
 def bwd_grid(B: int, T: int, H2: int, W2: int):
@@ -66,6 +70,30 @@ def bwd_grid(B: int, T: int, H2: int, W2: int):
     frames to fill BWD_TARGET_CTAS CTAs."""
     cols = min(W2, BWD_MAX_TILE_COLS)
     rows = max(1, min(H2, BWD_THREADS // cols))
+    tiles = -(-H2 // rows) * -(-W2 // cols)
+    return rows, cols, tiles, max(1, min(B * T, BWD_TARGET_CTAS // tiles))
+
+
+def fwd_grid(B: int, T: int, H2: int, W2: int, kt: int, kh: int, kw: int, C: int):
+    """(tile_rows, tile_cols, tiles, n_chunks) of K1's grid: K4's tile
+    (`bwd_grid`; 5 x 50 for LipNet's 25 x 50, no dead position) while the
+    CTA's shared memory (the weights and two input halos of float2 pairs,
+    `smem_bytes` in csrc/conv1_pool.cu) fits, else fewer rows, then fewer
+    columns; enough chunks of the B*T frames to fill BWD_TARGET_CTAS CTAs."""
+    rows, cols, _, _ = bwd_grid(B, T, H2, W2)
+    cpad = -(-C // 16) * 16
+
+    def smem(r, c):
+        return 4 * (kt * kh * kw * cpad + cpad) + 16 * kt * (2 * r + kh - 1) * (2 * c + kw - 1)
+
+    while smem(rows, cols) > MAX_SMEM and rows * cols > 1:
+        if rows > 1:
+            rows = -(-rows // 2)
+        else:
+            cols = -(-cols // 2)
+    if smem(rows, cols) > MAX_SMEM:
+        raise ValueError(f"conv1_pool: a {kt}x{kh}x{kw} kernel with {C} channels needs more "
+                         "shared memory than the card has")
     tiles = -(-H2 // rows) * -(-W2 // cols)
     return rows, cols, tiles, max(1, min(B * T, BWD_TARGET_CTAS // tiles))
 
@@ -144,10 +172,11 @@ def _launch(x, x_strides, w, w_strides, bias, out, o_strides, B, T, H, W,
             raise ValueError(f"conv1_pool: {name} must be float32 on {out.device}")
     if not bias.is_contiguous():
         raise ValueError("conv1_pool: bias must be contiguous")
+    rows, cols, _, n_chunks = fwd_grid(B, T, H // 2, W // 2, kt, kh, kw, C)
     fn = build.function("conv1_pool", "avs_conv1_pool", _ARGTYPES)
     err = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-             B, T, H, W, kt, kh, kw, C, *x_strides, *w_strides, *o_strides,
-             out.device.index, torch.cuda.current_stream(out.device).cuda_stream)
+             B, T, H, W, kt, kh, kw, C, n_chunks, rows, cols, *x_strides, *w_strides,
+             *o_strides, out.device.index, torch.cuda.current_stream(out.device).cuda_stream)
     build.check("conv1_pool", err, "conv1_pool launch")
     launches += 1
     return out

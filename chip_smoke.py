@@ -10,11 +10,15 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      paths from avsync_torch/csrc/ (one process per source, started together);
   3. kernels: each LipNet kernel (K1 conv1_pool, K2 gru_fwd, K3 gru_bwd, K4
      conv1_pool_bwd) against its plain PyTorch version on the card, at the
-     main paths' shapes and at odd ones, with the tolerance beside the max
-     error, and for K3/K4 a repeat launch that must give the same bits; then
-     kernel / plain / library times (CUDA events, warm-up first, median of
-     20 runs) and the bound (least time the card could take: bytes over
-     3.35 TB/s or fp32 operations over 67 TFLOP/s);
+     main paths' shapes and at odd ones (K1 at its tile's edges, K2/K3 at
+     every rows-per-cluster choice, at H = 264 and 512 through the generic
+     instantiation and at H = 20 through the wrapper's padding), with the
+     tolerance beside the max error; K1 equal to its plain version bit for
+     bit at B=8, and for K1-K4 a repeat launch that must give the same bits;
+     then kernel / plain / library times (CUDA events, warm-up first, median
+     of 20 runs; K1 also at B=1, K2/K3 per step and once at H = 512) and the
+     bound (least time the card could take: bytes over 3.35 TB/s or fp32
+     operations over 67 TFLOP/s);
   4. serving slice: LipReader + TranscribeService at the full default width
      with both kernel flags on and seeded random weights (numpy draw in the
      JAX package's layout, through the weight bridge); 64 concurrent
@@ -154,23 +158,36 @@ def check_conv1_pool(dev):
     print("conv1_pool (K1) vs conv1_pool_ref:", flush=True)
     errs = []
     # every batch bucket the slice's TranscribeService(max_batch=8) can form,
-    # at the serving shape, then odd shapes and the generic (untemplated) path
+    # at the serving shape, then odd shapes and the generic (untemplated)
+    # path, then the tile's edges: a 27 x 51 pooled frame the 5 x 51 tile
+    # does not divide, C = 20 and 9, a 100-wide pooled frame (two column
+    # tiles), 77 frames against 52 chunks
     shapes = [(B, 75, 50, 100, (3, 5, 5), 32) for B in BUCKETS]
     shapes += [(3, 7, 10, 18, (3, 3, 3), 5), (2, 4, 12, 70, (1, 3, 5), 7),
-               (1, 1, 2, 2, (3, 5, 5), 32)]
+               (1, 1, 2, 2, (3, 5, 5), 32), (2, 5, 54, 102, (3, 5, 5), 32),
+               (1, 3, 50, 100, (3, 5, 5), 20), (1, 3, 50, 100, (3, 5, 5), 9),
+               (1, 2, 20, 200, (3, 5, 5), 9), (7, 11, 50, 100, (3, 5, 5), 32)]
     for B, T, H, W, k, C in shapes:
         x = torch.rand(B, T, H, W, 1, generator=g).to(dev)
         bound = 1.0 / (k[0] * k[1] * k[2]) ** 0.5
         w = ((torch.rand(*k, 1, C, generator=g) * 2 - 1) * bound).to(dev)
         b = ((torch.rand(C, generator=g) * 2 - 1) * bound).to(dev)
         want = convpool.conv1_pool_ref(x, w, b)
-        errs.append(max_err(convpool.conv1_pool_fused(x, w, b), want, K1_TOL,
+        got = convpool.conv1_pool_fused(x, w, b)
+        errs.append(max_err(got, want, K1_TOL,
                             f"B={B} T={T} {H}x{W} k={k} C={C} (B,T,H,W,C) layout"))
         x_n = x.permute(0, 4, 1, 2, 3)
         w_n = w.permute(4, 3, 0, 1, 2).contiguous()
-        errs.append(max_err(convpool.conv1_pool_block(x_n, w_n, b),
-                            want.permute(0, 4, 1, 2, 3), K1_TOL,
+        got_n = convpool.conv1_pool_block(x_n, w_n, b)
+        errs.append(max_err(got_n, want.permute(0, 4, 1, 2, 3), K1_TOL,
                             f"B={B} T={T} {H}x{W} k={k} C={C} NCDHW layout"))
+        if (B, T, H, W, C) == (8, 75, 50, 100, 32):
+            same_bits([got_n], [convpool.conv1_pool_block(x_n, w_n, b)], f"B={B} T={T} {H}x{W}")
+            # the same fmaf chain per pre-pool value as the plain version
+            if not torch.equal(got_n, want.permute(0, 4, 1, 2, 3)):
+                raise SystemExit("kernel check failed: K1 at B=8 differs from its plain "
+                                 "version in some bit")
+            print("  B=8 T=75 50x100: equal to the plain version bit for bit", flush=True)
 
     # times at the serving path's shape: B=8, T=75, 50x100, C=32, k=(3,5,5)
     B, T, H, W, C = 8, 75, 50, 100, 32
@@ -188,17 +205,19 @@ def check_conv1_pool(dev):
     ms = time_ms(lambda: convpool.conv1_pool_block(x_n, w_n, b))
     plain = time_ms(lambda: convpool.conv1_pool_ref(x, w, b))
     lib_ms = time_ms(library)
+    x1_n = x_n[:1]  # the serving path's smallest bucket
+    ms_b1 = time_ms(lambda: convpool.conv1_pool_block(x1_n, w_n, b))
     n_pre = B * T * H * W * C
     n_bytes = 4 * (B * T * H * W + w.numel() + C + B * T * (H // 2) * (W // 2) * C)
     n_ops = n_pre * (2 * 75 + 2)  # 75 FMAs, bias add, pool compare per pre-pool value
     bms, by = bound_ms(n_bytes, n_ops)
     print(f"  B=8 T=75 50x100 C=32: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
           f"library_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by}: {n_bytes / 1e6:.1f} MB, "
-          f"{n_ops / 1e9:.2f} GFLOP)", flush=True)
+          f"{n_ops / 1e9:.2f} GFLOP); B=1: kernel_ms={ms_b1:.4f}", flush=True)
     return dict(name="conv1_pool", route="cuda", source="avsync_torch/csrc/conv1_pool.cu",
                 replaces="avsync/ops/pallas/convpool.py:100", max_abs_err=max(errs),
                 ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib_ms,
-                shape="B=8 T=75 50x100 C=32 k=3x5x5")
+                ms_B1=ms_b1, shape="B=8 T=75 50x100 C=32 k=3x5x5")
 
 
 def check_gru(dev):
@@ -218,9 +237,11 @@ def check_gru(dev):
 
     print("gru_fwd (K2) vs gru_recurrence_ref:", flush=True)
     errs = []
-    # the serving buckets, then ragged batch tiles and every rows-per-cluster choice
+    # the serving buckets, then ragged batch tiles and every rows-per-cluster
+    # choice, then the generic kernel (H > 256) and a padded H (20 -> 24)
     shapes = [(B, 75, 256) for B in BUCKETS] + [(B, 75, 256) for B in (3, 5, 7, 9, 16)]
-    for B, T, H in shapes + [(12, 9, 256), (2, 5, 8), (9, 6, 40)]:
+    for B, T, H in shapes + [(12, 9, 256), (2, 5, 8), (9, 6, 40), (3, 7, 264), (5, 6, 512),
+                             (3, 8, 20)]:
         gf, wf, bf = case(B, T, H)
         gb, wb, bb = case(B, T, H)
         want = torch.cat([gru.gru_recurrence_ref(gf, wf, bf, False),
@@ -269,11 +290,18 @@ def check_gru(dev):
           f"per_step_us={ms_b1 / T * 1e3:.2f}", flush=True)
     print(f"  BiGRU layer D=6912: port (2 matmuls + kernel) layer_ms={layer_ms:.4f} "
           f"torch.nn.GRU library_ms={lib_ms:.4f}", flush=True)
+    # the generic kernel, once, at H = 512 (correctness first: not tuned)
+    gf, wf, bf = case(B, T, 512)
+    gb, wb, bb = case(B, T, 512)
+    ms_h512 = time_ms(lambda: gru.bigru_recurrence(gf, gb, wf, wb, bf, bb), iters=3, warmup=1)
+    print(f"  generic kernel, both directions B=8 T=75 H=512: kernel_ms={ms_h512:.4f}",
+          flush=True)
     return dict(name="gru_fwd", route="cuda", source="avsync_torch/csrc/gru_fwd.cu",
                 replaces="avsync/ops/pallas/gru.py:357", max_abs_err=max(errs),
                 ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib_ms,
                 layer_ms=layer_ms, shape="both directions B=8 T=75 H=256",
                 per_step_us=ms / T * 1e3, ms_B1=ms_b1, per_step_us_B1=ms_b1 / T * 1e3,
+                ms_H512=ms_h512,
                 library_note="library_ms and layer_ms time the whole BiGRU layer "
                              "(D=6912): torch.nn.GRU vs the port's matmuls + kernel")
 
@@ -318,14 +346,18 @@ def check_gru_bwd(dev):
 
     print("gru_bwd (K3) vs gru_recurrence_bwd_ref:", flush=True)
     errs = []
-    for B, T, H in [(B, 75, 256) for B in BUCKETS] + [(8, 1, 256), (8, 7, 256), (2, 5, 8)]:
+    # the buckets, ragged batch tiles and every rows-per-cluster choice, short
+    # T, then the generic chain (H > 256) and a padded H (20 -> 24)
+    shapes = [(B, 75, 256) for B in BUCKETS + (3, 5, 7, 9, 12, 16)]
+    for B, T, H in shapes + [(8, 1, 256), (8, 7, 256), (2, 5, 8), (3, 7, 264), (5, 6, 512),
+                             (3, 8, 20)]:
         args, H = case(B, T, H)
         got = gru.bigru_recurrence_bwd(*args)
         for i, want in enumerate(plain(args, H)):
             what = ("dgi", "dgi", "dw_hh", "dw_hh", "db_hh", "db_hh")[i]
             errs.append(max_err(got[i], want, K3_TOL if i < 2 else K3_SUM_TOL,
                                 f"{what} {'fwd' if i % 2 == 0 else 'rev'} B={B} T={T} H={H}"))
-        if (B, T) == (8, 75):
+        if (B, T) in ((8, 75), (16, 75)):
             same_bits(got, gru.bigru_recurrence_bwd(*args), f"B={B} T={T} H={H}")
 
     # times at the training path's shape: one BiGRU layer, B=8, T=75, H=256
@@ -358,10 +390,16 @@ def check_gru_bwd(dev):
           f"per_step_us={ms / T * 1e3:.2f}", flush=True)
     print(f"  BiGRU layer backward D=6912: port (matmuls + kernel) layer_ms={layer_ms:.4f} "
           f"torch.nn.GRU library_ms={lib_ms:.4f}", flush=True)
+    # the generic chain, once, at H = 512 (correctness first: not tuned)
+    args512, _ = case(B, T, 512)
+    ms_h512 = time_ms(lambda: gru.bigru_recurrence_bwd(*args512), iters=3, warmup=1)
+    print(f"  generic chain, both directions B=8 T=75 H=512: kernel_ms={ms_h512:.4f}",
+          flush=True)
     return dict(name="gru_bwd", route="cuda", source="avsync_torch/csrc/gru_bwd.cu",
                 replaces="avsync/ops/pallas/gru.py:276", max_abs_err=max(errs),
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
                 layer_ms=layer_ms, shape="both directions B=8 T=75 H=256",
+                per_step_us=ms / T * 1e3, ms_H512=ms_h512,
                 library_note="library_ms and layer_ms time the whole BiGRU layer's "
                              "backward (D=6912, dx and every weight): torch.nn.GRU vs "
                              "the port's matmuls + kernel")

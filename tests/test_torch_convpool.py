@@ -84,3 +84,33 @@ def test_only_cpu_tensors_take_the_plain_version():
     x, w, b = (torch.empty(s, device="meta") for s in ((1, 3, 4, 4, 1), (3, 3, 3, 1, 2), (2,)))
     with pytest.raises(ValueError, match="unsupported device"):
         conv1_pool_fused(x, w, b)
+
+
+@pytest.mark.parametrize("B,T,H2,W2,k,C", [
+    (8, 75, 25, 50, (3, 5, 5), 32), (1, 75, 25, 50, (3, 5, 5), 32),
+    (2, 5, 27, 51, (3, 5, 5), 32), (7, 11, 25, 50, (3, 5, 5), 32),
+    (1, 2, 10, 100, (3, 5, 5), 9), (3, 7, 5, 9, (3, 3, 3), 5), (1, 1, 1, 1, (3, 5, 5), 32),
+    (1, 3, 25, 50, (7, 7, 7), 96)])
+def test_fwd_grid_covers_every_pooled_position_once(B, T, H2, W2, k, C):
+    """K1's grid (`fwd_grid`, chosen in Python, run on the card): the tiles
+    cover every pooled position exactly once, the LipNet frame (25 x 50)
+    with no dead position, the chunks split the B*T frames, and the CTA's
+    shared memory fits (a large kernel takes fewer rows)."""
+    from avsync_torch.ops.cuda import convpool
+
+    rows, cols, tiles, chunks = convpool.fwd_grid(B, T, H2, W2, *k, C)
+    assert 1 <= rows * cols <= convpool.BWD_THREADS
+    tiles_w = -(-W2 // cols)
+    assert tiles == -(-H2 // rows) * tiles_w
+    hits = np.zeros((H2, W2), int)
+    for tile in range(tiles):
+        h0, w0 = (tile // tiles_w) * rows, (tile % tiles_w) * cols
+        hits[h0:h0 + rows, w0:w0 + cols] += 1  # positions past the frame are dead
+    assert (hits == 1).all()
+    assert 1 <= chunks <= B * T and (tiles * chunks <= convpool.BWD_TARGET_CTAS or chunks == 1)
+    cpad = -(-C // 16) * 16
+    smem = (4 * (k[0] * k[1] * k[2] * cpad + cpad)
+            + 16 * k[0] * (2 * rows + k[1] - 1) * (2 * cols + k[2] - 1))
+    assert smem <= convpool.MAX_SMEM
+    if (H2, W2, k, C) == (25, 50, (3, 5, 5), 32):
+        assert (rows, cols) == (5, 50) and tiles * rows * cols == H2 * W2

@@ -113,3 +113,39 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc_path()
+
+
+def _pad_inputs(gi, w_hh, b_hh, H):
+    from avsync_torch.ops.cuda.gru import pad_gates, pad_w_hh, padded_hidden
+
+    Hp = padded_hidden(H)
+    return (pad_gates(torch.from_numpy(gi), H, Hp), pad_w_hh(torch.from_numpy(w_hh), H, Hp),
+            pad_gates(torch.from_numpy(b_hh), H, Hp), Hp)
+
+
+@pytest.mark.parametrize("H", [5, 20])
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "bwd"])
+def test_hidden_size_padding_is_exact(H, reverse):
+    """The wrappers pad H to a multiple of 8 with zero units for the card's
+    kernels: on the plain version, the padded run sliced back equals the
+    unpadded run, and every padded unit's h stays 0."""
+    from avsync_torch.ops.cuda.gru import pad_units
+
+    gi, w_hh, b_hh = _case(3, 7, H, 40 + H)
+    gi_p, w_p, b_p, Hp = _pad_inputs(gi, w_hh, b_hh, H)
+    got = gru_recurrence_ref(gi_p, w_p, b_p, reverse)
+    want = gru_recurrence_ref(*(torch.from_numpy(a) for a in (gi, w_hh, b_hh)), reverse)
+    assert got.shape == (3, 7, Hp) and not got[..., H:].any()
+    np.testing.assert_allclose(pad_units(got, Hp, H).numpy(), want.numpy(), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "bwd"])
+def test_padded_recurrence_matches_pallas_interpret(reverse):
+    """H = 20, padded to 24 as the card's kernel takes it, against the JAX
+    package's kernel on the unpadded inputs."""
+    from avsync_torch.ops.cuda.gru import pad_units
+
+    gi, w_hh, b_hh = _case(4, 6, 20, 50)
+    gi_p, w_p, b_p, Hp = _pad_inputs(gi, w_hh, b_hh, 20)
+    got = pad_units(gru_recurrence_ref(gi_p, w_p, b_p, reverse), Hp, 20)
+    np.testing.assert_allclose(got.numpy(), _jax(gi, w_hh, b_hh, reverse), atol=ATOL, rtol=RTOL)

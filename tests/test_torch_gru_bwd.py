@@ -157,3 +157,26 @@ def test_bigru_layer_gradient_matches_jax_pallas_layer():
                           (tw.bias_ih.grad, jg.b_ih), (tw.bias_hh.grad, jg.b_hh)):
             np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=E2E_ATOL,
                                        rtol=E2E_RTOL)
+
+
+@pytest.mark.parametrize("H", [5, 20])
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "bwd"])
+def test_hidden_size_padding_is_exact(H, reverse):
+    """The wrappers pad H to a multiple of 8 with zero units for the card's
+    kernels: on the plain backward, the padded run (zero gi, w_hh, b_hh, out
+    and cotangent for the padded units) sliced back equals the unpadded run,
+    and the padded units' gradients are 0."""
+    from avsync_torch.ops.cuda.gru import pad_gates, pad_units, pad_w_hh, padded_hidden
+
+    gi, w_hh, b_hh, g = _case(3, 7, H, 60 + H)
+    out = _out(gi, w_hh, b_hh, reverse)
+    Hp = padded_hidden(H)
+    gi_t, w_t, b_t, g_t, out_t = (torch.from_numpy(a) for a in (gi, w_hh, b_hh, g, out))
+    dgi, dw, db = gru_recurrence_bwd(pad_gates(gi_t, H, Hp), pad_units(out_t, H, Hp),
+                                     pad_units(g_t, H, Hp), pad_w_hh(w_t, H, Hp),
+                                     pad_gates(b_t, H, Hp), reverse=reverse)
+    assert not dgi.reshape(3, 7, 3, Hp)[..., H:].any()
+    assert not dw[H:].any() and not dw.reshape(Hp, 3, Hp)[..., H:].any()
+    got = (pad_gates(dgi, Hp, H).numpy(), pad_w_hh(dw, Hp, H).numpy(),
+           pad_gates(db, Hp, H).numpy())
+    _close(got, _port_bwd(gi, out, g, w_hh, b_hh, reverse))

@@ -43,8 +43,16 @@ def _gen(seed):
 
 @pytest.mark.parametrize("B,T,H,W,k,C", [
     (8, 75, 50, 100, (3, 5, 5), 32), (3, 7, 10, 18, (3, 3, 3), 5),
-    (2, 4, 12, 70, (1, 3, 5), 7), (1, 1, 2, 2, (3, 5, 5), 32)])
+    (2, 4, 12, 70, (1, 3, 5), 7), (1, 1, 2, 2, (3, 5, 5), 32),
+    # the tile's edges: a 27 x 51 pooled frame the 5 x 51 tile does not
+    # divide; C = 20 and 9 (one ragged channel block); a 100-wide pooled
+    # frame (two column tiles); 77 frames against 52 chunks
+    (2, 5, 54, 102, (3, 5, 5), 32), (1, 3, 50, 100, (3, 5, 5), 20),
+    (1, 3, 50, 100, (3, 5, 5), 9), (1, 2, 20, 200, (3, 5, 5), 9),
+    (7, 11, 50, 100, (3, 5, 5), 32)])
 def test_conv1_pool_matches_plain(dev, B, T, H, W, k, C):
+    """Within K1_TOL of the plain version in both layouts; a repeat launch
+    gives the same bits."""
     g = _gen(1)
     x = torch.rand(B, T, H, W, 1, generator=g).to(dev)
     w = (torch.rand(*k, 1, C, generator=g) - 0.5).to(dev)
@@ -54,18 +62,36 @@ def test_conv1_pool_matches_plain(dev, B, T, H, W, k, C):
     got = convpool.conv1_pool_fused(x, w, b)
     got_n = convpool.conv1_pool_block(x.permute(0, 4, 1, 2, 3),
                                       w.permute(4, 3, 0, 1, 2).contiguous(), b)
+    again = convpool.conv1_pool_fused(x, w, b)
     torch.cuda.synchronize()
-    assert convpool.launches == before + 2
+    assert convpool.launches == before + 3
     torch.testing.assert_close(got, want, **K1_TOL)
     torch.testing.assert_close(got_n, want.permute(0, 4, 1, 2, 3), **K1_TOL)
+    assert torch.equal(got, again)
+
+
+def test_conv1_pool_equals_plain_bit_for_bit_at_full_width(dev):
+    """At B=8, T=75, 50x100, C=32 the kernel and the plain version run the
+    same fmaf chain per pre-pool value: equal bits, not merely close."""
+    g = _gen(17)
+    x = torch.rand(8, 75, 50, 100, 1, generator=g).to(dev)
+    w = ((torch.rand(3, 5, 5, 1, 32, generator=g) * 2 - 1) * 0.115).to(dev)
+    b = ((torch.rand(32, generator=g) * 2 - 1) * 0.115).to(dev)
+    got = convpool.conv1_pool_block(x.permute(0, 4, 1, 2, 3),
+                                    w.permute(4, 3, 0, 1, 2).contiguous(), b)
+    assert torch.equal(got, convpool.conv1_pool_ref(x, w, b).permute(0, 4, 1, 2, 3))
 
 
 @pytest.mark.parametrize("B,T,H", [(8, 75, 256), (3, 75, 256), (12, 9, 256), (1, 1, 256),
                                    (2, 5, 8), (1, 75, 256), (5, 75, 256), (7, 75, 256),
-                                   (9, 75, 256), (16, 75, 256), (9, 6, 40)])
+                                   (9, 75, 256), (16, 75, 256), (9, 6, 40),
+                                   # the generic kernel (w_hh in shared memory, then
+                                   # through L2) and a padded H
+                                   (3, 7, 264), (5, 6, 512), (2, 9, 1024), (3, 8, 20)])
 def test_gru_both_directions_match_plain(dev, B, T, H):
-    """Every rows-per-cluster choice and ragged batch tile; a repeat launch
-    gives the same bits (fixed-order sums, no float atomics)."""
+    """Every rows-per-cluster choice and ragged batch tile, H above 256 and
+    H not a multiple of 8; a repeat launch gives the same bits (fixed-order
+    sums, no float atomics)."""
     g = _gen(2)
     k = H ** -0.5
     args = []
@@ -98,13 +124,21 @@ def test_gru_single_direction_with_strided_weights(dev, reverse):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
-    gi = torch.randn(2, 3, 30, device=dev)  # H = 10, not a multiple of 8
-    with pytest.raises(ValueError, match="divisible by 8"):
-        gru.gru_recurrence(gi, torch.randn(10, 30, device=dev), torch.randn(30, device=dev))
-    gi = torch.randn(2, 3, 3 * 264, device=dev)  # H = 264 > the register-resident 256
-    with pytest.raises(ValueError, match="at most 256"):
-        gru.gru_recurrence(gi, torch.randn(264, 3 * 264, device=dev),
-                           torch.randn(3 * 264, device=dev))
+    """H = 10 (padded to 16) and H = 264 (the generic kernel) run and match
+    the plain version; an H past the card's shared memory and a float64
+    input raise."""
+    g = _gen(18)
+    for H in (10, 264):
+        k = H ** -0.5
+        gi = torch.randn(2, 3, 3 * H, generator=g).to(dev)
+        w = ((torch.rand(H, 3 * H, generator=g) * 2 - 1) * k).to(dev)
+        b = ((torch.rand(3 * H, generator=g) * 2 - 1) * k).to(dev)
+        torch.testing.assert_close(gru.gru_recurrence(gi, w, b), gru.gru_recurrence_ref(gi, w, b),
+                                   **K2_TOL)
+    H = 40000  # h buffers of 2 x 8 x H/8 floats per CTA: past 227 KB
+    zero = torch.zeros(1, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        gru.gru_recurrence(zero.expand(1, 2, 3 * H), zero.expand(H, 3 * H), zero.expand(3 * H))
     x = torch.rand(1, 2, 4, 4, 1, device=dev, dtype=torch.float64)
     with pytest.raises(ValueError, match="float32"):
         convpool.conv1_pool_fused(x, torch.rand(3, 3, 3, 1, 2, device=dev),
@@ -137,7 +171,12 @@ def _gru_bwd_case(g, dev, B, T, H):
 
 
 @pytest.mark.parametrize("B,T,H", [(1, 75, 256), (2, 75, 256), (4, 75, 256), (8, 75, 256),
-                                   (8, 1, 256), (3, 7, 256), (2, 5, 8)])
+                                   (8, 1, 256), (3, 7, 256), (2, 5, 8),
+                                   # ragged batch tiles and every rows-per-cluster choice
+                                   (3, 75, 256), (5, 75, 256), (7, 75, 256), (9, 75, 256),
+                                   (12, 75, 256), (16, 75, 256),
+                                   # the generic chain and a padded H
+                                   (3, 7, 264), (5, 6, 512), (2, 5, 1024), (3, 8, 20)])
 def test_gru_bwd_both_directions_match_plain(dev, B, T, H):
     g = _gen(7)
     (gf, wf, bf), (gb, wb, bb) = (_gru_bwd_case(g, dev, B, T, H) for _ in range(2))
