@@ -10,11 +10,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      paths from avsync_torch/csrc/ (one process per source, started together);
   3. kernels: each LipNet kernel (K1 conv1_pool, K2 gru_fwd, K3 gru_bwd, K4
      conv1_pool_bwd) against its plain PyTorch version on the card, at the
-     main paths' shapes and at odd ones (K1 at its tile's edges, K2/K3 at
+     main paths' shapes, at the batch sizes users train at (B = 16, 32 and
+     128, full width) and at odd ones (K1 at its tile's edges, K2/K3 at
      every rows-per-cluster choice, at H = 264 and 512 through the generic
      instantiation and at H = 20 through the wrapper's padding), with the
      tolerance beside the max error; K1 equal to its plain version bit for
-     bit at B=8, and for K1-K4 a repeat launch that must give the same bits;
+     bit at B=8 and 128, and for K1-K4 a repeat launch that must give the
+     same bits (at B=8 and B=128);
      then kernel / plain / library times (CUDA events, warm-up first, median
      of 20 runs; K1 also at B=1, K2/K3 per step and once at H = 512) and the
      bound (least time the card could take: bytes over 3.35 TB/s or fp32
@@ -34,12 +36,15 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      one step of the kernel path against the plain path (loss and every
      gradient); TF32 read from inside train_step's backward; the loss falling
      over 20 steps on one repeated batch; the train step's time on both paths;
-  6. K5 mel_stats against its plain version at the detector's shapes (B = 1,
-     8, 32, 40, 512 at F=121, K=1025, M=128, C=20, n_valid 0, 1, 2, partial,
-     F) and odd ones, a repeat launch bit-identical, and its times at B = 32
-     (a train step), 40 (a scorer batch of 8 x 5 shifts) and 512 (an eval
-     chunk) beside the plain version, the `use_pallas=False` composition and
-     the bound;
+  6. K5 mel_stats (a cluster of CTAs per clip) against its plain version at
+     the detector's shapes (B = 1, 8, 32, 40, 512 at F=121, K=1025, M=128,
+     C=20, n_valid 0, 1, 2, partial, F), on long audio (B=8 at F = 401 and
+     1201) and odd shapes, a repeat launch bit-identical, a clip's row equal
+     bit for bit at B = 1, 32 and 512, the wrapper's shared-memory count
+     against the kernel's, and its times at B = 32 (a train step), 40 (a
+     scorer batch of 8 x 5 shifts) and 512 (an eval chunk) at F=121 and at
+     B=8, F=401, beside the plain version, the `use_pallas=False`
+     composition and the bound;
   7. detector serving slice: MisalignmentScorer + SyncScoreService at full
      width with conv1's and the MFCC stage's kernel flags on, seeded random
      LipNet and detector weights through both bridges; 32 requests from 16
@@ -103,6 +108,8 @@ PROB_ATOL = 1e-4  # sync probabilities, kernel path vs plain path on the card
 DET_SHIFTS = (-10, -5, 0, 5, 10)  # the detector serving slice's shifts per request
 MAX_BATCH = 8  # the slice's TranscribeService(max_batch=8)
 BUCKETS = (1, 2, 4, 8)  # the padded batch sizes it can form
+# batch sizes users train LipNet at (`--batch_size 32`, the JAX bench's 128)
+TRAIN_BATCHES = (16, 32, 128)
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -162,7 +169,7 @@ def check_conv1_pool(dev):
     # path, then the tile's edges: a 27 x 51 pooled frame the 5 x 51 tile
     # does not divide, C = 20 and 9, a 100-wide pooled frame (two column
     # tiles), 77 frames against 52 chunks
-    shapes = [(B, 75, 50, 100, (3, 5, 5), 32) for B in BUCKETS]
+    shapes = [(B, 75, 50, 100, (3, 5, 5), 32) for B in BUCKETS + TRAIN_BATCHES]
     shapes += [(3, 7, 10, 18, (3, 3, 3), 5), (2, 4, 12, 70, (1, 3, 5), 7),
                (1, 1, 2, 2, (3, 5, 5), 32), (2, 5, 54, 102, (3, 5, 5), 32),
                (1, 3, 50, 100, (3, 5, 5), 20), (1, 3, 50, 100, (3, 5, 5), 9),
@@ -181,13 +188,13 @@ def check_conv1_pool(dev):
         got_n = convpool.conv1_pool_block(x_n, w_n, b)
         errs.append(max_err(got_n, want.permute(0, 4, 1, 2, 3), K1_TOL,
                             f"B={B} T={T} {H}x{W} k={k} C={C} NCDHW layout"))
-        if (B, T, H, W, C) == (8, 75, 50, 100, 32):
+        if (B, T, H, W, C) in ((8, 75, 50, 100, 32), (128, 75, 50, 100, 32)):
             same_bits([got_n], [convpool.conv1_pool_block(x_n, w_n, b)], f"B={B} T={T} {H}x{W}")
             # the same fmaf chain per pre-pool value as the plain version
             if not torch.equal(got_n, want.permute(0, 4, 1, 2, 3)):
-                raise SystemExit("kernel check failed: K1 at B=8 differs from its plain "
+                raise SystemExit(f"kernel check failed: K1 at B={B} differs from its plain "
                                  "version in some bit")
-            print("  B=8 T=75 50x100: equal to the plain version bit for bit", flush=True)
+            print(f"  B={B} T=75 50x100: equal to the plain version bit for bit", flush=True)
 
     # times at the serving path's shape: B=8, T=75, 50x100, C=32, k=(3,5,5)
     B, T, H, W, C = 8, 75, 50, 100, 32
@@ -239,7 +246,7 @@ def check_gru(dev):
     errs = []
     # the serving buckets, then ragged batch tiles and every rows-per-cluster
     # choice, then the generic kernel (H > 256) and a padded H (20 -> 24)
-    shapes = [(B, 75, 256) for B in BUCKETS] + [(B, 75, 256) for B in (3, 5, 7, 9, 16)]
+    shapes = [(B, 75, 256) for B in BUCKETS + (3, 5, 7, 9) + TRAIN_BATCHES]
     for B, T, H in shapes + [(12, 9, 256), (2, 5, 8), (9, 6, 40), (3, 7, 264), (5, 6, 512),
                              (3, 8, 20)]:
         gf, wf, bf = case(B, T, H)
@@ -248,7 +255,7 @@ def check_gru(dev):
                           gru.gru_recurrence_ref(gb, wb, bb, True)], -1)
         got = gru.bigru_recurrence(gf, gb, wf, wb, bf, bb)
         errs.append(max_err(got, want, K2_TOL, f"both directions B={B} T={T} H={H}"))
-        if (B, T) == (8, 75):
+        if (B, T) in ((8, 75), (128, 75)):
             same_bits([got], [gru.bigru_recurrence(gf, gb, wf, wb, bf, bb)], f"B={B} T={T} H={H}")
     for B, T, H in [(8, 1, 256), (8, 7, 256), (1, 75, 256)]:
         gi, w, b = case(B, T, H)
@@ -348,7 +355,7 @@ def check_gru_bwd(dev):
     errs = []
     # the buckets, ragged batch tiles and every rows-per-cluster choice, short
     # T, then the generic chain (H > 256) and a padded H (20 -> 24)
-    shapes = [(B, 75, 256) for B in BUCKETS + (3, 5, 7, 9, 12, 16)]
+    shapes = [(B, 75, 256) for B in BUCKETS + (3, 5, 7, 9, 12) + TRAIN_BATCHES]
     for B, T, H in shapes + [(8, 1, 256), (8, 7, 256), (2, 5, 8), (3, 7, 264), (5, 6, 512),
                              (3, 8, 20)]:
         args, H = case(B, T, H)
@@ -357,7 +364,7 @@ def check_gru_bwd(dev):
             what = ("dgi", "dgi", "dw_hh", "dw_hh", "db_hh", "db_hh")[i]
             errs.append(max_err(got[i], want, K3_TOL if i < 2 else K3_SUM_TOL,
                                 f"{what} {'fwd' if i % 2 == 0 else 'rev'} B={B} T={T} H={H}"))
-        if (B, T) in ((8, 75), (16, 75)):
+        if (B, T) in ((8, 75), (16, 75), (128, 75)):
             same_bits(got, gru.bigru_recurrence_bwd(*args), f"B={B} T={T} H={H}")
 
     # times at the training path's shape: one BiGRU layer, B=8, T=75, H=256
@@ -424,7 +431,8 @@ def check_conv1_pool_bwd(dev):
 
     print("conv1_pool_bwd (K4) vs conv1_pool_bwd_ref:", flush=True)
     errs = []
-    shapes = [(B, 75, 50, 100, (3, 5, 5), 32) for B in BUCKETS]
+    # at B=128 a frame chunk's running sum takes ~185 frames (12 at B=8)
+    shapes = [(B, 75, 50, 100, (3, 5, 5), 32) for B in BUCKETS + TRAIN_BATCHES]
     shapes += [(3, 7, 10, 18, (3, 3, 3), 5), (2, 4, 12, 70, (1, 3, 5), 7),
                (1, 1, 2, 2, (3, 5, 5), 32),
                # a pooled frame (27 x 51) the tile does not divide; 77 frames
@@ -442,8 +450,18 @@ def check_conv1_pool_bwd(dev):
                                               cot.permute(0, 4, 1, 2, 3))
         errs.append(max_err(got_n[0], want[0].permute(4, 3, 0, 1, 2), K4_TOL,
                             f"dweight B={B} T={T} {H}x{W} k={k} C={C} NCDHW layout"))
-        if B == 8:
+        if B in (8, 128) and T == 75:
             same_bits(got, convpool.conv1_pool_bwd(x, w, b, cot), f"B={B} T={T} {H}x{W}")
+        if B == 128:  # kernel and plain version against float64 sums on the same routing
+            f64 = [torch.zeros_like(r, dtype=torch.float64) for r in want]
+            for i in range(0, B, 16):
+                for acc, part in zip(f64, convpool.conv1_pool_bwd_ref(
+                        x[i:i + 16], w, b, cot[i:i + 16], sum_dtype=torch.float64)):
+                    acc += part
+            for name, a, r, ref in zip(("dkernel", "dbias"), got, want, f64):
+                max_err(a.double(), ref, K4_TOL, f"{name} B={B}: kernel vs float64 sums")
+                max_err(r.double(), ref, K4_TOL, f"{name} B={B}: plain version vs float64 sums")
+        del want, got, got_n
     # the tie case: constant input, every interior pool window a 4-way tie;
     # the gradient goes to the first window position
     x = torch.ones(1, 3, 4, 4, 1, device=dev)
@@ -856,12 +874,14 @@ def run_training(dev, workdir: str):
 # ---------------------------------------------------------------------------
 
 def check_mel_stats(dev):
+    import ctypes
+
     import numpy as np
     import torch
 
     from avsync_torch.config import AudioConfig
     from avsync_torch.ops import audio, audio_ref
-    from avsync_torch.ops.cuda import mfcc
+    from avsync_torch.ops.cuda import build, mfcc
 
     g = torch.Generator(device="cpu").manual_seed(12)
     cfg = AudioConfig()
@@ -886,8 +906,20 @@ def check_mel_stats(dev):
         return torch.tensor([(0, 1, 2, F // 2 + 3, F)[i % 5] for i in range(B)],
                             dtype=torch.int32)
 
+    smem_fn = build.function("mel_stats", "avs_mel_stats_smem", [ctypes.c_int] * 6)
+    grids = {}
+    half = mfcc.SHARED_SM_SLAB_ROWS
+    for f in (1, 21, 121, 401, 1201):
+        cs, R, sr, nbuf = mfcc.cluster_grid(f, K, M, C)
+        for slab in ((sr, nbuf), (half, 2 if R > half else 1)):
+            if smem_fn(K, M, C, R, *slab) != mfcc.shared_memory_bytes(K, M, C, R, *slab):
+                raise SystemExit(f"K5 shared memory at F={f}: the wrapper's count differs "
+                                 "from the kernel's")
+        grids[f] = (cs, R, sr, nbuf, mfcc.shared_memory_bytes(K, M, C, R, sr, nbuf))
     print(f"mel_stats (K5) vs mel_stats_ref (filterbank: {nnz} nonzeros of {K * M}, "
-          f"bands of {band} bins in all):", flush=True)
+          f"bands of {band} bins in all); (CTAs per clip, rows per CTA, slab rows, slab "
+          f"buffers, shared bytes) by F: {grids} ({half}-row slabs when a launch has more "
+          f"CTAs than SMs); F up to {mfcc.max_frames(K, M, C)}:", flush=True)
     errs = []
     for B in (1, 8, 32, 40, 512):
         n = cycle(B, F)
@@ -898,6 +930,15 @@ def check_mel_stats(dev):
                             f"B={B} F={F} K={K} M={M} C={C} n_valid 0/1/2/{F // 2 + 3}/{F}"))
         if B == 32:
             same_bits([got], [mfcc.mel_stats(power, n, melT, dctT)], f"B={B} F={F}")
+        if B == 512:  # a clip's bits alone, in a train step's batch, in an eval chunk
+            part = mfcc.mel_stats(power[:32], n[:32], melT, dctT)
+            ones = [mfcc.mel_stats(power[i:i + 1], n[i:i + 1], melT, dctT) for i in range(32)]
+            torch.cuda.synchronize()
+            if not (torch.equal(part, got[:32])
+                    and all(torch.equal(o[0], got[i]) for i, o in enumerate(ones))):
+                raise SystemExit("kernel check failed: K5's bits of a clip depend on its batch")
+            print("  clips 0-31 of B=512 equal to the same clips at B=32 and B=1 bit for bit",
+                  flush=True)
     mel8k = torch.from_numpy(audio_ref.mel_filterbank(8000, 256, 40).astype(np.float32).T.copy())
     dct13 = torch.from_numpy(audio_ref.dct_ortho_matrix(13, 40).astype(np.float32).T.copy())
     odd = [("F=21 K=129 M=40 C=13", random_power(5, 21, 129), cycle(5, 21), mel8k, dct13),
@@ -905,37 +946,47 @@ def check_mel_stats(dev):
             torch.rand(129, 40, generator=g) * 0.05, dct13),
            ("F=1 K=1025 M=128 C=20", random_power(3, 1, K),
             torch.tensor([0, 1, 1], dtype=torch.int32), melT, dctT)]
+    # long audio, which the one-CTA-per-clip design refused (F >= 366): 10 s
+    # and 30 s of 16 kHz at hop 400
+    odd += [(f"B=8 F={f} K={K} M={M} C={C} n_valid 0/1/2/{f // 2 + 3}/{f}",
+             random_power(8, f, K), cycle(8, f), melT, dctT) for f in (401, 1201)]
     for what, power, n, mT, dT in odd:
         n, mT, dT = n.to(dev), mT.to(dev), dT.to(dev)
-        errs.append(max_err(mfcc.mel_stats(power, n, mT, dT),
-                            mfcc.mel_stats_ref(power, n, mT, dT), K5_TOL, what))
+        got = mfcc.mel_stats(power, n, mT, dT)
+        errs.append(max_err(got, mfcc.mel_stats_ref(power, n, mT, dT), K5_TOL, what))
+        if what.startswith("B=8"):
+            same_bits([got], [mfcc.mel_stats(power, n, mT, dT)], what.split(" K=")[0])
 
-    # times with every clip 3 s long (n = F): the train step, a scorer batch of
-    # 8 requests x 5 shifts, the eval sweep's chunk
+    # times with every frame valid: the train step (B=32), a scorer batch of 8
+    # requests x 5 shifts (40), the eval sweep's chunk (512), all 3 s clips;
+    # and B=8 clips of 10 s (F=401)
     times = {}
-    for B in (32, 40, 512):
-        n = torch.full((B,), F, dtype=torch.int32)
-        power, lengths = spectra(n)
-        n = n.to(dev)
+    for B, f in ((32, F), (40, F), (512, F), (8, 401)):
+        n = torch.full((B,), f, dtype=torch.int32, device=dev)
+        if f == F:
+            power, lengths = spectra(n.cpu())
+        else:
+            power, lengths = random_power(B, f, K), (n - 1) * hop
         out = mfcc.mel_stats(power, n, melT, dctT)
         max_err(audio.stats_from_power(power, lengths, cfg), out, K5_TOL,
-                f"B={B}: use_pallas=False composition vs kernel (yardstick sanity)")
+                f"B={B} F={f}: use_pallas=False composition vs kernel (yardstick sanity)")
         ms = time_ms(lambda: mfcc.mel_stats(power, n, melT, dctT))
         plain = time_ms(lambda: mfcc.mel_stats_ref(power, n, melT, dctT))
         lib = time_ms(lambda: audio.stats_from_power(power, lengths, cfg))
-        rows = B * F
-        n_bytes = 4 * (B * F * K + B + M * C + B * 2 * C) + 4 * (band + 3 * M)
+        rows = B * f
+        n_bytes = 4 * (B * f * K + B + M * C + B * 2 * C) + 4 * (band + 3 * M)
         n_ops = 2 * rows * (band + M * C) + 3 * rows * M + 4 * rows * C
         dense = 2 * rows * (K * M + M * C)
         bms, by = bound_ms(n_bytes, n_ops)
-        times[B] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
-        print(f"  B={B} F={F}: kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
+        times[(B, f)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
+        print(f"  B={B} F={f}: kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
               f"bound_ms={bms:.4f} ({by}: {n_bytes / 1e6:.2f} MB, banded {n_ops / 1e9:.4f} "
               f"GFLOP, dense {dense / 1e9:.3f} GFLOP)", flush=True)
     return dict(name="mel_stats", route="cuda", source="avsync_torch/csrc/mel_stats.cu",
                 replaces="avsync/ops/pallas/mfcc.py:60", max_abs_err=max(errs),
-                **times[32], shape="B=32 F=121 K=1025 M=128 C=20 (a detector train step)",
-                times_B40=times[40], times_B512=times[512],
+                **times[(32, F)], shape="B=32 F=121 K=1025 M=128 C=20 (a detector train step)",
+                times_B40=times[(40, F)], times_B512=times[(512, F)],
+                times_B8_F401=times[(8, 401)],
                 library_note="library_ms: the use_pallas=False composition from the same "
                              "power (ops/audio.stats_from_power: cuBLAS fp32 einsums + torch "
                              "elementwise and reductions); no single PyTorch call computes "

@@ -1,14 +1,36 @@
 #!/usr/bin/env python3
-"""Where the time of K3 (GRU backward) and K1 (fused conv1 block) goes, and
-the LipNet kernels K1-K4 against an earlier design, on one GPU.
+"""Where the time of the port's kernels goes, and each kernel against an
+earlier design, on one GPU. Two modes:
 
     git archive <commit> | tar -x -C build/parent
     python3 scripts/torch_kernel_breakdown.py --parent build/parent [--out k.json]
+    python3 scripts/torch_kernel_breakdown.py --mode k5 --parent build/parent [--out k.json]
 
 `--parent` is the root of an unpacked checkout whose `avsync_torch/csrc/`
-holds the earlier design (the one of commit 6ec0e61, whose C interfaces the
-launchers below follow). The script
-  * builds that design's four LipNet kernels and variants of its K3 and K1
+holds the earlier design. The default mode (`lipnet`) takes the LipNet
+kernels of commit 6ec0e61, whose C interfaces its launchers follow; `--mode
+k5` takes K5 (fused mel -> dB -> DCT -> statistics) of commit 5e863d4 (one
+CTA per clip).
+
+Mode `k5`:
+  * builds the earlier mel_stats.cu and variants with one part cut out (no
+    band sums, no DCT, no staging loads of the power rows, an empty kernel,
+    no launch at all: the host's share of the event window), and the same
+    cuts of the current design; prints ptxas' register report for each;
+  * times each at the detector's shapes (F=121, K=1025, M=128, C=20, every
+    clip's 121 frames valid) at B = 32 (a train step) and 512 (an eval
+    chunk): CUDA events around one call (warm-up first, median of 20), and
+    device time per call from torch.profiler; the earlier design is called
+    as its wrapper called it (output allocated per call), the current one
+    through the package's wrapper (cut variants swapped in);
+  * times the current design's grid choices in device time: 16, 32, 64 or
+    128 rows per CTA (the cluster's size), each with 16- and 8-row slabs,
+    at B = 32 and 512 (F=121) and B = 8 at F = 401;
+  * times the earlier design against the current wrapper in turns:
+    earlier, current, current, earlier, at B = 32, 40 and 512.
+
+Mode `lipnet`:
+  * builds the earlier design's four LipNet kernels and variants of its K3 and K1
     with parts cut out (text patches below; each variant computes a wrong
     result and is only timed), one nvcc per source, all started together,
     and prints ptxas' register report for each;
@@ -106,6 +128,37 @@ CUR_K1_VARIANTS = {
                              "for (int c0 = 0; c0 < 0; c0 += CB) {")],
 }
 
+# K5: cuts of the earlier design's mel_stats.cu (commit 5e863d4)
+K5_VARIANTS = {
+    "k5_full": [],
+    "k5_no_bands": [("for (int j = 0; j < len; ++j) acc", "for (int j = 0; j < 0; ++j) acc")],
+    "k5_no_dct": [("for (int m = 0; m < p.M; ++m) acc", "for (int m = 0; m < 0; ++m) acc")],
+    "k5_no_staging": [("for (int i0 = tid; i0 < total; i0 += NT * LOADS) {",
+                       "for (int i0 = tid; i0 < 0; i0 += NT * LOADS) {")],
+    "k5_launch_only": [("  extern __shared__ float smem[];\n",
+                        "  if (p.B > 0) return;\n  extern __shared__ float smem[];\n")],
+    "k5_host_only": [("  mel_stats_kernel<<<B, NT, smem, static_cast<cudaStream_t>(stream)>>>(p);",
+                      "  (void)p;")],
+}
+# the same cuts of the current design (avsync_torch/csrc/mel_stats.cu)
+CUR_K5_VARIANTS = {
+    "cur_k5_no_bands": [("for (int j = 0; j < len; ++j) acc", "for (int j = 0; j < 0; ++j) acc")],
+    "cur_k5_no_dct": [("for (int m = 0; m < M; ++m) {", "for (int m = 0; m < 0; ++m) {")],
+    "cur_k5_no_staging": [("for (int i = tid; i < chunks; i += NT) cp_async16",
+                           "for (int i = tid; i < 0; i += NT) cp_async16")],
+    "cur_k5_launch_only": [("  extern __shared__ __align__(16) float smem[];\n",
+                            "  if (p.F > 0) return;\n"
+                            "  extern __shared__ __align__(16) float smem[];\n")],
+    "cur_k5_host_only": [("  e = cudaLaunchKernelEx(&cfg, mel_stats_kernel, p);", "  (void)cfg;")],
+}
+# the earlier K5's C entry: (power, n_valid, band_lo, band_len, band_off,
+# wpack, dct, out, B, F, K, M, C, R, top_db, device, stream)
+K5_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+K5_SHAPES = (32, 512)  # clips per call: a detector train step, an eval chunk
+K5_F = 121
+
+
 # the earlier design's C entries (commit 6ec0e61)
 K1_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 11
                + [ctypes.c_int, ctypes.c_void_p])
@@ -117,21 +170,15 @@ K4_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_longlong]
                + [ctypes.c_int, ctypes.c_void_p])
 
 
-def build_variants(parent: Path):
-    """Write and compile every variant and the earlier K2/K4, all nvcc
-    processes at once; returns {name: (ctypes function, ptxas lines)}."""
-    from avsync_torch.ops.cuda import build, convpool, gru
+def build_variants(specs):
+    """Write and compile every variant of `specs` ((source dir, kernel name,
+    {variant: patches}, C symbol, argtypes), ...), all nvcc processes at
+    once; returns {variant: (ctypes function, ptxas lines)}."""
+    from avsync_torch.ops.cuda import build
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     sources = {}
-    csrc = parent / "avsync_torch" / "csrc"
-    for root, src_name, variants, symbol, argtypes in (
-            (csrc, "gru_bwd", K3_VARIANTS, "avs_gru_bwd", K3_ARGTYPES),
-            (csrc, "conv1_pool", K1_VARIANTS, "avs_conv1_pool", K1_ARGTYPES),
-            (csrc, "gru_fwd", {"k2_full": []}, "avs_gru_fwd", K2_ARGTYPES),
-            (csrc, "conv1_pool_bwd", {"k4_full": []}, "avs_conv1_pool_bwd", K4_ARGTYPES),
-            (build.CSRC, "gru_bwd", CUR_K3_VARIANTS, "avs_gru_bwd", gru._BWD_ARGTYPES),
-            (build.CSRC, "conv1_pool", CUR_K1_VARIANTS, "avs_conv1_pool", convpool._ARGTYPES)):
+    for root, src_name, variants, symbol, argtypes in specs:
         text = (root / f"{src_name}.cu").read_text()
         for name, patches in variants.items():
             src = text
@@ -200,6 +247,20 @@ def device_ms(fn, n: int = 10):
     return per_kernel
 
 
+def swapped(key, fn, call):
+    """call() with the package wrapper's library function `key` swapped for fn."""
+    from avsync_torch.ops.cuda import build
+
+    def run():
+        real = build._fns[key]
+        build._fns[key] = fn
+        try:
+            call()
+        finally:
+            build._fns[key] = real
+    return run
+
+
 def checked(err, what):
     if err:
         raise SystemExit(f"{what} launch failed: CUDA error {err}")
@@ -208,6 +269,8 @@ def checked(err, what):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True, help="root of the earlier design's checkout")
+    ap.add_argument("--mode", choices=("lipnet", "k5"), default="lipnet",
+                    help="lipnet: K1-K4 against 6ec0e61; k5: K5 against 5e863d4")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
 
@@ -216,19 +279,39 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a GPU", file=sys.stderr)
         return 2
-    from avsync_torch.ops.cuda import build, convpool, gru
-
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    stream = torch.cuda.current_stream(dev).cuda_stream
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
-    fns = build_variants(Path(args.parent).resolve())
+    parent = Path(args.parent).resolve()
+    out = (k5_breakdown if args.mode == "k5" else lipnet_breakdown)(parent, dev)
+    text = json.dumps({"card": card, "torch": torch.__version__, **out}, indent=1)
+    print(text)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(text)
+    return 0
+
+
+def lipnet_breakdown(parent: Path, dev):
+    import torch
+
+    from avsync_torch.ops.cuda import build, convpool, gru
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    csrc = parent / "avsync_torch" / "csrc"
+    fns = build_variants((
+        (csrc, "gru_bwd", K3_VARIANTS, "avs_gru_bwd", K3_ARGTYPES),
+        (csrc, "conv1_pool", K1_VARIANTS, "avs_conv1_pool", K1_ARGTYPES),
+        (csrc, "gru_fwd", {"k2_full": []}, "avs_gru_fwd", K2_ARGTYPES),
+        (csrc, "conv1_pool_bwd", {"k4_full": []}, "avs_conv1_pool_bwd", K4_ARGTYPES),
+        (build.CSRC, "gru_bwd", CUR_K3_VARIANTS, "avs_gru_bwd", gru._BWD_ARGTYPES),
+        (build.CSRC, "conv1_pool", CUR_K1_VARIANTS, "avs_conv1_pool", convpool._ARGTYPES)))
     names = ["conv1_pool", "gru_fwd", "gru_bwd", "conv1_pool_bwd"]
     build.build(names)
-    out = {"card": card, "torch": torch.__version__,
-           "ptxas_earlier": {k: v[1] for k, v in fns.items()},
+    out = {"ptxas_earlier": {k: v[1] for k, v in fns.items()},
            "ptxas_current": {n: [ln.strip() for ln in build.build_log(n).splitlines()
                                  if "registers" in ln or "spill" in ln] for n in names}}
     g = torch.Generator().manual_seed(0)
@@ -348,17 +431,6 @@ def main() -> int:
                                  "earlier_max_abs_err": (earlier - plain).abs().max().item(),
                                  "current_max_abs_err": (current - plain).abs().max().item()}
 
-    def swapped(key, fn, call):
-        """call() with the package wrapper's library function `key` swapped for fn."""
-        def run():
-            real = build._fns[key]
-            build._fns[key] = fn
-            try:
-                call()
-            finally:
-                build._fns[key] = real
-        return run
-
     k3_key, k1_key = ("gru_bwd", "avs_gru_bwd"), ("conv1_pool", "avs_conv1_pool")
     k3_new(grus[8])()
     k1_new(conv[8])()  # both wrappers' functions loaded
@@ -400,13 +472,100 @@ def main() -> int:
     out["turns_ms"] = turns
     out["us_per_step"] = {k: {s: [t / T * 1e3 for t in v] for s, v in d.items()}
                           for k, d in turns.items() if k.startswith(("k2", "k3"))}
-    text = json.dumps(out, indent=1)
-    print(text)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            f.write(text)
-    return 0
+    return out
+
+
+def k5_breakdown(parent: Path, dev):
+    import torch
+
+    from avsync_torch.config import AudioConfig
+    from avsync_torch.ops import audio
+    from avsync_torch.ops.cuda import build, mfcc
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    specs = [(parent / "avsync_torch" / "csrc", "mel_stats", K5_VARIANTS, "avs_mel_stats",
+              K5_ARGTYPES)]
+    if CUR_K5_VARIANTS:
+        specs.append((build.CSRC, "mel_stats", CUR_K5_VARIANTS, "avs_mel_stats",
+                      mfcc._ARGTYPES))
+    fns = build_variants(specs)
+    build.build(["mel_stats"])
+    out = {"ptxas_variants": {k: v[1] for k, v in fns.items()},
+           "ptxas_current": [ln.strip() for ln in build.build_log("mel_stats").splitlines()
+                             if "registers" in ln or "spill" in ln]}
+    melT, dctT, _ = audio.device_constants(AudioConfig(), dev)
+    lo, length, off, wpack = mfcc._band_table(melT)
+    K, (M, C), F = melT.shape[0], dctT.shape, K5_F
+    g = torch.Generator().manual_seed(0)
+
+    def case(B, frames=F):  # ~100 dB of spread, every frame valid
+        power = (torch.rand(B, frames, K, generator=g) ** 8
+                 * 10.0 ** (torch.rand(B, frames, 1, generator=g) * 9 - 6)).to(dev)
+        return power, torch.full((B,), frames, dtype=torch.int32, device=dev)
+
+    def earlier(fn, c):
+        power, n = c
+        B = power.shape[0]
+
+        def run():
+            o = torch.empty(B, 2 * C, device=dev)
+            checked(fn(power.data_ptr(), n.data_ptr(), lo.data_ptr(), length.data_ptr(),
+                       off.data_ptr(), wpack.data_ptr(), dctT.data_ptr(), o.data_ptr(),
+                       B, F, K, M, C, 16, 80.0, dev.index, stream), "K5")
+            return o
+        return run
+
+    def current(c):
+        power, n = c
+        return lambda: mfcc.mel_stats(power, n, melT, dctT)
+
+    cases = {B: case(B) for B in (32, 40, 512)}
+    key = ("mel_stats", "avs_mel_stats")
+    current(cases[32])()  # the wrapper's function loaded
+    a, b = earlier(fns["k5_full"][0], cases[32])(), current(cases[32])()
+    torch.cuda.synchronize()
+    out["k5_B32_earlier_vs_current_max_abs_diff"] = (a - b).abs().max().item()
+    variants = {}
+    for B in K5_SHAPES:
+        for name, (fn, _) in fns.items():
+            run = (earlier(fn, cases[B]) if name.startswith("k5")
+                   else swapped(key, fn, current(cases[B])))
+            dev_ms = device_ms(run)
+            variants[f"{name}_B{B}"] = {"events_ms": time_ms(run),
+                                        "device_ms": sum(dev_ms.values()), "kernels": dev_ms}
+        run = current(cases[B])
+        dev_ms = device_ms(run)
+        variants[f"cur_k5_full_B{B}"] = {"events_ms": time_ms(run),
+                                         "device_ms": sum(dev_ms.values()), "kernels": dev_ms}
+    out["variants_F121"] = variants
+    # the grid's two choices, device time: rows per CTA (the cluster's size)
+    # and the slab height (16 rows, or 8 so that two CTAs share an SM)
+    cases["8_F401"] = case(8, 401)
+    sweep = {}
+    rows0, sm_count = mfcc.ROWS_PER_CTA, mfcc._sm_count
+    try:
+        for rows in (16, 32, 64, 128):
+            mfcc.ROWS_PER_CTA = rows
+            mfcc.cluster_grid.cache_clear()
+            for slab, sms in ((16, 1 << 30), (8, 0)):
+                mfcc._sm_count = lambda dev, sms=sms: sms
+                sweep[f"rows{rows}_slab{slab}"] = {
+                    f"B{B}": sum(device_ms(current(cases[B])).values())
+                    for B in (32, 512, "8_F401")}
+    finally:
+        mfcc.ROWS_PER_CTA, mfcc._sm_count = rows0, sm_count
+        mfcc.cluster_grid.cache_clear()
+    out["grid_sweep_device_ms"] = sweep
+    turns = {}
+    for B in (32, 40, 512):
+        old, new = earlier(fns["k5_full"][0], cases[B]), current(cases[B])
+        turns[f"k5_B{B}"] = {"earlier": [], "current": []}
+        for side in ("earlier", "current", "current", "earlier"):
+            turns[f"k5_B{B}"][side].append(time_ms(old if side == "earlier" else new))
+        turns[f"k5_B{B}"]["device_ms"] = {"earlier": sum(device_ms(old).values()),
+                                          "current": sum(device_ms(new).values())}
+    out["turns_ms"] = turns
+    return out
 
 
 if __name__ == "__main__":

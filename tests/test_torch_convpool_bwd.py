@@ -53,6 +53,21 @@ def test_bwd_matches_pallas_interpret(shape):
         np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL, err_msg=name)
 
 
+def test_plain_sums_in_float64_on_the_same_routing():
+    """`sum_dtype=float64` keeps the fp32 routing and takes the sums in
+    float64 (the card's check of the fp32 sums at B=128); summed chunk by
+    chunk of clips it gives the whole batch's sums."""
+    x, w, b, g = (torch.from_numpy(a) for a in _case(3, B=4, T=5, H=10, W=14))
+    fp32 = convpool.conv1_pool_bwd_ref(x, w, b, g)
+    f64 = convpool.conv1_pool_bwd_ref(x, w, b, g, sum_dtype=torch.float64)
+    halves = [convpool.conv1_pool_bwd_ref(x[i:i + 2], w, b, g[i:i + 2], sum_dtype=torch.float64)
+              for i in (0, 2)]
+    for i, (a, r) in enumerate(zip(fp32, f64)):
+        assert r.dtype == torch.float64
+        torch.testing.assert_close(a.double(), r, atol=ATOL, rtol=RTOL)
+        torch.testing.assert_close(halves[0][i] + halves[1][i], r, atol=1e-9, rtol=1e-12)
+
+
 def test_pool_tie_routes_to_the_first_window_position():
     """Constant input: every interior pool window is a 4-way tie, and the
     gradient goes to the first position (XLA's select_and_scatter order),

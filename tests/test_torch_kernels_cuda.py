@@ -49,7 +49,9 @@ def _gen(seed):
     # frame (two column tiles); 77 frames against 52 chunks
     (2, 5, 54, 102, (3, 5, 5), 32), (1, 3, 50, 100, (3, 5, 5), 20),
     (1, 3, 50, 100, (3, 5, 5), 9), (1, 2, 20, 200, (3, 5, 5), 9),
-    (7, 11, 50, 100, (3, 5, 5), 32)])
+    (7, 11, 50, 100, (3, 5, 5), 32),
+    # the batch sizes users train at (--batch_size 32, the JAX bench's 128)
+    (32, 75, 50, 100, (3, 5, 5), 32), (128, 75, 50, 100, (3, 5, 5), 32)])
 def test_conv1_pool_matches_plain(dev, B, T, H, W, k, C):
     """Within K1_TOL of the plain version in both layouts; a repeat launch
     gives the same bits."""
@@ -84,7 +86,8 @@ def test_conv1_pool_equals_plain_bit_for_bit_at_full_width(dev):
 
 @pytest.mark.parametrize("B,T,H", [(8, 75, 256), (3, 75, 256), (12, 9, 256), (1, 1, 256),
                                    (2, 5, 8), (1, 75, 256), (5, 75, 256), (7, 75, 256),
-                                   (9, 75, 256), (16, 75, 256), (9, 6, 40),
+                                   (9, 75, 256), (16, 75, 256), (32, 75, 256),
+                                   (128, 75, 256), (9, 6, 40),
                                    # the generic kernel (w_hh in shared memory, then
                                    # through L2) and a padded H
                                    (3, 7, 264), (5, 6, 512), (2, 9, 1024), (3, 8, 20)])
@@ -175,6 +178,8 @@ def _gru_bwd_case(g, dev, B, T, H):
                                    # ragged batch tiles and every rows-per-cluster choice
                                    (3, 75, 256), (5, 75, 256), (7, 75, 256), (9, 75, 256),
                                    (12, 75, 256), (16, 75, 256),
+                                   # the batch sizes users train at
+                                   (32, 75, 256), (128, 75, 256),
                                    # the generic chain and a padded H
                                    (3, 7, 264), (5, 6, 512), (2, 5, 1024), (3, 8, 20)])
 def test_gru_bwd_both_directions_match_plain(dev, B, T, H):
@@ -221,7 +226,9 @@ def test_gru_bwd_torch_layout_weight_gets_its_layout_back(dev):
     # a pooled frame (27 x 51) the 5 x 51 tile does not divide; 77 and 3 frames
     # against 52 and 88 chunks; C < 32 at full width; columns past one tile
     (2, 5, 54, 102, (3, 5, 5), 32), (7, 11, 50, 100, (3, 5, 5), 32),
-    (1, 3, 50, 100, (3, 5, 5), 20), (1, 2, 20, 200, (3, 5, 5), 9)])
+    (1, 3, 50, 100, (3, 5, 5), 20), (1, 2, 20, 200, (3, 5, 5), 9),
+    # the batch sizes users train at: a frame chunk sums ~185 frames at B=128
+    (32, 75, 50, 100, (3, 5, 5), 32), (128, 75, 50, 100, (3, 5, 5), 32)])
 def test_conv1_pool_bwd_matches_plain(dev, B, T, H, W, k, C):
     g = _gen(9)
     x = torch.rand(B, T, H, W, 1, generator=g).to(dev)
@@ -329,7 +336,9 @@ def _mel_case(g, dev, B, F, sr, n_fft, M, C, dense=False):
     (1, 121, 16000, 2048, 128, 20, False), (8, 121, 16000, 2048, 128, 20, False),
     (32, 121, 16000, 2048, 128, 20, False), (40, 121, 16000, 2048, 128, 20, False),
     (5, 21, 8000, 256, 40, 13, False), (3, 1, 8000, 256, 40, 13, False),
-    (5, 21, 8000, 256, 40, 13, True)])
+    (5, 21, 8000, 256, 40, 13, True),
+    # long audio: 10 s and 30 s of 16 kHz (two slab buffers per CTA)
+    (8, 401, 16000, 2048, 128, 20, False), (8, 1201, 16000, 2048, 128, 20, False)])
 def test_mel_stats_matches_plain(dev, B, F, sr, n_fft, M, C, dense):
     """n_valid cycles through 0, 1, 2, F and a partial count; a repeat
     launch gives the same bits (fixed-order reductions, no float atomics)."""
@@ -345,7 +354,21 @@ def test_mel_stats_matches_plain(dev, B, F, sr, n_fft, M, C, dense):
     assert torch.isfinite(got).all() and not got[n == 0].any()
 
 
-def test_audio_stats_on_the_card_go_through_k5_only(dev, monkeypatch):
+def test_mel_stats_clip_bits_do_not_depend_on_the_batch(dev):
+    """A clip's statistics are the same bits whether it rides alone or in a
+    batch of 32 or 512: the cluster and its row slices depend on the shape
+    alone."""
+    power, n, melT, dctT = _mel_case(_gen(19), dev, 512, 121, 16000, 2048, 128, 20)
+    full = mfcc.mel_stats(power, n, melT, dctT)
+    part = mfcc.mel_stats(power[:32], n[:32], melT, dctT)
+    for i in (0, 3, 4, 31):
+        one = mfcc.mel_stats(power[i:i + 1], n[i:i + 1], melT, dctT)
+        assert torch.equal(one[0], part[i]) and torch.equal(one[0], full[i])
+    assert torch.equal(part, full[:32])
+
+
+@pytest.mark.parametrize("max_audio_samples", [48000, 160000])
+def test_audio_stats_on_the_card_go_through_k5_only(dev, monkeypatch, max_audio_samples):
     """`audio_stats(use_pallas=True)` on a CUDA tensor launches K5 and never
     reaches the plain version; it agrees with the XLA-path composition."""
     import dataclasses
@@ -357,9 +380,10 @@ def test_audio_stats_on_the_card_go_through_k5_only(dev, monkeypatch):
         raise AssertionError("the plain version ran on the card")
 
     g = _gen(15)
-    x = (torch.rand(6, 48000, generator=g) - 0.5).to(dev)
-    lengths = torch.tensor([48000, 30000, 0, 400, 399, 1], dtype=torch.int32).to(dev)
-    cfg = AudioConfig(use_pallas=True)
+    S = max_audio_samples  # 160,000: 401 frames, which the one-CTA-per-clip kernel refused
+    x = (torch.rand(6, S, generator=g) - 0.5).to(dev)
+    lengths = torch.tensor([S, 30000, 0, 400, 399, 1], dtype=torch.int32).to(dev)
+    cfg = AudioConfig(use_pallas=True, max_audio_samples=S)
     monkeypatch.setattr(mfcc, "mel_stats_ref", refuse)
     before = mfcc.launches
     got = audio.audio_stats(x, lengths, cfg)
@@ -376,5 +400,10 @@ def test_mel_stats_refuses_what_the_kernel_does_not_take(dev):
     n = torch.ones(1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         mfcc.mel_stats(torch.rand(1, 3, 60000, device=dev), n, melT, dctT)
+    # past the most frames a cluster's shared memory holds at the detector's shape
+    F = mfcc.max_frames(1025, 128, 20) + 1
+    with pytest.raises(ValueError, match=f"F={F} frames.*shared memory.*F <= {F - 1}"):
+        mfcc.mel_stats(torch.zeros(1, F, 1025, device=dev), n, torch.rand(1025, 128, device=dev),
+                       torch.rand(128, 20, device=dev))
     with pytest.raises(ValueError, match="int32"):
         mfcc.mel_stats(torch.rand(1, 3, 60000, device=dev), n.long(), melT, dctT)

@@ -111,8 +111,48 @@ def test_band_table_of_a_column_of_zeros():
     np.testing.assert_array_equal(w[:4], [1.0, 1.0, 1.0, 2.0])
 
 
-def test_shared_memory_of_the_detector_shape():
-    """(121*128 log-mel + 16*1025 power + 128*20 DCT + 121*20 MFCC + 32)
-    floats and 3*128 band ints: 149,136 bytes, within a block's 232,448."""
-    smem = mfcc.shared_memory_bytes(121, 1025, 128, 20, mfcc.MAX_ROWS_PER_CHUNK)
-    assert smem == 149_136 <= mfcc.SMEM_LIMIT
+@pytest.mark.parametrize("F", [1, 21, 121, 256, 257, 401, 1201])
+def test_cluster_grid_of_the_detector_shape(F):
+    """K5's grid at K=1025, M=128, C=20: at most 8 CTAs per clip (a
+    portable cluster), every frame owned by exactly one CTA (no CTA without
+    one), each CTA's shared memory within a block's 232,448 bytes, and the
+    choice a function of (F, K, M, C) alone: never of the batch."""
+    import inspect
+
+    assert list(inspect.signature(mfcc.cluster_grid.__wrapped__).parameters) == ["F", "K", "M",
+                                                                                 "C"]
+    cs, R, sr, nbuf = mfcc.cluster_grid(F, 1025, 128, 20)
+    assert 1 <= cs <= 8 and 32 % sr == 0 and nbuf == (2 if R > sr else 1)
+    owner = np.zeros(F, np.int64)
+    for rank in range(cs):
+        rows = range(rank * R, min(F, rank * R + R))
+        assert len(rows) > 0
+        owner[rows.start:rows.stop] += 1
+    np.testing.assert_array_equal(owner, 1)
+    assert mfcc.shared_memory_bytes(1025, 128, 20, R, sr, nbuf) <= mfcc.SMEM_LIMIT <= 232_448
+    # the half-height slabs a launch with more CTAs than SMs takes fit too
+    half = mfcc.SHARED_SM_SLAB_ROWS
+    half_smem = mfcc.shared_memory_bytes(1025, 128, 20, R, half, 2 if R > half else 1)
+    assert half_smem <= mfcc.SMEM_LIMIT
+    if F == 121:  # the detector's 3 s clips: two CTAs of half-height slabs share an SM
+        assert (cs, R) == (2, 61) and 2 * (half_smem + 1024) <= 228 * 1024
+
+
+def test_cluster_grid_limit_names_the_frames_it_takes():
+    """Up to 2,936 frames (73 s at hop 400) at the detector's K, M, C; one
+    more does not fit. A K too wide for one slab row takes no F."""
+    top = mfcc.max_frames(1025, 128, 20)
+    assert top == 2936 >= 1201
+    assert mfcc.cluster_grid(top, 1025, 128, 20) is not None
+    assert mfcc.cluster_grid(top + 1, 1025, 128, 20) is None
+    assert mfcc.max_frames(60000, 4, 2) == 0 and mfcc.cluster_grid(3, 60000, 4, 2) is None
+
+
+def test_ref_matches_pallas_kernel_on_long_audio():
+    """F=401 (10 s of 16 kHz audio at hop 400: past what the one-CTA-per-clip
+    kernel took) at the detector's K, M, C; n = F, a partial count, 1 and 0."""
+    melT, dctT = _constants(16000, 2048, 128, 20)
+    n_valid = np.array([401, 233, 1, 0], np.int32)
+    got = _compare(_power(np.random.default_rng(4), 4, 401, 1025), n_valid, melT, dctT)
+    np.testing.assert_array_equal(got[3], 0.0)
+    np.testing.assert_array_equal(got[2, 20:], 0.0)
