@@ -48,13 +48,21 @@ def _config_from_args(args) -> AvsyncConfig:
     return dataclasses.replace(
         base,
         data=dataclasses.replace(base.data, data_path=args.data_path,
-                                 batch_size=arg("batch_size", base.data.batch_size)),
+                                 batch_size=arg("batch_size", base.data.batch_size),
+                                 device_cache=arg("device_cache", base.data.device_cache)),
+        model=dataclasses.replace(base.model,
+                                  compute_dtype=arg("compute_dtype", base.model.compute_dtype),
+                                  packed_conv=arg("packed_conv", base.model.packed_conv)),
         train=dataclasses.replace(
             base.train, epochs=arg("epochs", base.train.epochs),
             learning_rate=arg("lr", base.train.learning_rate),
             seed=arg("seed", base.train.seed),
             checkpoint_dir=arg("checkpoint_dir", base.train.checkpoint_dir),
-            quick_test=bool(getattr(args, "quick_test", False)) or base.train.quick_test),
+            quick_test=bool(getattr(args, "quick_test", False)) or base.train.quick_test,
+            remat=arg("remat", base.train.remat),
+            log_dir=arg("log_dir", base.train.log_dir),
+            checkpoint_every=arg("checkpoint_every", base.train.checkpoint_every),
+            tensorboard=arg("tensorboard", base.train.tensorboard)),
     )
 
 
@@ -102,13 +110,13 @@ def cmd_train(args) -> int:
 
     _no_tf32()
     cfg = _config_from_args(args)
+    trainer = LipNetTrainer(cfg, device=args.device)  # refuses what the port does not run
     speakers = args.speakers or check_data_structure(cfg.data.data_path)
     if not speakers:
         print(f"ERROR: no usable speakers under {cfg.data.data_path}")
         return 1
     train_sp, val_sp, test_sp = split_speakers(speakers, cfg.data.split)
     print(f"Speakers: train={train_sp} val={val_sp} test={test_sp}")
-    trainer = LipNetTrainer(cfg, device=args.device)
     sources = {name: GridDataSource(cfg.data.data_path, sp)
                for name, sp in (("train", train_sp), ("val", val_sp), ("test", test_sp))}
     batchers = {name: LipNetBatcher(src, cfg, device=trainer.device)
@@ -174,7 +182,13 @@ def cmd_train(args) -> int:
     epoch_seq = itertools.count(start_epoch + 1 if state is not None else 1)
 
     def train_source():
-        return batchers["train"].epoch(shuffle=True, seed=cfg.train.seed + next(epoch_seq))
+        # one seed per epoch for both paths, so the order is the same whether
+        # the epoch runs as a program over the device cache or streams
+        seed = cfg.train.seed + next(epoch_seq)
+        plan = batchers["train"].scan_plan(shuffle=True, seed=seed)
+        if plan is not None:
+            return plan
+        return batchers["train"].epoch(shuffle=True, seed=seed)
 
     state = trainer.train(
         train_source, lambda: batchers["val"].epoch(shuffle=False), state=state,
@@ -182,7 +196,7 @@ def cmd_train(args) -> int:
         lr_schedule=keras_lr_schedule if args.lr_schedule == "keras" else None,
         early_stopping_patience=args.early_stopping, example_fn=example_fn,
         history_path=os.path.join(cfg.train.checkpoint_dir, "history.json"),
-        start_epoch=start_epoch)
+        start_epoch=start_epoch, profile_dir=args.profile_dir)
     trainer.plot_losses(os.path.join(cfg.train.checkpoint_dir, "training_history.png"))
     if args.export_pth:
         save_lipnet_pth(state.model.state_dict(), args.export_pth)
@@ -559,6 +573,29 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint dir to resume from (model, optimizer, step), or "
                         "'auto' to pick up from --checkpoint_dir when it has snapshots "
                         "(--epochs then counts as a TOTAL budget across relaunches)")
+    t.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of the run's second epoch (its "
+                        "first when it has one) into this directory (trace.json)")
+    t.add_argument("--log_dir", type=str, default=None,
+                   help="log directory (default 'logs', or the --config value)")
+    t.add_argument("--checkpoint_every", type=int, default=None,
+                   help="epochs between periodic checkpoints (default 10)")
+    t.add_argument("--tensorboard", action="store_true", default=None,
+                   help="write TensorBoard event files (train/ + validation/ under "
+                        "--log_dir)")
+    t.add_argument("--device_cache", choices=["auto", "on", "off"], default=None,
+                   help="keep the preprocessed corpus in device memory from epoch 2 on "
+                        "('auto', the default, when it fits the budget; 'on' from epoch "
+                        "1); a fully cached epoch then runs as one CUDA-graph program")
+    t.add_argument("--compute_dtype", choices=["float32", "bfloat16"], default=None,
+                   help="conv/GRU compute dtype; the port computes in float32 only "
+                        "(bfloat16 raises NotImplementedError)")
+    t.add_argument("--packed_conv", action=argparse.BooleanOptionalAction, default=None,
+                   help="the JAX package's lane-packed conv form; the port computes the "
+                        "same convolutions either way")
+    t.add_argument("--remat", action=argparse.BooleanOptionalAction, default=None,
+                   help="recompute each conv block and BiGRU layer in the backward "
+                        "(less activation memory, the same numbers)")
     t.set_defaults(func=cmd_train)
 
     te = sub.add_parser("test", help="evaluate CER/WER on the test split")

@@ -4,10 +4,10 @@ Same dataclasses, same field names and defaults, same JSON, so a config
 written by either package loads in the other (tests/test_torch_import.py
 round-trips one). The port keeps a copy instead of importing `avsync.config`
 so that `avsync_torch` imports nothing of the JAX package. Fields that only
-the JAX package reads (device cache, mesh, ...) are kept for the JSON; the
-port's own entry points read `model`, `data` and the kernel flags
-`use_pallas_gru` / `fused_conv_pool` (on the card these route the GRU
-recurrence and conv1 to the hand-written CUDA kernels).
+the JAX package reads (mesh, roi_host, the one-hot gather crossover, ...)
+are kept for the JSON; the kernel flags `use_pallas_gru` / `fused_conv_pool`
+/ `AudioConfig.use_pallas` route the GRU recurrence, conv1 and the MFCC
+stage to the hand-written CUDA kernels on the card.
 """
 
 from __future__ import annotations
@@ -81,7 +81,8 @@ class DataConfig:
     # Explicit 'float32'/'bfloat16' skip the probe and force the dtype.
     device_cache_dtype: str = "auto"
     # Cache-gather formulation crossover of the JAX package's data
-    # pipeline (one-hot matmul below, jnp.take above). Kept for the JSON.
+    # pipeline (one-hot matmul below, jnp.take above). Kept for the JSON:
+    # the port gathers with index_select at any size.
     cache_gather_onehot_max_mb: int = 768
 
 
@@ -192,9 +193,10 @@ class TrainConfig:
     checkpoint_dir: str = "./checkpoints"
     log_dir: str = "./logs"
     seed: int = 42
-    # Rematerialize the forward pass in backward (jax.checkpoint): trades
-    # ~33% more FLOPs for O(1) activation memory, unlocking larger
-    # per-chip batches (the conv activations dominate HBM here).
+    # Rematerialize the forward pass in backward (jax.checkpoint; in the
+    # port torch.utils.checkpoint per conv block and BiGRU layer): trades
+    # ~33% more FLOPs for activation memory, unlocking larger per-chip
+    # batches (the conv activations dominate device memory here).
     remat: bool = False
     # Mesh axes: batch is sharded over 'data'; 'model' is the tensor-parallel
     # axis (headroom; 1 by default for this 12.5M-param model).

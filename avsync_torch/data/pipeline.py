@@ -1,5 +1,7 @@
-"""Batching and device feed for LipNet training (port of the streamed path of
+"""Batching and device feed for LipNet training (port of
 `avsync/data/pipeline.py`).
+
+Streamed epochs (`device_cache="off"`, and the first epoch under "auto"):
 
   * the host only decodes `.npy` clips to (T, H, W) uint8 on
     `DataConfig.loader_threads` threads and pads them to max_video_length;
@@ -8,12 +10,25 @@
     and preprocessed on the device by `predictor.preprocess`: /255 for
     pre-cropped clips, the heuristic mouth crop + resize for native frames.
 
-Same order and contents as the JAX package's `LipNetBatcher` with
-`device_cache="off"`: `np.random.default_rng(seed).shuffle` of the sample
-indices, `drop_last`, and for `drop_last=False` a last batch zero-padded
-(with sample 0's labels) whose `valid` counts the real clips. The device
-cache and the whole-epoch scan plan are not ported yet: `device_cache` is
-read and treated as "off".
+Same order and contents as the JAX package's `LipNetBatcher`:
+`np.random.default_rng(seed).shuffle` of the sample indices, `drop_last`,
+and for `drop_last=False` a last batch zero-padded (with sample 0's labels)
+whose `valid` counts the real clips.
+
+The device cache (`DataConfig.device_cache`): from the second `epoch()`
+call under "auto" (the first under "on"), the preprocessed corpus, or the
+prefix of it that fits `device_cache_budget_mb`, lives in device memory as
+a flat (N, T*H*W) tensor, and batches become gathers on the device. Under
+`device_cache_dtype="auto"` a probe of the first decoded batch stores
+uint8 when every preprocessed value is exactly k/255 (pre-cropped corpora),
+4x the clips per MB, and the gather then applies the streamed path's own
+expression (`u8.float() * (1/255)`); else float32. Either way a cached
+batch equals the streamed one bit for bit. A partial cache decodes only the
+uncached rows of each batch and merges them on the device. The gather is
+`index_select` on the flat cache: the JAX package's one-hot int8 matmul is
+a TPU workaround, so `cache_gather_onehot_max_mb` has no effect here.
+`scan_plan` hands a fully cached corpus to the trainers' whole-epoch
+programs.
 """
 
 from __future__ import annotations
@@ -97,6 +112,12 @@ class LipNetBatcher:
         self.source = source
         self.cfg = config
         self.device = resolve_device(device)
+        self._device_cache: Optional[Dict] = None
+        self._epoch_calls = 0
+        if config.data.device_cache != "off":
+            # fail now on an invalid dtype: under 'auto' the cache is built
+            # only at the second epoch() call, after a whole epoch of work
+            self._cache_dtype()
 
     def _decode_clip(self, video_path: str) -> np.ndarray:
         d = self.cfg.data
@@ -141,13 +162,9 @@ class LipNetBatcher:
 
         return prefetch(batches(), prefetch_size)
 
-    def epoch(self, batch_size: Optional[int] = None, shuffle: bool = True, seed: int = 0,
-              drop_last: bool = True, prefetch_size: int = 2) -> Iterator[Dict]:
-        """Yield batches with the video preprocessed on the device.
-
-        drop_last=True keeps every batch the same shape; eval paths use
-        drop_last=False, where the final partial batch is zero-padded and
-        'valid' counts its real samples."""
+    def _host_epoch(self, batch_size: Optional[int], shuffle: bool, seed: int,
+                    drop_last: bool, prefetch_size: int) -> Iterator[Dict]:
+        """The streamed epoch: host decode, upload, device preprocess."""
         gen = self._raw_batches(batch_size, shuffle, seed, drop_last, prefetch_size)
         try:
             for hb in gen:
@@ -157,12 +174,259 @@ class LipNetBatcher:
         finally:
             gen.close()  # stop the prefetch worker and the decode pool now
 
+    def epoch(self, batch_size: Optional[int] = None, shuffle: bool = True, seed: int = 0,
+              drop_last: bool = True, prefetch_size: int = 2) -> Iterator[Dict]:
+        """Yield batches with the video preprocessed on the device.
+
+        drop_last=True keeps every batch the same shape; eval paths use
+        drop_last=False, where the final partial batch is zero-padded and
+        'valid' counts its real samples. From the second call on (the first
+        under device_cache="on"), when `DataConfig.device_cache` allows it,
+        batches come from the device cache: the same order, padding, labels
+        and bits."""
+        self._epoch_calls += 1
+        if self._device_cache is None and self._cache_allowed(eager=self._epoch_calls >= 2):
+            self.warm_device_cache()
+        if self._device_cache is not None:
+            return self._cached_epoch(batch_size, shuffle, seed, drop_last)
+        return self._host_epoch(batch_size, shuffle, seed, drop_last, prefetch_size)
+
+    # -- the device cache -------------------------------------------------------
+    def _cache_dtype(self) -> torch.dtype:
+        """The cache's element dtype before the uint8 probe (see
+        `DataConfig.device_cache_dtype`): float32, the port's compute dtype.
+        'bfloat16' raises, as the JAX package does with float32 compute: the
+        cached epochs would train on bf16-rounded inputs."""
+        mode = self.cfg.data.device_cache_dtype
+        if mode not in ("auto", "float32", "bfloat16"):
+            # uint8 is not a valid explicit value: it is only right when
+            # the probe proves k/255-exactness ('auto' does that)
+            raise ValueError(f"device_cache_dtype={mode!r}: use 'auto', 'float32' or "
+                             "'bfloat16' (uint8 is chosen automatically when lossless)")
+        if self.cfg.model.compute_dtype not in (None, "float32"):
+            raise NotImplementedError(f"compute_dtype={self.cfg.model.compute_dtype!r}: the "
+                                      "port computes in float32 only")
+        if mode == "bfloat16":
+            raise ValueError(
+                "device_cache_dtype='bfloat16' requires model.compute_dtype='bfloat16': "
+                "with f32 compute the cached epochs would train on bf16-rounded inputs, "
+                "breaking the cached==streamed guarantee. Use compute_dtype='bfloat16' or "
+                "device_cache_dtype='auto'/'float32'.")
+        return torch.float32
+
+    def _clip_bytes(self, itemsize: Optional[int] = None) -> int:
+        d = self.cfg.data
+        if itemsize is None:
+            itemsize = self._cache_dtype().itemsize
+        return itemsize * d.max_video_length * d.img_height * d.img_width
+
+    def _budget_clip_count(self, itemsize: Optional[int]) -> int:
+        n = len(self.source)
+        if self.cfg.data.device_cache == "on":
+            return n
+        budget = self.cfg.data.device_cache_budget_mb * 2**20
+        return min(n, int(budget // max(self._clip_bytes(itemsize), 1)))
+
+    def _cache_clip_count(self) -> int:
+        """How many clips (in source order) the cache may hold: 'on' the
+        whole corpus, else what fits device_cache_budget_mb. A larger corpus
+        is cached partially, its first clips, and the rest streams."""
+        return self._budget_clip_count(None)
+
+    def _cache_allowed(self, eager: bool = True) -> bool:
+        """Whether (a prefix of) the corpus may live in device memory."""
+        mode = self.cfg.data.device_cache
+        if mode == "off":
+            return False
+        if mode == "on":  # explicit: cache from the first epoch
+            return True
+        if not eager:  # 'auto' waits for the second epoch() call, so one-
+            return False  # shot draws never pay for the build
+        return self._cache_clip_count() >= 1
+
+    def warm_device_cache(self) -> None:
+        """Decode and preprocess the corpus once (streamed, in source order)
+        and keep it, or the prefix that fits, in device memory. Each batch is
+        written into the preallocated cache as it arrives: the build holds
+        the cache and one batch, never a list of parts. Under dtype 'auto'
+        the first batch decides uint8 (every value exactly k/255) and later
+        batches re-check it on the device, read once at the end; rows past
+        the first that fails stay uncached and stream."""
+        if self._device_cache is not None:
+            return
+        n = len(self.source)
+        n_cached = self._cache_clip_count()
+        if n_cached < 1:
+            return
+        policy = self.cfg.data.device_cache_dtype
+        store_dt = self._cache_dtype()
+        u8 = False
+        buf, clip_shape, checks, got = None, None, [], 0
+
+        def exact_u8(x):
+            q = torch.round(x * 255.0).clamp(0.0, 255.0).to(torch.uint8)
+            return q, torch.all(q.float() * (1.0 / 255.0) == x)
+
+        gen = self._host_epoch(None, shuffle=False, seed=0, drop_last=False, prefetch_size=2)
+        try:
+            for hb in gen:
+                x = hb["video"]
+                if clip_shape is None:
+                    clip_shape = tuple(x.shape[1:])
+                    if policy == "auto" and bool(exact_u8(x)[1]):  # one sync decides
+                        u8, store_dt = True, torch.uint8
+                        n_cached = self._budget_clip_count(1)
+                    buf = torch.zeros((n_cached, int(np.prod(clip_shape))), dtype=store_dt,
+                                      device=self.device)
+                take = min(int(hb["valid"]), n_cached - got)
+                x = x[:take].reshape(take, -1)
+                if u8:
+                    q, ok = exact_u8(x)
+                    buf[got:got + take] = q
+                    if got:
+                        checks.append((got, ok))
+                else:
+                    buf[got:got + take] = x.to(store_dt)
+                got += take
+                if got >= n_cached:
+                    break
+        finally:
+            gen.close()
+        for start, ok in checks:
+            if not bool(ok):
+                got = start  # keep the verified prefix; the rest streams
+                break
+        labels, lengths = self.source.labels_batch(list(range(n)), self.cfg.data.max_label_length,
+                                                   vocab=self.cfg.model.family)
+        self._device_cache = {
+            "video": buf, "n_cached": got, "u8": u8, "clip_shape": clip_shape,
+            "dtype": str(store_dt).replace("torch.", ""),
+            "labels": labels, "label_lengths": lengths,  # host copies, as streamed
+            "labels_dev": torch.from_numpy(labels).long().to(self.device),
+            "lengths_dev": torch.from_numpy(lengths).long().to(self.device),
+        }
+
+    def gather(self, idx: torch.Tensor) -> torch.Tensor:
+        """(B,) int64 cache rows on the device -> (B, T, h, w, 1) float32
+        model input, bit for bit what the streamed path gives those clips."""
+        cache = self._device_cache
+        rows = cache["video"].index_select(0, idx).float()
+        if cache["u8"]:
+            rows = rows * (1.0 / 255.0)  # the streamed preprocess's expression
+        return rows.view(-1, *cache["clip_shape"])
+
+    def scan_plan(self, batch_size: Optional[int] = None, shuffle: bool = True,
+                  seed: int = 0) -> Optional[Dict]:
+        """A whole-epoch plan for `LipNetTrainer.train_epoch_scanned`, or None
+        where it does not apply: a corpus that is not fully cached, the warm-
+        up epoch under 'auto', or fewer clips than one batch. The plan holds
+        the cache's gather, the labels and lengths on the device and the
+        (S, B) int32 matrix of the epoch's sample indices (drop_last: training
+        epochs only). A None does not count as an epoch() call, so 'auto'
+        builds the cache at the same epoch either way."""
+        if self._device_cache is None and self._cache_allowed(eager=self._epoch_calls + 1 >= 2):
+            self.warm_device_cache()
+        cache = self._device_cache
+        n = len(self.source)
+        if cache is None or cache["n_cached"] < n:
+            return None
+        B = batch_size or self.cfg.data.batch_size
+        S = n // B
+        if S == 0:
+            return None
+        self._epoch_calls += 1
+        order = np.arange(n)
+        if shuffle:
+            np.random.default_rng(seed).shuffle(order)
+        return {"video": cache["video"], "gather": self.gather, "labels": cache["labels_dev"],
+                "lengths": cache["lengths_dev"],
+                "idx": order[:S * B].reshape(S, B).astype(np.int32)}
+
+    def _cached_epoch(self, batch_size, shuffle, seed, drop_last) -> Iterator[Dict]:
+        """An epoch from the device cache: the streamed path's order and
+        padding. A partial cache decodes only each batch's uncached clips
+        (packed into the next power of two rows), preprocesses them as the
+        streamed path does and puts them in their places on the device, so
+        host work scales with the uncached share only."""
+        d = self.cfg.data
+        B = batch_size or d.batch_size
+        n = len(self.source)
+        cache = self._device_cache
+        n_cached = cache["n_cached"]
+        order = np.arange(n)
+        if shuffle:
+            np.random.default_rng(seed).shuffle(order)
+
+        def batch_rows():
+            for i in range(0, n, B):
+                idx = order[i:i + B]
+                valid = len(idx)
+                if valid < B:
+                    if drop_last:
+                        return
+                    idx = np.concatenate([idx, np.zeros(B - valid, np.int64)])
+                yield idx, valid
+
+        def out(idx, valid, video):
+            return {"video": video, "labels": cache["labels"][idx],
+                    "label_lengths": cache["label_lengths"][idx], "valid": valid}
+
+        if n_cached >= n:  # fully cached: gathers only
+            for idx, valid in batch_rows():
+                yield out(idx, valid, self.gather(torch.from_numpy(idx).long().to(self.device)))
+            return
+
+        def cap_of(k):  # rows of a packed upload: k rounded up to a power of 2
+            c = 1
+            while c < k:
+                c *= 2
+            return min(c, B)
+
+        def host_batches():  # decode only the uncached rows of each batch
+            pool = ThreadPoolExecutor(max_workers=max(1, int(d.loader_threads)))
+            try:
+                for idx, valid in batch_rows():
+                    miss = np.where(idx >= n_cached)[0]
+                    raw = None
+                    if miss.size:
+                        decoded = list(pool.map(
+                            lambda j: self._decode_clip(self.source.samples[j].video_path),
+                            idx[miss]))
+                        raw = np.zeros((cap_of(miss.size),) + decoded[0].shape, np.uint8)
+                        raw[:miss.size] = np.stack(decoded)
+                    yield {"idx": idx, "miss": miss, "raw": raw, "valid": valid}
+            finally:
+                pool.shutdown(wait=False)
+
+        gen = prefetch(host_batches(), 2)
+        try:
+            for hb in gen:
+                idx, miss = hb["idx"], hb["miss"]
+                # uncached rows gather row 0 first; the merge replaces them
+                safe = np.where(idx < n_cached, idx, 0)
+                video = self.gather(torch.from_numpy(safe).long().to(self.device))
+                if hb["raw"] is not None:
+                    streamed = preprocess(torch.from_numpy(hb["raw"]).to(self.device), self.cfg)
+                    rows = torch.from_numpy(miss).long().to(self.device)
+                    video = video.index_copy(0, rows, streamed[:miss.size])
+                yield out(idx, hb["valid"], video)
+        finally:
+            gen.close()  # stop the prefetch worker and the decode pool now
+
     def first_batch(self, **epoch_kwargs) -> Dict:
         """One batch, with the epoch generator (and its prefetch worker and
-        decode pool) closed — for quick_test and template draws."""
+        decode pool) closed — for quick_test and template draws. It does not
+        count as an epoch() call, so it never moves the cache's build."""
         epoch_kwargs.setdefault("shuffle", False)
         epoch_kwargs.setdefault("drop_last", False)
-        gen = self.epoch(**epoch_kwargs)
+        epoch_kwargs.setdefault("batch_size", None)
+        epoch_kwargs.setdefault("seed", 0)
+        if self._device_cache is not None:
+            epoch_kwargs.pop("prefetch_size", None)
+            gen = self._cached_epoch(**epoch_kwargs)
+        else:
+            epoch_kwargs.setdefault("prefetch_size", 2)
+            gen = self._host_epoch(**epoch_kwargs)
         try:
             return next(gen)
         finally:

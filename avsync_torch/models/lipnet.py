@@ -25,6 +25,14 @@ On the CPU the same calls take the kernels' plain versions.
 
 Dropout (training only) draws its masks from a torch.Generator the caller
 passes to `forward`, so a step's masks depend on nothing global.
+
+`forward(remat=True)` rematerialises each conv block and BiGRU layer in the
+backward (`torch.utils.checkpoint`, non-reentrant), the counterpart of the
+JAX trainer's `jax.checkpoint` over the forward: only each block's input is
+kept, and the block runs again when its gradient is needed. The dropouts
+stay outside the recomputed blocks, so their masks are drawn once, from the
+caller's generator (checkpoint would restore only the default generators),
+and remat changes memory, never numbers.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from avsync_torch.config import ModelConfig
 from avsync_torch.ops.conv import conv_relu_pool
@@ -147,23 +156,33 @@ class LipNet(nn.Module):
         keep = torch.rand(mask_shape, generator=generator, device=x.device) >= rate
         return x * keep.to(x.dtype) * (1.0 / (1.0 - rate))
 
+    @staticmethod
+    def _block(module: nn.Module, x: torch.Tensor, remat: bool) -> torch.Tensor:
+        if remat and torch.is_grad_enabled():
+            # no randomness inside: the recompute needs no RNG state
+            return checkpoint(module, x, use_reentrant=False, preserve_rng_state=False)
+        return module(x)
+
     def _conv_stack(self, x: torch.Tensor, train: bool = False,
-                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                    generator: Optional[torch.Generator] = None,
+                    remat: bool = False) -> torch.Tensor:
         x = x.permute(0, 4, 1, 2, 3)  # (B, 1, T, H, W)
         for i in range(len(self.cfg.conv_channels)):
-            x = getattr(self, f"conv{i + 1}")(x)
+            x = self._block(getattr(self, f"conv{i + 1}"), x, remat)
             # Dropout3d: whole channels, as the JAX broadcast dropout
             x = self._dropout(x, (*x.shape[:2], 1, 1, 1), train, generator)
         B, C, T, h, w = x.shape
         return x.permute(0, 2, 1, 3, 4).reshape(B, T, C * h * w)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                remat: bool = False) -> torch.Tensor:
         """`train=True` applies dropout with masks from `generator`, a
-        torch.Generator on the model's device (never the global RNG)."""
-        x = self._conv_stack(x, train, generator)
+        torch.Generator on the model's device (never the global RNG);
+        `remat=True` recomputes each block in the backward."""
+        x = self._conv_stack(x, train, generator, remat)
         for i in range(self.cfg.num_gru_layers):
-            x = getattr(self, f"gru{i + 1}")(x)
+            x = self._block(getattr(self, f"gru{i + 1}"), x, remat)
             x = self._dropout(x, x.shape, train, generator)
         return F.log_softmax(self.fc(x), dim=-1)
 

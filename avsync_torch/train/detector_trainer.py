@@ -12,10 +12,17 @@ Features come from a `FeatureBank` on the device: each step gathers its
 (clip, shift) pairs and computes their audio statistics there (K5 with
 `AudioConfig.use_pallas`), then runs the detector's forward and backward,
 with TF32 off (`ops/conv.fp32_step`). No gradient reaches the audio: only
-the detector's parameters are trained. `run_epoch` is a per-step loop in
-the JAX package's batch order, ragged tail included, in place of its
-whole-epoch scan (which replays the same loop); the losses stay on the
-device until the epoch ends.
+the detector's parameters are trained.
+
+`run_epoch` runs the epoch's full batches as one program, as the JAX
+package's `train_epoch_scan` / `eval_epoch_scan`: on the card a CUDA graph
+of the step (bank gather, K5, forward, backward, Adam) replayed over the
+(S, B) plan (`train.epoch_program`), on the CPU the eager loop of the same
+step. The ragged tail runs as its own unpadded step, as the JAX package
+runs it on one device. `_force_loop` runs the per-step loop instead (the
+program equals it bit for bit). Step s draws its dropout masks from the
+trainer's generator reseeded with seed * 1,000,003 + s before the step or
+its replay. On the card Adam is `capturable=True`.
 
 Not ported: a mesh over more than one device raises NotImplementedError.
 """
@@ -38,15 +45,19 @@ from avsync_torch.features import FeatureBank, gather_features, sample_shift_lab
 from avsync_torch.models.detector import MisalignmentDetector
 from avsync_torch.ops.conv import fp32_step
 from avsync_torch.predictor import resolve_device
+from avsync_torch.train.epoch_program import EpochProgram, fingerprint
 from avsync_torch.utils.logging import Logger, format_time
 from avsync_torch.utils.signals import sigterm_flag
 
 
 def make_detector_optimizer(params, lr: float, weight_decay: float) -> torch.optim.Adam:
     """torch.optim.Adam(lr, weight_decay=wd) (`misalignment_detection_train.py:412`):
-    L2 coupled into the gradient, not decoupled AdamW."""
+    L2 coupled into the gradient, not decoupled AdamW; `capturable` on the
+    card, so a CUDA graph can hold the update."""
+    params = list(params)
+    on_card = bool(params) and params[0].device.type == "cuda"
     return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=weight_decay)
+                            weight_decay=weight_decay, capturable=on_card)
 
 
 def weighted_bce(logits: torch.Tensor, labels: torch.Tensor,
@@ -64,10 +75,18 @@ def detector_train_step(model: MisalignmentDetector, optimizer: torch.optim.Opti
     """One update on the gathered (clip, shift) batch, dropout masks from
     `generator`. Returns (loss, sigmoid of the pre-update logits) as device
     tensors; nothing here waits for the device."""
+    optimizer.zero_grad(set_to_none=True)
+    return _detector_update(model, optimizer, bank, video_idx, shifts, labels, weights,
+                            audio_cfg, generator)
+
+
+def _detector_update(model, optimizer, bank, video_idx, shifts, labels, weights, audio_cfg,
+                     generator) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The body shared by `detector_train_step` and the epoch program, on
+    gradients that start as None; no host value is read."""
     with fp32_step():
         with torch.no_grad():
             feats = gather_features(bank, video_idx, shifts, audio_cfg)
-        optimizer.zero_grad(set_to_none=True)
         logits = model(feats, train=True, generator=generator)
         loss = weighted_bce(logits, labels, weights)
         loss.backward()
@@ -106,6 +125,9 @@ class DetectorTrainer:
         self.log = log or Logger(None, console=True)
         self.dropout_gen = torch.Generator(device=self.device)
         self._preempted = False
+        self._programs: Dict[tuple, EpochProgram] = {}
+        # test hook: the per-step loop (the epoch programs must equal it)
+        self._force_loop = False
 
     def init_state(self, feature_dim: int, params: Optional[Mapping] = None) -> DetectorState:
         """A fresh detector with weights drawn from the training seed, or
@@ -133,7 +155,9 @@ class DetectorTrainer:
         """One pass over the shift-contrastive plan drawn from `seed`
         (`run_epoch`, `misalignment_detection_train.py:253-280`): loss (the
         batch losses weighted by their sizes, summed in float64 in batch
-        order), acc, auc, and the plan's labels and probabilities."""
+        order), acc, auc, and the plan's labels and probabilities. The full
+        batches run as one epoch program (unless `_force_loop`), the ragged
+        tail as a step of its own."""
         det = self.config.detector
         B = batch_size or det.batch_size
         video_idx, shifts, labels = sample_shift_labels(
@@ -143,7 +167,15 @@ class DetectorTrainer:
                             for a in (video_idx, shifts, labels))
         ones = torch.ones(B, device=self.device)
         losses, sizes, probs = [], [], []
-        for i in range(0, len(video_idx), B):
+        start, S = 0, len(video_idx) // B
+        if S > 0 and not self._force_loop:
+            start = S * B
+            plan_losses, plan_probs = self._run_program(
+                state, bank, vi_d[:start], sh_d[:start], lb_d[:start], S, B, train)
+            losses.append(plan_losses)
+            sizes += [B] * S
+            probs.append(plan_probs.reshape(-1))
+        for i in range(start, len(video_idx), B):
             vi, sh, lb = vi_d[i:i + B], sh_d[i:i + B], lb_d[i:i + B]
             w = ones[:len(vi)]
             if train:
@@ -154,17 +186,63 @@ class DetectorTrainer:
             else:
                 loss, p = detector_eval_step(state.model, bank, vi, sh, lb, w,
                                              self.config.audio)
-            losses.append(loss)
+            losses.append(loss.view(1))
             sizes.append(len(vi))
             probs.append(p)
         total = 0.0
         if losses:
-            for loss, n in zip(torch.stack(losses).cpu().numpy(), sizes):
+            for loss, n in zip(torch.cat(losses).cpu().numpy(), sizes):
                 total += float(loss) * n
         probs = torch.cat(probs).cpu().numpy() if probs else np.zeros(0, np.float32)
         return state, {"loss": total / max(len(video_idx), 1),
                        "acc": binary_accuracy(labels, probs), "auc": auroc(labels, probs),
                        "labels": labels, "probs": probs}
+
+    def _run_program(self, state: DetectorState, bank: FeatureBank, vi: torch.Tensor,
+                     sh: torch.Tensor, lb: torch.Tensor, S: int, B: int, train: bool):
+        """The train or eval epoch program over S full batches of B (the
+        JAX package's `train_epoch_scan` / `eval_epoch_scan`): (S,) losses
+        and (S, B) probabilities on the device."""
+        dev = self.device
+        key = (train, S, B) + fingerprint(list(bank))
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = EpochProgram(dev, {
+                "vi": torch.zeros((S, B), dtype=vi.dtype, device=dev),
+                "sh": torch.zeros((S, B), dtype=sh.dtype, device=dev),
+                "lb": torch.zeros((S, B), dtype=torch.float32, device=dev),
+                "w": torch.ones((B,), dtype=torch.float32, device=dev),
+                "loss": torch.zeros((S,), dtype=torch.float32, device=dev),
+                "probs": torch.zeros((S, B), dtype=torch.float32, device=dev)})
+        for name, plan in (("vi", vi), ("sh", sh), ("lb", lb)):
+            prog.buffers[name].copy_(plan.view(S, B))
+        audio = self.config.audio
+
+        def body():
+            args = (prog.row("vi"), prog.row("sh"), prog.row("lb"), prog.buffers["w"])
+            if train:
+                loss, p = _detector_update(state.model, state.optimizer, bank, *args, audio,
+                                           self.dropout_gen)
+            else:
+                loss, p = detector_eval_step(state.model, bank, *args, audio)
+            prog.put("loss", loss)
+            prog.put("probs", p)
+            prog.counter.add_(1)
+
+        def before():
+            if train:
+                self._step_generator(state.step)
+                state.step += 1
+
+        graph_ok = dev.type == "cuda"
+        if train:
+            prog.run(S, body, before, graph_ok, lambda: fingerprint(state.optimizer),
+                     zero_grad=lambda: state.optimizer.zero_grad(set_to_none=True),
+                     generator=self.dropout_gen)
+        else:
+            prog.run(S, body, before, graph_ok,
+                     lambda: fingerprint(list(state.model.parameters())))
+        return prog.buffers["loss"], prog.buffers["probs"]
 
     def train(self, bank: FeatureBank, train_videos: int, val_bank: FeatureBank,
               val_videos: int, epochs: Optional[int] = None, save_every: Optional[int] = None,

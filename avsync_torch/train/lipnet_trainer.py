@@ -16,9 +16,36 @@ the process-wide `torch.backends.cudnn.allow_tf32`, which is True by
 default. Gradients of conv2/conv3 would then keep about 3 decimal digits
 where the JAX reference computes in fp32.
 
-Not ported: `remat` (jax.checkpoint), the TF model family and a mesh over
-more than one device raise NotImplementedError; the device-cached
-whole-epoch scan of the JAX trainer waits with the batcher's device cache.
+Whole-epoch programs (`train_epoch_scanned`, the JAX trainer's
+`_scan_program`): a fully device-cached corpus (`LipNetBatcher.scan_plan`)
+trains an epoch without host work per step. On the card one train step is
+captured in a CUDA graph that picks its batch from the (S, B) plan through
+a step counter on the device, gathers it from the cache, runs forward, CTC
+(lengths on the device), backward, clipping and Adam, and writes its loss
+and gradient norm into (S,) device buffers; the host replays it S times and
+reads the buffers once at the epoch's end. On the CPU the same step runs in
+a loop. Either way the epoch equals the per-batch loop (`train_epoch`) bit
+for bit, as the JAX package's scan equals its loop, wherever the step's
+kernels are deterministic: on the card that needs
+`torch.backends.cudnn.deterministic = True`, because cuDNN's default
+algorithms for conv2's and conv3's backward sum in an order that changes
+from run to run (two eager runs of the same steps part from the second
+step; chip_smoke.py shows both). The flag is the caller's choice: it costs
+~20% of the step on the H100 (PERF.md).
+
+Dropout: step s draws its masks from the trainer's generator reseeded with
+seed * 1,000,003 + s before the step (and before the graph's replay for
+step s, which reads the generator's seed and offset at replay), so a loop,
+a graph and a resumed run draw the same masks. They cannot equal the JAX
+package's `fold_in` keys.
+
+On the card the optimizer is Adam with `capturable=True` and its learning
+rate a device tensor, filled when the rate changes (once per epoch under a
+schedule), so the captured step needs no host value; on the CPU it is the
+plain Adam with a float rate.
+
+Not ported: the TF model family and a mesh over more than one device raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -38,6 +65,7 @@ from avsync_torch.models.lipnet import LipNet
 from avsync_torch.ops.conv import fp32_step
 from avsync_torch.ops.ctc import ctc_loss_mean
 from avsync_torch.predictor import resolve_device
+from avsync_torch.train.epoch_program import EpochProgram, fingerprint
 from avsync_torch.utils.checkpoint import CheckpointManager
 from avsync_torch.utils.logging import Logger, format_time
 from avsync_torch.utils.signals import sigterm_flag
@@ -45,10 +73,29 @@ from avsync_torch.utils.signals import sigterm_flag
 
 def make_optimizer(params, learning_rate: float = 1e-4) -> torch.optim.Adam:
     """Adam with torch defaults (`trainer.py:23`). The learning rate is a
-    runtime value: `train_step` sets it on every step, so a schedule changes
-    it without rebuilding anything. Clipping runs in `train_step`, before
-    the update (`trainer.py:64-70`)."""
-    return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    runtime value (`set_learning_rate`), so a schedule changes it without
+    rebuilding anything. On the card: `capturable=True` and the rate a
+    device tensor, so a captured step reads both from the device. Clipping
+    runs in the step, before the update (`trainer.py:64-70`)."""
+    params = list(params)
+    on_card = bool(params) and params[0].device.type == "cuda"
+    lr = (torch.tensor(float(learning_rate), device=params[0].device) if on_card
+          else float(learning_rate))
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, capturable=on_card)
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Every group's rate to `lr`: for a capturable Adam a fill of its device
+    tensor (no host-device copy, no sync; a rate that `load_state_dict`
+    brought back on the host becomes a device tensor again), else a float."""
+    for group in optimizer.param_groups:
+        rate = group["lr"]
+        if not group.get("capturable", False):
+            group["lr"] = float(lr)
+        elif isinstance(rate, torch.Tensor) and rate.device == group["params"][0].device:
+            rate.fill_(float(lr))
+        else:
+            group["lr"] = torch.tensor(float(lr), device=group["params"][0].device)
 
 
 def keras_lr_schedule(epoch: int, lr: float) -> float:
@@ -63,32 +110,41 @@ def keras_lr_schedule(epoch: int, lr: float) -> float:
 
 
 def device_batch(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
-    """Video float32 on the device, labels on the device, label lengths on
-    the host (F.ctc_loss reads them there)."""
+    """Video float32, labels and label lengths (int64) on the device."""
     return {
         "video": torch.as_tensor(batch["video"], dtype=torch.float32).to(device),
         "labels": torch.as_tensor(np.asarray(batch["labels"]), dtype=torch.long).to(device),
-        "label_lengths": torch.as_tensor(np.asarray(batch["label_lengths"]), dtype=torch.long),
+        "label_lengths": torch.as_tensor(np.asarray(batch["label_lengths"]),
+                                         dtype=torch.long).to(device),
     }
+
+
+def _update(model: LipNet, optimizer: torch.optim.Optimizer, batch: Dict[str, torch.Tensor],
+            generator: Optional[torch.Generator], grad_clip_norm: float,
+            remat: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward, CTC, backward, clip, Adam on gradients that start as None:
+    the body shared by `train_step` and the whole-epoch program. No host
+    value is read, so it can be captured in a CUDA graph."""
+    log_probs = model(batch["video"], train=True, generator=generator, remat=remat)
+    loss = ctc_loss_mean(log_probs, batch["labels"], batch["label_lengths"])
+    loss.backward()
+    grad_norm = torch.nn.utils.clip_grad_norm_(model.parameters(), grad_clip_norm)
+    optimizer.step()
+    return loss.detach(), grad_norm.detach()
 
 
 def train_step(model: LipNet, optimizer: torch.optim.Optimizer, batch: Dict[str, torch.Tensor],
                lr: float, generator: Optional[torch.Generator] = None,
-               grad_clip_norm: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+               grad_clip_norm: float = 1.0, remat: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One update: CTC loss of the training forward (dropout masks from
-    `generator`), backward, clip to `grad_clip_norm`, Adam at `lr`.
-    Returns (loss, pre-clip global gradient norm) as device scalars; nothing
-    here waits for the device."""
+    `generator`; `remat` recomputes the blocks in the backward), backward,
+    clip to `grad_clip_norm`, Adam at `lr`. Returns (loss, pre-clip global
+    gradient norm) as device scalars; nothing here waits for the device."""
     with fp32_step():
         optimizer.zero_grad(set_to_none=True)
-        log_probs = model(batch["video"], train=True, generator=generator)
-        loss = ctc_loss_mean(log_probs, batch["labels"], batch["label_lengths"])
-        loss.backward()
-        grad_norm = torch.nn.utils.clip_grad_norm_(model.parameters(), grad_clip_norm)
-        for group in optimizer.param_groups:
-            group["lr"] = lr
-        optimizer.step()
-    return loss.detach(), grad_norm.detach()
+        set_learning_rate(optimizer, lr)
+        return _update(model, optimizer, batch, generator, grad_clip_norm, remat)
 
 
 def eval_step(model: LipNet, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -101,9 +157,8 @@ def eval_step(model: LipNet, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tens
 @dataclass
 class TrainState:
     """What a training run carries: the model, its optimizer and the number
-    of optimizer steps taken (the dropout masks of step s are drawn from a
-    generator seeded with (seed, s), as the JAX package folds s into its
-    key)."""
+    of optimizer steps taken (step s draws its dropout masks from the
+    trainer's generator reseeded with (seed, s))."""
 
     model: LipNet
     optimizer: torch.optim.Adam
@@ -112,7 +167,8 @@ class TrainState:
 
 class LipNetTrainer:
     """Host training loop over device steps. Loaders are iterables of
-    batches (dicts as `LipNetBatcher` yields them, or numpy)."""
+    batches (dicts as `LipNetBatcher` yields them, or numpy), or whole-epoch
+    plans from `LipNetBatcher.scan_plan`."""
 
     # How often train_epoch polls the stop_check callback (in batches).
     PREEMPT_CHECK_EVERY = 16
@@ -120,10 +176,11 @@ class LipNetTrainer:
     LAG = 4
 
     def __init__(self, config: AvsyncConfig, device=None, log: Optional[Logger] = None):
-        if config.train.remat:
-            raise NotImplementedError("remat: rematerialisation is not ported")
         if config.model.family != "pytorch":
             raise NotImplementedError("only the 'pytorch' LipNet family is ported")
+        if config.model.compute_dtype not in (None, "float32"):
+            raise NotImplementedError(f"compute_dtype={config.model.compute_dtype!r}: the "
+                                      "port computes in float32 only")
         if any(n > 1 for n in config.train.mesh_shape):
             raise NotImplementedError(
                 f"mesh_shape={config.train.mesh_shape}: the port trains on one device")
@@ -137,6 +194,7 @@ class LipNetTrainer:
         self.lr_history: list = []
         self.epoch_seconds: list = []  # wall seconds per completed epoch
         self._preempted = False
+        self._programs: Dict[Tuple[int, int], EpochProgram] = {}
 
     # -- state -------------------------------------------------------------
     def init_state(self, model: Optional[LipNet] = None) -> TrainState:
@@ -154,31 +212,99 @@ class LipNetTrainer:
 
     # -- epoch loops ---------------------------------------------------------
     def train_epoch(self, state: TrainState, loader: Iterable,
-                    stop_check: Optional[Callable[[], bool]] = None) -> Tuple[TrainState, float]:
+                    stop_check: Optional[Callable[[], bool]] = None,
+                    metrics_writer=None) -> Tuple[TrainState, float]:
         """One pass over the loader; returns the mean training loss.
 
         Losses stay on the device until LAG steps later, so the host keeps
         enqueueing while the device works; reading a loss LAG steps back
         bounds the batches in flight (and surfaces a failing step within
         LAG steps). The epoch-end drain is the device sync. `stop_check` is
-        polled every PREEMPT_CHECK_EVERY batches."""
+        polled every PREEMPT_CHECK_EVERY batches. `metrics_writer` gets each
+        step's loss, gradient norm and rate."""
         state.model.train()
         pending, losses = [], []
+        cfg = self.config.train
+
+        def drain_one():
+            loss, gnorm, step = pending[len(losses)]
+            losses.append(float(loss))
+            if metrics_writer is not None:
+                metrics_writer.write(step, loss=losses[-1], grad_norm=float(gnorm),
+                                     lr=self.current_lr)
+
         for batch in loader:
             if (stop_check is not None and pending
                     and len(pending) % self.PREEMPT_CHECK_EVERY == 0 and stop_check()):
                 if hasattr(loader, "close"):
                     loader.close()  # release the prefetch worker and decode pool
                 break
-            loss, _ = train_step(state.model, state.optimizer, device_batch(batch, self.device),
-                                 self.current_lr, self._step_generator(state.step),
-                                 self.config.train.grad_clip_norm)
-            pending.append(loss)
+            loss, gnorm = train_step(state.model, state.optimizer,
+                                     device_batch(batch, self.device), self.current_lr,
+                                     self._step_generator(state.step), cfg.grad_clip_norm,
+                                     cfg.remat)
             state.step += 1
+            pending.append((loss, gnorm, state.step))
             if len(pending) - len(losses) > self.LAG:
-                losses.append(float(pending[len(losses)]))
-        losses += [float(loss) for loss in pending[len(losses):]]
+                drain_one()
+        while len(losses) < len(pending):
+            drain_one()
         return state, sum(losses) / max(len(losses), 1)
+
+    def _plan_step(self, state: TrainState, plan: Dict, prog: EpochProgram) -> None:
+        """One step of a whole-epoch program, all on the device: batch row
+        `counter` of the plan, gathered from the cache, through `_update`;
+        its loss and gradient norm into the program's buffers."""
+        cfg = self.config.train
+        row = prog.row("plan")
+        batch = {"video": plan["gather"](row),
+                 "labels": plan["labels"].index_select(0, row),
+                 "label_lengths": plan["lengths"].index_select(0, row)}
+        with fp32_step():
+            loss, gnorm = _update(state.model, state.optimizer, batch, self.dropout_gen,
+                                  cfg.grad_clip_norm, cfg.remat)
+        prog.put("loss", loss)
+        prog.put("grad_norm", gnorm)
+        prog.counter.add_(1)
+
+    def train_epoch_scanned(self, state: TrainState, plan: Dict,
+                            metrics_writer=None) -> Tuple[TrainState, float]:
+        """One epoch over a `LipNetBatcher.scan_plan` plan through an
+        `EpochProgram`: on the card a CUDA graph of the train step replayed
+        S times, no host work per step beyond the replay and the dropout
+        reseed; on the CPU the eager loop of the same step. The graph is
+        kept for later epochs of the same (B, S).
+        Losses and gradient norms are read once, at the epoch's end."""
+        state.model.train()
+        idx = np.asarray(plan["idx"])
+        S, B = idx.shape
+        prog = self._programs.get((B, S))
+        if prog is None:
+            prog = self._programs[(B, S)] = EpochProgram(self.device, {
+                "plan": torch.zeros((S, B), dtype=torch.long, device=self.device),
+                "loss": torch.zeros((S,), dtype=torch.float32, device=self.device),
+                "grad_norm": torch.zeros((S,), dtype=torch.float32, device=self.device)})
+        set_learning_rate(state.optimizer, self.current_lr)
+        prog.buffers["plan"].copy_(torch.from_numpy(idx).long())
+        step0 = state.step
+
+        def before():
+            self._step_generator(state.step)
+            state.step += 1
+
+        prog.run(S, lambda: self._plan_step(state, plan, prog), before,
+                 graph_ok=self.device.type == "cuda",
+                 key=lambda: fingerprint(state.optimizer, plan["video"], plan["labels"],
+                                         plan["lengths"]),
+                 zero_grad=lambda: state.optimizer.zero_grad(set_to_none=True),
+                 generator=self.dropout_gen)
+        losses = prog.buffers["loss"].cpu().numpy()  # the epoch-end device sync
+        if metrics_writer is not None:
+            gnorms = prog.buffers["grad_norm"].cpu().numpy()
+            for i, (loss, gnorm) in enumerate(zip(losses, gnorms)):
+                metrics_writer.write(step0 + i + 1, loss=float(loss), grad_norm=float(gnorm),
+                                     lr=self.current_lr)
+        return state, sum(float(loss) for loss in losses) / S
 
     def validate(self, state: TrainState, loader: Iterable) -> float:
         state.model.eval()
@@ -190,6 +316,11 @@ class LipNetTrainer:
         return total / max(n, 1)
 
     # -- full run --------------------------------------------------------------
+    def _run_epoch_source(self, state: TrainState, src, stop_check) -> Tuple[TrainState, float]:
+        if isinstance(src, dict) and "idx" in src:
+            return self.train_epoch_scanned(state, src)
+        return self.train_epoch(state, src, stop_check=stop_check)
+
     def _snapshot(self, state: TrainState) -> dict:
         return {"model": copy.deepcopy(state.model.state_dict()),
                 "optimizer": copy.deepcopy(state.optimizer.state_dict()),
@@ -220,8 +351,12 @@ class LipNetTrainer:
               lr_schedule: Optional[Callable[[int, float], float]] = None,
               early_stopping_patience: Optional[int] = None,
               example_fn: Optional[Callable[[TrainState, int], None]] = None,
-              history_path: Optional[str] = None, start_epoch: int = 0) -> TrainState:
-        """Full run; the loader fns are called once per epoch.
+              history_path: Optional[str] = None, start_epoch: int = 0,
+              profile_dir: Optional[str] = None) -> TrainState:
+        """Full run; the loader fns are called once per epoch. The train
+        loader fn may return a whole-epoch plan (`LipNetBatcher.scan_plan`)
+        in place of an iterable of batches: that epoch runs as one program
+        (`train_epoch_scanned`), which is not stopped mid-epoch.
 
         `epochs` is the TOTAL budget: a resumed run passes `start_epoch`, the
         epochs already completed, and epoch numbers, the LR schedule (fast-
@@ -230,7 +365,10 @@ class LipNetTrainer:
         snapshot labelled one past the last epoch reached, each with
         `epochs_completed` in its metrics (plus `preempted` or
         `early_stopped`). SIGTERM stops at the next batch boundary that
-        polls, after which the final snapshot is written."""
+        polls, after which the final snapshot is written. With `profile_dir`
+        the run's second epoch (its first when it has one) is traced into
+        that directory (`utils.profiling.trace`): from the second epoch on,
+        a cached corpus replays the epoch program."""
         cfg = self.config.train
         epochs = epochs if epochs is not None else cfg.epochs
         ckpt = CheckpointManager(checkpoint_dir or cfg.checkpoint_dir)
@@ -277,8 +415,15 @@ class LipNetTrainer:
                 if lr_schedule is not None:
                     self.current_lr = float(lr_schedule(epoch - 1, self.current_lr))
                 te = time.time()
-                state, train_loss = self.train_epoch(state, train_loader_fn(),
-                                                     stop_check=stop_now)
+                src = train_loader_fn()
+                if profile_dir is not None and epoch == min(start_epoch + 2, epochs):
+                    from avsync_torch.utils.profiling import trace
+
+                    with trace(profile_dir):
+                        state, train_loss = self._run_epoch_source(state, src, stop_now)
+                    self.log.log(f"profiler trace of epoch {epoch} -> {profile_dir}")
+                else:
+                    state, train_loss = self._run_epoch_source(state, src, stop_now)
                 if stop_now():
                     self.train_losses.append(train_loss)
                     self.log.log(f"Preempted during epoch {epoch} "

@@ -30,9 +30,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      gru_fwd once per BiGRU layer, and no backward kernel. Log-probs are held
      against the same reader with both flags off (plain path, on the card);
   5. training slice: a GRID-layout corpus of (75, 50, 100) uint8 clips
-     (and 3 s of audio each) written with numpy; `cli train` at full width with both kernel flags on
-     for 2 epochs with a checkpoint, `--resume auto` for a third, `cli test`;
-     the counters zeroed before and checked after against the steps taken;
+     (and 3 s of audio each) from the port's `write_corpus`; `cli train` at
+     full width with both kernel flags on for 2 epochs with a checkpoint (the
+     second epoch over the device cache, as an epoch program), `--resume
+     auto --device_cache on --remat --profile_dir` for a third (an epoch
+     program with rematerialised blocks, traced), `cli test`; the counters
+     zeroed before and checked after against the eager steps and captures
+     taken;
      one step of the kernel path against the plain path (loss and every
      gradient); TF32 read from inside train_step's backward; the loss falling
      over 20 steps on one repeated batch; the train step's time on both paths;
@@ -54,16 +58,28 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      the same scorer with both flags off, audio statistics against the XLA
      path;
   8. detector training slice: the training slice's corpus (with a sibling
-     .wav per clip) and its trained LipNet; `cli misalign-train` for 2 epochs
+     .wav per clip, following the mouth) and its trained LipNet; `cli
+     misalign-train` (full batches through the epoch programs) for 2 epochs
      with a snapshot each, `cli misalign-eval` over shifts 5..20, launch
      counts against the banks, steps, eval batches and sweep rows; one
      detector step of the kernel path against the plain path; the loss
      falling over 20 steps on one repeated batch; the step's time on both
      paths;
-  9. the kernels: a text line with the state of every TPU kernel of the
+  9. epoch programs: both trainers' whole-epoch CUDA-graph programs at full
+     width against their eager loops from the same weights (LipNet B=8 over
+     a fully cached 64-clip corpus from the port's `write_corpus`, S=8, at
+     dropout 0 and 0.5; the detector B=32 over a 256-clip bank, train and
+     eval): parameters, Adam state, losses, gradient norms and
+     probabilities equal bit for bit; steps/s, wall and host ms per step
+     and the device's idle share of each path; the kernels the replays
+     launched, counted by name in a torch.profiler trace of a replayed
+     epoch (a replay passes through no wrapper, so the counters see only
+     the warm-up steps and the capture);
+  10. the kernels: a text line with the state of every TPU kernel of the
      JAX package, and one JSON line with the measured numbers (launches from
-     the training slices, the serving slices' beside them);
-  10. the card's name/power line, then the status JSON as the last line.
+     the training slices, the serving slices' and the graph replays' beside
+     them);
+  11. the card's name/power line, then the status JSON as the last line.
 
 Exits with 2 and prints no result without a GPU or outside a checkout.
 """
@@ -666,12 +682,6 @@ def run_slice(dev):
 # 5. training slice
 # ---------------------------------------------------------------------------
 
-GRID_WORDS = (("bin", "lay", "place", "set"), ("blue", "green", "red", "white"),
-              ("at", "by", "in", "with"), tuple("abcdefghijklmnopqrstuvxyz"),
-              ("zero", "one", "two", "three", "four", "five", "six", "seven", "eight",
-               "nine"), ("again", "now", "please", "soon"))
-
-
 def syllable_audio(r, n: int):
     """n samples of noise under a syllable-rate envelope (2-5 Hz), numpy."""
     import numpy as np
@@ -682,33 +692,26 @@ def syllable_audio(r, n: int):
 
 
 def write_grid_corpus(root: str, n_speakers: int, clips: int, seed: int):
-    """A GRID-layout corpus (<root>/sN/video/*.npy + <root>/sN/align/*.align)
-    of (75, 50, 100) uint8 mouth crops and GRID-grammar transcripts, and a
-    sibling 3 s, 16 kHz PCM16 .wav per clip (the port's `save_wav`), drawn
-    with numpy from `seed`."""
-    import numpy as np
+    """A GRID-layout corpus (<root>/sN/video/*.npy + *.wav, <root>/sN/align/)
+    from the port's `write_corpus`: (75, 50, 100) uint8 mouth crops whose
+    mouth opens with a per-phrase envelope, GRID-grammar transcripts, and a
+    sibling 3 s, 16 kHz .wav per clip whose amplitude follows the same
+    envelope, so a detector can learn the alignment."""
+    from avsync_torch.data.synthetic import write_corpus
 
-    from avsync_torch.data.video import save_wav
+    write_corpus(root, n_speakers=n_speakers, clips_per_speaker=clips, layout="standard",
+                 seed=seed)
 
-    r = np.random.default_rng(seed)
-    audio_r = np.random.default_rng(seed + 1)
-    for s in range(1, n_speakers + 1):
-        vdir, adir = (os.path.join(root, f"s{s}", d) for d in ("video", "align"))
-        os.makedirs(vdir)
-        os.makedirs(adir)
-        for c in range(clips):
-            name = f"clip{c:03d}"
-            np.save(os.path.join(vdir, name + ".npy"),
-                    r.integers(0, 256, (75, 50, 100), dtype=np.uint8))
-            save_wav(os.path.join(vdir, name + ".wav"), syllable_audio(audio_r, 48000), 16000)
-            words = [str(r.choice(slot)) for slot in GRID_WORDS]
-            lines, t = ["0 9375 sil"], 9375
-            for w in words:
-                lines.append(f"{t} {t + 9375} {w}")
-                t += 9375
-            lines.append(f"{t} 75000 sil")
-            with open(os.path.join(adir, name + ".align"), "w") as f:
-                f.write("\n".join(lines) + "\n")
+
+def program_wrapper_calls(S: int, runs: int) -> int:
+    """Wrapper calls of an epoch program of S steps run `runs` times (one
+    trainer): its first run takes WARMUP_STEPS eager steps and, when steps
+    remain, one capture; later runs only replay. With no step left for a
+    capture every run is eager."""
+    from avsync_torch.train.epoch_program import WARMUP_STEPS
+
+    warm = min(WARMUP_STEPS, S)
+    return warm + 1 if S > warm else S * runs
 
 
 def counts():
@@ -743,6 +746,7 @@ def run_training(dev, workdir: str):
     from avsync_torch.data.pipeline import LipNetBatcher
     from avsync_torch.models.lipnet import LipNet
     from avsync_torch.ops.ctc import ctc_loss_mean
+    from avsync_torch.train.epoch_program import WARMUP_STEPS
     from avsync_torch.train.lipnet_trainer import (device_batch, fp32_step, make_optimizer,
                                                    train_step)
 
@@ -768,9 +772,11 @@ def run_training(dev, workdir: str):
     results = os.path.join(workdir, "results.json")
     zero_counts()
     t0 = time.perf_counter()
+    prof = os.path.join(workdir, "prof")
     rc = [cli.main(["train", *common, "--epochs", "2", "--checkpoint_dir", ck]),
           cli.main(["train", *common, "--epochs", "3", "--checkpoint_dir", ck,
-                    "--resume", "auto"]),
+                    "--resume", "auto", "--device_cache", "on", "--remat",
+                    "--profile_dir", prof]),
           cli.main(["test", *common, "--checkpoint", ck, "--output", results])]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -778,14 +784,30 @@ def run_training(dev, workdir: str):
     if rc != [0, 0, 0]:
         raise SystemExit(f"cli train/resume/test returned {rc}")
     steps = 3 * steps_per_epoch
+    # epoch 1 streams: eager steps. Epoch 2 finds the corpus in the device
+    # cache ('auto', second epoch) and epoch 3 (the resumed process, 'on')
+    # too: each runs as an epoch program, its first steps eager, one capture
+    # (the wrappers run once while the graph records), the rest replays,
+    # which pass through no wrapper. With --remat each eager step or capture
+    # runs the forward kernels twice (the backward recomputes them).
+    plain = steps_per_epoch + program_wrapper_calls(steps_per_epoch, 1)
+    remat = program_wrapper_calls(steps_per_epoch, 1)
     forwards = 3 * val_b + 3 * test_b  # validation per epoch, a test pass per command
-    want = {"conv1_pool": steps + forwards, "gru_fwd": 2 * (steps + forwards),
-            "gru_bwd": 2 * steps, "conv1_pool_bwd": steps, "mel_stats": 0}
-    print(f"  train 2 epochs + resume 1 + test: wall_s={wall:.2f}, {steps} train steps, "
+    want = {"conv1_pool": plain + 2 * remat + forwards,
+            "gru_fwd": 2 * (plain + 2 * remat + forwards),
+            "gru_bwd": 2 * (plain + remat), "conv1_pool_bwd": plain + remat, "mel_stats": 0}
+    replays = 2 * (steps_per_epoch - min(WARMUP_STEPS, steps_per_epoch))
+    print(f"  train 2 epochs + resume 1 (--device_cache on --remat --profile_dir) + test: "
+          f"wall_s={wall:.2f}, {steps} train steps ({replays} of them graph replays), "
           f"{forwards} eval forwards", flush=True)
-    print(f"  launches: {got} (expected {want}: per train step conv1_pool 1, gru_fwd 2, "
-          f"gru_bwd 2 (each also runs its reduction kernel), conv1_pool_bwd 1; per eval "
-          f"forward conv1_pool 1, gru_fwd 2)", flush=True)
+    print(f"  launches: {got} (expected {want}: per eager train step or capture conv1_pool "
+          f"1, gru_fwd 2, gru_bwd 2 (each also runs its reduction kernel), conv1_pool_bwd 1, "
+          f"the forward's twice with remat; per eval forward conv1_pool 1, gru_fwd 2)",
+          flush=True)
+    traced_files = sorted(os.listdir(prof)) if os.path.isdir(prof) else []
+    print(f"  profiler trace of the resumed epoch: {traced_files}", flush=True)
+    if traced_files != ["trace.json"] or os.path.getsize(os.path.join(prof, "trace.json")) == 0:
+        raise SystemExit("--profile_dir wrote no trace")
     if got != want:
         raise SystemExit("training launch counts do not match the steps taken")
     with open(os.path.join(ck, "history.json")) as f:
@@ -1144,9 +1166,17 @@ def run_detector_training(dev, workdir: str):
     bsz, det = cfg.data.batch_size, cfg.detector
     plan = 1 + det.num_negative_samples  # plan entries per clip
     bank_batches = sum(math.ceil(len(p) / bsz) for p in (train_p, val_p, test_p, paths))
+
+    def epoch_calls(n: int, runs: int) -> int:
+        # full batches through the epoch program, a ragged tail as its own step
+        S, tail = divmod(plan * n, det.batch_size)
+        return (program_wrapper_calls(S, runs) if S else 0) + runs * (tail > 0)
+
     steps = det.epochs * math.ceil(plan * len(train_p) / det.batch_size)
     evals = (det.epochs * math.ceil(plan * len(val_p) / det.batch_size)
              + math.ceil(plan * len(test_p) / det.batch_size))
+    wrapped = (epoch_calls(len(train_p), det.epochs) + epoch_calls(len(val_p), det.epochs)
+               + epoch_calls(len(test_p), 1))
     sweep_rows = math.ceil(len(paths) / cli._SWEEP_CLIP_CHUNK) * (1 + 16)
     print(f"detector training slice: full width, {len(paths)} clips with audio "
           f"(train {len(train_p)}, val {len(val_p)}, test {len(test_p)}), the LipNet trained "
@@ -1164,11 +1194,12 @@ def run_detector_training(dev, workdir: str):
     if rc != [0, 0]:
         raise SystemExit(f"cli misalign-train/misalign-eval returned {rc}")
     want = {"conv1_pool": bank_batches, "gru_fwd": 0, "gru_bwd": 0, "conv1_pool_bwd": 0,
-            "mel_stats": steps + evals + sweep_rows}
+            "mel_stats": wrapped + sweep_rows}
     print(f"  misalign-train + misalign-eval: wall_s={wall:.2f}; launches {got} (expected "
           f"{want}: conv1_pool once per bank batch of {bsz} clips ({bank_batches}), mel_stats "
-          f"once per train step ({steps}), eval batch ({evals}) and sweep row "
-          f"({sweep_rows}))", flush=True)
+          f"once per sweep row ({sweep_rows}) and per eager step or capture of the {steps} "
+          f"train steps and {evals} eval batches ({wrapped}; the epoch programs' replays "
+          f"pass through no wrapper)", flush=True)
     if got != want:
         raise SystemExit("detector launch counts do not match what the commands ran")
     (run,) = os.listdir(logs)
@@ -1177,8 +1208,9 @@ def run_detector_training(dev, workdir: str):
         sweep = json.load(f)
     aurocs = list(sweep["auroc_by_shift"].values()) + [sweep["overall_auroc"]]
     print(f"  log folder {written}; sweep over {sweep['num_clips']} clips: overall AUROC "
-          f"{sweep['overall_auroc']:.4f} (random LipNet and a 2-epoch detector on noise: "
-          f"a check of the path, not of accuracy)", flush=True)
+          f"{sweep['overall_auroc']:.4f} (the LipNet trained above, a 2-epoch detector, "
+          f"synthetic clips whose audio follows the mouth: a check of the path, not of "
+          f"accuracy)", flush=True)
     if (not {"checkpoint_epoch_1.pth", "checkpoint_epoch_2.pth", "detector.pth"} <= set(written)
             or sweep["num_clips"] != len(paths) or len(sweep["auroc_by_shift"]) != 16
             or not all(np.isfinite(aurocs))):
@@ -1238,6 +1270,301 @@ def run_detector_training(dev, workdir: str):
     return got
 
 
+# ---------------------------------------------------------------------------
+# 9. epoch programs (CUDA graphs of the trainers' steps)
+# ---------------------------------------------------------------------------
+
+# profiler kernel names of each wrapper's launch (one match per launch: K3's
+# chain kernel stands for its four, K4's main kernel for its two)
+KERNEL_NAMES = {"conv1_pool": "conv1_pool_kernel", "gru_fwd": "gru_fwd",
+                "gru_bwd": "gru_bwd_chain", "conv1_pool_bwd": "conv1_pool_bwd_kernel",
+                "mel_stats": "mel_stats_kernel"}
+
+
+class StepLog:
+    """A metrics writer keeping (step, loss, grad_norm) rows."""
+
+    def __init__(self):
+        self.rows = []
+
+    def write(self, step, **m):
+        self.rows.append((step, m["loss"], m["grad_norm"]))
+
+
+def timed_before(trainer):
+    """Wrap the trainer's per-step dropout reseed, which runs on the host
+    ahead of every step (eager or replay): the gaps between its calls are
+    the host's time per step."""
+    stamps = []
+    inner = trainer._step_generator
+
+    def hook(step):
+        stamps.append(time.perf_counter())
+        return inner(step)
+
+    trainer._step_generator = hook
+    return stamps
+
+
+def traced(fn):
+    """Run fn() under torch.profiler: (result, wall ms, device busy ms,
+    {wrapper: kernels of its name}, all kernel names)."""
+    import torch
+
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, names = 0.0, {}
+    for evt in prof.events():
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
+            busy += evt.time_range.elapsed_us() / 1e3
+            names[evt.name] = names.get(evt.name, 0) + 1
+    found = {k: sum(n for name, n in names.items() if pat in name)
+             for k, pat in KERNEL_NAMES.items()}
+    return out, wall, busy, found, names
+
+
+def path_times(label, steps, wall_ms, traced_ms, busy_ms, stamps):
+    """Print and return steps/s and wall ms per step (an untraced epoch of
+    `steps` taking wall_ms), host ms per step (median gap between the steps'
+    host starts, `stamps`), device busy ms per step and the idle share (a
+    traced epoch: busy_ms of device work in traced_ms)."""
+    gaps = [b - a for a, b in zip(stamps, stamps[1:])]
+    host = statistics.median(gaps) * 1e3 if gaps else float("nan")
+    row = {"steps_per_s": steps / wall_ms * 1e3, "wall_ms_per_step": wall_ms / steps,
+           "host_ms_per_step": host, "device_busy_ms_per_step": busy_ms / steps,
+           "idle_share": max(0.0, 1.0 - busy_ms / traced_ms)}
+    print(f"    {label}: steps_per_s={row['steps_per_s']:.3f} wall_ms_per_step="
+          f"{row['wall_ms_per_step']:.4f} host_ms_per_step={host:.4f} (median gap between "
+          f"steps' host starts) device_busy_ms_per_step={row['device_busy_ms_per_step']:.4f} "
+          f"idle_share={row['idle_share']:.4f}", flush=True)
+    return row
+
+
+def same_state(a, b, what):
+    for (name, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        if not torch_equal(p, q):
+            raise SystemExit(f"{what}: parameter {name} differs between graph and loop")
+    for (ka, sa), (kb, sb) in zip(a.optimizer.state.items(), b.optimizer.state.items()):
+        for key in sa:
+            if not torch_equal(sa[key], sb[key]):
+                raise SystemExit(f"{what}: optimizer state {key} differs between graph and loop")
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+
+    return torch.equal(x, y)
+
+
+def run_epoch_programs(dev, workdir: str):
+    """Both trainers' whole-epoch programs at full width with every kernel
+    flag on, each against its eager loop from the same weights: LipNet at
+    B=8 over a fully cached 64-clip corpus (S=8), at dropout 0 then 0.5,
+    with cuDNN held to its deterministic algorithms; the detector at B=32
+    over a bank of 256 clips (S=16 train, 16 eval). Params, optimizer
+    state, losses, gradient norms and probabilities must be equal bit for
+    bit after two epochs (the first runs the warm-up and the capture). Then,
+    with cuDNN's default algorithms, one timed epoch per path (steps/s, wall
+    and host ms per step) and one traced (device busy time, idle share, and
+    the kernels the graph's replays launched, by profiler name)."""
+    import numpy as np
+    import torch
+
+    from avsync_torch import cli
+    from avsync_torch.config import (AudioConfig, AvsyncConfig, DataConfig, DetectorConfig,
+                                     ModelConfig, TrainConfig)
+    from avsync_torch.data.grid import GridDataSource
+    from avsync_torch.data.pipeline import LipNetBatcher
+    from avsync_torch.data.synthetic import write_corpus
+    from avsync_torch.features import FeatureBank
+    from avsync_torch.models.lipnet import LipNet
+    from avsync_torch.train.detector_trainer import DetectorTrainer
+    from avsync_torch.train.lipnet_trainer import LipNetTrainer
+    from avsync_torch.utils.logging import Logger
+
+    quiet = Logger(None, console=False)
+    root = os.path.join(workdir, "programs")
+    t0 = time.perf_counter()
+    write_corpus(root, n_speakers=8, clips_per_speaker=8, layout="standard", seed=5)
+    src = GridDataSource(root)
+    print(f"epoch programs: corpus of {len(src)} clips (75x50x100, 3 s audio) written in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    replayed = {}
+    out = {"lipnet": {}, "detector": {}}
+
+    # -- LipNet, B=8, S=8 ------------------------------------------------------
+    def lipnet_cfg(dropout):
+        return AvsyncConfig(data=DataConfig(data_path=root, device_cache="on"),
+                            model=ModelConfig(use_pallas_gru=True, fused_conv_pool=True,
+                                              dropout_rate=dropout),
+                            train=TrainConfig(seed=3))
+
+    batcher = LipNetBatcher(src, lipnet_cfg(0.0), device=dev)  # the cache serves every run
+
+    def lipnet_run(dropout, path):
+        """A trainer from the seeded weights and an epoch function over
+        the cache: the program (`graph`) or the per-batch loop (`loop`)."""
+        trainer = LipNetTrainer(lipnet_cfg(dropout), device=dev, log=quiet)
+        state = trainer.init_state()
+        log = StepLog()
+
+        def epoch(e):
+            if path == "graph":
+                return trainer.train_epoch_scanned(
+                    state, batcher.scan_plan(shuffle=True, seed=e), metrics_writer=log)
+            return trainer.train_epoch(state, batcher.epoch(shuffle=True, seed=e),
+                                       metrics_writer=log)
+
+        return trainer, state, log, epoch
+
+    cudnn = torch.backends.cudnn
+    for dropout in (0.0, 0.5):
+        # cuDNN's deterministic algorithms: its defaults for conv2/conv3's
+        # backward sum in a run-dependent order (two eager runs part, below)
+        with cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+            runs = {}
+            for path in ("graph", "loop"):
+                trainer, state, log, epoch = lipnet_run(dropout, path)
+                zero_counts()
+                epoch(1)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                epoch(2)
+                torch.cuda.synchronize()
+                runs[path] = (state, log, counts(), (time.perf_counter() - t0) * 1e3)
+        (sg, lg, cg, wg), (sl, ll, cl, wl) = runs["graph"], runs["loop"]
+        S = len(lg.rows) // 2
+        n = program_wrapper_calls(S, 2)  # one capture for both epochs
+        if cg != {"conv1_pool": n, "gru_fwd": 2 * n, "gru_bwd": 2 * n, "conv1_pool_bwd": n,
+                  "mel_stats": 0}:
+            raise SystemExit(f"LipNet epoch program: wrapper calls {cg}, not {n} steps' worth "
+                             f"(warm-up and one capture)")
+        same_state(sg, sl, f"LipNet dropout {dropout}")
+        if lg.rows != ll.rows:
+            raise SystemExit(f"LipNet dropout {dropout}: losses or gradient norms differ")
+        print(f"  LipNet B=8 S={S} dropout {dropout}, cudnn.deterministic: 2 epochs graph vs "
+              f"eager loop: parameters, Adam state, {len(lg.rows)} losses and gradient norms "
+              f"equal bit for bit (last loss {lg.rows[-1][1]:.6f}); wrapper calls graph {cg} "
+              f"(warm-up steps + one capture), loop {cl}; epoch 2 wall per step graph "
+              f"{wg / S:.4f} ms, loop {wl / S:.4f} ms", flush=True)
+        out["lipnet"]["wrapper_calls_graph_path"] = cg
+        out["lipnet"][f"deterministic_dropout_{dropout}_wall_ms_per_step"] = {
+            "graph": wg / S, "loop": wl / S}
+        del runs
+    logs = []
+    for _ in range(2):  # cuDNN's default algorithms: the loop against itself
+        _, _, log, epoch = lipnet_run(0.0, "loop")
+        epoch(1)
+        logs.append(log.rows)
+    part = next((i for i, (a, b) in enumerate(zip(*logs)) if a != b), None)
+    print(f"  LipNet loop vs loop with cuDNN's default algorithms (dropout 0, 1 epoch): "
+          f"{'equal bit for bit' if part is None else f'parted at step {part + 1}'} "
+          f"(informational)", flush=True)
+    for path in ("graph", "loop"):  # timed with cuDNN's default algorithms
+        trainer, state, _, epoch = lipnet_run(0.5, path)
+        epoch(1)  # the graph's warm-up and capture
+        stamps = timed_before(trainer)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        epoch(2)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        gaps = list(stamps)
+        _, twall, busy, found, _ = traced(lambda: epoch(3))
+        row = path_times(f"LipNet {path} path (dropout 0.5, epoch 2 timed, epoch 3 traced)", S,
+                         wall, twall, busy, gaps)
+        print(f"    kernels in the traced epoch: {found}", flush=True)
+        out["lipnet"][path] = row
+        if path == "graph":
+            replayed["lipnet"] = found
+        trainer._programs.clear()
+    del batcher
+    torch.cuda.empty_cache()
+    want = {"conv1_pool": S, "gru_fwd": 2 * S, "gru_bwd": 2 * S, "conv1_pool_bwd": S}
+    print(f"  LipNet replayed epoch ({S} replays, no capture): kernels by profiler name "
+          f"{replayed['lipnet']} (expected at least {want})", flush=True)
+    if any(replayed["lipnet"][k] < n for k, n in want.items()):
+        raise SystemExit("a LipNet kernel did not run inside the graph's replays")
+
+    # -- detector, B=32, bank of 256 clips -------------------------------------
+    dcfg = AvsyncConfig(model=ModelConfig(fused_conv_pool=True),
+                        audio=AudioConfig(use_pallas=True),
+                        detector=DetectorConfig(batch_size=32), train=TrainConfig(seed=4))
+    lipnet = LipNet(dcfg.model, generator=torch.Generator().manual_seed(6)).to(dev).eval()
+    bank = cli._build_bank(dcfg, src, lipnet, src.video_paths, dev)
+    bank = FeatureBank(*(torch.cat([t] * 4).contiguous() for t in bank))
+    n = bank.visual.shape[0]
+    dim = bank.visual.shape[1] + 2 * dcfg.audio.n_mfcc
+    S = 2 * n // 32
+    runs = {}
+    for path in ("graph", "loop"):
+        trainer = DetectorTrainer(dcfg, device=dev, log=quiet)
+        trainer._force_loop = path == "loop"
+        state = trainer.init_state(dim)
+        zero_counts()
+        ms = [trainer.run_epoch(state, bank, n, seed=e)[1] for e in (1, 2)]
+        ms.append(trainer.run_epoch(state, bank, n, seed=99, train=False)[1])
+        torch.cuda.synchronize()
+        runs[path] = (trainer, state, ms, counts())
+    (tg, sg, mg, cg), (tl, sl, ml, cl) = runs["graph"], runs["loop"]
+    same_state(sg, sl, "detector")
+    want = program_wrapper_calls(S, 2) + program_wrapper_calls(S, 1)  # train, eval programs
+    if cg["mel_stats"] != want:
+        raise SystemExit(f"detector epoch programs: {cg['mel_stats']} K5 wrapper calls, not "
+                         f"{want} (warm-up and one capture per program)")
+    for a, b in zip(mg, ml):
+        if a["loss"] != b["loss"] or not np.array_equal(a["probs"], b["probs"]):
+            raise SystemExit("detector: epoch losses or probabilities differ")
+    print(f"  detector B=32 S={S}: 2 train epochs + 1 eval epoch, graph vs eager loop: "
+          f"parameters, Adam state, epoch losses and {len(mg[0]['probs'])} probabilities per "
+          f"epoch equal bit for bit (val loss {mg[2]['loss']:.6f}, auc {mg[2]['auc']:.4f}); "
+          f"wrapper calls graph {cg}, loop {cl}", flush=True)
+    out["detector"]["wrapper_calls_graph_path"] = cg
+    for path, (trainer, state, _, _) in runs.items():
+        stamps = timed_before(trainer)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for e in (3, 4, 5):
+            trainer.run_epoch(state, bank, n, seed=e)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        gaps = list(stamps)
+        _, twall, busy, found, _ = traced(lambda: trainer.run_epoch(state, bank, n, seed=6))
+        row = path_times(f"detector train {path} path (3 epochs timed, 1 traced)", S, wall / 3,
+                         twall, busy, gaps)
+        t0 = time.perf_counter()
+        for e in (3, 4, 5):
+            trainer.run_epoch(state, bank, n, seed=100 + e, train=False)
+        torch.cuda.synchronize()
+        ewall = (time.perf_counter() - t0) * 1e3 / 3
+        _, etwall, ebusy, efound, _ = traced(
+            lambda: trainer.run_epoch(state, bank, n, seed=106, train=False))
+        erow = path_times(f"detector eval {path} path (3 epochs timed, 1 traced; no host "
+                          f"stamp: eval steps draw no dropout)", S, ewall, etwall, ebusy, [])
+        print(f"    kernels in the traced train epoch {found}, eval epoch {efound}", flush=True)
+        out["detector"][path] = {"train": row, "eval": erow}
+        if path == "graph":
+            replayed["detector_train"], replayed["detector_eval"] = found, efound
+    same_state(runs["graph"][1], runs["loop"][1], "detector after 6 epochs")
+    print(f"  detector replayed epochs ({S} replays each): mel_stats by profiler name train "
+          f"{replayed['detector_train']['mel_stats']}, eval "
+          f"{replayed['detector_eval']['mel_stats']} (expected {S} each; conv1_pool runs "
+          f"in the bank build, before the programs: "
+          f"{replayed['detector_train']['conv1_pool']} in the replays)", flush=True)
+    if min(replayed["detector_train"]["mel_stats"],
+           replayed["detector_eval"]["mel_stats"]) < S:
+        raise SystemExit("K5 did not run inside the detector graphs' replays")
+    del runs
+    torch.cuda.empty_cache()
+    return out, replayed
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "avsync_torch", "csrc")):
         print("chip_smoke: run from a checkout of the repository (avsync_torch/ missing)",
@@ -1284,14 +1611,22 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         trained = run_training(dev, workdir)
         detector = run_detector_training(dev, workdir)
+        programs, replayed = run_epoch_programs(dev, workdir)
     for k in (k1, k2, k3, k4):
         k["launches"] = trained[k["name"]]
     k5["launches"], k5["launches_serving"] = detector["mel_stats"], served["mel_stats"]
     k1["launches_detector"] = detector["conv1_pool"]
     k1["launches_detector_serving"] = served["conv1_pool"]
+    for k in (k1, k2, k3, k4):
+        k["launches_graph_replay_lipnet_epoch"] = replayed["lipnet"][k["name"]]
+    k1["launches_graph_replay_detector_epoch"] = replayed["detector_train"]["conv1_pool"]
+    k5["launches_graph_replay_detector_epoch"] = {
+        "train": replayed["detector_train"]["mel_stats"],
+        "eval": replayed["detector_eval"]["mel_stats"]}
     for k in (k1, k2, k3, k4, k5):
         if not k["launches"] or k.get("launches_serving") == 0:
             raise SystemExit(f"{k['name']} was not launched on its main path")
+    print(f"epoch programs: {json.dumps(programs)}", flush=True)
 
     print("kernels: K1 conv1_pool_fused (avsync/ops/pallas/convpool.py:100)=ported+checked; "
           "K2 pallas_gru_scan (avsync/ops/pallas/gru.py:357)=ported+checked; "

@@ -42,6 +42,9 @@ def test_every_module_imports_without_jax_or_avsync():
     assert {"avsync_torch.ops.audio", "avsync_torch.ops.audio_ref", "avsync_torch.ops.cuda.mfcc",
             "avsync_torch.models.detector", "avsync_torch.features",
             "avsync_torch.train.detector_trainer"} <= set(loaded)
+    assert {"avsync_torch.data.synthetic", "avsync_torch.data.tooling",
+            "avsync_torch.utils.profiling", "avsync_torch.utils.flops",
+            "avsync_torch.train.epoch_program", "avsync_torch.ops.ctc"} <= set(loaded)
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix() for p in

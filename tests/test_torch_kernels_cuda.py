@@ -407,3 +407,75 @@ def test_mel_stats_refuses_what_the_kernel_does_not_take(dev):
                        torch.rand(128, 20, device=dev))
     with pytest.raises(ValueError, match="int32"):
         mfcc.mel_stats(torch.rand(1, 3, 60000, device=dev), n.long(), melT, dctT)
+
+
+# ---------------------------------------------------------------------------
+# under CUDA-graph capture (the trainers' epoch programs replay them)
+# ---------------------------------------------------------------------------
+
+def _graph_case(name, dev, seed):
+    """(wrapper, inputs) at the main paths' shapes: K1-K4 at B=8, T=75 of
+    the LipNet step, K5 at a detector step's B=32, F=121."""
+    g = _gen(seed)
+    B, T, H = 8, 75, 256
+    if name in ("conv1_pool", "conv1_pool_bwd"):
+        x = torch.rand(B, T, 50, 100, 1, generator=g)
+        k = torch.randn(3, 5, 5, 1, 32, generator=g) * 0.2
+        b = torch.randn(32, generator=g) * 0.1
+        if name == "conv1_pool":
+            return convpool.conv1_pool_fused, [t.to(dev) for t in (x, k, b)]
+        cot = torch.randn(B, T, 25, 50, 32, generator=g)
+        return convpool.conv1_pool_bwd, [t.to(dev) for t in (x, k, b, cot)]
+    if name in ("gru_fwd", "gru_bwd"):
+        gi = [torch.randn(B, T, 3 * H, generator=g) for _ in range(2)]
+        w = [torch.randn(H, 3 * H, generator=g) / H ** 0.5 for _ in range(2)]
+        bh = [torch.randn(3 * H, generator=g) * 0.1 for _ in range(2)]
+        args = [t.to(dev) for t in (*gi, *w, *bh)]
+        if name == "gru_fwd":
+            return gru.bigru_recurrence, args
+        out = gru.bigru_recurrence(*args)
+        cot = torch.randn(B, T, 2 * H, generator=g).to(dev)
+        return gru.bigru_recurrence_bwd, [args[0], args[1], out, cot, *args[2:]]
+    power, n, melT, dctT = _mel_case(g, dev, 32, 121, 16000, 2048, 128, 20, False)
+    return mfcc.mel_stats, [power, n, melT, dctT]
+
+
+@pytest.mark.parametrize("name", ["conv1_pool", "gru_fwd", "gru_bwd", "conv1_pool_bwd",
+                                  "mel_stats"])
+def test_wrapper_replayed_from_a_cuda_graph_equals_eager(dev, name):
+    """Each wrapper captured once (after a warm-up launch on the capture
+    stream), then replayed on two sets of inputs copied into the captured
+    ones: the same bits as an eager launch on those inputs. A replay passes
+    through no wrapper, so the launch counter sees the eager calls only."""
+    fn, static = _graph_case(name, dev, 30)
+    if name == "mel_stats":
+        later = [_graph_case(name, dev, s)[1] for s in (31, 32)]
+        for case in later:
+            case[2], case[3] = static[2], static[3]  # one filterbank, as audio_stats
+    else:
+        later = [_graph_case(name, dev, s)[1] for s in (31, 32)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn(*static)
+    captured = captured if isinstance(captured, tuple) else (captured,)
+    counter = {"conv1_pool": "launches", "gru_fwd": "launches", "gru_bwd": "bwd_launches",
+               "conv1_pool_bwd": "bwd_launches", "mel_stats": "launches"}[name]
+    module = {"conv1_pool": convpool, "conv1_pool_bwd": convpool, "gru_fwd": gru,
+              "gru_bwd": gru, "mel_stats": mfcc}[name]
+    for inputs in later:
+        for s, x in zip(static, inputs):
+            s.copy_(x)
+        before = getattr(module, counter)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert getattr(module, counter) == before
+        want = fn(*inputs)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        for got, ref in zip(captured, want):
+            assert torch.equal(got, ref)

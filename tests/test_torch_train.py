@@ -204,6 +204,31 @@ def test_tf32_is_off_inside_the_backward():
     assert after == (True, True)  # the step's scope restores the caller's flags
 
 
+@pytest.mark.parametrize("deterministic", [False, True])
+def test_cudnn_determinism_inside_the_backward_is_the_callers(deterministic):
+    """train_step turns TF32 off but leaves `cudnn.deterministic` as the
+    caller set it: on the card cuDNN's default algorithms for the conv
+    backward sum in a run-dependent order, and a caller that wants
+    reproducible runs (or a graph equal to its loop bit for bit) sets it."""
+    seen = []
+    model = LipNet(ModelConfig(**TINY), img_hw=(16, 32), generator=torch.Generator().manual_seed(0))
+
+    def on_conv2_output(mod, inp, out):
+        out.register_hook(lambda g: seen.append(torch.backends.cudnn.deterministic))
+
+    model.conv2.register_forward_hook(on_conv2_output)
+    r = np.random.default_rng(4)
+    batch = {"video": torch.from_numpy(r.random((2, 6, 16, 32, 1)).astype(np.float32)),
+             "labels": torch.tensor([[3, 5, 0], [7, 0, 0]]), "label_lengths": torch.tensor([2, 1])}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        train_step(model, make_optimizer(model.parameters()), batch, 1e-4)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    assert seen == [deterministic]
+
+
 def test_dropout_masks_come_from_the_given_generator():
     cfg = dataclasses.replace(ModelConfig(**TINY), dropout_rate=0.5)
     model = LipNet(cfg, img_hw=(16, 32), generator=torch.Generator().manual_seed(0))
