@@ -1,18 +1,21 @@
 """Command line of the port (port of `avsync/cli.py`: train, test, infer,
-misalign-train, misalign-eval).
+export, serve, misalign-train, misalign-eval).
 
     python -m avsync_torch.cli train --data_path data --epochs 50 --export_pth lipnet.pth
-    python -m avsync_torch.cli test --data_path data --checkpoint lipnet.pth
-    python -m avsync_torch.cli infer clip.npy --checkpoint lipnet.pth
+    python -m avsync_torch.cli test --data_path data --checkpoint lipnet.pth [--beam 4]
+    python -m avsync_torch.cli infer clip.npy --checkpoint lipnet.pth [--beam 4]
+    python -m avsync_torch.cli export --checkpoint lipnet.pth --batch_sizes 1,2,4,8
+    python -m avsync_torch.cli serve --checkpoint lipnet.pth --detector_checkpoint det.pth
+    python -m avsync_torch.cli serve --artifact lipnet_serving.zip
     python -m avsync_torch.cli misalign-train --data_path data --checkpoint lipnet.pth
     python -m avsync_torch.cli misalign-eval --data_path data --checkpoint lipnet.pth
 
 Every command runs on the card unless `--device cpu` is given. `train` and
 `test` build the JAX package's default LipNet (or the `--config` JSON's)
 with both LipNet kernel flags on, the `misalign-*` commands with conv1's
-and the MFCC stage's (`fused_conv_pool`, `AudioConfig.use_pallas`), unless
-the config file turns them off; all run with TF32 off for cuDNN and
-cuBLAS, as the JAX reference computes in fp32.
+and the MFCC stage's (`fused_conv_pool`, `AudioConfig.use_pallas`), `serve`
+and `export` with all three, unless the config file turns them off; all run
+with TF32 off for cuDNN and cuBLAS, as the JAX reference computes in fp32.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import itertools
 import json
 import os
 import sys
+import time
 from typing import List, Optional, Sequence
 
 from avsync_torch.config import AudioConfig, AvsyncConfig, ModelConfig
@@ -74,9 +78,10 @@ def _no_tf32() -> None:
 
 
 def _evaluate(model, cfg: AvsyncConfig, batcher, source, out_json: str, device,
-              num_print: int = 5) -> dict:
-    """Greedy-decode the split, print a few samples, write CER/WER/accuracy
-    JSON (`utils.py:38-86`, `train.py:916-942`)."""
+              num_print: int = 5, beam_width: int = 0) -> dict:
+    """Decode the split (greedy, or beam search for beam_width > 1), print a
+    few samples, write CER/WER/accuracy JSON (`utils.py:38-86`,
+    `train.py:916-942`)."""
     from avsync_torch import text as textlib
     from avsync_torch.eval import evaluate_transcripts
     from avsync_torch.train.lipnet_trainer import device_batch, eval_step
@@ -86,7 +91,7 @@ def _evaluate(model, cfg: AvsyncConfig, batcher, source, out_json: str, device,
     targets: List[str] = []
     for batch in batcher.epoch(shuffle=False, drop_last=False):
         _, log_probs = eval_step(model, device_batch(batch, device))
-        for d in textlib.decode_batch(log_probs[: batch["valid"]]):
+        for d in textlib.decode_batch(log_probs[: batch["valid"]], beam_width=beam_width):
             idx = len(preds)
             preds.append(d)
             targets.append(source.samples[idx].text)
@@ -224,8 +229,6 @@ def cmd_test(args) -> int:
     from avsync_torch.models.lipnet import LipNet
     from avsync_torch.predictor import resolve_device
 
-    if args.beam and args.beam > 1:
-        raise NotImplementedError("beam search is not ported yet")
     _no_tf32()
     cfg = _config_from_args(args)
     device = resolve_device(args.device)
@@ -237,17 +240,18 @@ def cmd_test(args) -> int:
     model.load_state_dict(_load_state_dict(args.checkpoint))
     model.to(device)
     _evaluate(model, cfg, LipNetBatcher(src, cfg, device=device), src,
-              args.output or "test_results.json", device)
+              args.output or "test_results.json", device, beam_width=args.beam)
     return 0
 
 
 def cmd_infer(args) -> int:
     from avsync_torch.predictor import LipReader
-    from avsync_torch.text import parse_align_text
+    from avsync_torch.text import decode_batch, parse_align_text
 
     reader = LipReader(checkpoint=args.checkpoint, config=_config(args.config),
                        device=args.device)
-    pred = reader.predict(args.video)
+    log_probs = reader._logprobs(reader._prepare(reader._load(args.video)))
+    pred = decode_batch(log_probs, beam_width=args.beam)[0]
     print(f"Predicted: {pred}")
     base = os.path.splitext(args.video)[0]
     for ext in (".align", ".txt"):
@@ -255,6 +259,147 @@ def cmd_infer(args) -> int:
             with open(base + ext) as f:
                 print(f"Ground truth: {parse_align_text(f.read())}")
             break
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# export / serve
+# ---------------------------------------------------------------------------
+
+def _serving_config(args) -> AvsyncConfig:
+    """The `--config` JSON, or the defaults with the three kernel flags of the
+    serving paths on (K1 `fused_conv_pool`, K2 `use_pallas_gru`, K5
+    `AudioConfig.use_pallas`)."""
+    if args.config:
+        return _config(args.config)
+    return AvsyncConfig(model=ModelConfig(use_pallas_gru=True, fused_conv_pool=True),
+                        audio=AudioConfig(use_pallas=True))
+
+
+def cmd_export(args) -> int:
+    """Trace the serving computation (preprocess, forward and greedy decode,
+    or the sync-scoring pipeline; weights baked in) into one artifact through
+    torch.export (avsync_torch/export.py)."""
+    from avsync_torch.export import export_sync_scorer, export_transcriber
+
+    _no_tf32()
+    cfg = _serving_config(args)
+    geom = None
+    if args.frame_geometry:
+        h, w = (int(v) for v in args.frame_geometry.lower().split("x"))
+        geom = (h, w)
+    buckets = None
+    if args.batch_sizes:
+        try:
+            buckets = [int(v) for v in args.batch_sizes.split(",")]
+        except ValueError:
+            raise SystemExit("--batch_sizes must be a comma-separated list of positive ints, "
+                             f"got {args.batch_sizes!r}") from None
+        if any(b <= 0 for b in buckets):
+            raise SystemExit(f"--batch_sizes entries must be positive, got {args.batch_sizes!r}")
+    if args.detector_checkpoint:
+        art = export_sync_scorer(args.detector_checkpoint, args.checkpoint, cfg,
+                                 num_shifts=args.shifts_per_request, frame_geometry=geom,
+                                 device=args.device, batch_sizes=buckets)
+    else:
+        art = export_transcriber(args.checkpoint, cfg, frame_geometry=geom, device=args.device,
+                                 batch_sizes=buckets)
+    art.save(args.out)
+    m = art.meta
+    bdesc = "b symbolic" if art.batch_sizes is None else f"static buckets {art.batch_sizes}"
+    print(f"exported {args.out}: kind={m['kind']} family={m['family']} frames=(b, "
+          f"{m['frame_shape'][0]}, {m['frame_shape'][1]}, {m['frame_shape'][2]}) uint8 "
+          f"({bdesc}), roi={m['roi']}, device={m['device']}")
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """The serving daemon: a LipReader (and a MisalignmentScorer), or
+    exported artifacts, behind dynamic batchers and the HTTP surface
+    (avsync_torch/serving.py)."""
+    from avsync_torch.serving import (ArtifactSyncScoreService, ArtifactTranscribeService,
+                                      AvsyncServer, SyncScoreService, TranscribeService)
+
+    _no_tf32()
+    if args.artifact:
+        if args.checkpoint or args.detector_checkpoint:
+            raise SystemExit("--artifact serves the exported program; do not also pass "
+                             "--checkpoint/--detector_checkpoint (bake them in with `export`)")
+        if args.quantize or args.qscales or args.dp != 1:
+            raise SystemExit("--quantize/--qscales/--dp do not apply to --artifact serving: "
+                             "the artifact's computation is fixed at export time")
+        from avsync_torch.export import load_exported
+
+        transcriber = scorer = None
+        for path in args.artifact:
+            art = load_exported(path)
+            kind = art.meta.get("kind", "transcriber")
+            if kind == "transcriber" and transcriber is None:
+                transcriber = ArtifactTranscribeService(art, max_batch=args.max_batch,
+                                                        max_wait_ms=args.max_wait_ms)
+            elif kind == "sync_scorer" and scorer is None:
+                scorer = ArtifactSyncScoreService(art, max_batch=args.max_batch,
+                                                  max_wait_ms=args.max_wait_ms)
+            elif kind in ("transcriber", "sync_scorer"):
+                raise SystemExit(f"two {kind} artifacts given")
+            else:
+                raise SystemExit(f"unknown artifact kind {kind!r} in {path}")
+            print(f"loaded artifact {path}: kind={kind} device={art.meta['device']}", flush=True)
+        services = [svc.warmup for svc in (transcriber, scorer) if svc is not None]
+        label = "avsync_torch artifact serving"
+    else:
+        if not args.checkpoint:
+            raise SystemExit("need --checkpoint (live) or --artifact (exported)")
+        if args.dp != 1:
+            raise NotImplementedError("--dp: multi-device serving is not ported yet "
+                                      "(ROADMAP §1 item 14)")
+        if args.quantize or args.qscales:
+            raise NotImplementedError("--quantize/--qscales: int8 serving is not ported yet "
+                                      "(ROADMAP §1 item 12)")
+        from avsync_torch.predictor import LipReader, MisalignmentScorer
+
+        cfg = _serving_config(args)
+        transcriber = TranscribeService(
+            LipReader(checkpoint=args.checkpoint, config=cfg, device=args.device),
+            max_batch=args.max_batch, max_wait_ms=args.max_wait_ms, transport=args.transport)
+        scorer = None
+        if args.detector_checkpoint:
+            scorer = SyncScoreService(
+                MisalignmentScorer(args.detector_checkpoint, args.checkpoint, config=cfg,
+                                   device=args.device),
+                max_batch=args.max_batch, max_wait_ms=args.max_wait_ms)
+        services = [svc.warmup for svc in (transcriber, scorer) if svc is not None]
+        label = "avsync_torch serving"
+    if args.warmup:
+        t0 = time.time()
+        for warm in services:
+            warm()
+        print(f"warmup: batch buckets 1..{args.max_batch} in {time.time() - t0:.1f}s",
+              flush=True)
+    server = AvsyncServer(transcriber, scorer, host=args.host, port=args.port,
+                          max_body_bytes=args.max_body_mb * 1024 * 1024)
+    host, port = server.address[0], server.address[1]
+    print(f"{label} on http://{host}:{port} (max_batch={args.max_batch}, "
+          f"max_wait_ms={args.max_wait_ms})", flush=True)
+    print("endpoints: GET /healthz /v1/stats; POST /v1/transcribe /v1/sync_score", flush=True)
+    return _serve_loop(server)
+
+
+def _serve_loop(server) -> int:
+    import signal
+
+    def _term(signum, frame):  # SIGTERM takes the same graceful path as ^C
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, _term)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        print("\nshutting down", flush=True)
+        # a repeated SIGTERM (supervisors resend) must not abort the drain;
+        # a second ^C still force-quits
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        server.shutdown()
     return 0
 
 
@@ -604,7 +749,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help=".pth file or a port checkpoint directory")
     te.add_argument("--output", type=str, default=None)
     te.add_argument("--beam", type=int, default=0,
-                    help="CTC beam width (0 = greedy; beam search is not ported)")
+                    help="CTC beam width (0 = greedy, the reference decode)")
     te.set_defaults(func=cmd_test)
 
     inf = sub.add_parser("infer", help="transcribe one .npy clip")
@@ -613,7 +758,59 @@ def build_parser() -> argparse.ArgumentParser:
     inf.add_argument("--config", default=None, help="AvsyncConfig JSON file")
     inf.add_argument("--device", default=None,
                      help="torch device; default: the GPU (fails without one)")
+    inf.add_argument("--beam", type=int, default=0,
+                     help="CTC beam width (0 = greedy, the reference decode)")
     inf.set_defaults(func=cmd_infer)
+
+    ex = sub.add_parser("export", help="serving artifact through torch.export (preprocess, "
+                                       "forward and CTC decode, weights baked in)")
+    common(ex)
+    ex.add_argument("--checkpoint", type=str, required=True, help="reference LipNet .pth")
+    ex.add_argument("--out", type=str, default="lipnet_serving.zip",
+                    help="the artifact: a zip of torch.export programs and their meta")
+    ex.add_argument("--frame_geometry", type=str, default=None,
+                    help="HxW of the client's frames; default: the model's geometry "
+                         "(pre-cropped clips); any other bakes the heuristic mouth ROI in")
+    ex.add_argument("--detector_checkpoint", type=str, default=None,
+                    help="export the sync-scoring pipeline (this detector and the "
+                         "--checkpoint LipNet) instead of the transcriber")
+    ex.add_argument("--shifts_per_request", type=int, default=1,
+                    help="K of the sync-scorer artifact (static per program)")
+    ex.add_argument("--batch_sizes", type=str, default=None,
+                    help="comma-separated static batch buckets (e.g. '1,2,4,8'): one static "
+                         "program per size instead of one with a symbolic batch")
+    ex.set_defaults(func=cmd_export)
+
+    sv = sub.add_parser("serve", help="HTTP serving daemon with dynamic batching")
+    common(sv)
+    sv.add_argument("--checkpoint", type=str, default=None, help="reference LipNet .pth")
+    sv.add_argument("--detector_checkpoint", type=str, default=None,
+                    help="also serve /v1/sync_score from this detector")
+    sv.add_argument("--artifact", action="append", default=None,
+                    help="serve from an `export` artifact instead of a checkpoint (repeat for "
+                         "a transcriber and a sync scorer); no model code is loaded")
+    sv.add_argument("--host", type=str, default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=8777, help="0: a free port the OS chooses")
+    sv.add_argument("--max_batch", type=int, default=8,
+                    help="dynamic batching: max rows per device batch")
+    sv.add_argument("--max_wait_ms", type=float, default=10.0,
+                    help="dynamic batching: max extra latency a lone request waits for "
+                         "batchmates")
+    sv.add_argument("--max_body_mb", type=int, default=256,
+                    help="refuse request bodies larger than this (413) before reading them")
+    sv.add_argument("--dp", type=int, default=1,
+                    help="data-parallel serving over N devices; only 1 is ported")
+    sv.add_argument("--quantize", choices=["int8"], default=None,
+                    help="int8 conv stack; not ported (raises)")
+    sv.add_argument("--qscales", type=str, default=None,
+                    help="int8 calibration scales; not ported (raises)")
+    sv.add_argument("--warmup", action="store_true",
+                    help="run every batch bucket before binding the port (kernel builds, "
+                         "cuDNN plans) so the first request pays steady-state latency")
+    sv.add_argument("--transport", choices=["raw", "f32"], default="raw",
+                    help="'raw' ships uint8 frames and preprocesses each batch on the device; "
+                         "'f32' preprocesses per request")
+    sv.set_defaults(func=cmd_serve)
 
     def detector_inputs(sp):
         sp.add_argument("--checkpoint", type=str, default="lipnet_final.pth",

@@ -88,3 +88,24 @@ def load_audio_for_video(video_path: str, fallback_sr: int = 16000) -> Tuple[np.
         return load_wav(wav_path)
     warnings.warn(f"no audio source for {video_path} (no sibling .wav); returning silence")
     return np.zeros(0, np.float32), fallback_sr
+
+
+def decode_frames(video_path: str, max_frames: Optional[int] = None) -> np.ndarray:
+    """(T, H, W) uint8 frames of a clip; raises for a clip with none."""
+    frames = decode_video_gray(video_path, max_frames=max_frames)
+    if frames.size == 0:
+        raise ValueError(f"no frames decoded from {video_path}")
+    return frames
+
+
+def decode_av(video_path: str, cfg) -> Tuple[np.ndarray, np.ndarray, float]:
+    """(frames, mono audio at the configured rate, fps) of a clip on the
+    host, as an `AvsyncConfig` sets them (frame count, sample rate, the fps
+    of a clip that carries none)."""
+    from avsync_torch.ops.audio import resample_host
+
+    frames = decode_frames(video_path, cfg.data.max_video_length)
+    audio, sr = load_audio_for_video(video_path, cfg.audio.sample_rate)
+    if sr != cfg.audio.sample_rate:
+        audio = resample_host(audio, sr, cfg.audio.sample_rate)
+    return frames, audio, get_video_fps(video_path, cfg.detector.default_fps)

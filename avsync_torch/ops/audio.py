@@ -48,7 +48,11 @@ def _constants(sr: int, n_fft: int, n_mels: int, n_mfcc: int, fmin: float,
 
 @functools.lru_cache(maxsize=16)
 def _device_constants_cached(key: tuple, device: torch.device):
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in _constants(*key))
+    # made outside inference mode whatever the first caller's mode: a cached
+    # inference tensor would refuse later autograd and version checks
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                     for a in _constants(*key))
 
 
 def device_constants(cfg: AudioConfig, device) -> Tuple[torch.Tensor, ...]:
@@ -62,9 +66,12 @@ def num_frames(n_samples: int, hop_length: int) -> int:
     return 1 + n_samples // hop_length
 
 
-def power_spectrogram(audio: torch.Tensor, cfg: AudioConfig = AudioConfig()) -> torch.Tensor:
-    """(B, S) -> (B, F, 1 + n_fft//2) power spectrogram (centered, zero pad)."""
-    _, _, win = device_constants(cfg, audio.device)
+def power_spectrogram(audio: torch.Tensor, cfg: AudioConfig = AudioConfig(),
+                      consts=None) -> torch.Tensor:
+    """(B, S) -> (B, F, 1 + n_fft//2) power spectrogram (centered, zero pad).
+    `consts`: `device_constants(cfg, device)` when the caller holds them (an
+    exported program, as buffers)."""
+    _, _, win = consts or device_constants(cfg, audio.device)
     pad = cfg.n_fft // 2
     frames = torch.nn.functional.pad(audio, (pad, pad)).unfold(-1, cfg.n_fft, cfg.hop_length)
     spec = torch.fft.rfft(frames * win, dim=-1)
@@ -79,9 +86,10 @@ def mfcc_frames(audio: torch.Tensor, lengths: torch.Tensor,
 
 
 def mfcc_from_power(power: torch.Tensor, lengths: torch.Tensor,
-                    cfg: AudioConfig = AudioConfig()) -> Tuple[torch.Tensor, torch.Tensor]:
+                    cfg: AudioConfig = AudioConfig(),
+                    consts=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """`mfcc_frames` after the FFT: (B, F, K) power -> (MFCCs, valid mask)."""
-    melT, dctT, _ = device_constants(cfg, power.device)
+    melT, dctT, _ = consts or device_constants(cfg, power.device)
     F = power.shape[1]
     log_spec = 10.0 * torch.log10(torch.clamp(torch.einsum("bfk,km->bfm", power, melT),
                                               min=_AMIN))
@@ -94,10 +102,10 @@ def mfcc_from_power(power: torch.Tensor, lengths: torch.Tensor,
 
 
 def stats_from_power(power: torch.Tensor, lengths: torch.Tensor,
-                     cfg: AudioConfig = AudioConfig()) -> torch.Tensor:
+                     cfg: AudioConfig = AudioConfig(), consts=None) -> torch.Tensor:
     """The `use_pallas=False` path after the FFT (the JAX package's XLA
     path): two fp32 einsums, the masked top_db clamp, masked mean and std."""
-    mfcc, valid = mfcc_from_power(power, lengths, cfg)
+    mfcc, valid = mfcc_from_power(power, lengths, cfg, consts)
     vm = valid[..., None].to(mfcc.dtype)
     n = vm.sum(dim=1)  # (B, 1)
     mean = (mfcc * vm).sum(dim=1) / n.clamp(min=1.0)
@@ -107,17 +115,18 @@ def stats_from_power(power: torch.Tensor, lengths: torch.Tensor,
 
 
 def audio_stats(audio: torch.Tensor, lengths: torch.Tensor,
-                cfg: AudioConfig = AudioConfig()) -> torch.Tensor:
+                cfg: AudioConfig = AudioConfig(), consts=None) -> torch.Tensor:
     """(B, S), (B,) -> (B, 2*n_mfcc): concat(mean, unbiased std) over the
     valid MFCC frames (torch.mean/torch.std at
-    `misalignment_detection_train.py:124-127`); zeros for empty audio."""
-    power = power_spectrogram(audio, cfg)
+    `misalignment_detection_train.py:124-127`); zeros for empty audio.
+    `consts` as for `power_spectrogram`."""
+    power = power_spectrogram(audio, cfg, consts)
     if cfg.use_pallas:
-        melT, dctT, _ = device_constants(cfg, audio.device)
+        melT, dctT, _ = consts or device_constants(cfg, audio.device)
         lengths = lengths.to(torch.int32)
         n_valid = torch.where(lengths > 0, 1 + lengths // cfg.hop_length, 0).to(torch.int32)
         return mel_stats(power, n_valid, melT, dctT, top_db=cfg.top_db)
-    return stats_from_power(power, lengths, cfg)
+    return stats_from_power(power, lengths, cfg, consts)
 
 
 def shift_samples_for_frames(shift_frames: torch.Tensor, fps: torch.Tensor,
@@ -146,11 +155,12 @@ def shift_audio(audio: torch.Tensor, lengths: torch.Tensor,
 
 
 def shifted_audio_stats(audio: torch.Tensor, lengths: torch.Tensor, shift_frames: torch.Tensor,
-                        fps: torch.Tensor, cfg: AudioConfig = AudioConfig()) -> torch.Tensor:
+                        fps: torch.Tensor, cfg: AudioConfig = AudioConfig(),
+                        consts=None) -> torch.Tensor:
     """Shift -> MFCC -> statistics for a batch of (clip, shift) pairs, on
     the device (`misalignment_detection_train.py:199-206`)."""
     s = shift_samples_for_frames(shift_frames, fps, cfg.sample_rate)
-    return audio_stats(shift_audio(audio, lengths, s), lengths, cfg)
+    return audio_stats(shift_audio(audio, lengths, s), lengths, cfg, consts)
 
 
 def resample_host(y: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:

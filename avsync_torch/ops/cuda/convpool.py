@@ -12,10 +12,13 @@ gradient: CUDA kernels and their plain twins.
     `bwd_launches`;
   * `Conv1Pool`, the autograd Function around both that the model's fused
     conv1 block calls (the JAX package's `custom_vjp`,
-    `convpool.py:154-196`).
+    `convpool.py:154-196`). Its forward is the operator
+    `avsync_torch::conv1_pool` (`conv1_pool_op`), so that `torch.export`
+    traces the block as one node and an exported program launches K1.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel or
-raises. The counters count kernel launches only.
+raises (for the operator, the dispatcher chooses by the tensor's device).
+The counters count kernel launches only.
 
 The plain versions accumulate the taps with `addcmul_` in the kernels' order
 (taps dt, dh, dw from zero, then the bias). On the card that is one fused
@@ -209,19 +212,10 @@ def conv1_pool_fused(x: torch.Tensor, kernel: torch.Tensor,
                     out.stride(4)), B, T, H, W, kt, kh, kw, C)
 
 
-def _block_forward(x: torch.Tensor, weight: torch.Tensor,
-                   bias: torch.Tensor) -> torch.Tensor:
-    """NCDHW forward, no autograd: K1 on the card, the plain version on the CPU."""
-    B, cin, T, H, W = x.shape
-    C, kcin, kt, kh, kw = weight.shape
-    if cin != 1 or kcin != 1:
-        raise ValueError("conv1_pool is specialised to one input channel")
-    _check_geometry(kt, kh, kw, H, W, C)
-    if x.device.type == "cpu":
-        y = conv1_pool_ref(x.permute(0, 2, 3, 4, 1), weight.permute(2, 3, 4, 1, 0), bias)
-        return y.permute(0, 4, 1, 2, 3).contiguous()
-    if x.device.type != "cuda":
-        raise ValueError(f"conv1_pool: unsupported device {x.device}")
+def _conv1_pool_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The NCDHW forward on the card: one K1 launch."""
+    B, _, T, H, W = x.shape
+    C, _, kt, kh, kw = weight.shape
     if not weight.is_contiguous():
         raise ValueError("conv1_pool: weight must be contiguous")
     out = torch.empty(B, C, T, H // 2, W // 2, device=x.device, dtype=torch.float32)
@@ -229,6 +223,39 @@ def _block_forward(x: torch.Tensor, weight: torch.Tensor,
                    weight, (1, kt * kh * kw), bias, out,
                    (out.stride(0), out.stride(2), out.stride(3), out.stride(4),
                     out.stride(1)), B, T, H, W, kt, kh, kw, C)
+
+
+# The NCDHW forward as an operator, so that `torch.export` traces it as one
+# node and an exported program calls it: K1 for CUDA tensors, the plain
+# version for CPU ones.
+conv1_pool_op = torch.library.custom_op("avsync_torch::conv1_pool", _conv1_pool_cuda,
+                                        mutates_args=(), device_types="cuda")
+
+
+@conv1_pool_op.register_kernel("cpu")
+def _conv1_pool_cpu(x, weight, bias):
+    y = conv1_pool_ref(x.permute(0, 2, 3, 4, 1), weight.permute(2, 3, 4, 1, 0), bias)
+    return y.permute(0, 4, 1, 2, 3).contiguous()
+
+
+@conv1_pool_op.register_fake
+def _conv1_pool_fake(x, weight, bias):
+    B, _, T, H, W = x.shape
+    return x.new_empty(B, weight.shape[0], T, H // 2, W // 2)
+
+
+def _block_forward(x: torch.Tensor, weight: torch.Tensor,
+                   bias: torch.Tensor) -> torch.Tensor:
+    """NCDHW forward, no autograd, through `conv1_pool_op`: K1 on the card,
+    the plain version on the CPU."""
+    _, cin, _, H, W = x.shape
+    C, kcin, kt, kh, kw = weight.shape
+    if cin != 1 or kcin != 1:
+        raise ValueError("conv1_pool is specialised to one input channel")
+    _check_geometry(kt, kh, kw, H, W, C)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"conv1_pool: unsupported device {x.device}")
+    return conv1_pool_op(x, weight, bias)
 
 
 # ---------------------------------------------------------------------------

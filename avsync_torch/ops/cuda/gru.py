@@ -13,7 +13,9 @@ CUDA kernels and their plain twins.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel or
 raises. The counters count kernel launches only (the plain versions do not
-count).
+count). The bidirectional forward is the operator `avsync_torch::bigru_fwd`
+(`bigru_fwd_op`; the dispatcher chooses by the tensor's device), so that
+`torch.export` traces it as one node and an exported program launches K2.
 
 The kernels split the hidden units over a cluster of 8 CTAs, so they take H
 in multiples of 8; any other H is zero-padded to the next multiple of 8 in
@@ -171,16 +173,40 @@ def gru_recurrence(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     return _launch((gi,), (w_hh,), (b_hh,), int(reverse))
 
 
+def _bigru_fwd_cuda(gi_f: torch.Tensor, gi_b: torch.Tensor, w_hh_f: torch.Tensor,
+                    w_hh_b: torch.Tensor, b_hh_f: torch.Tensor,
+                    b_hh_b: torch.Tensor) -> torch.Tensor:
+    """Both directions on the card: one K2 launch."""
+    return _launch((gi_f, gi_b), (w_hh_f, w_hh_b), (b_hh_f, b_hh_b), 0b10)
+
+
+# Both directions as an operator, so that `torch.export` traces the
+# recurrence as one node and an exported program calls it: K2 for CUDA
+# tensors, the plain version for CPU ones.
+bigru_fwd_op = torch.library.custom_op("avsync_torch::bigru_fwd", _bigru_fwd_cuda,
+                                       mutates_args=(), device_types="cuda")
+
+
+@bigru_fwd_op.register_kernel("cpu")
+def _bigru_fwd_cpu(gi_f, gi_b, w_hh_f, w_hh_b, b_hh_f, b_hh_b):
+    return torch.cat([gru_recurrence_ref(gi_f, w_hh_f, b_hh_f, False),
+                      gru_recurrence_ref(gi_b, w_hh_b, b_hh_b, True)], dim=-1)
+
+
+@bigru_fwd_op.register_fake
+def _bigru_fwd_fake(gi_f, gi_b, w_hh_f, w_hh_b, b_hh_f, b_hh_b):
+    B, T, threeH = gi_f.shape
+    return gi_f.new_empty(B, T, 2 * (threeH // 3))  # H as given (the launch pads it)
+
+
 def bigru_recurrence(gi_f: torch.Tensor, gi_b: torch.Tensor,
                      w_hh_f: torch.Tensor, w_hh_b: torch.Tensor,
                      b_hh_f: torch.Tensor, b_hh_b: torch.Tensor) -> torch.Tensor:
     """Both directions of a bidirectional layer in one launch: forward on
     (gi_f, w_hh_f, b_hh_f), backward in time on (gi_b, ...). Returns
     (B, T, 2H) = [forward | backward], torch's bidirectional layout."""
-    if not _on_cuda(gi_f):
-        return torch.cat([gru_recurrence_ref(gi_f, w_hh_f, b_hh_f, False),
-                          gru_recurrence_ref(gi_b, w_hh_b, b_hh_b, True)], dim=-1)
-    return _launch((gi_f, gi_b), (w_hh_f, w_hh_b), (b_hh_f, b_hh_b), 0b10)
+    _on_cuda(gi_f)  # refuses other devices
+    return bigru_fwd_op(gi_f, gi_b, w_hh_f, w_hh_b, b_hh_f, b_hh_b)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,9 @@ counted in `launches`. The FFT stays outside (`ops/audio.power_spectrogram`,
 `torch.fft.rfft`), as the JAX package leaves it to XLA.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel or
-raises. The kernel has no gradient (the JAX package defines none: no
+raises (the operator `avsync_torch::mel_stats`, `mel_stats_op`, which
+`torch.export` traces as one node; the dispatcher chooses by the tensor's
+device). The kernel has no gradient (the JAX package defines none: no
 gradient ever reaches the audio), so the wrapper refuses a `power` that
 requires one.
 
@@ -15,7 +17,9 @@ The kernel sums each mel column over its band of nonzero filterbank rows
 only. `_band_table` finds the bands of a `melT` once (on the host, where
 the constants are built) and keeps them beside the tensor, so the default
 filterbank's 2,020 nonzeros of 131,200 are all the kernel reads; a dense
-`melT` (the tests' random ones) gives full-width bands.
+`melT` (the tests' random ones) gives full-width bands. A CUDA graph that
+captured the kernel holds the table's addresses: modifying its `melT` in
+place afterwards rebuilds the table and frees the one the graph reads.
 
 Each clip runs on a cluster of CTAs, each owning a slice of its frames:
 `cluster_grid` chooses the cluster and the slices from (F, K, M, C) alone,
@@ -90,9 +94,12 @@ def _band_table(melT: torch.Tensor):
     bands' weights packed column after column. Built once per tensor (and
     again only if the tensor is modified in place)."""
     key = id(melT)
+    # an inference tensor keeps no version counter (and is modified in place
+    # only inside inference mode)
+    version = None if melT.is_inference() else melT._version
     with _bands_lock:
         hit = _bands.get(key)
-        if hit is not None and hit[0]() is melT and hit[1] == melT._version:
+        if hit is not None and hit[0]() is melT and hit[1] == version:
             return hit[2]
         w = melT.detach().to("cpu", torch.float32).numpy()  # (K, M)
         K, M = w.shape
@@ -110,7 +117,7 @@ def _band_table(melT: torch.Tensor):
                                     (wpack, np.float32)))
         for k in [k for k, v in _bands.items() if v[0]() is None]:
             del _bands[k]
-        _bands[key] = (weakref.ref(melT), melT._version, table)
+        _bands[key] = (weakref.ref(melT), version, table)
         return table
 
 
@@ -170,8 +177,8 @@ def max_frames(K: int, M: int, C: int) -> int:
 def mel_stats(power: torch.Tensor, n_valid: torch.Tensor, melT: torch.Tensor,
               dctT: torch.Tensor, top_db: float = 80.0) -> torch.Tensor:
     """(B, F, K) fp32 power + (B,) int32 valid-frame counts, melT (K, M),
-    dctT (M, C) -> (B, 2C) fp32 MFCC statistics (K5 on the card)."""
-    global launches
+    dctT (M, C) -> (B, 2C) fp32 MFCC statistics (K5 on the card), through
+    the operator `mel_stats_op`."""
     if power.dim() != 3 or melT.dim() != 2 or dctT.dim() != 2:
         raise ValueError("mel_stats: power (B, F, K), melT (K, M), dctT (M, C)")
     B, F, K = power.shape
@@ -182,10 +189,18 @@ def mel_stats(power: torch.Tensor, n_valid: torch.Tensor, melT: torch.Tensor,
                          f"{tuple(dctT.shape)} do not fit together")
     if power.requires_grad:
         raise ValueError("mel_stats has no gradient: pass a power tensor that needs none")
-    if power.device.type == "cpu":
-        return mel_stats_ref(power, n_valid, melT, dctT, top_db)
-    if power.device.type != "cuda":
+    if power.device.type not in ("cpu", "cuda"):
         raise ValueError(f"mel_stats: unsupported device {power.device}")
+    return mel_stats_op(power, n_valid, melT, dctT, float(top_db))
+
+
+def _mel_stats_cuda(power: torch.Tensor, n_valid: torch.Tensor, melT: torch.Tensor,
+                    dctT: torch.Tensor, top_db: float) -> torch.Tensor:
+    """One K5 launch (the band table is built here at the first call with a
+    filterbank: in an exported program, from the one the program holds)."""
+    global launches
+    B, F, K = power.shape
+    M, C = dctT.shape
     dev = power.device
     for name, t, dtype in (("power", power, torch.float32), ("n_valid", n_valid, torch.int32),
                            ("melT", melT, torch.float32), ("dctT", dctT, torch.float32)):
@@ -214,3 +229,19 @@ def mel_stats(power: torch.Tensor, n_valid: torch.Tensor, melT: torch.Tensor,
     build.check("mel_stats", err, "mel_stats launch")
     launches += 1
     return out
+
+
+# K5 as an operator, so that `torch.export` traces it as one node and an
+# exported program launches it; the plain version for CPU tensors.
+mel_stats_op = torch.library.custom_op("avsync_torch::mel_stats", _mel_stats_cuda,
+                                       mutates_args=(), device_types="cuda")
+
+
+@mel_stats_op.register_kernel("cpu")
+def _mel_stats_cpu(power, n_valid, melT, dctT, top_db):
+    return mel_stats_ref(power, n_valid, melT, dctT, top_db)
+
+
+@mel_stats_op.register_fake
+def _mel_stats_fake(power, n_valid, melT, dctT, top_db):
+    return power.new_empty(power.shape[0], 2 * dctT.shape[1])

@@ -7,7 +7,7 @@ per-clip standardization. Everything runs on the device the frames are on.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,13 +26,22 @@ def _linear_coords(out_size: int, in_size: int) -> Tuple[np.ndarray, np.ndarray,
     return x0c, x1c, frac
 
 
-def resize_bilinear(frames: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """Bilinear resize of (..., H, W) float frames to (..., h, w)."""
-    H, W = frames.shape[-2], frames.shape[-1]
-    h, w = out_hw
-    dev = frames.device
-    y0, y1, fy = (torch.as_tensor(a, device=dev) for a in _linear_coords(h, H))
-    x0, x1, fx = (torch.as_tensor(a, device=dev) for a in _linear_coords(w, W))
+def resize_coords(in_hw: Tuple[int, int], out_hw: Tuple[int, int],
+                  device=None) -> Tuple[torch.Tensor, ...]:
+    """(y0, y1, fy, x0, x1, fx) of a bilinear resize from in_hw to out_hw, as
+    tensors on `device` (an exported program holds them as buffers)."""
+    (H, W), (h, w) = in_hw, out_hw
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (*_linear_coords(h, H), *_linear_coords(w, W)))
+
+
+def resize_bilinear(frames: torch.Tensor, out_hw: Tuple[int, int],
+                    coords: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+    """Bilinear resize of (..., H, W) float frames to (..., h, w); `coords`
+    are `resize_coords((H, W), out_hw)`, made here when not given."""
+    if coords is None:
+        coords = resize_coords(frames.shape[-2:], out_hw, frames.device)
+    y0, y1, fy, x0, x1, fx = coords
     fy = fy[:, None]  # (h, 1)
     rows0 = frames[..., y0, :]
     rows1 = frames[..., y1, :]
@@ -49,12 +58,21 @@ def mouth_crop(frames: torch.Tensor,
     return frames[..., r0:, c0:c1]
 
 
+def crop_hw(in_hw: Tuple[int, int],
+            crop: Tuple[float, float, float] = (0.6, 0.3, 0.7)) -> Tuple[int, int]:
+    """(rows, cols) that `mouth_crop` keeps of an (H, W) frame."""
+    H, W = in_hw
+    return H - int(H * crop[0]), int(W * crop[2]) - int(W * crop[1])
+
+
 def preprocess_clips(frames: torch.Tensor, out_hw: Tuple[int, int] = (50, 100),
                      crop: Tuple[float, float, float] = (0.6, 0.3, 0.7),
-                     normalize: bool = True) -> torch.Tensor:
+                     normalize: bool = True,
+                     coords: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
     """(B, T, H, W) raw gray frames (0..255) -> (B, T, h, w, 1) float32:
-    crop -> bilinear resize -> /255 -> channel dim."""
-    x = resize_bilinear(mouth_crop(frames.float(), crop), out_hw)
+    crop -> bilinear resize (`coords`: `resize_coords(crop_hw((H, W)),
+    out_hw)`, made when not given) -> /255 -> channel dim."""
+    x = resize_bilinear(mouth_crop(frames.float(), crop), out_hw, coords)
     if normalize:
         x = x * (1.0 / 255.0)
     return x[..., None]

@@ -21,12 +21,12 @@ from avsync_torch import text as textlib
 from avsync_torch.compat import (conv_shape_for, detector_params_from_jax,
                                  lipnet_params_from_jax, load_detector_pth, load_pth)
 from avsync_torch.config import AvsyncConfig
-from avsync_torch.data.video import decode_video_gray, get_video_fps, load_audio_for_video
+from avsync_torch.data import video as videolib
 from avsync_torch.features import visual_stats
 from avsync_torch.models.detector import MisalignmentDetector
 from avsync_torch.models.lipnet import LipNet
 from avsync_torch.ops import image as imglib
-from avsync_torch.ops.audio import resample_host, shifted_audio_stats
+from avsync_torch.ops.audio import shifted_audio_stats
 from avsync_torch.ops.conv import fp32_step
 
 
@@ -51,17 +51,19 @@ def pad_frames(frames: np.ndarray, cfg: AvsyncConfig) -> np.ndarray:
     return np.concatenate([frames, pad], axis=0)
 
 
-def preprocess(frames: torch.Tensor, cfg: AvsyncConfig) -> torch.Tensor:
+def preprocess(frames: torch.Tensor, cfg: AvsyncConfig, coords=None) -> torch.Tensor:
     """(B, T, H, W) raw frames on the device -> (B, T, h, w, 1) float32 model
     input: the heuristic mouth crop + resize for native-size frames, plain
-    /255 for pre-cropped ones, then per-clip standardization if configured."""
+    /255 for pre-cropped ones, then per-clip standardization if configured.
+    `coords`: the resize's `imglib.resize_coords`, when the caller holds them."""
     d = cfg.data
     target = (d.img_height, d.img_width)
     if tuple(frames.shape[2:]) != target:
         if d.roi_mode != "heuristic":
             raise NotImplementedError(
                 f"roi_mode={d.roi_mode!r}: only the heuristic ROI is ported")
-        out = imglib.preprocess_clips(frames, out_hw=target, crop=d.mouth_crop)
+        out = imglib.preprocess_clips(frames, out_hw=target, crop=d.mouth_crop,
+                                      coords=coords)
     else:
         out = (frames.float() * (1.0 / 255.0))[..., None]
     return imglib.standardize_clips(out) if d.standardize_clips else out
@@ -148,10 +150,7 @@ class LipReader:
         return self._decode(self._logprobs(self._prepare(frames)))[0]
 
     def _load(self, video_path: str) -> np.ndarray:
-        frames = decode_video_gray(video_path, max_frames=self.cfg.data.max_video_length)
-        if frames.size == 0:
-            raise ValueError(f"no frames decoded from {video_path}")
-        return frames
+        return videolib.decode_frames(video_path, self.cfg.data.max_video_length)
 
     def predict(self, video_path: str) -> str:
         return self.predict_frames(self._load(video_path))
@@ -244,16 +243,5 @@ class MisalignmentScorer:
 
     def score(self, video_path: str, shift_frames: int = 0) -> float:
         """Sync probability of a `.npy` clip and its sibling `.wav`."""
-        frames, audio, fps = decode_av(video_path, self.cfg)
+        frames, audio, fps = videolib.decode_av(video_path, self.cfg)
         return float(self.score_arrays(frames, audio, fps, shifts=(shift_frames,))[0])
-
-
-def decode_av(video_path: str, cfg: AvsyncConfig):
-    """(frames, audio at the configured rate, fps) of a clip on the host."""
-    frames = decode_video_gray(video_path, max_frames=cfg.data.max_video_length)
-    if frames.size == 0:
-        raise ValueError(f"no frames decoded from {video_path}")
-    audio, sr = load_audio_for_video(video_path, cfg.audio.sample_rate)
-    if sr != cfg.audio.sample_rate:
-        audio = resample_host(audio, sr, cfg.audio.sample_rate)
-    return frames, audio, get_video_fps(video_path, cfg.detector.default_fps)

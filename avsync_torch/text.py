@@ -5,9 +5,8 @@
   * `.align` / plain-transcript parsing with sil/sp removal;
   * greedy CTC decode: argmax -> drop repeats -> drop blanks -> left-pack,
     batched and fixed-shape, on whatever device the log-probs live on;
-  * `decode_batch` renders the packed indices to strings on the host.
-
-Beam search (`beam_width > 1`) is not ported yet and raises.
+  * `decode_batch` renders the packed indices to strings on the host, or
+    runs CTC prefix beam search there (`beam_width > 1`, `ops/beam.py`).
 """
 
 from __future__ import annotations
@@ -94,9 +93,16 @@ def ctc_greedy_decode(
 
 def decode_batch(log_probs, blank_id: int = BLANK_ID,
                  beam_width: int = 0) -> List[str]:
-    """Decode (B, T, V) log-probs (tensor or array) to strings."""
+    """Decode (B, T, V) log-probs (tensor or array) to strings: greedy, or
+    prefix beam search over the character alphabet for beam_width > 1
+    (`ops.beam`, on the host)."""
     if beam_width and beam_width > 1:
-        raise NotImplementedError("beam search is not ported yet")
+        from avsync_torch.ops.beam import ctc_beam_search_batch
+
+        lp = log_probs.detach().cpu().numpy() if torch.is_tensor(log_probs) else log_probs
+        prefixes = ctc_beam_search_batch(np.asarray(lp), beam_width, blank_id,
+                                         valid_ids=range(1, len(CHARACTERS) + 1))
+        return [indices_to_text(p) for p in prefixes]
     decoded, lengths = ctc_greedy_decode(torch.as_tensor(log_probs), blank_id)
     decoded = decoded.cpu().numpy()
     lengths = lengths.cpu().numpy()

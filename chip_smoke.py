@@ -75,11 +75,38 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      launched, counted by name in a torch.profiler trace of a replayed
      epoch (a replay passes through no wrapper, so the counters see only
      the warm-up steps and the capture);
-  10. the kernels: a text line with the state of every TPU kernel of the
+  10. serving daemon and artifacts, at full width with the seeded weights of
+     phases 4 and 7 written as `.pth` through the bridges and the three
+     serving kernel flags on: a. `cli export` on the card of a transcriber
+     with static buckets 1, 2, 4, 8 (50x100 crops), one with a symbolic
+     batch (288x360 frames, the heuristic ROI embedded) and a sync scorer
+     with K = 5 shifts, export and load seconds; b. `cli serve --checkpoint
+     --detector_checkpoint --port 0 --warmup --max_batch 8` as a child
+     process: 64 /v1/transcribe requests (half native 288x360 frames, half
+     50x100 crops) and 32 /v1/sync_score requests (audio 0 to 48,000
+     samples) from 16 threads, transcripts equal to an in-process LipReader's
+     (near ties aside), probabilities within 1e-4 of an in-process
+     MisalignmentScorer's, batches of more than one row in /v1/stats, 400,
+     404 and 413, then SIGTERM with requests in flight: each answers 200 and
+     the process exits 0; c. `serve --artifact` (the static transcriber and
+     the sync scorer) under the same load and checks, its requests all
+     50x100 crops (an artifact takes the one geometry it was exported at; a
+     288x360 request must get 400), and `ExportedTranscriber.call` log-probs
+     of the static and the symbolic artifact within 1e-4 of the live
+     reader's at B = 1, 3 and 8; d. in-process daemons, live and artifact,
+     with the counters zeroed before and read after: per transcribe batch
+     conv1_pool once and gru_fwd once per BiGRU layer, per sync batch
+     conv1_pool and mel_stats once, no backward kernel; a profiler trace of
+     one artifact call names K1 and K2, and K1 and K5; e. p50/p99 latency
+     and clips/s of both loads, the first request's latency after
+     --warmup, an artifact call against the live path at B = 1 and 8 (CUDA
+     events); f. `cli test --beam 4` and `--beam 0` on phase 5's corpus and
+     checkpoint (--beam 0 repeats phase 5's results);
+  11. the kernels: a text line with the state of every TPU kernel of the
      JAX package, and one JSON line with the measured numbers (launches from
-     the training slices, the serving slices' and the graph replays' beside
-     them);
-  11. the card's name/power line, then the status JSON as the last line.
+     the training slices, the serving slices', the daemons' and the graph
+     replays' beside them);
+  12. the card's name/power line, then the status JSON as the last line.
 
 Exits with 2 and prints no result without a GPU or outside a checkout.
 """
@@ -1565,6 +1592,543 @@ def run_epoch_programs(dev, workdir: str):
     return out, replayed
 
 
+# ---------------------------------------------------------------------------
+# 10. serving daemon and artifacts
+# ---------------------------------------------------------------------------
+
+# the phase's load: 64 /v1/transcribe and 32 /v1/sync_score requests from 16
+# client threads; near-tie margin for comparing transcripts across batchings
+SERVE_TRANSCRIBE, SERVE_SYNC, SERVE_THREADS = 64, 32, 16
+NEAR_TIE = 1e-4
+MAX_BODY_MB = 8  # a native 75 x 288 x 360 uint8 clip (7.8 MB) fits, 9 MB does not
+
+
+def http(method, url, body=None, ctype="application/octet-stream", timeout=300.0):
+    """(status, JSON answer) of one request; HTTP errors are answers too."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method=method,
+                                 headers={"Content-Type": ctype} if body is not None else {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def npy_bytes(arr):
+    import io
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    return buf.getvalue()
+
+
+def npz_bytes(**arrays):
+    import io
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+class Daemon:
+    """`python -m avsync_torch.cli serve ...` as a child process: its output
+    read by a thread, its address parsed from what it prints."""
+
+    def __init__(self, args, timeout: float = 300.0):
+        import queue
+
+        self.proc = subprocess.Popen([sys.executable, "-m", "avsync_torch.cli", "serve", *args],
+                                     cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True)
+        self.lines, self._q = [], queue.Queue()
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+        deadline = time.perf_counter() + timeout
+        self.url = None
+        while self.url is None:
+            try:
+                line = self._q.get(timeout=max(0.1, deadline - time.perf_counter()))
+            except queue.Empty:
+                line = None
+            if line is None or time.perf_counter() > deadline:
+                self.kill()
+                raise SystemExit(f"serve did not print its address: {self.lines[-20:]}")
+            if " on http://" in line:
+                self.url = line.split(" on ")[1].split()[0]
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip())
+            self._q.put(line)
+        self._q.put(None)
+
+    def stop(self, timeout: float = 120.0) -> int:
+        """SIGTERM, then the exit code (the drain's)."""
+        import signal
+
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise SystemExit("serve did not exit after SIGTERM")
+        self._reader.join(timeout=10)
+        return rc
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+
+
+def load(url, tasks, n_threads=SERVE_THREADS):
+    """Run (path, body, ctype) tasks from n_threads client threads: the
+    answers, each request's latency in ms, and the wall seconds."""
+    answers, lat = [None] * len(tasks), [None] * len(tasks)
+
+    def client(tid):
+        for i in range(tid, len(tasks), n_threads):
+            path, body, ctype = tasks[i]
+            t0 = time.perf_counter()
+            answers[i] = http("POST", url + path, body, ctype)
+            lat[i] = (time.perf_counter() - t0) * 1e3
+
+    threads = [threading.Thread(target=client, args=(t,), daemon=True) for t in range(n_threads)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or any(a is None for a in answers):
+        raise SystemExit("a client thread did not finish")
+    return answers, lat, wall
+
+
+def pct(values, p):
+    v = sorted(values)
+    return v[min(len(v) - 1, int(p * (len(v) - 1)))]
+
+
+def same_transcripts(got, clips, reader, what):
+    """Each served transcript equals the in-process reader's for its clip
+    (batches of 8), except where the reader's top two log-probs of some frame
+    lie within NEAR_TIE (a batch of another size may round them the other
+    way). Returns the near ties."""
+    import numpy as np
+
+    near = []
+    for lo in range(0, len(clips), 8):
+        group = clips[lo:lo + 8]
+        geoms = {c.shape for c in group}
+        lps = [reader._logprobs(reader.preprocess_device(np.concatenate(
+            [reader.prepare_raw(c)[0] for c in group if c.shape == g]))) for g in geoms]
+        order = [[i for i, c in enumerate(group) if c.shape == g] for g in geoms]
+        for lp, idx in zip(lps, order):
+            texts = reader._decode(lp)
+            top2 = lp.topk(2, dim=-1).values
+            margin = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+            for j, i in enumerate(idx):
+                if got[lo + i] != texts[j]:
+                    if not (margin[j] < NEAR_TIE).any():
+                        raise SystemExit(f"{what}: request {lo + i} answered {got[lo + i]!r}, "
+                                         f"the in-process reader {texts[j]!r}")
+                    near.append(lo + i)
+    return near
+
+
+def transcribe_load(url, clips, reader, what):
+    """One /v1/transcribe request per clip from SERVE_THREADS threads: p50
+    and p99 latency and clips/s; each transcript held against the
+    in-process reader (`same_transcripts`)."""
+    answers, lat, wall = load(url, [("/v1/transcribe", npy_bytes(c), "application/x-npy")
+                                    for c in clips])
+    bad = [a for a in answers if a[0] != 200]
+    if bad:
+        raise SystemExit(f"{what}: transcribe answered {bad[:3]}")
+    near = same_transcripts([a[1]["transcript"] for a in answers], clips, reader, what)
+    return {"p50_ms": pct(lat, 0.5), "p99_ms": pct(lat, 0.99), "clips_per_s": len(lat) / wall,
+            "wall_s": wall, "near_ties": near}
+
+
+def serve_checks(url, transcribe_clips, sync_reqs, reader, scorer, what):
+    """The phase's load against one daemon, then its status codes: the
+    load's numbers and the /v1/stats snapshot."""
+    import numpy as np
+
+    # the client's own first request pays for urllib's set-up: a GET first,
+    # so the first POST times the daemon's first request after --warmup
+    if http("GET", url + "/healthz") != (200, {"status": "ok"}):
+        raise SystemExit(f"{what}: /healthz is not ok")
+    lone = []
+    for _ in range(2):  # the first request after --warmup, then a second one alone
+        t0 = time.perf_counter()
+        status, ans = http("POST", url + "/v1/transcribe", npy_bytes(transcribe_clips[1]),
+                           "application/x-npy")
+        lone.append(((time.perf_counter() - t0) * 1e3, ans.get("latency_ms")))
+        if status != 200:
+            raise SystemExit(f"{what}: a lone request answered {status} {ans}")
+    (first_ms, first_server_ms), (second_ms, _) = lone
+    trow = transcribe_load(url, transcribe_clips, reader, what)
+    near = trow.pop("near_ties")
+    sync_tasks = [("/v1/sync_score", npz_bytes(frames=f, audio=a, fps=25.0,
+                                                shifts=np.asarray(DET_SHIFTS)),
+                   "application/x-npz") for f, a in sync_reqs]
+    s_answers, s_lat, s_wall = load(url, sync_tasks)
+    worst = 0.0
+    for (status, ans), (f, a) in zip(s_answers, sync_reqs):
+        if status != 200 or ans["shifts"] != list(DET_SHIFTS):
+            raise SystemExit(f"{what}: sync_score answered {status} {ans}")
+        want = scorer.score_arrays(f, a, 25.0, DET_SHIFTS)
+        got = np.asarray(ans["sync_probs"])
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise SystemExit(f"{what}: bad probabilities {got}")
+        worst = max(worst, float(np.abs(got - want).max()))
+    # the JSON rounds to 6 decimals: 5e-7 of the 1e-4 is rounding
+    if worst > PROB_ATOL:
+        raise SystemExit(f"{what}: probabilities {worst:.3e} from the in-process scorer")
+    _, stats = http("GET", url + "/v1/stats")
+    batches = {k: {int(b): n for b, n in stats[k]["batches"].items()}
+               for k in ("transcribe", "sync_score")}
+    if not all(any(b > 1 for b in v) for v in batches.values()):
+        raise SystemExit(f"{what}: no batch of more than one row: {batches}")
+    codes = {"400": http("POST", url + "/v1/transcribe", b"{}", "application/json")[0],
+             "404": http("GET", url + "/nope")[0],
+             "413": http("POST", url + "/v1/transcribe", b"x" * ((MAX_BODY_MB + 1) << 20),
+                         "application/x-npy")[0]}
+    if codes != {"400": 400, "404": 404, "413": 413}:
+        raise SystemExit(f"{what}: status codes {codes}")
+    row = {"first_request_ms": first_ms, "first_request_server_ms": first_server_ms,
+           "second_lone_request_ms": second_ms, "transcribe": trow,
+           "sync_score": {"p50_ms": pct(s_lat, 0.5), "p99_ms": pct(s_lat, 0.99),
+                          "requests_per_s": len(s_lat) / s_wall, "wall_s": s_wall},
+           "batches": batches, "near_ties": near, "max_prob_err": worst}
+    print(f"  {what}: first request (after --warmup) {first_ms:.3f} ms ({first_server_ms} ms "
+          f"in the daemon), a second one alone {second_ms:.3f} ms; {len(transcribe_clips)} "
+          f"transcribe "
+          f"p50_ms={row['transcribe']['p50_ms']:.3f} p99_ms={row['transcribe']['p99_ms']:.3f} "
+          f"clips_per_s={row['transcribe']['clips_per_s']:.3f}; {len(s_lat)} sync_score x "
+          f"{len(DET_SHIFTS)} shifts p50_ms={row['sync_score']['p50_ms']:.3f} p99_ms="
+          f"{row['sync_score']['p99_ms']:.3f} requests_per_s="
+          f"{row['sync_score']['requests_per_s']:.3f}; batches {batches}; transcripts equal the "
+          f"in-process reader's (near ties {near}); probabilities max_abs_err={worst:.3e} "
+          f"(tol {PROB_ATOL}); status codes {codes}", flush=True)
+    return row
+
+
+def sigterm_drain(daemon, clip, n=16):
+    """SIGTERM as soon as the first of n concurrent requests is answered:
+    every request answers 200 and the process exits 0. Returns how many were
+    still unanswered when the signal went."""
+    import http.client
+
+    body = npy_bytes(clip)
+    conns = []
+    host, port = daemon.url.removeprefix("http://").split(":")
+    for _ in range(n):
+        c = http.client.HTTPConnection(host, int(port), timeout=300)
+        c.connect()
+        conns.append(c)
+    done, codes, first = [], [None] * n, threading.Event()
+    go = threading.Barrier(n)
+
+    def client(i):
+        go.wait(timeout=60)
+        conns[i].request("POST", "/v1/transcribe", body, {"Content-Type": "application/x-npy"})
+        r = conns[i].getresponse()
+        r.read()
+        codes[i] = r.status
+        done.append(i)
+        first.set()
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True) for i in range(n)]
+    for t in threads:
+        t.start()
+    if not first.wait(timeout=300):
+        raise SystemExit("no request was answered before SIGTERM")
+    pending = n - len(done)
+    rc = daemon.stop()
+    for t in threads:
+        t.join(timeout=60)
+    for c in conns:
+        c.close()
+    if rc != 0 or codes != [200] * n:
+        raise SystemExit(f"SIGTERM drain: exit {rc}, answers {codes}")
+    return pending
+
+
+def write_serving_checkpoints(cfg, workdir):
+    """Phase 4's and 7's seeded LipNet and detector weights as `.pth` files
+    through the bridges."""
+    from avsync_torch.compat import (conv_shape_for, detector_params_from_jax,
+                                     lipnet_params_from_jax, save_detector_pth, save_lipnet_pth)
+
+    lip, det = os.path.join(workdir, "lipnet.pth"), os.path.join(workdir, "detector.pth")
+    shape = conv_shape_for(cfg)
+    save_lipnet_pth(lipnet_params_from_jax(seeded_jax_layout_params(cfg, seed=0),
+                                           conv_shape=shape), lip)
+    save_detector_pth(detector_params_from_jax(
+        seeded_jax_layout_detector_params(2 * 6912 + 40, 256, seed=1), shape),
+        det, 2 * 6912 + 40, 256, {})
+    return lip, det
+
+
+def served_launches(server, requests, what):
+    """Requests through an in-process AvsyncServer with the counters zeroed
+    just before and read just after: per batch K1 once and K2 once per
+    BiGRU layer (transcribe), K1 and K5 once (sync_score), no backward."""
+    zero_counts()
+    answers, _, _ = load(f"http://{server.address[0]}:{server.address[1]}", requests)
+    import torch
+
+    torch.cuda.synchronize()
+    got = counts()
+    if any(a[0] != 200 for a in answers):
+        raise SystemExit(f"{what}: {[a for a in answers if a[0] != 200][:3]}")
+    snap = server.stats_snapshot()
+    nt = sum(snap["transcribe"]["batches"].values())
+    ns = sum(snap["sync_score"]["batches"].values())
+    want = {"conv1_pool": nt + ns, "gru_fwd": 2 * nt, "gru_bwd": 0, "conv1_pool_bwd": 0,
+            "mel_stats": ns}
+    print(f"  launches through the {what} daemon: {got} for {nt} transcribe and {ns} "
+          f"sync_score batches (expected {want})", flush=True)
+    if got != want:
+        raise SystemExit(f"{what}: launch counts do not match the batches served")
+    return {"transcribe_batches": nt, "sync_batches": ns, **got}
+
+
+def operator_dispatch_ms(dev):
+    """Each kernel through its torch.library operator against its CUDA body
+    called directly, at the serving shapes (K1 and K2 at B=8, K5 at a
+    scorer batch of 8 x 5 shifts), CUDA events: what the dispatch adds."""
+    import torch
+
+    from avsync_torch.config import AudioConfig
+    from avsync_torch.ops.audio import device_constants
+    from avsync_torch.ops.cuda import convpool, gru, mfcc
+
+    g = torch.Generator().manual_seed(12)
+    H = 256
+    melT, dctT, _ = device_constants(AudioConfig(), dev)
+    cases = {
+        "conv1_pool": (torch.ops.avsync_torch.conv1_pool, convpool._conv1_pool_cuda,
+                       [t.to(dev) for t in (torch.rand(8, 1, 75, 50, 100, generator=g),
+                                            torch.randn(32, 1, 3, 5, 5, generator=g) * 0.2,
+                                            torch.randn(32, generator=g))]),
+        "gru_fwd": (torch.ops.avsync_torch.bigru_fwd, gru._bigru_fwd_cuda,
+                    [*(torch.randn(8, 75, 3 * H, generator=g).to(dev) for _ in range(2)),
+                     *((torch.randn(3 * H, H, generator=g) / H ** 0.5).to(dev).t()
+                       for _ in range(2)),
+                     *(torch.randn(3 * H, generator=g).to(dev) for _ in range(2))]),
+        "mel_stats": (torch.ops.avsync_torch.mel_stats, mfcc._mel_stats_cuda,
+                      [torch.rand(40, 121, 1025, generator=g).to(dev),
+                       torch.full((40,), 121, dtype=torch.int32, device=dev), melT, dctT, 80.0]),
+    }
+    out = {}
+    for name, (op, direct, args) in cases.items():
+        out[name] = {"operator_ms": time_ms(lambda: op(*args)),
+                     "direct_ms": time_ms(lambda: direct(*args))}
+    return out
+
+
+def lead_in(dev):
+    """A few small kernels and a sync at the start of a profiled window: a
+    trace of one short call lost the call's first kernels without them."""
+    import torch
+
+    x = torch.zeros(1024, device=dev)
+    for _ in range(8):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+
+
+def run_serving(dev, workdir, corpus, ckpt_dir, test_config, greedy_results, smi):
+    """Phase 10: export, the live daemon and the artifact daemon under load,
+    the launch proof, the times, and beam search through `cli test` on phase
+    5's corpus, checkpoint and config (whose greedy results it repeats)."""
+    import numpy as np
+    import torch
+
+    from avsync_torch import cli
+    from avsync_torch.config import AudioConfig, AvsyncConfig, ModelConfig
+    from avsync_torch.export import load_exported
+    from avsync_torch.predictor import LipReader, MisalignmentScorer
+    from avsync_torch.serving import (ArtifactSyncScoreService, ArtifactTranscribeService,
+                                      AvsyncServer, SyncScoreService, TranscribeService)
+
+    cfg = AvsyncConfig(model=ModelConfig(use_pallas_gru=True, fused_conv_pool=True),
+                       audio=AudioConfig(use_pallas=True))
+    lip, det = write_serving_checkpoints(cfg, workdir)
+    out = {}
+
+    # a. export on the card through the command line
+    arts = {"static": (os.path.join(workdir, "static.zip"), ["--batch_sizes", "1,2,4,8"]),
+            "symbolic_native": (os.path.join(workdir, "symbolic.zip"),
+                                ["--frame_geometry", "288x360"]),
+            "sync": (os.path.join(workdir, "sync.zip"),
+                     ["--detector_checkpoint", det, "--shifts_per_request",
+                      str(len(DET_SHIFTS)), "--batch_sizes", "1,2,4,8"])}
+    loaded, secs = {}, {}
+    for name, (path, extra) in arts.items():
+        t0 = time.perf_counter()
+        if cli.main(["export", "--checkpoint", lip, "--out", path, *extra]) != 0:
+            raise SystemExit(f"export {name} failed")
+        t1 = time.perf_counter()
+        loaded[name] = load_exported(path)
+        secs[name] = {"export_s": t1 - t0, "load_s": time.perf_counter() - t1,
+                      "mb": os.path.getsize(path) / 1e6}
+        if loaded[name].meta["device"] != str(dev):
+            raise SystemExit(f"{name} artifact exported for {loaded[name].meta['device']}")
+    print(f"serving phase: export (cli, on the card): {json.dumps(secs)}", flush=True)
+    out["export"] = secs
+
+    reader = LipReader(checkpoint=lip, config=cfg, device=dev)
+    scorer = MisalignmentScorer(det, lip, config=cfg, device=dev)
+    r = np.random.default_rng(10)
+    clips = [r.integers(0, 256, (75, 288, 360) if i % 2 == 0 else (75, 50, 100), dtype=np.uint8)
+             for i in range(SERVE_TRANSCRIBE)]
+    lengths = r.integers(1, 48001, SERVE_SYNC)
+    lengths[0], lengths[1] = 0, 48000
+    sync_reqs = [(r.integers(0, 256, (75, 288, 360) if i % 2 == 0 else (75, 50, 100),
+                             dtype=np.uint8), syllable_audio(r, int(n)))
+                 for i, n in enumerate(lengths)]
+
+    # b. the live daemon; then the artifact daemon's load (c) on it too, so
+    # the two compare like for like: an artifact takes the one frame geometry
+    # it was exported at, so that load is 50x100 crops
+    crops = [c if c.shape[1] == 50 else c[:, 100:150, 100:200].copy() for c in clips]
+    crop_sync = [(f if f.shape[1] == 50 else f[:, 100:150, 100:200].copy(), a)
+                 for f, a in sync_reqs]
+    common = ["--port", "0", "--warmup", "--max_batch", str(MAX_BATCH), "--max_body_mb",
+              str(MAX_BODY_MB)]
+    daemon = Daemon(["--checkpoint", lip, "--detector_checkpoint", det, *common])
+    try:
+        out["live"] = serve_checks(daemon.url, clips, sync_reqs, reader, scorer, "live daemon")
+        out["live"]["transcribe_crops"] = transcribe_load(daemon.url, crops, reader,
+                                                          "live daemon, crops")
+        out["live"]["sigterm_pending"] = sigterm_drain(daemon, clips[1])
+    finally:
+        daemon.kill()
+    print(f"  live daemon, the artifact daemon's load of {len(crops)} 50x100 crops: "
+          f"{json.dumps(out['live']['transcribe_crops'])}; SIGTERM with "
+          f"{out['live']['sigterm_pending']} of 16 requests unanswered: every one answered "
+          f"200, exit 0", flush=True)
+
+    # c. the artifact daemon: a 288x360 request gets 400
+    daemon = Daemon(["--artifact", arts["static"][0], "--artifact", arts["sync"][0], *common])
+    try:
+        out["artifact"] = serve_checks(daemon.url, crops, crop_sync, reader, scorer,
+                                       "artifact daemon")
+        wrong = http("POST", daemon.url + "/v1/transcribe", npy_bytes(clips[0]),
+                     "application/x-npy")
+        if wrong[0] != 400 or "expects 50x100" not in wrong[1]["error"]:
+            raise SystemExit(f"artifact daemon took another geometry: {wrong}")
+        out["artifact"]["sigterm_pending"] = sigterm_drain(daemon, crops[1])
+    finally:
+        daemon.kill()
+    print(f"  artifact daemon: a 288x360 request answered 400; SIGTERM with "
+          f"{out['artifact']['sigterm_pending']} of 16 unanswered: every one 200, exit 0",
+          flush=True)
+    worst = {}
+    for name in ("static", "symbolic_native"):
+        geom = (288, 360) if name == "symbolic_native" else (50, 100)
+        frames = r.integers(0, 256, (8, 75, *geom), dtype=np.uint8)
+        err = 0.0
+        for B in (1, 3, 8):
+            _, _, lp = loaded[name].call(frames[:B])
+            want = reader._logprobs(reader.preprocess_device(np.concatenate(
+                [reader.prepare_raw(f)[0] for f in frames[:B]]))).cpu().numpy()
+            if lp.shape != want.shape or not np.isfinite(lp).all():
+                raise SystemExit(f"{name} artifact: bad log-probs {lp.shape}")
+            err = max(err, float(np.abs(lp - want).max()))
+        worst[name] = err
+    print(f"  ExportedTranscriber.call log-probs vs the live reader at B = 1, 3, 8: "
+          f"max_abs_err {worst} (tol {SLICE_ATOL})", flush=True)
+    if max(worst.values()) > SLICE_ATOL:
+        raise SystemExit("an artifact's log-probs disagree with the live reader's")
+    out["artifact_vs_live_logprob_err"] = worst
+
+    # d. launch proof through in-process daemons, live and artifact
+    tasks = ([("/v1/transcribe", npy_bytes(c), "application/x-npy") for c in crops[:32]]
+             + [("/v1/sync_score", npz_bytes(frames=f, audio=a, fps=25.0,
+                                             shifts=np.asarray(DET_SHIFTS)), "application/x-npz")
+                for f, a in crop_sync[:16]])
+    launches = {}
+    for what, services in (
+            ("live", lambda: (TranscribeService(reader, max_batch=MAX_BATCH, max_wait_ms=5.0),
+                              SyncScoreService(scorer, max_batch=MAX_BATCH, max_wait_ms=5.0))),
+            ("artifact", lambda: (ArtifactTranscribeService(loaded["static"],
+                                                            max_batch=MAX_BATCH, max_wait_ms=5.0),
+                                  ArtifactSyncScoreService(loaded["sync"], max_batch=MAX_BATCH,
+                                                           max_wait_ms=5.0)))):
+        server = AvsyncServer(*services(), port=0)
+        server.start()
+        try:
+            launches[what] = served_launches(server, tasks, what)
+        finally:
+            server.shutdown(drain_timeout=30.0)
+    out["launches"] = launches
+    frames8 = loaded["static"].prepare_rows(np.stack(crops[1:17:2]))
+    audio8 = np.zeros((8, 48000), np.float32)
+    calls = {"transcriber": (lambda: loaded["static"].call(frames8), ("conv1_pool", "gru_fwd")),
+             "sync_scorer": (lambda: loaded["sync"].call(
+                 frames8, audio8 + 0.1, np.full(8, 48000, np.int32), np.full(8, 25.0, np.float32),
+                 np.tile(np.asarray(DET_SHIFTS, np.int32), (8, 1))), ("conv1_pool", "mel_stats"))}
+    traced_names = {}
+    for kind, (call, kernels) in calls.items():
+        call()
+        _, _, _, found, names = traced(lambda: (lead_in(dev), call()))
+        traced_names[kind] = {k: found[k] for k in KERNEL_NAMES}
+        if not all(found[k] for k in kernels):
+            raise SystemExit(f"{kind} artifact call: the trace shows {found}, not {kernels}; "
+                             f"every kernel in it: {names}")
+    print(f"  kernels by profiler name in one artifact call at B=8: {traced_names}", flush=True)
+    out["artifact_call_kernels"] = traced_names
+
+    # e. an artifact call against the live path at B = 1 and 8 (host frames
+    # in, host results out: upload, preprocess, forward, greedy decode)
+    times = {}
+    for B in (1, 8):
+        frames = np.stack(crops[:B])
+        times[f"B{B}"] = {
+            "artifact_ms": time_ms(lambda: loaded["static"].call(frames)),
+            "live_ms": time_ms(lambda: reader._decode(reader._logprobs(reader.preprocess_device(
+                np.concatenate([reader.prepare_raw(f)[0] for f in frames])))))}
+    print(f"  artifact call vs live reader (CUDA events, warm-up first, median of 20): "
+          f"{json.dumps(times)} [{smi}]", flush=True)
+    out["call_ms"] = times
+    out["dispatch_ms"] = operator_dispatch_ms(dev)
+    print(f"  kernels through their operators vs their CUDA bodies called directly (CUDA "
+          f"events, median of 20): {json.dumps(out['dispatch_ms'])} [{smi}]", flush=True)
+
+    # f. beam search through `cli test` on phase 5's corpus and checkpoint
+    res = {}
+    for width in (0, 4):
+        path = os.path.join(workdir, f"beam{width}.json")
+        t0 = time.perf_counter()
+        if cli.main(["test", "--data_path", corpus, "--config", test_config, "--checkpoint",
+                     ckpt_dir, "--output", path, "--beam", str(width)]) != 0:
+            raise SystemExit(f"cli test --beam {width} failed")
+        with open(path) as f:
+            res[width] = json.load(f)
+        res[width]["seconds"] = time.perf_counter() - t0
+    print(f"  cli test --beam 0: {res[0]}; --beam 4: {res[4]}", flush=True)
+    if {k: v for k, v in res[0].items() if k != "seconds"} != greedy_results:
+        raise SystemExit("test --beam 0 differs from phase 5's greedy test")
+    if res[4]["num_samples"] != greedy_results["num_samples"] or not np.isfinite(res[4]["cer"]):
+        raise SystemExit("test --beam 4 wrote a wrong result")
+    out["beam"] = res
+    print(f"  serving phase numbers [{smi}]: {json.dumps(out)}", flush=True)
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "avsync_torch", "csrc")):
         print("chip_smoke: run from a checkout of the repository (avsync_torch/ missing)",
@@ -1612,6 +2176,12 @@ def main() -> int:
         trained = run_training(dev, workdir)
         detector = run_detector_training(dev, workdir)
         programs, replayed = run_epoch_programs(dev, workdir)
+        with open(os.path.join(workdir, "results.json")) as f:
+            greedy = json.load(f)
+        serving_dir = os.path.join(workdir, "serving")
+        os.makedirs(serving_dir)
+        serving = run_serving(dev, serving_dir, *(os.path.join(workdir, n) for n in
+                                                  ("grid", "ckpt", "config.json")), greedy, smi)
     for k in (k1, k2, k3, k4):
         k["launches"] = trained[k["name"]]
     k5["launches"], k5["launches_serving"] = detector["mel_stats"], served["mel_stats"]
@@ -1623,8 +2193,17 @@ def main() -> int:
     k5["launches_graph_replay_detector_epoch"] = {
         "train": replayed["detector_train"]["mel_stats"],
         "eval": replayed["detector_eval"]["mel_stats"]}
+    for what in ("live", "artifact"):
+        got = serving["launches"][what]
+        per_batch = {"transcribe_batches": got["transcribe_batches"],
+                     "sync_batches": got["sync_batches"]}
+        k1[f"launches_daemon_{what}"] = {**per_batch, "launches": got["conv1_pool"]}
+        k2[f"launches_daemon_{what}"] = {**per_batch, "launches": got["gru_fwd"]}
+        k5[f"launches_daemon_{what}"] = {**per_batch, "launches": got["mel_stats"]}
     for k in (k1, k2, k3, k4, k5):
-        if not k["launches"] or k.get("launches_serving") == 0:
+        if not k["launches"] or k.get("launches_serving") == 0 or any(
+                k.get(f"launches_daemon_{w}", {"launches": 1})["launches"] == 0
+                for w in ("live", "artifact")):
             raise SystemExit(f"{k['name']} was not launched on its main path")
     print(f"epoch programs: {json.dumps(programs)}", flush=True)
 

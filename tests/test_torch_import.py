@@ -45,6 +45,24 @@ def test_every_module_imports_without_jax_or_avsync():
     assert {"avsync_torch.data.synthetic", "avsync_torch.data.tooling",
             "avsync_torch.utils.profiling", "avsync_torch.utils.flops",
             "avsync_torch.train.epoch_program", "avsync_torch.ops.ctc"} <= set(loaded)
+    assert {"avsync_torch.export", "avsync_torch.ops.beam"} <= set(loaded)
+
+
+def test_the_daemon_and_the_artifact_loader_import_no_model_code():
+    """`serve --artifact` needs torch and the kernel operators only: the
+    serving and export modules pull in neither the models nor the predictor
+    (nor jax or the avsync package)."""
+    code = ("import json, sys\n"
+            "import avsync_torch.serving, avsync_torch.export, avsync_torch.ops.beam\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    loaded = json.loads(out.strip().splitlines()[-1])
+    bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN
+           or m.startswith(("avsync_torch.models", "avsync_torch.predictor"))]
+    assert not bad, f"the serving modules pulled in {bad}"
+    assert {"avsync_torch.ops.cuda.convpool", "avsync_torch.ops.cuda.gru",
+            "avsync_torch.ops.cuda.mfcc"} <= set(loaded)
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix() for p in
@@ -92,3 +110,35 @@ def test_config_json_round_trips_with_the_jax_package():
     assert JaxConfig.from_json(ours.to_json()).to_dict() == ours.to_dict()
     theirs = JaxConfig(model=JaxModelConfig(hidden_dim=8, conv_channels=(2, 3, 4)))
     assert AvsyncConfig.from_json(theirs.to_json()).to_dict() == theirs.to_dict()
+
+
+@pytest.fixture(scope="module")
+def full_width_pths(tmp_path_factory):
+    from avsync_torch.compat import save_detector_pth, save_lipnet_pth
+    from avsync_torch.config import ModelConfig
+    from avsync_torch.models import LipNet, MisalignmentDetector
+
+    root = tmp_path_factory.mktemp("entry_points")
+    lip, det = str(root / "lip.pth"), str(root / "det.pth")
+    save_lipnet_pth(LipNet(ModelConfig(), generator=torch.Generator()).state_dict(), lip)
+    save_detector_pth(MisalignmentDetector(generator=torch.Generator()).state_dict(), det,
+                      13864, 256, {})
+    return lip, det
+
+
+@pytest.mark.parametrize("entry", ["export", "export_sync_scorer", "serve", "serve_scorer"])
+def test_serving_entry_points_without_device_raise_when_cuda_is_absent(
+        monkeypatch, tmp_path, full_width_pths, entry):
+    """`export` and `serve` run on the card unless `--device cpu` is given."""
+    from avsync_torch.cli import main
+
+    lip, det = full_width_pths
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = {"export": ["export", "--checkpoint", lip, "--out", str(tmp_path / "a.zip")],
+            "export_sync_scorer": ["export", "--checkpoint", lip, "--detector_checkpoint", det,
+                                   "--out", str(tmp_path / "a.zip")],
+            "serve": ["serve", "--checkpoint", lip, "--port", "0"],
+            "serve_scorer": ["serve", "--checkpoint", lip, "--detector_checkpoint", det,
+                             "--port", "0"]}[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(argv)

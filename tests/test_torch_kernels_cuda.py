@@ -469,7 +469,8 @@ def test_wrapper_replayed_from_a_cuda_graph_equals_eager(dev, name):
               "gru_bwd": gru, "mel_stats": mfcc}[name]
     for inputs in later:
         for s, x in zip(static, inputs):
-            s.copy_(x)
+            if s is not x:  # a self-copy would bump melT's version and rebuild its band table
+                s.copy_(x)
         before = getattr(module, counter)
         graph.replay()
         torch.cuda.synchronize()
@@ -479,3 +480,98 @@ def test_wrapper_replayed_from_a_cuda_graph_equals_eager(dev, name):
         torch.cuda.synchronize()
         for got, ref in zip(captured, want):
             assert torch.equal(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# the kernel operators (the model calls them; torch.export traces them)
+# ---------------------------------------------------------------------------
+
+def _operator_case(name, dev, seed):
+    """(operator, direct CUDA body, module, inputs) at the serving paths'
+    shapes: K1 at B=8, T=75 (NCDHW), K2 at B=8, T=75, H=256 with torch-layout
+    w_hh views, K5 at a scorer batch of 8 requests x 5 shifts."""
+    g = _gen(seed)
+    if name == "conv1_pool":
+        args = (torch.rand(8, 1, 75, 50, 100, generator=g),
+                torch.randn(32, 1, 3, 5, 5, generator=g) * 0.2, torch.randn(32, generator=g))
+        return (torch.ops.avsync_torch.conv1_pool, convpool._conv1_pool_cuda, convpool,
+                [t.to(dev) for t in args])
+    if name == "bigru_fwd":
+        H = 256
+        gi = [torch.randn(8, 75, 3 * H, generator=g) for _ in range(2)]
+        w = [(torch.randn(3 * H, H, generator=g) / H ** 0.5).to(dev).t() for _ in range(2)]
+        b = [torch.randn(3 * H, generator=g) * 0.1 for _ in range(2)]
+        return (torch.ops.avsync_torch.bigru_fwd, gru._bigru_fwd_cuda, gru,
+                [gi[0].to(dev), gi[1].to(dev), *w, b[0].to(dev), b[1].to(dev)])
+    power, n, melT, dctT = _mel_case(g, dev, 40, 121, 16000, 2048, 128, 20, False)
+    return (torch.ops.avsync_torch.mel_stats, mfcc._mel_stats_cuda, mfcc,
+            [power, n, melT, dctT, 80.0])
+
+
+@pytest.mark.parametrize("name", ["conv1_pool", "bigru_fwd", "mel_stats"])
+def test_operator_equals_the_direct_launch_eager_and_replayed(dev, name):
+    """Each operator on the card launches its kernel once (the counter says
+    so) and equals the direct launch bit for bit; captured in a CUDA graph
+    and replayed on new inputs it equals a direct launch on those."""
+    op, direct, module, static = _operator_case(name, dev, 40)
+    before = module.launches
+    got, want = op(*static), direct(*static)
+    torch.cuda.synchronize()
+    assert module.launches == before + 2
+    assert torch.equal(got, want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        op(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = op(*static)
+    for seed in (41, 42):
+        inputs = _operator_case(name, dev, seed)[3]
+        if name == "mel_stats":
+            inputs[2], inputs[3] = static[2], static[3]  # one filterbank, as audio_stats
+        for s, x in zip(static, inputs):
+            if torch.is_tensor(s) and s is not x:  # a self-copy would bump melT's version
+                s.copy_(x)
+        graph.replay()
+        want = direct(*inputs)
+        torch.cuda.synchronize()
+        assert torch.equal(captured, want)
+
+
+def test_exported_programs_launch_the_kernels(dev, tmp_path):
+    """A transcriber and a sync-scorer artifact exported on the card: a
+    profiler trace of one call of each names K1 and K2, and K1 and K5."""
+    from avsync_torch.compat import save_detector_pth, save_lipnet_pth
+    from avsync_torch.config import AudioConfig, AvsyncConfig, ModelConfig
+    from avsync_torch.export import export_sync_scorer, export_transcriber, load_exported
+    from avsync_torch.models import LipNet, MisalignmentDetector
+
+    cfg = AvsyncConfig(model=ModelConfig(use_pallas_gru=True, fused_conv_pool=True),
+                       audio=AudioConfig(use_pallas=True))
+    lip, det = str(tmp_path / "lip.pth"), str(tmp_path / "det.pth")
+    save_lipnet_pth(LipNet(cfg.model, generator=_gen(50)).state_dict(), lip)
+    save_detector_pth(MisalignmentDetector(generator=_gen(51)).state_dict(), det, 13864, 256, {})
+    export_transcriber(lip, cfg, device=dev, batch_sizes=(2,)).save(str(tmp_path / "t.zip"))
+    export_sync_scorer(det, lip, cfg, num_shifts=3, device=dev).save(str(tmp_path / "s.zip"))
+    transcriber, scorer = (load_exported(str(tmp_path / n)) for n in ("t.zip", "s.zip"))
+    g = torch.Generator().manual_seed(52)
+    frames = torch.randint(0, 256, (2, 75, 50, 100), generator=g, dtype=torch.uint8).numpy()
+    audio = (torch.rand(2, 48000, generator=g) - 0.5).numpy()
+    calls = {"transcriber": (lambda: transcriber.call(frames), ("conv1_pool_kernel",
+                                                                 "gru_fwd_kernel")),
+             "sync_scorer": (lambda: scorer.call(frames, audio, [48000, 30000], [25.0, 25.0],
+                                                 [[-5, 0, 5]] * 2),
+                             ("conv1_pool_kernel", "mel_stats_kernel"))}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for kind, (call, kernels) in calls.items():
+        call()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        for k in kernels:
+            assert any(k in n for n in names), (kind, k, sorted(names))

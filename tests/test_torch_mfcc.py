@@ -13,7 +13,9 @@ import jax.numpy as jnp
 import torch
 
 from avsync.ops.pallas.mfcc import pallas_mel_stats
+from avsync_torch.config import AudioConfig
 from avsync_torch.ops import audio_ref
+from avsync_torch.ops.audio import device_constants
 from avsync_torch.ops.cuda import mfcc
 
 TOL = dict(rtol=1e-5, atol=1e-4)
@@ -100,6 +102,21 @@ def test_band_table_of_the_default_filterbank():
     for m in range(128):
         rebuilt[lo[m]:lo[m] + length[m], m] = w[off[m]:off[m] + length[m]]
     np.testing.assert_array_equal(rebuilt, melT.numpy())
+
+
+def test_constants_first_made_in_inference_mode_are_normal_tensors():
+    """A serving process's first MFCC call runs under inference_mode: the
+    cached filterbank must still carry a version counter, and the band table
+    must take an inference tensor too (on the card both raised before)."""
+    cfg = AudioConfig(sample_rate=8000, n_fft=256, n_mels=40, n_mfcc=13, fmax=3999.0)
+    with torch.inference_mode():
+        melT, dctT, win = device_constants(cfg, "cpu")
+        assert not any(t.is_inference() for t in (melT, dctT, win))
+        inf = melT.clone()
+        assert inf.is_inference()
+        table = mfcc._band_table(inf)
+    assert mfcc._band_table(inf) is table
+    assert mfcc._band_table(melT)[3].numel() == table[3].numel()
 
 
 def test_band_table_of_a_column_of_zeros():

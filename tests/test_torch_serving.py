@@ -250,6 +250,24 @@ def test_mixed_geometry_and_dtype_split_into_groups():
         b.close()
 
 
+def test_warm_buckets_run_on_the_worker_thread():
+    """Warm-up runs where inference runs (per-thread cuBLAS/cuDNN handles);
+    an error in it reaches the caller and the worker survives."""
+    seen = []
+    b = DynamicBatcher(lambda rows: rows[:, 0].tolist(), max_batch=6, max_wait_ms=1.0)
+    try:
+        b.warm_buckets(lambda n: seen.append((n, threading.current_thread().name)))
+        assert seen == [(n, "avsync-torch-batcher") for n in (1, 2, 4, 6)]
+        with pytest.raises(ZeroDivisionError):
+            b.call_on_worker(lambda: 1 / 0, timeout=10.0)
+        assert b.infer(np.array([[3.0]]), timeout=10.0) == 3.0
+        assert b.stats.requests == 1  # warm-up batches are not requests
+    finally:
+        b.close()
+    with pytest.raises(RuntimeError, match="closed"):
+        b.call_on_worker(lambda: None)
+
+
 def test_stats_snapshot_shape():
     s = ServingStats()
     s.record_batch(2, 4, [0.010, 0.020])

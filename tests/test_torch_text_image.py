@@ -39,8 +39,12 @@ def test_packed_indices_and_lengths_match_jax():
 
 
 def test_beam_search_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        torch_text.decode_batch(torch.zeros(1, 3, 39), beam_width=4)
+    """Beam search is ported now (`ops/beam.py`): beam_width > 1 no longer
+    raises and decodes as the JAX package does (tests/test_torch_beam.py
+    holds it at every width)."""
+    lp = _log_probs_with_repeats_and_blanks(4)
+    assert (torch_text.decode_batch(torch.from_numpy(lp), beam_width=4)
+            == jax_text.decode_batch(lp, beam_width=4))
 
 
 def test_align_parsing_matches_jax():

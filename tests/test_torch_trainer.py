@@ -237,11 +237,17 @@ def test_cli_train_then_both_test_commands_agree(corpus, tmp_path, capsys):
     assert "Predicted text:" in capsys.readouterr().out
 
 
-def test_cli_test_refuses_beam_search(tmp_path):
+def test_cli_test_refuses_beam_search(corpus, tmp_path):
+    """Beam search is ported now: `test --beam 4` no longer refuses the flag
+    and goes on to read the checkpoint (tests/test_torch_beam.py holds its
+    results against the JAX package's `test --beam 4`)."""
     from avsync_torch.cli import main
 
-    with pytest.raises(NotImplementedError, match="beam"):
-        main(["test", "--checkpoint", "x.pth", "--beam", "4", "--device", "cpu"])
+    cfg = str(tmp_path / "port.json")
+    open(cfg, "w").write(_cfg(corpus[0], tmp_path).to_json())
+    with pytest.raises(FileNotFoundError):
+        main(["test", "--data_path", corpus[0], "--config", cfg,
+              "--checkpoint", str(tmp_path / "missing.pth"), "--beam", "4", "--device", "cpu"])
 
 
 def test_unported_training_options_raise(corpus):
