@@ -1,17 +1,20 @@
 """Command line of the port (port of `avsync/cli.py`: train, test, infer,
-export, serve, misalign-train, misalign-eval).
+quantize, export, serve, misalign-train, misalign-eval).
 
     python -m avsync_torch.cli train --data_path data --epochs 50 --export_pth lipnet.pth
     python -m avsync_torch.cli test --data_path data --checkpoint lipnet.pth [--beam 4]
-    python -m avsync_torch.cli infer clip.npy --checkpoint lipnet.pth [--beam 4]
+        [--quantize int8]
+    python -m avsync_torch.cli infer clip.npy --checkpoint lipnet.pth [--beam 4] [--quantize int8]
+    python -m avsync_torch.cli quantize --data_path data --checkpoint lipnet.pth --out qscales.npz
     python -m avsync_torch.cli export --checkpoint lipnet.pth --batch_sizes 1,2,4,8
     python -m avsync_torch.cli serve --checkpoint lipnet.pth --detector_checkpoint det.pth
+    python -m avsync_torch.cli serve --checkpoint lipnet.pth --quantize int8 --qscales qscales.npz
     python -m avsync_torch.cli serve --artifact lipnet_serving.zip
     python -m avsync_torch.cli misalign-train --data_path data --checkpoint lipnet.pth
     python -m avsync_torch.cli misalign-eval --data_path data --checkpoint lipnet.pth
 
-Every command runs on the card unless `--device cpu` is given. `train` and
-`test` build the JAX package's default LipNet (or the `--config` JSON's)
+Every command runs on the card unless `--device cpu` is given. `train`,
+`test` and `quantize` build the JAX package's default LipNet (or the `--config` JSON's)
 with both LipNet kernel flags on, the `misalign-*` commands with conv1's
 and the MFCC stage's (`fused_conv_pool`, `AudioConfig.use_pallas`), `serve`
 and `export` with all three, unless the config file turns them off; all run
@@ -78,19 +81,36 @@ def _no_tf32() -> None:
 
 
 def _evaluate(model, cfg: AvsyncConfig, batcher, source, out_json: str, device,
-              num_print: int = 5, beam_width: int = 0) -> dict:
+              num_print: int = 5, beam_width: int = 0,
+              quantize: Optional[str] = None) -> dict:
     """Decode the split (greedy, or beam search for beam_width > 1), print a
     few samples, write CER/WER/accuracy JSON (`utils.py:38-86`,
-    `train.py:916-942`)."""
+    `train.py:916-942`).
+
+    `quantize='int8'` runs the conv stack in int8 (`ops/quant.py`),
+    calibrated on the first eval batch: the preprocessed distribution the
+    whole split sees."""
+    import torch
+
     from avsync_torch import text as textlib
     from avsync_torch.eval import evaluate_transcripts
+    from avsync_torch.ops.quant import make_int8_forward, quantize_lipnet
     from avsync_torch.train.lipnet_trainer import device_batch, eval_step
 
     model.eval()
+    qfwd = make_int8_forward(cfg.model) if quantize == "int8" else None
+    qparams = None
     preds: List[str] = []
     targets: List[str] = []
     for batch in batcher.epoch(shuffle=False, drop_last=False):
-        _, log_probs = eval_step(model, device_batch(batch, device))
+        dbatch = device_batch(batch, device)
+        if qfwd is not None:
+            with torch.inference_mode():
+                if qparams is None:
+                    qparams = quantize_lipnet(model, [dbatch["video"]])
+                log_probs = qfwd(qparams, dbatch["video"])
+        else:
+            _, log_probs = eval_step(model, dbatch)
         for d in textlib.decode_batch(log_probs[: batch["valid"]], beam_width=beam_width):
             idx = len(preds)
             preds.append(d)
@@ -240,7 +260,8 @@ def cmd_test(args) -> int:
     model.load_state_dict(_load_state_dict(args.checkpoint))
     model.to(device)
     _evaluate(model, cfg, LipNetBatcher(src, cfg, device=device), src,
-              args.output or "test_results.json", device, beam_width=args.beam)
+              args.output or "test_results.json", device, beam_width=args.beam,
+              quantize=args.quantize)
     return 0
 
 
@@ -248,8 +269,9 @@ def cmd_infer(args) -> int:
     from avsync_torch.predictor import LipReader
     from avsync_torch.text import decode_batch, parse_align_text
 
+    # an int8 reader calibrates lazily on its first input: this clip
     reader = LipReader(checkpoint=args.checkpoint, config=_config(args.config),
-                       device=args.device)
+                       device=args.device, quantize=args.quantize)
     log_probs = reader._logprobs(reader._prepare(reader._load(args.video)))
     pred = decode_batch(log_probs, beam_width=args.beam)[0]
     print(f"Predicted: {pred}")
@@ -263,8 +285,47 @@ def cmd_infer(args) -> int:
 
 
 # ---------------------------------------------------------------------------
-# export / serve
+# quantize / export / serve
 # ---------------------------------------------------------------------------
+
+def cmd_quantize(args) -> int:
+    """Export int8 calibration scales for serving: the f32 conv stack runs
+    over the first --n_calib clips of --data_path (the preprocessing serving
+    runs) and the per-layer input scales go to an `.npz` with the JAX
+    package's keys, so either package's `serve --quantize int8 --qscales`
+    (or `LipReader(calibration_scales=...)`) quantizes at load time."""
+    import numpy as np
+
+    from avsync_torch.data.grid import GridDataSource
+    from avsync_torch.data.pipeline import LipNetBatcher
+    from avsync_torch.models.lipnet import LipNet
+    from avsync_torch.ops.quant import calibrate_conv_input_scales
+    from avsync_torch.predictor import resolve_device
+
+    _no_tf32()
+    cfg = _config_from_args(args)
+    device = resolve_device(args.device)
+    d = cfg.data
+    model = LipNet(cfg.model, img_hw=(d.img_height, d.img_width))
+    model.load_state_dict(_load_state_dict(args.checkpoint))
+    model.to(device).eval()
+    src = GridDataSource(d.data_path, args.speakers or None)
+    if len(src) == 0:
+        print(f"ERROR: no clips under {d.data_path}")
+        return 1
+    batches, seen = [], 0
+    for batch in LipNetBatcher(src, cfg, device=device).epoch(shuffle=False, drop_last=False):
+        batches.append(batch["video"][: batch["valid"]])
+        seen += int(batch["valid"])
+        if seen >= args.n_calib:
+            break
+    scales = calibrate_conv_input_scales(model, batches)
+    np.savez(args.out, input_scales=scales, family=cfg.model.family,
+             n_calibration_clips=seen, checkpoint=os.path.abspath(args.checkpoint))
+    print(f"calibrated {len(scales)} conv layers on {seen} clips -> {args.out}")
+    print(f"input_scales: {scales.tolist()}")
+    return 0
+
 
 def _serving_config(args) -> AvsyncConfig:
     """The `--config` JSON, or the defaults with the three kernel flags of the
@@ -353,14 +414,14 @@ def cmd_serve(args) -> int:
         if args.dp != 1:
             raise NotImplementedError("--dp: multi-device serving is not ported yet "
                                       "(ROADMAP §1 item 14)")
-        if args.quantize or args.qscales:
-            raise NotImplementedError("--quantize/--qscales: int8 serving is not ported yet "
-                                      "(ROADMAP §1 item 12)")
         from avsync_torch.predictor import LipReader, MisalignmentScorer
 
         cfg = _serving_config(args)
+        # without --qscales an int8 reader calibrates on its first real batch
+        # (warm-up's dummy frames never calibrate it); the sync scorer stays f32
         transcriber = TranscribeService(
-            LipReader(checkpoint=args.checkpoint, config=cfg, device=args.device),
+            LipReader(checkpoint=args.checkpoint, config=cfg, device=args.device,
+                      quantize=args.quantize, calibration_scales=args.qscales),
             max_batch=args.max_batch, max_wait_ms=args.max_wait_ms, transport=args.transport)
         scorer = None
         if args.detector_checkpoint:
@@ -750,6 +811,9 @@ def build_parser() -> argparse.ArgumentParser:
     te.add_argument("--output", type=str, default=None)
     te.add_argument("--beam", type=int, default=0,
                     help="CTC beam width (0 = greedy, the reference decode)")
+    te.add_argument("--quantize", choices=["int8"], default=None,
+                    help="run the conv stack in int8 (ops/quant.py, calibrated on the first "
+                         "eval batch)")
     te.set_defaults(func=cmd_test)
 
     inf = sub.add_parser("infer", help="transcribe one .npy clip")
@@ -760,7 +824,20 @@ def build_parser() -> argparse.ArgumentParser:
                      help="torch device; default: the GPU (fails without one)")
     inf.add_argument("--beam", type=int, default=0,
                      help="CTC beam width (0 = greedy, the reference decode)")
+    inf.add_argument("--quantize", choices=["int8"], default=None,
+                     help="int8 conv stack, calibrated on this clip")
     inf.set_defaults(func=cmd_infer)
+
+    q = sub.add_parser("quantize", help="export int8 calibration scales for serving")
+    common(q)
+    q.add_argument("--checkpoint", type=str, required=True,
+                   help=".pth file or a port checkpoint directory")
+    q.add_argument("--out", type=str, default="qscales.npz",
+                   help="output .npz (input_scales and their provenance)")
+    q.add_argument("--n_calib", type=int, default=16,
+                   help="clips to calibrate on (absmax only grows with clips; a few "
+                        "representative ones suffice)")
+    q.set_defaults(func=cmd_quantize)
 
     ex = sub.add_parser("export", help="serving artifact through torch.export (preprocess, "
                                        "forward and CTC decode, weights baked in)")
@@ -801,9 +878,10 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--dp", type=int, default=1,
                     help="data-parallel serving over N devices; only 1 is ported")
     sv.add_argument("--quantize", choices=["int8"], default=None,
-                    help="int8 conv stack; not ported (raises)")
+                    help="int8 conv stack for /v1/transcribe (see `quantize`)")
     sv.add_argument("--qscales", type=str, default=None,
-                    help="int8 calibration scales; not ported (raises)")
+                    help="calibration scales .npz from `quantize` (either package's); "
+                         "without it, int8 calibrates on the first request")
     sv.add_argument("--warmup", action="store_true",
                     help="run every batch bucket before binding the port (kernel builds, "
                          "cuDNN plans) so the first request pays steady-state latency")

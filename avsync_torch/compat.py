@@ -18,6 +18,11 @@ that state dict:
 `lipnet_params_to_jax` is its inverse: it hands a port-trained model (or a
 dict of its gradients) back in the JAX package's layout.
 
+`quant_params_from_jax` carries the JAX package's int8 serving params
+(`avsync.ops.quant.QuantLipNetParams`) across: each int8 kernel from (kt, kh,
+kw, Cin, Cout) to (Cout, Cin, kt, kh, kw), its scales and bias as they are,
+the float params through `lipnet_params_from_jax`.
+
 The misalignment detector crosses the same way (`detector_params_from_jax`
 / `detector_params_to_jax`): its fc1 reads visual statistics that the JAX
 package orders (H, W, C) and the reference and the port (C, H, W), so fc1's
@@ -31,6 +36,8 @@ from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from avsync_torch.ops.quant import QuantConvParams, QuantLipNetParams, quant_conv_params
 
 # Conv-output geometry for the default 50x100 input: (C, H, W).
 DEFAULT_CONV_SHAPE: Tuple[int, int, int] = (96, 6, 12)
@@ -134,6 +141,31 @@ def lipnet_params_to_jax(
         params[f"gru{g}"] = layer
     params["fc"] = {"kernel": np32(sd["fc.weight"]).T, "bias": np32(sd["fc.bias"])}
     return params
+
+
+def quant_conv_from_jax(qc: Any) -> QuantConvParams:
+    """One JAX `QuantConvParams` block -> the port's, on the CPU: kernel_q
+    (kt, kh, kw, Cin, Cout) -> (Cout, Cin, kt, kh, kw); k_scale, bias and
+    x_scale as they are."""
+    kq = np.ascontiguousarray(np.asarray(qc.kernel_q, np.int8).transpose(4, 3, 0, 1, 2))
+    return quant_conv_params(torch.from_numpy(kq),
+                             torch.from_numpy(np.array(qc.k_scale, np.float32).reshape(-1)),
+                             torch.from_numpy(np.array(qc.bias, np.float32)),
+                             np.float32(np.asarray(qc.x_scale)))
+
+
+def quant_params_from_jax(
+    qp: Any,
+    num_gru: int = 2,
+    conv_shape: Tuple[int, int, int] = DEFAULT_CONV_SHAPE,
+) -> QuantLipNetParams:
+    """A JAX `QuantLipNetParams` (its arrays as numpy or jax arrays) -> the
+    port's `avsync_torch.ops.quant.QuantLipNetParams` on the CPU."""
+    convs = [quant_conv_from_jax(c) for c in qp.convs]
+    return QuantLipNetParams(
+        convs=tuple(convs),
+        float_params=lipnet_params_from_jax(qp.float_params, num_conv=len(convs),
+                                            num_gru=num_gru, conv_shape=conv_shape))
 
 
 def _cpu32(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

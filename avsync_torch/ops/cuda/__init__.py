@@ -5,6 +5,8 @@
   * `gru`      — whole-sequence GRU recurrence (csrc/gru_fwd.cu) and its
                  backward (csrc/gru_bwd.cu)
   * `mfcc`     — fused mel -> dB -> DCT -> MFCC statistics (csrc/mel_stats.cu)
+  * `quantconv` — int8 conv + dequant + ReLU + MaxPool block of int8 serving
+                 (csrc/int8_conv_pool.cu)
 
 Kernels are built with nvcc at first use (`build`), never at import.
 """

@@ -1,0 +1,239 @@
+"""int8 Conv3D + dequant + ReLU + MaxPool3D(1,2,2) block for int8 serving:
+the CUDA kernel Q1 and its plain twin.
+
+  * kernel: `avsync_torch/csrc/int8_conv_pool.cu` (Q1), the port of the int8
+    `lax.conv_general_dilated` block of `avsync/ops/quant.py:97-135`
+    (`quant_conv_block`; the JAX package has no Pallas kernel for it): it
+    quantizes the f32 block input with the static scale, runs the int8
+    convolution on the tensor cores with exact int32 sums, dequantizes, adds
+    the bias, applies ReLU and pools, in one launch; `launches` counts its
+    launches;
+  * plain version: `int8_conv_pool_ref`, the same function in PyTorch ops
+    (the convolution of the int8 values in float64, which is exact: every
+    partial sum is an integer below 2^53). It is the CPU path and the card's
+    oracle; nothing on the card's main path calls it.
+
+The block is the operator `avsync_torch::int8_conv_pool` (`int8_conv_pool_op`):
+Q1 for CUDA tensors, the plain version for CPU ones (the dispatcher chooses by
+the tensor's device), with an exact fake, so that a CUDA graph or a trace can
+hold it. A CUDA tensor launches the kernel or raises.
+
+Layouts: x (B, Cin, T, H, W) float32 at any strides; the kernel `kernel_q`
+(Cout, Cin, kt, kh, kw) int8, which the kernel reads packed once per load
+(`pack_kernel`: (Npad, Kpad) with k = ((dt*kh + dh)*kw + dw)*Cin + ci, rows
+and columns zero-padded to multiples of 32); out (B, Cout, T, H//2, W//2)
+float32, channels-last in memory (the next block's halo reads a position's
+channels contiguously), on both devices.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from avsync_torch.ops.cuda import build
+
+# Kernel launches since the last reset (the caller resets them to 0).
+launches = 0
+
+# avs_int8_conv_pool(x, w, scale, bias, out, x_scale, B, Cin, T, H, W, Cout,
+#                    kt, kh, kw, Kpad, Npad, tile_rows, tile_cols, pos_bytes,
+#                    5 x strides, 5 out strides, device, stream)
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_float] + [ctypes.c_int] * 14
+             + [ctypes.c_longlong] * 10 + [ctypes.c_int, ctypes.c_void_p])
+_SMEM_ARGTYPES = [ctypes.c_int] * 8
+
+MAX_SMEM = 232448  # shared memory one CTA can opt in to on sm_90
+# two CTAs per SM share its 228 KB, less 1 KB reserved per CTA
+TWO_PER_SM = 113 * 1024
+MAX_TILE_POSITIONS = 128  # pooled positions per CTA: 8 warp tasks of 16 rows
+
+
+def padded(n: int, m: int = 32) -> int:
+    return -(-n // m) * m
+
+
+def pos_bytes(cin: int) -> int:
+    """Bytes per halo position: Cin, or for Cin % 4 == 0 the smallest S >= Cin
+    with S = 8 mod 16 (a warp's eight A-fragment rows then fall on distinct
+    banks; csrc/int8_conv_pool.cu)."""
+    if cin % 4:
+        return cin
+    s = cin
+    while s % 16 != 8:
+        s += 4
+    return s
+
+
+def shared_memory_bytes(cin: int, kpad: int, kt: int, kh: int, kw: int, rows: int,
+                        cols: int) -> int:
+    """The kernel's `smem_bytes`: the offset table (an int per k, or per four
+    k when Cin % 4 == 0), then the int8 halo of the tile."""
+    entries = kpad // 4 if cin % 4 == 0 else kpad
+    return (padded(4 * entries, 16)
+            + kt * (2 * rows + kh - 1) * (2 * cols + kw - 1) * pos_bytes(cin))
+
+
+@functools.lru_cache(maxsize=256)
+def tile_for(H2: int, W2: int, cin: int, cout: int, kt: int, kh: int,
+             kw: int) -> Tuple[int, int]:
+    """(tile_rows, tile_cols) of pooled positions per CTA: the tile that
+    minimises an estimate of a frame's warp instructions (MMA tasks, each
+    task-chunk ~40 for 32-bit A loads and ~140 for byte gathers, counted for
+    all eight warps of a CTA whether they have a task or not, plus ~0.6 per
+    staged halo value and a fixed 200 per CTA), within the shared memory of
+    two CTAs per SM if any tile fits there, else of one. Raises where even a
+    single pooled position's halo does not fit."""
+    kpad = padded(cin * kt * kh * kw)
+    chunks, ngroups = kpad // 32, padded(cout) // 32
+    per_chunk = 40 if cin % 4 == 0 else 140
+    for budget in (TWO_PER_SM, MAX_SMEM):
+        best = None
+        for rows in range(1, min(H2, MAX_TILE_POSITIONS) + 1):
+            for cols in range(1, min(W2, MAX_TILE_POSITIONS // rows) + 1):
+                if shared_memory_bytes(cin, kpad, kt, kh, kw, rows, cols) > budget:
+                    continue
+                tasks = -(-rows * cols // 16) * ngroups
+                halo = kt * (2 * rows + kh - 1) * (2 * cols + kw - 1) * cin
+                cta = 8 * -(-tasks // 8) * chunks * per_chunk + 0.6 * halo + 200
+                cost = -(-H2 // rows) * -(-W2 // cols) * cta
+                if best is None or cost < best[0]:
+                    best = (cost, rows, cols)
+        if best is not None:
+            return best[1], best[2]
+    raise ValueError(
+        f"int8_conv_pool: one pooled position of a {kt}x{kh}x{kw} kernel over {cin} input "
+        f"channels needs {shared_memory_bytes(cin, kpad, kt, kh, kw, 1, 1)} bytes of shared "
+        f"memory for its halo and offset table; one CTA of sm_90 has {MAX_SMEM}")
+
+
+def pack_kernel(kernel_q: torch.Tensor) -> torch.Tensor:
+    """(Cout, Cin, kt, kh, kw) int8 -> (Npad, Kpad) int8, each row one output
+    channel's taps with their channels contiguous, zero-padded: the layout
+    Q1's B fragments read (done once per load)."""
+    cout = kernel_q.shape[0]
+    flat = kernel_q.permute(0, 2, 3, 4, 1).reshape(cout, -1)
+    out = kernel_q.new_zeros(padded(cout), padded(flat.shape[1]))
+    out[:cout, :flat.shape[1]] = flat
+    return out
+
+
+def unpack_kernel(packed: torch.Tensor, cout: int, cin: int, kt: int, kh: int,
+                  kw: int) -> torch.Tensor:
+    """The inverse of `pack_kernel`."""
+    flat = packed[:cout, :cin * kt * kh * kw]
+    return flat.reshape(cout, kt, kh, kw, cin).permute(0, 4, 1, 2, 3)
+
+
+def quantize_input(x: torch.Tensor, x_scale: float) -> torch.Tensor:
+    """clip(round(x / x_scale), -127, 127) as float values, round half to even.
+    The divisor is a tensor on x's device: PyTorch's CUDA division by a host
+    scalar multiplies by its reciprocal, which is not the true quotient."""
+    s = torch.tensor(x_scale, dtype=torch.float32, device=x.device)
+    return torch.clamp(torch.round(x / s), -127, 127)
+
+
+def _dequant_pool(acc: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """float32(acc) * scale + bias (two roundings, no FMA), ReLU, pool."""
+    view = (1, -1, 1, 1, 1)
+    y = acc.to(torch.float32) * scale.view(view)
+    return F.max_pool3d(F.relu(y + bias.view(view)), (1, 2, 2))
+
+
+def _ref(x, kernel_q, scale, bias, x_scale: float) -> torch.Tensor:
+    kt, kh, kw = kernel_q.shape[2:]
+    xq = quantize_input(x.to(torch.float32), x_scale)
+    acc = F.conv3d(xq.double(), kernel_q.double(),
+                   padding=((kt - 1) // 2, (kh - 1) // 2, (kw - 1) // 2))
+    # integers below 2^53: exact, whatever the algorithm (round() only guards
+    # a transform-based algorithm's rounding of a few ulps)
+    return _dequant_pool(acc.round().to(torch.int32), scale, bias)
+
+
+def int8_conv_pool_ref(x: torch.Tensor, kernel_q: torch.Tensor, k_scale: torch.Tensor,
+                       bias: torch.Tensor, x_scale: float) -> torch.Tensor:
+    """Plain version: maxpool(relu(float32(conv3d(q(x), kernel_q)) *
+    (x_scale * k_scale) + bias)), NCDHW, q(x) = `quantize_input`; the
+    convolution of the int8 values in float64 (exact), then int32, then f32."""
+    scale = torch.tensor(x_scale, dtype=torch.float32) * k_scale.to("cpu", torch.float32)
+    return _ref(x, kernel_q, scale.to(x.device), bias, x_scale)
+
+
+def _out_empty(x: torch.Tensor, cout: int) -> torch.Tensor:
+    B, _, T, H, W = x.shape
+    return x.new_empty(B, T, H // 2, W // 2, cout, dtype=torch.float32).permute(0, 4, 1, 2, 3)
+
+
+def _int8_conv_pool_cuda(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                         bias: torch.Tensor, x_scale: float, cout: int, kt: int, kh: int,
+                         kw: int) -> torch.Tensor:
+    """One Q1 launch."""
+    global launches
+    B, cin, T, H, W = x.shape
+    dev = x.device
+    if x.dtype != torch.float32:
+        raise ValueError("int8_conv_pool: x must be float32")
+    if packed.device != dev or packed.dtype != torch.int8 or not packed.is_contiguous():
+        raise ValueError(f"int8_conv_pool: the packed kernel must be contiguous int8 on {dev}")
+    for name, t in (("scale", scale), ("bias", bias)):
+        if (t.device != dev or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.shape != (cout,)):
+            raise ValueError(f"int8_conv_pool: {name} must be ({cout},) contiguous float32 "
+                             f"on {dev}")
+    kpad, npad = padded(cin * kt * kh * kw), padded(cout)
+    if packed.shape != (npad, kpad):
+        raise ValueError(f"int8_conv_pool: packed kernel {tuple(packed.shape)}, expected "
+                         f"{(npad, kpad)}")
+    rows, cols = tile_for(H // 2, W // 2, cin, cout, kt, kh, kw)
+    out = _out_empty(x, cout)
+    fn = build.function("int8_conv_pool", "avs_int8_conv_pool", _ARGTYPES)
+    err = fn(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+             out.data_ptr(), x_scale, B, cin, T, H, W, cout, kt, kh, kw, kpad, npad, rows,
+             cols, pos_bytes(cin), *x.stride(), *out.stride(), dev.index,
+             torch.cuda.current_stream(dev).cuda_stream)
+    build.check("int8_conv_pool", err, "int8_conv_pool launch")
+    launches += 1
+    return out
+
+
+# The block as an operator: Q1 for CUDA tensors, the plain version for CPU
+# ones, so that a CUDA graph or a trace holds it as one node.
+int8_conv_pool_op = torch.library.custom_op("avsync_torch::int8_conv_pool",
+                                            _int8_conv_pool_cuda, mutates_args=(),
+                                            device_types="cuda")
+
+
+@int8_conv_pool_op.register_kernel("cpu")
+def _int8_conv_pool_cpu(x, packed, scale, bias, x_scale, cout, kt, kh, kw):
+    kernel_q = unpack_kernel(packed, cout, x.shape[1], kt, kh, kw)
+    out = _out_empty(x, cout)
+    out.copy_(_ref(x, kernel_q, scale, bias, x_scale))
+    return out
+
+
+@int8_conv_pool_op.register_fake
+def _int8_conv_pool_fake(x, packed, scale, bias, x_scale, cout, kt, kh, kw):
+    return _out_empty(x, cout)
+
+
+def check_geometry(x: torch.Tensor, kernel_shape, x_scale: float) -> None:
+    """Raise on what neither version takes: the JAX block's SAME padding is
+    symmetric only for odd kernels; the static scale must be positive."""
+    if x.dim() != 5:
+        raise ValueError(f"int8_conv_pool: x must be (B, Cin, T, H, W), got {tuple(x.shape)}")
+    cout, kcin, kt, kh, kw = kernel_shape
+    if x.shape[1] != kcin:
+        raise ValueError(f"int8_conv_pool: x has {x.shape[1]} channels, the kernel {kcin}")
+    if not (kt % 2 and kh % 2 and kw % 2):
+        raise ValueError("int8_conv_pool needs odd kernel sizes (symmetric SAME padding)")
+    if x.shape[3] < 2 or x.shape[4] < 2:
+        raise ValueError("int8_conv_pool needs H and W of at least 2 (a (1,2,2) pool)")
+    if not (math.isfinite(x_scale) and x_scale > 0):
+        raise ValueError(f"int8_conv_pool: the input scale must be positive, got {x_scale}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"int8_conv_pool: unsupported device {x.device}")

@@ -1,0 +1,176 @@
+"""int8 post-training quantization for LipNet serving (port of
+`avsync/ops/quant.py`, float32 and the pytorch family only).
+
+The scheme is the JAX package's static PTQ:
+  * weights: symmetric per-output-channel int8 (scale = absmax/127 over
+    (Cin, kt, kh, kw) per Cout; 1 for an all-zero channel);
+  * activations: symmetric per-tensor int8 with STATIC scales, each block
+    input's absmax/127 over a few calibration batches, so quantizing is an
+    elementwise step inside the block's kernel;
+  * accumulation in exact int32, dequantized as acc * (x_scale * k_scale[c])
+    + bias[c], then ReLU and the (1,2,2) max pool;
+  * the BiGRU layers and the FC head stay float32 and run from the float
+    state dict (K2 when `use_pallas_gru`), as `lipnet_int8_apply` does.
+
+Each conv block is one launch of Q1 (`ops/cuda/quantconv.py`,
+`csrc/int8_conv_pool.cu`) on the card and its plain version on the CPU,
+chosen by the tensor's device. The JAX package's pack4 path is its TPU
+layout trick with the same bits as the plain block (tests/test_quant.py);
+the port has none.
+
+Layouts are the port's: kernels (Cout, Cin, kt, kh, kw), activations NCDHW,
+and the conv output flattens in (C, H, W) order, so the reference-layout GRU
+and FC weights apply unchanged (`compat.quant_params_from_jax` carries a JAX
+`QuantLipNetParams` across).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from avsync_torch.config import ModelConfig
+from avsync_torch.ops.cuda import quantconv
+from avsync_torch.ops.gru import GRUWeights, bigru
+
+
+class QuantConvParams(NamedTuple):
+    """One quantized Conv3D+ReLU+Pool block. `packed` and `scale` are what Q1
+    reads, made once by `quant_conv_params`."""
+
+    kernel_q: torch.Tensor  # int8 (Cout, Cin, kt, kh, kw)
+    k_scale: torch.Tensor  # f32 (Cout,), symmetric per output channel
+    bias: torch.Tensor  # f32 (Cout,)
+    x_scale: torch.Tensor  # f32 (), on the CPU: the static scale of the block's INPUT
+    packed: torch.Tensor  # int8 (Npad, Kpad), `quantconv.pack_kernel`
+    scale: torch.Tensor  # f32 (Cout,) = x_scale * k_scale
+
+
+class QuantLipNetParams(NamedTuple):
+    """int8 conv stack + the float32 state dict (reference layout) whose BiGRU
+    and FC weights the int8 forward reads."""
+
+    convs: Tuple[QuantConvParams, ...]
+    float_params: Dict[str, torch.Tensor]
+
+
+def quant_conv_params(kernel_q: torch.Tensor, k_scale: torch.Tensor, bias: torch.Tensor,
+                      x_scale) -> QuantConvParams:
+    """A block's params on kernel_q's device, with the packed kernel and the
+    epilogue scale (x_scale * k_scale, one f32 multiply, as the JAX block)."""
+    dev = kernel_q.device
+    xs = torch.tensor(float(np.float32(x_scale)), dtype=torch.float32)
+    k_scale = k_scale.reshape(-1).to(torch.float32)
+    return QuantConvParams(
+        kernel_q=kernel_q, k_scale=k_scale.to(dev), bias=bias.to(dev, torch.float32),
+        x_scale=xs, packed=quantconv.pack_kernel(kernel_q),
+        scale=(xs * k_scale.cpu()).to(dev).contiguous())
+
+
+def quantize_symmetric(x: torch.Tensor, axes: Sequence[int]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization: q = round(x / s), s = absmax/127 over
+    `axes` (kept axes get their own scale); an all-zero slice gets scale 1,
+    so q is exactly 0. Returns (q int8, s float32 with x's rank)."""
+    amax = x.abs().amax(dim=tuple(axes), keepdim=True)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax)).to(torch.float32)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def quant_conv_block(qc: QuantConvParams, x: torch.Tensor) -> torch.Tensor:
+    """int8 Conv3D -> dequant -> ReLU -> MaxPool3D(1,2,2), NCDHW: (B, Cin, T,
+    H, W) float32 -> (B, Cout, T, H//2, W//2) float32. The quantize step is
+    inside: Q1 on a CUDA tensor, its plain version on a CPU one."""
+    x_scale = float(qc.x_scale)
+    quantconv.check_geometry(x, tuple(qc.kernel_q.shape), x_scale)
+    cout, _, kt, kh, kw = qc.kernel_q.shape
+    return quantconv.int8_conv_pool_op(x.to(torch.float32), qc.packed, qc.scale, qc.bias,
+                                       x_scale, cout, kt, kh, kw)
+
+
+def _conv_blocks(model) -> list:
+    return [getattr(model, f"conv{i + 1}") for i in range(len(model.cfg.conv_channels))]
+
+
+def calibrate_conv_input_scales(model, batches: Sequence) -> np.ndarray:
+    """Per-layer input absmax/127 over calibration batches of (B, T, H, W, 1)
+    clips, running the f32 model's own conv blocks (K1 for conv1 on the card
+    when `fused_conv_pool`, cuDNN with TF32 off for the others; there is no
+    dropout inside a block). Returns (n_layers,) float32."""
+    convs = _conv_blocks(model)
+    dev = next(model.parameters()).device
+    amax = np.zeros(len(convs), np.float32)
+    with torch.no_grad():
+        for b in batches:
+            x = torch.as_tensor(b, dtype=torch.float32).to(dev).permute(0, 4, 1, 2, 3)
+            got = []
+            for block in convs:
+                got.append(x.abs().amax())
+                x = block(x)
+            amax = np.maximum(amax, torch.stack(got).cpu().numpy())
+    return np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+
+
+def quantize_lipnet(model, calibration_batches: Sequence,
+                    input_scales: Optional[np.ndarray] = None) -> QuantLipNetParams:
+    """f32 LipNet -> int8 serving params on the model's device.
+
+    `calibration_batches`: a few (B, T, H, W, 1) preprocessed batches, the
+    preprocessing serving runs. `input_scales` (n_layers,) skips calibration
+    (a deployment's exported scales)."""
+    convs = _conv_blocks(model)
+    if input_scales is None:
+        if not calibration_batches:
+            raise ValueError("quantize_lipnet needs calibration batches or input_scales")
+        input_scales = calibrate_conv_input_scales(model, calibration_batches)
+    input_scales = np.asarray(input_scales, np.float32).reshape(-1)
+    if input_scales.shape != (len(convs),):
+        raise ValueError(f"{input_scales.shape[0]} input scales for {len(convs)} conv layers")
+    qconvs = []
+    for block, xs in zip(convs, input_scales):
+        kq, ks = quantize_symmetric(block.weight.detach(), axes=(1, 2, 3, 4))
+        qconvs.append(quant_conv_params(kq, ks, block.bias.detach(), xs))
+    return QuantLipNetParams(convs=tuple(qconvs),
+                             float_params={k: v.detach() for k, v in model.state_dict().items()})
+
+
+def lipnet_int8_apply(qp: QuantLipNetParams, x: torch.Tensor,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """Quantized LipNet forward: (B, T, H, W, 1) -> (B, T, vocab) float32
+    log-probs. The model's eval forward with the conv stack in int8: the
+    features flatten in (C, H, W) order, then the BiGRU layers (K2 when
+    `cfg.use_pallas_gru`) and the FC head from `qp.float_params`."""
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
+    x = x.permute(0, 4, 1, 2, 3)
+    for qc in qp.convs:
+        x = quant_conv_block(qc, x)
+    B, C, T, h, w = x.shape
+    x = x.permute(0, 2, 1, 3, 4).reshape(B, T, C * h * w)
+    p = qp.float_params
+
+    def weights(layer: int, suffix: str) -> GRUWeights:
+        return GRUWeights(*(p[f"gru{layer}.{name}_l0{suffix}"]
+                            for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")))
+
+    for i in range(1, cfg.num_gru_layers + 1):
+        x = bigru(x, weights(i, ""), weights(i, "_reverse"), cfg.use_pallas_gru)
+    return F.log_softmax(F.linear(x, p["fc.weight"], p["fc.bias"]), dim=-1)
+
+
+def make_int8_forward(model_cfg: ModelConfig):
+    """`qfwd(qparams, video) -> log_probs`, the one family switch that eval
+    (`cli._evaluate`), infer and serving (`predictor.LipReader`) share."""
+    if model_cfg.family != "pytorch":
+        raise NotImplementedError(
+            f"int8 serving of the {model_cfg.family!r} LipNet family is not ported "
+            "(ROADMAP §1 item 13, the TF-family LipNet)")
+
+    def qfwd(qp: QuantLipNetParams, video: torch.Tensor) -> torch.Tensor:
+        return lipnet_int8_apply(qp, video, model_cfg)
+
+    return qfwd

@@ -6,8 +6,9 @@ greedy CTC; `MisalignmentScorer` turns (frames, audio, fps, shifts) into
 audio-visual sync probabilities. Both run on the card unless the caller
 passes `device="cpu"`; with `device=None` and no GPU they raise instead of
 falling back. Ported so far: the heuristic mouth ROI for native-size frames
-and the pre-cropped path; not yet the detector/variance/model ROI modes,
-int8 or a mesh.
+and the pre-cropped path, and int8 serving of the transcriber
+(`LipReader(quantize="int8")`); not yet the detector/variance/model ROI
+modes or a mesh.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from avsync_torch.models.lipnet import LipNet
 from avsync_torch.ops import image as imglib
 from avsync_torch.ops.audio import shifted_audio_stats
 from avsync_torch.ops.conv import fp32_step
+from avsync_torch.ops.quant import make_int8_forward, quantize_lipnet
 
 
 def resolve_device(device=None) -> torch.device:
@@ -77,6 +79,20 @@ def prepare_clip(frames: np.ndarray, cfg: AvsyncConfig,
     return preprocess(x, cfg)
 
 
+def load_input_scales(scales, family: str) -> np.ndarray:
+    """Per-layer int8 input scales from a `quantize` export (an `.npz` path,
+    the JAX package's keys) or an array; a file exported for another model
+    family raises."""
+    if isinstance(scales, str):
+        with np.load(scales) as z:
+            zfam = str(z["family"]) if "family" in z else None
+            if zfam is not None and zfam != family:
+                raise ValueError(f"calibration scales exported for family {zfam!r}, "
+                                 f"model is {family!r}")
+            scales = z["input_scales"]
+    return np.asarray(scales, np.float32)
+
+
 def _require_heuristic_roi(cfg: AvsyncConfig) -> None:
     if cfg.data.roi_mode != "heuristic":
         raise NotImplementedError(
@@ -113,16 +129,45 @@ class LipReader:
     Weights come from `checkpoint` (a reference `.pth`, either layout) or
     `params`: a state dict in the port's (reference) layout, or the JAX
     package's nested param dict, which goes through the weight bridge.
+
+    `quantize="int8"` runs the conv stack in int8 (`ops/quant.py`: Q1 on the
+    card, three launches per batch) with static activation scales; the BiGRU
+    layers and the head stay float32. Calibration sources, in order of
+    precedence:
+      1. `calibration_scales`: the per-layer input scales of a `quantize`
+         export (an `.npz` path, from either package, or the (n_layers,)
+         array); the deployment needs no calibration data;
+      2. `calibration_frames`: a few representative (T, H, W) clips;
+      3. lazily, the first batch predicted.
     """
 
     def __init__(self, checkpoint: Optional[str] = None,
                  params: Optional[Mapping] = None,
-                 config: Optional[AvsyncConfig] = None, device=None):
+                 config: Optional[AvsyncConfig] = None, device=None,
+                 quantize: Optional[str] = None,
+                 calibration_frames: Optional[Sequence[np.ndarray]] = None,
+                 calibration_scales=None):
         self.cfg = config or AvsyncConfig()
         self.device = resolve_device(device)
         _require_heuristic_roi(self.cfg)
         self.model = load_lipnet(self.cfg, lipnet_state(self.cfg, checkpoint, params),
                                  self.device)
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unsupported quantize mode: {quantize!r}")
+        self._quantize = quantize
+        self._qparams = None
+        # set (briefly) by TranscribeService.warmup: warm-up's dummy frames
+        # must never become the persistent int8 calibration set
+        self._warming = False
+        if quantize == "int8":
+            self._qfwd = make_int8_forward(self.cfg.model)
+            if calibration_scales is not None:
+                self._qparams = quantize_lipnet(
+                    self.model, [], input_scales=load_input_scales(calibration_scales,
+                                                                   self.cfg.model.family))
+            elif calibration_frames:
+                self._qparams = quantize_lipnet(
+                    self.model, [self._prepare(f) for f in calibration_frames])
 
     def _prepare(self, frames: np.ndarray) -> torch.Tensor:
         return prepare_clip(frames, self.cfg, self.device)
@@ -141,7 +186,18 @@ class LipReader:
 
     def _logprobs(self, clips: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            return self.model(clips.to(self.device))
+            clips = clips.to(self.device)
+            if self._quantize is None:
+                return self.model(clips)
+            if self._qparams is None:  # lazy calibration on the first input
+                qp = quantize_lipnet(self.model, [clips])
+                if self._warming:
+                    # throwaway params: warm-up's all-zero frames would set
+                    # every scale to the absmax-0 fallback (1.0), and real
+                    # [0, 1] inputs would then round to 0 or 1 for good
+                    return self._qfwd(qp, clips)
+                self._qparams = qp
+            return self._qfwd(self._qparams, clips)
 
     def _decode(self, log_probs) -> List[str]:
         return textlib.decode_batch(log_probs)

@@ -293,7 +293,14 @@ class TranscribeService:
             stacked = tuple(np.concatenate([p] * b, axis=0) for p in parts)
             self.batcher._infer_fn(stacked if self.transport == "raw" else stacked[0])
 
-        self.batcher.warm_buckets(run)
+        # _warming keeps an uncalibrated int8 reader from adopting these
+        # dummy frames as its calibration set: the first real batch
+        # calibrates it (a caller's example frames stay non-binding too)
+        self.reader._warming = True
+        try:
+            self.batcher.warm_buckets(run)
+        finally:
+            self.reader._warming = False
 
     def close(self) -> None:
         self.batcher.close()

@@ -6,8 +6,9 @@
 Phases (any failure exits non-zero; no phase's failure is caught):
   1. card: nvidia-smi name and power limit, torch/CUDA versions, TF32 flags
      (both set off: the port computes in full fp32);
-  2. build: nvcc builds every kernel of the serving, training and detector
-     paths from avsync_torch/csrc/ (one process per source, started together);
+  2. build: nvcc builds every kernel of the serving, training, detector and
+     int8 serving paths from avsync_torch/csrc/ (one process per source,
+     started together);
   3. kernels: each LipNet kernel (K1 conv1_pool, K2 gru_fwd, K3 gru_bwd, K4
      conv1_pool_bwd) against its plain PyTorch version on the card, at the
      main paths' shapes, at the batch sizes users train at (B = 16, 32 and
@@ -102,11 +103,30 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      --warmup, an artifact call against the live path at B = 1 and 8 (CUDA
      events); f. `cli test --beam 4` and `--beam 0` on phase 5's corpus and
      checkpoint (--beam 0 repeats phase 5's results);
-  11. the kernels: a text line with the state of every TPU kernel of the
-     JAX package, and one JSON line with the measured numbers (launches from
-     the training slices, the serving slices', the daemons' and the graph
-     replays' beside them);
-  12. the card's name/power line, then the status JSON as the last line.
+  11. int8 serving: a. Q1 int8_conv_pool against its plain version, equal
+     bit for bit (torch.equal), at LipNet's three conv blocks at full width
+     (B = 1, 8, 32) and at odd geometries (Cin = 1, 3, 12, 64; odd H or W; a
+     pooled row wider than any tile; exact-half ties; the largest
+     accumulators), a repeat launch equal too; b. kernel, plain, library
+     (im2col gather + `torch._int_mm` + the same dequant, ReLU and pool,
+     held equal to Q1) and f32 cuDNN times per block at B=8 (CUDA events)
+     and the bound (int8 operations over 1,979 TOPS or bytes over 3.35
+     TB/s); c. `cli quantize` on phase 5's corpus and checkpoint, `cli test
+     --quantize int8` beside phase 5's f32 results, `cli infer --quantize
+     int8` against a fresh int8 reader; d. `cli serve --quantize int8
+     --qscales --warmup` (phase 10's weights, scales from `cli quantize`) as a
+     child process under phase 10's 64 crops: transcripts equal an in-process
+     int8 LipReader's on the same scales, p50/p99 and clips/s beside phase
+     10's f32 daemon, SIGTERM drain; launches through an in-process int8
+     daemon: per batch Q1 three times, K2 twice, K1 and the backward kernels
+     never; e. the full-width int8 forward against the f32 forward at B=8
+     within the JAX package's bounds (mean |d log-prob| < 0.05, argmax
+     agreement >= 0.95), and both forwards' times;
+  12. the kernels: a text line with the state of every TPU kernel of the
+     JAX package (and Q1), and one JSON line with the measured numbers
+     (launches from the training slices, the serving slices', the daemons'
+     and the graph replays' beside them);
+  13. the card's name/power line, then the status JSON as the last line.
 
 Exits with 2 and prints no result without a GPU or outside a checkout.
 """
@@ -750,10 +770,10 @@ def counts():
 
 
 def zero_counts():
-    from avsync_torch.ops.cuda import convpool, gru, mfcc
+    from avsync_torch.ops.cuda import convpool, gru, mfcc, quantconv
 
     convpool.launches = convpool.bwd_launches = gru.launches = gru.bwd_launches = 0
-    mfcc.launches = 0
+    mfcc.launches = quantconv.launches = 0
 
 
 def run_training(dev, workdir: str):
@@ -1354,6 +1374,33 @@ def traced(fn):
     found = {k: sum(n for name, n in names.items() if pat in name)
              for k, pat in KERNEL_NAMES.items()}
     return out, wall, busy, found, names
+
+
+def traced_step(fn):
+    """(device busy ms, {kernel name: count}) of one fn() recorded by
+    torch.profiler after a first, warm-up fn() under the same profiler (the
+    tracer's start-up drops a short window's first kernels)."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    busy, names = [0.0], {}
+
+    def record(prof):  # called once, when the active step ends
+        for evt in prof.events():
+            if (evt.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(evt, "is_user_annotation", False)):
+                busy[0] += evt.time_range.elapsed_us() / 1e3
+                names[evt.name] = names.get(evt.name, 0) + 1
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts, on_trace_ready=record,
+                                schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                                 active=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return busy[0], names
 
 
 def path_times(label, steps, wall_ms, traced_ms, busy_ms, stamps):
@@ -2126,6 +2173,309 @@ def run_serving(dev, workdir, corpus, ckpt_dir, test_config, greedy_results, smi
         raise SystemExit("test --beam 4 wrote a wrong result")
     out["beam"] = res
     print(f"  serving phase numbers [{smi}]: {json.dumps(out)}", flush=True)
+    return out, crops
+
+
+# ---------------------------------------------------------------------------
+# 11. int8 serving (Q1)
+# ---------------------------------------------------------------------------
+
+INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate (data sheet)
+# LipNet's three conv blocks at full width: (Cin, Cout, H, W, kernel)
+INT8_BLOCKS = {"conv1": (1, 32, 50, 100, (3, 5, 5)), "conv2": (32, 64, 25, 50, (3, 5, 5)),
+               "conv3": (64, 96, 12, 25, (3, 3, 3))}
+
+
+def channels_last(x):
+    """x (B, C, T, H, W) with its channels contiguous, as Q1 writes its
+    output (the layout the int8 forward gives conv2 and conv3)."""
+    return x.permute(0, 2, 3, 4, 1).contiguous().permute(0, 4, 1, 2, 3)
+
+
+def q1_case(g, dev, B, cin, cout, T, H, W, k, mode="random"):
+    """(QuantConvParams, x) on the card, as tests/test_torch_kernels_cuda.py's:
+    'random' x around 0.3 with negative values, random int8 weights and
+    scales, x_scale = absmax/127; 'ties' x in quarters with x_scale 0.5
+    (exact halves to round, values past the clip); 'extreme' the largest
+    accumulators (every x at +127 steps, every weight 127)."""
+    import torch
+
+    from avsync_torch.ops.quant import quant_conv_params
+
+    kq = torch.randint(-127, 128, (cout, cin, *k), generator=g, dtype=torch.int8)
+    ks = torch.rand(cout, generator=g) * 0.01 + 1e-4
+    bias = torch.randn(cout, generator=g) * 0.1
+    if mode == "ties":
+        x = torch.randint(-300, 301, (B, cin, T, H, W), generator=g).float() / 4
+        xs = 0.5
+    elif mode == "extreme":
+        kq.fill_(127)
+        xs = 0.01
+        x = torch.full((B, cin, T, H, W), 127 * xs)
+    else:
+        x = torch.randn(B, cin, T, H, W, generator=g) * 0.5 + 0.3
+        xs = float(x.abs().max()) / 127
+    return quant_conv_params(kq.to(dev), ks, bias, xs), x.to(dev)
+
+
+def im2col_int_mm_block(qc, x):
+    """The library yardstick for one int8 block (nothing in the port calls
+    it): quantize, an im2col gather of the int8 input (K zero-padded to a
+    multiple of 8), `torch._int_mm`, then the same dequant, ReLU and pool in
+    PyTorch ops."""
+    import torch
+    import torch.nn.functional as F
+
+    from avsync_torch.ops.cuda import quantconv
+
+    B, cin, T, H, W = x.shape
+    cout, _, kt, kh, kw = qc.kernel_q.shape
+    K = cin * kt * kh * kw
+    k8 = -(-K // 8) * 8
+    xq = quantconv.quantize_input(x, float(qc.x_scale)).to(torch.int8)
+    xp = F.pad(xq, ((kw - 1) // 2, (kw - 1) // 2, (kh - 1) // 2, (kh - 1) // 2,
+                    (kt - 1) // 2, (kt - 1) // 2))
+    cols = xp.unfold(2, kt, 1).unfold(3, kh, 1).unfold(4, kw, 1)  # (B, Cin, T, H, W, kt, kh, kw)
+    a = cols.permute(0, 2, 3, 4, 5, 6, 7, 1).reshape(B * T * H * W, K)
+    if k8 != K:
+        a = F.pad(a, (0, k8 - K))
+    acc = torch._int_mm(a, qc.packed[:cout, :k8].t())
+    acc = acc.view(B, T, H, W, cout).permute(0, 4, 1, 2, 3)
+    return quantconv._dequant_pool(acc, qc.scale, qc.bias)
+
+
+def check_int8_conv_pool(dev, smi):
+    """Phase 11a-b: Q1 against its plain version at LipNet's three blocks at
+    full width (B = 1, 8, 32) and at odd geometries, equal bit for bit, a
+    repeat launch equal too; then kernel, plain, library (im2col +
+    `torch._int_mm`) and f32 cuDNN times at B=8 (CUDA events) and the bound.
+    conv2's and conv3's inputs are channels-last at T=75, as the int8
+    forward gives them (conv1's is the model input, W contiguous)."""
+    import torch
+
+    from avsync_torch.ops.conv import conv_relu_pool
+    from avsync_torch.ops.cuda import quantconv
+    from avsync_torch.ops.quant import quant_conv_block
+
+    g = torch.Generator(device="cpu").manual_seed(60)
+    print("int8_conv_pool (Q1) vs int8_conv_pool_ref (torch.equal required):", flush=True)
+    cases = [(B, cin, cout, 75, H, W, k, "random")
+             for (cin, cout, H, W, k) in INT8_BLOCKS.values() for B in (1, 8, 32)]
+    cases += [(2, 3, 5, 5, 9, 13, (1, 3, 5), "random"), (3, 64, 40, 4, 13, 27, (3, 3, 3), "random"),
+              (2, 1, 7, 3, 7, 201, (5, 1, 3), "random"), (2, 12, 33, 2, 6, 10, (3, 5, 5), "random"),
+              (2, 32, 64, 3, 25, 50, (3, 5, 5), "ties"), (1, 1, 32, 3, 50, 100, (3, 5, 5), "ties"),
+              (1, 32, 64, 3, 25, 50, (3, 5, 5), "extreme")]
+    for B, cin, cout, T, H, W, k, mode in cases:
+        qc, x = q1_case(g, dev, B, cin, cout, T, H, W, k, mode)
+        if T == 75 and cin > 1:  # LipNet's conv2/conv3 inputs: the int8 forward's layout
+            x = channels_last(x)
+        got = quant_conv_block(qc, x)
+        again = quant_conv_block(qc, x)
+        want = quantconv.int8_conv_pool_ref(x, qc.kernel_q, qc.k_scale, qc.bias,
+                                            float(qc.x_scale))
+        torch.cuda.synchronize()
+        tile = quantconv.tile_for(H // 2, W // 2, cin, cout, *k)
+        ok = got.shape == want.shape and torch.equal(got, want) and torch.equal(got, again)
+        print(f"  B={B} Cin={cin} Cout={cout} T={T} {H}x{W} k={k} {mode} (tile {tile[0]}x"
+              f"{tile[1]}): {'equal bit for bit, repeat equal' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"kernel check failed: Q1 at B={B} Cin={cin} {H}x{W} {mode}")
+        del x, got, again, want
+
+    times, blocks = {}, {}
+    B, T = 8, 75
+    for name, (cin, cout, H, W, k) in INT8_BLOCKS.items():
+        qc, x = q1_case(g, dev, B, cin, cout, T, H, W, k)
+        if cin > 1:  # the int8 forward's layout
+            x = channels_last(x)
+        lib = im2col_int_mm_block(qc, x)
+        if not torch.equal(lib, quant_conv_block(qc, x)):
+            raise SystemExit(f"the im2col + _int_mm yardstick differs from Q1 at {name}")
+        w32 = (qc.kernel_q.float() * qc.k_scale.view(-1, 1, 1, 1, 1)).contiguous()
+        ms = time_ms(lambda: quant_conv_block(qc, x))
+        plain = time_ms(lambda: quantconv.int8_conv_pool_ref(
+            x, qc.kernel_q, qc.k_scale, qc.bias, float(qc.x_scale)), iters=3, warmup=1)
+        lib_ms = time_ms(lambda: im2col_int_mm_block(qc, x), iters=3, warmup=1)
+        f32_ms = time_ms(lambda: conv_relu_pool(x, w32, qc.bias), iters=5, warmup=2)
+        H2, W2 = H // 2, W // 2
+        K = cin * k[0] * k[1] * k[2]
+        n_ops = 2 * B * T * (2 * H2) * (2 * W2) * cout * K
+        n_bytes = 4 * x.numel() + cout * K + 8 * cout + 4 * B * cout * T * H2 * W2
+        blocks[name] = {"ms": ms, "plain_ms": plain, "library_ms": lib_ms,
+                        "cudnn_f32_ms": f32_ms, "int8_gops": n_ops / 1e9,
+                        "mb": n_bytes / 1e6, "tile": quantconv.tile_for(H2, W2, cin, cout, *k),
+                        "bound_ms": max(n_bytes / HBM_BYTES_PER_S, n_ops / INT8_OPS) * 1e3}
+        times[name] = (n_bytes, n_ops)
+        print(f"  {name} B=8 T=75 {H}x{W} {cin}->{cout}: kernel_ms={ms:.4f} plain_ms="
+              f"{plain:.4f} library_ms={lib_ms:.4f} (im2col + _int_mm) cudnn_f32_ms="
+              f"{f32_ms:.4f} bound_ms={blocks[name]['bound_ms']:.4f} "
+              f"({n_ops / 1e9:.1f} G int8 ops, {n_bytes / 1e6:.1f} MB) [{smi}]", flush=True)
+        del qc, x, lib
+    torch.cuda.empty_cache()
+    n_bytes = sum(b for b, _ in times.values())
+    n_ops = sum(o for _, o in times.values())
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / INT8_OPS * 1e3
+    return dict(name="int8_conv_pool", route="cuda", source="avsync_torch/csrc/int8_conv_pool.cu",
+                replaces="avsync/ops/quant.py:97", max_abs_err=0.0,
+                ms=sum(b["ms"] for b in blocks.values()),
+                plain_ms=sum(b["plain_ms"] for b in blocks.values()),
+                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else
+                "operations", library_ms=sum(b["library_ms"] for b in blocks.values()),
+                cudnn_f32_ms=sum(b["cudnn_f32_ms"] for b in blocks.values()),
+                shape="B=8 T=75 full width, conv1 + conv2 + conv3 (one int8 forward)",
+                replaces_note="no pallas_call: the int8 lax.conv_general_dilated of "
+                              "quant_conv_block (avsync/ops/quant.py:112-135)",
+                blocks=blocks)
+
+
+def run_int8_serving(dev, workdir, corpus, ckpt_dir, test_config, greedy_results, crops,
+                     f32_crops, smi, cfg=None):
+    """Phase 11c-e: `cli quantize`, `cli test --quantize int8` and `cli infer
+    --quantize int8` on phase 5's corpus and checkpoint; `cli serve
+    --quantize int8 --qscales --warmup` as a child process under phase 10's
+    64 crops, transcripts against an in-process int8 LipReader with the same
+    scales, SIGTERM drain; launches through an in-process int8 daemon (per
+    batch Q1 three times, K2 twice, K1 never); the full-width int8 forward
+    against the f32 forward with the JAX package's bounds. `cfg`: phase 10's
+    serving configuration (its default), which the daemon reads too."""
+    import contextlib
+    import glob
+    import io
+
+    import numpy as np
+    import torch
+
+    from avsync_torch import cli
+    from avsync_torch.config import AudioConfig, AvsyncConfig, ModelConfig
+    from avsync_torch.ops.cuda import quantconv
+    from avsync_torch.predictor import LipReader
+    from avsync_torch.serving import AvsyncServer, TranscribeService
+
+    out = {}
+    # c. quantize, test, infer on phase 5's corpus and trained checkpoint
+    qtrained = os.path.join(workdir, "qscales_trained.npz")
+    common = ["--data_path", corpus, "--config", test_config]
+    t0 = time.perf_counter()
+    if cli.main(["quantize", *common, "--checkpoint", ckpt_dir, "--out", qtrained]) != 0:
+        raise SystemExit("cli quantize failed")
+    out["quantize_s"] = time.perf_counter() - t0
+    path = os.path.join(workdir, "int8_results.json")
+    t0 = time.perf_counter()
+    if cli.main(["test", *common, "--checkpoint", ckpt_dir, "--output", path,
+                 "--quantize", "int8"]) != 0:
+        raise SystemExit("cli test --quantize int8 failed")
+    with open(path) as f:
+        res = json.load(f)
+    out["test"] = {"int8": res, "f32": greedy_results, "seconds": time.perf_counter() - t0}
+    if res["num_samples"] != greedy_results["num_samples"] or not np.isfinite(res["cer"]):
+        raise SystemExit(f"test --quantize int8 wrote a wrong result: {res}")
+    print(f"int8 serving phase: cli quantize -> {np.load(qtrained)['input_scales'].tolist()}; "
+          f"cli test --quantize int8: cer={res['cer']} wer={res['wer']} (f32 test: cer="
+          f"{greedy_results['cer']} wer={greedy_results['wer']}) on {res['num_samples']} clips",
+          flush=True)
+    # infer on phase 10's weights (a .pth) and one clip of the corpus: the
+    # command calibrates on its own clip, as a fresh int8 reader does
+    lip = os.path.join(workdir, "lipnet.pth")
+    cfg = cfg or AvsyncConfig(model=ModelConfig(use_pallas_gru=True, fused_conv_pool=True),
+                              audio=AudioConfig(use_pallas=True))
+    serve_config = os.path.join(workdir, "serve_config.json")
+    with open(serve_config, "w") as f:
+        f.write(cfg.to_json())
+    clip = sorted(glob.glob(os.path.join(corpus, "*", "video", "*.npy")))[0]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["infer", clip, "--checkpoint", lip, "--config", test_config,
+                       "--quantize", "int8"])
+    said = [ln for ln in buf.getvalue().splitlines() if ln.startswith("Predicted:")]
+    fresh = LipReader(checkpoint=lip, config=cli._config(test_config), device=dev,
+                      quantize="int8")
+    want = f"Predicted: {fresh.predict(clip)}"
+    print(f"  cli infer --quantize int8 {os.path.relpath(clip, corpus)}: {said}", flush=True)
+    if rc != 0 or said != [want]:
+        raise SystemExit(f"cli infer --quantize int8 printed {said}, a fresh int8 reader {want!r}")
+    out["infer"] = said[0]
+
+    # d. the int8 daemon under phase 10's crops, on phase 10's weights
+    qscales = os.path.join(workdir, "qscales.npz")
+    if cli.main(["quantize", *common, "--checkpoint", lip, "--out", qscales]) != 0:
+        raise SystemExit("cli quantize (serving weights) failed")
+    reader = LipReader(checkpoint=lip, config=cfg, device=dev, quantize="int8",
+                       calibration_scales=qscales)
+    daemon = Daemon(["--checkpoint", lip, "--config", serve_config, "--quantize", "int8",
+                     "--qscales", qscales, "--port", "0", "--warmup", "--max_batch",
+                     str(MAX_BATCH)])
+    try:
+        if http("GET", daemon.url + "/healthz") != (200, {"status": "ok"}):
+            raise SystemExit("int8 daemon: /healthz is not ok")
+        row = transcribe_load(daemon.url, crops, reader, "int8 daemon, crops")
+        row["sigterm_pending"] = sigterm_drain(daemon, crops[1])
+    finally:
+        daemon.kill()
+    out["daemon"] = row
+    print(f"  int8 daemon (serve --quantize int8 --qscales --warmup), {len(crops)} 50x100 crops "
+          f"from {SERVE_THREADS} threads: p50_ms={row['p50_ms']:.3f} p99_ms={row['p99_ms']:.3f} "
+          f"clips_per_s={row['clips_per_s']:.3f}; the f32 daemon on the same crops (phase 10): "
+          f"p50_ms={f32_crops['p50_ms']:.3f} p99_ms={f32_crops['p99_ms']:.3f} clips_per_s="
+          f"{f32_crops['clips_per_s']:.3f}; transcripts equal the in-process int8 reader's "
+          f"(near ties {row['near_ties']}); SIGTERM with {row['sigterm_pending']} of 16 "
+          f"unanswered: every one 200, exit 0 [{smi}]", flush=True)
+
+    # launches per served int8 batch, through an in-process daemon
+    server = AvsyncServer(TranscribeService(reader, max_batch=MAX_BATCH, max_wait_ms=5.0),
+                          None, port=0)
+    server.start()
+    try:
+        zero_counts()
+        answers, _, _ = load(f"http://{server.address[0]}:{server.address[1]}",
+                             [("/v1/transcribe", npy_bytes(c), "application/x-npy")
+                              for c in crops[:32]])
+        torch.cuda.synchronize()
+        got = {**counts(), "int8_conv_pool": quantconv.launches}
+        nt = sum(server.stats_snapshot()["transcribe"]["batches"].values())
+    finally:
+        server.shutdown(drain_timeout=30.0)
+    if any(a[0] != 200 for a in answers):
+        raise SystemExit(f"int8 in-process daemon: {[a for a in answers if a[0] != 200][:3]}")
+    want = {"conv1_pool": 0, "gru_fwd": 2 * nt, "gru_bwd": 0, "conv1_pool_bwd": 0,
+            "mel_stats": 0, "int8_conv_pool": 3 * nt}
+    print(f"  launches through the in-process int8 daemon: {got} for {nt} transcribe batches "
+          f"(expected {want})", flush=True)
+    if got != want:
+        raise SystemExit("int8 daemon: launch counts do not match the batches served")
+    out["launches"] = {"transcribe_batches": nt, **got}
+
+    # e. the int8 forward against the f32 forward, the JAX package's bounds
+    f32 = LipReader(checkpoint=lip, config=cfg, device=dev)
+    frames = np.stack(crops[:8])
+    clips = f32.preprocess_device(frames)
+    lp8, lp32 = reader._logprobs(clips), f32._logprobs(clips)
+    mean_abs = (lp8 - lp32).abs().mean().item()
+    agree = (lp8.argmax(-1) == lp32.argmax(-1)).float().mean().item()
+    out["int8_vs_f32"] = {"mean_abs_logprob": mean_abs, "argmax_agreement": agree}
+    times = {"int8_ms": time_ms(lambda: reader._logprobs(clips)),
+             "f32_ms": time_ms(lambda: f32._logprobs(clips))}
+    out["forward_B8_ms"] = times
+    print(f"  full-width int8 forward vs f32 at B=8: mean |d log-prob| {mean_abs:.3e} (< 0.05), "
+          f"argmax agreement {agree:.4f} (>= 0.95); forward (CUDA events, median of 20) "
+          f"{json.dumps(times)} [{smi}]", flush=True)
+    if not (torch.isfinite(lp8).all() and mean_abs < 0.05 and agree >= 0.95):
+        raise SystemExit("the int8 forward is outside the JAX package's bounds of the f32 one")
+    # the int8 forward by profiler name: Q1 three times, K2 twice, no K1 and
+    # no library convolution (cuDNN's kernels name fprop/implicit/conv)
+    busy, names = traced_step(lambda: reader._logprobs(clips))
+    found = {k: sum(n for name, n in names.items() if pat in name)
+             for k, pat in KERNEL_NAMES.items()}
+    q1_n = sum(n for name, n in names.items() if "int8_conv_pool_kernel" in name)
+    convs = {name: n for name, n in names.items() if "int8_conv_pool_kernel" not in name
+             and any(w in name.lower() for w in ("cudnn", "fprop", "implicit", "conv"))}
+    out["int8_forward_trace"] = {"int8_conv_pool": q1_n, "gru_fwd": found["gru_fwd"],
+                                 "conv1_pool": found["conv1_pool"], "other_convs": convs,
+                                 "device_busy_ms": busy}
+    print(f"  one int8 forward at B=8 by profiler name: {json.dumps(out['int8_forward_trace'])}; "
+          f"every kernel: {names}", flush=True)
+    if (q1_n, found["gru_fwd"], found["conv1_pool"]) != (3, 2, 0) or convs:
+        raise SystemExit("the int8 forward ran another convolution than Q1's three launches")
+    print(f"  int8 serving phase numbers [{smi}]: {json.dumps(out)}", flush=True)
     return out
 
 
@@ -2155,7 +2505,7 @@ def main() -> int:
 
     from avsync_torch.ops.cuda import build
 
-    names = ["conv1_pool", "gru_fwd", "gru_bwd", "conv1_pool_bwd", "mel_stats"]
+    names = ["conv1_pool", "gru_fwd", "gru_bwd", "conv1_pool_bwd", "mel_stats", "int8_conv_pool"]
     t0 = time.perf_counter()
     secs = build.build(names)
     print(f"build: {sorted(secs)} in {time.perf_counter() - t0:.1f} s "
@@ -2180,8 +2530,15 @@ def main() -> int:
             greedy = json.load(f)
         serving_dir = os.path.join(workdir, "serving")
         os.makedirs(serving_dir)
-        serving = run_serving(dev, serving_dir, *(os.path.join(workdir, n) for n in
-                                                  ("grid", "ckpt", "config.json")), greedy, smi)
+        serving, crops = run_serving(dev, serving_dir, *(os.path.join(workdir, n) for n in
+                                                         ("grid", "ckpt", "config.json")),
+                                     greedy, smi)
+        t11 = time.perf_counter()
+        q1 = check_int8_conv_pool(dev, smi)
+        int8 = run_int8_serving(dev, serving_dir, *(os.path.join(workdir, n) for n in
+                                                    ("grid", "ckpt", "config.json")),
+                                greedy, crops, serving["live"]["transcribe_crops"], smi)
+        print(f"int8 serving phase: {time.perf_counter() - t11:.1f} s", flush=True)
     for k in (k1, k2, k3, k4):
         k["launches"] = trained[k["name"]]
     k5["launches"], k5["launches_serving"] = detector["mel_stats"], served["mel_stats"]
@@ -2200,7 +2557,11 @@ def main() -> int:
         k1[f"launches_daemon_{what}"] = {**per_batch, "launches": got["conv1_pool"]}
         k2[f"launches_daemon_{what}"] = {**per_batch, "launches": got["gru_fwd"]}
         k5[f"launches_daemon_{what}"] = {**per_batch, "launches": got["mel_stats"]}
-    for k in (k1, k2, k3, k4, k5):
+    q1["launches"] = int8["launches"]["int8_conv_pool"]
+    q1["launches_daemon_int8"] = int8["launches"]
+    k2["launches_daemon_int8"] = {"transcribe_batches": int8["launches"]["transcribe_batches"],
+                                  "launches": int8["launches"]["gru_fwd"]}
+    for k in (k1, k2, k3, k4, k5, q1):
         if not k["launches"] or k.get("launches_serving") == 0 or any(
                 k.get(f"launches_daemon_{w}", {"launches": 1})["launches"] == 0
                 for w in ("live", "artifact")):
@@ -2211,12 +2572,14 @@ def main() -> int:
           "K2 pallas_gru_scan (avsync/ops/pallas/gru.py:357)=ported+checked; "
           "K3 pallas_gru_bwd (avsync/ops/pallas/gru.py:276)=ported+checked; "
           "K4 conv1_pool_bwd (avsync/ops/pallas/convpool.py:244)=ported+checked; "
-          "K5 pallas_mel_stats (avsync/ops/pallas/mfcc.py:60)=ported+checked", flush=True)
+          "K5 pallas_mel_stats (avsync/ops/pallas/mfcc.py:60)=ported+checked; "
+          "Q1 int8_conv_pool (no pallas_call: the int8 lax.conv_general_dilated of "
+          "quant_conv_block, avsync/ops/quant.py:97)=ported+checked", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [{**{k: d[k] for k in keys},
                          **{k: v for k, v in d.items() if k not in keys}}
-                        for d in (k1, k2, k3, k4, k5)]}
+                        for d in (k1, k2, k3, k4, k5, q1)]}
     print(json.dumps(line), flush=True)
     if any(m.split(".")[0] in ("jax", "flax", "avsync") for m in sys.modules):
         raise SystemExit("the port pulled in jax or the avsync package")

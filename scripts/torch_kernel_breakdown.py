@@ -5,6 +5,7 @@ earlier design, on one GPU. Two modes:
     git archive <commit> | tar -x -C build/parent
     python3 scripts/torch_kernel_breakdown.py --parent build/parent [--out k.json]
     python3 scripts/torch_kernel_breakdown.py --mode k5 --parent build/parent [--out k.json]
+    python3 scripts/torch_kernel_breakdown.py --mode q1 [--parent DIR] [--out k.json]
 
 `--parent` is the root of an unpacked checkout whose `avsync_torch/csrc/`
 holds the earlier design. The default mode (`lipnet`) takes the LipNet
@@ -28,6 +29,22 @@ Mode `k5`:
     at B = 32 and 512 (F=121) and B = 8 at F = 401;
   * times the earlier design against the current wrapper in turns:
     earlier, current, current, earlier, at B = 32, 40 and 512.
+
+Mode `q1` (the int8 conv + dequant + ReLU + pool block of int8 serving):
+  * builds int8_conv_pool.cu and variants with one part cut out (no MMA
+    task loop: the halo staging alone; no staging: the MMA loop over
+    whatever shared memory holds; both cut: the launch and the offset
+    table), and, with `--parent DIR`, the int8_conv_pool.cu of DIR (an
+    earlier design with the same C interface; `--parent` is optional in
+    this mode); prints ptxas' register report for each;
+  * times each at LipNet's three blocks at B=8, T=75 in the layouts the
+    int8 forward gives them (conv1's input NCDHW with W contiguous, conv2's
+    and conv3's channels-last, as Q1 writes them), through the package's
+    wrapper with the variant swapped in: CUDA events (median of 20) and
+    the profiler's device time per call;
+  * with `--parent`, the earlier design against the current one in turns
+    (earlier, current, current, earlier) per block, after checking that
+    both equal the plain version bit for bit.
 
 Mode `lipnet`:
   * builds the earlier design's four LipNet kernels and variants of its K3 and K1
@@ -268,9 +285,10 @@ def checked(err, what):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--parent", required=True, help="root of the earlier design's checkout")
-    ap.add_argument("--mode", choices=("lipnet", "k5"), default="lipnet",
-                    help="lipnet: K1-K4 against 6ec0e61; k5: K5 against 5e863d4")
+    ap.add_argument("--parent", default=None, help="root of the earlier design's checkout")
+    ap.add_argument("--mode", choices=("lipnet", "k5", "q1"), default="lipnet",
+                    help="lipnet: K1-K4 against 6ec0e61; k5: K5 against 5e863d4; q1: Q1 "
+                         "(int8 serving) cut into parts, against --parent if given")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
 
@@ -284,8 +302,11 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
-    parent = Path(args.parent).resolve()
-    out = (k5_breakdown if args.mode == "k5" else lipnet_breakdown)(parent, dev)
+    if args.parent is None and args.mode != "q1":
+        ap.error(f"--mode {args.mode} needs --parent")
+    parent = Path(args.parent).resolve() if args.parent else None
+    out = {"k5": k5_breakdown, "q1": q1_breakdown, "lipnet": lipnet_breakdown}[args.mode](
+        parent, dev)
     text = json.dumps({"card": card, "torch": torch.__version__, **out}, indent=1)
     print(text)
     if args.out:
@@ -565,6 +586,81 @@ def k5_breakdown(parent: Path, dev):
         turns[f"k5_B{B}"]["device_ms"] = {"earlier": sum(device_ms(old).values()),
                                           "current": sum(device_ms(new).values())}
     out["turns_ms"] = turns
+    return out
+
+
+# Q1's parts (anchors in csrc/int8_conv_pool.cu; each variant computes a wrong
+# result and is only timed)
+Q1_NO_MMA = ("for (int task = warp; task < mgroups * ngroups; task += NWARPS) {",
+             "for (int task = warp; task < 0; task += NWARPS) {")
+Q1_NO_STAGING = ("  stage_halo(p, s_x, b, t, h2_0, w2_0);\n", "")
+Q1_VARIANTS = {"q1_full": [], "q1_staging_only": [Q1_NO_MMA],
+               "q1_compute_only": [Q1_NO_STAGING], "q1_launch_only": [Q1_NO_MMA, Q1_NO_STAGING]}
+# LipNet's conv blocks at full width: (Cin, Cout, H, W, kernel)
+Q1_BLOCKS = {"conv1": (1, 32, 50, 100, (3, 5, 5)), "conv2": (32, 64, 25, 50, (3, 5, 5)),
+             "conv3": (64, 96, 12, 25, (3, 3, 3))}
+
+
+def q1_breakdown(parent, dev):
+    import numpy as np
+    import torch
+
+    from avsync_torch.ops.cuda import build, quantconv
+    from avsync_torch.ops.quant import quant_conv_block, quant_conv_params
+
+    specs = [(build.CSRC, "int8_conv_pool", Q1_VARIANTS, "avs_int8_conv_pool",
+              quantconv._ARGTYPES)]
+    if parent is not None:
+        specs.append((parent / "avsync_torch" / "csrc", "int8_conv_pool",
+                      {"q1_earlier": []}, "avs_int8_conv_pool", quantconv._ARGTYPES))
+    fns = build_variants(specs)
+    build.build(["int8_conv_pool"])
+    out = {"ptxas_variants": {k: v[1] for k, v in fns.items()}}
+    key = ("int8_conv_pool", "avs_int8_conv_pool")
+    build.function(*key, quantconv._ARGTYPES)
+    g = torch.Generator().manual_seed(0)
+    B, T = 8, 75
+    blocks = {}
+    for name, (cin, cout, H, W, k) in Q1_BLOCKS.items():
+        kq = torch.randint(-127, 128, (cout, cin, *k), generator=g, dtype=torch.int8)
+        ks = torch.rand(cout, generator=g) * 0.01 + 1e-4
+        qc = quant_conv_params(kq.to(dev), ks, torch.randn(cout, generator=g) * 0.1,
+                               np.float32(1 / 127))
+        if cin == 1:  # the model input (B, T, H, W, 1), permuted
+            x = torch.rand(B, T, H, W, 1, generator=g).to(dev).permute(0, 4, 1, 2, 3)
+        else:  # a Q1 output: channels-last
+            x = torch.rand(B, T, H, W, cin, generator=g).to(dev).permute(0, 4, 1, 2, 3)
+        want = quantconv.int8_conv_pool_ref(x, qc.kernel_q, qc.k_scale, qc.bias,
+                                            float(qc.x_scale))
+        row = {"tile": quantconv.tile_for(H // 2, W // 2, cin, cout, *k)}
+
+        def call(fn=None, qc=qc, x=x):
+            run = (lambda: quant_conv_block(qc, x))
+            return swapped(key, fn, run) if fn is not None else run
+
+        for variant in [*Q1_VARIANTS, *(["q1_earlier"] if parent is not None else [])]:
+            fn = fns[variant][0]
+            if variant in ("q1_full", "q1_earlier"):
+                got = None
+
+                def keep():
+                    nonlocal got
+                    got = quant_conv_block(qc, x)
+                swapped(key, fn, keep)()
+                torch.cuda.synchronize()
+                row[f"{variant}_equals_plain"] = bool(torch.equal(got, want))
+            row[variant] = {"event_ms": time_ms(call(fn)),
+                            "device_ms": sum(device_ms(call(fn)).values())}
+        row["wrapper_ms"] = time_ms(call())
+        if parent is not None:
+            turns = {"earlier": [], "current": []}
+            for side in ("earlier", "current", "current", "earlier"):
+                turns[side].append(time_ms(call(fns["q1_earlier"][0]) if side == "earlier"
+                                           else call()))
+            row["turns_ms"] = turns
+        blocks[name] = row
+        print(f"{name}: {json.dumps(row)}", flush=True)
+    out["blocks_B8"] = blocks
     return out
 
 

@@ -437,10 +437,16 @@ def test_serve_parser_wiring_and_unported_flags(checkpoints):
     base = ["serve", "--checkpoint", checkpoints["lipnet"], "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="item 14"):
         cmd_serve(p.parse_args(base + ["--dp", "2"]))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cmd_serve(p.parse_args(base + ["--quantize", "int8"]))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cmd_serve(p.parse_args(base + ["--qscales", "q.npz"]))
+    # int8 serving is ported (tests/test_torch_quant.py serves it): the flags
+    # parse, and a scales file of another model family is refused at load,
+    # before the daemon binds its port
+    args = p.parse_args(base + ["--quantize", "int8", "--qscales", "q.npz"])
+    assert args.quantize == "int8" and args.qscales == "q.npz"
+    bad = str(checkpoints["root"] / "tf_scales.npz")
+    np.savez(bad, input_scales=np.ones(3, np.float32), family="tf")
+    with pytest.raises(ValueError, match="family"):
+        cmd_serve(p.parse_args(base + ["--config", checkpoints["config"], "--quantize", "int8",
+                                       "--qscales", bad]))
     with pytest.raises(SystemExit, match="--checkpoint"):
         cmd_serve(p.parse_args(["serve"]))
 

@@ -46,6 +46,7 @@ def test_every_module_imports_without_jax_or_avsync():
             "avsync_torch.utils.profiling", "avsync_torch.utils.flops",
             "avsync_torch.train.epoch_program", "avsync_torch.ops.ctc"} <= set(loaded)
     assert {"avsync_torch.export", "avsync_torch.ops.beam"} <= set(loaded)
+    assert {"avsync_torch.ops.quant", "avsync_torch.ops.cuda.quantconv"} <= set(loaded)
 
 
 def test_the_daemon_and_the_artifact_loader_import_no_model_code():
@@ -140,5 +141,23 @@ def test_serving_entry_points_without_device_raise_when_cuda_is_absent(
             "serve": ["serve", "--checkpoint", lip, "--port", "0"],
             "serve_scorer": ["serve", "--checkpoint", lip, "--detector_checkpoint", det,
                              "--port", "0"]}[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(argv)
+
+
+@pytest.mark.parametrize("entry", ["quantize", "serve_int8", "infer_int8"])
+def test_int8_entry_points_without_device_raise_when_cuda_is_absent(
+        monkeypatch, tmp_path, full_width_pths, entry):
+    """`quantize`, `serve --quantize int8` and `infer --quantize int8` run on
+    the card unless `--device cpu` is given."""
+    from avsync_torch.cli import main
+
+    lip, _ = full_width_pths
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = {"quantize": ["quantize", "--checkpoint", lip, "--data_path", str(tmp_path),
+                         "--out", str(tmp_path / "q.npz")],
+            "serve_int8": ["serve", "--checkpoint", lip, "--port", "0", "--quantize", "int8"],
+            "infer_int8": ["infer", str(tmp_path / "clip.npy"), "--checkpoint", lip,
+                           "--quantize", "int8"]}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(argv)

@@ -12,7 +12,7 @@ machine with one (and nvcc), run:
 import pytest
 import torch
 
-from avsync_torch.ops.cuda import convpool, gru, mfcc
+from avsync_torch.ops.cuda import build, convpool, gru, mfcc, quantconv
 
 pytestmark = pytest.mark.cuda
 
@@ -575,3 +575,133 @@ def test_exported_programs_launch_the_kernels(dev, tmp_path):
                  if e.device_type == torch.autograd.DeviceType.CUDA}
         for k in kernels:
             assert any(k in n for n in names), (kind, k, sorted(names))
+
+
+# ---------------------------------------------------------------------------
+# Q1: the int8 conv + dequant + ReLU + pool block of int8 serving
+# ---------------------------------------------------------------------------
+
+def q1_case(g, dev, B, cin, cout, T, H, W, k, mode="random"):
+    """(QuantConvParams, x) on the card. 'random': x around 0.3 with negative
+    values, random int8 weights and per-channel scales, x_scale = absmax/127;
+    'ties': x_scale 0.5 and x in quarters, so x / x_scale hits exact halves
+    (round half to even) and the clip; 'extreme': every x at +127 steps and
+    every weight 127, the largest |acc| the block can reach."""
+    from avsync_torch.ops.quant import quant_conv_params
+
+    kq = torch.randint(-127, 128, (cout, cin, *k), generator=g, dtype=torch.int8)
+    ks = torch.rand(cout, generator=g) * 0.01 + 1e-4
+    bias = torch.randn(cout, generator=g) * 0.1
+    if mode == "ties":
+        x = torch.randint(-300, 301, (B, cin, T, H, W), generator=g).float() / 4
+        xs = 0.5
+    elif mode == "extreme":
+        kq.fill_(127)
+        xs = 0.01
+        x = torch.full((B, cin, T, H, W), 127 * xs)
+    else:
+        x = torch.randn(B, cin, T, H, W, generator=g) * 0.5 + 0.3
+        xs = float(x.abs().max()) / 127
+    return quant_conv_params(kq.to(dev), ks, bias, xs), x.to(dev)
+
+
+def q1_ref(qc, x):
+    return quantconv.int8_conv_pool_ref(x, qc.kernel_q, qc.k_scale, qc.bias, float(qc.x_scale))
+
+
+# (B, Cin, Cout, T, H, W, kernel, mode): LipNet's three blocks at full width
+# (B = 1 and 8), then the odd ones: byte gathers (Cin 1, 3), Cin % 4 == 0
+# but not % 32, Cout past a 32-channel group, odd H or W (floor pools), a
+# pooled row wider than any tile, a kernel of one frame, exact-half ties and
+# the largest accumulators
+Q1_CASES = [
+    (1, 1, 32, 75, 50, 100, (3, 5, 5), "random"), (8, 1, 32, 75, 50, 100, (3, 5, 5), "random"),
+    (1, 32, 64, 75, 25, 50, (3, 5, 5), "random"), (8, 32, 64, 75, 25, 50, (3, 5, 5), "random"),
+    (1, 64, 96, 75, 12, 25, (3, 3, 3), "random"), (8, 64, 96, 75, 12, 25, (3, 3, 3), "random"),
+    (2, 3, 5, 5, 9, 13, (1, 3, 5), "random"), (3, 64, 40, 4, 13, 27, (3, 3, 3), "random"),
+    (2, 1, 7, 3, 7, 201, (5, 1, 3), "random"), (2, 12, 33, 2, 6, 10, (3, 5, 5), "random"),
+    (2, 32, 64, 3, 25, 50, (3, 5, 5), "ties"), (1, 32, 64, 3, 25, 50, (3, 5, 5), "extreme"),
+    (1, 1, 32, 3, 50, 100, (3, 5, 5), "ties"),
+]
+
+
+@pytest.mark.parametrize("B,cin,cout,T,H,W,k,mode", Q1_CASES)
+def test_int8_conv_pool_equals_plain_bit_for_bit(dev, B, cin, cout, T, H, W, k, mode):
+    """Q1 equals its plain version bit for bit (exact int32 sums, the same two
+    f32 roundings); a repeat launch gives the same bits; channels-last and
+    sliced inputs give the same bits as contiguous NCDHW."""
+    from avsync_torch.ops.quant import quant_conv_block
+
+    qc, x = q1_case(_gen(60), dev, B, cin, cout, T, H, W, k, mode)
+    before = quantconv.launches
+    got = quant_conv_block(qc, x)
+    again = quant_conv_block(qc, x)
+    cl = quant_conv_block(qc, x.permute(0, 2, 3, 4, 1).contiguous().permute(0, 4, 1, 2, 3))
+    torch.cuda.synchronize()
+    assert quantconv.launches == before + 3
+    want = q1_ref(qc, x)
+    assert got.shape == want.shape == (B, cout, T, H // 2, W // 2)
+    assert torch.equal(got, want)
+    assert torch.equal(got, again) and torch.equal(got, cl)
+    wide = torch.zeros(B, cin, T, H, W + 3, device=dev)
+    wide[..., :W] = x
+    assert torch.equal(quant_conv_block(qc, wide[..., :W]), got)
+
+
+def test_int8_conv_pool_shared_memory_mirrors_the_kernel(dev):
+    fn = build.function("int8_conv_pool", "avs_int8_conv_pool_smem", quantconv._SMEM_ARGTYPES)
+    for cin, k in [(1, (3, 5, 5)), (32, (3, 5, 5)), (64, (3, 3, 3)), (3, (1, 3, 5)), (12, (3, 5, 5))]:
+        kpad = quantconv.padded(cin * k[0] * k[1] * k[2])
+        for rows, cols in [(1, 1), (5, 25), (12, 5), (6, 12)]:
+            assert fn(cin, kpad, *k, rows, cols, quantconv.pos_bytes(cin)) == \
+                quantconv.shared_memory_bytes(cin, kpad, *k, rows, cols)
+
+
+def test_int8_conv_pool_replayed_from_a_cuda_graph_equals_eager(dev):
+    """The operator captured once and replayed on new inputs copied into the
+    captured ones: the same bits as an eager launch; replays pass through no
+    wrapper."""
+    from avsync_torch.ops.quant import quant_conv_block
+
+    qc, static = q1_case(_gen(61), dev, 8, 32, 64, 75, 25, 50, (3, 5, 5))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        quant_conv_block(qc, static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = quant_conv_block(qc, static)
+    for seed in (62, 63):
+        static.copy_(torch.rand(static.shape, generator=_gen(seed)).to(dev))
+        before = quantconv.launches
+        graph.replay()
+        torch.cuda.synchronize()
+        assert quantconv.launches == before
+        assert torch.equal(captured, quant_conv_block(qc, static))
+
+
+def test_int8_reader_launches_q1_and_k2_only_and_keeps_the_jax_bounds(dev, tmp_path):
+    """A full-width int8 LipReader batch of 8 on the card: Q1 three times, K2
+    twice, K1 never; its log-probs within the JAX package's bounds of the f32
+    reader's (tests/test_quant.py:135-137)."""
+    from avsync_torch.config import AvsyncConfig, ModelConfig
+    from avsync_torch.models import LipNet
+    from avsync_torch.predictor import LipReader
+
+    cfg = AvsyncConfig(model=ModelConfig(use_pallas_gru=True, fused_conv_pool=True))
+    state = LipNet(cfg.model, generator=_gen(64)).state_dict()
+    f32 = LipReader(params=state, config=cfg, device=dev)
+    int8 = LipReader(params=state, config=cfg, device=dev, quantize="int8")
+    frames = torch.randint(0, 256, (8, 75, 50, 100), generator=_gen(65), dtype=torch.uint8)
+    clips = f32.preprocess_device(frames.numpy())
+    int8._logprobs(clips)  # calibrates (K1 runs the f32 conv1) and builds Q1
+    torch.cuda.synchronize()
+    before = (quantconv.launches, gru.launches, convpool.launches)
+    got = int8._logprobs(clips)
+    torch.cuda.synchronize()
+    assert (quantconv.launches - before[0], gru.launches - before[1],
+            convpool.launches - before[2]) == (3, 2, 0)
+    want = f32._logprobs(clips)
+    assert (got - want).abs().mean().item() < 0.05
+    assert (got.argmax(-1) == want.argmax(-1)).float().mean().item() >= 0.95
