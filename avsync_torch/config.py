@@ -47,7 +47,10 @@ class DataConfig:
     # NotImplementedError there.
     roi_mode: str = "heuristic"
     # JAX package: run the ROI program on the host and ship uint8 crops
-    # instead of full frames. Kept for the JSON.
+    # instead of full frames. The port's LipNetBatcher raises for it on
+    # native-size frames (the host crop is not ported); pre-cropped clips
+    # and the serving paths, which the JAX package never crops on the host,
+    # ignore it.
     roi_host: bool = False
     # Per-clip standardization instead of /255 (the TF stack's convention,
     # `train.py:266-273`); off by default for parity with the PyTorch stack.

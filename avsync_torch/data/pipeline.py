@@ -130,6 +130,20 @@ class LipNetBatcher:
             frames = np.concatenate([frames, pad], axis=0)
         return frames
 
+    def _preprocess(self, raw: torch.Tensor) -> torch.Tensor:
+        """`predictor.preprocess` of a raw batch on the device. The JAX
+        package crops native-size frames on the host and rounds the crops to
+        uint8 under `DataConfig.roi_host` (avsync/data/pipeline.py:239-280),
+        which changes the values: the port raises there instead of cropping
+        on the device. Pre-cropped clips take no crop, so the flag changes
+        nothing for them, in both packages."""
+        d = self.cfg.data
+        if d.roi_host and tuple(raw.shape[2:]) != (d.img_height, d.img_width):
+            raise NotImplementedError(
+                "roi_host=True: the host ROI crop of native-size frames is not ported "
+                "(ROADMAP §1 item 6)")
+        return preprocess(raw, self.cfg)
+
     def _raw_batches(self, batch_size: Optional[int], shuffle: bool, seed: int,
                      drop_last: bool, prefetch_size: int) -> Iterator[Dict]:
         """Prefetched host batches: {'raw' uint8 (B, T, H, W), 'labels',
@@ -169,7 +183,7 @@ class LipNetBatcher:
         try:
             for hb in gen:
                 raw = torch.from_numpy(hb["raw"]).to(self.device)
-                yield {"video": preprocess(raw, self.cfg), "labels": hb["labels"],
+                yield {"video": self._preprocess(raw), "labels": hb["labels"],
                        "label_lengths": hb["label_lengths"], "valid": hb["valid"]}
         finally:
             gen.close()  # stop the prefetch worker and the decode pool now
@@ -406,7 +420,7 @@ class LipNetBatcher:
                 safe = np.where(idx < n_cached, idx, 0)
                 video = self.gather(torch.from_numpy(safe).long().to(self.device))
                 if hb["raw"] is not None:
-                    streamed = preprocess(torch.from_numpy(hb["raw"]).to(self.device), self.cfg)
+                    streamed = self._preprocess(torch.from_numpy(hb["raw"]).to(self.device))
                     rows = torch.from_numpy(miss).long().to(self.device)
                     video = video.index_copy(0, rows, streamed[:miss.size])
                 yield out(idx, hb["valid"], video)
