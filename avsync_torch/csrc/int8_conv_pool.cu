@@ -8,6 +8,12 @@
 //   acc = conv3d(xq, kernel_q), SAME padding, stride 1         (exact int32)
 //   out = maxpool(1,2,2)(relu(float(acc) * scale[c] + bias[c])),
 //   scale[c] = x_scale * k_scale[c] (f32, made once per load by the wrapper).
+// Contracts (the int8 forward chains three blocks): the input is f32 at any
+// strides (quantized while it is staged) or int8 channels-last (already
+// quantized with x_scale by the block before); the output is f32 at any
+// strides or int8 channels-last, quantized with the NEXT block's x_scale,
+// out_int8 = clip(rint(out_f32 / out_scale), -127, 127), exactly what that
+// block's staging would compute from the f32 output.
 // float(), the multiply by a positive scale, + bias and ReLU are monotone
 // non-decreasing in f32, so the max of the four pre-pool accumulators is taken
 // first, in int32, and the epilogue runs once per pooled value; it is written
@@ -65,16 +71,26 @@ constexpr int STAGE_UNROLL = 4;  // halo loads in flight per thread
 constexpr size_t MAX_SMEM = 232448;  // per-block opt-in limit on sm_90
 constexpr int MAX_DEVICES = 64;
 
+// How a frame's halo is staged, by input dtype and layout.
+enum Stage : int {
+  STAGE_F32 = 0,    // f32, any strides: one value per load, quantized
+  STAGE_F32X4 = 1,  // f32 channels-last, Cin % 4 == 0, 16-byte aligned: float4 loads
+  STAGE_S8 = 2,     // int8 channels-last: one value per load
+  STAGE_S8X16 = 3,  // int8 channels-last, Cin % 16 == 0, 16-byte aligned: 16-byte loads
+};
+
 struct QParams {
-  const float* x;       // (B, Cin, T, H, W) f32, element strides below
+  const void* x;        // (B, Cin, T, H, W) f32 or int8, element strides below
   const int8_t* w;      // (Npad, Kpad) int8, k = ((dt*kh + dh)*kw + dw)*Cin + ci
   const float* scale;   // (Cout,) x_scale * k_scale
   const float* bias;    // (Cout,)
-  float* out;           // (B, Cout, T, H/2, W/2) f32, element strides below
-  float x_scale;
+  void* out;            // (B, Cout, T, H/2, W/2) f32 or int8, element strides below
+  float x_scale;        // quantizes an f32 input
+  float out_scale;      // quantizes an int8 output: the next block's x_scale
+  bool out_int8;
+  int stage;            // Stage
   int B, Cin, T, H, W, Cout, kt, kh, kw, K, Kpad, Npad;
-  int PR, PC, tiles_w, tiles, IH, IW, S, off_bytes;
-  bool vec4;  // channels-last, Cin % 4 == 0, 16-byte aligned: float4 staging
+  int PR, PC, tiles_w, tiles, IH, IW, S, off_bytes, F, runs;
   long long x_sb, x_sc, x_st, x_sh, x_sw;
   long long o_sb, o_sc, o_st, o_sh, o_sw;
 };
@@ -117,64 +133,112 @@ __device__ __forceinline__ uint32_t load4(const unsigned char* base, int o) {
 }
 
 // Stage the CTA's halo: frames t - pt .. t + pt, rows 2*h2_0 - ph ..,
-// columns 2*w2_0 - pw .., each value quantized; zero outside the clip. Each
-// thread issues STAGE_UNROLL loads before it quantizes and stores any of
-// them, so that many loads are in flight (the staging is latency-bound);
-// a channels-last input with Cin % 4 == 0 (what Q1 writes, `p.vec4`) moves
-// four channels per 16-byte load and one 32-bit shared store.
+// columns 2*w2_0 - pw .., each value quantized (f32 input) or copied (int8);
+// zero outside the clip. Each thread issues STAGE_UNROLL loads before it
+// stores any of them, so that many loads are in flight (the staging is
+// latency-bound); a channels-last input moves four f32 channels or sixteen
+// int8 channels per 16-byte load.
 __device__ void stage_halo(const QParams& p, unsigned char* s_x, int b, int t, int h2_0,
                            int w2_0) {
   const int pt = (p.kt - 1) / 2, ph = (p.kh - 1) / 2, pw = (p.kw - 1) / 2;
   const int t0 = t - pt, h0 = 2 * h2_0 - ph, w0 = 2 * w2_0 - pw;
-  const float* xb = p.x + b * p.x_sb;
   const int npos = p.kt * p.IH * p.IW;
-  if (p.vec4) {
-    // i -> (position, group of four channels), the groups fastest
-    const int c4 = p.Cin / 4, n = npos * c4;
+  auto inside = [&](int pos, long long& off) {  // the position's element offset, if in the clip
+    const int ww = pos % p.IW, hh = (pos / p.IW) % p.IH, dt = pos / (p.IW * p.IH);
+    const int ti = t0 + dt, hi = h0 + hh, wi = w0 + ww;
+    off = 0;
+    if (ti < 0 || ti >= p.T || hi < 0 || hi >= p.H || wi < 0 || wi >= p.W) return false;
+    off = ti * p.x_st + hi * p.x_sh + wi * p.x_sw;
+    return true;
+  };
+  if (p.stage == STAGE_F32X4 || p.stage == STAGE_S8X16) {
+    // i -> (position, group of channels), the groups fastest
+    const bool f32 = p.stage == STAGE_F32X4;
+    const int cg = f32 ? p.Cin / 4 : p.Cin / 16, n = npos * cg;
+    const unsigned char* xb = static_cast<const unsigned char*>(p.x) +
+                              b * p.x_sb * (f32 ? 4 : 1);
     for (int i0 = threadIdx.x; i0 < n; i0 += STAGE_UNROLL * NT) {
-      float4 v[STAGE_UNROLL];
+      int4 v[STAGE_UNROLL];
 #pragma unroll
       for (int u = 0; u < STAGE_UNROLL; ++u) {
-        const int i = i0 + u * NT, pos = i / c4;
-        const int ww = pos % p.IW, hh = (pos / p.IW) % p.IH, dt = pos / (p.IW * p.IH);
-        const int ti = t0 + dt, hi = h0 + hh, wi = w0 + ww;
-        const bool in = i < n && ti >= 0 && ti < p.T && hi >= 0 && hi < p.H && wi >= 0 &&
-                        wi < p.W;
-        v[u] = in ? __ldg(reinterpret_cast<const float4*>(
-                            xb + ti * p.x_st + hi * p.x_sh + wi * p.x_sw) + i % c4)
-                  : make_float4(0.f, 0.f, 0.f, 0.f);
+        const int i = i0 + u * NT;
+        long long off;
+        v[u] = i < n && inside(i / cg, off)
+                   ? __ldg(reinterpret_cast<const int4*>(xb + (size_t)off * (f32 ? 4 : 1)) +
+                           i % cg)
+                   : make_int4(0, 0, 0, 0);
       }
 #pragma unroll
       for (int u = 0; u < STAGE_UNROLL; ++u) {
         const int i = i0 + u * NT;
         if (i >= n) break;
-        const uint32_t q = static_cast<uint8_t>(quantize(v[u].x, p.x_scale)) |
-                           static_cast<uint32_t>(static_cast<uint8_t>(quantize(v[u].y, p.x_scale))) << 8 |
-                           static_cast<uint32_t>(static_cast<uint8_t>(quantize(v[u].z, p.x_scale))) << 16 |
-                           static_cast<uint32_t>(static_cast<uint8_t>(quantize(v[u].w, p.x_scale))) << 24;
-        *reinterpret_cast<uint32_t*>(s_x + (i / c4) * p.S + 4 * (i % c4)) = q;
+        unsigned char* dst = s_x + (i / cg) * p.S;
+        if (f32) {
+          const float4 f = *reinterpret_cast<const float4*>(&v[u]);
+          const uint32_t q = static_cast<uint8_t>(quantize(f.x, p.x_scale)) |
+                             static_cast<uint32_t>(static_cast<uint8_t>(quantize(f.y, p.x_scale))) << 8 |
+                             static_cast<uint32_t>(static_cast<uint8_t>(quantize(f.z, p.x_scale))) << 16 |
+                             static_cast<uint32_t>(static_cast<uint8_t>(quantize(f.w, p.x_scale))) << 24;
+          *reinterpret_cast<uint32_t*>(dst + 4 * (i % cg)) = q;
+        } else {  // S is a multiple of 8: two 8-byte stores
+          uint2* d = reinterpret_cast<uint2*>(dst + 16 * (i % cg));
+          d[0] = make_uint2(v[u].x, v[u].y);
+          d[1] = make_uint2(v[u].z, v[u].w);
+        }
       }
     }
   } else {
     // i -> (channel, position), the columns fastest (coalesced for NCDHW)
+    const bool f32 = p.stage == STAGE_F32;
     const int n = p.Cin * npos;
     for (int i0 = threadIdx.x; i0 < n; i0 += STAGE_UNROLL * NT) {
       float v[STAGE_UNROLL];
 #pragma unroll
       for (int u = 0; u < STAGE_UNROLL; ++u) {
-        const int i = i0 + u * NT, pos = i % npos, ci = i / npos;
-        const int ww = pos % p.IW, hh = (pos / p.IW) % p.IH, dt = pos / (p.IW * p.IH);
-        const int ti = t0 + dt, hi = h0 + hh, wi = w0 + ww;
-        const bool in = i < n && ti >= 0 && ti < p.T && hi >= 0 && hi < p.H && wi >= 0 &&
-                        wi < p.W;
-        v[u] = in ? __ldg(xb + ci * p.x_sc + ti * p.x_st + hi * p.x_sh + wi * p.x_sw) : 0.f;
+        const int i = i0 + u * NT, ci = i / npos;
+        long long off;
+        const bool in = i < n && inside(i % npos, off);
+        const long long e = b * p.x_sb + ci * p.x_sc + off;
+        v[u] = !in ? 0.f
+               : f32 ? __ldg(static_cast<const float*>(p.x) + e)
+                     : static_cast<float>(__ldg(static_cast<const signed char*>(p.x) + e));
       }
 #pragma unroll
       for (int u = 0; u < STAGE_UNROLL; ++u) {
         const int i = i0 + u * NT;
         if (i >= n) break;
-        reinterpret_cast<int8_t*>(s_x)[(i % npos) * p.S + i / npos] = quantize(v[u], p.x_scale);
+        reinterpret_cast<int8_t*>(s_x)[(i % npos) * p.S + i / npos] =
+            f32 ? quantize(v[u], p.x_scale) : static_cast<int8_t>(v[u]);
       }
+    }
+  }
+}
+
+// The pooled values of a warp task: fragment register i holds row g + 8*(i >> 1),
+// channel 2*tq + (i & 1) of each n8 tile j; the max of the four windows'
+// accumulators, dequantized, + bias, ReLU; f32 out, or int8 quantized with
+// the next block's scale.
+__device__ __forceinline__ void epilogue(const QParams& p, const int (&acc)[4][4][4],
+                                         const int (&idx)[2], int b, int t, int h2_0,
+                                         int w2_0, int ng, int tq) {
+  const int P = p.PR * p.PC, H2 = p.H / 2, W2 = p.W / 2;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = i >> 1;
+    if (idx[r] >= P) continue;
+    const int h2 = h2_0 + idx[r] / p.PC, w2 = w2_0 + idx[r] % p.PC;
+    if (h2 >= H2 || w2 >= W2) continue;
+    const long long o = b * p.o_sb + t * p.o_st + h2 * p.o_sh + w2 * p.o_sw;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = ng * 32 + j * 8 + 2 * tq + (i & 1);
+      if (c >= p.Cout) continue;
+      const int m = max(max(acc[0][j][i], acc[1][j][i]), max(acc[2][j][i], acc[3][j][i]));
+      const float v = fmaxf(__fadd_rn(__fmul_rn(__int2float_rn(m), p.scale[c]), p.bias[c]), 0.f);
+      if (p.out_int8)
+        static_cast<int8_t*>(p.out)[o + c * p.o_sc] = quantize(v, p.out_scale);
+      else
+        static_cast<float*>(p.out)[o + c * p.o_sc] = v;
     }
   }
 }
@@ -185,9 +249,11 @@ __global__ void __launch_bounds__(NT, 2) int8_conv_pool_kernel(const QParams p) 
   int* s_off = reinterpret_cast<int*>(smem);
   unsigned char* s_x = smem + p.off_bytes;
 
+  // blockIdx.x -> (tile, run of F frames, clip), the tiles fastest
   const int tile = blockIdx.x % p.tiles;
-  const int f = blockIdx.x / p.tiles;
-  const int b = f / p.T, t = f % p.T;
+  const int run = (blockIdx.x / p.tiles) % p.runs;
+  const int b = blockIdx.x / (p.tiles * p.runs);
+  const int t_begin = run * p.F, t_end = min(t_begin + p.F, p.T);
   const int h2_0 = (tile / p.tiles_w) * p.PR, w2_0 = (tile % p.tiles_w) * p.PC;
 
   // offsets of k (or of the group k = 4*kg .. 4*kg + 3) from a position's
@@ -204,89 +270,76 @@ __global__ void __launch_bounds__(NT, 2) int8_conv_pool_kernel(const QParams p) 
     }
     s_off[i] = off;
   }
-  stage_halo(p, s_x, b, t, h2_0, w2_0);
-  __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, tq = lane % 4;
   const int P = p.PR * p.PC;
   const int mgroups = (P + 15) / 16, ngroups = p.Npad / 32;
-  const int H2 = p.H / 2, W2 = p.W / 2;
   const int chunks = p.Kpad / 32;
 
-  for (int task = warp; task < mgroups * ngroups; task += NWARPS) {
-    const int mg = task / ngroups, ng = task % ngroups;
-    // the thread's two rows: pooled positions mg*16 + g and + 8 of the tile
-    int idx[2] = {mg * 16 + g, mg * 16 + g + 8};
-    int base[4][2];  // [window (jh, jw)][row]: halo byte of the pre-pool position
+  for (int t = t_begin; t < t_end; ++t) {
+    __syncthreads();  // the last frame's MMAs are done with the halo
+    stage_halo(p, s_x, b, t, h2_0, w2_0);
+    __syncthreads();
+
+    for (int task = warp; task < mgroups * ngroups; task += NWARPS) {
+      const int mg = task / ngroups, ng = task % ngroups;
+      // the thread's two rows: pooled positions mg*16 + g and + 8 of the tile
+      int idx[2] = {mg * 16 + g, mg * 16 + g + 8};
+      int base[4][2];  // [window (jh, jw)][row]: halo byte of the pre-pool position
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int q = idx[r] < P ? idx[r] : 0;
-      const int ph = q / p.PC, pw = q % p.PC;
+      for (int r = 0; r < 2; ++r) {
+        const int q = idx[r] < P ? idx[r] : 0;
+        const int ph = q / p.PC, pw = q % p.PC;
+#pragma unroll
+        for (int wdw = 0; wdw < 4; ++wdw)
+          base[wdw][r] = ((2 * ph + (wdw >> 1)) * p.IW + 2 * pw + (wdw & 1)) * p.S;
+      }
+      int acc[4][4][4];  // [window][n8 tile][fragment register]
 #pragma unroll
       for (int wdw = 0; wdw < 4; ++wdw)
-        base[wdw][r] = ((2 * ph + (wdw >> 1)) * p.IW + 2 * pw + (wdw & 1)) * p.S;
-    }
-    int acc[4][4][4];  // [window][n8 tile][fragment register]
 #pragma unroll
-    for (int wdw = 0; wdw < 4; ++wdw)
+        for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[wdw][j][i] = 0;
+          for (int i = 0; i < 4; ++i) acc[wdw][j][i] = 0;
 
-    const int8_t* wg = p.w + (size_t)(ng * 32 + g) * p.Kpad + tq * 4;
-    for (int kc = 0; kc < chunks; ++kc) {
-      uint32_t bf[4][2];
+      const int8_t* wg = p.w + (size_t)(ng * 32 + g) * p.Kpad + tq * 4;
+      for (int kc = 0; kc < chunks; ++kc) {
+        uint32_t bf[4][2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int8_t* wr = wg + (size_t)j * 8 * p.Kpad + kc * 32;
-        bf[j][0] = static_cast<uint32_t>(__ldg(reinterpret_cast<const int*>(wr)));
-        bf[j][1] = static_cast<uint32_t>(__ldg(reinterpret_cast<const int*>(wr + 16)));
-      }
-      if constexpr (WORDS) {
-        const int o0 = s_off[kc * 8 + tq], o1 = s_off[kc * 8 + tq + 4];
-#pragma unroll
-        for (int wdw = 0; wdw < 4; ++wdw) {
-          const uint32_t a[4] = {load4(s_x + base[wdw][0], o0), load4(s_x + base[wdw][1], o0),
-                                 load4(s_x + base[wdw][0], o1), load4(s_x + base[wdw][1], o1)};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) mma_s8(acc[wdw][j], a, bf[j][0], bf[j][1]);
+        for (int j = 0; j < 4; ++j) {
+          const int8_t* wr = wg + (size_t)j * 8 * p.Kpad + kc * 32;
+          bf[j][0] = static_cast<uint32_t>(__ldg(reinterpret_cast<const int*>(wr)));
+          bf[j][1] = static_cast<uint32_t>(__ldg(reinterpret_cast<const int*>(wr + 16)));
         }
-      } else {
-        int o0[4], o1[4];
+        if constexpr (WORDS) {
+          const int o0 = s_off[kc * 8 + tq], o1 = s_off[kc * 8 + tq + 4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          o0[i] = s_off[kc * 32 + tq * 4 + i];
-          o1[i] = s_off[kc * 32 + 16 + tq * 4 + i];
-        }
+          for (int wdw = 0; wdw < 4; ++wdw) {
+            const uint32_t a[4] = {load4(s_x + base[wdw][0], o0), load4(s_x + base[wdw][1], o0),
+                                   load4(s_x + base[wdw][0], o1), load4(s_x + base[wdw][1], o1)};
 #pragma unroll
-        for (int wdw = 0; wdw < 4; ++wdw) {
-          const uint32_t a[4] = {gather4(s_x + base[wdw][0], o0), gather4(s_x + base[wdw][1], o0),
-                                 gather4(s_x + base[wdw][0], o1),
-                                 gather4(s_x + base[wdw][1], o1)};
+            for (int j = 0; j < 4; ++j) mma_s8(acc[wdw][j], a, bf[j][0], bf[j][1]);
+          }
+        } else {
+          int o0[4], o1[4];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) mma_s8(acc[wdw][j], a, bf[j][0], bf[j][1]);
+          for (int i = 0; i < 4; ++i) {
+            o0[i] = s_off[kc * 32 + tq * 4 + i];
+            o1[i] = s_off[kc * 32 + 16 + tq * 4 + i];
+          }
+#pragma unroll
+          for (int wdw = 0; wdw < 4; ++wdw) {
+            const uint32_t a[4] = {gather4(s_x + base[wdw][0], o0),
+                                   gather4(s_x + base[wdw][1], o0),
+                                   gather4(s_x + base[wdw][0], o1),
+                                   gather4(s_x + base[wdw][1], o1)};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mma_s8(acc[wdw][j], a, bf[j][0], bf[j][1]);
+          }
         }
       }
-    }
-
-    // epilogue: fragment register i holds row g + 8*(i >> 1), channel 2*tq + (i & 1)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = i >> 1;
-      if (idx[r] >= P) continue;
-      const int h2 = h2_0 + idx[r] / p.PC, w2 = w2_0 + idx[r] % p.PC;
-      if (h2 >= H2 || w2 >= W2) continue;
-      float* ob = p.out + b * p.o_sb + t * p.o_st + h2 * p.o_sh + w2 * p.o_sw;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = ng * 32 + j * 8 + 2 * tq + (i & 1);
-        if (c >= p.Cout) continue;
-        const int m = max(max(acc[0][j][i], acc[1][j][i]), max(acc[2][j][i], acc[3][j][i]));
-        const float v = __fadd_rn(__fmul_rn(__int2float_rn(m), p.scale[c]), p.bias[c]);
-        ob[c * p.o_sc] = fmaxf(v, 0.f);
-      }
+      epilogue(p, acc, idx, b, t, h2_0, w2_0, ng, tq);
     }
   }
 }
@@ -308,7 +361,7 @@ cudaError_t launch(const QParams& p, int device, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
     if (device < MAX_DEVICES) opted_in[device].store(true);
   }
-  const long long blocks = (long long)p.tiles * p.B * p.T;
+  const long long blocks = (long long)p.tiles * p.runs * p.B;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   int8_conv_pool_kernel<WORDS><<<(unsigned)blocks, NT, smem, stream>>>(p);
   return cudaGetLastError();
@@ -324,37 +377,47 @@ extern "C" int avs_int8_conv_pool_smem(int Cin, int Kpad, int kt, int kh, int kw
                                2 * tile_cols + kw - 1, pos_bytes);
 }
 
-// Grid: one CTA per (frame, tile of tile_rows x tile_cols pooled positions).
+// Grid: one CTA per (clip, run of `frames` frames, tile of tile_rows x
+// tile_cols pooled positions). x is f32 (x_int8 = 0) or int8 channels-last
+// (x_sc = 1); out is f32 (out_int8 = 0) or int8 channels-last (o_sc = 1),
+// quantized with out_scale.
 extern "C" int avs_int8_conv_pool(
-    const float* x, const int8_t* w, const float* scale, const float* bias, float* out,
-    float x_scale, int B, int Cin, int T, int H, int W, int Cout, int kt, int kh, int kw,
-    int Kpad, int Npad, int tile_rows, int tile_cols, int pos_bytes,
-    long long x_sb, long long x_sc, long long x_st, long long x_sh, long long x_sw,
-    long long o_sb, long long o_sc, long long o_st, long long o_sh, long long o_sw,
-    int device, void* stream) {
+    const void* x, const int8_t* w, const float* scale, const float* bias, void* out,
+    float x_scale, float out_scale, int x_int8, int out_int8, int B, int Cin, int T, int H,
+    int W, int Cout, int kt, int kh, int kw, int Kpad, int Npad, int tile_rows, int tile_cols,
+    int pos_bytes, int frames, long long x_sb, long long x_sc, long long x_st, long long x_sh,
+    long long x_sw, long long o_sb, long long o_sc, long long o_st, long long o_sh,
+    long long o_sw, int device, void* stream) {
   const int K = Cin * kt * kh * kw;
   const bool words = Cin % 4 == 0;
   if (B < 1 || Cin < 1 || T < 1 || H < 2 || W < 2 || Cout < 1 || kt < 1 || kh < 1 ||
       kw < 1 || !(kt % 2) || !(kh % 2) || !(kw % 2) || Kpad < K || Kpad % 32 ||
       Npad < Cout || Npad % 32 || tile_rows < 1 || tile_cols < 1 || pos_bytes < Cin ||
-      (words && pos_bytes % 4))
+      (words && pos_bytes % 8) || frames < 1 || (x_int8 && Cin > 1 && x_sc != 1) ||
+      (out_int8 && Cout > 1 && o_sc != 1) || (out_int8 && !(out_scale > 0.f)))
     return static_cast<int>(cudaErrorInvalidValue);
   int cur = -1;
   cudaError_t e = cudaGetDevice(&cur);
   if (e == cudaSuccess && cur != device) e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   QParams p;
-  p.x = x; p.w = w; p.scale = scale; p.bias = bias; p.out = out; p.x_scale = x_scale;
+  p.x = x; p.w = w; p.scale = scale; p.bias = bias; p.out = out;
+  p.x_scale = x_scale; p.out_scale = out_scale; p.out_int8 = out_int8 != 0;
   p.B = B; p.Cin = Cin; p.T = T; p.H = H; p.W = W; p.Cout = Cout;
   p.kt = kt; p.kh = kh; p.kw = kw; p.K = K; p.Kpad = Kpad; p.Npad = Npad;
   p.PR = tile_rows; p.PC = tile_cols;
   p.tiles_w = (W / 2 + tile_cols - 1) / tile_cols;
   p.tiles = ((H / 2 + tile_rows - 1) / tile_rows) * p.tiles_w;
+  p.F = frames; p.runs = (T + frames - 1) / frames;
   p.IH = 2 * tile_rows + kh - 1; p.IW = 2 * tile_cols + kw - 1; p.S = pos_bytes;
   p.off_bytes = align16(4 * offset_entries(words, Kpad));
   p.x_sb = x_sb; p.x_sc = x_sc; p.x_st = x_st; p.x_sh = x_sh; p.x_sw = x_sw;
-  p.vec4 = x_sc == 1 && Cin % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-           x_sb % 4 == 0 && x_st % 4 == 0 && x_sh % 4 == 0 && x_sw % 4 == 0;
+  // channels-last, 16-byte aligned, whole 16-byte groups: vector staging
+  const int vec = x_int8 ? 16 : 4;
+  const bool vector = x_sc == 1 && Cin % vec == 0 &&
+                      reinterpret_cast<uintptr_t>(x) % 16 == 0 && x_sb % vec == 0 &&
+                      x_st % vec == 0 && x_sh % vec == 0 && x_sw % vec == 0;
+  p.stage = x_int8 ? (vector ? STAGE_S8X16 : STAGE_S8) : (vector ? STAGE_F32X4 : STAGE_F32);
   p.o_sb = o_sb; p.o_sc = o_sc; p.o_st = o_st; p.o_sh = o_sh; p.o_sw = o_sw;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   e = words ? launch<true>(p, device, s) : launch<false>(p, device, s);

@@ -18,12 +18,22 @@ Q1 for CUDA tensors, the plain version for CPU ones (the dispatcher chooses by
 the tensor's device), with an exact fake, so that a CUDA graph or a trace can
 hold it. A CUDA tensor launches the kernel or raises.
 
-Layouts: x (B, Cin, T, H, W) float32 at any strides; the kernel `kernel_q`
-(Cout, Cin, kt, kh, kw) int8, which the kernel reads packed once per load
-(`pack_kernel`: (Npad, Kpad) with k = ((dt*kh + dh)*kw + dw)*Cin + ci, rows
-and columns zero-padded to multiples of 32); out (B, Cout, T, H//2, W//2)
-float32, channels-last in memory (the next block's halo reads a position's
-channels contiguously), on both devices.
+Contracts, so that the int8 forward hands int8 from block to block:
+
+  | input                                   | output (`out_scale`)                       |
+  |-----------------------------------------|--------------------------------------------|
+  | float32 at any strides, quantized with  | float32 (None)                             |
+  | `x_scale` inside                        | or int8 quantized with `out_scale` (the    |
+  | or int8 channels-last, used as is       | next block's x_scale), equal to            |
+  |                                         | `quantize_input(float32 out, out_scale)`   |
+
+Layouts: x (B, Cin, T, H, W); the kernel `kernel_q` (Cout, Cin, kt, kh, kw)
+int8, which the kernel reads packed once per load (`pack_kernel`: (Npad,
+Kpad) with k = ((dt*kh + dh)*kw + dw)*Cin + ci, rows and columns
+zero-padded to multiples of 32); out (B, Cout, T, H//2, W//2), channels-last
+in memory (the next block's halo reads a position's channels contiguously),
+on both devices. An int8 input must be channels-last (a block's int8
+output is); both versions raise on any other int8 layout.
 """
 
 from __future__ import annotations
@@ -31,7 +41,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,10 +51,11 @@ from avsync_torch.ops.cuda import build
 # Kernel launches since the last reset (the caller resets them to 0).
 launches = 0
 
-# avs_int8_conv_pool(x, w, scale, bias, out, x_scale, B, Cin, T, H, W, Cout,
-#                    kt, kh, kw, Kpad, Npad, tile_rows, tile_cols, pos_bytes,
-#                    5 x strides, 5 out strides, device, stream)
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_float] + [ctypes.c_int] * 14
+# avs_int8_conv_pool(x, w, scale, bias, out, x_scale, out_scale, x_int8, out_int8,
+#                    B, Cin, T, H, W, Cout, kt, kh, kw, Kpad, Npad, tile_rows,
+#                    tile_cols, pos_bytes, frames, 5 x strides, 5 out strides,
+#                    device, stream)
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_float] * 2 + [ctypes.c_int] * 17
              + [ctypes.c_longlong] * 10 + [ctypes.c_int, ctypes.c_void_p])
 _SMEM_ARGTYPES = [ctypes.c_int] * 8
 
@@ -112,6 +123,11 @@ def tile_for(H2: int, W2: int, cin: int, cout: int, kt: int, kh: int,
         f"memory for its halo and offset table; one CTA of sm_90 has {MAX_SMEM}")
 
 
+def frames_for(B: int, T: int, tiles: int) -> int:
+    """Frames per CTA: one (each CTA stages the kt frames around its own)."""
+    return 1
+
+
 def pack_kernel(kernel_q: torch.Tensor) -> torch.Tensor:
     """(Cout, Cin, kt, kh, kw) int8 -> (Npad, Kpad) int8, each row one output
     channel's taps with their channels contiguous, zero-padded: the layout
@@ -145,39 +161,53 @@ def _dequant_pool(acc: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) ->
     return F.max_pool3d(F.relu(y + bias.view(view)), (1, 2, 2))
 
 
-def _ref(x, kernel_q, scale, bias, x_scale: float) -> torch.Tensor:
+def _ref(x, kernel_q, scale, bias, x_scale: float, out_scale: Optional[float]) -> torch.Tensor:
     kt, kh, kw = kernel_q.shape[2:]
-    xq = quantize_input(x.to(torch.float32), x_scale)
+    xq = x.to(torch.float32) if x.dtype == torch.int8 else quantize_input(x.to(torch.float32),
+                                                                          x_scale)
     acc = F.conv3d(xq.double(), kernel_q.double(),
                    padding=((kt - 1) // 2, (kh - 1) // 2, (kw - 1) // 2))
     # integers below 2^53: exact, whatever the algorithm (round() only guards
     # a transform-based algorithm's rounding of a few ulps)
-    return _dequant_pool(acc.round().to(torch.int32), scale, bias)
+    out = _dequant_pool(acc.round().to(torch.int32), scale, bias)
+    return out if out_scale is None else quantize_input(out, out_scale).to(torch.int8)
 
 
 def int8_conv_pool_ref(x: torch.Tensor, kernel_q: torch.Tensor, k_scale: torch.Tensor,
-                       bias: torch.Tensor, x_scale: float) -> torch.Tensor:
+                       bias: torch.Tensor, x_scale: float,
+                       out_scale: Optional[float] = None) -> torch.Tensor:
     """Plain version: maxpool(relu(float32(conv3d(q(x), kernel_q)) *
-    (x_scale * k_scale) + bias)), NCDHW, q(x) = `quantize_input`; the
-    convolution of the int8 values in float64 (exact), then int32, then f32."""
+    (x_scale * k_scale) + bias)), NCDHW, q(x) = `quantize_input` of an f32 x
+    (an int8 x is taken as already quantized); the convolution of the int8
+    values in float64 (exact), then int32, then f32; with `out_scale`, the
+    f32 result quantized to int8 by `quantize_input`."""
+    _check_int8_layout(x)
     scale = torch.tensor(x_scale, dtype=torch.float32) * k_scale.to("cpu", torch.float32)
-    return _ref(x, kernel_q, scale.to(x.device), bias, x_scale)
+    return _ref(x, kernel_q, scale.to(x.device), bias, x_scale, out_scale)
 
 
-def _out_empty(x: torch.Tensor, cout: int) -> torch.Tensor:
+def _check_int8_layout(x: torch.Tensor) -> None:
+    if x.dtype == torch.int8 and not x.permute(0, 2, 3, 4, 1).is_contiguous():
+        raise ValueError("int8_conv_pool: an int8 input must be channels-last, as a block's "
+                         "int8 output is")
+
+
+def _out_empty(x: torch.Tensor, cout: int, out_scale: Optional[float]) -> torch.Tensor:
     B, _, T, H, W = x.shape
-    return x.new_empty(B, T, H // 2, W // 2, cout, dtype=torch.float32).permute(0, 4, 1, 2, 3)
+    dtype = torch.float32 if out_scale is None else torch.int8
+    return x.new_empty(B, T, H // 2, W // 2, cout, dtype=dtype).permute(0, 4, 1, 2, 3)
 
 
 def _int8_conv_pool_cuda(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                          bias: torch.Tensor, x_scale: float, cout: int, kt: int, kh: int,
-                         kw: int) -> torch.Tensor:
+                         kw: int, out_scale: Optional[float] = None) -> torch.Tensor:
     """One Q1 launch."""
     global launches
     B, cin, T, H, W = x.shape
     dev = x.device
-    if x.dtype != torch.float32:
-        raise ValueError("int8_conv_pool: x must be float32")
+    if x.dtype not in (torch.float32, torch.int8):
+        raise ValueError("int8_conv_pool: x must be float32 or int8")
+    _check_int8_layout(x)
     if packed.device != dev or packed.dtype != torch.int8 or not packed.is_contiguous():
         raise ValueError(f"int8_conv_pool: the packed kernel must be contiguous int8 on {dev}")
     for name, t in (("scale", scale), ("bias", bias)):
@@ -190,12 +220,14 @@ def _int8_conv_pool_cuda(x: torch.Tensor, packed: torch.Tensor, scale: torch.Ten
         raise ValueError(f"int8_conv_pool: packed kernel {tuple(packed.shape)}, expected "
                          f"{(npad, kpad)}")
     rows, cols = tile_for(H // 2, W // 2, cin, cout, kt, kh, kw)
-    out = _out_empty(x, cout)
+    tiles = -(-(H // 2) // rows) * -(-(W // 2) // cols)
+    out = _out_empty(x, cout, out_scale)
     fn = build.function("int8_conv_pool", "avs_int8_conv_pool", _ARGTYPES)
     err = fn(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-             out.data_ptr(), x_scale, B, cin, T, H, W, cout, kt, kh, kw, kpad, npad, rows,
-             cols, pos_bytes(cin), *x.stride(), *out.stride(), dev.index,
-             torch.cuda.current_stream(dev).cuda_stream)
+             out.data_ptr(), x_scale, 1.0 if out_scale is None else out_scale,
+             int(x.dtype == torch.int8), int(out_scale is not None), B, cin, T, H, W, cout, kt,
+             kh, kw, kpad, npad, rows, cols, pos_bytes(cin), frames_for(B, T, tiles),
+             *x.stride(), *out.stride(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
     build.check("int8_conv_pool", err, "int8_conv_pool launch")
     launches += 1
     return out
@@ -209,21 +241,23 @@ int8_conv_pool_op = torch.library.custom_op("avsync_torch::int8_conv_pool",
 
 
 @int8_conv_pool_op.register_kernel("cpu")
-def _int8_conv_pool_cpu(x, packed, scale, bias, x_scale, cout, kt, kh, kw):
+def _int8_conv_pool_cpu(x, packed, scale, bias, x_scale, cout, kt, kh, kw, out_scale=None):
+    _check_int8_layout(x)
     kernel_q = unpack_kernel(packed, cout, x.shape[1], kt, kh, kw)
-    out = _out_empty(x, cout)
-    out.copy_(_ref(x, kernel_q, scale, bias, x_scale))
+    out = _out_empty(x, cout, out_scale)
+    out.copy_(_ref(x, kernel_q, scale, bias, x_scale, out_scale))
     return out
 
 
 @int8_conv_pool_op.register_fake
-def _int8_conv_pool_fake(x, packed, scale, bias, x_scale, cout, kt, kh, kw):
-    return _out_empty(x, cout)
+def _int8_conv_pool_fake(x, packed, scale, bias, x_scale, cout, kt, kh, kw, out_scale=None):
+    return _out_empty(x, cout, out_scale)
 
 
-def check_geometry(x: torch.Tensor, kernel_shape, x_scale: float) -> None:
+def check_geometry(x: torch.Tensor, kernel_shape, x_scale: float,
+                   out_scale: Optional[float] = None) -> None:
     """Raise on what neither version takes: the JAX block's SAME padding is
-    symmetric only for odd kernels; the static scale must be positive."""
+    symmetric only for odd kernels; the static scales must be positive."""
     if x.dim() != 5:
         raise ValueError(f"int8_conv_pool: x must be (B, Cin, T, H, W), got {tuple(x.shape)}")
     cout, kcin, kt, kh, kw = kernel_shape
@@ -233,7 +267,8 @@ def check_geometry(x: torch.Tensor, kernel_shape, x_scale: float) -> None:
         raise ValueError("int8_conv_pool needs odd kernel sizes (symmetric SAME padding)")
     if x.shape[3] < 2 or x.shape[4] < 2:
         raise ValueError("int8_conv_pool needs H and W of at least 2 (a (1,2,2) pool)")
-    if not (math.isfinite(x_scale) and x_scale > 0):
-        raise ValueError(f"int8_conv_pool: the input scale must be positive, got {x_scale}")
+    for what, v in (("input", x_scale), ("output", out_scale)):
+        if v is not None and not (math.isfinite(v) and v > 0):
+            raise ValueError(f"int8_conv_pool: the {what} scale must be positive, got {v}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"int8_conv_pool: unsupported device {x.device}")

@@ -14,7 +14,10 @@ The scheme is the JAX package's static PTQ:
 
 Each conv block is one launch of Q1 (`ops/cuda/quantconv.py`,
 `csrc/int8_conv_pool.cu`) on the card and its plain version on the CPU,
-chosen by the tensor's device. The JAX package's pack4 path is its TPU
+chosen by the tensor's device. In the int8 forward the blocks hand int8 to
+each other: a block writes its output quantized with the next block's
+static scale, which is exactly the quantize step the next block would
+apply to the f32 output, so the log-probs keep their bits. The JAX package's pack4 path is its TPU
 layout trick with the same bits as the plain block (tests/test_quant.py);
 the port has none.
 
@@ -81,15 +84,22 @@ def quantize_symmetric(x: torch.Tensor, axes: Sequence[int]
     return q, scale
 
 
-def quant_conv_block(qc: QuantConvParams, x: torch.Tensor) -> torch.Tensor:
+def quant_conv_block(qc: QuantConvParams, x: torch.Tensor,
+                     out_scale: Optional[float] = None) -> torch.Tensor:
     """int8 Conv3D -> dequant -> ReLU -> MaxPool3D(1,2,2), NCDHW: (B, Cin, T,
-    H, W) float32 -> (B, Cout, T, H//2, W//2) float32. The quantize step is
-    inside: Q1 on a CUDA tensor, its plain version on a CPU one."""
+    H, W) -> (B, Cout, T, H//2, W//2). A float x is quantized inside with the
+    block's static scale (the JAX block); an int8 x (channels-last, a block's
+    int8 output) is taken as already quantized. The output is float32, or
+    with `out_scale` (the next block's x_scale) int8, quantized as the next
+    block would quantize the float32 output. Q1 on a CUDA tensor, its plain
+    version on a CPU one."""
     x_scale = float(qc.x_scale)
-    quantconv.check_geometry(x, tuple(qc.kernel_q.shape), x_scale)
+    quantconv.check_geometry(x, tuple(qc.kernel_q.shape), x_scale, out_scale)
     cout, _, kt, kh, kw = qc.kernel_q.shape
-    return quantconv.int8_conv_pool_op(x.to(torch.float32), qc.packed, qc.scale, qc.bias,
-                                       x_scale, cout, kt, kh, kw)
+    if x.dtype != torch.int8:
+        x = x.to(torch.float32)
+    return quantconv.int8_conv_pool_op(x, qc.packed, qc.scale, qc.bias, x_scale, cout, kt, kh,
+                                       kw, out_scale)
 
 
 def _conv_blocks(model) -> list:
@@ -147,8 +157,11 @@ def lipnet_int8_apply(qp: QuantLipNetParams, x: torch.Tensor,
     if not x.is_floating_point():
         x = x.to(torch.float32)
     x = x.permute(0, 4, 1, 2, 3)
-    for qc in qp.convs:
-        x = quant_conv_block(qc, x)
+    # int8 between blocks: each block's output quantized with the next
+    # block's input scale (the same bits as quantizing the f32 output there)
+    n = len(qp.convs)
+    for i, qc in enumerate(qp.convs):
+        x = quant_conv_block(qc, x, float(qp.convs[i + 1].x_scale) if i + 1 < n else None)
     B, C, T, h, w = x.shape
     x = x.permute(0, 2, 1, 3, 4).reshape(B, T, C * h * w)
     p = qp.float_params

@@ -2186,6 +2186,10 @@ INT8_BLOCKS = {"conv1": (1, 32, 50, 100, (3, 5, 5)), "conv2": (32, 64, 25, 50, (
                "conv3": (64, 96, 12, 25, (3, 3, 3))}
 
 
+# the operator's contracts: (input dtype)_(output dtype)
+Q1_CONTRACTS = ("f32_f32", "f32_s8", "s8_s8", "s8_f32")
+
+
 def channels_last(x):
     """x (B, C, T, H, W) with its channels contiguous, as Q1 writes its
     output (the layout the int8 forward gives conv2 and conv3)."""
@@ -2244,13 +2248,51 @@ def im2col_int_mm_block(qc, x):
     return quantconv._dequant_pool(acc, qc.scale, qc.bias)
 
 
+# the contract each block of the int8 forward runs in: (input, output) dtype
+CHAIN_CONTRACTS = {"conv1": "f32_s8", "conv2": "s8_s8", "conv3": "s8_f32"}
+
+
+def q1_contract(qc, x, contract, mode):
+    """(input, out_scale) of one contract of Q1, as
+    tests/test_torch_kernels_cuda.py's: an int8 input is x quantized with
+    the block's scale, channels-last; an int8 output takes a scale that maps
+    the f32 output's largest value to 127 (200 in 'extreme' mode: past the
+    clip), or 0.125 in 'ties' mode."""
+    import torch
+
+    from avsync_torch.ops.cuda import quantconv
+
+    if contract.startswith("s8"):
+        x = channels_last(quantconv.quantize_input(x, float(qc.x_scale)).to(torch.int8))
+    if contract.endswith("f32"):
+        return x, None
+    top = float(quantconv.int8_conv_pool_ref(x, qc.kernel_q, qc.k_scale, qc.bias,
+                                             float(qc.x_scale)).max())
+    return x, {"ties": 0.125, "extreme": top / 200}.get(mode, top / 127 or 1.0)
+
+
+def q1_bytes_ops(B, T, cin, cout, H, W, k, contract):
+    """(bytes, int8 operations) one launch must move and do: each input
+    read once (4 or 1 bytes a value), the int8 weights, scale and bias,
+    each output written once (4 or 1 bytes); the conv over the pre-pool
+    positions the floor pool keeps."""
+    H2, W2 = H // 2, W // 2
+    K = cin * k[0] * k[1] * k[2]
+    n_ops = 2 * B * T * (2 * H2) * (2 * W2) * cout * K
+    x_b, o_b = (1 if contract.startswith("s8") else 4), (1 if contract.endswith("s8") else 4)
+    n_bytes = x_b * B * cin * T * H * W + cout * K + 8 * cout + o_b * B * cout * T * H2 * W2
+    return n_bytes, n_ops
+
+
 def check_int8_conv_pool(dev, smi):
-    """Phase 11a-b: Q1 against its plain version at LipNet's three blocks at
-    full width (B = 1, 8, 32) and at odd geometries, equal bit for bit, a
-    repeat launch equal too; then kernel, plain, library (im2col +
-    `torch._int_mm`) and f32 cuDNN times at B=8 (CUDA events) and the bound.
-    conv2's and conv3's inputs are channels-last at T=75, as the int8
-    forward gives them (conv1's is the model input, W contiguous)."""
+    """Phase 11a-b: Q1 against its plain version in each contract (f32 or
+    int8 in, f32 or int8 out) at LipNet's three blocks at full width (B =
+    1, 8, 32) and at odd geometries, equal bit for bit, a repeat launch
+    equal too; then kernel, plain, library (im2col + `torch._int_mm`) and
+    f32 cuDNN times at B=8 (CUDA events) and the bound, each block in the
+    contract the int8 forward gives it (conv1 f32 -> int8, conv2 int8 ->
+    int8, conv3 int8 -> f32, channels-last between blocks), its f32-contract
+    time and bound beside."""
     import torch
 
     from avsync_torch.ops.conv import conv_relu_pool
@@ -2258,59 +2300,81 @@ def check_int8_conv_pool(dev, smi):
     from avsync_torch.ops.quant import quant_conv_block
 
     g = torch.Generator(device="cpu").manual_seed(60)
-    print("int8_conv_pool (Q1) vs int8_conv_pool_ref (torch.equal required):", flush=True)
+    print("int8_conv_pool (Q1) vs int8_conv_pool_ref (torch.equal required), contracts "
+          f"{'/'.join(Q1_CONTRACTS)}:", flush=True)
     cases = [(B, cin, cout, 75, H, W, k, "random")
              for (cin, cout, H, W, k) in INT8_BLOCKS.values() for B in (1, 8, 32)]
     cases += [(2, 3, 5, 5, 9, 13, (1, 3, 5), "random"), (3, 64, 40, 4, 13, 27, (3, 3, 3), "random"),
               (2, 1, 7, 3, 7, 201, (5, 1, 3), "random"), (2, 12, 33, 2, 6, 10, (3, 5, 5), "random"),
+              (2, 32, 64, 2, 25, 50, (3, 5, 5), "random"), (1, 16, 24, 1, 10, 14, (3, 3, 3), "random"),
               (2, 32, 64, 3, 25, 50, (3, 5, 5), "ties"), (1, 1, 32, 3, 50, 100, (3, 5, 5), "ties"),
               (1, 32, 64, 3, 25, 50, (3, 5, 5), "extreme")]
     for B, cin, cout, T, H, W, k, mode in cases:
-        qc, x = q1_case(g, dev, B, cin, cout, T, H, W, k, mode)
+        qc, x32 = q1_case(g, dev, B, cin, cout, T, H, W, k, mode)
         if T == 75 and cin > 1:  # LipNet's conv2/conv3 inputs: the int8 forward's layout
-            x = channels_last(x)
-        got = quant_conv_block(qc, x)
-        again = quant_conv_block(qc, x)
-        want = quantconv.int8_conv_pool_ref(x, qc.kernel_q, qc.k_scale, qc.bias,
-                                            float(qc.x_scale))
-        torch.cuda.synchronize()
+            x32 = channels_last(x32)
         tile = quantconv.tile_for(H // 2, W // 2, cin, cout, *k)
-        ok = got.shape == want.shape and torch.equal(got, want) and torch.equal(got, again)
+        said = []
+        for contract in Q1_CONTRACTS:
+            x, out_scale = q1_contract(qc, x32, contract, mode)
+            got = quant_conv_block(qc, x, out_scale)
+            again = quant_conv_block(qc, x, out_scale)
+            want = quantconv.int8_conv_pool_ref(x, qc.kernel_q, qc.k_scale, qc.bias,
+                                                float(qc.x_scale), out_scale)
+            torch.cuda.synchronize()
+            ok = (got.shape == want.shape and got.dtype == want.dtype and torch.equal(got, want)
+                  and torch.equal(got, again))
+            said.append(f"{contract} {'equal' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"kernel check failed: Q1 at B={B} Cin={cin} {H}x{W} {mode} "
+                                 f"{contract}")
+            del x, got, again, want
+        tiles = -(-(H // 2) // tile[0]) * -(-(W // 2) // tile[1])
         print(f"  B={B} Cin={cin} Cout={cout} T={T} {H}x{W} k={k} {mode} (tile {tile[0]}x"
-              f"{tile[1]}): {'equal bit for bit, repeat equal' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            raise SystemExit(f"kernel check failed: Q1 at B={B} Cin={cin} {H}x{W} {mode}")
-        del x, got, again, want
+              f"{tile[1]}, {quantconv.frames_for(B, T, tiles)} frames per CTA): "
+              f"{', '.join(said)} bit for bit, repeat equal", flush=True)
+        del x32
 
     times, blocks = {}, {}
     B, T = 8, 75
     for name, (cin, cout, H, W, k) in INT8_BLOCKS.items():
-        qc, x = q1_case(g, dev, B, cin, cout, T, H, W, k)
+        qc, x32 = q1_case(g, dev, B, cin, cout, T, H, W, k)
         if cin > 1:  # the int8 forward's layout
-            x = channels_last(x)
-        lib = im2col_int_mm_block(qc, x)
-        if not torch.equal(lib, quant_conv_block(qc, x)):
+            x32 = channels_last(x32)
+        contract = CHAIN_CONTRACTS[name]
+        x, out_scale = q1_contract(qc, x32, contract, "random")
+        lib = im2col_int_mm_block(qc, x32)
+        if not torch.equal(lib, quant_conv_block(qc, x32)):
             raise SystemExit(f"the im2col + _int_mm yardstick differs from Q1 at {name}")
         w32 = (qc.kernel_q.float() * qc.k_scale.view(-1, 1, 1, 1, 1)).contiguous()
-        ms = time_ms(lambda: quant_conv_block(qc, x))
+        ms = time_ms(lambda: quant_conv_block(qc, x, out_scale))
+        f32c_ms = time_ms(lambda: quant_conv_block(qc, x32))
         plain = time_ms(lambda: quantconv.int8_conv_pool_ref(
-            x, qc.kernel_q, qc.k_scale, qc.bias, float(qc.x_scale)), iters=3, warmup=1)
-        lib_ms = time_ms(lambda: im2col_int_mm_block(qc, x), iters=3, warmup=1)
-        f32_ms = time_ms(lambda: conv_relu_pool(x, w32, qc.bias), iters=5, warmup=2)
+            x, qc.kernel_q, qc.k_scale, qc.bias, float(qc.x_scale), out_scale), iters=3,
+            warmup=1)
+        lib_ms = time_ms(lambda: im2col_int_mm_block(qc, x32), iters=3, warmup=1)
+        f32_ms = time_ms(lambda: conv_relu_pool(x32, w32, qc.bias), iters=5, warmup=2)
+        n_bytes, n_ops = q1_bytes_ops(B, T, cin, cout, H, W, k, contract)
+        f32c_bytes, _ = q1_bytes_ops(B, T, cin, cout, H, W, k, "f32_f32")
         H2, W2 = H // 2, W // 2
-        K = cin * k[0] * k[1] * k[2]
-        n_ops = 2 * B * T * (2 * H2) * (2 * W2) * cout * K
-        n_bytes = 4 * x.numel() + cout * K + 8 * cout + 4 * B * cout * T * H2 * W2
-        blocks[name] = {"ms": ms, "plain_ms": plain, "library_ms": lib_ms,
-                        "cudnn_f32_ms": f32_ms, "int8_gops": n_ops / 1e9,
-                        "mb": n_bytes / 1e6, "tile": quantconv.tile_for(H2, W2, cin, cout, *k),
-                        "bound_ms": max(n_bytes / HBM_BYTES_PER_S, n_ops / INT8_OPS) * 1e3}
+        tile = quantconv.tile_for(H2, W2, cin, cout, *k)
+        blocks[name] = {"contract": contract, "ms": ms, "plain_ms": plain, "library_ms": lib_ms,
+                        "cudnn_f32_ms": f32_ms, "f32_contract_ms": f32c_ms,
+                        "int8_gops": n_ops / 1e9, "mb": n_bytes / 1e6,
+                        "f32_contract_mb": f32c_bytes / 1e6, "tile": tile,
+                        "frames_per_cta": quantconv.frames_for(
+                            B, T, -(-H2 // tile[0]) * -(-W2 // tile[1])),
+                        "bound_ms": max(n_bytes / HBM_BYTES_PER_S, n_ops / INT8_OPS) * 1e3,
+                        "f32_contract_bound_ms": max(f32c_bytes / HBM_BYTES_PER_S,
+                                                     n_ops / INT8_OPS) * 1e3}
         times[name] = (n_bytes, n_ops)
-        print(f"  {name} B=8 T=75 {H}x{W} {cin}->{cout}: kernel_ms={ms:.4f} plain_ms="
-              f"{plain:.4f} library_ms={lib_ms:.4f} (im2col + _int_mm) cudnn_f32_ms="
-              f"{f32_ms:.4f} bound_ms={blocks[name]['bound_ms']:.4f} "
-              f"({n_ops / 1e9:.1f} G int8 ops, {n_bytes / 1e6:.1f} MB) [{smi}]", flush=True)
-        del qc, x, lib
+        print(f"  {name} B=8 T=75 {H}x{W} {cin}->{cout} {contract}: kernel_ms={ms:.4f} "
+              f"(f32 contract {f32c_ms:.4f}) plain_ms={plain:.4f} library_ms={lib_ms:.4f} "
+              f"(im2col + _int_mm) cudnn_f32_ms={f32_ms:.4f} bound_ms="
+              f"{blocks[name]['bound_ms']:.4f} (f32 contract "
+              f"{blocks[name]['f32_contract_bound_ms']:.4f}; {n_ops / 1e9:.1f} G int8 ops, "
+              f"{n_bytes / 1e6:.1f} MB) [{smi}]", flush=True)
+        del qc, x, x32, lib
     torch.cuda.empty_cache()
     n_bytes = sum(b for b, _ in times.values())
     n_ops = sum(o for _, o in times.values())
@@ -2322,7 +2386,9 @@ def check_int8_conv_pool(dev, smi):
                 bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else
                 "operations", library_ms=sum(b["library_ms"] for b in blocks.values()),
                 cudnn_f32_ms=sum(b["cudnn_f32_ms"] for b in blocks.values()),
-                shape="B=8 T=75 full width, conv1 + conv2 + conv3 (one int8 forward)",
+                f32_contract_ms=sum(b["f32_contract_ms"] for b in blocks.values()),
+                shape="B=8 T=75 full width, conv1 + conv2 + conv3 (one int8 forward, int8 "
+                      "between blocks)",
                 replaces_note="no pallas_call: the int8 lax.conv_general_dilated of "
                               "quant_conv_block (avsync/ops/quant.py:112-135)",
                 blocks=blocks)
@@ -2449,6 +2515,24 @@ def run_int8_serving(dev, workdir, corpus, ckpt_dir, test_config, greedy_results
     frames = np.stack(crops[:8])
     clips = f32.preprocess_device(frames)
     lp8, lp32 = reader._logprobs(clips), f32._logprobs(clips)
+    # the int8 hand-off between blocks against three f32-contract launches
+    from avsync_torch.ops import quant as tq
+
+    block = tq.quant_conv_block
+    tq.quant_conv_block = lambda qc, x, out_scale=None: block(qc, x)
+    try:
+        before = quantconv.launches
+        lp_f32_contract = reader._logprobs(clips)
+        if quantconv.launches - before != 3:
+            raise SystemExit("the f32-contract int8 forward did not launch Q1 three times")
+    finally:
+        tq.quant_conv_block = block
+    same = torch.equal(lp8, lp_f32_contract)
+    out["hand_off_equals_f32_contract"] = same
+    print(f"  int8 forward at B=8, int8 hand-off between blocks vs three f32-contract "
+          f"launches: {'equal bit for bit' if same else 'DIFFERENT'}", flush=True)
+    if not same:
+        raise SystemExit("the int8 hand-off changed the int8 forward's log-probs")
     mean_abs = (lp8 - lp32).abs().mean().item()
     agree = (lp8.argmax(-1) == lp32.argmax(-1)).float().mean().item()
     out["int8_vs_f32"] = {"mean_abs_logprob": mean_abs, "argmax_agreement": agree}
@@ -2468,13 +2552,17 @@ def run_int8_serving(dev, workdir, corpus, ckpt_dir, test_config, greedy_results
     q1_n = sum(n for name, n in names.items() if "int8_conv_pool_kernel" in name)
     convs = {name: n for name, n in names.items() if "int8_conv_pool_kernel" not in name
              and any(w in name.lower() for w in ("cudnn", "fprop", "implicit", "conv"))}
+    # an elementwise quantize step (x / s, round, clamp) between blocks
+    quantize = {name: n for name, n in names.items() if "int8_conv_pool_kernel" not in name
+                and any(w in name.lower() for w in ("round", "clamp", "div_true"))}
     out["int8_forward_trace"] = {"int8_conv_pool": q1_n, "gru_fwd": found["gru_fwd"],
                                  "conv1_pool": found["conv1_pool"], "other_convs": convs,
-                                 "device_busy_ms": busy}
+                                 "quantize_kernels": quantize, "device_busy_ms": busy}
     print(f"  one int8 forward at B=8 by profiler name: {json.dumps(out['int8_forward_trace'])}; "
           f"every kernel: {names}", flush=True)
-    if (q1_n, found["gru_fwd"], found["conv1_pool"]) != (3, 2, 0) or convs:
-        raise SystemExit("the int8 forward ran another convolution than Q1's three launches")
+    if (q1_n, found["gru_fwd"], found["conv1_pool"]) != (3, 2, 0) or convs or quantize:
+        raise SystemExit("the int8 forward ran another convolution or quantize kernel than "
+                         "Q1's three launches")
     print(f"  int8 serving phase numbers [{smi}]: {json.dumps(out)}", flush=True)
     return out
 

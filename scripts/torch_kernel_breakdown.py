@@ -34,17 +34,21 @@ Mode `q1` (the int8 conv + dequant + ReLU + pool block of int8 serving):
   * builds int8_conv_pool.cu and variants with one part cut out (no MMA
     task loop: the halo staging alone; no staging: the MMA loop over
     whatever shared memory holds; both cut: the launch and the offset
-    table), and, with `--parent DIR`, the int8_conv_pool.cu of DIR (an
-    earlier design with the same C interface; `--parent` is optional in
-    this mode); prints ptxas' register report for each;
-  * times each at LipNet's three blocks at B=8, T=75 in the layouts the
-    int8 forward gives them (conv1's input NCDHW with W contiguous, conv2's
-    and conv3's channels-last, as Q1 writes them), through the package's
-    wrapper with the variant swapped in: CUDA events (median of 20) and
-    the profiler's device time per call;
-  * with `--parent`, the earlier design against the current one in turns
-    (earlier, current, current, earlier) per block, after checking that
-    both equal the plain version bit for bit.
+    table), and, with `--parent DIR`, the int8_conv_pool.cu of DIR (commit
+    78af03d's design: f32 in and out, one frame per CTA, its own C
+    interface; `--parent` is optional in this mode); prints ptxas' register
+    report for each;
+  * times each at LipNet's three blocks at B=8, T=75 in the contracts and
+    layouts the int8 forward gives them (conv1 f32 NCDHW in, int8 out;
+    conv2 int8 in and out; conv3 int8 in, f32 out; channels-last between
+    blocks; static scales calibrated on the input), through the package's
+    wrapper with the variant swapped in: CUDA events (median of 20) and the
+    profiler's device time per call, after checking that the full kernel
+    equals the plain version bit for bit; then the whole chain;
+  * with `--parent`, the whole chain against the parent's (three
+    f32-contract launches through its C interface, its wrapper's tiles) in
+    turns (parent, current, current, parent), after checking that both give
+    the same bits.
 
 Mode `lipnet`:
   * builds the earlier design's four LipNet kernels and variants of its K3 and K1
@@ -593,12 +597,36 @@ def k5_breakdown(parent: Path, dev):
 # result and is only timed)
 Q1_NO_MMA = ("for (int task = warp; task < mgroups * ngroups; task += NWARPS) {",
              "for (int task = warp; task < 0; task += NWARPS) {")
-Q1_NO_STAGING = ("  stage_halo(p, s_x, b, t, h2_0, w2_0);\n", "")
+Q1_NO_STAGING = ("    stage_halo(p, s_x, b, t, h2_0, w2_0);\n", "")
 Q1_VARIANTS = {"q1_full": [], "q1_staging_only": [Q1_NO_MMA],
                "q1_compute_only": [Q1_NO_STAGING], "q1_launch_only": [Q1_NO_MMA, Q1_NO_STAGING]}
-# LipNet's conv blocks at full width: (Cin, Cout, H, W, kernel)
+# LipNet's conv blocks at full width: (Cin, Cout, H, W, kernel), and the
+# contract the int8 forward runs each in
 Q1_BLOCKS = {"conv1": (1, 32, 50, 100, (3, 5, 5)), "conv2": (32, 64, 25, 50, (3, 5, 5)),
              "conv3": (64, 96, 12, 25, (3, 3, 3))}
+Q1_CHAIN = {"conv1": "f32_s8", "conv2": "s8_s8", "conv3": "s8_f32"}
+# the C interface of the parent's Q1 (78af03d: f32 in, f32 out, one frame per CTA)
+Q1_PARENT_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_float] + [ctypes.c_int] * 14
+                      + [ctypes.c_longlong] * 10 + [ctypes.c_int, ctypes.c_void_p])
+
+
+def parent_tiling(parent: Path):
+    """The parent wrapper's `tile_for` and `pos_bytes` (its quantconv.py's
+    functions and constants, executed alone: importing the module would
+    register its operator a second time)."""
+    import ast
+    import functools
+    import typing
+
+    src = (parent / "avsync_torch" / "ops" / "cuda" / "quantconv.py").read_text()
+    keep = {"padded", "pos_bytes", "shared_memory_bytes", "tile_for"}
+    nodes = [n for n in ast.parse(src).body
+             if (isinstance(n, ast.FunctionDef) and n.name in keep)
+             or (isinstance(n, ast.Assign) and all(isinstance(t, ast.Name) and t.id.isupper()
+                                                   and t.id[0] != "_" for t in n.targets))]
+    ns = {"functools": functools, "Tuple": typing.Tuple, "Optional": typing.Optional}
+    exec(compile(ast.Module(body=nodes, type_ignores=[]), "parent_quantconv", "exec"), ns)
+    return ns["tile_for"], ns["pos_bytes"]
 
 
 def q1_breakdown(parent, dev):
@@ -612,7 +640,7 @@ def q1_breakdown(parent, dev):
               quantconv._ARGTYPES)]
     if parent is not None:
         specs.append((parent / "avsync_torch" / "csrc", "int8_conv_pool",
-                      {"q1_earlier": []}, "avs_int8_conv_pool", quantconv._ARGTYPES))
+                      {"q1_parent": []}, "avs_int8_conv_pool", Q1_PARENT_ARGTYPES))
     fns = build_variants(specs)
     build.build(["int8_conv_pool"])
     out = {"ptxas_variants": {k: v[1] for k, v in fns.items()}}
@@ -620,47 +648,87 @@ def q1_breakdown(parent, dev):
     build.function(*key, quantconv._ARGTYPES)
     g = torch.Generator().manual_seed(0)
     B, T = 8, 75
-    blocks = {}
-    for name, (cin, cout, H, W, k) in Q1_BLOCKS.items():
+    x = torch.rand(B, T, 50, 100, 1, generator=g).to(dev).permute(0, 4, 1, 2, 3)
+    qcs, blocks, h = {}, {}, x
+    for name, (cin, cout, H, W, k) in Q1_BLOCKS.items():  # calibrated as `quantize` does
         kq = torch.randint(-127, 128, (cout, cin, *k), generator=g, dtype=torch.int8)
         ks = torch.rand(cout, generator=g) * 0.01 + 1e-4
-        qc = quant_conv_params(kq.to(dev), ks, torch.randn(cout, generator=g) * 0.1,
-                               np.float32(1 / 127))
-        if cin == 1:  # the model input (B, T, H, W, 1), permuted
-            x = torch.rand(B, T, H, W, 1, generator=g).to(dev).permute(0, 4, 1, 2, 3)
-        else:  # a Q1 output: channels-last
-            x = torch.rand(B, T, H, W, cin, generator=g).to(dev).permute(0, 4, 1, 2, 3)
-        want = quantconv.int8_conv_pool_ref(x, qc.kernel_q, qc.k_scale, qc.bias,
-                                            float(qc.x_scale))
-        row = {"tile": quantconv.tile_for(H // 2, W // 2, cin, cout, *k)}
+        qcs[name] = quant_conv_params(kq.to(dev), ks, torch.randn(cout, generator=g) * 0.1,
+                                      np.float32(float(h.abs().max()) / 127))
+        h = quant_conv_block(qcs[name], h)
+    names = list(Q1_BLOCKS)
+    scales = {n: float(qcs[names[i + 1]].x_scale) if i + 1 < len(names) else None
+              for i, n in enumerate(names)}
+    h = x
+    for name, (cin, cout, H, W, k) in Q1_BLOCKS.items():
+        qc, x_in, out_scale = qcs[name], h, scales[name]
+        want = quantconv.int8_conv_pool_ref(x_in, qc.kernel_q, qc.k_scale, qc.bias,
+                                            float(qc.x_scale), out_scale)
+        tile = quantconv.tile_for(H // 2, W // 2, cin, cout, *k)
+        tiles = -(-(H // 2) // tile[0]) * -(-(W // 2) // tile[1])
+        row = {"contract": Q1_CHAIN[name], "tile": tile,
+               "frames_per_cta": quantconv.frames_for(B, T, tiles)}
 
-        def call(fn=None, qc=qc, x=x):
-            run = (lambda: quant_conv_block(qc, x))
+        def call(fn=None, qc=qc, x_in=x_in, out_scale=out_scale):
+            run = (lambda: quant_conv_block(qc, x_in, out_scale))
             return swapped(key, fn, run) if fn is not None else run
 
-        for variant in [*Q1_VARIANTS, *(["q1_earlier"] if parent is not None else [])]:
+        for variant in Q1_VARIANTS:
             fn = fns[variant][0]
-            if variant in ("q1_full", "q1_earlier"):
+            if variant == "q1_full":
                 got = None
 
                 def keep():
                     nonlocal got
-                    got = quant_conv_block(qc, x)
+                    got = quant_conv_block(qc, x_in, out_scale)
                 swapped(key, fn, keep)()
                 torch.cuda.synchronize()
-                row[f"{variant}_equals_plain"] = bool(torch.equal(got, want))
+                row["q1_full_equals_plain"] = bool(torch.equal(got, want))
             row[variant] = {"event_ms": time_ms(call(fn)),
                             "device_ms": sum(device_ms(call(fn)).values())}
         row["wrapper_ms"] = time_ms(call())
-        if parent is not None:
-            turns = {"earlier": [], "current": []}
-            for side in ("earlier", "current", "current", "earlier"):
-                turns[side].append(time_ms(call(fns["q1_earlier"][0]) if side == "earlier"
-                                           else call()))
-            row["turns_ms"] = turns
         blocks[name] = row
         print(f"{name}: {json.dumps(row)}", flush=True)
+        h = want
     out["blocks_B8"] = blocks
+
+    def chain():
+        h = x
+        for n in names:
+            h = quant_conv_block(qcs[n], h, scales[n])
+        return h
+
+    out["chain"] = {"event_ms": time_ms(chain), "device_ms": sum(device_ms(chain).values())}
+    if parent is not None:
+        tile_for, pos_bytes = parent_tiling(parent)
+        pfn = fns["q1_parent"][0]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def parent_chain():  # three f32-contract launches, as the parent's wrapper
+            h = x
+            for n in names:
+                qc = qcs[n]
+                Bh, cin, Th, H, W = h.shape
+                cout, _, kt, kh, kw = qc.kernel_q.shape
+                rows, cols = tile_for(H // 2, W // 2, cin, cout, kt, kh, kw)
+                o = torch.empty(Bh, Th, H // 2, W // 2, cout, device=dev).permute(0, 4, 1, 2, 3)
+                checked(pfn(h.data_ptr(), qc.packed.data_ptr(), qc.scale.data_ptr(),
+                            qc.bias.data_ptr(), o.data_ptr(), float(qc.x_scale), Bh, cin, Th,
+                            H, W, cout, kt, kh, kw, qc.packed.shape[1], qc.packed.shape[0],
+                            rows, cols, pos_bytes(cin), *h.stride(), *o.stride(), dev.index,
+                            stream), "parent Q1")
+                h = o
+            return h
+
+        same = bool(torch.equal(parent_chain(), chain()))
+        turns = {"parent": [], "current": []}
+        for side in ("parent", "current", "current", "parent"):
+            turns[side].append(time_ms(parent_chain if side == "parent" else chain))
+        out["chain_vs_parent"] = {
+            "equal_bit_for_bit": same, "turns_event_ms": turns,
+            "device_ms": {"parent": sum(device_ms(parent_chain).values()),
+                          "current": sum(device_ms(chain).values())}}
+        print(f"chain vs parent: {json.dumps(out['chain_vs_parent'])}", flush=True)
     return out
 
 

@@ -605,47 +605,96 @@ def q1_case(g, dev, B, cin, cout, T, H, W, k, mode="random"):
     return quant_conv_params(kq.to(dev), ks, bias, xs), x.to(dev)
 
 
-def q1_ref(qc, x):
-    return quantconv.int8_conv_pool_ref(x, qc.kernel_q, qc.k_scale, qc.bias, float(qc.x_scale))
+def q1_ref(qc, x, out_scale=None):
+    return quantconv.int8_conv_pool_ref(x, qc.kernel_q, qc.k_scale, qc.bias, float(qc.x_scale),
+                                        out_scale)
 
 
 # (B, Cin, Cout, T, H, W, kernel, mode): LipNet's three blocks at full width
-# (B = 1 and 8), then the odd ones: byte gathers (Cin 1, 3), Cin % 4 == 0
-# but not % 32, Cout past a 32-channel group, odd H or W (floor pools), a
-# pooled row wider than any tile, a kernel of one frame, exact-half ties and
+# (B = 1, 8 and 32: the frames per CTA differ), then the odd ones: byte
+# gathers (Cin 1, 3), Cin % 4 == 0 but not % 16, Cout past a 32-channel
+# group, odd H or W (floor pools), a pooled row wider than any tile, a kernel
+# of one frame, fewer frames than the kernel's (T < kt), exact-half ties and
 # the largest accumulators
 Q1_CASES = [
     (1, 1, 32, 75, 50, 100, (3, 5, 5), "random"), (8, 1, 32, 75, 50, 100, (3, 5, 5), "random"),
     (1, 32, 64, 75, 25, 50, (3, 5, 5), "random"), (8, 32, 64, 75, 25, 50, (3, 5, 5), "random"),
     (1, 64, 96, 75, 12, 25, (3, 3, 3), "random"), (8, 64, 96, 75, 12, 25, (3, 3, 3), "random"),
+    (32, 32, 64, 75, 25, 50, (3, 5, 5), "random"), (32, 64, 96, 75, 12, 25, (3, 3, 3), "random"),
     (2, 3, 5, 5, 9, 13, (1, 3, 5), "random"), (3, 64, 40, 4, 13, 27, (3, 3, 3), "random"),
     (2, 1, 7, 3, 7, 201, (5, 1, 3), "random"), (2, 12, 33, 2, 6, 10, (3, 5, 5), "random"),
+    (2, 32, 64, 2, 25, 50, (3, 5, 5), "random"), (1, 16, 24, 1, 10, 14, (3, 3, 3), "random"),
     (2, 32, 64, 3, 25, 50, (3, 5, 5), "ties"), (1, 32, 64, 3, 25, 50, (3, 5, 5), "extreme"),
     (1, 1, 32, 3, 50, 100, (3, 5, 5), "ties"),
 ]
+# (input dtype, output dtype) of the operator's contracts
+CONTRACTS = ["f32_f32", "f32_s8", "s8_s8", "s8_f32"]
 
 
+def channels_last(x):
+    return x.permute(0, 2, 3, 4, 1).contiguous().permute(0, 4, 1, 2, 3)
+
+
+def q1_contract(qc, x, contract, mode):
+    """(input, out_scale) of one contract: an int8 input is x quantized with
+    the block's scale, channels-last (as a block writes it); an int8 output
+    takes a scale that maps the f32 output's largest value to 127 (to 200
+    in 'extreme' mode: past the clip), or 0.125 in 'ties' mode."""
+    if contract.startswith("s8"):
+        x = channels_last(quantconv.quantize_input(x, float(qc.x_scale)).to(torch.int8))
+    if contract.endswith("f32"):
+        return x, None
+    top = float(q1_ref(qc, x).max())
+    return x, {"ties": 0.125, "extreme": top / 200}.get(mode, top / 127 or 1.0)
+
+
+@pytest.mark.parametrize("contract", CONTRACTS)
 @pytest.mark.parametrize("B,cin,cout,T,H,W,k,mode", Q1_CASES)
-def test_int8_conv_pool_equals_plain_bit_for_bit(dev, B, cin, cout, T, H, W, k, mode):
-    """Q1 equals its plain version bit for bit (exact int32 sums, the same two
-    f32 roundings); a repeat launch gives the same bits; channels-last and
-    sliced inputs give the same bits as contiguous NCDHW."""
+def test_int8_conv_pool_equals_plain_bit_for_bit(dev, B, cin, cout, T, H, W, k, mode,
+                                                 contract):
+    """Q1 equals its plain version bit for bit in each contract (exact int32
+    sums, the same two f32 roundings, the same quantizer); a repeat launch
+    gives the same bits; other layouts of the input give the same bits:
+    channels-last and sliced f32, an int8 input at an address that is not
+    16-byte aligned (the byte-wise staging)."""
     from avsync_torch.ops.quant import quant_conv_block
 
     qc, x = q1_case(_gen(60), dev, B, cin, cout, T, H, W, k, mode)
+    x, out_scale = q1_contract(qc, x, contract, mode)
     before = quantconv.launches
-    got = quant_conv_block(qc, x)
-    again = quant_conv_block(qc, x)
-    cl = quant_conv_block(qc, x.permute(0, 2, 3, 4, 1).contiguous().permute(0, 4, 1, 2, 3))
+    got = quant_conv_block(qc, x, out_scale)
+    again = quant_conv_block(qc, x, out_scale)
     torch.cuda.synchronize()
-    assert quantconv.launches == before + 3
-    want = q1_ref(qc, x)
+    assert quantconv.launches == before + 2
+    want = q1_ref(qc, x, out_scale)
     assert got.shape == want.shape == (B, cout, T, H // 2, W // 2)
-    assert torch.equal(got, want)
-    assert torch.equal(got, again) and torch.equal(got, cl)
-    wide = torch.zeros(B, cin, T, H, W + 3, device=dev)
-    wide[..., :W] = x
-    assert torch.equal(quant_conv_block(qc, wide[..., :W]), got)
+    assert got.dtype == want.dtype and got.permute(0, 2, 3, 4, 1).is_contiguous()
+    assert torch.equal(got, want) and torch.equal(got, again)
+    if x.dtype == torch.float32:
+        assert torch.equal(quant_conv_block(qc, channels_last(x), out_scale), got)
+        wide = torch.zeros(B, cin, T, H, W + 3, device=dev)
+        wide[..., :W] = x
+        assert torch.equal(quant_conv_block(qc, wide[..., :W], out_scale), got)
+    else:
+        flat = torch.empty(x.numel() + 1, dtype=torch.int8, device=dev)[1:]
+        odd = flat.view(B, T, H, W, cin).permute(0, 4, 1, 2, 3)
+        odd.copy_(x)
+        assert torch.equal(quant_conv_block(qc, odd, out_scale), got)
+
+
+@pytest.mark.parametrize("frames", [1, 2, 4, 7, 8, 13, 74, 75, 200])
+def test_int8_conv_pool_frames_per_cta_change_no_bit(dev, frames, monkeypatch):
+    """Whatever the frames per CTA (runs that end past T, one run of the
+    whole clip, more frames than the clip has), the same bits in the
+    int8-in, int8-out contract of LipNet's conv2 and the f32-in of conv1."""
+    from avsync_torch.ops.quant import quant_conv_block
+
+    monkeypatch.setattr(quantconv, "frames_for", lambda B, T, tiles: frames)
+    for i, (B, cin, cout, T, H, W, k) in enumerate([(2, 32, 64, 75, 25, 50, (3, 5, 5)),
+                                                    (2, 1, 32, 75, 50, 100, (3, 5, 5))]):
+        qc, x = q1_case(_gen(70 + i), dev, B, cin, cout, T, H, W, k)
+        x, out_scale = q1_contract(qc, x, "s8_s8" if cin > 1 else "f32_s8", "random")
+        assert torch.equal(quant_conv_block(qc, x, out_scale), q1_ref(qc, x, out_scale))
 
 
 def test_int8_conv_pool_shared_memory_mirrors_the_kernel(dev):
@@ -657,28 +706,54 @@ def test_int8_conv_pool_shared_memory_mirrors_the_kernel(dev):
                 quantconv.shared_memory_bytes(cin, kpad, *k, rows, cols)
 
 
-def test_int8_conv_pool_replayed_from_a_cuda_graph_equals_eager(dev):
-    """The operator captured once and replayed on new inputs copied into the
-    captured ones: the same bits as an eager launch; replays pass through no
-    wrapper."""
+def calibrated_chain(g, dev, x):
+    """LipNet's three int8 blocks with random weights, each block's input
+    scale its f32 input's absmax / 127 (as calibration sets it)."""
+    from avsync_torch.ops.quant import quant_conv_block, quant_conv_params
+
+    qcs = []
+    for cin, cout, k in [(1, 32, (3, 5, 5)), (32, 64, (3, 5, 5)), (64, 96, (3, 3, 3))]:
+        kq = torch.randint(-127, 128, (cout, cin, *k), generator=g, dtype=torch.int8)
+        ks = torch.rand(cout, generator=g) * 0.01 + 1e-4
+        qc = quant_conv_params(kq.to(dev), ks, torch.randn(cout, generator=g) * 0.1,
+                               float(x.abs().max()) / 127)
+        qcs.append(qc)
+        x = quant_conv_block(qc, x)
+    return qcs
+
+
+def test_int8_chain_replayed_from_a_cuda_graph_equals_eager(dev):
+    """LipNet's three blocks with the int8 hand-off, captured once and
+    replayed on new inputs copied into the captured one: the same bits as
+    eager launches, and as three f32-contract launches; replays pass
+    through no wrapper."""
     from avsync_torch.ops.quant import quant_conv_block
 
-    qc, static = q1_case(_gen(61), dev, 8, 32, 64, 75, 25, 50, (3, 5, 5))
+    static = torch.rand(8, 75, 50, 100, 1, generator=_gen(62)).to(dev).permute(0, 4, 1, 2, 3)
+    qcs = calibrated_chain(_gen(61), dev, static)
+    scales = [float(qc.x_scale) for qc in qcs[1:]] + [None]
+
+    def chain(x, hand_off=True):
+        for qc, s in zip(qcs, scales):
+            x = quant_conv_block(qc, x, s if hand_off else None)
+        return x
+
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        quant_conv_block(qc, static)
+        chain(static)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        captured = quant_conv_block(qc, static)
-    for seed in (62, 63):
+        captured = chain(static)
+    for seed in (63, 64):
         static.copy_(torch.rand(static.shape, generator=_gen(seed)).to(dev))
         before = quantconv.launches
         graph.replay()
         torch.cuda.synchronize()
         assert quantconv.launches == before
-        assert torch.equal(captured, quant_conv_block(qc, static))
+        assert torch.equal(captured, chain(static))
+        assert torch.equal(captured, chain(static, hand_off=False))
 
 
 def test_int8_reader_launches_q1_and_k2_only_and_keeps_the_jax_bounds(dev, tmp_path):

@@ -161,6 +161,108 @@ def test_plain_version_is_the_operator_on_the_cpu():
                           (x, qc.packed, qc.scale, qc.bias, 0.02, 5, 3, 3, 3))
 
 
+# the hand-off chain: (Cin, Cout, kernel) of three small blocks over (2, 5, 16, 32) clips
+CHAIN = [(1, 4, (3, 5, 5)), (4, 16, (3, 5, 5)), (16, 6, (3, 3, 3))]
+
+
+def _chain(mode):
+    """Three blocks' params and an f32 input, seeded. 'random': random
+    weights, scales from the f32 chain's absmax; 'ties': x in quarters at
+    x_scale 0.5, every epilogue scale 1/8 and every bias a multiple of 1/16,
+    so every block input hits exact halves at the next scale 1/8 (round half
+    to even); 'extreme': every weight 127, inputs at +127 steps, outputs far
+    past the clip."""
+    r = np.random.default_rng({"random": 20, "ties": 21, "extreme": 22}[mode])
+    x = r.normal(0.3, 0.5, (2, 1, 5, 16, 32)).astype(np.float32)
+    if mode == "ties":
+        x = (r.integers(-300, 301, x.shape) / 4).astype(np.float32)
+    elif mode == "extreme":
+        x = np.full(x.shape, 1.27, np.float32)
+    qcs, xs = [], {"random": float(np.abs(x).max() / 127), "ties": 0.5, "extreme": 0.01}[mode]
+    h = torch.from_numpy(x)
+    for i, (cin, cout, k) in enumerate(CHAIN):
+        kq = torch.from_numpy(r.integers(-127, 128, (cout, cin, *k), dtype=np.int8))
+        ks = torch.from_numpy((r.random(cout) * 0.01 + 1e-4).astype(np.float32))
+        bias = torch.from_numpy(r.normal(0, 0.1, cout).astype(np.float32))
+        if mode == "ties":
+            ks = torch.full((cout,), 0.125 / xs, dtype=torch.float32)
+            bias = torch.from_numpy(r.integers(-8, 9, cout) / 16).float()
+        elif mode == "extreme":
+            kq.fill_(127)
+        qc = tq.quant_conv_params(kq, ks, bias, np.float32(xs))
+        qcs.append(qc)
+        h = tq.quant_conv_block(qc, h)
+        xs = {"random": float(h.abs().max()) / 127 or 1.0, "ties": 0.125, "extreme": 0.01}[mode]
+    return qcs, torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("mode", ["random", "ties", "extreme"])
+def test_int8_hand_off_equals_the_f32_contract_chain(mode):
+    """Each int8 hand-off equals `quantize_input` of the f32-contract
+    block's output at the next block's scale; the last block's f32 output
+    equals the f32-contract chain's bit for bit."""
+    qcs, x = _chain(mode)
+    f32, handed = x, x
+    for i, qc in enumerate(qcs):
+        nxt = float(qcs[i + 1].x_scale) if i + 1 < len(qcs) else None
+        plain = quantconv.int8_conv_pool_ref(handed, qc.kernel_q, qc.k_scale, qc.bias,
+                                             float(qc.x_scale), nxt)
+        f32 = tq.quant_conv_block(qc, f32)
+        handed = tq.quant_conv_block(qc, handed, nxt)
+        assert handed.permute(0, 2, 3, 4, 1).is_contiguous() and torch.equal(handed, plain)
+        if nxt is None:
+            assert handed.dtype == torch.float32 and torch.equal(handed, f32)
+            continue
+        assert handed.dtype == torch.int8
+        assert torch.equal(handed, quantconv.quantize_input(f32, nxt).to(torch.int8))
+        q = f32 / nxt
+        if mode == "ties":  # the halves were there to round
+            assert bool((q == q.floor() + 0.5).any())
+        if mode == "extreme":  # and the clip to clip
+            assert bool((q > 127.5).any()) and bool((handed == 127).any())
+
+
+@pytest.mark.parametrize("mode", ["random", "ties", "extreme"])
+def test_int8_forward_hand_off_keeps_the_log_probs_bit_for_bit(mode, monkeypatch):
+    """`lipnet_int8_apply` with the int8 hand-off against the same forward
+    through three f32-contract blocks: the same log-prob bits."""
+    qcs, x = _chain(mode)
+    cfg = ModelConfig(hidden_dim=8, conv_channels=(4, 16, 6), use_pallas_gru=True,
+                      fused_conv_pool=True)
+    model = LipNet(cfg, img_hw=(16, 32), generator=torch.Generator().manual_seed(23))
+    qp = tq.QuantLipNetParams(convs=tuple(qcs), float_params=model.state_dict())
+    clips = x.permute(0, 2, 3, 4, 1)
+    got = tq.lipnet_int8_apply(qp, clips, cfg)
+    block = tq.quant_conv_block
+    monkeypatch.setattr(tq, "quant_conv_block", lambda qc, h, out_scale=None: block(qc, h))
+    want = tq.lipnet_int8_apply(qp, clips, cfg)
+    assert got.shape == (2, 5, 39) and torch.equal(got, want)
+
+
+def test_operator_contracts_on_the_cpu():
+    """opcheck of the int8-in and int8-out signatures; an int8 input that is
+    not channels-last raises in both versions."""
+    r = np.random.default_rng(24)
+    kq = torch.from_numpy(r.integers(-127, 128, (5, 16, 3, 3, 3), dtype=np.int8))
+    qc = tq.quant_conv_params(kq, torch.full((5,), 0.01), torch.zeros(5), np.float32(0.02))
+    x = torch.from_numpy(r.integers(-127, 128, (2, 3, 4, 6, 16), dtype=np.int8)).permute(
+        0, 4, 1, 2, 3)
+    xf = torch.from_numpy(r.random((2, 16, 3, 4, 6), np.float32))
+    for args in [(x, 0.05), (x, None), (xf, 0.05)]:
+        torch.library.opcheck(quantconv.int8_conv_pool_op,
+                              (args[0], qc.packed, qc.scale, qc.bias, 0.02, 5, 3, 3, 3, args[1]))
+    got = tq.quant_conv_block(qc, x, 0.05)
+    assert got.dtype == torch.int8 and got.permute(0, 2, 3, 4, 1).is_contiguous()
+    assert torch.equal(got, quantconv.quantize_input(tq.quant_conv_block(qc, x), 0.05).to(
+        torch.int8))
+    with pytest.raises(ValueError, match="channels-last"):
+        tq.quant_conv_block(qc, x.contiguous())
+    with pytest.raises(ValueError, match="channels-last"):
+        quantconv.int8_conv_pool_ref(x.contiguous(), kq, qc.k_scale, qc.bias, 0.02)
+    with pytest.raises(ValueError, match="output scale"):
+        tq.quant_conv_block(qc, x, 0.0)
+
+
 def test_tile_choice_and_its_limits():
     """Every tile the wrapper chooses fits the shared memory of two CTAs per
     SM at LipNet's blocks; a geometry whose single pooled position does not
