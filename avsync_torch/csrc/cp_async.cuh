@@ -1,5 +1,6 @@
 // cp.async helpers shared by the kernels that stage global memory into
-// shared memory asynchronously (conv1_recompute.cuh for K1/K4, gru_bwd.cu).
+// shared memory asynchronously (conv1_recompute.cuh for K1/K4, gru_bwd.cu,
+// int8_conv_pool.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -12,6 +13,13 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool val
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src),
                "r"(valid ? 4 : 0) : "memory");
+}
+// cp.async of 16 bytes (both addresses 16-byte aligned), bypassing L1;
+// zero-filled when !valid (src is then any valid address and is not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");

@@ -19,55 +19,64 @@
 // first, in int32, and the epilogue runs once per pooled value; it is written
 // with __fmul_rn / __fadd_rn (no FMA contraction), so the kernel equals its
 // plain version (`int8_conv_pool_ref`, ops/cuda/quantconv.py) bit for bit.
+// Every sum is exact int32, so no choice of tile or frames per CTA changes a
+// bit.
 //
 // What bounds it on the H100: at LipNet's conv2 (B=8, 32 -> 64 channels,
 // 3x5x5 taps, 75 x 25 x 50) the conv is 221 G int8 operations over the
 // pre-pool positions the floor pool keeps, 0.112 ms at the card's 1,979
-// TOPS, against 96 MB of f32 input and 46 MB of pooled output (0.042 ms):
-// the operations set the floor. conv1 (Cin = 1, K = 75) is the other way
-// round: 14.4 G operations against 12 MB in and 96 MB out (0.032 ms).
+// TOPS, against 24 MB of int8 input and 11.5 MB of int8 output in the int8
+// chain: the operations set the floor. conv1 (Cin = 1, K = 75) does 14.4 G
+// operations against 12 MB of f32 in and 24 MB of int8 out (0.011 ms).
 //
-// Design (simple and right first; wgmma, TMA and a persistent schedule are
-// later work; numbers: H100 80GB HBM3 at 700 W,
-// scripts/torch_kernel_breakdown.py --mode q1):
+// Design (wgmma, TMA, weights in shared memory and a persistent schedule
+// are later work; numbers: H100 80GB HBM3 at 700 W, chip_smoke.py phase 11
+// and scripts/torch_kernel_breakdown.py --mode q1):
 //   * an implicit GEMM: M = pre-pool positions, N = output channels, K =
 //     (tap, input channel) with each tap's channels contiguous, zero-padded
 //     to a multiple of 32 (conv1's 75 -> 96, conv2's 2400 stays);
-//   * a CTA is one frame (b, t) x a tile of PR x PC pooled positions (chosen
-//     by the wrapper, `quantconv.tile_for`) x every output channel. It stages
-//     its input halo for the kt frames around t into shared memory, already
-//     quantized to int8, one position after another with its channels
-//     contiguous (S bytes per position, S = Cin, or for Cin % 4 == 0 the
-//     smallest S >= Cin with S = 8 mod 16, which spreads a warp's A-fragment
-//     loads over the 32 banks); out-of-clip positions are 0 (SAME padding).
-//     The staging is latency-bound: each thread has four loads in flight,
-//     and a channels-last input moves four channels per 16-byte load (at
-//     conv2, B=8: 0.28 ms of device time against 0.71 one value per load);
+//   * a CTA is one clip b x a tile of PR x PC pooled positions (chosen by
+//     the wrapper, `quantconv.tile_for`) x a run of F frames (the wrapper's
+//     `frames_for`, from B, so the grid fills the card) x every output
+//     channel. It keeps the input halos of kt + 1 frames in a ring in shared
+//     memory, already int8: each frame is staged once and serves kt output
+//     frames, and while the MMAs run on frame t, frame t + pt + 1 arrives in
+//     the free slot (an int8 channels-last input by 16-byte cp.async, zero
+//     fill outside the clip from the src-size operand; an f32 or byte-wise
+//     input through registers loaded before the MMAs and quantized and
+//     stored after them);
+//   * a slot holds a frame's halo with its even and odd columns in two
+//     planes, S bytes per position (S = Cin, or for Cin % 4 == 0 the
+//     smallest S >= Cin with S / 16 odd): the eight rows of an A fragment,
+//     pre-pool positions two columns apart, are then consecutive positions
+//     of one plane, S bytes apart, and fall on distinct banks;
 //   * a warp task is 16 pooled positions x 32 channels: four m16 row blocks,
 //     one per pool-window offset (jh, jw), share the B fragments, so a
 //     thread's accumulators of the four blocks at one index are the four
 //     pre-pool values of one pooled output: their max needs no shuffle;
 //   * mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32, four n8 tiles per
-//     task. A fragments come from the halo through a table of byte offsets
-//     per k (per group of 4 k when Cin % 4 == 0: one 32-bit load each), B
-//     fragments straight from the packed (Npad, Kpad) weights (read-only
-//     path; they stay in L1/L2);
+//     task. A fragments come from the ring through tables of byte offsets
+//     per k (per group of 4 k when Cin % 4 == 0: one 32-bit load each), one
+//     table per (frame t mod kt + 1, column parity jw); B fragments straight
+//     from the packed (Npad, Kpad) weights (read-only path; they stay in
+//     L1/L2);
 //   * pooled positions outside the frame, rows past the tile and channels
 //     past Cout compute on zeros or in-bounds data and are not written; the
 //     pre-pool row or column a floor pool drops is never computed.
-// The output is written through strides (the wrapper asks for channels-last,
-// which the next block's halo reads channel-contiguous).
 
 #include <cuda_runtime.h>
 
 #include <atomic>
 #include <cstdint>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int NT = 256;  // threads per CTA (8 warps)
 constexpr int NWARPS = NT / 32;
 constexpr int STAGE_UNROLL = 4;  // halo loads in flight per thread
+constexpr int PREFETCH = 4;  // values per thread of the next frame loaded before the MMAs
 constexpr size_t MAX_SMEM = 232448;  // per-block opt-in limit on sm_90
 constexpr int MAX_DEVICES = 64;
 
@@ -76,7 +85,7 @@ enum Stage : int {
   STAGE_F32 = 0,    // f32, any strides: one value per load, quantized
   STAGE_F32X4 = 1,  // f32 channels-last, Cin % 4 == 0, 16-byte aligned: float4 loads
   STAGE_S8 = 2,     // int8 channels-last: one value per load
-  STAGE_S8X16 = 3,  // int8 channels-last, Cin % 16 == 0, 16-byte aligned: 16-byte loads
+  STAGE_S8X16 = 3,  // int8 channels-last, Cin % 16 == 0, 16-byte aligned: 16-byte cp.async
 };
 
 struct QParams {
@@ -90,17 +99,34 @@ struct QParams {
   bool out_int8;
   int stage;            // Stage
   int B, Cin, T, H, W, Cout, kt, kh, kw, K, Kpad, Npad;
-  int PR, PC, tiles_w, tiles, IH, IW, S, off_bytes, F, runs;
+  int PR, PC, tiles_w, tiles, F, runs;
+  int IH, IW, IWh, S, R, slot_bytes, n_off, off_bytes;  // the ring (see smem_bytes)
   long long x_sb, x_sc, x_st, x_sh, x_sw;
   long long o_sb, o_sc, o_st, o_sh, o_sw;
 };
 
 __host__ __device__ inline int align16(int n) { return (n + 15) / 16 * 16; }
 
-// The kernel's shared memory: the offset table (one int per k, or per group
-// of four k when WORDS), then the halo.
+// The kernel's shared memory: the offset tables, R x 2 of them (frame t mod
+// R, column parity), one int per k or per group of four k when WORDS; then
+// the ring of R = kt + 1 frame slots, each the halo's two column planes of
+// IH x ceil(IW / 2) positions of S bytes.
 __host__ __device__ inline int offset_entries(bool words, int Kpad) {
   return words ? Kpad / 4 : Kpad;
+}
+__host__ __device__ inline int slot_bytes(int IH, int IW, int S) {
+  return align16(2 * IH * ((IW + 1) / 2) * S);
+}
+__host__ __device__ inline int table_bytes(bool words, int Kpad, int kt) {
+  return align16(4 * 2 * (kt + 1) * offset_entries(words, Kpad));
+}
+size_t smem_bytes(bool words, int Kpad, int kt, int IH, int IW, int S) {
+  return (size_t)table_bytes(words, Kpad, kt) + (size_t)(kt + 1) * slot_bytes(IH, IW, S);
+}
+
+// Byte of halo position (h, w) in a slot: even and odd columns in two planes.
+__device__ __forceinline__ int halo_byte(const QParams& p, int h, int w) {
+  return (((w & 1) * p.IH + h) * p.IWh + (w >> 1)) * p.S;
 }
 
 __device__ __forceinline__ int8_t quantize(float v, float s) {
@@ -132,86 +158,92 @@ __device__ __forceinline__ uint32_t load4(const unsigned char* base, int o) {
   return o >= 0 ? *reinterpret_cast<const uint32_t*>(base + o) : 0u;
 }
 
-// Stage the CTA's halo: frames t - pt .. t + pt, rows 2*h2_0 - ph ..,
-// columns 2*w2_0 - pw .., each value quantized (f32 input) or copied (int8);
-// zero outside the clip. Each thread issues STAGE_UNROLL loads before it
-// stores any of them, so that many loads are in flight (the staging is
-// latency-bound); a channels-last input moves four f32 channels or sixteen
-// int8 channels per 16-byte load.
-__device__ void stage_halo(const QParams& p, unsigned char* s_x, int b, int t, int h2_0,
-                           int w2_0) {
-  const int pt = (p.kt - 1) / 2, ph = (p.kh - 1) / 2, pw = (p.kw - 1) / 2;
-  const int t0 = t - pt, h0 = 2 * h2_0 - ph, w0 = 2 * w2_0 - pw;
-  const int npos = p.kt * p.IH * p.IW;
-  auto inside = [&](int pos, long long& off) {  // the position's element offset, if in the clip
-    const int ww = pos % p.IW, hh = (pos / p.IW) % p.IH, dt = pos / (p.IW * p.IH);
-    const int ti = t0 + dt, hi = h0 + hh, wi = w0 + ww;
-    off = 0;
-    if (ti < 0 || ti >= p.T || hi < 0 || hi >= p.H || wi < 0 || wi >= p.W) return false;
-    off = ti * p.x_st + hi * p.x_sh + wi * p.x_sw;
-    return true;
-  };
-  if (p.stage == STAGE_F32X4 || p.stage == STAGE_S8X16) {
-    // i -> (position, group of channels), the groups fastest
-    const bool f32 = p.stage == STAGE_F32X4;
-    const int cg = f32 ? p.Cin / 4 : p.Cin / 16, n = npos * cg;
-    const unsigned char* xb = static_cast<const unsigned char*>(p.x) +
-                              b * p.x_sb * (f32 ? 4 : 1);
-    for (int i0 = threadIdx.x; i0 < n; i0 += STAGE_UNROLL * NT) {
-      int4 v[STAGE_UNROLL];
+// Element offset of halo position (h, w) of frame ti within clip b's
+// tensor, or -1 outside the clip (SAME padding: zero).
+__device__ __forceinline__ long long src_offset(const QParams& p, int ti, int h0, int w0,
+                                                int h, int w) {
+  const int hi = h0 + h, wi = w0 + w;
+  if (ti < 0 || ti >= p.T || hi < 0 || hi >= p.H || wi < 0 || wi >= p.W) return -1;
+  return ti * p.x_st + hi * p.x_sh + wi * p.x_sw;
+}
+
+// Scalar staging (STAGE_F32, STAGE_S8): item i of a frame is (channel
+// i / npos, position i % npos), the columns fastest (coalesced for NCDHW).
+__device__ __forceinline__ float load_item(const QParams& p, int b, int ti, int h0, int w0,
+                                           int i) {
+  const int npos = p.IH * p.IW, pos = i % npos;
+  const long long o = src_offset(p, ti, h0, w0, pos / p.IW, pos % p.IW);
+  if (o < 0) return 0.f;
+  const long long e = b * p.x_sb + (i / npos) * p.x_sc + o;
+  return p.stage == STAGE_F32 ? __ldg(static_cast<const float*>(p.x) + e)
+                              : static_cast<float>(__ldg(static_cast<const signed char*>(p.x) + e));
+}
+__device__ __forceinline__ void store_item(const QParams& p, unsigned char* slot, int i,
+                                           float v) {
+  const int npos = p.IH * p.IW, pos = i % npos;
+  reinterpret_cast<int8_t*>(slot)[halo_byte(p, pos / p.IW, pos % p.IW) + i / npos] =
+      p.stage == STAGE_F32 ? quantize(v, p.x_scale) : static_cast<int8_t>(v);
+}
+
+// Stage items first.. of frame ti into its slot, STAGE_UNROLL loads in
+// flight per thread before any is stored (the loads are latency-bound); a
+// channels-last f32 input moves four channels per 16-byte load.
+__device__ void stage_sync(const QParams& p, unsigned char* slot, int b, int ti, int h0,
+                           int w0, int first) {
+  if (p.stage == STAGE_F32X4) {
+    const int cg = p.Cin / 4, n = p.IH * p.IW * cg;
+    const float* xb = static_cast<const float*>(p.x) + b * p.x_sb;
+    for (int i0 = first + threadIdx.x; i0 < n; i0 += STAGE_UNROLL * NT) {
+      float4 v[STAGE_UNROLL];
 #pragma unroll
       for (int u = 0; u < STAGE_UNROLL; ++u) {
-        const int i = i0 + u * NT;
-        long long off;
-        v[u] = i < n && inside(i / cg, off)
-                   ? __ldg(reinterpret_cast<const int4*>(xb + (size_t)off * (f32 ? 4 : 1)) +
-                           i % cg)
-                   : make_int4(0, 0, 0, 0);
+        const int i = i0 + u * NT, pos = i / cg;
+        const long long o = i < n ? src_offset(p, ti, h0, w0, pos / p.IW, pos % p.IW) : -1;
+        v[u] = o >= 0 ? __ldg(reinterpret_cast<const float4*>(xb + o) + i % cg)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
       }
 #pragma unroll
       for (int u = 0; u < STAGE_UNROLL; ++u) {
-        const int i = i0 + u * NT;
+        const int i = i0 + u * NT, pos = i / cg;
         if (i >= n) break;
-        unsigned char* dst = s_x + (i / cg) * p.S;
-        if (f32) {
-          const float4 f = *reinterpret_cast<const float4*>(&v[u]);
-          const uint32_t q = static_cast<uint8_t>(quantize(f.x, p.x_scale)) |
-                             static_cast<uint32_t>(static_cast<uint8_t>(quantize(f.y, p.x_scale))) << 8 |
-                             static_cast<uint32_t>(static_cast<uint8_t>(quantize(f.z, p.x_scale))) << 16 |
-                             static_cast<uint32_t>(static_cast<uint8_t>(quantize(f.w, p.x_scale))) << 24;
-          *reinterpret_cast<uint32_t*>(dst + 4 * (i % cg)) = q;
-        } else {  // S is a multiple of 8: two 8-byte stores
-          uint2* d = reinterpret_cast<uint2*>(dst + 16 * (i % cg));
-          d[0] = make_uint2(v[u].x, v[u].y);
-          d[1] = make_uint2(v[u].z, v[u].w);
-        }
+        const uint32_t q = static_cast<uint8_t>(quantize(v[u].x, p.x_scale)) |
+                           static_cast<uint32_t>(static_cast<uint8_t>(quantize(v[u].y, p.x_scale))) << 8 |
+                           static_cast<uint32_t>(static_cast<uint8_t>(quantize(v[u].z, p.x_scale))) << 16 |
+                           static_cast<uint32_t>(static_cast<uint8_t>(quantize(v[u].w, p.x_scale))) << 24;
+        *reinterpret_cast<uint32_t*>(slot + halo_byte(p, pos / p.IW, pos % p.IW) +
+                                     4 * (i % cg)) = q;
       }
     }
   } else {
-    // i -> (channel, position), the columns fastest (coalesced for NCDHW)
-    const bool f32 = p.stage == STAGE_F32;
-    const int n = p.Cin * npos;
-    for (int i0 = threadIdx.x; i0 < n; i0 += STAGE_UNROLL * NT) {
+    const int n = p.Cin * p.IH * p.IW;
+    for (int i0 = first + threadIdx.x; i0 < n; i0 += STAGE_UNROLL * NT) {
       float v[STAGE_UNROLL];
 #pragma unroll
       for (int u = 0; u < STAGE_UNROLL; ++u) {
-        const int i = i0 + u * NT, ci = i / npos;
-        long long off;
-        const bool in = i < n && inside(i % npos, off);
-        const long long e = b * p.x_sb + ci * p.x_sc + off;
-        v[u] = !in ? 0.f
-               : f32 ? __ldg(static_cast<const float*>(p.x) + e)
-                     : static_cast<float>(__ldg(static_cast<const signed char*>(p.x) + e));
+        const int i = i0 + u * NT;
+        v[u] = i < n ? load_item(p, b, ti, h0, w0, i) : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < STAGE_UNROLL; ++u) {
         const int i = i0 + u * NT;
         if (i >= n) break;
-        reinterpret_cast<int8_t*>(s_x)[(i % npos) * p.S + i / npos] =
-            f32 ? quantize(v[u], p.x_scale) : static_cast<int8_t>(v[u]);
+        store_item(p, slot, i, v[u]);
       }
     }
   }
+}
+
+// STAGE_S8X16: frame ti into its slot by 16-byte cp.async, one commit group.
+__device__ void stage_async(const QParams& p, unsigned char* slot, int b, int ti, int h0,
+                            int w0) {
+  const int cg = p.Cin / 16, n = p.IH * p.IW * cg;
+  const signed char* xb = static_cast<const signed char*>(p.x) + b * p.x_sb;
+  for (int i = threadIdx.x; i < n; i += NT) {
+    const int pos = i / cg, c = i % cg, h = pos / p.IW, w = pos % p.IW;
+    const long long o = src_offset(p, ti, h0, w0, h, w);
+    cp_async16(slot + halo_byte(p, h, w) + 16 * c, xb + (o < 0 ? 0 : o) + 16 * c, o >= 0);
+  }
+  cp_async_commit();
 }
 
 // The pooled values of a warp task: fragment register i holds row g + 8*(i >> 1),
@@ -247,7 +279,7 @@ template <bool WORDS>
 __global__ void __launch_bounds__(NT, 2) int8_conv_pool_kernel(const QParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* s_off = reinterpret_cast<int*>(smem);
-  unsigned char* s_x = smem + p.off_bytes;
+  unsigned char* ring = smem + p.off_bytes;
 
   // blockIdx.x -> (tile, run of F frames, clip), the tiles fastest
   const int tile = blockIdx.x % p.tiles;
@@ -255,20 +287,36 @@ __global__ void __launch_bounds__(NT, 2) int8_conv_pool_kernel(const QParams p) 
   const int b = blockIdx.x / (p.tiles * p.runs);
   const int t_begin = run * p.F, t_end = min(t_begin + p.F, p.T);
   const int h2_0 = (tile / p.tiles_w) * p.PR, w2_0 = (tile % p.tiles_w) * p.PC;
+  const int pt = (p.kt - 1) / 2;
+  const int h0 = 2 * h2_0 - (p.kh - 1) / 2, w0 = 2 * w2_0 - (p.kw - 1) / 2;
+  // frame ti (>= -pt) lives in slot (ti + pt) mod R
+  auto slot = [&](int ti) { return ring + ((ti + pt) % p.R) * p.slot_bytes; };
 
-  // offsets of k (or of the group k = 4*kg .. 4*kg + 3) from a position's
-  // halo byte; -1 past K
-  const int n_off = offset_entries(WORDS, p.Kpad);
+  // table (r, jw): for output frame t = r mod R, the byte of k (or of the
+  // group k = 4*kg .. 4*kg + 3) in the ring, from the row base of a pre-pool
+  // position in column plane jw (`base` below); -1 past K
   const int step = WORDS ? 4 : 1;
-  for (int i = threadIdx.x; i < n_off; i += NT) {
-    const int k = i * step;
+  for (int i = threadIdx.x; i < 2 * p.R * p.n_off; i += NT) {
+    const int e = i % p.n_off, jw = (i / p.n_off) % 2, r = i / (2 * p.n_off);
+    const int k = e * step;
     int off = -1;
     if (k < p.K) {
       const int tap = k / p.Cin, ci = k % p.Cin;
-      const int dt = tap / (p.kh * p.kw), dh = (tap / p.kw) % p.kh, dw = tap % p.kw;
-      off = ((dt * p.IH + dh) * p.IW + dw) * p.S + ci;
+      const int dt = tap / (p.kh * p.kw), dh = (tap / p.kw) % p.kh, wc = jw + tap % p.kw;
+      off = ((r + dt) % p.R) * p.slot_bytes +
+            (((wc & 1) * p.IH + dh) * p.IWh + (wc >> 1)) * p.S + ci;
     }
     s_off[i] = off;
+  }
+
+  // the first output frame's kt input frames
+  const bool async = p.stage == STAGE_S8X16;
+  const bool scalar = p.stage == STAGE_F32 || p.stage == STAGE_S8;
+  for (int ti = t_begin - pt; ti <= t_begin + pt; ++ti) {
+    if (async)
+      stage_async(p, slot(ti), b, ti, h0, w0);
+    else
+      stage_sync(p, slot(ti), b, ti, h0, w0, 0);
   }
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -276,26 +324,40 @@ __global__ void __launch_bounds__(NT, 2) int8_conv_pool_kernel(const QParams p) 
   const int P = p.PR * p.PC;
   const int mgroups = (P + 15) / 16, ngroups = p.Npad / 32;
   const int chunks = p.Kpad / 32;
+  const int n_items = p.Cin * p.IH * p.IW;  // scalar staging's items per frame
 
   for (int t = t_begin; t < t_end; ++t) {
-    __syncthreads();  // the last frame's MMAs are done with the halo
-    stage_halo(p, s_x, b, t, h2_0, w2_0);
+    if (async) cp_async_wait<0>();
+    // frame t + pt has landed; every warp is done with output frame t - 1,
+    // so the slot of frame t - pt - 1 is free for frame t + pt + 1
     __syncthreads();
+    const int next = t + pt + 1;
+    const bool more = t + 1 < t_end;
+    float pre[PREFETCH];
+    if (more && async) stage_async(p, slot(next), b, next, h0, w0);
+    if (more && scalar) {
+#pragma unroll
+      for (int u = 0; u < PREFETCH; ++u) {
+        const int i = threadIdx.x + u * NT;
+        pre[u] = i < n_items ? load_item(p, b, next, h0, w0, i) : 0.f;
+      }
+    }
+    const int* off0 = s_off + (t % p.R) * 2 * p.n_off;  // column plane 0
+    const int* off1 = off0 + p.n_off;                  // column plane 1
 
     for (int task = warp; task < mgroups * ngroups; task += NWARPS) {
       const int mg = task / ngroups, ng = task % ngroups;
       // the thread's two rows: pooled positions mg*16 + g and + 8 of the tile
       int idx[2] = {mg * 16 + g, mg * 16 + g + 8};
-      int base[4][2];  // [window (jh, jw)][row]: halo byte of the pre-pool position
+      int base[2][2];  // [jh][row]: plane-0 byte of pre-pool row 2*ph + jh, column pair pw
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int q = idx[r] < P ? idx[r] : 0;
         const int ph = q / p.PC, pw = q % p.PC;
 #pragma unroll
-        for (int wdw = 0; wdw < 4; ++wdw)
-          base[wdw][r] = ((2 * ph + (wdw >> 1)) * p.IW + 2 * pw + (wdw & 1)) * p.S;
+        for (int jh = 0; jh < 2; ++jh) base[jh][r] = ((2 * ph + jh) * p.IWh + pw) * p.S;
       }
-      int acc[4][4][4];  // [window][n8 tile][fragment register]
+      int acc[4][4][4];  // [window (jh, jw)][n8 tile][fragment register]
 #pragma unroll
       for (int wdw = 0; wdw < 4; ++wdw)
 #pragma unroll
@@ -313,39 +375,57 @@ __global__ void __launch_bounds__(NT, 2) int8_conv_pool_kernel(const QParams p) 
           bf[j][1] = static_cast<uint32_t>(__ldg(reinterpret_cast<const int*>(wr + 16)));
         }
         if constexpr (WORDS) {
-          const int o0 = s_off[kc * 8 + tq], o1 = s_off[kc * 8 + tq + 4];
+          const int o[2][2] = {{off0[kc * 8 + tq], off0[kc * 8 + tq + 4]},
+                               {off1[kc * 8 + tq], off1[kc * 8 + tq + 4]}};
 #pragma unroll
           for (int wdw = 0; wdw < 4; ++wdw) {
-            const uint32_t a[4] = {load4(s_x + base[wdw][0], o0), load4(s_x + base[wdw][1], o0),
-                                   load4(s_x + base[wdw][0], o1), load4(s_x + base[wdw][1], o1)};
+            const int jh = wdw >> 1, jw = wdw & 1;
+            const uint32_t a[4] = {load4(ring + base[jh][0], o[jw][0]),
+                                   load4(ring + base[jh][1], o[jw][0]),
+                                   load4(ring + base[jh][0], o[jw][1]),
+                                   load4(ring + base[jh][1], o[jw][1])};
 #pragma unroll
             for (int j = 0; j < 4; ++j) mma_s8(acc[wdw][j], a, bf[j][0], bf[j][1]);
           }
         } else {
-          int o0[4], o1[4];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            o0[i] = s_off[kc * 32 + tq * 4 + i];
-            o1[i] = s_off[kc * 32 + 16 + tq * 4 + i];
-          }
+          for (int jw = 0; jw < 2; ++jw) {
+            const int* tab = jw ? off1 : off0;
+            int o0[4], o1[4];
 #pragma unroll
-          for (int wdw = 0; wdw < 4; ++wdw) {
-            const uint32_t a[4] = {gather4(s_x + base[wdw][0], o0),
-                                   gather4(s_x + base[wdw][1], o0),
-                                   gather4(s_x + base[wdw][0], o1),
-                                   gather4(s_x + base[wdw][1], o1)};
+            for (int i = 0; i < 4; ++i) {
+              o0[i] = tab[kc * 32 + tq * 4 + i];
+              o1[i] = tab[kc * 32 + 16 + tq * 4 + i];
+            }
 #pragma unroll
-            for (int j = 0; j < 4; ++j) mma_s8(acc[wdw][j], a, bf[j][0], bf[j][1]);
+            for (int jh = 0; jh < 2; ++jh) {
+              const uint32_t a[4] = {gather4(ring + base[jh][0], o0),
+                                     gather4(ring + base[jh][1], o0),
+                                     gather4(ring + base[jh][0], o1),
+                                     gather4(ring + base[jh][1], o1)};
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                mma_s8(acc[2 * jh + jw][j], a, bf[j][0], bf[j][1]);
+            }
           }
         }
       }
       epilogue(p, acc, idx, b, t, h2_0, w2_0, ng, tq);
     }
-  }
-}
 
-size_t smem_bytes(bool words, int Kpad, int kt, int IH, int IW, int S) {
-  return (size_t)align16(4 * offset_entries(words, Kpad)) + (size_t)kt * IH * IW * S;
+    // the next frame, while no warp reads its slot: the prefetched values,
+    // then the rest of it
+    if (more && scalar) {
+#pragma unroll
+      for (int u = 0; u < PREFETCH; ++u) {
+        const int i = threadIdx.x + u * NT;
+        if (i < n_items) store_item(p, slot(next), i, pre[u]);
+      }
+      stage_sync(p, slot(next), b, next, h0, w0, PREFETCH * NT);
+    } else if (more && !async) {
+      stage_sync(p, slot(next), b, next, h0, w0, 0);
+    }
+  }
 }
 
 // The shared-memory opt-in of each instantiation, set once per device.
@@ -393,7 +473,7 @@ extern "C" int avs_int8_conv_pool(
   if (B < 1 || Cin < 1 || T < 1 || H < 2 || W < 2 || Cout < 1 || kt < 1 || kh < 1 ||
       kw < 1 || !(kt % 2) || !(kh % 2) || !(kw % 2) || Kpad < K || Kpad % 32 ||
       Npad < Cout || Npad % 32 || tile_rows < 1 || tile_cols < 1 || pos_bytes < Cin ||
-      (words && pos_bytes % 8) || frames < 1 || (x_int8 && Cin > 1 && x_sc != 1) ||
+      (words && pos_bytes % 16) || frames < 1 || (x_int8 && Cin > 1 && x_sc != 1) ||
       (out_int8 && Cout > 1 && o_sc != 1) || (out_int8 && !(out_scale > 0.f)))
     return static_cast<int>(cudaErrorInvalidValue);
   int cur = -1;
@@ -409,8 +489,9 @@ extern "C" int avs_int8_conv_pool(
   p.tiles_w = (W / 2 + tile_cols - 1) / tile_cols;
   p.tiles = ((H / 2 + tile_rows - 1) / tile_rows) * p.tiles_w;
   p.F = frames; p.runs = (T + frames - 1) / frames;
-  p.IH = 2 * tile_rows + kh - 1; p.IW = 2 * tile_cols + kw - 1; p.S = pos_bytes;
-  p.off_bytes = align16(4 * offset_entries(words, Kpad));
+  p.IH = 2 * tile_rows + kh - 1; p.IW = 2 * tile_cols + kw - 1; p.IWh = (p.IW + 1) / 2;
+  p.S = pos_bytes; p.R = kt + 1; p.slot_bytes = slot_bytes(p.IH, p.IW, pos_bytes);
+  p.n_off = offset_entries(words, Kpad); p.off_bytes = table_bytes(words, Kpad, kt);
   p.x_sb = x_sb; p.x_sc = x_sc; p.x_st = x_st; p.x_sh = x_sh; p.x_sw = x_sw;
   // channels-last, 16-byte aligned, whole 16-byte groups: vector staging
   const int vec = x_int8 ? 16 : 4;

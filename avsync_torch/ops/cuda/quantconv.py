@@ -70,24 +70,25 @@ def padded(n: int, m: int = 32) -> int:
 
 
 def pos_bytes(cin: int) -> int:
-    """Bytes per halo position: Cin, or for Cin % 4 == 0 the smallest S >= Cin
-    with S = 8 mod 16 (a warp's eight A-fragment rows then fall on distinct
-    banks; csrc/int8_conv_pool.cu)."""
+    """Bytes per halo position: Cin, or for Cin % 4 == 0 the smallest
+    S >= Cin with S / 16 odd (the kernel keeps even and odd halo columns in
+    two planes, so a warp's eight A-fragment rows are positions S bytes
+    apart, which then fall on distinct banks; csrc/int8_conv_pool.cu)."""
     if cin % 4:
         return cin
-    s = cin
-    while s % 16 != 8:
-        s += 4
-    return s
+    s = padded(cin, 16)
+    return s if (s // 16) % 2 else s + 16
 
 
 def shared_memory_bytes(cin: int, kpad: int, kt: int, kh: int, kw: int, rows: int,
                         cols: int) -> int:
-    """The kernel's `smem_bytes`: the offset table (an int per k, or per four
-    k when Cin % 4 == 0), then the int8 halo of the tile."""
+    """The kernel's `smem_bytes`: 2 (kt + 1) offset tables (an int per k, or
+    per four k when Cin % 4 == 0), then a ring of kt + 1 frame slots, each
+    the tile's int8 halo in two column planes."""
     entries = kpad // 4 if cin % 4 == 0 else kpad
-    return (padded(4 * entries, 16)
-            + kt * (2 * rows + kh - 1) * (2 * cols + kw - 1) * pos_bytes(cin))
+    ih, iwh = 2 * rows + kh - 1, -(-(2 * cols + kw - 1) // 2)
+    return (padded(4 * 2 * (kt + 1) * entries, 16)
+            + (kt + 1) * padded(2 * ih * iwh * pos_bytes(cin), 16))
 
 
 @functools.lru_cache(maxsize=256)
@@ -97,9 +98,10 @@ def tile_for(H2: int, W2: int, cin: int, cout: int, kt: int, kh: int,
     minimises an estimate of a frame's warp instructions (MMA tasks, each
     task-chunk ~40 for 32-bit A loads and ~140 for byte gathers, counted for
     all eight warps of a CTA whether they have a task or not, plus ~0.6 per
-    staged halo value and a fixed 200 per CTA), within the shared memory of
-    two CTAs per SM if any tile fits there, else of one. Raises where even a
-    single pooled position's halo does not fit."""
+    halo value staged, once per frame, and a fixed 200 per CTA and frame),
+    within the shared memory of two CTAs per SM (the ring's kt + 1 frames
+    and its tables) if any tile fits there, else of one. Raises where even
+    a single pooled position's ring does not fit."""
     kpad = padded(cin * kt * kh * kw)
     chunks, ngroups = kpad // 32, padded(cout) // 32
     per_chunk = 40 if cin % 4 == 0 else 140
@@ -110,7 +112,7 @@ def tile_for(H2: int, W2: int, cin: int, cout: int, kt: int, kh: int,
                 if shared_memory_bytes(cin, kpad, kt, kh, kw, rows, cols) > budget:
                     continue
                 tasks = -(-rows * cols // 16) * ngroups
-                halo = kt * (2 * rows + kh - 1) * (2 * cols + kw - 1) * cin
+                halo = (2 * rows + kh - 1) * (2 * cols + kw - 1) * cin
                 cta = 8 * -(-tasks // 8) * chunks * per_chunk + 0.6 * halo + 200
                 cost = -(-H2 // rows) * -(-W2 // cols) * cta
                 if best is None or cost < best[0]:
@@ -120,12 +122,29 @@ def tile_for(H2: int, W2: int, cin: int, cout: int, kt: int, kh: int,
     raise ValueError(
         f"int8_conv_pool: one pooled position of a {kt}x{kh}x{kw} kernel over {cin} input "
         f"channels needs {shared_memory_bytes(cin, kpad, kt, kh, kw, 1, 1)} bytes of shared "
-        f"memory for its halo and offset table; one CTA of sm_90 has {MAX_SMEM}")
+        f"memory for its ring of frames and offset tables; one CTA of sm_90 has {MAX_SMEM}")
 
 
-def frames_for(B: int, T: int, tiles: int) -> int:
-    """Frames per CTA: one (each CTA stages the kt frames around its own)."""
-    return 1
+@functools.lru_cache(maxsize=1024)
+def frames_for(B: int, T: int, tiles: int, sms: int = 132, per_sm: int = 2) -> int:
+    """Frames per CTA, F: the grid is B x tiles x ceil(T / F) CTAs, which
+    run in waves of sms x per_sm; a CTA's time grows as F + 1 (F frames of
+    MMAs, the kt halo frames it stages before the first, less the overlap).
+    The F with the fewest waves x (F + 1), the smallest of equals: large
+    batches take long runs, small ones short runs and more CTAs. F changes
+    no bit of the result."""
+    best = None
+    for F in range(1, T + 1):
+        ctas = B * tiles * -(-T // F)
+        cost = -(-ctas // (sms * per_sm)) * (F + 1)
+        if best is None or cost < best[0]:
+            best = (cost, F)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def pack_kernel(kernel_q: torch.Tensor) -> torch.Tensor:
@@ -180,10 +199,12 @@ def int8_conv_pool_ref(x: torch.Tensor, kernel_q: torch.Tensor, k_scale: torch.T
     (x_scale * k_scale) + bias)), NCDHW, q(x) = `quantize_input` of an f32 x
     (an int8 x is taken as already quantized); the convolution of the int8
     values in float64 (exact), then int32, then f32; with `out_scale`, the
-    f32 result quantized to int8 by `quantize_input`."""
+    f32 result quantized to int8 by `quantize_input`, channels-last (the
+    layout a next block takes)."""
     _check_int8_layout(x)
     scale = torch.tensor(x_scale, dtype=torch.float32) * k_scale.to("cpu", torch.float32)
-    return _ref(x, kernel_q, scale.to(x.device), bias, x_scale, out_scale)
+    out = _ref(x, kernel_q, scale.to(x.device), bias, x_scale, out_scale)
+    return out if out_scale is None else out.contiguous(memory_format=torch.channels_last_3d)
 
 
 def _check_int8_layout(x: torch.Tensor) -> None:
@@ -221,12 +242,14 @@ def _int8_conv_pool_cuda(x: torch.Tensor, packed: torch.Tensor, scale: torch.Ten
                          f"{(npad, kpad)}")
     rows, cols = tile_for(H // 2, W // 2, cin, cout, kt, kh, kw)
     tiles = -(-(H // 2) // rows) * -(-(W // 2) // cols)
+    per_sm = 2 if shared_memory_bytes(cin, kpad, kt, kh, kw, rows, cols) <= TWO_PER_SM else 1
+    frames = frames_for(B, T, tiles, _sm_count(dev.index), per_sm)
     out = _out_empty(x, cout, out_scale)
     fn = build.function("int8_conv_pool", "avs_int8_conv_pool", _ARGTYPES)
     err = fn(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), bias.data_ptr(),
              out.data_ptr(), x_scale, 1.0 if out_scale is None else out_scale,
              int(x.dtype == torch.int8), int(out_scale is not None), B, cin, T, H, W, cout, kt,
-             kh, kw, kpad, npad, rows, cols, pos_bytes(cin), frames_for(B, T, tiles),
+             kh, kw, kpad, npad, rows, cols, pos_bytes(cin), frames,
              *x.stride(), *out.stride(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
     build.check("int8_conv_pool", err, "int8_conv_pool launch")
     launches += 1

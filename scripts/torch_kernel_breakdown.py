@@ -597,9 +597,21 @@ def k5_breakdown(parent: Path, dev):
 # result and is only timed)
 Q1_NO_MMA = ("for (int task = warp; task < mgroups * ngroups; task += NWARPS) {",
              "for (int task = warp; task < 0; task += NWARPS) {")
-Q1_NO_STAGING = ("    stage_halo(p, s_x, b, t, h2_0, w2_0);\n", "")
+Q1_NO_STAGING = [  # the ring's fills: cp.async, the register prefetch, the rest
+    ("                           int w0, int first) {\n",
+     "                           int w0, int first) {\n  return;\n"),
+    ("                            int w0) {\n", "                            int w0) {\n  return;\n"),
+    ("if (more && scalar) {", "if (false) {")]
 Q1_VARIANTS = {"q1_full": [], "q1_staging_only": [Q1_NO_MMA],
-               "q1_compute_only": [Q1_NO_STAGING], "q1_launch_only": [Q1_NO_MMA, Q1_NO_STAGING]}
+               "q1_compute_only": Q1_NO_STAGING, "q1_launch_only": [Q1_NO_MMA, *Q1_NO_STAGING]}
+# frames per CTA timed at B=8 (and conv2 at B = 1 and 32): the wrapper's
+# `frames_for` choice against the others
+Q1_FRAMES = (1, 2, 3, 4, 6, 8, 13, 19, 25, 38, 75)
+# tiles (pooled rows x columns) timed at B=8, the wrapper's frames per CTA
+# for each: conv3's ring of four frames of the 6 x 12 tile fits one CTA per
+# SM, smaller tiles two
+Q1_TILES = {"conv2": ((12, 5), (6, 10), (6, 5), (12, 10), (4, 16)),
+            "conv3": ((6, 12), (6, 11), (6, 8), (6, 6), (6, 4), (3, 12))}
 # LipNet's conv blocks at full width: (Cin, Cout, H, W, kernel), and the
 # contract the int8 forward runs each in
 Q1_BLOCKS = {"conv1": (1, 32, 50, 100, (3, 5, 5)), "conv2": (32, 64, 25, 50, (3, 5, 5)),
@@ -687,6 +699,31 @@ def q1_breakdown(parent, dev):
             row[variant] = {"event_ms": time_ms(call(fn)),
                             "device_ms": sum(device_ms(call(fn)).values())}
         row["wrapper_ms"] = time_ms(call())
+        real = quantconv.frames_for
+        try:
+            for Bs in ((8, 1, 32) if name == "conv2" else (8,)):
+                xs = x_in if Bs == B else x_in[:1].expand(Bs, *x_in.shape[1:]).contiguous(
+                    memory_format=torch.channels_last_3d)
+                sweep = {"chosen": real(Bs, T, tiles, quantconv._sm_count(dev.index))}
+                for F in Q1_FRAMES:
+                    quantconv.frames_for = lambda *a, F=F: F
+                    sweep[F] = sum(device_ms(lambda: quant_conv_block(qc, xs, out_scale)).values())
+                row[f"frames_sweep_device_ms_B{Bs}"] = sweep
+        finally:
+            quantconv.frames_for = real
+        real_tile = quantconv.tile_for
+        try:
+            sweep = {}
+            for tl in Q1_TILES.get(name, ()):
+                quantconv.tile_for = lambda *a, tl=tl: tl
+                kp = quantconv.padded(cin * k[0] * k[1] * k[2])
+                sweep[f"{tl[0]}x{tl[1]}"] = {
+                    "smem": quantconv.shared_memory_bytes(cin, kp, *k, *tl),
+                    "device_ms": sum(device_ms(call()).values())}
+            if sweep:
+                row["tiles_sweep_B8"] = sweep
+        finally:
+            quantconv.tile_for = real_tile
         blocks[name] = row
         print(f"{name}: {json.dumps(row)}", flush=True)
         h = want

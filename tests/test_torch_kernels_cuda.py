@@ -689,7 +689,7 @@ def test_int8_conv_pool_frames_per_cta_change_no_bit(dev, frames, monkeypatch):
     int8-in, int8-out contract of LipNet's conv2 and the f32-in of conv1."""
     from avsync_torch.ops.quant import quant_conv_block
 
-    monkeypatch.setattr(quantconv, "frames_for", lambda B, T, tiles: frames)
+    monkeypatch.setattr(quantconv, "frames_for", lambda *args: frames)
     for i, (B, cin, cout, T, H, W, k) in enumerate([(2, 32, 64, 75, 25, 50, (3, 5, 5)),
                                                     (2, 1, 32, 75, 50, 100, (3, 5, 5))]):
         qc, x = q1_case(_gen(70 + i), dev, B, cin, cout, T, H, W, k)
@@ -698,10 +698,12 @@ def test_int8_conv_pool_frames_per_cta_change_no_bit(dev, frames, monkeypatch):
 
 
 def test_int8_conv_pool_shared_memory_mirrors_the_kernel(dev):
+    """The wrapper's `shared_memory_bytes` (tables and the ring of kt + 1
+    frames) is the kernel's `smem_bytes`, which the launch asks for."""
     fn = build.function("int8_conv_pool", "avs_int8_conv_pool_smem", quantconv._SMEM_ARGTYPES)
     for cin, k in [(1, (3, 5, 5)), (32, (3, 5, 5)), (64, (3, 3, 3)), (3, (1, 3, 5)), (12, (3, 5, 5))]:
         kpad = quantconv.padded(cin * k[0] * k[1] * k[2])
-        for rows, cols in [(1, 1), (5, 25), (12, 5), (6, 12)]:
+        for rows, cols in [(1, 1), (5, 25), (12, 5), (6, 12), (6, 4), (3, 7)]:
             assert fn(cin, kpad, *k, rows, cols, quantconv.pos_bytes(cin)) == \
                 quantconv.shared_memory_bytes(cin, kpad, *k, rows, cols)
 

@@ -265,16 +265,18 @@ def test_operator_contracts_on_the_cpu():
 
 def test_tile_choice_and_its_limits():
     """Every tile the wrapper chooses fits the shared memory of two CTAs per
-    SM at LipNet's blocks; a geometry whose single pooled position does not
-    fit in one CTA raises and says so."""
+    SM at LipNet's blocks, its ring of kt + 1 frames included; a halo
+    position takes S bytes with S / 16 odd where Cin % 4 == 0; a geometry
+    whose single pooled position does not fit in one CTA raises and says
+    so."""
     for H2, W2, cin, cout, k in [(25, 50, 1, 32, (3, 5, 5)), (12, 25, 32, 64, (3, 5, 5)),
                                  (6, 12, 64, 96, (3, 3, 3)), (1, 1, 3, 5, (1, 1, 1))]:
         rows, cols = quantconv.tile_for(H2, W2, cin, cout, *k)
         assert 1 <= rows <= H2 and 1 <= cols <= W2 and rows * cols <= 128
         kpad = quantconv.padded(cin * k[0] * k[1] * k[2])
         assert quantconv.shared_memory_bytes(cin, kpad, *k, rows, cols) <= quantconv.TWO_PER_SM
-    assert quantconv.pos_bytes(32) == 40 and quantconv.pos_bytes(64) == 72
-    assert quantconv.pos_bytes(3) == 3
+    assert quantconv.pos_bytes(32) == 48 and quantconv.pos_bytes(64) == 80
+    assert quantconv.pos_bytes(3) == 3 and quantconv.pos_bytes(12) == 16
     with pytest.raises(ValueError, match="shared memory"):
         quantconv.tile_for(4, 4, 4096, 8, 5, 5, 5)
     x = torch.zeros(1, 2, 3, 4, 4)
@@ -282,6 +284,22 @@ def test_tile_choice_and_its_limits():
         quantconv.check_geometry(x, (3, 2, 2, 3, 3), 0.1)
     with pytest.raises(ValueError, match="positive"):
         quantconv.check_geometry(x, (3, 2, 3, 3, 3), 0.0)
+
+
+@pytest.mark.parametrize("B", [1, 8, 32])
+def test_frames_per_cta_fill_the_card(B):
+    """At LipNet's blocks (T = 75) the frames per CTA leave a CTA for every
+    one of 132 SMs where the batch allows it, and the runs cover T with the
+    last one not empty."""
+    for H2, W2, cin, cout, k in [(25, 50, 1, 32, (3, 5, 5)), (12, 25, 32, 64, (3, 5, 5)),
+                                 (6, 12, 64, 96, (3, 3, 3))]:
+        rows, cols = quantconv.tile_for(H2, W2, cin, cout, *k)
+        tiles = -(-H2 // rows) * -(-W2 // cols)
+        F = quantconv.frames_for(B, 75, tiles)
+        runs = -(-75 // F)
+        assert 1 <= F <= 75 and (runs - 1) * F < 75
+        assert B * tiles * runs >= min(132, B * tiles * 75)
+    assert quantconv.frames_for(1, 75, 1) == 1 and quantconv.frames_for(1024, 75, 8) == 75
 
 
 # ---------------------------------------------------------------------------
