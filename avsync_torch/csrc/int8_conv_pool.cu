@@ -56,10 +56,14 @@
 //     pre-pool values of one pooled output: their max needs no shuffle;
 //   * mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32, four n8 tiles per
 //     task. A fragments come from the ring through tables of byte offsets
-//     per k (per group of 4 k when Cin % 4 == 0: one 32-bit load each), one
-//     table per (frame t mod kt + 1, column parity jw); B fragments straight
-//     from the packed (Npad, Kpad) weights (read-only path; they stay in
-//     L1/L2);
+//     per k, one table per (frame t mod kt + 1, column parity jw). Where
+//     Cin % 16 == 0 (conv2, conv3) a k-chunk of 32 is two runs of 16
+//     contiguous channels of one tap each, exactly the four 8x8 b16
+//     matrices of the m16n8k32 s8 A fragment (rows 0-7 / 8-15 x k 0-15 /
+//     16-31), so one ldmatrix.x4 per (window, chunk) loads it, each lane
+//     giving one row's address; else one 32-bit load per group of four k
+//     (Cin % 4 == 0) or byte gathers (conv1). B fragments come straight from
+//     the packed (Npad, Kpad) weights (read-only path; they stay in L1/L2);
 //   * pooled positions outside the frame, rows past the tile and channels
 //     past Cout compute on zeros or in-bounds data and are not written; the
 //     pre-pool row or column a floor pool drops is never computed.
@@ -79,6 +83,13 @@ constexpr int STAGE_UNROLL = 4;  // halo loads in flight per thread
 constexpr int PREFETCH = 4;  // values per thread of the next frame loaded before the MMAs
 constexpr size_t MAX_SMEM = 232448;  // per-block opt-in limit on sm_90
 constexpr int MAX_DEVICES = 64;
+
+// How A fragments are loaded from the ring, by Cin.
+enum AMode : int {
+  A_BYTES = 0,  // byte gathers through a table per k
+  A_WORDS = 1,  // Cin % 4 == 0: a 32-bit load per group of four k
+  A_LDSM = 2,   // Cin % 16 == 0: one ldmatrix.x4 per m16 x k32 block
+};
 
 // How a frame's halo is staged, by input dtype and layout.
 enum Stage : int {
@@ -108,7 +119,7 @@ struct QParams {
 __host__ __device__ inline int align16(int n) { return (n + 15) / 16 * 16; }
 
 // The kernel's shared memory: the offset tables, R x 2 of them (frame t mod
-// R, column parity), one int per k or per group of four k when WORDS; then
+// R, column parity), one int per k, or per group of four k when Cin % 4 == 0; then
 // the ring of R = kt + 1 frame slots, each the halo's two column planes of
 // IH x ceil(IW / 2) positions of S bytes.
 __host__ __device__ inline int offset_entries(bool words, int Kpad) {
@@ -156,6 +167,15 @@ __device__ __forceinline__ uint32_t gather4(const unsigned char* base, const int
 
 __device__ __forceinline__ uint32_t load4(const unsigned char* base, int o) {
   return o >= 0 ? *reinterpret_cast<const uint32_t*>(base + o) : 0u;
+}
+
+// The four 8x8 b16 matrices whose rows the lanes 0-7, 8-15, 16-23, 24-31
+// address, into a[0..3] (16-byte aligned rows in shared memory).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const unsigned char* row) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
 }
 
 // Element offset of halo position (h, w) of frame ti within clip b's
@@ -275,7 +295,7 @@ __device__ __forceinline__ void epilogue(const QParams& p, const int (&acc)[4][4
   }
 }
 
-template <bool WORDS>
+template <int MODE>
 __global__ void __launch_bounds__(NT, 2) int8_conv_pool_kernel(const QParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* s_off = reinterpret_cast<int*>(smem);
@@ -294,12 +314,13 @@ __global__ void __launch_bounds__(NT, 2) int8_conv_pool_kernel(const QParams p) 
 
   // table (r, jw): for output frame t = r mod R, the byte of k (or of the
   // group k = 4*kg .. 4*kg + 3) in the ring, from the row base of a pre-pool
-  // position in column plane jw (`base` below); -1 past K
-  const int step = WORDS ? 4 : 1;
+  // position in column plane jw (`base` below); -1 past K, or for ldmatrix
+  // (which cannot skip a row) 0: the packed weights are zero past K
+  const int step = MODE == A_BYTES ? 1 : 4;
   for (int i = threadIdx.x; i < 2 * p.R * p.n_off; i += NT) {
     const int e = i % p.n_off, jw = (i / p.n_off) % 2, r = i / (2 * p.n_off);
     const int k = e * step;
-    int off = -1;
+    int off = MODE == A_LDSM ? 0 : -1;
     if (k < p.K) {
       const int tap = k / p.Cin, ci = k % p.Cin;
       const int dt = tap / (p.kh * p.kw), dh = (tap / p.kw) % p.kh, wc = jw + tap % p.kw;
@@ -349,14 +370,6 @@ __global__ void __launch_bounds__(NT, 2) int8_conv_pool_kernel(const QParams p) 
       const int mg = task / ngroups, ng = task % ngroups;
       // the thread's two rows: pooled positions mg*16 + g and + 8 of the tile
       int idx[2] = {mg * 16 + g, mg * 16 + g + 8};
-      int base[2][2];  // [jh][row]: plane-0 byte of pre-pool row 2*ph + jh, column pair pw
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int q = idx[r] < P ? idx[r] : 0;
-        const int ph = q / p.PC, pw = q % p.PC;
-#pragma unroll
-        for (int jh = 0; jh < 2; ++jh) base[jh][r] = ((2 * ph + jh) * p.IWh + pw) * p.S;
-      }
       int acc[4][4][4];  // [window (jh, jw)][n8 tile][fragment register]
 #pragma unroll
       for (int wdw = 0; wdw < 4; ++wdw)
@@ -364,48 +377,82 @@ __global__ void __launch_bounds__(NT, 2) int8_conv_pool_kernel(const QParams p) 
         for (int j = 0; j < 4; ++j)
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[wdw][j][i] = 0;
-
       const int8_t* wg = p.w + (size_t)(ng * 32 + g) * p.Kpad + tq * 4;
-      for (int kc = 0; kc < chunks; ++kc) {
-        uint32_t bf[4][2];
+
+      if constexpr (MODE == A_LDSM) {
+        // the lane's ldmatrix row: A row (lane & 7) + 8 * bit 3 of the lane,
+        // k half (lane >> 4); its plane-0 byte for each pool-window row jh
+        const int row = mg * 16 + (lane & 7) + ((lane >> 3) & 1) * 8, half = lane >> 4;
+        const int q = row < P ? row : 0;
+        const int lbase[2] = {((2 * (q / p.PC)) * p.IWh + q % p.PC) * p.S,
+                              ((2 * (q / p.PC) + 1) * p.IWh + q % p.PC) * p.S};
+        for (int kc = 0; kc < chunks; ++kc) {
+          uint32_t bf[4][2];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int8_t* wr = wg + (size_t)j * 8 * p.Kpad + kc * 32;
-          bf[j][0] = static_cast<uint32_t>(__ldg(reinterpret_cast<const int*>(wr)));
-          bf[j][1] = static_cast<uint32_t>(__ldg(reinterpret_cast<const int*>(wr + 16)));
-        }
-        if constexpr (WORDS) {
-          const int o[2][2] = {{off0[kc * 8 + tq], off0[kc * 8 + tq + 4]},
-                               {off1[kc * 8 + tq], off1[kc * 8 + tq + 4]}};
+          for (int j = 0; j < 4; ++j) {
+            const int8_t* wr = wg + (size_t)j * 8 * p.Kpad + kc * 32;
+            bf[j][0] = static_cast<uint32_t>(__ldg(reinterpret_cast<const int*>(wr)));
+            bf[j][1] = static_cast<uint32_t>(__ldg(reinterpret_cast<const int*>(wr + 16)));
+          }
+          const int o[2] = {off0[kc * 8 + 4 * half], off1[kc * 8 + 4 * half]};
 #pragma unroll
           for (int wdw = 0; wdw < 4; ++wdw) {
-            const int jh = wdw >> 1, jw = wdw & 1;
-            const uint32_t a[4] = {load4(ring + base[jh][0], o[jw][0]),
-                                   load4(ring + base[jh][1], o[jw][0]),
-                                   load4(ring + base[jh][0], o[jw][1]),
-                                   load4(ring + base[jh][1], o[jw][1])};
+            uint32_t a[4];
+            ldmatrix_x4(a, ring + lbase[wdw >> 1] + o[wdw & 1]);
 #pragma unroll
             for (int j = 0; j < 4; ++j) mma_s8(acc[wdw][j], a, bf[j][0], bf[j][1]);
           }
-        } else {
+        }
+      } else {
+        int base[2][2];  // [jh][row]: plane-0 byte of pre-pool row 2*ph + jh, column pair pw
 #pragma unroll
-          for (int jw = 0; jw < 2; ++jw) {
-            const int* tab = jw ? off1 : off0;
-            int o0[4], o1[4];
+        for (int r = 0; r < 2; ++r) {
+          const int q = idx[r] < P ? idx[r] : 0;
+          const int ph = q / p.PC, pw = q % p.PC;
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              o0[i] = tab[kc * 32 + tq * 4 + i];
-              o1[i] = tab[kc * 32 + 16 + tq * 4 + i];
+          for (int jh = 0; jh < 2; ++jh) base[jh][r] = ((2 * ph + jh) * p.IWh + pw) * p.S;
+        }
+        for (int kc = 0; kc < chunks; ++kc) {
+          uint32_t bf[4][2];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int8_t* wr = wg + (size_t)j * 8 * p.Kpad + kc * 32;
+            bf[j][0] = static_cast<uint32_t>(__ldg(reinterpret_cast<const int*>(wr)));
+            bf[j][1] = static_cast<uint32_t>(__ldg(reinterpret_cast<const int*>(wr + 16)));
+          }
+          if constexpr (MODE == A_WORDS) {
+            const int o[2][2] = {{off0[kc * 8 + tq], off0[kc * 8 + tq + 4]},
+                                 {off1[kc * 8 + tq], off1[kc * 8 + tq + 4]}};
+#pragma unroll
+            for (int wdw = 0; wdw < 4; ++wdw) {
+              const int jh = wdw >> 1, jw = wdw & 1;
+              const uint32_t a[4] = {load4(ring + base[jh][0], o[jw][0]),
+                                     load4(ring + base[jh][1], o[jw][0]),
+                                     load4(ring + base[jh][0], o[jw][1]),
+                                     load4(ring + base[jh][1], o[jw][1])};
+#pragma unroll
+              for (int j = 0; j < 4; ++j) mma_s8(acc[wdw][j], a, bf[j][0], bf[j][1]);
             }
+          } else {
 #pragma unroll
-            for (int jh = 0; jh < 2; ++jh) {
-              const uint32_t a[4] = {gather4(ring + base[jh][0], o0),
-                                     gather4(ring + base[jh][1], o0),
-                                     gather4(ring + base[jh][0], o1),
-                                     gather4(ring + base[jh][1], o1)};
+            for (int jw = 0; jw < 2; ++jw) {
+              const int* tab = jw ? off1 : off0;
+              int o0[4], o1[4];
 #pragma unroll
-              for (int j = 0; j < 4; ++j)
-                mma_s8(acc[2 * jh + jw][j], a, bf[j][0], bf[j][1]);
+              for (int i = 0; i < 4; ++i) {
+                o0[i] = tab[kc * 32 + tq * 4 + i];
+                o1[i] = tab[kc * 32 + 16 + tq * 4 + i];
+              }
+#pragma unroll
+              for (int jh = 0; jh < 2; ++jh) {
+                const uint32_t a[4] = {gather4(ring + base[jh][0], o0),
+                                       gather4(ring + base[jh][1], o0),
+                                       gather4(ring + base[jh][0], o1),
+                                       gather4(ring + base[jh][1], o1)};
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                  mma_s8(acc[2 * jh + jw][j], a, bf[j][0], bf[j][1]);
+              }
             }
           }
         }
@@ -429,13 +476,13 @@ __global__ void __launch_bounds__(NT, 2) int8_conv_pool_kernel(const QParams p) 
 }
 
 // The shared-memory opt-in of each instantiation, set once per device.
-template <bool WORDS>
+template <int MODE>
 cudaError_t launch(const QParams& p, int device, cudaStream_t stream) {
   static std::atomic<bool> opted_in[MAX_DEVICES];
-  const size_t smem = smem_bytes(WORDS, p.Kpad, p.kt, p.IH, p.IW, p.S);
+  const size_t smem = smem_bytes(MODE != A_BYTES, p.Kpad, p.kt, p.IH, p.IW, p.S);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   if (device >= MAX_DEVICES || !opted_in[device].load()) {
-    cudaError_t e = cudaFuncSetAttribute(int8_conv_pool_kernel<WORDS>,
+    cudaError_t e = cudaFuncSetAttribute(int8_conv_pool_kernel<MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)MAX_SMEM);
     if (e != cudaSuccess) return e;
@@ -443,7 +490,7 @@ cudaError_t launch(const QParams& p, int device, cudaStream_t stream) {
   }
   const long long blocks = (long long)p.tiles * p.runs * p.B;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  int8_conv_pool_kernel<WORDS><<<(unsigned)blocks, NT, smem, stream>>>(p);
+  int8_conv_pool_kernel<MODE><<<(unsigned)blocks, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -501,7 +548,9 @@ extern "C" int avs_int8_conv_pool(
   p.stage = x_int8 ? (vector ? STAGE_S8X16 : STAGE_S8) : (vector ? STAGE_F32X4 : STAGE_F32);
   p.o_sb = o_sb; p.o_sc = o_sc; p.o_st = o_st; p.o_sh = o_sh; p.o_sw = o_sw;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  e = words ? launch<true>(p, device, s) : launch<false>(p, device, s);
+  e = Cin % 16 == 0 ? launch<A_LDSM>(p, device, s)
+      : words       ? launch<A_WORDS>(p, device, s)
+                    : launch<A_BYTES>(p, device, s);
   return static_cast<int>(e);
 }
 

@@ -96,7 +96,8 @@ def tile_for(H2: int, W2: int, cin: int, cout: int, kt: int, kh: int,
              kw: int) -> Tuple[int, int]:
     """(tile_rows, tile_cols) of pooled positions per CTA: the tile that
     minimises an estimate of a frame's warp instructions (MMA tasks, each
-    task-chunk ~40 for 32-bit A loads and ~140 for byte gathers, counted for
+    task-chunk ~24 for ldmatrix A fragments (Cin % 16 == 0), ~40 for 32-bit
+    A loads (Cin % 4 == 0) and ~140 for byte gathers, counted for
     all eight warps of a CTA whether they have a task or not, plus ~0.6 per
     halo value staged, once per frame, and a fixed 200 per CTA and frame),
     within the shared memory of two CTAs per SM (the ring's kt + 1 frames
@@ -104,7 +105,7 @@ def tile_for(H2: int, W2: int, cin: int, cout: int, kt: int, kh: int,
     a single pooled position's ring does not fit."""
     kpad = padded(cin * kt * kh * kw)
     chunks, ngroups = kpad // 32, padded(cout) // 32
-    per_chunk = 40 if cin % 4 == 0 else 140
+    per_chunk = 24 if cin % 16 == 0 else 40 if cin % 4 == 0 else 140
     for budget in (TWO_PER_SM, MAX_SMEM):
         best = None
         for rows in range(1, min(H2, MAX_TILE_POSITIONS) + 1):

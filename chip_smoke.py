@@ -2307,6 +2307,7 @@ def check_int8_conv_pool(dev, smi):
     cases += [(2, 3, 5, 5, 9, 13, (1, 3, 5), "random"), (3, 64, 40, 4, 13, 27, (3, 3, 3), "random"),
               (2, 1, 7, 3, 7, 201, (5, 1, 3), "random"), (2, 12, 33, 2, 6, 10, (3, 5, 5), "random"),
               (2, 32, 64, 2, 25, 50, (3, 5, 5), "random"), (1, 16, 24, 1, 10, 14, (3, 3, 3), "random"),
+              (2, 48, 20, 6, 11, 17, (3, 3, 3), "random"),
               (2, 32, 64, 3, 25, 50, (3, 5, 5), "ties"), (1, 1, 32, 3, 50, 100, (3, 5, 5), "ties"),
               (1, 32, 64, 3, 25, 50, (3, 5, 5), "extreme")]
     for B, cin, cout, T, H, W, k, mode in cases:
