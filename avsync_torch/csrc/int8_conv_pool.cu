@@ -45,11 +45,12 @@
 //     fill outside the clip from the src-size operand; an f32 or byte-wise
 //     input through registers loaded before the MMAs and quantized and
 //     stored after them);
-//   * a slot holds a frame's halo with its even and odd columns in two
-//     planes, S bytes per position (S = Cin, or for Cin % 4 == 0 the
-//     smallest S >= Cin with S / 16 odd): the eight rows of an A fragment,
-//     pre-pool positions two columns apart, are then consecutive positions
-//     of one plane, S bytes apart, and fall on distinct banks;
+//   * a slot holds a frame's halo, S bytes per position; for Cin % 4 == 0
+//     with its even and odd columns in two planes and S the smallest
+//     multiple of 16 >= Cin with S / 16 odd: the eight rows of an A
+//     fragment, pre-pool positions two columns apart, are then consecutive
+//     positions of one plane, S bytes apart, and fall on distinct banks
+//     (else S = Cin, row by row, for conv1's byte gathers);
 //   * a warp task is 16 pooled positions x 32 channels: four m16 row blocks,
 //     one per pool-window offset (jh, jw), share the B fragments, so a
 //     thread's accumulators of the four blocks at one index are the four
@@ -63,7 +64,8 @@
 //     16-31), so one ldmatrix.x4 per (window, chunk) loads it, each lane
 //     giving one row's address; else one 32-bit load per group of four k
 //     (Cin % 4 == 0) or byte gathers (conv1). B fragments come straight from
-//     the packed (Npad, Kpad) weights (read-only path; they stay in L1/L2);
+//     the packed (Npad, Kpad) weights (read-only path; they stay in L1/L2),
+//     the next chunk's loaded while this chunk's MMAs run;
 //   * pooled positions outside the frame, rows past the tile and channels
 //     past Cout compute on zeros or in-bounds data and are not written; the
 //     pre-pool row or column a floor pool drops is never computed.
@@ -105,9 +107,11 @@ struct QParams {
   const float* scale;   // (Cout,) x_scale * k_scale
   const float* bias;    // (Cout,)
   void* out;            // (B, Cout, T, H/2, W/2) f32 or int8, element strides below
-  float x_scale;        // quantizes an f32 input
-  float out_scale;      // quantizes an int8 output: the next block's x_scale
+  float x_scale, x_rcp;      // quantizes an f32 input (x_rcp = fl(1 / x_scale))
+  float out_scale, out_rcp;  // quantizes an int8 output: the next block's x_scale
   bool out_int8;
+  bool planes;          // Cin % 4 == 0: the halo's columns in two parity planes
+  bool out_pairs;       // channel pairs of the output contiguous and aligned
   int stage;            // Stage
   int B, Cin, T, H, W, Cout, kt, kh, kw, K, Kpad, Npad;
   int PR, PC, tiles_w, tiles, F, runs;
@@ -135,13 +139,24 @@ size_t smem_bytes(bool words, int Kpad, int kt, int IH, int IW, int S) {
   return (size_t)table_bytes(words, Kpad, kt) + (size_t)(kt + 1) * slot_bytes(IH, IW, S);
 }
 
-// Byte of halo position (h, w) in a slot: even and odd columns in two planes.
+// Byte of halo position (h, w) in a slot: even and odd columns in two
+// planes where Cin % 4 == 0 (the 32-bit and ldmatrix A loads), else row by
+// row (byte gathers: one offset table serves both column parities).
 __device__ __forceinline__ int halo_byte(const QParams& p, int h, int w) {
-  return (((w & 1) * p.IH + h) * p.IWh + (w >> 1)) * p.S;
+  return p.planes ? (((w & 1) * p.IH + h) * p.IWh + (w >> 1)) * p.S : (h * p.IW + w) * p.S;
 }
 
-__device__ __forceinline__ int8_t quantize(float v, float s) {
-  const float q = fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.f), 127.f);
+// clip(rint(v / s), -127, 127) with the IEEE quotient, as the plain version
+// and XLA compute it, without a division in the common case: y = v * (1/s)
+// (rcp = fl(1/s)) is within 3 * 2^-24 * |v/s| of fl(v/s), under 2.3e-5 for
+// |v/s| < 128 (beyond, both clip alike). Where y is farther than 1e-4 from
+// every half-integer, fl(v/s) lies in the same rounding interval as y, so
+// rint(y) is its rint; else (ties, near-ties, NaN, inf) it divides.
+__device__ __forceinline__ int8_t quantize(float v, float s, float rcp) {
+  const float y = __fmul_rn(v, rcp);
+  const float d = fabsf(__fsub_rn(__fsub_rn(y, floorf(y)), 0.5f));
+  const float r = d > 1e-4f ? rintf(y) : rintf(__fdiv_rn(v, s));
+  const float q = fminf(fmaxf(r, -127.f), 127.f);
   return static_cast<int8_t>(static_cast<int>(q));
 }
 
@@ -167,6 +182,18 @@ __device__ __forceinline__ uint32_t gather4(const unsigned char* base, const int
 
 __device__ __forceinline__ uint32_t load4(const unsigned char* base, int o) {
   return o >= 0 ? *reinterpret_cast<const uint32_t*>(base + o) : 0u;
+}
+
+// The B fragments of k-chunk kc for the four n8 tiles of a task, from the
+// packed weights (read-only path).
+__device__ __forceinline__ void load_b(uint32_t (&bf)[4][2], const int8_t* wg, int Kpad,
+                                       int kc) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int8_t* wr = wg + (size_t)j * 8 * Kpad + kc * 32;
+    bf[j][0] = static_cast<uint32_t>(__ldg(reinterpret_cast<const int*>(wr)));
+    bf[j][1] = static_cast<uint32_t>(__ldg(reinterpret_cast<const int*>(wr + 16)));
+  }
 }
 
 // The four 8x8 b16 matrices whose rows the lanes 0-7, 8-15, 16-23, 24-31
@@ -202,7 +229,7 @@ __device__ __forceinline__ void store_item(const QParams& p, unsigned char* slot
                                            float v) {
   const int npos = p.IH * p.IW, pos = i % npos;
   reinterpret_cast<int8_t*>(slot)[halo_byte(p, pos / p.IW, pos % p.IW) + i / npos] =
-      p.stage == STAGE_F32 ? quantize(v, p.x_scale) : static_cast<int8_t>(v);
+      p.stage == STAGE_F32 ? quantize(v, p.x_scale, p.x_rcp) : static_cast<int8_t>(v);
 }
 
 // Stage items first.. of frame ti into its slot, STAGE_UNROLL loads in
@@ -226,10 +253,10 @@ __device__ void stage_sync(const QParams& p, unsigned char* slot, int b, int ti,
       for (int u = 0; u < STAGE_UNROLL; ++u) {
         const int i = i0 + u * NT, pos = i / cg;
         if (i >= n) break;
-        const uint32_t q = static_cast<uint8_t>(quantize(v[u].x, p.x_scale)) |
-                           static_cast<uint32_t>(static_cast<uint8_t>(quantize(v[u].y, p.x_scale))) << 8 |
-                           static_cast<uint32_t>(static_cast<uint8_t>(quantize(v[u].z, p.x_scale))) << 16 |
-                           static_cast<uint32_t>(static_cast<uint8_t>(quantize(v[u].w, p.x_scale))) << 24;
+        const uint32_t q = static_cast<uint8_t>(quantize(v[u].x, p.x_scale, p.x_rcp)) |
+                           static_cast<uint32_t>(static_cast<uint8_t>(quantize(v[u].y, p.x_scale, p.x_rcp))) << 8 |
+                           static_cast<uint32_t>(static_cast<uint8_t>(quantize(v[u].z, p.x_scale, p.x_rcp))) << 16 |
+                           static_cast<uint32_t>(static_cast<uint8_t>(quantize(v[u].w, p.x_scale, p.x_rcp))) << 24;
         *reinterpret_cast<uint32_t*>(slot + halo_byte(p, pos / p.IW, pos % p.IW) +
                                      4 * (i % cg)) = q;
       }
@@ -266,31 +293,54 @@ __device__ void stage_async(const QParams& p, unsigned char* slot, int b, int ti
   cp_async_commit();
 }
 
-// The pooled values of a warp task: fragment register i holds row g + 8*(i >> 1),
-// channel 2*tq + (i & 1) of each n8 tile j; the max of the four windows'
-// accumulators, dequantized, + bias, ReLU; f32 out, or int8 quantized with
-// the next block's scale.
+// The pooled values of a warp task: fragment registers 2r and 2r + 1 hold
+// row g + 8r, channels 2*tq and 2*tq + 1 of each n8 tile j; the max of the
+// four windows' accumulators, dequantized, + bias, ReLU; f32 out, or int8
+// quantized with the next block's scale. A channel pair goes out in one
+// store where the output's channels are contiguous and pairs aligned.
 __device__ __forceinline__ void epilogue(const QParams& p, const int (&acc)[4][4][4],
                                          const int (&idx)[2], int b, int t, int h2_0,
                                          int w2_0, int ng, int tq) {
   const int P = p.PR * p.PC, H2 = p.H / 2, W2 = p.W / 2;
+  const bool pairs = p.out_pairs;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = i >> 1;
+  for (int r = 0; r < 2; ++r) {
     if (idx[r] >= P) continue;
     const int h2 = h2_0 + idx[r] / p.PC, w2 = w2_0 + idx[r] % p.PC;
     if (h2 >= H2 || w2 >= W2) continue;
     const long long o = b * p.o_sb + t * p.o_st + h2 * p.o_sh + w2 * p.o_sw;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int c = ng * 32 + j * 8 + 2 * tq + (i & 1);
+      const int c = ng * 32 + j * 8 + 2 * tq;
       if (c >= p.Cout) continue;
-      const int m = max(max(acc[0][j][i], acc[1][j][i]), max(acc[2][j][i], acc[3][j][i]));
-      const float v = fmaxf(__fadd_rn(__fmul_rn(__int2float_rn(m), p.scale[c]), p.bias[c]), 0.f);
-      if (p.out_int8)
-        static_cast<int8_t*>(p.out)[o + c * p.o_sc] = quantize(v, p.out_scale);
-      else
-        static_cast<float*>(p.out)[o + c * p.o_sc] = v;
+      float v[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 2 * r + e;
+        if (c + e >= p.Cout) break;
+        const int m = max(max(acc[0][j][i], acc[1][j][i]), max(acc[2][j][i], acc[3][j][i]));
+        v[e] = fmaxf(__fadd_rn(__fmul_rn(__int2float_rn(m), p.scale[c + e]), p.bias[c + e]),
+                     0.f);
+      }
+      if (p.out_int8) {
+        int8_t* ob = static_cast<int8_t*>(p.out) + o;
+        const int8_t q0 = quantize(v[0], p.out_scale, p.out_rcp);
+        const int8_t q1 = quantize(v[1], p.out_scale, p.out_rcp);
+        if (pairs) {
+          *reinterpret_cast<char2*>(ob + c) = make_char2(q0, q1);
+        } else {
+          ob[c * p.o_sc] = q0;
+          if (c + 1 < p.Cout) ob[(c + 1) * p.o_sc] = q1;
+        }
+      } else {
+        float* ob = static_cast<float*>(p.out) + o;
+        if (pairs) {
+          *reinterpret_cast<float2*>(ob + c) = make_float2(v[0], v[1]);
+        } else {
+          ob[c * p.o_sc] = v[0];
+          if (c + 1 < p.Cout) ob[(c + 1) * p.o_sc] = v[1];
+        }
+      }
     }
   }
 }
@@ -314,7 +364,8 @@ __global__ void __launch_bounds__(NT, 2) int8_conv_pool_kernel(const QParams p) 
 
   // table (r, jw): for output frame t = r mod R, the byte of k (or of the
   // group k = 4*kg .. 4*kg + 3) in the ring, from the row base of a pre-pool
-  // position in column plane jw (`base` below); -1 past K, or for ldmatrix
+  // position in column plane jw (`base` below; without planes the position's
+  // own byte, and both tables are the same); -1 past K, or for ldmatrix
   // (which cannot skip a row) 0: the packed weights are zero past K
   const int step = MODE == A_BYTES ? 1 : 4;
   for (int i = threadIdx.x; i < 2 * p.R * p.n_off; i += NT) {
@@ -323,9 +374,11 @@ __global__ void __launch_bounds__(NT, 2) int8_conv_pool_kernel(const QParams p) 
     int off = MODE == A_LDSM ? 0 : -1;
     if (k < p.K) {
       const int tap = k / p.Cin, ci = k % p.Cin;
-      const int dt = tap / (p.kh * p.kw), dh = (tap / p.kw) % p.kh, wc = jw + tap % p.kw;
-      off = ((r + dt) % p.R) * p.slot_bytes +
-            (((wc & 1) * p.IH + dh) * p.IWh + (wc >> 1)) * p.S + ci;
+      const int dt = tap / (p.kh * p.kw), dh = (tap / p.kw) % p.kh, dw = tap % p.kw;
+      const int wc = jw + dw;
+      off = ((r + dt) % p.R) * p.slot_bytes + ci +
+            (p.planes ? (((wc & 1) * p.IH + dh) * p.IWh + (wc >> 1)) * p.S
+                      : (dh * p.IW + dw) * p.S);
     }
     s_off[i] = off;
   }
@@ -386,14 +439,10 @@ __global__ void __launch_bounds__(NT, 2) int8_conv_pool_kernel(const QParams p) 
         const int q = row < P ? row : 0;
         const int lbase[2] = {((2 * (q / p.PC)) * p.IWh + q % p.PC) * p.S,
                               ((2 * (q / p.PC) + 1) * p.IWh + q % p.PC) * p.S};
+        uint32_t bf[4][2], bn[4][2];  // this chunk's B fragments, the next one's
+        load_b(bf, wg, p.Kpad, 0);
         for (int kc = 0; kc < chunks; ++kc) {
-          uint32_t bf[4][2];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int8_t* wr = wg + (size_t)j * 8 * p.Kpad + kc * 32;
-            bf[j][0] = static_cast<uint32_t>(__ldg(reinterpret_cast<const int*>(wr)));
-            bf[j][1] = static_cast<uint32_t>(__ldg(reinterpret_cast<const int*>(wr + 16)));
-          }
+          load_b(bn, wg, p.Kpad, min(kc + 1, chunks - 1));
           const int o[2] = {off0[kc * 8 + 4 * half], off1[kc * 8 + 4 * half]};
 #pragma unroll
           for (int wdw = 0; wdw < 4; ++wdw) {
@@ -402,59 +451,60 @@ __global__ void __launch_bounds__(NT, 2) int8_conv_pool_kernel(const QParams p) 
 #pragma unroll
             for (int j = 0; j < 4; ++j) mma_s8(acc[wdw][j], a, bf[j][0], bf[j][1]);
           }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) bf[j][0] = bn[j][0], bf[j][1] = bn[j][1];
         }
       } else {
-        int base[2][2];  // [jh][row]: plane-0 byte of pre-pool row 2*ph + jh, column pair pw
+        // [window (jh, jw)][row]: the pre-pool position's byte (WORDS: in
+        // plane 0, its column pair's; the table adds the plane)
+        int base[4][2];
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int q = idx[r] < P ? idx[r] : 0;
           const int ph = q / p.PC, pw = q % p.PC;
 #pragma unroll
-          for (int jh = 0; jh < 2; ++jh) base[jh][r] = ((2 * ph + jh) * p.IWh + pw) * p.S;
-        }
-        for (int kc = 0; kc < chunks; ++kc) {
-          uint32_t bf[4][2];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int8_t* wr = wg + (size_t)j * 8 * p.Kpad + kc * 32;
-            bf[j][0] = static_cast<uint32_t>(__ldg(reinterpret_cast<const int*>(wr)));
-            bf[j][1] = static_cast<uint32_t>(__ldg(reinterpret_cast<const int*>(wr + 16)));
+          for (int wdw = 0; wdw < 4; ++wdw) {
+            const int jh = wdw >> 1, jw = wdw & 1;
+            base[wdw][r] = MODE == A_WORDS ? ((2 * ph + jh) * p.IWh + pw) * p.S
+                                           : ((2 * ph + jh) * p.IW + 2 * pw + jw) * p.S;
           }
+        }
+        uint32_t bf[4][2], bn[4][2];  // this chunk's B fragments, the next one's
+        load_b(bf, wg, p.Kpad, 0);
+        for (int kc = 0; kc < chunks; ++kc) {
+          load_b(bn, wg, p.Kpad, min(kc + 1, chunks - 1));
           if constexpr (MODE == A_WORDS) {
             const int o[2][2] = {{off0[kc * 8 + tq], off0[kc * 8 + tq + 4]},
                                  {off1[kc * 8 + tq], off1[kc * 8 + tq + 4]}};
 #pragma unroll
             for (int wdw = 0; wdw < 4; ++wdw) {
-              const int jh = wdw >> 1, jw = wdw & 1;
-              const uint32_t a[4] = {load4(ring + base[jh][0], o[jw][0]),
-                                     load4(ring + base[jh][1], o[jw][0]),
-                                     load4(ring + base[jh][0], o[jw][1]),
-                                     load4(ring + base[jh][1], o[jw][1])};
+              const int jw = wdw & 1;
+              const uint32_t a[4] = {load4(ring + base[wdw][0], o[jw][0]),
+                                     load4(ring + base[wdw][1], o[jw][0]),
+                                     load4(ring + base[wdw][0], o[jw][1]),
+                                     load4(ring + base[wdw][1], o[jw][1])};
 #pragma unroll
               for (int j = 0; j < 4; ++j) mma_s8(acc[wdw][j], a, bf[j][0], bf[j][1]);
             }
           } else {
+            int o0[4], o1[4];
 #pragma unroll
-            for (int jw = 0; jw < 2; ++jw) {
-              const int* tab = jw ? off1 : off0;
-              int o0[4], o1[4];
+            for (int i = 0; i < 4; ++i) {
+              o0[i] = off0[kc * 32 + tq * 4 + i];
+              o1[i] = off0[kc * 32 + 16 + tq * 4 + i];
+            }
 #pragma unroll
-              for (int i = 0; i < 4; ++i) {
-                o0[i] = tab[kc * 32 + tq * 4 + i];
-                o1[i] = tab[kc * 32 + 16 + tq * 4 + i];
-              }
+            for (int wdw = 0; wdw < 4; ++wdw) {
+              const uint32_t a[4] = {gather4(ring + base[wdw][0], o0),
+                                     gather4(ring + base[wdw][1], o0),
+                                     gather4(ring + base[wdw][0], o1),
+                                     gather4(ring + base[wdw][1], o1)};
 #pragma unroll
-              for (int jh = 0; jh < 2; ++jh) {
-                const uint32_t a[4] = {gather4(ring + base[jh][0], o0),
-                                       gather4(ring + base[jh][1], o0),
-                                       gather4(ring + base[jh][0], o1),
-                                       gather4(ring + base[jh][1], o1)};
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                  mma_s8(acc[2 * jh + jw][j], a, bf[j][0], bf[j][1]);
-              }
+              for (int j = 0; j < 4; ++j) mma_s8(acc[wdw][j], a, bf[j][0], bf[j][1]);
             }
           }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) bf[j][0] = bn[j][0], bf[j][1] = bn[j][1];
         }
       }
       epilogue(p, acc, idx, b, t, h2_0, w2_0, ng, tq);
@@ -529,7 +579,8 @@ extern "C" int avs_int8_conv_pool(
   if (e != cudaSuccess) return static_cast<int>(e);
   QParams p;
   p.x = x; p.w = w; p.scale = scale; p.bias = bias; p.out = out;
-  p.x_scale = x_scale; p.out_scale = out_scale; p.out_int8 = out_int8 != 0;
+  p.x_scale = x_scale; p.x_rcp = 1.0f / x_scale;
+  p.out_scale = out_scale; p.out_rcp = 1.0f / out_scale; p.out_int8 = out_int8 != 0;
   p.B = B; p.Cin = Cin; p.T = T; p.H = H; p.W = W; p.Cout = Cout;
   p.kt = kt; p.kh = kh; p.kw = kw; p.K = K; p.Kpad = Kpad; p.Npad = Npad;
   p.PR = tile_rows; p.PC = tile_cols;
@@ -538,6 +589,7 @@ extern "C" int avs_int8_conv_pool(
   p.F = frames; p.runs = (T + frames - 1) / frames;
   p.IH = 2 * tile_rows + kh - 1; p.IW = 2 * tile_cols + kw - 1; p.IWh = (p.IW + 1) / 2;
   p.S = pos_bytes; p.R = kt + 1; p.slot_bytes = slot_bytes(p.IH, p.IW, pos_bytes);
+  p.planes = words;
   p.n_off = offset_entries(words, Kpad); p.off_bytes = table_bytes(words, Kpad, kt);
   p.x_sb = x_sb; p.x_sc = x_sc; p.x_st = x_st; p.x_sh = x_sh; p.x_sw = x_sw;
   // channels-last, 16-byte aligned, whole 16-byte groups: vector staging
@@ -547,6 +599,9 @@ extern "C" int avs_int8_conv_pool(
                       x_st % vec == 0 && x_sh % vec == 0 && x_sw % vec == 0;
   p.stage = x_int8 ? (vector ? STAGE_S8X16 : STAGE_S8) : (vector ? STAGE_F32X4 : STAGE_F32);
   p.o_sb = o_sb; p.o_sc = o_sc; p.o_st = o_st; p.o_sh = o_sh; p.o_sw = o_sw;
+  p.out_pairs = o_sc == 1 && Cout % 2 == 0 && o_sb % 2 == 0 && o_st % 2 == 0 &&
+                o_sh % 2 == 0 && o_sw % 2 == 0 &&
+                reinterpret_cast<uintptr_t>(out) % (out_int8 ? 2 : 8) == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   e = Cin % 16 == 0 ? launch<A_LDSM>(p, device, s)
       : words       ? launch<A_WORDS>(p, device, s)

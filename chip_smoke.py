@@ -104,14 +104,18 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      events); f. `cli test --beam 4` and `--beam 0` on phase 5's corpus and
      checkpoint (--beam 0 repeats phase 5's results);
   11. int8 serving: a. Q1 int8_conv_pool against its plain version, equal
-     bit for bit (torch.equal), at LipNet's three conv blocks at full width
-     (B = 1, 8, 32) and at odd geometries (Cin = 1, 3, 12, 64; odd H or W; a
-     pooled row wider than any tile; exact-half ties; the largest
-     accumulators), a repeat launch equal too; b. kernel, plain, library
-     (im2col gather + `torch._int_mm` + the same dequant, ReLU and pool,
-     held equal to Q1) and f32 cuDNN times per block at B=8 (CUDA events)
-     and the bound (int8 operations over 1,979 TOPS or bytes over 3.35
-     TB/s); c. `cli quantize` on phase 5's corpus and checkpoint, `cli test
+     bit for bit (torch.equal), in each of its contracts (f32 or int8 in,
+     f32 or int8 out), at LipNet's three conv blocks at full width (B = 1,
+     8, 32: the frames per CTA differ) and at odd geometries (Cin = 1, 3,
+     12, 16, 48, 64; odd H or W; a pooled row wider than any tile; T below
+     the kernel's depth; exact-half ties; the largest accumulators), a
+     repeat launch equal too; b. kernel, plain, library (im2col gather +
+     `torch._int_mm` + the same dequant, ReLU and pool, held equal to Q1)
+     and f32 cuDNN times per block at B=8 (CUDA events), each block in the
+     contract the int8 forward gives it (conv1 f32 -> int8, conv2 int8 ->
+     int8, conv3 int8 -> f32) beside its f32-contract time, and the bounds
+     (int8 operations over 1,979 TOPS or the bytes the contract moves over
+     3.35 TB/s); c. `cli quantize` on phase 5's corpus and checkpoint, `cli test
      --quantize int8` beside phase 5's f32 results, `cli infer --quantize
      int8` against a fresh int8 reader; d. `cli serve --quantize int8
      --qscales --warmup` (phase 10's weights, scales from `cli quantize`) as a
@@ -121,7 +125,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      daemon: per batch Q1 three times, K2 twice, K1 and the backward kernels
      never; e. the full-width int8 forward against the f32 forward at B=8
      within the JAX package's bounds (mean |d log-prob| < 0.05, argmax
-     agreement >= 0.95), and both forwards' times;
+     agreement >= 0.95), equal bit for bit to the same forward through
+     three f32-contract launches (no int8 hand-off), both forwards' times,
+     and a profiler trace of one int8 forward: Q1 three times, K2 twice, no
+     other convolution and no separate quantize kernel;
   12. the kernels: a text line with the state of every TPU kernel of the
      JAX package (and Q1), and one JSON line with the measured numbers
      (launches from the training slices, the serving slices', the daemons'
@@ -2200,7 +2207,9 @@ def q1_case(g, dev, B, cin, cout, T, H, W, k, mode="random"):
     """(QuantConvParams, x) on the card, as tests/test_torch_kernels_cuda.py's:
     'random' x around 0.3 with negative values, random int8 weights and
     scales, x_scale = absmax/127; 'ties' x in quarters with x_scale 0.5
-    (exact halves to round, values past the clip); 'extreme' the largest
+    (exact halves to round, values past the clip); 'near_ties' x at (k +
+    0.5) * x_scale with x_scale 1/3 (quotients within an ulp or two of a
+    half: the quantizer's exact fallback); 'extreme' the largest
     accumulators (every x at +127 steps, every weight 127)."""
     import torch
 
@@ -2212,6 +2221,9 @@ def q1_case(g, dev, B, cin, cout, T, H, W, k, mode="random"):
     if mode == "ties":
         x = torch.randint(-300, 301, (B, cin, T, H, W), generator=g).float() / 4
         xs = 0.5
+    elif mode == "near_ties":  # x / x_scale within an ulp or two of k + 0.5
+        xs = float(torch.tensor(1 / 3))
+        x = (torch.randint(-130, 130, (B, cin, T, H, W), generator=g) + 0.5).float() * xs
     elif mode == "extreme":
         kq.fill_(127)
         xs = 0.01
@@ -2309,6 +2321,8 @@ def check_int8_conv_pool(dev, smi):
               (2, 32, 64, 2, 25, 50, (3, 5, 5), "random"), (1, 16, 24, 1, 10, 14, (3, 3, 3), "random"),
               (2, 48, 20, 6, 11, 17, (3, 3, 3), "random"),
               (2, 32, 64, 3, 25, 50, (3, 5, 5), "ties"), (1, 1, 32, 3, 50, 100, (3, 5, 5), "ties"),
+              (2, 32, 64, 3, 25, 50, (3, 5, 5), "near_ties"),
+              (1, 1, 32, 3, 50, 100, (3, 5, 5), "near_ties"),
               (1, 32, 64, 3, 25, 50, (3, 5, 5), "extreme")]
     for B, cin, cout, T, H, W, k, mode in cases:
         qc, x32 = q1_case(g, dev, B, cin, cout, T, H, W, k, mode)

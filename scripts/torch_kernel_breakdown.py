@@ -34,10 +34,15 @@ Mode `q1` (the int8 conv + dequant + ReLU + pool block of int8 serving):
   * builds int8_conv_pool.cu and variants with one part cut out (no MMA
     task loop: the halo staging alone; no staging: the MMA loop over
     whatever shared memory holds; both cut: the launch and the offset
-    table), and, with `--parent DIR`, the int8_conv_pool.cu of DIR (commit
+    tables; every chunk's B fragments read from chunk 0, so from L1: what
+    the weights' traffic costs; the quantizer without its exact fallback),
+    and, with `--parent DIR`, the int8_conv_pool.cu of DIR (commit
     78af03d's design: f32 in and out, one frame per CTA, its own C
     interface; `--parent` is optional in this mode); prints ptxas' register
     report for each;
+  * sweeps the frames per CTA (every block at B=8, conv2 also at B = 1 and
+    32) and the tile (conv2, conv3) in profiler device time, the wrapper's
+    choice beside;
   * times each at LipNet's three blocks at B=8, T=75 in the contracts and
     layouts the int8 forward gives them (conv1 f32 NCDHW in, int8 out;
     conv2 int8 in and out; conv3 int8 in, f32 out; channels-last between
@@ -225,7 +230,8 @@ def build_variants(specs):
         fn = getattr(ctypes.CDLL(str(so)), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        regs = [ln.strip() for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln or "Function properties" in ln]
         out[name] = (fn, regs)
     return out
 
@@ -602,8 +608,14 @@ Q1_NO_STAGING = [  # the ring's fills: cp.async, the register prefetch, the rest
      "                           int w0, int first) {\n  return;\n"),
     ("                            int w0) {\n", "                            int w0) {\n  return;\n"),
     ("if (more && scalar) {", "if (false) {")]
+# every chunk's B fragments from chunk 0 (L1 hits): what the weights' traffic costs
+# the quantizer's exact fallback (a division near half-integers) never
+# taken: what its check costs
+Q1_MUL = ("d > 1e-4f ? rintf(y) : rintf(__fdiv_rn(v, s))", "rintf(y)")
+Q1_B_ONE_CHUNK = ("load_b(bn, wg, p.Kpad, min(kc + 1, chunks - 1));", "load_b(bn, wg, p.Kpad, 0);")
 Q1_VARIANTS = {"q1_full": [], "q1_staging_only": [Q1_NO_MMA],
-               "q1_compute_only": Q1_NO_STAGING, "q1_launch_only": [Q1_NO_MMA, *Q1_NO_STAGING]}
+               "q1_compute_only": Q1_NO_STAGING, "q1_launch_only": [Q1_NO_MMA, *Q1_NO_STAGING],
+               "q1_b_one_chunk": [Q1_B_ONE_CHUNK], "q1_quantize_no_fallback": [Q1_MUL]}
 # frames per CTA timed at B=8 (and conv2 at B = 1 and 32): the wrapper's
 # `frames_for` choice against the others
 Q1_FRAMES = (1, 2, 3, 4, 6, 8, 13, 19, 25, 38, 75)

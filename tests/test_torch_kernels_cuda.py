@@ -585,7 +585,9 @@ def q1_case(g, dev, B, cin, cout, T, H, W, k, mode="random"):
     """(QuantConvParams, x) on the card. 'random': x around 0.3 with negative
     values, random int8 weights and per-channel scales, x_scale = absmax/127;
     'ties': x_scale 0.5 and x in quarters, so x / x_scale hits exact halves
-    (round half to even) and the clip; 'extreme': every x at +127 steps and
+    (round half to even) and the clip; 'near_ties': x_scale 1/3 and x at
+    (k + 0.5) * x_scale, so x / x_scale falls within an ulp or two of a half
+    (the quantizer's exact fallback); 'extreme': every x at +127 steps and
     every weight 127, the largest |acc| the block can reach."""
     from avsync_torch.ops.quant import quant_conv_params
 
@@ -595,6 +597,9 @@ def q1_case(g, dev, B, cin, cout, T, H, W, k, mode="random"):
     if mode == "ties":
         x = torch.randint(-300, 301, (B, cin, T, H, W), generator=g).float() / 4
         xs = 0.5
+    elif mode == "near_ties":  # x / x_scale within an ulp or two of k + 0.5
+        xs = float(torch.tensor(1 / 3))
+        x = (torch.randint(-130, 130, (B, cin, T, H, W), generator=g) + 0.5).float() * xs
     elif mode == "extreme":
         kq.fill_(127)
         xs = 0.01
@@ -626,7 +631,8 @@ Q1_CASES = [
     (2, 32, 64, 2, 25, 50, (3, 5, 5), "random"), (1, 16, 24, 1, 10, 14, (3, 3, 3), "random"),
     (2, 48, 20, 6, 11, 17, (3, 3, 3), "random"),
     (2, 32, 64, 3, 25, 50, (3, 5, 5), "ties"), (1, 32, 64, 3, 25, 50, (3, 5, 5), "extreme"),
-    (1, 1, 32, 3, 50, 100, (3, 5, 5), "ties"),
+    (1, 1, 32, 3, 50, 100, (3, 5, 5), "ties"), (2, 32, 64, 3, 25, 50, (3, 5, 5), "near_ties"),
+    (1, 1, 32, 3, 50, 100, (3, 5, 5), "near_ties"),
 ]
 # (input dtype, output dtype) of the operator's contracts
 CONTRACTS = ["f32_f32", "f32_s8", "s8_s8", "s8_f32"]
@@ -725,7 +731,7 @@ def calibrated_chain(g, dev, x):
     return qcs
 
 
-def test_int8_chain_replayed_from_a_cuda_graph_equals_eager(dev):
+def test_int8_conv_pool_replayed_from_a_cuda_graph_equals_eager(dev):
     """LipNet's three blocks with the int8 hand-off, captured once and
     replayed on new inputs copied into the captured one: the same bits as
     eager launches, and as three f32-contract launches; replays pass
