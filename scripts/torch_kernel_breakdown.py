@@ -52,7 +52,8 @@ Mode `q1` (the int8 conv + dequant + ReLU + pool block of int8 serving):
     equals the plain version bit for bit; then the whole chain;
   * with `--parent`, the whole chain against the parent's (three
     f32-contract launches through its C interface, its wrapper's tiles) in
-    turns (parent, current, current, parent), after checking that both give
+    turns (parent, current, current, parent) at B = 8 and at the smaller
+    batches a serving daemon forms (1, 2, 4), after checking that both give
     the same bits.
 
 Mode `lipnet`:
@@ -741,7 +742,7 @@ def q1_breakdown(parent, dev):
         h = want
     out["blocks_B8"] = blocks
 
-    def chain():
+    def chain(x=x):
         h = x
         for n in names:
             h = quant_conv_block(qcs[n], h, scales[n])
@@ -753,7 +754,7 @@ def q1_breakdown(parent, dev):
         pfn = fns["q1_parent"][0]
         stream = torch.cuda.current_stream(dev).cuda_stream
 
-        def parent_chain():  # three f32-contract launches, as the parent's wrapper
+        def parent_chain(x=x):  # three f32-contract launches, as the parent's wrapper
             h = x
             for n in names:
                 qc = qcs[n]
@@ -778,6 +779,20 @@ def q1_breakdown(parent, dev):
             "device_ms": {"parent": sum(device_ms(parent_chain).values()),
                           "current": sum(device_ms(chain).values())}}
         print(f"chain vs parent: {json.dumps(out['chain_vs_parent'])}", flush=True)
+        # the batch sizes a daemon with max_batch 8 forms
+        small = {}
+        for Bs in (1, 2, 4):
+            xs = x[:Bs]
+            pc, cc = (lambda xs=xs: parent_chain(xs)), (lambda xs=xs: chain(xs))
+            row = {"equal_bit_for_bit": bool(torch.equal(pc(), cc())),
+                   "turns_event_ms": {"parent": [], "current": []}}
+            for side in ("parent", "current", "current", "parent"):
+                row["turns_event_ms"][side].append(time_ms(pc if side == "parent" else cc))
+            row["device_ms"] = {"parent": sum(device_ms(pc).values()),
+                                "current": sum(device_ms(cc).values())}
+            small[f"B{Bs}"] = row
+        out["chain_vs_parent_small_batches"] = small
+        print(f"chain vs parent at B = 1, 2, 4: {json.dumps(small)}", flush=True)
     return out
 
 
