@@ -4,7 +4,8 @@ quantize, export, serve, misalign-train, misalign-eval).
     python -m avsync_torch.cli train --data_path data --epochs 50 --export_pth lipnet.pth
     python -m avsync_torch.cli test --data_path data --checkpoint lipnet.pth [--beam 4]
         [--quantize int8]
-    python -m avsync_torch.cli infer clip.npy --checkpoint lipnet.pth [--beam 4] [--quantize int8]
+    python -m avsync_torch.cli infer clip.mpg --checkpoint lipnet.pth [--roi_mode variance]
+        [--beam 4] [--quantize int8]
     python -m avsync_torch.cli quantize --data_path data --checkpoint lipnet.pth --out qscales.npz
     python -m avsync_torch.cli export --checkpoint lipnet.pth --batch_sizes 1,2,4,8
     python -m avsync_torch.cli serve --checkpoint lipnet.pth --detector_checkpoint det.pth
@@ -52,25 +53,53 @@ def _config_from_args(args) -> AvsyncConfig:
         v = getattr(args, name, None)
         return fallback if v is None else v
 
-    return dataclasses.replace(
+    return _with_common_flags(dataclasses.replace(
         base,
         data=dataclasses.replace(base.data, data_path=args.data_path,
                                  batch_size=arg("batch_size", base.data.batch_size),
                                  device_cache=arg("device_cache", base.data.device_cache)),
-        model=dataclasses.replace(base.model,
-                                  compute_dtype=arg("compute_dtype", base.model.compute_dtype),
-                                  packed_conv=arg("packed_conv", base.model.packed_conv)),
         train=dataclasses.replace(
             base.train, epochs=arg("epochs", base.train.epochs),
             learning_rate=arg("lr", base.train.learning_rate),
             seed=arg("seed", base.train.seed),
             checkpoint_dir=arg("checkpoint_dir", base.train.checkpoint_dir),
             quick_test=bool(getattr(args, "quick_test", False)) or base.train.quick_test,
-            remat=arg("remat", base.train.remat),
             log_dir=arg("log_dir", base.train.log_dir),
             checkpoint_every=arg("checkpoint_every", base.train.checkpoint_every),
             tensorboard=arg("tensorboard", base.train.tensorboard)),
-    )
+    ), args)
+
+
+def _with_common_flags(cfg: AvsyncConfig, args) -> AvsyncConfig:
+    """The common flags of every command over a config: --roi_mode,
+    --roi_host and the perf flags --compute_dtype, --packed_conv and --remat
+    (an explicit flag wins over the config file)."""
+    def arg(name, fallback):
+        v = getattr(args, name, None)
+        return fallback if v is None else v
+
+    return dataclasses.replace(
+        cfg,
+        data=dataclasses.replace(cfg.data, roi_mode=arg("roi_mode", cfg.data.roi_mode),
+                                 roi_host=arg("roi_host", cfg.data.roi_host)),
+        model=dataclasses.replace(cfg.model,
+                                  compute_dtype=arg("compute_dtype", cfg.model.compute_dtype),
+                                  packed_conv=arg("packed_conv", cfg.model.packed_conv)),
+        train=dataclasses.replace(cfg.train, remat=arg("remat", cfg.train.remat)))
+
+
+def _refuse_unported(args) -> None:
+    """The common flags' values the port does not run yet raise, naming
+    their ROADMAP item, before any work."""
+    if getattr(args, "model_family", None) == "tf":
+        raise NotImplementedError("--model_family tf: the TF-family LipNet is not ported yet "
+                                  "(ROADMAP §1 item 7)")
+    if getattr(args, "distributed", False):
+        raise NotImplementedError("--distributed: multi-device and multi-host runs are not "
+                                  "ported yet (ROADMAP §1 item 8)")
+    if getattr(args, "compute_dtype", None) == "bfloat16":
+        raise NotImplementedError("--compute_dtype bfloat16: the port computes in float32 "
+                                  "only (ROADMAP §1 item 9)")
 
 
 def _no_tf32() -> None:
@@ -270,7 +299,8 @@ def cmd_infer(args) -> int:
     from avsync_torch.text import decode_batch, parse_align_text
 
     # an int8 reader calibrates lazily on its first input: this clip
-    reader = LipReader(checkpoint=args.checkpoint, config=_config(args.config),
+    reader = LipReader(checkpoint=args.checkpoint,
+                       config=_with_common_flags(_config(args.config), args),
                        device=args.device, quantize=args.quantize)
     log_probs = reader._logprobs(reader._prepare(reader._load(args.video)))
     pred = decode_batch(log_probs, beam_width=args.beam)[0]
@@ -332,9 +362,10 @@ def _serving_config(args) -> AvsyncConfig:
     serving paths on (K1 `fused_conv_pool`, K2 `use_pallas_gru`, K5
     `AudioConfig.use_pallas`)."""
     if args.config:
-        return _config(args.config)
-    return AvsyncConfig(model=ModelConfig(use_pallas_gru=True, fused_conv_pool=True),
-                        audio=AudioConfig(use_pallas=True))
+        return _with_common_flags(_config(args.config), args)
+    return _with_common_flags(AvsyncConfig(
+        model=ModelConfig(use_pallas_gru=True, fused_conv_pool=True),
+        audio=AudioConfig(use_pallas=True)), args)
 
 
 def cmd_export(args) -> int:
@@ -485,7 +516,7 @@ def _detector_config_from_args(args) -> AvsyncConfig:
         return fallback if v is None else v
 
     det = base.detector
-    return dataclasses.replace(
+    return _with_common_flags(dataclasses.replace(
         base,
         data=dataclasses.replace(base.data, data_path=args.data_path,
                                  batch_size=arg("batch_size", base.data.batch_size)),
@@ -499,7 +530,7 @@ def _detector_config_from_args(args) -> AvsyncConfig:
             batch_size=arg("batch_size", det.batch_size), epochs=arg("epochs", det.epochs),
             lr=arg("lr", det.lr), weight_decay=arg("weight_decay", det.weight_decay)),
         train=dataclasses.replace(base.train, seed=arg("seed", base.train.seed)),
-    )
+    ), args)
 
 
 def _bank_cache_path(cfg: AvsyncConfig, video_paths, checkpoint, cache_dir):
@@ -760,6 +791,31 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--batch_size", type=int, default=None)
         sp.add_argument("--device", default=None,
                         help="torch device; default: the GPU (fails without one)")
+        sp.add_argument("--model_family", choices=["pytorch", "tf"], default=None,
+                        help="model stack: pytorch (Conv3D+BiGRU, the default); tf is not "
+                             "ported yet and raises NotImplementedError")
+        sp.add_argument("--roi_mode", choices=["heuristic", "detector", "variance", "model"],
+                        default=None,
+                        help="mouth ROI of native-size frames: fixed fractions / host cascade "
+                             "/ temporal-variance box on the device / learned localizer on the "
+                             "device (its box falls back to the heuristic crop when it "
+                             "captures below-average motion)")
+        sp.add_argument("--roi_host", action=argparse.BooleanOptionalAction, default=None,
+                        help="run the ROI crop on the host CPU and ship uint8 crops to the "
+                             "device (16x fewer bytes than 288x360 frames); the same program "
+                             "as the device path")
+        sp.add_argument("--distributed", action="store_true",
+                        help="join a multi-host run; not ported yet (raises "
+                             "NotImplementedError)")
+        sp.add_argument("--compute_dtype", choices=["float32", "bfloat16"], default=None,
+                        help="conv/GRU compute dtype; the port computes in float32 only "
+                             "(bfloat16 raises NotImplementedError)")
+        sp.add_argument("--packed_conv", action=argparse.BooleanOptionalAction, default=None,
+                        help="the JAX package's lane-packed conv form; the port computes the "
+                             "same convolutions either way")
+        sp.add_argument("--remat", action=argparse.BooleanOptionalAction, default=None,
+                        help="recompute each conv block and BiGRU layer in the backward "
+                             "(less activation memory, the same numbers)")
 
     t = sub.add_parser("train", help="LipNet CTC training")
     common(t)
@@ -793,15 +849,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="keep the preprocessed corpus in device memory from epoch 2 on "
                         "('auto', the default, when it fits the budget; 'on' from epoch "
                         "1); a fully cached epoch then runs as one CUDA-graph program")
-    t.add_argument("--compute_dtype", choices=["float32", "bfloat16"], default=None,
-                   help="conv/GRU compute dtype; the port computes in float32 only "
-                        "(bfloat16 raises NotImplementedError)")
-    t.add_argument("--packed_conv", action=argparse.BooleanOptionalAction, default=None,
-                   help="the JAX package's lane-packed conv form; the port computes the "
-                        "same convolutions either way")
-    t.add_argument("--remat", action=argparse.BooleanOptionalAction, default=None,
-                   help="recompute each conv block and BiGRU layer in the backward "
-                        "(less activation memory, the same numbers)")
     t.set_defaults(func=cmd_train)
 
     te = sub.add_parser("test", help="evaluate CER/WER on the test split")
@@ -816,12 +863,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "eval batch)")
     te.set_defaults(func=cmd_test)
 
-    inf = sub.add_parser("infer", help="transcribe one .npy clip")
-    inf.add_argument("video", help="(T, H, W) .npy clip, native size or 50x100 crops")
+    inf = sub.add_parser("infer", help="transcribe one clip")
+    common(inf)
+    inf.add_argument("video", help="a container file (GRID's .mpg, .mp4, .avi) or a (T, H, W) "
+                                   ".npy clip, native size or 50x100 crops")
     inf.add_argument("--checkpoint", required=True, help="reference LipNet .pth")
-    inf.add_argument("--config", default=None, help="AvsyncConfig JSON file")
-    inf.add_argument("--device", default=None,
-                     help="torch device; default: the GPU (fails without one)")
     inf.add_argument("--beam", type=int, default=0,
                      help="CTC beam width (0 = greedy, the reference decode)")
     inf.add_argument("--quantize", choices=["int8"], default=None,
@@ -928,6 +974,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    _refuse_unported(args)
     return args.func(args)
 
 

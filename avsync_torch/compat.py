@@ -28,6 +28,10 @@ The misalignment detector crosses the same way (`detector_params_from_jax`
 package orders (H, W, C) and the reference and the port (C, H, W), so fc1's
 mean and std column blocks are permuted; a reference detector `.pth`
 (`load_detector_pth` / `save_detector_pth`) needs no permutation.
+
+`localizer_params_from_jax` carries the mouth localizer's Flax params (the
+bundle's flat `conv1/kernel`, ... arrays, or the nested tree): conv kernels
+HWIO -> OIHW, Dense kernels (in, out) -> Linear weights (out, in).
 """
 
 from __future__ import annotations
@@ -106,6 +110,28 @@ def lipnet_params_from_jax(
         k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
         for k, v in sd.items()
     }
+
+
+def localizer_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The localizer's JAX params, flat ("conv1/kernel") or nested
+    ({"conv1": {"kernel"}}), -> the port's float32 `MouthLocalizer` state
+    dict."""
+    flat: Dict[str, Any] = {}
+    for key, value in params.items():
+        if isinstance(value, Mapping):
+            flat.update({f"{key}/{k}": v for k, v in value.items()})
+        else:
+            flat[key] = value
+    sd = {}
+    for key, value in flat.items():
+        layer, kind = key.split("/")
+        a = np.asarray(value)
+        if kind == "kernel":
+            sd[f"{layer}.weight"] = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+        else:
+            sd[f"{layer}.bias"] = a
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in sd.items()}
 
 
 def lipnet_params_to_jax(

@@ -3,12 +3,18 @@
 
 Streamed epochs (`device_cache="off"`, and the first epoch under "auto"):
 
-  * the host only decodes `.npy` clips to (T, H, W) uint8 on
-    `DataConfig.loader_threads` threads and pads them to max_video_length;
+  * the host only decodes clips (`.npy`, or containers through the libav
+    ingest) to (T, H, W) uint8 on `DataConfig.loader_threads` threads and
+    pads them to max_video_length;
   * a background thread prefetches batches, so decode overlaps device steps;
   * the uint8 frames are uploaded as they are (4x fewer bytes than float32)
     and preprocessed on the device by `predictor.preprocess`: /255 for
-    pre-cropped clips, the heuristic mouth crop + resize for native frames.
+    pre-cropped clips, for native frames the ROI program of
+    `DataConfig.roi_mode` (`make_roi_crop_fn`: the heuristic crop, the
+    variance box or the localizer's box), or under 'detector' the crop of
+    the host cascade's per-frame boxes;
+  * under `DataConfig.roi_host` the ROI program runs on the host CPU instead
+    and the crops, rounded to uint8, are what crosses to the device.
 
 Same order and contents as the JAX package's `LipNetBatcher`:
 `np.random.default_rng(seed).shuffle` of the sample indices, `drop_last`,
@@ -33,6 +39,7 @@ programs.
 
 from __future__ import annotations
 
+import copy
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -44,7 +51,9 @@ import torch
 from avsync_torch.config import AvsyncConfig
 from avsync_torch.data.grid import GridDataSource
 from avsync_torch.data.video import decode_video_gray
-from avsync_torch.predictor import preprocess, resolve_device
+from avsync_torch.ops import image as imglib
+from avsync_torch.predictor import (load_localizer, load_mouth_detector, preprocess,
+                                    resolve_device)
 
 
 def prefetch(iterator: Iterable, size: int = 2) -> Iterator:
@@ -103,6 +112,58 @@ def prefetch(iterator: Iterable, size: int = 2) -> Iterator:
         t.join(timeout=5.0)
 
 
+def make_roi_crop_fn(d, roi_mode: str, localizer=None):
+    """The ROI program: full frames (B, T, H, W) uint8/float -> (B, T, h, w,
+    1) float32 in [0, 1], on the frames' device. The one definition, shared
+    by the device preprocess and the host crop of `roi_host`: 'variance'
+    crops one temporal-variance box per clip, 'model' with a localizer its
+    box gated against the heuristic fractions, anything else (also 'model'
+    without one) the heuristic crop. The returned `run(x, coords=None)`
+    takes the resize coordinates its mode uses (`roi_coords`), made per
+    call when not given."""
+    target = (d.img_height, d.img_width)
+
+    def box_crop(xf, boxes):  # one box per clip, over all its frames
+        per_frame = boxes[:, None, :].expand(xf.shape[0], xf.shape[1], 4)
+        return (imglib.crop_resize_boxes(xf, per_frame, target) * (1.0 / 255.0))[..., None]
+
+    if roi_mode == "variance":
+        def run(x, coords=None):
+            xf = x.float()
+            return box_crop(xf, imglib.variance_mouth_boxes(xf))
+    elif roi_mode == "model" and localizer is not None:
+        from avsync_torch.models.localizer import gate_boxes, localize_clip_boxes
+
+        heur = (d.mouth_crop[0], 1.0, d.mouth_crop[1], d.mouth_crop[2])
+
+        def run(x, coords=None):
+            xf = x.float()
+            # a box that captures below-average motion takes the heuristic
+            # crop for that clip (the weights are trained on synthetic clips)
+            boxes = gate_boxes(xf, localize_clip_boxes(localizer, xf, coords),
+                               torch.tensor(heur, dtype=torch.float32, device=xf.device))
+            return box_crop(xf, boxes)
+    else:
+        def run(x, coords=None):
+            return imglib.preprocess_clips(x, out_hw=target, crop=d.mouth_crop, coords=coords)
+    return run
+
+
+def roi_coords(d, roi_mode: str, frame_hw, localizer=None, device=None):
+    """The resize coordinates `make_roi_crop_fn(d, roi_mode, localizer)`
+    uses on frames of `frame_hw` (an exported program holds them as
+    buffers): the heuristic crop's resize, the localizer's resize to its
+    input, or None for 'variance'."""
+    if roi_mode == "variance":
+        return None
+    if roi_mode == "model" and localizer is not None:
+        from avsync_torch.models.localizer import NET_HW
+
+        return imglib.resize_coords(tuple(frame_hw), NET_HW, device)
+    return imglib.resize_coords(imglib.crop_hw(tuple(frame_hw), d.mouth_crop),
+                                (d.img_height, d.img_width), device)
+
+
 class LipNetBatcher:
     """Epoch iterators of batches for LipNetTrainer:
     {'video': (B, T, h, w, 1) float32 on the device, 'labels': (B, L) int32,
@@ -114,6 +175,11 @@ class LipNetBatcher:
         self.device = resolve_device(device)
         self._device_cache: Optional[Dict] = None
         self._epoch_calls = 0
+        # the ROI state, loaded once: the host cascade ('detector') or the
+        # localizer ('model'; None with a warning when its bundle is missing)
+        self._detector = load_mouth_detector(config)
+        self._localizer = load_localizer(config, self.device)
+        self._host_roi_fn = None  # the ROI program on the CPU (roi_host)
         if config.data.device_cache != "off":
             # fail now on an invalid dtype: under 'auto' the cache is built
             # only at the second epoch() call, after a whole epoch of work
@@ -130,23 +196,43 @@ class LipNetBatcher:
             frames = np.concatenate([frames, pad], axis=0)
         return frames
 
-    def _preprocess(self, raw: torch.Tensor) -> torch.Tensor:
-        """`predictor.preprocess` of a raw batch on the device. The JAX
-        package crops native-size frames on the host and rounds the crops to
-        uint8 under `DataConfig.roi_host` (avsync/data/pipeline.py:239-280),
-        which changes the values: the port raises there instead of cropping
-        on the device. Pre-cropped clips take no crop, so the flag changes
-        nothing for them, in both packages."""
+    def _host_roi(self, raw: np.ndarray) -> np.ndarray:
+        """The ROI program (`make_roi_crop_fn`) on the host CPU, rounded to
+        uint8 crops (B, T, h, w): under `roi_host` only crops cross to the
+        device, 16x fewer bytes than 288x360 frames. torch.round rounds
+        half to even, as jnp.round does."""
+        if self._host_roi_fn is None:
+            d = self.cfg.data
+            loc = None if self._localizer is None else copy.deepcopy(self._localizer).cpu()
+            self._host_roi_fn = make_roi_crop_fn(d, d.roi_mode, loc)
+        with torch.inference_mode():
+            out = self._host_roi_fn(torch.from_numpy(raw))[..., 0]
+            return torch.round(out * 255.0).clamp(0.0, 255.0).to(torch.uint8).numpy()
+
+    def _host_rows(self, raws: np.ndarray):
+        """Host work on decoded native frames before the upload: (frames or,
+        under `roi_host`, uint8 crops; the cascade's (B, T, 4) boxes under
+        'detector', else None). Pre-cropped clips pass as they are."""
         d = self.cfg.data
-        if d.roi_host and tuple(raw.shape[2:]) != (d.img_height, d.img_width):
-            raise NotImplementedError(
-                "roi_host=True: the host ROI crop of native-size frames is not ported "
-                "(ROADMAP §1 item 6)")
-        return preprocess(raw, self.cfg)
+        if tuple(raws.shape[2:]) == (d.img_height, d.img_width):
+            return raws, None
+        if self._detector is not None:  # its crop stays on the device
+            return raws, np.stack([self._detector.detect_clip(r) for r in raws])
+        if d.roi_host:
+            return self._host_roi(raws), None
+        return raws, None
+
+    def _preprocess(self, raw: torch.Tensor, boxes: Optional[np.ndarray] = None) -> torch.Tensor:
+        """`predictor.preprocess` of a raw batch on the device, with the
+        host cascade's boxes where there are any."""
+        if boxes is not None:
+            boxes = torch.from_numpy(boxes).to(self.device)
+        return preprocess(raw, self.cfg, boxes=boxes, localizer=self._localizer)
 
     def _raw_batches(self, batch_size: Optional[int], shuffle: bool, seed: int,
                      drop_last: bool, prefetch_size: int) -> Iterator[Dict]:
-        """Prefetched host batches: {'raw' uint8 (B, T, H, W), 'labels',
+        """Prefetched host batches: {'raw' uint8 (B, T, H, W) (crops under
+        roi_host), 'boxes' (detector mode) or None, 'labels',
         'label_lengths', 'valid'}."""
         d = self.cfg.data
         B = batch_size or d.batch_size
@@ -165,12 +251,12 @@ class LipNetBatcher:
                         if drop_last:
                             return
                         idx = np.concatenate([idx, np.zeros(B - valid, np.int64)])
-                    raws = np.stack(list(pool.map(
-                        lambda j: self._decode_clip(self.source.samples[j].video_path), idx)))
+                    raws, boxes = self._host_rows(np.stack(list(pool.map(
+                        lambda j: self._decode_clip(self.source.samples[j].video_path), idx))))
                     labels, lengths = self.source.labels_batch(
                         list(idx), d.max_label_length, vocab=self.cfg.model.family)
-                    yield {"raw": raws, "labels": labels, "label_lengths": lengths,
-                           "valid": valid}
+                    yield {"raw": raws, "boxes": boxes, "labels": labels,
+                           "label_lengths": lengths, "valid": valid}
             finally:
                 pool.shutdown(wait=False)
 
@@ -183,7 +269,7 @@ class LipNetBatcher:
         try:
             for hb in gen:
                 raw = torch.from_numpy(hb["raw"]).to(self.device)
-                yield {"video": self._preprocess(raw), "labels": hb["labels"],
+                yield {"video": self._preprocess(raw, hb["boxes"]), "labels": hb["labels"],
                        "label_lengths": hb["label_lengths"], "valid": hb["valid"]}
         finally:
             gen.close()  # stop the prefetch worker and the decode pool now
@@ -401,14 +487,16 @@ class LipNetBatcher:
             try:
                 for idx, valid in batch_rows():
                     miss = np.where(idx >= n_cached)[0]
-                    raw = None
+                    raw = boxes = None
                     if miss.size:
                         decoded = list(pool.map(
                             lambda j: self._decode_clip(self.source.samples[j].video_path),
                             idx[miss]))
                         raw = np.zeros((cap_of(miss.size),) + decoded[0].shape, np.uint8)
                         raw[:miss.size] = np.stack(decoded)
-                    yield {"idx": idx, "miss": miss, "raw": raw, "valid": valid}
+                        raw, boxes = self._host_rows(raw)  # as the streamed path
+                    yield {"idx": idx, "miss": miss, "raw": raw, "boxes": boxes,
+                           "valid": valid}
             finally:
                 pool.shutdown(wait=False)
 
@@ -420,7 +508,8 @@ class LipNetBatcher:
                 safe = np.where(idx < n_cached, idx, 0)
                 video = self.gather(torch.from_numpy(safe).long().to(self.device))
                 if hb["raw"] is not None:
-                    streamed = self._preprocess(torch.from_numpy(hb["raw"]).to(self.device))
+                    streamed = self._preprocess(torch.from_numpy(hb["raw"]).to(self.device),
+                                                hb["boxes"])
                     rows = torch.from_numpy(miss).long().to(self.device)
                     video = video.index_copy(0, rows, streamed[:miss.size])
                 yield out(idx, hb["valid"], video)

@@ -1,10 +1,11 @@
-"""Host-side clip and audio decode (port of the `.npy` branch and the WAV
-reader/writer of `avsync/data/video.py`).
+"""Host-side clip and audio decode (port of `avsync/data/video.py`).
 
-Container decode (mp4/mpg video, their fps and audio streams, through the
-C++ libav ingest) is not ported yet: it raises. A clip's audio comes from a
-sibling `.wav` (the synthetic corpus, an offline dump), else it is silence
-with a warning, as the JAX package does for `.npy` clips.
+`.npy` clips follow the reference's preprocessed-data convention. Container
+files (GRID's `.mpg`, `.mp4`, `.avi`) decode through the port's C++ libav
+ingest (`avsync_torch.ingest.native`), built at first use; where it cannot
+be built they go through cv2, imported only then, and where neither exists
+they raise. A clip's audio is its sibling `.wav`, else the container's audio
+stream, else silence with a warning.
 """
 
 from __future__ import annotations
@@ -16,33 +17,65 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from avsync_torch.ingest import native
+
+
+def _cv2(video_path: str):
+    """cv2, for a container when the native ingest is unavailable."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError(
+            f"{video_path}: no container decoder: the native ingest is unavailable "
+            f"({native.why_unavailable()}) and cv2 does not import ({e})") from e
+    return cv2
+
 
 def decode_video_gray(video_path: str, max_frames: Optional[int] = None) -> np.ndarray:
-    """Load a `.npy` clip as (T, H, W) uint8 gray frames.
+    """Decode a clip to (T, H, W) uint8 gray frames.
 
-    Follows the reference's preprocessed-data convention: already cropped
-    clips with values in [0, 1] or [0, 255]; returned as uint8 0..255 (the
-    device preprocess re-normalizes)."""
-    if not video_path.endswith(".npy"):
-        raise NotImplementedError(
-            f"{video_path}: only .npy clips are supported so far (container "
-            "decode is not ported yet)")
-    frames = np.load(video_path)
-    if frames.dtype != np.uint8:
-        if frames.size and frames.max() <= 1.0:
-            frames = frames * 255.0
-        frames = np.clip(frames, 0, 255).astype(np.uint8)
-    if max_frames is not None:
-        frames = frames[:max_frames]
-    return frames
+    `.npy` clips are already cropped, with values in [0, 1] or [0, 255];
+    they return as uint8 0..255 (the device preprocess re-normalizes).
+    Containers go through the native ingest, else cv2."""
+    if video_path.endswith(".npy"):
+        frames = np.load(video_path)
+        if frames.dtype != np.uint8:
+            if frames.size and frames.max() <= 1.0:
+                frames = frames * 255.0
+            frames = np.clip(frames, 0, 255).astype(np.uint8)
+        if max_frames is not None:
+            frames = frames[:max_frames]
+        return frames
+    if native.available():
+        return native.decode_video_gray(video_path, max_frames)
+    cv2 = _cv2(video_path)
+    cap = cv2.VideoCapture(video_path)
+    frames = []
+    try:
+        while max_frames is None or len(frames) < max_frames:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2GRAY) if frame.ndim == 3 else frame)
+    finally:
+        cap.release()
+    return np.stack(frames) if frames else np.zeros((0, 0, 0), np.uint8)
 
 
 def get_video_fps(video_path: str, fallback: float = 25.0) -> float:
-    """FPS of a clip (`misalignment_detection_train.py:91-97`): a `.npy`
-    clip carries none, so the fallback."""
+    """FPS of a clip (`misalignment_detection_train.py:91-97`): the
+    container's, or the fallback for a `.npy` clip or a container that
+    states none."""
     if video_path.endswith(".npy"):
         return fallback
-    raise NotImplementedError(f"{video_path}: container fps probing is not ported yet")
+    if native.available():
+        fps = native.get_fps(video_path)
+    else:
+        cv2 = _cv2(video_path)
+        cap = cv2.VideoCapture(video_path)
+        fps = cap.get(cv2.CAP_PROP_FPS)
+        cap.release()
+    return fps if fps and fps > 1e-3 else fallback
 
 
 def load_wav(path: str) -> Tuple[np.ndarray, int]:
@@ -81,12 +114,20 @@ def save_wav(path: str, data: np.ndarray, sr: int) -> None:
 
 
 def load_audio_for_video(video_path: str, fallback_sr: int = 16000) -> Tuple[np.ndarray, int]:
-    """Audio of a clip: its sibling `.wav` (same basename), else silence at
-    `fallback_sr` with a warning (container audio is not ported yet)."""
+    """Audio of a clip, in this order: its sibling `.wav` (same basename),
+    the container's audio stream through the native ingest, else silence at
+    `fallback_sr` with a warning (a `.npy` clip, an undecodable container, or
+    no ingest)."""
     wav_path = os.path.splitext(video_path)[0] + ".wav"
     if os.path.exists(wav_path):
         return load_wav(wav_path)
-    warnings.warn(f"no audio source for {video_path} (no sibling .wav); returning silence")
+    if not video_path.endswith(".npy") and native.available():
+        try:
+            return native.decode_audio(video_path)
+        except RuntimeError:
+            pass  # undecodable container: silence, as below
+    warnings.warn(f"no audio source for {video_path} (no sibling .wav, no decodable audio "
+                  "stream); returning silence")
     return np.zeros(0, np.float32), fallback_sr
 
 

@@ -2,9 +2,11 @@
 `avsync/export.py`).
 
 `export_transcriber` traces the whole serving computation into one program:
-the device preprocess (uint8 -> heuristic mouth crop and resize when the
-client's frames are not the model's geometry -> /255 -> standardize), the
-LipNet forward and the greedy CTC decode, with the weights and tables baked
+the device preprocess (uint8 -> the ROI program of `roi_mode` when the
+client's frames are not the model's geometry: the heuristic crop, the
+variance box or the localizer's box, its weights held as buffers -> /255 ->
+standardize; 'detector', a host cascade, raises ValueError), the LipNet
+forward and the greedy CTC decode, with the weights and tables baked
 in as the program's parameters and buffers on the export device. K1 and K2
 are the operators `avsync_torch::conv1_pool` and `avsync_torch::bigru_fwd`
 (`ops/cuda`), so the program launches the hand-written kernels, not their
@@ -152,47 +154,49 @@ def _vocab_meta() -> dict:
             "id_to_char": {str(i): c for i, c in textlib.IDX_TO_CHAR.items() if len(c) == 1}}
 
 
-def _check_roi(cfg, frame_hw: Tuple[int, int]) -> bool:
+def _check_roi(cfg, frame_hw: Tuple[int, int], what: str = "export supports the on-device ROI "
+               "modes ('model', 'variance', heuristic) or pre-cropped native-geometry "
+               "frames") -> bool:
     """True when frames of `frame_hw` need the embedded mouth ROI; raises
-    for the ROI modes the port does not run."""
+    for 'detector', whose cascade runs on the host, outside any program."""
     d = cfg.data
     native = tuple(frame_hw) != (d.img_height, d.img_width)
-    if native and d.roi_mode != "heuristic":
-        raise NotImplementedError(
-            f"roi_mode={d.roi_mode!r}: only the heuristic ROI is ported (export raises for "
-            "'detector', 'model' and 'variance', as the live predictor does)")
+    if native and d.roi_mode == "detector":
+        raise ValueError(f"roi_mode='detector' runs a host-side cascade; {what}")
     return native
 
 
 class _Preprocess(torch.nn.Module):
-    """`predictor.preprocess` with the resize's coordinates held as buffers
-    (made on the export device once, not traced as constants)."""
+    """`predictor.preprocess` with the ROI program's resize coordinates held
+    as buffers (made on the export device once, not traced as constants)
+    and, for 'model', the localizer as a submodule (its weights are
+    buffers)."""
 
-    def __init__(self, cfg, frame_hw: Tuple[int, int], device: torch.device):
-        from avsync_torch.ops import image as imglib
+    def __init__(self, cfg, frame_hw: Tuple[int, int], localizer, device: torch.device,
+                 native: bool):
+        from avsync_torch.data.pipeline import roi_coords
 
         super().__init__()
         self.cfg = cfg
-        d = cfg.data
-        self.native = _check_roi(cfg, frame_hw)
-        if self.native:
-            coords = imglib.resize_coords(imglib.crop_hw(frame_hw, d.mouth_crop),
-                                          (d.img_height, d.img_width), device)
-            for name, t in zip(("y0", "y1", "fy", "x0", "x1", "fx"), coords):
+        self.localizer = localizer
+        self._coords = ()
+        if native:
+            coords = roi_coords(cfg.data, cfg.data.roi_mode, frame_hw, localizer, device)
+            self._coords = ("y0", "y1", "fy", "x0", "x1", "fx") if coords is not None else ()
+            for name, t in zip(self._coords, coords or ()):
                 self.register_buffer(name, t)
 
     def forward(self, frames: torch.Tensor) -> torch.Tensor:
         from avsync_torch.predictor import preprocess
 
-        coords = ((self.y0, self.y1, self.fy, self.x0, self.x1, self.fx)
-                  if self.native else None)
-        return preprocess(frames, self.cfg, coords)
+        coords = tuple(getattr(self, n) for n in self._coords) or None
+        return preprocess(frames, self.cfg, coords, localizer=self.localizer)
 
 
 class _TranscriberProgram(torch.nn.Module):
-    def __init__(self, reader, frame_hw: Tuple[int, int]):
+    def __init__(self, reader, frame_hw: Tuple[int, int], native: bool):
         super().__init__()
-        self.prep = _Preprocess(reader.cfg, frame_hw, reader.device)
+        self.prep = _Preprocess(reader.cfg, frame_hw, reader._localizer, reader.device, native)
         self.model = reader.model
 
     def forward(self, frames: torch.Tensor):
@@ -204,11 +208,11 @@ class _TranscriberProgram(torch.nn.Module):
 
 
 class _SyncScorerProgram(torch.nn.Module):
-    def __init__(self, scorer, frame_hw: Tuple[int, int]):
+    def __init__(self, scorer, frame_hw: Tuple[int, int], native: bool):
         from avsync_torch.ops import audio as audiolib
 
         super().__init__()
-        self.prep = _Preprocess(scorer.cfg, frame_hw, scorer.device)
+        self.prep = _Preprocess(scorer.cfg, frame_hw, scorer._localizer, scorer.device, native)
         self.lipnet, self.detector = scorer.lipnet, scorer.detector
         for name, t in zip(("melT", "dctT", "window"),
                            audiolib.device_constants(scorer.cfg.audio, scorer.device)):
@@ -250,8 +254,9 @@ def export_transcriber(checkpoint: str, cfg=None,
     LipNet `.pth`, on `device` (the card unless "cpu" is given).
 
     frame_geometry: (H, W) of the client's frames; the model's own geometry
-    (pre-cropped mouth clips) by default, any other bakes the heuristic ROI
-    in front of the model. batch_sizes: None for one symbolic-batch program,
+    (pre-cropped mouth clips) by default, any other bakes the ROI program of
+    `roi_mode` in front of the model ('detector', a host cascade, raises
+    ValueError). batch_sizes: None for one symbolic-batch program,
     or one static program per size (e.g. the serving buckets 1, 2, 4, 8)."""
     from avsync_torch.config import AvsyncConfig
     from avsync_torch.predictor import LipReader
@@ -262,7 +267,7 @@ def export_transcriber(checkpoint: str, cfg=None,
     native = _check_roi(cfg, (H, W))
     reader = LipReader(checkpoint=checkpoint, config=cfg, device=device)
     T = d.max_video_length
-    program = _TranscriberProgram(reader, (H, W)).eval()
+    program = _TranscriberProgram(reader, (H, W), native).eval()
     programs = _export_batched(
         program,
         lambda b: (torch.zeros(b, T, H, W, dtype=torch.uint8, device=reader.device),),
@@ -328,12 +333,13 @@ def export_sync_scorer(detector_checkpoint: str, lipnet_checkpoint: str, cfg=Non
     cfg = cfg or AvsyncConfig()
     d = cfg.data
     H, W = frame_geometry or (d.img_height, d.img_width)
-    native = _check_roi(cfg, (H, W))
+    native = _check_roi(cfg, (H, W), "export supports the on-device ROI modes or pre-cropped "
+                        "native-geometry frames")
     scorer = MisalignmentScorer(detector_checkpoint, lipnet_checkpoint, config=cfg,
                                 device=device)
     T, S, K = d.max_video_length, cfg.audio.max_audio_samples, int(num_shifts)
     dev = scorer.device
-    program = _SyncScorerProgram(scorer, (H, W)).eval()
+    program = _SyncScorerProgram(scorer, (H, W), native).eval()
 
     def example(b):
         return (torch.zeros(b, T, H, W, dtype=torch.uint8, device=dev),

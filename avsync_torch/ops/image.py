@@ -1,8 +1,10 @@
 """Device-side frame preprocessing on tensors (port of `avsync/ops/image.py`).
 
 Heuristic mouth crop (rows [0.6H, H) x cols [0.3W, 0.7W)), bilinear resize
-with cv2's INTER_LINEAR half-pixel convention, /255, and the TF stack's
-per-clip standardization. Everything runs on the device the frames are on.
+with cv2's INTER_LINEAR half-pixel convention, /255, the TF stack's
+per-clip standardization, the crop + resize of per-frame boxes
+(`crop_resize_boxes`) and the temporal-variance mouth box
+(`variance_mouth_boxes`). Everything runs on the device the frames are on.
 """
 
 from __future__ import annotations
@@ -85,3 +87,77 @@ def standardize_clips(clips: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
     mean = clips.mean(dim=dims, keepdim=True)
     std = clips.std(dim=dims, keepdim=True, correction=0)
     return (clips - mean) / std.clamp_min(1e-8 if eps == 0.0 else eps)
+
+
+def true_div(t: torch.Tensor, n: float) -> torch.Tensor:
+    """t / n with IEEE division's rounding on every device. PyTorch's CUDA
+    division by a Python scalar multiplies by the scalar's reciprocal, which
+    can differ in the last bit; the ROI's boxes must be the same on the card
+    as on the CPU (and in the JAX package)."""
+    return t / torch.full((), n, dtype=t.dtype, device=t.device)
+
+
+def crop_resize_boxes(frames: torch.Tensor, boxes: torch.Tensor,
+                      out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Crop + bilinear resize of each frame to its own normalized box.
+
+    frames: (..., H, W) float; boxes: (..., 4) as (y0, y1, x0, x1) in [0, 1]
+    (the detector's per-frame boxes, or one box per clip broadcast over its
+    frames). Each frame is sampled on an out_hw grid spanning its box with
+    cv2's half-pixel convention, so a full-frame box reproduces
+    `resize_bilinear`."""
+    H, W = frames.shape[-2], frames.shape[-1]
+    h, w = out_hw
+    lead = frames.shape[:-2]
+    x = frames.reshape(-1, H, W)
+    b = boxes.reshape(-1, 4).to(x.dtype)
+    y0, y1, x0, x1 = b[:, 0:1], b[:, 1:2], b[:, 2:3], b[:, 3:4]
+    bh = (y1 - y0) * H
+    bw = (x1 - x0) * W
+    sy = (torch.arange(h, device=x.device, dtype=x.dtype) + 0.5) * true_div(bh, h) - 0.5 + y0 * H
+    sx = (torch.arange(w, device=x.device, dtype=x.dtype) + 0.5) * true_div(bw, w) - 0.5 + x0 * W
+    yf, xf = torch.floor(sy), torch.floor(sx)  # (N, h), (N, w)
+    fy = torch.where(yf < 0, 0.0, sy - yf)[:, :, None]
+    fx = torch.where(xf < 0, 0.0, sx - xf)[:, None, :]
+    yi, xi = yf.long(), xf.long()
+    yi0, yi1 = yi.clamp(0, H - 1), (yi + 1).clamp(0, H - 1)
+    xi0, xi1 = xi.clamp(0, W - 1), (xi + 1).clamp(0, W - 1)
+    n = torch.arange(x.shape[0], device=x.device)[:, None]
+    r0, r1 = x[n, yi0], x[n, yi1]  # (N, h, W)
+    c0 = xi0[:, None, :].expand(-1, h, -1)
+    c1 = xi1[:, None, :].expand(-1, h, -1)
+    top = r0.gather(2, c0) * (1 - fx) + r0.gather(2, c1) * fx
+    bot = r1.gather(2, c0) * (1 - fx) + r1.gather(2, c1) * fx
+    return (top * (1 - fy) + bot * fy).reshape(*lead, h, w)
+
+
+def variance_mouth_boxes(clips: torch.Tensor, box_frac: Tuple[float, float] = (0.35, 0.45),
+                         lower_half_only: bool = True) -> torch.Tensor:
+    """One normalized (y0, y1, x0, x1) mouth box per clip from temporal
+    variance, on the device: (B, T, H, W) -> (B, 4).
+
+    Per-pixel population variance over time, summed over every box of
+    box_frac of the frame through an integral image, restricted to boxes
+    centred in the lower half, and the first maximum taken. The variance is
+    float32, as the JAX package computes it; the integral image is float64:
+    at 288x360 its float32 values reach ~1e8, where one rounding step (8)
+    is near the gap between neighbouring boxes' sums, and the card's
+    parallel cumsum rounds in another order than the CPU's, so float32 would
+    let the same frames give another box on the card."""
+    B, T, H, W = clips.shape
+    bh = max(2, int(H * box_frac[0]))
+    bw = max(2, int(W * box_frac[1]))
+    var = clips.float().var(dim=1, correction=0)  # (B, H, W), as jnp.var
+    ii = var.double().cumsum(1).cumsum(2)
+    ii = torch.nn.functional.pad(ii, (1, 0, 1, 0))  # a zero row on top, a zero column left
+    nh, nw = H - bh + 1, W - bw + 1
+    score = (ii[:, bh:bh + nh, bw:bw + nw] - ii[:, bh:bh + nh, :nw]
+             - ii[:, :nh, bw:bw + nw] + ii[:, :nh, :nw])  # sum of var in the box at (y, x)
+    if lower_half_only:
+        rows = torch.arange(nh, device=clips.device)[:, None]
+        score = torch.where(rows + bh // 2 >= H // 2, score, -torch.inf)
+    idx = score.reshape(B, -1).argmax(dim=1)  # the first maximum, as jnp.argmax
+    y = (idx // nw).float()
+    x = (idx % nw).float()
+    return torch.stack([true_div(y, H), true_div(y + bh, H), true_div(x, W),
+                        true_div(x + bw, W)], dim=-1)

@@ -1,14 +1,15 @@
 """Serving API: load checkpoints once, predict many times (port of
 `avsync/predictor.py`).
 
-`LipReader` turns (T, H, W) frames or `.npy` clips into transcripts with
-greedy CTC; `MisalignmentScorer` turns (frames, audio, fps, shifts) into
-audio-visual sync probabilities. Both run on the card unless the caller
-passes `device="cpu"`; with `device=None` and no GPU they raise instead of
-falling back. Ported so far: the heuristic mouth ROI for native-size frames
-and the pre-cropped path, and int8 serving of the transcriber
-(`LipReader(quantize="int8")`); not yet the detector/variance/model ROI
-modes or a mesh.
+`LipReader` turns (T, H, W) frames or clips (`.npy` or container files)
+into transcripts with greedy CTC; `MisalignmentScorer` turns (frames, audio,
+fps, shifts) into audio-visual sync probabilities. Both run on the card
+unless the caller passes `device="cpu"`; with `device=None` and no GPU they
+raise instead of falling back. Native-size frames take the ROI program of
+`DataConfig.roi_mode` (heuristic, variance, the learned localizer, or the
+host cascade's boxes under 'detector'), pre-cropped ones only /255, as
+training does. `LipReader(quantize="int8")` serves the conv stack in int8.
+Not ported: a mesh.
 """
 
 from __future__ import annotations
@@ -53,30 +54,77 @@ def pad_frames(frames: np.ndarray, cfg: AvsyncConfig) -> np.ndarray:
     return np.concatenate([frames, pad], axis=0)
 
 
-def preprocess(frames: torch.Tensor, cfg: AvsyncConfig, coords=None) -> torch.Tensor:
+def load_localizer(cfg: AvsyncConfig, device=None):
+    """The bundled localizer on `device` when cfg asks for roi_mode='model'
+    (None with a warning when the bundle is missing: the heuristic crop
+    then, `models.localizer.load_bundled_or_none`); None otherwise."""
+    if cfg.data.roi_mode != "model":
+        return None
+    from avsync_torch.models.localizer import load_bundled_or_none
+
+    return load_bundled_or_none(device)
+
+
+def load_mouth_detector(cfg: AvsyncConfig):
+    """The host cascade detector when cfg asks for roi_mode='detector'; None
+    otherwise. Serving classes and the batcher construct it once."""
+    if cfg.data.roi_mode != "detector":
+        return None
+    from avsync_torch.data.mouth import MouthDetector
+
+    return MouthDetector()
+
+
+def detect_boxes_host(frames: np.ndarray, mouth_detector) -> np.ndarray:
+    """The cascade's mouth boxes of one padded clip -> (1, T, 4) float32
+    (the cascade takes 8-bit frames, as training decodes them)."""
+    return mouth_detector.detect_clip(
+        np.ascontiguousarray(np.clip(frames, 0, 255)).astype(np.uint8))[None]
+
+
+def preprocess(frames: torch.Tensor, cfg: AvsyncConfig, coords=None, boxes=None,
+               localizer=None) -> torch.Tensor:
     """(B, T, H, W) raw frames on the device -> (B, T, h, w, 1) float32 model
-    input: the heuristic mouth crop + resize for native-size frames, plain
-    /255 for pre-cropped ones, then per-clip standardization if configured.
-    `coords`: the resize's `imglib.resize_coords`, when the caller holds them."""
+    input, then per-clip standardization if configured. Native-size frames:
+    the crop of `boxes` ((B, T, 4), the host cascade's) where given, else
+    the ROI program of cfg.data.roi_mode (`data.pipeline.make_roi_crop_fn`,
+    with `localizer` for 'model'); pre-cropped ones: plain /255. `coords`:
+    the program's resize coordinates (`data.pipeline.roi_coords`), when the
+    caller holds them."""
     d = cfg.data
     target = (d.img_height, d.img_width)
-    if tuple(frames.shape[2:]) != target:
-        if d.roi_mode != "heuristic":
-            raise NotImplementedError(
-                f"roi_mode={d.roi_mode!r}: only the heuristic ROI is ported")
-        out = imglib.preprocess_clips(frames, out_hw=target, crop=d.mouth_crop,
-                                      coords=coords)
-    else:
+    if tuple(frames.shape[2:]) == target:
         out = (frames.float() * (1.0 / 255.0))[..., None]
+    elif boxes is not None:
+        out = (imglib.crop_resize_boxes(frames.float(), boxes, target) * (1.0 / 255.0))[..., None]
+    else:
+        from avsync_torch.data.pipeline import make_roi_crop_fn
+
+        out = make_roi_crop_fn(d, d.roi_mode, localizer)(frames, coords)
     return imglib.standardize_clips(out) if d.standardize_clips else out
 
 
-def prepare_clip(frames: np.ndarray, cfg: AvsyncConfig,
-                 device: torch.device) -> torch.Tensor:
+def raw_payload(frames: np.ndarray, cfg: AvsyncConfig, mouth_detector) -> tuple:
+    """Host half of the raw transport: (T, H, W) frames -> (frames (1, T,
+    H, W) padded, in their own dtype[, boxes (1, T, 4)] for native frames
+    under 'detector'). Padding comes first, as in training: the ROI's
+    statistics see the zero tail, as the batcher's do (boxes from unpadded
+    frames differ by up to 0.86 on [0, 1] pixels at T=5)."""
+    frames = pad_frames(frames, cfg)
+    d = cfg.data
+    if frames.shape[1:] != (d.img_height, d.img_width) and d.roi_mode == "detector":
+        return (frames[None], detect_boxes_host(frames, mouth_detector or
+                                                load_mouth_detector(cfg)))
+    return (frames[None],)
+
+
+def prepare_clip(frames: np.ndarray, cfg: AvsyncConfig, device: torch.device,
+                 localizer=None, mouth_detector=None) -> torch.Tensor:
     """(T, H, W) uint8/float frames -> (1, max_len, h, w, 1) model input:
-    pad the raw frames first (as training does), then preprocess on device."""
-    x = torch.as_tensor(pad_frames(frames, cfg)[None]).to(device)
-    return preprocess(x, cfg)
+    `raw_payload` on the host, then `preprocess` on the device."""
+    frames, *boxes = (torch.as_tensor(p).to(device)
+                      for p in raw_payload(frames, cfg, mouth_detector))
+    return preprocess(frames, cfg, boxes=boxes[0] if boxes else None, localizer=localizer)
 
 
 def load_input_scales(scales, family: str) -> np.ndarray:
@@ -91,12 +139,6 @@ def load_input_scales(scales, family: str) -> np.ndarray:
                                  f"model is {family!r}")
             scales = z["input_scales"]
     return np.asarray(scales, np.float32)
-
-
-def _require_heuristic_roi(cfg: AvsyncConfig) -> None:
-    if cfg.data.roi_mode != "heuristic":
-        raise NotImplementedError(
-            f"roi_mode={cfg.data.roi_mode!r}: only the heuristic ROI is ported")
 
 
 def lipnet_state(cfg: AvsyncConfig, checkpoint: Optional[str] = None,
@@ -149,7 +191,8 @@ class LipReader:
                  calibration_scales=None):
         self.cfg = config or AvsyncConfig()
         self.device = resolve_device(device)
-        _require_heuristic_roi(self.cfg)
+        self._localizer = load_localizer(self.cfg, self.device)
+        self._mouth = load_mouth_detector(self.cfg)
         self.model = load_lipnet(self.cfg, lipnet_state(self.cfg, checkpoint, params),
                                  self.device)
         if quantize not in (None, "int8"):
@@ -170,19 +213,22 @@ class LipReader:
                     self.model, [self._prepare(f) for f in calibration_frames])
 
     def _prepare(self, frames: np.ndarray) -> torch.Tensor:
-        return prepare_clip(frames, self.cfg, self.device)
+        return prepare_clip(frames, self.cfg, self.device, self._localizer, self._mouth)
 
     def prepare_raw(self, frames: np.ndarray):
         """Host half of the raw serving transport: (T, H, W) frames -> a
-        payload tuple (frames (1, T, H, W),), dtype kept (uint8 ships 4x
-        fewer bytes than float32). `preprocess_device` is the device half."""
-        return (pad_frames(frames, self.cfg)[None],)
+        payload tuple (frames (1, T, H, W)[, boxes (1, T, 4)]), dtype kept
+        (uint8 ships 4x fewer bytes than float32). `preprocess_device` is
+        the device half; together they compute `_prepare`, batched."""
+        return raw_payload(frames, self.cfg, self._mouth)
 
     def preprocess_device(self, frames, boxes=None) -> torch.Tensor:
-        """(B, T, H, W) raw frames -> (B, T, h, w, 1) model input on the device."""
+        """(B, T, H, W) raw frames [+ (B, T, 4) boxes] -> (B, T, h, w, 1)
+        model input on the device."""
         if boxes is not None:
-            raise NotImplementedError("detector boxes: the detector ROI is not ported")
-        return preprocess(torch.as_tensor(frames).to(self.device), self.cfg)
+            boxes = torch.as_tensor(boxes).to(self.device)
+        return preprocess(torch.as_tensor(frames).to(self.device), self.cfg, boxes=boxes,
+                          localizer=self._localizer)
 
     def _logprobs(self, clips: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
@@ -215,12 +261,12 @@ class LipReader:
         """Batched path: decode every clip on the host, one upload, one batched
         preprocess, one forward, one decode. Clips of differing geometry are
         preprocessed one by one and then batched."""
-        rows = [self.prepare_raw(self._load(p))[0] for p in video_paths]
-        if len({(r.shape, r.dtype.str) for r in rows}) == 1:
-            clips = self.preprocess_device(np.concatenate(rows, axis=0))
+        rows = [self.prepare_raw(self._load(p)) for p in video_paths]
+        if len({tuple((p.shape, p.dtype.str) for p in r) for r in rows}) == 1:
+            clips = self.preprocess_device(*(np.concatenate(parts, axis=0)
+                                             for parts in zip(*rows)))
         else:
-            clips = torch.cat([preprocess(torch.as_tensor(r).to(self.device), self.cfg)
-                               for r in rows], dim=0)
+            clips = torch.cat([self.preprocess_device(*r) for r in rows], dim=0)
         return self._decode(self._logprobs(clips))
 
 
@@ -244,7 +290,8 @@ class MisalignmentScorer:
                  lipnet_params: Optional[Mapping] = None):
         self.cfg = config or AvsyncConfig()
         self.device = resolve_device(device)
-        _require_heuristic_roi(self.cfg)
+        self._localizer = load_localizer(self.cfg, self.device)
+        self._mouth = load_mouth_detector(self.cfg)
         if (detector_checkpoint is None) == (detector_params is None):
             raise ValueError("pass exactly one of detector_checkpoint= or detector_params=")
         n_audio = 2 * self.cfg.audio.n_mfcc
@@ -267,23 +314,27 @@ class MisalignmentScorer:
     def prepare_raw(self, frames: np.ndarray, audio: np.ndarray, fps: float,
                     shifts: Sequence[int] = (0,)):
         """Host half: one request -> payload (frames (1, T, H, W) in their
-        own dtype, audio (1, S) float32 zero-padded, audio_len (1,) int32,
-        fps (1,) float32, shifts (1, K) int32)."""
+        own dtype[, boxes (1, T, 4) under 'detector'], audio (1, S) float32
+        zero-padded, audio_len (1,) int32, fps (1,) float32, shifts (1, K)
+        int32)."""
         S = self.cfg.audio.max_audio_samples
         a = np.asarray(audio, np.float32)[:S]
         buf = np.zeros((1, S), np.float32)
         buf[0, :len(a)] = a
-        return (pad_frames(frames, self.cfg)[None], buf, np.array([len(a)], np.int32),
-                np.array([fps], np.float32), np.asarray(shifts, np.int32)[None])
+        return raw_payload(frames, self.cfg, self._mouth) + (
+            buf, np.array([len(a)], np.int32), np.array([fps], np.float32),
+            np.asarray(shifts, np.int32)[None])
 
     def score_payload_batch(self, payload) -> List[np.ndarray]:
         """Device half: a stacked payload of B rows -> B arrays of K sync
         probabilities."""
-        frames, audio, lens, fps, shifts = (torch.as_tensor(p).to(self.device)
-                                            for p in payload)
+        frames, *boxes = (torch.as_tensor(p).to(self.device) for p in payload[:-4])
+        audio, lens, fps, shifts = (torch.as_tensor(p).to(self.device) for p in payload[-4:])
         B, K = shifts.shape
         with fp32_step(), torch.inference_mode():
-            vis = visual_stats(self.lipnet, preprocess(frames, self.cfg))
+            clips = preprocess(frames, self.cfg, boxes=boxes[0] if boxes else None,
+                               localizer=self._localizer)
+            vis = visual_stats(self.lipnet, clips)
             astats = shifted_audio_stats(audio.repeat_interleave(K, 0),
                                          lens.repeat_interleave(K), shifts.reshape(-1),
                                          fps.repeat_interleave(K), self.cfg.audio)
@@ -298,6 +349,7 @@ class MisalignmentScorer:
         return self.score_payload_batch(self.prepare_raw(frames, audio, fps, shifts))[0]
 
     def score(self, video_path: str, shift_frames: int = 0) -> float:
-        """Sync probability of a `.npy` clip and its sibling `.wav`."""
+        """Sync probability of a clip and its audio (a sibling `.wav`, else
+        the container's own stream)."""
         frames, audio, fps = videolib.decode_av(video_path, self.cfg)
         return float(self.score_arrays(frames, audio, fps, shifts=(shift_frames,))[0])

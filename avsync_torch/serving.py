@@ -241,9 +241,10 @@ class TranscribeService:
     """A `predictor.LipReader` behind a DynamicBatcher.
 
     Transports:
-      * 'raw' (default): request threads only pad on the host; uint8 frames
-        ship as they are and the worker preprocesses each BATCH on the
-        device before the forward;
+      * 'raw' (default): request threads only pad on the host (and run the
+        cascade under roi_mode 'detector': its boxes ride with the frames);
+        uint8 frames ship as they are and the worker preprocesses each BATCH
+        on the device before the forward;
       * 'f32': request threads run the full preprocess per request and ship
         the float32 model-input row back through the host (for comparison).
     Both compute the same results.
@@ -258,8 +259,8 @@ class TranscribeService:
         self.transport = transport
 
         if transport == "raw":
-            def infer(payload) -> Sequence[str]:
-                return reader._decode(reader._logprobs(reader.preprocess_device(payload[0])))
+            def infer(payload) -> Sequence[str]:  # (frames[, detector boxes])
+                return reader._decode(reader._logprobs(reader.preprocess_device(*payload)))
         else:
             def infer(rows: np.ndarray) -> Sequence[str]:
                 return reader._decode(reader._logprobs(torch.as_tensor(rows)))
@@ -346,7 +347,8 @@ class SyncScoreService:
 
     def score_path(self, video_path: str, shifts=(0,),
                    timeout: Optional[float] = None) -> np.ndarray:
-        """Sync probabilities of a `.npy` clip and its sibling `.wav`."""
+        """Sync probabilities of a clip (`.npy` or a container) and its
+        audio (a sibling `.wav`, else the container's stream)."""
         frames, audio, fps = decode_av(video_path, self.scorer.cfg)
         return self.score_arrays(frames, audio, fps, shifts, timeout=timeout)
 

@@ -129,11 +129,32 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      three f32-contract launches (no int8 hand-off), both forwards' times,
      and a profiler trace of one int8 forward: Q1 three times, K2 twice, no
      other convolution and no separate quantize kernel;
-  12. the kernels: a text line with the state of every TPU kernel of the
+  12. the front end, from GRID-size container files to the model input: a.
+     the libav ingest's state (`ingest: built in X s (libavformat V)`, or
+     `ingest: unavailable: <why>`; a failed build where pkg-config finds
+     libav fails the run); 8 native 288x360 T=75 clips from the port's
+     synthetic module (mouth at a known box) written as .mp4 with their
+     audio through the port's mux (without the ingest: MJPG .avi through
+     cv2, decoded by cv2) and as .npy, decoded back, ms per clip of each; b. TranscribeService at full width (K1, K2 on) over the 8 clips
+     in each ROI mode (heuristic, variance, model, detector), the counters
+     zeroed before and read after: per batch K1 once and K2 once per BiGRU
+     layer; the boxes on the card equal the CPU's from the same frames (the
+     localizer's within 1e-5, the gate's choice equal), their IoU with the
+     known box; log-probs against the plain path (phase 4's tolerance); the
+     ROI program's time per B=8 batch beside the forward's (CUDA events);
+     c. `cli train` for 1 epoch on a native 288x360 corpus (.mp4 with the
+     ingest) with --roi_mode variance --roi_host --device_cache on: K3 and
+     K4 launch, the host crop's ms per batch, the device cache holds uint8
+     crops; d. with the ingest, a sync request on an .mp4 scored with its
+     own AAC audio: K1 and K5 once, probabilities against the plain path;
+     without it, an MJPG .avi through cv2 with its sibling .wav; e. an
+     exported artifact with the variance ROI embedded against the live
+     reader at B = 1 and 8 (1e-4);
+  13. the kernels: a text line with the state of every TPU kernel of the
      JAX package (and Q1), and one JSON line with the measured numbers
-     (launches from the training slices, the serving slices', the daemons'
-     and the graph replays' beside them);
-  13. the card's name/power line, then the status JSON as the last line.
+     (launches from the training slices, the serving slices', the daemons',
+     the graph replays' and the front end's beside them);
+  14. the card's name/power line, then the status JSON as the last line.
 
 Exits with 2 and prints no result without a GPU or outside a checkout.
 """
@@ -2582,6 +2603,455 @@ def run_int8_serving(dev, workdir, corpus, ckpt_dir, test_config, greedy_results
     return out
 
 
+# ---------------------------------------------------------------------------
+# 12. the front end: container files and every ROI mode
+# ---------------------------------------------------------------------------
+
+ROI_MODES = ("heuristic", "variance", "model", "detector")
+FRONT_CLIPS = 8  # native 288x360 clips, T=75: one B=8 batch
+ROI_BOX_ATOL = 1e-5  # localizer boxes, card vs CPU (continuous; the gate's choice equal)
+EXPORT_ATOL = 1e-4  # an exported variance artifact's log-probs vs the live reader's
+
+
+def iou(a, b):
+    """Elementwise IoU of (..., 4) (y0, y1, x0, x1) boxes, numpy."""
+    import numpy as np
+
+    iy = np.clip(np.minimum(a[..., 1], b[..., 1]) - np.maximum(a[..., 0], b[..., 0]), 0, None)
+    ix = np.clip(np.minimum(a[..., 3], b[..., 3]) - np.maximum(a[..., 2], b[..., 2]), 0, None)
+    area = lambda z: (z[..., 1] - z[..., 0]) * (z[..., 3] - z[..., 2])  # noqa: E731
+    return iy * ix / np.maximum(area(a) + area(b) - iy * ix, 1e-9)
+
+
+def write_container(stem: str, frames, audio, container: str) -> str:
+    """A (T, H, W) uint8 clip as GRID ships it, a container file: `.mp4`
+    (libx264, AAC audio) through the port's mux, or an MJPG `.avi` through
+    cv2 (no audio) where the ingest cannot be built."""
+    import numpy as np
+
+    bgr = np.repeat(frames[..., None], 3, axis=-1)
+    path = f"{stem}.{container}"
+    if container == "mp4":
+        from avsync_torch.ingest import native
+
+        native.mux_mp4(path, bgr, 25.0, audio, 16000)
+        return path
+    import cv2
+
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 25.0,
+                         (frames.shape[2], frames.shape[1]))
+    for f in bgr:
+        vw.write(f)
+    vw.release()
+    return path
+
+
+def front_end_clips(workdir, container, smi, T: int, native_hw):
+    """12a: FRONT_CLIPS native clips from the port's synthetic module, each
+    with its mouth at a known box, written as `.npy` and as a container
+    (`write_container`; none where neither the ingest nor cv2 exists);
+    decoded back through `data/video.py`. Returns (frames as the path
+    decodes them, known boxes, container paths or None, decode times)."""
+    import numpy as np
+
+    from avsync_torch.data import synthetic, video
+
+    r = np.random.default_rng(12)
+    clips, boxes, npys, mp4s = [], [], [], []
+    for i in range(FRONT_CLIPS):
+        center, scale = (0.66 + 0.03 * (i % 4), 0.38 + 0.04 * i), 0.9 + 0.05 * (i % 3)
+        v, a = synthetic.make_clip(r, T, *native_hw, mouth_center=center, mouth_scale=scale,
+                                   phrase=synthetic.GRID_PHRASES[i])
+        clips.append(v)
+        boxes.append(synthetic.mouth_box(center, scale, *native_hw))
+        npys.append(os.path.join(workdir, f"clip{i}.npy"))
+        np.save(npys[-1], v)
+        if container:
+            mp4s.append(write_container(os.path.join(workdir, f"clip{i}"), v, a, container))
+        if container == "avi":  # no audio stream: the clip's audio beside it
+            video.save_wav(os.path.join(workdir, f"clip{i}.wav"), a, 16000)
+    t0 = time.perf_counter()
+    from_npy = [video.decode_video_gray(p) for p in npys]
+    npy_ms = (time.perf_counter() - t0) * 1e3 / FRONT_CLIPS
+    if not container:
+        print(f"  clips: {FRONT_CLIPS} x {(T, *native_hw)} .npy, {npy_ms:.3f} ms per clip to load "
+              f"[{smi}]", flush=True)
+        return np.stack(from_npy), np.stack(boxes), None, {"npy_ms_per_clip": npy_ms}
+    t0 = time.perf_counter()
+    decoded = [video.decode_video_gray(p) for p in mp4s]
+    mp4_ms = (time.perf_counter() - t0) * 1e3 / FRONT_CLIPS
+    # both codecs are lossy and the frames carry pixel noise: the decoded
+    # frames are held to correlate with the written ones, the audio to its
+    # length
+    corr = min(float(np.corrcoef(d.ravel(), c.ravel())[0, 1]) for d, c in zip(decoded, clips))
+    err = max(float(np.abs(d.astype(int) - c.astype(int)).mean()) for d, c in zip(decoded, clips))
+    if any(d.shape != (T, *native_hw) for d in decoded) or corr < 0.95:
+        raise SystemExit(f"container decode is wrong: shapes {[d.shape for d in decoded]}, "
+                         f"correlation {corr:.3f}")
+    audio_ms = None
+    if container == "mp4":
+        t0 = time.perf_counter()
+        audio = [video.load_audio_for_video(p) for p in mp4s]
+        audio_ms = (time.perf_counter() - t0) * 1e3 / FRONT_CLIPS
+        if any(sr != 16000 or a.size < 0.9 * T / 25 * 16000 for a, sr in audio):
+            raise SystemExit(f"container audio is wrong: {[(a.size, sr) for a, sr in audio]}")
+    how = ("libx264 + AAC through the port's mux, decoded by the ingest" if container == "mp4"
+           else "MJPG through cv2, decoded by cv2")
+    print(f"  clips: {FRONT_CLIPS} x {(T, *native_hw)} as .{container} ({how}) and .npy; decode "
+          f"ms per clip: {container} frames {mp4_ms:.3f}"
+          + (f", mp4 audio {audio_ms:.3f}" if audio_ms is not None else "")
+          + f", npy load {npy_ms:.3f}; decoded vs written: correlation >= {corr:.4f}, mean "
+          f"|error| <= {err:.2f} levels [{smi}]", flush=True)
+    return np.stack(decoded), np.stack(boxes), mp4s, {
+        "container": container, "container_ms_per_clip": mp4_ms,
+        "mp4_audio_ms_per_clip": audio_ms, "npy_ms_per_clip": npy_ms}
+
+
+def roi_boxes(reader, mode, x):
+    """The boxes the ROI program of `mode` crops for the (B, T, H, W) uint8
+    frames x (on x's device): variance and model per clip, detector per
+    frame (host), heuristic fixed (None). The localizer runs on x's device
+    (a copy of the reader's for the CPU)."""
+    import copy
+
+    import torch
+
+    from avsync_torch.models.localizer import gate_boxes, localize_clip_boxes
+    from avsync_torch.ops.image import variance_mouth_boxes
+    from avsync_torch.predictor import detect_boxes_host
+
+    d = reader.cfg.data
+    xf = x.float()
+    if mode == "variance":
+        return variance_mouth_boxes(xf)
+    if mode == "model":
+        loc = copy.deepcopy(reader._localizer).to(x.device)
+        heur = torch.tensor([d.mouth_crop[0], 1.0, d.mouth_crop[1], d.mouth_crop[2]],
+                            device=x.device)
+        return gate_boxes(xf, localize_clip_boxes(loc, xf), heur)
+    if mode == "detector":
+        return torch.cat([torch.from_numpy(detect_boxes_host(c, reader._mouth))
+                          for c in x.cpu().numpy()])
+    return None
+
+
+def transcribe_roi_modes(dev, frames, known, params, smi, base):
+    """12b: TranscribeService in each ROI mode at full width (K1 and K2 on)
+    over the clips: launches per batch, boxes card vs CPU, log-probs against
+    the plain path, and the ROI program's time per batch beside the
+    forward's."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from avsync_torch.data.pipeline import make_roi_crop_fn
+    from avsync_torch.ops.image import crop_resize_boxes
+    from avsync_torch.predictor import LipReader
+    from avsync_torch.serving import TranscribeService
+
+    out, readers = {}, {}
+    x_cpu = torch.from_numpy(frames)
+    x_dev = x_cpu.to(dev)
+    for mode in ROI_MODES:
+        cfg = dataclasses.replace(base, data=dataclasses.replace(base.data, roi_mode=mode))
+        plain_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, use_pallas_gru=False, fused_conv_pool=False))
+        reader = LipReader(params=params, config=cfg, device=dev)
+        plain = LipReader(params=params, config=plain_cfg, device=dev)
+        readers[mode] = reader
+        svc = TranscribeService(reader, max_batch=MAX_BATCH, max_wait_ms=200.0)
+        svc.warmup(frames[0])
+        answers, errors = [None] * FRONT_CLIPS, []
+
+        def client(i):
+            try:
+                answers[i] = svc.transcribe_frames(frames[i], timeout=300)
+            except Exception as e:  # noqa: BLE001 — reported and failed below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(FRONT_CLIPS)]
+        zero_counts()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        got = counts()
+        stats = svc.stats.snapshot()
+        svc.close()
+        if errors or any(a is None for a in answers):
+            raise SystemExit(f"{mode}: serving failed: {errors}")
+        n_batches = sum(stats["batches"].values())
+        layers = cfg.model.num_gru_layers
+        if (got["conv1_pool"] != n_batches or got["gru_fwd"] != layers * n_batches
+                or got["gru_bwd"] or got["conv1_pool_bwd"] or got["mel_stats"]):
+            raise SystemExit(f"{mode}: launches {got} do not match {n_batches} batches")
+
+        # the boxes: on the card and on the CPU from the same frames
+        b_dev, b_cpu = roi_boxes(reader, mode, x_dev), roi_boxes(reader, mode, x_cpu)
+        if mode == "heuristic":
+            box_check = "fixed fractions (no box)"
+            crop = cfg.data.mouth_crop
+            box_iou = float(iou(np.array([crop[0], 1.0, crop[1], crop[2]]), known).mean())
+        else:
+            bd, bc = b_dev.cpu(), b_cpu
+            if mode == "model":
+                crop = cfg.data.mouth_crop
+                heur = torch.tensor([crop[0], 1.0, crop[1], crop[2]])
+                same_choice = torch.equal((bd == heur).all(-1), (bc == heur).all(-1))
+                box_err = (bd - bc).abs().max().item()
+                if not same_choice or box_err > ROI_BOX_ATOL:
+                    raise SystemExit(f"model boxes differ, card vs CPU: {box_err:.3e}, "
+                                     f"gate choice equal {same_choice}")
+                box_check = f"within {box_err:.3e} (tol {ROI_BOX_ATOL}), gate choices equal"
+            elif not torch.equal(bd, bc):
+                raise SystemExit(f"{mode} boxes differ, card vs CPU:\n{bd}\n{bc}")
+            else:
+                box_check = "equal"
+            per_clip = bc.numpy() if bc.dim() == 2 else bc.numpy()[:, 0]
+            box_iou = float(iou(per_clip, known).mean())
+
+        # log-probs, the kernel path against the plain path on the same input
+        payload = tuple(np.concatenate(p) for p in zip(*(reader.prepare_raw(f) for f in frames)))
+        x = reader.preprocess_device(*payload)
+        lp_k, lp_p = reader._logprobs(x), plain._logprobs(x)
+        torch.cuda.synchronize()
+        if lp_k.shape != (FRONT_CLIPS, cfg.data.max_video_length, 39) or not torch.isfinite(
+                lp_k).all():
+            raise SystemExit(f"{mode}: bad log-probs {tuple(lp_k.shape)}")
+        worst = (lp_k - lp_p).abs().max().item()
+        if worst > SLICE_ATOL:
+            raise SystemExit(f"{mode}: kernel path disagrees with the plain path: {worst:.3e}")
+        top2 = lp_k.topk(2, dim=-1).values
+        margin = (top2[..., 0] - top2[..., 1]).min(dim=-1).values.cpu().numpy()
+        texts = reader._decode(lp_k)
+        differ = [i for i in range(FRONT_CLIPS) if texts[i] != answers[i]]
+        if any(margin[i] >= NEAR_TIE for i in differ):
+            raise SystemExit(f"{mode}: service answers differ from the reader's: {differ}")
+
+        # times per B=8 batch: the ROI program (for 'detector' the host
+        # cascade, then the device crop of its boxes) and the forward
+        if mode == "detector":
+            t0 = time.perf_counter()
+            host_boxes = roi_boxes(reader, mode, x_cpu)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            bx = host_boxes.to(dev)
+            roi_ms = time_ms(lambda: crop_resize_boxes(
+                x_dev.float(), bx, (cfg.data.img_height, cfg.data.img_width)))
+        else:
+            roi = make_roi_crop_fn(cfg.data, mode, reader._localizer)
+            roi_ms, host_ms = time_ms(lambda: roi(x_dev)), None
+        fwd_ms = time_ms(lambda: reader._logprobs(x))
+        out[mode] = {"batches": stats["batches"], "launches": got, "roi_ms": roi_ms,
+                     "host_boxes_ms": host_ms, "forward_ms": fwd_ms, "boxes": box_check,
+                     "mean_iou_known_box": box_iou, "max_abs_err_vs_plain": worst,
+                     "near_ties": differ}
+        print(f"  {mode}: batches {stats['batches']}, launches conv1_pool={got['conv1_pool']} "
+              f"gru_fwd={got['gru_fwd']} (per batch 1 and {layers}); boxes card vs CPU: "
+              f"{box_check}; mean IoU with the known mouth box {box_iou:.3f}; log-probs vs plain "
+              f"{worst:.3e} (tol {SLICE_ATOL}); per B=8 batch (CUDA events, median of 20): "
+              f"ROI program {roi_ms:.3f} ms"
+              + (f" (+ host cascade {host_ms:.1f} ms, host clock)" if host_ms is not None else "")
+              + f", forward with K1+K2 {fwd_ms:.3f} ms [{smi}]", flush=True)
+    return out, readers
+
+
+def train_roi_host(dev, workdir, container, smi, base, native_hw):
+    """12c: `cli train` for one epoch on a native 288x360 corpus (container
+    files where they can be written) with --roi_mode variance --roi_host
+    --device_cache on: K3 and K4 launch, the host crop's time per batch, the
+    cache holds crops."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from avsync_torch import cli
+    from avsync_torch.data.grid import GridDataSource, split_speakers
+    from avsync_torch.data.pipeline import LipNetBatcher
+    from avsync_torch.data.synthetic import write_corpus
+
+    root, n_speakers = os.path.join(workdir, "grid_native"), 7  # 4 / 1 / 2 speakers
+    t0 = time.perf_counter()
+    d = base.data
+    write_corpus(root, n_speakers=n_speakers, clips_per_speaker=2, layout="standard",
+                 preprocessed=False, n_frames=d.max_video_length, height=native_hw[0] // 4,
+                 width=native_hw[1] // 4, seed=13, with_audio=False)
+    if container:  # the corpus as GRID ships it: container files
+        for sp in os.listdir(root):
+            vdir = os.path.join(root, sp, "video")
+            for name in os.listdir(vdir):
+                write_container(os.path.join(vdir, name[:-4]),
+                                np.load(os.path.join(vdir, name)), None, container)
+                os.remove(os.path.join(vdir, name))
+    cfg = dataclasses.replace(base, data=dataclasses.replace(d, roi_mode="variance",
+                                                             roi_host=True))
+    cfg_path = os.path.join(workdir, "config_native.json")
+    with open(cfg_path, "w") as f:
+        f.write(base.to_json())
+    write_s = time.perf_counter() - t0
+    zero_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["train", "--data_path", root, "--config", cfg_path, "--epochs", "1",
+                   "--checkpoint_dir", os.path.join(workdir, "ckpt_native"), "--roi_mode",
+                   "variance", "--roi_host", "--device_cache", "on"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    if rc != 0 or not got["gru_bwd"] or not got["conv1_pool_bwd"] or not got["conv1_pool"]:
+        raise SystemExit(f"cli train --roi_mode variance --roi_host: rc {rc}, launches {got}")
+
+    train_sp = split_speakers([f"s{s}" for s in range(1, n_speakers + 1)], cfg.data.split)[0]
+    batcher = LipNetBatcher(GridDataSource(root, train_sp), cfg, device=dev)
+    raw = np.stack([batcher._decode_clip(s.video_path) for s in batcher.source.samples[:8]])
+    host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        crops = batcher._host_roi(raw)
+        host.append((time.perf_counter() - t0) * 1e3)
+    batcher.warm_device_cache()
+    cache = batcher._device_cache
+    crop_shape = (d.max_video_length, d.img_height, d.img_width)
+    if (crops.shape != (8, *crop_shape) or crops.dtype != np.uint8 or not cache["u8"]
+            or cache["video"].dtype != torch.uint8 or cache["clip_shape"] != (*crop_shape, 1)):
+        raise SystemExit(f"roi_host: crops {crops.shape} {crops.dtype}, cache {cache['dtype']} "
+                         f"{cache['clip_shape']}")
+    out = {"wall_s": wall, "launches": got, "host_crop_ms_per_batch": statistics.median(host),
+           "upload_bytes_per_clip": int(crops[0].nbytes), "native_bytes_per_clip":
+           int(raw[0].nbytes), "cache": [cache["dtype"], list(cache["clip_shape"]),
+                                         int(cache["n_cached"])]}
+    print(f"  cli train --roi_mode variance --roi_host --device_cache on, 1 epoch over "
+          f"{len(batcher.source)} .{container or 'npy'} clips of {native_hw} (corpus "
+          f"written in {write_s:.1f} s): wall {wall:.1f} s, launches {got}; host crop "
+          f"{out['host_crop_ms_per_batch']:.1f} ms per B=8 batch (host clock, median of 3), "
+          f"{out['upload_bytes_per_clip']} bytes per clip uploaded instead of "
+          f"{out['native_bytes_per_clip']}; device cache {cache['dtype']} "
+          f"{tuple(cache['clip_shape'])} x {cache['n_cached']} [{smi}]", flush=True)
+    return out
+
+
+def sync_container(dev, mp4, params, smi, base):
+    """12d: a sync request on a container clip, scored with its audio (the
+    `.mp4`'s own AAC stream, or an `.avi`'s sibling `.wav`): K1 and K5
+    launch; the probabilities against the plain path."""
+    import dataclasses
+
+    import numpy as np
+
+    from avsync_torch.compat import conv_shape_for
+    from avsync_torch.data.video import decode_av
+    from avsync_torch.predictor import MisalignmentScorer
+    from avsync_torch.serving import SyncScoreService
+
+    cfg = dataclasses.replace(base, audio=dataclasses.replace(base.audio, use_pallas=True))
+    plain_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, use_pallas_gru=False, fused_conv_pool=False), audio=base.audio)
+    C, h, w = conv_shape_for(cfg)
+    det = seeded_jax_layout_detector_params(2 * C * h * w + 2 * cfg.audio.n_mfcc, 256, seed=1)
+    scorer = MisalignmentScorer(detector_params=det, lipnet_params=params, config=cfg, device=dev)
+    plain = MisalignmentScorer(detector_params=det, lipnet_params=params, config=plain_cfg,
+                               device=dev)
+    svc = SyncScoreService(scorer, max_batch=MAX_BATCH)
+    svc.score_path(mp4, DET_SHIFTS)  # warm: the kernels' first calls
+    zero_counts()
+    t0 = time.perf_counter()
+    probs = svc.score_path(mp4, DET_SHIFTS)
+    ms = (time.perf_counter() - t0) * 1e3
+    got = counts()
+    svc.close()
+    frames, audio, fps = decode_av(mp4, cfg)
+    want = plain.score_arrays(frames, audio, fps, DET_SHIFTS)
+    err = float(np.abs(probs - want).max())
+    if (got["conv1_pool"] != 1 or got["mel_stats"] != 1 or not np.all(np.isfinite(probs))
+            or err > PROB_ATOL or audio.size == 0):
+        raise SystemExit(f"sync on a container: launches {got}, err {err:.3e}, "
+                         f"audio {audio.size} samples")
+    source = "its own AAC stream" if mp4.endswith(".mp4") else "its sibling .wav"
+    print(f"  sync request on {os.path.basename(mp4)} with {source} ({audio.size} "
+          f"samples at 16 kHz, fps {fps}): probs {np.round(probs, 4).tolist()} for shifts "
+          f"{list(DET_SHIFTS)}, vs plain {err:.3e} (tol {PROB_ATOL}), launches conv1_pool="
+          f"{got['conv1_pool']} mel_stats={got['mel_stats']}; {ms:.1f} ms end to end incl. "
+          f"decode (host clock) [{smi}]", flush=True)
+    return {"launches": got, "max_abs_err_vs_plain": err, "ms": ms}
+
+
+def export_variance(dev, workdir, frames, reader, smi, native_hw):
+    """12e: an exported artifact with the variance ROI embedded, against the
+    live reader at B = 1 and 8."""
+    import numpy as np
+
+    from avsync_torch.compat import save_lipnet_pth
+    from avsync_torch.export import export_transcriber
+
+    lip = os.path.join(workdir, "lipnet_front.pth")  # the live reader's weights
+    save_lipnet_pth(reader.model.state_dict(), lip)
+    t0 = time.perf_counter()
+    art = export_transcriber(lip, reader.cfg, frame_geometry=native_hw, device=dev)
+    export_s = time.perf_counter() - t0
+    errs = {}
+    for b in (1, FRONT_CLIPS):
+        got = art.call(frames[:b])[2]
+        want = reader._logprobs(reader.preprocess_device(frames[:b])).cpu().numpy()
+        errs[b] = float(np.abs(got - want).max())
+    if art.meta["roi"] != "embedded:variance" or max(errs.values()) > EXPORT_ATOL:
+        raise SystemExit(f"variance artifact: roi {art.meta['roi']}, errors {errs}")
+    print(f"  exported variance artifact ({native_hw}, symbolic batch, {export_s:.1f} s): "
+          f"log-probs vs the live reader max_abs_err B=1 {errs[1]:.3e}, B=8 "
+          f"{errs[FRONT_CLIPS]:.3e} (tol {EXPORT_ATOL}) [{smi}]", flush=True)
+    return errs
+
+
+def run_front_end(dev, workdir, smi, cfg=None, native_hw=(288, 360)):
+    """Phase 12: the ingest's state, then the path from a container clip to
+    the model input in every ROI mode, training on host crops, a sync
+    request on a container's own audio, and an exported variance artifact.
+    `cfg`: the model and crop geometry with the kernel flags on (the full
+    default width when None); `native_hw`: the clips' frame size (GRID's)."""
+    import shutil
+
+    from avsync_torch.config import AudioConfig, AvsyncConfig, ModelConfig
+    from avsync_torch.ingest import native
+
+    cfg = cfg or AvsyncConfig(model=ModelConfig(use_pallas_gru=True, fused_conv_pool=True),
+                              audio=AudioConfig())
+
+    out = {}
+    if native.available():
+        info = native.build_info()
+        print(f"ingest: built in {info['seconds']:.1f} s (libavformat {info['libavformat']})",
+              flush=True)
+        container = "mp4"
+    else:
+        why = " ".join(native.why_unavailable().split())
+        print(f"ingest: unavailable: {why}", flush=True)
+        if shutil.which("pkg-config") and subprocess.run(
+                ["pkg-config", "--exists", *native.PKGS]).returncode == 0:
+            raise SystemExit("libav is installed but the ingest did not build or load")
+        try:
+            import cv2
+
+            container = "avi"
+            print(f"  containers: through cv2 {cv2.__version__} (the fallback of "
+                  f"data/video.py)", flush=True)
+        except ImportError:
+            container = None
+            print("  containers: none (no ingest, no cv2): .npy clips only", flush=True)
+    out["ingest"] = native.build_info() or {"unavailable": native.why_unavailable()}
+    frames, known, mp4s, out["decode"] = front_end_clips(
+        workdir, container, smi, cfg.data.max_video_length, native_hw)
+    params = seeded_jax_layout_params(cfg, seed=0)
+    out["roi_modes"], readers = transcribe_roi_modes(dev, frames, known, params, smi, cfg)
+    out["train_roi_host"] = train_roi_host(dev, workdir, container, smi, cfg, native_hw)
+    if container:
+        out["sync_container"] = sync_container(dev, mp4s[0], params, smi, cfg)
+    else:
+        print("  sync request on a container clip: not run (no container decoder)", flush=True)
+    out["export_variance"] = export_variance(dev, workdir, frames, readers["variance"], smi,
+                                             native_hw)
+    print(f"  front end phase numbers [{smi}]: {json.dumps(out)}", flush=True)
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "avsync_torch", "csrc")):
         print("chip_smoke: run from a checkout of the repository (avsync_torch/ missing)",
@@ -2642,6 +3112,11 @@ def main() -> int:
                                                     ("grid", "ckpt", "config.json")),
                                 greedy, crops, serving["live"]["transcribe_crops"], smi)
         print(f"int8 serving phase: {time.perf_counter() - t11:.1f} s", flush=True)
+        t12 = time.perf_counter()
+        front_dir = os.path.join(workdir, "front")
+        os.makedirs(front_dir)
+        front = run_front_end(dev, front_dir, smi)
+        print(f"front end phase: {time.perf_counter() - t12:.1f} s", flush=True)
     for k in (k1, k2, k3, k4):
         k["launches"] = trained[k["name"]]
     k5["launches"], k5["launches_serving"] = detector["mel_stats"], served["mel_stats"]
@@ -2664,6 +3139,13 @@ def main() -> int:
     q1["launches_daemon_int8"] = int8["launches"]
     k2["launches_daemon_int8"] = {"transcribe_batches": int8["launches"]["transcribe_batches"],
                                   "launches": int8["launches"]["gru_fwd"]}
+    for mode, row in front["roi_modes"].items():  # phase 12's own path, per ROI mode
+        k1.setdefault("launches_roi_modes", {})[mode] = row["launches"]["conv1_pool"]
+        k2.setdefault("launches_roi_modes", {})[mode] = row["launches"]["gru_fwd"]
+    for k in (k1, k3, k4):
+        k["launches_train_roi_host"] = front["train_roi_host"]["launches"][k["name"]]
+    if "sync_container" in front:
+        k5["launches_container_sync"] = front["sync_container"]["launches"]["mel_stats"]
     for k in (k1, k2, k3, k4, k5, q1):
         if not k["launches"] or k.get("launches_serving") == 0 or any(
                 k.get(f"launches_daemon_{w}", {"launches": 1})["launches"] == 0

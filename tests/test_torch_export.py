@@ -225,9 +225,26 @@ def test_native_geometry_embeds_the_heuristic_roi(loaded, reader):
 
 @pytest.mark.parametrize("mode", ["detector", "model", "variance"])
 def test_unported_roi_modes_raise(ckpts, mode):
+    """The device ROI modes embed in the artifact ('variance', and 'model'
+    with the localizer's weights as buffers) and give the live reader's
+    log-probs; 'detector', a host cascade, raises the JAX package's
+    ValueError (avsync/export.py:218-223)."""
+    from avsync_torch.predictor import LipReader
+
     cfg = dataclasses.replace(CFG, data=dataclasses.replace(CFG.data, roi_mode=mode))
-    with pytest.raises(NotImplementedError, match=mode):
-        export_transcriber(ckpts["lipnet"], cfg, frame_geometry=(32, 64), device="cpu")
+    if mode == "detector":
+        with pytest.raises(ValueError, match="roi_mode='detector' runs a host-side cascade"):
+            export_transcriber(ckpts["lipnet"], cfg, frame_geometry=(32, 64), device="cpu")
+        return
+    art = export_transcriber(ckpts["lipnet"], cfg, frame_geometry=(32, 64), device="cpu")
+    assert art.meta["roi"] == f"embedded:{mode}"
+    if mode == "model":
+        assert {n for n, _ in art._exported[None].named_buffers()} >= {
+            "prep.localizer.conv1.weight", "prep.localizer.fc2.bias"}
+    live = LipReader(checkpoint=ckpts["lipnet"], config=cfg, device="cpu")
+    frames = _frames(13, (3, 8, 32, 64))
+    want = live._logprobs(live.preprocess_device(frames)).numpy()
+    np.testing.assert_allclose(art.call(frames)[2], want, rtol=0, atol=1e-6)
 
 
 def test_sync_scorer_matches_the_jax_scorer(loaded, ckpts):

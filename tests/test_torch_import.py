@@ -47,6 +47,11 @@ def test_every_module_imports_without_jax_or_avsync():
             "avsync_torch.train.epoch_program", "avsync_torch.ops.ctc"} <= set(loaded)
     assert {"avsync_torch.export", "avsync_torch.ops.beam"} <= set(loaded)
     assert {"avsync_torch.ops.quant", "avsync_torch.ops.cuda.quantconv"} <= set(loaded)
+    assert {"avsync_torch.ingest.native", "avsync_torch.models.localizer",
+            "avsync_torch.data.mouth"} <= set(loaded)
+    # cv2 is a fallback imported when used, never at import (the card's
+    # machine may have none)
+    assert "cv2" not in loaded
 
 
 def test_the_daemon_and_the_artifact_loader_import_no_model_code():

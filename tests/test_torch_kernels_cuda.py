@@ -789,3 +789,29 @@ def test_int8_reader_launches_q1_and_k2_only_and_keeps_the_jax_bounds(dev, tmp_p
     want = f32._logprobs(clips)
     assert (got - want).abs().mean().item() < 0.05
     assert (got.argmax(-1) == want.argmax(-1)).float().mean().item() >= 0.95
+
+
+def test_roi_boxes_on_the_card_equal_the_cpu(dev):
+    """The variance boxes of the same native frames are the same bits on the
+    card as on the CPU, and the localizer's within 1e-5 with the same gate
+    choice (the ROI code divides by device tensors: PyTorch's CUDA division
+    by a Python scalar multiplies by its reciprocal)."""
+    import copy
+
+    from avsync_torch.models import localizer
+    from avsync_torch.ops.image import true_div, variance_mouth_boxes
+
+    g = _gen(12)
+    x = (torch.rand(4, 75, 288, 360, generator=g) * 255).round()
+    x[:, :, 180:260, 120:240] += 60 * torch.rand(4, 75, 1, 1, generator=g)
+    assert torch.equal(variance_mouth_boxes(x.to(dev)).cpu(), variance_mouth_boxes(x))
+    y = torch.arange(1, 288, dtype=torch.float32)
+    assert torch.equal(true_div(y.to(dev), 288).cpu(), y / 288)
+    loc = localizer.load_bundled_or_none(dev)
+    heur = torch.tensor([0.6, 1.0, 0.3, 0.7])
+    card = localizer.gate_boxes(x.to(dev), localizer.localize_clip_boxes(loc, x.to(dev)),
+                                heur.to(dev)).cpu()
+    cpu_loc = copy.deepcopy(loc).cpu()
+    host = localizer.gate_boxes(x, localizer.localize_clip_boxes(cpu_loc, x), heur)
+    assert torch.equal((card == heur).all(-1), (host == heur).all(-1))
+    torch.testing.assert_close(card, host, rtol=0, atol=1e-5)

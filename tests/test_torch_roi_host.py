@@ -1,10 +1,9 @@
-"""`DataConfig.roi_host` in the port: the JAX package crops native-size
-frames on the host and rounds the crops to uint8 under it
-(avsync/data/pipeline.py:239-280), which the port does not do. The port's
-LipNetBatcher raises for it on native frames, so no corpus is silently
-trained or banked on other values; pre-cropped clips (no crop in either
-package) and serving (the JAX predictor never reads the flag) are unchanged.
-The configs come from the JAX package's JSON.
+"""`DataConfig.roi_host` in the port: native-size frames are cropped on the
+host by the ROI program and the crops rounded to uint8, as the JAX batcher
+does (avsync/data/pipeline.py:239-280), in streamed and cached epochs;
+pre-cropped clips (no crop in either package) and serving (the JAX
+predictor never reads the flag) are unchanged. The configs come from the
+JAX package's JSON.
 """
 
 import dataclasses
@@ -16,6 +15,10 @@ import torch
 from avsync.config import AvsyncConfig as JaxConfig
 from avsync.config import DataConfig as JaxDataConfig
 from avsync.data import synthetic
+from avsync.data.grid import GridDataSource as JaxSource
+from avsync.data.pipeline import LipNetBatcher as JaxBatcher
+from avsync.ops.image import variance_mouth_boxes as jax_variance_boxes
+from avsync_torch.ops.image import variance_mouth_boxes
 from avsync_torch.config import AvsyncConfig
 from avsync_torch.data.grid import GridDataSource
 from avsync_torch.data.pipeline import LipNetBatcher
@@ -29,12 +32,15 @@ def _corpus(tmp_path, preprocessed):
     return root
 
 
-def _cfg(root, roi_host, device_cache):
+def _jax_cfg(root, roi_host, device_cache, roi_mode="heuristic"):
+    return JaxConfig(data=JaxDataConfig(data_path=root, img_height=12, img_width=20,
+                                        max_video_length=4, batch_size=2, roi_mode=roi_mode,
+                                        roi_host=roi_host, device_cache=device_cache))
+
+
+def _cfg(root, roi_host, device_cache, roi_mode="heuristic"):
     """The port's config read from the JAX package's JSON."""
-    jax_cfg = JaxConfig(data=JaxDataConfig(data_path=root, img_height=12, img_width=20,
-                                           max_video_length=4, batch_size=2,
-                                           roi_host=roi_host, device_cache=device_cache))
-    cfg = AvsyncConfig.from_json(jax_cfg.to_json())
+    cfg = AvsyncConfig.from_json(_jax_cfg(root, roi_host, device_cache, roi_mode).to_json())
     assert cfg.data.roi_host is roi_host
     return cfg
 
@@ -46,9 +52,30 @@ def _epoch(root, cfg):
 
 @pytest.mark.parametrize("device_cache", ["off", "on"])
 def test_roi_host_on_native_frames_raises(tmp_path, device_cache):
+    """Native 48x80 frames under roi_host and the variance ROI: each epoch's
+    crops within one uint8 step of the JAX batcher's host crop (its own
+    bound, tests/test_data.py TestHostRoi), from equal boxes; the device
+    cache holds the uint8 crops."""
     root = _corpus(tmp_path, preprocessed=False)
-    with pytest.raises(NotImplementedError, match=r"roi_host=True.*ROADMAP §1 item 6"):
-        _epoch(root, _cfg(root, True, device_cache))
+    cfg = _cfg(root, True, device_cache, "variance")
+    batcher = LipNetBatcher(GridDataSource(root), cfg, device="cpu")
+    jax_batcher = JaxBatcher(JaxSource(root), _jax_cfg(root, True, device_cache, "variance"))
+    for _ in range(2):  # under 'on' both epochs come from the cache
+        got = [b["video"].numpy() for b in batcher.epoch(shuffle=False, drop_last=False)]
+        want = [np.asarray(b["video"])
+                for b in jax_batcher.epoch(shuffle=False, drop_last=False)]
+        assert len(got) == len(want) == 2
+        for a, b in zip(got, want):
+            assert a.shape == b.shape == (2, 4, 12, 20, 1)
+            np.testing.assert_allclose(a, b, rtol=0, atol=1.0 / 255 + 1e-6)
+            np.testing.assert_allclose(a * 255, np.round(a * 255), atol=1e-4)  # uint8 crops
+    raws = np.stack([batcher._decode_clip(s.video_path) for s in batcher.source.samples])
+    np.testing.assert_array_equal(variance_mouth_boxes(torch.from_numpy(raws)).numpy(),
+                                  np.asarray(jax_variance_boxes(raws.astype(np.float32))))
+    if device_cache == "on":
+        cache = batcher._device_cache
+        assert cache["u8"] and cache["video"].dtype == torch.uint8
+        assert cache["clip_shape"] == (4, 12, 20, 1)
     assert len(_epoch(root, _cfg(root, False, device_cache))) == 2
 
 
