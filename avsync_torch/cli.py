@@ -14,9 +14,13 @@ quantize, export, serve, misalign-train, misalign-eval).
     python -m avsync_torch.cli misalign-train --data_path data --checkpoint lipnet.pth
     python -m avsync_torch.cli misalign-eval --data_path data --checkpoint lipnet.pth
 
-Every command runs on the card unless `--device cpu` is given. `train`,
-`test` and `quantize` build the JAX package's default LipNet (or the `--config` JSON's)
-with both LipNet kernel flags on, the `misalign-*` commands with conv1's
+`--model_family tf` runs the TF-family LipNet (Conv3D 128/256/64 + 3xBiLSTM,
+blank-last CTC over its own vocabulary, 46x140 standardized crops) through
+train, test, infer, quantize, export and serve; it reads its weights from
+the port's checkpoint directories (a reference `.pth` holds the PyTorch
+family). Every command runs on the card unless `--device cpu` is given.
+`train`, `test` and `quantize` build the JAX package's default LipNet (or
+the `--config` JSON's) with both LipNet kernel flags on, the `misalign-*` commands with conv1's
 and the MFCC stage's (`fused_conv_pool`, `AudioConfig.use_pallas`), `serve`
 and `export` with all three, unless the config file turns them off; all run
 with TF32 off for cuDNN and cuBLAS, as the JAX reference computes in fp32.
@@ -70,14 +74,30 @@ def _config_from_args(args) -> AvsyncConfig:
     ), args)
 
 
+def _with_family(cfg: AvsyncConfig, family: Optional[str]) -> AvsyncConfig:
+    """--model_family over a config (`avsync/cli.py:143-216`): 'tf' over a
+    config of the other family also switches to the TF stack's conv widths
+    (128, 256, 64) and its data geometry, 46x140 crops with per-clip
+    standardization (`train.py:88-89,266-273,505-521`)."""
+    if family is None or family == cfg.model.family:
+        return cfg
+    if family != "tf":
+        return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, family=family))
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, family="tf", conv_channels=(128, 256, 64)),
+        data=dataclasses.replace(cfg.data, img_width=140, img_height=46,
+                                 standardize_clips=True))
+
+
 def _with_common_flags(cfg: AvsyncConfig, args) -> AvsyncConfig:
-    """The common flags of every command over a config: --roi_mode,
-    --roi_host and the perf flags --compute_dtype, --packed_conv and --remat
-    (an explicit flag wins over the config file)."""
+    """The common flags of every command over a config: --model_family,
+    --roi_mode, --roi_host and the perf flags --compute_dtype, --packed_conv
+    and --remat (an explicit flag wins over the config file)."""
     def arg(name, fallback):
         v = getattr(args, name, None)
         return fallback if v is None else v
 
+    cfg = _with_family(cfg, getattr(args, "model_family", None))
     return dataclasses.replace(
         cfg,
         data=dataclasses.replace(cfg.data, roi_mode=arg("roi_mode", cfg.data.roi_mode),
@@ -91,9 +111,6 @@ def _with_common_flags(cfg: AvsyncConfig, args) -> AvsyncConfig:
 def _refuse_unported(args) -> None:
     """The common flags' values the port does not run yet raise, naming
     their ROADMAP item, before any work."""
-    if getattr(args, "model_family", None) == "tf":
-        raise NotImplementedError("--model_family tf: the TF-family LipNet is not ported yet "
-                                  "(ROADMAP §1 item 7)")
     if getattr(args, "distributed", False):
         raise NotImplementedError("--distributed: multi-device and multi-host runs are not "
                                   "ported yet (ROADMAP §1 item 8)")
@@ -126,6 +143,7 @@ def _evaluate(model, cfg: AvsyncConfig, batcher, source, out_json: str, device,
     from avsync_torch.ops.quant import make_int8_forward, quantize_lipnet
     from avsync_torch.train.lipnet_trainer import device_batch, eval_step
 
+    decode = textlib.family_decoder(cfg.model.family)
     model.eval()
     qfwd = make_int8_forward(cfg.model) if quantize == "int8" else None
     qparams = None
@@ -140,7 +158,7 @@ def _evaluate(model, cfg: AvsyncConfig, batcher, source, out_json: str, device,
                 log_probs = qfwd(qparams, dbatch["video"])
         else:
             _, log_probs = eval_step(model, dbatch)
-        for d in textlib.decode_batch(log_probs[: batch["valid"]], beam_width=beam_width):
+        for d in decode(log_probs[: batch["valid"]], beam_width=beam_width):
             idx = len(preds)
             preds.append(d)
             targets.append(source.samples[idx].text)
@@ -164,6 +182,9 @@ def cmd_train(args) -> int:
 
     _no_tf32()
     cfg = _config_from_args(args)
+    if args.export_pth and cfg.model.family == "tf":
+        raise ValueError("--export_pth writes the reference PyTorch-family .pth; a 'tf' model "
+                         "is read from its checkpoint directory (--checkpoint_dir)")
     trainer = LipNetTrainer(cfg, device=args.device)  # refuses what the port does not run
     speakers = args.speakers or check_data_structure(cfg.data.data_path)
     if not speakers:
@@ -190,13 +211,14 @@ def cmd_train(args) -> int:
         from avsync_torch.train.lipnet_trainer import device_batch, eval_step
 
         ex_batches = {name: batchers[name].first_batch() for name in ("train", "val")}
+        decode = textlib.family_decoder(cfg.model.family)
 
         def example_fn(state, epoch):
             # per-epoch qualitative decode (ProduceExample, `train.py:552-608`)
             for name, b in ex_batches.items():
                 _, lp = eval_step(state.model, device_batch(b, trainer.device))
                 print(f"[{name} examples, epoch {epoch}]")
-                for i, p in enumerate(textlib.decode_batch(lp[:2])):
+                for i, p in enumerate(decode(lp[:2])):
                     print(f"  original:   {sources[name].samples[i].text}")
                     print(f"  prediction: {p}")
 
@@ -260,23 +282,10 @@ def cmd_train(args) -> int:
     return 0
 
 
-def _load_state_dict(checkpoint: str):
-    """A reference `.pth` (either layout) or a port checkpoint directory
-    (its latest snapshot)."""
-    from avsync_torch.compat import load_pth
-    from avsync_torch.utils.checkpoint import CheckpointManager
-
-    if os.path.isdir(checkpoint):
-        payload, _ = CheckpointManager(checkpoint).restore()
-        return payload["model_state_dict"]
-    return load_pth(checkpoint)
-
-
 def cmd_test(args) -> int:
     from avsync_torch.data.grid import GridDataSource, check_data_structure, split_speakers
     from avsync_torch.data.pipeline import LipNetBatcher
-    from avsync_torch.models.lipnet import LipNet
-    from avsync_torch.predictor import resolve_device
+    from avsync_torch.predictor import load_lipnet, lipnet_state, resolve_device
 
     _no_tf32()
     cfg = _config_from_args(args)
@@ -284,10 +293,7 @@ def cmd_test(args) -> int:
     speakers = args.speakers or check_data_structure(cfg.data.data_path)
     _, _, test_sp = split_speakers(speakers, cfg.data.split)
     src = GridDataSource(cfg.data.data_path, test_sp)
-    d = cfg.data
-    model = LipNet(cfg.model, img_hw=(d.img_height, d.img_width))
-    model.load_state_dict(_load_state_dict(args.checkpoint))
-    model.to(device)
+    model = load_lipnet(cfg, lipnet_state(cfg, args.checkpoint), device)
     _evaluate(model, cfg, LipNetBatcher(src, cfg, device=device), src,
               args.output or "test_results.json", device, beam_width=args.beam,
               quantize=args.quantize)
@@ -296,14 +302,14 @@ def cmd_test(args) -> int:
 
 def cmd_infer(args) -> int:
     from avsync_torch.predictor import LipReader
-    from avsync_torch.text import decode_batch, parse_align_text
+    from avsync_torch.text import family_decoder, parse_align_text
 
     # an int8 reader calibrates lazily on its first input: this clip
     reader = LipReader(checkpoint=args.checkpoint,
                        config=_with_common_flags(_config(args.config), args),
                        device=args.device, quantize=args.quantize)
     log_probs = reader._logprobs(reader._prepare(reader._load(args.video)))
-    pred = decode_batch(log_probs, beam_width=args.beam)[0]
+    pred = family_decoder(reader.cfg.model.family)(log_probs, beam_width=args.beam)[0]
     print(f"Predicted: {pred}")
     base = os.path.splitext(args.video)[0]
     for ext in (".align", ".txt"):
@@ -328,17 +334,14 @@ def cmd_quantize(args) -> int:
 
     from avsync_torch.data.grid import GridDataSource
     from avsync_torch.data.pipeline import LipNetBatcher
-    from avsync_torch.models.lipnet import LipNet
     from avsync_torch.ops.quant import calibrate_conv_input_scales
-    from avsync_torch.predictor import resolve_device
+    from avsync_torch.predictor import load_lipnet, lipnet_state, resolve_device
 
     _no_tf32()
     cfg = _config_from_args(args)
     device = resolve_device(args.device)
     d = cfg.data
-    model = LipNet(cfg.model, img_hw=(d.img_height, d.img_width))
-    model.load_state_dict(_load_state_dict(args.checkpoint))
-    model.to(device).eval()
+    model = load_lipnet(cfg, lipnet_state(cfg, args.checkpoint), device)
     src = GridDataSource(d.data_path, args.speakers or None)
     if len(src) == 0:
         print(f"ERROR: no clips under {d.data_path}")
@@ -444,7 +447,7 @@ def cmd_serve(args) -> int:
             raise SystemExit("need --checkpoint (live) or --artifact (exported)")
         if args.dp != 1:
             raise NotImplementedError("--dp: multi-device serving is not ported yet "
-                                      "(ROADMAP §1 item 14)")
+                                      "(ROADMAP §1 item 8)")
         from avsync_torch.predictor import LipReader, MisalignmentScorer
 
         cfg = _serving_config(args)
@@ -635,11 +638,13 @@ def cmd_misalign_train(args) -> int:
 
     from avsync_torch.compat import save_detector_pth
     from avsync_torch.data.grid import GridDataSource, discover_speakers, split_videos
-    from avsync_torch.predictor import load_lipnet, resolve_device
+    from avsync_torch.predictor import (load_lipnet, lipnet_state, refuse_tf_detector,
+                                        resolve_device)
     from avsync_torch.train.detector_trainer import DetectorTrainer
     from avsync_torch.utils.logging import Logger, format_time
 
     _no_tf32()
+    refuse_tf_detector(_detector_config_from_args(args))
     device = resolve_device(args.device)
     log_folder = os.path.join(args.log_dir,
                               f"misalignment_{datetime.now().strftime('%Y%m%d_%H%M%S')}")
@@ -664,7 +669,7 @@ def cmd_misalign_train(args) -> int:
     logger.log(f"Using {len(video_paths)} videos from {len(speakers)} speakers")
     print(f"Using {len(video_paths)} videos")
 
-    lipnet = load_lipnet(cfg, _load_state_dict(args.checkpoint), device)
+    lipnet = load_lipnet(cfg, lipnet_state(cfg, args.checkpoint), device)
     train_p, val_p, test_p = split_videos(video_paths, seed=cfg.train.seed)
     logger.log(f"Train: {len(train_p)}, Val: {len(val_p)}, Test: {len(test_p)}")
     banks = {name: _build_bank(cfg, src, lipnet, paths, device, checkpoint=args.checkpoint,
@@ -728,10 +733,12 @@ def cmd_misalign_eval(args) -> int:
     from avsync_torch.features import gather_features
     from avsync_torch.models.detector import MisalignmentDetector
     from avsync_torch.ops.conv import fp32_step
-    from avsync_torch.predictor import load_lipnet, resolve_device
+    from avsync_torch.predictor import (load_lipnet, lipnet_state, refuse_tf_detector,
+                                        resolve_device)
 
     _no_tf32()
     cfg = _detector_config_from_args(args)
+    refuse_tf_detector(cfg)
     device = resolve_device(args.device)
     det_state, meta = load_detector_pth(args.detector_checkpoint)
     detector = MisalignmentDetector(det_state["classifier.0.weight"].shape[1],
@@ -739,7 +746,7 @@ def cmd_misalign_eval(args) -> int:
                                     generator=torch.Generator())
     detector.load_state_dict(det_state)
     detector.to(device).eval()
-    lipnet = load_lipnet(cfg, _load_state_dict(args.checkpoint), device)
+    lipnet = load_lipnet(cfg, lipnet_state(cfg, args.checkpoint), device)
 
     speakers = args.speakers or discover_speakers(cfg.data.data_path)
     src = GridDataSource(cfg.data.data_path, speakers)
@@ -792,8 +799,9 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--device", default=None,
                         help="torch device; default: the GPU (fails without one)")
         sp.add_argument("--model_family", choices=["pytorch", "tf"], default=None,
-                        help="model stack: pytorch (Conv3D+BiGRU, the default); tf is not "
-                             "ported yet and raises NotImplementedError")
+                        help="model stack: pytorch (Conv3D+BiGRU, blank 0, the default) or "
+                             "tf (Conv3D 128/256/64 + 3xBiLSTM, blank last; over a pytorch "
+                             "config it also switches to 46x140 standardized crops)")
         sp.add_argument("--roi_mode", choices=["heuristic", "detector", "variance", "model"],
                         default=None,
                         help="mouth ROI of native-size frames: fixed fractions / host cascade "
@@ -867,7 +875,8 @@ def build_parser() -> argparse.ArgumentParser:
     common(inf)
     inf.add_argument("video", help="a container file (GRID's .mpg, .mp4, .avi) or a (T, H, W) "
                                    ".npy clip, native size or 50x100 crops")
-    inf.add_argument("--checkpoint", required=True, help="reference LipNet .pth")
+    inf.add_argument("--checkpoint", required=True,
+                     help=".pth file or a port checkpoint directory")
     inf.add_argument("--beam", type=int, default=0,
                      help="CTC beam width (0 = greedy, the reference decode)")
     inf.add_argument("--quantize", choices=["int8"], default=None,
@@ -888,7 +897,8 @@ def build_parser() -> argparse.ArgumentParser:
     ex = sub.add_parser("export", help="serving artifact through torch.export (preprocess, "
                                        "forward and CTC decode, weights baked in)")
     common(ex)
-    ex.add_argument("--checkpoint", type=str, required=True, help="reference LipNet .pth")
+    ex.add_argument("--checkpoint", type=str, required=True,
+                    help=".pth file or a port checkpoint directory")
     ex.add_argument("--out", type=str, default="lipnet_serving.zip",
                     help="the artifact: a zip of torch.export programs and their meta")
     ex.add_argument("--frame_geometry", type=str, default=None,
@@ -906,7 +916,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     sv = sub.add_parser("serve", help="HTTP serving daemon with dynamic batching")
     common(sv)
-    sv.add_argument("--checkpoint", type=str, default=None, help="reference LipNet .pth")
+    sv.add_argument("--checkpoint", type=str, default=None,
+                    help=".pth file or a port checkpoint directory")
     sv.add_argument("--detector_checkpoint", type=str, default=None,
                     help="also serve /v1/sync_score from this detector")
     sv.add_argument("--artifact", action="append", default=None,

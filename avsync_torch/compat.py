@@ -18,6 +18,11 @@ that state dict:
 `lipnet_params_to_jax` is its inverse: it hands a port-trained model (or a
 dict of its gradients) back in the JAX package's layout.
 
+`tflipnet_params_from_jax` / `tflipnet_params_to_jax` do the same for the
+TF-family LipNet (`models/lipnet_tf.py`): conv kernels as above, LSTM
+w_ih / w_hh (D, 4H) -> (4H, D) with the first LSTM's input rows permuted
+between (H, W, C) and (C, H, W) order, Dense kernels (in, out) -> (out, in).
+
 `quant_params_from_jax` carries the JAX package's int8 serving params
 (`avsync.ops.quant.QuantLipNetParams`) across: each int8 kernel from (kt, kh,
 kw, Cin, Cout) to (Cout, Cin, kt, kh, kw), its scales and bias as they are,
@@ -77,6 +82,62 @@ def load_pth(path: str) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v) for k, v in unwrap_state_dict(ckpt).items()}
 
 
+def _np32(t) -> np.ndarray:
+    t = t.detach().cpu() if hasattr(t, "detach") else t
+    return np.ascontiguousarray(np.asarray(t, dtype=np.float32))
+
+
+def _torch32(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+            for k, v in sd.items()}
+
+
+def _convs_from_jax(params, num_conv: int, sd: Dict[str, np.ndarray]) -> None:
+    for i in range(1, num_conv + 1):
+        conv = params[f"conv{i}"]
+        sd[f"conv{i}.weight"] = np.asarray(conv["kernel"]).transpose(4, 3, 0, 1, 2)
+        sd[f"conv{i}.bias"] = np.asarray(conv["bias"])
+
+
+def _convs_to_jax(sd, num_conv: int, params: Dict[str, Any]) -> None:
+    for i in range(1, num_conv + 1):
+        params[f"conv{i}"] = {"kernel": _np32(sd[f"conv{i}.weight"]).transpose(2, 3, 4, 1, 0),
+                              "bias": _np32(sd[f"conv{i}.bias"])}
+
+
+def _rnn_from_jax(params, prefix: str, num_layers: int, conv_shape,
+                  sd: Dict[str, np.ndarray]) -> None:
+    """Bidirectional recurrent layers `{prefix}1..n` (GRU or LSTM: the same
+    keys), w (D, kH) -> (kH, D); the first layer's input rows go from (H, W,
+    C) to (C, H, W) order."""
+    inv = np.argsort(chw_to_hwc_perm(conv_shape))  # chw_flat = hwc_flat[inv]
+    for g in range(1, num_layers + 1):
+        layer = params[f"{prefix}{g}"]
+        for suffix, name in (("", "fwd"), ("_reverse", "bwd")):
+            w_ih = np.asarray(layer[f"w_ih_{name}"]).T
+            if g == 1:
+                w_ih = w_ih[:, inv]
+            sd[f"{prefix}{g}.weight_ih_l0{suffix}"] = w_ih
+            sd[f"{prefix}{g}.weight_hh_l0{suffix}"] = np.asarray(layer[f"w_hh_{name}"]).T
+            sd[f"{prefix}{g}.bias_ih_l0{suffix}"] = np.asarray(layer[f"b_ih_{name}"])
+            sd[f"{prefix}{g}.bias_hh_l0{suffix}"] = np.asarray(layer[f"b_hh_{name}"])
+
+
+def _rnn_to_jax(sd, prefix: str, num_layers: int, conv_shape, params: Dict[str, Any]) -> None:
+    perm = chw_to_hwc_perm(conv_shape)
+    for g in range(1, num_layers + 1):
+        layer: Dict[str, np.ndarray] = {}
+        for suffix, name in (("", "fwd"), ("_reverse", "bwd")):
+            w_ih = _np32(sd[f"{prefix}{g}.weight_ih_l0{suffix}"])
+            if g == 1:
+                w_ih = w_ih[:, perm]
+            layer[f"w_ih_{name}"] = w_ih.T
+            layer[f"w_hh_{name}"] = _np32(sd[f"{prefix}{g}.weight_hh_l0{suffix}"]).T
+            layer[f"b_ih_{name}"] = _np32(sd[f"{prefix}{g}.bias_ih_l0{suffix}"])
+            layer[f"b_hh_{name}"] = _np32(sd[f"{prefix}{g}.bias_hh_l0{suffix}"])
+        params[f"{prefix}{g}"] = layer
+
+
 def lipnet_params_from_jax(
     params: Mapping[str, Any],
     num_conv: int = 3,
@@ -86,30 +147,52 @@ def lipnet_params_from_jax(
     """JAX-layout LipNet params (nested dict of arrays) -> the port's
     float32 state dict."""
     sd: Dict[str, np.ndarray] = {}
-    for i in range(1, num_conv + 1):
-        conv = params[f"conv{i}"]
-        sd[f"conv{i}.weight"] = np.asarray(conv["kernel"]).transpose(4, 3, 0, 1, 2)
-        sd[f"conv{i}.bias"] = np.asarray(conv["bias"])
-
-    # inverse of the (C,H,W)->(H,W,C) map: chw_flat = hwc_flat[inv]
-    inv = np.argsort(chw_to_hwc_perm(conv_shape))
-    for g in range(1, num_gru + 1):
-        layer = params[f"gru{g}"]
-        for suffix, name in (("", "fwd"), ("_reverse", "bwd")):
-            w_ih = np.asarray(layer[f"w_ih_{name}"]).T  # (3H, D)
-            if g == 1:
-                w_ih = w_ih[:, inv]
-            sd[f"gru{g}.weight_ih_l0{suffix}"] = w_ih
-            sd[f"gru{g}.weight_hh_l0{suffix}"] = np.asarray(layer[f"w_hh_{name}"]).T
-            sd[f"gru{g}.bias_ih_l0{suffix}"] = np.asarray(layer[f"b_ih_{name}"])
-            sd[f"gru{g}.bias_hh_l0{suffix}"] = np.asarray(layer[f"b_hh_{name}"])
-
+    _convs_from_jax(params, num_conv, sd)
+    _rnn_from_jax(params, "gru", num_gru, conv_shape, sd)
     sd["fc.weight"] = np.asarray(params["fc"]["kernel"]).T
     sd["fc.bias"] = np.asarray(params["fc"]["bias"])
-    return {
-        k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
-        for k, v in sd.items()
-    }
+    return _torch32(sd)
+
+
+_TF_DENSE = ("dense1", "dense2", "head")
+
+
+def tflipnet_params_from_jax(
+    params: Mapping[str, Any],
+    conv_shape: Tuple[int, int, int],
+    num_conv: int = 3,
+    num_lstm: int = 3,
+) -> Dict[str, torch.Tensor]:
+    """JAX-layout TFLipNet params -> the port's float32 `TFLipNet` state
+    dict: conv kernels DHWIO -> OIDHW, LSTM w_ih / w_hh (D, 4H) -> (4H, D)
+    (the first LSTM's input rows, both directions, from (H, W, C) to (C, H,
+    W) order over `conv_shape`, (64, 5, 17) at 46x140), Dense kernels (in,
+    out) -> (out, in); biases as they are."""
+    sd: Dict[str, np.ndarray] = {}
+    _convs_from_jax(params, num_conv, sd)
+    _rnn_from_jax(params, "lstm", num_lstm, conv_shape, sd)
+    for name in _TF_DENSE:
+        sd[f"{name}.weight"] = np.asarray(params[name]["kernel"]).T
+        sd[f"{name}.bias"] = np.asarray(params[name]["bias"])
+    return _torch32(sd)
+
+
+def tflipnet_params_to_jax(
+    state_dict: Mapping[str, Any],
+    conv_shape: Tuple[int, int, int],
+    num_conv: int = 3,
+    num_lstm: int = 3,
+) -> Dict[str, Any]:
+    """The inverse of `tflipnet_params_from_jax` (also for a same-keyed dict
+    of gradients): the JAX package's nested float32 numpy params."""
+    sd = unwrap_state_dict(state_dict)
+    params: Dict[str, Any] = {}
+    _convs_to_jax(sd, num_conv, params)
+    _rnn_to_jax(sd, "lstm", num_lstm, conv_shape, params)
+    for name in _TF_DENSE:
+        params[name] = {"kernel": _np32(sd[f"{name}.weight"]).T,
+                        "bias": _np32(sd[f"{name}.bias"])}
+    return params
 
 
 def localizer_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -144,28 +227,11 @@ def lipnet_params_to_jax(
     same-keyed dict of gradients) -> the JAX package's nested param dict of
     float32 numpy arrays, the first GRU's input rows permuted back from
     (C, H, W) to (H, W, C) order."""
-    def np32(t):
-        t = t.detach().cpu() if hasattr(t, "detach") else t
-        return np.ascontiguousarray(np.asarray(t, dtype=np.float32))
-
     sd = unwrap_state_dict(state_dict)
     params: Dict[str, Any] = {}
-    for i in range(1, num_conv + 1):
-        params[f"conv{i}"] = {"kernel": np32(sd[f"conv{i}.weight"]).transpose(2, 3, 4, 1, 0),
-                              "bias": np32(sd[f"conv{i}.bias"])}
-    perm = chw_to_hwc_perm(conv_shape)
-    for g in range(1, num_gru + 1):
-        layer: Dict[str, np.ndarray] = {}
-        for suffix, name in (("", "fwd"), ("_reverse", "bwd")):
-            w_ih = np32(sd[f"gru{g}.weight_ih_l0{suffix}"])  # (3H, D)
-            if g == 1:
-                w_ih = w_ih[:, perm]
-            layer[f"w_ih_{name}"] = w_ih.T
-            layer[f"w_hh_{name}"] = np32(sd[f"gru{g}.weight_hh_l0{suffix}"]).T
-            layer[f"b_ih_{name}"] = np32(sd[f"gru{g}.bias_ih_l0{suffix}"])
-            layer[f"b_hh_{name}"] = np32(sd[f"gru{g}.bias_hh_l0{suffix}"])
-        params[f"gru{g}"] = layer
-    params["fc"] = {"kernel": np32(sd["fc.weight"]).T, "bias": np32(sd["fc.bias"])}
+    _convs_to_jax(sd, num_conv, params)
+    _rnn_to_jax(sd, "gru", num_gru, conv_shape, params)
+    params["fc"] = {"kernel": _np32(sd["fc.weight"]).T, "bias": _np32(sd["fc.bias"])}
     return params
 
 

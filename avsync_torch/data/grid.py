@@ -188,8 +188,7 @@ class GridDataSource:
     ):
         """Padded label indices + lengths for a set of samples. vocab selects
         the encoding: 'pytorch' (blank=0, `dataset.py:38-46`) or 'tf'
-        (StringLookup with OOV=0, blank-last, `train.py:106-121`; not ported:
-        it raises)."""
+        (StringLookup with OOV=0, blank-last, `train.py:106-121`)."""
         import numpy as np
 
         B = len(indices)
@@ -198,8 +197,9 @@ class GridDataSource:
         for i, idx in enumerate(indices):
             t = self.samples[idx].text
             if vocab == "tf":
-                raise NotImplementedError("the TF-family vocabulary is not ported")
-            ids = textlib.text_to_indices(t)[:max_label_length]
+                ids = textlib.tf_text_to_indices(t, max_label_length)
+            else:
+                ids = textlib.text_to_indices(t)[:max_label_length]
             labels[i, : len(ids)] = ids
             lengths[i] = len(ids)
         return labels, lengths

@@ -6,8 +6,9 @@ the device preprocess (uint8 -> the ROI program of `roi_mode` when the
 client's frames are not the model's geometry: the heuristic crop, the
 variance box or the localizer's box, its weights held as buffers -> /255 ->
 standardize; 'detector', a host cascade, raises ValueError), the LipNet
-forward and the greedy CTC decode, with the weights and tables baked
-in as the program's parameters and buffers on the export device. K1 and K2
+forward of either family and the greedy CTC decode at the family's blank,
+with the weights and tables baked in as the program's parameters and
+buffers on the export device. K1 and K2
 are the operators `avsync_torch::conv1_pool` and `avsync_torch::bigru_fwd`
 (`ops/cuda`), so the program launches the hand-written kernels, not their
 plain versions. `export_sync_scorer` does the same for the misalignment
@@ -147,9 +148,13 @@ class _BucketCaller:
         return tuple(o[:B].cpu().numpy() for o in out)
 
 
-def _vocab_meta() -> dict:
+def _vocab_meta(cfg) -> dict:
+    """The family's blank id and id -> character table (`avsync/export.py:161-177`)."""
     from avsync_torch import text as textlib
 
+    if cfg.model.family == "tf":
+        return {"blank_id": textlib.TF_BLANK_ID,
+                "id_to_char": {str(i): c for i, c in textlib.TF_IDX_TO_CHAR.items()}}
     return {"blank_id": textlib.BLANK_ID,
             "id_to_char": {str(i): c for i, c in textlib.IDX_TO_CHAR.items() if len(c) == 1}}
 
@@ -194,16 +199,17 @@ class _Preprocess(torch.nn.Module):
 
 
 class _TranscriberProgram(torch.nn.Module):
-    def __init__(self, reader, frame_hw: Tuple[int, int], native: bool):
+    def __init__(self, reader, frame_hw: Tuple[int, int], native: bool, blank_id: int):
         super().__init__()
         self.prep = _Preprocess(reader.cfg, frame_hw, reader._localizer, reader.device, native)
         self.model = reader.model
+        self.blank_id = blank_id
 
     def forward(self, frames: torch.Tensor):
-        from avsync_torch.text import BLANK_ID, ctc_greedy_decode
+        from avsync_torch.text import ctc_greedy_decode
 
         log_probs = self.model(self.prep(frames))
-        ids, lengths = ctc_greedy_decode(log_probs, BLANK_ID)
+        ids, lengths = ctc_greedy_decode(log_probs, self.blank_id)
         return ids.to(torch.int32), lengths.to(torch.int32), log_probs
 
 
@@ -250,8 +256,10 @@ def _meta(kind: str, cfg, frame_shape, batch_sizes, native: bool, device, output
 def export_transcriber(checkpoint: str, cfg=None,
                        frame_geometry: Optional[Tuple[int, int]] = None, device=None,
                        batch_sizes: Optional[Sequence[int]] = None) -> "ExportedTranscriber":
-    """The transcription artifact (in memory; see `save`) from a reference
-    LipNet `.pth`, on `device` (the card unless "cpu" is given).
+    """The transcription artifact (in memory; see `save`) from a LipNet
+    checkpoint of either family (`predictor.read_lipnet_checkpoint`: a
+    reference `.pth`, or a port checkpoint directory or snapshot), on
+    `device` (the card unless "cpu" is given).
 
     frame_geometry: (H, W) of the client's frames; the model's own geometry
     (pre-cropped mouth clips) by default, any other bakes the ROI program of
@@ -267,7 +275,8 @@ def export_transcriber(checkpoint: str, cfg=None,
     native = _check_roi(cfg, (H, W))
     reader = LipReader(checkpoint=checkpoint, config=cfg, device=device)
     T = d.max_video_length
-    program = _TranscriberProgram(reader, (H, W), native).eval()
+    vocab = _vocab_meta(cfg)
+    program = _TranscriberProgram(reader, (H, W), native, vocab["blank_id"]).eval()
     programs = _export_batched(
         program,
         lambda b: (torch.zeros(b, T, H, W, dtype=torch.uint8, device=reader.device),),
@@ -275,7 +284,7 @@ def export_transcriber(checkpoint: str, cfg=None,
     meta = _meta("transcriber", cfg, (T, H, W), batch_sizes, native, reader.device,
                  ["decoded_ids (b, T) int32", "lengths (b,) int32", "log_probs (b, T, V) f32"])
     meta["input_dtype"] = "uint8"
-    meta.update(_vocab_meta())
+    meta.update(vocab)
     return ExportedTranscriber(programs, meta)
 
 

@@ -55,6 +55,26 @@ def _uniform(shape, bound: float, generator: Optional[torch.Generator]) -> nn.Pa
     return nn.Parameter(torch.empty(shape).uniform_(-bound, bound, generator=generator))
 
 
+def inverted_dropout(x: torch.Tensor, mask_shape, rate: float, train: bool,
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout at `rate` with a mask of `mask_shape` (broadcast over
+    x) drawn from `generator`; identity unless training."""
+    if not train or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("training with dropout needs an explicit torch.Generator")
+    keep = torch.rand(mask_shape, generator=generator, device=x.device) >= rate
+    return x * keep.to(x.dtype) * (1.0 / (1.0 - rate))
+
+
+def remat_block(module: nn.Module, x: torch.Tensor, remat: bool) -> torch.Tensor:
+    """module(x), recomputed in the backward when `remat` (and grad is on)."""
+    if remat and torch.is_grad_enabled():
+        # no randomness inside: the recompute needs no RNG state
+        return checkpoint(module, x, use_reentrant=False, preserve_rng_state=False)
+    return module(x)
+
+
 class ConvPoolBlock(nn.Module):
     """Conv3D(SAME) -> ReLU -> MaxPool3D(1,2,2) on NCDHW; params `weight`
     (Cout, Cin, kt, kh, kw) and `bias` (Cout,), initialised like nn.Conv3d."""
@@ -125,7 +145,9 @@ class LipNet(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if cfg.family != "pytorch":
-            raise NotImplementedError("only the 'pytorch' LipNet family is ported")
+            raise NotImplementedError(
+                f"LipNet is the 'pytorch' family, not {cfg.family!r}: the 'tf' family is "
+                "models.lipnet_tf.TFLipNet (models.make_lipnet builds either)")
         if cfg.compute_dtype not in (None, "float32"):
             raise NotImplementedError(
                 f"compute_dtype={cfg.compute_dtype!r}: the port computes in float32 only")
@@ -144,33 +166,15 @@ class LipNet(nn.Module):
             dim = 2 * cfg.hidden_dim
         self.fc = Linear(dim, cfg.vocab_size, generator=generator)
 
-    def _dropout(self, x: torch.Tensor, mask_shape, train: bool,
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
-        """Inverted dropout at `cfg.dropout_rate` with a mask of `mask_shape`
-        (broadcast over x) drawn from `generator`; identity unless training."""
-        rate = self.cfg.dropout_rate
-        if not train or rate == 0.0:
-            return x
-        if generator is None:
-            raise ValueError("training with dropout needs an explicit torch.Generator")
-        keep = torch.rand(mask_shape, generator=generator, device=x.device) >= rate
-        return x * keep.to(x.dtype) * (1.0 / (1.0 - rate))
-
-    @staticmethod
-    def _block(module: nn.Module, x: torch.Tensor, remat: bool) -> torch.Tensor:
-        if remat and torch.is_grad_enabled():
-            # no randomness inside: the recompute needs no RNG state
-            return checkpoint(module, x, use_reentrant=False, preserve_rng_state=False)
-        return module(x)
-
     def _conv_stack(self, x: torch.Tensor, train: bool = False,
                     generator: Optional[torch.Generator] = None,
                     remat: bool = False) -> torch.Tensor:
         x = x.permute(0, 4, 1, 2, 3)  # (B, 1, T, H, W)
         for i in range(len(self.cfg.conv_channels)):
-            x = self._block(getattr(self, f"conv{i + 1}"), x, remat)
+            x = remat_block(getattr(self, f"conv{i + 1}"), x, remat)
             # Dropout3d: whole channels, as the JAX broadcast dropout
-            x = self._dropout(x, (*x.shape[:2], 1, 1, 1), train, generator)
+            x = inverted_dropout(x, (*x.shape[:2], 1, 1, 1), self.cfg.dropout_rate, train,
+                                 generator)
         B, C, T, h, w = x.shape
         return x.permute(0, 2, 1, 3, 4).reshape(B, T, C * h * w)
 
@@ -182,8 +186,8 @@ class LipNet(nn.Module):
         `remat=True` recomputes each block in the backward."""
         x = self._conv_stack(x, train, generator, remat)
         for i in range(self.cfg.num_gru_layers):
-            x = self._block(getattr(self, f"gru{i + 1}"), x, remat)
-            x = self._dropout(x, x.shape, train, generator)
+            x = remat_block(getattr(self, f"gru{i + 1}"), x, remat)
+            x = inverted_dropout(x, x.shape, self.cfg.dropout_rate, train, generator)
         return F.log_softmax(self.fc(x), dim=-1)
 
     def conv_features(self, x: torch.Tensor) -> torch.Tensor:

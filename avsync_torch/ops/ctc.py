@@ -174,3 +174,40 @@ def ctc_loss_mean(log_probs: torch.Tensor, labels: torch.Tensor,
     dups = ((labels[:, 1:] == labels[:, :-1]) & in_label).sum(dim=1)
     feasible = frames >= lens + dups
     return torch.where(feasible & torch.isfinite(per_seq), per_seq, 0.0).mean()
+
+
+def optax_ctc_nll(log_probs: torch.Tensor, labels: torch.Tensor,
+                  label_lengths: torch.Tensor, blank_id: int = 0) -> torch.Tensor:
+    """Per-sequence negative log-likelihood (B,) through optax's own
+    recursion (`optax.ctc_loss`: blank states phi (B, L+1) and label states
+    emit (B, L), an in-frame emit -> phi transition, LOG_EPSILON stand-ins),
+    differentiated by autograd. Where a sequence has an alignment this is
+    `ctc_nll`'s value; where it has none, the two differ by O(1) in a loss
+    of ~1e5 and in their gradients (their stand-in paths differ), so a loss
+    that keeps such sequences, the TF family's, runs this one to stay the
+    JAX package's function. Every input frame is valid; nothing is read
+    back to the host."""
+    B, T, V = log_probs.shape
+    L = labels.shape[1]
+    dev = log_probs.device
+    lp = torch.log_softmax(log_probs, dim=-1)
+    labels = labels.to(device=dev, dtype=torch.int64)
+    lens = label_lengths.to(device=dev, dtype=torch.int64)
+    repeat = torch.cat([(labels[:, :-1] == labels[:, 1:]).to(lp.dtype),
+                        lp.new_zeros(B, 1)], dim=1)
+    eps_repeat, eps_distinct = LOG_EPSILON * repeat, LOG_EPSILON * (1.0 - repeat)
+    lp_blank = lp[:, :, blank_id:blank_id + 1].transpose(0, 1)  # (T, B, 1)
+    lp_emit = torch.bmm(lp, _one_hot(labels, V, lp.dtype).transpose(1, 2)).transpose(0, 1)
+
+    def to_blank(phi, score):  # phi[:, 1:] (+)= score in log space
+        return torch.cat([phi[:, :1], torch.logaddexp(phi[:, 1:], score)], dim=1)
+
+    phi = torch.cat([lp.new_zeros(B, 1), lp.new_full((B, L), LOG_EPSILON)], dim=1)
+    emit = lp.new_full((B, L), LOG_EPSILON)
+    for t in range(T):
+        prev_phi = to_blank(phi, emit + eps_repeat)  # emit -> phi, not into a repeat
+        nxt = torch.logaddexp(prev_phi[:, :-1] + lp_emit[t], emit + lp_emit[t])
+        phi = to_blank(prev_phi + lp_blank[t], emit + lp_blank[t] + eps_distinct)
+        emit = nxt
+    last = to_blank(phi, emit)
+    return -(last * _one_hot(lens, L + 1, lp.dtype)).sum(dim=1)

@@ -1,5 +1,5 @@
 """int8 post-training quantization for LipNet serving (port of
-`avsync/ops/quant.py`, float32 and the pytorch family only).
+`avsync/ops/quant.py`, float32, both model families).
 
 The scheme is the JAX package's static PTQ:
   * weights: symmetric per-output-channel int8 (scale = absmax/127 over
@@ -10,7 +10,9 @@ The scheme is the JAX package's static PTQ:
   * accumulation in exact int32, dequantized as acc * (x_scale * k_scale[c])
     + bias[c], then ReLU and the (1,2,2) max pool;
   * the BiGRU layers and the FC head stay float32 and run from the float
-    state dict (K2 when `use_pallas_gru`), as `lipnet_int8_apply` does.
+    state dict (K2 when `use_pallas_gru`), as `lipnet_int8_apply` does; for
+    the TF family the BiLSTM layers, the Dense layers and the head
+    (`tflipnet_int8_apply`).
 
 Each conv block is one launch of Q1 (`ops/cuda/quantconv.py`,
 `csrc/int8_conv_pool.cu`) on the card and its plain version on the CPU,
@@ -38,6 +40,7 @@ import torch.nn.functional as F
 from avsync_torch.config import ModelConfig
 from avsync_torch.ops.cuda import quantconv
 from avsync_torch.ops.gru import GRUWeights, bigru
+from avsync_torch.ops.lstm import LSTMWeights, bilstm
 
 
 class QuantConvParams(NamedTuple):
@@ -148,42 +151,63 @@ def quantize_lipnet(model, calibration_batches: Sequence,
                              float_params={k: v.detach() for k, v in model.state_dict().items()})
 
 
-def lipnet_int8_apply(qp: QuantLipNetParams, x: torch.Tensor,
-                      cfg: ModelConfig) -> torch.Tensor:
-    """Quantized LipNet forward: (B, T, H, W, 1) -> (B, T, vocab) float32
-    log-probs. The model's eval forward with the conv stack in int8: the
-    features flatten in (C, H, W) order, then the BiGRU layers (K2 when
-    `cfg.use_pallas_gru`) and the FC head from `qp.float_params`."""
+def _int8_conv_stack(qp: QuantLipNetParams, x: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, W, 1) -> the int8 conv stack's (B, T, C*h*w) features in
+    (C, H, W) order, int8 between blocks: each block's output quantized
+    with the next block's input scale (the same bits as quantizing the f32
+    output there)."""
     if not x.is_floating_point():
         x = x.to(torch.float32)
     x = x.permute(0, 4, 1, 2, 3)
-    # int8 between blocks: each block's output quantized with the next
-    # block's input scale (the same bits as quantizing the f32 output there)
     n = len(qp.convs)
     for i, qc in enumerate(qp.convs):
         x = quant_conv_block(qc, x, float(qp.convs[i + 1].x_scale) if i + 1 < n else None)
     B, C, T, h, w = x.shape
-    x = x.permute(0, 2, 1, 3, 4).reshape(B, T, C * h * w)
+    return x.permute(0, 2, 1, 3, 4).reshape(B, T, C * h * w)
+
+
+def _rnn_weights(p: Dict[str, torch.Tensor], prefix: str, layer: int, suffix: str):
+    return tuple(p[f"{prefix}{layer}.{name}_l0{suffix}"]
+                 for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+
+
+def lipnet_int8_apply(qp: QuantLipNetParams, x: torch.Tensor,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """Quantized LipNet forward: (B, T, H, W, 1) -> (B, T, vocab) float32
+    log-probs. The model's eval forward with the conv stack in int8, then
+    the BiGRU layers (K2 when `cfg.use_pallas_gru`) and the FC head from
+    `qp.float_params`."""
+    x = _int8_conv_stack(qp, x)
     p = qp.float_params
-
-    def weights(layer: int, suffix: str) -> GRUWeights:
-        return GRUWeights(*(p[f"gru{layer}.{name}_l0{suffix}"]
-                            for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")))
-
     for i in range(1, cfg.num_gru_layers + 1):
-        x = bigru(x, weights(i, ""), weights(i, "_reverse"), cfg.use_pallas_gru)
+        x = bigru(x, GRUWeights(*_rnn_weights(p, "gru", i, "")),
+                  GRUWeights(*_rnn_weights(p, "gru", i, "_reverse")), cfg.use_pallas_gru)
     return F.log_softmax(F.linear(x, p["fc.weight"], p["fc.bias"]), dim=-1)
+
+
+def tflipnet_int8_apply(qp: QuantLipNetParams, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Quantized TF-family forward (`avsync/ops/quant.py:208-254`): (B, T,
+    H, W, 1) -> (B, T, vocab + 1) blank-last float32 log-probs. TFLipNet's
+    eval forward with the conv stack in int8 (the same Conv3D + ReLU +
+    Pool(1,2,2) blocks, so Q1 takes them); the BiLSTM layers, the two Dense
+    layers and the head from `qp.float_params` in float32; dropout is the
+    identity. `cfg` is a `TFModelConfig`."""
+    x = _int8_conv_stack(qp, x)
+    p = qp.float_params
+    for i in range(1, cfg.num_lstm_layers + 1):
+        x = bilstm(LSTMWeights(*_rnn_weights(p, "lstm", i, "")),
+                   LSTMWeights(*_rnn_weights(p, "lstm", i, "_reverse")), x)
+    for name in ("dense1", "dense2"):
+        x = F.relu(F.linear(x, p[f"{name}.weight"], p[f"{name}.bias"]))
+    return F.log_softmax(F.linear(x, p["head.weight"], p["head.bias"]).float(), dim=-1)
 
 
 def make_int8_forward(model_cfg: ModelConfig):
     """`qfwd(qparams, video) -> log_probs`, the one family switch that eval
     (`cli._evaluate`), infer and serving (`predictor.LipReader`) share."""
-    if model_cfg.family != "pytorch":
-        raise NotImplementedError(
-            f"int8 serving of the {model_cfg.family!r} LipNet family is not ported "
-            "(ROADMAP §1 item 13, the TF-family LipNet)")
+    if model_cfg.family == "tf":
+        from avsync_torch.models.lipnet_tf import tf_model_config
 
-    def qfwd(qp: QuantLipNetParams, video: torch.Tensor) -> torch.Tensor:
-        return lipnet_int8_apply(qp, video, model_cfg)
-
-    return qfwd
+        tcfg = tf_model_config(model_cfg)
+        return lambda qp, video: tflipnet_int8_apply(qp, video, tcfg)
+    return lambda qp, video: lipnet_int8_apply(qp, video, model_cfg)

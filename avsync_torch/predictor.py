@@ -2,7 +2,8 @@
 `avsync/predictor.py`).
 
 `LipReader` turns (T, H, W) frames or clips (`.npy` or container files)
-into transcripts with greedy CTC; `MisalignmentScorer` turns (frames, audio,
+into transcripts with greedy CTC, for either LipNet family (the TF family
+decodes blank-last over its own vocabulary); `MisalignmentScorer` turns (frames, audio,
 fps, shifts) into audio-visual sync probabilities. Both run on the card
 unless the caller passes `device="cpu"`; with `device=None` and no GPU they
 raise instead of falling back. Native-size frames take the ROI program of
@@ -14,6 +15,8 @@ Not ported: a mesh.
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
@@ -21,16 +24,18 @@ import torch
 
 from avsync_torch import text as textlib
 from avsync_torch.compat import (conv_shape_for, detector_params_from_jax,
-                                 lipnet_params_from_jax, load_detector_pth, load_pth)
+                                 lipnet_params_from_jax, load_detector_pth,
+                                 tflipnet_params_from_jax, unwrap_state_dict)
 from avsync_torch.config import AvsyncConfig
 from avsync_torch.data import video as videolib
 from avsync_torch.features import visual_stats
 from avsync_torch.models.detector import MisalignmentDetector
-from avsync_torch.models.lipnet import LipNet
+from avsync_torch.models import make_lipnet
 from avsync_torch.ops import image as imglib
 from avsync_torch.ops.audio import shifted_audio_stats
 from avsync_torch.ops.conv import fp32_step
 from avsync_torch.ops.quant import make_int8_forward, quantize_lipnet
+from avsync_torch.utils.checkpoint import CheckpointManager
 
 
 def resolve_device(device=None) -> torch.device:
@@ -141,40 +146,79 @@ def load_input_scales(scales, family: str) -> np.ndarray:
     return np.asarray(scales, np.float32)
 
 
+def read_lipnet_checkpoint(checkpoint: str, cfg: AvsyncConfig) -> Dict[str, torch.Tensor]:
+    """A LipNet state dict on the CPU from a reference `.pth` (either
+    layout), a port checkpoint directory (its latest snapshot) or one of its
+    snapshot files. A snapshot's embedded config names its model family,
+    which must be the config's; a reference `.pth` holds the PyTorch family,
+    so family 'tf' refuses one (ValueError, as the JAX package does)."""
+    if os.path.isdir(checkpoint):
+        payload, _ = CheckpointManager(checkpoint).restore()
+    else:
+        payload = torch.load(checkpoint, map_location="cpu", weights_only=False)
+    saved = payload.get("config") if isinstance(payload, Mapping) else None
+    family = json.loads(saved)["model"]["family"] if isinstance(saved, str) else None
+    if family is None and cfg.model.family == "tf":
+        raise ValueError("reference .pth checkpoints hold the PyTorch-family LipNet; "
+                         "family='tf' models load from avsync_torch checkpoint directories "
+                         "(or their epoch_N.pth snapshots)")
+    if family is not None and family != cfg.model.family:
+        raise ValueError(f"{checkpoint} holds a {family!r}-family LipNet; the config asks for "
+                         f"{cfg.model.family!r} (--model_family)")
+    return {k: torch.as_tensor(v) for k, v in unwrap_state_dict(payload).items()}
+
+
 def lipnet_state(cfg: AvsyncConfig, checkpoint: Optional[str] = None,
                  params: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
-    """LipNet weights in the port's (reference) layout from exactly one of a
-    reference `.pth` (either layout), a state dict, or the JAX package's
-    nested param dict (through the weight bridge)."""
+    """LipNet weights in the port's layout from exactly one of a checkpoint
+    (`read_lipnet_checkpoint`), a state dict, or the JAX package's nested
+    param dict of either family (through the weight bridge)."""
     if (checkpoint is None) == (params is None):
         raise ValueError("pass exactly one of checkpoint= or params=")
     if checkpoint is not None:
-        return load_pth(checkpoint)
+        return read_lipnet_checkpoint(checkpoint, cfg)
     if "conv1.weight" in params:
         return dict(params)
     m = cfg.model
+    if m.family == "tf":
+        return tflipnet_params_from_jax(params, conv_shape_for(cfg),
+                                        num_conv=len(m.conv_channels))
     return lipnet_params_from_jax(params, num_conv=len(m.conv_channels),
                                   num_gru=m.num_gru_layers, conv_shape=conv_shape_for(cfg))
 
 
-def load_lipnet(cfg: AvsyncConfig, state: Mapping, device: torch.device) -> LipNet:
-    """An eval-mode LipNet at the configured geometry holding `state`."""
+def load_lipnet(cfg: AvsyncConfig, state: Mapping, device: torch.device):
+    """An eval-mode LipNet of the configured family and geometry holding
+    `state` (`models.make_lipnet`)."""
     d = cfg.data
-    model = LipNet(cfg.model, img_hw=(d.img_height, d.img_width), generator=torch.Generator())
+    model = make_lipnet(cfg.model, (d.img_height, d.img_width), generator=torch.Generator())
     model.load_state_dict(state)
     return model.to(device).eval()
 
 
-class LipReader:
-    """Greedy-CTC lipreading from LipNet weights.
+def refuse_tf_detector(cfg: AvsyncConfig) -> None:
+    """The misalignment detector reads the PyTorch-family LipNet's conv
+    features (`LipNet.conv_features`, as the JAX package's
+    `features.visual_stats_fn`); a TF-family config raises ValueError."""
+    if cfg.model.family == "tf":
+        raise ValueError("the misalignment detector's visual features come from the "
+                         "PyTorch-family LipNet's conv stack (LipNet.conv_features); the "
+                         "'tf' family has none")
 
-    Weights come from `checkpoint` (a reference `.pth`, either layout) or
-    `params`: a state dict in the port's (reference) layout, or the JAX
-    package's nested param dict, which goes through the weight bridge.
+
+class LipReader:
+    """Greedy-CTC lipreading from LipNet weights of either family
+    (`cfg.model.family`; the model from `models.make_lipnet`, the decode
+    from `text.family_decoder`).
+
+    Weights come from `checkpoint` (`read_lipnet_checkpoint`: a reference
+    `.pth`, either layout, or a port checkpoint directory or snapshot) or
+    `params`: a state dict in the port's layout, or the JAX package's nested
+    param dict, which goes through the weight bridge.
 
     `quantize="int8"` runs the conv stack in int8 (`ops/quant.py`: Q1 on the
-    card, three launches per batch) with static activation scales; the BiGRU
-    layers and the head stay float32. Calibration sources, in order of
+    card, three launches per batch) with static activation scales; the
+    recurrent layers and the head stay float32. Calibration sources, in order of
     precedence:
       1. `calibration_scales`: the per-layer input scales of a `quantize`
          export (an `.npz` path, from either package, or the (n_layers,)
@@ -246,7 +290,7 @@ class LipReader:
             return self._qfwd(self._qparams, clips)
 
     def _decode(self, log_probs) -> List[str]:
-        return textlib.decode_batch(log_probs)
+        return textlib.family_decoder(self.cfg.model.family)(log_probs)
 
     def predict_frames(self, frames: np.ndarray) -> str:
         return self._decode(self._logprobs(self._prepare(frames)))[0]
@@ -289,6 +333,7 @@ class MisalignmentScorer:
                  detector_params: Optional[Mapping] = None,
                  lipnet_params: Optional[Mapping] = None):
         self.cfg = config or AvsyncConfig()
+        refuse_tf_detector(self.cfg)
         self.device = resolve_device(device)
         self._localizer = load_localizer(self.cfg, self.device)
         self._mouth = load_mouth_detector(self.cfg)

@@ -6,7 +6,9 @@
   * greedy CTC decode: argmax -> drop repeats -> drop blanks -> left-pack,
     batched and fixed-shape, on whatever device the log-probs live on;
   * `decode_batch` renders the packed indices to strings on the host, or
-    runs CTC prefix beam search there (`beam_width > 1`, `ops/beam.py`).
+    runs CTC prefix beam search there (`beam_width > 1`, `ops/beam.py`);
+  * the TF family's vocabulary (30 characters, OOV 0, blank last = 31) and
+    its decode `tf_decode_batch`; `family_decoder` picks a family's decode.
 """
 
 from __future__ import annotations
@@ -108,3 +110,55 @@ def decode_batch(log_probs, blank_id: int = BLANK_ID,
     lengths = lengths.cpu().numpy()
     return [indices_to_text(decoded[b, : int(lengths[b])])
             for b in range(decoded.shape[0])]
+
+
+# ---------------------------------------------------------------------------
+# TF-family vocabulary (`train.py:106-121`)
+# ---------------------------------------------------------------------------
+# The Keras stack's StringLookup over "abc...z'?! " with an OOV token at
+# index 0; the model's head is vocabulary_size() + 1 = 32 wide, and the CTC
+# blank is its LAST unit (the ctc_batch_cost convention), not 0.
+
+TF_CHARACTERS: str = "abcdefghijklmnopqrstuvwxyz'?! "
+TF_VOCAB_SIZE: int = len(TF_CHARACTERS) + 1  # 31: OOV (0) + 30 characters
+TF_BLANK_ID: int = TF_VOCAB_SIZE  # 31, the last unit of the 32-way head
+
+TF_CHAR_TO_IDX = {c: i + 1 for i, c in enumerate(TF_CHARACTERS)}
+TF_IDX_TO_CHAR = {i + 1: c for i, c in enumerate(TF_CHARACTERS)}
+
+
+def tf_text_to_indices(text: str, max_len: int = 40) -> np.ndarray:
+    """char_to_num with the 40-character cap (`train.py:300-305`); unknown
+    characters map to the OOV id 0."""
+    ids = [TF_CHAR_TO_IDX.get(ch, 0) for ch in text][:max_len]
+    return np.array(ids, dtype=np.int32)
+
+
+def tf_indices_to_text(indices: Sequence[int]) -> str:
+    """num_to_char join; OOV and blank render as '' (`train.py:596-602`)."""
+    return "".join(TF_IDX_TO_CHAR.get(int(i), "") for i in indices)
+
+
+def tf_decode_batch(log_probs, beam_width: int = 0) -> List[str]:
+    """Decode (B, T, 32) blank-last log-probs to strings (`train.py:582-584,
+    874-876`): greedy at blank 31, or prefix beam search over the 30
+    characters for beam_width > 1 (the reference decodes greedily only)."""
+    if beam_width and beam_width > 1:
+        from avsync_torch.ops.beam import ctc_beam_search_batch
+
+        lp = log_probs.detach().cpu().numpy() if torch.is_tensor(log_probs) else log_probs
+        prefixes = ctc_beam_search_batch(np.asarray(lp), beam_width, TF_BLANK_ID,
+                                         valid_ids=range(1, TF_VOCAB_SIZE))
+        return [tf_indices_to_text(p) for p in prefixes]
+    decoded, lengths = ctc_greedy_decode(torch.as_tensor(log_probs), TF_BLANK_ID)
+    decoded = decoded.cpu().numpy()
+    lengths = lengths.cpu().numpy()
+    return [tf_indices_to_text(decoded[b, : int(lengths[b])])
+            for b in range(decoded.shape[0])]
+
+
+def family_decoder(family: str):
+    """The decode of a model family's log-probs: `tf_decode_batch` for 'tf'
+    (blank-last, 32-way), else `decode_batch` (blank 0, 39-way); both take
+    (log_probs, beam_width=0)."""
+    return tf_decode_batch if family == "tf" else decode_batch

@@ -44,8 +44,12 @@ rate a device tensor, filled when the rate changes (once per epoch under a
 schedule), so the captured step needs no host value; on the CPU it is the
 plain Adam with a float rate.
 
-Not ported: the TF model family and a mesh over more than one device raise
-NotImplementedError.
+Both model families train here (`models.make_lipnet`): the TF family's
+loss is `tf_ctc_loss` (blank last, label lengths from count_nonzero, the
+per-sequence NLL not length-normalised, averaged over the batch;
+`avsync/train/lipnet_trainer.py:157-164`), the PyTorch family's
+`ctc_loss_mean`; `lipnet_ctc_loss` picks it by the model. Not ported: a
+mesh over more than one device raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -61,7 +65,8 @@ import numpy as np
 import torch
 
 from avsync_torch.config import AvsyncConfig
-from avsync_torch.models.lipnet import LipNet
+from avsync_torch.models import make_lipnet
+from avsync_torch.models.lipnet_tf import TFLipNet, tf_ctc_loss
 from avsync_torch.ops.conv import fp32_step
 from avsync_torch.ops.ctc import ctc_loss_mean
 from avsync_torch.predictor import resolve_device
@@ -119,22 +124,32 @@ def device_batch(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
     }
 
 
-def _update(model: LipNet, optimizer: torch.optim.Optimizer, batch: Dict[str, torch.Tensor],
-            generator: Optional[torch.Generator], grad_clip_norm: float,
-            remat: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+def lipnet_ctc_loss(model: torch.nn.Module, log_probs: torch.Tensor,
+                    batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The model family's CTC loss of a batch's log-probs: `tf_ctc_loss` for a
+    TFLipNet, else `ctc_loss_mean` with the batch's label lengths."""
+    if isinstance(model, TFLipNet):
+        return tf_ctc_loss(log_probs, batch["labels"])
+    return ctc_loss_mean(log_probs, batch["labels"], batch["label_lengths"])
+
+
+def _update(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+            batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator],
+            grad_clip_norm: float, remat: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward, CTC, backward, clip, Adam on gradients that start as None:
     the body shared by `train_step` and the whole-epoch program. No host
     value is read, so it can be captured in a CUDA graph."""
     log_probs = model(batch["video"], train=True, generator=generator, remat=remat)
-    loss = ctc_loss_mean(log_probs, batch["labels"], batch["label_lengths"])
+    loss = lipnet_ctc_loss(model, log_probs, batch)
     loss.backward()
     grad_norm = torch.nn.utils.clip_grad_norm_(model.parameters(), grad_clip_norm)
     optimizer.step()
     return loss.detach(), grad_norm.detach()
 
 
-def train_step(model: LipNet, optimizer: torch.optim.Optimizer, batch: Dict[str, torch.Tensor],
-               lr: float, generator: Optional[torch.Generator] = None,
+def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+               batch: Dict[str, torch.Tensor], lr: float,
+               generator: Optional[torch.Generator] = None,
                grad_clip_norm: float = 1.0, remat: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One update: CTC loss of the training forward (dropout masks from
@@ -147,11 +162,12 @@ def train_step(model: LipNet, optimizer: torch.optim.Optimizer, batch: Dict[str,
         return _update(model, optimizer, batch, generator, grad_clip_norm, remat)
 
 
-def eval_step(model: LipNet, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+def eval_step(model: torch.nn.Module,
+              batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss, log_probs) of the inference forward."""
     with fp32_step(), torch.no_grad():
         log_probs = model(batch["video"])
-        return ctc_loss_mean(log_probs, batch["labels"], batch["label_lengths"]), log_probs
+        return lipnet_ctc_loss(model, log_probs, batch), log_probs
 
 
 @dataclass
@@ -160,7 +176,7 @@ class TrainState:
     of optimizer steps taken (step s draws its dropout masks from the
     trainer's generator reseeded with (seed, s))."""
 
-    model: LipNet
+    model: torch.nn.Module  # a LipNet or a TFLipNet
     optimizer: torch.optim.Adam
     step: int = 0
 
@@ -176,8 +192,6 @@ class LipNetTrainer:
     LAG = 4
 
     def __init__(self, config: AvsyncConfig, device=None, log: Optional[Logger] = None):
-        if config.model.family != "pytorch":
-            raise NotImplementedError("only the 'pytorch' LipNet family is ported")
         if config.model.compute_dtype not in (None, "float32"):
             raise NotImplementedError(f"compute_dtype={config.model.compute_dtype!r}: the "
                                       "port computes in float32 only")
@@ -197,13 +211,14 @@ class LipNetTrainer:
         self._programs: Dict[Tuple[int, int], EpochProgram] = {}
 
     # -- state -------------------------------------------------------------
-    def init_state(self, model: Optional[LipNet] = None) -> TrainState:
-        """A fresh state around `model`, or around a new LipNet at the
-        configured geometry with weights drawn from the training seed."""
+    def init_state(self, model: Optional[torch.nn.Module] = None) -> TrainState:
+        """A fresh state around `model`, or around a new model of the
+        configured family and geometry with weights drawn from the training
+        seed."""
         if model is None:
             d = self.config.data
-            model = LipNet(self.config.model, img_hw=(d.img_height, d.img_width),
-                           generator=torch.Generator().manual_seed(self.config.train.seed))
+            model = make_lipnet(self.config.model, (d.img_height, d.img_width),
+                                generator=torch.Generator().manual_seed(self.config.train.seed))
             model.to(self.device)
         return TrainState(model, make_optimizer(model.parameters(), self.current_lr), 0)
 

@@ -150,11 +150,34 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      without it, an MJPG .avi through cv2 with its sibling .wav; e. an
      exported artifact with the variance ROI embedded against the live
      reader at B = 1 and 8 (1e-4);
-  13. the kernels: a text line with the state of every TPU kernel of the
+  13. the TF-family LipNet at its full default width (75 x 46 x 140
+     standardized crops, conv 128/256/64 3x3x3, BiLSTM 256 x3, Dense 512 x2,
+     32 outputs), seeded weights through `compat.tflipnet_params_from_jax`:
+     a. Q1 at the TF stack's three blocks equal to its plain version bit for
+     bit in every contract at B = 1 and 8 (a repeat too), their times at B=8
+     beside the plain version, im2col + `_int_mm` and cuDNN f32, and the
+     bounds; b. the f32 forward at B=8 on the card against the same module
+     on the CPU (1e-4), its time and the BiLSTM stack's share of its device
+     time from a profiler trace; c. `cli train --model_family tf` for 2
+     epochs on a 56-clip 46x140 corpus (the second an epoch program), the
+     snapshot naming the family, no hand kernel launched; the epoch program
+     against the eager loop under `cudnn.deterministic` (bit for bit), steps/s
+     and the idle share of both paths; d. `cli test`, `infer`, `quantize`,
+     `test --quantize int8`, `infer --quantize int8` from that snapshot (every
+     transcript in the TF alphabet); the int8 forward at B=8 within the JAX
+     bounds of the f32 one, equal to three f32-contract launches, traced: Q1
+     three times, no other convolution; e. `cli serve --model_family tf`,
+     f32 and `--quantize int8 --qscales`, as child processes under 16 crops
+     (transcripts equal in-process readers', SIGTERM drains), Q1 three times
+     per batch through an in-process int8 daemon (the counters zeroed before,
+     read after), `cli export` of the TF transcriber (seconds, bytes) against
+     the live reader at B = 1 and 8 (1e-4);
+  14. the kernels: a text line with the state of every TPU kernel of the
      JAX package (and Q1), and one JSON line with the measured numbers
      (launches from the training slices, the serving slices', the daemons',
-     the graph replays' and the front end's beside them);
-  14. the card's name/power line, then the status JSON as the last line.
+     the graph replays', the front end's and the TF int8 daemon's beside
+     them; Q1's times at the TF blocks);
+  15. the card's name/power line, then the status JSON as the last line.
 
 Exits with 2 and prints no result without a GPU or outside a checkout.
 """
@@ -1223,7 +1246,7 @@ def run_detector_training(dev, workdir: str):
     from avsync_torch.features import gather_features, sample_shift_labels
     from avsync_torch.models.detector import MisalignmentDetector
     from avsync_torch.ops.conv import fp32_step
-    from avsync_torch.predictor import load_lipnet
+    from avsync_torch.predictor import load_lipnet, lipnet_state
     from avsync_torch.train.detector_trainer import (detector_train_step, make_detector_optimizer,
                                                      weighted_bce)
 
@@ -1292,7 +1315,7 @@ def run_detector_training(dev, workdir: str):
         raise SystemExit("the detector run left the wrong snapshots or sweep")
 
     # one step, kernel path vs plain path: same weights, same batch, dropout 0
-    lipnet = load_lipnet(cfg, cli._load_state_dict(ck), dev)
+    lipnet = load_lipnet(cfg, lipnet_state(cfg, ck), dev)
     bank = cli._build_bank(cfg, src, lipnet, train_p, dev)
     vi, sh, lb = (torch.from_numpy(a[:det.batch_size]).to(dev) for a in sample_shift_labels(
         len(train_p), det.max_shift_frames, det.num_negative_samples, np.random.default_rng(0)))
@@ -1404,21 +1427,20 @@ def traced(fn):
     return out, wall, busy, found, names
 
 
-def traced_step(fn):
-    """(device busy ms, {kernel name: count}) of one fn() recorded by
-    torch.profiler after a first, warm-up fn() under the same profiler (the
-    tracer's start-up drops a short window's first kernels)."""
+def device_events(fn):
+    """The device events (name, start us, duration us, is a user annotation)
+    of one fn() recorded by torch.profiler after a first, warm-up fn() under
+    the same profiler (the tracer's start-up drops a short window's first
+    kernels)."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    busy, names = [0.0], {}
+    events = []
 
     def record(prof):  # called once, when the active step ends
-        for evt in prof.events():
-            if (evt.device_type == torch.autograd.DeviceType.CUDA
-                    and not getattr(evt, "is_user_annotation", False)):
-                busy[0] += evt.time_range.elapsed_us() / 1e3
-                names[evt.name] = names.get(evt.name, 0) + 1
+        events.extend((e.name, e.time_range.start, e.time_range.elapsed_us(),
+                       bool(getattr(e, "is_user_annotation", False)))
+                      for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
 
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts, on_trace_ready=record,
@@ -1428,7 +1450,17 @@ def traced_step(fn):
             fn()
             torch.cuda.synchronize()
             prof.step()
-    return busy[0], names
+    return events
+
+
+def traced_step(fn):
+    """(device busy ms, {kernel name: count}) of one fn() (`device_events`)."""
+    busy, names = 0.0, {}
+    for name, _, dur, note in device_events(fn):
+        if not note:
+            busy += dur / 1e3
+            names[name] = names.get(name, 0) + 1
+    return busy, names
 
 
 def path_times(label, steps, wall_ms, traced_ms, busy_ms, stamps):
@@ -2317,41 +2349,23 @@ def q1_bytes_ops(B, T, cin, cout, H, W, k, contract):
     return n_bytes, n_ops
 
 
-def check_int8_conv_pool(dev, smi):
-    """Phase 11a-b: Q1 against its plain version in each contract (f32 or
-    int8 in, f32 or int8 out) at LipNet's three blocks at full width (B =
-    1, 8, 32) and at odd geometries, equal bit for bit, a repeat launch
-    equal too; then kernel, plain, library (im2col + `torch._int_mm`) and
-    f32 cuDNN times at B=8 (CUDA events) and the bound, each block in the
-    contract the int8 forward gives it (conv1 f32 -> int8, conv2 int8 ->
-    int8, conv3 int8 -> f32, channels-last between blocks), its f32-contract
-    time and bound beside."""
+def q1_equal_cases(g, dev, cases, contracts=Q1_CONTRACTS):
+    """Q1 against its plain version in each contract of `contracts` for each
+    (B, Cin, Cout, T, H, W, k, mode) case: equal bit for bit (torch.equal),
+    a repeat launch equal too; T=75 inputs with Cin > 1 channels-last (the
+    int8 forward's layout of conv2 and conv3)."""
     import torch
 
-    from avsync_torch.ops.conv import conv_relu_pool
     from avsync_torch.ops.cuda import quantconv
     from avsync_torch.ops.quant import quant_conv_block
 
-    g = torch.Generator(device="cpu").manual_seed(60)
-    print("int8_conv_pool (Q1) vs int8_conv_pool_ref (torch.equal required), contracts "
-          f"{'/'.join(Q1_CONTRACTS)}:", flush=True)
-    cases = [(B, cin, cout, 75, H, W, k, "random")
-             for (cin, cout, H, W, k) in INT8_BLOCKS.values() for B in (1, 8, 32)]
-    cases += [(2, 3, 5, 5, 9, 13, (1, 3, 5), "random"), (3, 64, 40, 4, 13, 27, (3, 3, 3), "random"),
-              (2, 1, 7, 3, 7, 201, (5, 1, 3), "random"), (2, 12, 33, 2, 6, 10, (3, 5, 5), "random"),
-              (2, 32, 64, 2, 25, 50, (3, 5, 5), "random"), (1, 16, 24, 1, 10, 14, (3, 3, 3), "random"),
-              (2, 48, 20, 6, 11, 17, (3, 3, 3), "random"),
-              (2, 32, 64, 3, 25, 50, (3, 5, 5), "ties"), (1, 1, 32, 3, 50, 100, (3, 5, 5), "ties"),
-              (2, 32, 64, 3, 25, 50, (3, 5, 5), "near_ties"),
-              (1, 1, 32, 3, 50, 100, (3, 5, 5), "near_ties"),
-              (1, 32, 64, 3, 25, 50, (3, 5, 5), "extreme")]
     for B, cin, cout, T, H, W, k, mode in cases:
         qc, x32 = q1_case(g, dev, B, cin, cout, T, H, W, k, mode)
-        if T == 75 and cin > 1:  # LipNet's conv2/conv3 inputs: the int8 forward's layout
+        if T == 75 and cin > 1:
             x32 = channels_last(x32)
         tile = quantconv.tile_for(H // 2, W // 2, cin, cout, *k)
         said = []
-        for contract in Q1_CONTRACTS:
+        for contract in contracts:
             x, out_scale = q1_contract(qc, x32, contract, mode)
             got = quant_conv_block(qc, x, out_scale)
             again = quant_conv_block(qc, x, out_scale)
@@ -2369,11 +2383,24 @@ def check_int8_conv_pool(dev, smi):
         print(f"  B={B} Cin={cin} Cout={cout} T={T} {H}x{W} k={k} {mode} (tile {tile[0]}x"
               f"{tile[1]}, {quantconv.frames_for(B, T, tiles)} frames per CTA): "
               f"{', '.join(said)} bit for bit, repeat equal", flush=True)
-        del x32
+        del qc, x32
+        torch.cuda.empty_cache()
 
-    times, blocks = {}, {}
-    B, T = 8, 75
-    for name, (cin, cout, H, W, k) in INT8_BLOCKS.items():
+
+def q1_block_times(g, dev, blocks, smi, B=8, T=75):
+    """Kernel, plain, library (im2col + `torch._int_mm`, held equal to Q1)
+    and f32 cuDNN times (CUDA events) of each of `blocks` {name: (Cin, Cout,
+    H, W, k)} at B, each in the contract the int8 forward gives it
+    (CHAIN_CONTRACTS) beside its f32-contract time, with the bounds. Returns
+    ({name: row}, bytes, int8 operations) of the chain."""
+    import torch
+
+    from avsync_torch.ops.conv import conv_relu_pool
+    from avsync_torch.ops.cuda import quantconv
+    from avsync_torch.ops.quant import quant_conv_block
+
+    rows, total_bytes, total_ops = {}, 0, 0
+    for name, (cin, cout, H, W, k) in blocks.items():
         qc, x32 = q1_case(g, dev, B, cin, cout, T, H, W, k)
         if cin > 1:  # the int8 forward's layout
             x32 = channels_last(x32)
@@ -2382,6 +2409,7 @@ def check_int8_conv_pool(dev, smi):
         lib = im2col_int_mm_block(qc, x32)
         if not torch.equal(lib, quant_conv_block(qc, x32)):
             raise SystemExit(f"the im2col + _int_mm yardstick differs from Q1 at {name}")
+        del lib
         w32 = (qc.kernel_q.float() * qc.k_scale.view(-1, 1, 1, 1, 1)).contiguous()
         ms = time_ms(lambda: quant_conv_block(qc, x, out_scale))
         f32c_ms = time_ms(lambda: quant_conv_block(qc, x32))
@@ -2394,35 +2422,67 @@ def check_int8_conv_pool(dev, smi):
         f32c_bytes, _ = q1_bytes_ops(B, T, cin, cout, H, W, k, "f32_f32")
         H2, W2 = H // 2, W // 2
         tile = quantconv.tile_for(H2, W2, cin, cout, *k)
-        blocks[name] = {"contract": contract, "ms": ms, "plain_ms": plain, "library_ms": lib_ms,
-                        "cudnn_f32_ms": f32_ms, "f32_contract_ms": f32c_ms,
-                        "int8_gops": n_ops / 1e9, "mb": n_bytes / 1e6,
-                        "f32_contract_mb": f32c_bytes / 1e6, "tile": tile,
-                        "frames_per_cta": quantconv.frames_for(
-                            B, T, -(-H2 // tile[0]) * -(-W2 // tile[1])),
-                        "bound_ms": max(n_bytes / HBM_BYTES_PER_S, n_ops / INT8_OPS) * 1e3,
-                        "f32_contract_bound_ms": max(f32c_bytes / HBM_BYTES_PER_S,
-                                                     n_ops / INT8_OPS) * 1e3}
-        times[name] = (n_bytes, n_ops)
-        print(f"  {name} B=8 T=75 {H}x{W} {cin}->{cout} {contract}: kernel_ms={ms:.4f} "
+        row = {"contract": contract, "ms": ms, "plain_ms": plain, "library_ms": lib_ms,
+               "cudnn_f32_ms": f32_ms, "f32_contract_ms": f32c_ms,
+               "int8_gops": n_ops / 1e9, "mb": n_bytes / 1e6,
+               "f32_contract_mb": f32c_bytes / 1e6, "tile": tile,
+               "frames_per_cta": quantconv.frames_for(B, T, -(-H2 // tile[0]) * -(-W2 // tile[1])),
+               "bound_ms": max(n_bytes / HBM_BYTES_PER_S, n_ops / INT8_OPS) * 1e3,
+               "f32_contract_bound_ms": max(f32c_bytes / HBM_BYTES_PER_S,
+                                            n_ops / INT8_OPS) * 1e3}
+        rows[name] = row
+        total_bytes += n_bytes
+        total_ops += n_ops
+        print(f"  {name} B={B} T={T} {H}x{W} {cin}->{cout} {contract}: kernel_ms={ms:.4f} "
               f"(f32 contract {f32c_ms:.4f}) plain_ms={plain:.4f} library_ms={lib_ms:.4f} "
-              f"(im2col + _int_mm) cudnn_f32_ms={f32_ms:.4f} bound_ms="
-              f"{blocks[name]['bound_ms']:.4f} (f32 contract "
-              f"{blocks[name]['f32_contract_bound_ms']:.4f}; {n_ops / 1e9:.1f} G int8 ops, "
+              f"(im2col + _int_mm) cudnn_f32_ms={f32_ms:.4f} bound_ms={row['bound_ms']:.4f} "
+              f"(f32 contract {row['f32_contract_bound_ms']:.4f}; {n_ops / 1e9:.1f} G int8 ops, "
               f"{n_bytes / 1e6:.1f} MB) [{smi}]", flush=True)
-        del qc, x, x32, lib
-    torch.cuda.empty_cache()
-    n_bytes = sum(b for b, _ in times.values())
-    n_ops = sum(o for _, o in times.values())
+        del qc, x, x32, w32
+        torch.cuda.empty_cache()
+    return rows, total_bytes, total_ops
+
+
+def q1_chain_row(rows, n_bytes, n_ops):
+    """The chain's sums of `q1_block_times` rows and its bound."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / INT8_OPS * 1e3
+    row = {key: sum(b[key] for b in rows.values())
+           for key in ("ms", "plain_ms", "library_ms", "cudnn_f32_ms", "f32_contract_ms")}
+    return dict(row, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_int8_conv_pool(dev, smi):
+    """Phase 11a-b: Q1 against its plain version in each contract (f32 or
+    int8 in, f32 or int8 out) at LipNet's three blocks at full width (B =
+    1, 8, 32) and at odd geometries, equal bit for bit, a repeat launch
+    equal too; then kernel, plain, library (im2col + `torch._int_mm`) and
+    f32 cuDNN times at B=8 (CUDA events) and the bound, each block in the
+    contract the int8 forward gives it (conv1 f32 -> int8, conv2 int8 ->
+    int8, conv3 int8 -> f32, channels-last between blocks), its f32-contract
+    time and bound beside."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(60)
+    print("int8_conv_pool (Q1) vs int8_conv_pool_ref (torch.equal required), contracts "
+          f"{'/'.join(Q1_CONTRACTS)}:", flush=True)
+    cases = [(B, cin, cout, 75, H, W, k, "random")
+             for (cin, cout, H, W, k) in INT8_BLOCKS.values() for B in (1, 8, 32)]
+    cases += [(2, 3, 5, 5, 9, 13, (1, 3, 5), "random"),
+              (3, 64, 40, 4, 13, 27, (3, 3, 3), "random"),
+              (2, 1, 7, 3, 7, 201, (5, 1, 3), "random"), (2, 12, 33, 2, 6, 10, (3, 5, 5), "random"),
+              (2, 32, 64, 2, 25, 50, (3, 5, 5), "random"),
+              (1, 16, 24, 1, 10, 14, (3, 3, 3), "random"),
+              (2, 48, 20, 6, 11, 17, (3, 3, 3), "random"),
+              (2, 32, 64, 3, 25, 50, (3, 5, 5), "ties"), (1, 1, 32, 3, 50, 100, (3, 5, 5), "ties"),
+              (2, 32, 64, 3, 25, 50, (3, 5, 5), "near_ties"),
+              (1, 1, 32, 3, 50, 100, (3, 5, 5), "near_ties"),
+              (1, 32, 64, 3, 25, 50, (3, 5, 5), "extreme")]
+    q1_equal_cases(g, dev, cases)
+    blocks, n_bytes, n_ops = q1_block_times(g, dev, INT8_BLOCKS, smi)
     return dict(name="int8_conv_pool", route="cuda", source="avsync_torch/csrc/int8_conv_pool.cu",
                 replaces="avsync/ops/quant.py:97", max_abs_err=0.0,
-                ms=sum(b["ms"] for b in blocks.values()),
-                plain_ms=sum(b["plain_ms"] for b in blocks.values()),
-                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else
-                "operations", library_ms=sum(b["library_ms"] for b in blocks.values()),
-                cudnn_f32_ms=sum(b["cudnn_f32_ms"] for b in blocks.values()),
-                f32_contract_ms=sum(b["f32_contract_ms"] for b in blocks.values()),
+                **q1_chain_row(blocks, n_bytes, n_ops),
                 shape="B=8 T=75 full width, conv1 + conv2 + conv3 (one int8 forward, int8 "
                       "between blocks)",
                 replaces_note="no pallas_call: the int8 lax.conv_general_dilated of "
@@ -3052,6 +3112,486 @@ def run_front_end(dev, workdir, smi, cfg=None, native_hw=(288, 360)):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 13. the TF-family LipNet
+# ---------------------------------------------------------------------------
+
+# the TF stack's three conv blocks at full width, 75 x 46 x 140 crops:
+# (Cin, Cout, H, W, kernel)
+TF_INT8_BLOCKS = {"conv1": (1, 128, 46, 140, (3, 3, 3)), "conv2": (128, 256, 23, 70, (3, 3, 3)),
+                  "conv3": (256, 64, 11, 35, (3, 3, 3))}
+TF_CPU_ATOL = 1e-4  # the card's f32 forward against the CPU's (TF32 would show as ~1e-3)
+TF_ARTIFACT_ATOL = 1e-4
+TF_SPEAKERS = 7  # 8 clips each, split 4 / 1 / 2 speakers
+
+
+def tf_config(**model):
+    """The TF family at its full default width: 46x140 standardized crops,
+    T=75, conv 128/256/64 (3x3x3), BiLSTM 256 x3, Dense 512 x2, 32 outputs."""
+    from avsync_torch.config import AvsyncConfig, DataConfig, ModelConfig
+
+    return AvsyncConfig(data=DataConfig(img_height=46, img_width=140, standardize_clips=True),
+                        model=ModelConfig(family="tf", **model))
+
+
+def seeded_jax_layout_tf_params(cfg, seed: int):
+    """TFLipNet weights as the JAX package lays them out, drawn with numpy:
+    conv kernels (3, 3, 3, Cin, Cout) at 1/sqrt(fan_in), LSTMs uniform in
+    +-1/sqrt(H), Dense kernels (in, out) He-normal."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    m = cfg.model
+    params = {}
+    cin, h, w = 1, cfg.data.img_height, cfg.data.img_width
+    for i, ch in enumerate(m.conv_channels):
+        params[f"conv{i + 1}"] = {
+            "kernel": r.normal(0, (27 * cin) ** -0.5, (3, 3, 3, cin, ch)).astype(np.float32),
+            "bias": r.normal(0, 0.01, (ch,)).astype(np.float32)}
+        cin, h, w = ch, h // 2, w // 2
+    dim, H = cin * h * w, m.hidden_dim
+    for layer in range(3):
+        params[f"lstm{layer + 1}"] = {
+            f"{name}_{d}": r.uniform(-H ** -0.5, H ** -0.5, shape).astype(np.float32)
+            for d in ("fwd", "bwd")
+            for name, shape in (("w_ih", (dim, 4 * H)), ("w_hh", (H, 4 * H)),
+                                ("b_ih", (4 * H,)), ("b_hh", (4 * H,)))}
+        dim = 2 * H
+    for name, din, dout in (("dense1", dim, 512), ("dense2", 512, 512), ("head", 512, 32)):
+        params[name] = {"kernel": r.normal(0, (2 / din) ** 0.5, (din, dout)).astype(np.float32),
+                        "bias": np.zeros(dout, np.float32)}
+    return params
+
+
+def tf_q1_blocks(dev, smi):
+    """13a: Q1 at the TF stack's three blocks: equal to its plain version bit
+    for bit in every contract at B = 1 and 8, a repeat launch equal too;
+    times at B=8 beside the plain version, the library call and cuDNN f32,
+    and the bounds."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(61)
+    print("TF family phase: Q1 at the TF stack's blocks (75 x 46 x 140; conv1 1->128, conv2 "
+          "128->256 over 23x70, conv3 256->64 over 11x35, 3x3x3) vs int8_conv_pool_ref "
+          "(torch.equal required):", flush=True)
+    q1_equal_cases(g, dev, [(B, cin, cout, 75, H, W, k, "random")
+                            for (cin, cout, H, W, k) in TF_INT8_BLOCKS.values() for B in (1, 8)])
+    blocks, n_bytes, n_ops = q1_block_times(g, dev, TF_INT8_BLOCKS, smi)
+    return dict(q1_chain_row(blocks, n_bytes, n_ops), blocks=blocks)
+
+
+def tf_forward(dev, reader, frames, smi):
+    """13b: the f32 forward at B=8 on the card against the same module on the
+    CPU, its time, and the BiLSTM stack's share of its device time from a
+    profiler trace (the stack spanned by a user annotation)."""
+    import copy
+
+    import torch
+
+    clips = reader.preprocess_device(frames)
+    with torch.inference_mode():
+        got = reader._logprobs(clips)
+        cpu = copy.deepcopy(reader.model).cpu()
+        t0 = time.perf_counter()
+        want = cpu(clips.cpu())
+        cpu_s = time.perf_counter() - t0
+    err = (got.cpu() - want).abs().max().item()
+    print(f"  f32 forward B=8 on the card vs the same module on the CPU: max_abs_err={err:.3e} "
+          f"(tol {TF_CPU_ATOL}; CPU forward {cpu_s:.1f} s)", flush=True)
+    if not (err <= TF_CPU_ATOL and torch.isfinite(got).all()):
+        raise SystemExit("the TF forward on the card differs from the CPU's")
+    del cpu, want
+    ms = time_ms(lambda: reader._logprobs(clips), iters=10)
+    model = reader.model
+    span = {}
+
+    def enter(mod, inp):
+        span["rf"] = torch.profiler.record_function("tf_bilstm_stack")
+        span["rf"].__enter__()
+
+    def leave(mod, inp, out):
+        span.pop("rf").__exit__(None, None, None)
+
+    hooks = [model.lstm1.register_forward_pre_hook(enter),
+             model.lstm3.register_forward_hook(leave)]
+    events = device_events(lambda: reader._logprobs(clips))
+    for h in hooks:
+        h.remove()
+    kernels = [(t, d) for _, t, d, note in events if not note]
+    window = next(((t, t + d) for name, t, d, note in events
+                   if note and name == "tf_bilstm_stack"), None)
+    busy = sum(d for _, d in kernels) / 1e3
+    row = {"f32_forward_B8_ms": ms, "cpu_max_abs_err": err, "device_busy_ms": busy,
+           "kernels": len(kernels)}
+    if window is not None:
+        lstm = [d for t, d in kernels if window[0] <= t < window[1]]
+        row.update(lstm_busy_ms=sum(lstm) / 1e3, lstm_kernels=len(lstm),
+                   lstm_span_ms=(window[1] - window[0]) / 1e3,
+                   lstm_share_of_busy=sum(lstm) / 1e3 / busy)
+    print(f"  f32 forward B=8 (CUDA events, median of 10): {ms:.3f} ms; one traced forward: "
+          f"{json.dumps(row)} [{smi}]", flush=True)
+    return row
+
+
+def tf_train(dev, workdir, corpus, cfg_path, smi):
+    """13c: `cli train --model_family tf` for two epochs (the second an epoch
+    program over the device cache), the snapshot naming the family and no
+    hand kernel launched (the TF stack's f32 path is cuDNN, cuBLAS and
+    plain PyTorch); then the epoch program against the eager loop from the
+    same weights under cudnn.deterministic (losses, gradient norms, weights
+    and Adam state equal bit for bit), and, with cuDNN's defaults, steps/s,
+    ms per step and the idle share of each path."""
+    import dataclasses
+
+    import torch
+
+    from avsync_torch import cli
+    from avsync_torch.config import TrainConfig
+    from avsync_torch.data.grid import GridDataSource, split_speakers
+    from avsync_torch.data.pipeline import LipNetBatcher
+    from avsync_torch.ops.cuda import quantconv
+    from avsync_torch.train.lipnet_trainer import LipNetTrainer
+    from avsync_torch.utils.checkpoint import CheckpointManager
+    from avsync_torch.utils.logging import Logger
+
+    ck = os.path.join(workdir, "tf_ckpt")
+    zero_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["train", "--data_path", corpus, "--config", cfg_path, "--model_family", "tf",
+                   "--epochs", "2", "--checkpoint_dir", ck, "--show_examples"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {**counts(), "int8_conv_pool": quantconv.launches}
+    payload, meta = CheckpointManager(ck).restore()
+    with open(os.path.join(ck, "history.json")) as f:
+        hist = json.load(f)
+    print(f"  cli train --model_family tf, 2 epochs (the second an epoch program): rc={rc} "
+          f"wall_s={wall:.2f}; snapshot family {meta['config']['model']['family']!r}, "
+          f"epochs_completed {meta['metrics'].get('epochs_completed')}; loss {hist['loss']} "
+          f"val_loss {hist['val_loss']} epoch_seconds {hist['epoch_seconds']}; hand-kernel "
+          f"launches {got} (none expected)", flush=True)
+    if (rc != 0 or meta["config"]["model"]["family"] != "tf" or "lstm3.weight_hh_l0" not in
+            payload["model_state_dict"] or len(hist["loss"]) != 2 or any(got.values())
+            or not all(map(lambda v: v == v and abs(v) < float("inf"), hist["loss"]))):
+        raise SystemExit("cli train --model_family tf left the wrong snapshot or history")
+
+    quiet = Logger(None, console=False)
+    cfg = cli._config(cfg_path)
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, data_path=corpus, device_cache="on"),
+                      model=dataclasses.replace(cfg.model, dropout_rate=0.5),
+                      train=TrainConfig(seed=3))
+    train_sp, _, _ = split_speakers([f"s{i}" for i in range(1, TF_SPEAKERS + 1)],
+                                    cfg.data.split)
+    batcher = LipNetBatcher(GridDataSource(corpus, train_sp), cfg, device=dev)
+
+    def run(path):
+        trainer = LipNetTrainer(cfg, device=dev, log=quiet)
+        state = trainer.init_state()
+        log = StepLog()
+
+        def epoch(e):
+            if path == "graph":
+                return trainer.train_epoch_scanned(
+                    state, batcher.scan_plan(shuffle=True, seed=e), metrics_writer=log)
+            return trainer.train_epoch(state, batcher.epoch(shuffle=True, seed=e),
+                                       metrics_writer=log)
+
+        return trainer, state, log, epoch
+
+    cudnn = torch.backends.cudnn
+    runs = {}
+    with cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        for path in ("graph", "loop"):
+            _, state, log, epoch = run(path)
+            epoch(1)
+            epoch(2)
+            torch.cuda.synchronize()
+            runs[path] = (state, log)
+    (sg, lg), (sl, ll) = runs["graph"], runs["loop"]
+    same_state(sg, sl, "TF family")
+    if lg.rows != ll.rows:
+        raise SystemExit("TF family: the epoch program's losses differ from the eager loop's")
+    S = len(lg.rows) // 2
+    print(f"  TF B=8 S={S} dropout 0.5, cudnn.deterministic: 2 epochs graph vs eager loop: "
+          f"parameters, Adam state, {len(lg.rows)} losses and gradient norms equal bit for bit "
+          f"(losses {[round(r[1], 4) for r in lg.rows]})", flush=True)
+    del runs, sg, sl
+    out = {"cli_train_wall_s": wall, "epoch_seconds": hist["epoch_seconds"], "steps_per_epoch": S}
+    for path in ("graph", "loop"):  # timed with cuDNN's default algorithms
+        trainer, state, _, epoch = run(path)
+        epoch(1)  # the graph's warm-up and capture
+        stamps = timed_before(trainer)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        epoch(2)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        gaps = list(stamps)
+        _, twall, busy, _, _ = traced(lambda: epoch(3))
+        out[path] = path_times(f"TF {path} path (B=8, dropout 0.5, epoch 2 timed, epoch 3 "
+                               f"traced) [{smi}]", S, wall_ms, twall, busy, gaps)
+        trainer._programs.clear()
+        del trainer, state
+    torch.cuda.empty_cache()
+    return ck, out
+
+
+def tf_commands(dev, workdir, corpus, cfg_path, ck, smi):
+    """13d: `cli test`, `infer`, `quantize`, `test --quantize int8` and
+    `infer --quantize int8` from the trained snapshot: every transcript in
+    the TF alphabet."""
+    import contextlib
+    import glob
+    import io
+
+    import numpy as np
+
+    from avsync_torch import cli, text
+
+    common = ["--data_path", corpus, "--config", cfg_path, "--model_family", "tf",
+              "--checkpoint", ck]
+    clip = sorted(glob.glob(os.path.join(corpus, "*", "video", "*.npy")))[0]
+    results, said = {}, {}
+    for name, argv in (("test", ["test", *common]), ("infer", ["infer", clip, *common]),
+                       ("quantize", ["quantize", *common, "--out",
+                                     os.path.join(workdir, "tf_trained_q.npz")]),
+                       ("test_int8", ["test", *common, "--quantize", "int8"]),
+                       ("infer_int8", ["infer", clip, *common, "--quantize", "int8"])):
+        if name.startswith("test"):
+            argv += ["--output", os.path.join(workdir, f"tf_{name}.json")]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        secs = time.perf_counter() - t0
+        lines = buf.getvalue().splitlines()
+        preds = [ln.split(":", 1)[1].strip() for ln in lines
+                 if ln.startswith(("Predicted:", "Predicted text:"))]
+        if rc != 0 or any(set(p) - set(text.TF_CHARACTERS) for p in preds):
+            raise SystemExit(f"cli {name} --model_family tf: rc={rc}, transcripts {preds}")
+        said[name] = {"seconds": secs, "transcripts": preds[:3]}
+        if name.startswith("test"):
+            with open(os.path.join(workdir, f"tf_{name}.json")) as f:
+                results[name] = json.load(f)
+            if not np.isfinite(results[name]["cer"]):
+                raise SystemExit(f"cli {name} wrote {results[name]}")
+    print(f"  cli test / infer / quantize / test --quantize int8 / infer --quantize int8 on the "
+          f"trained snapshot: {json.dumps(said)}; results {json.dumps(results)}", flush=True)
+    return {"commands": said, "results": results}
+
+
+def tf_int8_forward(dev, f32, q8, frames, seeded, smi):
+    """13d: the int8 forward of the trained snapshot at B=8 on 8 corpus clips
+    (`q8`: scales from `cli quantize` over the corpus) against its f32
+    forward (`f32`) within the JAX package's bounds (mean |d log-prob| <
+    0.05, argmax agreement >= 0.95; tests/test_quant.py:171-180), equal bit
+    for bit to three f32-contract launches and to the plain int8 forward
+    (Q1's plain version in each block), its time, and a profiler trace: Q1
+    three times and no other convolution. `seeded` (f32 reader, int8 reader,
+    frames): the seeded weights' distance beside, held to the mean bound
+    only: their log-probs are near-uniform, so a frame's argmax there is
+    decided by ties (the share within int8's error of a tie is printed)."""
+    import torch
+
+    from avsync_torch.ops import quant as tq
+    from avsync_torch.ops.cuda import quantconv
+
+    def distance(f, q, x):
+        clips = f.preprocess_device(x)
+        lp, lp32 = q._logprobs(clips), f._logprobs(clips)
+        top2 = lp32.topk(2, dim=-1).values
+        near = ((top2[..., 0] - top2[..., 1]) < 2 * (lp - lp32).abs().amax(-1)).float()
+        return {"mean_abs_logprob": (lp - lp32).abs().mean().item(),
+                "argmax_agreement": (lp.argmax(-1) == lp32.argmax(-1)).float().mean().item(),
+                "frames_within_the_error_of_a_tie": near.mean().item(),
+                "finite": bool(torch.isfinite(lp).all())}
+
+    clips = f32.preprocess_device(frames)
+    lp8 = q8._logprobs(clips)
+    block = tq.quant_conv_block
+    tq.quant_conv_block = lambda qc, x, out_scale=None: block(qc, x)
+    try:
+        before = quantconv.launches
+        lp_f32_contract = q8._logprobs(clips)
+        launched = quantconv.launches - before
+        tq.quant_conv_block = lambda qc, x, out_scale=None: quantconv.int8_conv_pool_ref(
+            x, qc.kernel_q, qc.k_scale, qc.bias, float(qc.x_scale), out_scale)
+        lp_plain = q8._logprobs(clips)
+    finally:
+        tq.quant_conv_block = block
+    row = {"hand_off_equals_f32_contract": torch.equal(lp8, lp_f32_contract),
+           "equals_plain_int8_forward": torch.equal(lp8, lp_plain),
+           "f32_contract_launches": launched,
+           "trained_snapshot": distance(f32, q8, frames),
+           "seeded_weights": distance(*seeded),
+           "forward_B8_ms": {"int8_ms": time_ms(lambda: q8._logprobs(clips), iters=10),
+                             "f32_ms": time_ms(lambda: f32._logprobs(clips), iters=10)}}
+    busy, names = traced_step(lambda: q8._logprobs(clips))
+    q1_n = sum(n for name, n in names.items() if "int8_conv_pool_kernel" in name)
+    convs = {name: n for name, n in names.items() if "int8_conv_pool_kernel" not in name
+             and any(w in name.lower() for w in ("cudnn", "fprop", "implicit", "conv"))}
+    row["trace"] = {"int8_conv_pool": q1_n, "other_convs": convs, "device_busy_ms": busy}
+    print(f"  TF int8 forward B=8: {json.dumps(row)} (bounds on the trained snapshot: mean "
+          f"|d log-prob| < 0.05, argmax agreement >= 0.95; seeded weights: the mean bound; "
+          f"Q1 three times, no other convolution) [{smi}]", flush=True)
+    held, info = row["trained_snapshot"], row["seeded_weights"]
+    if not (row["hand_off_equals_f32_contract"] and row["equals_plain_int8_forward"]
+            and launched == 3 and q1_n == 3 and not convs and held["finite"] and info["finite"]
+            and held["mean_abs_logprob"] < 0.05 and held["argmax_agreement"] >= 0.95
+            and info["mean_abs_logprob"] < 0.05):
+        raise SystemExit("the TF int8 forward failed its checks")
+    return row
+
+
+def tf_serving(dev, workdir, corpus, f32, q8, snap, cfg_path, qscales, crops, smi):
+    """13e: `cli serve --model_family tf --warmup`, live f32 and `--quantize
+    int8 --qscales`, as child processes under the crops: transcripts equal the
+    in-process readers', SIGTERM drains; Q1's launches per int8 batch through
+    an in-process daemon (zeroed before, read after); `cli export` of the TF
+    transcriber (its seconds and bytes) against the live reader at B = 1
+    and 8."""
+    import numpy as np
+    import torch
+
+    from avsync_torch import cli
+    from avsync_torch.export import load_exported
+    from avsync_torch.ops.cuda import quantconv
+    from avsync_torch.serving import AvsyncServer, TranscribeService
+
+    out = {}
+    for what, reader, extra in (("f32", f32, []),
+                                ("int8", q8, ["--quantize", "int8", "--qscales", qscales])):
+        t0 = time.perf_counter()
+        daemon = Daemon(["--checkpoint", snap, "--config", cfg_path, "--model_family", "tf",
+                         "--port", "0", "--warmup", "--max_batch", str(MAX_BATCH), *extra])
+        try:
+            up = time.perf_counter() - t0
+            row = transcribe_load(daemon.url, crops, reader, f"TF {what} daemon")
+            rc = daemon.stop()
+        finally:
+            daemon.kill()
+        if rc != 0:
+            raise SystemExit(f"TF {what} daemon exited {rc} after SIGTERM")
+        out[f"daemon_{what}"] = dict(row, start_s=up)
+        print(f"  serve --model_family tf ({what}) as a child process, {len(crops)} crops from "
+              f"{SERVE_THREADS} threads: p50_ms={row['p50_ms']:.3f} p99_ms={row['p99_ms']:.3f} "
+              f"clips_per_s={row['clips_per_s']:.3f}, transcripts equal the in-process reader's "
+              f"(near ties {row['near_ties']}); up in {up:.1f} s (--warmup: buckets 1..8 run "
+              f"first); SIGTERM exit 0 [{smi}]",
+              flush=True)
+    server = AvsyncServer(TranscribeService(q8, max_batch=MAX_BATCH, max_wait_ms=5.0), None,
+                          port=0)
+    server.start()
+    try:
+        zero_counts()
+        answers, _, _ = load(f"http://{server.address[0]}:{server.address[1]}",
+                             [("/v1/transcribe", npy_bytes(c), "application/x-npy")
+                              for c in crops])
+        torch.cuda.synchronize()
+        got = {**counts(), "int8_conv_pool": quantconv.launches}
+        nt = sum(server.stats_snapshot()["transcribe"]["batches"].values())
+    finally:
+        server.shutdown(drain_timeout=30.0)
+    want = {"conv1_pool": 0, "gru_fwd": 0, "gru_bwd": 0, "conv1_pool_bwd": 0, "mel_stats": 0,
+            "int8_conv_pool": 3 * nt}
+    print(f"  launches through an in-process TF int8 daemon: {got} for {nt} transcribe batches "
+          f"(expected {want})", flush=True)
+    if any(a[0] != 200 for a in answers) or got != want:
+        raise SystemExit("TF int8 daemon: answers or launch counts are wrong")
+    out["launches"] = {"transcribe_batches": nt, **got}
+
+    art_path = os.path.join(workdir, "tf_transcriber.zip")
+    t0 = time.perf_counter()
+    if cli.main(["export", "--checkpoint", snap, "--config", cfg_path, "--model_family", "tf",
+                 "--out", art_path]) != 0:
+        raise SystemExit("cli export --model_family tf failed")
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art = load_exported(art_path)
+    load_s = time.perf_counter() - t0
+    errs = {}
+    for B in (1, 8):
+        frames = np.stack(crops[:B])
+        _, _, lp = art.call(frames)
+        want_lp = f32._logprobs(f32.preprocess_device(frames)).cpu().numpy()
+        errs[B] = float(np.abs(lp - want_lp).max())
+    art8 = np.stack(crops[:8])
+    call_ms = time_ms(lambda: art.call(art8), iters=5, warmup=1)
+    out["export"] = {"export_s": export_s, "load_s": load_s, "bytes": os.path.getsize(art_path),
+                     "max_abs_err": errs, "call_B8_ms": call_ms, "blank_id": art.meta["blank_id"]}
+    print(f"  cli export --model_family tf (symbolic batch): {json.dumps(out['export'])} "
+          f"(tol {TF_ARTIFACT_ATOL}) [{smi}]", flush=True)
+    if art.meta["blank_id"] != 31 or any(e > TF_ARTIFACT_ATOL for e in errs.values()):
+        raise SystemExit("the TF artifact differs from the live reader")
+    return out
+
+
+def run_tf_family(dev, workdir, smi, cfg=None):
+    """Phase 13: the TF-family LipNet at its full default width (`cfg`, the
+    TF stack's default config when None), seeded weights through the weight
+    bridge: a. Q1 at its three blocks; b. the f32 forward on the card
+    against the CPU's; c. `cli train`, the epoch program against the loop;
+    d. the commands from the trained snapshot and the int8 forward; e. the
+    daemons, f32 and int8, and the exported artifact."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from avsync_torch import cli
+    from avsync_torch.compat import conv_shape_for, tflipnet_params_from_jax
+    from avsync_torch.data.synthetic import write_corpus
+    from avsync_torch.predictor import LipReader
+    from avsync_torch.utils.checkpoint import CheckpointManager
+
+    out = {"q1": tf_q1_blocks(dev, smi)}
+    cfg = cfg or tf_config()
+    d = cfg.data
+    corpus = os.path.join(workdir, "tf_grid")
+    t0 = time.perf_counter()
+    write_corpus(corpus, n_speakers=TF_SPEAKERS, clips_per_speaker=8, layout="standard",
+                 n_frames=d.max_video_length, height=d.img_height, width=d.img_width, seed=13,
+                 with_audio=False)
+    print(f"  corpus: {TF_SPEAKERS * 8} clips of {d.max_video_length} x {d.img_height} x "
+          f"{d.img_width} (train split 4 speakers: 4 steps of B=8 per epoch) written in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    state = tflipnet_params_from_jax(seeded_jax_layout_tf_params(cfg, seed=2),
+                                     conv_shape_for(cfg))
+    snap = os.path.join(workdir, "tf_seeded")
+    CheckpointManager(snap).save(0, state, config=cfg)
+    cfg_path = os.path.join(workdir, "tf_config.json")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    f32 = LipReader(params=state, config=cfg, device=dev)
+    r = np.random.default_rng(13)
+    crops = [r.integers(0, 256, (d.max_video_length, d.img_height, d.img_width),
+                        dtype=np.uint8) for _ in range(16)]
+    frames = np.stack(crops[:8])
+    out["forward"] = tf_forward(dev, f32, frames, smi)
+    ck, out["train"] = tf_train(dev, workdir, corpus, cfg_path, smi)
+    out["commands"] = tf_commands(dev, workdir, corpus, cfg_path, ck, smi)
+    qscales = os.path.join(workdir, "tf_qscales.npz")
+    if cli.main(["quantize", "--data_path", corpus, "--config", cfg_path, "--checkpoint", snap,
+                 "--out", qscales]) != 0:
+        raise SystemExit("cli quantize (TF seeded weights) failed")
+    q8 = LipReader(params=state, config=cfg, device=dev, quantize="int8",
+                   calibration_scales=qscales)
+    trained = LipReader(checkpoint=ck, config=cfg, device=dev)
+    trained8 = LipReader(checkpoint=ck, config=cfg, device=dev, quantize="int8",
+                         calibration_scales=os.path.join(workdir, "tf_trained_q.npz"))
+    corpus8 = np.stack([np.load(p) for p in sorted(glob.glob(
+        os.path.join(corpus, "*", "video", "*.npy")))[:8]])
+    out["int8_forward"] = tf_int8_forward(dev, trained, trained8, corpus8, (f32, q8, frames),
+                                          smi)
+    del trained, trained8
+    out["serving"] = tf_serving(dev, workdir, corpus, f32, q8, snap, cfg_path, qscales, crops,
+                                smi)
+    del f32, q8
+    torch.cuda.empty_cache()
+    print(f"  TF family phase numbers [{smi}]: {json.dumps(out)}", flush=True)
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "avsync_torch", "csrc")):
         print("chip_smoke: run from a checkout of the repository (avsync_torch/ missing)",
@@ -3117,6 +3657,11 @@ def main() -> int:
         os.makedirs(front_dir)
         front = run_front_end(dev, front_dir, smi)
         print(f"front end phase: {time.perf_counter() - t12:.1f} s", flush=True)
+        t13 = time.perf_counter()
+        tf_dir = os.path.join(workdir, "tf")
+        os.makedirs(tf_dir)
+        tf = run_tf_family(dev, tf_dir, smi)
+        print(f"TF family phase: {time.perf_counter() - t13:.1f} s", flush=True)
     for k in (k1, k2, k3, k4):
         k["launches"] = trained[k["name"]]
     k5["launches"], k5["launches_serving"] = detector["mel_stats"], served["mel_stats"]
@@ -3146,6 +3691,12 @@ def main() -> int:
         k["launches_train_roi_host"] = front["train_roi_host"]["launches"][k["name"]]
     if "sync_container" in front:
         k5["launches_container_sync"] = front["sync_container"]["launches"]["mel_stats"]
+    # phase 13's own path: the TF stack's int8 daemon, Q1 at the TF blocks
+    q1["launches_tf_int8_daemon"] = tf["serving"]["launches"]
+    q1["tf_blocks"] = dict(tf["q1"], shape="B=8 T=75 46x140, the TF stack's conv1 + conv2 + "
+                                           "conv3 in their chain contracts")
+    if not tf["serving"]["launches"]["int8_conv_pool"]:
+        raise SystemExit("int8_conv_pool was not launched on the TF family's int8 path")
     for k in (k1, k2, k3, k4, k5, q1):
         if not k["launches"] or k.get("launches_serving") == 0 or any(
                 k.get(f"launches_daemon_{w}", {"launches": 1})["launches"] == 0
@@ -3159,7 +3710,8 @@ def main() -> int:
           "K4 conv1_pool_bwd (avsync/ops/pallas/convpool.py:244)=ported+checked; "
           "K5 pallas_mel_stats (avsync/ops/pallas/mfcc.py:60)=ported+checked; "
           "Q1 int8_conv_pool (no pallas_call: the int8 lax.conv_general_dilated of "
-          "quant_conv_block, avsync/ops/quant.py:97)=ported+checked", flush=True)
+          "quant_conv_block, avsync/ops/quant.py:97)=ported+checked, also at the TF "
+          "stack's blocks (tflipnet_int8_apply, avsync/ops/quant.py:208)", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [{**{k: d[k] for k in keys},

@@ -67,8 +67,7 @@ def test_explicit_flags_win_over_the_config_file(command, tmp_path):
     assert (cfg.data.roi_mode, cfg.data.roi_host) == ("detector", False)
 
 
-@pytest.mark.parametrize("flags,item", [(["--model_family", "tf"], "item 7"),
-                                        (["--distributed"], "item 8"),
+@pytest.mark.parametrize("flags,item", [(["--distributed"], "item 8"),
                                         (["--compute_dtype", "bfloat16"], "item 9")])
 def test_unported_values_raise_naming_their_item(flags, item, tmp_path):
     for command in ("test", "serve", "misalign-train"):

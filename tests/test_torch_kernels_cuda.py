@@ -715,6 +715,35 @@ def test_int8_conv_pool_shared_memory_mirrors_the_kernel(dev):
                 quantconv.shared_memory_bytes(cin, kpad, *k, rows, cols)
 
 
+# the TF-family LipNet's three blocks at its full width (75 x 46 x 140 crops,
+# 3x3x3 kernels): (Cin, Cout, H, W); Kpad 3,456 and 6,912 for conv2 and conv3
+TF_Q1_BLOCKS = [(1, 128, 46, 140), (128, 256, 23, 70), (256, 64, 11, 35)]
+
+
+@pytest.mark.parametrize("contract", CONTRACTS)
+@pytest.mark.parametrize("cin,cout,H,W", TF_Q1_BLOCKS, ids=["conv1", "conv2", "conv3"])
+def test_int8_conv_pool_equals_plain_at_the_tf_blocks(dev, cin, cout, H, W, contract):
+    """Q1 at the TF stack's blocks (B=2, conv2/conv3 inputs channels-last as
+    the int8 forward gives them) equals its plain version bit for bit, a
+    repeat launch too, and the launch's shared memory is the wrapper's."""
+    from avsync_torch.ops.quant import quant_conv_block
+
+    qc, x = q1_case(_gen(80), dev, 2, cin, cout, 75, H, W, (3, 3, 3))
+    if cin > 1:
+        x = channels_last(x)
+    x, out_scale = q1_contract(qc, x, contract, "random")
+    got = quant_conv_block(qc, x, out_scale)
+    again = quant_conv_block(qc, x, out_scale)
+    want = q1_ref(qc, x, out_scale)
+    assert got.shape == want.shape == (2, cout, 75, H // 2, W // 2) and got.dtype == want.dtype
+    assert torch.equal(got, want) and torch.equal(got, again)
+    fn = build.function("int8_conv_pool", "avs_int8_conv_pool_smem", quantconv._SMEM_ARGTYPES)
+    rows, cols = quantconv.tile_for(H // 2, W // 2, cin, cout, 3, 3, 3)
+    kpad = quantconv.padded(cin * 27)
+    assert fn(cin, kpad, 3, 3, 3, rows, cols, quantconv.pos_bytes(cin)) == \
+        quantconv.shared_memory_bytes(cin, kpad, 3, 3, 3, rows, cols)
+
+
 def calibrated_chain(g, dev, x):
     """LipNet's three int8 blocks with random weights, each block's input
     scale its f32 input's absmax / 127 (as calibration sets it)."""

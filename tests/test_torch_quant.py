@@ -362,8 +362,6 @@ def test_quantize_lipnet_requires_calibration(jax_params):
 def test_unported_int8_modes_raise(files):
     from avsync_torch.predictor import LipReader
 
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tq.make_int8_forward(ModelConfig(family="tf"))
     with pytest.raises(ValueError, match="quantize mode"):
         LipReader(checkpoint=files["lipnet"], config=CFG, device="cpu", quantize="int4")
 

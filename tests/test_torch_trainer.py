@@ -253,8 +253,14 @@ def test_cli_test_refuses_beam_search(corpus, tmp_path):
 def test_unported_training_options_raise(corpus):
     with pytest.raises(NotImplementedError):
         LipNetTrainer(AvsyncConfig(train=TrainConfig(mesh_shape=(2, 1))), device="cpu")
-    with pytest.raises(NotImplementedError, match="vocabulary"):
-        GridDataSource(*corpus).labels_batch([0], 4, vocab="tf")
+    # the TF vocabulary is ported: its labels equal the JAX package's
+    from avsync.data import GridDataSource as JaxSource
+
+    for max_len in (4, 40):
+        got = GridDataSource(*corpus).labels_batch([0, 3, 5], max_len, vocab="tf")
+        want = JaxSource(*corpus).labels_batch([0, 3, 5], max_len, vocab="tf")
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, np.asarray(w))
 
 
 def test_tensorboard_scalars_per_epoch(corpus, tmp_path):
