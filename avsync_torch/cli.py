@@ -24,6 +24,18 @@ the `--config` JSON's) with both LipNet kernel flags on, the `misalign-*` comman
 and the MFCC stage's (`fused_conv_pool`, `AudioConfig.use_pallas`), `serve`
 and `export` with all three, unless the config file turns them off; all run
 with TF32 off for cuDNN and cuBLAS, as the JAX reference computes in fp32.
+
+Multi-device (`avsync_torch/parallel/`, one process per device):
+`train` and `misalign-train` on a host with n > 1 cards start their ranks
+themselves (`train`: a ('data', 'model') mesh whose data axis is the gcd of
+the batch and the cards a model group leaves; `misalign-train`: every card),
+as the JAX package's single controller drives all its devices; with one card
+they start none. `--device cpu` with a `--config` whose `mesh_shape` has more
+than one device starts that many gloo ranks on the CPU. `train
+--distributed` joins a group that torchrun (or any launcher setting RANK,
+WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT) started, one process
+per card on each host. `serve --dp N` serves a replica per card (0: every
+card).
 """
 
 from __future__ import annotations
@@ -108,12 +120,15 @@ def _with_common_flags(cfg: AvsyncConfig, args) -> AvsyncConfig:
         train=dataclasses.replace(cfg.train, remat=arg("remat", cfg.train.remat)))
 
 
+# `--distributed` on another command than train: the JAX package's refusal
+DISTRIBUTED_TRAIN_ONLY = (
+    "ERROR: --distributed supports the 'train' subcommand only — the misalignment pipeline, "
+    "eval and serving are single-controller by design (see avsync_torch/parallel/multihost.py)")
+
+
 def _refuse_unported(args) -> None:
     """The common flags' values the port does not run yet raise, naming
     their ROADMAP item, before any work."""
-    if getattr(args, "distributed", False):
-        raise NotImplementedError("--distributed: multi-device and multi-host runs are not "
-                                  "ported yet (ROADMAP §1 item 8)")
     if getattr(args, "compute_dtype", None) == "bfloat16":
         raise NotImplementedError("--compute_dtype bfloat16: the port computes in float32 "
                                   "only (ROADMAP §1 item 9)")
@@ -173,19 +188,82 @@ def _evaluate(model, cfg: AvsyncConfig, batcher, source, out_json: str, device,
     return results
 
 
+def _ranks_to_start(args, cfg: AvsyncConfig, whole_host: bool) -> int:
+    """How many ranks a command starts itself: on the card, one per card
+    of the fitted mesh (`whole_host`: every card) where the host has more
+    than one; on the CPU (`--device cpu`), the config's `mesh_shape` when it
+    names more than one device; else 1 (run here)."""
+    import math
+
+    import torch
+
+    from avsync_torch.parallel.mesh import fit_mesh_shape
+
+    if getattr(args, "distributed", False):
+        return 1
+    dev = torch.device(args.device) if args.device else None
+    if dev is not None and dev.type == "cpu":
+        shape = tuple(cfg.train.mesh_shape)
+        return math.prod(shape) if all(n > 0 for n in shape) else 1
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n <= 1:
+        return 1
+    if whole_host:
+        return n
+    d, m = fit_mesh_shape(cfg.data.batch_size, cfg.train.mesh_shape, n)
+    return d * m
+
+
+def _rank_main(rank: int, args) -> None:
+    """A started rank: the command's body over the process group; only
+    rank 0 writes to the console."""
+    if rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    code = args.func(args)
+    if code:
+        raise SystemExit(code)
+
+
+def _start_ranks(args, world: int) -> int:
+    from avsync_torch.parallel import multihost
+
+    kind = "cpu" if args.device and args.device.startswith("cpu") else "cuda"
+    print(f"starting {world} ranks ({kind}{', gloo' if kind == 'cpu' else ''})", flush=True)
+    multihost.spawn(_rank_main, world, (args,), device=kind)
+    return 0
+
+
 def cmd_train(args) -> int:
+    from avsync_torch.parallel import multihost
+
+    cfg = _config_from_args(args)
+    if not multihost.is_multiprocess():
+        world = _ranks_to_start(args, cfg, whole_host=False)
+        if world > 1:
+            return _start_ranks(args, world)
+    return _train(args, cfg)
+
+
+def _train(args, cfg: AvsyncConfig) -> int:
     from avsync_torch.compat import save_lipnet_pth
     from avsync_torch.data.grid import GridDataSource, check_data_structure, split_speakers
     from avsync_torch.data.pipeline import LipNetBatcher
+    from avsync_torch.parallel import multihost
+    from avsync_torch.predictor import load_lipnet
     from avsync_torch.train.lipnet_trainer import LipNetTrainer, keras_lr_schedule
     from avsync_torch.utils.checkpoint import CheckpointManager
 
     _no_tf32()
-    cfg = _config_from_args(args)
     if args.export_pth and cfg.model.family == "tf":
         raise ValueError("--export_pth writes the reference PyTorch-family .pth; a 'tf' model "
                          "is read from its checkpoint directory (--checkpoint_dir)")
-    trainer = LipNetTrainer(cfg, device=args.device)  # refuses what the port does not run
+    device = args.device
+    if multihost.rank_device() is not None:
+        device = multihost.rank_device()  # the rank's own card
+    trainer = LipNetTrainer(cfg, device=device)  # refuses what the port does not run
+    if trainer.mesh is not None:
+        print(f"mesh {trainer.mesh.shape} over {trainer.mesh.size} ranks "
+              f"({multihost.backend()})", flush=True)
     speakers = args.speakers or check_data_structure(cfg.data.data_path)
     if not speakers:
         print(f"ERROR: no usable speakers under {cfg.data.data_path}")
@@ -194,7 +272,7 @@ def cmd_train(args) -> int:
     print(f"Speakers: train={train_sp} val={val_sp} test={test_sp}")
     sources = {name: GridDataSource(cfg.data.data_path, sp)
                for name, sp in (("train", train_sp), ("val", val_sp), ("test", test_sp))}
-    batchers = {name: LipNetBatcher(src, cfg, device=trainer.device)
+    batchers = {name: LipNetBatcher(src, cfg, device=trainer.device, mesh=trainer.mesh)
                 for name, src in sources.items()}
 
     if cfg.train.quick_test:
@@ -233,9 +311,7 @@ def cmd_train(args) -> int:
     if resume_dir:
         payload, meta = CheckpointManager(resume_dir).restore()
         state = trainer.init_state()
-        state.model.load_state_dict(payload["model_state_dict"])
-        state.optimizer.load_state_dict(payload["optimizer_state_dict"])
-        state.step = int(payload.get("step", 0))
+        trainer.load_state(state, payload)
         if args.resume == "auto":
             # --epochs is a TOTAL budget: credit the epochs COMPLETED (from
             # the snapshot's metrics; the step counter would over-credit a
@@ -274,10 +350,18 @@ def cmd_train(args) -> int:
         history_path=os.path.join(cfg.train.checkpoint_dir, "history.json"),
         start_epoch=start_epoch, profile_dir=args.profile_dir)
     trainer.plot_losses(os.path.join(cfg.train.checkpoint_dir, "training_history.png"))
+    model, test_batcher = state.model, batchers["test"]
+    if trainer.mesh is not None:
+        # rank 0 exports and tests the whole model on its own card
+        whole, _ = trainer.full_state(state)
+        if not multihost.is_main():
+            return 0
+        model = load_lipnet(cfg, whole, trainer.device)
+        test_batcher = LipNetBatcher(sources["test"], cfg, device=trainer.device)
     if args.export_pth:
-        save_lipnet_pth(state.model.state_dict(), args.export_pth)
+        save_lipnet_pth(model.state_dict(), args.export_pth)
         print(f"Exported reference-format checkpoint to {args.export_pth}")
-    _evaluate(state.model, cfg, batchers["test"], sources["test"],
+    _evaluate(model, cfg, test_batcher, sources["test"],
               os.path.join(cfg.train.checkpoint_dir, "test_results.json"), trainer.device)
     return 0
 
@@ -445,17 +529,13 @@ def cmd_serve(args) -> int:
     else:
         if not args.checkpoint:
             raise SystemExit("need --checkpoint (live) or --artifact (exported)")
-        if args.dp != 1:
-            raise NotImplementedError("--dp: multi-device serving is not ported yet "
-                                      "(ROADMAP §1 item 8)")
-        from avsync_torch.predictor import LipReader, MisalignmentScorer
+        from avsync_torch.predictor import MisalignmentScorer
 
         cfg = _serving_config(args)
         # without --qscales an int8 reader calibrates on its first real batch
         # (warm-up's dummy frames never calibrate it); the sync scorer stays f32
         transcriber = TranscribeService(
-            LipReader(checkpoint=args.checkpoint, config=cfg, device=args.device,
-                      quantize=args.quantize, calibration_scales=args.qscales),
+            serving_reader(args, cfg),
             max_batch=args.max_batch, max_wait_ms=args.max_wait_ms, transport=args.transport)
         scorer = None
         if args.detector_checkpoint:
@@ -478,6 +558,37 @@ def cmd_serve(args) -> int:
           f"max_wait_ms={args.max_wait_ms})", flush=True)
     print("endpoints: GET /healthz /v1/stats; POST /v1/transcribe /v1/sync_score", flush=True)
     return _serve_loop(server)
+
+
+def dp_devices(args) -> List[str]:
+    """The devices `serve --dp` may take: every card, or the one CPU."""
+    import torch
+
+    from avsync_torch.predictor import resolve_device
+
+    dev = resolve_device(args.device)
+    if dev.type == "cpu":
+        return ["cpu"]
+    return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+
+
+def serving_reader(args, cfg: AvsyncConfig):
+    """The live daemon's LipReader: with `--dp N` (0: every device) a
+    replica on each of N devices, the batch's rows split over them."""
+    from avsync_torch.predictor import LipReader
+
+    devices = None
+    if args.dp != 1:
+        avail = dp_devices(args)
+        n = len(avail) if args.dp == 0 else args.dp
+        if n < 1 or n > len(avail):
+            raise SystemExit(f"--dp {args.dp}: this host has {len(avail)} device(s) to serve "
+                             "on")
+        if n > 1:
+            devices = avail[:n]
+            print(f"data-parallel serving over {n} devices: {', '.join(devices)}", flush=True)
+    return LipReader(checkpoint=args.checkpoint, config=cfg, device=args.device,
+                     quantize=args.quantize, calibration_scales=args.qscales, devices=devices)
 
 
 def _serve_loop(server) -> int:
@@ -630,6 +741,20 @@ def _plot_roc(labels, probs, out_path: str) -> bool:
 
 
 def cmd_misalign_train(args) -> int:
+    """Detector training; on an n-card host (or `--device cpu` with a
+    config mesh of n devices) over n data-parallel ranks it starts itself,
+    each building the whole feature bank and training on its rows."""
+    from avsync_torch.parallel import multihost
+
+    cfg = _detector_config_from_args(args)
+    if not multihost.is_multiprocess():
+        world = _ranks_to_start(args, cfg, whole_host=True)
+        if world > 1:
+            return _start_ranks(args, world)
+    return _misalign_train(args)
+
+
+def _misalign_train(args) -> int:
     import random
     import time
     from datetime import datetime
@@ -638,6 +763,8 @@ def cmd_misalign_train(args) -> int:
 
     from avsync_torch.compat import save_detector_pth
     from avsync_torch.data.grid import GridDataSource, discover_speakers, split_videos
+    from avsync_torch.parallel import multihost
+    from avsync_torch.parallel.mesh import make_mesh
     from avsync_torch.predictor import (load_lipnet, lipnet_state, refuse_tf_detector,
                                         resolve_device)
     from avsync_torch.train.detector_trainer import DetectorTrainer
@@ -645,9 +772,10 @@ def cmd_misalign_train(args) -> int:
 
     _no_tf32()
     refuse_tf_detector(_detector_config_from_args(args))
-    device = resolve_device(args.device)
-    log_folder = os.path.join(args.log_dir,
-                              f"misalignment_{datetime.now().strftime('%Y%m%d_%H%M%S')}")
+    device = resolve_device(multihost.rank_device() or args.device)
+    # one folder for every rank: rank 0's clock names it
+    log_folder = multihost.broadcast_object(os.path.join(
+        args.log_dir, f"misalignment_{datetime.now().strftime('%Y%m%d_%H%M%S')}"))
     os.makedirs(log_folder, exist_ok=True)
     logger = Logger(os.path.join(log_folder, "training.log"), console=args.verbose)
     t0 = time.time()
@@ -682,10 +810,12 @@ def cmd_misalign_train(args) -> int:
                "max_shift_frames": cfg.detector.max_shift_frames}
 
     def save(state, path):
-        save_detector_pth(state.model.state_dict(), path, input_dim, cfg.detector.hidden_dim,
-                          det_cfg)
+        if multihost.is_main():  # the replicas are equal: rank 0 writes
+            save_detector_pth(state.model.state_dict(), path, input_dim,
+                              cfg.detector.hidden_dim, det_cfg)
 
-    trainer = DetectorTrainer(cfg, device=device, log=logger)
+    mesh = make_mesh((-1, 1)) if multihost.is_multiprocess() else None
+    trainer = DetectorTrainer(cfg, device=device, log=logger, mesh=mesh)
     state, summary = trainer.train(
         banks["train"], len(train_p), banks["val"], len(val_p), save_every=args.save_every,
         save_fn=lambda st, epoch: save(st, os.path.join(log_folder,
@@ -701,7 +831,7 @@ def cmd_misalign_train(args) -> int:
                  args.detector_checkpoint):
         save(state, path)
     roc_path = os.path.join(log_folder, "roc.png")
-    if _plot_roc(test_m["labels"], test_m["probs"], roc_path):
+    if multihost.is_main() and _plot_roc(test_m["labels"], test_m["probs"], roc_path):
         logger.log(f"ROC saved to {roc_path}")
     else:
         logger.log("no ROC plot (matplotlib missing or one class only)")
@@ -813,8 +943,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "device (16x fewer bytes than 288x360 frames); the same program "
                              "as the device path")
         sp.add_argument("--distributed", action="store_true",
-                        help="join a multi-host run; not ported yet (raises "
-                             "NotImplementedError)")
+                        help="train only: join a process group that torchrun started (RANK, "
+                             "WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT), one process "
+                             "per card on every host; run the same command everywhere")
         sp.add_argument("--compute_dtype", choices=["float32", "bfloat16"], default=None,
                         help="conv/GRU compute dtype; the port computes in float32 only "
                              "(bfloat16 raises NotImplementedError)")
@@ -933,7 +1064,8 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--max_body_mb", type=int, default=256,
                     help="refuse request bodies larger than this (413) before reading them")
     sv.add_argument("--dp", type=int, default=1,
-                    help="data-parallel serving over N devices; only 1 is ported")
+                    help="data-parallel serving over N cards (0 = all): a replica of the "
+                         "weights per card, made once; each batch's rows split over them")
     sv.add_argument("--quantize", choices=["int8"], default=None,
                     help="int8 conv stack for /v1/transcribe (see `quantize`)")
     sv.add_argument("--qscales", type=str, default=None,
@@ -985,6 +1117,25 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    if getattr(args, "distributed", False):
+        if args.command != "train":
+            print(DISTRIBUTED_TRAIN_ONLY, file=sys.stderr)
+            return 2
+        import torch.distributed as dist
+
+        from avsync_torch.parallel import multihost
+
+        # before any device work: the group, the rank's card, the backend
+        rank = multihost.initialize(device="cpu" if args.device == "cpu" else "cuda")
+        print(f"multi-process: rank {rank} of {multihost.world_size()} on "
+              f"{multihost.rank_device()} ({multihost.backend()})", flush=True)
+        if rank != 0:
+            sys.stdout = open(os.devnull, "w")
+        try:
+            _refuse_unported(args)
+            return args.func(args)
+        finally:
+            dist.destroy_process_group()
     _refuse_unported(args)
     return args.func(args)
 

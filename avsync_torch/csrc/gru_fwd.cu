@@ -4,7 +4,8 @@
 // Replaces: avsync/ops/pallas/gru.py, `pallas_gru_scan` (Pallas TPU kernels
 // `_gru_kernel_vmem` / `_gru_kernel`). Same function: given
 // gi = x @ w_ih + b_ih for every step (B, T, 3H), w_hh (H, 3H) and b_hh (3H),
-// run h_t = GRU(gi_t, h_{t-1}) from h_0 = 0 with torch's [r, z, n] gates,
+// run h_t = GRU(gi_t, h_{t-1}) from h_0 (zeros, or a given (B, H) initial
+// state per direction) with torch's [r, z, n] gates,
 //   r = sigmoid(gi_r + h W_hr + b_hr)
 //   z = sigmoid(gi_z + h W_hz + b_hz)
 //   n = tanh(gi_n + r * (h W_hn + b_hn))
@@ -81,10 +82,24 @@ struct GruParams {
   const float* gi[2];   // per direction; gi[d][b*gi_sb + t*gi_st + col]
   const float* w_hh[2]; // per direction; w[k*w_sk + col*w_sc], (H, 3H) logical
   const float* b_hh[2]; // per direction; (3H,), contiguous
+  const float* h0[2];   // per direction; h0[d][b*h0_sb + j], or null: zeros
   float* out;           // out[b*o_sb + t*o_st + d*o_sd + j]
-  long long gi_sb, gi_st, w_sk, w_sc, o_sb, o_st, o_sd;
+  long long gi_sb, gi_st, w_sk, w_sc, o_sb, o_st, o_sd, h0_sb;
   int B, T, H, reverse_mask;  // bit d set: direction d walks time backwards
 };
+
+// h_0 into h buffer 0 of this CTA: every CTA's slice (units [q*U, (q+1)*U)
+// at q*S as [U][BT]) from the direction's initial state, rows past B and
+// the padding left 0 (the caller skips it without an initial state).
+__device__ __forceinline__ void load_h0(const GruParams& p, int d, int b0, int BT, int U,
+                                        int S, float* s_h) {
+  const float* h0 = p.h0[d];
+  for (int e = threadIdx.x; e < CLUSTER * U * BT; e += blockDim.x) {
+    const int q = e / (U * BT), r = e % (U * BT), ul = r / BT, rb = r % BT;
+    const int gb = b0 + rb;
+    if (gb < p.B) s_h[q * S + ul * BT + rb] = h0[gb * p.h0_sb + q * U + ul];
+  }
+}
 
 // BT: batch rows per cluster (1, 2 or 4). NK: k values per lane (H/8) when
 // known at compile time, 0 = read H at run time (H/8 <= MAX_KPL).
@@ -143,8 +158,13 @@ gru_fwd_kernel(const GruParams p) {
   // whole h (every CTA's slice), which the peers' stores then complete
   const uint32_t h_bytes = H * BT * sizeof(float);
   const uint32_t bar0 = smem_addr(&s_bar[0]);
-  // h_0 = 0; the padding stays 0 (it meets zero weights in the product)
+  // h_0 (zeros unless given); the padding stays 0 (it meets zero weights in
+  // the product)
   for (int i = threadIdx.x; i < 2 * CLUSTER * S; i += blockDim.x) s_h[i] = 0.f;
+  if (p.h0[d] != nullptr) {  // uniform over the CTA
+    __syncthreads();
+    load_h0(p, d, b0, BT, U, S, s_h);
+  }
   if (threadIdx.x == 0) {
     init_barriers(bar0);
     // buffer 1 is first filled by step 0's pushes, buffer 0 by step 1's
@@ -273,6 +293,10 @@ gru_fwd_generic_kernel(const GruParams p, int w_in_smem) {
   const uint32_t h_bytes = H * BT * sizeof(float);
   const uint32_t bar0 = smem_addr(&s_bar[0]);
   for (int i = threadIdx.x; i < 2 * CLUSTER * S; i += GNT) s_h[i] = 0.f;
+  if (p.h0[d] != nullptr) {  // uniform over the CTA
+    __syncthreads();
+    load_h0(p, d, b0, BT, U, S, s_h);
+  }
   if (threadIdx.x == 0) {
     init_barriers(bar0);
     if (T > 1) expect_bytes(bar0 + 8, h_bytes);
@@ -370,9 +394,9 @@ extern "C" int avs_gru_fwd_max_hidden() {
 
 extern "C" int avs_gru_fwd(
     const float* gi0, const float* gi1, const float* w0, const float* w1,
-    const float* b0, const float* b1, float* out,
+    const float* b0, const float* b1, const float* h00, const float* h01, float* out,
     long long gi_sb, long long gi_st, long long w_sk, long long w_sc,
-    long long o_sb, long long o_st, long long o_sd,
+    long long o_sb, long long o_st, long long o_sd, long long h0_sb,
     int B, int T, int H, int ndir, int reverse_mask, int device,
     void* stream) {
   if (H % KQ != 0 || H < KQ || ndir < 1 || ndir > 2 || B < 1 || T < 0)
@@ -380,8 +404,8 @@ extern "C" int avs_gru_fwd(
   if (T == 0) return 0;
   cudaError_t e = use_device(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  GruParams p{{gi0, gi1}, {w0, w1}, {b0, b1}, out,
-              gi_sb, gi_st, w_sk, w_sc, o_sb, o_st, o_sd,
+  GruParams p{{gi0, gi1}, {w0, w1}, {b0, b1}, {h00, h01}, out,
+              gi_sb, gi_st, w_sk, w_sc, o_sb, o_st, o_sd, h0_sb,
               B, T, H, reverse_mask};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (H > MAX_KPL * KQ) {

@@ -35,6 +35,15 @@ uncached rows of each batch and merges them on the device. The gather is
 a TPU workaround, so `cache_gather_onehot_max_mb` has no effect here.
 `scan_plan` hands a fully cached corpus to the trainers' whole-epoch
 programs.
+
+Under a mesh of ranks (`mesh`, the JAX batcher's `mesh`) the epoch's global
+batches are the same, and each rank yields only its data index's block of
+rows of each (`multihost.local_rows`, as `P('data')` cuts them): it
+decodes, uploads and preprocesses those alone, a partial cache decodes only
+its own uncached rows, and `scan_plan` gives it its columns of the (S, B)
+plan. The device cache itself is the whole corpus on every rank (each
+epoch's shuffle hands a rank other clips), built by each rank from a full
+decode in source order.
 """
 
 from __future__ import annotations
@@ -52,6 +61,7 @@ from avsync_torch.config import AvsyncConfig
 from avsync_torch.data.grid import GridDataSource
 from avsync_torch.data.video import decode_video_gray
 from avsync_torch.ops import image as imglib
+from avsync_torch.parallel import multihost
 from avsync_torch.predictor import (load_localizer, load_mouth_detector, preprocess,
                                     resolve_device)
 
@@ -167,11 +177,15 @@ def roi_coords(d, roi_mode: str, frame_hw, localizer=None, device=None):
 class LipNetBatcher:
     """Epoch iterators of batches for LipNetTrainer:
     {'video': (B, T, h, w, 1) float32 on the device, 'labels': (B, L) int32,
-    'label_lengths': (B,) int32, 'valid': int} (labels stay numpy)."""
+    'label_lengths': (B,) int32, 'valid': int} (labels stay numpy); under a
+    `mesh`, this rank's rows of each batch ('valid' counts its real ones)."""
 
-    def __init__(self, source: GridDataSource, config: AvsyncConfig, device=None):
+    def __init__(self, source: GridDataSource, config: AvsyncConfig, device=None, mesh=None):
         self.source = source
         self.cfg = config
+        self.mesh = mesh if mesh is not None and mesh.data_size > 1 else None
+        if device is None and multihost.rank_device() is not None:
+            device = multihost.rank_device()
         self.device = resolve_device(device)
         self._device_cache: Optional[Dict] = None
         self._epoch_calls = 0
@@ -229,11 +243,22 @@ class LipNetBatcher:
             boxes = torch.from_numpy(boxes).to(self.device)
         return preprocess(raw, self.cfg, boxes=boxes, localizer=self._localizer)
 
+    def _rows(self, B: int) -> slice:
+        """This rank's rows of a global batch of B (all of them without a mesh)."""
+        return multihost.local_rows(B, self.mesh)
+
+    def _local(self, idx: np.ndarray, valid: int, local: bool):
+        """(rows of `idx` this rank takes, how many of them are real)."""
+        if not local or self.mesh is None:
+            return idx, valid
+        rows = self._rows(len(idx))
+        return idx[rows], max(0, min(valid - rows.start, rows.stop - rows.start))
+
     def _raw_batches(self, batch_size: Optional[int], shuffle: bool, seed: int,
-                     drop_last: bool, prefetch_size: int) -> Iterator[Dict]:
+                     drop_last: bool, prefetch_size: int, local: bool = True) -> Iterator[Dict]:
         """Prefetched host batches: {'raw' uint8 (B, T, H, W) (crops under
         roi_host), 'boxes' (detector mode) or None, 'labels',
-        'label_lengths', 'valid'}."""
+        'label_lengths', 'valid'}; this rank's rows only when `local`."""
         d = self.cfg.data
         B = batch_size or d.batch_size
         n = len(self.source)
@@ -251,6 +276,7 @@ class LipNetBatcher:
                         if drop_last:
                             return
                         idx = np.concatenate([idx, np.zeros(B - valid, np.int64)])
+                    idx, valid = self._local(idx, valid, local)
                     raws, boxes = self._host_rows(np.stack(list(pool.map(
                         lambda j: self._decode_clip(self.source.samples[j].video_path), idx))))
                     labels, lengths = self.source.labels_batch(
@@ -263,9 +289,9 @@ class LipNetBatcher:
         return prefetch(batches(), prefetch_size)
 
     def _host_epoch(self, batch_size: Optional[int], shuffle: bool, seed: int,
-                    drop_last: bool, prefetch_size: int) -> Iterator[Dict]:
+                    drop_last: bool, prefetch_size: int, local: bool = True) -> Iterator[Dict]:
         """The streamed epoch: host decode, upload, device preprocess."""
-        gen = self._raw_batches(batch_size, shuffle, seed, drop_last, prefetch_size)
+        gen = self._raw_batches(batch_size, shuffle, seed, drop_last, prefetch_size, local)
         try:
             for hb in gen:
                 raw = torch.from_numpy(hb["raw"]).to(self.device)
@@ -367,7 +393,8 @@ class LipNetBatcher:
             q = torch.round(x * 255.0).clamp(0.0, 255.0).to(torch.uint8)
             return q, torch.all(q.float() * (1.0 / 255.0) == x)
 
-        gen = self._host_epoch(None, shuffle=False, seed=0, drop_last=False, prefetch_size=2)
+        gen = self._host_epoch(None, shuffle=False, seed=0, drop_last=False, prefetch_size=2,
+                               local=False)
         try:
             for hb in gen:
                 x = hb["video"]
@@ -440,7 +467,7 @@ class LipNetBatcher:
             np.random.default_rng(seed).shuffle(order)
         return {"video": cache["video"], "gather": self.gather, "labels": cache["labels_dev"],
                 "lengths": cache["lengths_dev"],
-                "idx": order[:S * B].reshape(S, B).astype(np.int32)}
+                "idx": order[:S * B].reshape(S, B)[:, self._rows(B)].astype(np.int32)}
 
     def _cached_epoch(self, batch_size, shuffle, seed, drop_last) -> Iterator[Dict]:
         """An epoch from the device cache: the streamed path's order and
@@ -465,7 +492,7 @@ class LipNetBatcher:
                     if drop_last:
                         return
                     idx = np.concatenate([idx, np.zeros(B - valid, np.int64)])
-                yield idx, valid
+                yield self._local(idx, valid, True)
 
         def out(idx, valid, video):
             return {"video": video, "labels": cache["labels"][idx],
@@ -476,11 +503,13 @@ class LipNetBatcher:
                 yield out(idx, valid, self.gather(torch.from_numpy(idx).long().to(self.device)))
             return
 
+        Bl = self._rows(B).stop - self._rows(B).start
+
         def cap_of(k):  # rows of a packed upload: k rounded up to a power of 2
             c = 1
             while c < k:
                 c *= 2
-            return min(c, B)
+            return min(c, Bl)
 
         def host_batches():  # decode only the uncached rows of each batch
             pool = ThreadPoolExecutor(max_workers=max(1, int(d.loader_threads)))

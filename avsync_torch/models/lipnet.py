@@ -97,7 +97,10 @@ class ConvPoolBlock(nn.Module):
 
 class BiGRU(nn.Module):
     """Bidirectional single-layer GRU with nn.GRU's parameter names
-    (`weight_ih_l0`, ..., `bias_hh_l0_reverse`) and initialisation."""
+    (`weight_ih_l0`, ..., `bias_hh_l0_reverse`) and initialisation. `tp`: set
+    by `parallel.mesh.shard_model` when its weights are row shards."""
+
+    tp = None
 
     def __init__(self, input_dim: int, hidden_dim: int, use_kernel: bool = False,
                  generator: Optional[torch.Generator] = None):
@@ -120,11 +123,15 @@ class BiGRU(nn.Module):
                           getattr(self, f"bias_hh_l0{suffix}"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return bigru(x, self._weights(""), self._weights("_reverse"), self.use_kernel)
+        return bigru(x, self._weights(""), self._weights("_reverse"), self.use_kernel,
+                     self.tp)
 
 
 class Linear(nn.Module):
-    """nn.Linear's params and init, drawn from an explicit generator."""
+    """nn.Linear's params and init, drawn from an explicit generator. With
+    `tp` (row shards of the output units) its outputs are gathered whole."""
+
+    tp = None
 
     def __init__(self, din: int, dout: int,
                  generator: Optional[torch.Generator] = None):
@@ -134,7 +141,14 @@ class Linear(nn.Module):
         self.bias = _uniform((dout,), bound, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        return tp_linear(x, self.weight, self.bias, self.tp)
+
+
+def tp_linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, tp) -> torch.Tensor:
+    """F.linear, or with `tp` the rows' slice of the outputs gathered whole."""
+    if tp is None:
+        return F.linear(x, weight, bias)
+    return tp.gather(F.linear(tp.enter(x), weight, bias), -1)
 
 
 class LipNet(nn.Module):

@@ -31,7 +31,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from avsync_torch.models.lipnet import ConvPoolBlock, _uniform, inverted_dropout, remat_block
+from avsync_torch.models.lipnet import (ConvPoolBlock, _uniform, inverted_dropout, remat_block,
+                                        tp_linear)
 from avsync_torch.ops.ctc import optax_ctc_nll
 from avsync_torch.ops.lstm import LSTMWeights, bilstm
 
@@ -56,7 +57,10 @@ def tf_model_config(model_cfg) -> TFModelConfig:
 
 class BiLSTM(nn.Module):
     """Bidirectional single-layer LSTM with nn.LSTM's parameter names and
-    initialisation (uniform in +-1/sqrt(H), as the JAX package's)."""
+    initialisation (uniform in +-1/sqrt(H), as the JAX package's). `tp`: set
+    by `parallel.mesh.shard_model` when its weights are row shards."""
+
+    tp = None
 
     def __init__(self, input_dim: int, hidden_dim: int,
                  generator: Optional[torch.Generator] = None):
@@ -76,13 +80,15 @@ class BiLSTM(nn.Module):
                              for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return bilstm(self._weights(""), self._weights("_reverse"), x)
+        return bilstm(self._weights(""), self._weights("_reverse"), x, self.tp)
 
 
 class HeLinear(nn.Module):
     """A Dense layer as Flax's with `he_normal`: weight (out, in) from a
     normal truncated at two standard deviations, scaled to variance 2/in;
-    bias zeros."""
+    bias zeros. With `tp` (row shards) its outputs are gathered whole."""
+
+    tp = None
 
     def __init__(self, din: int, dout: int, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -93,7 +99,7 @@ class HeLinear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        return tp_linear(x, self.weight, self.bias, self.tp)
 
 
 class TFLipNet(nn.Module):

@@ -39,6 +39,25 @@ def fp32_step() -> Iterator[None]:
         matmul.allow_tf32 = prev
 
 
+@contextlib.contextmanager
+def train_scope() -> Iterator[None]:
+    """The trainers' step scope: `fp32_step`, and cuDNN's deterministic
+    algorithms with its autotuner off. cuDNN's default backward of conv2 and
+    conv3 on the H100 sums with atomics, so two runs of the same steps
+    part from the second step; a data-parallel run is held bit for bit
+    against its own loop, which needs every rank's gradients reproducible.
+    The previous flags come back after. Serving and export keep
+    `fp32_step` alone."""
+    cudnn = torch.backends.cudnn
+    prev = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        with fp32_step():
+            yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = prev
+
+
 def conv3d(x: torch.Tensor, weight: torch.Tensor,
            bias: torch.Tensor | None = None) -> torch.Tensor:
     """NCDHW stride-1 conv3d with symmetric SAME padding (k-1)//2 for odd

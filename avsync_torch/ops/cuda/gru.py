@@ -3,7 +3,9 @@ CUDA kernels and their plain twins.
 
   * forward: port of `avsync/ops/pallas/gru.py:pallas_gru_scan`, kernel
     `avsync_torch/csrc/gru_fwd.cu` (K2), which runs the whole T-step
-    recurrence in one launch with w_hh and h on chip; plain version
+    recurrence in one launch with w_hh and h on chip, from zeros or from a
+    given initial state `h0` (the context-parallel chain hands one chunk's
+    last state to the next: `parallel/context.py`); plain version
     `gru_recurrence_ref`; `launches` counts its launches;
   * backward: port of `pallas_gru_bwd`, kernel `avsync_torch/csrc/gru_bwd.cu`
     (K3): the gh recompute as one product, the reverse-time chain for dgi,
@@ -36,6 +38,7 @@ kernel takes strides).
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -46,9 +49,9 @@ from avsync_torch.ops.cuda import build
 launches = 0
 bwd_launches = 0
 
-# avs_gru_fwd(gi0, gi1, w0, w1, b0, b1, out, 7 strides, B, T, H, ndir,
-#             reverse_mask, device, stream)
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 7
+# avs_gru_fwd(gi0, gi1, w0, w1, b0, b1, h00, h01, out, 8 strides, B, T, H,
+#             ndir, reverse_mask, device, stream); a null h0 starts from zeros
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 8
              + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 # avs_gru_bwd(gi0, gi1, out0, out1, g0, g1, w0, w1, b0, b1, dgi0, dgi1,
 #             dw0, dw1, db0, db1, gh, dgh, partial, 10 strides, B, T, H, ndir,
@@ -95,13 +98,14 @@ def _check_fits(name: str, symbol: str, H: int) -> None:
 
 
 def gru_recurrence_ref(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
-                       reverse: bool = False) -> torch.Tensor:
+                       reverse: bool = False, h0: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """Plain version: gi (B, T, 3H), w_hh (H, 3H), b_hh (3H,) -> (B, T, H),
-    h_0 = 0, torch [r, z, n] gates; `reverse` walks time backwards and still
-    returns outputs in forward time order."""
+    from h0 (B, H) (zeros when None), torch [r, z, n] gates; `reverse` walks
+    time backwards and still returns outputs in forward time order."""
     B, T, threeH = gi.shape
     H = threeH // 3
-    h = gi.new_zeros(B, H)
+    h = gi.new_zeros(B, H) if h0 is None else h0
     outs = [None] * T
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
         gh = h @ w_hh + b_hh
@@ -114,8 +118,9 @@ def gru_recurrence_ref(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     return torch.stack(outs, dim=1)
 
 
-def _launch(gis, w_hhs, b_hhs, reverse_mask: int) -> torch.Tensor:
-    """One launch for 1 or 2 directions; direction d writes out[..., d*H:(d+1)*H]."""
+def _launch(gis, w_hhs, b_hhs, reverse_mask: int, h0s=None) -> torch.Tensor:
+    """One launch for 1 or 2 directions; direction d writes out[..., d*H:(d+1)*H],
+    starting from h0s[d] (B, H) when given, else from zeros."""
     global launches
     gi0, w0 = gis[0], w_hhs[0]
     B, T, threeH = gi0.shape
@@ -128,7 +133,8 @@ def _launch(gis, w_hhs, b_hhs, reverse_mask: int) -> torch.Tensor:
     if Hp != H:
         out = _launch(tuple(pad_gates(g, H, Hp) for g in gis),
                       tuple(pad_w_hh(w, H, Hp) for w in w_hhs),
-                      tuple(pad_gates(b, H, Hp) for b in b_hhs), reverse_mask)
+                      tuple(pad_gates(b, H, Hp) for b in b_hhs), reverse_mask,
+                      None if h0s is None else tuple(pad_units(h, H, Hp) for h in h0s))
         return torch.cat([out[..., d * Hp:d * Hp + H] for d in range(len(gis))], dim=-1)
     _check_fits("gru_fwd", "avs_gru_fwd_max_hidden", H)
     for t in (*gis, *w_hhs, *b_hhs):
@@ -141,15 +147,24 @@ def _launch(gis, w_hhs, b_hhs, reverse_mask: int) -> torch.Tensor:
             raise ValueError("gru: directions must have the same strides")
         if gi.stride(2) != 1 or not b.is_contiguous():
             raise ValueError("gru: gi's last dim and b_hh must be contiguous")
+    h0_sb = 0
+    if h0s is not None:
+        h0s = tuple(h.contiguous() for h in h0s)
+        for h in h0s:
+            if h.shape != (B, H) or h.device != dev or h.dtype != torch.float32:
+                raise ValueError(f"gru: h0 must be float32 ({B}, {H}) on {dev}")
+        h0_sb = H
     ndir = len(gis)
     out = torch.empty(B, T, ndir * H, device=dev, dtype=torch.float32)
     fn = build.function("gru_fwd", "avs_gru_fwd", _ARGTYPES)
     # with one direction, the second pointer set repeats the first (unused)
     err = fn(gis[0].data_ptr(), gis[-1].data_ptr(),
              w_hhs[0].data_ptr(), w_hhs[-1].data_ptr(),
-             b_hhs[0].data_ptr(), b_hhs[-1].data_ptr(), out.data_ptr(),
+             b_hhs[0].data_ptr(), b_hhs[-1].data_ptr(),
+             None if h0s is None else h0s[0].data_ptr(),
+             None if h0s is None else h0s[-1].data_ptr(), out.data_ptr(),
              gi0.stride(0), gi0.stride(1), w0.stride(0), w0.stride(1),
-             out.stride(0), out.stride(1), H,
+             out.stride(0), out.stride(1), H, h0_sb,
              B, T, H, ndir, reverse_mask, dev.index,
              torch.cuda.current_stream(dev).cuda_stream)
     build.check("gru_fwd", err, "gru_fwd launch")
@@ -166,11 +181,13 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 
 def gru_recurrence(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
-                   reverse: bool = False) -> torch.Tensor:
-    """One direction: gi (B, T, 3H), w_hh (H, 3H), b_hh (3H,) -> (B, T, H)."""
+                   reverse: bool = False, h0: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """One direction: gi (B, T, 3H), w_hh (H, 3H), b_hh (3H,) -> (B, T, H),
+    from h0 (B, H), or from zeros when None."""
     if not _on_cuda(gi):
-        return gru_recurrence_ref(gi, w_hh, b_hh, reverse)
-    return _launch((gi,), (w_hh,), (b_hh,), int(reverse))
+        return gru_recurrence_ref(gi, w_hh, b_hh, reverse, h0)
+    return _launch((gi,), (w_hh,), (b_hh,), int(reverse), None if h0 is None else (h0,))
 
 
 def _bigru_fwd_cuda(gi_f: torch.Tensor, gi_b: torch.Tensor, w_hh_f: torch.Tensor,

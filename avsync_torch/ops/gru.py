@@ -17,6 +17,10 @@ Same structure as the JAX package:
 Weights here are torch's: weight_ih (3H, D), weight_hh (3H, H), gate order
 [r, z, n]. The kernel wrapper takes the JAX right-multiply layout, which is
 the transpose view of torch's — no copy.
+
+Under tensor parallelism (`tp`, `parallel/mesh.TensorParallel`) the weights
+are this rank's block of gate rows: the input projection computes its slice
+of gi, and gi, w_hh and b_hh are gathered whole before the recurrence.
 """
 
 from __future__ import annotations
@@ -65,10 +69,17 @@ class BiGRURecurrence(torch.autograd.Function):
 
 
 def bigru(x: torch.Tensor, fwd: GRUWeights, bwd: GRUWeights,
-          use_kernel: bool = False) -> torch.Tensor:
-    """Bidirectional GRU: (B, T, D) -> (B, T, 2H) = [forward | backward]."""
+          use_kernel: bool = False, tp=None) -> torch.Tensor:
+    """Bidirectional GRU: (B, T, D) -> (B, T, 2H) = [forward | backward];
+    with `tp` the weights are row shards, gathered as the module says."""
+    if tp is not None:
+        x = tp.enter(x)
     gi_f = input_projection(x, fwd)
     gi_b = input_projection(x, bwd)
+    if tp is not None:
+        gi_f, gi_b = tp.gather(gi_f, -1), tp.gather(gi_b, -1)
+        fwd, bwd = (w._replace(weight_hh=tp.gather(w.weight_hh, 0),
+                               bias_hh=tp.gather(w.bias_hh, 0)) for w in (fwd, bwd))
     if use_kernel:
         return BiGRURecurrence.apply(gi_f, gi_b, fwd.weight_hh.t(), bwd.weight_hh.t(),
                                      fwd.bias_hh, bwd.bias_hh)

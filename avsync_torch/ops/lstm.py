@@ -18,7 +18,9 @@ loop. The loop reads no host value, so a train step that runs it can be
 captured in a CUDA graph.
 
 Weights are torch's (`nn.LSTM`'s layout): weight_ih (4H, D), weight_hh
-(4H, H).
+(4H, H). Under tensor parallelism (`tp`, `parallel/mesh.TensorParallel`)
+they are this rank's block of gate rows: its slice of the projection is
+computed, then the projection and w_hh are gathered whole before the loop.
 """
 
 from __future__ import annotations
@@ -58,13 +60,20 @@ def _recurrence(gi: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
 
 
 def _run(x: torch.Tensor, weights: Sequence[LSTMWeights],
-         reverse: Sequence[bool]) -> torch.Tensor:
+         reverse: Sequence[bool], tp=None) -> torch.Tensor:
     """(B, T, D) through each direction -> (B, T, N*H), the directions'
     outputs concatenated in order, each at its own timestep."""
+    if tp is not None:
+        x = tp.enter(x)
     gis = []
     for w, rev in zip(weights, reverse):
-        gi = F.linear(x, w.weight_ih, w.bias_ih + w.bias_hh).transpose(0, 1)  # (T, B, 4H)
+        gi = F.linear(x, w.weight_ih, w.bias_ih + w.bias_hh)
+        if tp is not None:
+            gi = tp.gather(gi, -1)
+        gi = gi.transpose(0, 1)  # (T, B, 4H)
         gis.append(gi.flip(0) if rev else gi)
+    if tp is not None:
+        weights = [w._replace(weight_hh=tp.gather(w.weight_hh, 0)) for w in weights]
     w_hh = torch.stack([w.weight_hh.t() for w in weights])
     hs = _recurrence(torch.stack(gis, dim=1), w_hh)  # (T, N, B, H)
     outs = [hs[:, n].flip(0) if rev else hs[:, n] for n, rev in enumerate(reverse)]
@@ -77,7 +86,7 @@ def lstm_scan(w: LSTMWeights, x: torch.Tensor, reverse: bool = False) -> torch.T
     return _run(x, [w], [reverse])
 
 
-def bilstm(fwd: LSTMWeights, bwd: LSTMWeights, x: torch.Tensor) -> torch.Tensor:
+def bilstm(fwd: LSTMWeights, bwd: LSTMWeights, x: torch.Tensor, tp=None) -> torch.Tensor:
     """Bidirectional LSTM: (B, T, D) -> (B, T, 2H) = [forward | backward],
     both directions stepped together."""
-    return _run(x, [fwd, bwd], [False, True])
+    return _run(x, [fwd, bwd], [False, True], tp)

@@ -10,11 +10,15 @@ raise instead of falling back. Native-size frames take the ROI program of
 `DataConfig.roi_mode` (heuristic, variance, the learned localizer, or the
 host cascade's boxes under 'detector'), pre-cropped ones only /255, as
 training does. `LipReader(quantize="int8")` serves the conv stack in int8.
-Not ported: a mesh.
+`LipReader(devices=[...])` serves data-parallel (the JAX reader's `mesh`):
+a replica of the weights per device, made once at load, each batch's rows
+split into contiguous blocks, one block per device, the log-probs back in
+row order. No collective is needed.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 from typing import Dict, List, Mapping, Optional, Sequence
@@ -225,6 +229,11 @@ class LipReader:
          array); the deployment needs no calibration data;
       2. `calibration_frames`: a few representative (T, H, W) clips;
       3. lazily, the first batch predicted.
+
+    `devices` (e.g. ["cuda:0", "cuda:1"]): data-parallel serving over those
+    devices (`device` is then the first, where inputs are preprocessed and
+    the log-probs come back). Every replica holds the same weights and, under
+    int8, the same calibration scales.
     """
 
     def __init__(self, checkpoint: Optional[str] = None,
@@ -232,13 +241,22 @@ class LipReader:
                  config: Optional[AvsyncConfig] = None, device=None,
                  quantize: Optional[str] = None,
                  calibration_frames: Optional[Sequence[np.ndarray]] = None,
-                 calibration_scales=None):
+                 calibration_scales=None, devices: Optional[Sequence] = None):
         self.cfg = config or AvsyncConfig()
+        if devices is not None:
+            devices = [resolve_device(d) for d in devices]
+            if not devices:
+                raise ValueError("devices: an empty list")
+            device = devices[0]
         self.device = resolve_device(device)
         self._localizer = load_localizer(self.cfg, self.device)
         self._mouth = load_mouth_detector(self.cfg)
         self.model = load_lipnet(self.cfg, lipnet_state(self.cfg, checkpoint, params),
                                  self.device)
+        # (device, model) per replica; the first is self.model
+        self.replicas = [(self.device, self.model)] + [
+            (d, copy.deepcopy(self.model).to(d)) for d in (devices or [])[1:]]
+        self._replica_qparams = None
         if quantize not in (None, "int8"):
             raise ValueError(f"unsupported quantize mode: {quantize!r}")
         self._quantize = quantize
@@ -275,6 +293,8 @@ class LipReader:
                           localizer=self._localizer)
 
     def _logprobs(self, clips: torch.Tensor) -> torch.Tensor:
+        if len(self.replicas) > 1:
+            return self._logprobs_dp(clips)
         with torch.inference_mode():
             clips = clips.to(self.device)
             if self._quantize is None:
@@ -288,6 +308,32 @@ class LipReader:
                     return self._qfwd(qp, clips)
                 self._qparams = qp
             return self._qfwd(self._qparams, clips)
+
+    def _logprobs_dp(self, clips: torch.Tensor) -> torch.Tensor:
+        """Data-parallel: contiguous blocks of rows, one per replica, each on
+        its device (launched in turn, without waiting), back in row order."""
+        blocks = torch.tensor_split(clips, len(self.replicas))
+        with torch.inference_mode():
+            if self._quantize is not None:
+                if self._qparams is None:  # lazy calibration on the first input
+                    qp = quantize_lipnet(self.model, [clips.to(self.device)])
+                    if self._warming:
+                        return self._qfwd(qp, clips.to(self.device))
+                    self._qparams = qp
+                if self._replica_qparams is None:
+                    scales = np.asarray([float(c.x_scale) for c in self._qparams.convs],
+                                        np.float32)
+                    self._replica_qparams = [self._qparams] + [
+                        quantize_lipnet(m, [], input_scales=scales)
+                        for _, m in self.replicas[1:]]
+            outs = []
+            for i, ((dev, model), block) in enumerate(zip(self.replicas, blocks)):
+                if block.shape[0] == 0:
+                    continue
+                block = block.to(dev)
+                outs.append(model(block) if self._quantize is None
+                            else self._qfwd(self._replica_qparams[i], block))
+            return torch.cat([o.to(self.device) for o in outs], dim=0)
 
     def _decode(self, log_probs) -> List[str]:
         return textlib.family_decoder(self.cfg.model.family)(log_probs)

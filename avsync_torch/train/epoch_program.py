@@ -13,7 +13,14 @@ kernels' builds and tables), captures the step, then replays it for the
 rest of the epoch; later epochs only replay. A capture that fails raises:
 nothing falls back to the loop. On the CPU, and where the caller asks for
 it, the same step runs as an eager loop, so the two can be held against
-each other bit for bit (given deterministic kernels: see the trainers).
+each other bit for bit (the trainers' step scope makes cuDNN deterministic).
+
+A data-parallel step is split at its gradient all-reduce, which a CUDA graph
+cannot hold when the collective is gloo's (a host round trip): `body` (the
+forward and backward into the reducer's flat buffer) and `finish` (the
+update after the reduction) are captured as two graphs, and `reduce` runs
+eagerly between their replays. On the CPU the three run in a loop: one code
+path either way.
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ class EpochProgram:
         self.buffers = buffers
         self.counter = torch.zeros((1,), dtype=torch.long, device=device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.finish_graph: Optional[torch.cuda.CUDAGraph] = None  # a split step's update
         self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
         self.fingerprint: Optional[tuple] = None
 
@@ -72,7 +80,9 @@ class EpochProgram:
     def run(self, steps: int, body: Callable[[], None], before: Callable[[], None],
             graph_ok: bool, key: Callable[[], tuple],
             zero_grad: Optional[Callable[[], None]] = None,
-            generator: Optional[torch.Generator] = None) -> None:
+            generator: Optional[torch.Generator] = None,
+            reduce: Optional[Callable[[], None]] = None,
+            finish: Optional[Callable[[], None]] = None) -> None:
         """`steps` steps of `body` from plan row 0. `before()` runs ahead of
         every step on the host (the dropout reseed); `zero_grad`, ahead of
         every eager step and of the capture, sets the gradients to None, so
@@ -80,11 +90,14 @@ class EpochProgram:
         eager loop. `key()` is the fingerprint of what the step reads and
         writes, taken at the capture (after the warm-up has made Adam's
         state) and compared on every later run; `generator` is registered
-        with the graph, so each replay reads its seed and offset."""
+        with the graph, so each replay reads its seed and offset. With
+        `reduce` and `finish` a step is body, reduce, finish: two graphs with
+        the eager reduction between them."""
+        parts = (body,) if reduce is None else (body, reduce, finish)
         self.counter.zero_()
         if not graph_ok:
             for _ in range(steps):
-                self._eager(body, before, zero_grad)
+                self._eager(parts, before, zero_grad)
             return
         if self.graph is not None and self.fingerprint != key():
             self.graph = None
@@ -95,7 +108,7 @@ class EpochProgram:
             self.stream.wait_stream(current)
             with torch.cuda.stream(self.stream):
                 for _ in range(done):
-                    self._eager(body, before, zero_grad)
+                    self._eager(parts, before, zero_grad)
             current.wait_stream(self.stream)
             if done < steps:
                 if zero_grad is not None:
@@ -107,13 +120,22 @@ class EpochProgram:
                                       capture_error_mode="thread_local"):
                     body()
                 self.graph, self.fingerprint = graph, key()
+                if finish is not None:
+                    self.finish_graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(self.finish_graph, stream=self.stream,
+                                          capture_error_mode="thread_local"):
+                        finish()
         for _ in range(done, steps):
             before()
             self.graph.replay()
+            if reduce is not None:
+                reduce()
+                self.finish_graph.replay()
 
     @staticmethod
-    def _eager(body, before, zero_grad) -> None:
+    def _eager(parts, before, zero_grad) -> None:
         before()
         if zero_grad is not None:
             zero_grad()
-        body()
+        for part in parts:
+            part()

@@ -8,8 +8,10 @@ curve. With `ModelConfig.fused_conv_pool` and `use_pallas_gru` on, a step
 runs the hand-written CUDA kernels K1 (conv1 block) and K2 (GRU recurrence)
 forward and K3 (GRU backward) and K4 (conv1 weight gradient) backward.
 
-Full fp32: every forward and backward runs with TF32 off for both cuDNN and
-cuBLAS (`fp32_step`). The conv calls' own scope (`ops/conv.fp32_convs`) is
+Full fp32 and deterministic: every train step's forward and backward runs
+with TF32 off for both cuDNN and cuBLAS and with cuDNN's deterministic
+algorithms (`ops/conv.train_scope`, evaluation steps too). The conv calls'
+own scope (`ops/conv.fp32_convs`) is
 not enough for training: it covers the forward call only, and autograd runs
 the conv's backward later, in `loss.backward()`, outside that `with`, under
 the process-wide `torch.backends.cudnn.allow_tf32`, which is True by
@@ -25,13 +27,12 @@ a step counter on the device, gathers it from the cache, runs forward, CTC
 and gradient norm into (S,) device buffers; the host replays it S times and
 reads the buffers once at the epoch's end. On the CPU the same step runs in
 a loop. Either way the epoch equals the per-batch loop (`train_epoch`) bit
-for bit, as the JAX package's scan equals its loop, wherever the step's
-kernels are deterministic: on the card that needs
-`torch.backends.cudnn.deterministic = True`, because cuDNN's default
-algorithms for conv2's and conv3's backward sum in an order that changes
-from run to run (two eager runs of the same steps part from the second
-step; chip_smoke.py shows both). The flag is the caller's choice: it costs
-~20% of the step on the H100 (PERF.md).
+for bit, as the JAX package's scan equals its loop: the step scope sets
+`torch.backends.cudnn.deterministic`, because cuDNN's default algorithms for
+conv2's and conv3's backward sum in an order that changes from run to run
+(two eager runs of the same steps part from the second step). The flag
+costs about a fifth of the step on the H100 (PERF.md §5), which
+deterministic conv2/conv3 kernels of our own would win back (ROADMAP).
 
 Dropout: step s draws its masks from the trainer's generator reseeded with
 seed * 1,000,003 + s before the step (and before the graph's replay for
@@ -48,8 +49,28 @@ Both model families train here (`models.make_lipnet`): the TF family's
 loss is `tf_ctc_loss` (blank last, label lengths from count_nonzero, the
 per-sequence NLL not length-normalised, averaged over the batch;
 `avsync/train/lipnet_trainer.py:157-164`), the PyTorch family's
-`ctc_loss_mean`; `lipnet_ctc_loss` picks it by the model. Not ported: a
-mesh over more than one device raises NotImplementedError.
+`ctc_loss_mean`; `lipnet_ctc_loss` picks it by the model.
+
+Over a mesh of ranks (`parallel.mesh`, one process per device, the JAX
+trainer's `mesh`): each rank runs forward and backward on its rows of the
+global batch (`LipNetBatcher(mesh=...)` gives it only those), then ONE
+all-reduce of one flat buffer of its gradients and its loss over the data
+group, divided by the data size (`parallel.mesh.GradientReducer`), then the
+global-norm clip and Adam, so every replica takes the same update and the
+replicas stay equal bit for bit. The loss is the mean over the global batch:
+both CTC losses are means over rows, so the mean of the ranks' means is the
+global mean when every rank has the same number of rows (`local_rows`
+insists). Under a 'model' axis of m > 1 the GRU / LSTM gate rows and the
+head's rows (where V divides) are row shards with Adam moments of their
+shape (`parallel.mesh.shard_model`); the forward gathers them whole before
+each recurrence, and the clip sums the sharded leaves' norms over the model
+group. Dropout masks come from (seed, step, data index). Checkpoints hold
+whole tensors (`multihost.get_global`), written by rank 0, so a snapshot of
+a (2, 2) run loads on one device. A data-parallel epoch program splits its
+captured step at the reduction: a graph of forward and backward into the
+flat buffer, the all-reduce, a graph of the clip and Adam (a collective of
+gloo cannot be captured). Under a model axis the programs run their eager
+loop (the gathers are collectives in the forward).
 """
 
 from __future__ import annotations
@@ -67,8 +88,11 @@ import torch
 from avsync_torch.config import AvsyncConfig
 from avsync_torch.models import make_lipnet
 from avsync_torch.models.lipnet_tf import TFLipNet, tf_ctc_loss
-from avsync_torch.ops.conv import fp32_step
+from avsync_torch.ops.conv import train_scope
 from avsync_torch.ops.ctc import ctc_loss_mean
+from avsync_torch.parallel import multihost
+from avsync_torch.parallel.mesh import (GradientReducer, Mesh, clip_grad_norm, mesh_from_shape,
+                                        shard_model, shard_rows)
 from avsync_torch.predictor import resolve_device
 from avsync_torch.train.epoch_program import EpochProgram, fingerprint
 from avsync_torch.utils.checkpoint import CheckpointManager
@@ -133,39 +157,66 @@ def lipnet_ctc_loss(model: torch.nn.Module, log_probs: torch.Tensor,
     return ctc_loss_mean(log_probs, batch["labels"], batch["label_lengths"])
 
 
-def _update(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-            batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator],
-            grad_clip_norm: float, remat: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward, CTC, backward, clip, Adam on gradients that start as None:
-    the body shared by `train_step` and the whole-epoch program. No host
-    value is read, so it can be captured in a CUDA graph."""
+def _forward_backward(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
+                      generator: Optional[torch.Generator], remat: bool,
+                      reducer: Optional[GradientReducer]) -> torch.Tensor:
+    """Forward, CTC and backward into gradients that start as None; under
+    data parallelism the gradients and the loss packed into the reducer's
+    flat buffer."""
     log_probs = model(batch["video"], train=True, generator=generator, remat=remat)
     loss = lipnet_ctc_loss(model, log_probs, batch)
     loss.backward()
-    grad_norm = torch.nn.utils.clip_grad_norm_(model.parameters(), grad_clip_norm)
+    if reducer is not None:
+        reducer.pack(loss.detach())
+    return loss.detach()
+
+
+def _apply_update(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                  grad_clip_norm: float, mesh: Optional[Mesh]) -> torch.Tensor:
+    """Global-norm clip and Adam; returns the pre-clip norm."""
+    grad_norm = clip_grad_norm(model.named_parameters(), grad_clip_norm, mesh)
     optimizer.step()
-    return loss.detach(), grad_norm.detach()
+    return grad_norm.detach()
+
+
+def _update(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+            batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator],
+            grad_clip_norm: float, remat: bool, reducer: Optional[GradientReducer] = None,
+            mesh: Optional[Mesh] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward, CTC, backward, (the data group's all-reduce,) clip, Adam on
+    gradients that start as None: the body shared by `train_step` and the
+    whole-epoch program. No host value is read, so without a reducer it can
+    be captured in a CUDA graph."""
+    loss = _forward_backward(model, batch, generator, remat, reducer)
+    if reducer is not None:
+        reducer.reduce()
+        loss = reducer.unpack().clone()  # the buffer is the next step's
+    return loss, _apply_update(model, optimizer, grad_clip_norm, mesh)
 
 
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                batch: Dict[str, torch.Tensor], lr: float,
                generator: Optional[torch.Generator] = None,
-               grad_clip_norm: float = 1.0, remat: bool = False
+               grad_clip_norm: float = 1.0, remat: bool = False,
+               reducer: Optional[GradientReducer] = None, mesh: Optional[Mesh] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One update: CTC loss of the training forward (dropout masks from
     `generator`; `remat` recomputes the blocks in the backward), backward,
-    clip to `grad_clip_norm`, Adam at `lr`. Returns (loss, pre-clip global
-    gradient norm) as device scalars; nothing here waits for the device."""
-    with fp32_step():
+    (under a mesh the data group's all-reduce through `reducer`,) clip to
+    `grad_clip_norm`, Adam at `lr`, in the deterministic step scope. Returns
+    (loss, pre-clip global gradient norm) as device scalars; on one device
+    nothing here waits for it."""
+    with train_scope():
         optimizer.zero_grad(set_to_none=True)
         set_learning_rate(optimizer, lr)
-        return _update(model, optimizer, batch, generator, grad_clip_norm, remat)
+        return _update(model, optimizer, batch, generator, grad_clip_norm, remat, reducer,
+                       mesh)
 
 
 def eval_step(model: torch.nn.Module,
               batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(loss, log_probs) of the inference forward."""
-    with fp32_step(), torch.no_grad():
+    """(loss, log_probs) of the inference forward, in the step scope."""
+    with train_scope(), torch.no_grad():
         log_probs = model(batch["video"])
         return lipnet_ctc_loss(model, log_probs, batch), log_probs
 
@@ -174,11 +225,13 @@ def eval_step(model: torch.nn.Module,
 class TrainState:
     """What a training run carries: the model, its optimizer and the number
     of optimizer steps taken (step s draws its dropout masks from the
-    trainer's generator reseeded with (seed, s))."""
+    trainer's generator reseeded with (seed, s)); under a mesh of ranks the
+    reducer of its gradients."""
 
     model: torch.nn.Module  # a LipNet or a TFLipNet
     optimizer: torch.optim.Adam
     step: int = 0
+    reducer: Optional[GradientReducer] = None
 
 
 class LipNetTrainer:
@@ -191,14 +244,20 @@ class LipNetTrainer:
     # At most this many steps in flight before the host reads a loss back.
     LAG = 4
 
-    def __init__(self, config: AvsyncConfig, device=None, log: Optional[Logger] = None):
+    def __init__(self, config: AvsyncConfig, device=None, log: Optional[Logger] = None,
+                 mesh: Optional[Mesh] = None):
+        """`mesh`: the ranks' mesh; by default the config's `mesh_shape` over
+        the process group when it has more than one rank, else none. The
+        device defaults to the rank's (`multihost.initialize`)."""
         if config.model.compute_dtype not in (None, "float32"):
             raise NotImplementedError(f"compute_dtype={config.model.compute_dtype!r}: the "
                                       "port computes in float32 only")
-        if any(n > 1 for n in config.train.mesh_shape):
-            raise NotImplementedError(
-                f"mesh_shape={config.train.mesh_shape}: the port trains on one device")
+        if mesh is None and multihost.is_multiprocess():
+            mesh = mesh_from_shape(config.train.mesh_shape)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.config = config
+        if device is None and multihost.rank_device() is not None:
+            device = multihost.rank_device()
         self.device = resolve_device(device)
         self.log = log or Logger(None, console=True)
         self.current_lr = float(config.train.learning_rate)
@@ -220,10 +279,52 @@ class LipNetTrainer:
             model = make_lipnet(self.config.model, (d.img_height, d.img_width),
                                 generator=torch.Generator().manual_seed(self.config.train.seed))
             model.to(self.device)
-        return TrainState(model, make_optimizer(model.parameters(), self.current_lr), 0)
+        reducer = None
+        if self.mesh is not None:
+            shard_model(model, self.mesh)  # every rank drew the same weights
+            reducer = GradientReducer(model.parameters(), self.mesh)
+        return TrainState(model, make_optimizer(model.parameters(), self.current_lr), 0,
+                          reducer)
+
+    def load_state(self, state: TrainState, payload: dict) -> None:
+        """A snapshot's whole tensors (`CheckpointManager.restore`) into the
+        state: this rank's shards of the sharded leaves and their moments."""
+        model_sd, opt_sd = payload["model_state_dict"], payload["optimizer_state_dict"]
+        if self.mesh is not None and self.mesh.model_size > 1:
+            spec = self.mesh.param_spec
+            names = [n for n, _ in state.model.named_parameters()]
+            model_sd = {k: shard_rows(v, self.mesh) if spec.get(k) is not None else v
+                        for k, v in model_sd.items()}
+            opt_sd = copy.deepcopy(opt_sd)
+            for i, st in opt_sd["state"].items():
+                if spec.get(names[int(i)]) is not None:
+                    for key in ("exp_avg", "exp_avg_sq"):
+                        st[key] = shard_rows(st[key], self.mesh)
+        state.model.load_state_dict(model_sd)
+        state.optimizer.load_state_dict(opt_sd)
+        state.step = int(payload.get("step", 0))
+
+    def full_state(self, state: TrainState) -> Tuple[dict, dict]:
+        """(model, optimizer) state dicts with every shard gathered whole;
+        every rank must call it (a collective under a model axis)."""
+        model_sd = state.model.state_dict()
+        opt_sd = state.optimizer.state_dict()
+        if self.mesh is None or self.mesh.model_size == 1:
+            return model_sd, opt_sd
+        spec = self.mesh.param_spec
+        names = [n for n, _ in state.model.named_parameters()]
+        opt_sd = dict(opt_sd, state={
+            i: {k: (multihost.all_gather(v, 0, self.mesh.model_group)
+                    if k in ("exp_avg", "exp_avg_sq") and spec.get(names[int(i)]) is not None
+                    else v) for k, v in st.items()}
+            for i, st in opt_sd["state"].items()})
+        return multihost.get_global(model_sd, self.mesh), opt_sd
 
     def _step_generator(self, step: int) -> torch.Generator:
-        return self.dropout_gen.manual_seed(self.config.train.seed * 1_000_003 + step)
+        seed = self.config.train.seed * 1_000_003 + step
+        if self.mesh is not None:  # each data rank its own masks
+            seed = seed * self.mesh.data_size + self.mesh.data_index
+        return self.dropout_gen.manual_seed(seed)
 
     # -- epoch loops ---------------------------------------------------------
     def train_epoch(self, state: TrainState, loader: Iterable,
@@ -257,7 +358,7 @@ class LipNetTrainer:
             loss, gnorm = train_step(state.model, state.optimizer,
                                      device_batch(batch, self.device), self.current_lr,
                                      self._step_generator(state.step), cfg.grad_clip_norm,
-                                     cfg.remat)
+                                     cfg.remat, state.reducer, self.mesh)
             state.step += 1
             pending.append((loss, gnorm, state.step))
             if len(pending) - len(losses) > self.LAG:
@@ -266,18 +367,39 @@ class LipNetTrainer:
             drain_one()
         return state, sum(losses) / max(len(losses), 1)
 
+    def _plan_batch(self, plan: Dict, prog: EpochProgram) -> Dict[str, torch.Tensor]:
+        row = prog.row("plan")
+        return {"video": plan["gather"](row),
+                "labels": plan["labels"].index_select(0, row),
+                "label_lengths": plan["lengths"].index_select(0, row)}
+
     def _plan_step(self, state: TrainState, plan: Dict, prog: EpochProgram) -> None:
         """One step of a whole-epoch program, all on the device: batch row
         `counter` of the plan, gathered from the cache, through `_update`;
         its loss and gradient norm into the program's buffers."""
         cfg = self.config.train
-        row = prog.row("plan")
-        batch = {"video": plan["gather"](row),
-                 "labels": plan["labels"].index_select(0, row),
-                 "label_lengths": plan["lengths"].index_select(0, row)}
-        with fp32_step():
-            loss, gnorm = _update(state.model, state.optimizer, batch, self.dropout_gen,
-                                  cfg.grad_clip_norm, cfg.remat)
+        with train_scope():
+            loss, gnorm = _update(state.model, state.optimizer, self._plan_batch(plan, prog),
+                                  self.dropout_gen, cfg.grad_clip_norm, cfg.remat,
+                                  state.reducer, self.mesh)
+        prog.put("loss", loss)
+        prog.put("grad_norm", gnorm)
+        prog.counter.add_(1)
+
+    def _plan_forward_backward(self, state: TrainState, plan: Dict, prog: EpochProgram) -> None:
+        """The data-parallel program's first part: forward and backward of
+        the rank's columns of the plan row into the reducer's buffer."""
+        with train_scope():
+            _forward_backward(state.model, self._plan_batch(plan, prog), self.dropout_gen,
+                              self.config.train.remat, state.reducer)
+
+    def _plan_apply(self, state: TrainState, prog: EpochProgram) -> None:
+        """Its last part, after the all-reduce: the mean gradients back,
+        clip, Adam, the loss and norm into the program's buffers."""
+        with train_scope():
+            loss = state.reducer.unpack()  # put() copies it
+            gnorm = _apply_update(state.model, state.optimizer, self.config.train.grad_clip_norm,
+                                  self.mesh)
         prog.put("loss", loss)
         prog.put("grad_norm", gnorm)
         prog.counter.add_(1)
@@ -307,12 +429,19 @@ class LipNetTrainer:
             self._step_generator(state.step)
             state.step += 1
 
-        prog.run(S, lambda: self._plan_step(state, plan, prog), before,
-                 graph_ok=self.device.type == "cuda",
-                 key=lambda: fingerprint(state.optimizer, plan["video"], plan["labels"],
-                                         plan["lengths"]),
-                 zero_grad=lambda: state.optimizer.zero_grad(set_to_none=True),
-                 generator=self.dropout_gen)
+        key = lambda: fingerprint(state.optimizer, plan["video"], plan["labels"],  # noqa: E731
+                                  plan["lengths"], [] if state.reducer is None
+                                  else [state.reducer.flat])
+        graph_ok = self.device.type == "cuda" and (self.mesh is None
+                                                   or self.mesh.model_size == 1)
+        zero_grad = lambda: state.optimizer.zero_grad(set_to_none=True)  # noqa: E731
+        if state.reducer is None:
+            prog.run(S, lambda: self._plan_step(state, plan, prog), before, graph_ok, key,
+                     zero_grad=zero_grad, generator=self.dropout_gen)
+        else:  # split at the reduction: graph, all-reduce, graph
+            prog.run(S, lambda: self._plan_forward_backward(state, plan, prog), before,
+                     graph_ok, key, zero_grad=zero_grad, generator=self.dropout_gen,
+                     reduce=state.reducer.reduce, finish=lambda: self._plan_apply(state, prog))
         losses = prog.buffers["loss"].cpu().numpy()  # the epoch-end device sync
         if metrics_writer is not None:
             gnorms = prog.buffers["grad_norm"].cpu().numpy()
@@ -321,12 +450,20 @@ class LipNetTrainer:
                                      lr=self.current_lr)
         return state, sum(float(loss) for loss in losses) / S
 
+    def _global_mean(self, loss: torch.Tensor) -> torch.Tensor:
+        """The mean of the data ranks' losses (equal rows per rank)."""
+        if self.mesh is None or self.mesh.data_size == 1:
+            return loss
+        loss = loss.detach().reshape(1).clone()
+        multihost.all_reduce(loss, group=self.mesh.data_group)
+        return loss[0] / self.mesh.data_size
+
     def validate(self, state: TrainState, loader: Iterable) -> float:
         state.model.eval()
         total, n = 0.0, 0
         for batch in loader:
             loss, _ = eval_step(state.model, device_batch(batch, self.device))
-            total += float(loss)
+            total += float(self._global_mean(loss))
             n += 1
         return total / max(n, 1)
 
@@ -342,7 +479,9 @@ class LipNetTrainer:
                 "step": state.step}
 
     def _save(self, ckpt: CheckpointManager, label: int, state: TrainState, metrics: dict):
-        ckpt.save(label, state.model.state_dict(), state.optimizer.state_dict(),
+        """Every rank calls it; whole tensors, written by rank 0."""
+        model_sd, opt_sd = self.full_state(state)
+        ckpt.save(label, model_sd, opt_sd,
                   config=self.config, metrics=metrics,
                   losses={"train": list(self.train_losses), "val": list(self.val_losses)},
                   optimizer_steps=state.step)
@@ -390,13 +529,17 @@ class LipNetTrainer:
         stop_logged = [False]
 
         def stop_now() -> bool:
-            if self._preempted and not stop_logged[0]:
+            # every rank votes at the same boundary: a SIGTERM to any rank
+            # stops all of them there
+            stop = (multihost.any_process_flagged(self._preempted) if self.mesh is not None
+                    else self._preempted)
+            if stop and not stop_logged[0]:
                 stop_logged[0] = True
                 self.log.log("preemption signal observed: checkpointing and stopping")
-            return self._preempted
+            return stop
 
         tb_train = tb_val = None
-        if cfg.tensorboard:
+        if cfg.tensorboard and multihost.is_main():
             from avsync_torch.utils.tb import SummaryWriter
 
             stamp = time.strftime("%Y%m%d-%H%M%S")
@@ -493,7 +636,7 @@ class LipNetTrainer:
         if tb_train is not None:
             tb_train.close()
             tb_val.close()
-        if history_path:
+        if history_path and multihost.is_main():
             with open(history_path, "w") as f:
                 json.dump({"loss": self.train_losses, "val_loss": self.val_losses,
                            "lr": self.lr_history, "epoch_seconds": self.epoch_seconds},
@@ -502,8 +645,11 @@ class LipNetTrainer:
         return state
 
     def plot_losses(self, out_path: str = "training_history.png") -> bool:
-        """Loss-curve artifact (`trainer.py:159-170`); matplotlib is optional:
-        without it nothing is drawn and this returns False."""
+        """Loss-curve artifact (`trainer.py:159-170`), drawn by rank 0;
+        matplotlib is optional: without it nothing is drawn and this returns
+        False."""
+        if not multihost.is_main():
+            return False
         try:
             import matplotlib
         except ImportError:

@@ -12,8 +12,11 @@ trainer's layout (`trainer.py:144-156`, SURVEY.md):
 so `compat.load_pth` (and the reference's own loaders) read the weights
 straight from it, and any tool can rebuild the model from the config
 alone. A snapshot is written to a temporary file and renamed into place, so
-a crash mid-save never leaves a half-written step behind. Reading the JAX
-package's Orbax directories is not ported yet.
+a crash mid-save never leaves a half-written step behind. Under a process
+group every rank calls `save` with the same whole tensors: rank 0 writes,
+then all ranks meet in a barrier, so a `restore` that follows on any rank
+reads the finished file. Reading the JAX package's Orbax directories is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ import re
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+
+from avsync_torch.parallel import multihost
 
 _NAME = re.compile(r"^epoch_(\d+)\.pth$")
 
@@ -45,7 +50,11 @@ class CheckpointManager:
              optimizer_steps: int = 0) -> str:
         """Write snapshot `step`, replacing one of the same step (tensors
         keep their device; `restore` and `compat.load_pth` map them to the
-        CPU)."""
+        CPU). Rank 0 writes; every rank returns after the write."""
+        dst = self.path(step)
+        if not multihost.is_main():
+            multihost.barrier()
+            return dst
         payload = {
             "epoch": step,
             "model_state_dict": dict(model_state),
@@ -56,10 +65,12 @@ class CheckpointManager:
             "metrics": {k: (v.item() if hasattr(v, "item") else v)
                         for k, v in (metrics or {}).items()},
         }
-        dst = self.path(step)
         tmp = f"{dst}.{os.getpid()}.tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, dst)
+        try:
+            torch.save(payload, tmp)
+            os.replace(tmp, dst)
+        finally:
+            multihost.barrier()
         return dst
 
     def all_steps(self) -> List[int]:

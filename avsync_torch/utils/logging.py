@@ -3,7 +3,8 @@ copy of `avsync/utils/logging.py`).
 
 Parity with the reference's `Logger` and `format_time`
 (`misalignment_detection_train.py:29-60`): timestamped lines to a log file,
-optional console echo, and h/m/s humanized durations.
+optional console echo, and h/m/s humanized durations. Under a process group
+only rank 0 writes the file and the console.
 """
 
 from __future__ import annotations
@@ -17,10 +18,13 @@ class Logger:
     """Log to a file and optionally to console."""
 
     def __init__(self, log_path: Optional[str], console: bool = True):
+        from avsync_torch.parallel import multihost
+
+        main = multihost.is_main()
         self.log_path = log_path
-        self.console = console
+        self.console = console and main
         self.file = None
-        if log_path:
+        if log_path and main:
             os.makedirs(os.path.dirname(log_path) or ".", exist_ok=True)
             self.file = open(log_path, "w")
 

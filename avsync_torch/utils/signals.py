@@ -5,7 +5,9 @@ Schedulers evict with SIGTERM plus a grace window; the trainer wants one
 discipline: a FLAG-ONLY handler (logging from a handler can hit a
 reentrant BufferedWriter write and crash the run it should be saving),
 installed for the duration of the training loop *including* the final
-grace-window snapshot, then restored.
+grace-window snapshot, then restored. Under a process group the trainers
+vote on the flag at each boundary (`parallel.multihost.any_process_flagged`),
+so a SIGTERM to any rank stops every rank at the same batch.
 """
 
 from __future__ import annotations

@@ -172,12 +172,30 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      per batch through an in-process int8 daemon (the counters zeroed before,
      read after), `cli export` of the TF transcriber (seconds, bytes) against
      the live reader at B = 1 and 8 (1e-4);
-  14. the kernels: a text line with the state of every TPU kernel of the
+  14. multi-device, at full width from phase 4's seeded weights, dropout 0,
+     the ranks started by `parallel.multihost.spawn` (explicit rank, world
+     and port; gloo when they share one card, NCCL with a card each; the
+     route, world size and card count printed first): a. two eager runs of
+     the default trainer, 3 steps, equal bits; b. DP (2, 1) at global B=16:
+     after each of 3 steps the ranks' parameters equal bit for bit, K1 x1,
+     K2 x2, K3 x2, K4 x1 per rank and step, losses within 1e-5 and
+     parameters within 6 lr of one process on the same 16 rows, the step's
+     wall ms per rank and the gradient all-reduce's ms; c. TP (1, 2) against
+     DP (losses 1e-5, gathered parameters 6 lr, the sharded leaves' Adam
+     moments half the rows); d. the DP epoch program (graph, all-reduce,
+     graph) against the DP loop over 4 steps from a cached corpus, bit for
+     bit; e. `cp_gru_recurrence` over 3 ranks (75 = 3 x 25, B=8, H=256)
+     through K2 with h0 against K2 over the whole sequence, bit for bit, K2
+     with no h0 against h0 = zeros; f. `cli train --distributed` as 2
+     processes with torchrun's variables on phase 5's corpus, rank 0's
+     snapshot through a one-process `cli test`; `serve --dp 2`'s reader on
+     two cards (or why not); the deterministic graph step beside PERF.md's;
+  15. the kernels: a text line with the state of every TPU kernel of the
      JAX package (and Q1), and one JSON line with the measured numbers
      (launches from the training slices, the serving slices', the daemons',
-     the graph replays', the front end's and the TF int8 daemon's beside
-     them; Q1's times at the TF blocks);
-  15. the card's name/power line, then the status JSON as the last line.
+     the graph replays', the front end's, the TF int8 daemon's and a DP
+     rank's step beside them; Q1's times at the TF blocks);
+  16. the card's name/power line, then the status JSON as the last line.
 
 Exits with 2 and prints no result without a GPU or outside a checkout.
 """
@@ -845,7 +863,8 @@ def run_training(dev, workdir: str):
     from avsync_torch.models.lipnet import LipNet
     from avsync_torch.ops.ctc import ctc_loss_mean
     from avsync_torch.train.epoch_program import WARMUP_STEPS
-    from avsync_torch.train.lipnet_trainer import (device_batch, fp32_step, make_optimizer,
+    from avsync_torch.ops.conv import fp32_step
+    from avsync_torch.train.lipnet_trainer import (device_batch, make_optimizer,
                                                    train_step)
 
     data, ck = os.path.join(workdir, "grid"), os.path.join(workdir, "ckpt")
@@ -1504,7 +1523,8 @@ def run_epoch_programs(dev, workdir: str):
     over a bank of 256 clips (S=16 train, 16 eval). Params, optimizer
     state, losses, gradient norms and probabilities must be equal bit for
     bit after two epochs (the first runs the warm-up and the capture). Then,
-    with cuDNN's default algorithms, one timed epoch per path (steps/s, wall
+    in the trainers' own step scope (cuDNN deterministic), one timed
+    epoch per path (steps/s, wall
     and host ms per step) and one traced (device busy time, idle share, and
     the kernels the graph's replays launched, by profiler name)."""
     import numpy as np
@@ -1592,15 +1612,16 @@ def run_epoch_programs(dev, workdir: str):
             "graph": wg / S, "loop": wl / S}
         del runs
     logs = []
-    for _ in range(2):  # cuDNN's default algorithms: the loop against itself
+    for _ in range(2):  # in the trainers' step scope: the loop against itself
         _, _, log, epoch = lipnet_run(0.0, "loop")
         epoch(1)
         logs.append(log.rows)
     part = next((i for i, (a, b) in enumerate(zip(*logs)) if a != b), None)
-    print(f"  LipNet loop vs loop with cuDNN's default algorithms (dropout 0, 1 epoch): "
+    print(f"  LipNet loop vs loop in the trainers' step scope (cuDNN deterministic; "
+          f"dropout 0, 1 epoch): "
           f"{'equal bit for bit' if part is None else f'parted at step {part + 1}'} "
           f"(informational)", flush=True)
-    for path in ("graph", "loop"):  # timed with cuDNN's default algorithms
+    for path in ("graph", "loop"):  # timed in the trainers' step scope (deterministic)
         trainer, state, _, epoch = lipnet_run(0.5, path)
         epoch(1)  # the graph's warm-up and capture
         stamps = timed_before(trainer)
@@ -3317,7 +3338,7 @@ def tf_train(dev, workdir, corpus, cfg_path, smi):
           f"(losses {[round(r[1], 4) for r in lg.rows]})", flush=True)
     del runs, sg, sl
     out = {"cli_train_wall_s": wall, "epoch_seconds": hist["epoch_seconds"], "steps_per_epoch": S}
-    for path in ("graph", "loop"):  # timed with cuDNN's default algorithms
+    for path in ("graph", "loop"):  # timed in the trainers' step scope (deterministic)
         trainer, state, _, epoch = run(path)
         epoch(1)  # the graph's warm-up and capture
         stamps = timed_before(trainer)
@@ -3592,6 +3613,435 @@ def run_tf_family(dev, workdir, smi, cfg=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 14. multi-device: DP, TP, the DP epoch program, CP, the CLI
+# ---------------------------------------------------------------------------
+
+P14_B, P14_STEPS = 16, 3  # the DP/TP global batch (8 rows a rank) and the steps checked
+P14_PLAN_S, P14_CLIPS = 4, 64  # the DP epoch program's steps and cached corpus
+P14_CP = (8, 75, 256, 3)  # CP: B, T, H and ranks (25 steps each)
+
+
+def p14_config():
+    from avsync_torch.config import AvsyncConfig, ModelConfig, TrainConfig
+
+    return AvsyncConfig(model=ModelConfig(use_pallas_gru=True, fused_conv_pool=True,
+                                          dropout_rate=0.0), train=TrainConfig(seed=0))
+
+
+def p14_weights(cfg):
+    """Phase 4's seeded weights in the port's layout (CPU tensors)."""
+    from avsync_torch.compat import conv_shape_for, lipnet_params_from_jax
+
+    return lipnet_params_from_jax(seeded_jax_layout_params(cfg, seed=0),
+                                  conv_shape=conv_shape_for(cfg))
+
+
+def p14_batch(B=P14_B, seed=14):
+    """B full-width clips and feasible GRID-length labels, from a seed."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    lengths = r.integers(10, 31, B).astype(np.int64)
+    labels = r.integers(1, 38, (B, 40)).astype(np.int64)
+    for b in range(B):
+        labels[b, lengths[b]:] = 0
+    return {"video": r.random((B, 75, 50, 100, 1), dtype=np.float32), "labels": labels,
+            "label_lengths": lengths}
+
+
+def p14_trainer(cfg, dev, mesh, weights):
+    import torch
+
+    from avsync_torch.models import make_lipnet
+    from avsync_torch.train.lipnet_trainer import LipNetTrainer
+    from avsync_torch.utils.logging import Logger
+
+    tr = LipNetTrainer(cfg, device=dev, log=Logger(None, console=False), mesh=mesh)
+    model = make_lipnet(cfg.model, (50, 100), generator=torch.Generator())
+    model.load_state_dict(weights)
+    return tr, tr.init_state(model.to(dev))
+
+
+def p14_steps(cfg, dev, mesh, weights, batch, steps=P14_STEPS, each=None):
+    """`steps` train steps from `weights` on `batch` (this rank's rows under
+    a mesh); `each(step, state)` after every step. Returns (trainer, state,
+    losses)."""
+    from avsync_torch.parallel import multihost
+    from avsync_torch.train.lipnet_trainer import device_batch, train_step
+
+    tr, st = p14_trainer(cfg, dev, mesh, weights)
+    rows = multihost.local_rows(len(batch["labels"]), tr.mesh)
+    local = device_batch({k: v[rows] for k, v in batch.items()}, dev)
+    losses = []
+    for s in range(steps):
+        loss, _ = train_step(st.model, st.optimizer, local, tr.current_lr, tr._step_generator(s),
+                             cfg.train.grad_clip_norm, False, st.reducer, tr.mesh)
+        st.step += 1
+        losses.append(float(loss))
+        if each is not None:
+            each(s, st)
+    return tr, st, losses
+
+
+def p14_flat(model):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def p14_world2(rank, out):
+    """Every two-rank scenario on the card: DP (2, 1) with its per-step
+    checks and times, TP (1, 2), the DP epoch program against the DP loop."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from avsync_torch.parallel import multihost
+    from avsync_torch.parallel.mesh import make_mesh
+    from avsync_torch.train.lipnet_trainer import device_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = multihost.rank_device()
+    res = {"rank": rank, "device": str(dev), "backend": multihost.backend(),
+           "cards": torch.cuda.device_count()}
+    # whether gloo takes CUDA tensors in all_gather (the port stages them
+    # through the host either way; informational)
+    try:
+        parts = [torch.empty(4, device=dev) for _ in range(2)]
+        dist.all_gather(parts, torch.full((4,), float(rank), device=dev))
+        res["gloo_all_gather_cuda"] = "taken" if parts[1][0].item() == 1.0 else "wrong values"
+    except Exception as e:  # noqa: BLE001 - a probe, reported
+        res["gloo_all_gather_cuda"] = f"refused: {str(e).splitlines()[0][:160]}"
+    cfg = p14_config()
+    weights = p14_weights(cfg)
+    batch = p14_batch()
+
+    # b. DP (2, 1): per step the replicas' bits and the wrappers' counts
+    same, step_counts = [], []
+
+    def check(s, st):
+        torch.cuda.synchronize()
+        step_counts.append(counts())
+        both = multihost.all_gather(p14_flat(st.model)[None], 0, None)
+        same.append(bool(torch.equal(both[0], both[1])))
+        zero_counts()
+
+    zero_counts()
+    tr, st, losses = p14_steps(cfg, dev, make_mesh((2, 1)), weights, batch, each=check)
+    res["dp"] = {"losses": losses, "replicas_equal": same, "counts": step_counts}
+    rows = multihost.local_rows(P14_B, tr.mesh)
+    local = device_batch({k: v[rows] for k, v in batch.items()}, dev)
+    from avsync_torch.train.lipnet_trainer import train_step
+
+    def step():
+        train_step(st.model, st.optimizer, local, tr.current_lr, None,
+                   cfg.train.grad_clip_norm, False, st.reducer, tr.mesh)
+
+    step()
+    torch.cuda.synchronize()
+    times, reduce_ms = [], []
+    for _ in range(5):
+        multihost.barrier()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(5):
+        torch.cuda.synchronize()
+        multihost.barrier()
+        t0 = time.perf_counter()
+        st.reducer.reduce()
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    res["dp"]["step_wall_ms"] = statistics.median(times)
+    res["dp"]["all_reduce_ms"] = statistics.median(reduce_ms)
+    res["dp"]["grad_mb"] = st.reducer.flat.numel() * 4 / 1e6
+    del tr, st
+    torch.cuda.empty_cache()
+    tr, st, losses = p14_steps(cfg, dev, make_mesh((2, 1)), weights, batch)
+    dp_full = {k: v.cpu() for k, v in tr.full_state(st)[0].items()}
+    del tr, st
+
+    # c. TP (1, 2): both ranks take all 16 rows; gate rows and moments split
+    tr, st, tp_losses = p14_steps(cfg, dev, make_mesh((1, 2)), weights, batch)
+    full, opt = tr.full_state(st)
+    spec = tr.mesh.param_spec
+    halves = {n: (tuple(st.optimizer.state[p]["exp_avg"].shape), tuple(full[n].shape))
+              for n, p in st.model.named_parameters() if spec[n] is not None}
+    res["tp"] = {"losses": tp_losses, "halves": halves,
+                 "max_param_diff_vs_dp": max((full[k].cpu() - v).abs().max().item()
+                                             for k, v in dp_full.items())}
+    if rank == 0:
+        torch.save(dp_full, os.path.join(out, "dp_full.pt"))
+    del tr, st, full, opt
+    torch.cuda.empty_cache()
+
+    # d. the DP epoch program (graph, all-reduce, graph) against the DP loop
+    g = np.random.default_rng(7)
+    lab = p14_batch(P14_CLIPS, seed=15)
+    cache = torch.from_numpy(lab["video"]).to(dev)
+    labels = torch.from_numpy(lab["labels"]).to(dev)
+    lengths = torch.from_numpy(lab["label_lengths"]).to(dev)
+    order = g.permutation(P14_CLIPS)[:P14_PLAN_S * P14_B].reshape(P14_PLAN_S, P14_B)
+    cols = multihost.local_rows(P14_B, make_mesh((2, 1)))
+    runs = {}
+    for path in ("loop", "program"):
+        tr, st = p14_trainer(cfg, dev, make_mesh((2, 1)), weights)
+        log = StepLog()
+        if path == "loop":
+            batches = [{"video": cache[torch.from_numpy(order[s, cols]).to(dev)],
+                        "labels": lab["labels"][order[s, cols]],
+                        "label_lengths": lab["label_lengths"][order[s, cols]]}
+                       for s in range(P14_PLAN_S)]
+            tr.train_epoch(st, batches, metrics_writer=log)
+        else:
+            plan = {"video": cache, "gather": lambda r: cache.index_select(0, r),
+                    "labels": labels, "lengths": lengths,
+                    "idx": order[:, cols].astype(np.int32)}
+            tr.train_epoch_scanned(st, plan, metrics_writer=log)
+        torch.cuda.synchronize()
+        runs[path] = (st, log.rows, tr._programs)
+    (sl, ll, _), (sp, lp, progs) = runs["loop"], runs["program"]
+    prog = next(iter(progs.values()))
+    equal = all(torch.equal(a, b) for a, b in zip(sl.model.parameters(), sp.model.parameters()))
+    adam = all(torch.equal(sa[k], sb[k]) for sa, sb in zip(sl.optimizer.state.values(),
+                                                           sp.optimizer.state.values())
+               for k in sa)
+    res["program"] = {"params_equal": equal, "adam_equal": adam, "losses_equal": ll == lp,
+                      "losses": [r[1] for r in lp],
+                      "graphs": [prog.graph is not None, prog.finish_graph is not None]}
+    torch.save(res, os.path.join(out, f"world2_{rank}.pt"))
+
+
+def p14_cp_inputs():
+    import numpy as np
+    import torch
+
+    B, T, H, _ = P14_CP
+    r = np.random.default_rng(16)
+    k = H ** -0.5
+    return (torch.from_numpy(r.normal(size=(B, T, 3 * H)).astype(np.float32)),
+            torch.from_numpy(r.uniform(-k, k, (H, 3 * H)).astype(np.float32)),
+            torch.from_numpy(r.uniform(-k, k, (3 * H,)).astype(np.float32)))
+
+
+def p14_cp(rank, out):
+    """This rank's chunk of the CP chain through K2 with the handed-off h0."""
+    import torch
+
+    from avsync_torch.ops.cuda import gru
+    from avsync_torch.parallel import multihost
+    from avsync_torch.parallel.context import cp_gru_recurrence
+
+    dev = multihost.rank_device()
+    gi, w, b = (t.to(dev) for t in p14_cp_inputs())
+    n = P14_CP[3]
+    T = gi.shape[1] // n
+    gru.launches = 0
+    y = cp_gru_recurrence(None, gi[:, rank * T:(rank + 1) * T].contiguous(), w, b)
+    torch.cuda.synchronize()
+    torch.save({"y": y.cpu(), "launches": gru.launches}, os.path.join(out, f"cp_{rank}.pt"))
+
+
+def p14_launch_cli(argv, world, log_dir):
+    """`world` processes of `python -m avsync_torch.cli <argv>` with the
+    environment torchrun would give them; every one must exit 0."""
+    from avsync_torch.parallel import multihost
+
+    port = multihost.free_port()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                   LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), PYTHONPATH=ROOT)
+        log = open(os.path.join(log_dir, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen([sys.executable, "-m", "avsync_torch.cli", *argv],
+                                       stdout=log, stderr=subprocess.STDOUT, env=env,
+                                       cwd=ROOT), log))
+    try:
+        for p, log in procs:
+            rc = p.wait(timeout=600)
+            log.close()
+            if rc != 0:
+                with open(log.name) as f:
+                    tail = f.read()[-3000:]
+                raise SystemExit(f"cli rank exited {rc}:\n{tail}")
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+    with open(os.path.join(log_dir, "rank0.log")) as f:
+        return f.read()
+
+
+def run_multi_device(dev, workdir, smi, k2_ms, graph_row, crops):
+    """Phase 14 (see the module's docstring)."""
+    import numpy as np
+    import torch
+
+    from avsync_torch import cli
+    from avsync_torch.ops.cuda import gru
+    from avsync_torch.parallel import multihost
+
+    cards = torch.cuda.device_count()
+    route = "nccl" if cards >= 2 else "gloo"
+    why = ("one card per rank" if cards >= 2
+           else f"the ranks share {cards} card: NCCL refuses two ranks on one card")
+    print(f"multi-device phase: route {route} ({why}); world 2 (DP, TP, epoch program, cli "
+          f"train --distributed), 3 (CP); cards {cards} [{smi}]", flush=True)
+    cfg = p14_config()
+    weights = p14_weights(cfg)
+    batch = p14_batch()
+    lr = cfg.train.learning_rate
+
+    # a. determinism: two eager runs of the default trainer, equal bits
+    t0 = time.perf_counter()
+    runs = []
+    for _ in range(2):
+        first8 = {k: v[:8] for k, v in batch.items()}
+        tr, st, losses = p14_steps(cfg, dev, None, weights, first8)
+        runs.append((p14_flat(st.model), losses))
+        del tr, st
+    torch.cuda.synchronize()
+    det_equal = bool(torch.equal(runs[0][0], runs[1][0])) and runs[0][1] == runs[1][1]
+    print(f"  a. two eager runs of the default LipNetTrainer, B=8, {P14_STEPS} steps from the "
+          f"same weights: parameters and losses {'equal bit for bit' if det_equal else 'DIFFER'}"
+          f" (losses {runs[0][1]}; {time.perf_counter() - t0:.1f} s)", flush=True)
+    if not det_equal:
+        raise SystemExit("the default trainer's steps are not reproducible")
+    del runs
+
+    # the one-process reference of b: the same 16 rows on one device
+    tr, st, single_losses = p14_steps(cfg, dev, None, weights, batch)
+    single = {k: v.cpu() for k, v in st.model.state_dict().items()}
+    del tr, st
+    torch.cuda.empty_cache()
+
+    out = os.path.join(workdir, "p14")
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    multihost.spawn(p14_world2, 2, (out,), device="cuda")
+    ranks = [torch.load(os.path.join(out, f"world2_{r}.pt"), weights_only=False)
+             for r in range(2)]
+    dp_full = torch.load(os.path.join(out, "dp_full.pt"))
+    print(f"  ranks: {[(r['rank'], r['device'], r['backend']) for r in ranks]} "
+          f"({time.perf_counter() - t0:.1f} s); gloo all_gather of CUDA tensors: "
+          f"{ranks[0]['gloo_all_gather_cuda']} (the port stages gloo's CUDA collectives "
+          f"through the host either way)", flush=True)
+    a, b = ranks
+    if a["backend"] != route:
+        raise SystemExit(f"the ranks took {a['backend']}, not {route}")
+    want = {"conv1_pool": 1, "gru_fwd": 2, "gru_bwd": 2, "conv1_pool_bwd": 1, "mel_stats": 0}
+    dp_err = max(abs(x - y) / abs(y) for x, y in zip(a["dp"]["losses"], single_losses))
+    dp_param = max((dp_full[k] - v).abs().max().item() for k, v in single.items())
+    print(f"  b. DP (2, 1), global B=16 (8 a rank): losses {a['dp']['losses']} vs one process "
+          f"{single_losses} (max rel err {dp_err:.2e}, tol 1e-5); parameters after "
+          f"{P14_STEPS} steps within {dp_param:.3e} of it (tol 6 lr = {6 * lr:.1e}); replicas "
+          f"equal bit for bit after each step: {a['dp']['replicas_equal']}; launches per rank "
+          f"and step: {a['dp']['counts']} / {b['dp']['counts']} (want {want})", flush=True)
+    if (a["dp"]["losses"] != b["dp"]["losses"] or dp_err > 1e-5 or dp_param > 6 * lr
+            or not all(a["dp"]["replicas_equal"] + b["dp"]["replicas_equal"])
+            or any(c != want for c in a["dp"]["counts"] + b["dp"]["counts"])):
+        raise SystemExit("data-parallel run failed its checks")
+    times = {"dp_step_wall_ms_per_rank": [r["dp"]["step_wall_ms"] for r in ranks],
+             "all_reduce_ms_per_rank": [r["dp"]["all_reduce_ms"] for r in ranks],
+             "grad_mb": a["dp"]["grad_mb"], "route": route}
+    print(f"  DP step wall ms per rank {times['dp_step_wall_ms_per_rank']}; all-reduce of the "
+          f"{a['dp']['grad_mb']:.1f} MB gradient buffer ({route}"
+          f"{', staged through the host' if route == 'gloo' else ''}): "
+          f"{times['all_reduce_ms_per_rank']} ms (median of 5) [{smi}]", flush=True)
+    tp_err = max(abs(x - y) / abs(y) for x, y in zip(a["tp"]["losses"], a["dp"]["losses"]))
+    halves_ok = all(local[0] * 2 == whole[0] and local[1:] == whole[1:]
+                    for local, whole in a["tp"]["halves"].values())
+    print(f"  c. TP (1, 2) vs DP (2, 1): losses {a['tp']['losses']} (max rel err {tp_err:.2e}, "
+          f"tol 1e-5); gathered parameters within {a['tp']['max_param_diff_vs_dp']:.3e} (tol "
+          f"{6 * lr:.1e}); {len(a['tp']['halves'])} sharded leaves' Adam moments half the rows: "
+          f"{halves_ok}", flush=True)
+    if (tp_err > 1e-5 or a["tp"]["max_param_diff_vs_dp"] > 6 * lr or not halves_ok
+            or a["tp"]["losses"] != b["tp"]["losses"]):
+        raise SystemExit("tensor-parallel run failed its checks")
+    progs = [r["program"] for r in ranks]
+    print(f"  d. DP epoch program (graph, all-reduce, graph) vs DP loop, {P14_PLAN_S} steps "
+          f"over a {P14_CLIPS}-clip cache: parameters {[p['params_equal'] for p in progs]}, "
+          f"Adam state {[p['adam_equal'] for p in progs]}, losses "
+          f"{[p['losses_equal'] for p in progs]} equal bit for bit; graphs captured "
+          f"{progs[0]['graphs']}", flush=True)
+    if not all(p["params_equal"] and p["adam_equal"] and p["losses_equal"] and all(p["graphs"])
+               for p in progs):
+        raise SystemExit("the DP epoch program differs from the DP loop")
+
+    # e. CP over 3 ranks through K2 with h0, against K2 over the whole sequence
+    gi, w, bh = (t.to(dev) for t in p14_cp_inputs())
+    whole = gru.gru_recurrence(gi, w, bh)
+    zeros = gru.gru_recurrence(gi, w, bh, h0=torch.zeros(gi.shape[0], w.shape[0], device=dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    multihost.spawn(p14_cp, P14_CP[3], (out,), device="cuda")
+    parts = [torch.load(os.path.join(out, f"cp_{r}.pt")) for r in range(P14_CP[3])]
+    chain = torch.cat([p["y"] for p in parts], dim=1)
+    cp_equal = bool(torch.equal(chain, whole.cpu()))
+    cp_err = (chain - whole.cpu()).abs().max().item()
+    print(f"  e. CP over {P14_CP[3]} ranks (B={P14_CP[0]}, T={P14_CP[1]} = 3 x 25, "
+          f"H={P14_CP[2]}), K2 from each handed-off h0: "
+          f"{'equal bit for bit' if cp_equal else 'DIFFERS'} "
+          f"to K2 over the whole sequence (max abs err {cp_err:.3e}); K2 launches per rank "
+          f"{[p['launches'] for p in parts]} ({time.perf_counter() - t0:.1f} s); K2 with no h0 "
+          f"vs h0 = zeros: {'equal bit for bit' if torch.equal(whole, zeros) else 'DIFFER'}; "
+          f"K2 time at B=8 (phase 3) {k2_ms:.4f} ms beside PERF.md §6's 0.1028 ms [{smi}]",
+          flush=True)
+    if (cp_err > 1e-6 or not torch.equal(whole, zeros)
+            or any(p["launches"] != 1 for p in parts)):
+        raise SystemExit("the CP chain or K2's h0 failed its checks")
+
+    # f. cli train --distributed under a 2-rank launch, then a one-process test
+    data, cfg_path = os.path.join(workdir, "grid"), os.path.join(workdir, "config.json")
+    ck = os.path.join(workdir, "ck14")
+    t0 = time.perf_counter()
+    log0 = p14_launch_cli(["train", "--distributed", "--data_path", data, "--config", cfg_path,
+                           "--epochs", "1", "--checkpoint_dir", ck], 2, out)
+    wall = time.perf_counter() - t0
+    res = os.path.join(out, "test14.json")
+    rc = cli.main(["test", "--data_path", data, "--config", cfg_path, "--checkpoint", ck,
+                   "--output", res])
+    with open(res) as f:
+        tested = json.load(f)
+    mesh_line = next((ln for ln in log0.splitlines() if ln.startswith("mesh ")), "")
+    print(f"  f. cli train --distributed, 2 ranks (torchrun's variables), 1 epoch on phase 5's "
+          f"corpus: {wall:.1f} s, rank 0: '{mesh_line}', snapshots "
+          f"{sorted(n for n in os.listdir(ck) if n.endswith('.pth'))}; one-process cli test "
+          f"from rank 0's snapshot: rc {rc}, {tested}", flush=True)
+    if rc != 0 or "epoch_2.pth" not in os.listdir(ck) or "'data': 2" not in mesh_line:
+        raise SystemExit("cli train --distributed failed its checks")
+    if cards >= 2:  # serve --dp 2's reader against a one-card reader on phase 10's crops
+        import argparse
+
+        from avsync_torch.predictor import LipReader
+
+        scfg = cli._serving_config(argparse.Namespace(config=None))
+        params = seeded_jax_layout_params(scfg, seed=0)
+        one = LipReader(params=params, config=scfg, device=dev)
+        two = LipReader(params=params, config=scfg, devices=["cuda:0", "cuda:1"])
+        x = torch.cat([one._prepare(np.asarray(c)) for c in crops[:16]])
+        same = one._decode(one._logprobs(x)) == two._decode(two._logprobs(x))
+        print(f"  serve --dp 2's reader over cuda:0 and cuda:1 on {len(x)} of phase 10's "
+              f"crops: transcripts {'equal to' if same else 'DIFFER from'} one card's",
+              flush=True)
+        if not same:
+            raise SystemExit("data-parallel serving differs from one card")
+    else:
+        print(f"  serve --dp 2: not run: this machine has {cards} card (--dp takes one "
+              f"replica per card)", flush=True)
+    print(f"  deterministic single-device graph step (phase 9's timed LipNet graph path, B=8, "
+          f"dropout 0.5): {graph_row['wall_ms_per_step']:.4f} ms per step, against PERF.md §5's "
+          f"65.74 ms with cuDNN's default algorithms and 78.57 ms deterministic [{smi}]",
+          flush=True)
+    times["graph_step_ms"] = graph_row["wall_ms_per_step"]
+    return {"dp_counts": a["dp"]["counts"][0], "times": times,
+            "cp_launches": [p["launches"] for p in parts]}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "avsync_torch", "csrc")):
         print("chip_smoke: run from a checkout of the repository (avsync_torch/ missing)",
@@ -3662,6 +4112,9 @@ def main() -> int:
         os.makedirs(tf_dir)
         tf = run_tf_family(dev, tf_dir, smi)
         print(f"TF family phase: {time.perf_counter() - t13:.1f} s", flush=True)
+        t14 = time.perf_counter()
+        multi = run_multi_device(dev, workdir, smi, k2["ms"], programs["lipnet"]["graph"], crops)
+        print(f"multi-device phase: {time.perf_counter() - t14:.1f} s", flush=True)
     for k in (k1, k2, k3, k4):
         k["launches"] = trained[k["name"]]
     k5["launches"], k5["launches_serving"] = detector["mel_stats"], served["mel_stats"]
@@ -3697,12 +4150,19 @@ def main() -> int:
                                            "conv3 in their chain contracts")
     if not tf["serving"]["launches"]["int8_conv_pool"]:
         raise SystemExit("int8_conv_pool was not launched on the TF family's int8 path")
+    for k in (k1, k2, k3, k4):  # phase 14's own path: a DP rank's train step
+        k["launches_dp_rank_step"] = multi["dp_counts"][k["name"]]
+        if not k["launches_dp_rank_step"]:
+            raise SystemExit(f"{k['name']} was not launched on a data-parallel rank's step")
+    k2["launches_cp_per_rank"] = multi["cp_launches"]
+    k2["initial_state"] = "h0: the CP chain's handed-off state"
     for k in (k1, k2, k3, k4, k5, q1):
         if not k["launches"] or k.get("launches_serving") == 0 or any(
                 k.get(f"launches_daemon_{w}", {"launches": 1})["launches"] == 0
                 for w in ("live", "artifact")):
             raise SystemExit(f"{k['name']} was not launched on its main path")
     print(f"epoch programs: {json.dumps(programs)}", flush=True)
+    print(f"multi-device: {json.dumps(multi['times'])} [{smi}]", flush=True)
 
     print("kernels: K1 conv1_pool_fused (avsync/ops/pallas/convpool.py:100)=ported+checked; "
           "K2 pallas_gru_scan (avsync/ops/pallas/gru.py:357)=ported+checked; "

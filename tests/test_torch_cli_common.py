@@ -69,11 +69,18 @@ def test_explicit_flags_win_over_the_config_file(command, tmp_path):
 
 @pytest.mark.parametrize("flags,item", [(["--distributed"], "item 8"),
                                         (["--compute_dtype", "bfloat16"], "item 9")])
-def test_unported_values_raise_naming_their_item(flags, item, tmp_path):
+def test_unported_values_raise_naming_their_item(flags, item, tmp_path, capsys):
+    # --distributed is ported for `train`: on another command it exits 2 with
+    # the JAX package's message (avsync/cli.py:1520-1531); bfloat16 still raises
     for command in ("test", "serve", "misalign-train"):
         extra, _ = COMMANDS[command]
+        argv = [command, *extra, "--data_path", str(tmp_path), "--device", "cpu", *flags]
+        if flags == ["--distributed"]:
+            assert cli.main(argv) == 2
+            assert "--distributed supports the 'train' subcommand only" in capsys.readouterr().err
+            continue
         with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
-            cli.main([command, *extra, "--data_path", str(tmp_path), "--device", "cpu", *flags])
+            cli.main(argv)
 
 
 @pytest.fixture(scope="module")

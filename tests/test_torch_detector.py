@@ -351,9 +351,22 @@ def test_sigterm_snapshots_and_stops():
     assert signal.getsignal(signal.SIGTERM) == before
 
 
-def test_a_mesh_raises():
-    with pytest.raises(NotImplementedError, match="one device"):
-        DetectorTrainer(AvsyncConfig(train=TrainConfig(mesh_shape=(2, 1))), device="cpu")
+def test_a_mesh_raises(tmp_path):
+    """A (2, 1) mesh no longer raises: over two gloo ranks on the CPU each
+    rank's detector trainer takes the mesh, its data index and a gradient
+    reducer (tests/test_torch_parallel.py trains it against the JAX
+    trainer)."""
+    import sys
+
+    from avsync_torch.parallel import multihost
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _torch_parallel_worker as worker
+
+    multihost.spawn(worker.build_trainers, 2, (str(tmp_path),), device="cpu")
+    for r in range(2):
+        got = torch.load(str(tmp_path / f"build_{r}.pt"))
+        assert got["detector"] == (2, 1) and got["data_index"] == r and got["reducer"]
 
 
 def test_training_learns_synthetic_misalignment(tmp_path):

@@ -435,7 +435,8 @@ def test_serve_parser_wiring_and_unported_flags(checkpoints):
     assert args.func is cmd_serve and args.port == 0 and args.warmup and args.max_batch == 8
     assert args.transport == "f32" and args.max_body_mb == 4 and args.artifact is None
     base = ["serve", "--checkpoint", checkpoints["lipnet"], "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # --dp is ported: above the host's device count (one CPU) it exits naming it
+    with pytest.raises(SystemExit, match="1 device"):
         cmd_serve(p.parse_args(base + ["--dp", "2"]))
     # int8 serving is ported (tests/test_torch_quant.py serves it): the flags
     # parse, and a scales file of another model family is refused at load,

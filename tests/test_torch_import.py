@@ -50,6 +50,8 @@ def test_every_module_imports_without_jax_or_avsync():
     assert {"avsync_torch.ingest.native", "avsync_torch.models.localizer",
             "avsync_torch.data.mouth"} <= set(loaded)
     assert {"avsync_torch.ops.lstm", "avsync_torch.models.lipnet_tf"} <= set(loaded)
+    assert {"avsync_torch.parallel", "avsync_torch.parallel.mesh",
+            "avsync_torch.parallel.multihost", "avsync_torch.parallel.context"} <= set(loaded)
     # cv2 is a fallback imported when used, never at import (the card's
     # machine may have none)
     assert "cv2" not in loaded

@@ -126,6 +126,41 @@ def test_gru_single_direction_with_strided_weights(dev, reverse):
                                **K2_TOL)
 
 
+@pytest.mark.parametrize("B,T,H,reverse", [(8, 25, 256, False), (8, 25, 256, True),
+                                             (3, 9, 20, False), (12, 5, 264, False)])
+def test_gru_initial_state_matches_plain(dev, B, T, H, reverse):
+    """K2 from a given h0 against the plain recurrence from the same h0
+    (through the padding at H = 20 and the generic kernel at H = 264); K2
+    with no h0 equal to K2 with h0 = zeros bit for bit."""
+    g = _gen(7)
+    gi = (torch.randn(B, T, 3 * H, generator=g)).to(dev)
+    w = (torch.randn(H, 3 * H, generator=g) * 0.1).to(dev)
+    b = (torch.randn(3 * H, generator=g) * 0.1).to(dev)
+    h0 = torch.tanh(torch.randn(B, H, generator=g)).to(dev)
+    got = gru.gru_recurrence(gi, w, b, reverse, h0=h0)
+    want = gru.gru_recurrence_ref(gi, w, b, reverse, h0=h0)
+    torch.testing.assert_close(got, want, **K2_TOL)
+    none = gru.gru_recurrence(gi, w, b, reverse)
+    assert torch.equal(none, gru.gru_recurrence(gi, w, b, reverse, h0=torch.zeros_like(h0)))
+
+
+def test_gru_chunks_from_handed_off_states_equal_the_whole_chain(dev):
+    """The context-parallel chain's invariant on the card: 75 steps as three
+    chunks of 25, each from the last state of the one before, equal K2 over
+    the whole sequence bit for bit."""
+    g = _gen(8)
+    B, T, H = 8, 75, 256
+    gi = torch.randn(B, T, 3 * H, generator=g).to(dev)
+    w = (torch.randn(H, 3 * H, generator=g) * 0.05).to(dev)
+    b = (torch.randn(3 * H, generator=g) * 0.1).to(dev)
+    whole = gru.gru_recurrence(gi, w, b)
+    h, parts = None, []
+    for c in range(3):
+        parts.append(gru.gru_recurrence(gi[:, 25 * c:25 * (c + 1)].contiguous(), w, b, h0=h))
+        h = parts[-1][:, -1]
+    assert torch.equal(torch.cat(parts, dim=1), whole)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     """H = 10 (padded to 16) and H = 264 (the generic kernel) run and match
     the plain version; an H past the card's shared memory and a float64
@@ -292,7 +327,7 @@ def test_model_gradients_kernel_path_match_plain_path(dev):
     from avsync_torch.config import ModelConfig
     from avsync_torch.models import LipNet
     from avsync_torch.ops.ctc import ctc_loss_mean
-    from avsync_torch.train.lipnet_trainer import fp32_step
+    from avsync_torch.ops.conv import fp32_step
 
     cfg = ModelConfig(use_pallas_gru=True, fused_conv_pool=True, dropout_rate=0.0)
     fast = LipNet(cfg, generator=_gen(11)).to(dev)

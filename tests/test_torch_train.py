@@ -206,10 +206,11 @@ def test_tf32_is_off_inside_the_backward():
 
 @pytest.mark.parametrize("deterministic", [False, True])
 def test_cudnn_determinism_inside_the_backward_is_the_callers(deterministic):
-    """train_step turns TF32 off but leaves `cudnn.deterministic` as the
-    caller set it: on the card cuDNN's default algorithms for the conv
-    backward sum in a run-dependent order, and a caller that wants
-    reproducible runs (or a graph equal to its loop bit for bit) sets it."""
+    """train_step turns TF32 off and `cudnn.deterministic` on inside its
+    backward whatever the caller set (on the card cuDNN's default algorithms
+    for the conv backward sum in a run-dependent order; runs must repeat,
+    and a data-parallel or graph step equal its loop bit for bit), and gives
+    the caller's flag back after."""
     seen = []
     model = LipNet(ModelConfig(**TINY), img_hw=(16, 32), generator=torch.Generator().manual_seed(0))
 
@@ -224,9 +225,11 @@ def test_cudnn_determinism_inside_the_backward_is_the_callers(deterministic):
     torch.backends.cudnn.deterministic = deterministic
     try:
         train_step(model, make_optimizer(model.parameters()), batch, 1e-4)
+        after = torch.backends.cudnn.deterministic
     finally:
         torch.backends.cudnn.deterministic = prev
-    assert seen == [deterministic]
+    assert seen == [True]
+    assert after == deterministic
 
 
 def test_dropout_masks_come_from_the_given_generator():

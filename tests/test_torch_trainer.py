@@ -250,9 +250,20 @@ def test_cli_test_refuses_beam_search(corpus, tmp_path):
               "--checkpoint", str(tmp_path / "missing.pth"), "--beam", "4", "--device", "cpu"])
 
 
-def test_unported_training_options_raise(corpus):
-    with pytest.raises(NotImplementedError):
-        LipNetTrainer(AvsyncConfig(train=TrainConfig(mesh_shape=(2, 1))), device="cpu")
+def test_unported_training_options_raise(corpus, tmp_path):
+    # a (2, 1) mesh is ported: over two gloo ranks on the CPU each builds a
+    # trainer whose mesh is (2, 1) (tests/test_torch_parallel.py trains on it)
+    import sys
+
+    from avsync_torch.parallel import multihost
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _torch_parallel_worker as worker
+
+    multihost.spawn(worker.build_trainers, 2, (str(tmp_path),), device="cpu")
+    for r in range(2):
+        got = torch.load(str(tmp_path / f"build_{r}.pt"))
+        assert got["lipnet"] == (2, 1)
     # the TF vocabulary is ported: its labels equal the JAX package's
     from avsync.data import GridDataSource as JaxSource
 
