@@ -127,17 +127,23 @@ DISTRIBUTED_TRAIN_ONLY = (
 
 
 def _refuse_unported(args) -> None:
-    """The common flags' values the port does not run yet raise, naming
-    their ROADMAP item, before any work."""
-    if getattr(args, "compute_dtype", None) == "bfloat16":
-        raise NotImplementedError("--compute_dtype bfloat16: the port computes in float32 "
-                                  "only (ROADMAP §1 item 9)")
+    """The flags' combinations the port does not run yet raise, naming
+    their ROADMAP item, before any work: the int8 forward (and the scales it
+    is calibrated for) under bf16 compute."""
+    if getattr(args, "compute_dtype", None) == "bfloat16" and (
+            getattr(args, "quantize", None) == "int8" or args.command == "quantize"):
+        from avsync_torch.ops.quant import INT8_BF16_UNPORTED
+
+        raise NotImplementedError(INT8_BF16_UNPORTED)
 
 
 def _no_tf32() -> None:
+    """TF32 off for cuDNN and cuBLAS, and cuBLAS's bf16 products reduced in
+    float32, for the whole process (as `ops/conv.fp32_step` for a scope)."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
 
 
@@ -947,8 +953,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT), one process "
                              "per card on every host; run the same command everywhere")
         sp.add_argument("--compute_dtype", choices=["float32", "bfloat16"], default=None,
-                        help="conv/GRU compute dtype; the port computes in float32 only "
-                             "(bfloat16 raises NotImplementedError)")
+                        help="compute dtype of the convs, the recurrent layers' products "
+                             "and the head (parameters stay float32); default float32. "
+                             "bfloat16 with int8 raises NotImplementedError")
         sp.add_argument("--packed_conv", action=argparse.BooleanOptionalAction, default=None,
                         help="the JAX package's lane-packed conv form; the port computes the "
                              "same convolutions either way")

@@ -116,8 +116,10 @@ class ModelConfig:
         (3, 3, 3),
     )
     num_gru_layers: int = 2
-    # Compute dtype for conv/GRU matmuls; params are kept in float32. The
-    # port computes in float32 only (bfloat16 raises NotImplementedError).
+    # Compute dtype for conv/GRU matmuls; params are kept in float32.
+    # "bfloat16" rounds where the JAX package does (models/lipnet.py,
+    # ops/precision.py); the port's default stays "float32" until the int8
+    # forward runs under bf16 too (ROADMAP §1 item 14).
     compute_dtype: str = "float32"
     # JAX package: pack4 conv blocks (a TPU lane-filling form of the same
     # math). The port accepts the flag and computes the same result.

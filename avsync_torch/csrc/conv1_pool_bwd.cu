@@ -62,6 +62,15 @@
 //     bit-identical results.
 // x and g are read through strides, so the model's NCDHW tensors and the
 // JAX layout both work without a copy.
+//
+// bf16 (`avs_conv1_pool_bwd_bf16`, training under compute_dtype="bfloat16",
+// as `conv1_pool_bwd(..., out_dtype=bf16)`): x, the weights and the pooled
+// cotangent are bf16, the bias float. They are widened with
+// __bfloat162float as they are staged (through registers: cp.async copies
+// whole words), so the recompute routes on the bits K1-bf16 pooled before
+// its rounding, and dW and db are the same float sums as above. The caller
+// rounds dW to bf16 once (the JAX package's `dwmat.astype(bf16)`); db stays
+// float.
 
 #include <cuda_runtime.h>
 
@@ -79,10 +88,10 @@ constexpr int MAXTQ = 16;        // taps per thread in the dW phase, at most
 constexpr int GS = MAXC + 1;     // padded row of the routing arrays
 
 struct ConvPoolBwdParams {
-  const float* x;     // input, element strides below
-  const float* w;     // weights, w[tap * w_tap + c * w_c], tap = (dt*kh+dh)*kw+dw
+  const void* x;      // input (TX), element strides below
+  const void* w;      // weights (TX), w[tap * w_tap + c * w_c], tap = (dt*kh+dh)*kw+dw
   const float* bias;  // (C,), contiguous
-  const float* g;     // pooled cotangent, element strides below
+  const void* g;      // pooled cotangent (TX), element strides below
   float* partial;     // [grid blocks][taps * C + C]
   float* dw;          // dw[tap * dw_tap + c * dw_c]
   float* db;          // (C,), contiguous
@@ -94,10 +103,14 @@ struct ConvPoolBwdParams {
 };
 
 // KT/KH/KW == 0 means "read the size from the params" (generic path); TQ is
-// the taps per warp, ceil(taps / NWARP), or MAXTQ for the generic path.
-template <int KT, int KH, int KW, int TQ>
+// the taps per warp, ceil(taps / NWARP), or MAXTQ for the generic path; TX
+// the element type of x, the weights and g (float or bf16).
+template <typename TX, int KT, int KH, int KW, int TQ>
 __global__ void __launch_bounds__(NT, 2)
 conv1_pool_bwd_kernel(const ConvPoolBwdParams p) {
+  const TX* x = static_cast<const TX*>(p.x);
+  const TX* w = static_cast<const TX*>(p.w);
+  const TX* g = static_cast<const TX*>(p.g);
   const int kt = KT ? KT : p.kt;
   const int kh = KH ? KH : p.kh;
   const int kw = KW ? KW : p.kw;
@@ -127,7 +140,7 @@ conv1_pool_bwd_kernel(const ConvPoolBwdParams p) {
 
   for (int i = tid; i < taps * cpad; i += NT) {
     const int tap = i / cpad, c = i % cpad;
-    s_w[i] = c < C ? p.w[tap * p.w_tap + c * p.w_c] : 0.f;
+    s_w[i] = c < C ? to_float(w[tap * p.w_tap + c * p.w_c]) : 0.f;
   }
   for (int c = tid; c < cpad; c += NT) s_b[c] = c < C ? p.bias[c] : 0.f;
 #pragma unroll
@@ -148,13 +161,17 @@ conv1_pool_bwd_kernel(const ConvPoolBwdParams p) {
 
   for (int f = blockIdx.y; f < p.B * p.T; f += p.n_chunks) {
     const int b = f / p.T, t = f % p.T;
-    conv1_stage_halo(s_x, p.x, b, t, h2_0, w2_0, kt, kh, kw, IH, IW, p.T, p.H, p.W, p.x_sb,
+    conv1_stage_halo(s_x, x, b, t, h2_0, w2_0, kt, kh, kw, IH, IW, p.T, p.H, p.W, p.x_sb,
                      p.x_st, p.x_sh, p.x_sw);
     cp_async_commit();
     if (in_tile) {
-      const float* gb = p.g + b * p.g_sb + t * p.g_st + h2 * p.g_sh + w2 * p.g_sw;
-      for (int c = 0; c < C; ++c) cp_async4(s_g + tid * GS + c, live ? gb + c * p.g_sc : p.g,
-                                            live);
+      const TX* gb = g + b * p.g_sb + t * p.g_st + h2 * p.g_sh + w2 * p.g_sw;
+      if constexpr (std::is_same<TX, float>::value) {
+        for (int c = 0; c < C; ++c) cp_async4(s_g + tid * GS + c, live ? gb + c * p.g_sc : g,
+                                              live);
+      } else {  // this thread's own row: read back by it alone until the sync
+        for (int c = 0; c < C; ++c) s_g[tid * GS + c] = live ? to_float(gb[c * p.g_sc]) : 0.f;
+      }
     }
     cp_async_commit();
     cp_async_wait<1>();  // this thread's halo copies
@@ -293,37 +310,35 @@ constexpr size_t MAX_SMEM = 232448;  // per-block opt-in limit on sm_90
 constexpr int MAX_DEVICES = 64;
 
 // The shared-memory opt-in of each instantiation, set once per device.
-template <int KT, int KH, int KW, int TQ>
+template <typename TX, int KT, int KH, int KW, int TQ>
 cudaError_t launch(const ConvPoolBwdParams& p, dim3 grid, int device, cudaStream_t stream) {
   static std::atomic<bool> opted_in[MAX_DEVICES];
   const size_t smem = smem_bytes(p.kt, p.kh, p.kw, p.C, p.TR, p.TC, TQ);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   if (device >= MAX_DEVICES || !opted_in[device].load()) {
-    cudaError_t e = cudaFuncSetAttribute(conv1_pool_bwd_kernel<KT, KH, KW, TQ>,
+    cudaError_t e = cudaFuncSetAttribute(conv1_pool_bwd_kernel<TX, KT, KH, KW, TQ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)MAX_SMEM);
     if (e != cudaSuccess) return e;
     if (device < MAX_DEVICES) opted_in[device].store(true);
   }
-  conv1_pool_bwd_kernel<KT, KH, KW, TQ><<<grid, NT, smem, stream>>>(p);
+  conv1_pool_bwd_kernel<TX, KT, KH, KW, TQ><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
-
-}  // namespace
 
 // Grid: (tiles of tile_rows x tile_cols pooled positions, n_chunks);
 // `partial` holds tiles * n_chunks rows of taps * C + C floats (the wrapper
 // allocates it and chooses the tile and the chunks).
-extern "C" int avs_conv1_pool_bwd(
-    const float* x, const float* w, const float* bias, const float* g,
-    float* partial, float* dw, float* db,
-    int B, int T, int H, int W, int kt, int kh, int kw, int C, int n_chunks,
-    int tile_rows, int tile_cols,
-    long long x_sb, long long x_st, long long x_sh, long long x_sw,
-    long long w_tap, long long w_c,
-    long long g_sb, long long g_st, long long g_sh, long long g_sw,
-    long long g_sc, long long dw_tap, long long dw_c, int device,
-    void* stream) {
+template <typename TX>
+int run(const TX* x, const TX* w, const float* bias, const TX* g,
+        float* partial, float* dw, float* db,
+        int B, int T, int H, int W, int kt, int kh, int kw, int C, int n_chunks,
+        int tile_rows, int tile_cols,
+        long long x_sb, long long x_st, long long x_sh, long long x_sw,
+        long long w_tap, long long w_c,
+        long long g_sb, long long g_st, long long g_sh, long long g_sw,
+        long long g_sc, long long dw_tap, long long dw_c, int device,
+        void* stream) {
   if (C < 1 || C > MAXC || kt * kh * kw > MAXTQ * NWARP || n_chunks < 1 ||
       B < 1 || T < 1 || H < 2 || W < 2 || tile_rows < 1 || tile_cols < 1 ||
       tile_rows * tile_cols > NT)
@@ -342,16 +357,41 @@ extern "C" int avs_conv1_pool_bwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(tiles, n_chunks);
   if (kt == 3 && kh == 5 && kw == 5) {
-    e = launch<3, 5, 5, (75 + NWARP - 1) / NWARP>(p, grid, device, s);
+    e = launch<TX, 3, 5, 5, (75 + NWARP - 1) / NWARP>(p, grid, device, s);
   } else if (kt == 3 && kh == 3 && kw == 3) {
-    e = launch<3, 3, 3, (27 + NWARP - 1) / NWARP>(p, grid, device, s);
+    e = launch<TX, 3, 3, 3, (27 + NWARP - 1) / NWARP>(p, grid, device, s);
   } else {
-    e = launch<0, 0, 0, MAXTQ>(p, grid, device, s);
+    e = launch<TX, 0, 0, 0, MAXTQ>(p, grid, device, s);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_out = kt * kh * kw * C + C;
   conv1_pool_bwd_sum_kernel<<<(n_out + 31) / 32, NT, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+#define AVS_CONV1_POOL_BWD_ARGS                                                           \
+  float *partial, float *dw, float *db, int B, int T, int H, int W, int kt, int kh, int kw, \
+      int C, int n_chunks, int tile_rows, int tile_cols, long long x_sb, long long x_st,    \
+      long long x_sh, long long x_sw, long long w_tap, long long w_c, long long g_sb,       \
+      long long g_st, long long g_sh, long long g_sw, long long g_sc, long long dw_tap,     \
+      long long dw_c, int device, void *stream
+#define AVS_CONV1_POOL_BWD_PASS                                                             \
+  partial, dw, db, B, T, H, W, kt, kh, kw, C, n_chunks, tile_rows, tile_cols, x_sb, x_st,    \
+      x_sh, x_sw, w_tap, w_c, g_sb, g_st, g_sh, g_sw, g_sc, dw_tap, dw_c, device, stream
+
+// float x, weights and cotangent
+extern "C" int avs_conv1_pool_bwd(const float* x, const float* w, const float* bias,
+                                  const float* g, AVS_CONV1_POOL_BWD_ARGS) {
+  return run<float>(x, w, bias, g, AVS_CONV1_POOL_BWD_PASS);
+}
+
+// bf16 x, weights and cotangent; the bias, dW and db stay float
+extern "C" int avs_conv1_pool_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                                       const float* bias, const __nv_bfloat16* g,
+                                       AVS_CONV1_POOL_BWD_ARGS) {
+  return run<__nv_bfloat16>(x, w, bias, g, AVS_CONV1_POOL_BWD_PASS);
 }
 
 extern "C" const char* avs_error_string(int e) {

@@ -320,25 +320,29 @@ class LipNetBatcher:
     # -- the device cache -------------------------------------------------------
     def _cache_dtype(self) -> torch.dtype:
         """The cache's element dtype before the uint8 probe (see
-        `DataConfig.device_cache_dtype`): float32, the port's compute dtype.
-        'bfloat16' raises, as the JAX package does with float32 compute: the
-        cached epochs would train on bf16-rounded inputs."""
+        `DataConfig.device_cache_dtype`), as the JAX package's: 'auto'
+        follows the model's compute dtype. A bf16-computing model rounds its
+        input to bf16 first thing, so a bf16 cache is invisible to it
+        (bf16(f32(bf16(x))) == bf16(x)) and holds twice the clips per MB;
+        under float32 compute the cache stays float32, and an explicit
+        'bfloat16' raises: the cached epochs would train on bf16-rounded
+        inputs."""
         mode = self.cfg.data.device_cache_dtype
         if mode not in ("auto", "float32", "bfloat16"):
             # uint8 is not a valid explicit value: it is only right when
             # the probe proves k/255-exactness ('auto' does that)
             raise ValueError(f"device_cache_dtype={mode!r}: use 'auto', 'float32' or "
                              "'bfloat16' (uint8 is chosen automatically when lossless)")
-        if self.cfg.model.compute_dtype not in (None, "float32"):
-            raise NotImplementedError(f"compute_dtype={self.cfg.model.compute_dtype!r}: the "
-                                      "port computes in float32 only")
-        if mode == "bfloat16":
+        bf16_compute = self.cfg.model.compute_dtype == "bfloat16"
+        if mode == "auto":
+            return torch.bfloat16 if bf16_compute else torch.float32
+        if mode == "bfloat16" and not bf16_compute:
             raise ValueError(
                 "device_cache_dtype='bfloat16' requires model.compute_dtype='bfloat16': "
                 "with f32 compute the cached epochs would train on bf16-rounded inputs, "
                 "breaking the cached==streamed guarantee. Use compute_dtype='bfloat16' or "
                 "device_cache_dtype='auto'/'float32'.")
-        return torch.float32
+        return getattr(torch, mode)
 
     def _clip_bytes(self, itemsize: Optional[int] = None) -> int:
         d = self.cfg.data
@@ -435,7 +439,8 @@ class LipNetBatcher:
 
     def gather(self, idx: torch.Tensor) -> torch.Tensor:
         """(B,) int64 cache rows on the device -> (B, T, h, w, 1) float32
-        model input, bit for bit what the streamed path gives those clips."""
+        model input, bit for bit what the streamed path gives those clips (a
+        bf16 cache: after the bf16 model's rounding of its input)."""
         cache = self._device_cache
         rows = cache["video"].index_select(0, idx).float()
         if cache["u8"]:

@@ -19,9 +19,6 @@ def make_lipnet(model_cfg, img_hw: Tuple[int, int],
     (32, 64, 96) TF stack is representable."""
     if model_cfg.family != "tf":
         return LipNet(model_cfg, img_hw=img_hw, generator=generator)
-    if model_cfg.compute_dtype not in (None, "float32"):
-        raise NotImplementedError(
-            f"compute_dtype={model_cfg.compute_dtype!r}: the port computes in float32 only")
     return TFLipNet(tf_model_config(model_cfg), img_hw=img_hw, generator=generator)
 
 

@@ -13,7 +13,16 @@ Inside, activations are NCDHW and the per-frame features flatten in
 (C, H, W) order, as in the reference; the public input is the JAX package's
 (B, T, H, W, 1).
 
-Kernel routing (float32 only):
+`ModelConfig.compute_dtype="bfloat16"` computes as the JAX package does
+under it (`avsync/models/lipnet.py:118-200`); the parameters stay float32:
+the input is rounded to bf16 once at the top of the conv stack, the conv
+blocks compute in bf16 (`ops/conv.conv_relu_pool`, or K1-bf16 for the fused
+conv1), the BiGRUs take bf16 operands into float32 input projections and
+return float32 (`ops/gru.py`), the head is a bf16 Dense
+(`ops/precision.dense`), and log_softmax runs in float32 on the float32-cast
+logits; `conv_features` returns float32.
+
+Kernel routing (float32 and bf16):
   * `ModelConfig.fused_conv_pool`: conv1 (Cin = 1, even H/W, odd kernel,
     Cout <= 32 — the JAX gate of `lipnet.py:99-109`) runs the fused
     conv+ReLU+pool kernel, one launch per forward, and its weight-gradient
@@ -49,6 +58,7 @@ from avsync_torch.config import ModelConfig
 from avsync_torch.ops.conv import conv_relu_pool
 from avsync_torch.ops.cuda.convpool import conv1_pool_block
 from avsync_torch.ops.gru import GRUWeights, bigru
+from avsync_torch.ops.precision import compute_dtype, dense
 
 
 def _uniform(shape, bound: float, generator: Optional[torch.Generator]) -> nn.Parameter:
@@ -98,12 +108,14 @@ class ConvPoolBlock(nn.Module):
 class BiGRU(nn.Module):
     """Bidirectional single-layer GRU with nn.GRU's parameter names
     (`weight_ih_l0`, ..., `bias_hh_l0_reverse`) and initialisation. `tp`: set
-    by `parallel.mesh.shard_model` when its weights are row shards."""
+    by `parallel.mesh.shard_model` when its weights are row shards;
+    `compute_dtype`: bf16 rounds as `ops/gru.py` says."""
 
     tp = None
 
     def __init__(self, input_dim: int, hidden_dim: int, use_kernel: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         H = hidden_dim
         bound = 1.0 / math.sqrt(H)
@@ -115,6 +127,7 @@ class BiGRU(nn.Module):
             self.register_parameter(f"bias_ih_l0{suffix}", _uniform((3 * H,), bound, generator))
             self.register_parameter(f"bias_hh_l0{suffix}", _uniform((3 * H,), bound, generator))
         self.use_kernel = use_kernel
+        self.compute_dtype = compute_dtype
 
     def _weights(self, suffix: str) -> GRUWeights:
         return GRUWeights(getattr(self, f"weight_ih_l0{suffix}"),
@@ -124,31 +137,36 @@ class BiGRU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return bigru(x, self._weights(""), self._weights("_reverse"), self.use_kernel,
-                     self.tp)
+                     self.tp, self.compute_dtype)
 
 
 class Linear(nn.Module):
     """nn.Linear's params and init, drawn from an explicit generator. With
-    `tp` (row shards of the output units) its outputs are gathered whole."""
+    `tp` (row shards of the output units) its outputs are gathered whole;
+    with `compute_dtype` it is a Dense in that dtype (`ops/precision.dense`)."""
 
     tp = None
 
     def __init__(self, din: int, dout: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         bound = 1.0 / math.sqrt(din)
         self.weight = _uniform((dout, din), bound, generator)
         self.bias = _uniform((dout,), bound, generator)
+        self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return tp_linear(x, self.weight, self.bias, self.tp)
+        return tp_linear(x, self.weight, self.bias, self.tp, self.compute_dtype)
 
 
-def tp_linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, tp) -> torch.Tensor:
-    """F.linear, or with `tp` the rows' slice of the outputs gathered whole."""
+def tp_linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, tp,
+              dt: Optional[torch.dtype] = None) -> torch.Tensor:
+    """`dense(x, weight, bias, dt)`, or with `tp` the rows' slice of the
+    outputs gathered whole."""
     if tp is None:
-        return F.linear(x, weight, bias)
-    return tp.gather(F.linear(tp.enter(x), weight, bias), -1)
+        return dense(x, weight, bias, dt)
+    return tp.gather(dense(tp.enter(x), weight, bias, dt), -1)
 
 
 class LipNet(nn.Module):
@@ -162,10 +180,8 @@ class LipNet(nn.Module):
             raise NotImplementedError(
                 f"LipNet is the 'pytorch' family, not {cfg.family!r}: the 'tf' family is "
                 "models.lipnet_tf.TFLipNet (models.make_lipnet builds either)")
-        if cfg.compute_dtype not in (None, "float32"):
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r}: the port computes in float32 only")
         self.cfg = cfg
+        self.compute_dtype = dt = compute_dtype(cfg.compute_dtype)
         cin = 1
         h, w = img_hw
         for i, (ch, kern) in enumerate(zip(cfg.conv_channels, cfg.conv_kernels)):
@@ -176,14 +192,17 @@ class LipNet(nn.Module):
         dim = self.conv_output_dim
         for i in range(cfg.num_gru_layers):
             self.add_module(f"gru{i + 1}", BiGRU(
-                dim, cfg.hidden_dim, use_kernel=cfg.use_pallas_gru, generator=generator))
+                dim, cfg.hidden_dim, use_kernel=cfg.use_pallas_gru, generator=generator,
+                compute_dtype=dt))
             dim = 2 * cfg.hidden_dim
-        self.fc = Linear(dim, cfg.vocab_size, generator=generator)
+        self.fc = Linear(dim, cfg.vocab_size, generator=generator, compute_dtype=dt)
 
     def _conv_stack(self, x: torch.Tensor, train: bool = False,
                     generator: Optional[torch.Generator] = None,
                     remat: bool = False) -> torch.Tensor:
         x = x.permute(0, 4, 1, 2, 3)  # (B, 1, T, H, W)
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)  # the one rounding of the input
         for i in range(len(self.cfg.conv_channels)):
             x = remat_block(getattr(self, f"conv{i + 1}"), x, remat)
             # Dropout3d: whole channels, as the JAX broadcast dropout
@@ -202,8 +221,8 @@ class LipNet(nn.Module):
         for i in range(self.cfg.num_gru_layers):
             x = remat_block(getattr(self, f"gru{i + 1}"), x, remat)
             x = inverted_dropout(x, x.shape, self.cfg.dropout_rate, train, generator)
-        return F.log_softmax(self.fc(x), dim=-1)
+        return F.log_softmax(self.fc(x).float(), dim=-1)
 
     def conv_features(self, x: torch.Tensor) -> torch.Tensor:
-        """Conv stack only: (B, T, C*h*w) features in (C, H, W) order."""
-        return self._conv_stack(x)
+        """Conv stack only: (B, T, C*h*w) float32 features in (C, H, W) order."""
+        return self._conv_stack(x).float()

@@ -17,6 +17,13 @@ are NCDHW and the conv features flatten in (C, H, W) order, where the JAX
 package flattens (H, W, C): `compat.tflipnet_params_from_jax` permutes the
 first LSTM's input rows.
 
+`compute_dtype="bfloat16"` (`TFModelConfig.compute_dtype`) computes as the
+JAX TFLipNet does under it (`avsync/models/lipnet_tf.py:75-102`): the input
+rounded to bf16 once, the conv blocks in bf16 (their bias added in bf16
+after the conv's rounding, as `nn.Conv(dtype=bf16)`), the BiLSTMs from bf16
+operands into float32 (`ops/lstm.py`), the two Dense layers and the head in
+bf16 (`ops/precision.dense`), log_softmax in float32.
+
 Parameter names: `conv{i}.weight/bias`, `lstm{i}.weight_ih_l0[_reverse]`,
 ... (`nn.LSTM`'s), `dense{i}.weight/bias`, `head.weight/bias`.
 """
@@ -35,6 +42,7 @@ from avsync_torch.models.lipnet import (ConvPoolBlock, _uniform, inverted_dropou
                                         tp_linear)
 from avsync_torch.ops.ctc import optax_ctc_nll
 from avsync_torch.ops.lstm import LSTMWeights, bilstm
+from avsync_torch.ops.precision import compute_dtype
 
 
 @dataclass(frozen=True)
@@ -45,14 +53,17 @@ class TFModelConfig:
     conv_channels: Tuple[int, int, int] = (128, 256, 64)
     num_lstm_layers: int = 3
     dense_dim: int = 512
+    compute_dtype: str = "float32"
 
 
 def tf_model_config(model_cfg) -> TFModelConfig:
     """The TFModelConfig of a ModelConfig of family 'tf' (as the JAX
-    `make_lipnet` resolves it): its hidden size, dropout rate and resolved
-    conv channels; three BiLSTM layers, Dense 512, 31 + 1 outputs."""
+    `make_lipnet` resolves it): its hidden size, dropout rate, resolved
+    conv channels and compute dtype; three BiLSTM layers, Dense 512, 31 + 1
+    outputs."""
     return TFModelConfig(hidden_dim=model_cfg.hidden_dim, dropout_rate=model_cfg.dropout_rate,
-                         conv_channels=tuple(model_cfg.conv_channels))
+                         conv_channels=tuple(model_cfg.conv_channels),
+                         compute_dtype=model_cfg.compute_dtype or "float32")
 
 
 class BiLSTM(nn.Module):
@@ -63,8 +74,10 @@ class BiLSTM(nn.Module):
     tp = None
 
     def __init__(self, input_dim: int, hidden_dim: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         H = hidden_dim
         bound = 1.0 / math.sqrt(H)
         for suffix in ("", "_reverse"):
@@ -80,18 +93,22 @@ class BiLSTM(nn.Module):
                              for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return bilstm(self._weights(""), self._weights("_reverse"), x, self.tp)
+        return bilstm(self._weights(""), self._weights("_reverse"), x, self.tp,
+                      self.compute_dtype)
 
 
 class HeLinear(nn.Module):
     """A Dense layer as Flax's with `he_normal`: weight (out, in) from a
     normal truncated at two standard deviations, scaled to variance 2/in;
-    bias zeros. With `tp` (row shards) its outputs are gathered whole."""
+    bias zeros. With `tp` (row shards) its outputs are gathered whole; with
+    `compute_dtype` it computes in that dtype (`ops/precision.dense`)."""
 
     tp = None
 
-    def __init__(self, din: int, dout: int, generator: Optional[torch.Generator] = None):
+    def __init__(self, din: int, dout: int, generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         std = math.sqrt(2.0 / din) / 0.87962566103423978  # Flax's truncation factor
         w = torch.empty(dout, din)
         nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
@@ -99,7 +116,7 @@ class HeLinear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return tp_linear(x, self.weight, self.bias, self.tp)
+        return tp_linear(x, self.weight, self.bias, self.tp, self.compute_dtype)
 
 
 class TFLipNet(nn.Module):
@@ -110,6 +127,7 @@ class TFLipNet(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
+        self.compute_dtype = dt = compute_dtype(cfg.compute_dtype)
         cin, (h, w) = 1, img_hw
         for i, ch in enumerate(cfg.conv_channels):
             self.add_module(f"conv{i + 1}", ConvPoolBlock(cin, ch, (3, 3, 3),
@@ -117,11 +135,12 @@ class TFLipNet(nn.Module):
             cin, h, w = ch, h // 2, w // 2
         self.conv_output_dim = dim = cin * h * w
         for i in range(cfg.num_lstm_layers):
-            self.add_module(f"lstm{i + 1}", BiLSTM(dim, cfg.hidden_dim, generator=generator))
+            self.add_module(f"lstm{i + 1}", BiLSTM(dim, cfg.hidden_dim, generator=generator,
+                                                   compute_dtype=dt))
             dim = 2 * cfg.hidden_dim
-        self.dense1 = HeLinear(dim, cfg.dense_dim, generator)
-        self.dense2 = HeLinear(cfg.dense_dim, cfg.dense_dim, generator)
-        self.head = HeLinear(cfg.dense_dim, cfg.vocab_size + 1, generator)
+        self.dense1 = HeLinear(dim, cfg.dense_dim, generator, dt)
+        self.dense2 = HeLinear(cfg.dense_dim, cfg.dense_dim, generator, dt)
+        self.head = HeLinear(cfg.dense_dim, cfg.vocab_size + 1, generator, dt)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -130,6 +149,8 @@ class TFLipNet(nn.Module):
         `generator` (a torch.Generator on the model's device); `remat=True`
         recomputes each conv block in the backward."""
         x = x.permute(0, 4, 1, 2, 3)  # (B, 1, T, H, W)
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)  # the one rounding of the input
         for i in range(len(self.cfg.conv_channels)):
             x = remat_block(getattr(self, f"conv{i + 1}"), x, remat)
         B, C, T, h, w = x.shape

@@ -6,6 +6,13 @@ checkpoint layout. These blocks are plain convolutions that the JAX package
 leaves to XLA outside any Pallas kernel; here they go to `F.conv3d` /
 `F.max_pool3d`. Float32 convolutions run in full fp32: cuDNN would use TF32
 by default, so each call turns TF32 off for its own scope.
+
+A block computes in its input's dtype. In bf16 it is the JAX package's
+`conv3d(x, kernel, bias, compute_dtype=bf16, preferred_dtype=bf16)`: the
+weight is rounded to bf16, the convolution sums in float32 and rounds its
+output to bf16 once, then the bias, rounded to bf16, is added in bf16. The
+bias is added after the convolution, not passed into `F.conv3d`, which would
+add it before the rounding.
 """
 
 from __future__ import annotations
@@ -28,15 +35,18 @@ def fp32_convs():
 @contextlib.contextmanager
 def fp32_step() -> Iterator[None]:
     """TF32 off for cuDNN and cuBLAS while the block runs (a step's forward
-    AND backward); the previous flags come back after."""
+    AND backward), and cuBLAS's bf16 products reduced in float32 (its
+    default lets them reduce in bf16; the JAX package accumulates in
+    float32); the previous flags come back after."""
     matmul = torch.backends.cuda.matmul
-    prev = matmul.allow_tf32
+    prev = matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction
     matmul.allow_tf32 = False
+    matmul.allow_bf16_reduced_precision_reduction = False
     try:
         with fp32_convs():
             yield
     finally:
-        matmul.allow_tf32 = prev
+        matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction = prev
 
 
 @contextlib.contextmanager
@@ -76,5 +86,11 @@ def max_pool3d(x: torch.Tensor,
 
 def conv_relu_pool(x: torch.Tensor, weight: torch.Tensor,
                    bias: torch.Tensor | None = None) -> torch.Tensor:
-    """One LipNet block: Conv3D -> ReLU -> MaxPool3D(1,2,2), NCDHW."""
-    return max_pool3d(F.relu(conv3d(x, weight, bias)))
+    """One LipNet block: Conv3D -> ReLU -> MaxPool3D(1,2,2), NCDHW, in x's
+    dtype (bf16 rounded as the module says)."""
+    if x.dtype != torch.bfloat16:
+        return max_pool3d(F.relu(conv3d(x, weight, bias)))
+    y = conv3d(x, weight.to(x.dtype))
+    if bias is not None:
+        y = y + bias.to(x.dtype).view(-1, 1, 1, 1)
+    return max_pool3d(F.relu(y))

@@ -26,6 +26,18 @@ multiply-add per tap, as in the kernels (which share that loop,
 `csrc/conv1_recompute.cuh`), so the pre-pool values, and with them the pool
 routing of the backward, agree bit for bit.
 
+bf16: x, the weights and the pooled output bf16, the bias float32, as the
+JAX package's `conv1_pool_fused(..., out_dtype=bf16)` under
+compute_dtype="bfloat16". Both kernels have a bf16 instantiation
+(`avs_conv1_pool_bf16`, `avs_conv1_pool_bwd_bf16`) that widens the inputs to
+float and sums as the float kernels do; K1 rounds its pooled value once, and
+the plain versions do the same sums in float32 on the widened inputs, so
+K1-bf16 equals its plain version bit for bit too. K4 returns float32 sums;
+`Conv1Pool.backward` rounds dW to bf16 once (the JAX package's
+`dwmat.astype(bf16)`) and hands the float32 parameter that value. A bf16
+tensor on the card launches the bf16 kernel or raises: nothing upcasts to
+the float kernel.
+
 Layouts: `conv1_pool_fused` takes and returns the JAX package's
 (B, T, H, W, 1) x (kt, kh, kw, 1, C) -> (B, T, H/2, W/2, C), so tests compare
 like with like; `conv1_pool_block` is the model's NCDHW form,
@@ -114,8 +126,10 @@ def _windows(x: torch.Tensor, kt: int, kh: int, kw: int):
 
 
 def _pre_pool(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """conv3d(x, kernel) + bias, (B, T, H, W, C), summed tap by tap as the
-    kernels do — the kernels' own arithmetic, not a library conv."""
+    """conv3d(x, kernel) + bias in float32, (B, T, H, W, C), summed tap by
+    tap as the kernels do — the kernels' own arithmetic, not a library conv.
+    bf16 x and kernel are widened first (exact), as the kernels stage them."""
+    x, kernel = x.float(), kernel.float()
     B, T, H, W, _ = x.shape
     kt, kh, kw, _, C = kernel.shape
     acc = x.new_zeros(B, T, H, W, C)
@@ -126,11 +140,12 @@ def _pre_pool(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torc
 
 def conv1_pool_ref(x: torch.Tensor, kernel: torch.Tensor,
                    bias: torch.Tensor) -> torch.Tensor:
-    """Plain version, JAX layouts: max_pool(relu(conv3d(x, kernel) + bias))."""
+    """Plain version, JAX layouts: max_pool(relu(conv3d(x, kernel) + bias)),
+    summed in float32 and returned in x's dtype (bf16: rounded once)."""
     B, T, H, W, _ = x.shape
     C = kernel.shape[-1]
     pooled = _pre_pool(x, kernel, bias).reshape(B, T, H // 2, 2, W // 2, 2, C).amax(dim=(3, 5))
-    return F.relu(pooled)
+    return F.relu(pooled).to(x.dtype)
 
 
 def conv1_pool_bwd_ref(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
@@ -148,13 +163,16 @@ def conv1_pool_bwd_ref(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor
     fp32 product over all of a B=128 batch's 48 M positions strayed past
     K4's atol of 1e-3, where the kernel stays within it of float64 sums.
     `sum_dtype` (float64) takes the sums in another type on the same fp32
-    routing, to check the fp32 ones (chip_smoke.py does at B=128)."""
+    routing, to check the fp32 ones (chip_smoke.py does at B=128).
+    bf16 x, kernel and g are widened first; dkernel and dbias are float32
+    sums either way (K4's contract: the caller rounds dkernel)."""
     B, T, H, W, _ = x.shape
     kt, kh, kw, _, C = kernel.shape
     H2, W2 = H // 2, W // 2
     pre = _pre_pool(x, kernel, bias).reshape(B, T, H2, 2, W2, 2, C)
     pre = pre.permute(0, 1, 2, 4, 3, 5, 6).reshape(B, T, H2, W2, 4, C)
     top, first = pre.max(dim=4, keepdim=True)  # max returns the first maximal index
+    g = g.float()
     dpre = torch.zeros_like(pre).scatter_(4, first, torch.where(top > 0, g[..., None, :], 0.0))
     dpre = dpre.reshape(B, T, H2, W2, 2, 2, C).permute(0, 1, 2, 4, 3, 5, 6)
     dpre = dpre.reshape(B, T, H, W, C).to(sum_dtype or dpre.dtype)
@@ -174,16 +192,33 @@ def _check_geometry(kt, kh, kw, H, W, C):
         raise ValueError("conv1_pool needs at least one output channel")
 
 
+_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}  # the C entry point per dtype
+
+
+def _check_dtypes(what: str, dev, same, floats) -> str:
+    """The entry point's suffix for the element dtype of the `same` tensors
+    (float32 or bf16, all alike); the `floats` are float32. Raises otherwise."""
+    dt = same[0][1].dtype
+    if dt not in _SUFFIX:
+        raise ValueError(f"{what}: {same[0][0]} must be float32 or bfloat16, not {dt}")
+    for name, t in same:
+        if t.device != dev or t.dtype != dt:
+            raise ValueError(f"{what}: {name} must be {dt} on {dev}")
+    for name, t in floats:
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f"{what}: {name} must be float32 on {dev}")
+    return _SUFFIX[dt]
+
+
 def _launch(x, x_strides, w, w_strides, bias, out, o_strides, B, T, H, W,
             kt, kh, kw, C):
     global launches
-    for name, t in (("x", x), ("kernel", w), ("bias", bias), ("out", out)):
-        if t.device != out.device or t.dtype != torch.float32:
-            raise ValueError(f"conv1_pool: {name} must be float32 on {out.device}")
+    suffix = _check_dtypes("conv1_pool", out.device, (("x", x), ("kernel", w), ("out", out)),
+                           (("bias", bias),))
     if not bias.is_contiguous():
         raise ValueError("conv1_pool: bias must be contiguous")
     rows, cols, _, n_chunks = fwd_grid(B, T, H // 2, W // 2, kt, kh, kw, C)
-    fn = build.function("conv1_pool", "avs_conv1_pool", _ARGTYPES)
+    fn = build.function("conv1_pool", "avs_conv1_pool" + suffix, _ARGTYPES)
     err = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
              B, T, H, W, kt, kh, kw, C, n_chunks, rows, cols, *x_strides, *w_strides,
              *o_strides, out.device.index, torch.cuda.current_stream(out.device).cuda_stream)
@@ -194,7 +229,8 @@ def _launch(x, x_strides, w, w_strides, bias, out, o_strides, B, T, H, W,
 
 def conv1_pool_fused(x: torch.Tensor, kernel: torch.Tensor,
                      bias: torch.Tensor) -> torch.Tensor:
-    """(B, T, H, W, 1) x (kt, kh, kw, 1, C) + (C,) -> (B, T, H/2, W/2, C)."""
+    """(B, T, H, W, 1) x (kt, kh, kw, 1, C) + (C,) -> (B, T, H/2, W/2, C) in
+    x's dtype (float32, or bf16 with a bf16 kernel and a float32 bias)."""
     B, T, H, W, cin = x.shape
     kt, kh, kw, kcin, C = kernel.shape
     if cin != 1 or kcin != 1:
@@ -206,7 +242,7 @@ def conv1_pool_fused(x: torch.Tensor, kernel: torch.Tensor,
         raise ValueError(f"conv1_pool: unsupported device {x.device}")
     if not kernel.is_contiguous():
         raise ValueError("conv1_pool: kernel must be contiguous")
-    out = torch.empty(B, T, H // 2, W // 2, C, device=x.device, dtype=torch.float32)
+    out = torch.empty(B, T, H // 2, W // 2, C, device=x.device, dtype=x.dtype)
     return _launch(x, x.stride()[:4], kernel, (C, 1), bias, out,
                    (out.stride(0), out.stride(1), out.stride(2), out.stride(3),
                     out.stride(4)), B, T, H, W, kt, kh, kw, C)
@@ -218,7 +254,7 @@ def _conv1_pool_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) 
     C, _, kt, kh, kw = weight.shape
     if not weight.is_contiguous():
         raise ValueError("conv1_pool: weight must be contiguous")
-    out = torch.empty(B, C, T, H // 2, W // 2, device=x.device, dtype=torch.float32)
+    out = torch.empty(B, C, T, H // 2, W // 2, device=x.device, dtype=x.dtype)
     return _launch(x, (x.stride(0), x.stride(2), x.stride(3), x.stride(4)),
                    weight, (1, kt * kh * kw), bias, out,
                    (out.stride(0), out.stride(2), out.stride(3), out.stride(4),
@@ -227,7 +263,7 @@ def _conv1_pool_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) 
 
 # The NCDHW forward as an operator, so that `torch.export` traces it as one
 # node and an exported program calls it: K1 for CUDA tensors, the plain
-# version for CPU ones.
+# version for CPU ones; the output has x's dtype.
 conv1_pool_op = torch.library.custom_op("avsync_torch::conv1_pool", _conv1_pool_cuda,
                                         mutates_args=(), device_types="cuda")
 
@@ -266,10 +302,8 @@ def _launch_bwd(x, x_strides, w, w_strides, bias, g, g_strides, dw, dw_strides, 
                 B, T, H, W, kt, kh, kw, C):
     global bwd_launches
     dev = x.device
-    for name, t in (("x", x), ("kernel", w), ("bias", bias), ("g", g), ("dkernel", dw),
-                    ("dbias", db)):
-        if t.device != dev or t.dtype != torch.float32:
-            raise ValueError(f"conv1_pool_bwd: {name} must be float32 on {dev}")
+    suffix = _check_dtypes("conv1_pool_bwd", dev, (("x", x), ("kernel", w), ("g", g)),
+                           (("bias", bias), ("dkernel", dw), ("dbias", db)))
     if not (bias.is_contiguous() and db.is_contiguous()):
         raise ValueError("conv1_pool_bwd: bias must be contiguous")
     taps = kt * kh * kw
@@ -278,7 +312,7 @@ def _launch_bwd(x, x_strides, w, w_strides, bias, g, g_strides, dw, dw_strides, 
                          f"and {MAX_TAPS} taps (got C={C}, {taps} taps)")
     rows, cols, tiles, n_chunks = bwd_grid(B, T, H // 2, W // 2)
     partial = torch.empty(tiles * n_chunks, taps * C + C, device=dev, dtype=torch.float32)
-    fn = build.function("conv1_pool_bwd", "avs_conv1_pool_bwd", _BWD_ARGTYPES)
+    fn = build.function("conv1_pool_bwd", "avs_conv1_pool_bwd" + suffix, _BWD_ARGTYPES)
     err = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), g.data_ptr(), partial.data_ptr(),
              dw.data_ptr(), db.data_ptr(), B, T, H, W, kt, kh, kw, C, n_chunks, rows, cols,
              *x_strides, *w_strides, *g_strides, *dw_strides,
@@ -292,7 +326,8 @@ def conv1_pool_bwd(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                    g: torch.Tensor):
     """JAX layouts, as `avsync.ops.pallas.convpool.conv1_pool_bwd`: x (B, T,
     H, W, 1), kernel (kt, kh, kw, 1, C), bias (C,), pooled cotangent g (B, T,
-    H/2, W/2, C) -> (dkernel (kt, kh, kw, 1, C), dbias (C,))."""
+    H/2, W/2, C) -> (dkernel (kt, kh, kw, 1, C), dbias (C,)), float32 sums
+    for float32 or bf16 x, kernel and g."""
     B, T, H, W, cin = x.shape
     kt, kh, kw, kcin, C = kernel.shape
     if cin != 1 or kcin != 1:
@@ -306,7 +341,7 @@ def conv1_pool_bwd(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"conv1_pool_bwd: unsupported device {x.device}")
     if not kernel.is_contiguous():
         raise ValueError("conv1_pool_bwd: kernel must be contiguous")
-    dk = torch.empty_like(kernel)
+    dk = torch.empty(kernel.shape, device=x.device, dtype=torch.float32)
     db = torch.empty(C, device=x.device, dtype=torch.float32)
     return _launch_bwd(x, x.stride()[:4], kernel, (C, 1), bias, g, g.stride(), dk, (C, 1),
                        db, B, T, H, W, kt, kh, kw, C)
@@ -315,7 +350,8 @@ def conv1_pool_bwd(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
 def conv1_pool_block_bwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                          g: torch.Tensor):
     """NCDHW form of `conv1_pool_bwd`: x (B, 1, T, H, W), weight (C, 1, kt,
-    kh, kw), g (B, C, T, H/2, W/2) -> (dweight in weight's layout, dbias)."""
+    kh, kw), g (B, C, T, H/2, W/2) -> (dweight in weight's layout, dbias),
+    float32 sums."""
     B, cin, T, H, W = x.shape
     C, kcin, kt, kh, kw = weight.shape
     if cin != 1 or kcin != 1:
@@ -332,7 +368,7 @@ def conv1_pool_block_bwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tens
     if not weight.is_contiguous():
         raise ValueError("conv1_pool_bwd: weight must be contiguous")
     taps = kt * kh * kw
-    dw = torch.empty_like(weight)
+    dw = torch.empty(weight.shape, device=x.device, dtype=torch.float32)
     db = torch.empty(C, device=x.device, dtype=torch.float32)
     gs = g.stride()
     return _launch_bwd(x, (x.stride(0), x.stride(2), x.stride(3), x.stride(4)),
@@ -342,30 +378,37 @@ def conv1_pool_block_bwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tens
 
 class Conv1Pool(torch.autograd.Function):
     """The model's fused conv1 block, NCDHW: forward K1, dW/db by K4 (their
-    plain versions on the CPU). dx, needed only when conv1 is not the input
-    layer, comes from autograd of the plain composition (cuDNN conv, ReLU,
-    pool), as the JAX package takes it from XLA's VJP."""
+    plain versions on the CPU). The block computes in x's dtype: a bf16 x
+    runs K1/K4-bf16 on the weight rounded to bf16, and dW, K4's float32 sum,
+    is rounded to bf16 once before it reaches the float32 parameter; db stays
+    float32, as the JAX package's (its bias enters the kernel in float32). dx,
+    needed only when conv1 is not the input layer, comes from autograd of the
+    plain composition (cuDNN conv, ReLU, pool), as the JAX package takes it
+    from XLA's VJP."""
 
     @staticmethod
     def forward(ctx, x, weight, bias):
-        ctx.save_for_backward(x, weight, bias)
-        return _block_forward(x, weight, bias)
+        w = weight.to(x.dtype)
+        ctx.weight_dtype = weight.dtype
+        ctx.save_for_backward(x, w, bias)
+        return _block_forward(x, w, bias)
 
     @staticmethod
     def backward(ctx, g):
-        x, weight, bias = ctx.saved_tensors
-        dw, db = conv1_pool_block_bwd(x, weight, bias, g)
+        x, w, bias = ctx.saved_tensors
+        dw, db = conv1_pool_block_bwd(x, w, bias, g)
+        dw = dw.to(w.dtype).to(ctx.weight_dtype)  # bf16: the one rounding
         dx = None
         if ctx.needs_input_grad[0]:
             with torch.enable_grad():
                 xr = x.detach().requires_grad_()
-                y = conv_relu_pool(xr, weight.detach(), bias.detach())
+                y = conv_relu_pool(xr, w.detach(), bias.detach())
                 (dx,) = torch.autograd.grad(y, xr, g)
         return dx, dw, db
 
 
 def conv1_pool_block(x: torch.Tensor, weight: torch.Tensor,
                      bias: torch.Tensor) -> torch.Tensor:
-    """NCDHW: (B, 1, T, H, W) x (C, 1, kt, kh, kw) + (C,) -> (B, C, T, H/2, W/2),
-    differentiable (`Conv1Pool`)."""
+    """NCDHW: (B, 1, T, H, W) x (C, 1, kt, kh, kw) + (C,) -> (B, C, T, H/2, W/2)
+    in x's dtype, differentiable (`Conv1Pool`)."""
     return Conv1Pool.apply(x, weight, bias)

@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from avsync_torch.ops.cuda import build
+from avsync_torch.ops.precision import rounded
 
 # Kernel launches since the last reset (the caller resets them to 0).
 launches = 0
@@ -98,17 +99,21 @@ def _check_fits(name: str, symbol: str, H: int) -> None:
 
 
 def gru_recurrence_ref(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
-                       reverse: bool = False, h0: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       reverse: bool = False, h0: Optional[torch.Tensor] = None,
+                       compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain version: gi (B, T, 3H), w_hh (H, 3H), b_hh (3H,) -> (B, T, H),
     from h0 (B, H) (zeros when None), torch [r, z, n] gates; `reverse` walks
-    time backwards and still returns outputs in forward time order."""
+    time backwards and still returns outputs in forward time order. K2 and
+    K3 are this with `compute_dtype` None. `compute_dtype` bf16 is the JAX
+    `gru_scan`'s step: h and w_hh rounded to bf16 in the product, its sums
+    and the carry float32 (the model's plain loop under bf16 compute)."""
     B, T, threeH = gi.shape
     H = threeH // 3
     h = gi.new_zeros(B, H) if h0 is None else h0
+    w_hh = rounded(w_hh, compute_dtype)
     outs = [None] * T
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        gh = h @ w_hh + b_hh
+        gh = rounded(h, compute_dtype) @ w_hh + b_hh
         gi_t = gi[:, t]
         r = torch.sigmoid(gi_t[:, :H] + gh[:, :H])
         z = torch.sigmoid(gi_t[:, H:2 * H] + gh[:, H:2 * H])

@@ -3,8 +3,9 @@
 Same structure as the JAX package:
 
   * the input projection for ALL timesteps is hoisted out of the recurrence
-    as one large (B*T, D) x (D, 3H) product per direction (`F.linear`, a
-    plain matmul outside any kernel, as the JAX package leaves it to XLA);
+    as one large (B*T, D) x (D, 3H) product per direction
+    (`ops/precision.linear_f32`, a plain matmul outside any kernel, as the
+    JAX package leaves it to XLA);
   * the recurrence runs either in the hand-written CUDA kernels
     (`use_kernel=True`, `ModelConfig.use_pallas_gru`): `BiGRURecurrence`, an
     autograd Function whose forward is K2 and whose backward is K3, both
@@ -18,6 +19,13 @@ Weights here are torch's: weight_ih (3H, D), weight_hh (3H, H), gate order
 [r, z, n]. The kernel wrapper takes the JAX right-multiply layout, which is
 the transpose view of torch's — no copy.
 
+bf16 compute (`compute_dtype`, `ops/precision.py`): gi is the JAX package's,
+bf16 x times bf16 weight_ih summed and kept in float32, plus the float32
+bias (`avsync/ops/gru.py:75-83,119-128`). The kernels' recurrence is float32
+whatever the dtype, as the JAX Pallas kernels are, so K2 and K3 run
+unchanged on it. The plain loop follows `gru_scan`: each step's product
+takes h and w_hh rounded to bf16 (`avsync/ops/gru.py:76,89`).
+
 Under tensor parallelism (`tp`, `parallel/mesh.TensorParallel`) the weights
 are this rank's block of gate rows: the input projection computes its slice
 of gi, and gi, w_hh and b_hh are gathered whole before the recurrence.
@@ -25,13 +33,13 @@ of gi, and gi, w_hh and b_hh are gathered whole before the recurrence.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 
 from avsync_torch.ops.cuda.gru import (bigru_recurrence, bigru_recurrence_bwd,
                                        gru_recurrence_ref)
+from avsync_torch.ops.precision import linear_f32
 
 
 class GRUWeights(NamedTuple):
@@ -43,9 +51,11 @@ class GRUWeights(NamedTuple):
     bias_hh: torch.Tensor  # (3H,)
 
 
-def input_projection(x: torch.Tensor, w: GRUWeights) -> torch.Tensor:
-    """(B, T, D) -> gi (B, T, 3H) = x @ weight_ih^T + bias_ih."""
-    return F.linear(x, w.weight_ih, w.bias_ih)
+def input_projection(x: torch.Tensor, w: GRUWeights,
+                     compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """(B, T, D) -> gi (B, T, 3H) = x @ weight_ih^T + bias_ih, float32 (from
+    operands rounded to `compute_dtype`)."""
+    return linear_f32(x, w.weight_ih, w.bias_ih, compute_dtype)
 
 
 class BiGRURecurrence(torch.autograd.Function):
@@ -69,13 +79,15 @@ class BiGRURecurrence(torch.autograd.Function):
 
 
 def bigru(x: torch.Tensor, fwd: GRUWeights, bwd: GRUWeights,
-          use_kernel: bool = False, tp=None) -> torch.Tensor:
-    """Bidirectional GRU: (B, T, D) -> (B, T, 2H) = [forward | backward];
-    with `tp` the weights are row shards, gathered as the module says."""
+          use_kernel: bool = False, tp=None,
+          compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Bidirectional GRU: (B, T, D) -> (B, T, 2H) = [forward | backward],
+    float32; with `tp` the weights are row shards, gathered as the module
+    says; `compute_dtype` bf16 rounds as the module says."""
     if tp is not None:
         x = tp.enter(x)
-    gi_f = input_projection(x, fwd)
-    gi_b = input_projection(x, bwd)
+    gi_f = input_projection(x, fwd, compute_dtype)
+    gi_b = input_projection(x, bwd, compute_dtype)
     if tp is not None:
         gi_f, gi_b = tp.gather(gi_f, -1), tp.gather(gi_b, -1)
         fwd, bwd = (w._replace(weight_hh=tp.gather(w.weight_hh, 0),
@@ -84,6 +96,8 @@ def bigru(x: torch.Tensor, fwd: GRUWeights, bwd: GRUWeights,
         return BiGRURecurrence.apply(gi_f, gi_b, fwd.weight_hh.t(), bwd.weight_hh.t(),
                                      fwd.bias_hh, bwd.bias_hh)
     return torch.cat([
-        gru_recurrence_ref(gi_f, fwd.weight_hh.t(), fwd.bias_hh, False),
-        gru_recurrence_ref(gi_b, bwd.weight_hh.t(), bwd.bias_hh, True),
+        gru_recurrence_ref(gi_f, fwd.weight_hh.t(), fwd.bias_hh, False,
+                           compute_dtype=compute_dtype),
+        gru_recurrence_ref(gi_b, bwd.weight_hh.t(), bwd.bias_hh, True,
+                           compute_dtype=compute_dtype),
     ], dim=-1)

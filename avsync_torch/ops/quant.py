@@ -202,9 +202,18 @@ def tflipnet_int8_apply(qp: QuantLipNetParams, x: torch.Tensor, cfg) -> torch.Te
     return F.log_softmax(F.linear(x, p["head.weight"], p["head.bias"]).float(), dim=-1)
 
 
+# The int8 forward under bf16 compute is not ported: the JAX package ends Q1
+# in a bf16 epilogue there and runs its recurrences' products in bf16.
+INT8_BF16_UNPORTED = ("--quantize int8 with --compute_dtype bfloat16: the int8 forward runs "
+                      "under float32 compute only (ROADMAP §1 item 14)")
+
+
 def make_int8_forward(model_cfg: ModelConfig):
     """`qfwd(qparams, video) -> log_probs`, the one family switch that eval
-    (`cli._evaluate`), infer and serving (`predictor.LipReader`) share."""
+    (`cli._evaluate`), infer and serving (`predictor.LipReader`) share.
+    Under bf16 compute it raises (`INT8_BF16_UNPORTED`)."""
+    if model_cfg.compute_dtype == "bfloat16":
+        raise NotImplementedError(INT8_BF16_UNPORTED)
     if model_cfg.family == "tf":
         from avsync_torch.models.lipnet_tf import tf_model_config
 

@@ -295,7 +295,7 @@ class LipReader:
     def _logprobs(self, clips: torch.Tensor) -> torch.Tensor:
         if len(self.replicas) > 1:
             return self._logprobs_dp(clips)
-        with torch.inference_mode():
+        with fp32_step(), torch.inference_mode():
             clips = clips.to(self.device)
             if self._quantize is None:
                 return self.model(clips)
@@ -313,7 +313,7 @@ class LipReader:
         """Data-parallel: contiguous blocks of rows, one per replica, each on
         its device (launched in turn, without waiting), back in row order."""
         blocks = torch.tensor_split(clips, len(self.replicas))
-        with torch.inference_mode():
+        with fp32_step(), torch.inference_mode():
             if self._quantize is not None:
                 if self._qparams is None:  # lazy calibration on the first input
                     qp = quantize_lipnet(self.model, [clips.to(self.device)])

@@ -16,7 +16,10 @@ not enough for training: it covers the forward call only, and autograd runs
 the conv's backward later, in `loss.backward()`, outside that `with`, under
 the process-wide `torch.backends.cudnn.allow_tf32`, which is True by
 default. Gradients of conv2/conv3 would then keep about 3 decimal digits
-where the JAX reference computes in fp32.
+where the JAX reference computes in fp32. Under `compute_dtype="bfloat16"`
+the model rounds where the JAX model does (`models/lipnet.py`); the
+parameters, their gradients, the clipping and Adam's state stay float32, and
+the step scope also makes cuBLAS reduce bf16 products in float32.
 
 Whole-epoch programs (`train_epoch_scanned`, the JAX trainer's
 `_scan_program`): a fully device-cached corpus (`LipNetBatcher.scan_plan`)
@@ -249,9 +252,6 @@ class LipNetTrainer:
         """`mesh`: the ranks' mesh; by default the config's `mesh_shape` over
         the process group when it has more than one rank, else none. The
         device defaults to the rank's (`multihost.initialize`)."""
-        if config.model.compute_dtype not in (None, "float32"):
-            raise NotImplementedError(f"compute_dtype={config.model.compute_dtype!r}: the "
-                                      "port computes in float32 only")
         if mesh is None and multihost.is_multiprocess():
             mesh = mesh_from_shape(config.train.mesh_shape)
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None

@@ -5,7 +5,8 @@
 
 Phases (any failure exits non-zero; no phase's failure is caught):
   1. card: nvidia-smi name and power limit, torch/CUDA versions, TF32 flags
-     (both set off: the port computes in full fp32);
+     (both set off: the port computes in full fp32) and cuBLAS's bf16
+     reduced-precision reduction (set off: bf16 products sum in f32);
   2. build: nvcc builds every kernel of the serving, training, detector and
      int8 serving paths from avsync_torch/csrc/ (one process per source,
      started together);
@@ -190,12 +191,36 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      processes with torchrun's variables on phase 5's corpus, rank 0's
      snapshot through a one-process `cli test`; `serve --dp 2`'s reader on
      two cards (or why not); the deterministic graph step beside PERF.md's;
-  15. the kernels: a text line with the state of every TPU kernel of the
+  15. bf16 compute (`--compute_dtype bfloat16`) at full width: a. K1-bf16
+     equal to its plain version bit for bit at B = 8 and 128, K4-bf16's
+     float32 sums within K4_TOL of its plain version's, a repeat of each the
+     same bits; both timed at B=8 beside the f32 kernels, cuDNN's bf16 block
+     and its autograd backward and the bf16 bound (989 TFLOP/s or the
+     bytes); b. the bf16 forward at B=8 (phase 4's seeded weights, K1-bf16
+     once, K2 twice) against the same module in bf16 on the CPU and the f32
+     forward on the card (mean |d log-prob| < 0.05, argmax agreement >=
+     0.95), both timed; c. `cli train --compute_dtype bfloat16` for 2 epochs
+     on phase 5's corpus (the second an epoch program over the device cache),
+     K1-K4 counted; the bf16 epoch program against its eager loop under
+     cudnn.deterministic bit for bit on phase 9's corpus, steps/s and the
+     idle share beside phase 9's f32 graph; the loss falling over 20 steps;
+     d. `cli test`, `infer`, `serve` (a child process under 16 crops,
+     transcripts equal an in-process bf16 reader's, SIGTERM drains) and
+     `export` (the artifact against the live bf16 reader at B = 1 and 8) in
+     bf16; `test --quantize int8 --compute_dtype bfloat16` refused naming
+     ROADMAP item 14; e. `misalign-train` (1 epoch) and `misalign-eval` with
+     bf16 conv features (K1-bf16 and K5 launch), the sync scorer bf16 vs
+     f32 (0.05); f. the TF family's bf16 forward at B=8 on phase 13's
+     trained snapshot against its f32 forward (the bounds of b), timed, and
+     1 epoch of `cli train --model_family tf --compute_dtype bfloat16`;
+  16. the kernels: a text line with the state of every TPU kernel of the
      JAX package (and Q1), and one JSON line with the measured numbers
      (launches from the training slices, the serving slices', the daemons',
      the graph replays', the front end's, the TF int8 daemon's and a DP
-     rank's step beside them; Q1's times at the TF blocks);
-  16. the card's name/power line, then the status JSON as the last line.
+     rank's step beside them; Q1's times at the TF blocks; K1's and K4's
+     bf16 instantiations as rows of their own, their launches from phase
+     15's bf16 training, forward and detector runs);
+  17. the card's name/power line, then the status JSON as the last line.
 
 Exits with 2 and prints no result without a GPU or outside a checkout.
 """
@@ -1845,10 +1870,10 @@ def pct(values, p):
     return v[min(len(v) - 1, int(p * (len(v) - 1)))]
 
 
-def same_transcripts(got, clips, reader, what):
+def same_transcripts(got, clips, reader, what, near_tie=NEAR_TIE):
     """Each served transcript equals the in-process reader's for its clip
     (batches of 8), except where the reader's top two log-probs of some frame
-    lie within NEAR_TIE (a batch of another size may round them the other
+    lie within `near_tie` (a batch of another size may round them the other
     way). Returns the near ties."""
     import numpy as np
 
@@ -1865,14 +1890,14 @@ def same_transcripts(got, clips, reader, what):
             margin = (top2[..., 0] - top2[..., 1]).cpu().numpy()
             for j, i in enumerate(idx):
                 if got[lo + i] != texts[j]:
-                    if not (margin[j] < NEAR_TIE).any():
+                    if not (margin[j] < near_tie).any():
                         raise SystemExit(f"{what}: request {lo + i} answered {got[lo + i]!r}, "
                                          f"the in-process reader {texts[j]!r}")
                     near.append(lo + i)
     return near
 
 
-def transcribe_load(url, clips, reader, what):
+def transcribe_load(url, clips, reader, what, near_tie=NEAR_TIE):
     """One /v1/transcribe request per clip from SERVE_THREADS threads: p50
     and p99 latency and clips/s; each transcript held against the
     in-process reader (`same_transcripts`)."""
@@ -1881,7 +1906,8 @@ def transcribe_load(url, clips, reader, what):
     bad = [a for a in answers if a[0] != 200]
     if bad:
         raise SystemExit(f"{what}: transcribe answered {bad[:3]}")
-    near = same_transcripts([a[1]["transcript"] for a in answers], clips, reader, what)
+    near = same_transcripts([a[1]["transcript"] for a in answers], clips, reader, what,
+                            near_tie)
     return {"p50_ms": pct(lat, 0.5), "p99_ms": pct(lat, 0.99), "clips_per_s": len(lat) / wall,
             "wall_s": wall, "near_ties": near}
 
@@ -4042,6 +4068,556 @@ def run_multi_device(dev, workdir, smi, k2_ms, graph_row, crops):
             "cp_launches": [p["launches"] for p in parts]}
 
 
+# ---------------------------------------------------------------------------
+# 15. bf16 compute
+# ---------------------------------------------------------------------------
+
+BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
+# bf16 against f32 on the same weights: the JAX package's nearest
+# reduced-precision bounds (tests/test_quant.py:135-137)
+BF16_MEAN_LOGPROB, BF16_ARGMAX = 0.05, 0.95
+# one bf16 function through another dispatch or batching (cuDNN may pick
+# another algorithm, so a float32 sum may round to the neighbouring bf16):
+# a logit's flipped rounding is one bf16 ulp, 2^-7 of its magnitude, 0.125
+# below |16|; transcripts may differ only where two log-probs lie that close
+BF16_NEAR_TIE = 0.125
+# a sync probability moves at most a quarter of its logit's change: 0.05
+# for a logit moved by 0.2 (bf16 conv statistics into an f32 MLP)
+BF16_PROB_ATOL = 0.05
+BF16_CRASH = "ROADMAP §1 item 14"  # what `--quantize int8` under bf16 names
+
+
+def bf16_bound_ms(n_bytes: float, n_ops: float):
+    """The least time: bytes over 3.35 TB/s or operations over the bf16
+    tensor-core rate, the larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def agreement(lp, ref, what, smi):
+    """mean |d log-prob| and argmax agreement of lp against ref, held to
+    the JAX package's reduced-precision bounds."""
+    import torch
+
+    mean = (lp.float() - ref.float()).abs().mean().item()
+    agree = (lp.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    worst = (lp.float() - ref.float()).abs().max().item()
+    print(f"  {what}: mean |d log-prob| {mean:.3e} (< {BF16_MEAN_LOGPROB}), argmax agreement "
+          f"{agree:.4f} (>= {BF16_ARGMAX}), max |d| {worst:.3e} [{smi}]", flush=True)
+    if not (mean < BF16_MEAN_LOGPROB and agree >= BF16_ARGMAX and torch.isfinite(lp).all()):
+        raise SystemExit(f"{what}: outside the JAX package's reduced-precision bounds")
+    return {"mean_abs": mean, "argmax_agreement": agree, "max_abs": worst}
+
+
+def bf16_kernels(dev, smi):
+    """15a: K1-bf16 equal to its plain version bit for bit at B = 8 and 128,
+    K4-bf16's float32 sums within K4_TOL of its plain version's, a repeat
+    launch of each the same bits; both timed at B=8 beside the f32 kernels,
+    cuDNN's bf16 block and its autograd backward, and the bf16 bound.
+    Returns the kernel line's two rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from avsync_torch.ops.conv import fp32_step
+    from avsync_torch.ops.cuda import convpool
+
+    bf = torch.bfloat16
+    g = torch.Generator(device="cpu").manual_seed(15)
+    print("bf16 phase: a. K1-bf16 and K4-bf16 (bf16 x, weights and cotangent, float32 "
+          "bias; avs_conv1_pool_bf16, avs_conv1_pool_bwd_bf16) vs their plain versions:",
+          flush=True)
+    k4_errs = []
+
+    def case(B):
+        x = torch.rand(B, 75, 50, 100, 1, generator=g).to(dev).to(bf)
+        w = ((torch.rand(3, 5, 5, 1, 32, generator=g) * 2 - 1) * 0.115).to(dev).to(bf)
+        b = ((torch.rand(32, generator=g) * 2 - 1) * 0.115).to(dev)
+        cot = torch.randn(B, 75, 25, 50, 32, generator=g).to(dev).to(bf)
+        return x, w, b, cot
+
+    for B in (8, 128):
+        x, w, b, cot = case(B)
+        x_n, w_n = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).contiguous()
+        got = convpool.conv1_pool_block(x_n, w_n, b)
+        want = convpool.conv1_pool_ref(x, w, b).permute(0, 4, 1, 2, 3)
+        torch.cuda.synchronize()
+        if got.dtype != bf or not torch.equal(got, want):
+            raise SystemExit(f"kernel check failed: K1-bf16 at B={B} differs from its plain "
+                             "version in some bit")
+        same_bits([got], [convpool.conv1_pool_block(x_n, w_n, b)], f"K1-bf16 B={B}")
+        print(f"  K1-bf16 B={B} T=75 50x100 C=32: equal to the plain version bit for bit",
+              flush=True)
+        del got, want
+        want = convpool.conv1_pool_bwd_ref(x, w, b, cot)
+        got = convpool.conv1_pool_bwd(x, w, b, cot)
+        for name, a, r in zip(("dkernel", "dbias"), got, want):
+            k4_errs.append(max_err(a, r, K4_TOL, f"K4-bf16 {name} B={B} (float32 sums)"))
+        same_bits(got, convpool.conv1_pool_bwd(x, w, b, cot), f"K4-bf16 B={B}")
+        del x, w, cot, got, want
+        torch.cuda.empty_cache()
+
+    B, T, H, W, C, taps = 8, 75, 50, 100, 32, 75
+    x, w, b, cot = case(B)
+    x_n, w_n, cot_n = (x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).contiguous(),
+                       cot.permute(0, 4, 1, 2, 3))
+    xf_n, wf_n, cotf_n = x_n.float(), w_n.float(), cot_n.float()
+
+    def library():
+        with fp32_step():
+            return F.max_pool3d(F.relu(F.conv3d(x_n, w_n, b.to(bf), padding=(1, 2, 2))),
+                                (1, 2, 2))
+
+    max_err(library().float(), convpool.conv1_pool_block(x_n, w_n, b).float(),
+            dict(atol=3e-2, rtol=1e-2), "cuDNN bf16 block vs K1-bf16 (yardstick sanity: the "
+            "bias added before the rounding)")
+    k1 = {"ms": time_ms(lambda: convpool.conv1_pool_block(x_n, w_n, b)),
+          "f32_ms": time_ms(lambda: convpool.conv1_pool_block(xf_n, wf_n, b)),
+          "plain_ms": time_ms(lambda: convpool.conv1_pool_ref(x, w, b)),
+          "library_ms": time_ms(library)}
+    n_pre = B * T * H * W * C
+    k1["bound_ms"], k1["bound_by"] = bf16_bound_ms(
+        2 * (B * T * H * W + w.numel() + B * T * (H // 2) * (W // 2) * C) + 4 * C,
+        n_pre * (2 * taps + 2))
+    wl, bl = w_n.clone().requires_grad_(), b.to(bf).requires_grad_()
+    with fp32_step():
+        y_lib = F.max_pool3d(F.relu(F.conv3d(x_n, wl, bl, padding=(1, 2, 2))), (1, 2, 2))
+
+    def library_bwd():
+        with fp32_step():
+            return torch.autograd.grad(y_lib, (wl, bl), cot_n, retain_graph=True)
+
+    library_bwd()
+    routed = int((convpool.conv1_pool_ref(x, w, b) > 0).sum().item())
+    k4 = {"ms": time_ms(lambda: convpool.conv1_pool_block_bwd(x_n, w_n, b, cot_n)),
+          "f32_ms": time_ms(lambda: convpool.conv1_pool_block_bwd(xf_n, wf_n, b, cotf_n)),
+          "plain_ms": time_ms(lambda: convpool.conv1_pool_bwd_ref(x, w, b, cot), iters=5,
+                              warmup=1),
+          "library_ms": time_ms(library_bwd)}
+    k4["bound_ms"], k4["bound_by"] = bf16_bound_ms(
+        2 * (B * T * H * W + B * T * (H // 2) * (W // 2) * C + taps * C) + 4 * (C + taps * C + C),
+        n_pre * (2 * taps + 2) + routed * (2 * taps + 1))
+    for name, row in (("K1-bf16", k1), ("K4-bf16", k4)):
+        print(f"  {name} B=8 T=75 50x100 C=32: kernel_ms={row['ms']:.4f} (f32 kernel "
+              f"{row['f32_ms']:.4f}, x{row['ms'] / row['f32_ms']:.3f}) plain_ms="
+              f"{row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} bound_ms="
+              f"{row['bound_ms']:.4f} ({row['bound_by']}, bf16 at 989 TFLOP/s) [{smi}]",
+              flush=True)
+    shape = "B=8 T=75 50x100 C=32 k=3x5x5, bf16 x/w/out, float32 bias"
+    return (dict(name="conv1_pool_bf16", route="cuda", source="avsync_torch/csrc/conv1_pool.cu",
+                 replaces="avsync/ops/pallas/convpool.py:100", max_abs_err=0.0, **k1,
+                 entry="avs_conv1_pool_bf16", shape=shape,
+                 library_note="cuDNN bf16 max_pool3d(relu(conv3d + bias))"),
+            dict(name="conv1_pool_bwd_bf16", route="cuda",
+                 source="avsync_torch/csrc/conv1_pool_bwd.cu",
+                 replaces="avsync/ops/pallas/convpool.py:244", max_abs_err=max(k4_errs), **k4,
+                 entry="avs_conv1_pool_bwd_bf16", shape=shape + ", bf16 cotangent",
+                 library_note="torch.autograd.grad of the cuDNN bf16 block w.r.t. (w, b)"))
+
+
+def bf16_forward(dev, smi):
+    """15b: the bf16 LipNet forward at B=8 with K1 and K2 on (phase 4's
+    seeded weights): one K1 and two K2 launches; against the same module in
+    bf16 on the CPU and against the f32 forward on the card within the JAX
+    package's reduced-precision bounds; its time beside the f32 forward's."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from avsync_torch.config import AvsyncConfig, DataConfig, ModelConfig
+    from avsync_torch.predictor import LipReader
+
+    cfg = AvsyncConfig(data=DataConfig(), model=ModelConfig(use_pallas_gru=True,
+                                                            fused_conv_pool=True))
+    cfg16 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                               compute_dtype="bfloat16"))
+    params = seeded_jax_layout_params(cfg, seed=0)
+    f32 = LipReader(params=params, config=cfg, device=dev)
+    r16 = LipReader(params=params, config=cfg16, device=dev)
+    frames = np.random.default_rng(15).integers(0, 256, (8, 75, 50, 100), dtype=np.uint8)
+    x = r16.preprocess_device(frames)
+    zero_counts()
+    lp16 = r16._logprobs(x)
+    torch.cuda.synchronize()
+    got = counts()
+    want = {"conv1_pool": 1, "gru_fwd": 2, "gru_bwd": 0, "conv1_pool_bwd": 0, "mel_stats": 0}
+    print(f"bf16 phase: b. the bf16 forward B=8 (K1-bf16 and K2 on): launches {got} "
+          f"(expected {want})", flush=True)
+    if got != want or lp16.dtype != torch.float32:
+        raise SystemExit("the bf16 forward's launches or output dtype are wrong")
+    row = {"vs_f32": agreement(lp16, f32._logprobs(x), "bf16 vs f32 forward on the card", smi)}
+    cpu = copy.deepcopy(r16.model).cpu()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want_cpu = cpu(x.cpu())
+    row["cpu_s"] = time.perf_counter() - t0
+    row["vs_cpu"] = agreement(lp16.cpu(), want_cpu, "bf16 forward on the card vs the same "
+                              f"module in bf16 on the CPU ({row['cpu_s']:.1f} s)", smi)
+    del cpu, want_cpu
+    row["bf16_ms"] = time_ms(lambda: r16._logprobs(x), iters=10)
+    row["f32_ms"] = time_ms(lambda: f32._logprobs(x), iters=10)
+    print(f"  forward B=8 T=75 (CUDA events, median of 10): bf16 {row['bf16_ms']:.3f} ms, "
+          f"f32 {row['f32_ms']:.3f} ms [{smi}]", flush=True)
+    return row, got
+
+
+def bf16_train(dev, workdir, smi, f32_graph):
+    """15c: `cli train --compute_dtype bfloat16` for 2 epochs on phase 5's
+    corpus (the second an epoch program over the device cache): K1-K4 launch
+    as counted; the bf16 epoch program against its eager loop under
+    cudnn.deterministic (bit for bit), steps/s and the idle share beside
+    phase 9's f32 graph step; the loss falling over 20 steps on one repeated
+    batch. Returns the snapshot and the launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from avsync_torch import cli
+    from avsync_torch.config import AvsyncConfig, DataConfig, ModelConfig, TrainConfig
+    from avsync_torch.data.grid import GridDataSource, split_speakers
+    from avsync_torch.data.pipeline import LipNetBatcher
+    from avsync_torch.models.lipnet import LipNet
+    from avsync_torch.train.lipnet_trainer import (LipNetTrainer, device_batch, make_optimizer,
+                                                   train_step)
+    from avsync_torch.utils.checkpoint import CheckpointManager
+    from avsync_torch.utils.logging import Logger
+
+    data, cfg_path = os.path.join(workdir, "grid"), os.path.join(workdir, "config.json")
+    ck = os.path.join(workdir, "ckpt_bf16")
+    cfg = cli._config(cfg_path)
+    splits = split_speakers(GridDataSource(data).speakers, cfg.data.split)
+    n_train, n_val, n_test = (len(GridDataSource(data, sp)) for sp in splits)
+    bsz = cfg.data.batch_size
+    steps = n_train // bsz
+    val_b, test_b = -(-n_val // bsz), -(-n_test // bsz)
+    zero_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["train", "--data_path", data, "--config", cfg_path, "--epochs", "2",
+                   "--checkpoint_dir", ck, "--compute_dtype", "bfloat16"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    plain = steps + program_wrapper_calls(steps, 1)  # epoch 1 streamed, epoch 2 a program
+    fwd = 2 * val_b + test_b  # validation per epoch, the command's test pass
+    want = {"conv1_pool": plain + fwd, "gru_fwd": 2 * (plain + fwd), "gru_bwd": 2 * plain,
+            "conv1_pool_bwd": plain, "mel_stats": 0}
+    payload, meta = CheckpointManager(ck).restore()
+    with open(os.path.join(ck, "history.json")) as f:
+        hist = json.load(f)
+    print(f"bf16 phase: c. cli train --compute_dtype bfloat16, 2 epochs on phase 5's corpus "
+          f"(epoch 2 an epoch program over the device cache): rc={rc} wall_s={wall:.2f}; "
+          f"loss {hist['loss']} val_loss {hist['val_loss']}; launches {got} (expected {want}); "
+          f"snapshot compute_dtype {meta['config']['model']['compute_dtype']!r}, parameters "
+          f"{sorted({str(v.dtype) for v in payload['model_state_dict'].values()})}", flush=True)
+    if (rc != 0 or got != want or meta["config"]["model"]["compute_dtype"] != "bfloat16"
+            or any(v.dtype != torch.float32 for v in payload["model_state_dict"].values())
+            or not np.all(np.isfinite(hist["loss"] + hist["val_loss"]))):
+        raise SystemExit("cli train --compute_dtype bfloat16 left the wrong launches, "
+                         "snapshot or history")
+
+    # the epoch program against its eager loop, bit for bit (phase 9's corpus)
+    root = os.path.join(workdir, "programs")
+    quiet = Logger(None, console=False)
+    pcfg = AvsyncConfig(data=DataConfig(data_path=root, device_cache="on"),
+                        model=ModelConfig(use_pallas_gru=True, fused_conv_pool=True,
+                                          dropout_rate=0.5, compute_dtype="bfloat16"),
+                        train=TrainConfig(seed=3))
+    batcher = LipNetBatcher(GridDataSource(root), pcfg, device=dev)
+    def lipnet_run(path):
+        trainer = LipNetTrainer(pcfg, device=dev, log=quiet)
+        state, log = trainer.init_state(), StepLog()
+
+        def epoch(e):
+            if path == "graph":
+                return trainer.train_epoch_scanned(
+                    state, batcher.scan_plan(shuffle=True, seed=e), metrics_writer=log)
+            return trainer.train_epoch(state, batcher.epoch(shuffle=True, seed=e),
+                                       metrics_writer=log)
+
+        return trainer, state, log, epoch
+
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        runs = {path: lipnet_run(path) for path in ("graph", "loop")}
+        for path in ("graph", "loop"):
+            for e in (1, 2):
+                runs[path][3](e)
+        (trainer, sg, lg, epoch), (_, sl, ll, _) = runs["graph"], runs["loop"]
+        same_state(sg, sl, "bf16 LipNet dropout 0.5")
+        if lg.rows != ll.rows:
+            raise SystemExit("bf16 LipNet: the program's losses or gradient norms differ from "
+                             "the loop's")
+        n_rows, S = len(lg.rows), len(lg.rows) // 2
+        del runs["loop"], sl
+        # the graph's epoch 3 timed, epoch 4 traced: replays only
+        stamps = timed_before(trainer)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        epoch(3)
+        torch.cuda.synchronize()
+        twall_ms = (time.perf_counter() - t0) * 1e3
+        gaps = list(stamps)
+        _, tw, busy, found, _ = traced(lambda: epoch(4))
+        row = path_times(f"bf16 LipNet graph path B=8 S={S} dropout 0.5 (cudnn.deterministic; "
+                         "epoch 3 timed, epoch 4 traced)", S, twall_ms, tw, busy, gaps)
+        row["replayed"] = found
+        del runs
+    print(f"  bf16 epoch program vs eager loop, 2 epochs of S={S}, cudnn.deterministic: "
+          f"parameters, Adam state and {n_rows} losses and gradient norms equal "
+          f"bit for bit; kernels in the traced replayed epoch {row['replayed']}; the f32 "
+          f"graph step in this call (phase 9) {f32_graph['wall_ms_per_step']:.4f} ms, idle "
+          f"{f32_graph['idle_share']:.4f}; PR 14's 78.6198-78.6836 [{smi}]", flush=True)
+
+    # the loss falls on one repeated batch
+    batch = device_batch(batcher.first_batch(), dev)
+    model = LipNet(dataclasses.replace(pcfg.model, dropout_rate=0.0),
+                   generator=torch.Generator().manual_seed(4)).to(dev)
+    opt = make_optimizer(model.parameters(), OVERFIT_LR)
+    first = train_step(model, opt, batch, OVERFIT_LR)[0].item()
+    for _ in range(OVERFIT_STEPS - 2):
+        train_step(model, opt, batch, OVERFIT_LR)
+    last = train_step(model, opt, batch, OVERFIT_LR)[0].item()
+    print(f"  bf16 repeated batch, lr {OVERFIT_LR}, {OVERFIT_STEPS} steps: loss {first:.4f} -> "
+          f"{last:.4f}", flush=True)
+    if not last < first:
+        raise SystemExit("the bf16 loss did not fall over the repeated batch")
+    row.update(cli_train_wall_s=wall, overfit=[first, last])
+    return ck, got, row
+
+
+def bf16_commands(dev, workdir, smi, ck):
+    """15d: `cli test`, `infer`, `serve` (a child process under 16 crops:
+    transcripts equal an in-process bf16 LipReader's, SIGTERM drains) and
+    `export` (the artifact against the live bf16 reader at B = 1 and 8) with
+    `--compute_dtype bfloat16` on the bf16 snapshot; `test --quantize int8
+    --compute_dtype bfloat16` refused, naming its ROADMAP item."""
+    import contextlib
+    import dataclasses
+    import glob
+    import io
+
+    import numpy as np
+
+    from avsync_torch import cli
+    from avsync_torch.export import load_exported
+    from avsync_torch.predictor import LipReader
+
+    data, cfg_path = os.path.join(workdir, "grid"), os.path.join(workdir, "config.json")
+    cfg = cli._config(cfg_path)
+    cfg16 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                               compute_dtype="bfloat16"))
+    r16 = LipReader(checkpoint=ck, config=cfg16, device=dev)
+    common = ["--config", cfg_path, "--checkpoint", ck, "--compute_dtype", "bfloat16"]
+    out = {}
+    results = os.path.join(workdir, "results_bf16.json")
+    clip = sorted(glob.glob(os.path.join(data, "*", "video", "*.npy")))[0]
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        rc = [cli.main(["test", "--data_path", data, *common, "--output", results]),
+              cli.main(["infer", clip, *common])]
+    with open(results) as f:
+        out["test"] = json.load(f)
+    pred = [ln.split(":", 1)[1].strip() for ln in said.getvalue().splitlines()
+            if ln.startswith("Predicted:")]
+    want_pred = r16.predict_frames(np.load(clip))
+    print(f"bf16 phase: d. cli test / infer --compute_dtype bfloat16 on the bf16 snapshot: "
+          f"rc {rc}; test {json.dumps(out['test'])}; infer {pred} (in-process bf16 reader "
+          f"{want_pred!r})", flush=True)
+    if rc != [0, 0] or not np.isfinite(out["test"]["cer"]) or pred != [want_pred]:
+        raise SystemExit("cli test/infer --compute_dtype bfloat16 failed")
+
+    geom = (cfg.data.max_video_length, cfg.data.img_height, cfg.data.img_width)
+    crops = [np.random.default_rng(100 + i).integers(0, 256, geom, dtype=np.uint8)
+             for i in range(16)]
+    t0 = time.perf_counter()
+    daemon = Daemon([*common, "--port", "0", "--warmup", "--max_batch", str(MAX_BATCH)])
+    try:
+        up = time.perf_counter() - t0
+        row = transcribe_load(daemon.url, crops, r16, "bf16 daemon", near_tie=BF16_NEAR_TIE)
+        pending = sigterm_drain(daemon, crops[0])
+    finally:
+        daemon.kill()
+    out["daemon"] = dict(row, start_s=up, drained_in_flight=pending)
+    print(f"  serve --compute_dtype bfloat16 as a child process, 16 crops from {SERVE_THREADS} "
+          f"threads: p50_ms={row['p50_ms']:.3f} p99_ms={row['p99_ms']:.3f} clips_per_s="
+          f"{row['clips_per_s']:.3f}, transcripts equal the in-process bf16 reader's (near "
+          f"ties within {BF16_NEAR_TIE}: {row['near_ties']}); up in {up:.1f} s; SIGTERM with "
+          f"{pending} of 16 in flight: all 200, exit 0 [{smi}]", flush=True)
+
+    art_path = os.path.join(workdir, "bf16_transcriber.zip")
+    t0 = time.perf_counter()
+    if cli.main(["export", *common, "--out", art_path]) != 0:
+        raise SystemExit("cli export --compute_dtype bfloat16 failed")
+    export_s = time.perf_counter() - t0
+    art = load_exported(art_path)
+    errs = {}
+    for B in (1, 8):
+        frames = np.stack(crops[:B])
+        want_lp = r16._logprobs(r16.preprocess_device(frames)).cpu().numpy()
+        errs[B] = float(np.abs(art.call(frames)[2] - want_lp).max())
+    out["export"] = {"export_s": export_s, "bytes": os.path.getsize(art_path),
+                     "max_abs_err": errs}
+    print(f"  cli export --compute_dtype bfloat16: {json.dumps(out['export'])} against the live "
+          f"bf16 reader (tol {BF16_NEAR_TIE}) [{smi}]", flush=True)
+    if any(e > BF16_NEAR_TIE for e in errs.values()):
+        raise SystemExit("the bf16 artifact differs from the live bf16 reader")
+
+    try:
+        cli.main(["test", "--data_path", data, *common, "--quantize", "int8"])
+    except NotImplementedError as e:
+        refused = str(e)
+    else:
+        raise SystemExit("test --quantize int8 --compute_dtype bfloat16 was not refused")
+    print(f"  test --quantize int8 --compute_dtype bfloat16: NotImplementedError({refused!r})",
+          flush=True)
+    if BF16_CRASH not in refused:
+        raise SystemExit("the int8-under-bf16 refusal does not name its ROADMAP item")
+    return out
+
+
+def bf16_detector(dev, workdir, smi):
+    """15e: `cli misalign-train` (1 epoch) and `misalign-eval` with bf16 conv
+    features on phase 8's corpus, config and LipNet (K1-bf16 and K5 launch,
+    no other kernel); the sync scorer in bf16 against f32 on phase 8's
+    detector, probabilities within BF16_PROB_ATOL."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from avsync_torch import cli
+    from avsync_torch.predictor import MisalignmentScorer
+
+    data, ck = os.path.join(workdir, "grid"), os.path.join(workdir, "ckpt")
+    cfg_path = os.path.join(workdir, "detector_config.json")
+    det16 = os.path.join(workdir, "detector_bf16.pth")
+    common = ["--data_path", data, "--config", cfg_path, "--checkpoint", ck,
+              "--compute_dtype", "bfloat16"]
+    zero_counts()
+    t0 = time.perf_counter()
+    rc = [cli.main(["misalign-train", *common, "--detector_checkpoint", det16, "--epochs", "1",
+                    "--log_dir", os.path.join(workdir, "det_logs_bf16")]),
+          cli.main(["misalign-eval", *common, "--detector_checkpoint", det16, "--min_shift", "5",
+                    "--max_shift", "20", "--output", os.path.join(workdir, "sweep_bf16.json")])]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    with open(os.path.join(workdir, "sweep_bf16.json")) as f:
+        sweep = json.load(f)
+    print(f"bf16 phase: e. misalign-train (1 epoch) + misalign-eval --compute_dtype bfloat16: "
+          f"rc {rc} wall_s={wall:.2f}; launches {got} (K1-bf16 for the banks, K5 for the "
+          f"steps and sweep rows, nothing else); overall AUROC {sweep['overall_auroc']:.4f}",
+          flush=True)
+    if (rc != [0, 0] or not got["conv1_pool"] or not got["mel_stats"] or got["gru_fwd"]
+            or got["gru_bwd"] or got["conv1_pool_bwd"] or not np.isfinite(sweep["overall_auroc"])):
+        raise SystemExit("the bf16 detector commands failed or launched the wrong kernels")
+    cfg = cli._config(cfg_path)
+    det = os.path.join(workdir, "detector.pth")  # phase 8's trained detector
+    f32 = MisalignmentScorer(det, ck, config=cfg, device=dev)
+    s16 = MisalignmentScorer(det, ck, device=dev, config=dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, compute_dtype="bfloat16")))
+    r = np.random.default_rng(151)
+    probs = []
+    for i in range(4):
+        frames = r.integers(0, 256, (cfg.data.max_video_length, cfg.data.img_height,
+                                     cfg.data.img_width), dtype=np.uint8)
+        audio = (0.3 * r.standard_normal(48000)).astype(np.float32)
+        probs.append((s16.score_arrays(frames, audio, 25.0, DET_SHIFTS),
+                      f32.score_arrays(frames, audio, 25.0, DET_SHIFTS)))
+    d = max(float(np.abs(a - b).max()) for a, b in probs)
+    print(f"  sync scorer bf16 vs f32, 4 requests x {len(DET_SHIFTS)} shifts: max |d prob| "
+          f"{d:.3e} (tol {BF16_PROB_ATOL}) [{smi}]", flush=True)
+    if d > BF16_PROB_ATOL or not all(np.isfinite(a).all() for a, _ in probs):
+        raise SystemExit("the bf16 sync scorer is outside its bound")
+    return got, {"misalign_wall_s": wall, "auroc": sweep["overall_auroc"], "scorer_max_abs": d}
+
+
+def bf16_tf(dev, tf_dir, smi, f32_ms):
+    """15f: the TF family's bf16 forward at B=8 on phase 13's trained
+    snapshot against its f32 forward (the bounds of 15b), its time beside
+    phase 13's f32 forward; one epoch of `cli train --model_family tf
+    --compute_dtype bfloat16`."""
+    import dataclasses
+    import glob
+
+    import numpy as np
+    import torch
+
+    from avsync_torch import cli
+    from avsync_torch.predictor import LipReader
+    from avsync_torch.utils.checkpoint import CheckpointManager
+
+    cfg_path, ck = os.path.join(tf_dir, "tf_config.json"), os.path.join(tf_dir, "tf_ckpt")
+    corpus = os.path.join(tf_dir, "tf_grid")
+    cfg = cli._config(cfg_path)
+    cfg16 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                               compute_dtype="bfloat16"))
+    f32 = LipReader(checkpoint=ck, config=cfg, device=dev)
+    r16 = LipReader(checkpoint=ck, config=cfg16, device=dev)
+    frames = np.stack([np.load(p) for p in sorted(glob.glob(
+        os.path.join(corpus, "*", "video", "*.npy")))[:8]])
+    x = r16.preprocess_device(frames)
+    print("bf16 phase: f. the TF family:", flush=True)
+    row = {"vs_f32": agreement(r16._logprobs(x), f32._logprobs(x),
+                               "TF bf16 vs f32 forward B=8 (phase 13's trained snapshot)", smi)}
+    row["bf16_ms"] = time_ms(lambda: r16._logprobs(x), iters=5, warmup=1)
+    row["f32_ms_phase13"] = f32_ms
+    print(f"  TF forward B=8 (CUDA events, median of 5): bf16 {row['bf16_ms']:.3f} ms; f32 "
+          f"{f32_ms:.3f} ms in phase 13 [{smi}]", flush=True)
+    del f32, r16
+    ck16 = os.path.join(tf_dir, "tf_ckpt_bf16")
+    zero_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["train", "--data_path", corpus, "--config", cfg_path, "--model_family", "tf",
+                   "--compute_dtype", "bfloat16", "--epochs", "1", "--checkpoint_dir", ck16])
+    torch.cuda.synchronize()
+    row["train_wall_s"] = time.perf_counter() - t0
+    got = counts()
+    _, meta = CheckpointManager(ck16).restore()
+    with open(os.path.join(ck16, "history.json")) as f:
+        hist = json.load(f)
+    print(f"  cli train --model_family tf --compute_dtype bfloat16, 1 epoch: rc={rc} wall_s="
+          f"{row['train_wall_s']:.2f}; loss {hist['loss']} val_loss {hist['val_loss']}; "
+          f"snapshot compute_dtype {meta['config']['model']['compute_dtype']!r}; hand-kernel "
+          f"launches {got} (none: the TF stack's convs are past K1's gate)", flush=True)
+    if (rc != 0 or meta["config"]["model"]["compute_dtype"] != "bfloat16" or any(got.values())
+            or not np.all(np.isfinite(hist["loss"]))):
+        raise SystemExit("cli train --model_family tf --compute_dtype bfloat16 failed")
+    return row
+
+
+def run_bf16(dev, workdir, tf_dir, smi, f32_graph, tf_f32_ms):
+    """Phase 15: `compute_dtype="bfloat16"` at full width: a. K1-bf16 and
+    K4-bf16 against their plain versions and timed; b. the forward; c.
+    training, the program against the loop; d. the other commands; e. the
+    detector; f. the TF family. Returns the kernel rows and the numbers."""
+    import torch
+
+    k1, k4 = bf16_kernels(dev, smi)
+    out = {}
+    out["forward"], served = bf16_forward(dev, smi)
+    ck, trained, out["train"] = bf16_train(dev, workdir, smi, f32_graph)
+    out["commands"] = bf16_commands(dev, workdir, smi, ck)
+    detector, out["detector"] = bf16_detector(dev, workdir, smi)
+    out["tf"] = bf16_tf(dev, tf_dir, smi, tf_f32_ms)
+    torch.cuda.empty_cache()
+    k1.update(launches=trained["conv1_pool"], launches_forward=served["conv1_pool"],
+              launches_detector=detector["conv1_pool"],
+              launches_graph_replay_epoch=out["train"]["replayed"]["conv1_pool"])
+    k4.update(launches=trained["conv1_pool_bwd"],
+              launches_graph_replay_epoch=out["train"]["replayed"]["conv1_pool_bwd"])
+    for k in (k1, k4):
+        if not k["launches"] or not k["launches_graph_replay_epoch"]:
+            raise SystemExit(f"{k['name']} was not launched on the bf16 training path")
+    if not k1["launches_forward"] or not k1["launches_detector"]:
+        raise SystemExit("conv1_pool_bf16 was not launched on the bf16 serving or detector path")
+    print(f"  bf16 phase numbers [{smi}]: {json.dumps(out)}", flush=True)
+    return k1, k4, trained, out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "avsync_torch", "csrc")):
         print("chip_smoke: run from a checkout of the repository (avsync_torch/ missing)",
@@ -4055,6 +4631,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
@@ -4064,7 +4641,9 @@ def main() -> int:
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
     print(f"tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
+          f"cudnn={torch.backends.cudnn.allow_tf32}; bf16 reduced-precision reduction in "
+          f"cuBLAS: {torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}",
+          flush=True)
 
     from avsync_torch.ops.cuda import build
 
@@ -4115,6 +4694,11 @@ def main() -> int:
         t14 = time.perf_counter()
         multi = run_multi_device(dev, workdir, smi, k2["ms"], programs["lipnet"]["graph"], crops)
         print(f"multi-device phase: {time.perf_counter() - t14:.1f} s", flush=True)
+        t15 = time.perf_counter()
+        k1_16, k4_16, trained16, bf16 = run_bf16(dev, workdir, tf_dir, smi,
+                                                 programs["lipnet"]["graph"],
+                                                 tf["forward"]["f32_forward_B8_ms"])
+        print(f"bf16 phase: {time.perf_counter() - t15:.1f} s", flush=True)
     for k in (k1, k2, k3, k4):
         k["launches"] = trained[k["name"]]
     k5["launches"], k5["launches_serving"] = detector["mel_stats"], served["mel_stats"]
@@ -4156,6 +4740,10 @@ def main() -> int:
             raise SystemExit(f"{k['name']} was not launched on a data-parallel rank's step")
     k2["launches_cp_per_rank"] = multi["cp_launches"]
     k2["initial_state"] = "h0: the CP chain's handed-off state"
+    for k in (k2, k3):  # phase 15's own path: bf16 training feeds them float32 gi
+        k["launches_bf16_train"] = trained16[k["name"]]
+        if not k["launches_bf16_train"]:
+            raise SystemExit(f"{k['name']} was not launched on the bf16 training path")
     for k in (k1, k2, k3, k4, k5, q1):
         if not k["launches"] or k.get("launches_serving") == 0 or any(
                 k.get(f"launches_daemon_{w}", {"launches": 1})["launches"] == 0
@@ -4163,6 +4751,9 @@ def main() -> int:
             raise SystemExit(f"{k['name']} was not launched on its main path")
     print(f"epoch programs: {json.dumps(programs)}", flush=True)
     print(f"multi-device: {json.dumps(multi['times'])} [{smi}]", flush=True)
+    print(f"bf16: forward {json.dumps(bf16['forward'])}; graph step "
+          f"{bf16['train']['wall_ms_per_step']:.4f} ms, idle {bf16['train']['idle_share']:.4f} "
+          f"[{smi}]", flush=True)
 
     print("kernels: K1 conv1_pool_fused (avsync/ops/pallas/convpool.py:100)=ported+checked; "
           "K2 pallas_gru_scan (avsync/ops/pallas/gru.py:357)=ported+checked; "
@@ -4171,12 +4762,15 @@ def main() -> int:
           "K5 pallas_mel_stats (avsync/ops/pallas/mfcc.py:60)=ported+checked; "
           "Q1 int8_conv_pool (no pallas_call: the int8 lax.conv_general_dilated of "
           "quant_conv_block, avsync/ops/quant.py:97)=ported+checked, also at the TF "
-          "stack's blocks (tflipnet_int8_apply, avsync/ops/quant.py:208)", flush=True)
+          "stack's blocks (tflipnet_int8_apply, avsync/ops/quant.py:208); under "
+          "compute_dtype bfloat16 (PR 15) K1 and K4 run their bf16 instantiations "
+          "(conv1_pool_bf16, conv1_pool_bwd_bf16)=ported+checked, K2/K3/K5 unchanged (f32 in "
+          "the JAX package too), Q1 under bf16 not ported (ROADMAP item 14)", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [{**{k: d[k] for k in keys},
                          **{k: v for k, v in d.items() if k not in keys}}
-                        for d in (k1, k2, k3, k4, k5, q1)]}
+                        for d in (k1, k2, k3, k4, k5, q1, k1_16, k4_16)]}
     print(json.dumps(line), flush=True)
     if any(m.split(".")[0] in ("jax", "flax", "avsync") for m in sys.modules):
         raise SystemExit("the port pulled in jax or the avsync package")

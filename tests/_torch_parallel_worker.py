@@ -23,10 +23,10 @@ TINY = dict(vocab_size=39, hidden_dim=8, conv_channels=(2, 3, 4),
 LR = 1e-3
 
 
-def lipnet_config(family: str = "pytorch", T: int = 12):
+def lipnet_config(family: str = "pytorch", T: int = 12, compute_dtype: str = "float32"):
     from avsync_torch.config import AvsyncConfig, DataConfig, ModelConfig, TrainConfig
 
-    model = dict(TINY)
+    model = dict(TINY, compute_dtype=compute_dtype)
     if family == "tf":
         model.update(family="tf", conv_kernels=((3, 3, 3),) * 3)
     return AvsyncConfig(model=ModelConfig(**model),
@@ -74,7 +74,7 @@ def _local(batch: dict, mesh) -> dict:
 
 
 def dp_steps(rank: int, out: str, name: str, shape, weights, batch, family="pytorch",
-             steps: int = 3, grads: bool = False) -> None:
+             steps: int = 3, grads: bool = False, compute_dtype: str = "float32") -> None:
     """`steps` train steps on the global `batch` over a mesh of `shape`: the
     losses, each step's local parameters (for the replicas' bits), the whole
     parameters after the last step, the Adam moments' shapes and, with
@@ -83,7 +83,7 @@ def dp_steps(rank: int, out: str, name: str, shape, weights, batch, family="pyto
     from avsync_torch.parallel.mesh import mesh_from_shape
     from avsync_torch.train.lipnet_trainer import _forward_backward, device_batch, train_step
 
-    cfg = lipnet_config(family, T=batch["video"].shape[1])
+    cfg = lipnet_config(family, T=batch["video"].shape[1], compute_dtype=compute_dtype)
     mesh = mesh_from_shape(shape)
     tr, st = _trainer(cfg, mesh, weights)
     local = device_batch(_local(batch, mesh), tr.device)
@@ -208,6 +208,12 @@ def world2(rank: int, out: str, inputs: dict) -> None:
     dp_steps(rank, out, "dp2", (2, 1), inputs["weights"], inputs["batch"], grads=True)
     dp_program(rank, out, inputs["weights"])
     detector_epochs(rank, out, *inputs["detector"])
+
+
+def bf16_world2(rank: int, out: str, inputs: dict) -> None:
+    """tests/test_torch_bf16.py: DP (2, 1) train steps under bf16 compute."""
+    dp_steps(rank, out, "bf16_dp2", (2, 1), inputs["weights"], inputs["batch"], grads=True,
+             compute_dtype="bfloat16")
 
 
 def world4(rank: int, out: str, inputs: dict) -> None:

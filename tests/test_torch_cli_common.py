@@ -68,12 +68,17 @@ def test_explicit_flags_win_over_the_config_file(command, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [(["--distributed"], "item 8"),
-                                        (["--compute_dtype", "bfloat16"], "item 9")])
+                                        (["--compute_dtype", "bfloat16"], "item 14")])
 def test_unported_values_raise_naming_their_item(flags, item, tmp_path, capsys):
     # --distributed is ported for `train`: on another command it exits 2 with
-    # the JAX package's message (avsync/cli.py:1520-1531); bfloat16 still raises
+    # the JAX package's message (avsync/cli.py:1520-1531); bfloat16 is ported
+    # and raises only with the int8 forward (misalign-train has no --quantize)
     for command in ("test", "serve", "misalign-train"):
         extra, _ = COMMANDS[command]
+        if item == "item 14":
+            if command == "misalign-train":
+                continue
+            extra = [*extra, "--quantize", "int8"]
         argv = [command, *extra, "--data_path", str(tmp_path), "--device", "cpu", *flags]
         if flags == ["--distributed"]:
             assert cli.main(argv) == 2

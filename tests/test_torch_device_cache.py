@@ -167,8 +167,9 @@ def test_cache_dtype_and_budget_resolution(tmp_path):
         _batcher(root, _with(cfg, device_cache_dtype="bfloat16"))
     with pytest.raises(ValueError, match="device_cache_dtype"):
         _batcher(root, _with(cfg, device_cache_dtype="uint8"))
-    with pytest.raises(NotImplementedError, match="float32"):
-        _batcher(root, dataclasses.replace(cfg, model=ModelConfig(compute_dtype="bfloat16")))
+    # bf16 compute: 'auto' stores bf16 (the model rounds its input first thing)
+    assert _batcher(root, dataclasses.replace(cfg, model=ModelConfig(compute_dtype="bfloat16"))
+                    )._cache_dtype() == torch.bfloat16
     _batcher(root, _with(cfg, device_cache="off", device_cache_dtype="uint8"))  # never read
 
 

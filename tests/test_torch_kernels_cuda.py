@@ -84,6 +84,91 @@ def test_conv1_pool_equals_plain_bit_for_bit_at_full_width(dev):
     assert torch.equal(got, convpool.conv1_pool_ref(x, w, b).permute(0, 4, 1, 2, 3))
 
 
+@pytest.mark.parametrize("B,T,H,W,k,C", [
+    (8, 75, 50, 100, (3, 5, 5), 32), (128, 75, 50, 100, (3, 5, 5), 32),
+    (3, 7, 10, 18, (3, 3, 3), 5), (2, 5, 54, 102, (3, 5, 5), 32),
+    (1, 2, 20, 200, (3, 5, 5), 9)])
+def test_conv1_pool_bf16_equals_plain_bit_for_bit(dev, B, T, H, W, k, C):
+    """K1-bf16 (bf16 x, weights and output, float32 bias) sums the widened
+    inputs in the float kernel's fmaf order and rounds once: its plain
+    version's bits in both layouts, a repeat the same, one launch each."""
+    g = _gen(21)
+    x = torch.rand(B, T, H, W, 1, generator=g).to(dev).to(torch.bfloat16)
+    w = (torch.rand(*k, 1, C, generator=g) - 0.5).to(dev).to(torch.bfloat16)
+    b = (torch.rand(C, generator=g) - 0.5).to(dev)
+    want = convpool.conv1_pool_ref(x, w, b)
+    before = convpool.launches
+    got = convpool.conv1_pool_fused(x, w, b)
+    got_n = convpool.conv1_pool_block(x.permute(0, 4, 1, 2, 3),
+                                      w.permute(4, 3, 0, 1, 2).contiguous().float(), b)
+    torch.cuda.synchronize()
+    assert convpool.launches == before + 2
+    assert got.dtype == got_n.dtype == torch.bfloat16
+    assert torch.equal(got, want) and torch.equal(got_n, want.permute(0, 4, 1, 2, 3))
+
+
+@pytest.mark.parametrize("B,T,H,W,k,C", [
+    (8, 75, 50, 100, (3, 5, 5), 32), (128, 75, 50, 100, (3, 5, 5), 32),
+    (3, 7, 10, 18, (3, 3, 3), 5), (2, 5, 54, 102, (3, 5, 5), 32)])
+def test_conv1_pool_bwd_bf16_matches_plain(dev, B, T, H, W, k, C):
+    """K4-bf16's float32 dW and db (bf16 x, weights and cotangent) within
+    K4_TOL of its plain version's sums; a repeat gives the same bits; the
+    model's Function rounds dW to bf16 once."""
+    g = _gen(22)
+    x = torch.rand(B, T, H, W, 1, generator=g).to(dev).to(torch.bfloat16)
+    w = (torch.rand(*k, 1, C, generator=g) - 0.5).to(dev).to(torch.bfloat16)
+    b = (torch.rand(C, generator=g) - 0.5).to(dev)
+    cot = torch.randn(B, T, H // 2, W // 2, C, generator=g).to(dev).to(torch.bfloat16)
+    want = convpool.conv1_pool_bwd_ref(x, w, b, cot)
+    before = convpool.bwd_launches
+    got = convpool.conv1_pool_bwd(x, w, b, cot)
+    again = convpool.conv1_pool_bwd(x, w, b, cot)
+    torch.cuda.synchronize()
+    assert convpool.bwd_launches == before + 2
+    for a, r, c in zip(got, want, again):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, r, **K4_TOL)
+        assert torch.equal(a, c)
+    wt = w.permute(4, 3, 0, 1, 2).contiguous().float().requires_grad_()
+    convpool.conv1_pool_block(x.permute(0, 4, 1, 2, 3), wt, b).backward(
+        cot.permute(0, 4, 1, 2, 3))
+    assert torch.equal(wt.grad, got[0].permute(4, 3, 0, 1, 2).to(torch.bfloat16).float())
+
+
+def test_bf16_lipnet_forward_and_backward_launch_k1_to_k4(dev):
+    """Full-width LipNet under bf16 compute, both kernel flags: one K1-bf16
+    and one K4-bf16 launch, two K2 and two K3 launches per step, finite
+    float32 gradients, and log-probs within the JAX package's reduced-
+    precision bounds of the float32 model's (mean |d| < 0.05, argmax
+    agreement >= 0.95, tests/test_quant.py:135-137)."""
+    from avsync_torch.config import ModelConfig
+    from avsync_torch.models import LipNet
+    from avsync_torch.ops.conv import fp32_step
+    from avsync_torch.ops.ctc import ctc_loss_mean
+
+    bf16 = LipNet(ModelConfig(use_pallas_gru=True, fused_conv_pool=True, dropout_rate=0.0,
+                              compute_dtype="bfloat16"), generator=_gen(23)).to(dev)
+    f32 = LipNet(ModelConfig(use_pallas_gru=True, fused_conv_pool=True, dropout_rate=0.0),
+                 generator=_gen(24)).to(dev)
+    f32.load_state_dict(bf16.state_dict())
+    g = _gen(25)
+    x = torch.rand(2, 75, 50, 100, 1, generator=g).to(dev)
+    labels = torch.randint(1, 38, (2, 20), generator=g).to(dev)
+    counts = (convpool.launches, convpool.bwd_launches, gru.launches, gru.bwd_launches)
+    with fp32_step():
+        lp = bf16(x)
+        ctc_loss_mean(lp, labels, torch.tensor([20, 13])).backward()
+        with torch.no_grad():
+            ref = f32(x)
+    torch.cuda.synchronize()
+    after = (convpool.launches, convpool.bwd_launches, gru.launches, gru.bwd_launches)
+    assert tuple(a - b for a, b in zip(after, counts)) == (2, 1, 4, 2)  # f32 K1 + K2 x2
+    for name, p in bf16.named_parameters():
+        assert p.grad.dtype == torch.float32 and torch.isfinite(p.grad).all(), name
+    assert (lp.detach() - ref).abs().mean().item() < 0.05
+    assert (lp.argmax(-1) == ref.argmax(-1)).float().mean().item() >= 0.95
+
+
 @pytest.mark.parametrize("B,T,H", [(8, 75, 256), (3, 75, 256), (12, 9, 256), (1, 1, 256),
                                    (2, 5, 8), (1, 75, 256), (5, 75, 256), (7, 75, 256),
                                    (9, 75, 256), (16, 75, 256), (32, 75, 256),

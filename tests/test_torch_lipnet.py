@@ -24,6 +24,7 @@ from avsync_torch import text as torch_text
 from avsync_torch.compat import chw_to_hwc_perm, lipnet_params_from_jax, load_pth
 from avsync_torch.config import ModelConfig
 from avsync_torch.models import LipNet
+from avsync_torch.ops.quant import make_int8_forward
 
 
 def _jax_params(cfg, x, seed):
@@ -123,10 +124,12 @@ def test_narrow_model_with_both_kernel_flags_matches_jax():
                                    atol=2e-5, rtol=1e-4)
 
 
-@pytest.mark.parametrize("cfg,err", [
-    (ModelConfig(compute_dtype="bfloat16", use_pallas_gru=True), "float32"),
-    (ModelConfig(family="tf"), "family"),
+@pytest.mark.parametrize("build,err", [
+    # bf16 compute is ported (tests/test_torch_bf16.py); its int8 forward is not
+    (lambda: make_int8_forward(ModelConfig(compute_dtype="bfloat16", use_pallas_gru=True)),
+     "item 14"),
+    (lambda: LipNet(ModelConfig(family="tf")), "family"),
 ], ids=["bf16_with_kernel", "tf_family"])
-def test_unported_configurations_raise(cfg, err):
+def test_unported_configurations_raise(build, err):
     with pytest.raises(NotImplementedError, match=err):
-        LipNet(cfg)
+        build()

@@ -109,8 +109,10 @@ def test_make_lipnet_is_the_family_switch():
                            (46, 140))
     assert isinstance(explicit, TFLipNet) and explicit.conv3.weight.shape[0] == 96
     assert isinstance(make_lipnet(ModelConfig(hidden_dim=4), (50, 100)), LipNet)
-    with pytest.raises(NotImplementedError, match="float32"):
-        make_lipnet(ModelConfig(family="tf", compute_dtype="bfloat16"), (46, 140))
+    # the compute dtype reaches the TF stack (bf16: tests/test_torch_bf16_tf.py)
+    bf16 = make_lipnet(ModelConfig(family="tf", compute_dtype="bfloat16", hidden_dim=4),
+                       (46, 140))
+    assert bf16.cfg.compute_dtype == "bfloat16" and bf16.compute_dtype == torch.bfloat16
 
 
 # ---------------------------------------------------------------------------
