@@ -24,6 +24,11 @@ the `--config` JSON's) with both LipNet kernel flags on, the `misalign-*` comman
 and the MFCC stage's (`fused_conv_pool`, `AudioConfig.use_pallas`), `serve`
 and `export` with all three, unless the config file turns them off; all run
 with TF32 off for cuDNN and cuBLAS, as the JAX reference computes in fp32.
+Without `--config` the compute dtype follows the JAX CLI's backend-tuned
+defaults: bfloat16 and `packed_conv` on the card (int8 serving then ends its
+blocks in the bf16 epilogue), float32 with `--device cpu`; an explicit
+`--compute_dtype` or `--packed_conv` wins, and a config file's values are
+kept.
 
 Multi-device (`avsync_torch/parallel/`, one process per device):
 `train` and `misalign-train` on a host with n > 1 cards start their ranks
@@ -101,40 +106,63 @@ def _with_family(cfg: AvsyncConfig, family: Optional[str]) -> AvsyncConfig:
                                  standardize_clips=True))
 
 
+def _runs_on_card(args) -> bool:
+    """Whether the command's device resolves to a card: `--device` when
+    given, else whether there is a GPU (`predictor.resolve_device` takes it,
+    and without one the command fails; the JAX CLI asks its default
+    backend)."""
+    import torch
+
+    dev = getattr(args, "device", None)
+    return torch.device(dev).type == "cuda" if dev else torch.cuda.is_available()
+
+
+def _tuned_perf_defaults(args):
+    """(compute_dtype, packed_conv, remat) with the JAX CLI's backend-tuned
+    defaults (`avsync/cli.py:112-130`): bf16 and packed_conv when the
+    command runs on a card, float32 and no packed_conv on the CPU, remat
+    off. Explicit flags always win."""
+    dtype = getattr(args, "compute_dtype", None)
+    packed = getattr(args, "packed_conv", None)
+    remat = getattr(args, "remat", None)
+    if dtype is None or packed is None:
+        accel = _runs_on_card(args)
+        if dtype is None:
+            dtype = "bfloat16" if accel else "float32"
+        if packed is None:
+            packed = accel
+    return dtype, bool(packed), bool(remat) if remat is not None else False
+
+
 def _with_common_flags(cfg: AvsyncConfig, args) -> AvsyncConfig:
     """The common flags of every command over a config: --model_family,
     --roi_mode, --roi_host and the perf flags --compute_dtype, --packed_conv
-    and --remat (an explicit flag wins over the config file)."""
+    and --remat. An explicit flag wins over the config file; without
+    --config the perf flags default to `_tuned_perf_defaults` (a config
+    file's values are deliberate choices, as in `avsync/cli.py:144-155`)."""
     def arg(name, fallback):
         v = getattr(args, name, None)
         return fallback if v is None else v
 
     cfg = _with_family(cfg, getattr(args, "model_family", None))
+    if getattr(args, "config", None):
+        dtype = arg("compute_dtype", cfg.model.compute_dtype)
+        packed = arg("packed_conv", cfg.model.packed_conv)
+        remat = arg("remat", cfg.train.remat)
+    else:
+        dtype, packed, remat = _tuned_perf_defaults(args)
     return dataclasses.replace(
         cfg,
         data=dataclasses.replace(cfg.data, roi_mode=arg("roi_mode", cfg.data.roi_mode),
                                  roi_host=arg("roi_host", cfg.data.roi_host)),
-        model=dataclasses.replace(cfg.model,
-                                  compute_dtype=arg("compute_dtype", cfg.model.compute_dtype),
-                                  packed_conv=arg("packed_conv", cfg.model.packed_conv)),
-        train=dataclasses.replace(cfg.train, remat=arg("remat", cfg.train.remat)))
+        model=dataclasses.replace(cfg.model, compute_dtype=dtype, packed_conv=packed),
+        train=dataclasses.replace(cfg.train, remat=remat))
 
 
 # `--distributed` on another command than train: the JAX package's refusal
 DISTRIBUTED_TRAIN_ONLY = (
     "ERROR: --distributed supports the 'train' subcommand only — the misalignment pipeline, "
     "eval and serving are single-controller by design (see avsync_torch/parallel/multihost.py)")
-
-
-def _refuse_unported(args) -> None:
-    """The flags' combinations the port does not run yet raise, naming
-    their ROADMAP item, before any work: the int8 forward (and the scales it
-    is calibrated for) under bf16 compute."""
-    if getattr(args, "compute_dtype", None) == "bfloat16" and (
-            getattr(args, "quantize", None) == "int8" or args.command == "quantize"):
-        from avsync_torch.ops.quant import INT8_BF16_UNPORTED
-
-        raise NotImplementedError(INT8_BF16_UNPORTED)
 
 
 def _no_tf32() -> None:
@@ -953,12 +981,15 @@ def build_parser() -> argparse.ArgumentParser:
                              "WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT), one process "
                              "per card on every host; run the same command everywhere")
         sp.add_argument("--compute_dtype", choices=["float32", "bfloat16"], default=None,
-                        help="compute dtype of the convs, the recurrent layers' products "
-                             "and the head (parameters stay float32); default float32. "
-                             "bfloat16 with int8 raises NotImplementedError")
+                        help="compute dtype of the convs (the int8 blocks' epilogue under "
+                             "--quantize int8), the recurrent layers' products and the head "
+                             "(parameters stay float32). Default without --config: bfloat16 "
+                             "on the card, float32 with --device cpu, as the JAX CLI tunes "
+                             "it per backend; a --config file's value is kept")
         sp.add_argument("--packed_conv", action=argparse.BooleanOptionalAction, default=None,
                         help="the JAX package's lane-packed conv form; the port computes the "
-                             "same convolutions either way")
+                             "same convolutions either way. Default without --config: on "
+                             "for the card, off for the CPU")
         sp.add_argument("--remat", action=argparse.BooleanOptionalAction, default=None,
                         help="recompute each conv block and BiGRU layer in the backward "
                              "(less activation memory, the same numbers)")
@@ -1139,11 +1170,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         if rank != 0:
             sys.stdout = open(os.devnull, "w")
         try:
-            _refuse_unported(args)
             return args.func(args)
         finally:
             dist.destroy_process_group()
-    _refuse_unported(args)
     return args.func(args)
 
 

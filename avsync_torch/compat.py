@@ -26,7 +26,10 @@ between (H, W, C) and (C, H, W) order, Dense kernels (in, out) -> (out, in).
 `quant_params_from_jax` carries the JAX package's int8 serving params
 (`avsync.ops.quant.QuantLipNetParams`) across: each int8 kernel from (kt, kh,
 kw, Cin, Cout) to (Cout, Cin, kt, kh, kw), its scales and bias as they are,
-the float params through `lipnet_params_from_jax`.
+the float params through `lipnet_params_from_jax`. The bf16 epilogue's s16
+and b16 are made from them as the JAX block makes its own (one rounding of
+the f32 x_scale * k_scale and bias), so the same params serve either
+compute dtype unchanged (tests/test_torch_int8_bf16.py).
 
 The misalignment detector crosses the same way (`detector_params_from_jax`
 / `detector_params_to_jax`): its fc1 reads visual statistics that the JAX

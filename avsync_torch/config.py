@@ -118,8 +118,9 @@ class ModelConfig:
     num_gru_layers: int = 2
     # Compute dtype for conv/GRU matmuls; params are kept in float32.
     # "bfloat16" rounds where the JAX package does (models/lipnet.py,
-    # ops/precision.py); the port's default stays "float32" until the int8
-    # forward runs under bf16 too (ROADMAP §1 item 14).
+    # ops/precision.py, ops/quant.py). The field's default is "float32", as
+    # in the JAX package; only the CLI tunes it per device (bfloat16 on the
+    # card without --config: cli._tuned_perf_defaults).
     compute_dtype: str = "float32"
     # JAX package: pack4 conv blocks (a TPU lane-filling form of the same
     # math). The port accepts the flag and computes the same result.

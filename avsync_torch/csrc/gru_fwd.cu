@@ -61,9 +61,23 @@
 // kernel with the same exchange: one thread per (unit, row), the CTA's
 // columns of w_hh in shared memory where they fit, else read through L2.
 // The wrapper pads H to a multiple of 8 with zero units.
+// bf16 operands (the entry's bf16 flag, template flag BF): the JAX
+// `gru_scan` step under compute_dtype=bf16, which the int8 forward under
+// bf16 runs (avsync/ops/quant.py:292-296, avsync/ops/gru.py:85-90): w_hh is
+// staged rounded to bf16 (kept as the float of that value, in registers or
+// shared memory as above) and h_{t-1} enters the product rounded to bf16;
+// the products of two bf16 values are exact in f32, so only the sums
+// round, in f32 as before; gates, bias and the carry h stay f32. The
+// register kernel rounds once, where h_t is pushed: the h buffers then hold
+// bf16(h) and each writer lane keeps its own f32 h in a register as the
+// carry (rounding each broadcast value as it was read cost ~18% of a step
+// at B=8). The generic kernel rounds as it reads. The bf16 model's own
+// recurrence stays float32 (the JAX Pallas GRU runs f32 whatever the
+// dtype).
 // Accuracy: expf / tanhf, no fast-math.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "cluster_exchange.cuh"
@@ -88,22 +102,32 @@ struct GruParams {
   int B, T, H, reverse_mask;  // bit d set: direction d walks time backwards
 };
 
+// v, or under BF v rounded to bf16 (as a float): an operand of the product.
+template <bool BF>
+__device__ __forceinline__ float operand(float v) {
+  if constexpr (BF) return __bfloat162float(__float2bfloat16_rn(v));
+  return v;
+}
+
 // h_0 into h buffer 0 of this CTA: every CTA's slice (units [q*U, (q+1)*U)
-// at q*S as [U][BT]) from the direction's initial state, rows past B and
-// the padding left 0 (the caller skips it without an initial state).
+// at q*S as [U][BT]) from the direction's initial state (bf16-rounded under
+// BF), rows past B and the padding left 0 (the caller skips it without an
+// initial state).
+template <bool BF>
 __device__ __forceinline__ void load_h0(const GruParams& p, int d, int b0, int BT, int U,
                                         int S, float* s_h) {
   const float* h0 = p.h0[d];
   for (int e = threadIdx.x; e < CLUSTER * U * BT; e += blockDim.x) {
     const int q = e / (U * BT), r = e % (U * BT), ul = r / BT, rb = r % BT;
     const int gb = b0 + rb;
-    if (gb < p.B) s_h[q * S + ul * BT + rb] = h0[gb * p.h0_sb + q * U + ul];
+    if (gb < p.B) s_h[q * S + ul * BT + rb] = operand<BF>(h0[gb * p.h0_sb + q * U + ul]);
   }
 }
 
 // BT: batch rows per cluster (1, 2 or 4). NK: k values per lane (H/8) when
-// known at compile time, 0 = read H at run time (H/8 <= MAX_KPL).
-template <int BT, int NK>
+// known at compile time, 0 = read H at run time (H/8 <= MAX_KPL). BF: bf16
+// operands in the product.
+template <int BT, int NK, bool BF>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(MAX_NT, 1)
 gru_fwd_kernel(const GruParams p) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -144,7 +168,7 @@ gru_fwd_kernel(const GruParams p) {
       const long long k = ok ? kq * U + i : 0;
 #pragma unroll
       for (int g = 0; g < 3; ++g)
-        w[i][g] = ok ? W[k * p.w_sk + (long long)(g * H + j) * p.w_sc] : 0.f;
+        w[i][g] = ok ? operand<BF>(W[k * p.w_sk + (long long)(g * H + j) * p.w_sc]) : 0.f;
     }
   }
   float bh[3] = {0.f, 0.f, 0.f};
@@ -163,7 +187,7 @@ gru_fwd_kernel(const GruParams p) {
   for (int i = threadIdx.x; i < 2 * CLUSTER * S; i += blockDim.x) s_h[i] = 0.f;
   if (p.h0[d] != nullptr) {  // uniform over the CTA
     __syncthreads();
-    load_h0(p, d, b0, BT, U, S, s_h);
+    load_h0<BF>(p, d, b0, BT, U, S, s_h);
   }
   if (threadIdx.x == 0) {
     init_barriers(bar0);
@@ -176,6 +200,9 @@ gru_fwd_kernel(const GruParams p) {
   // this lane's slot in every CTA's two h buffers
   const int own = rank * S + ul * BT + rb;
   const uint32_t slot0 = smem_addr(s_h + own);
+  // under BF the buffers hold bf16(h): a writer's f32 h_{t-1}, its carry
+  float carry = 0.f;
+  if (BF && row_ok && p.h0[d] != nullptr) carry = p.h0[d][gb * p.h0_sb + j];
 
   // this step's gi values, loaded during the step before
   float gi_t[3] = {0.f, 0.f, 0.f};
@@ -222,16 +249,18 @@ gru_fwd_kernel(const GruParams p) {
     const bool push = i + 1 < T;  // the last h_t feeds no further step
     float hn = 0.f;
     if (writer) {
-      const float hp = hcur[own];
+      const float hp = BF ? carry : hcur[own];
       const float r = sigmoidf(gi_t[0] + (s[0] + bh[0]));
       const float z = sigmoidf(gi_t[1] + (s[1] + bh[1]));
       const float n = tanhf(gi_t[2] + r * (s[2] + bh[2]));
       hn = (1.f - z) * n + z * hp;
+      carry = hn;
       if (push) {
         const uint32_t slot = slot0 + (cur ^ 1) * CLUSTER * S * sizeof(float);
         const uint32_t bar = bar0 + 8 * (cur ^ 1);
+        const float hv = operand<BF>(hn);  // what the next step's products read
 #pragma unroll
-        for (int q = 0; q < CLUSTER; ++q) st_peer(peer_addr(slot, q), hn, peer_addr(bar, q));
+        for (int q = 0; q < CLUSTER; ++q) st_peer(peer_addr(slot, q), hv, peer_addr(bar, q));
       }
     }
     if (row_ok) {
@@ -260,7 +289,7 @@ size_t generic_smem_bytes(int H, int BT, bool w_in_smem) {
   return smem_bytes(H, BT) + (w_in_smem ? sizeof(float) * (size_t)H * 3 * (H / CLUSTER) : 0);
 }
 
-template <int BT>
+template <int BT, bool BF>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(GNT, 1)
 gru_fwd_generic_kernel(const GruParams p, int w_in_smem) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -283,7 +312,7 @@ gru_fwd_generic_kernel(const GruParams p, int w_in_smem) {
   if (w_in_smem) {
     for (int e = threadIdx.x; e < H * 3 * U; e += GNT) {
       const int k = e / (3 * U), c = e % (3 * U);
-      s_w[e] = W[k * p.w_sk + ((c / U) * H + c % U) * p.w_sc];
+      s_w[e] = operand<BF>(W[k * p.w_sk + ((c / U) * H + c % U) * p.w_sc]);
     }
     W = s_w;
     wk = 3 * U;
@@ -295,7 +324,7 @@ gru_fwd_generic_kernel(const GruParams p, int w_in_smem) {
   for (int i = threadIdx.x; i < 2 * CLUSTER * S; i += GNT) s_h[i] = 0.f;
   if (p.h0[d] != nullptr) {  // uniform over the CTA
     __syncthreads();
-    load_h0(p, d, b0, BT, U, S, s_h);
+    load_h0<false>(p, d, b0, BT, U, S, s_h);  // h is rounded as it is read
   }
   if (threadIdx.x == 0) {
     init_barriers(bar0);
@@ -318,10 +347,10 @@ gru_fwd_generic_kernel(const GruParams p, int w_in_smem) {
       float acc[3] = {0.f, 0.f, 0.f};
       for (int q = 0; q < CLUSTER; ++q)
         for (int c = 0; c < U; ++c) {
-          const float hv = hcur[q * S + c * BT + rb];
+          const float hv = operand<BF>(hcur[q * S + c * BT + rb]);
           const float* wr = W + (long long)(q * U + c) * wk + ul * wu;
 #pragma unroll
-          for (int g = 0; g < 3; ++g) acc[g] = fmaf(hv, wr[g * wg], acc[g]);
+          for (int g = 0; g < 3; ++g) acc[g] = fmaf(hv, operand<BF>(wr[g * wg]), acc[g]);
         }
       float x[3] = {0.f, 0.f, 0.f};
       if (gb < p.B)
@@ -344,61 +373,51 @@ gru_fwd_generic_kernel(const GruParams p, int w_in_smem) {
   cluster.sync();
 }
 
-template <int BT, int NK>
+template <int BT, int NK, bool BF>
 cudaError_t launch(const GruParams& p, int ndir, cudaStream_t stream) {
   const int nt = 32 * ((p.H / CLUSTER + UPW - 1) / UPW);
   const dim3 grid(CLUSTER, ndir, (p.B + BT - 1) / BT);
-  gru_fwd_kernel<BT, NK><<<grid, nt, smem_bytes(p.H, BT), stream>>>(p);
+  gru_fwd_kernel<BT, NK, BF><<<grid, nt, smem_bytes(p.H, BT), stream>>>(p);
   return cudaGetLastError();
 }
 
 // Clusters of one instantiation that can be resident at once (8-warp CTAs:
 // the most any H takes), queried once per device.
-std::atomic<int> resident[3][MAX_DEVICES];  // [log2 BT][device]
+std::atomic<int> resident[2][3][MAX_DEVICES];  // [BF][log2 BT][device]
 
-template <int BT>
+template <int BT, bool BF>
 int resident_bt(int device) {
-  return resident_clusters(resident[BT == 1 ? 0 : (BT == 2 ? 1 : 2)], device,
-                           gru_fwd_kernel<BT, 0>, CLUSTER, MAX_NT,
+  return resident_clusters(resident[BF][BT == 1 ? 0 : (BT == 2 ? 1 : 2)], device,
+                           gru_fwd_kernel<BT, 0, BF>, CLUSTER, MAX_NT,
                            smem_bytes(MAX_KPL * KQ, BT));
 }
 
-template <int BT>
+template <int BT, bool BF>
 cudaError_t launch_bt(const GruParams& p, int ndir, cudaStream_t stream) {
-  return p.H == MAX_KPL * KQ ? launch<BT, MAX_KPL>(p, ndir, stream)
-                             : launch<BT, 0>(p, ndir, stream);
+  return p.H == MAX_KPL * KQ ? launch<BT, MAX_KPL, BF>(p, ndir, stream)
+                             : launch<BT, 0, BF>(p, ndir, stream);
 }
 
-std::atomic<bool> generic_opted_in[3][MAX_DEVICES];
+std::atomic<bool> generic_opted_in[2][3][MAX_DEVICES];
 
-template <int BT>
+template <int BT, bool BF>
 cudaError_t launch_generic(const GruParams& p, int ndir, int device, cudaStream_t stream) {
-  cudaError_t e = opt_in_smem(generic_opted_in[BT == 1 ? 0 : (BT == 2 ? 1 : 2)], device,
-                              gru_fwd_generic_kernel<BT>);
+  cudaError_t e = opt_in_smem(generic_opted_in[BF][BT == 1 ? 0 : (BT == 2 ? 1 : 2)], device,
+                              gru_fwd_generic_kernel<BT, BF>);
   if (e != cudaSuccess) return e;
   const bool w_in_smem = generic_smem_bytes(p.H, BT, true) <= MAX_DYN_SMEM;
   const dim3 grid(CLUSTER, ndir, (p.B + BT - 1) / BT);
-  gru_fwd_generic_kernel<BT>
+  gru_fwd_generic_kernel<BT, BF>
       <<<grid, GNT, generic_smem_bytes(p.H, BT, w_in_smem), stream>>>(p, w_in_smem);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// The largest H (a multiple of 8) whose h buffers fit the card's shared memory.
-extern "C" int avs_gru_fwd_max_hidden() {
-  int h = 8;
-  while (smem_bytes(h + 8, 1) <= MAX_DYN_SMEM) h += 8;
-  return h;
-}
-
-extern "C" int avs_gru_fwd(
-    const float* gi0, const float* gi1, const float* w0, const float* w1,
-    const float* b0, const float* b1, const float* h00, const float* h01, float* out,
-    long long gi_sb, long long gi_st, long long w_sk, long long w_sc,
-    long long o_sb, long long o_st, long long o_sd, long long h0_sb,
-    int B, int T, int H, int ndir, int reverse_mask, int device,
-    void* stream) {
+template <bool BF>
+int run(const float* gi0, const float* gi1, const float* w0, const float* w1,
+        const float* b0, const float* b1, const float* h00, const float* h01, float* out,
+        long long gi_sb, long long gi_st, long long w_sk, long long w_sc,
+        long long o_sb, long long o_st, long long o_sd, long long h0_sb,
+        int B, int T, int H, int ndir, int reverse_mask, int device, void* stream) {
   if (H % KQ != 0 || H < KQ || ndir < 1 || ndir > 2 || B < 1 || T < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (T == 0) return 0;
@@ -410,20 +429,44 @@ extern "C" int avs_gru_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (H > MAX_KPL * KQ) {
     // generic: the most rows (up to 4, at most B rounded up) whose buffers fit
-    if (B > 2 && smem_bytes(H, 4) <= MAX_DYN_SMEM) return launch_generic<4>(p, ndir, device, s);
-    if (B > 1 && smem_bytes(H, 2) <= MAX_DYN_SMEM) return launch_generic<2>(p, ndir, device, s);
-    if (smem_bytes(H, 1) <= MAX_DYN_SMEM) return launch_generic<1>(p, ndir, device, s);
+    if (B > 2 && smem_bytes(H, 4) <= MAX_DYN_SMEM)
+      return launch_generic<4, BF>(p, ndir, device, s);
+    if (B > 1 && smem_bytes(H, 2) <= MAX_DYN_SMEM)
+      return launch_generic<2, BF>(p, ndir, device, s);
+    if (smem_bytes(H, 1) <= MAX_DYN_SMEM) return launch_generic<1, BF>(p, ndir, device, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // the fewest rows per cluster whose clusters all fit at once
-  if (ndir * B <= resident_bt<1>(device)) {
-    e = launch_bt<1>(p, ndir, s);
-  } else if (ndir * ((B + 1) / 2) <= resident_bt<2>(device)) {
-    e = launch_bt<2>(p, ndir, s);
+  if (ndir * B <= resident_bt<1, BF>(device)) {
+    e = launch_bt<1, BF>(p, ndir, s);
+  } else if (ndir * ((B + 1) / 2) <= resident_bt<2, BF>(device)) {
+    e = launch_bt<2, BF>(p, ndir, s);
   } else {
-    e = launch_bt<4>(p, ndir, s);
+    e = launch_bt<4, BF>(p, ndir, s);
   }
   return static_cast<int>(e);
+}
+
+}  // namespace
+
+// The largest H (a multiple of 8) whose h buffers fit the card's shared memory.
+extern "C" int avs_gru_fwd_max_hidden() {
+  int h = 8;
+  while (smem_bytes(h + 8, 1) <= MAX_DYN_SMEM) h += 8;
+  return h;
+}
+
+// bf16 = 1: the same recurrence with bf16 operands in each step's product.
+extern "C" int avs_gru_fwd(
+    const float* gi0, const float* gi1, const float* w0, const float* w1,
+    const float* b0, const float* b1, const float* h00, const float* h01, float* out,
+    long long gi_sb, long long gi_st, long long w_sk, long long w_sc,
+    long long o_sb, long long o_st, long long o_sd, long long h0_sb,
+    int B, int T, int H, int ndir, int reverse_mask, int bf16, int device,
+    void* stream) {
+  return (bf16 ? run<true> : run<false>)(gi0, gi1, w0, w1, b0, b1, h00, h01, out, gi_sb, gi_st,
+                                         w_sk, w_sc, o_sb, o_st, o_sd, h0_sb, B, T, H, ndir,
+                                         reverse_mask, device, stream);
 }
 
 extern "C" const char* avs_error_string(int e) {

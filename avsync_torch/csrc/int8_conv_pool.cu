@@ -14,11 +14,21 @@
 // strides or int8 channels-last, quantized with the NEXT block's x_scale,
 // out_int8 = clip(rint(out_f32 / out_scale), -127, 127), exactly what that
 // block's staging would compute from the f32 output.
-// float(), the multiply by a positive scale, + bias and ReLU are monotone
-// non-decreasing in f32, so the max of the four pre-pool accumulators is taken
-// first, in int32, and the epilogue runs once per pooled value; it is written
-// with __fmul_rn / __fadd_rn (no FMA contraction), so the kernel equals its
-// plain version (`int8_conv_pool_ref`, ops/cuda/quantconv.py) bit for bit.
+// Under bf16 compute (the JAX block's out_dtype=bfloat16, the entry's bf16
+// flag) scale and bias come as bf16, s16 = bf16(x_scale *
+// k_scale[c]) and b16 = bf16(bias[c]), made once per load by the wrapper,
+// and the dequant rounds to bf16 after each of its three ops, as XLA does:
+//   v = bf16(bf16(bf16(float(acc)) * s16) + b16),  out = maxpool(relu(v));
+// the output is bf16 at any strides or int8 channels-last, quantized from v
+// (the next JAX block divides the bf16 value by its f32 scale in f32).
+// float(), a rounding to bf16, the multiply by a positive scale, + bias and
+// ReLU are each monotone non-decreasing, so in either precision the max of
+// the four pre-pool accumulators is taken first, in int32, and the epilogue
+// runs once per pooled value; it is written with __fmul_rn / __fadd_rn (no
+// FMA contraction) and __float2bfloat16_rn after each op, so the kernel
+// equals its plain version (`int8_conv_pool_ref`, ops/cuda/quantconv.py) bit
+// for bit. One rounding after a fused multiply-add would not: it differs
+// from XLA's three roundings on about a third of the values.
 // Every sum is exact int32, so no choice of tile or frames per CTA changes a
 // bit.
 //
@@ -70,6 +80,7 @@
 //     past Cout compute on zeros or in-bounds data and are not written; the
 //     pre-pool row or column a floor pool drops is never computed.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -104,9 +115,10 @@ enum Stage : int {
 struct QParams {
   const void* x;        // (B, Cin, T, H, W) f32 or int8, element strides below
   const int8_t* w;      // (Npad, Kpad) int8, k = ((dt*kh + dh)*kw + dw)*Cin + ci
-  const float* scale;   // (Cout,) x_scale * k_scale
-  const float* bias;    // (Cout,)
-  void* out;            // (B, Cout, T, H/2, W/2) f32 or int8, element strides below
+  const void* scale;    // (Cout,) x_scale * k_scale: f32, or bf16 under BF16
+  const void* bias;     // (Cout,) f32, or bf16 under BF16
+  void* out;            // (B, Cout, T, H/2, W/2) f32 (bf16 under BF16) or int8,
+                        // element strides below
   float x_scale, x_rcp;      // quantizes an f32 input (x_rcp = fl(1 / x_scale))
   float out_scale, out_rcp;  // quantizes an int8 output: the next block's x_scale
   bool out_int8;
@@ -293,11 +305,33 @@ __device__ void stage_async(const QParams& p, unsigned char* slot, int b, int ti
   cp_async_commit();
 }
 
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// ReLU of one pooled value from the max m of its four accumulators: in f32,
+// float(m) * scale + bias; under BF16, rounded to bf16 after each op.
+template <bool BF16>
+__device__ __forceinline__ float dequant(const QParams& p, int m, int c) {
+  if constexpr (BF16) {
+    const float s = __bfloat162float(static_cast<const __nv_bfloat16*>(p.scale)[c]);
+    const float b = __bfloat162float(static_cast<const __nv_bfloat16*>(p.bias)[c]);
+    const float v = round_bf16(__fmul_rn(round_bf16(__int2float_rn(m)), s));
+    return fmaxf(round_bf16(__fadd_rn(v, b)), 0.f);
+  } else {
+    const float s = static_cast<const float*>(p.scale)[c];
+    const float b = static_cast<const float*>(p.bias)[c];
+    return fmaxf(__fadd_rn(__fmul_rn(__int2float_rn(m), s), b), 0.f);
+  }
+}
+
 // The pooled values of a warp task: fragment registers 2r and 2r + 1 hold
 // row g + 8r, channels 2*tq and 2*tq + 1 of each n8 tile j; the max of the
-// four windows' accumulators, dequantized, + bias, ReLU; f32 out, or int8
-// quantized with the next block's scale. A channel pair goes out in one
-// store where the output's channels are contiguous and pairs aligned.
+// four windows' accumulators, dequantized, + bias, ReLU; f32 (bf16 under
+// BF16) out, or int8 quantized with the next block's scale. A channel pair
+// goes out in one store where the output's channels are contiguous and
+// pairs aligned.
+template <bool BF16>
 __device__ __forceinline__ void epilogue(const QParams& p, const int (&acc)[4][4][4],
                                          const int (&idx)[2], int b, int t, int h2_0,
                                          int w2_0, int ng, int tq) {
@@ -319,8 +353,7 @@ __device__ __forceinline__ void epilogue(const QParams& p, const int (&acc)[4][4
         const int i = 2 * r + e;
         if (c + e >= p.Cout) break;
         const int m = max(max(acc[0][j][i], acc[1][j][i]), max(acc[2][j][i], acc[3][j][i]));
-        v[e] = fmaxf(__fadd_rn(__fmul_rn(__int2float_rn(m), p.scale[c + e]), p.bias[c + e]),
-                     0.f);
+        v[e] = dequant<BF16>(p, m, c + e);
       }
       if (p.out_int8) {
         int8_t* ob = static_cast<int8_t*>(p.out) + o;
@@ -331,6 +364,14 @@ __device__ __forceinline__ void epilogue(const QParams& p, const int (&acc)[4][4
         } else {
           ob[c * p.o_sc] = q0;
           if (c + 1 < p.Cout) ob[(c + 1) * p.o_sc] = q1;
+        }
+      } else if constexpr (BF16) {
+        __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.out) + o;
+        if (pairs) {
+          *reinterpret_cast<__nv_bfloat162*>(ob + c) = __floats2bfloat162_rn(v[0], v[1]);
+        } else {
+          ob[c * p.o_sc] = __float2bfloat16_rn(v[0]);
+          if (c + 1 < p.Cout) ob[(c + 1) * p.o_sc] = __float2bfloat16_rn(v[1]);
         }
       } else {
         float* ob = static_cast<float*>(p.out) + o;
@@ -345,7 +386,7 @@ __device__ __forceinline__ void epilogue(const QParams& p, const int (&acc)[4][4
   }
 }
 
-template <int MODE>
+template <int MODE, bool BF16>
 __global__ void __launch_bounds__(NT, 2) int8_conv_pool_kernel(const QParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* s_off = reinterpret_cast<int*>(smem);
@@ -507,7 +548,7 @@ __global__ void __launch_bounds__(NT, 2) int8_conv_pool_kernel(const QParams p) 
           for (int j = 0; j < 4; ++j) bf[j][0] = bn[j][0], bf[j][1] = bn[j][1];
         }
       }
-      epilogue(p, acc, idx, b, t, h2_0, w2_0, ng, tq);
+      epilogue<BF16>(p, acc, idx, b, t, h2_0, w2_0, ng, tq);
     }
 
     // the next frame, while no warp reads its slot: the prefetched values,
@@ -526,13 +567,13 @@ __global__ void __launch_bounds__(NT, 2) int8_conv_pool_kernel(const QParams p) 
 }
 
 // The shared-memory opt-in of each instantiation, set once per device.
-template <int MODE>
+template <int MODE, bool BF16>
 cudaError_t launch(const QParams& p, int device, cudaStream_t stream) {
   static std::atomic<bool> opted_in[MAX_DEVICES];
   const size_t smem = smem_bytes(MODE != A_BYTES, p.Kpad, p.kt, p.IH, p.IW, p.S);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   if (device >= MAX_DEVICES || !opted_in[device].load()) {
-    cudaError_t e = cudaFuncSetAttribute(int8_conv_pool_kernel<MODE>,
+    cudaError_t e = cudaFuncSetAttribute(int8_conv_pool_kernel<MODE, BF16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)MAX_SMEM);
     if (e != cudaSuccess) return e;
@@ -540,26 +581,17 @@ cudaError_t launch(const QParams& p, int device, cudaStream_t stream) {
   }
   const long long blocks = (long long)p.tiles * p.runs * p.B;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  int8_conv_pool_kernel<MODE><<<(unsigned)blocks, NT, smem, stream>>>(p);
+  int8_conv_pool_kernel<MODE, BF16><<<(unsigned)blocks, NT, smem, stream>>>(p);
   return cudaGetLastError();
-}
-
-}  // namespace
-
-// Shared memory one CTA takes for this geometry (the wrapper's tile choice
-// mirrors it: `quantconv.shared_memory_bytes`).
-extern "C" int avs_int8_conv_pool_smem(int Cin, int Kpad, int kt, int kh, int kw,
-                                       int tile_rows, int tile_cols, int pos_bytes) {
-  return (int)smem_bytes(Cin % 4 == 0, Kpad, kt, 2 * tile_rows + kh - 1,
-                               2 * tile_cols + kw - 1, pos_bytes);
 }
 
 // Grid: one CTA per (clip, run of `frames` frames, tile of tile_rows x
 // tile_cols pooled positions). x is f32 (x_int8 = 0) or int8 channels-last
-// (x_sc = 1); out is f32 (out_int8 = 0) or int8 channels-last (o_sc = 1),
-// quantized with out_scale.
-extern "C" int avs_int8_conv_pool(
-    const void* x, const int8_t* w, const float* scale, const float* bias, void* out,
+// (x_sc = 1); out is f32 (bf16 under BF16; out_int8 = 0) or int8
+// channels-last (o_sc = 1), quantized with out_scale.
+template <bool BF16>
+int run(
+    const void* x, const int8_t* w, const void* scale, const void* bias, void* out,
     float x_scale, float out_scale, int x_int8, int out_int8, int B, int Cin, int T, int H,
     int W, int Cout, int kt, int kh, int kw, int Kpad, int Npad, int tile_rows, int tile_cols,
     int pos_bytes, int frames, long long x_sb, long long x_sc, long long x_st, long long x_sh,
@@ -601,12 +633,37 @@ extern "C" int avs_int8_conv_pool(
   p.o_sb = o_sb; p.o_sc = o_sc; p.o_st = o_st; p.o_sh = o_sh; p.o_sw = o_sw;
   p.out_pairs = o_sc == 1 && Cout % 2 == 0 && o_sb % 2 == 0 && o_st % 2 == 0 &&
                 o_sh % 2 == 0 && o_sw % 2 == 0 &&
-                reinterpret_cast<uintptr_t>(out) % (out_int8 ? 2 : 8) == 0;
+                reinterpret_cast<uintptr_t>(out) % (out_int8 ? 2 : (BF16 ? 4 : 8)) == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  e = Cin % 16 == 0 ? launch<A_LDSM>(p, device, s)
-      : words       ? launch<A_WORDS>(p, device, s)
-                    : launch<A_BYTES>(p, device, s);
+  e = Cin % 16 == 0 ? launch<A_LDSM, BF16>(p, device, s)
+      : words       ? launch<A_WORDS, BF16>(p, device, s)
+                    : launch<A_BYTES, BF16>(p, device, s);
   return static_cast<int>(e);
+}
+
+}  // namespace
+
+// Shared memory one CTA takes for this geometry (the wrapper's tile choice
+// mirrors it: `quantconv.shared_memory_bytes`).
+extern "C" int avs_int8_conv_pool_smem(int Cin, int Kpad, int kt, int kh, int kw,
+                                       int tile_rows, int tile_cols, int pos_bytes) {
+  return (int)smem_bytes(Cin % 4 == 0, Kpad, kt, 2 * tile_rows + kh - 1,
+                               2 * tile_cols + kw - 1, pos_bytes);
+}
+
+// bf16 = 0: f32 scale and bias, f32 or int8 out. bf16 = 1: the bf16
+// epilogue, bf16 scale (s16) and bias (b16), bf16 or int8 out.
+extern "C" int avs_int8_conv_pool(
+    const void* x, const int8_t* w, const void* scale, const void* bias, void* out,
+    float x_scale, float out_scale, int x_int8, int out_int8, int bf16, int B, int Cin, int T,
+    int H, int W, int Cout, int kt, int kh, int kw, int Kpad, int Npad, int tile_rows,
+    int tile_cols, int pos_bytes, int frames, long long x_sb, long long x_sc, long long x_st,
+    long long x_sh, long long x_sw, long long o_sb, long long o_sc, long long o_st,
+    long long o_sh, long long o_sw, int device, void* stream) {
+  return (bf16 ? run<true> : run<false>)(
+      x, w, scale, bias, out, x_scale, out_scale, x_int8, out_int8, B, Cin, T, H, W, Cout, kt,
+      kh, kw, Kpad, Npad, tile_rows, tile_cols, pos_bytes, frames, x_sb, x_sc, x_st, x_sh, x_sw,
+      o_sb, o_sc, o_st, o_sh, o_sw, device, stream);
 }
 
 extern "C" const char* avs_error_string(int e) {

@@ -7,6 +7,14 @@ CUDA kernels and their plain twins.
     given initial state `h0` (the context-parallel chain hands one chunk's
     last state to the next: `parallel/context.py`); plain version
     `gru_recurrence_ref`; `launches` counts its launches;
+  * forward with bf16 operands (`bigru_recurrence_bf16`, the bf16 flag of
+    the same entry): the JAX `gru_scan` step under
+    `compute_dtype=bf16`, as the int8 forward under bf16 runs it
+    (`avsync/ops/quant.py:292-296`): w_hh staged rounded to bf16, the
+    broadcast h rounded to bf16 before each product, the sums, gates and
+    carry float32; plain version `gru_recurrence_ref(compute_dtype=bf16)`;
+    `bf16_launches` counts its launches. The bf16 model's own recurrence
+    stays on the float32 kernel, as the JAX Pallas GRU runs float32;
   * backward: port of `pallas_gru_bwd`, kernel `avsync_torch/csrc/gru_bwd.cu`
     (K3): the gh recompute as one product, the reverse-time chain for dgi,
     then dW_hh/db_hh in deterministic chunked products and a fixed-order
@@ -48,12 +56,13 @@ from avsync_torch.ops.precision import rounded
 
 # Kernel launches since the last reset (the caller resets them to 0).
 launches = 0
+bf16_launches = 0
 bwd_launches = 0
 
 # avs_gru_fwd(gi0, gi1, w0, w1, b0, b1, h00, h01, out, 8 strides, B, T, H,
-#             ndir, reverse_mask, device, stream); a null h0 starts from zeros
+#             ndir, reverse_mask, bf16, device, stream); a null h0 starts from zeros
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 8
-             + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 # avs_gru_bwd(gi0, gi1, out0, out1, g0, g1, w0, w1, b0, b1, dgi0, dgi1,
 #             dw0, dw1, db0, db1, gh, dgh, partial, 10 strides, B, T, H, ndir,
 #             reverse_mask, n_chunks, device, stream)
@@ -123,10 +132,33 @@ def gru_recurrence_ref(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     return torch.stack(outs, dim=1)
 
 
-def _launch(gis, w_hhs, b_hhs, reverse_mask: int, h0s=None) -> torch.Tensor:
+def bigru_steps_ref(gi_f: torch.Tensor, gi_b: torch.Tensor, w_hh_f: torch.Tensor,
+                    w_hh_b: torch.Tensor, b_hh_f: torch.Tensor, b_hh_b: torch.Tensor,
+                    out: torch.Tensor, compute_dtype: Optional[torch.dtype] = None
+                    ) -> torch.Tensor:
+    """Each step of the plain version on its own, from the previous states
+    held in `out` (B, T, 2H), both directions: one batched step of
+    `gru_recurrence_ref` per (row, time) from h_{t-1} (zeros before each
+    direction's first step). Holds a kernel's every step to the plain step
+    from the kernel's own previous state, where float32 sums in another
+    order may move a later bf16 rounding of h over a whole sequence."""
+    B, T, threeH = gi_f.shape
+    H = threeH // 3
+    z = out.new_zeros(B, 1, H)
+    prev = (torch.cat([z, out[:, :-1, :H]], 1), torch.cat([out[:, 1:, H:], z], 1))
+    return torch.cat([gru_recurrence_ref(gi.reshape(B * T, 1, threeH), w, b,
+                                         h0=hp.reshape(B * T, H),
+                                         compute_dtype=compute_dtype).reshape(B, T, H)
+                      for gi, w, b, hp in zip((gi_f, gi_b), (w_hh_f, w_hh_b), (b_hh_f, b_hh_b),
+                                              prev)], -1)
+
+
+def _launch(gis, w_hhs, b_hhs, reverse_mask: int, h0s=None, bf16: bool = False
+            ) -> torch.Tensor:
     """One launch for 1 or 2 directions; direction d writes out[..., d*H:(d+1)*H],
-    starting from h0s[d] (B, H) when given, else from zeros."""
-    global launches
+    starting from h0s[d] (B, H) when given, else from zeros; `bf16`: the
+    bf16-operand instantiation."""
+    global launches, bf16_launches
     gi0, w0 = gis[0], w_hhs[0]
     B, T, threeH = gi0.shape
     H = threeH // 3
@@ -139,7 +171,7 @@ def _launch(gis, w_hhs, b_hhs, reverse_mask: int, h0s=None) -> torch.Tensor:
         out = _launch(tuple(pad_gates(g, H, Hp) for g in gis),
                       tuple(pad_w_hh(w, H, Hp) for w in w_hhs),
                       tuple(pad_gates(b, H, Hp) for b in b_hhs), reverse_mask,
-                      None if h0s is None else tuple(pad_units(h, H, Hp) for h in h0s))
+                      None if h0s is None else tuple(pad_units(h, H, Hp) for h in h0s), bf16)
         return torch.cat([out[..., d * Hp:d * Hp + H] for d in range(len(gis))], dim=-1)
     _check_fits("gru_fwd", "avs_gru_fwd_max_hidden", H)
     for t in (*gis, *w_hhs, *b_hhs):
@@ -170,10 +202,13 @@ def _launch(gis, w_hhs, b_hhs, reverse_mask: int, h0s=None) -> torch.Tensor:
              None if h0s is None else h0s[-1].data_ptr(), out.data_ptr(),
              gi0.stride(0), gi0.stride(1), w0.stride(0), w0.stride(1),
              out.stride(0), out.stride(1), H, h0_sb,
-             B, T, H, ndir, reverse_mask, dev.index,
+             B, T, H, ndir, reverse_mask, int(bf16), dev.index,
              torch.cuda.current_stream(dev).cuda_stream)
     build.check("gru_fwd", err, "gru_fwd launch")
-    launches += 1
+    if bf16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return out
 
 
@@ -221,6 +256,32 @@ def _bigru_fwd_fake(gi_f, gi_b, w_hh_f, w_hh_b, b_hh_f, b_hh_b):
     return gi_f.new_empty(B, T, 2 * (threeH // 3))  # H as given (the launch pads it)
 
 
+def _bigru_fwd_bf16_cuda(gi_f: torch.Tensor, gi_b: torch.Tensor, w_hh_f: torch.Tensor,
+                         w_hh_b: torch.Tensor, b_hh_f: torch.Tensor,
+                         b_hh_b: torch.Tensor) -> torch.Tensor:
+    """Both directions on the card, bf16 operands: one launch."""
+    return _launch((gi_f, gi_b), (w_hh_f, w_hh_b), (b_hh_f, b_hh_b), 0b10, bf16=True)
+
+
+# The bf16-operand recurrence as an operator of its own, routed as
+# `bigru_fwd_op`.
+bigru_fwd_bf16_op = torch.library.custom_op("avsync_torch::bigru_fwd_bf16",
+                                            _bigru_fwd_bf16_cuda, mutates_args=(),
+                                            device_types="cuda")
+
+
+@bigru_fwd_bf16_op.register_kernel("cpu")
+def _bigru_fwd_bf16_cpu(gi_f, gi_b, w_hh_f, w_hh_b, b_hh_f, b_hh_b):
+    bf = torch.bfloat16
+    return torch.cat([gru_recurrence_ref(gi_f, w_hh_f, b_hh_f, False, compute_dtype=bf),
+                      gru_recurrence_ref(gi_b, w_hh_b, b_hh_b, True, compute_dtype=bf)], dim=-1)
+
+
+@bigru_fwd_bf16_op.register_fake
+def _bigru_fwd_bf16_fake(gi_f, gi_b, w_hh_f, w_hh_b, b_hh_f, b_hh_b):
+    return _bigru_fwd_fake(gi_f, gi_b, w_hh_f, w_hh_b, b_hh_f, b_hh_b)
+
+
 def bigru_recurrence(gi_f: torch.Tensor, gi_b: torch.Tensor,
                      w_hh_f: torch.Tensor, w_hh_b: torch.Tensor,
                      b_hh_f: torch.Tensor, b_hh_b: torch.Tensor) -> torch.Tensor:
@@ -229,6 +290,15 @@ def bigru_recurrence(gi_f: torch.Tensor, gi_b: torch.Tensor,
     (B, T, 2H) = [forward | backward], torch's bidirectional layout."""
     _on_cuda(gi_f)  # refuses other devices
     return bigru_fwd_op(gi_f, gi_b, w_hh_f, w_hh_b, b_hh_f, b_hh_b)
+
+
+def bigru_recurrence_bf16(gi_f: torch.Tensor, gi_b: torch.Tensor,
+                          w_hh_f: torch.Tensor, w_hh_b: torch.Tensor,
+                          b_hh_f: torch.Tensor, b_hh_b: torch.Tensor) -> torch.Tensor:
+    """`bigru_recurrence` with bf16 operands in each step's product (forward
+    only: the int8 forward serves)."""
+    _on_cuda(gi_f)
+    return bigru_fwd_bf16_op(gi_f, gi_b, w_hh_f, w_hh_b, b_hh_f, b_hh_b)
 
 
 # ---------------------------------------------------------------------------

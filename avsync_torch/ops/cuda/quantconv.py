@@ -7,7 +7,7 @@ the CUDA kernel Q1 and its plain twin.
     quantizes the f32 block input with the static scale, runs the int8
     convolution on the tensor cores with exact int32 sums, dequantizes, adds
     the bias, applies ReLU and pools, in one launch; `launches` counts its
-    launches;
+    launches, `bf16_launches` those of its bf16 epilogue;
   * plain version: `int8_conv_pool_ref`, the same function in PyTorch ops
     (the convolution of the int8 values in float64, which is exact: every
     partial sum is an integer below 2^53). It is the CPU path and the card's
@@ -26,6 +26,14 @@ Contracts, so that the int8 forward hands int8 from block to block:
   | `x_scale` inside                        | or int8 quantized with `out_scale` (the    |
   | or int8 channels-last, used as is       | next block's x_scale), equal to            |
   |                                         | `quantize_input(float32 out, out_scale)`   |
+
+Under bf16 compute (the JAX block's `out_dtype=bfloat16`) `scale` and `bias`
+come as bf16, s16 = bf16(x_scale * k_scale) and b16 = bf16(bias), and the
+epilogue rounds to bf16 after each op, as XLA does:
+v = bf16(bf16(bf16(float(acc)) * s16) + b16); the output is then bf16 (None)
+or int8, `quantize_input` of v widened to float32 (the JAX block divides the
+bf16 value by its float32 scale in float32). The dtype of `scale` chooses
+the epilogue: the kernel's `bf16` flag, or the plain version's bf16 ops.
 
 Layouts: x (B, Cin, T, H, W); the kernel `kernel_q` (Cout, Cin, kt, kh, kw)
 int8, which the kernel reads packed once per load (`pack_kernel`: (Npad,
@@ -48,14 +56,16 @@ import torch.nn.functional as F
 
 from avsync_torch.ops.cuda import build
 
-# Kernel launches since the last reset (the caller resets them to 0).
+# Kernel launches since the last reset (the caller resets them to 0): the
+# f32 epilogue's, and the bf16 epilogue's.
 launches = 0
+bf16_launches = 0
 
-# avs_int8_conv_pool(x, w, scale, bias, out, x_scale, out_scale, x_int8, out_int8,
+# avs_int8_conv_pool(x, w, scale, bias, out, x_scale, out_scale, x_int8, out_int8, bf16,
 #                    B, Cin, T, H, W, Cout, kt, kh, kw, Kpad, Npad, tile_rows,
 #                    tile_cols, pos_bytes, frames, 5 x strides, 5 out strides,
 #                    device, stream)
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_float] * 2 + [ctypes.c_int] * 17
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_float] * 2 + [ctypes.c_int] * 18
              + [ctypes.c_longlong] * 10 + [ctypes.c_int, ctypes.c_void_p])
 _SMEM_ARGTYPES = [ctypes.c_int] * 8
 
@@ -175,9 +185,11 @@ def quantize_input(x: torch.Tensor, x_scale: float) -> torch.Tensor:
 
 
 def _dequant_pool(acc: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """float32(acc) * scale + bias (two roundings, no FMA), ReLU, pool."""
+    """float32(acc) * scale + bias (two roundings, no FMA), ReLU, pool, in
+    scale's dtype: under bf16 each op rounds to bf16, the convert through
+    float32 as XLA converts int32."""
     view = (1, -1, 1, 1, 1)
-    y = acc.to(torch.float32) * scale.view(view)
+    y = acc.to(torch.float32).to(scale.dtype) * scale.view(view)
     return F.max_pool3d(F.relu(y + bias.view(view)), (1, 2, 2))
 
 
@@ -190,21 +202,24 @@ def _ref(x, kernel_q, scale, bias, x_scale: float, out_scale: Optional[float]) -
     # integers below 2^53: exact, whatever the algorithm (round() only guards
     # a transform-based algorithm's rounding of a few ulps)
     out = _dequant_pool(acc.round().to(torch.int32), scale, bias)
-    return out if out_scale is None else quantize_input(out, out_scale).to(torch.int8)
+    return out if out_scale is None else quantize_input(out.float(), out_scale).to(torch.int8)
 
 
 def int8_conv_pool_ref(x: torch.Tensor, kernel_q: torch.Tensor, k_scale: torch.Tensor,
                        bias: torch.Tensor, x_scale: float,
-                       out_scale: Optional[float] = None) -> torch.Tensor:
+                       out_scale: Optional[float] = None,
+                       compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain version: maxpool(relu(float32(conv3d(q(x), kernel_q)) *
     (x_scale * k_scale) + bias)), NCDHW, q(x) = `quantize_input` of an f32 x
     (an int8 x is taken as already quantized); the convolution of the int8
     values in float64 (exact), then int32, then f32; with `out_scale`, the
     f32 result quantized to int8 by `quantize_input`, channels-last (the
-    layout a next block takes)."""
+    layout a next block takes). `compute_dtype` bf16: the bf16 epilogue
+    (the module's docstring), bf16 or int8 out."""
     _check_int8_layout(x)
     scale = torch.tensor(x_scale, dtype=torch.float32) * k_scale.to("cpu", torch.float32)
-    out = _ref(x, kernel_q, scale.to(x.device), bias, x_scale, out_scale)
+    dt = compute_dtype or torch.float32
+    out = _ref(x, kernel_q, scale.to(x.device, dt), bias.to(dt), x_scale, out_scale)
     return out if out_scale is None else out.contiguous(memory_format=torch.channels_last_3d)
 
 
@@ -214,17 +229,21 @@ def _check_int8_layout(x: torch.Tensor) -> None:
                          "int8 output is")
 
 
-def _out_empty(x: torch.Tensor, cout: int, out_scale: Optional[float]) -> torch.Tensor:
+def _out_empty(x: torch.Tensor, cout: int, out_scale: Optional[float],
+               dtype: torch.dtype) -> torch.Tensor:
+    """The block's output, channels-last: `dtype` (the epilogue's), or int8
+    with an `out_scale`."""
     B, _, T, H, W = x.shape
-    dtype = torch.float32 if out_scale is None else torch.int8
+    dtype = dtype if out_scale is None else torch.int8
     return x.new_empty(B, T, H // 2, W // 2, cout, dtype=dtype).permute(0, 4, 1, 2, 3)
 
 
 def _int8_conv_pool_cuda(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                          bias: torch.Tensor, x_scale: float, cout: int, kt: int, kh: int,
                          kw: int, out_scale: Optional[float] = None) -> torch.Tensor:
-    """One Q1 launch."""
-    global launches
+    """One Q1 launch: the f32 epilogue, or with bf16 scale and bias the bf16
+    one."""
+    global launches, bf16_launches
     B, cin, T, H, W = x.shape
     dev = x.device
     if x.dtype not in (torch.float32, torch.int8):
@@ -232,10 +251,12 @@ def _int8_conv_pool_cuda(x: torch.Tensor, packed: torch.Tensor, scale: torch.Ten
     _check_int8_layout(x)
     if packed.device != dev or packed.dtype != torch.int8 or not packed.is_contiguous():
         raise ValueError(f"int8_conv_pool: the packed kernel must be contiguous int8 on {dev}")
+    dt = scale.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError("int8_conv_pool: scale and bias must be float32 or bfloat16")
     for name, t in (("scale", scale), ("bias", bias)):
-        if (t.device != dev or t.dtype != torch.float32 or not t.is_contiguous()
-                or t.shape != (cout,)):
-            raise ValueError(f"int8_conv_pool: {name} must be ({cout},) contiguous float32 "
+        if t.device != dev or t.dtype != dt or not t.is_contiguous() or t.shape != (cout,):
+            raise ValueError(f"int8_conv_pool: {name} must be ({cout},) contiguous {dt} "
                              f"on {dev}")
     kpad, npad = padded(cin * kt * kh * kw), padded(cout)
     if packed.shape != (npad, kpad):
@@ -245,15 +266,19 @@ def _int8_conv_pool_cuda(x: torch.Tensor, packed: torch.Tensor, scale: torch.Ten
     tiles = -(-(H // 2) // rows) * -(-(W // 2) // cols)
     per_sm = 2 if shared_memory_bytes(cin, kpad, kt, kh, kw, rows, cols) <= TWO_PER_SM else 1
     frames = frames_for(B, T, tiles, _sm_count(dev.index), per_sm)
-    out = _out_empty(x, cout, out_scale)
+    out = _out_empty(x, cout, out_scale, dt)
     fn = build.function("int8_conv_pool", "avs_int8_conv_pool", _ARGTYPES)
     err = fn(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), bias.data_ptr(),
              out.data_ptr(), x_scale, 1.0 if out_scale is None else out_scale,
-             int(x.dtype == torch.int8), int(out_scale is not None), B, cin, T, H, W, cout, kt,
+             int(x.dtype == torch.int8), int(out_scale is not None),
+             int(dt == torch.bfloat16), B, cin, T, H, W, cout, kt,
              kh, kw, kpad, npad, rows, cols, pos_bytes(cin), frames,
              *x.stride(), *out.stride(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
     build.check("int8_conv_pool", err, "int8_conv_pool launch")
-    launches += 1
+    if dt == torch.bfloat16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return out
 
 
@@ -268,14 +293,14 @@ int8_conv_pool_op = torch.library.custom_op("avsync_torch::int8_conv_pool",
 def _int8_conv_pool_cpu(x, packed, scale, bias, x_scale, cout, kt, kh, kw, out_scale=None):
     _check_int8_layout(x)
     kernel_q = unpack_kernel(packed, cout, x.shape[1], kt, kh, kw)
-    out = _out_empty(x, cout, out_scale)
+    out = _out_empty(x, cout, out_scale, scale.dtype)
     out.copy_(_ref(x, kernel_q, scale, bias, x_scale, out_scale))
     return out
 
 
 @int8_conv_pool_op.register_fake
 def _int8_conv_pool_fake(x, packed, scale, bias, x_scale, cout, kt, kh, kw, out_scale=None):
-    return _out_empty(x, cout, out_scale)
+    return _out_empty(x, cout, out_scale, scale.dtype)
 
 
 def check_geometry(x: torch.Tensor, kernel_shape, x_scale: float,

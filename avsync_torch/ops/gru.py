@@ -24,7 +24,10 @@ bf16 x times bf16 weight_ih summed and kept in float32, plus the float32
 bias (`avsync/ops/gru.py:75-83,119-128`). The kernels' recurrence is float32
 whatever the dtype, as the JAX Pallas kernels are, so K2 and K3 run
 unchanged on it. The plain loop follows `gru_scan`: each step's product
-takes h and w_hh rounded to bf16 (`avsync/ops/gru.py:76,89`).
+takes h and w_hh rounded to bf16 (`avsync/ops/gru.py:76,89`). The int8
+forward under bf16 runs `gru_scan` itself (`avsync/ops/quant.py:292-296`),
+so it asks for that rounding by `recurrence_dtype`, which the kernel path
+takes as K2's bf16-operand instantiation (forward only).
 
 Under tensor parallelism (`tp`, `parallel/mesh.TensorParallel`) the weights
 are this rank's block of gate rows: the input projection computes its slice
@@ -37,8 +40,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from avsync_torch.ops.cuda.gru import (bigru_recurrence, bigru_recurrence_bwd,
-                                       gru_recurrence_ref)
+from avsync_torch.ops.cuda.gru import (bigru_recurrence, bigru_recurrence_bf16,
+                                       bigru_recurrence_bwd, gru_recurrence_ref)
 from avsync_torch.ops.precision import linear_f32
 
 
@@ -80,10 +83,14 @@ class BiGRURecurrence(torch.autograd.Function):
 
 def bigru(x: torch.Tensor, fwd: GRUWeights, bwd: GRUWeights,
           use_kernel: bool = False, tp=None,
-          compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+          compute_dtype: Optional[torch.dtype] = None,
+          recurrence_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Bidirectional GRU: (B, T, D) -> (B, T, 2H) = [forward | backward],
     float32; with `tp` the weights are row shards, gathered as the module
-    says; `compute_dtype` bf16 rounds as the module says."""
+    says; `compute_dtype` bf16 rounds as the module says. `recurrence_dtype`
+    bf16 rounds h and w_hh in each step's product on either path (the
+    kernel path then runs forward only); None leaves the kernels float32
+    and the plain loop at `compute_dtype`."""
     if tp is not None:
         x = tp.enter(x)
     gi_f = input_projection(x, fwd, compute_dtype)
@@ -92,12 +99,14 @@ def bigru(x: torch.Tensor, fwd: GRUWeights, bwd: GRUWeights,
         gi_f, gi_b = tp.gather(gi_f, -1), tp.gather(gi_b, -1)
         fwd, bwd = (w._replace(weight_hh=tp.gather(w.weight_hh, 0),
                                bias_hh=tp.gather(w.bias_hh, 0)) for w in (fwd, bwd))
+    if use_kernel and recurrence_dtype is not None:
+        return bigru_recurrence_bf16(gi_f, gi_b, fwd.weight_hh.t(), bwd.weight_hh.t(),
+                                     fwd.bias_hh, bwd.bias_hh)
     if use_kernel:
         return BiGRURecurrence.apply(gi_f, gi_b, fwd.weight_hh.t(), bwd.weight_hh.t(),
                                      fwd.bias_hh, bwd.bias_hh)
+    dt = recurrence_dtype or compute_dtype
     return torch.cat([
-        gru_recurrence_ref(gi_f, fwd.weight_hh.t(), fwd.bias_hh, False,
-                           compute_dtype=compute_dtype),
-        gru_recurrence_ref(gi_b, bwd.weight_hh.t(), bwd.bias_hh, True,
-                           compute_dtype=compute_dtype),
+        gru_recurrence_ref(gi_f, fwd.weight_hh.t(), fwd.bias_hh, False, compute_dtype=dt),
+        gru_recurrence_ref(gi_b, bwd.weight_hh.t(), bwd.bias_hh, True, compute_dtype=dt),
     ], dim=-1)

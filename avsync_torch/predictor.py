@@ -222,7 +222,10 @@ class LipReader:
 
     `quantize="int8"` runs the conv stack in int8 (`ops/quant.py`: Q1 on the
     card, three launches per batch) with static activation scales; the
-    recurrent layers and the head stay float32. Calibration sources, in order of
+    recurrent layers and the head run in the config's compute dtype, and
+    under bf16 the blocks end in Q1's bf16 epilogue and K2 takes bf16
+    operands, as the JAX LipReader's int8 forward. Calibration runs in
+    float32 whatever the dtype. Calibration sources, in order of
     precedence:
       1. `calibration_scales`: the per-layer input scales of a `quantize`
          export (an `.npz` path, from either package, or the (n_layers,)

@@ -203,24 +203,55 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      on phase 5's corpus (the second an epoch program over the device cache),
      K1-K4 counted; the bf16 epoch program against its eager loop under
      cudnn.deterministic bit for bit on phase 9's corpus, steps/s and the
-     idle share beside phase 9's f32 graph; the loss falling over 20 steps;
-     d. `cli test`, `infer`, `serve` (a child process under 16 crops,
-     transcripts equal an in-process bf16 reader's, SIGTERM drains) and
-     `export` (the artifact against the live bf16 reader at B = 1 and 8) in
-     bf16; `test --quantize int8 --compute_dtype bfloat16` refused naming
-     ROADMAP item 14; e. `misalign-train` (1 epoch) and `misalign-eval` with
+     idle share beside phase 9's f32 graph, K1-bf16, K4-bf16, K2 and K3
+     counted by profiler name in a replayed epoch traced after a warm-up
+     one (at least S, S, 2S, 2S, as phase 9 requires of the f32 replays);
+     the loss falling over 20 steps; d. `cli test`, `infer`, `serve` (a
+     child process under 16 crops, transcripts equal an in-process bf16
+     reader's, SIGTERM drains) and `export` (the artifact against the live
+     bf16 reader at B = 1 and 8) in bf16, and `test --quantize int8` on the
+     bf16 snapshot; e. `misalign-train` (1 epoch) and `misalign-eval` with
      bf16 conv features (K1-bf16 and K5 launch), the sync scorer bf16 vs
      f32 (0.05); f. the TF family's bf16 forward at B=8 on phase 13's
      trained snapshot against its f32 forward (the bounds of b), timed, and
      1 epoch of `cli train --model_family tf --compute_dtype bfloat16`;
-  16. the kernels: a text line with the state of every TPU kernel of the
+  16. int8 serving under bf16 compute, and the card's CLI defaults: a. Q1's
+     bf16 epilogue (the kernel's bf16 flag) equal to its plain version
+     bit for bit in each contract (f32 or int8 in, bf16 or int8 out) at
+     LipNet's blocks (B = 1, 8, 32) and the TF stack's (B=8), a repeat
+     equal; the three LipNet blocks at B=8 in their chain contracts timed
+     beside f32 Q1, the plain version, im2col + `_int_mm` + the bf16
+     epilogue and the bound; b. K2 with bf16 operands (the kernel's bf16 flag)
+     at B=8, T=75, H=256: each step within K2_TOL of the plain version's
+     step from the kernel's previous state, its whole-sequence distance
+     beside the plain version's own card-vs-CPU distance, a repeat equal,
+     timed beside f32 K2, the bound and a bf16 `torch.nn.GRU`; c. the
+     int8-bf16 LipNet forward at full width (phase 4's weights, B=8):
+     Q1-bf16 three times, K2-bf16 twice, nothing else; within the JAX
+     int8 bounds of the bf16 forward and of the same forward on the CPU;
+     the int8 hand-off equal to three bf16-contract blocks; timed beside the
+     f32 int8 forward; d. `quantize` (phase 11's float32 scales),
+     `test`/`infer --quantize int8` and `serve --quantize int8 --qscales`
+     (a child process under 16 crops, SIGTERM drains) under
+     `--compute_dtype bfloat16` on phase 5's checkpoint, launches per batch
+     through an in-process daemon (Q1-bf16 x3, K2-bf16 x2); the TF family's
+     commands and daemon on phase 13's snapshot (Q1-bf16 x3, no K2); e. `cli
+     test` with no dtype flag and no --config runs bf16 on the card (K1-bf16
+     by profiler name, no float32 K1), `--compute_dtype float32` and a
+     float32 `--config` win;
+  17. the kernels: a text line with the state of every TPU kernel of the
      JAX package (and Q1), and one JSON line with the measured numbers
      (launches from the training slices, the serving slices', the daemons',
      the graph replays', the front end's, the TF int8 daemon's and a DP
      rank's step beside them; Q1's times at the TF blocks; K1's and K4's
      bf16 instantiations as rows of their own, their launches from phase
-     15's bf16 training, forward and detector runs);
-  17. the card's name/power line, then the status JSON as the last line.
+     15's bf16 training, forward and detector runs; Q1's bf16 epilogue and
+     K2's bf16-operand instantiation as rows of their own, their launches
+     from phase 16's int8-bf16 daemon);
+  18. the card's name/power line, then the status JSON as the last line.
+
+The phases before 15 pass `--compute_dtype float32` to every command: the
+card's CLI default is bf16 without `--config`.
 
 Exits with 2 and prints no result without a GPU or outside a checkout.
 """
@@ -255,6 +286,8 @@ LIB_TOL = dict(atol=1e-4, rtol=1e-4)  # sanity check of a library yardstick
 # (zeros included) in its own order: a sanity check, not a kernel check
 LIB_WGRAD_TOL = dict(atol=1e-2, rtol=1e-4)
 SLICE_ATOL = 1e-4  # log-probs, kernel path vs plain path on the card
+# the float32 phases' commands: without --config the card's CLI default is bf16
+F32 = ["--compute_dtype", "float32"]
 # one train step, kernel path vs plain path: loss to 1e-5 relative; each
 # gradient to 1e-3 of its largest magnitude (fp32 sums over up to 10^6
 # terms in another order, through two 75-step recurrences)
@@ -280,6 +313,30 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def queued_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median CUDA-event time of fn() in ms with its launches queued behind a
+    device-side spin (`torch.cuda._sleep`, ~0.5 ms), so the events time the
+    device's work and not the host's launch: `time_ms` starts its clock when
+    the device is idle, so it also holds the wrapper's host cost, which
+    grows as the process accumulates threads and state."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
         start.record()
         fn()
         end.record()
@@ -434,6 +491,7 @@ def check_gru(dev):
     gf, wf, bf = case(B, T, H)
     gb, wb, bb = case(B, T, H)
     ms = time_ms(lambda: gru.bigru_recurrence(gf, gb, wf, wb, bf, bb))
+    ms_queued = queued_ms(lambda: gru.bigru_recurrence(gf, gb, wf, wb, bf, bb))
     plain = time_ms(lambda: (gru.gru_recurrence_ref(gf, wf, bf, False),
                              gru.gru_recurrence_ref(gb, wb, bb, True)))
     layer = BiGRU(D, H, use_kernel=True, generator=torch.Generator().manual_seed(3)).to(dev)
@@ -450,7 +508,8 @@ def check_gru(dev):
     bms, by = bound_ms(n_bytes, n_ops)
     print(f"  both directions B=8 T=75 H=256: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
           f"bound_ms={bms:.4f} ({by}: {n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.3f} GFLOP) "
-          f"per_step_us={ms / T * 1e3:.2f}; B=1: kernel_ms={ms_b1:.4f} "
+          f"per_step_us={ms / T * 1e3:.2f} (launch queued behind a spin: {ms_queued:.4f}); "
+          f"B=1: kernel_ms={ms_b1:.4f} "
           f"per_step_us={ms_b1 / T * 1e3:.2f}", flush=True)
     print(f"  BiGRU layer D=6912: port (2 matmuls + kernel) layer_ms={layer_ms:.4f} "
           f"torch.nn.GRU library_ms={lib_ms:.4f}", flush=True)
@@ -462,8 +521,8 @@ def check_gru(dev):
           flush=True)
     return dict(name="gru_fwd", route="cuda", source="avsync_torch/csrc/gru_fwd.cu",
                 replaces="avsync/ops/pallas/gru.py:357", max_abs_err=max(errs),
-                ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib_ms,
-                layer_ms=layer_ms, shape="both directions B=8 T=75 H=256",
+                ms=ms, queued_ms=ms_queued, plain_ms=plain, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms, layer_ms=layer_ms, shape="both directions B=8 T=75 H=256",
                 per_step_us=ms / T * 1e3, ms_B1=ms_b1, per_step_us_B1=ms_b1 / T * 1e3,
                 ms_H512=ms_h512,
                 library_note="library_ms and layer_ms time the whole BiGRU layer "
@@ -867,7 +926,7 @@ def zero_counts():
     from avsync_torch.ops.cuda import convpool, gru, mfcc, quantconv
 
     convpool.launches = convpool.bwd_launches = gru.launches = gru.bwd_launches = 0
-    mfcc.launches = quantconv.launches = 0
+    mfcc.launches = quantconv.launches = quantconv.bf16_launches = gru.bf16_launches = 0
 
 
 def run_training(dev, workdir: str):
@@ -910,7 +969,7 @@ def run_training(dev, workdir: str):
           f"both kernel flags on; corpus of {n_speakers * clips} clips written in "
           f"{time.perf_counter() - t0:.2f} s (train {train_sp}, val {val_sp}, test {test_sp})",
           flush=True)
-    common = ["--data_path", data, "--config", cfg_path]
+    common = ["--data_path", data, "--config", cfg_path, *F32]
     results = os.path.join(workdir, "results.json")
     zero_counts()
     t0 = time.perf_counter()
@@ -1324,7 +1383,7 @@ def run_detector_training(dev, workdir: str):
           f"(train {len(train_p)}, val {len(val_p)}, test {len(test_p)}), the LipNet trained "
           f"above, batch {det.batch_size}, {det.epochs} epochs", flush=True)
     common = ["--data_path", data, "--config", cfg_path, "--checkpoint", ck,
-              "--detector_checkpoint", det_path]
+              "--detector_checkpoint", det_path, *F32]
     zero_counts()
     t0 = time.perf_counter()
     rc = [cli.main(["misalign-train", *common, "--log_dir", logs, "--save_every", "1"]),
@@ -1450,61 +1509,95 @@ def timed_before(trainer):
 
 def traced(fn):
     """Run fn() under torch.profiler: (result, wall ms, device busy ms,
-    {wrapper: kernels of its name}, all kernel names)."""
+    {wrapper: kernels of its name}, all kernel names). A trace with no
+    device event at all is taken once more (`retraced`)."""
     import torch
 
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        out = fn()
+    def once():
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    busy, names = 0.0, {}
-    for evt in prof.events():
-        if (evt.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(evt, "is_user_annotation", False)):
-            busy += evt.time_range.elapsed_us() / 1e3
-            names[evt.name] = names.get(evt.name, 0) + 1
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        return (out, wall), [(e.name, e.time_range.start, e.time_range.elapsed_us(),
+                              bool(getattr(e, "is_user_annotation", False)))
+                             for e in prof.events()
+                             if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    (out, wall), events = retraced(once, "traced")
+    busy, names = kernel_names(events)
     found = {k: sum(n for name, n in names.items() if pat in name)
              for k, pat in KERNEL_NAMES.items()}
     return out, wall, busy, found, names
 
 
-def device_events(fn):
+def retraced(take, what):
+    """take() -> (result, device events); a trace that holds no device event
+    at all (torch.profiler has returned none on a healthy run) is taken once
+    more, and a second empty one fails naming the profiler, not a kernel. A
+    trace with events but without some kernel is the caller's to fail."""
+    got, events = take()
+    if not events:
+        print(f"  {what}: torch.profiler recorded no device event; tracing once more",
+              flush=True)
+        got, events = take()
+        if not events:
+            raise SystemExit(f"{what}: torch.profiler recorded no device event in two traces "
+                             "(a profiler failure: no kernel's count can be read)")
+    return got, events
+
+
+def kernel_names(events):
+    """(device busy ms, {kernel name: count}) of device events."""
+    busy, names = 0.0, {}
+    for name, _, dur, note in events:
+        if not note:
+            busy += dur / 1e3
+            names[name] = names.get(name, 0) + 1
+    return busy, names
+
+
+def device_events(fn, wall=None):
     """The device events (name, start us, duration us, is a user annotation)
     of one fn() recorded by torch.profiler after a first, warm-up fn() under
     the same profiler (the tracer's start-up drops a short window's first
-    kernels)."""
+    kernels); retaken once when empty (`retraced`). `wall`: a list that
+    receives the traced fn()'s wall ms."""
     import torch
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    events = []
+    def once():
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        events, ms = [], []
 
-    def record(prof):  # called once, when the active step ends
-        events.extend((e.name, e.time_range.start, e.time_range.elapsed_us(),
-                       bool(getattr(e, "is_user_annotation", False)))
-                      for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        def record(prof):  # called once, when the active step ends
+            events.extend((e.name, e.time_range.start, e.time_range.elapsed_us(),
+                           bool(getattr(e, "is_user_annotation", False)))
+                          for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA)
 
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts, on_trace_ready=record,
-                                schedule=torch.profiler.schedule(wait=0, warmup=1,
-                                                                 active=1)) as prof:
-        for _ in range(2):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts, on_trace_ready=record,
+                                    schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                                     active=1)) as prof:
+            for _ in range(2):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                prof.step()
+        return ms[-1], events
+
+    ms, events = retraced(once, "device_events")
+    if wall is not None:
+        wall.append(ms)
     return events
 
 
 def traced_step(fn):
     """(device busy ms, {kernel name: count}) of one fn() (`device_events`)."""
-    busy, names = 0.0, {}
-    for name, _, dur, note in device_events(fn):
-        if not note:
-            busy += dur / 1e3
-            names[name] = names.get(name, 0) + 1
-    return busy, names
+    return kernel_names(device_events(fn))
 
 
 def path_times(label, steps, wall_ms, traced_ms, busy_ms, stamps):
@@ -2132,7 +2225,7 @@ def run_serving(dev, workdir, corpus, ckpt_dir, test_config, greedy_results, smi
     loaded, secs = {}, {}
     for name, (path, extra) in arts.items():
         t0 = time.perf_counter()
-        if cli.main(["export", "--checkpoint", lip, "--out", path, *extra]) != 0:
+        if cli.main(["export", "--checkpoint", lip, "--out", path, *F32, *extra]) != 0:
             raise SystemExit(f"export {name} failed")
         t1 = time.perf_counter()
         loaded[name] = load_exported(path)
@@ -2162,7 +2255,7 @@ def run_serving(dev, workdir, corpus, ckpt_dir, test_config, greedy_results, smi
                  for f, a in sync_reqs]
     common = ["--port", "0", "--warmup", "--max_batch", str(MAX_BATCH), "--max_body_mb",
               str(MAX_BODY_MB)]
-    daemon = Daemon(["--checkpoint", lip, "--detector_checkpoint", det, *common])
+    daemon = Daemon(["--checkpoint", lip, "--detector_checkpoint", det, *F32, *common])
     try:
         out["live"] = serve_checks(daemon.url, clips, sync_reqs, reader, scorer, "live daemon")
         out["live"]["transcribe_crops"] = transcribe_load(daemon.url, crops, reader,
@@ -2268,7 +2361,7 @@ def run_serving(dev, workdir, corpus, ckpt_dir, test_config, greedy_results, smi
         path = os.path.join(workdir, f"beam{width}.json")
         t0 = time.perf_counter()
         if cli.main(["test", "--data_path", corpus, "--config", test_config, "--checkpoint",
-                     ckpt_dir, "--output", path, "--beam", str(width)]) != 0:
+                     ckpt_dir, "--output", path, "--beam", str(width), *F32]) != 0:
             raise SystemExit(f"cli test --beam {width} failed")
         with open(path) as f:
             res[width] = json.load(f)
@@ -2334,11 +2427,11 @@ def q1_case(g, dev, B, cin, cout, T, H, W, k, mode="random"):
     return quant_conv_params(kq.to(dev), ks, bias, xs), x.to(dev)
 
 
-def im2col_int_mm_block(qc, x):
+def im2col_int_mm_block(qc, x, dt=None):
     """The library yardstick for one int8 block (nothing in the port calls
     it): quantize, an im2col gather of the int8 input (K zero-padded to a
     multiple of 8), `torch._int_mm`, then the same dequant, ReLU and pool in
-    PyTorch ops."""
+    PyTorch ops (the bf16 epilogue's roundings under `dt` bf16)."""
     import torch
     import torch.nn.functional as F
 
@@ -2357,6 +2450,8 @@ def im2col_int_mm_block(qc, x):
         a = F.pad(a, (0, k8 - K))
     acc = torch._int_mm(a, qc.packed[:cout, :k8].t())
     acc = acc.view(B, T, H, W, cout).permute(0, 4, 1, 2, 3)
+    if dt == torch.bfloat16:
+        return quantconv._dequant_pool(acc, qc.scale16, qc.bias16)
     return quantconv._dequant_pool(acc, qc.scale, qc.bias)
 
 
@@ -2364,43 +2459,49 @@ def im2col_int_mm_block(qc, x):
 CHAIN_CONTRACTS = {"conv1": "f32_s8", "conv2": "s8_s8", "conv3": "s8_f32"}
 
 
-def q1_contract(qc, x, contract, mode):
+def q1_contract(qc, x, contract, mode, dt=None):
     """(input, out_scale) of one contract of Q1, as
     tests/test_torch_kernels_cuda.py's: an int8 input is x quantized with
     the block's scale, channels-last; an int8 output takes a scale that maps
-    the f32 output's largest value to 127 (200 in 'extreme' mode: past the
-    clip), or 0.125 in 'ties' mode."""
+    the float output's largest value (bf16 under `dt` bf16) to 127 (200 in
+    'extreme' mode: past the clip), or 0.125 in 'ties' mode."""
     import torch
 
     from avsync_torch.ops.cuda import quantconv
 
     if contract.startswith("s8"):
         x = channels_last(quantconv.quantize_input(x, float(qc.x_scale)).to(torch.int8))
-    if contract.endswith("f32"):
+    if not contract.endswith("s8"):
         return x, None
     top = float(quantconv.int8_conv_pool_ref(x, qc.kernel_q, qc.k_scale, qc.bias,
-                                             float(qc.x_scale)).max())
+                                             float(qc.x_scale), compute_dtype=dt).float().max())
     return x, {"ties": 0.125, "extreme": top / 200}.get(mode, top / 127 or 1.0)
 
 
 def q1_bytes_ops(B, T, cin, cout, H, W, k, contract):
     """(bytes, int8 operations) one launch must move and do: each input
-    read once (4 or 1 bytes a value), the int8 weights, scale and bias,
-    each output written once (4 or 1 bytes); the conv over the pre-pool
-    positions the floor pool keeps."""
+    read once (4 or 1 bytes a value), the int8 weights, scale and bias (4
+    bytes a value, 2 for the bf16 epilogue's), each output written once (4,
+    2 or 1 bytes); the conv over the pre-pool positions the floor pool
+    keeps. `contract`: (input)_(output), f32, bf16 or s8; a bf16 epilogue
+    with an int8 output is `s8_s8_bf16` or `f32_s8_bf16`."""
     H2, W2 = H // 2, W // 2
     K = cin * k[0] * k[1] * k[2]
     n_ops = 2 * B * T * (2 * H2) * (2 * W2) * cout * K
-    x_b, o_b = (1 if contract.startswith("s8") else 4), (1 if contract.endswith("s8") else 4)
-    n_bytes = x_b * B * cin * T * H * W + cout * K + 8 * cout + o_b * B * cout * T * H2 * W2
+    size = {"s8": 1, "bf16": 2, "f32": 4}
+    parts = contract.split("_")
+    x_b, o_b = size[parts[0]], size[parts[1]]
+    sb = 2 if parts[-1] == "bf16" else 4
+    n_bytes = x_b * B * cin * T * H * W + cout * K + 2 * sb * cout + o_b * B * cout * T * H2 * W2
     return n_bytes, n_ops
 
 
-def q1_equal_cases(g, dev, cases, contracts=Q1_CONTRACTS):
+def q1_equal_cases(g, dev, cases, contracts=Q1_CONTRACTS, dt=None):
     """Q1 against its plain version in each contract of `contracts` for each
     (B, Cin, Cout, T, H, W, k, mode) case: equal bit for bit (torch.equal),
     a repeat launch equal too; T=75 inputs with Cin > 1 channels-last (the
-    int8 forward's layout of conv2 and conv3)."""
+    int8 forward's layout of conv2 and conv3). `dt` bf16: the bf16
+    epilogue (and the bf16 contracts)."""
     import torch
 
     from avsync_torch.ops.cuda import quantconv
@@ -2413,18 +2514,18 @@ def q1_equal_cases(g, dev, cases, contracts=Q1_CONTRACTS):
         tile = quantconv.tile_for(H // 2, W // 2, cin, cout, *k)
         said = []
         for contract in contracts:
-            x, out_scale = q1_contract(qc, x32, contract, mode)
-            got = quant_conv_block(qc, x, out_scale)
-            again = quant_conv_block(qc, x, out_scale)
+            x, out_scale = q1_contract(qc, x32, contract, mode, dt)
+            got = quant_conv_block(qc, x, out_scale, compute_dtype=dt)
+            again = quant_conv_block(qc, x, out_scale, compute_dtype=dt)
             want = quantconv.int8_conv_pool_ref(x, qc.kernel_q, qc.k_scale, qc.bias,
-                                                float(qc.x_scale), out_scale)
+                                                float(qc.x_scale), out_scale, compute_dtype=dt)
             torch.cuda.synchronize()
             ok = (got.shape == want.shape and got.dtype == want.dtype and torch.equal(got, want)
                   and torch.equal(got, again))
             said.append(f"{contract} {'equal' if ok else 'FAIL'}")
             if not ok:
-                raise SystemExit(f"kernel check failed: Q1 at B={B} Cin={cin} {H}x{W} {mode} "
-                                 f"{contract}")
+                raise SystemExit(f"kernel check failed: Q1{'-bf16' if dt else ''} at B={B} "
+                                 f"Cin={cin} {H}x{W} {mode} {contract}")
             del x, got, again, want
         tiles = -(-(H // 2) // tile[0]) * -(-(W // 2) // tile[1])
         print(f"  B={B} Cin={cin} Cout={cout} T={T} {H}x{W} k={k} {mode} (tile {tile[0]}x"
@@ -2563,7 +2664,7 @@ def run_int8_serving(dev, workdir, corpus, ckpt_dir, test_config, greedy_results
     out = {}
     # c. quantize, test, infer on phase 5's corpus and trained checkpoint
     qtrained = os.path.join(workdir, "qscales_trained.npz")
-    common = ["--data_path", corpus, "--config", test_config]
+    common = ["--data_path", corpus, "--config", test_config, *F32]
     t0 = time.perf_counter()
     if cli.main(["quantize", *common, "--checkpoint", ckpt_dir, "--out", qtrained]) != 0:
         raise SystemExit("cli quantize failed")
@@ -2594,7 +2695,7 @@ def run_int8_serving(dev, workdir, corpus, ckpt_dir, test_config, greedy_results
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["infer", clip, "--checkpoint", lip, "--config", test_config,
-                       "--quantize", "int8"])
+                       "--quantize", "int8", *F32])
     said = [ln for ln in buf.getvalue().splitlines() if ln.startswith("Predicted:")]
     fresh = LipReader(checkpoint=lip, config=cli._config(test_config), device=dev,
                       quantize="int8")
@@ -2612,7 +2713,7 @@ def run_int8_serving(dev, workdir, corpus, ckpt_dir, test_config, greedy_results
                        calibration_scales=qscales)
     daemon = Daemon(["--checkpoint", lip, "--config", serve_config, "--quantize", "int8",
                      "--qscales", qscales, "--port", "0", "--warmup", "--max_batch",
-                     str(MAX_BATCH)])
+                     str(MAX_BATCH), *F32])
     try:
         if http("GET", daemon.url + "/healthz") != (200, {"status": "ok"}):
             raise SystemExit("int8 daemon: /healthz is not ok")
@@ -2662,7 +2763,8 @@ def run_int8_serving(dev, workdir, corpus, ckpt_dir, test_config, greedy_results
     from avsync_torch.ops import quant as tq
 
     block = tq.quant_conv_block
-    tq.quant_conv_block = lambda qc, x, out_scale=None: block(qc, x)
+    tq.quant_conv_block = lambda qc, x, out_scale=None, compute_dtype=None: block(
+        qc, x, compute_dtype=compute_dtype)
     try:
         before = quantconv.launches
         lp_f32_contract = reader._logprobs(clips)
@@ -2999,7 +3101,7 @@ def train_roi_host(dev, workdir, container, smi, base, native_hw):
     write_s = time.perf_counter() - t0
     zero_counts()
     t0 = time.perf_counter()
-    rc = cli.main(["train", "--data_path", root, "--config", cfg_path, "--epochs", "1",
+    rc = cli.main(["train", "--data_path", root, "--config", cfg_path, *F32, "--epochs", "1",
                    "--checkpoint_dir", os.path.join(workdir, "ckpt_native"), "--roi_mode",
                    "variance", "--roi_host", "--device_cache", "on"])
     torch.cuda.synchronize()
@@ -3305,7 +3407,7 @@ def tf_train(dev, workdir, corpus, cfg_path, smi):
     zero_counts()
     t0 = time.perf_counter()
     rc = cli.main(["train", "--data_path", corpus, "--config", cfg_path, "--model_family", "tf",
-                   "--epochs", "2", "--checkpoint_dir", ck, "--show_examples"])
+                   "--epochs", "2", "--checkpoint_dir", ck, "--show_examples", *F32])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = {**counts(), "int8_conv_pool": quantconv.launches}
@@ -3396,7 +3498,7 @@ def tf_commands(dev, workdir, corpus, cfg_path, ck, smi):
     from avsync_torch import cli, text
 
     common = ["--data_path", corpus, "--config", cfg_path, "--model_family", "tf",
-              "--checkpoint", ck]
+              "--checkpoint", ck, *F32]
     clip = sorted(glob.glob(os.path.join(corpus, "*", "video", "*.npy")))[0]
     results, said = {}, {}
     for name, argv in (("test", ["test", *common]), ("infer", ["infer", clip, *common]),
@@ -3456,13 +3558,15 @@ def tf_int8_forward(dev, f32, q8, frames, seeded, smi):
     clips = f32.preprocess_device(frames)
     lp8 = q8._logprobs(clips)
     block = tq.quant_conv_block
-    tq.quant_conv_block = lambda qc, x, out_scale=None: block(qc, x)
+    tq.quant_conv_block = lambda qc, x, out_scale=None, compute_dtype=None: block(
+        qc, x, compute_dtype=compute_dtype)
     try:
         before = quantconv.launches
         lp_f32_contract = q8._logprobs(clips)
         launched = quantconv.launches - before
-        tq.quant_conv_block = lambda qc, x, out_scale=None: quantconv.int8_conv_pool_ref(
-            x, qc.kernel_q, qc.k_scale, qc.bias, float(qc.x_scale), out_scale)
+        tq.quant_conv_block = lambda qc, x, out_scale=None, compute_dtype=None: (
+            quantconv.int8_conv_pool_ref(x, qc.kernel_q, qc.k_scale, qc.bias,
+                                         float(qc.x_scale), out_scale, compute_dtype))
         lp_plain = q8._logprobs(clips)
     finally:
         tq.quant_conv_block = block
@@ -3510,7 +3614,8 @@ def tf_serving(dev, workdir, corpus, f32, q8, snap, cfg_path, qscales, crops, sm
                                 ("int8", q8, ["--quantize", "int8", "--qscales", qscales])):
         t0 = time.perf_counter()
         daemon = Daemon(["--checkpoint", snap, "--config", cfg_path, "--model_family", "tf",
-                         "--port", "0", "--warmup", "--max_batch", str(MAX_BATCH), *extra])
+                         "--port", "0", "--warmup", "--max_batch", str(MAX_BATCH), *F32,
+                         *extra])
         try:
             up = time.perf_counter() - t0
             row = transcribe_load(daemon.url, crops, reader, f"TF {what} daemon")
@@ -3550,7 +3655,7 @@ def tf_serving(dev, workdir, corpus, f32, q8, snap, cfg_path, qscales, crops, sm
     art_path = os.path.join(workdir, "tf_transcriber.zip")
     t0 = time.perf_counter()
     if cli.main(["export", "--checkpoint", snap, "--config", cfg_path, "--model_family", "tf",
-                 "--out", art_path]) != 0:
+                 "--out", art_path, *F32]) != 0:
         raise SystemExit("cli export --model_family tf failed")
     export_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -3619,7 +3724,7 @@ def run_tf_family(dev, workdir, smi, cfg=None):
     out["commands"] = tf_commands(dev, workdir, corpus, cfg_path, ck, smi)
     qscales = os.path.join(workdir, "tf_qscales.npz")
     if cli.main(["quantize", "--data_path", corpus, "--config", cfg_path, "--checkpoint", snap,
-                 "--out", qscales]) != 0:
+                 "--out", qscales, *F32]) != 0:
         raise SystemExit("cli quantize (TF seeded weights) failed")
     q8 = LipReader(params=state, config=cfg, device=dev, quantize="int8",
                    calibration_scales=qscales)
@@ -4026,11 +4131,11 @@ def run_multi_device(dev, workdir, smi, k2_ms, graph_row, crops):
     ck = os.path.join(workdir, "ck14")
     t0 = time.perf_counter()
     log0 = p14_launch_cli(["train", "--distributed", "--data_path", data, "--config", cfg_path,
-                           "--epochs", "1", "--checkpoint_dir", ck], 2, out)
+                           "--epochs", "1", "--checkpoint_dir", ck, *F32], 2, out)
     wall = time.perf_counter() - t0
     res = os.path.join(out, "test14.json")
     rc = cli.main(["test", "--data_path", data, "--config", cfg_path, "--checkpoint", ck,
-                   "--output", res])
+                   "--output", res, *F32])
     with open(res) as f:
         tested = json.load(f)
     mesh_line = next((ln for ln in log0.splitlines() if ln.startswith("mesh ")), "")
@@ -4084,7 +4189,20 @@ BF16_NEAR_TIE = 0.125
 # a sync probability moves at most a quarter of its logit's change: 0.05
 # for a logit moved by 0.2 (bf16 conv statistics into an f32 MLP)
 BF16_PROB_ATOL = 0.05
-BF16_CRASH = "ROADMAP §1 item 14"  # what `--quantize int8` under bf16 names
+
+
+def bf16_replayed(names):
+    """Kernels of a bf16 LipNet step by profiler name: K1 and K4 in their
+    bf16 instantiations (template argument __nv_bfloat16), K2 and K3."""
+    def count(pat, bf16):
+        return sum(n for name, n in names.items()
+                   if pat in name and ("bfloat16" in name) == bf16)
+
+    return {"conv1_pool_bf16": count(KERNEL_NAMES["conv1_pool"], True),
+            "conv1_pool_bwd_bf16": count(KERNEL_NAMES["conv1_pool_bwd"], True),
+            "conv1_pool_f32": count(KERNEL_NAMES["conv1_pool"], False),
+            "gru_fwd": count(KERNEL_NAMES["gru_fwd"], False),
+            "gru_bwd": count(KERNEL_NAMES["gru_bwd"], False)}
 
 
 def bf16_bound_ms(n_bytes: float, n_ops: float):
@@ -4352,7 +4470,8 @@ def bf16_train(dev, workdir, smi, f32_graph):
                              "the loop's")
         n_rows, S = len(lg.rows), len(lg.rows) // 2
         del runs["loop"], sl
-        # the graph's epoch 3 timed, epoch 4 traced: replays only
+        # the graph's epoch 3 timed; epoch 4 traced after a warm-up epoch
+        # under the same profiler (`device_events`): replays only
         stamps = timed_before(trainer)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4360,16 +4479,24 @@ def bf16_train(dev, workdir, smi, f32_graph):
         torch.cuda.synchronize()
         twall_ms = (time.perf_counter() - t0) * 1e3
         gaps = list(stamps)
-        _, tw, busy, found, _ = traced(lambda: epoch(4))
+        tw = []
+        busy, names = kernel_names(device_events(lambda: epoch(4), wall=tw))
         row = path_times(f"bf16 LipNet graph path B=8 S={S} dropout 0.5 (cudnn.deterministic; "
-                         "epoch 3 timed, epoch 4 traced)", S, twall_ms, tw, busy, gaps)
-        row["replayed"] = found
+                         "epoch 3 timed, epoch 4 traced after a warm-up)", S, twall_ms, tw[0],
+                         busy, gaps)
+        row["replayed"] = bf16_replayed(names)
         del runs
+    # as phase 9 requires of the f32 replays: each kernel at least once per step
+    want = {"conv1_pool_bf16": S, "conv1_pool_bwd_bf16": S, "gru_fwd": 2 * S, "gru_bwd": 2 * S}
     print(f"  bf16 epoch program vs eager loop, 2 epochs of S={S}, cudnn.deterministic: "
           f"parameters, Adam state and {n_rows} losses and gradient norms equal "
-          f"bit for bit; kernels in the traced replayed epoch {row['replayed']}; the f32 "
-          f"graph step in this call (phase 9) {f32_graph['wall_ms_per_step']:.4f} ms, idle "
-          f"{f32_graph['idle_share']:.4f}; PR 14's 78.6198-78.6836 [{smi}]", flush=True)
+          f"bit for bit; kernels in the traced replayed epoch {row['replayed']} (expected at "
+          f"least {want}); the f32 graph step in this call (phase 9) "
+          f"{f32_graph['wall_ms_per_step']:.4f} ms, idle {f32_graph['idle_share']:.4f}; PR "
+          f"14's 78.6198-78.6836 [{smi}]", flush=True)
+    if any(row["replayed"][k] < n for k, n in want.items()):
+        raise SystemExit("a kernel of the bf16 LipNet step did not run inside the graph's "
+                         f"replays; the trace's kernels: {names}")
 
     # the loss falls on one repeated batch
     batch = device_batch(batcher.first_batch(), dev)
@@ -4393,7 +4520,8 @@ def bf16_commands(dev, workdir, smi, ck):
     transcripts equal an in-process bf16 LipReader's, SIGTERM drains) and
     `export` (the artifact against the live bf16 reader at B = 1 and 8) with
     `--compute_dtype bfloat16` on the bf16 snapshot; `test --quantize int8
-    --compute_dtype bfloat16` refused, naming its ROADMAP item."""
+    --compute_dtype bfloat16` on it runs (phase 16 holds the int8-bf16 path
+    itself)."""
     import contextlib
     import dataclasses
     import glob
@@ -4465,16 +4593,15 @@ def bf16_commands(dev, workdir, smi, ck):
     if any(e > BF16_NEAR_TIE for e in errs.values()):
         raise SystemExit("the bf16 artifact differs from the live bf16 reader")
 
-    try:
-        cli.main(["test", "--data_path", data, *common, "--quantize", "int8"])
-    except NotImplementedError as e:
-        refused = str(e)
-    else:
-        raise SystemExit("test --quantize int8 --compute_dtype bfloat16 was not refused")
-    print(f"  test --quantize int8 --compute_dtype bfloat16: NotImplementedError({refused!r})",
-          flush=True)
-    if BF16_CRASH not in refused:
-        raise SystemExit("the int8-under-bf16 refusal does not name its ROADMAP item")
+    results = os.path.join(workdir, "results_bf16_int8.json")
+    rc = cli.main(["test", "--data_path", data, *common, "--quantize", "int8", "--output",
+                   results])
+    with open(results) as f:
+        out["test_int8"] = json.load(f)
+    print(f"  test --quantize int8 --compute_dtype bfloat16 on the bf16 snapshot: rc {rc}; "
+          f"{json.dumps(out['test_int8'])}", flush=True)
+    if rc != 0 or not np.isfinite(out["test_int8"]["cer"]):
+        raise SystemExit("test --quantize int8 --compute_dtype bfloat16 failed")
     return out
 
 
@@ -4606,9 +4733,9 @@ def run_bf16(dev, workdir, tf_dir, smi, f32_graph, tf_f32_ms):
     torch.cuda.empty_cache()
     k1.update(launches=trained["conv1_pool"], launches_forward=served["conv1_pool"],
               launches_detector=detector["conv1_pool"],
-              launches_graph_replay_epoch=out["train"]["replayed"]["conv1_pool"])
+              launches_graph_replay_epoch=out["train"]["replayed"]["conv1_pool_bf16"])
     k4.update(launches=trained["conv1_pool_bwd"],
-              launches_graph_replay_epoch=out["train"]["replayed"]["conv1_pool_bwd"])
+              launches_graph_replay_epoch=out["train"]["replayed"]["conv1_pool_bwd_bf16"])
     for k in (k1, k4):
         if not k["launches"] or not k["launches_graph_replay_epoch"]:
             raise SystemExit(f"{k['name']} was not launched on the bf16 training path")
@@ -4616,6 +4743,455 @@ def run_bf16(dev, workdir, tf_dir, smi, f32_graph, tf_f32_ms):
         raise SystemExit("conv1_pool_bf16 was not launched on the bf16 serving or detector path")
     print(f"  bf16 phase numbers [{smi}]: {json.dumps(out)}", flush=True)
     return k1, k4, trained, out
+
+
+# ---------------------------------------------------------------------------
+# 16. int8 serving under bf16 compute, and the card's CLI defaults
+# ---------------------------------------------------------------------------
+
+# Q1's contracts under the bf16 epilogue: (input)_(output)
+Q1_BF16_CONTRACTS = ("f32_bf16", "f32_s8", "s8_s8", "s8_bf16")
+# the contract each block of the int8 forward runs in under bf16
+CHAIN_CONTRACTS_BF16 = {"conv1": "f32_s8", "conv2": "s8_s8", "conv3": "s8_bf16"}
+
+
+def q1_bf16_kernel(dev, smi):
+    """16a: Q1's bf16 epilogue (the kernel's bf16 flag) against its plain
+    version with torch.equal in each contract at LipNet's three blocks (B =
+    1, 8, 32) and the TF stack's (B=8), a repeat launch equal too; the three
+    LipNet blocks timed at B=8 in their chain contracts beside f32 Q1 in
+    its own, the plain version, the library yardstick (im2col +
+    `torch._int_mm` + the bf16 epilogue in PyTorch, held equal to Q1-bf16)
+    and the bound. Returns the kernel line's row."""
+    import torch
+
+    from avsync_torch.ops.cuda import quantconv
+    from avsync_torch.ops.quant import quant_conv_block
+
+    bf = torch.bfloat16
+    g = torch.Generator(device="cpu").manual_seed(160)
+    print("int8 under bf16 phase: a. Q1's bf16 epilogue vs int8_conv_pool_ref(compute_dtype="
+          f"bf16) (torch.equal required), contracts {'/'.join(Q1_BF16_CONTRACTS)}:", flush=True)
+    cases = [(B, cin, cout, 75, H, W, k, "random")
+             for (cin, cout, H, W, k) in INT8_BLOCKS.values() for B in (1, 8, 32)]
+    cases += [(8, cin, cout, 75, H, W, k, "random")
+              for (cin, cout, H, W, k) in TF_INT8_BLOCKS.values()]
+    q1_equal_cases(g, dev, cases, Q1_BF16_CONTRACTS, bf)
+    B, T = 8, 75
+    rows, total = {}, {"bytes": 0, "ops": 0}
+    for name, (cin, cout, H, W, k) in INT8_BLOCKS.items():
+        qc, x32 = q1_case(g, dev, B, cin, cout, T, H, W, k)
+        if cin > 1:  # the int8 forward's layout
+            x32 = channels_last(x32)
+        contract = CHAIN_CONTRACTS_BF16[name]
+        x, out16 = q1_contract(qc, x32, contract, "random", bf)
+        xf, out32 = q1_contract(qc, x32, CHAIN_CONTRACTS[name], "random")
+        lib = im2col_int_mm_block(qc, x32, bf)
+        if not torch.equal(lib, quant_conv_block(qc, x32, compute_dtype=bf)):
+            raise SystemExit(f"the im2col + _int_mm yardstick differs from Q1-bf16 at {name}")
+        del lib
+        row = {"contract": contract,
+               "ms": time_ms(lambda: quant_conv_block(qc, x, out16, compute_dtype=bf)),
+               "f32_q1_ms": time_ms(lambda: quant_conv_block(qc, xf, out32)),
+               "plain_ms": time_ms(lambda: quantconv.int8_conv_pool_ref(
+                   x, qc.kernel_q, qc.k_scale, qc.bias, float(qc.x_scale), out16,
+                   compute_dtype=bf), iters=3, warmup=1),
+               "library_ms": time_ms(lambda: im2col_int_mm_block(qc, x32, bf), iters=3,
+                                     warmup=1)}
+        n_bytes, n_ops = q1_bytes_ops(B, T, cin, cout, H, W, k, contract + "_bf16")
+        row["bound_ms"] = max(n_bytes / HBM_BYTES_PER_S, n_ops / INT8_OPS) * 1e3
+        rows[name] = row
+        total["bytes"] += n_bytes
+        total["ops"] += n_ops
+        print(f"  {name} B={B} T={T} {H}x{W} {cin}->{cout} {contract}: kernel_ms={row['ms']:.4f}"
+              f" (f32 Q1 {CHAIN_CONTRACTS[name]} {row['f32_q1_ms']:.4f}) plain_ms="
+              f"{row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} (im2col + _int_mm + "
+              f"the bf16 epilogue) bound_ms={row['bound_ms']:.4f} [{smi}]", flush=True)
+        del qc, x, xf, x32
+        torch.cuda.empty_cache()
+    chain = {key: sum(r[key] for r in rows.values())
+             for key in ("ms", "f32_q1_ms", "plain_ms", "library_ms")}
+    t_bytes = total["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = total["ops"] / INT8_OPS * 1e3
+    chain.update(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops
+                 else "operations", ratio_to_f32=chain["ms"] / chain["f32_q1_ms"])
+    print(f"  three blocks at B=8: bf16 epilogue {chain['ms']:.4f} ms, f32 Q1 "
+          f"{chain['f32_q1_ms']:.4f} ms (x{chain['ratio_to_f32']:.3f}), "
+          f"bound {chain['bound_ms']:.4f} ms ({chain['bound_by']}) [{smi}]", flush=True)
+    return dict(name="int8_conv_pool_bf16", route="cuda",
+                source="avsync_torch/csrc/int8_conv_pool.cu", replaces="avsync/ops/quant.py:97",
+                max_abs_err=0.0, **chain, entry="avs_int8_conv_pool(bf16=1)",
+                shape="B=8 T=75 full width, conv1 + conv2 + conv3 in the bf16 chain contracts "
+                      "(f32->s8, s8->s8, s8->bf16)",
+                replaces_note="no pallas_call: quant_conv_block(out_dtype=bfloat16), "
+                              "avsync/ops/quant.py:109-135",
+                library_note="im2col + torch._int_mm + the bf16 epilogue in PyTorch ops",
+                blocks=rows)
+
+
+def k2_bf16_kernel(dev, smi, k2_row):
+    """16b: K2 with bf16 operands (the kernel's bf16 flag) at B=8, T=75, H=256,
+    both directions: every step within K2_TOL of the plain version's step
+    from the kernel's own previous state; over the whole sequence its
+    distance from the plain version beside the plain version's own distance
+    between the card and the CPU (float32 sums in another order move h by
+    an ulp, which moves bf16(h) by a bf16 ulp at some later step); a repeat
+    gives the same bits; times beside f32 K2, the bound and `torch.nn.GRU`
+    in bf16, each kernel also with its launch queued behind a spin (the
+    device's time, which phase 3's f32 K2 `k2_row` also has). Returns the
+    kernel line's row."""
+    import torch
+
+    from avsync_torch.models.lipnet import BiGRU
+    from avsync_torch.ops.cuda import gru
+    from avsync_torch.ops.gru import GRUWeights, bigru
+
+    bf = torch.bfloat16
+    g = torch.Generator(device="cpu").manual_seed(161)
+    B, T, H, D = 8, 75, 256, 6912
+    k = H ** -0.5
+    cpu_args = [(torch.randn(B, T, 3 * H, generator=g),
+                 (torch.rand(H, 3 * H, generator=g) * 2 - 1) * k,
+                 (torch.rand(3 * H, generator=g) * 2 - 1) * k) for _ in range(2)]
+    args = [tuple(t.to(dev) for t in a) for a in cpu_args]
+    (gf, wf, bf_), (gb, wb, bb) = args
+    got = gru.bigru_recurrence_bf16(gf, gb, wf, wb, bf_, bb)
+    same_bits([got], [gru.bigru_recurrence_bf16(gf, gb, wf, wb, bf_, bb)], "K2-bf16 B=8")
+    step_err = max_err(got, gru.bigru_steps_ref(gf, gb, wf, wb, bf_, bb, got, bf), K2_TOL,
+                       "K2-bf16 B=8 T=75 H=256, each step from the kernel's previous state")
+
+    def plain(args, dt=bf):
+        return torch.cat([gru.gru_recurrence_ref(*args[0], False, compute_dtype=dt),
+                          gru.gru_recurrence_ref(*args[1], True, compute_dtype=dt)], -1)
+
+    want, f32, on_cpu = plain(args), plain(args, None), plain(cpu_args)
+    seq = {"kernel_vs_plain_max": (got - want).abs().max().item(),
+           "kernel_vs_plain_mean": (got - want).abs().mean().item(),
+           "plain_card_vs_cpu_max": (want.cpu() - on_cpu).abs().max().item(),
+           "plain_card_vs_cpu_mean": (want.cpu() - on_cpu).abs().mean().item(),
+           "bf16_vs_f32_plain_mean": (want - f32).abs().mean().item()}
+    print(f"  K2-bf16 whole sequence: {json.dumps(seq)} (the kernel's mean distance must stay "
+          "under a tenth of the bf16 rounding's own mean effect)", flush=True)
+    if seq["kernel_vs_plain_mean"] > 0.1 * seq["bf16_vs_f32_plain_mean"]:
+        raise SystemExit("K2-bf16 drifts from its plain version over the sequence")
+    k2_bf16 = (lambda: gru.bigru_recurrence_bf16(gf, gb, wf, wb, bf_, bb))
+    k2_f32 = (lambda: gru.bigru_recurrence(gf, gb, wf, wb, bf_, bb))
+    row = {"ms": time_ms(k2_bf16), "f32_ms": time_ms(k2_f32),
+           "queued_ms": queued_ms(k2_bf16), "f32_queued_ms": queued_ms(k2_f32),
+           "phase3_f32_ms": k2_row["ms"], "phase3_f32_queued_ms": k2_row["queued_ms"],
+           "plain_ms": time_ms(lambda: plain(args), iters=3, warmup=1)}
+    # f32 gi, w_hh, b_hh and out, each moved once; h W_hh's products are
+    # bf16 x bf16 summed in f32, which the bf16 tensor cores do (989 TFLOP/s),
+    # and the gates' few f32 operations are counted at that rate too: a bound
+    n_bytes = 4 * 2 * (B * T * 3 * H + H * 3 * H + 3 * H + B * T * H)
+    n_ops = 2 * (2 * B * T * H * 3 * H + 12 * B * T * H)
+    row["bound_ms"], row["bound_by"] = bf16_bound_ms(n_bytes, n_ops)
+    # the library yardstick: a bf16 torch.nn.GRU layer (cuDNN) beside the
+    # port's bf16-operand layer (two bf16 input projections + the kernel)
+    layer = BiGRU(D, H, use_kernel=True, generator=torch.Generator().manual_seed(3)).to(dev)
+    fw, bw = (GRUWeights(*(getattr(layer, f"{n}_l0{sfx}") for n in
+                           ("weight_ih", "weight_hh", "bias_ih", "bias_hh")))
+              for sfx in ("", "_reverse"))
+    cudnn = torch.nn.GRU(D, H, batch_first=True, bidirectional=True).to(dev)
+    cudnn.load_state_dict(layer.state_dict())
+    cudnn = cudnn.to(bf)
+    cudnn.flatten_parameters()
+    x = torch.randn(B, T, D, generator=g).to(dev)
+    xb = x.to(bf)
+    with torch.inference_mode():
+        ours = bigru(x, fw, bw, True, compute_dtype=bf, recurrence_dtype=bf)
+        lib = cudnn(xb)[0].float()
+        lib_err = (ours - lib).abs().max().item()
+        row["layer_ms"] = time_ms(lambda: bigru(x, fw, bw, True, compute_dtype=bf,
+                                                recurrence_dtype=bf))
+        row["library_ms"] = time_ms(lambda: cudnn(xb))
+    print(f"  K2-bf16 both directions B=8 T=75 H=256: kernel_ms={row['ms']:.4f} (f32 K2 "
+          f"{row['f32_ms']:.4f}, x{row['ms'] / row['f32_ms']:.3f}); launch queued behind a "
+          f"spin: {row['queued_ms']:.4f} (f32 K2 {row['f32_queued_ms']:.4f}, "
+          f"x{row['queued_ms'] / row['f32_queued_ms']:.3f}; phase 3's f32 K2 "
+          f"{k2_row['ms']:.4f}, queued {k2_row['queued_ms']:.4f}) "
+          f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+          f"({row['bound_by']}, x{row['queued_ms'] / row['bound_ms']:.1f}); BiGRU layer D=6912: port layer_ms={row['layer_ms']:.4f}, "
+          f"torch.nn.GRU in bf16 library_ms={row['library_ms']:.4f} (max |d| against the "
+          f"port's layer {lib_err:.3e}: the library rounds every operand and output) [{smi}]",
+          flush=True)
+    return dict(name="gru_fwd_bf16", route="cuda", source="avsync_torch/csrc/gru_fwd.cu",
+                replaces="avsync/ops/pallas/gru.py:357", max_abs_err=step_err, **row,
+                entry="avs_gru_fwd(bf16=1)", whole_sequence=seq,
+                shape="both directions B=8 T=75 H=256, bf16 operands (h, w_hh) in each step's "
+                      "product, float32 sums, gates and carry",
+                replaces_note="the JAX int8 forward under bf16 runs gru_scan(compute_dtype=bf16) "
+                              "(avsync/ops/quant.py:292-296), not the Pallas kernel, which K2 "
+                              "ports; max_abs_err is per step, from the kernel's previous state",
+                library_note="library_ms and layer_ms time the whole BiGRU layer (D=6912): "
+                             "torch.nn.GRU in bf16 vs the port's bf16 matmuls + kernel")
+
+
+def int8_bf16_forward(dev, smi):
+    """16c: the int8-bf16 LipNet forward at full width (B=8, T=75, 50x100,
+    conv 32/64/96, BiGRU 256 x2) on phase 4's seeded weights: Q1-bf16 three
+    times and K2-bf16 twice, nothing else; against the bf16 float-conv
+    forward on the card and the same int8-bf16 forward on the CPU (two of
+    the rows: the CPU's int8 conv is float64) within the JAX package's int8
+    bounds (mean |d log-prob| < 0.05, argmax agreement >= 0.95); its int8
+    hand-off equal to three bf16-contract blocks bit for bit; timed beside
+    the f32 int8 forward."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from avsync_torch.config import AvsyncConfig, DataConfig, ModelConfig
+    from avsync_torch.ops import quant as tq
+    from avsync_torch.predictor import LipReader
+
+    cfg = AvsyncConfig(data=DataConfig(), model=ModelConfig(use_pallas_gru=True,
+                                                            fused_conv_pool=True))
+    cfg16 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                               compute_dtype="bfloat16"))
+    params = seeded_jax_layout_params(cfg, seed=0)
+    frames = np.random.default_rng(16).integers(0, 256, (8, 75, 50, 100), dtype=np.uint8)
+    b16 = LipReader(params=params, config=cfg16, device=dev)
+    x = b16.preprocess_device(frames)
+    q16 = LipReader(params=params, config=cfg16, device=dev, quantize="int8",
+                    calibration_frames=list(frames[:2]))
+    q32 = LipReader(params=params, config=cfg, device=dev, quantize="int8",
+                    calibration_frames=list(frames[:2]))
+    q16._logprobs(x)  # every kernel built
+    zero_counts()
+    lp = q16._logprobs(x)
+    torch.cuda.synchronize()
+    got = int8_counts()
+    want = {"conv1_pool": 0, "gru_fwd": 0, "gru_bwd": 0, "conv1_pool_bwd": 0, "mel_stats": 0,
+            "int8_conv_pool": 0, "int8_conv_pool_bf16": 3, "gru_fwd_bf16": 2}
+    print(f"int8 under bf16 phase: c. the int8-bf16 forward B=8 at full width: launches {got} "
+          f"(expected {want})", flush=True)
+    if got != want or lp.dtype != torch.float32:
+        raise SystemExit("the int8-bf16 forward's launches or output dtype are wrong")
+    row = {"vs_bf16": agreement(lp, b16._logprobs(x), "int8-bf16 vs the bf16 forward on the "
+                                "card", smi)}
+    block = tq.quant_conv_block
+    tq.quant_conv_block = lambda qc, h, out_scale=None, compute_dtype=None: block(
+        qc, h, compute_dtype=compute_dtype)
+    try:
+        no_hand_off = q16._logprobs(x)
+    finally:
+        tq.quant_conv_block = block
+    row["hand_off_equals_bf16_contract"] = torch.equal(lp, no_hand_off)
+    print(f"  int8 hand-off between blocks vs three bf16-contract launches: "
+          f"{'equal bit for bit' if row['hand_off_equals_bf16_contract'] else 'DIFFERENT'}",
+          flush=True)
+    if not row["hand_off_equals_bf16_contract"]:
+        raise SystemExit("the int8 hand-off changed the int8-bf16 forward's log-probs")
+    scales = np.asarray([float(c.x_scale) for c in q16._qparams.convs], np.float32)
+    cpu_model = copy.deepcopy(q16.model).cpu()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want_cpu = tq.make_int8_forward(cfg16.model)(
+            tq.quantize_lipnet(cpu_model, [], input_scales=scales), x[:2].cpu())
+    row["cpu_s"] = time.perf_counter() - t0
+    row["vs_cpu"] = agreement(lp[:2].cpu(), want_cpu, "int8-bf16 forward on the card vs the "
+                              f"same forward on the CPU, 2 rows ({row['cpu_s']:.1f} s)", smi)
+    del cpu_model, want_cpu
+    row["int8_bf16_ms"] = time_ms(lambda: q16._logprobs(x), iters=10)
+    row["int8_f32_ms"] = time_ms(lambda: q32._logprobs(x), iters=10)
+    print(f"  int8 forward B=8 T=75 (CUDA events, median of 10): bf16 {row['int8_bf16_ms']:.3f} "
+          f"ms, f32 {row['int8_f32_ms']:.3f} ms [{smi}]", flush=True)
+    return row
+
+
+def int8_counts():
+    """The launch counters with Q1's and K2's bf16 instantiations apart."""
+    from avsync_torch.ops.cuda import gru, quantconv
+
+    return {**counts(), "int8_conv_pool": quantconv.launches,
+            "int8_conv_pool_bf16": quantconv.bf16_launches, "gru_fwd_bf16": gru.bf16_launches}
+
+
+def int8_bf16_daemon(reader, crops, what):
+    """Launches per transcribe batch through an in-process daemon serving
+    `reader`, the counters zeroed just before and read just after."""
+    import torch
+
+    from avsync_torch.serving import AvsyncServer, TranscribeService
+
+    server = AvsyncServer(TranscribeService(reader, max_batch=MAX_BATCH, max_wait_ms=5.0),
+                          None, port=0)
+    server.start()
+    try:
+        zero_counts()
+        answers, _, _ = load(f"http://{server.address[0]}:{server.address[1]}",
+                             [("/v1/transcribe", npy_bytes(c), "application/x-npy")
+                              for c in crops])
+        torch.cuda.synchronize()
+        got = int8_counts()
+        nt = sum(server.stats_snapshot()["transcribe"]["batches"].values())
+    finally:
+        server.shutdown(drain_timeout=30.0)
+    if any(a[0] != 200 for a in answers):
+        raise SystemExit(f"{what}: {[a for a in answers if a[0] != 200][:3]}")
+    print(f"  launches through the in-process {what}: {got} for {nt} transcribe batches",
+          flush=True)
+    return {"transcribe_batches": nt, **got}
+
+
+def int8_bf16_commands(dev, workdir, serving_dir, tf_dir, crops, smi):
+    """16d: `quantize`, `test --quantize int8`, `infer --quantize int8` and
+    `serve --quantize int8 --qscales` (a child process under 16 crops:
+    transcripts equal an in-process int8-bf16 reader's, near ties aside,
+    SIGTERM drains) under `--compute_dtype bfloat16` on phase 5's corpus and
+    checkpoint, `quantize` writing phase 11's float32 scales (calibration is
+    float32); per transcribe batch Q1-bf16 three times and K2-bf16 twice
+    through an in-process daemon; the TF family on phase 13's trained
+    snapshot, where only Q1-bf16 launches. Returns the daemons' counts."""
+    import contextlib
+    import glob
+    import io
+
+    import numpy as np
+
+    from avsync_torch import cli
+    from avsync_torch.predictor import LipReader
+
+    BF = ["--compute_dtype", "bfloat16"]
+    out = {}
+
+    def commands(what, corpus, cfg_path, ck, f32_scales, extra=()):
+        common = ["--data_path", corpus, "--config", cfg_path, "--checkpoint", ck, *extra, *BF]
+        q16 = os.path.join(workdir, f"q16_{what}.npz")
+        res = os.path.join(workdir, f"int8_bf16_{what}.json")
+        clip = sorted(glob.glob(os.path.join(corpus, "*", "video", "*.npy")))[0]
+        t0 = time.perf_counter()
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            rc = [cli.main(["quantize", *common, "--out", q16]),
+                  cli.main(["test", *common, "--quantize", "int8", "--output", res]),
+                  cli.main(["infer", clip, *common[2:], "--quantize", "int8"])]
+        secs = time.perf_counter() - t0
+        scales = np.load(q16)["input_scales"]
+        with open(res) as f:
+            tested = json.load(f)
+        pred = [ln.split(":", 1)[1].strip() for ln in said.getvalue().splitlines()
+                if ln.startswith("Predicted:")]
+        cfg16 = cli._with_common_flags(cli._config(cfg_path), cli.build_parser().parse_args(
+            ["test", *common]))
+        fresh = LipReader(checkpoint=ck, config=cfg16, device=dev, quantize="int8")
+        want = fresh.predict(clip)
+        same = bool(np.array_equal(scales, np.load(f32_scales)["input_scales"]))
+        print(f"int8 under bf16 phase: d. {what}: quantize / test --quantize int8 / infer "
+              f"--quantize int8 under --compute_dtype bfloat16: rc {rc} in {secs:.1f} s; scales "
+              f"{scales.tolist()} ({'equal to' if same else 'DIFFERENT from'} the float32 "
+              f"command's); test {json.dumps(tested)}; infer {pred} (a fresh int8-bf16 reader "
+              f"{want!r})", flush=True)
+        if rc != [0, 0, 0] or not same or not np.isfinite(tested["cer"]) or pred != [want]:
+            raise SystemExit(f"{what}: the int8 commands under bf16 failed")
+        return q16, cfg16, {"seconds": secs, "test": tested, "scales": scales.tolist()}
+
+    data, ck, cfg_path = (os.path.join(workdir, n) for n in ("grid", "ckpt", "config.json"))
+    q16, cfg16, out["lipnet"] = commands("lipnet", data, cfg_path, ck,
+                                         os.path.join(serving_dir, "qscales_trained.npz"))
+    reader = LipReader(checkpoint=ck, config=cfg16, device=dev, quantize="int8",
+                       calibration_scales=q16)
+    t0 = time.perf_counter()
+    daemon = Daemon(["--checkpoint", ck, "--config", cfg_path, "--quantize", "int8", "--qscales",
+                     q16, "--port", "0", "--warmup", "--max_batch", str(MAX_BATCH), *BF])
+    try:
+        up = time.perf_counter() - t0
+        row = transcribe_load(daemon.url, crops[:16], reader, "int8-bf16 daemon",
+                              near_tie=BF16_NEAR_TIE)
+        pending = sigterm_drain(daemon, crops[0])
+    finally:
+        daemon.kill()
+    out["daemon"] = dict(row, start_s=up, drained_in_flight=pending)
+    print(f"  serve --quantize int8 --qscales --compute_dtype bfloat16 as a child process, 16 "
+          f"crops from {SERVE_THREADS} threads: p50_ms={row['p50_ms']:.3f} p99_ms="
+          f"{row['p99_ms']:.3f} clips_per_s={row['clips_per_s']:.3f}, transcripts equal the "
+          f"in-process int8-bf16 reader's "
+          f"(near ties within {BF16_NEAR_TIE}: {row['near_ties']}); up in {up:.1f} s; SIGTERM "
+          f"with {pending} of 16 in flight: all 200, exit 0 [{smi}]", flush=True)
+    got = int8_bf16_daemon(reader, crops[:32], "int8-bf16 daemon (phase 5's checkpoint)")
+    nt = got["transcribe_batches"]
+    want = {"conv1_pool": 0, "gru_fwd": 0, "gru_bwd": 0, "conv1_pool_bwd": 0, "mel_stats": 0,
+            "int8_conv_pool": 0, "int8_conv_pool_bf16": 3 * nt, "gru_fwd_bf16": 2 * nt}
+    if {k: v for k, v in got.items() if k != "transcribe_batches"} != want or not nt:
+        raise SystemExit(f"int8-bf16 daemon: launches {got}, expected {want}")
+    out["launches"] = got
+
+    tf_cfg, tf_ck = os.path.join(tf_dir, "tf_config.json"), os.path.join(tf_dir, "tf_ckpt")
+    tf_corpus = os.path.join(tf_dir, "tf_grid")
+    _, tf16, out["tf"] = commands("tf", tf_corpus, tf_cfg, tf_ck,
+                                  os.path.join(tf_dir, "tf_trained_q.npz"),
+                                  ("--model_family", "tf"))
+    tf_reader = LipReader(checkpoint=tf_ck, config=tf16, device=dev, quantize="int8",
+                          calibration_scales=os.path.join(workdir, "q16_tf.npz"))
+    geom = (tf16.data.max_video_length, tf16.data.img_height, tf16.data.img_width)
+    tf_crops = [np.random.default_rng(300 + i).integers(0, 256, geom, dtype=np.uint8)
+                for i in range(16)]
+    got = int8_bf16_daemon(tf_reader, tf_crops, "TF int8-bf16 daemon (phase 13's snapshot)")
+    nt = got["transcribe_batches"]
+    want = dict(want, int8_conv_pool_bf16=3 * nt, gru_fwd_bf16=0)
+    if {k: v for k, v in got.items() if k != "transcribe_batches"} != want or not nt:
+        raise SystemExit(f"TF int8-bf16 daemon: launches {got}, expected {want}")
+    out["tf_launches"] = got
+    return out
+
+
+def card_defaults(dev, workdir, smi):
+    """16e: `cli test` on phase 5's corpus and checkpoint with no
+    --compute_dtype and no --config runs bf16 on the card (K1's bf16
+    instantiation by profiler name, its float32 one never);
+    `--compute_dtype float32` wins (float32 K1 only); with `--config` (a
+    float32 file) the file's dtype is kept."""
+    from avsync_torch import cli
+
+    data, ck, cfg_path = (os.path.join(workdir, n) for n in ("grid", "ckpt", "config.json"))
+    runs = {"no flag": [], "--compute_dtype float32": F32, "--config (float32 file)":
+            ["--config", cfg_path]}
+    out = {}
+    for what, extra in runs.items():
+        res = os.path.join(workdir, f"defaults_{len(out)}.json")
+        rc, _, _, _, names = traced(lambda: cli.main(["test", "--data_path", data, "--checkpoint",
+                                                      ck, "--output", res, *extra]))
+        k1 = bf16_replayed(names)
+        out[what] = {"rc": rc, "conv1_pool_bf16": k1["conv1_pool_bf16"],
+                     "conv1_pool_f32": k1["conv1_pool_f32"]}
+    print(f"int8 under bf16 phase: e. the card's defaults, cli test on phase 5's checkpoint, K1 "
+          f"by profiler name: {json.dumps(out)} [{smi}]", flush=True)
+    ok = (all(r["rc"] == 0 for r in out.values())
+          and out["no flag"]["conv1_pool_bf16"] > 0 and out["no flag"]["conv1_pool_f32"] == 0
+          and all(out[w]["conv1_pool_bf16"] == 0 and out[w]["conv1_pool_f32"] > 0
+                  for w in ("--compute_dtype float32", "--config (float32 file)")))
+    if not ok:
+        raise SystemExit("the card's CLI defaults are not bf16, or a flag or --config did not "
+                         f"win; the last trace's kernels: {names}")
+    return out
+
+
+def run_int8_bf16(dev, workdir, serving_dir, tf_dir, crops, smi, k2_row):
+    """Phase 16: int8 serving under bf16 compute: a. Q1's bf16 epilogue; b.
+    K2 with bf16 operands; c. the full-width int8-bf16 forward; d. the
+    commands and daemons; e. the card's CLI defaults. Returns the kernel
+    line's two rows and the numbers."""
+    q1 = q1_bf16_kernel(dev, smi)
+    k2 = k2_bf16_kernel(dev, smi, k2_row)
+    out = {"forward": int8_bf16_forward(dev, smi)}
+    out["commands"] = int8_bf16_commands(dev, workdir, serving_dir, tf_dir, crops, smi)
+    out["defaults"] = card_defaults(dev, workdir, smi)
+    served, tf = out["commands"]["launches"], out["commands"]["tf_launches"]
+    q1.update(launches=served["int8_conv_pool_bf16"],
+              launches_daemon_int8_bf16={"transcribe_batches": served["transcribe_batches"],
+                                         "launches": served["int8_conv_pool_bf16"]},
+              launches_tf_int8_bf16_daemon={"transcribe_batches": tf["transcribe_batches"],
+                                            "launches": tf["int8_conv_pool_bf16"]})
+    k2.update(launches=served["gru_fwd_bf16"],
+              launches_daemon_int8_bf16={"transcribe_batches": served["transcribe_batches"],
+                                         "launches": served["gru_fwd_bf16"]})
+    for k in (q1, k2):
+        if not k["launches"]:
+            raise SystemExit(f"{k['name']} was not launched on the int8-bf16 serving path")
+    print(f"  int8 under bf16 phase numbers [{smi}]: {json.dumps(out)}", flush=True)
+    return q1, k2, out
 
 
 def main() -> int:
@@ -4699,6 +5275,9 @@ def main() -> int:
                                                  programs["lipnet"]["graph"],
                                                  tf["forward"]["f32_forward_B8_ms"])
         print(f"bf16 phase: {time.perf_counter() - t15:.1f} s", flush=True)
+        t16 = time.perf_counter()
+        q1_16, k2_16, int8_16 = run_int8_bf16(dev, workdir, serving_dir, tf_dir, crops, smi, k2)
+        print(f"int8 under bf16 phase: {time.perf_counter() - t16:.1f} s", flush=True)
     for k in (k1, k2, k3, k4):
         k["launches"] = trained[k["name"]]
     k5["launches"], k5["launches_serving"] = detector["mel_stats"], served["mel_stats"]
@@ -4754,6 +5333,8 @@ def main() -> int:
     print(f"bf16: forward {json.dumps(bf16['forward'])}; graph step "
           f"{bf16['train']['wall_ms_per_step']:.4f} ms, idle {bf16['train']['idle_share']:.4f} "
           f"[{smi}]", flush=True)
+    print(f"int8 under bf16: forward {json.dumps(int8_16['forward'])}; daemon "
+          f"{json.dumps(int8_16['commands']['daemon'])} [{smi}]", flush=True)
 
     print("kernels: K1 conv1_pool_fused (avsync/ops/pallas/convpool.py:100)=ported+checked; "
           "K2 pallas_gru_scan (avsync/ops/pallas/gru.py:357)=ported+checked; "
@@ -4765,12 +5346,16 @@ def main() -> int:
           "stack's blocks (tflipnet_int8_apply, avsync/ops/quant.py:208); under "
           "compute_dtype bfloat16 (PR 15) K1 and K4 run their bf16 instantiations "
           "(conv1_pool_bf16, conv1_pool_bwd_bf16)=ported+checked, K2/K3/K5 unchanged (f32 in "
-          "the JAX package too), Q1 under bf16 not ported (ROADMAP item 14)", flush=True)
+          "the JAX package too); int8 serving under bf16: Q1's bf16 epilogue "
+          "(int8_conv_pool_bf16, quant_conv_block(out_dtype=bfloat16), avsync/ops/quant.py:"
+          "109)=ported+checked, the int8 forward's gru_scan(compute_dtype=bf16) as K2 with "
+          "bf16 operands (gru_fwd_bf16)=ported+checked; the card's CLI default is bf16",
+          flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [{**{k: d[k] for k in keys},
                          **{k: v for k, v in d.items() if k not in keys}}
-                        for d in (k1, k2, k3, k4, k5, q1, k1_16, k4_16)]}
+                        for d in (k1, k2, k3, k4, k5, q1, k1_16, k4_16, q1_16, k2_16)]}
     print(json.dumps(line), flush=True)
     if any(m.split(".")[0] in ("jax", "flax", "avsync") for m in sys.modules):
         raise SystemExit("the port pulled in jax or the avsync package")

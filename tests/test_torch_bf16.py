@@ -572,25 +572,66 @@ def test_export_in_bf16_matches_the_live_bf16_reader(trained, tmp_path):
 
 
 @pytest.mark.parametrize("command", ["test", "infer", "serve", "quantize"])
-def test_int8_with_bf16_still_raises_naming_its_item(command, tmp_path):
-    from avsync_torch.cli import main
+def test_int8_with_bf16_runs_each_command(command, trained, tmp_path, capsys):
+    """`--quantize int8` (and `quantize`) under `--compute_dtype bfloat16`
+    run on the bf16-trained `.pth`: `test` writes finite results, `infer`
+    prints what an int8 bf16 LipReader transcribes, `serve`'s reader is an
+    int8 bf16 reader whose log-probs are the int8 bf16 forward's, and
+    `quantize` writes the float32 command's scales (float32 calibration)."""
+    from avsync_torch.cli import build_parser, main, serving_reader, _serving_config
+    from avsync_torch.ops.quant import make_int8_forward, quantize_lipnet
+    from avsync_torch.predictor import LipReader
 
-    ckpt = ["--checkpoint", str(tmp_path / "none.pth")]  # refused before it is read
-    argv = {"test": ["test", "--data_path", str(tmp_path), "--quantize", "int8", *ckpt],
-            "infer": ["infer", str(tmp_path / "c.npy"), "--quantize", "int8", *ckpt],
-            "serve": ["serve", "--quantize", "int8", *ckpt],
-            "quantize": ["quantize", "--data_path", str(tmp_path), "--out",
-                         str(tmp_path / "q.npz"), *ckpt]}[command]
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 14"):
-        main([*argv, "--compute_dtype", "bfloat16", "--device", "cpu"])
+    d, root, port_cfg, _, pth, cfg = trained
+    common = ["--checkpoint", pth, "--config", port_cfg, "--device", "cpu",
+              "--compute_dtype", "bfloat16"]
+    frames = np.random.default_rng(12).integers(0, 256, (8, 16, 32), dtype=np.uint8)
+    if command == "test":
+        out = str(tmp_path / "r.json")
+        assert main(["test", "--data_path", root, *common, "--quantize", "int8", "--output",
+                     out]) == 0
+        assert np.isfinite(json.load(open(out))["cer"])
+    elif command == "infer":
+        clip = str(tmp_path / "c.npy")
+        np.save(clip, frames)
+        assert main(["infer", clip, *common, "--quantize", "int8"]) == 0
+        reader = LipReader(pth, config=_bf16(cfg), device="cpu", quantize="int8")
+        assert f"Predicted: {reader.predict_frames(frames)}" in capsys.readouterr().out
+    elif command == "serve":
+        args = build_parser().parse_args(["serve", *common, "--quantize", "int8"])
+        reader = serving_reader(args, _serving_config(args))
+        assert reader.cfg.model.compute_dtype == "bfloat16" and reader._quantize == "int8"
+        x = reader._prepare(frames)
+        got = reader._logprobs(x)
+        qp = quantize_lipnet(reader.model, [x])
+        assert torch.equal(got, make_int8_forward(reader.cfg.model)(qp, x))
+    else:
+        outs = [str(tmp_path / f"{k}.npz") for k in ("bf16", "f32")]
+        assert main(["quantize", "--data_path", root, *common, "--out", outs[0]]) == 0
+        assert main(["quantize", "--data_path", root, *common[:-2], "--compute_dtype",
+                     "float32", "--out", outs[1]]) == 0
+        np.testing.assert_array_equal(*(np.load(o)["input_scales"] for o in outs))
 
 
-def test_int8_forward_refuses_a_bf16_model():
-    from avsync_torch.ops.quant import make_int8_forward
+def test_int8_forward_takes_a_bf16_model():
+    """`make_int8_forward` of a bf16 config is the int8 forward in bf16, for
+    both families: its log-probs are `*_int8_apply(compute_dtype=
+    "bfloat16")`'s and differ from the float32 forward's."""
+    from avsync_torch.models import make_lipnet
+    from avsync_torch.ops import quant
 
-    for family in ("pytorch", "tf"):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            make_int8_forward(ModelConfig(family=family, compute_dtype="bfloat16"))
+    x = torch.from_numpy(np.random.default_rng(13).random((2, 6, 16, 32, 1), np.float32))
+    for family, conv in (("pytorch", (2, 3, 4)), ("tf", (3, 4, 6))):
+        cfg = ModelConfig(family=family, compute_dtype="bfloat16", hidden_dim=8,
+                          conv_channels=conv)
+        torch.manual_seed(14)
+        model = make_lipnet(cfg, img_hw=(16, 32)).eval()
+        qp = quant.quantize_lipnet(model, [x])
+        got = quant.make_int8_forward(cfg)(qp, x)
+        f32 = quant.make_int8_forward(dataclasses.replace(cfg, compute_dtype="float32"))(qp, x)
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        assert not torch.equal(got, f32)
+        assert (got - f32).abs().max() < 0.5
 
 
 # ---------------------------------------------------------------------------

@@ -67,24 +67,33 @@ def test_explicit_flags_win_over_the_config_file(command, tmp_path):
     assert (cfg.data.roi_mode, cfg.data.roi_host) == ("detector", False)
 
 
-@pytest.mark.parametrize("flags,item", [(["--distributed"], "item 8"),
-                                        (["--compute_dtype", "bfloat16"], "item 14")])
-def test_unported_values_raise_naming_their_item(flags, item, tmp_path, capsys):
+def test_unported_values_raise_naming_their_item(tmp_path, capsys):
     # --distributed is ported for `train`: on another command it exits 2 with
-    # the JAX package's message (avsync/cli.py:1520-1531); bfloat16 is ported
-    # and raises only with the int8 forward (misalign-train has no --quantize)
+    # the JAX package's message (avsync/cli.py:1520-1531)
     for command in ("test", "serve", "misalign-train"):
         extra, _ = COMMANDS[command]
-        if item == "item 14":
-            if command == "misalign-train":
-                continue
-            extra = [*extra, "--quantize", "int8"]
-        argv = [command, *extra, "--data_path", str(tmp_path), "--device", "cpu", *flags]
-        if flags == ["--distributed"]:
-            assert cli.main(argv) == 2
-            assert "--distributed supports the 'train' subcommand only" in capsys.readouterr().err
-            continue
-        with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
+        argv = [command, *extra, "--data_path", str(tmp_path), "--device", "cpu",
+                "--distributed"]
+        assert cli.main(argv) == 2
+        assert "--distributed supports the 'train' subcommand only" in capsys.readouterr().err
+
+
+def test_int8_under_bf16_is_no_longer_refused(tmp_path):
+    """`--quantize int8` with `--compute_dtype bfloat16` (ROADMAP §1 item 14
+    is ported): each command's config keeps both, its int8 forward builds in
+    bf16, and the command gets past its flags to the missing checkpoint."""
+    from avsync_torch.ops.quant import make_int8_forward
+
+    for command in ("test", "serve"):
+        extra, to_config = COMMANDS[command]
+        argv = [command, *extra, "--data_path", str(tmp_path), "--device", "cpu",
+                "--compute_dtype", "bfloat16", "--quantize", "int8"]
+        args = cli.build_parser().parse_args(argv)
+        assert args.quantize == "int8"
+        cfg = to_config(args)
+        assert cfg.model.compute_dtype == "bfloat16"
+        assert callable(make_int8_forward(cfg.model))
+        with pytest.raises((FileNotFoundError, OSError)):
             cli.main(argv)
 
 

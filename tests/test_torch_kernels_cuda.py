@@ -730,9 +730,9 @@ def q1_case(g, dev, B, cin, cout, T, H, W, k, mode="random"):
     return quant_conv_params(kq.to(dev), ks, bias, xs), x.to(dev)
 
 
-def q1_ref(qc, x, out_scale=None):
+def q1_ref(qc, x, out_scale=None, dt=None):
     return quantconv.int8_conv_pool_ref(x, qc.kernel_q, qc.k_scale, qc.bias, float(qc.x_scale),
-                                        out_scale)
+                                        out_scale, compute_dtype=dt)
 
 
 # (B, Cin, Cout, T, H, W, kernel, mode): LipNet's three blocks at full width
@@ -754,59 +754,71 @@ Q1_CASES = [
     (1, 1, 32, 3, 50, 100, (3, 5, 5), "ties"), (2, 32, 64, 3, 25, 50, (3, 5, 5), "near_ties"),
     (1, 1, 32, 3, 50, 100, (3, 5, 5), "near_ties"),
 ]
-# (input dtype, output dtype) of the operator's contracts
+# (input dtype, output dtype) of the operator's contracts: the f32
+# epilogue's, then the bf16 epilogue's (`dt` bf16)
 CONTRACTS = ["f32_f32", "f32_s8", "s8_s8", "s8_f32"]
+BF16_CONTRACTS = ["f32_bf16", "f32_s8", "s8_s8", "s8_bf16"]
 
 
 def channels_last(x):
     return x.permute(0, 2, 3, 4, 1).contiguous().permute(0, 4, 1, 2, 3)
 
 
-def q1_contract(qc, x, contract, mode):
+def q1_contract(qc, x, contract, mode, dt=None):
     """(input, out_scale) of one contract: an int8 input is x quantized with
     the block's scale, channels-last (as a block writes it); an int8 output
-    takes a scale that maps the f32 output's largest value to 127 (to 200
-    in 'extreme' mode: past the clip), or 0.125 in 'ties' mode."""
+    takes a scale that maps the float output's largest value (bf16 under
+    `dt` bf16) to 127 (to 200 in 'extreme' mode: past the clip), or 0.125
+    in 'ties' mode."""
     if contract.startswith("s8"):
         x = channels_last(quantconv.quantize_input(x, float(qc.x_scale)).to(torch.int8))
-    if contract.endswith("f32"):
+    if not contract.endswith("s8"):
         return x, None
-    top = float(q1_ref(qc, x).max())
+    top = float(q1_ref(qc, x, dt=dt).float().max())
     return x, {"ties": 0.125, "extreme": top / 200}.get(mode, top / 127 or 1.0)
 
 
-@pytest.mark.parametrize("contract", CONTRACTS)
+@pytest.mark.parametrize("dt,contract",
+                         [pytest.param(None, c, id=c) for c in CONTRACTS]
+                         + [pytest.param(torch.bfloat16, c, id="bf16-" + c)
+                            for c in BF16_CONTRACTS])
 @pytest.mark.parametrize("B,cin,cout,T,H,W,k,mode", Q1_CASES)
-def test_int8_conv_pool_equals_plain_bit_for_bit(dev, B, cin, cout, T, H, W, k, mode,
+def test_int8_conv_pool_equals_plain_bit_for_bit(dev, B, cin, cout, T, H, W, k, mode, dt,
                                                  contract):
     """Q1 equals its plain version bit for bit in each contract (exact int32
-    sums, the same two f32 roundings, the same quantizer); a repeat launch
-    gives the same bits; other layouts of the input give the same bits:
-    channels-last and sliced f32, an int8 input at an address that is not
-    16-byte aligned (the byte-wise staging)."""
+    sums, the same two f32 roundings, the same quantizer; under `dt` bf16
+    the bf16 epilogue's three bf16 roundings); a repeat launch gives the
+    same bits and moves only its epilogue's counter; other layouts of the
+    input give the same bits: channels-last and sliced f32, an int8 input at
+    an address that is not 16-byte aligned (the byte-wise staging)."""
     from avsync_torch.ops.quant import quant_conv_block
 
     qc, x = q1_case(_gen(60), dev, B, cin, cout, T, H, W, k, mode)
-    x, out_scale = q1_contract(qc, x, contract, mode)
-    before = quantconv.launches
-    got = quant_conv_block(qc, x, out_scale)
-    again = quant_conv_block(qc, x, out_scale)
+    x, out_scale = q1_contract(qc, x, contract, mode, dt)
+    before = (quantconv.launches, quantconv.bf16_launches)
+    got = quant_conv_block(qc, x, out_scale, compute_dtype=dt)
+    again = quant_conv_block(qc, x, out_scale, compute_dtype=dt)
     torch.cuda.synchronize()
-    assert quantconv.launches == before + 2
-    want = q1_ref(qc, x, out_scale)
+    assert (quantconv.launches, quantconv.bf16_launches) == (
+        (before[0] + 2, before[1]) if dt is None else (before[0], before[1] + 2))
+    want = q1_ref(qc, x, out_scale, dt)
     assert got.shape == want.shape == (B, cout, T, H // 2, W // 2)
-    assert got.dtype == want.dtype and got.permute(0, 2, 3, 4, 1).is_contiguous()
+    assert got.dtype == want.dtype == (torch.int8 if out_scale is not None
+                                       else dt or torch.float32)
+    assert got.permute(0, 2, 3, 4, 1).is_contiguous()
     assert torch.equal(got, want) and torch.equal(got, again)
     if x.dtype == torch.float32:
-        assert torch.equal(quant_conv_block(qc, channels_last(x), out_scale), got)
+        assert torch.equal(quant_conv_block(qc, channels_last(x), out_scale, compute_dtype=dt),
+                           got)
         wide = torch.zeros(B, cin, T, H, W + 3, device=dev)
         wide[..., :W] = x
-        assert torch.equal(quant_conv_block(qc, wide[..., :W], out_scale), got)
+        assert torch.equal(quant_conv_block(qc, wide[..., :W], out_scale, compute_dtype=dt),
+                           got)
     else:
         flat = torch.empty(x.numel() + 1, dtype=torch.int8, device=dev)[1:]
         odd = flat.view(B, T, H, W, cin).permute(0, 4, 1, 2, 3)
         odd.copy_(x)
-        assert torch.equal(quant_conv_block(qc, odd, out_scale), got)
+        assert torch.equal(quant_conv_block(qc, odd, out_scale, compute_dtype=dt), got)
 
 
 @pytest.mark.parametrize("frames", [1, 2, 4, 7, 8, 13, 74, 75, 200])
@@ -936,6 +948,101 @@ def test_int8_reader_launches_q1_and_k2_only_and_keeps_the_jax_bounds(dev, tmp_p
     assert (quantconv.launches - before[0], gru.launches - before[1],
             convpool.launches - before[2]) == (3, 2, 0)
     want = f32._logprobs(clips)
+    assert (got - want).abs().mean().item() < 0.05
+    assert (got.argmax(-1) == want.argmax(-1)).float().mean().item() >= 0.95
+
+
+@pytest.mark.parametrize("B,T,H", [(8, 75, 256), (3, 75, 256), (32, 75, 256), (1, 1, 256),
+                                   (9, 6, 40), (3, 7, 264), (5, 6, 512), (3, 8, 20)])
+def test_gru_bf16_operands_match_plain(dev, B, T, H):
+    """K2 with bf16 operands (the kernel's bf16 flag), at every rows-per-cluster
+    choice, through the generic kernel and the padding: every step within
+    K2_TOL of the plain version's step (`gru_recurrence_ref(compute_dtype=
+    bf16)`) from the kernel's own previous state, both directions; a repeat
+    gives the same bits; past the first step it differs from the float32
+    kernel. Over a whole sequence K2_TOL is no bound: float32 sums in
+    another order move h by an ulp, which can move bf16(h) by a bf16 ulp at
+    a later step, and the plain version on the card and on the CPU part by
+    ~3e-4 at B=8, T=75; there the kernel must be no farther from the plain
+    version, in the mean, than a tenth of the bf16 rounding's own mean
+    effect (or K2_TOL's atol where that effect is 0: h_0 = 0)."""
+    bf = torch.bfloat16
+    g = _gen(3)
+    k = H ** -0.5
+    args = []
+    for _ in range(2):
+        args.append((torch.randn(B, T, 3 * H, generator=g).to(dev),
+                     ((torch.rand(H, 3 * H, generator=g) * 2 - 1) * k).to(dev),
+                     ((torch.rand(3 * H, generator=g) * 2 - 1) * k).to(dev)))
+    (gf, wf, bf_), (gb, wb, bb) = args
+    before = (gru.bf16_launches, gru.launches)
+    got = gru.bigru_recurrence_bf16(gf, gb, wf, wb, bf_, bb)
+    again = gru.bigru_recurrence_bf16(gf, gb, wf, wb, bf_, bb)
+    torch.cuda.synchronize()
+    assert (gru.bf16_launches, gru.launches) == (before[0] + 2, before[1])
+    torch.testing.assert_close(got, gru.bigru_steps_ref(gf, gb, wf, wb, bf_, bb, got, bf),
+                               **K2_TOL)
+    assert torch.equal(got, again)
+    want = torch.cat([gru.gru_recurrence_ref(gf, wf, bf_, False, compute_dtype=bf),
+                      gru.gru_recurrence_ref(gb, wb, bb, True, compute_dtype=bf)], -1)
+    f32 = torch.cat([gru.gru_recurrence_ref(gf, wf, bf_, False),
+                     gru.gru_recurrence_ref(gb, wb, bb, True)], -1)
+    assert (got - want).abs().mean() <= max(0.1 * (want - f32).abs().mean(), K2_TOL["atol"])
+    if T > 1:
+        assert not torch.equal(got, gru.bigru_recurrence(gf, gb, wf, wb, bf_, bb))
+
+
+@pytest.mark.parametrize("H,reverse", [(256, False), (256, True), (264, False)])
+def test_gru_bf16_operands_from_an_initial_state(dev, H, reverse):
+    """K2 with bf16 operands from a given h0 (the register kernel keeps each
+    writer's f32 carry apart from the bf16 h it pushes; the generic kernel
+    at H = 264 rounds as it reads): every step within K2_TOL of the plain
+    version's step from the kernel's previous state, the first from h0."""
+    g = _gen(4)
+    B, T = 3, 9
+    k = H ** -0.5
+    gi = torch.randn(B, T, 3 * H, generator=g).to(dev)
+    w = ((torch.rand(H, 3 * H, generator=g) * 2 - 1) * k).to(dev)
+    b = ((torch.rand(3 * H, generator=g) * 2 - 1) * k).to(dev)
+    h0 = torch.randn(B, H, generator=g).to(dev) * 0.5
+    got = gru._launch((gi,), (w,), (b,), int(reverse), (h0,), bf16=True)
+    order = range(T - 1, -1, -1) if reverse else range(T)
+    prev = h0
+    for t in order:
+        step = gru.gru_recurrence_ref(gi[:, t:t + 1], w, b, h0=prev,
+                                      compute_dtype=torch.bfloat16)[:, 0]
+        torch.testing.assert_close(got[:, t], step, **K2_TOL)
+        prev = got[:, t]
+
+
+def test_int8_bf16_reader_launches_q1_bf16_and_k2_bf16_only(dev):
+    """A full-width int8 LipReader batch of 8 under bf16 compute: Q1's bf16
+    epilogue three times, K2 with bf16 operands twice, no other hand
+    kernel; its log-probs within the JAX package's int8 bounds of the bf16
+    float reader's (tests/test_quant.py:135-137)."""
+    from avsync_torch.config import AvsyncConfig, ModelConfig
+    from avsync_torch.models import LipNet
+    from avsync_torch.predictor import LipReader
+
+    cfg = AvsyncConfig(model=ModelConfig(use_pallas_gru=True, fused_conv_pool=True,
+                                         compute_dtype="bfloat16"))
+    state = LipNet(cfg.model, generator=_gen(66)).state_dict()
+    b16 = LipReader(params=state, config=cfg, device=dev)
+    int8 = LipReader(params=state, config=cfg, device=dev, quantize="int8")
+    frames = torch.randint(0, 256, (8, 75, 50, 100), generator=_gen(67), dtype=torch.uint8)
+    clips = b16.preprocess_device(frames.numpy())
+    int8._logprobs(clips)  # calibrates in f32 (K1's f32 instantiation) and builds the kernels
+    torch.cuda.synchronize()
+    names = ("bf16_launches", "launches")
+    before = ([getattr(quantconv, n) for n in names], [getattr(gru, n) for n in names],
+              convpool.launches)
+    got = int8._logprobs(clips)
+    torch.cuda.synchronize()
+    assert [getattr(quantconv, n) - b for n, b in zip(names, before[0])] == [3, 0]
+    assert [getattr(gru, n) - b for n, b in zip(names, before[1])] == [2, 0]
+    assert convpool.launches == before[2]
+    want = b16._logprobs(clips)
+    assert got.dtype == torch.float32
     assert (got - want).abs().mean().item() < 0.05
     assert (got.argmax(-1) == want.argmax(-1)).float().mean().item() >= 0.95
 

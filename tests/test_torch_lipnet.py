@@ -125,11 +125,25 @@ def test_narrow_model_with_both_kernel_flags_matches_jax():
 
 
 @pytest.mark.parametrize("build,err", [
-    # bf16 compute is ported (tests/test_torch_bf16.py); its int8 forward is not
-    (lambda: make_int8_forward(ModelConfig(compute_dtype="bfloat16", use_pallas_gru=True)),
-     "item 14"),
     (lambda: LipNet(ModelConfig(family="tf")), "family"),
-], ids=["bf16_with_kernel", "tf_family"])
+], ids=["tf_family"])
 def test_unported_configurations_raise(build, err):
     with pytest.raises(NotImplementedError, match=err):
         build()
+
+
+def test_int8_forward_under_bf16_with_the_kernel_flag():
+    """bf16 compute and its int8 forward are ported (tests/test_torch_bf16.py,
+    tests/test_torch_int8_bf16.py): with `use_pallas_gru` the bf16 int8
+    forward takes the bf16-operand recurrence's operator, whose CPU kernel
+    is the plain loop's rounding, so the log-probs equal the plain path's."""
+    from avsync_torch.ops import quant
+
+    base = dict(hidden_dim=8, conv_channels=(2, 3, 4), compute_dtype="bfloat16")
+    x = torch.from_numpy(np.random.default_rng(6).random((2, 6, 16, 32, 1), np.float32))
+    model = LipNet(ModelConfig(**base), img_hw=(16, 32),
+                   generator=torch.Generator().manual_seed(7)).eval()
+    qp = quant.quantize_lipnet(model, [x])
+    got = make_int8_forward(ModelConfig(use_pallas_gru=True, **base))(qp, x)
+    plain = make_int8_forward(ModelConfig(use_pallas_gru=False, **base))(qp, x)
+    assert got.shape == (2, 6, 39) and torch.equal(got, plain)

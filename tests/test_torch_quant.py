@@ -234,7 +234,9 @@ def test_int8_forward_hand_off_keeps_the_log_probs_bit_for_bit(mode, monkeypatch
     clips = x.permute(0, 2, 3, 4, 1)
     got = tq.lipnet_int8_apply(qp, clips, cfg)
     block = tq.quant_conv_block
-    monkeypatch.setattr(tq, "quant_conv_block", lambda qc, h, out_scale=None: block(qc, h))
+    monkeypatch.setattr(tq, "quant_conv_block",
+                        lambda qc, h, out_scale=None, compute_dtype=None: block(
+                            qc, h, compute_dtype=compute_dtype))
     want = tq.lipnet_int8_apply(qp, clips, cfg)
     assert got.shape == (2, 5, 39) and torch.equal(got, want)
 

@@ -85,7 +85,9 @@ def test_int8_hand_off_equals_three_f32_contract_blocks(tiny, monkeypatch):
     before = quantconv.launches
     handed = fwd(qp, torch.from_numpy(clips))
     block = tq.quant_conv_block
-    monkeypatch.setattr(tq, "quant_conv_block", lambda qc, x, out_scale=None: block(qc, x))
+    monkeypatch.setattr(tq, "quant_conv_block",
+                        lambda qc, x, out_scale=None, compute_dtype=None: block(
+                            qc, x, compute_dtype=compute_dtype))
     f32_contract = fwd(qp, torch.from_numpy(clips))
     assert torch.equal(handed, f32_contract)
     assert quantconv.launches == before  # the CPU runs the plain version

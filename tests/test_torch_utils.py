@@ -169,14 +169,16 @@ def test_train_flags_reach_the_config():
             cfg.train.tensorboard, cfg.model.use_pallas_gru) == ("auto", False, 10, False, True)
 
 
-def test_train_refuses_bfloat16_compute(tmp_path):
+def test_train_and_quantize_take_bfloat16_compute(tmp_path):
     """bf16 compute is ported (`train --compute_dtype bfloat16` runs:
-    tests/test_torch_bf16.py); what is still refused under it is the int8
-    forward and the calibration that feeds it, naming its ROADMAP item."""
+    tests/test_torch_bf16.py), and so are the int8 forward and the
+    calibration that feeds it (tests/test_torch_int8_bf16.py): `quantize`
+    under bf16 is not refused and gets past its flags to the missing
+    checkpoint."""
     p = cli.build_parser()
     cfg = cli._config_from_args(p.parse_args(["train", "--compute_dtype", "bfloat16"]))
     assert cfg.model.compute_dtype == "bfloat16"
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 14"):
+    with pytest.raises((FileNotFoundError, OSError)):
         cli.main(["quantize", "--data_path", str(tmp_path), "--out", str(tmp_path / "q.npz"),
                   "--checkpoint", str(tmp_path / "none.pth"), "--compute_dtype", "bfloat16",
                   "--device", "cpu"])
