@@ -39,20 +39,33 @@
 // model's NCDHW (B, C, T, H/2, W/2) and the JAX package's (B, T, H/2, W/2, C).
 //
 // bf16 (`avs_conv1_pool_bf16`, the model under compute_dtype="bfloat16", as
-// `conv1_pool_fused(..., out_dtype=bf16)`): x, the weights and the output
-// are bf16, the bias float. The halo and the weights are widened with
-// __bfloat162float as they are staged, the same fmaf chain sums the taps in
-// float, and the pooled value is rounded once at the store
-// (__float2bfloat16_rn). The bound moves to the tensor cores' bf16 rate
-// (14.4 GFLOP at 989 TFLOP/s, 0.015 ms) or the halved bytes (6 + 48 MB,
-// 0.016 ms); this kernel still runs the FMAs on the CUDA cores, so it stays
-// where the float kernel is. The bf16 halo goes through registers (cp.async
-// copies whole words), overlapped by the SM's second CTA, not by cp.async.
+// `conv1_pool_fused(..., out_dtype=bf16)`; x, the weights and the output
+// bf16, the bias float) runs `conv1_pool_bf16_kernel` below on the tensor
+// cores. Its bound is the bf16 one: 14.4 GFLOP at 989 TFLOP/s (0.015 ms)
+// against 6 MB of bf16 input and 48 MB of bf16 output (0.016 ms, the
+// floor at B=8). Design (the recompute shared with K4, conv1_mma.cuh):
+//   * a CTA is one clip b x a tile of TR x TC pooled positions (the
+//     wrapper's `mma_grid`; 5 x 50 at LipNet's 25 x 50) x a run of F
+//     consecutive frames, its input frames in a ring of kt + 1 slots: each
+//     staged once by 8-byte cp.async, serving kt output frames, the next
+//     one landing while this one computes;
+//   * a warp task is 16 pooled positions x 32 channels: the four windows'
+//     pre-pool sums on the bf16 tensor cores (mma_window_sums), then + bias
+//     in f32, the max of the four, ReLU, one rounding to bf16;
+//   * the pooled tile goes through shared memory and out in the output's
+//     own order (channels innermost for the JAX layout, positions for
+//     NCDHW), so the stores coalesce in both layouts;
+//   * __launch_bounds__(256, 2): two CTAs on each SM.
+// The f32 sum of each pre-pool value runs over the K order's k-steps, not
+// the fmaf chain of the float kernel: the value agrees with the plain
+// version's to f32 rounding (bit for bit where the sums are exact), and its
+// bits never depend on the tile, the run or the batch.
 
 #include <cuda_runtime.h>
 
 #include <atomic>
 
+#include "conv1_mma.cuh"
 #include "conv1_recompute.cuh"
 
 namespace {
@@ -63,23 +76,23 @@ constexpr size_t MAX_SMEM = 232448;  // per-block opt-in limit on sm_90
 constexpr int MAX_DEVICES = 64;
 
 struct ConvPoolParams {
-  const void* x;      // input (TX), element strides below
-  const void* w;      // weights (TX), w[tap * w_tap + c * w_c], tap = (dt*kh+dh)*kw+dw
+  const float* x;     // input, element strides below
+  const float* w;     // weights, w[tap * w_tap + c * w_c], tap = (dt*kh+dh)*kw+dw
   const float* bias;  // (C,), contiguous
-  void* out;          // pooled output (TX), element strides below
+  float* out;         // pooled output, element strides below
   int B, T, H, W, kt, kh, kw, C, n_chunks, TR, TC, tiles_w;
   long long x_sb, x_st, x_sh, x_sw;
   long long w_tap, w_c;
   long long o_sb, o_st, o_sh, o_sw, o_sc;
 };
 
-// KT/KH/KW == 0 means "read the size from the params" (generic path); TX is
-// the element type of x, the weights and the output (float or bf16).
-template <typename TX, int KT, int KH, int KW>
+// The float kernel. KT/KH/KW == 0 means "read the size from the params"
+// (generic path).
+template <int KT, int KH, int KW>
 __global__ void __launch_bounds__(NT, 2)
 conv1_pool_kernel(const ConvPoolParams p) {
-  const TX* x = static_cast<const TX*>(p.x);
-  const TX* w = static_cast<const TX*>(p.w);
+  const float* x = p.x;
+  const float* w = p.w;
   const int kt = KT ? KT : p.kt;
   const int kh = KH ? KH : p.kh;
   const int kw = KW ? KW : p.kw;
@@ -114,7 +127,7 @@ conv1_pool_kernel(const ConvPoolParams p) {
   if (f < frames) stage(f, 0);
   for (int i = tid; i < taps * cpad; i += NT) {
     const int tap = i / cpad, c = i % cpad;
-    s_w[i] = c < p.C ? to_float(w[tap * p.w_tap + c * p.w_c]) : 0.f;
+    s_w[i] = c < p.C ? w[tap * p.w_tap + c * p.w_c] : 0.f;
   }
   for (int c = tid; c < cpad; c += NT) s_b[c] = c < p.C ? p.bias[c] : 0.f;
 
@@ -130,7 +143,7 @@ conv1_pool_kernel(const ConvPoolParams p) {
 
     if (live) {
       const int b = f / p.T, t = f % p.T;
-      TX* ob = static_cast<TX*>(p.out) + b * p.o_sb + t * p.o_st + h2 * p.o_sh + w2 * p.o_sw;
+      float* ob = p.out + b * p.o_sb + t * p.o_st + h2 * p.o_sh + w2 * p.o_sw;
       const float2* xs = s_x + buf * halo + 2 * ty * IW + 2 * tx;
       for (int c0 = 0; c0 < p.C; c0 += CB) {
         float acc[4][CB];
@@ -141,7 +154,7 @@ conv1_pool_kernel(const ConvPoolParams p) {
             const float bc = s_b[c0 + c];
             const float m = fmaxf(fmaxf(acc[0][c] + bc, acc[1][c] + bc),
                                   fmaxf(acc[2][c] + bc, acc[3][c] + bc));
-            store_as(ob + (c0 + c) * p.o_sc, fmaxf(m, 0.f));
+            ob[(c0 + c) * p.o_sc] = fmaxf(m, 0.f);
           }
         }
       }
@@ -156,27 +169,38 @@ size_t smem_bytes(int kt, int kh, int kw, int C, int TR, int TC) {
          2 * sizeof(float2) * (size_t)kt * (2 * TR + kh - 1) * (2 * TC + kw - 1);
 }
 
-// The shared-memory opt-in of each instantiation, set once per device.
-template <typename TX, int KT, int KH, int KW>
+// Opt kernel `fn` in to MAX_SMEM of dynamic shared memory, once per device
+// (`opted_in`: the instantiation's own flags).
+template <typename Fn>
+cudaError_t opt_in(Fn fn, std::atomic<bool>* opted_in, int device) {
+  if (device < MAX_DEVICES && opted_in[device].load()) return cudaSuccess;
+  cudaError_t e =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM);
+  if (e == cudaSuccess && device < MAX_DEVICES) opted_in[device].store(true);
+  return e;
+}
+
+template <int KT, int KH, int KW>
 cudaError_t launch(const ConvPoolParams& p, dim3 grid, int device, cudaStream_t stream) {
   static std::atomic<bool> opted_in[MAX_DEVICES];
   const size_t smem = smem_bytes(p.kt, p.kh, p.kw, p.C, p.TR, p.TC);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  if (device >= MAX_DEVICES || !opted_in[device].load()) {
-    cudaError_t e = cudaFuncSetAttribute(conv1_pool_kernel<TX, KT, KH, KW>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)MAX_SMEM);
-    if (e != cudaSuccess) return e;
-    if (device < MAX_DEVICES) opted_in[device].store(true);
-  }
-  conv1_pool_kernel<TX, KT, KH, KW><<<grid, NT, smem, stream>>>(p);
+  cudaError_t e = opt_in(conv1_pool_kernel<KT, KH, KW>, opted_in, device);
+  if (e != cudaSuccess) return e;
+  conv1_pool_kernel<KT, KH, KW><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+cudaError_t set_device(int device) {
+  int cur = -1;
+  cudaError_t e = cudaGetDevice(&cur);
+  if (e == cudaSuccess && cur != device) e = cudaSetDevice(device);
+  return e;
 }
 
 // Grid: (tiles of tile_rows x tile_cols pooled positions, n_chunks); the
 // wrapper chooses the tile (at most 256 positions) and the chunks.
-template <typename TX>
-int run(const TX* x, const TX* w, const float* bias, TX* out,
+int run(const float* x, const float* w, const float* bias, float* out,
         int B, int T, int H, int W, int kt, int kh, int kw, int C, int n_chunks,
         int tile_rows, int tile_cols,
         long long x_sb, long long x_st, long long x_sh, long long x_sw,
@@ -186,9 +210,7 @@ int run(const TX* x, const TX* w, const float* bias, TX* out,
   if (C < 1 || n_chunks < 1 || B < 1 || T < 1 || H < 2 || W < 2 || tile_rows < 1 ||
       tile_cols < 1 || tile_rows * tile_cols > NT)
     return static_cast<int>(cudaErrorInvalidValue);
-  int cur = -1;
-  cudaError_t e = cudaGetDevice(&cur);
-  if (e == cudaSuccess && cur != device) e = cudaSetDevice(device);
+  cudaError_t e = set_device(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles_w = (W / 2 + tile_cols - 1) / tile_cols;
   const int tiles = ((H / 2 + tile_rows - 1) / tile_rows) * tiles_w;
@@ -199,12 +221,181 @@ int run(const TX* x, const TX* w, const float* bias, TX* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(tiles, n_chunks);
   if (kt == 3 && kh == 5 && kw == 5) {
-    e = launch<TX, 3, 5, 5>(p, grid, device, s);
+    e = launch<3, 5, 5>(p, grid, device, s);
   } else if (kt == 3 && kh == 3 && kw == 3) {
-    e = launch<TX, 3, 3, 3>(p, grid, device, s);
+    e = launch<3, 3, 3>(p, grid, device, s);
   } else {
-    e = launch<TX, 0, 0, 0>(p, grid, device, s);
+    e = launch<0, 0, 0>(p, grid, device, s);
   }
+  return static_cast<int>(e);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+struct MmaParams {
+  const __nv_bfloat16* x;  // input, element strides below
+  const __nv_bfloat16* w;  // weights, w[tap * w_tap + c * w_c]
+  const float* bias;       // (C,), contiguous
+  __nv_bfloat16* out;      // pooled output, element strides below
+  MmaGeo g;
+  int B, T, H, W, runs, F, tiles_w, tiles;
+  long long x_sb, x_st, x_sh, x_sw;
+  long long w_tap, w_c;
+  long long o_sb, o_st, o_sh, o_sw, o_sc;
+};
+
+// Shared memory in words: the packed weights, the bias, the A-pair tables,
+// the ring of R frame slots, the pooled tile ([mgroups * 16][npad + 2]
+// bf16: an odd number of words a row, so a thread's own row of channels is
+// read without bank conflicts). ops/cuda/convpool.py's `mma_smem_bytes`
+// mirrors it.
+size_t mma_fwd_words(const MmaGeo& g) {
+  return (size_t)g.npad * g.wrow + g.npad + (size_t)g.R * (g.Kpad / 2) +
+         (size_t)g.R * g.slot_words + (size_t)g.mgroups * 16 * (g.npad + 2) / 2;
+}
+
+// KS: the k-steps (0: read at run time); VEC: the staging (mma_stage).
+template <int KS, int VEC>
+__global__ void __launch_bounds__(MMA_NT, 2)
+conv1_pool_bf16_kernel(const MmaParams p) {
+  const MmaGeo& g = p.g;
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* s_w = smem;
+  float* s_b = reinterpret_cast<float*>(s_w + g.npad * g.wrow);
+  int* s_tab = reinterpret_cast<int*>(s_b + g.npad);
+  uint32_t* ring = reinterpret_cast<uint32_t*>(s_tab + g.R * (g.Kpad / 2));
+  __nv_bfloat16* s_out = reinterpret_cast<__nv_bfloat16*>(ring + g.R * g.slot_words);
+  const int oc = g.npad + 2;  // bf16 per row of the pooled tile
+
+  // blockIdx.x -> (tile, run of F frames, clip), the tiles fastest
+  const int tile = blockIdx.x % p.tiles, run = (blockIdx.x / p.tiles) % p.runs;
+  const int b = blockIdx.x / (p.tiles * p.runs);
+  const int t_begin = run * p.F, t_end = min(t_begin + p.F, p.T);
+  if (t_begin >= t_end) return;
+  const int h2_0 = (tile / p.tiles_w) * g.TR, w2_0 = (tile % p.tiles_w) * g.TC;
+  const int pt = (g.kt - 1) / 2;
+  const int h0 = 2 * h2_0 - (g.kh - 1) / 2, wi0 = 2 * w2_0 - (g.kw - 1) / 2;
+  const int e0 = (wi0 % 4 + 4) % 4, aE = wi0 - e0;
+  const long long xb = b * p.x_sb;
+  // input frame ti (>= -pt) lives in slot (ti + pt) mod R
+  auto slot = [&](int ti) { return ring + ((ti + pt) % g.R) * g.slot_words; };
+  auto stage = [&](int ti) {
+    mma_stage<VEC>(slot(ti), p.x, xb, ti, h0, aE, g, p.T, p.H, p.W, p.x_st, p.x_sh, p.x_sw);
+  };
+
+  for (int d = 0; d < g.kt; ++d) stage(t_begin - pt + d);  // the first frame's kt inputs
+  cp_async_commit();
+  mma_prepare(g, s_w, s_b, s_tab, p.w, p.w_tap, p.w_c, p.bias);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
+  const int ngroups = g.npad / 32, tasks = g.mgroups * ngroups;
+  // the store role: pooled position threadIdx.x of the tile, all channels
+  const int sh2 = h2_0 + threadIdx.x / g.TC, sw2 = w2_0 + threadIdx.x % g.TC;
+  const bool store = (int)threadIdx.x < g.P && sh2 < p.H / 2 && sw2 < p.W / 2;
+  __nv_bfloat16* ob = p.out + b * p.o_sb + sh2 * p.o_sh + sw2 * p.o_sw;
+  const __nv_bfloat16* srow = s_out + threadIdx.x * oc;
+  for (int t = t_begin; t < t_end; ++t) {
+    cp_async_wait<0>();
+    // frame t + pt has landed (copy E); every warp is done with frame t - 1,
+    // so the slot of input frame t - pt - 1 is free for frame t + pt + 1
+    __syncthreads();
+    if (t == t_begin) {
+      for (int d = 0; d < g.kt; ++d) mma_build_odd(slot(t - pt + d), g);
+    } else {
+      mma_build_odd(slot(t + pt), g);
+    }
+    if (t + 1 < t_end) stage(t + pt + 1);
+    cp_async_commit();
+    __syncthreads();  // the O copies visible
+
+    const int* tab = s_tab + (t % g.R) * (g.Kpad / 2);
+    for (int task = warp; task < tasks; task += MMA_NT / 32) {
+      const int mg = task / ngroups, ng = task % ngroups;
+      const int idx[2] = {mg * 16 + gq, mg * 16 + gq + 8};
+      int ww[4][2];
+      mma_row_words(ww, g, e0, idx);
+      float acc[4][4][4];
+      mma_window_sums<KS>(acc, ring, tab, s_w + (ng * 32 + gq) * g.wrow + tq, g.wrow, ww,
+                          g.ksteps);
+      // + bias in f32, the max of the four windows, ReLU, one rounding
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (idx[r] >= g.P) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = ng * 32 + j * 8 + 2 * tq;
+          float v[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 2 * r + h;
+            const float bc = s_b[c + h];
+            const float m = fmaxf(fmaxf(acc[0][j][i] + bc, acc[1][j][i] + bc),
+                                  fmaxf(acc[2][j][i] + bc, acc[3][j][i] + bc));
+            v[h] = fmaxf(m, 0.f);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(s_out + idx[r] * oc + c) =
+              __floats2bfloat162_rn(v[0], v[1]);
+        }
+      }
+    }
+    __syncthreads();  // the pooled tile complete
+
+    // out: a thread per position, its channels in turn, so a warp's
+    // stores are neighbouring positions (contiguous in NCDHW)
+    if (store) {
+      __nv_bfloat16* of = ob + t * p.o_st;
+      for (int c = 0; c < g.C; ++c) of[c * p.o_sc] = srow[c];
+    }
+  }
+}
+
+template <int KS, int VEC>
+cudaError_t launch_bf16(const MmaParams& p, int device, cudaStream_t stream) {
+  static std::atomic<bool> opted_in[MAX_DEVICES];
+  const size_t smem = 4 * mma_fwd_words(p.g);
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  cudaError_t e = opt_in(conv1_pool_bf16_kernel<KS, VEC>, opted_in, device);
+  if (e != cudaSuccess) return e;
+  conv1_pool_bf16_kernel<KS, VEC><<<p.B * p.tiles * p.runs, MMA_NT, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int KS>
+cudaError_t launch_bf16_vec(const MmaParams& p, int vec, int device, cudaStream_t s) {
+  if (vec == 4) return launch_bf16<KS, 4>(p, device, s);
+  if (vec == 2) return launch_bf16<KS, 2>(p, device, s);
+  return launch_bf16<KS, 0>(p, device, s);
+}
+
+// Grid: B x tiles of tile_rows x tile_cols pooled positions x n_chunks runs
+// of ceil(T / n_chunks) frames (the wrapper's `mma_grid`).
+int run_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* bias,
+             __nv_bfloat16* out, int B, int T, int H, int W, int kt, int kh, int kw, int C,
+             int n_chunks, int tile_rows, int tile_cols,
+             long long x_sb, long long x_st, long long x_sh, long long x_sw,
+             long long w_tap, long long w_c,
+             long long o_sb, long long o_st, long long o_sh, long long o_sw,
+             long long o_sc, int device, void* stream) {
+  if (C < 1 || n_chunks < 1 || n_chunks > T || B < 1 || T < 1 || H < 2 || W < 2 ||
+      tile_rows < 1 || tile_cols < 1 || tile_rows * tile_cols > MMA_NT || kt % 2 == 0 ||
+      kh % 2 == 0 || kw % 2 == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = set_device(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  MmaParams p{x, w, bias, out, mma_geo(kt, kh, kw, C, tile_rows, tile_cols), B, T, H, W};
+  p.F = (T + n_chunks - 1) / n_chunks;
+  p.runs = (T + p.F - 1) / p.F;
+  p.tiles_w = (W / 2 + tile_cols - 1) / tile_cols;
+  p.tiles = ((H / 2 + tile_rows - 1) / tile_rows) * p.tiles_w;
+  p.x_sb = x_sb, p.x_st = x_st, p.x_sh = x_sh, p.x_sw = x_sw;
+  p.w_tap = w_tap, p.w_c = w_c;
+  p.o_sb = o_sb, p.o_st = o_st, p.o_sh = o_sh, p.o_sw = o_sw, p.o_sc = o_sc;
+  const int vec = mma_stage_vec(x, x_sb, x_st, x_sh, x_sw);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  e = p.g.ksteps == 6 ? launch_bf16_vec<6>(p, vec, device, s)
+                      : launch_bf16_vec<0>(p, vec, device, s);
   return static_cast<int>(e);
 }
 
@@ -222,14 +413,15 @@ int run(const TX* x, const TX* w, const float* bias, TX* out,
 // float x, weights and output
 extern "C" int avs_conv1_pool(const float* x, const float* w, const float* bias, float* out,
                               AVS_CONV1_POOL_ARGS) {
-  return run<float>(x, w, bias, out, AVS_CONV1_POOL_PASS);
+  return run(x, w, bias, out, AVS_CONV1_POOL_PASS);
 }
 
-// bf16 x, weights and output; the bias stays float
+// bf16 x, weights and output; the bias stays float. n_chunks: the runs of
+// frames per clip.
 extern "C" int avs_conv1_pool_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
                                    const float* bias, __nv_bfloat16* out,
                                    AVS_CONV1_POOL_ARGS) {
-  return run<__nv_bfloat16>(x, w, bias, out, AVS_CONV1_POOL_PASS);
+  return run_bf16(x, w, bias, out, AVS_CONV1_POOL_PASS);
 }
 
 extern "C" const char* avs_error_string(int e) {

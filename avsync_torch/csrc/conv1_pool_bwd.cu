@@ -64,18 +64,48 @@
 // JAX layout both work without a copy.
 //
 // bf16 (`avs_conv1_pool_bwd_bf16`, training under compute_dtype="bfloat16",
-// as `conv1_pool_bwd(..., out_dtype=bf16)`): x, the weights and the pooled
-// cotangent are bf16, the bias float. They are widened with
-// __bfloat162float as they are staged (through registers: cp.async copies
-// whole words), so the recompute routes on the bits K1-bf16 pooled before
-// its rounding, and dW and db are the same float sums as above. The caller
-// rounds dW to bf16 once (the JAX package's `dwmat.astype(bf16)`); db stays
-// float.
+// as `conv1_pool_bwd(..., out_dtype=bf16)`; x, the weights and the pooled
+// cotangent bf16, the bias, dW and db float) runs
+// `conv1_pool_bwd_bf16_kernel` below on the tensor cores; the caller rounds
+// dW to bf16 once (the JAX package's `dwmat.astype(bf16)`). Its bound is
+// the bf16 one (the recompute's 14.4 GFLOP and the routed dW at 989
+// TFLOP/s, 0.018 ms). Design:
+//   * a CTA is one clip x a tile of TR x TC pooled positions x a run of F
+//     frames (the wrapper's `mma_grid`), its input frames in a ring of
+//     kt + 1 slots as K1-bf16's (conv1_mma.cuh); the cotangent of the next
+//     frame is loaded into registers while the ring's copy lands;
+//   * the recompute is K1-bf16's own device function (mma_window_sums), so
+//     the routing sees the bits K1-bf16 pooled: the pooled gradient goes to
+//     the first window position, jh-major, whose pre-activation (+ bias in
+//     f32) is the max, where that max is > 0;
+//   * the routed pre-pool gradient dpre is the bf16 cotangent or 0, so
+//     bf16-exact: it is written as bf16 into shared memory, one 32-bit word
+//     per (pooled position, jh, channel) holding the windows jw = 0, 1;
+//   * dW is a dense bf16 tensor-core product dpre^T x patches (M = channels
+//     in m16 tiles, N = the K order's taps in n8 tiles, K = the tile's
+//     pre-pool positions, ordered (position, jh, jw), so a patch register is
+//     two neighbouring columns of one halo row: one word of copy E or O),
+//     f32 accumulation, a frame's sums in registers, then added to the run's
+//     in shared memory. This is 4x the products of the float kernel's
+//     sparse dW, on the tensor cores. db, the routed cotangent's sum, is
+//     added up on the CUDA cores as it is routed (each thread its own
+//     channels and rows), then over the threads in a fixed order;
+//   * each warp owns every fourth tap tile (3 of LipNet's 12) of both
+//     m-tiles over the even or the odd k-steps, so each dpre and patch
+//     fragment is loaded by two warps; at the end of the run the even and
+//     the odd sums are added in that order and the K order is folded back
+//     to (tap, c) into the CTA's partial row; the sum kernel below adds the
+//     rows in a fixed order. No float atomics: a repeat launch gives the
+//     same bits;
+//   * a tile of at most 128 pooled positions (5 x 25 at LipNet's 25 x 50)
+//     and __launch_bounds__(256, 2): two CTAs on each SM, one loading or
+//     routing while the other multiplies.
 
 #include <cuda_runtime.h>
 
 #include <atomic>
 
+#include "conv1_mma.cuh"
 #include "conv1_recompute.cuh"
 
 namespace {
@@ -88,10 +118,10 @@ constexpr int MAXTQ = 16;        // taps per thread in the dW phase, at most
 constexpr int GS = MAXC + 1;     // padded row of the routing arrays
 
 struct ConvPoolBwdParams {
-  const void* x;      // input (TX), element strides below
-  const void* w;      // weights (TX), w[tap * w_tap + c * w_c], tap = (dt*kh+dh)*kw+dw
+  const float* x;     // input, element strides below
+  const float* w;     // weights, w[tap * w_tap + c * w_c], tap = (dt*kh+dh)*kw+dw
   const float* bias;  // (C,), contiguous
-  const void* g;      // pooled cotangent (TX), element strides below
+  const float* g;     // pooled cotangent, element strides below
   float* partial;     // [grid blocks][taps * C + C]
   float* dw;          // dw[tap * dw_tap + c * dw_c]
   float* db;          // (C,), contiguous
@@ -102,15 +132,15 @@ struct ConvPoolBwdParams {
   long long dw_tap, dw_c;
 };
 
-// KT/KH/KW == 0 means "read the size from the params" (generic path); TQ is
-// the taps per warp, ceil(taps / NWARP), or MAXTQ for the generic path; TX
-// the element type of x, the weights and g (float or bf16).
-template <typename TX, int KT, int KH, int KW, int TQ>
+// The float kernel. KT/KH/KW == 0 means "read the size from the params"
+// (generic path); TQ is the taps per warp, ceil(taps / NWARP), or MAXTQ for
+// the generic path.
+template <int KT, int KH, int KW, int TQ>
 __global__ void __launch_bounds__(NT, 2)
 conv1_pool_bwd_kernel(const ConvPoolBwdParams p) {
-  const TX* x = static_cast<const TX*>(p.x);
-  const TX* w = static_cast<const TX*>(p.w);
-  const TX* g = static_cast<const TX*>(p.g);
+  const float* x = p.x;
+  const float* w = p.w;
+  const float* g = p.g;
   const int kt = KT ? KT : p.kt;
   const int kh = KH ? KH : p.kh;
   const int kw = KW ? KW : p.kw;
@@ -140,7 +170,7 @@ conv1_pool_bwd_kernel(const ConvPoolBwdParams p) {
 
   for (int i = tid; i < taps * cpad; i += NT) {
     const int tap = i / cpad, c = i % cpad;
-    s_w[i] = c < C ? to_float(w[tap * p.w_tap + c * p.w_c]) : 0.f;
+    s_w[i] = c < C ? w[tap * p.w_tap + c * p.w_c] : 0.f;
   }
   for (int c = tid; c < cpad; c += NT) s_b[c] = c < C ? p.bias[c] : 0.f;
 #pragma unroll
@@ -165,13 +195,9 @@ conv1_pool_bwd_kernel(const ConvPoolBwdParams p) {
                      p.x_st, p.x_sh, p.x_sw);
     cp_async_commit();
     if (in_tile) {
-      const TX* gb = g + b * p.g_sb + t * p.g_st + h2 * p.g_sh + w2 * p.g_sw;
-      if constexpr (std::is_same<TX, float>::value) {
-        for (int c = 0; c < C; ++c) cp_async4(s_g + tid * GS + c, live ? gb + c * p.g_sc : g,
-                                              live);
-      } else {  // this thread's own row: read back by it alone until the sync
-        for (int c = 0; c < C; ++c) s_g[tid * GS + c] = live ? to_float(gb[c * p.g_sc]) : 0.f;
-      }
+      const float* gb = g + b * p.g_sb + t * p.g_st + h2 * p.g_sh + w2 * p.g_sw;
+      for (int c = 0; c < C; ++c) cp_async4(s_g + tid * GS + c, live ? gb + c * p.g_sc : g,
+                                            live);
     }
     cp_async_commit();
     cp_async_wait<1>();  // this thread's halo copies
@@ -309,28 +335,39 @@ size_t smem_bytes(int kt, int kh, int kw, int C, int TR, int TC, int tq) {
 constexpr size_t MAX_SMEM = 232448;  // per-block opt-in limit on sm_90
 constexpr int MAX_DEVICES = 64;
 
-// The shared-memory opt-in of each instantiation, set once per device.
-template <typename TX, int KT, int KH, int KW, int TQ>
+// Opt kernel `fn` in to MAX_SMEM of dynamic shared memory, once per device
+// (`opted_in`: the instantiation's own flags).
+template <typename Fn>
+cudaError_t opt_in(Fn fn, std::atomic<bool>* opted_in, int device) {
+  if (device < MAX_DEVICES && opted_in[device].load()) return cudaSuccess;
+  cudaError_t e =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM);
+  if (e == cudaSuccess && device < MAX_DEVICES) opted_in[device].store(true);
+  return e;
+}
+
+template <int KT, int KH, int KW, int TQ>
 cudaError_t launch(const ConvPoolBwdParams& p, dim3 grid, int device, cudaStream_t stream) {
   static std::atomic<bool> opted_in[MAX_DEVICES];
   const size_t smem = smem_bytes(p.kt, p.kh, p.kw, p.C, p.TR, p.TC, TQ);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  if (device >= MAX_DEVICES || !opted_in[device].load()) {
-    cudaError_t e = cudaFuncSetAttribute(conv1_pool_bwd_kernel<TX, KT, KH, KW, TQ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)MAX_SMEM);
-    if (e != cudaSuccess) return e;
-    if (device < MAX_DEVICES) opted_in[device].store(true);
-  }
-  conv1_pool_bwd_kernel<TX, KT, KH, KW, TQ><<<grid, NT, smem, stream>>>(p);
+  cudaError_t e = opt_in(conv1_pool_bwd_kernel<KT, KH, KW, TQ>, opted_in, device);
+  if (e != cudaSuccess) return e;
+  conv1_pool_bwd_kernel<KT, KH, KW, TQ><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+cudaError_t set_device(int device) {
+  int cur = -1;
+  cudaError_t e = cudaGetDevice(&cur);
+  if (e == cudaSuccess && cur != device) e = cudaSetDevice(device);
+  return e;
 }
 
 // Grid: (tiles of tile_rows x tile_cols pooled positions, n_chunks);
 // `partial` holds tiles * n_chunks rows of taps * C + C floats (the wrapper
 // allocates it and chooses the tile and the chunks).
-template <typename TX>
-int run(const TX* x, const TX* w, const float* bias, const TX* g,
+int run(const float* x, const float* w, const float* bias, const float* g,
         float* partial, float* dw, float* db,
         int B, int T, int H, int W, int kt, int kh, int kw, int C, int n_chunks,
         int tile_rows, int tile_cols,
@@ -343,9 +380,7 @@ int run(const TX* x, const TX* w, const float* bias, const TX* g,
       B < 1 || T < 1 || H < 2 || W < 2 || tile_rows < 1 || tile_cols < 1 ||
       tile_rows * tile_cols > NT)
     return static_cast<int>(cudaErrorInvalidValue);
-  int cur = -1;
-  cudaError_t e = cudaGetDevice(&cur);
-  if (e == cudaSuccess && cur != device) e = cudaSetDevice(device);
+  cudaError_t e = set_device(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles_w = (W / 2 + tile_cols - 1) / tile_cols;
   const int tiles = ((H / 2 + tile_rows - 1) / tile_rows) * tiles_w;
@@ -357,15 +392,360 @@ int run(const TX* x, const TX* w, const float* bias, const TX* g,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(tiles, n_chunks);
   if (kt == 3 && kh == 5 && kw == 5) {
-    e = launch<TX, 3, 5, 5, (75 + NWARP - 1) / NWARP>(p, grid, device, s);
+    e = launch<3, 5, 5, (75 + NWARP - 1) / NWARP>(p, grid, device, s);
   } else if (kt == 3 && kh == 3 && kw == 3) {
-    e = launch<TX, 3, 3, 3, (27 + NWARP - 1) / NWARP>(p, grid, device, s);
+    e = launch<3, 3, 3, (27 + NWARP - 1) / NWARP>(p, grid, device, s);
   } else {
-    e = launch<TX, 0, 0, 0, MAXTQ>(p, grid, device, s);
+    e = launch<0, 0, 0, MAXTQ>(p, grid, device, s);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_out = kt * kh * kw * C + C;
   conv1_pool_bwd_sum_kernel<<<(n_out + 31) / 32, NT, 0, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+
+struct MmaBwdParams {
+  const __nv_bfloat16* x;  // input, element strides below
+  const __nv_bfloat16* w;  // weights, w[tap * w_tap + c * w_c]
+  const float* bias;       // (C,), contiguous
+  const __nv_bfloat16* g;  // pooled cotangent, element strides below
+  float* partial;          // [grid blocks][taps * C + C]
+  MmaGeo geo;
+  int B, T, H, W, runs, F, tiles_w, tiles;
+  long long x_sb, x_st, x_sh, x_sw;
+  long long w_tap, w_c;
+  long long g_sb, g_st, g_sh, g_sw, g_sc;
+};
+
+constexpr int BWD_MAXP = 128;  // pooled positions per tile of K4-bf16, at most
+
+// n8 tap tiles per dW warp: the 8 warps are 4 tap groups x the even and the
+// odd k-steps, so LipNet's 12 tap tiles are 3 a warp; any other shape takes
+// up to 32 tap tiles.
+constexpr int BWD_GROUPS = 4;
+__host__ __device__ inline int bwd_ntw(const MmaGeo& g) {
+  return g.ksteps == 6 ? 3 : 8;
+}
+
+// Shared memory in words: the packed weights, the bias, the A-pair tables
+// (R x Kpad / 2), the tap tables (R x Kpad), the ring, the cotangent tile ([mgroups * 16][mpad + 2] bf16: an odd
+// number of words a row), dpre ([mgroups * 16][mpad + 8][2] words: a
+// position's (jh = 0, 1) words of one channel side by side), and each
+// thread's dW sums between frames ([8 ntw][256] floats: two m-tiles) and
+// db sums ([8][256]).
+// ops/cuda/convpool.py's `mma_smem_bytes` mirrors it.
+size_t mma_bwd_words(const MmaGeo& g) {
+  return (size_t)g.npad * g.wrow + g.npad + (size_t)g.R * (g.Kpad / 2) +
+         (size_t)g.R * g.Kpad + (size_t)g.R * g.slot_words +
+         (size_t)g.mgroups * 16 * (g.mpad + 2) / 2 + (size_t)g.mgroups * 32 * (g.mpad + 8) +
+         (size_t)(8 * bwd_ntw(g) + 8) * MMA_NT;
+}
+
+// KS: the k-steps (0: read at run time); VEC: the staging (mma_stage); NTW:
+// n8 tiles of taps per dW warp, at most.
+template <int KS, int VEC, int NTW>
+__global__ void __launch_bounds__(MMA_NT, 2)
+conv1_pool_bwd_bf16_kernel(const MmaBwdParams p) {
+  const MmaGeo& g = p.geo;
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* s_w = smem;
+  float* s_b = reinterpret_cast<float*>(s_w + g.npad * g.wrow);
+  int* s_tab = reinterpret_cast<int*>(s_b + g.npad);
+  int* s_tap = s_tab + g.R * (g.Kpad / 2);
+  uint32_t* ring = reinterpret_cast<uint32_t*>(s_tap + g.R * g.Kpad);
+  unsigned short* s_g = reinterpret_cast<unsigned short*>(ring + g.R * g.slot_words);
+  uint32_t* s_dp = reinterpret_cast<uint32_t*>(s_g + g.mgroups * 16 * (g.mpad + 2));
+  // [i][thread]: the thread's dW (i < 4 NTW) and db sums between frames
+  float* s_acc = reinterpret_cast<float*>(s_dp + g.mgroups * 32 * (g.mpad + 8)) + threadIdx.x;
+  // row strides: bf16 of s_g; word pairs of s_dp (cw % 16 == 8: the dW's A
+  // loads fall on distinct banks)
+  const int gc = g.mpad + 2, cw = g.mpad + 8;
+
+  const int taps = g.kt * g.kh * g.kw, n_out = taps * g.C + g.C;
+  float* part = p.partial + (size_t)blockIdx.x * n_out;
+  const int tile = blockIdx.x % p.tiles, run = (blockIdx.x / p.tiles) % p.runs;
+  const int b = blockIdx.x / (p.tiles * p.runs);
+  const int t_begin = run * p.F, t_end = min(t_begin + p.F, p.T);
+  if (t_begin >= t_end) {
+    for (int o = threadIdx.x; o < n_out; o += MMA_NT) part[o] = 0.f;
+    return;
+  }
+  const int h2_0 = (tile / p.tiles_w) * g.TR, w2_0 = (tile % p.tiles_w) * g.TC;
+  const int pt = (g.kt - 1) / 2;
+  const int h0 = 2 * h2_0 - (g.kh - 1) / 2, wi0 = 2 * w2_0 - (g.kw - 1) / 2;
+  const int e0 = (wi0 % 4 + 4) % 4, aE = wi0 - e0;
+  const long long xb = b * p.x_sb;
+  auto slot = [&](int ti) { return ring + ((ti + pt) % g.R) * g.slot_words; };
+  auto stage = [&](int ti) {
+    mma_stage<VEC>(slot(ti), p.x, xb, ti, h0, aE, g, p.T, p.H, p.W, p.x_st, p.x_sh, p.x_sw);
+  };
+
+  for (int d = 0; d < g.kt; ++d) stage(t_begin - pt + d);
+  cp_async_commit();
+  mma_prepare(g, s_w, s_b, s_tab, p.w, p.w_tap, p.w_c, p.bias);
+  // tap table: for output frame t with r = t mod R, the word of tap k of
+  // the K order relative to a pre-pool position's word: its slot,
+  // copy (by the parity of e0 + dw), row dh and column pair (past K: the
+  // staged slot of frame t - pt; those columns are not kept)
+  for (int i = threadIdx.x; i < g.R * g.Kpad; i += MMA_NT) {
+    const int r = i / g.Kpad, k = i % g.Kpad;
+    int off = r * g.slot_words;
+    if (k < g.K) {
+      const int dt = k / (g.kh * g.kwp), dh = (k / g.kwp) % g.kh, dw = k % g.kwp;
+      const int par = (e0 + dw) & 1;
+      off = ((r + dt) % g.R) * g.slot_words + par * g.OP + dh * g.RW + (e0 + dw - par) / 2;
+    }
+    s_tap[i] = off;
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
+  const int H2 = p.H / 2, W2 = p.W / 2, ntiles = g.Kpad / 8, mt_n = g.mpad / 16;
+  // dW role: tap tiles dn, dn + 4, ... of every m-tile over the k-steps of
+  // parity kp. The sums stay in shared memory between frames, so the
+  // recompute has the registers.
+  const int dn = warp % BWD_GROUPS, kp = warp / BWD_GROUPS;
+  constexpr int NACC = 8 * NTW + 8;  // [m][n][4] dW, then db [j][h]
+  for (int i = 0; i < NACC; ++i) s_acc[i * MMA_NT] = 0.f;
+  float* s_db = s_acc + 8 * NTW * MMA_NT;  // db of channel 8 j + 2 tq + h: [2 j + h]
+  // the lane's dpre rows 8 ks + tq and + 4 at its first k-step: pooled
+  // positions 4 kp + tq / 2 and + 2, window row jh = tq % 2
+  const int jh = tq & 1, pos0 = 4 * kp + (tq >> 1);
+  // the cotangent role: position threadIdx.x % 128 of the tile, half of the
+  // channels; a frame's values in registers, frame t's loads in flight
+  // during frame t - 1's dW product
+  constexpr int GH = MAXC / 2;
+  const int gp = threadIdx.x % BWD_MAXP, gc0 = (threadIdx.x / BWD_MAXP) * GH;
+  const int gh2 = h2_0 + gp / g.TC, gw2 = w2_0 + gp % g.TC;
+  const bool gload = gp < g.P && gh2 < H2 && gw2 < W2;
+  const unsigned short* gsrc = reinterpret_cast<const unsigned short*>(p.g) + b * p.g_sb +
+                               (gload ? gh2 * p.g_sh + gw2 * p.g_sw : 0) + gc0 * p.g_sc;
+  unsigned short* grow = s_g + gp * gc + gc0;
+  unsigned short gr[GH];
+  auto load_g = [&](int t) {
+#pragma unroll
+    for (int c = 0; c < GH; ++c)
+      gr[c] = gload && gc0 + c < g.C ? gsrc[t * p.g_st + c * p.g_sc] : 0;
+  };
+  load_g(t_begin);
+
+  for (int t = t_begin; t < t_end; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // frame t + pt landed; frame t - 1's readers done
+    if (t == t_begin) {
+      for (int d = 0; d < g.kt; ++d) mma_build_odd(slot(t - pt + d), g);
+    } else {
+      mma_build_odd(slot(t + pt), g);
+    }
+    if (t + 1 < t_end) stage(t + pt + 1);
+    cp_async_commit();
+    if (gp < g.P) {
+#pragma unroll
+      for (int c = 0; c < GH; ++c)
+        if (gc0 + c < g.C) grow[c] = gr[c];
+    }
+    __syncthreads();  // the O copies and the cotangent visible
+
+    // recompute (K1-bf16's function) and route into dpre
+    const int* tab = s_tab + (t % g.R) * (g.Kpad / 2);
+    for (int mg = warp; mg < g.mgroups; mg += MMA_NT / 32) {
+      const int idx[2] = {mg * 16 + gq, mg * 16 + gq + 8};
+      int ww[4][2];
+      mma_row_words(ww, g, e0, idx);
+      float acc[4][4][4];
+      mma_window_sums<KS>(acc, ring, tab, s_w + gq * g.wrow + tq, g.wrow, ww, g.ksteps);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int pos = idx[r];
+        const int h2 = h2_0 + pos / g.TC, w2 = w2_0 + pos % g.TC;
+        const bool live = pos < g.P && h2 < H2 && w2 < W2;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int c = j * 8 + 2 * tq + h, i = 2 * r + h;
+            if (c >= g.mpad) continue;
+            const float bc = s_b[c];
+            float m = acc[0][j][i] + bc;
+            int wm = 0;
+#pragma unroll
+            for (int wdw = 1; wdw < 4; ++wdw) {
+              const float v = acc[wdw][j][i] + bc;
+              if (v > m) {
+                m = v;
+                wm = wdw;
+              }
+            }
+            const uint32_t gv = (live && c < g.C && m > 0.f) ? s_g[pos * gc + c] : 0u;
+            const uint32_t d0 = wm == 0 ? gv : 0u, d1 = wm == 1 ? gv : 0u;
+            const uint32_t d2 = wm == 2 ? gv : 0u, d3 = wm == 3 ? gv : 0u;
+            *reinterpret_cast<uint2*>(s_dp + 2 * (pos * cw + c)) =
+                make_uint2(d0 | d1 << 16, d2 | d3 << 16);
+            // db: the routed cotangent, row by row into the thread's sum
+            s_db[(2 * j + h) * MMA_NT] += __uint_as_float(gv << 16);
+          }
+        }
+      }
+    }
+    __syncthreads();  // dpre complete
+    if (t + 1 < t_end) load_g(t + 1);
+
+    // dW += dpre^T x patches over the frame's k-steps
+    // (16 pre-pool positions each: 4 pooled positions x 4 windows)
+    {
+      // two-level sums: the frame's from zero, then the run's in shared
+      // memory (one chain over a run's 75 frames drifted past K4_TOL at B=128)
+      float acc_dw[2][NTW][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int n = 0; n < NTW; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc_dw[m][n][i] = 0.f;
+      }
+      int toff[NTW];
+#pragma unroll
+      for (int n = 0; n < NTW; ++n) {
+        const int nt = dn + n * BWD_GROUPS;
+        toff[n] = nt < ntiles ? s_tap[(t % g.R) * g.Kpad + nt * 8 + gq] : 0;
+      }
+      // the pooled positions of the lane's rows, advanced 8 a k-step pair
+      int p0 = pos0, ph0 = p0 / g.TC, pw0 = p0 % g.TC;
+      int p1 = pos0 + 2, ph1 = p1 / g.TC, pw1 = p1 % g.TC;
+#pragma unroll 4
+      for (int ks = kp; ks < g.mgroups * 4; ks += 2) {
+        // dpre rows r = 2 pos + jh: word 2 (pos * cw + c) + jh
+        const uint32_t* d0 = s_dp + 2 * (p0 * cw + gq) + jh;
+        const uint32_t* d1 = s_dp + 2 * (p1 * cw + gq) + jh;
+        uint32_t a[2][4] = {};
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          if (m >= mt_n) continue;
+          a[m][0] = d0[32 * m];
+          a[m][1] = d0[32 * m + 16];
+          a[m][2] = d1[32 * m];
+          a[m][3] = d1[32 * m + 16];
+        }
+        // the rows' pre-pool words (past the tile: position 0)
+        const int q0 = p0 < g.P ? (2 * ph0 + jh) * g.RW + pw0 : 0;
+        const int q1 = p1 < g.P ? (2 * ph1 + jh) * g.RW + pw1 : 0;
+#pragma unroll
+        for (int n = 0; n < NTW; ++n) {
+          if (dn + n * BWD_GROUPS >= ntiles) continue;
+          const uint32_t b0 = ring[q0 + toff[n]], b1 = ring[q1 + toff[n]];
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+            if (m < mt_n) mma_bf16(acc_dw[m][n], a[m], b0, b1);
+        }
+        p0 += 8, pw0 += 8, p1 += 8, pw1 += 8;
+        while (pw0 >= g.TC) pw0 -= g.TC, ++ph0;
+        while (pw1 >= g.TC) pw1 -= g.TC, ++ph1;
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int n = 0; n < NTW; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s_acc[((m * NTW + n) * 4 + i) * MMA_NT] += acc_dw[m][n][i];
+      }
+    }
+  }
+
+  // the even and the odd k-steps' sums added in that order, the K order
+  // folded back to (tap, c): the even warps write the CTA's partial row;
+  // db of channel c: the sums of the lanes that routed it, warps then lanes
+  // in order
+  __syncthreads();
+  for (int c = threadIdx.x; c < g.C; c += MMA_NT) {
+    const int j = c / 8, q = (c % 8) / 2, h = c % 2;
+    float sdb = 0.f;
+    for (int w = 0; w < MMA_NT / 32; ++w)
+      for (int l = q; l < 32; l += 4) sdb += s_db[(2 * j + h) * MMA_NT + w * 32 + l - threadIdx.x];
+    part[taps * g.C + c] = sdb;
+  }
+  if (kp == 0) {
+    const float* odd = s_acc + BWD_GROUPS * 32;  // the same lane of warp + 4
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = m * 16 + gq + 8 * (i >> 1);
+        if (m >= mt_n || c >= g.C) continue;
+#pragma unroll
+        for (int n = 0; n < NTW; ++n) {
+          const int k = (dn + n * BWD_GROUPS) * 8 + 2 * tq + (i & 1), dw = k % g.kwp;
+          const int a = ((m * NTW + n) * 4 + i) * MMA_NT;
+          if (dn + n * BWD_GROUPS < ntiles && k < g.K && dw < g.kw)
+            part[((k / g.kwp) * g.kw + dw) * g.C + c] = s_acc[a] + odd[a];
+        }
+      }
+    }
+  }
+}
+
+template <int KS, int VEC, int NTW>
+cudaError_t launch_bwd_bf16(const MmaBwdParams& p, int device, cudaStream_t stream) {
+  static std::atomic<bool> opted_in[MAX_DEVICES];
+  const size_t smem = 4 * mma_bwd_words(p.geo);
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  cudaError_t e = opt_in(conv1_pool_bwd_bf16_kernel<KS, VEC, NTW>, opted_in, device);
+  if (e != cudaSuccess) return e;
+  conv1_pool_bwd_bf16_kernel<KS, VEC, NTW>
+      <<<p.B * p.tiles * p.runs, MMA_NT, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int KS, int NTW>
+cudaError_t launch_bwd_bf16_vec(const MmaBwdParams& p, int vec, int device, cudaStream_t s) {
+  if (vec == 4) return launch_bwd_bf16<KS, 4, NTW>(p, device, s);
+  if (vec == 2) return launch_bwd_bf16<KS, 2, NTW>(p, device, s);
+  return launch_bwd_bf16<KS, 0, NTW>(p, device, s);
+}
+
+// Grid: B x tiles x n_chunks runs of ceil(T / n_chunks) frames (the
+// wrapper's `mma_grid`); `partial` holds one row of taps * C + C floats per
+// CTA, B * tiles * n_chunks rows.
+int run_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* bias,
+             const __nv_bfloat16* g, float* partial, float* dw, float* db,
+             int B, int T, int H, int W, int kt, int kh, int kw, int C, int n_chunks,
+             int tile_rows, int tile_cols,
+             long long x_sb, long long x_st, long long x_sh, long long x_sw,
+             long long w_tap, long long w_c,
+             long long g_sb, long long g_st, long long g_sh, long long g_sw,
+             long long g_sc, long long dw_tap, long long dw_c, int device, void* stream) {
+  if (C < 1 || C > MAXC || kt * kh * kw > MAXTQ * NWARP || n_chunks < 1 || n_chunks > T ||
+      B < 1 || T < 1 || H < 2 || W < 2 || tile_rows < 1 || tile_cols < 1 ||
+      tile_rows * tile_cols > BWD_MAXP || kt % 2 == 0 || kh % 2 == 0 || kw % 2 == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = set_device(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  MmaBwdParams p{x, w, bias, g, partial, mma_geo(kt, kh, kw, C, tile_rows, tile_cols),
+                 B, T, H, W};
+  p.F = (T + n_chunks - 1) / n_chunks;
+  p.runs = (T + p.F - 1) / p.F;
+  p.tiles_w = (W / 2 + tile_cols - 1) / tile_cols;
+  p.tiles = ((H / 2 + tile_rows - 1) / tile_rows) * p.tiles_w;
+  p.x_sb = x_sb, p.x_st = x_st, p.x_sh = x_sh, p.x_sw = x_sw;
+  p.w_tap = w_tap, p.w_c = w_c;
+  p.g_sb = g_sb, p.g_st = g_st, p.g_sh = g_sh, p.g_sw = g_sw, p.g_sc = g_sc;
+  const int vec = mma_stage_vec(x, x_sb, x_st, x_sh, x_sw);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  e = p.geo.ksteps == 6 ? launch_bwd_bf16_vec<6, 3>(p, vec, device, s)
+                        : launch_bwd_bf16_vec<0, 8>(p, vec, device, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // the fixed-order sum of the rows (the float kernel's)
+  const int n_partials = B * p.tiles * p.runs;
+  const ConvPoolBwdParams q{nullptr, nullptr, bias, nullptr, partial, dw, db,
+                            B, T, H, W, kt, kh, kw, C, n_chunks, n_partials,
+                            tile_rows, tile_cols, p.tiles_w,
+                            x_sb, x_st, x_sh, x_sw, w_tap, w_c,
+                            g_sb, g_st, g_sh, g_sw, g_sc, dw_tap, dw_c};
+  const int n_out = kt * kh * kw * C + C;
+  conv1_pool_bwd_sum_kernel<<<(n_out + 31) / 32, NT, 0, s>>>(q);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -384,14 +764,15 @@ int run(const TX* x, const TX* w, const float* bias, const TX* g,
 // float x, weights and cotangent
 extern "C" int avs_conv1_pool_bwd(const float* x, const float* w, const float* bias,
                                   const float* g, AVS_CONV1_POOL_BWD_ARGS) {
-  return run<float>(x, w, bias, g, AVS_CONV1_POOL_BWD_PASS);
+  return run(x, w, bias, g, AVS_CONV1_POOL_BWD_PASS);
 }
 
-// bf16 x, weights and cotangent; the bias, dW and db stay float
+// bf16 x, weights and cotangent; the bias, dW and db stay float. n_chunks:
+// the runs of frames per clip; `partial`: B * tiles * n_chunks rows.
 extern "C" int avs_conv1_pool_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
                                        const float* bias, const __nv_bfloat16* g,
                                        AVS_CONV1_POOL_BWD_ARGS) {
-  return run<__nv_bfloat16>(x, w, bias, g, AVS_CONV1_POOL_BWD_PASS);
+  return run_bf16(x, w, bias, g, AVS_CONV1_POOL_BWD_PASS);
 }
 
 extern "C" const char* avs_error_string(int e) {

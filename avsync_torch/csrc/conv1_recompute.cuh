@@ -1,27 +1,15 @@
-// The pre-pool values of the fused conv1 block, shared by K1 (conv1_pool.cu,
-// the forward) and K4 (conv1_pool_bwd.cu, which recomputes them to route the
-// pooled gradient): both include this one loop, so K4 routes on exactly the
-// bits K1 pooled. Both take float or bf16 inputs (the element type TX); the
-// halo and the weights are widened to float in shared memory, so the loop
-// and its sums are the same for either.
+// The float pre-pool values of the fused conv1 block, shared by K1
+// (conv1_pool.cu, the forward) and K4 (conv1_pool_bwd.cu, which recomputes
+// them to route the pooled gradient): both include this one loop, so K4
+// routes on exactly the bits K1 pooled. The bf16 instantiations of both
+// share conv1_mma.cuh instead: the same function on the bf16 tensor cores.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 #include "cp_async.cuh"
 
 namespace {
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-// store a float result as TX: bf16 rounds to nearest even, once
-__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // acc[j][c] = sum over the taps (dt, dh, dw), in that order from 0, one fmaf
 // each, of x(window position j + tap) * w(tap, c0 + c), for the four
@@ -72,18 +60,15 @@ __device__ __forceinline__ void conv1_window_sums(float (&acc)[4][CB], const flo
 
 // Issue the cp.async copies of frame (b, t)'s input halo for the pooled tile
 // at (h2_0, w2_0): [kt][IH][IW] pairs (x[i], x[i + 1]), zero outside the
-// clip (SAME padding in time and space, any T). cp.async moves whole 4-byte
-// words, so a bf16 input is loaded through registers and widened instead
-// (its stores are visible after the caller's __syncthreads, as the copies).
-template <typename TX>
-__device__ __forceinline__ void conv1_stage_halo(float2* s_x, const TX* x, int b, int t,
+// clip (SAME padding in time and space, any T).
+__device__ __forceinline__ void conv1_stage_halo(float2* s_x, const float* x, int b, int t,
                                                  int h2_0, int w2_0, int kt, int kh, int kw,
                                                  int IH, int IW, int T, int H, int W,
                                                  long long x_sb, long long x_st,
                                                  long long x_sh, long long x_sw) {
   const int pt = (kt - 1) / 2, ph = (kh - 1) / 2, pw = (kw - 1) / 2;
   const int h_in0 = 2 * h2_0 - ph, w_in0 = 2 * w2_0 - pw;
-  const TX* xb = x + b * x_sb;
+  const float* xb = x + b * x_sb;
   // pair i = (dt * IH + r) * IW + cc; the thread's (dt, r, cc) advance by the
   // block's stride without a division per pair
   const int step_r = blockDim.x / IW, step_c = blockDim.x % IW;
@@ -93,14 +78,10 @@ __device__ __forceinline__ void conv1_stage_halo(float2* s_x, const TX* x, int b
     const int ti = t + dt - pt, hi = h_in0 + r, wi = w_in0 + cc;
     const bool row = ti >= 0 && ti < T && hi >= 0 && hi < H;
     const bool ok0 = row && wi >= 0 && wi < W, ok1 = row && wi + 1 >= 0 && wi + 1 < W;
-    const TX* src = xb + ti * x_st + hi * x_sh + wi * x_sw;
-    if constexpr (std::is_same<TX, float>::value) {
-      float* dst = reinterpret_cast<float*>(s_x + i);
-      cp_async4(dst, ok0 ? src : x, ok0);
-      cp_async4(dst + 1, ok1 ? src + x_sw : x, ok1);
-    } else {
-      s_x[i] = make_float2(ok0 ? to_float(src[0]) : 0.f, ok1 ? to_float(src[x_sw]) : 0.f);
-    }
+    const float* src = xb + ti * x_st + hi * x_sh + wi * x_sw;
+    float* dst = reinterpret_cast<float*>(s_x + i);
+    cp_async4(dst, ok0 ? src : x, ok0);
+    cp_async4(dst + 1, ok1 ? src + x_sw : x, ok1);
     cc += step_c;
     r += step_r;
     if (cc >= IW) cc -= IW, ++r;

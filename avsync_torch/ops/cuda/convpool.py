@@ -28,15 +28,20 @@ routing of the backward, agree bit for bit.
 
 bf16: x, the weights and the pooled output bf16, the bias float32, as the
 JAX package's `conv1_pool_fused(..., out_dtype=bf16)` under
-compute_dtype="bfloat16". Both kernels have a bf16 instantiation
-(`avs_conv1_pool_bf16`, `avs_conv1_pool_bwd_bf16`) that widens the inputs to
-float and sums as the float kernels do; K1 rounds its pooled value once, and
-the plain versions do the same sums in float32 on the widened inputs, so
-K1-bf16 equals its plain version bit for bit too. K4 returns float32 sums;
-`Conv1Pool.backward` rounds dW to bf16 once (the JAX package's
-`dwmat.astype(bf16)`) and hands the float32 parameter that value. A bf16
-tensor on the card launches the bf16 kernel or raises: nothing upcasts to
-the float kernel.
+compute_dtype="bfloat16". The bf16 entries (`avs_conv1_pool_bf16`,
+`avs_conv1_pool_bwd_bf16`) run their own kernels on the bf16 tensor cores
+(`csrc/conv1_mma.cuh`): an implicit GEMM whose K order is the taps (dt, dh,
+dw) with each kernel row padded to even (`k_order`; the kernels pack the
+weights so, as `pack_weights` does), on a grid of tiles x runs of frames
+(`mma_grid`). bf16 products are exact in float32, so only the order of the
+float32 sums differs from the plain versions': the pre-pool values agree to
+float32 rounding, and bit for bit where the sums are exact. K1 rounds its
+pooled value once. K4's dW is a dense product of the routed pre-pool
+gradient (bf16-exact) with the patches, folded back to (tap, c) (`fold_dw`);
+it returns float32 sums, and `Conv1Pool.backward` rounds dW to bf16 once
+(the JAX package's `dwmat.astype(bf16)`) and hands the float32 parameter
+that value. A bf16 tensor on the card launches the bf16 kernel or raises:
+nothing upcasts to the float kernel.
 
 Layouts: `conv1_pool_fused` takes and returns the JAX package's
 (B, T, H, W, 1) x (kt, kh, kw, 1, C) -> (B, T, H/2, W/2, C), so tests compare
@@ -48,6 +53,7 @@ like with like; `conv1_pool_block` is the model's NCDHW form,
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -113,6 +119,133 @@ def fwd_grid(B: int, T: int, H2: int, W2: int, kt: int, kh: int, kw: int, C: int
     return rows, cols, tiles, max(1, min(B * T, BWD_TARGET_CTAS // tiles))
 
 
+# The bf16 kernels' CTAs resident at once: two per SM of an H100 (132 SMs).
+# A constant, so that the grid, and with it K4-bf16's partials, do not
+# depend on the card. K4-bf16's tile holds at most 128 pooled positions, K1's
+# 256 (BWD_THREADS).
+MMA_SLOTS, MMA_BWD_MAX_POS = 2 * 132, 128
+
+
+def mma_geometry(kt: int, kh: int, kw: int, C: int, TR: int, TC: int) -> dict:
+    """The bf16 kernels' decomposition for a TR x TC tile of pooled
+    positions (`mma_geo` in csrc/conv1_mma.cuh computes the same): the K
+    order's length K (kt * kh * (kw + 1)) and Kpad (to 16), the channel
+    paddings, the halo's rows IH and words per row RW, copy O's offset OP in
+    a frame slot and the slot's words."""
+    kwp = kw + 1
+    K = kt * kh * kwp
+    Kpad = -(-K // 16) * 16
+    LE = -(-(2 * TC + kw + 4) // 4) * 4
+    RW = LE // 2
+    while not 10 <= RW % 32 <= 24:
+        RW += 2
+    IH = 2 * TR + kh - 1
+    OP = IH * RW + (28 - IH * RW) % 32  # copy O's first word in a slot
+    return dict(kwp=kwp, K=K, Kpad=Kpad, npad=-(-C // 32) * 32, mpad=-(-C // 16) * 16,
+                wrow=Kpad // 2 + 4, P=TR * TC, mgroups=-(-(TR * TC) // 16), IH=IH,
+                LE=LE, RWu=LE // 2, RW=RW, OP=OP, slot_words=OP + IH * RW, R=kt + 1)
+
+
+def mma_smem_bytes(kt: int, kh: int, kw: int, C: int, TR: int, TC: int, bwd: bool) -> int:
+    """Shared memory of one CTA of K1-bf16 (`mma_fwd_words` in
+    csrc/conv1_pool.cu) or K4-bf16 (`mma_bwd_words`, conv1_pool_bwd.cu)."""
+    g = mma_geometry(kt, kh, kw, C, TR, TC)
+    words = (g["npad"] * g["wrow"] + g["npad"] + g["R"] * (g["Kpad"] // 2)
+             + g["R"] * g["slot_words"])
+    if not bwd:
+        return 4 * (words + g["mgroups"] * 16 * (g["npad"] + 2) // 2)
+    ntw = 3 if g["Kpad"] == 96 else 8  # `bwd_ntw`: tap tiles per warp
+    return 4 * (words + g["R"] * g["Kpad"]
+                + g["mgroups"] * 16 * (g["mpad"] + 2) // 2 + g["mgroups"] * 32 * (g["mpad"] + 8)
+                + (8 * ntw + 8) * 256)
+
+
+def _mma_tile(H2: int, W2: int, max_pos: int):
+    """(rows, cols) of a tile of at most max_pos pooled positions and 64
+    columns, a row's width split into 1-4 equal parts, with the fewest dead
+    positions (then the fewest tiles): LipNet's 25 x 50 takes 5 x 50 for
+    256 and 5 x 25 for 128."""
+    best = None
+    k0 = -(-W2 // BWD_MAX_TILE_COLS)
+    for k in range(k0, k0 + 4):
+        cols = -(-W2 // k)
+        rows = max(1, min(H2, max_pos // cols))
+        tiles = -(-H2 // rows) * -(-W2 // cols)
+        key = (tiles * rows * cols - H2 * W2, tiles)
+        if best is None or key < best[0]:
+            best = (key, rows, cols)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)
+def mma_grid(B: int, T: int, H2: int, W2: int, kt: int, kh: int, kw: int, C: int,
+             bwd: bool = False):
+    """(tile_rows, tile_cols, tiles, runs) of K1-bf16's or (bwd) K4-bf16's
+    grid: B x tiles x runs CTAs, each a tile of pooled positions (`_mma_tile`:
+    at most 256 for K1, 128 for K4; fewer rows, then fewer columns, while
+    its shared memory does not fit) over a run of ceil(T / runs) frames. The
+    runs minimise the waves of CTAs over the resident slots times the frames
+    a CTA stages (its run, half its kt - 1 halo frames and one for its
+    set-up); ties take fewer runs."""
+    rows, cols = _mma_tile(H2, W2, MMA_BWD_MAX_POS if bwd else BWD_THREADS)
+    while mma_smem_bytes(kt, kh, kw, C, rows, cols, bwd) > MAX_SMEM and rows * cols > 1:
+        if rows > 1:
+            rows = -(-rows // 2)
+        else:
+            cols = -(-cols // 2)
+    if mma_smem_bytes(kt, kh, kw, C, rows, cols, bwd) > MAX_SMEM:
+        raise ValueError(f"conv1_pool: a {kt}x{kh}x{kw} kernel with {C} channels needs more "
+                         "shared memory than the card has")
+    tiles = -(-H2 // rows) * -(-W2 // cols)
+    best = None
+    for runs in range(1, T + 1):
+        frames = -(-T // runs)
+        if -(-T // frames) != runs:
+            continue
+        cost = -(-(B * tiles * runs) // MMA_SLOTS) * (frames + (kt - 1) / 2 + 1)
+        if best is None or cost < best[0]:
+            best = (cost, runs)
+    return rows, cols, tiles, best[1]
+
+
+def k_order(kt: int, kh: int, kw: int) -> list:
+    """The bf16 kernels' K order: entry k is the tap (dt * kh + dh) * kw + dw
+    that column k of the packed weights holds, or -1 (zero weight: the pad
+    tap dw == kw of each kernel row, and past K). Each kernel row has kw + 1
+    entries, so the taps (dw, dw + 1) of a row share one 32-bit A register."""
+    kwp = kw + 1
+    K = kt * kh * kwp
+    order = [-1] * (-(-K // 16) * 16)
+    for k in range(K):
+        row, dw = divmod(k, kwp)
+        if dw < kw:
+            order[k] = row * kw + dw
+    return order
+
+
+def pack_weights(kernel: torch.Tensor) -> torch.Tensor:
+    """(kt, kh, kw, 1, C) weights -> the (npad, Kpad) B matrix the bf16
+    kernels build in shared memory: row c, column k = the weight of tap
+    k_order[k] and channel c, zero at the pad taps and past C."""
+    kt, kh, kw, _, C = kernel.shape
+    order = torch.tensor(k_order(kt, kh, kw))
+    flat = kernel.reshape(kt * kh * kw, C)
+    packed = kernel.new_zeros(-(-C // 32) * 32, len(order))
+    real = order >= 0
+    packed[:C, real] = flat[order[real]].t()
+    return packed
+
+
+def fold_dw(dwk: torch.Tensor, kt: int, kh: int, kw: int, C: int) -> torch.Tensor:
+    """K4-bf16's dW in the K order, (>= C, Kpad) -> (kt, kh, kw, 1, C): the
+    fold its CTAs apply before they write their partial rows."""
+    order = torch.tensor(k_order(kt, kh, kw))
+    taps = kt * kh * kw
+    cols = torch.empty(taps, dtype=torch.long)
+    cols[order[order >= 0]] = torch.nonzero(order >= 0)[:, 0]
+    return dwk[:C, cols].t().reshape(kt, kh, kw, 1, C)
+
+
 def _windows(x: torch.Tensor, kt: int, kh: int, kw: int):
     """(dt, dh, dw, window) over the taps of a SAME-padded (B, T, H, W, 1)
     input; window is the (B, T, H, W, 1) slice that tap multiplies."""
@@ -125,17 +258,40 @@ def _windows(x: torch.Tensor, kt: int, kh: int, kw: int):
                 yield dt, dh, dw, xp[:, dt:dt + T, dh:dh + H, dw:dw + W, None]
 
 
-def _pre_pool(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """conv3d(x, kernel) + bias in float32, (B, T, H, W, C), summed tap by
-    tap as the kernels do — the kernels' own arithmetic, not a library conv.
-    bf16 x and kernel are widened first (exact), as the kernels stage them."""
-    x, kernel = x.float(), kernel.float()
+def _pre_pool(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+              dtype=torch.float32) -> torch.Tensor:
+    """conv3d(x, kernel) + bias in float32 (or `dtype`), (B, T, H, W, C),
+    summed tap by tap as the float kernels do — the kernels' own arithmetic,
+    not a library conv. bf16 x and kernel are widened first (exact)."""
+    x, kernel = x.to(dtype), kernel.to(dtype)
     B, T, H, W, _ = x.shape
     kt, kh, kw, _, C = kernel.shape
     acc = x.new_zeros(B, T, H, W, C)
     for dt, dh, dw, win in _windows(x, kt, kh, kw):
         acc.addcmul_(win, kernel[dt, dh, dw, 0])
-    return acc + bias
+    return acc + bias.to(dtype)
+
+
+def near_ties(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+              eps: float = 2.0 ** -12, chunk: int = 16) -> torch.Tensor:
+    """(B, T, H/2, W/2, C) bool, JAX layouts: the pooled windows whose
+    routing another order of the float32 sums can change, from float64
+    pre-activations: the two largest of the four within eps of each other,
+    or the largest within eps of 0 (the ReLU). K4-bf16 sums in the tensor
+    cores' order, its plain version tap by tap; the checks on the card zero
+    the cotangent of these windows (eps = 2^-12 exceeds the f32 reorder
+    error of LipNet's 75-term sums, at most 75 * 2^-24 * sum |terms|)."""
+    B, T, H, W, _ = x.shape
+    C = kernel.shape[-1]
+    out = []
+    for i in range(0, B, chunk):
+        pre = _pre_pool(x[i:i + chunk], kernel, bias, torch.float64)
+        b = pre.shape[0]
+        win = pre.reshape(b, T, H // 2, 2, W // 2, 2, C).permute(0, 1, 2, 4, 3, 5, 6)
+        top = win.reshape(b, T, H // 2, W // 2, 4, C).topk(2, dim=4).values
+        out.append((top[..., 0, :] - top[..., 1, :] < eps) | (top[..., 0, :].abs() < eps))
+        del pre, win, top
+    return torch.cat(out)
 
 
 def conv1_pool_ref(x: torch.Tensor, kernel: torch.Tensor,
@@ -217,7 +373,10 @@ def _launch(x, x_strides, w, w_strides, bias, out, o_strides, B, T, H, W,
                            (("bias", bias),))
     if not bias.is_contiguous():
         raise ValueError("conv1_pool: bias must be contiguous")
-    rows, cols, _, n_chunks = fwd_grid(B, T, H // 2, W // 2, kt, kh, kw, C)
+    if suffix:  # bf16: n_chunks is the runs of frames per clip
+        rows, cols, _, n_chunks = mma_grid(B, T, H // 2, W // 2, kt, kh, kw, C)
+    else:
+        rows, cols, _, n_chunks = fwd_grid(B, T, H // 2, W // 2, kt, kh, kw, C)
     fn = build.function("conv1_pool", "avs_conv1_pool" + suffix, _ARGTYPES)
     err = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
              B, T, H, W, kt, kh, kw, C, n_chunks, rows, cols, *x_strides, *w_strides,
@@ -310,8 +469,13 @@ def _launch_bwd(x, x_strides, w, w_strides, bias, g, g_strides, dw, dw_strides, 
     if C > MAX_CHANNELS or taps > MAX_TAPS:
         raise ValueError(f"conv1_pool_bwd kernel takes at most {MAX_CHANNELS} channels "
                          f"and {MAX_TAPS} taps (got C={C}, {taps} taps)")
-    rows, cols, tiles, n_chunks = bwd_grid(B, T, H // 2, W // 2)
-    partial = torch.empty(tiles * n_chunks, taps * C + C, device=dev, dtype=torch.float32)
+    if suffix:  # bf16: a partial row per CTA, B x tiles x runs of frames
+        rows, cols, tiles, n_chunks = mma_grid(B, T, H // 2, W // 2, kt, kh, kw, C, bwd=True)
+        n_partials = B * tiles * n_chunks
+    else:
+        rows, cols, tiles, n_chunks = bwd_grid(B, T, H // 2, W // 2)
+        n_partials = tiles * n_chunks
+    partial = torch.empty(n_partials, taps * C + C, device=dev, dtype=torch.float32)
     fn = build.function("conv1_pool_bwd", "avs_conv1_pool_bwd" + suffix, _BWD_ARGTYPES)
     err = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), g.data_ptr(), partial.data_ptr(),
              dw.data_ptr(), db.data_ptr(), B, T, H, W, kt, kh, kw, C, n_chunks, rows, cols,

@@ -1480,6 +1480,9 @@ def run_detector_training(dev, workdir: str):
 KERNEL_NAMES = {"conv1_pool": "conv1_pool_kernel", "gru_fwd": "gru_fwd",
                 "gru_bwd": "gru_bwd_chain", "conv1_pool_bwd": "conv1_pool_bwd_kernel",
                 "mel_stats": "mel_stats_kernel"}
+# K1's and K4's bf16 kernels (csrc/conv1_mma.cuh's tensor-core recompute)
+BF16_KERNEL_NAMES = {"conv1_pool_bf16": "conv1_pool_bf16_kernel",
+                     "conv1_pool_bwd_bf16": "conv1_pool_bwd_bf16_kernel"}
 
 
 class StepLog:
@@ -4189,17 +4192,20 @@ BF16_NEAR_TIE = 0.125
 # a sync probability moves at most a quarter of its logit's change: 0.05
 # for a logit moved by 0.2 (bf16 conv statistics into an f32 MLP)
 BF16_PROB_ATOL = 0.05
+# K1-bf16 on random data: the share of pooled values one bf16 ulp from the
+# plain version's at most (its float32 sums run in another order)
+BF16_DIFF_SHARE = 1e-3
 
 
 def bf16_replayed(names):
-    """Kernels of a bf16 LipNet step by profiler name: K1 and K4 in their
-    bf16 instantiations (template argument __nv_bfloat16), K2 and K3."""
+    """Kernels of a bf16 LipNet step by profiler name: K1-bf16 and K4-bf16
+    (their own kernels, BF16_KERNEL_NAMES), the float K1, K2 and K3."""
     def count(pat, bf16):
         return sum(n for name, n in names.items()
                    if pat in name and ("bfloat16" in name) == bf16)
 
-    return {"conv1_pool_bf16": count(KERNEL_NAMES["conv1_pool"], True),
-            "conv1_pool_bwd_bf16": count(KERNEL_NAMES["conv1_pool_bwd"], True),
+    return {"conv1_pool_bf16": count(BF16_KERNEL_NAMES["conv1_pool_bf16"], False),
+            "conv1_pool_bwd_bf16": count(BF16_KERNEL_NAMES["conv1_pool_bwd_bf16"], False),
             "conv1_pool_f32": count(KERNEL_NAMES["conv1_pool"], False),
             "gru_fwd": count(KERNEL_NAMES["gru_fwd"], False),
             "gru_bwd": count(KERNEL_NAMES["gru_bwd"], False)}
@@ -4228,12 +4234,71 @@ def agreement(lp, ref, what, smi):
     return {"mean_abs": mean, "argmax_agreement": agree, "max_abs": worst}
 
 
+def bf16_exact_grid(g, dev, B, T=75):
+    """bf16 LipNet-shape inputs on grids where every partial sum of the bf16
+    kernels' recompute is exact in float32 in any order (and K4's dW at B=1,
+    T=8): x = i/16, w = j/64, b = k/64, cotangent m/8 (|j|, |k| <= 15,
+    |m| <= 8)."""
+    import torch
+
+    bf = torch.bfloat16
+    x = (torch.randint(0, 16, (B, T, 50, 100, 1), generator=g) / 16).to(dev).to(bf)
+    w = (torch.randint(-15, 16, (3, 5, 5, 1, 32), generator=g) / 64).to(dev).to(bf)
+    b = (torch.randint(-15, 16, (32,), generator=g) / 64).to(dev)
+    cot = (torch.randint(-8, 9, (B, T, 25, 50, 32), generator=g) / 8).to(dev).to(bf)
+    return x, w, b, cot
+
+
+def one_ulp_share(got, want, what):
+    """K1-bf16 against its plain version on random data: within one bf16
+    ulp of the plain value at every element (the ulp taken at no less than
+    2^-5: 2^-12 near 0, the bound of an f32 reorder of the sums), at most
+    BF16_DIFF_SHARE of the elements differing. Returns (max |d|, share)."""
+    import torch
+
+    got, want = got.float(), want.float()
+    mag = want.abs().clamp_min(2.0 ** -5)
+    ok = ((got - want).abs() <= torch.exp2(torch.floor(torch.log2(mag)) - 7)).all().item()
+    err = (got - want).abs().max().item()
+    share = (got != want).float().mean().item()
+    print(f"  {what}: max_abs_err={err:.3e}, {share:.3e} of the elements differ (one ulp "
+          f"at most: {'ok' if ok else 'FAIL'}; share <= {BF16_DIFF_SHARE})", flush=True)
+    if not ok or share > BF16_DIFF_SHARE:
+        raise SystemExit(f"kernel check failed: {what}")
+    return err, share
+
+
+def hmma_bf16_count(name, kernel):
+    """HMMA instructions with bf16 operands in the SASS of `kernel`'s
+    functions in kernel library `name` (cuobjdump -sass)."""
+    import shutil
+
+    from avsync_torch.ops.cuda import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(build.library_path(name))], capture_output=True,
+                          text=True, check=True).stdout
+    n, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside and "HMMA" in line and "BF16" in line:
+            n += 1
+    return n
+
+
 def bf16_kernels(dev, smi):
-    """15a: K1-bf16 equal to its plain version bit for bit at B = 8 and 128,
-    K4-bf16's float32 sums within K4_TOL of its plain version's, a repeat
-    launch of each the same bits; both timed at B=8 beside the f32 kernels,
-    cuDNN's bf16 block and its autograd backward, and the bf16 bound.
-    Returns the kernel line's two rows."""
+    """15a: K1-bf16 and K4-bf16 on the bf16 tensor cores against their plain
+    versions. Their float32 sums run in the K order, not the plain versions'
+    tap order, so: on exact-grid inputs K1-bf16 equals its plain version bit
+    for bit at B = 8 and 128 in both layouts, K4-bf16 at B=1, T=8 (within
+    K4_TOL at B = 8 and 128); on random data (the cases of earlier slices)
+    K1-bf16 is within one bf16 ulp, at most BF16_DIFF_SHARE differing, and
+    K4-bf16 within K4_TOL once the cotangent of the near-tie windows is zero;
+    clip 0 alone gives its slice's bits; a repeat launch of each the same
+    bits; HMMA with bf16 operands in both kernels' SASS. Both timed at B=8
+    beside the f32 kernels, cuDNN's bf16 block and its autograd backward,
+    and the bf16 bound. Returns the kernel line's two rows."""
     import torch
     import torch.nn.functional as F
 
@@ -4242,10 +4307,11 @@ def bf16_kernels(dev, smi):
 
     bf = torch.bfloat16
     g = torch.Generator(device="cpu").manual_seed(15)
+    ge = torch.Generator(device="cpu").manual_seed(1515)
     print("bf16 phase: a. K1-bf16 and K4-bf16 (bf16 x, weights and cotangent, float32 "
           "bias; avs_conv1_pool_bf16, avs_conv1_pool_bwd_bf16) vs their plain versions:",
           flush=True)
-    k4_errs = []
+    k1_errs, k4_errs, shares, zeroed = [], [], {}, {}
 
     def case(B):
         x = torch.rand(B, 75, 50, 100, 1, generator=g).to(dev).to(bf)
@@ -4254,19 +4320,57 @@ def bf16_kernels(dev, smi):
         cot = torch.randn(B, 75, 25, 50, 32, generator=g).to(dev).to(bf)
         return x, w, b, cot
 
+    # exact grids: every sum exact, so the bits are the plain version's
+    x, w, b, cot = bf16_exact_grid(ge, dev, 1, T=8)
+    got, want = convpool.conv1_pool_bwd(x, w, b, cot), convpool.conv1_pool_bwd_ref(x, w, b, cot)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, r) for a, r in zip(got, want)):
+        raise SystemExit("kernel check failed: K4-bf16 at B=1 T=8 on the exact grid differs "
+                         "from its plain version in some bit")
+    print("  exact grid: K4-bf16 B=1 T=8 50x100 C=32 equal to the plain version bit for bit",
+          flush=True)
+    for B in (8, 128):
+        x, w, b, cot = bf16_exact_grid(ge, dev, B)
+        x_n, w_n = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).contiguous()
+        want = convpool.conv1_pool_ref(x, w, b)
+        got, got_j = convpool.conv1_pool_block(x_n, w_n, b), convpool.conv1_pool_fused(x, w, b)
+        one = convpool.conv1_pool_block(x_n[:1], w_n, b)
+        torch.cuda.synchronize()
+        if not (got.dtype == bf and torch.equal(got, want.permute(0, 4, 1, 2, 3))
+                and torch.equal(got_j, want)):
+            raise SystemExit(f"kernel check failed: K1-bf16 at B={B} on the exact grid differs "
+                             "from its plain version in some bit")
+        if not torch.equal(one, got[:1]):
+            raise SystemExit(f"kernel check failed: K1-bf16's clip 0 alone differs from its "
+                             f"slice of B={B}")
+        print(f"  exact grid: K1-bf16 B={B} T=75 50x100 C=32 equal to the plain version bit "
+              f"for bit in both layouts; clip 0 alone equals its slice", flush=True)
+        del got, got_j, want, one
+        want = convpool.conv1_pool_bwd_ref(x, w, b, cot)
+        for name, a, r in zip(("dkernel", "dbias"), convpool.conv1_pool_bwd(x, w, b, cot), want):
+            k4_errs.append(max_err(a, r, K4_TOL, f"exact grid: K4-bf16 {name} B={B}"))
+        del x, w, cot, want
+        torch.cuda.empty_cache()
+
+    # random data: today's cases
     for B in (8, 128):
         x, w, b, cot = case(B)
         x_n, w_n = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).contiguous()
         got = convpool.conv1_pool_block(x_n, w_n, b)
         want = convpool.conv1_pool_ref(x, w, b).permute(0, 4, 1, 2, 3)
-        torch.cuda.synchronize()
-        if got.dtype != bf or not torch.equal(got, want):
-            raise SystemExit(f"kernel check failed: K1-bf16 at B={B} differs from its plain "
-                             "version in some bit")
+        err, shares[f"B{B}"] = one_ulp_share(got, want, f"K1-bf16 B={B} T=75 50x100 C=32")
+        k1_errs.append(err)
         same_bits([got], [convpool.conv1_pool_block(x_n, w_n, b)], f"K1-bf16 B={B}")
-        print(f"  K1-bf16 B={B} T=75 50x100 C=32: equal to the plain version bit for bit",
-              flush=True)
+        if not torch.equal(convpool.conv1_pool_block(x_n[:1], w_n, b), got[:1]):
+            raise SystemExit(f"kernel check failed: K1-bf16's clip 0 alone differs from its "
+                             f"slice of B={B}")
         del got, want
+        ties = convpool.near_ties(x, w, b)
+        zeroed[f"B{B}"] = int(ties.sum().item())
+        print(f"  K4-bf16 B={B}: the cotangent of {zeroed[f'B{B}']} near-tie windows of "
+              f"{ties.numel()} zeroed (pre-activations within 2^-12)", flush=True)
+        cot = cot.masked_fill(ties, 0)
+        del ties
         want = convpool.conv1_pool_bwd_ref(x, w, b, cot)
         got = convpool.conv1_pool_bwd(x, w, b, cot)
         for name, a, r in zip(("dkernel", "dbias"), got, want):
@@ -4274,6 +4378,13 @@ def bf16_kernels(dev, smi):
         same_bits(got, convpool.conv1_pool_bwd(x, w, b, cot), f"K4-bf16 B={B}")
         del x, w, cot, got, want
         torch.cuda.empty_cache()
+    hmma = {"conv1_pool_bf16": hmma_bf16_count("conv1_pool",
+                                               BF16_KERNEL_NAMES["conv1_pool_bf16"]),
+            "conv1_pool_bwd_bf16": hmma_bf16_count("conv1_pool_bwd",
+                                                   BF16_KERNEL_NAMES["conv1_pool_bwd_bf16"])}
+    print(f"  SASS: HMMA with bf16 operands {json.dumps(hmma)}", flush=True)
+    if not all(hmma.values()):
+        raise SystemExit("a bf16 kernel runs no bf16 HMMA")
 
     B, T, H, W, C, taps = 8, 75, 50, 100, 32, 75
     x, w, b, cot = case(B)
@@ -4292,7 +4403,9 @@ def bf16_kernels(dev, smi):
     k1 = {"ms": time_ms(lambda: convpool.conv1_pool_block(x_n, w_n, b)),
           "f32_ms": time_ms(lambda: convpool.conv1_pool_block(xf_n, wf_n, b)),
           "plain_ms": time_ms(lambda: convpool.conv1_pool_ref(x, w, b)),
-          "library_ms": time_ms(library)}
+          "library_ms": time_ms(library),
+          "device_ms": queued_ms(lambda: convpool.conv1_pool_block(x_n, w_n, b)),
+          "f32_device_ms": queued_ms(lambda: convpool.conv1_pool_block(xf_n, wf_n, b))}
     n_pre = B * T * H * W * C
     k1["bound_ms"], k1["bound_by"] = bf16_bound_ms(
         2 * (B * T * H * W + w.numel() + B * T * (H // 2) * (W // 2) * C) + 4 * C,
@@ -4311,24 +4424,30 @@ def bf16_kernels(dev, smi):
           "f32_ms": time_ms(lambda: convpool.conv1_pool_block_bwd(xf_n, wf_n, b, cotf_n)),
           "plain_ms": time_ms(lambda: convpool.conv1_pool_bwd_ref(x, w, b, cot), iters=5,
                               warmup=1),
-          "library_ms": time_ms(library_bwd)}
+          "library_ms": time_ms(library_bwd),
+          "device_ms": queued_ms(lambda: convpool.conv1_pool_block_bwd(x_n, w_n, b, cot_n)),
+          "f32_device_ms": queued_ms(lambda: convpool.conv1_pool_block_bwd(xf_n, wf_n, b,
+                                                                           cotf_n))}
     k4["bound_ms"], k4["bound_by"] = bf16_bound_ms(
         2 * (B * T * H * W + B * T * (H // 2) * (W // 2) * C + taps * C) + 4 * (C + taps * C + C),
         n_pre * (2 * taps + 2) + routed * (2 * taps + 1))
     for name, row in (("K1-bf16", k1), ("K4-bf16", k4)):
         print(f"  {name} B=8 T=75 50x100 C=32: kernel_ms={row['ms']:.4f} (f32 kernel "
-              f"{row['f32_ms']:.4f}, x{row['ms'] / row['f32_ms']:.3f}) plain_ms="
+              f"{row['f32_ms']:.4f}, x{row['ms'] / row['f32_ms']:.3f}; device alone "
+              f"{row['device_ms']:.4f}, f32 {row['f32_device_ms']:.4f}) plain_ms="
               f"{row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} bound_ms="
               f"{row['bound_ms']:.4f} ({row['bound_by']}, bf16 at 989 TFLOP/s) [{smi}]",
               flush=True)
     shape = "B=8 T=75 50x100 C=32 k=3x5x5, bf16 x/w/out, float32 bias"
     return (dict(name="conv1_pool_bf16", route="cuda", source="avsync_torch/csrc/conv1_pool.cu",
-                 replaces="avsync/ops/pallas/convpool.py:100", max_abs_err=0.0, **k1,
+                 replaces="avsync/ops/pallas/convpool.py:100", max_abs_err=max(k1_errs), **k1,
+                 differing_share=shares, hmma_bf16_sass=hmma["conv1_pool_bf16"],
                  entry="avs_conv1_pool_bf16", shape=shape,
-                 library_note="cuDNN bf16 max_pool3d(relu(conv3d + bias))"),
+                 library_note="cuDNN bf16 max_pool3d(relu(conv3d + b))"),
             dict(name="conv1_pool_bwd_bf16", route="cuda",
                  source="avsync_torch/csrc/conv1_pool_bwd.cu",
                  replaces="avsync/ops/pallas/convpool.py:244", max_abs_err=max(k4_errs), **k4,
+                 near_ties_zeroed=zeroed, hmma_bf16_sass=hmma["conv1_pool_bwd_bf16"],
                  entry="avs_conv1_pool_bwd_bf16", shape=shape + ", bf16 cotangent",
                  library_note="torch.autograd.grad of the cuDNN bf16 block w.r.t. (w, b)"))
 
@@ -5344,8 +5463,9 @@ def main() -> int:
           "Q1 int8_conv_pool (no pallas_call: the int8 lax.conv_general_dilated of "
           "quant_conv_block, avsync/ops/quant.py:97)=ported+checked, also at the TF "
           "stack's blocks (tflipnet_int8_apply, avsync/ops/quant.py:208); under "
-          "compute_dtype bfloat16 (PR 15) K1 and K4 run their bf16 instantiations "
-          "(conv1_pool_bf16, conv1_pool_bwd_bf16)=ported+checked, K2/K3/K5 unchanged (f32 in "
+          "compute_dtype bfloat16 K1 and K4 run their bf16 kernels on the bf16 tensor cores "
+          "(conv1_pool_bf16, conv1_pool_bwd_bf16, csrc/conv1_mma.cuh)=ported+checked, "
+          "K2/K3/K5 unchanged (f32 in "
           "the JAX package too); int8 serving under bf16: Q1's bf16 epilogue "
           "(int8_conv_pool_bf16, quant_conv_block(out_dtype=bfloat16), avsync/ops/quant.py:"
           "109)=ported+checked, the int8 forward's gru_scan(compute_dtype=bf16) as K2 with "

@@ -6,6 +6,7 @@ earlier design, on one GPU. Two modes:
     python3 scripts/torch_kernel_breakdown.py --parent build/parent [--out k.json]
     python3 scripts/torch_kernel_breakdown.py --mode k5 --parent build/parent [--out k.json]
     python3 scripts/torch_kernel_breakdown.py --mode q1 [--parent DIR] [--out k.json]
+    python3 scripts/torch_kernel_breakdown.py --mode conv1-bf16 [--parent DIR] [--out k.json]
 
 `--parent` is the root of an unpacked checkout whose `avsync_torch/csrc/`
 holds the earlier design. The default mode (`lipnet`) takes the LipNet
@@ -55,6 +56,24 @@ Mode `q1` (the int8 conv + dequant + ReLU + pool block of int8 serving):
     turns (parent, current, current, parent) at B = 8 and at the smaller
     batches a serving daemon forms (1, 2, 4), after checking that both give
     the same bits.
+
+Mode `conv1-bf16` (K1-bf16 and K4-bf16, the conv1 block under bf16 on the
+tensor cores, csrc/conv1_mma.cuh):
+  * builds conv1_pool.cu and conv1_pool_bwd.cu with one part cut out (K1:
+    no MMA task loop, no stores of the pooled tile, no staging of the next
+    frame; K4: no recompute and routing, no dW product, no cotangent
+    loads), and with `--parent DIR` DIR's two sources (the same C entries,
+    called with DIR's wrapper's grids: `fwd_grid` and `bwd_grid` of its
+    convpool.py); prints ptxas' register report for each;
+  * at LipNet's shape in NCDHW (T=75, 50x100, C=32, 3x5x5 taps, bf16 x,
+    weights and cotangent, float32 bias), B=8: each cut variant through
+    the package's wrapper with the variant swapped in, in device time
+    (`queued_ms`: the launch queued behind a device spin, CUDA events, median
+    of 20) and the profiler's device time per call;
+  * with `--parent`, the parent's K1-bf16 and K4-bf16 against the current
+    ones in turns (parent, current, current, parent), `queued_ms`, at B = 8
+    and 128, after checking both against the plain versions (K1's share of
+    elements equal, K4's largest difference).
 
 Mode `lipnet`:
   * builds the earlier design's four LipNet kernels and variants of its K3 and K1
@@ -213,13 +232,13 @@ def build_variants(specs):
                 if old not in src:
                     raise SystemExit(f"{name}: patch target not in {src_name}.cu: {old!r}")
                 src = src.replace(old, new)
-            sources[name] = (src, symbol, argtypes)
+            sources[name] = (src, symbol, argtypes, root)
     jobs = {}  # every patch applied: now compile
-    for name, (src, symbol, argtypes) in sources.items():
+    for name, (src, symbol, argtypes, root) in sources.items():
         cu, so = OUT_DIR / f"{name}.cu", OUT_DIR / f"{name}.so"
         cu.write_text(src)
-        # the current design's headers come from the package's csrc/
-        proc = subprocess.Popen([build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
+        # each source's headers come from its own csrc/
+        proc = subprocess.Popen([build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(root),
                                  "-o", str(so), str(cu)],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs[name] = (proc, so, symbol, argtypes)
@@ -246,6 +265,27 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     ts = []
     for _ in range(iters):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+
+def queued_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median CUDA-event time of fn() with its launches queued behind a
+    device-side spin (~0.5 ms): the device's work, not the host's launch
+    (as chip_smoke.py's)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(iters):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
         a.record()
         fn()
         b.record()
@@ -297,9 +337,11 @@ def checked(err, what):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", default=None, help="root of the earlier design's checkout")
-    ap.add_argument("--mode", choices=("lipnet", "k5", "q1"), default="lipnet",
+    ap.add_argument("--mode", choices=("lipnet", "k5", "q1", "conv1-bf16"), default="lipnet",
                     help="lipnet: K1-K4 against 6ec0e61; k5: K5 against 5e863d4; q1: Q1 "
-                         "(int8 serving) cut into parts, against --parent if given")
+                         "(int8 serving) cut into parts, against --parent if given; "
+                         "conv1-bf16: K1-bf16 and K4-bf16 cut into parts, against --parent "
+                         "if given")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
 
@@ -313,11 +355,11 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
-    if args.parent is None and args.mode != "q1":
+    if args.parent is None and args.mode not in ("q1", "conv1-bf16"):
         ap.error(f"--mode {args.mode} needs --parent")
     parent = Path(args.parent).resolve() if args.parent else None
-    out = {"k5": k5_breakdown, "q1": q1_breakdown, "lipnet": lipnet_breakdown}[args.mode](
-        parent, dev)
+    out = {"k5": k5_breakdown, "q1": q1_breakdown, "lipnet": lipnet_breakdown,
+           "conv1-bf16": conv1_bf16_breakdown}[args.mode](parent, dev)
     text = json.dumps({"card": card, "torch": torch.__version__, **out}, indent=1)
     print(text)
     if args.out:
@@ -793,6 +835,198 @@ def q1_breakdown(parent, dev):
             small[f"B{Bs}"] = row
         out["chain_vs_parent_small_batches"] = small
         print(f"chain vs parent at B = 1, 2, 4: {json.dumps(small)}", flush=True)
+    return out
+
+
+# cuts of the current bf16 designs (avsync_torch/csrc/conv1_pool*.cu)
+K1_BF16_VARIANTS = {
+    "k1_full": [],
+    "k1_no_mma": [("for (int task = warp; task < tasks; task += MMA_NT / 32) {",
+                   "for (int task = warp; task < 0; task += MMA_NT / 32) {")],
+    "k1_no_store": [("    if (store) {\n      __nv_bfloat16* of",
+                     "    if (store && p.B < 0) {\n      __nv_bfloat16* of")],
+    "k1_no_stage": [("    if (t + 1 < t_end) stage(t + pt + 1);\n    cp_async_commit();\n"
+                     "    __syncthreads();  // the O copies visible",
+                     "    cp_async_commit();\n    __syncthreads();  // the O copies visible")],
+}
+K4_BF16_VARIANTS = {
+    "k4_full": [],
+    "k4_no_recompute": [("for (int mg = warp; mg < g.mgroups; mg += MMA_NT / 32) {",
+                         "for (int mg = warp; mg < 0; mg += MMA_NT / 32) {")],
+    "k4_no_dw": [("#pragma unroll 4\n      for (int ks = kp; ks < g.mgroups * 4; ks += 2) {",
+                  "#pragma unroll 4\n      for (int ks = kp; ks < 0; ks += 2) {")],
+    "k4_no_gload": [("gr[c] = gload && gc0 + c < g.C ? gsrc[t * p.g_st + c * p.g_sc] : 0;",
+                     "gr[c] = 0;")],
+}
+
+
+# the grids swept at B=8: tiles (rows, cols) of the 25 x 50 pooled frame and
+# runs of frames per clip
+K1_BF16_TILES = ((5, 50), (4, 50), (5, 25))
+K4_BF16_TILES = ((5, 25), (2, 50), (4, 25), (2, 64))
+BF16_RUNS = (1, 3, 6, 13)
+
+
+def parent_conv_grids(parent: Path):
+    """The parent wrapper's `fwd_grid` and `bwd_grid` (its convpool.py's
+    functions and constants, executed alone: importing the module would
+    register its operator a second time)."""
+    import ast
+
+    src = (parent / "avsync_torch" / "ops" / "cuda" / "convpool.py").read_text()
+    keep = {"fwd_grid", "bwd_grid"}
+    nodes = [n for n in ast.parse(src).body
+             if (isinstance(n, ast.FunctionDef) and n.name in keep)
+             or (isinstance(n, ast.Assign) and all(isinstance(t, ast.Name) and t.id.isupper()
+                                                   and t.id[0] != "_" for t in n.targets))]
+    ns = {}
+    exec(compile(ast.Module(body=nodes, type_ignores=[]), "parent_convpool", "exec"), ns)
+    return ns["fwd_grid"], ns["bwd_grid"]
+
+
+def conv1_bf16_breakdown(parent, dev):
+    import torch
+
+    from avsync_torch.ops.cuda import build, convpool
+
+    bf = torch.bfloat16
+    specs = [(build.CSRC, "conv1_pool", K1_BF16_VARIANTS, "avs_conv1_pool_bf16",
+              convpool._ARGTYPES),
+             (build.CSRC, "conv1_pool_bwd", K4_BF16_VARIANTS, "avs_conv1_pool_bwd_bf16",
+              convpool._BWD_ARGTYPES)]
+    if parent is not None:
+        csrc = parent / "avsync_torch" / "csrc"
+        specs += [(csrc, "conv1_pool", {"k1_parent": []}, "avs_conv1_pool_bf16",
+                   convpool._ARGTYPES),
+                  (csrc, "conv1_pool_bwd", {"k4_parent": []}, "avs_conv1_pool_bwd_bf16",
+                   convpool._BWD_ARGTYPES)]
+    fns = build_variants(specs)
+    build.build(["conv1_pool", "conv1_pool_bwd"])
+    out = {"ptxas_variants": {k: v[1] for k, v in fns.items()}}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    g = torch.Generator().manual_seed(0)
+    C, taps = 32, 75
+
+    def case(B):
+        x = torch.rand(B, 1, T, 50, 100, generator=g).to(dev).to(bf)
+        w = ((torch.rand(C, 1, 3, 5, 5, generator=g) * 2 - 1) * taps ** -0.5).to(dev).to(bf)
+        b = ((torch.rand(C, generator=g) * 2 - 1) * taps ** -0.5).to(dev)
+        cot = torch.randn(B, C, T, 25, 50, generator=g).to(dev).to(bf)
+        return x, w, b, cot
+
+    def k1(case):
+        x, w, b, _ = case
+        return lambda: convpool.conv1_pool_block(x, w, b)
+
+    def k4(case):
+        x, w, b, cot = case
+        return lambda: convpool.conv1_pool_block_bwd(x, w, b, cot)
+
+    keys = {"k1": ("conv1_pool", "avs_conv1_pool_bf16"),
+            "k4": ("conv1_pool_bwd", "avs_conv1_pool_bwd_bf16")}
+    c8 = case(8)
+    k1(c8)()
+    k4(c8)()  # both wrappers' functions loaded
+    variants = {}
+    for name, (fn, _) in fns.items():
+        if name.endswith("_parent"):
+            continue
+        run = swapped(keys[name[:2]], fn, (k1 if name.startswith("k1") else k4)(c8))
+        variants[name] = {"queued_ms": queued_ms(run), "device_ms": device_ms(run)}
+    out["variants_B8"] = variants
+    print(f"variants B=8: {json.dumps(variants)}", flush=True)
+
+    # the grid: tiles and runs of frames, each forced through `mma_grid`
+    real = convpool.mma_grid
+    sweeps = {}
+    try:
+        for name, bwd, tiles_opts in (("k1", False, K1_BF16_TILES), ("k4", True, K4_BF16_TILES)):
+            chosen = real(8, T, 25, 50, 3, 5, 5, C, bwd)
+            rows_ = {"chosen": list(chosen)}
+            for rows, cols in tiles_opts:
+                n_tiles = -(-25 // rows) * -(-50 // cols)
+                for runs in BF16_RUNS:
+                    convpool.mma_grid = (lambda *a, bwd=False, r=(rows, cols, n_tiles, runs):
+                                         r)
+                    fn = (k1 if name == "k1" else k4)(c8)
+                    rows_[f"{rows}x{cols}_runs{runs}"] = sum(
+                        t for n, t in device_ms(fn).items() if "sum_kernel" not in n)
+                convpool.mma_grid = real
+            sweeps[name] = rows_
+    finally:
+        convpool.mma_grid = real
+    out["grid_sweep_device_ms_B8"] = sweeps
+    print(f"grid sweep B=8: {json.dumps(sweeps)}", flush=True)
+    if parent is None:
+        return out
+
+    fwd_grid, bwd_grid = parent_conv_grids(parent)
+
+    def k1_parent(case):
+        x, w, b, _ = case
+        B = x.shape[0]
+        rows, cols, _, chunks = fwd_grid(B, T, 25, 50, 3, 5, 5, C)
+        fn = fns["k1_parent"][0]
+
+        def run():
+            o = torch.empty(B, C, T, 25, 50, device=dev, dtype=bf)
+            checked(fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), o.data_ptr(),
+                       B, T, 50, 100, 3, 5, 5, C, chunks, rows, cols,
+                       x.stride(0), x.stride(2), x.stride(3), x.stride(4), 1, taps,
+                       o.stride(0), o.stride(2), o.stride(3), o.stride(4), o.stride(1),
+                       dev.index, stream), "parent K1-bf16")
+            return o
+        return run
+
+    def k4_parent(case):
+        x, w, b, cot = case
+        B = x.shape[0]
+        rows, cols, tiles, chunks = bwd_grid(B, T, 25, 50)
+        gs = cot.stride()
+        fn = fns["k4_parent"][0]
+
+        def run():
+            partial = torch.empty(tiles * chunks, taps * C + C, device=dev)
+            dw = torch.empty(C, 1, 3, 5, 5, device=dev)
+            db = torch.empty(C, device=dev)
+            checked(fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), cot.data_ptr(),
+                       partial.data_ptr(), dw.data_ptr(), db.data_ptr(),
+                       B, T, 50, 100, 3, 5, 5, C, chunks, rows, cols,
+                       x.stride(0), x.stride(2), x.stride(3), x.stride(4), 1, taps,
+                       gs[0], gs[2], gs[3], gs[4], gs[1], 1, taps, dev.index, stream),
+                    "parent K4-bf16")
+            return dw, db
+        return run
+
+    turns = {}
+    for B in (8, 128):
+        cs = c8 if B == 8 else case(B)
+        x, w, b, cot = cs
+        xj, wj, cj = x.permute(0, 2, 3, 4, 1), w.permute(2, 3, 4, 1, 0), cot.permute(0, 2, 3, 4, 1)
+        plain = convpool.conv1_pool_ref(xj, wj, b).permute(0, 4, 1, 2, 3)
+        pk, pb = convpool.conv1_pool_bwd_ref(xj, wj, b, cj)
+        pk = pk.permute(4, 3, 0, 1, 2)
+        checks = {}
+        for side, f1, f4 in (("parent", k1_parent(cs), k4_parent(cs)), ("current", k1(cs), k4(cs))):
+            o = f1()
+            dk, db = f4()
+            torch.cuda.synchronize()
+            checks[side] = {"k1_equal_share": (o == plain).float().mean().item(),
+                            "k1_max_abs_err": (o.float() - plain.float()).abs().max().item(),
+                            "k4_dw_max_abs_err": (dk - pk).abs().max().item(),
+                            "k4_db_max_abs_err": (db - pb).abs().max().item()}
+            del o, dk, db
+        row = {"checks": checks}
+        for name, old, new in (("k1", k1_parent(cs), k1(cs)), ("k4", k4_parent(cs), k4(cs))):
+            t = {"parent": [], "current": []}
+            for side in ("parent", "current", "current", "parent"):
+                t[side].append(queued_ms(old if side == "parent" else new))
+            row[f"{name}_turns_queued_ms"] = t
+        turns[f"B{B}"] = row
+        print(f"B={B} vs parent: {json.dumps(row)}", flush=True)
+        del cs, x, w, b, cot, plain, pk, pb
+        torch.cuda.empty_cache()
+    out["vs_parent"] = turns
     return out
 
 

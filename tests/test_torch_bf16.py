@@ -171,6 +171,83 @@ def test_conv1pool_rounds_dw_once_and_keeps_db_float32():
     assert torch.equal(bt.grad, db)
 
 
+def _mma_emulate(x, w, b, g):
+    """A float64 emulation of the bf16 kernels' decomposition (csrc/
+    conv1_mma.cuh), used by these tests only: for each pooled position the
+    four window row blocks of pre-pool positions (jh, jw) times the packed
+    weights over the K order (taps (dt, dh, dw) with each kernel row padded
+    to kw + 1: the pad tap reads the column past the halo, with weight 0),
+    + bias, ReLU'd max (K1-bf16: rounded to bf16 once); the first maximal
+    window, jh-major, routes the cotangent where the max is > 0 (bf16-exact
+    dpre), and dW is the dense product of dpre with the patches in the K
+    order, folded back to (kt, kh, kw, 1, C) (K4-bf16). x (B, T, H, W, 1),
+    w (kt, kh, kw, 1, C), b (C,), g (B, T, H/2, W/2, C): numpy float32."""
+    x, w, b, g = (torch.from_numpy(a).double() for a in (x, w, b, g))
+    B, T, H, W, _ = x.shape
+    kt, kh, kw, _, C = w.shape
+    pt, ph, pw = (kt - 1) // 2, (kh - 1) // 2, (kw - 1) // 2
+    # one column more on the right: the pad tap of the last kernel row
+    xp = torch.nn.functional.pad(x[..., 0], (pw, pw + 1, ph, ph, pt, pt))
+    order = convpool.k_order(kt, kh, kw)
+    patches = x.new_zeros(B, T, H, W, len(order))  # past K: zero columns, zero weights
+    for k in range(kt * kh * (kw + 1)):
+        row, dw = divmod(k, kw + 1)
+        dt, dh = divmod(row, kh)
+        patches[..., k] = xp[:, dt:dt + T, dh:dh + H, dw:dw + W]
+    packed = convpool.pack_weights(w)[:C]  # (C, Kpad)
+    pre = patches @ packed.t() + b  # (B, T, H, W, C)
+    H2, W2 = H // 2, W // 2
+    win = pre.reshape(B, T, H2, 2, W2, 2, C).permute(0, 1, 2, 4, 3, 5, 6)
+    win = win.reshape(B, T, H2, W2, 4, C)  # windows jh-major
+    top, first = win.max(dim=4)
+    pooled = torch.relu(top).float().to(BF16)
+    dpre = torch.zeros_like(win).scatter_(4, first[:, :, :, :, None],
+                                          torch.where(top > 0, g, 0.0)[:, :, :, :, None])
+    dpre = dpre.reshape(B, T, H2, W2, 2, 2, C).permute(0, 1, 2, 4, 3, 5, 6)
+    dpre = dpre.reshape(B, T, H, W, C)
+    dwk = torch.einsum("bthwc,bthwk->ck", dpre, patches)  # (C, Kpad)
+    return pooled, convpool.fold_dw(dwk, kt, kh, kw, C), dpre.sum(dim=(0, 1, 2, 3))
+
+
+def _exact_case(seed, B=2, T=5, H=16, W=24, k=(3, 5, 5), C=8):
+    """Inputs on grids where every partial sum of the recompute and of the
+    dense dW is exact in float32 in any order: x = i/16, w = j/64, b = k/64,
+    g = m/8 (|j|, |k| <= 15, |m| <= 8); all bf16-exact."""
+    r = np.random.default_rng(seed)
+    x = (r.integers(0, 16, (B, T, H, W, 1)) / 16).astype(np.float32)
+    w = (r.integers(-15, 16, (*k, 1, C)) / 64).astype(np.float32)
+    b = (r.integers(-15, 16, C) / 64).astype(np.float32)
+    g = (r.integers(-8, 9, (B, T, H // 2, W // 2, C)) / 8).astype(np.float32)
+    return x, w, b, g
+
+
+@pytest.mark.parametrize("shape", K_SHAPES, ids=K_IDS)
+def test_mma_emulation_matches_pallas_on_exact_grids(shape):
+    """The decomposition K1-bf16 and K4-bf16 run on the tensor cores (four
+    window row blocks, the K order, the dense dW from bf16 dpre), emulated in
+    float64, against the JAX package's kernels in interpret mode on exact-
+    grid inputs: the pooled bf16 values bit for bit (ties, frequent here,
+    route as the forward pools), dW and db exactly; and against the port's
+    plain versions the same."""
+    T, H, W, k, C, t_chunk = shape
+    x, w, b, g = _exact_case(11, T=T, H=H, W=W, k=k, C=C)
+    pooled, dk, db = _mma_emulate(x, w, b, g)
+    jx, jw = (jnp.asarray(a).astype(jnp.bfloat16) for a in (x, w))
+    want = jax_fused(jx, jw, jnp.asarray(b), t_chunk=t_chunk, out_dtype=jnp.bfloat16,
+                     interpret=True)
+    assert np.array_equal(pooled.float().numpy(), np.asarray(want.astype(jnp.float32)))
+    # the float32 sums: the JAX kernel on the same (bf16-exact) values in float32
+    jdk, jdb = jax_bwd(*map(jnp.asarray, (x, w, b, g)), t_chunk=t_chunk,
+                       out_dtype=jnp.float32, interpret=True)
+    assert np.array_equal(dk.numpy(), np.asarray(jdk, dtype=np.float64))
+    assert np.array_equal(db.numpy(), np.asarray(jdb, dtype=np.float64))
+    tx, tw, tg = (torch.from_numpy(a).to(BF16) for a in (x, w, g))
+    assert torch.equal(pooled, convpool.conv1_pool_fused(tx, tw, torch.from_numpy(b)))
+    pdk, pdb = convpool.conv1_pool_bwd(tx, tw, torch.from_numpy(b), tg)
+    assert torch.equal(dk, pdk.double()) and torch.equal(db, pdb.double())
+    assert (pooled.float() > 0).any() and (dk != 0).any()
+
+
 def test_bf16_wrappers_refuse_mixed_dtypes():
     x, w, b, _ = _k_case(4, T=3, H=8, W=12, C=4)
     x, w, b = (torch.from_numpy(a) for a in (x, w, b))

@@ -114,3 +114,137 @@ def test_fwd_grid_covers_every_pooled_position_once(B, T, H2, W2, k, C):
     assert smem <= convpool.MAX_SMEM
     if (H2, W2, k, C) == (25, 50, (3, 5, 5), 32):
         assert (rows, cols) == (5, 50) and tiles * rows * cols == H2 * W2
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernels' host-side pieces (csrc/conv1_mma.cuh)
+# ---------------------------------------------------------------------------
+
+K_SHAPES = [(3, 5, 5), (3, 3, 3), (1, 3, 5), (7, 7, 7), (1, 1, 1)]
+
+
+@pytest.mark.parametrize("k", K_SHAPES, ids=lambda k: "x".join(map(str, k)))
+def test_k_order_holds_each_tap_once(k):
+    """The tap table: every tap exactly once, each kernel row padded to an
+    even length kw + 1 (its last entry a pad), the length a multiple of 16,
+    nothing but pads past K."""
+    from avsync_torch.ops.cuda import convpool
+
+    kt, kh, kw = k
+    order = convpool.k_order(kt, kh, kw)
+    K = kt * kh * (kw + 1)
+    assert len(order) % 16 == 0 and K <= len(order) < K + 16
+    real = [t for t in order if t >= 0]
+    assert sorted(real) == list(range(kt * kh * kw))
+    for i, tap in enumerate(order):
+        row, dw = divmod(i, kw + 1)
+        if i >= K or dw == kw:
+            assert tap == -1
+        else:
+            assert tap == row * kw + dw
+    # a 32-bit A register holds k = 2p, 2p + 1: one kernel row's taps dw, dw + 1
+    for p in range(K // 2):
+        a, b = order[2 * p], order[2 * p + 1]
+        assert a >= 0 and (b == -1 or (b == a + 1 and a // kw == b // kw))
+
+
+@pytest.mark.parametrize("k,C", [((3, 5, 5), 32), ((3, 3, 3), 5), ((1, 3, 5), 40)])
+def test_pack_weights_in_the_k_order_zero_padded(k, C):
+    """The weight packer: row c, column k of the (npad, Kpad) B matrix is the
+    weight of tap k_order[k] and channel c; zero at the pad taps, past K and
+    past C; `fold_dw` maps it back to the (kt, kh, kw, 1, C) weights."""
+    from avsync_torch.ops.cuda import convpool
+
+    w = torch.from_numpy(_case(5, k=k, C=C)[1])
+    packed = convpool.pack_weights(w)
+    order = convpool.k_order(*k)
+    g = convpool.mma_geometry(*k, C, 5, 50)
+    assert packed.shape == (g["npad"], g["Kpad"]) and g["npad"] % 32 == 0
+    flat = w.reshape(-1, C)
+    for i, tap in enumerate(order):
+        if tap < 0:
+            assert (packed[:, i] == 0).all()
+        else:
+            assert torch.equal(packed[:C, i], flat[tap])
+    assert (packed[C:] == 0).all()
+    assert torch.equal(convpool.fold_dw(packed, *k, C), w)
+
+
+@pytest.mark.parametrize("k,C", [((3, 5, 5), 32), ((3, 3, 3), 5), ((1, 3, 5), 9)])
+def test_fold_dw_reads_only_real_taps(k, C):
+    """The fold of K4-bf16's dW layout: (>= C, Kpad) in the K order ->
+    (kt, kh, kw, 1, C); whatever the pad columns and rows past C hold is
+    dropped."""
+    from avsync_torch.ops.cuda import convpool
+
+    kt, kh, kw = k
+    g = convpool.mma_geometry(*k, C, 5, 50)
+    dwk = torch.randn(g["mpad"], g["Kpad"], dtype=torch.float64,
+                      generator=torch.Generator().manual_seed(7))
+    folded = convpool.fold_dw(dwk, kt, kh, kw, C)
+    assert folded.shape == (kt, kh, kw, 1, C)
+    for i, tap in enumerate(convpool.k_order(kt, kh, kw)):
+        if tap >= 0:
+            dt, rem = divmod(tap, kh * kw)
+            dh, dw = divmod(rem, kw)
+            assert torch.equal(folded[dt, dh, dw, 0], dwk[:C, i])
+
+
+@pytest.mark.parametrize("k,C,TR,TC", [((3, 5, 5), 32, 5, 50), ((3, 5, 5), 32, 5, 25),
+                                       ((3, 3, 3), 5, 5, 9), ((1, 3, 5), 7, 3, 35),
+                                       ((7, 7, 7), 96, 2, 64)])
+def test_mma_geometry_keeps_pairs_aligned_and_rows_in_the_halo(k, C, TR, TC):
+    """The shared-memory layout: a copy's rows hold every column the A and
+    dW B loads read (the pad tap's one past the conv's halo, from a column
+    up to 3 left of the halo), 8-byte aligned slots for the cp.async
+    copies, the row stride and copy O's offset off the banks of
+    neighbouring rows (RW % 32 in [10, 24], OP % 32 == 28)."""
+    from avsync_torch.ops.cuda import convpool
+
+    kt, kh, kw = k
+    g = convpool.mma_geometry(*k, C, TR, TC)
+    assert g["LE"] % 4 == 0 and g["LE"] >= 3 + 2 * TC + kw + 1
+    assert g["RW"] >= g["RWu"] == g["LE"] // 2 and g["RW"] % 2 == 0
+    assert 10 <= g["RW"] % 32 <= 24
+    assert g["OP"] >= g["IH"] * g["RW"] and g["OP"] % 32 == 28
+    assert g["slot_words"] == g["OP"] + g["IH"] * g["RW"] and g["slot_words"] % 2 == 0
+    assert g["IH"] == 2 * TR + kh - 1 and g["R"] == kt + 1
+    assert g["wrow"] % 8 == 4 and g["Kpad"] == len(convpool.k_order(*k))
+
+
+GRID_SHAPES = [(8, 75, 25, 50, (3, 5, 5), 32), (1, 75, 25, 50, (3, 5, 5), 32),
+               (2, 5, 27, 51, (3, 5, 5), 32), (7, 11, 25, 50, (3, 5, 5), 32),
+               (1, 2, 10, 100, (3, 5, 5), 9), (3, 7, 5, 9, (3, 3, 3), 5),
+               (1, 1, 1, 1, (3, 5, 5), 32), (1, 3, 25, 50, (7, 7, 7), 96),
+               (128, 75, 25, 50, (3, 5, 5), 32)]
+
+
+# K4 takes at most 32 channels (`MAX_CHANNELS`)
+@pytest.mark.parametrize("B,T,H2,W2,k,C,bwd", [
+    (*shape, bwd) for shape in GRID_SHAPES for bwd in (False, True) if not bwd or shape[-1] <= 32])
+def test_mma_grid_covers_every_pooled_position_once(B, T, H2, W2, k, C, bwd):
+    """The bf16 kernels' grid (`mma_grid`): the tiles cover every pooled
+    position exactly once (K1's at most 256 positions, K4's 128), the runs
+    cover every frame of a clip once, the CTA's shared memory fits, and
+    LipNet's 25 x 50 frame has no dead position (K1 5 x 50, K4 5 x 25)."""
+    from avsync_torch.ops.cuda import convpool
+
+    rows, cols, tiles, runs = convpool.mma_grid(B, T, H2, W2, *k, C, bwd=bwd)
+    assert 1 <= rows * cols <= (convpool.MMA_BWD_MAX_POS if bwd else convpool.BWD_THREADS)
+    tiles_w = -(-W2 // cols)
+    assert tiles == -(-H2 // rows) * tiles_w
+    hits = np.zeros((H2, W2), int)
+    for tile in range(tiles):
+        h0, w0 = (tile // tiles_w) * rows, (tile % tiles_w) * cols
+        hits[h0:h0 + rows, w0:w0 + cols] += 1  # positions past the frame are dead
+    assert (hits == 1).all()
+    frames = -(-T // runs)
+    assert 1 <= runs <= T and -(-T // frames) == runs
+    covered = np.zeros(T, int)
+    for r in range(runs):
+        covered[r * frames:min(T, (r + 1) * frames)] += 1
+    assert (covered == 1).all()
+    assert convpool.mma_smem_bytes(*k, C, rows, cols, bwd) <= convpool.MAX_SMEM
+    if (H2, W2, k, C) == (25, 50, (3, 5, 5), 32):
+        assert (rows, cols) == ((5, 25) if bwd else (5, 50))
+        assert tiles * rows * cols == H2 * W2
