@@ -1,5 +1,5 @@
 """Command line of the port (port of `avsync/cli.py`: train, test, infer,
-quantize, export, serve, misalign-train, misalign-eval).
+quantize, export, serve, misalign-train, misalign-eval, misalign-demo).
 
     python -m avsync_torch.cli train --data_path data --epochs 50 --export_pth lipnet.pth
     python -m avsync_torch.cli test --data_path data --checkpoint lipnet.pth [--beam 4]
@@ -13,6 +13,8 @@ quantize, export, serve, misalign-train, misalign-eval).
     python -m avsync_torch.cli serve --artifact lipnet_serving.zip
     python -m avsync_torch.cli misalign-train --data_path data --checkpoint lipnet.pth
     python -m avsync_torch.cli misalign-eval --data_path data --checkpoint lipnet.pth
+    python -m avsync_torch.cli misalign-demo --data_path data --checkpoint lipnet.pth
+        --detector_checkpoint det.pth --output_dir demo_output --seed 0
 
 `--model_family tf` runs the TF-family LipNet (Conv3D 128/256/64 + 3xBiLSTM,
 blank-last CTC over its own vocabulary, 46x140 standardized crops) through
@@ -31,11 +33,11 @@ blocks in the bf16 epilogue), float32 with `--device cpu`; an explicit
 kept.
 
 Multi-device (`avsync_torch/parallel/`, one process per device):
-`train` and `misalign-train` on a host with n > 1 cards start their ranks
-themselves (`train`: a ('data', 'model') mesh whose data axis is the gcd of
-the batch and the cards a model group leaves; `misalign-train`: every card),
-as the JAX package's single controller drives all its devices; with one card
-they start none. `--device cpu` with a `--config` whose `mesh_shape` has more
+`train`, `test` and `misalign-train` on a host with n > 1 cards start their
+ranks themselves (`train` and `test`: a ('data', 'model') mesh whose data
+axis is the gcd of the batch and the cards a model group leaves;
+`misalign-train`: every card), as the JAX package's single controller
+drives all its devices; with one card they start none. `--device cpu` with a `--config` whose `mesh_shape` has more
 than one device starts that many gloo ranks on the CPU. `train
 --distributed` joins a group that torchrun (or any launcher setting RANK,
 WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT) started, one process
@@ -177,19 +179,26 @@ def _no_tf32() -> None:
 
 def _evaluate(model, cfg: AvsyncConfig, batcher, source, out_json: str, device,
               num_print: int = 5, beam_width: int = 0,
-              quantize: Optional[str] = None) -> dict:
+              quantize: Optional[str] = None, mesh=None) -> Optional[dict]:
     """Decode the split (greedy, or beam search for beam_width > 1), print a
     few samples, write CER/WER/accuracy JSON (`utils.py:38-86`,
     `train.py:916-942`).
 
     `quantize='int8'` runs the conv stack in int8 (`ops/quant.py`),
     calibrated on the first eval batch: the preprocessed distribution the
-    whole split sees."""
+    whole split sees.
+
+    Under a `mesh` of ranks the batcher gives this rank its rows of each
+    batch; the log-probs are gathered over the data group in the batch's
+    order, and rank 0 decodes them and writes the JSON (the others return
+    None). int8 calibrates on the whole first batch, gathered, so every
+    rank has the single process's scales."""
     import torch
 
     from avsync_torch import text as textlib
     from avsync_torch.eval import evaluate_transcripts
     from avsync_torch.ops.quant import make_int8_forward, quantize_lipnet
+    from avsync_torch.parallel import multihost
     from avsync_torch.train.lipnet_trainer import device_batch, eval_step
 
     decode = textlib.family_decoder(cfg.model.family)
@@ -198,16 +207,26 @@ def _evaluate(model, cfg: AvsyncConfig, batcher, source, out_json: str, device,
     qparams = None
     preds: List[str] = []
     targets: List[str] = []
+    done = 0  # samples of the split in the batches so far
+
+    def whole(t):  # the batch's rows from every data rank, in order
+        return t if mesh is None else multihost.all_gather(t.contiguous(), 0, mesh.data_group)
+
     for batch in batcher.epoch(shuffle=False, drop_last=False):
         dbatch = device_batch(batch, device)
         if qfwd is not None:
             with torch.inference_mode():
                 if qparams is None:
-                    qparams = quantize_lipnet(model, [dbatch["video"]])
+                    qparams = quantize_lipnet(model, [whole(dbatch["video"])])
                 log_probs = qfwd(qparams, dbatch["video"])
         else:
             _, log_probs = eval_step(model, dbatch)
-        for d in decode(log_probs[: batch["valid"]], beam_width=beam_width):
+        log_probs = whole(log_probs)
+        valid = min(log_probs.shape[0], len(source.samples) - done)
+        done += valid
+        if not multihost.is_main():
+            continue  # rank 0 decodes
+        for d in decode(log_probs[:valid], beam_width=beam_width):
             idx = len(preds)
             preds.append(d)
             targets.append(source.samples[idx].text)
@@ -215,6 +234,8 @@ def _evaluate(model, cfg: AvsyncConfig, batcher, source, out_json: str, device,
                 print(f"\nSample {idx + 1}:")
                 print(f"True text: {targets[-1]}")
                 print(f"Predicted text: {d}")
+    if not multihost.is_main():
+        return None
     results = evaluate_transcripts(preds, targets)
     with open(out_json, "w") as f:
         json.dump(results, f, indent=2)
@@ -401,20 +422,38 @@ def _train(args, cfg: AvsyncConfig) -> int:
 
 
 def cmd_test(args) -> int:
+    """CER/WER of the test split. On a host with several cards (or on the
+    CPU with a `mesh_shape` of several devices) it starts its ranks as
+    `train` does, each taking its rows of every batch of the config's mesh
+    (the model whole on every rank); rank 0 decodes and writes the JSON."""
     from avsync_torch.data.grid import GridDataSource, check_data_structure, split_speakers
     from avsync_torch.data.pipeline import LipNetBatcher
+    from avsync_torch.parallel import multihost
+    from avsync_torch.parallel.mesh import mesh_from_shape
     from avsync_torch.predictor import load_lipnet, lipnet_state, resolve_device
 
-    _no_tf32()
     cfg = _config_from_args(args)
-    device = resolve_device(args.device)
+    if not multihost.is_multiprocess():
+        world = _ranks_to_start(args, cfg, whole_host=False)
+        if world > 1:
+            return _start_ranks(args, world)
+    _no_tf32()
+    mesh = None
+    device = args.device
+    if multihost.is_multiprocess():
+        mesh = mesh_from_shape(cfg.train.mesh_shape)
+        device = multihost.rank_device()  # the rank's own card
+    device = resolve_device(device)
     speakers = args.speakers or check_data_structure(cfg.data.data_path)
     _, _, test_sp = split_speakers(speakers, cfg.data.split)
     src = GridDataSource(cfg.data.data_path, test_sp)
     model = load_lipnet(cfg, lipnet_state(cfg, args.checkpoint), device)
-    _evaluate(model, cfg, LipNetBatcher(src, cfg, device=device), src,
+    if mesh is not None:
+        print(f"test over {mesh.size} ranks, mesh {mesh.shape} ({multihost.backend()})",
+              flush=True)
+    _evaluate(model, cfg, LipNetBatcher(src, cfg, device=device, mesh=mesh), src,
               args.output or "test_results.json", device, beam_width=args.beam,
-              quantize=args.quantize)
+              quantize=args.quantize, mesh=mesh)
     return 0
 
 
@@ -949,6 +988,84 @@ def cmd_misalign_eval(args) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# misalign-demo
+# ---------------------------------------------------------------------------
+
+def cmd_misalign_demo(args) -> int:
+    """For each speaker: one clip and one shift drawn from `--seed` (the JAX
+    command's draws, in its order), the detector's score of the clip aligned
+    and shifted, and the two annotated copies written under
+    `<output_dir>/<speaker>/` (`demo.export_demo`). A speaker that fails is
+    reported and skipped (`misalignment_detection_demo.py:355-358`)."""
+    import random
+
+    import torch
+
+    from avsync_torch.compat import load_detector_pth
+    from avsync_torch.data.grid import GridDataSource, discover_speakers
+    from avsync_torch.data.video import decode_video_gray, get_video_fps, load_audio_for_video
+    from avsync_torch.demo import export_demo
+    from avsync_torch.features import gather_features
+    from avsync_torch.models.detector import MisalignmentDetector
+    from avsync_torch.ops.audio import resample_host
+    from avsync_torch.ops.conv import fp32_step
+    from avsync_torch.predictor import (load_lipnet, lipnet_state, refuse_tf_detector,
+                                        resolve_device)
+
+    _no_tf32()
+    cfg = _detector_config_from_args(args)
+    refuse_tf_detector(cfg)
+    device = resolve_device(args.device)
+    det_state, meta = load_detector_pth(args.detector_checkpoint)
+    detector = MisalignmentDetector(det_state["classifier.0.weight"].shape[1],
+                                    int(meta.get("hidden_dim", cfg.detector.hidden_dim)),
+                                    generator=torch.Generator())
+    detector.load_state_dict(det_state)
+    detector.to(device).eval()
+    # configured by the checkpoint (`misalignment_detection_demo.py:311-315`):
+    # as the JAX command, a fresh AudioConfig of its rate and MFCC count (the
+    # other fields at their defaults), here with the command's kernel flag
+    saved = meta.get("config", {})
+    cfg = dataclasses.replace(cfg, audio=AudioConfig(
+        sample_rate=int(saved.get("sample_rate", cfg.audio.sample_rate)),
+        n_mfcc=int(saved.get("n_mfcc", cfg.audio.n_mfcc)), use_pallas=cfg.audio.use_pallas))
+    lipnet = load_lipnet(cfg, lipnet_state(cfg, args.checkpoint), device)
+
+    speakers = args.speakers or discover_speakers(cfg.data.data_path)
+    src = GridDataSource(cfg.data.data_path, speakers)
+    rng = random.Random(args.seed)
+    os.makedirs(args.output_dir, exist_ok=True)
+    for speaker in speakers:
+        # every GRID layout roots a speaker's files under <data_path>/<speaker>/
+        prefix = os.path.join(cfg.data.data_path, speaker) + os.sep
+        vids = [s.video_path for s in src.samples if s.video_path.startswith(prefix)]
+        if not vids:
+            continue
+        try:
+            video_path = rng.choice(vids)
+            shift = rng.randint(args.min_shift, args.max_shift)
+            if rng.random() < 0.5:
+                shift = -shift
+            bank = _build_bank(cfg, src, lipnet, [video_path], device)
+            with fp32_step(), torch.inference_mode():
+                feats = gather_features(bank, torch.zeros(2, dtype=torch.long, device=device),
+                                        torch.tensor([0, shift], device=device), cfg.audio)
+                s_aligned, s_mis = (float(x) for x in torch.sigmoid(detector(feats)).cpu())
+            frames = decode_video_gray(video_path)
+            a, sr = load_audio_for_video(video_path, cfg.audio.sample_rate)
+            if sr != cfg.audio.sample_rate:
+                a = resample_host(a, sr, cfg.audio.sample_rate)
+            p1, p2 = export_demo(frames, a, cfg.audio.sample_rate, get_video_fps(video_path),
+                                 shift, s_aligned, s_mis,
+                                 os.path.join(args.output_dir, speaker), scale=args.scale)
+            print(f"{speaker}: {os.path.basename(video_path)} shift={shift:+d} "
+                  f"aligned={s_aligned:.3f} misaligned={s_mis:.3f} -> {p1}, {p2}")
+        except Exception as e:  # one speaker's failure does not stop the others
+            print(f"{speaker}: demo generation failed: {e}")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m avsync_torch.cli")
     sub = p.add_subparsers(dest="command", required=True)
@@ -1150,6 +1267,17 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--max_shift", type=int, default=20)
     e.add_argument("--output", type=str, default=None)
     e.set_defaults(func=cmd_misalign_eval)
+
+    d = sub.add_parser("misalign-demo", help="export annotated demo videos")
+    common(d)
+    d.add_argument("--checkpoint", type=str, default="lipnet_final.pth",
+                   help="frozen LipNet: reference .pth or a port checkpoint directory")
+    d.add_argument("--detector_checkpoint", type=str, default="misalignment_detector.pth")
+    d.add_argument("--output_dir", type=str, default="demo_output")
+    d.add_argument("--min_shift", type=int, default=5)
+    d.add_argument("--max_shift", type=int, default=20)
+    d.add_argument("--scale", type=int, default=1)
+    d.set_defaults(func=cmd_misalign_demo)
     return p
 
 

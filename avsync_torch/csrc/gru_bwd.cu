@@ -14,8 +14,11 @@
 //   dgi = [dpre_r, dpre_z, dpre_n], dgh = [dpre_r, dpre_z, dpre_n r],
 //   dh <- a z + dgh W_hh^T,
 // and dW_hh = sum_t h_prev^T dgh, db_hh = sum_t dgh. h_prev of the first
-// step of a direction is 0; otherwise it is out at the previous step of that
-// direction (t - 1 forward, t + 1 reverse).
+// step of a direction is its initial state h0 (B, H) when one is given (a
+// chunk of the context-parallel chain, parallel/context.py), else 0;
+// otherwise it is out at the previous step of that direction (t - 1
+// forward, t + 1 reverse). With `dh0` the launch also returns the gradient
+// of h0: the dh left after the first step, a z + dgh W_hh^T of that step.
 //
 // What bounds it on the H100: at B=8, T=75, H=256 the three products per
 // direction (gh recompute, dgh W_hh^T, dW_hh) are 1.42 GFLOP for both
@@ -60,6 +63,14 @@
 //   (d) a fixed-order sum of the chunks' partials, written through dW_hh's
 //       strides (a torch-layout (3H, H) weight gets its gradient without a
 //       transpose) and into db_hh.
+// With `dh0`, one more kernel between (b) and (c): the chain leaves a z of
+// the first step in dh0, and (e) adds that step's dgh W_hh^T, one warp per
+// (row, unit): lane l sums the products of columns l, l + 32, ... in order
+// (W_hh's row and dgh's read coalesced), then a fixed butterfly; dh0 is
+// complete before (c) starts. (a)-(c) take h0 and dh0 as a template flag
+// (H0): a launch with neither runs the H0 = false kernels, the code and
+// bits of the kernels before h0 existed; with h0, (a) and (c) read it as the
+// first step's h_prev, in the same chunks and order.
 // Every sum runs in a fixed order: no float atomics, a repeat launch gives
 // the same bits. H above 256 (3U registers would not fit) takes a generic
 // chain: one thread per (unit, row), w_hh's rows of the CTA's units in
@@ -94,7 +105,9 @@ struct GruBwdParams {
   float* gh;             // [ndir][B][T][3H] scratch: h_prev W_hh + b_hh
   float* dgh;            // [ndir][B][T][3H] scratch
   float* partial;        // [ndir][n_chunks][H + 1][3H] scratch: dW_hh rows, db_hh
-  long long gi_sb, gi_st, o_sb, o_st, g_sb, g_st, w_sk, w_sc, dw_sk, dw_sc;
+  const float* h0[2];    // h0[d][b*h0_sb + j], initial states (B, H), or null: zeros
+  float* dh0[2];         // dh0[d][b*h0_sb + j], their gradient (B, H), or null
+  long long gi_sb, gi_st, o_sb, o_st, g_sb, g_st, w_sk, w_sc, dw_sk, dw_sc, h0_sb;
   int B, T, H, ndir, reverse_mask, n_chunks, w_in_smem;  // reverse_mask bit d: backwards
 };
 
@@ -168,16 +181,22 @@ __device__ __forceinline__ void tile_product(ASrc a_src, BSrc b_src, int m0, int
 }
 
 // h_prev of (row b, time t) of direction d: out at the direction's previous
-// step, or nothing (0) at its first step.
+// step; at its first step h0 when H0 and given, else nothing (0).
+template <bool H0>
 __device__ __forceinline__ const float* hprev_src(const GruBwdParams& p, int d, bool rev,
                                                   int m, int k, bool ok_mk, bool& ok) {
   const int b = m / p.T, t = m % p.T;
   const int tp = rev ? t + 1 : t - 1;
+  if (H0 && (tp < 0 || tp >= p.T)) {
+    ok = ok_mk && p.h0[d] != nullptr;
+    return ok ? p.h0[d] + b * p.h0_sb + k : p.out[d];
+  }
   ok = ok_mk && tp >= 0 && tp < p.T;
   return ok ? p.out[d] + b * p.o_sb + tp * p.o_st + k : p.out[d];
 }
 
 // (a) grid (3H / 64, B T / 64, ndir)
+template <bool H0>
 __global__ void __launch_bounds__(NT) gru_bwd_gh_kernel(const GruBwdParams p) {
   __shared__ __align__(16) Tiles s;
   const int d = blockIdx.z;
@@ -186,7 +205,7 @@ __global__ void __launch_bounds__(NT) gru_bwd_gh_kernel(const GruBwdParams p) {
   const bool rev = (p.reverse_mask >> d) & 1;
   const float* W = p.w_hh[d];
   auto a_src = [&](int m, int k, bool& ok) {
-    return hprev_src(p, d, rev, m, k, m < M && k < H, ok);
+    return hprev_src<H0>(p, d, rev, m, k, m < M && k < H, ok);
   };
   auto b_src = [&](int k, int n, bool& ok) {
     ok = k < H && n < H3;
@@ -209,6 +228,7 @@ __global__ void __launch_bounds__(NT) gru_bwd_gh_kernel(const GruBwdParams p) {
 }
 
 // (c) grid (3H / 64, H / 64, ndir * n_chunks): chunk k of K = B T
+template <bool H0>
 __global__ void __launch_bounds__(NT) gru_bwd_dw_kernel(const GruBwdParams p) {
   __shared__ __align__(16) Tiles s;
   const int d = blockIdx.z / p.n_chunks, chunk = blockIdx.z % p.n_chunks;
@@ -220,7 +240,7 @@ __global__ void __launch_bounds__(NT) gru_bwd_dw_kernel(const GruBwdParams p) {
   const float* dgh = p.dgh + (size_t)d * M * H3;
   // A(unit m, (row, step) k) = h_prev; B(k, col n) = dgh
   auto a_src = [&](int m, int k, bool& ok) {
-    return hprev_src(p, d, rev, k, m, m < H && k < k_end, ok);
+    return hprev_src<H0>(p, d, rev, k, m, m < H && k < k_end, ok);
   };
   auto b_src = [&](int k, int n, bool& ok) {
     ok = k < k_end && n < H3;
@@ -265,6 +285,28 @@ __global__ void __launch_bounds__(NT) gru_bwd_sum_kernel(const GruBwdParams p) {
   }
 }
 
+// (e) one warp per (direction, row, unit): dh0 += dgh W_hh^T of the
+// direction's first step (the chain wrote a z there)
+__global__ void __launch_bounds__(NT) gru_bwd_dh0_kernel(const GruBwdParams p) {
+  const int H = p.H, H3 = 3 * H, lane = threadIdx.x % 32;
+  const long long i = ((long long)blockIdx.x * NT + threadIdx.x) / 32;
+  if (i >= (long long)p.ndir * p.B * H) return;  // whole warps: i is the warp's
+  const int d = static_cast<int>(i / ((long long)p.B * H));
+  const int b = static_cast<int>(i / H % p.B), j = static_cast<int>(i % H);
+  if (p.dh0[d] == nullptr) return;
+  const bool rev = (p.reverse_mask >> d) & 1;
+  const float* dgh = p.dgh + (((size_t)d * p.B + b) * p.T + (rev ? p.T - 1 : 0)) * H3;
+  const float* w = p.w_hh[d] + (long long)j * p.w_sk;
+  float acc = 0.f;
+  for (int c = lane; c < H3; c += 32) acc = fmaf(dgh[c], w[c * p.w_sc], acc);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (lane == 0) {
+    float* dh0 = p.dh0[d] + b * p.h0_sb + j;
+    *dh0 = *dh0 + acc;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // (b) the chain
 // ---------------------------------------------------------------------------
@@ -276,8 +318,8 @@ size_t chain_smem_bytes(int H, int BT) {
 }
 
 // BT: batch rows per cluster (1, 2 or 4). NK: units per CTA (H/8) when known
-// at compile time, 0 = read H at run time (H/8 <= MAX_KPL).
-template <int BT, int NK>
+// at compile time, 0 = read H at run time (H/8 <= MAX_KPL). H0: h0 or dh0 given.
+template <int BT, int NK, bool H0>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(MAX_NT, 1)
 gru_bwd_chain_kernel(const GruBwdParams p) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -322,6 +364,7 @@ gru_bwd_chain_kernel(const GruBwdParams p) {
   const float* o_row = p.out[d] + rr * p.o_sb + j;
   float* dgi_row = p.dgi[d] + (size_t)rr * T * H3 + j;
   float* dgh_row = p.dgh + ((size_t)d * p.B + rr) * T * H3 + j;
+  const float* h0_row = H0 && p.h0[d] != nullptr ? p.h0[d] + rr * p.h0_sb + j : nullptr;
 
   // a phase of a buffer's barrier: thread 0's arrival with the bytes of the
   // whole dgh (every CTA's slice), which the peers' stores then complete
@@ -348,7 +391,7 @@ gru_bwd_chain_kernel(const GruBwdParams p) {
       gh[q] = gh_row[t * H3 + q * H];
     }
     gv = g_row[t * p.g_st];
-    hp = i > 0 ? o_row[(rev ? t + 1 : t - 1) * p.o_st] : 0.f;
+    hp = i > 0 ? o_row[(rev ? t + 1 : t - 1) * p.o_st] : (H0 && h0_row ? *h0_row : 0.f);
   };
   if (row_ok) load_step(T - 1);
 
@@ -402,6 +445,8 @@ gru_bwd_chain_kernel(const GruBwdParams p) {
       }
       az = a * z;
       if (row_ok) {
+        if (H0 && i == 0 && p.dh0[d] != nullptr)
+          p.dh0[d][rr * p.h0_sb + j] = az;  // (e) adds the rest
         const size_t o = (size_t)t * H3;
         dgi_row[o] = dpre_r;
         dgi_row[o + H] = dpre_z;
@@ -424,7 +469,7 @@ size_t generic_smem_bytes(int H, int BT, bool w_in_smem) {
   return chain_smem_bytes(H, BT) + sizeof(float) * (U * BT + (w_in_smem ? U * 3 * H : 0));
 }
 
-template <int BT>
+template <int BT, bool H0>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT, 1)
 gru_bwd_chain_generic_kernel(const GruBwdParams p) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -497,7 +542,11 @@ gru_bwd_chain_generic_kernel(const GruBwdParams p) {
           gh[q] = p.gh[hrow + q * H];
         }
         gv = p.g[d][gb * p.g_sb + t * p.g_st + j];
-        if (i > 0) hp = p.out[d][gb * p.o_sb + (rev ? t + 1 : t - 1) * p.o_st + j];
+        if (i > 0) {
+          hp = p.out[d][gb * p.o_sb + (rev ? t + 1 : t - 1) * p.o_st + j];
+        } else if (H0 && p.h0[d] != nullptr) {
+          hp = p.h0[d][gb * p.h0_sb + j];
+        }
       }
       const float r = sigmoidf(x[0] + gh[0]);
       const float z = sigmoidf(x[1] + gh[1]);
@@ -518,6 +567,7 @@ gru_bwd_chain_generic_kernel(const GruBwdParams p) {
       }
       s_az[e] = a * z;
       if (ok) {
+        if (H0 && i == 0 && p.dh0[d] != nullptr) p.dh0[d][gb * p.h0_sb + j] = a * z;
         float* dgi = p.dgi[d] + drow;
         float* dgh = p.dgh + hrow;
         dgi[0] = dpre_r;
@@ -532,18 +582,18 @@ gru_bwd_chain_generic_kernel(const GruBwdParams p) {
   cluster.sync();
 }
 
-template <int BT, int NK>
+template <int BT, int NK, bool H0>
 cudaError_t launch_chain(const GruBwdParams& p, cudaStream_t stream) {
   const int nt = 32 * ((p.H / CLUSTER + UPW - 1) / UPW);
   const dim3 grid(CLUSTER, p.ndir, (p.B + BT - 1) / BT);
-  gru_bwd_chain_kernel<BT, NK><<<grid, nt, chain_smem_bytes(p.H, BT), stream>>>(p);
+  gru_bwd_chain_kernel<BT, NK, H0><<<grid, nt, chain_smem_bytes(p.H, BT), stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int BT>
+template <int BT, bool H0>
 cudaError_t launch_chain_bt(const GruBwdParams& p, cudaStream_t stream) {
-  return p.H == MAX_KPL * CLUSTER ? launch_chain<BT, MAX_KPL>(p, stream)
-                                  : launch_chain<BT, 0>(p, stream);
+  return p.H == MAX_KPL * CLUSTER ? launch_chain<BT, MAX_KPL, H0>(p, stream)
+                                  : launch_chain<BT, 0, H0>(p, stream);
 }
 
 std::atomic<int> resident[3][MAX_DEVICES];  // [log2 BT][device]
@@ -551,38 +601,63 @@ std::atomic<int> resident[3][MAX_DEVICES];  // [log2 BT][device]
 template <int BT>
 int resident_bt(int device) {
   return resident_clusters(resident[BT == 1 ? 0 : (BT == 2 ? 1 : 2)], device,
-                           gru_bwd_chain_kernel<BT, 0>, CLUSTER, MAX_NT,
+                           gru_bwd_chain_kernel<BT, 0, false>, CLUSTER, MAX_NT,
                            chain_smem_bytes(MAX_KPL * CLUSTER, BT));
 }
 
-std::atomic<bool> generic_opted_in[3][MAX_DEVICES];
+std::atomic<bool> generic_opted_in[2][3][MAX_DEVICES];  // [H0][log2 BT][device]
 
-template <int BT>
+template <int BT, bool H0>
 cudaError_t launch_generic(GruBwdParams p, int device, cudaStream_t stream) {
-  cudaError_t e = opt_in_smem(generic_opted_in[BT == 1 ? 0 : (BT == 2 ? 1 : 2)], device,
-                              gru_bwd_chain_generic_kernel<BT>);
+  cudaError_t e = opt_in_smem(generic_opted_in[H0][BT == 1 ? 0 : (BT == 2 ? 1 : 2)], device,
+                              gru_bwd_chain_generic_kernel<BT, H0>);
   if (e != cudaSuccess) return e;
   p.w_in_smem = generic_smem_bytes(p.H, BT, true) <= MAX_DYN_SMEM;
   const dim3 grid(CLUSTER, p.ndir, (p.B + BT - 1) / BT);
-  gru_bwd_chain_generic_kernel<BT>
+  gru_bwd_chain_generic_kernel<BT, H0>
       <<<grid, NT, generic_smem_bytes(p.H, BT, p.w_in_smem), stream>>>(p);
   return cudaGetLastError();
 }
 
+template <bool H0>
 cudaError_t launch_chain_any(const GruBwdParams& p, int device, cudaStream_t stream) {
   if (p.H <= MAX_KPL * CLUSTER) {
     // the fewest rows per cluster whose clusters all fit at once
-    if (p.ndir * p.B <= resident_bt<1>(device)) return launch_chain_bt<1>(p, stream);
-    if (p.ndir * ((p.B + 1) / 2) <= resident_bt<2>(device)) return launch_chain_bt<2>(p, stream);
-    return launch_chain_bt<4>(p, stream);
+    if (p.ndir * p.B <= resident_bt<1>(device)) return launch_chain_bt<1, H0>(p, stream);
+    if (p.ndir * ((p.B + 1) / 2) <= resident_bt<2>(device))
+      return launch_chain_bt<2, H0>(p, stream);
+    return launch_chain_bt<4, H0>(p, stream);
   }
   // generic: the most rows (up to 4, at most B rounded up) whose buffers fit
   if (p.B > 2 && generic_smem_bytes(p.H, 4, false) <= MAX_DYN_SMEM)
-    return launch_generic<4>(p, device, stream);
+    return launch_generic<4, H0>(p, device, stream);
   if (p.B > 1 && generic_smem_bytes(p.H, 2, false) <= MAX_DYN_SMEM)
-    return launch_generic<2>(p, device, stream);
-  if (generic_smem_bytes(p.H, 1, false) <= MAX_DYN_SMEM) return launch_generic<1>(p, device, stream);
+    return launch_generic<2, H0>(p, device, stream);
+  if (generic_smem_bytes(p.H, 1, false) <= MAX_DYN_SMEM)
+    return launch_generic<1, H0>(p, device, stream);
   return cudaErrorInvalidValue;
+}
+
+// (a), (b), (c) and (d) for one launch, H0 as above: (e) runs between (b)
+// and (c) when a dh0 is given.
+template <bool H0>
+cudaError_t launch_all(const GruBwdParams& p, int device, cudaStream_t s) {
+  const int H = p.H, H3 = 3 * H, M = p.B * p.T;
+  gru_bwd_gh_kernel<H0><<<dim3((H3 + TN - 1) / TN, (M + TM - 1) / TM, p.ndir), NT, 0, s>>>(p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  if ((e = launch_chain_any<H0>(p, device, s)) != cudaSuccess) return e;
+  if (H0 && (p.dh0[0] != nullptr || p.dh0[1] != nullptr)) {
+    const long long n_dh0 = 32LL * p.ndir * p.B * H;  // a warp per (direction, row, unit)
+    gru_bwd_dh0_kernel<<<(unsigned)((n_dh0 + NT - 1) / NT), NT, 0, s>>>(p);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  gru_bwd_dw_kernel<H0><<<dim3((H3 + TN - 1) / TN, (H + TM - 1) / TM, p.ndir * p.n_chunks),
+                          NT, 0, s>>>(p);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const long long n_out = (long long)p.ndir * (H + 1) * H3;
+  gru_bwd_sum_kernel<<<(unsigned)((n_out + NT - 1) / NT), NT, 0, s>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -595,15 +670,18 @@ extern "C" int avs_gru_bwd_max_hidden() {
 }
 
 // Scratch: gh and dgh (ndir * B * T * 3H floats each) and `partial`
-// (ndir * n_chunks * (H + 1) * 3H floats), allocated by the wrapper.
+// (ndir * n_chunks * (H + 1) * 3H floats), allocated by the wrapper. h00/h01:
+// each direction's initial state (B, H), row stride h0_sb, or null (zeros);
+// dh00/dh01: where its gradient goes (same layout), or null (not computed).
 extern "C" int avs_gru_bwd(
     const float* gi0, const float* gi1, const float* out0, const float* out1,
     const float* g0, const float* g1, const float* w0, const float* w1,
     const float* b0, const float* b1, float* dgi0, float* dgi1, float* dw0, float* dw1,
     float* db0, float* db1, float* gh, float* dgh, float* partial,
+    const float* h00, const float* h01, float* dh00, float* dh01,
     long long gi_sb, long long gi_st, long long o_sb, long long o_st,
     long long g_sb, long long g_st, long long w_sk, long long w_sc,
-    long long dw_sk, long long dw_sc,
+    long long dw_sk, long long dw_sc, long long h0_sb,
     int B, int T, int H, int ndir, int reverse_mask, int n_chunks, int device, void* stream) {
   if (H % CLUSTER != 0 || H < CLUSTER || ndir < 1 || ndir > 2 || B < 1 || T < 1 ||
       n_chunks < 1)
@@ -612,19 +690,12 @@ extern "C" int avs_gru_bwd(
   if (e != cudaSuccess) return static_cast<int>(e);
   const GruBwdParams p{{gi0, gi1}, {out0, out1}, {g0, g1}, {w0, w1}, {b0, b1},
                        {dgi0, dgi1}, {dw0, dw1}, {db0, db1}, gh, dgh, partial,
-                       gi_sb, gi_st, o_sb, o_st, g_sb, g_st, w_sk, w_sc, dw_sk, dw_sc,
+                       {h00, h01}, {dh00, dh01},
+                       gi_sb, gi_st, o_sb, o_st, g_sb, g_st, w_sk, w_sc, dw_sk, dw_sc, h0_sb,
                        B, T, H, ndir, reverse_mask, n_chunks, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int H3 = 3 * H, M = B * T;
-  gru_bwd_gh_kernel<<<dim3((H3 + TN - 1) / TN, (M + TM - 1) / TM, ndir), NT, 0, s>>>(p);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  if ((e = launch_chain_any(p, device, s)) != cudaSuccess) return static_cast<int>(e);
-  gru_bwd_dw_kernel<<<dim3((H3 + TN - 1) / TN, (H + TM - 1) / TM, ndir * n_chunks), NT, 0,
-                      s>>>(p);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  const long long n_out = (long long)ndir * (H + 1) * H3;
-  gru_bwd_sum_kernel<<<(unsigned)((n_out + NT - 1) / NT), NT, 0, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const bool h0 = h00 != nullptr || h01 != nullptr || dh00 != nullptr || dh01 != nullptr;
+  return static_cast<int>(h0 ? launch_all<true>(p, device, s) : launch_all<false>(p, device, s));
 }
 
 extern "C" const char* avs_error_string(int e) {

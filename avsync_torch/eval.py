@@ -1,11 +1,14 @@
-"""Transcript and detector metrics on the host (port of `avsync/eval.py`):
-CER, WER and exact-match accuracy; AUROC, accuracy at 0.5 and ROC points.
+"""Transcript and detector metrics (port of `avsync/eval.py`): CER, WER and
+exact-match accuracy on the host; the batched edit distance and its rates on
+the device; AUROC, accuracy at 0.5 and ROC points.
 
 `calculate_cer`/`calculate_wer` follow the reference (`train.py:945-993`):
 Levenshtein distance normalised by the target's length, and for an empty
-target 1.0 if the prediction is non-empty, else 0.0. `auroc` is the
-Mann-Whitney statistic with average ranks, as the JAX package computes it,
-here in float64 numpy.
+target 1.0 if the prediction is non-empty, else 0.0. `levenshtein_batch` /
+`cer_wer_batch` are the same over padded id sequences, batched in tensors on
+whatever device they lie on (plain torch: the JAX package's is a `lax.scan`,
+no Pallas kernel). `auroc` is the Mann-Whitney statistic with average ranks,
+as the JAX package computes it, here in float64 numpy.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 def auroc(labels, scores) -> float:
@@ -101,3 +105,45 @@ def evaluate_transcripts(predictions: List[str], targets: List[str]) -> dict:
         "accuracy": float(np.sum(exact)) / n,
         "num_samples": len(predictions),
     }
+
+
+# ---------------------------------------------------------------------------
+# batched edit distance on the device (`avsync/eval.py:66-119`)
+# ---------------------------------------------------------------------------
+
+def levenshtein_batch(pred: torch.Tensor, pred_len: torch.Tensor, tgt: torch.Tensor,
+                      tgt_len: torch.Tensor) -> torch.Tensor:
+    """Levenshtein distances of padded int sequences: pred (B, P), tgt (B, L),
+    their lengths (B,) -> (B,) int32, on the inputs' device.
+
+    The loop walks the prediction's positions carrying the (B, L+1) row of
+    the dynamic programme, as the JAX function's scan. Its inner scan over
+    the target, new[k] = min(c[k], new[k-1] + 1) with c[0] = i and c[k] =
+    min(row[k] + 1, row[k-1] + sub[k-1]), is new[k] = k + min over m <= k of
+    (c[m] - m): one cumulative minimum. A position past a row's pred_len
+    keeps that row; row 0 is min(k, tgt_len), as the JAX function's."""
+    B, P = pred.shape
+    L = tgt.shape[1]
+    dev = pred.device
+    k = torch.arange(L + 1, device=dev, dtype=torch.int32)
+    tgt_len = tgt_len.to(dev).long()
+    pred_len = pred_len.to(dev)
+    row = torch.minimum(k[None, :], tgt_len[:, None].int())
+    for i in range(1, P + 1):
+        sub = (tgt != pred[:, i - 1:i]).int()
+        c = torch.cat([torch.full((B, 1), i, device=dev, dtype=torch.int32),
+                       torch.minimum(row[:, 1:] + 1, row[:, :-1] + sub)], dim=1)
+        new = torch.cummin(c - k, dim=1).values + k
+        row = torch.where((i <= pred_len)[:, None], new, row)
+    return row.gather(1, tgt_len[:, None])[:, 0]
+
+
+def cer_wer_batch(pred: torch.Tensor, pred_len: torch.Tensor, tgt: torch.Tensor,
+                  tgt_len: torch.Tensor) -> torch.Tensor:
+    """Edit distance over the target's length, float32 (B,): characters for
+    CER when the ids are characters, words for WER when they are words. An
+    empty target gives 1.0 for a non-empty prediction, else 0.0."""
+    d = levenshtein_batch(pred, pred_len, tgt, tgt_len).float()
+    tgt_len = tgt_len.to(d.device)
+    rate = d / torch.clamp(tgt_len.float(), min=1.0)
+    return torch.where(tgt_len == 0, (pred_len.to(d.device) > 0).float(), rate)

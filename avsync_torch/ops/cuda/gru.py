@@ -19,7 +19,11 @@ CUDA kernels and their plain twins.
     (K3): the gh recompute as one product, the reverse-time chain for dgi,
     then dW_hh/db_hh in deterministic chunked products and a fixed-order
     sum, all in one launch; plain version `gru_recurrence_bwd_ref`;
-    `bwd_launches` counts its launches (each runs four CUDA kernels).
+    `bwd_launches` counts its launches (each runs four CUDA kernels). From
+    a given initial state `h0`, it also returns h0's gradient `dh0` (a fifth
+    kernel), as the context-parallel chain's backward runs each chunk
+    (`parallel/context.py`); `bwd_h0_launches` counts those launches apart
+    (they are also in `bwd_launches`).
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel or
 raises. The counters count kernel launches only (the plain versions do not
@@ -58,15 +62,17 @@ from avsync_torch.ops.precision import rounded
 launches = 0
 bf16_launches = 0
 bwd_launches = 0
+bwd_h0_launches = 0
 
 # avs_gru_fwd(gi0, gi1, w0, w1, b0, b1, h00, h01, out, 8 strides, B, T, H,
 #             ndir, reverse_mask, bf16, device, stream); a null h0 starts from zeros
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 8
              + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 # avs_gru_bwd(gi0, gi1, out0, out1, g0, g1, w0, w1, b0, b1, dgi0, dgi1,
-#             dw0, dw1, db0, db1, gh, dgh, partial, 10 strides, B, T, H, ndir,
-#             reverse_mask, n_chunks, device, stream)
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 19 + [ctypes.c_longlong] * 10
+#             dw0, dw1, db0, db1, gh, dgh, partial, h00, h01, dh00, dh01,
+#             11 strides, B, T, H, ndir, reverse_mask, n_chunks, device, stream);
+# a null h0 starts from zeros, a null dh0 is not computed
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 23 + [ctypes.c_longlong] * 11
                  + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 _max_hidden = {}  # kernel name -> the largest H its shared memory holds
 
@@ -107,6 +113,13 @@ def _check_fits(name: str, symbol: str, H: int) -> None:
                          f"(the kernel takes H up to {_max_hidden[name]})")
 
 
+def _ordered_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """h (B, K) @ w (K, N) with each output's K products summed in order k =
+    0, 1, ... (a running sum along k: the same bits whatever the thread
+    count)."""
+    return torch.cumsum(h[:, :, None] * w, dim=1)[:, -1]
+
+
 def gru_recurrence_ref(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                        reverse: bool = False, h0: Optional[torch.Tensor] = None,
                        compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -115,14 +128,21 @@ def gru_recurrence_ref(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     time backwards and still returns outputs in forward time order. K2 and
     K3 are this with `compute_dtype` None. `compute_dtype` bf16 is the JAX
     `gru_scan`'s step: h and w_hh rounded to bf16 in the product, its sums
-    and the carry float32 (the model's plain loop under bf16 compute)."""
+    and the carry float32 (the model's plain loop under bf16 compute).
+
+    On the CPU each step's product sums its H terms in order
+    (`_ordered_product`): the BLAS splits a product's sums over its threads,
+    so `h @ w_hh` rounds differently under another thread count, and a
+    chain of chunks run in processes with fewer threads each
+    (`parallel/context.py`) would not give the whole recurrence's bits."""
     B, T, threeH = gi.shape
     H = threeH // 3
     h = gi.new_zeros(B, H) if h0 is None else h0
     w_hh = rounded(w_hh, compute_dtype)
+    product = _ordered_product if gi.device.type == "cpu" else torch.matmul
     outs = [None] * T
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        gh = rounded(h, compute_dtype) @ w_hh + b_hh
+        gh = product(rounded(h, compute_dtype), w_hh) + b_hh
         gi_t = gi[:, t]
         r = torch.sigmoid(gi_t[:, :H] + gh[:, :H])
         z = torch.sigmoid(gi_t[:, H:2 * H] + gh[:, H:2 * H])
@@ -307,23 +327,26 @@ def bigru_recurrence_bf16(gi_f: torch.Tensor, gi_b: torch.Tensor,
 
 def gru_recurrence_bwd_ref(gi: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
                            w_hh: torch.Tensor, b_hh: torch.Tensor,
-                           reverse: bool = False):
+                           reverse: bool = False, h0: Optional[torch.Tensor] = None):
     """Plain version of the backward, JAX layout: gi (B, T, 3H), out (B, T, H)
     the forward's outputs, g (B, T, H) their cotangent, w_hh (H, 3H), b_hh
-    (3H,) -> (dgi (B, T, 3H), dw_hh (H, 3H), db_hh (3H,)).
+    (3H,) -> (dgi (B, T, 3H), dw_hh (H, 3H), db_hh (3H,)), and when h0 is
+    given also dh0 (B, H), its gradient (as `jax.vjp` returns it).
 
     Walks the forward's steps in reverse, recomputing the gates from
     (gi_t, h_prev) as `_gru_gate_grads` does; h_prev is out at the
-    direction's previous step and 0 at its first."""
+    direction's previous step, and at its first the initial state h0 (B, H)
+    (zeros when None)."""
     B, T, threeH = gi.shape
     H = threeH // 3
     dgi = gi.new_empty(B, T, threeH)
     dw = gi.new_zeros(H, threeH)
     db = gi.new_zeros(threeH)
     dh = gi.new_zeros(B, H)
+    first = gi.new_zeros(B, H) if h0 is None else h0
     for i in range(T - 1, -1, -1):  # forward step index, walked backwards
         t = T - 1 - i if reverse else i
-        hp = out[:, t + 1 if reverse else t - 1] if i > 0 else gi.new_zeros(B, H)
+        hp = out[:, t + 1 if reverse else t - 1] if i > 0 else first
         gh = hp @ w_hh + b_hh
         gi_t = gi[:, t]
         r = torch.sigmoid(gi_t[:, :H] + gh[:, :H])
@@ -340,7 +363,7 @@ def gru_recurrence_bwd_ref(gi: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
         dh = a * z + dgh @ w_hh.t()
         dw += hp.t() @ dgh
         db += dgh.sum(0)
-    return dgi, dw, db
+    return (dgi, dw, db) if h0 is None else (dgi, dw, db, dh)
 
 
 def bwd_chunks(B: int, T: int) -> int:
@@ -351,13 +374,16 @@ def bwd_chunks(B: int, T: int) -> int:
     return max(1, min(16, B * T // 128))
 
 
-def _launch_bwd(gis, out, g, w_hhs, b_hhs, reverse_mask: int):
+def _launch_bwd(gis, out, g, w_hhs, b_hhs, reverse_mask: int, h0s=None):
     """One launch for 1 or 2 directions. out and g are (B, T, ndir * H):
     direction d's forward outputs and their cotangent are columns [d H,
     (d + 1) H) (read in place: no slice is made). dw_hh comes back in w_hh's
     layout: a transposed torch-layout view (H, 3H) with strides (1, H) gets
-    a gradient of the same strides, anything else a contiguous (H, 3H)."""
-    global bwd_launches
+    a gradient of the same strides, anything else a contiguous (H, 3H).
+    h0s: each direction's initial state (B, H), or None (zeros). Returns
+    (dgi, dw, db, dh0): dh0 (ndir, B, H), h0s' gradients, or None without
+    h0s."""
+    global bwd_launches, bwd_h0_launches
     gi0, w0 = gis[0], w_hhs[0]
     ndir = len(gis)
     B, T, threeH = gi0.shape
@@ -374,14 +400,16 @@ def _launch_bwd(gis, out, g, w_hhs, b_hhs, reverse_mask: int):
             return torch.cat([pad_units(t[..., d * H:(d + 1) * H], H, Hp)
                               for d in range(ndir)], dim=-1)
 
-        dgi, dw, db = _launch_bwd(tuple(pad_gates(x, H, Hp) for x in gis), pad_dirs(out),
-                                  pad_dirs(g), tuple(pad_w_hh(w, H, Hp) for w in w_hhs),
-                                  tuple(pad_gates(b, H, Hp) for b in b_hhs), reverse_mask)
+        dgi, dw, db, dh0 = _launch_bwd(
+            tuple(pad_gates(x, H, Hp) for x in gis), pad_dirs(out), pad_dirs(g),
+            tuple(pad_w_hh(w, H, Hp) for w in w_hhs), tuple(pad_gates(b, H, Hp) for b in b_hhs),
+            reverse_mask, None if h0s is None else tuple(pad_units(h, H, Hp) for h in h0s))
         # back to H units; dw_hh in w_hh's layout, as below
         dw = torch.stack([pad_w_hh(w, Hp, H) for w in dw])
         if w0.stride() == (1, H):
             dw = dw.transpose(1, 2).contiguous().transpose(1, 2)
-        return pad_gates(dgi, Hp, H), dw, pad_gates(db, Hp, H)
+        return (pad_gates(dgi, Hp, H), dw, pad_gates(db, Hp, H),
+                None if dh0 is None else pad_units(dh0, Hp, H))
     _check_fits("gru_bwd", "avs_gru_bwd_max_hidden", H)
     for t in (*gis, out, g, *w_hhs, *b_hhs):
         if t.device != dev or t.dtype != torch.float32:
@@ -399,6 +427,12 @@ def _launch_bwd(gis, out, g, w_hhs, b_hhs, reverse_mask: int):
             raise ValueError("gru_bwd: directions must have the same strides")
         if not b.is_contiguous():
             raise ValueError("gru_bwd: b_hh must be contiguous")
+    if h0s is not None:
+        h0s = tuple(h.contiguous() for h in h0s)
+        for h in h0s:
+            if h.shape != (B, H) or h.device != dev or h.dtype != torch.float32:
+                raise ValueError(f"gru_bwd: h0 must be float32 ({B}, {H}) on {dev}")
+    dh0 = None if h0s is None else torch.empty(ndir, B, H, device=dev, dtype=torch.float32)
     # the outputs in one allocation: dgi (ndir, B, T, 3H), dw_hh, db_hh
     n_dgi, n_dw = ndir * B * T * threeH, ndir * H * threeH
     res = torch.empty(n_dgi + n_dw + ndir * threeH, device=dev, dtype=torch.float32)
@@ -422,36 +456,49 @@ def _launch_bwd(gis, out, g, w_hhs, b_hhs, reverse_mask: int):
              b_hhs[-1].data_ptr(), rp, rp + 4 * (n_dgi // ndir) * last, rp + 4 * n_dgi,
              rp + 4 * (n_dgi + H * threeH * last), rp + 4 * (n_dgi + n_dw),
              rp + 4 * (n_dgi + n_dw + threeH * last), wp, wp + 4 * n_dgi, wp + 8 * n_dgi,
+             None if h0s is None else h0s[0].data_ptr(),
+             None if h0s is None else h0s[-1].data_ptr(),
+             None if dh0 is None else dh0[0].data_ptr(),
+             None if dh0 is None else dh0[-1].data_ptr(),
              gi0.stride(0), gi0.stride(1), out.stride(0), out.stride(1),
              g.stride(0), g.stride(1), w0.stride(0), w0.stride(1),
-             dw.stride(1), dw.stride(2),
+             dw.stride(1), dw.stride(2), H,
              B, T, H, ndir, reverse_mask, n_chunks, dev.index,
              torch.cuda.current_stream(dev).cuda_stream)
     build.check("gru_bwd", err, "gru_bwd launch")
     bwd_launches += 1
-    return dgi, dw, db
+    if h0s is not None:
+        bwd_h0_launches += 1
+    return dgi, dw, db, dh0
 
 
 def gru_recurrence_bwd(gi: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
-                       w_hh: torch.Tensor, b_hh: torch.Tensor, reverse: bool = False):
+                       w_hh: torch.Tensor, b_hh: torch.Tensor, reverse: bool = False,
+                       h0: Optional[torch.Tensor] = None):
     """One direction, JAX layout: (gi, out, g, w_hh, b_hh) -> (dgi, dw_hh,
-    db_hh), as `pallas_gru_bwd`."""
+    db_hh), as `pallas_gru_bwd`; from the forward's initial state h0 (B, H)
+    when given (zeros when None), and then also its gradient dh0 (B, H)."""
     if not _on_cuda(gi):
-        return gru_recurrence_bwd_ref(gi, out, g, w_hh, b_hh, reverse)
-    dgi, dw, db = _launch_bwd((gi,), out, g, (w_hh,), (b_hh,), int(reverse))
-    return dgi[0], dw[0], db[0]
+        return gru_recurrence_bwd_ref(gi, out, g, w_hh, b_hh, reverse, h0)
+    dgi, dw, db, dh0 = _launch_bwd((gi,), out, g, (w_hh,), (b_hh,), int(reverse),
+                                   None if h0 is None else (h0,))
+    return (dgi[0], dw[0], db[0]) if h0 is None else (dgi[0], dw[0], db[0], dh0[0])
 
 
 def bigru_recurrence_bwd(gi_f: torch.Tensor, gi_b: torch.Tensor, out: torch.Tensor,
                          g: torch.Tensor, w_hh_f: torch.Tensor, w_hh_b: torch.Tensor,
-                         b_hh_f: torch.Tensor, b_hh_b: torch.Tensor):
+                         b_hh_f: torch.Tensor, b_hh_b: torch.Tensor, h0s=None):
     """Backward of `bigru_recurrence`, both directions in one launch. out and
     g are (B, T, 2H) = [forward | backward]. Returns (dgi_f, dgi_b, dw_hh_f,
-    dw_hh_b, db_hh_f, db_hh_b), each dw_hh in its w_hh's layout."""
+    dw_hh_b, db_hh_f, db_hh_b), each dw_hh in its w_hh's layout; h0s: the
+    directions' initial states (h0_f, h0_b), (B, H) each, or None (zeros);
+    given, their gradients (dh0_f, dh0_b) follow."""
     if not _on_cuda(gi_f):
         H = w_hh_f.shape[0]
-        f = gru_recurrence_bwd_ref(gi_f, out[..., :H], g[..., :H], w_hh_f, b_hh_f, False)
-        b = gru_recurrence_bwd_ref(gi_b, out[..., H:], g[..., H:], w_hh_b, b_hh_b, True)
-        return f[0], b[0], f[1], b[1], f[2], b[2]
-    dgi, dw, db = _launch_bwd((gi_f, gi_b), out, g, (w_hh_f, w_hh_b), (b_hh_f, b_hh_b), 0b10)
-    return dgi[0], dgi[1], dw[0], dw[1], db[0], db[1]
+        h0_f, h0_b = (None, None) if h0s is None else h0s
+        f = gru_recurrence_bwd_ref(gi_f, out[..., :H], g[..., :H], w_hh_f, b_hh_f, False, h0_f)
+        b = gru_recurrence_bwd_ref(gi_b, out[..., H:], g[..., H:], w_hh_b, b_hh_b, True, h0_b)
+        return (f[0], b[0], f[1], b[1], f[2], b[2]) + (() if h0s is None else (f[3], b[3]))
+    dgi, dw, db, dh0 = _launch_bwd((gi_f, gi_b), out, g, (w_hh_f, w_hh_b), (b_hh_f, b_hh_b),
+                                   0b10, h0s)
+    return (dgi[0], dgi[1], dw[0], dw[1], db[0], db[1]) + (() if h0s is None else (dh0[0], dh0[1]))

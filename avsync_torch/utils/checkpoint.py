@@ -15,8 +15,11 @@ alone. A snapshot is written to a temporary file and renamed into place, so
 a crash mid-save never leaves a half-written step behind. Under a process
 group every rank calls `save` with the same whole tensors: rank 0 writes,
 then all ranks meet in a barrier, so a `restore` that follows on any rank
-reads the finished file. Reading the JAX package's Orbax directories is not
-ported yet.
+reads the finished file. `max_to_keep` keeps the newest steps only, as the
+JAX manager's Orbax option (None, the default, keeps every one).
+
+The JAX package's Orbax directories are read where JAX runs, by
+`scripts/orbax_to_torch.py`, which writes them as such a directory.
 """
 
 from __future__ import annotations
@@ -34,10 +37,14 @@ _NAME = re.compile(r"^epoch_(\d+)\.pth$")
 
 
 class CheckpointManager:
-    """save(step, ...) / latest_step() / restore(step) over one directory."""
+    """save(step, ...) / latest_step() / restore(step) over one directory;
+    after a save, the oldest snapshots beyond `max_to_keep` are deleted."""
 
-    def __init__(self, root: str):
+    def __init__(self, root: str, max_to_keep: Optional[int] = None):
+        if max_to_keep is not None and max_to_keep < 1:
+            raise ValueError(f"max_to_keep must be None or >= 1, got {max_to_keep}")
         self.root = os.path.abspath(root)
+        self.max_to_keep = max_to_keep
         os.makedirs(self.root, exist_ok=True)
 
     def path(self, step: int) -> str:
@@ -50,7 +57,8 @@ class CheckpointManager:
              optimizer_steps: int = 0) -> str:
         """Write snapshot `step`, replacing one of the same step (tensors
         keep their device; `restore` and `compat.load_pth` map them to the
-        CPU). Rank 0 writes; every rank returns after the write."""
+        CPU). Rank 0 writes, then deletes the oldest snapshots beyond
+        `max_to_keep`; every rank returns after both."""
         dst = self.path(step)
         if not multihost.is_main():
             multihost.barrier()
@@ -69,6 +77,9 @@ class CheckpointManager:
         try:
             torch.save(payload, tmp)
             os.replace(tmp, dst)
+            if self.max_to_keep is not None:
+                for old in self.all_steps()[:-self.max_to_keep]:
+                    os.remove(self.path(old))
         finally:
             multihost.barrier()
         return dst

@@ -239,7 +239,22 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      test` with no dtype flag and no --config runs bf16 on the card (K1-bf16
      by profiler name, no float32 K1), `--compute_dtype float32` and a
      float32 `--config` win;
-  17. the kernels: a text line with the state of every TPU kernel of the
+  17. the last JAX surfaces: a. K3 from an initial state h0 with its
+     gradient dh0 (B=8, T=75, H=256, both directions) within K3_TOL /
+     K3_SUM_TOL of its plain version, a repeat the same bits, the call
+     without h0 equal to h0 = zeros bit for bit, both timed in turns beside
+     phase 3's K3; b. the context-parallel chain's backward over 2 ranks
+     sharing the card (B=8, T=74 = 2 x 37, H=256): dgi, dw_hh and db_hh
+     (reduced over the ranks) against K3 over the whole sequence, the
+     forward equal to K2's bit for bit, K2 and K3 once per rank and K3 from
+     h0 on rank 1; c. `cli misalign-demo` on a 2-speaker corpus with phases 4
+     and 7's seeded weights: no failed speaker, every file decodes to the
+     clip's frames, the scores within 1e-4 of the in-process
+     MisalignmentScorer's; d. `cli test` over those 2 ranks (f32 and
+     `--quantize int8`) on phase 5's corpus and checkpoint: the JSON equal to
+     the one-rank command's; e. `eval.cer_wer_batch` on the card equal to the
+     CPU's;
+  18. the kernels: a text line with the state of every TPU kernel of the
      JAX package (and Q1), and one JSON line with the measured numbers
      (launches from the training slices, the serving slices', the daemons',
      the graph replays', the front end's, the TF int8 daemon's and a DP
@@ -247,8 +262,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      bf16 instantiations as rows of their own, their launches from phase
      15's bf16 training, forward and detector runs; Q1's bf16 epilogue and
      K2's bf16-operand instantiation as rows of their own, their launches
-     from phase 16's int8-bf16 daemon);
-  18. the card's name/power line, then the status JSON as the last line.
+     from phase 16's int8-bf16 daemon; K3 from h0 as a row of its own, its
+     launches from phase 17's CP backward);
+  19. the card's name/power line, then the status JSON as the last line.
 
 The phases before 15 pass `--compute_dtype float32` to every command: the
 card's CLI default is bf16 without `--config`.
@@ -587,6 +603,7 @@ def check_gru_bwd(dev):
     B, T, H, D = 8, 75, 256, 6912
     args, _ = case(B, T, H)
     ms = time_ms(lambda: gru.bigru_recurrence_bwd(*args))
+    ms_q = queued_ms(lambda: gru.bigru_recurrence_bwd(*args))
     plain_ms = time_ms(lambda: plain(args, H), iters=5, warmup=1)
     layer = BiGRU(D, H, use_kernel=True, generator=torch.Generator().manual_seed(5)).to(dev)
     cudnn = torch.nn.GRU(D, H, batch_first=True, bidirectional=True).to(dev)
@@ -608,9 +625,9 @@ def check_gru_bwd(dev):
     # dgh W_hh^T, dW_hh) and about 30 operations of gate math per (row, step, unit)
     n_ops = 2 * (3 * 2 * B * T * H * 3 * H + 30 * B * T * H)
     bms, by = bound_ms(n_bytes, n_ops)
-    print(f"  both directions B=8 T=75 H=256: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={bms:.4f} ({by}: {n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.3f} GFLOP) "
-          f"per_step_us={ms / T * 1e3:.2f}", flush=True)
+    print(f"  both directions B=8 T=75 H=256: kernel_ms={ms:.4f} (queued {ms_q:.4f}) "
+          f"plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}: {n_bytes / 1e6:.2f} MB, "
+          f"{n_ops / 1e9:.3f} GFLOP) per_step_us={ms / T * 1e3:.2f}", flush=True)
     print(f"  BiGRU layer backward D=6912: port (matmuls + kernel) layer_ms={layer_ms:.4f} "
           f"torch.nn.GRU library_ms={lib_ms:.4f}", flush=True)
     # the generic chain, once, at H = 512 (correctness first: not tuned)
@@ -621,7 +638,7 @@ def check_gru_bwd(dev):
     return dict(name="gru_bwd", route="cuda", source="avsync_torch/csrc/gru_bwd.cu",
                 replaces="avsync/ops/pallas/gru.py:276", max_abs_err=max(errs),
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
-                layer_ms=layer_ms, shape="both directions B=8 T=75 H=256",
+                queued_ms=ms_q, layer_ms=layer_ms, shape="both directions B=8 T=75 H=256",
                 per_step_us=ms / T * 1e3, ms_H512=ms_h512,
                 library_note="library_ms and layer_ms time the whole BiGRU layer's "
                              "backward (D=6912, dx and every weight): torch.nn.GRU vs "
@@ -926,6 +943,7 @@ def zero_counts():
     from avsync_torch.ops.cuda import convpool, gru, mfcc, quantconv
 
     convpool.launches = convpool.bwd_launches = gru.launches = gru.bwd_launches = 0
+    gru.bwd_h0_launches = 0
     mfcc.launches = quantconv.launches = quantconv.bf16_launches = gru.bf16_launches = 0
 
 
@@ -5313,6 +5331,296 @@ def run_int8_bf16(dev, workdir, serving_dir, tf_dir, crops, smi, k2_row):
     return q1, k2, out
 
 
+# ---------------------------------------------------------------------------
+# 17. the last JAX surfaces: K3 from h0, the CP backward, misalign-demo,
+#     test over ranks, the device edit distance
+# ---------------------------------------------------------------------------
+
+P17_CP = (8, 74, 256, 2)  # the CP backward: B, T, H and ranks (37 steps each)
+DEMO_ATOL = 1e-4  # misalign-demo's scores vs the in-process scorer's
+
+
+def p17_cp_inputs():
+    """gi, w_hh, b_hh and the output's cotangent of the CP backward, seeded."""
+    import numpy as np
+    import torch
+
+    B, T, H, _ = P17_CP
+    r = np.random.default_rng(17)
+    k = H ** -0.5
+    return tuple(torch.from_numpy(a.astype(np.float32)) for a in (
+        r.normal(size=(B, T, 3 * H)), r.uniform(-k, k, (H, 3 * H)), r.uniform(-k, k, (3 * H,)),
+        r.normal(size=(B, T, H))))
+
+
+def p17_ranks(rank, out, workdir):
+    """Two ranks sharing the card: this rank's chunk of the CP chain through
+    its backward (K3 from the handed-off h0, dh0 back to rank 0), then `cli
+    test` over the two ranks, f32 and int8."""
+    import contextlib
+
+    import torch
+
+    from avsync_torch import cli
+    from avsync_torch.ops.cuda import gru
+    from avsync_torch.parallel import multihost
+    from avsync_torch.parallel.context import cp_gru_recurrence
+
+    dev = multihost.rank_device()
+    gi, w, b, cot = (t.to(dev) for t in p17_cp_inputs())
+    T = gi.shape[1] // P17_CP[3]
+    part = slice(rank * T, (rank + 1) * T)
+    local = gi[:, part].contiguous().requires_grad_()
+    w, b = w.requires_grad_(), b.requires_grad_()
+    zero_counts()
+    gru.bwd_h0_launches = 0
+    y = cp_gru_recurrence(None, local, w, b)
+    (y * cot[:, part]).sum().backward()
+    torch.cuda.synchronize()
+    launches = {"gru_fwd": gru.launches, "gru_bwd": gru.bwd_launches,
+                "gru_bwd_h0": gru.bwd_h0_launches}
+    torch.save({"y": y.detach().cpu(), "dgi": local.grad.cpu(), "dw": w.grad.cpu(),
+                "db": b.grad.cpu(), "launches": launches}, os.path.join(out, f"cp_{rank}.pt"))
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        for name, extra in (("f32", []), ("int8", ["--quantize", "int8"])):
+            rc = cli.main(["test", "--data_path", os.path.join(workdir, "grid"), "--config",
+                           os.path.join(out, "config_2ranks.json"), "--checkpoint",
+                           os.path.join(workdir, "ckpt"), "--output",
+                           os.path.join(out, f"test_{name}.json"), *F32, *extra])
+            if rc:
+                raise SystemExit(f"rank {rank}: cli test {name} exited {rc}")
+
+
+def k3_from_h0(dev, smi, k3):
+    """a. K3 with h0 and dh0 at the training shape against its plain version;
+    without h0 the launch equals h0 = zeros; both timed in turns."""
+    import torch
+
+    from avsync_torch.ops.cuda import gru
+
+    g = torch.Generator().manual_seed(17)
+    B, T, H = 8, 75, 256
+    k = H ** -0.5
+    gf, gb = (torch.randn(B, T, 3 * H, generator=g).to(dev) for _ in range(2))
+    wf, wb = (((torch.rand(H, 3 * H, generator=g) * 2 - 1) * k).to(dev) for _ in range(2))
+    bf, bb = (((torch.rand(3 * H, generator=g) * 2 - 1) * k).to(dev) for _ in range(2))
+    h0f, h0b = (torch.randn(B, H, generator=g).to(dev) for _ in range(2))
+    out = torch.cat([gru.gru_recurrence_ref(gf, wf, bf, False, h0f),
+                     gru.gru_recurrence_ref(gb, wb, bb, True, h0b)], -1)
+    cot = torch.randn(B, T, 2 * H, generator=g).to(dev)
+    args = (gf, gb, out, cot, wf, wb, bf, bb)
+
+    def plain():
+        f = gru.gru_recurrence_bwd_ref(gf, out[..., :H], cot[..., :H], wf, bf, False, h0f)
+        r = gru.gru_recurrence_bwd_ref(gb, out[..., H:], cot[..., H:], wb, bb, True, h0b)
+        return f[0], r[0], f[1], r[1], f[2], r[2], f[3], r[3]
+
+    print("phase 17: the last JAX surfaces", flush=True)
+    print("  a. K3 from an initial state h0 with its gradient dh0 (B=8 T=75 H=256, both "
+          "directions) vs gru_recurrence_bwd_ref:", flush=True)
+    got = gru.bigru_recurrence_bwd(*args, h0s=(h0f, h0b))
+    errs = []
+    for i, want in enumerate(plain()):
+        what = ("dgi", "dgi", "dw_hh", "dw_hh", "db_hh", "db_hh", "dh0", "dh0")[i]
+        tol = K3_SUM_TOL if what in ("dw_hh", "db_hh") else K3_TOL
+        errs.append(max_err(got[i], want, tol, f"{what} {'fwd' if i % 2 == 0 else 'rev'}"))
+    same_bits(got, gru.bigru_recurrence_bwd(*args, h0s=(h0f, h0b)), "K3 h0")
+    no_h0 = gru.bigru_recurrence_bwd(*args)  # the call as it was before h0
+    zeros = gru.bigru_recurrence_bwd(*args, h0s=(torch.zeros_like(h0f),) * 2)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(no_h0, zeros[:6])):
+        raise SystemExit("K3 without h0 differs from K3 with h0 = zeros")
+    print("  K3 without h0 (the earlier call) equals K3 with h0 = zeros bit for bit", flush=True)
+    turns = {"no_h0": [], "h0": []}
+    for name in ("no_h0", "h0", "h0", "no_h0"):
+        fn = ((lambda: gru.bigru_recurrence_bwd(*args)) if name == "no_h0" else
+              (lambda: gru.bigru_recurrence_bwd(*args, h0s=(h0f, h0b))))
+        turns[name].append((time_ms(fn), queued_ms(fn)))
+    ms, ms_q = (statistics.mean(t[i] for t in turns["h0"]) for i in (0, 1))
+    no_ms, no_q = (statistics.mean(t[i] for t in turns["no_h0"]) for i in (0, 1))
+    plain_ms = time_ms(plain, iters=5, warmup=1)
+    # the library yardstick as K3's row takes it (phase 3): the whole BiGRU
+    # layer's backward through torch.nn.GRU (D=6912), here from an initial
+    # state that requires its gradient, so the call also returns dh0
+    cudnn = torch.nn.GRU(6912, H, batch_first=True, bidirectional=True).to(dev)
+    x = torch.randn(B, T, 6912, generator=g).to(dev).requires_grad_()
+    h0_lib = torch.stack([h0f, h0b]).requires_grad_()
+    y_lib = cudnn(x, h0_lib)[0]
+    ins_lib = [x, h0_lib, *cudnn.parameters()]
+    lib_ms = time_ms(lambda: torch.autograd.grad(y_lib, ins_lib, cot, retain_graph=True))
+    # each direction: K3's bytes and operations, plus h0 read, dh0 written and
+    # the (B, 3H) x (3H, H) product of dh0
+    n_bytes = 4 * 2 * (B * T * 3 * H + 2 * B * T * H + H * 3 * H + 3 * H
+                       + B * T * 3 * H + H * 3 * H + 3 * H + 2 * B * H)
+    n_ops = 2 * (3 * 2 * B * T * H * 3 * H + 30 * B * T * H + 2 * B * 3 * H * H)
+    bms, by = bound_ms(n_bytes, n_ops)
+    print(f"  K3 in turns (no h0, h0, h0, no h0), CUDA events median of 20: with h0 + dh0 "
+          f"{ms:.4f} ms (queued {ms_q:.4f}), without {no_ms:.4f} ms (queued {no_q:.4f}); "
+          f"phase 3's K3 {k3['ms']:.4f} ms (queued {k3['queued_ms']:.4f}; without h0 over "
+          f"phase 3: events {no_ms / k3['ms']:.4f}, queued {no_q / k3['queued_ms']:.4f}); "
+          f"plain {plain_ms:.4f} ms; bound {bms:.4f} ms ({by}); torch.nn.GRU from h0 "
+          f"library_ms={lib_ms:.4f} [{smi}]", flush=True)
+    return dict(name="gru_bwd_h0", route="cuda", source="avsync_torch/csrc/gru_bwd.cu",
+                replaces="avsync/ops/pallas/gru.py:276", max_abs_err=max(errs), ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                queued_ms=ms_q, no_h0_ms=no_ms, no_h0_queued_ms=no_q,
+                phase3_ms=k3["ms"], phase3_queued_ms=k3["queued_ms"], shape="both directions B=8 T=75 H=256, h0 in, dh0 out",
+                library_note="library_ms times the whole BiGRU layer's backward (D=6912, "
+                             "dx, dh0 and every weight) through torch.nn.GRU from h0, as "
+                             "K3's row times it without h0")
+
+
+def misalign_demo(dev, out, smi):
+    """c. `cli misalign-demo` on a small corpus with phases 4 and 7's seeded
+    weights: the files, their frames, no failure, and the scores against the
+    in-process scorer."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from avsync_torch import cli, demo
+    from avsync_torch.config import AvsyncConfig, AudioConfig, ModelConfig
+    from avsync_torch.data.video import decode_av, decode_video_gray
+    from avsync_torch.predictor import MisalignmentScorer
+
+    cfg = AvsyncConfig(model=ModelConfig(fused_conv_pool=True), audio=AudioConfig(use_pallas=True))
+    lip, det = write_serving_checkpoints(cfg, out)
+    data = os.path.join(out, "demo_grid")
+    write_grid_corpus(data, 2, 2, seed=17)
+    cfg_path = os.path.join(out, "demo_config.json")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    calls, real = [], demo.export_demo
+
+    def recorded(frames, audio, sr, fps, shift, a, m, out_dir, scale=1):
+        calls.append((out_dir, frames.shape[0], shift, a, m))
+        return real(frames, audio, sr, fps, shift, a, m, out_dir, scale=scale)
+
+    demo.export_demo = recorded
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["misalign-demo", "--data_path", data, "--config", cfg_path,
+                           "--checkpoint", lip, "--detector_checkpoint", det, "--output_dir",
+                           os.path.join(out, "demo"), "--seed", "0", *F32])
+    finally:
+        demo.export_demo = real
+    secs = time.perf_counter() - t0
+    printed = buf.getvalue()
+    print("\n".join("  " + ln for ln in printed.splitlines() if "shift=" in ln or "failed" in ln),
+          flush=True)
+    if rc != 0 or "failed" in printed or len(calls) != 2:
+        raise SystemExit("misalign-demo failed its checks")
+    scorer = MisalignmentScorer(detector_checkpoint=det, lipnet_checkpoint=lip, config=cfg,
+                                device=dev)
+    errs, files = [], {}
+    for out_dir, n, shift, a, m in calls:
+        speaker = os.path.basename(out_dir)
+        line = next(ln for ln in printed.splitlines() if ln.startswith(f"{speaker}: "))
+        clip = os.path.join(data, speaker, "video", line.split()[1])
+        frames, audio, fps = decode_av(clip, cfg)
+        want = scorer.score_arrays(frames, audio, fps, shifts=(0, shift))
+        errs.append(float(np.abs(np.asarray([a, m]) - want).max()))
+        files[speaker] = sorted(os.listdir(out_dir))
+        for name in files[speaker]:
+            if name.endswith((".mp4", ".avi")):
+                got_n = decode_video_gray(os.path.join(out_dir, name)).shape[0]
+                if got_n != n or n != frames.shape[0]:
+                    raise SystemExit(f"misalign-demo wrote {name} with {got_n} frames, not {n}")
+    print(f"  c. misalign-demo, 2 speakers: {secs:.1f} s; files {json.dumps(files)}; scores "
+          f"vs the in-process scorer max |d| {max(errs):.3e} (bound {DEMO_ATOL}) [{smi}]",
+          flush=True)
+    if max(errs) > DEMO_ATOL:
+        raise SystemExit("misalign-demo's scores differ from the in-process scorer's")
+    return {"seconds": secs, "max_abs_err": max(errs), "files": files}
+
+
+def run_last_surfaces(dev, workdir, smi, k3):
+    """Phase 17 (see the module's docstring)."""
+    import contextlib
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from avsync_torch import cli, eval as teval
+    from avsync_torch.config import AvsyncConfig
+    from avsync_torch.ops.cuda import gru
+    from avsync_torch.parallel import multihost
+
+    row = k3_from_h0(dev, smi, k3)
+    out = os.path.join(workdir, "p17")
+    os.makedirs(out)
+
+    # b. and d. one group of two ranks sharing the card
+    with open(os.path.join(workdir, "config.json")) as f:
+        cfg = AvsyncConfig.from_dict(json.load(f))
+    with open(os.path.join(out, "config_2ranks.json"), "w") as f:
+        f.write(dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, mesh_shape=(2, 1))).to_json())
+    t0 = time.perf_counter()
+    multihost.spawn(p17_ranks, P17_CP[3], (out, workdir), device="cuda")
+    ranks_s = time.perf_counter() - t0
+    parts = [torch.load(os.path.join(out, f"cp_{r}.pt")) for r in range(P17_CP[3])]
+    gi, w, b, cot = (t.to(dev) for t in p17_cp_inputs())
+    whole = gru.gru_recurrence(gi, w, b)
+    dgi, dw, db = gru.gru_recurrence_bwd(gi, whole, cot, w, b)
+    chain = torch.cat([p["y"] for p in parts], 1)
+    if not torch.equal(chain, whole.cpu()):
+        raise SystemExit("the CP chain's forward differs from K2 over the whole sequence")
+    errs = [max_err(torch.cat([p["dgi"] for p in parts], 1).to(dev), dgi, K3_TOL,
+                    f"CP backward over {P17_CP[3]} ranks: dgi vs K3 over the whole sequence")]
+    for p in parts:
+        errs.append(max_err(p["dw"].to(dev), dw, K3_SUM_TOL, "  dw_hh (reduced over the ranks)"))
+        errs.append(max_err(p["db"].to(dev), db, K3_SUM_TOL, "  db_hh (reduced over the ranks)"))
+    launches = [p["launches"] for p in parts]
+    want = [{"gru_fwd": 1, "gru_bwd": 1, "gru_bwd_h0": 1 if r else 0} for r in range(len(parts))]
+    print(f"  b. CP backward over {P17_CP[3]} ranks (B={P17_CP[0]}, T={P17_CP[1]}, "
+          f"H={P17_CP[2]}): forward equal bit for bit to K2 over the whole sequence; launches "
+          f"per rank {launches} (want {want})", flush=True)
+    if launches != want:
+        raise SystemExit("the CP backward did not launch K2 and K3 as expected")
+    row["launches"] = sum(p["gru_bwd_h0"] for p in launches)
+    row["launches_cp_per_rank"] = [p["gru_bwd_h0"] for p in launches]
+
+    # d. test over the two ranks against the one-rank command
+    tested = {}
+    for name, extra in (("f32", []), ("int8", ["--quantize", "int8"])):
+        one = os.path.join(out, f"test1_{name}.json")
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+            rc = cli.main(["test", "--data_path", os.path.join(workdir, "grid"), "--config",
+                           os.path.join(workdir, "config.json"), "--checkpoint",
+                           os.path.join(workdir, "ckpt"), "--output", one, *F32, *extra])
+        with open(one) as f, open(os.path.join(out, f"test_{name}.json")) as g:
+            tested[name] = (json.load(f), json.load(g))
+        if rc or tested[name][0] != tested[name][1]:
+            raise SystemExit(f"cli test {name} over 2 ranks differs from one rank: "
+                             f"{tested[name]}")
+    print(f"  d. cli test over 2 ranks sharing the card (gloo; the ranks' group {ranks_s:.1f} s "
+          f"with b.): f32 {tested['f32'][1]}, int8 {tested['int8'][1]}: each equal to the "
+          f"one-rank command's JSON", flush=True)
+
+    # c. misalign-demo
+    demo_row = misalign_demo(dev, out, smi)
+
+    # e. the device edit distance on the card against the CPU
+    r = np.random.default_rng(170)
+    B, P, L = 64, 40, 32
+    arrays = [r.integers(0, 28, (B, P)), r.integers(0, P + 1, B), r.integers(0, 28, (B, L)),
+              r.integers(0, L + 1, B)]
+    arrays[3][::7] = 0
+    cpu = teval.cer_wer_batch(*(torch.from_numpy(a) for a in arrays))
+    card = teval.cer_wer_batch(*(torch.from_numpy(a).to(dev) for a in arrays))
+    if not torch.equal(card.cpu(), cpu):
+        raise SystemExit("cer_wer_batch on the card differs from the CPU")
+    print(f"  e. cer_wer_batch (B={B}, P={P}, L={L}) on the card equal to the CPU's; mean rate "
+          f"{cpu.mean().item():.4f}", flush=True)
+    return row, {"cp_backward_max_abs_err": max(errs), "test_over_ranks": tested,
+                 "demo": demo_row, "ranks_seconds": ranks_s}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "avsync_torch", "csrc")):
         print("chip_smoke: run from a checkout of the repository (avsync_torch/ missing)",
@@ -5397,6 +5705,9 @@ def main() -> int:
         t16 = time.perf_counter()
         q1_16, k2_16, int8_16 = run_int8_bf16(dev, workdir, serving_dir, tf_dir, crops, smi, k2)
         print(f"int8 under bf16 phase: {time.perf_counter() - t16:.1f} s", flush=True)
+        t17 = time.perf_counter()
+        k3_h0, last = run_last_surfaces(dev, workdir, smi, k3)
+        print(f"last JAX surfaces phase: {time.perf_counter() - t17:.1f} s", flush=True)
     for k in (k1, k2, k3, k4):
         k["launches"] = trained[k["name"]]
     k5["launches"], k5["launches_serving"] = detector["mel_stats"], served["mel_stats"]
@@ -5442,7 +5753,7 @@ def main() -> int:
         k["launches_bf16_train"] = trained16[k["name"]]
         if not k["launches_bf16_train"]:
             raise SystemExit(f"{k['name']} was not launched on the bf16 training path")
-    for k in (k1, k2, k3, k4, k5, q1):
+    for k in (k1, k2, k3, k4, k5, q1, k3_h0):
         if not k["launches"] or k.get("launches_serving") == 0 or any(
                 k.get(f"launches_daemon_{w}", {"launches": 1})["launches"] == 0
                 for w in ("live", "artifact")):
@@ -5454,6 +5765,7 @@ def main() -> int:
           f"[{smi}]", flush=True)
     print(f"int8 under bf16: forward {json.dumps(int8_16['forward'])}; daemon "
           f"{json.dumps(int8_16['commands']['daemon'])} [{smi}]", flush=True)
+    print(f"last JAX surfaces: {json.dumps(last)} [{smi}]", flush=True)
 
     print("kernels: K1 conv1_pool_fused (avsync/ops/pallas/convpool.py:100)=ported+checked; "
           "K2 pallas_gru_scan (avsync/ops/pallas/gru.py:357)=ported+checked; "
@@ -5469,13 +5781,16 @@ def main() -> int:
           "the JAX package too); int8 serving under bf16: Q1's bf16 epilogue "
           "(int8_conv_pool_bf16, quant_conv_block(out_dtype=bfloat16), avsync/ops/quant.py:"
           "109)=ported+checked, the int8 forward's gru_scan(compute_dtype=bf16) as K2 with "
-          "bf16 operands (gru_fwd_bf16)=ported+checked; the card's CLI default is bf16",
+          "bf16 operands (gru_fwd_bf16)=ported+checked; the card's CLI default is bf16; "
+          "the context-parallel chain's backward (jax.grad of avsync/parallel/context.py's "
+          "scan) as K3 from a carried h0 with dh0 out (gru_bwd_h0)=ported+checked",
           flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [{**{k: d[k] for k in keys},
                          **{k: v for k, v in d.items() if k not in keys}}
-                        for d in (k1, k2, k3, k4, k5, q1, k1_16, k4_16, q1_16, k2_16)]}
+                        for d in (k1, k2, k3, k4, k5, q1, k1_16, k4_16, q1_16, k2_16,
+                                  k3_h0)]}
     print(json.dumps(line), flush=True)
     if any(m.split(".")[0] in ("jax", "flax", "avsync") for m in sys.modules):
         raise SystemExit("the port pulled in jax or the avsync package")

@@ -7,6 +7,8 @@ earlier design, on one GPU. Two modes:
     python3 scripts/torch_kernel_breakdown.py --mode k5 --parent build/parent [--out k.json]
     python3 scripts/torch_kernel_breakdown.py --mode q1 [--parent DIR] [--out k.json]
     python3 scripts/torch_kernel_breakdown.py --mode conv1-bf16 [--parent DIR] [--out k.json]
+    python3 scripts/torch_kernel_breakdown.py --mode k2-bf16 [--out k.json]
+    python3 scripts/torch_kernel_breakdown.py --mode k3-h0 --parent DIR [--out k.json]
 
 `--parent` is the root of an unpacked checkout whose `avsync_torch/csrc/`
 holds the earlier design. The default mode (`lipnet`) takes the LipNet
@@ -74,6 +76,27 @@ tensor cores, csrc/conv1_mma.cuh):
     ones in turns (parent, current, current, parent), `queued_ms`, at B = 8
     and 128, after checking both against the plain versions (K1's share of
     elements equal, K4's largest difference).
+
+Mode `k2-bf16` (K2's recurrence with bf16 operands, int8 serving under
+bf16; csrc/gru_fwd.cu's bf16 flag):
+  * builds gru_fwd.cu whole and with its per-step product cut out (each
+    lane's FMAs over its slice of h; the exchange, the butterfly over the
+    k lanes and the gates stay), one nvcc each, and prints ptxas' register
+    report;
+  * at LipNet's shape (both directions, T=75, H=256) at B = 1 and 8, times
+    both through the package's wrapper with the variant swapped in, with
+    bf16 operands and in float32, in turns (whole, cut, cut, whole):
+    `queued_ms` and the profiler's device time per call, each turn and
+    their means. The product's share of a step is 1 - cut / whole.
+
+Mode `k3-h0` (K3 with the initial state h0 and its gradient dh0, the
+context-parallel chain's backward): builds DIR's gru_bwd.cu (commit
+6d60f39's C interface, without h0 and dh0) beside the package's, checks at
+LipNet's shape (both directions, B=8, T=75, H=256) that the current call
+without h0 gives the parent's bits (torch.equal on dgi, dW_hh, db_hh), and
+times the parent, the current call without h0 and with h0 + dh0 in turns
+(parent, current, h0, h0, current, parent): `queued_ms` and the profiler's
+device time per call.
 
 Mode `lipnet`:
   * builds the earlier design's four LipNet kernels and variants of its K3 and K1
@@ -337,11 +360,13 @@ def checked(err, what):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", default=None, help="root of the earlier design's checkout")
-    ap.add_argument("--mode", choices=("lipnet", "k5", "q1", "conv1-bf16"), default="lipnet",
+    ap.add_argument("--mode", choices=("lipnet", "k5", "q1", "conv1-bf16", "k2-bf16", "k3-h0"),
+                    default="lipnet",
                     help="lipnet: K1-K4 against 6ec0e61; k5: K5 against 5e863d4; q1: Q1 "
                          "(int8 serving) cut into parts, against --parent if given; "
                          "conv1-bf16: K1-bf16 and K4-bf16 cut into parts, against --parent "
-                         "if given")
+                         "if given; k2-bf16: K2's per-step product cut out; k3-h0: K3 "
+                         "without h0 against --parent's, and with h0")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
 
@@ -355,11 +380,13 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
-    if args.parent is None and args.mode not in ("q1", "conv1-bf16"):
+    if args.parent is None and args.mode not in ("q1", "conv1-bf16", "k2-bf16"):
         ap.error(f"--mode {args.mode} needs --parent")
     parent = Path(args.parent).resolve() if args.parent else None
     out = {"k5": k5_breakdown, "q1": q1_breakdown, "lipnet": lipnet_breakdown,
-           "conv1-bf16": conv1_bf16_breakdown}[args.mode](parent, dev)
+           "conv1-bf16": conv1_bf16_breakdown, "k2-bf16": k2_bf16_breakdown,
+           "k3-h0": k3_h0_breakdown}[args.mode](
+               parent, dev)
     text = json.dumps({"card": card, "torch": torch.__version__, **out}, indent=1)
     print(text)
     if args.out:
@@ -1028,6 +1055,126 @@ def conv1_bf16_breakdown(parent, dev):
         torch.cuda.empty_cache()
     out["vs_parent"] = turns
     return out
+
+
+# the per-step product of K2's register kernel (both instantiations)
+K2_VARIANTS = {
+    "k2_full": [],
+    "k2_no_product": [("      if (NK == 0 && c * PER >= nk) break;", "      if (c >= 0) break;")],
+}
+
+
+def k2_bf16_breakdown(parent, dev):
+    import torch
+
+    from avsync_torch.ops.cuda import build, gru
+
+    fns = build_variants([(build.CSRC, "gru_fwd", K2_VARIANTS, "avs_gru_fwd", gru._ARGTYPES)])
+    build.build(["gru_fwd"])
+    out = {"ptxas_variants": {k: v[1] for k, v in fns.items()}}
+    g = torch.Generator().manual_seed(0)
+    H = 256
+    k = H ** -0.5
+    key = ("gru_fwd", "avs_gru_fwd")
+    res = {}
+    for B in (1, 8):
+        dirs = [(torch.randn(B, T, 3 * H, generator=g).to(dev),
+                 ((torch.rand(H, 3 * H, generator=g) * 2 - 1) * k).to(dev),
+                 ((torch.rand(3 * H, generator=g) * 2 - 1) * k).to(dev)) for _ in range(2)]
+        (gf, wf, bf), (gb, wb, bb) = dirs
+        for mode, call in (("bf16", gru.bigru_recurrence_bf16), ("f32", gru.bigru_recurrence)):
+            run = (lambda call=call: call(gf, gb, wf, wb, bf, bb))
+            run()  # the wrapper's function loaded
+            turns = {name: [] for name in fns}
+            for name in ("k2_full", "k2_no_product", "k2_no_product", "k2_full"):
+                swap = swapped(key, fns[name][0], run)
+                turns[name].append({"queued_ms": queued_ms(swap),
+                                    "device_ms": sum(device_ms(swap).values())})
+            times = {name: {k_: statistics.mean(t[k_] for t in ts)
+                            for k_ in ("queued_ms", "device_ms")} for name, ts in turns.items()}
+            times["turns"] = turns
+            full, cut = times["k2_full"]["device_ms"], times["k2_no_product"]["device_ms"]
+            times["product_share_device"] = 1.0 - cut / full
+            times["product_share_queued"] = (1.0 - times["k2_no_product"]["queued_ms"]
+                                             / times["k2_full"]["queued_ms"])
+            res[f"{mode}_B{B}"] = times
+            print(f"k2 {mode} B={B}: {json.dumps(times)}", flush=True)
+    out["k2_B_T75_H256"] = res
+    return out
+
+
+# avs_gru_bwd of commit 6d60f39: no h0, dh0 or h0 stride
+K3_PARENT_ARGTYPES = ([ctypes.c_void_p] * 19 + [ctypes.c_longlong] * 10
+                      + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+
+
+def k3_h0_breakdown(parent, dev):
+    import torch
+
+    from avsync_torch.ops.cuda import build, gru
+
+    fns = build_variants([(parent / "avsync_torch" / "csrc", "gru_bwd", {"k3_parent": []},
+                           "avs_gru_bwd", K3_PARENT_ARGTYPES)])
+    build.build(["gru_bwd"])
+    fn = fns["k3_parent"][0]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    g = torch.Generator().manual_seed(0)
+    B, H = 8, 256
+    k = H ** -0.5
+    (gf, wf, bf), (gb, wb, bb) = [(torch.randn(B, T, 3 * H, generator=g).to(dev),
+                                   ((torch.rand(H, 3 * H, generator=g) * 2 - 1) * k).to(dev),
+                                   ((torch.rand(3 * H, generator=g) * 2 - 1) * k).to(dev))
+                                  for _ in range(2)]
+    h0s = tuple(torch.randn(B, H, generator=g).to(dev) for _ in range(2))
+    out = torch.cat([gru.gru_recurrence_ref(gf, wf, bf, False),
+                     gru.gru_recurrence_ref(gb, wb, bb, True)], -1)
+    cot = torch.randn(B, T, 2 * H, generator=g).to(dev)
+    args = (gf, gb, out, cot, wf, wb, bf, bb)
+
+    def parent_call():
+        # the parent wrapper's buffers: outputs in one allocation, then gh, dgh
+        # and the dW_hh partials
+        n_dgi, n_dw = 2 * B * T * 3 * H, 2 * H * 3 * H
+        res = torch.empty(n_dgi + n_dw + 2 * 3 * H, device=dev)
+        chunks = gru.bwd_chunks(B, T)
+        work = torch.empty(2 * n_dgi + 2 * chunks * (H + 1) * 3 * H, device=dev)
+        rp, wp, op, gp = res.data_ptr(), work.data_ptr(), out.data_ptr(), cot.data_ptr()
+        checked(fn(gf.data_ptr(), gb.data_ptr(), op, op + 4 * H, gp, gp + 4 * H,
+                   wf.data_ptr(), wb.data_ptr(), bf.data_ptr(), bb.data_ptr(),
+                   rp, rp + 4 * (n_dgi // 2), rp + 4 * n_dgi, rp + 4 * (n_dgi + n_dw // 2),
+                   rp + 4 * (n_dgi + n_dw), rp + 4 * (n_dgi + n_dw + 3 * H),
+                   wp, wp + 4 * n_dgi, wp + 8 * n_dgi,
+                   gf.stride(0), gf.stride(1), out.stride(0), out.stride(1),
+                   cot.stride(0), cot.stride(1), wf.stride(0), wf.stride(1), 3 * H, 1,
+                   B, T, H, 2, 0b10, chunks, dev.index, stream), "parent K3")
+        dgi = res[:n_dgi].view(2, B, T, 3 * H)
+        dw = res[n_dgi:n_dgi + n_dw].view(2, H, 3 * H)
+        db = res[n_dgi + n_dw:].view(2, 3 * H)
+        return dgi[0], dgi[1], dw[0], dw[1], db[0], db[1]
+
+    def current():
+        return gru.bigru_recurrence_bwd(*args)
+
+    def with_h0():
+        return gru.bigru_recurrence_bwd(*args, h0s=h0s)
+
+    want, got = parent_call(), current()
+    torch.cuda.synchronize()
+    equal = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+    print(f"k3: current without h0 vs parent, torch.equal per output {equal}", flush=True)
+    turns = {"parent": [], "current": [], "h0": []}
+    for name in ("parent", "current", "h0", "h0", "current", "parent"):
+        call = {"parent": parent_call, "current": current, "h0": with_h0}[name]
+        turns[name].append({"queued_ms": queued_ms(call),
+                            "device_ms": sum(device_ms(call).values())})
+    mean = {name: {key: statistics.mean(t[key] for t in ts) for key in ("queued_ms", "device_ms")}
+            for name, ts in turns.items()}
+    print(f"k3 turns: {json.dumps(mean)}", flush=True)
+    return {"k3_B8_T75_H256": {"equal_to_parent": equal, "turns": turns, "mean": mean,
+                               "h0_over_current_device": mean["h0"]["device_ms"]
+                               / mean["current"]["device_ms"],
+                               "current_over_parent_device": mean["current"]["device_ms"]
+                               / mean["parent"]["device_ms"]}}
 
 
 if __name__ == "__main__":

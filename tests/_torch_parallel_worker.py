@@ -186,6 +186,23 @@ def cp_chain(rank: int, out: str, name: str, gi, w_hh, b_hh) -> None:
     _save(out, name, rank, y)
 
 
+def cp_chain_grad(rank: int, out: str, name: str, gi, w_hh, b_hh, cot) -> None:
+    """The chain's backward over the world: sum(y * cot) of this rank's
+    chunk, differentiated; this rank's dgi chunk and its dw_hh and db_hh
+    (reduced over the ranks) saved, with its forward output."""
+    from avsync_torch.parallel import multihost
+    from avsync_torch.parallel.context import cp_gru_recurrence
+
+    n = multihost.world_size()
+    T = gi.shape[1] // n
+    part = slice(rank * T, (rank + 1) * T)
+    local = torch.from_numpy(gi[:, part]).contiguous().requires_grad_()
+    w, b = (torch.from_numpy(a).requires_grad_() for a in (w_hh, b_hh))
+    y = cp_gru_recurrence(None, local, w, b)
+    (y * torch.from_numpy(cot[:, part])).sum().backward()
+    _save(out, name, rank, {"y": y.detach(), "dgi": local.grad, "dw": w.grad, "db": b.grad})
+
+
 def build_trainers(rank: int, out: str) -> None:
     """Both trainers on a (2, 1) mesh of two CPU ranks: what each took."""
     from avsync_torch.config import AvsyncConfig, TrainConfig

@@ -1,8 +1,10 @@
 """The port's command line over several devices on the CPU: `train` over two
 gloo ranks it starts itself (a config `mesh_shape` of (2, 1) with
 `--device cpu`) against the JAX package's `train` on a (2, 1) mesh of its
-virtual CPU devices, `--distributed` refused outside `train`, and `serve
---dp` (two CPU replicas) against the JAX reader on a (2, 1) mesh."""
+virtual CPU devices, `test` over two ranks (f32 and int8) against the one
+process and the JAX `test` on a (2, 1) mesh, `--distributed` refused
+outside `train`, and `serve --dp` (two CPU replicas) against the JAX reader
+on a (2, 1) mesh."""
 
 import argparse
 import dataclasses
@@ -95,6 +97,73 @@ def test_cli_train_over_two_ranks_matches_the_jax_cli(corpus, tmp_path, monkeypa
     assert cli.main(["test", "--data_path", corpus, "--config", single, "--checkpoint", ck,
                      "--output", out, "--device", "cpu"]) == 0
     assert json.load(open(out))["num_samples"] > 0
+
+
+@pytest.fixture(scope="module")
+def test_split(tmp_path_factory):
+    """A corpus whose test speaker has 7 clips (batches of 4: one whole, one
+    padded), perturbed JAX weights as a reference `.pth`, and configs with
+    a (2, 1) mesh (the port's, with its kernels; the JAX package's, on its
+    XLA path) and without."""
+    root = tmp_path_factory.mktemp("test_ranks")
+    data = str(root / "grid")
+    synthetic.write_corpus(data, n_speakers=3, clips_per_speaker=7, n_frames=8, height=16,
+                           width=32, seed=23, with_audio=False)
+    from avsync.config import ModelConfig as JaxModelConfig
+    from avsync.models import LipNet as JaxLipNet
+
+    params = JaxLipNet(JaxModelConfig(**MODEL)).init({"params": jax.random.PRNGKey(5)},
+                                                     jnp.zeros((1, 8, 16, 32, 1)))["params"]
+    r = np.random.default_rng(5)
+    params = jax.tree.map(lambda p: (np.asarray(p) + r.normal(0, 0.3, np.shape(p))).astype(
+        np.float32), params)
+    pth = str(root / "lipnet.pth")
+    jcompat.save_lipnet_pth(params, pth, conv_shape=CONV_SHAPE)
+    cfg = _cfg(data, root)
+    paths = {}
+    for name, c in (("port2", cfg),
+                    ("port1", dataclasses.replace(cfg, train=dataclasses.replace(
+                        cfg.train, mesh_shape=(-1, 1)))),
+                    ("jax2", dataclasses.replace(cfg, model=dataclasses.replace(
+                        cfg.model, use_pallas_gru=False, fused_conv_pool=False)))):
+        paths[name] = str(root / f"{name}.json")
+        open(paths[name], "w").write(c.to_json())
+    return data, pth, paths
+
+
+@pytest.mark.parametrize("quantize", [[], ["--quantize", "int8"]], ids=["f32", "int8"])
+def test_test_over_two_ranks_equals_one_process_and_the_jax_mesh(test_split, tmp_path,
+                                                                 quantize, capsys):
+    """`test --device cpu` with a (2, 1) mesh starts two gloo ranks; rank 0
+    writes the JSON, equal to the one-process command's and to the JAX
+    `test` on a (2, 1) mesh of its virtual devices (int8: every rank
+    calibrated on the whole first batch)."""
+    from avsync.cli import main as jax_main
+
+    data, pth, cfgs = test_split
+    out = {k: str(tmp_path / f"{k}.json") for k in cfgs}
+    for name in ("port2", "port1"):
+        assert cli.main(["test", "--data_path", data, "--config", cfgs[name], "--checkpoint",
+                         pth, "--output", out[name], "--device", "cpu", *quantize]) == 0
+        started = "starting 2 ranks (cpu, gloo)" in capsys.readouterr().out
+        assert started == (name == "port2")
+    assert jax_main(["test", "--data_path", data, "--config", cfgs["jax2"], "--checkpoint",
+                     pth, "--output", out["jax2"], *quantize]) == 0
+    got = {k: json.load(open(v)) for k, v in out.items()}
+    assert got["port2"] == got["port1"] == got["jax2"]
+    assert got["port2"]["num_samples"] == 7 and got["port2"]["cer"] < 1.0
+
+
+def test_test_distributed_is_refused_as_the_jax_cli_refuses_it(tmp_path, capsys):
+    from avsync.cli import main as jax_main
+
+    argv = ["test", "--checkpoint", "c.pth", "--data_path", str(tmp_path), "--distributed"]
+    assert cli.main([*argv, "--device", "cpu"]) == 2
+    ours = capsys.readouterr().err
+    assert jax_main(argv) == 2
+    theirs = capsys.readouterr().err
+    head = "ERROR: --distributed supports the 'train' subcommand only"
+    assert ours.startswith(head) and theirs.startswith(head)
 
 
 @pytest.mark.parametrize("command", ["test", "serve", "misalign-train", "infer"])

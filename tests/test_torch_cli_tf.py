@@ -209,8 +209,21 @@ def test_export_artifact_equals_the_live_reader(tiny, tmp_path):
     reader = LipReader(checkpoint=tiny["ck"], config=tiny["cfg"], device="cpu")
     frames = np.random.default_rng(9).integers(0, 256, (3, 8, 16, 32), np.uint8)
     ids, lengths, lp = art.call(frames)
+    # Three rows run in the bucket of 4, zero-padded: the artifact's program
+    # is the live reader's function on that batch, bit for bit.
+    padded = np.concatenate([frames, np.zeros_like(frames[:1])])
+    np.testing.assert_array_equal(
+        lp, reader._logprobs(reader.preprocess_device(padded)).numpy()[:3])
+    # Against the live reader's own batch of 3, the products have M = 3 T
+    # rows, not 4 T, and the CPU GEMM blocks and sums them in another order:
+    # each sum rounds to within an ulp or two of its size. The head's logits
+    # are of the log-probs' size (the perturbed weights drive them to about
+    # -1,600 and the largest logit's log-prob to 0), and log_softmax adds one
+    # rounding of the log-sum-exp, so each log-prob moves by a few ulps of
+    # max|log-prob|: held to 8 of them (1.95e-3 at max|lp| = 2,211).
     want = reader._logprobs(reader.preprocess_device(frames))
-    np.testing.assert_allclose(lp, want.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(lp, want.numpy(), atol=8 * np.spacing(np.abs(lp).max()),
+                               rtol=0)
     assert art.transcribe(frames) == text.tf_decode_batch(want)
     assert art.transcribe(frames[0]) == [reader.predict_frames(frames[0])]
 

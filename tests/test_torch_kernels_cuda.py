@@ -386,6 +386,33 @@ def test_gru_bwd_both_directions_match_plain(dev, B, T, H):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("B,T,H", [(8, 75, 256), (4, 38, 256), (1, 1, 256), (3, 7, 264),
+                                   (3, 8, 20), (2, 5, 512)])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_bwd_from_h0_matches_plain(dev, B, T, H, reverse):
+    """K3 from an initial state h0 with its gradient dh0 (a chunk of the
+    context-parallel chain) within K3_TOL / K3_SUM_TOL of the plain version;
+    with h0 = zeros and no dh0 it is the launch without h0, bit for bit."""
+    g = _gen(12)
+    gi, w, b = _gru_bwd_case(g, dev, B, T, H)
+    h0 = torch.randn(B, H, generator=g).to(dev)
+    out = gru.gru_recurrence_ref(gi, w, b, reverse, h0=h0)
+    cot = torch.randn(B, T, H, generator=g).to(dev)
+    want = gru.gru_recurrence_bwd_ref(gi, out, cot, w, b, reverse, h0=h0)
+    before = gru.bwd_h0_launches
+    got = gru.gru_recurrence_bwd(gi, out, cot, w, b, reverse, h0=h0)
+    torch.cuda.synchronize()
+    assert gru.bwd_h0_launches == before + 1
+    torch.testing.assert_close(got[0], want[0], **K3_TOL)
+    torch.testing.assert_close(got[3], want[3], **K3_TOL)
+    for a, e in zip(got[1:3], want[1:3]):
+        torch.testing.assert_close(a, e, **K3_SUM_TOL)
+    plain = gru.gru_recurrence_bwd(gi, out, cot, w, b, reverse)
+    zeros = gru.gru_recurrence_bwd(gi, out, cot, w, b, reverse, h0=torch.zeros_like(h0))
+    for a, e in zip(plain, zeros):
+        assert torch.equal(a, e)
+
+
 def test_gru_bwd_torch_layout_weight_gets_its_layout_back(dev):
     g = _gen(8)
     H = 256
