@@ -30,7 +30,11 @@ Without `--config` the compute dtype follows the JAX CLI's backend-tuned
 defaults: bfloat16 and `packed_conv` on the card (int8 serving then ends its
 blocks in the bf16 epilogue), float32 with `--device cpu`; an explicit
 `--compute_dtype` or `--packed_conv` wins, and a config file's values are
-kept.
+kept. The TF family computes in float32 whatever the dtype, as the JAX
+CLI's TF commands do (`models.make_lipnet`). The resolved config is the JAX
+CLI's field for field but for the kernel flags (`_config_from_args`): in
+particular `--seed` (default 42), and on `train` `--checkpoint_dir`
+(default ./checkpoints) and `--quick_test`, win over a `--config` file's.
 
 Multi-device (`avsync_torch/parallel/`, one process per device):
 `train`, `test` and `misalign-train` on a host with n > 1 cards start their
@@ -56,7 +60,8 @@ import sys
 import time
 from typing import List, Optional, Sequence
 
-from avsync_torch.config import AudioConfig, AvsyncConfig, ModelConfig
+from avsync_torch.config import (AudioConfig, AvsyncConfig, DataConfig, DetectorConfig,
+                                 ModelConfig, TrainConfig)
 
 
 def _config(path: Optional[str]) -> AvsyncConfig:
@@ -64,48 +69,6 @@ def _config(path: Optional[str]) -> AvsyncConfig:
         return AvsyncConfig()
     with open(path) as f:
         return AvsyncConfig.from_json(f.read())
-
-
-def _config_from_args(args) -> AvsyncConfig:
-    """The `--config` JSON (or the defaults with both kernel flags on), then
-    the command line's scalars over it."""
-    base = _config(args.config) if args.config else AvsyncConfig(
-        model=ModelConfig(use_pallas_gru=True, fused_conv_pool=True))
-
-    def arg(name, fallback):
-        v = getattr(args, name, None)
-        return fallback if v is None else v
-
-    return _with_common_flags(dataclasses.replace(
-        base,
-        data=dataclasses.replace(base.data, data_path=args.data_path,
-                                 batch_size=arg("batch_size", base.data.batch_size),
-                                 device_cache=arg("device_cache", base.data.device_cache)),
-        train=dataclasses.replace(
-            base.train, epochs=arg("epochs", base.train.epochs),
-            learning_rate=arg("lr", base.train.learning_rate),
-            seed=arg("seed", base.train.seed),
-            checkpoint_dir=arg("checkpoint_dir", base.train.checkpoint_dir),
-            quick_test=bool(getattr(args, "quick_test", False)) or base.train.quick_test,
-            log_dir=arg("log_dir", base.train.log_dir),
-            checkpoint_every=arg("checkpoint_every", base.train.checkpoint_every),
-            tensorboard=arg("tensorboard", base.train.tensorboard)),
-    ), args)
-
-
-def _with_family(cfg: AvsyncConfig, family: Optional[str]) -> AvsyncConfig:
-    """--model_family over a config (`avsync/cli.py:143-216`): 'tf' over a
-    config of the other family also switches to the TF stack's conv widths
-    (128, 256, 64) and its data geometry, 46x140 crops with per-clip
-    standardization (`train.py:88-89,266-273,505-521`)."""
-    if family is None or family == cfg.model.family:
-        return cfg
-    if family != "tf":
-        return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, family=family))
-    return dataclasses.replace(
-        cfg, model=dataclasses.replace(cfg.model, family="tf", conv_channels=(128, 256, 64)),
-        data=dataclasses.replace(cfg.data, img_width=140, img_height=46,
-                                 standardize_clips=True))
 
 
 def _runs_on_card(args) -> bool:
@@ -136,29 +99,103 @@ def _tuned_perf_defaults(args):
     return dtype, bool(packed), bool(remat) if remat is not None else False
 
 
-def _with_common_flags(cfg: AvsyncConfig, args) -> AvsyncConfig:
-    """The common flags of every command over a config: --model_family,
-    --roi_mode, --roi_host and the perf flags --compute_dtype, --packed_conv
-    and --remat. An explicit flag wins over the config file; without
-    --config the perf flags default to `_tuned_perf_defaults` (a config
-    file's values are deliberate choices, as in `avsync/cli.py:144-155`)."""
+# The kernel flags a command turns on when no --config is given (a config
+# file's own flags are kept): `use_pallas_gru` (K2/K3), `fused_conv_pool`
+# (K1/K4) and `audio.use_pallas` (K5). They name implementations, so they
+# are the only fields where the port's config differs from the JAX CLI's.
+LIPNET_KERNELS = ("use_pallas_gru", "fused_conv_pool")
+SERVING_KERNELS = ("use_pallas_gru", "fused_conv_pool", "use_pallas")
+DETECTOR_KERNELS = ("fused_conv_pool", "use_pallas")
+
+
+def _config_from_args(args, kernels: Sequence[str] = LIPNET_KERNELS) -> AvsyncConfig:
+    """The JAX CLI's config of a command line, field for field
+    (`avsync/cli.py:134-257`), then, without --config, the port's `kernels`.
+
+    With --config the file is the base and the command line's scalars go
+    over it; the perf flags only when given (a file's compute_dtype and
+    packed_conv are deliberate choices). `--seed` (default 42) and, on
+    `train`, `--checkpoint_dir` (default ./checkpoints) and `--quick_test`
+    always win over the file, as the JAX CLI's defaults do; `--log_dir`
+    wins when given (misalign-train's defaults to 'logs'). Without --config
+    every field is the JAX CLI's default, the perf flags from
+    `_tuned_perf_defaults`. `--model_family tf` over a config of the other
+    family (or without one) also takes the TF stack's conv widths (128, 256,
+    64) and its 46x140 standardized crops (`train.py:88-89,266-273,505-521`)."""
     def arg(name, fallback):
         v = getattr(args, name, None)
         return fallback if v is None else v
 
-    cfg = _with_family(cfg, getattr(args, "model_family", None))
+    family = getattr(args, "model_family", None)
+    tf_family = family == "tf"
     if getattr(args, "config", None):
-        dtype = arg("compute_dtype", cfg.model.compute_dtype)
-        packed = arg("packed_conv", cfg.model.packed_conv)
-        remat = arg("remat", cfg.train.remat)
-    else:
-        dtype, packed, remat = _tuned_perf_defaults(args)
-    return dataclasses.replace(
-        cfg,
-        data=dataclasses.replace(cfg.data, roi_mode=arg("roi_mode", cfg.data.roi_mode),
-                                 roi_host=arg("roi_host", cfg.data.roi_host)),
-        model=dataclasses.replace(cfg.model, compute_dtype=dtype, packed_conv=packed),
-        train=dataclasses.replace(cfg.train, remat=remat))
+        base = _config(args.config)
+        model_kw = {"family": arg("model_family", base.model.family),
+                    "compute_dtype": arg("compute_dtype", base.model.compute_dtype),
+                    "packed_conv": arg("packed_conv", base.model.packed_conv)}
+        data_kw = {"data_path": getattr(args, "data_path", base.data.data_path),
+                   "batch_size": arg("batch_size", base.data.batch_size),
+                   "roi_mode": arg("roi_mode", base.data.roi_mode),
+                   "roi_host": arg("roi_host", base.data.roi_host),
+                   "device_cache": arg("device_cache", base.data.device_cache)}
+        if tf_family and base.model.family != "tf":
+            model_kw["conv_channels"] = (128, 256, 64)
+            data_kw.update(img_width=140, img_height=46, standardize_clips=True)
+        det, tr = base.detector, base.train
+        return dataclasses.replace(
+            base,
+            model=dataclasses.replace(base.model, **model_kw),
+            data=dataclasses.replace(base.data, **data_kw),
+            detector=dataclasses.replace(
+                det, hidden_dim=arg("hidden_dim", det.hidden_dim),
+                max_shift_frames=arg("max_shift_frames", det.max_shift_frames),
+                num_negative_samples=arg("num_negatives", det.num_negative_samples),
+                batch_size=arg("batch_size", det.batch_size), epochs=arg("epochs", det.epochs),
+                lr=arg("lr", det.lr), weight_decay=arg("weight_decay", det.weight_decay)),
+            train=dataclasses.replace(
+                tr, remat=arg("remat", tr.remat), epochs=arg("epochs", tr.epochs),
+                learning_rate=arg("lr", tr.learning_rate),
+                seed=getattr(args, "seed", tr.seed),
+                checkpoint_dir=getattr(args, "checkpoint_dir", tr.checkpoint_dir),
+                quick_test=getattr(args, "quick_test", tr.quick_test),
+                tensorboard=arg("tensorboard", tr.tensorboard), log_dir=arg("log_dir", tr.log_dir),
+                checkpoint_every=arg("checkpoint_every", tr.checkpoint_every)))
+    compute_dtype, packed_conv, remat = _tuned_perf_defaults(args)
+    return AvsyncConfig(
+        data=DataConfig(
+            data_path=getattr(args, "data_path", "./data"), batch_size=arg("batch_size", 8),
+            img_width=140 if tf_family else 100, img_height=46 if tf_family else 50,
+            standardize_clips=tf_family, roi_mode=arg("roi_mode", "heuristic"),
+            roi_host=bool(arg("roi_host", False)), device_cache=arg("device_cache", "auto")),
+        model=ModelConfig(
+            family=family or "pytorch", compute_dtype=compute_dtype, packed_conv=packed_conv,
+            use_pallas_gru="use_pallas_gru" in kernels,
+            fused_conv_pool="fused_conv_pool" in kernels),
+        audio=AudioConfig(sample_rate=arg("sample_rate", 16000), n_mfcc=arg("n_mfcc", 20),
+                          use_pallas="use_pallas" in kernels),
+        detector=DetectorConfig(
+            hidden_dim=arg("hidden_dim", 256), max_shift_frames=arg("max_shift_frames", 15),
+            num_negative_samples=arg("num_negatives", 1), lr=arg("lr", 1e-3),
+            weight_decay=arg("weight_decay", 1e-5), batch_size=arg("batch_size", 32),
+            epochs=arg("epochs", 20)),
+        train=TrainConfig(
+            learning_rate=arg("lr", 1e-4), remat=remat, epochs=arg("epochs", 50),
+            seed=getattr(args, "seed", 42),
+            checkpoint_dir=getattr(args, "checkpoint_dir", "./checkpoints"),
+            log_dir=arg("log_dir", "logs"), quick_test=getattr(args, "quick_test", False),
+            tensorboard=arg("tensorboard", False), checkpoint_every=arg("checkpoint_every", 10)))
+
+
+def _serving_config(args) -> AvsyncConfig:
+    """`export` and `serve`: the command line's config with the three kernel
+    flags of the serving paths."""
+    return _config_from_args(args, SERVING_KERNELS)
+
+
+def _detector_config_from_args(args) -> AvsyncConfig:
+    """The `misalign-*` commands: the command line's config with conv1's and
+    the MFCC stage's kernel flags."""
+    return _config_from_args(args, DETECTOR_KERNELS)
 
 
 # `--distributed` on another command than train: the JAX package's refusal
@@ -463,7 +500,7 @@ def cmd_infer(args) -> int:
 
     # an int8 reader calibrates lazily on its first input: this clip
     reader = LipReader(checkpoint=args.checkpoint,
-                       config=_with_common_flags(_config(args.config), args),
+                       config=_config_from_args(args, kernels=()),
                        device=args.device, quantize=args.quantize)
     log_probs = reader._logprobs(reader._prepare(reader._load(args.video)))
     pred = family_decoder(reader.cfg.model.family)(log_probs, beam_width=args.beam)[0]
@@ -515,17 +552,6 @@ def cmd_quantize(args) -> int:
     print(f"calibrated {len(scales)} conv layers on {seen} clips -> {args.out}")
     print(f"input_scales: {scales.tolist()}")
     return 0
-
-
-def _serving_config(args) -> AvsyncConfig:
-    """The `--config` JSON, or the defaults with the three kernel flags of the
-    serving paths on (K1 `fused_conv_pool`, K2 `use_pallas_gru`, K5
-    `AudioConfig.use_pallas`)."""
-    if args.config:
-        return _with_common_flags(_config(args.config), args)
-    return _with_common_flags(AvsyncConfig(
-        model=ModelConfig(use_pallas_gru=True, fused_conv_pool=True),
-        audio=AudioConfig(use_pallas=True)), args)
 
 
 def cmd_export(args) -> int:
@@ -689,35 +715,6 @@ def _serve_loop(server) -> int:
 # Clips per chunk of the eval sweep: one chunk's (clips, frames, bins) power
 # spectrogram is the sweep's largest intermediate (254 MB at 512 clips).
 _SWEEP_CLIP_CHUNK = 512
-
-
-def _detector_config_from_args(args) -> AvsyncConfig:
-    """The `--config` JSON (or the defaults with conv1's and the MFCC
-    stage's kernel flags on), then the command line's scalars over it, as
-    the JAX package's `_config_from_args` applies them."""
-    base = _config(args.config) if args.config else AvsyncConfig(
-        model=ModelConfig(fused_conv_pool=True), audio=AudioConfig(use_pallas=True))
-
-    def arg(name, fallback):
-        v = getattr(args, name, None)
-        return fallback if v is None else v
-
-    det = base.detector
-    return _with_common_flags(dataclasses.replace(
-        base,
-        data=dataclasses.replace(base.data, data_path=args.data_path,
-                                 batch_size=arg("batch_size", base.data.batch_size)),
-        audio=dataclasses.replace(base.audio,
-                                  sample_rate=arg("sample_rate", base.audio.sample_rate),
-                                  n_mfcc=arg("n_mfcc", base.audio.n_mfcc)),
-        detector=dataclasses.replace(
-            det, hidden_dim=arg("hidden_dim", det.hidden_dim),
-            max_shift_frames=arg("max_shift_frames", det.max_shift_frames),
-            num_negative_samples=arg("num_negatives", det.num_negative_samples),
-            batch_size=arg("batch_size", det.batch_size), epochs=arg("epochs", det.epochs),
-            lr=arg("lr", det.lr), weight_decay=arg("weight_decay", det.weight_decay)),
-        train=dataclasses.replace(base.train, seed=arg("seed", base.train.seed)),
-    ), args)
 
 
 def _bank_cache_path(cfg: AvsyncConfig, video_paths, checkpoint, cache_dir):
@@ -1070,13 +1067,18 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m avsync_torch.cli")
     sub = p.add_subparsers(dest="command", required=True)
 
-    def common(sp):
+    # The JAX CLI's options on every command (`avsync/cli.py:1249-1514`), and
+    # `--device`. `infer` takes --roi_mode, --roi_host and --distributed too
+    # (the JAX infer has none of them): its ROI mode for a native clip, and
+    # the refusal of --distributed that every command but train gives.
+    def common(sp, speakers=True):
         sp.add_argument("--data_path", type=str, default="./data")
-        sp.add_argument("--speakers", nargs="*", default=None)
-        sp.add_argument("--seed", type=int, default=None)
+        if speakers:
+            sp.add_argument("--speakers", nargs="*", default=None)
+        sp.add_argument("--seed", type=int, default=42,
+                        help="default 42; wins over a --config file's train.seed")
         sp.add_argument("--config", type=str, default=None,
                         help="AvsyncConfig JSON file (geometry, model, kernel flags)")
-        sp.add_argument("--batch_size", type=int, default=None)
         sp.add_argument("--device", default=None,
                         help="torch device; default: the GPU (fails without one)")
         sp.add_argument("--model_family", choices=["pytorch", "tf"], default=None,
@@ -1113,10 +1115,14 @@ def build_parser() -> argparse.ArgumentParser:
 
     t = sub.add_parser("train", help="LipNet CTC training")
     common(t)
+    t.add_argument("--batch_size", type=int, default=None)
     t.add_argument("--epochs", type=int, default=None)
     t.add_argument("--lr", type=float, default=None)
-    t.add_argument("--checkpoint_dir", type=str, default=None)
-    t.add_argument("--quick_test", action="store_true")
+    t.add_argument("--checkpoint_dir", type=str, default="./checkpoints",
+                   help="default ./checkpoints; wins over a --config file's")
+    t.add_argument("--quick_test", action="store_true",
+                   help="one batch through the forward, then exit; wins over a --config "
+                        "file's")
     t.add_argument("--export_pth", type=str, default=None,
                    help="also write a reference-format .pth")
     t.add_argument("--show_examples", action="store_true",
@@ -1149,6 +1155,7 @@ def build_parser() -> argparse.ArgumentParser:
     common(te)
     te.add_argument("--checkpoint", type=str, required=True,
                     help=".pth file or a port checkpoint directory")
+    te.add_argument("--batch_size", type=int, default=None)
     te.add_argument("--output", type=str, default=None)
     te.add_argument("--beam", type=int, default=0,
                     help="CTC beam width (0 = greedy, the reference decode)")
@@ -1158,7 +1165,7 @@ def build_parser() -> argparse.ArgumentParser:
     te.set_defaults(func=cmd_test)
 
     inf = sub.add_parser("infer", help="transcribe one clip")
-    common(inf)
+    common(inf, speakers=False)
     inf.add_argument("video", help="a container file (GRID's .mpg, .mp4, .avi) or a (T, H, W) "
                                    ".npy clip, native size or 50x100 crops")
     inf.add_argument("--checkpoint", required=True,
@@ -1178,6 +1185,7 @@ def build_parser() -> argparse.ArgumentParser:
     q.add_argument("--n_calib", type=int, default=16,
                    help="clips to calibrate on (absmax only grows with clips; a few "
                         "representative ones suffice)")
+    q.add_argument("--batch_size", type=int, default=None)
     q.set_defaults(func=cmd_quantize)
 
     ex = sub.add_parser("export", help="serving artifact through torch.export (preprocess, "
@@ -1247,6 +1255,7 @@ def build_parser() -> argparse.ArgumentParser:
     m = sub.add_parser("misalign-train", help="train the misalignment detector")
     common(m)
     detector_inputs(m)
+    m.add_argument("--batch_size", type=int, default=None)
     m.add_argument("--epochs", type=int, default=None)
     m.add_argument("--lr", type=float, default=None)
     m.add_argument("--weight_decay", type=float, default=None)

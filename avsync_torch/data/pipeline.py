@@ -326,7 +326,9 @@ class LipNetBatcher:
         (bf16(f32(bf16(x))) == bf16(x)) and holds twice the clips per MB;
         under float32 compute the cache stays float32, and an explicit
         'bfloat16' raises: the cached epochs would train on bf16-rounded
-        inputs."""
+        inputs. The dtype is the config's, not the model's: the TF family
+        under a bf16 config caches bf16 clips that its float32 model
+        (`models.make_lipnet`) casts to float32, as the JAX package does."""
         mode = self.cfg.data.device_cache_dtype
         if mode not in ("auto", "float32", "bfloat16"):
             # uint8 is not a valid explicit value: it is only right when

@@ -16,7 +16,9 @@ def make_lipnet(model_cfg, img_hw: Tuple[int, int],
     Conv3D(128/256/64) + 3xBiLSTM TFLipNet (blank last). Every consumer
     (trainer, CLI, predictor, export, quantization) builds through it. The
     TF stack takes the config's resolved `conv_channels`, so an explicit
-    (32, 64, 96) TF stack is representable."""
+    (32, 64, 96) TF stack is representable, and computes in float32 whatever
+    `model_cfg.compute_dtype` says, as the JAX switch builds it
+    (`tf_model_config`)."""
     if model_cfg.family != "tf":
         return LipNet(model_cfg, img_hw=img_hw, generator=generator)
     return TFLipNet(tf_model_config(model_cfg), img_hw=img_hw, generator=generator)

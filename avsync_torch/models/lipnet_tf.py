@@ -18,11 +18,13 @@ package flattens (H, W, C): `compat.tflipnet_params_from_jax` permutes the
 first LSTM's input rows.
 
 `compute_dtype="bfloat16"` (`TFModelConfig.compute_dtype`) computes as the
-JAX TFLipNet does under it (`avsync/models/lipnet_tf.py:75-102`): the input
-rounded to bf16 once, the conv blocks in bf16 (their bias added in bf16
-after the conv's rounding, as `nn.Conv(dtype=bf16)`), the BiLSTMs from bf16
-operands into float32 (`ops/lstm.py`), the two Dense layers and the head in
-bf16 (`ops/precision.dense`), log_softmax in float32.
+JAX TFLipNet class does under it (`avsync/models/lipnet_tf.py:75-102`): the
+input rounded to bf16 once, the conv blocks in bf16 (their bias added in
+bf16 after the conv's rounding, as `nn.Conv(dtype=bf16)`), the BiLSTMs from
+bf16 operands into float32 (`ops/lstm.py`), the two Dense layers and the
+head in bf16 (`ops/precision.dense`), log_softmax in float32. The family
+switch (`models.make_lipnet`, `tf_model_config`) builds the float32 model
+whatever `ModelConfig.compute_dtype` says, as the JAX one does.
 
 Parameter names: `conv{i}.weight/bias`, `lstm{i}.weight_ih_l0[_reverse]`,
 ... (`nn.LSTM`'s), `dense{i}.weight/bias`, `head.weight/bias`.
@@ -57,13 +59,15 @@ class TFModelConfig:
 
 
 def tf_model_config(model_cfg) -> TFModelConfig:
-    """The TFModelConfig of a ModelConfig of family 'tf' (as the JAX
-    `make_lipnet` resolves it): its hidden size, dropout rate, resolved
-    conv channels and compute dtype; three BiLSTM layers, Dense 512, 31 + 1
-    outputs."""
+    """The TFModelConfig of a ModelConfig of family 'tf', as the JAX
+    `make_lipnet` resolves it (`avsync/models/__init__.py:16-29`): its hidden
+    size, dropout rate and resolved conv channels; three BiLSTM layers, Dense
+    512, 31 + 1 outputs, and float32 compute whatever `model_cfg.compute_dtype`
+    says, so every TF command computes in float32 as the JAX CLI's do. A bf16
+    TF model is built from the class: `TFLipNet(TFModelConfig(compute_dtype=
+    "bfloat16"))`."""
     return TFModelConfig(hidden_dim=model_cfg.hidden_dim, dropout_rate=model_cfg.dropout_rate,
-                         conv_channels=tuple(model_cfg.conv_channels),
-                         compute_dtype=model_cfg.compute_dtype or "float32")
+                         conv_channels=tuple(model_cfg.conv_channels))
 
 
 class BiLSTM(nn.Module):
@@ -148,9 +152,9 @@ class TFLipNet(nn.Module):
         """`train=True` applies dropout after each BiLSTM with masks from
         `generator` (a torch.Generator on the model's device); `remat=True`
         recomputes each conv block in the backward."""
-        x = x.permute(0, 4, 1, 2, 3)  # (B, 1, T, H, W)
-        if self.compute_dtype is not None:
-            x = x.to(self.compute_dtype)  # the one rounding of the input
+        # the input in the compute dtype first thing, as the JAX TFLipNet: a
+        # float32 model takes a bf16 cached batch as float32
+        x = x.permute(0, 4, 1, 2, 3).to(self.compute_dtype or torch.float32)  # (B, 1, T, H, W)
         for i in range(len(self.cfg.conv_channels)):
             x = remat_block(getattr(self, f"conv{i + 1}"), x, remat)
         B, C, T, h, w = x.shape

@@ -15,9 +15,11 @@ The scheme is the JAX package's static PTQ:
     (`tflipnet_int8_apply`).
 
 Under bf16 compute (`compute_dtype`, the JAX forward's `compute_dtype=
-"bfloat16"`) each block ends in Q1's bf16 epilogue (s16 and b16 made once
-per load, `QuantConvParams.scale16`/`bias16`), the last block's output is
-bf16, the recurrences run the JAX `gru_scan`/`lstm_scan` step (h and w_hh
+"bfloat16"`; `make_int8_forward` asks for it for the PyTorch family only,
+since the family switch's TF model computes in float32) each block ends in
+Q1's bf16 epilogue (s16 and b16 made once per load,
+`QuantConvParams.scale16`/`bias16`), the last block's output is bf16, the
+recurrences run the JAX `gru_scan`/`lstm_scan` step (h and w_hh
 rounded to bf16 in the product, float32 sums and carry; K2's bf16-operand
 instantiation on the card), and the heads are bf16 Dense layers
 (`ops/precision.dense`) before a float32 log_softmax. conv1 takes the
@@ -240,8 +242,10 @@ def tflipnet_int8_apply(qp: QuantLipNetParams, x: torch.Tensor, cfg,
 
 def make_int8_forward(model_cfg: ModelConfig):
     """`qfwd(qparams, video) -> log_probs`, the one family switch that eval
-    (`cli._evaluate`), infer and serving (`predictor.LipReader`) share, in
-    the config's compute dtype."""
+    (`cli._evaluate`), infer and serving (`predictor.LipReader`) share: the
+    PyTorch family in the config's compute dtype, the TF family in float32
+    through `tf_model_config`, as the JAX switch takes `model.cfg` of its
+    float32 TF model (`avsync/ops/quant.py:300-313`)."""
     if model_cfg.family == "tf":
         from avsync_torch.models.lipnet_tf import tf_model_config
 

@@ -212,9 +212,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      bf16 reader at B = 1 and 8) in bf16, and `test --quantize int8` on the
      bf16 snapshot; e. `misalign-train` (1 epoch) and `misalign-eval` with
      bf16 conv features (K1-bf16 and K5 launch), the sync scorer bf16 vs
-     f32 (0.05); f. the TF family's bf16 forward at B=8 on phase 13's
-     trained snapshot against its f32 forward (the bounds of b), timed, and
-     1 epoch of `cli train --model_family tf --compute_dtype bfloat16`;
+     f32 (0.05); f. the TFLipNet class's bf16 forward at B=8 on phase 13's
+     trained snapshot against the f32 forward the CLI builds under a bf16
+     config (the bounds of b), timed, and 2 epochs of `cli train
+     --model_family tf --compute_dtype bfloat16 --device_cache on`: a
+     float32 model (parameters and log-probs) reading a bf16 cache, as the
+     JAX CLI's TF commands compute in float32;
   16. int8 serving under bf16 compute, and the card's CLI defaults: a. Q1's
      bf16 epilogue (the kernel's bf16 flag) equal to its plain version
      bit for bit in each contract (f32 or int8 in, bf16 or int8 out) at
@@ -235,10 +238,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      (a child process under 16 crops, SIGTERM drains) under
      `--compute_dtype bfloat16` on phase 5's checkpoint, launches per batch
      through an in-process daemon (Q1-bf16 x3, K2-bf16 x2); the TF family's
-     commands and daemon on phase 13's snapshot (Q1-bf16 x3, no K2); e. `cli
-     test` with no dtype flag and no --config runs bf16 on the card (K1-bf16
-     by profiler name, no float32 K1), `--compute_dtype float32` and a
-     float32 `--config` win;
+     commands and daemon on phase 13's snapshot, whose model is float32
+     (float32 Q1 x3, no Q1-bf16, no K2); e. `cli test` with no dtype flag
+     and no --config runs bf16 on the card (K1-bf16 by profiler name, no
+     float32 K1), `--compute_dtype float32` and a float32 `--config` win;
+     `cli test --model_family tf` with neither builds the float32 TF model
+     (its JSON equal to `--compute_dtype float32`'s);
   17. the last JAX surfaces: a. K3 from an initial state h0 with its
      gradient dh0 (B=8, T=75, H=256, both directions) within K3_TOL /
      K3_SUM_TOL of its plain version, a repeat the same bits, the call
@@ -1528,10 +1533,11 @@ def timed_before(trainer):
     return stamps
 
 
-def traced(fn):
+def traced(fn, complete=None):
     """Run fn() under torch.profiler: (result, wall ms, device busy ms,
     {wrapper: kernels of its name}, all kernel names). A trace with no
-    device event at all is taken once more (`retraced`)."""
+    device event at all, or one that `complete` (`has_kernels`) finds short
+    of kernels, is taken again (`retraced`)."""
     import torch
 
     def once():
@@ -1547,18 +1553,22 @@ def traced(fn):
                              for e in prof.events()
                              if e.device_type == torch.autograd.DeviceType.CUDA]
 
-    (out, wall), events = retraced(once, "traced")
+    (out, wall), events = retraced(once, "traced", complete)
     busy, names = kernel_names(events)
     found = {k: sum(n for name, n in names.items() if pat in name)
              for k, pat in KERNEL_NAMES.items()}
     return out, wall, busy, found, names
 
 
-def retraced(take, what):
+def retraced(take, what, complete=None):
     """take() -> (result, device events); a trace that holds no device event
     at all (torch.profiler has returned none on a healthy run) is taken once
-    more, and a second empty one fails naming the profiler, not a kernel. A
-    trace with events but without some kernel is the caller's to fail."""
+    more, and a second empty one fails naming the profiler, not a kernel.
+    `complete(events)`: whether the trace holds the kernels the traced call
+    launches. The tracer has lost the first kernels of a short window on a
+    healthy run (1 of Q1's 3 launches in one forward; K1 and the lead-in of
+    an artifact call), so a trace short of them is taken up to twice more; a
+    trace still without some kernel is the caller's to fail."""
     got, events = take()
     if not events:
         print(f"  {what}: torch.profiler recorded no device event; tracing once more",
@@ -1567,7 +1577,23 @@ def retraced(take, what):
         if not events:
             raise SystemExit(f"{what}: torch.profiler recorded no device event in two traces "
                              "(a profiler failure: no kernel's count can be read)")
+    for _ in range(2):
+        if complete is None or complete(events):
+            break
+        print(f"  {what}: the trace is short of the kernels the call launches; tracing once "
+              "more", flush=True)
+        got, events = take()
     return got, events
+
+
+def has_kernels(*patterns, n=1):
+    """A `complete` test for `retraced`: every pattern names at least n
+    kernels of the trace."""
+    def complete(events):
+        return all(sum(1 for name, _, _, note in events if not note and pat in name) >= n
+                   for pat in patterns)
+
+    return complete
 
 
 def kernel_names(events):
@@ -1580,7 +1606,7 @@ def kernel_names(events):
     return busy, names
 
 
-def device_events(fn, wall=None):
+def device_events(fn, wall=None, complete=None):
     """The device events (name, start us, duration us, is a user annotation)
     of one fn() recorded by torch.profiler after a first, warm-up fn() under
     the same profiler (the tracer's start-up drops a short window's first
@@ -1610,15 +1636,15 @@ def device_events(fn, wall=None):
                 prof.step()
         return ms[-1], events
 
-    ms, events = retraced(once, "device_events")
+    ms, events = retraced(once, "device_events", complete)
     if wall is not None:
         wall.append(ms)
     return events
 
 
-def traced_step(fn):
+def traced_step(fn, complete=None):
     """(device busy ms, {kernel name: count}) of one fn() (`device_events`)."""
-    return kernel_names(device_events(fn))
+    return kernel_names(device_events(fn, complete=complete))
 
 
 def path_times(label, steps, wall_ms, traced_ms, busy_ms, stamps):
@@ -2352,7 +2378,8 @@ def run_serving(dev, workdir, corpus, ckpt_dir, test_config, greedy_results, smi
     traced_names = {}
     for kind, (call, kernels) in calls.items():
         call()
-        _, _, _, found, names = traced(lambda: (lead_in(dev), call()))
+        _, _, _, found, names = traced(lambda: (lead_in(dev), call()), has_kernels(
+            *(KERNEL_NAMES[k] for k in kernels)))
         traced_names[kind] = {k: found[k] for k in KERNEL_NAMES}
         if not all(found[k] for k in kernels):
             raise SystemExit(f"{kind} artifact call: the trace shows {found}, not {kernels}; "
@@ -2812,7 +2839,8 @@ def run_int8_serving(dev, workdir, corpus, ckpt_dir, test_config, greedy_results
         raise SystemExit("the int8 forward is outside the JAX package's bounds of the f32 one")
     # the int8 forward by profiler name: Q1 three times, K2 twice, no K1 and
     # no library convolution (cuDNN's kernels name fprop/implicit/conv)
-    busy, names = traced_step(lambda: reader._logprobs(clips))
+    busy, names = traced_step(lambda: reader._logprobs(clips), has_kernels(
+        "int8_conv_pool_kernel", n=3))
     found = {k: sum(n for name, n in names.items() if pat in name)
              for k, pat in KERNEL_NAMES.items()}
     q1_n = sum(n for name, n in names.items() if "int8_conv_pool_kernel" in name)
@@ -3598,7 +3626,8 @@ def tf_int8_forward(dev, f32, q8, frames, seeded, smi):
            "seeded_weights": distance(*seeded),
            "forward_B8_ms": {"int8_ms": time_ms(lambda: q8._logprobs(clips), iters=10),
                              "f32_ms": time_ms(lambda: f32._logprobs(clips), iters=10)}}
-    busy, names = traced_step(lambda: q8._logprobs(clips))
+    busy, names = traced_step(lambda: q8._logprobs(clips),
+                              has_kernels("int8_conv_pool_kernel", n=3))
     q1_n = sum(n for name, n in names.items() if "int8_conv_pool_kernel" in name)
     convs = {name: n for name, n in names.items() if "int8_conv_pool_kernel" not in name
              and any(w in name.lower() for w in ("cudnn", "fprop", "implicit", "conv"))}
@@ -4800,10 +4829,15 @@ def bf16_detector(dev, workdir, smi):
 
 
 def bf16_tf(dev, tf_dir, smi, f32_ms):
-    """15f: the TF family's bf16 forward at B=8 on phase 13's trained
-    snapshot against its f32 forward (the bounds of 15b), its time beside
-    phase 13's f32 forward; one epoch of `cli train --model_family tf
-    --compute_dtype bfloat16`."""
+    """15f: the TF family. The TFLipNet class's bf16 forward
+    (`TFModelConfig(compute_dtype="bfloat16")`, reachable from Python only) at
+    B=8 on phase 13's trained snapshot against the float32 forward the CLI
+    builds under a bf16 config (the bounds of 15b), its time beside phase
+    13's f32 forward; two epochs of `cli train --model_family tf
+    --compute_dtype bfloat16 --device_cache on`: the family switch builds a
+    float32 model, as the JAX CLI's, whose parameters and log-probs are
+    float32, and the epochs read the bf16 cache that the bf16 config asks
+    for."""
     import dataclasses
     import glob
 
@@ -4811,6 +4845,9 @@ def bf16_tf(dev, tf_dir, smi, f32_ms):
     import torch
 
     from avsync_torch import cli
+    from avsync_torch.data.pipeline import LipNetBatcher
+    from avsync_torch.models.lipnet_tf import TFLipNet, tf_model_config
+    from avsync_torch.ops.conv import fp32_step
     from avsync_torch.predictor import LipReader
     from avsync_torch.utils.checkpoint import CheckpointManager
 
@@ -4819,36 +4856,70 @@ def bf16_tf(dev, tf_dir, smi, f32_ms):
     cfg = cli._config(cfg_path)
     cfg16 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
                                                                compute_dtype="bfloat16"))
-    f32 = LipReader(checkpoint=ck, config=cfg, device=dev)
-    r16 = LipReader(checkpoint=ck, config=cfg16, device=dev)
+    f32 = LipReader(checkpoint=ck, config=cfg16, device=dev)
+    if f32.model.compute_dtype is not None:
+        raise SystemExit("the TF family switch built a bf16 model under a bf16 config")
+    m16 = TFLipNet(dataclasses.replace(tf_model_config(cfg.model), compute_dtype="bfloat16"),
+                   img_hw=(cfg.data.img_height, cfg.data.img_width)).to(dev).eval()
+    m16.load_state_dict(f32.model.state_dict())
     frames = np.stack([np.load(p) for p in sorted(glob.glob(
         os.path.join(corpus, "*", "video", "*.npy")))[:8]])
-    x = r16.preprocess_device(frames)
+    x = f32.preprocess_device(frames)
+
+    def class_bf16():
+        with fp32_step(), torch.inference_mode():
+            return m16(x)
+
     print("bf16 phase: f. the TF family:", flush=True)
-    row = {"vs_f32": agreement(r16._logprobs(x), f32._logprobs(x),
-                               "TF bf16 vs f32 forward B=8 (phase 13's trained snapshot)", smi)}
-    row["bf16_ms"] = time_ms(lambda: r16._logprobs(x), iters=5, warmup=1)
+    row = {"vs_f32": agreement(class_bf16(), f32._logprobs(x),
+                               "TFLipNet class bf16 vs f32 forward B=8 (phase 13's trained "
+                               "snapshot)", smi)}
+    row["class_bf16_ms"] = time_ms(class_bf16, iters=5, warmup=1)
     row["f32_ms_phase13"] = f32_ms
-    print(f"  TF forward B=8 (CUDA events, median of 5): bf16 {row['bf16_ms']:.3f} ms; f32 "
-          f"{f32_ms:.3f} ms in phase 13 [{smi}]", flush=True)
-    del f32, r16
+    print(f"  TFLipNet class forward B=8 (CUDA events, median of 5): bf16 "
+          f"{row['class_bf16_ms']:.3f} ms; f32 {f32_ms:.3f} ms in phase 13 (the CLI's TF "
+          f"commands run the f32 one under either dtype) [{smi}]", flush=True)
+    del f32, m16
     ck16 = os.path.join(tf_dir, "tf_ckpt_bf16")
+    caches = []
+    warm = LipNetBatcher.warm_device_cache
+
+    def recording_warm(self):
+        warm(self)
+        if self._device_cache is not None:
+            caches.append(self._device_cache["dtype"])
+
+    LipNetBatcher.warm_device_cache = recording_warm
     zero_counts()
     t0 = time.perf_counter()
-    rc = cli.main(["train", "--data_path", corpus, "--config", cfg_path, "--model_family", "tf",
-                   "--compute_dtype", "bfloat16", "--epochs", "1", "--checkpoint_dir", ck16])
-    torch.cuda.synchronize()
+    try:
+        rc = cli.main(["train", "--data_path", corpus, "--config", cfg_path, "--model_family",
+                       "tf", "--compute_dtype", "bfloat16", "--epochs", "2", "--device_cache",
+                       "on", "--checkpoint_dir", ck16])
+        torch.cuda.synchronize()
+    finally:
+        LipNetBatcher.warm_device_cache = warm
     row["train_wall_s"] = time.perf_counter() - t0
     got = counts()
     _, meta = CheckpointManager(ck16).restore()
     with open(os.path.join(ck16, "history.json")) as f:
         hist = json.load(f)
-    print(f"  cli train --model_family tf --compute_dtype bfloat16, 1 epoch: rc={rc} wall_s="
-          f"{row['train_wall_s']:.2f}; loss {hist['loss']} val_loss {hist['val_loss']}; "
-          f"snapshot compute_dtype {meta['config']['model']['compute_dtype']!r}; hand-kernel "
-          f"launches {got} (none: the TF stack's convs are past K1's gate)", flush=True)
+    trained = LipReader(checkpoint=ck16, config=cfg16, device=dev)
+    lp = trained._logprobs(x)
+    dtypes = sorted({str(p.dtype) for p in trained.model.parameters()})
+    row.update(cache_dtypes=caches, param_dtypes=dtypes, logprob_dtype=str(lp.dtype))
+    print(f"  cli train --model_family tf --compute_dtype bfloat16 --device_cache on, 2 epochs: "
+          f"rc={rc} wall_s={row['train_wall_s']:.2f}; loss {hist['loss']} val_loss "
+          f"{hist['val_loss']}; snapshot compute_dtype "
+          f"{meta['config']['model']['compute_dtype']!r}; device caches {caches}; trained "
+          f"model's parameters {dtypes}, compute dtype {trained.model.compute_dtype}, "
+          f"log-probs {lp.dtype}; hand-kernel launches {got} (none: the TF stack's convs are "
+          f"past K1's gate)", flush=True)
     if (rc != 0 or meta["config"]["model"]["compute_dtype"] != "bfloat16" or any(got.values())
-            or not np.all(np.isfinite(hist["loss"]))):
+            or len(hist["loss"]) != 2 or not np.all(np.isfinite(hist["loss"]))
+            or "bfloat16" not in caches or dtypes != ["torch.float32"]
+            or trained.model.compute_dtype is not None or lp.dtype != torch.float32
+            or not torch.isfinite(lp).all()):
         raise SystemExit("cli train --model_family tf --compute_dtype bfloat16 failed")
     return row
 
@@ -5181,7 +5252,9 @@ def int8_bf16_commands(dev, workdir, serving_dir, tf_dir, crops, smi):
     checkpoint, `quantize` writing phase 11's float32 scales (calibration is
     float32); per transcribe batch Q1-bf16 three times and K2-bf16 twice
     through an in-process daemon; the TF family on phase 13's trained
-    snapshot, where only Q1-bf16 launches. Returns the daemons' counts."""
+    snapshot, whose model computes in float32 under a bf16 config as the
+    JAX CLI's does: float32 Q1 three times per batch, no Q1-bf16. Returns
+    the daemons' counts."""
     import contextlib
     import glob
     import io
@@ -5211,8 +5284,7 @@ def int8_bf16_commands(dev, workdir, serving_dir, tf_dir, crops, smi):
             tested = json.load(f)
         pred = [ln.split(":", 1)[1].strip() for ln in said.getvalue().splitlines()
                 if ln.startswith("Predicted:")]
-        cfg16 = cli._with_common_flags(cli._config(cfg_path), cli.build_parser().parse_args(
-            ["test", *common]))
+        cfg16 = cli._config_from_args(cli.build_parser().parse_args(["test", *common]))
         fresh = LipReader(checkpoint=ck, config=cfg16, device=dev, quantize="int8")
         want = fresh.predict(clip)
         same = bool(np.array_equal(scales, np.load(f32_scales)["input_scales"]))
@@ -5262,25 +5334,31 @@ def int8_bf16_commands(dev, workdir, serving_dir, tf_dir, crops, smi):
                                   ("--model_family", "tf"))
     tf_reader = LipReader(checkpoint=tf_ck, config=tf16, device=dev, quantize="int8",
                           calibration_scales=os.path.join(workdir, "q16_tf.npz"))
+    if tf16.model.compute_dtype != "bfloat16" or tf_reader.model.compute_dtype is not None:
+        raise SystemExit("the TF int8 reader under a bf16 config is not the float32 model")
     geom = (tf16.data.max_video_length, tf16.data.img_height, tf16.data.img_width)
     tf_crops = [np.random.default_rng(300 + i).integers(0, 256, geom, dtype=np.uint8)
                 for i in range(16)]
-    got = int8_bf16_daemon(tf_reader, tf_crops, "TF int8-bf16 daemon (phase 13's snapshot)")
+    got = int8_bf16_daemon(tf_reader, tf_crops,
+                           "TF int8 daemon under bf16 (phase 13's snapshot, float32 model)")
     nt = got["transcribe_batches"]
-    want = dict(want, int8_conv_pool_bf16=3 * nt, gru_fwd_bf16=0)
+    want = dict(want, int8_conv_pool=3 * nt, int8_conv_pool_bf16=0, gru_fwd_bf16=0)
     if {k: v for k, v in got.items() if k != "transcribe_batches"} != want or not nt:
-        raise SystemExit(f"TF int8-bf16 daemon: launches {got}, expected {want}")
+        raise SystemExit(f"TF int8 daemon under bf16: launches {got}, expected {want}")
     out["tf_launches"] = got
     return out
 
 
-def card_defaults(dev, workdir, smi):
+def card_defaults(dev, workdir, tf_dir, smi):
     """16e: `cli test` on phase 5's corpus and checkpoint with no
     --compute_dtype and no --config runs bf16 on the card (K1's bf16
     instantiation by profiler name, its float32 one never);
     `--compute_dtype float32` wins (float32 K1 only); with `--config` (a
-    float32 file) the file's dtype is kept."""
-    from avsync_torch import cli
+    float32 file) the file's dtype is kept. `cli test --model_family tf` on
+    phase 13's corpus and snapshot with no dtype flag and no --config
+    resolves bf16 and builds the float32 TF model, as the JAX CLI does: its
+    JSON equals `--compute_dtype float32`'s."""
+    from avsync_torch import cli, predictor
 
     data, ck, cfg_path = (os.path.join(workdir, n) for n in ("grid", "ckpt", "config.json"))
     runs = {"no flag": [], "--compute_dtype float32": F32, "--config (float32 file)":
@@ -5289,19 +5367,47 @@ def card_defaults(dev, workdir, smi):
     for what, extra in runs.items():
         res = os.path.join(workdir, f"defaults_{len(out)}.json")
         rc, _, _, _, names = traced(lambda: cli.main(["test", "--data_path", data, "--checkpoint",
-                                                      ck, "--output", res, *extra]))
+                                                      ck, "--output", res, *extra]),
+                                    has_kernels("conv1_pool"))
         k1 = bf16_replayed(names)
         out[what] = {"rc": rc, "conv1_pool_bf16": k1["conv1_pool_bf16"],
                      "conv1_pool_f32": k1["conv1_pool_f32"]}
+    built = []
+    load = predictor.load_lipnet
+
+    def recording_load(cfg, state, device):
+        model = load(cfg, state, device)
+        built.append({"config": cfg.model.compute_dtype, "model": str(model.compute_dtype),
+                      "params": sorted({str(p.dtype) for p in model.parameters()})})
+        return model
+
+    tf = {}
+    predictor.load_lipnet = recording_load
+    try:
+        for what, extra in (("no flag", []), ("--compute_dtype float32", F32)):
+            res = os.path.join(workdir, f"defaults_tf_{len(tf)}.json")
+            rc = cli.main(["test", "--data_path", os.path.join(tf_dir, "tf_grid"),
+                           "--checkpoint", os.path.join(tf_dir, "tf_ckpt"), "--model_family",
+                           "tf", "--output", res, *extra])
+            with open(res) as f:
+                tf[what] = {"rc": rc, **built[-1], "results": json.load(f)}
+    finally:
+        predictor.load_lipnet = load
+    out["tf"] = tf
     print(f"int8 under bf16 phase: e. the card's defaults, cli test on phase 5's checkpoint, K1 "
-          f"by profiler name: {json.dumps(out)} [{smi}]", flush=True)
-    ok = (all(r["rc"] == 0 for r in out.values())
+          f"by profiler name, and cli test --model_family tf on phase 13's: {json.dumps(out)} "
+          f"[{smi}]", flush=True)
+    ok = (all(r["rc"] == 0 for r in out.values() if "rc" in r)
           and out["no flag"]["conv1_pool_bf16"] > 0 and out["no flag"]["conv1_pool_f32"] == 0
           and all(out[w]["conv1_pool_bf16"] == 0 and out[w]["conv1_pool_f32"] > 0
                   for w in ("--compute_dtype float32", "--config (float32 file)")))
     if not ok:
         raise SystemExit("the card's CLI defaults are not bf16, or a flag or --config did not "
                          f"win; the last trace's kernels: {names}")
+    if (any(r["rc"] != 0 or r["model"] != "None" or r["params"] != ["torch.float32"]
+            for r in tf.values()) or tf["no flag"]["config"] != "bfloat16"
+            or tf["no flag"]["results"] != tf["--compute_dtype float32"]["results"]):
+        raise SystemExit(f"cli test --model_family tf under the card's defaults: {tf}")
     return out
 
 
@@ -5314,13 +5420,11 @@ def run_int8_bf16(dev, workdir, serving_dir, tf_dir, crops, smi, k2_row):
     k2 = k2_bf16_kernel(dev, smi, k2_row)
     out = {"forward": int8_bf16_forward(dev, smi)}
     out["commands"] = int8_bf16_commands(dev, workdir, serving_dir, tf_dir, crops, smi)
-    out["defaults"] = card_defaults(dev, workdir, smi)
-    served, tf = out["commands"]["launches"], out["commands"]["tf_launches"]
+    out["defaults"] = card_defaults(dev, workdir, tf_dir, smi)
+    served = out["commands"]["launches"]
     q1.update(launches=served["int8_conv_pool_bf16"],
               launches_daemon_int8_bf16={"transcribe_batches": served["transcribe_batches"],
-                                         "launches": served["int8_conv_pool_bf16"]},
-              launches_tf_int8_bf16_daemon={"transcribe_batches": tf["transcribe_batches"],
-                                            "launches": tf["int8_conv_pool_bf16"]})
+                                         "launches": served["int8_conv_pool_bf16"]})
     k2.update(launches=served["gru_fwd_bf16"],
               launches_daemon_int8_bf16={"transcribe_batches": served["transcribe_batches"],
                                          "launches": served["gru_fwd_bf16"]})

@@ -691,9 +691,11 @@ def test_int8_with_bf16_runs_each_command(command, trained, tmp_path, capsys):
 
 
 def test_int8_forward_takes_a_bf16_model():
-    """`make_int8_forward` of a bf16 config is the int8 forward in bf16, for
-    both families: its log-probs are `*_int8_apply(compute_dtype=
-    "bfloat16")`'s and differ from the float32 forward's."""
+    """`make_int8_forward` of a bf16 config is the int8 forward in bf16 for
+    the PyTorch family: its log-probs differ from the float32 forward's. For
+    the TF family it is the float32 forward, as the JAX switch's of a
+    `make_lipnet` model; `tflipnet_int8_apply(compute_dtype="bfloat16")`
+    is the TF int8 forward in bf16."""
     from avsync_torch.models import make_lipnet
     from avsync_torch.ops import quant
 
@@ -706,6 +708,9 @@ def test_int8_forward_takes_a_bf16_model():
         qp = quant.quantize_lipnet(model, [x])
         got = quant.make_int8_forward(cfg)(qp, x)
         f32 = quant.make_int8_forward(dataclasses.replace(cfg, compute_dtype="float32"))(qp, x)
+        if family == "tf":
+            assert torch.equal(got, f32)
+            got = quant.tflipnet_int8_apply(qp, x, model.cfg, compute_dtype="bfloat16")
         assert got.dtype == torch.float32 and torch.isfinite(got).all()
         assert not torch.equal(got, f32)
         assert (got - f32).abs().max() < 0.5

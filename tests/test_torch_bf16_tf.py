@@ -10,17 +10,19 @@ float32 result (L2 over each tensor, a gradient leaf's floored at the tree's
 relative distance), and nearer the JAX bf16 result than the float32 one;
 the loss within the log-probs' elementwise bound carried through the CTC
 (the TF loss is the per-sequence NLL, not divided by the label length);
-parameters after 3 steps within 6 * lr; the `test` command's JSON and
-`infer`'s transcript equal to the JAX package's under bf16.
+parameters after 3 steps within 6 * lr.
 
-The JAX package's `make_lipnet` builds the TF stack without the config's
-compute dtype (`avsync/models/__init__.py:22-29`), so its commands run the
-TF family in float32 whatever `--compute_dtype` says; its TFLipNet class
-computes in bf16 when its own TFModelConfig asks (`lipnet_tf.py:75-102`).
-The port's `make_lipnet` hands the compute dtype on, so the model tests hold
-the port to that class in bf16. The commands' tests compare with the JAX
-commands as they run (float32) on weights perturbed far enough that every
-greedy decision's margin exceeds the bf16 rounding.
+Both packages' `make_lipnet` build the TF stack without the config's compute
+dtype (`avsync/models/__init__.py:16-29`, `avsync_torch/models/lipnet_tf.
+tf_model_config`), so the TF commands compute in float32 whatever
+`--compute_dtype` says; the TFLipNet class computes in bf16 when its own
+TFModelConfig asks (`lipnet_tf.py:75-102`). The model tests build the class
+in bf16 in both packages. The command tests run the TF commands under
+`--compute_dtype bfloat16` in both packages on the fixture's weights as
+drawn, and hold them to the float32 bounds: log-probs within 5e-5, the same
+JSON and transcripts; `train` with the device cache (bf16 clips in both
+packages, read by the float32 model) to the JAX losses within 1e-4
+relative over two epochs.
 """
 
 import dataclasses
@@ -39,15 +41,18 @@ from avsync.data import synthetic
 from avsync.models.lipnet_tf import TFLipNet as JaxTFLipNet
 from avsync.models.lipnet_tf import TFModelConfig as JaxTFModelConfig
 from avsync.models.lipnet_tf import tf_ctc_loss as jax_tf_ctc_loss
+from avsync.data.pipeline import LipNetBatcher as JaxBatcher
 from avsync.ops.lstm import LSTMParams, lstm_scan as jax_lstm_scan
+from avsync.train.lipnet_trainer import LipNetTrainer as JaxTrainer
 from avsync.train.lipnet_trainer import TrainState as JaxTrainState
 from avsync.train.lipnet_trainer import make_optimizer as jax_make_optimizer
 from avsync.train.lipnet_trainer import make_train_step
 from avsync_torch import cli
 from avsync_torch.compat import tflipnet_params_from_jax, tflipnet_params_to_jax
 from avsync_torch.config import AvsyncConfig, DataConfig, ModelConfig, TrainConfig
+from avsync_torch.data.pipeline import LipNetBatcher
 from avsync_torch.models import TFLipNet, make_lipnet
-from avsync_torch.models.lipnet_tf import tf_ctc_loss
+from avsync_torch.models.lipnet_tf import TFModelConfig, tf_ctc_loss
 from avsync_torch.ops.lstm import LSTMWeights, bilstm
 from avsync_torch.train.lipnet_trainer import make_optimizer, train_step
 
@@ -104,7 +109,8 @@ def _jax_model(dtype):
 
 
 def _port(params, dtype="bfloat16"):
-    model = make_lipnet(ModelConfig(compute_dtype=dtype, **TINY), (16, 32))
+    model = TFLipNet(TFModelConfig(hidden_dim=8, conv_channels=(2, 3, 4), dropout_rate=0.0,
+                                   compute_dtype=dtype), img_hw=(16, 32))
     model.load_state_dict(tflipnet_params_from_jax(params, CONV_SHAPE))
     return model
 
@@ -189,9 +195,8 @@ DATA = dict(img_height=16, img_width=32, max_video_length=8, batch_size=2,
 
 @pytest.fixture(scope="module")
 def tiny(tmp_path_factory):
-    """A corpus, a TF config file and random TF weights (perturbed, so that
-    the transcripts are long and their margins wide) as JAX params and as a
-    port snapshot."""
+    """A corpus, a TF config file and TF weights as the JAX init draws them,
+    as JAX params and as a port snapshot."""
     from avsync_torch.utils.checkpoint import CheckpointManager
 
     root = tmp_path_factory.mktemp("tf_bf16_cli")
@@ -203,11 +208,8 @@ def tiny(tmp_path_factory):
     cfg_path = str(root / "cfg.json")
     with open(cfg_path, "w") as f:
         f.write(cfg.to_json())
-    params = _jax_model("float32").init({"params": jax.random.PRNGKey(4)},
-                                        jnp.zeros((1, 8, 16, 32, 1)))["params"]
-    r = np.random.default_rng(4)
-    params = jax.tree.map(lambda p: (np.asarray(p) + r.normal(0, 1.0, np.shape(p))).astype(
-        np.float32), params)
+    params = jax.tree.map(np.asarray, _jax_model("float32").init(
+        {"params": jax.random.PRNGKey(4)}, jnp.zeros((1, 8, 16, 32, 1)))["params"])
     ck = str(root / "ck")
     CheckpointManager(ck).save(1, tflipnet_params_from_jax(params, CONV_SHAPE), config=cfg)
     clip = sorted(os.path.join(dp, n) for dp, _, ns in os.walk(data) for n in ns
@@ -230,20 +232,80 @@ def _common(tiny):
             "--compute_dtype", "bfloat16"]
 
 
-def test_train_in_bf16_writes_a_tf_snapshot(tiny, tmp_path):
+def _decoded_log_probs(monkeypatch):
+    """Wrap both packages' TF decode: the log-probs each command decodes, as
+    float32 arrays, (port's, JAX's)."""
+    import avsync.text as jax_text
+    import avsync_torch.text as port_text
+
+    seen = ([], [])
+    for module, out in zip((port_text, jax_text), seen):
+        def decode(log_probs, beam_width=0, real=module.tf_decode_batch, out=out):
+            lp = log_probs.float().cpu().numpy() if torch.is_tensor(log_probs) else log_probs
+            out.append(np.asarray(lp, np.float32))
+            return real(log_probs, beam_width=beam_width)
+
+        monkeypatch.setattr(module, "tf_decode_batch", decode)
+    return seen
+
+
+def _float32_bound(ours, theirs):
+    assert len(ours) == len(theirs) > 0
+    for got, want in zip(ours, theirs):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=0, atol=5e-5)
+
+
+def test_train_in_bf16_writes_a_tf_snapshot(tiny, tmp_path, monkeypatch):
+    """`train --model_family tf --compute_dtype bfloat16 --device_cache on`,
+    two epochs, in both packages from the same weights (the port's drawn from
+    the seed, handed to the JAX trainer's init through the bridge): both cache
+    bf16 clips that their float32 model reads, and the losses agree within
+    1e-4 relative, epoch 2 included. The snapshot's config keeps bfloat16 and
+    its weights are float32."""
+    from avsync.cli import main as jax_main
     from avsync_torch.utils.checkpoint import CheckpointManager
 
+    cache_dtypes = ([], [])
+    for cls, out in zip((LipNetBatcher, JaxBatcher), cache_dtypes):
+        def warm(self, real=cls.warm_device_cache, out=out):
+            real(self)
+            if self._device_cache is not None:
+                out.append(self._device_cache["dtype"])
+
+        monkeypatch.setattr(cls, "warm_device_cache", warm)
+    argv = ["train", *_common(tiny), "--epochs", "2", "--device_cache", "on"]
     ck = str(tmp_path / "ck")
-    assert cli.main(["train", *_common(tiny), "--epochs", "1", "--checkpoint_dir", ck,
-                     "--device", "cpu"]) == 0
+    assert cli.main([*argv, "--checkpoint_dir", ck, "--device", "cpu"]) == 0
     payload, meta = CheckpointManager(ck).restore()
     assert meta["config"]["model"]["compute_dtype"] == "bfloat16"
-    assert payload["model_state_dict"]["lstm1.weight_ih_l0"].dtype == torch.float32
-    with open(os.path.join(ck, "history.json")) as f:
-        assert np.all(np.isfinite(json.load(f)["loss"]))
+    assert all(v.dtype == torch.float32 for v in payload["model_state_dict"].values())
+    hist = json.load(open(os.path.join(ck, "history.json")))
+
+    cfg = cli._config_from_args(cli.build_parser().parse_args(argv))
+    model = make_lipnet(cfg.model, (16, 32),
+                        generator=torch.Generator().manual_seed(cfg.train.seed))
+    assert model.compute_dtype is None
+    params = tflipnet_params_to_jax(model.state_dict(), CONV_SHAPE)
+
+    def same_init(self, sample_batch):
+        p = jax.tree.map(jnp.asarray, params)
+        return self.shard_state(JaxTrainState(p, self.optimizer.init(p),
+                                              jnp.zeros((), jnp.int32)))
+
+    monkeypatch.setattr(JaxTrainer, "init_state", same_init)
+    jck = str(tmp_path / "jck")
+    assert jax_main([*argv, "--checkpoint_dir", jck]) == 0
+    jhist = json.load(open(os.path.join(jck, "history.json")))
+    assert len(hist["loss"]) == len(jhist["loss"]) == 2
+    np.testing.assert_allclose(hist["loss"], jhist["loss"], rtol=1e-4)
+    np.testing.assert_allclose(hist["val_loss"], jhist["val_loss"], rtol=1e-4)
+    assert cache_dtypes[0] and set(cache_dtypes[0]) == set(cache_dtypes[1]) == {"bfloat16"}
 
 
-def test_test_and_infer_in_bf16_equal_the_jax_package(tiny, jax_weights, tmp_path, capsys):
+def test_test_and_infer_in_bf16_equal_the_jax_package(tiny, jax_weights, tmp_path, capsys,
+                                                      monkeypatch):
+    ours_lp, theirs_lp = _decoded_log_probs(monkeypatch)
     ours, theirs = str(tmp_path / "ours.json"), str(tmp_path / "theirs.json")
     assert cli.main(["test", *_common(tiny), "--checkpoint", tiny["ck"], "--output", ours,
                      "--device", "cpu"]) == 0
@@ -251,6 +313,8 @@ def test_test_and_infer_in_bf16_equal_the_jax_package(tiny, jax_weights, tmp_pat
                          "--output", theirs]) == 0
     with open(ours) as f, open(theirs) as g:
         assert json.load(f) == json.load(g)
+    _float32_bound(ours_lp, theirs_lp)
+    del ours_lp[:], theirs_lp[:]
     capsys.readouterr()
     assert cli.main(["infer", tiny["clip"], "--checkpoint", tiny["ck"], *_common(tiny)[2:],
                      "--device", "cpu"]) == 0
@@ -260,20 +324,31 @@ def test_test_and_infer_in_bf16_equal_the_jax_package(tiny, jax_weights, tmp_pat
     jax_out = capsys.readouterr().out
     pick = [ln for ln in port_out.splitlines() if ln.startswith("Predicted:")]
     assert pick and pick == [ln for ln in jax_out.splitlines() if ln.startswith("Predicted:")]
+    _float32_bound(ours_lp, theirs_lp)
 
 
-def test_export_in_bf16_equals_the_live_reader(tiny, tmp_path):
+def test_export_in_bf16_equals_the_live_reader(tiny, jax_weights, tmp_path):
+    """The artifact `export --compute_dtype bfloat16` writes for the TF family
+    is the live reader's float32 function, and within the float32 bound of
+    the JAX LipReader on the command line's config."""
+    from avsync.predictor import LipReader as JaxLipReader
     from avsync_torch.export import load_exported
     from avsync_torch.predictor import LipReader
 
     out = str(tmp_path / "tf_bf16.zip")
-    assert cli.main(["export", "--checkpoint", tiny["ck"], *_common(tiny)[2:], "--device", "cpu",
-                     "--out", out]) == 0
+    argv = ["export", "--checkpoint", tiny["ck"], *_common(tiny)[2:]]
+    assert cli.main([*argv, "--device", "cpu", "--out", out]) == 0
     art = load_exported(out)
-    cfg = dataclasses.replace(AvsyncConfig.from_json(open(tiny["cfg_path"]).read()))
-    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"))
+    cfg = cli._serving_config(cli.build_parser().parse_args(argv))
+    assert cfg.model.compute_dtype == "bfloat16"
     reader = LipReader(tiny["ck"], config=cfg, device="cpu")
-    assert reader.model.compute_dtype == BF16
+    assert reader.model.compute_dtype is None
     frames = np.random.default_rng(3).integers(0, 256, (3, 8, 16, 32), dtype=np.uint8)
     want = reader._logprobs(reader.preprocess_device(frames)).numpy()
-    np.testing.assert_allclose(art.call(frames)[2], want, rtol=0, atol=1e-6)
+    _, _, lp = art.call(frames)
+    np.testing.assert_allclose(lp, want, rtol=0, atol=1e-6)
+    jreader = JaxLipReader("weights", jax_cli._config_from_args(
+        jax_cli.build_parser().parse_args(argv)))
+    jlp = np.asarray(jreader._logprobs(jnp.concatenate([jreader._prepare(c) for c in frames])))
+    _float32_bound([lp], [jlp])
+    assert art.transcribe(frames) == jreader._decode(jlp)

@@ -28,8 +28,7 @@ COMMANDS = {
     "train": ([], cli._config_from_args),
     "test": (["--checkpoint", "c.pth"], cli._config_from_args),
     "quantize": (["--checkpoint", "c.pth"], cli._config_from_args),
-    "infer": (["clip.mpg", "--checkpoint", "c.pth"],
-              lambda a: cli._with_common_flags(cli._config(a.config), a)),
+    "infer": (["clip.mpg", "--checkpoint", "c.pth"], lambda a: cli._config_from_args(a, ())),
     "export": (["--checkpoint", "c.pth"], cli._serving_config),
     "serve": (["--checkpoint", "c.pth"], cli._serving_config),
     "misalign-train": ([], cli._detector_config_from_args),

@@ -197,6 +197,35 @@ def test_misalign_demo_through_both_clis(corpus, tmp_path, monkeypatch, capsys, 
                 assert native.decode_video_gray(os.path.join(ours, sp, name)).shape[0] == 8
 
 
+def test_misalign_demo_without_a_seed_draws_from_42(corpus, tmp_path, monkeypatch, capsys):
+    """Without --seed both commands draw their clips and shifts from 42 (the
+    parsers' default), over a config file whose train.seed is 1: the JAX
+    command's speakers, clips, shifts and files, and two port runs agree."""
+    from avsync.cli import main as jax_main
+
+    d, root, lip, det, port_cfg, jax_cfg = corpus
+    common = ["--data_path", root, "--checkpoint", lip, "--detector_checkpoint", det,
+              "--min_shift", "1", "--max_shift", "6"]
+    calls = _recorded(monkeypatch, demo)
+    picks = []
+    for name in ("ours", "again"):
+        assert main(["misalign-demo", *common, "--config", port_cfg, "--output_dir",
+                     str(tmp_path / name), "--device", "cpu"]) == 0
+        picks.append([ln.split(" aligned=")[0]
+                      for ln in _speaker_lines(capsys.readouterr().out)])
+    jcalls = _recorded(monkeypatch, jdemo)
+    assert jax_main(["misalign-demo", *common, "--config", jax_cfg, "--output_dir",
+                     str(tmp_path / "theirs")]) == 0
+    jpicks = [ln.split(" aligned=")[0] for ln in _speaker_lines(capsys.readouterr().out)]
+    assert len(calls) == 6 and len(jcalls) == 3
+    assert [c[:3] for c in calls[:3]] == [c[:3] for c in calls[3:]] == [c[:3] for c in jcalls]
+    assert picks[0] == picks[1] == jpicks and len(jpicks) == 3
+    for sp in ("s1", "s2", "s3"):
+        want = sorted(os.listdir(tmp_path / "theirs" / sp))
+        assert sorted(os.listdir(tmp_path / "ours" / sp)) == want
+        assert sorted(os.listdir(tmp_path / "again" / sp)) == want
+
+
 def test_misalign_demo_reports_a_failed_speaker_and_goes_on(corpus, tmp_path, monkeypatch,
                                                             capsys):
     d, root, lip, det, port_cfg, _ = corpus

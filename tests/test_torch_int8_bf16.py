@@ -320,9 +320,15 @@ def tf_tiny():
 
 
 def test_tflipnet_int8_bf16_forward_matches_jax(tf_tiny):
-    """The TF family's int8 forward under bf16 against
-    `tflipnet_int8_apply(compute_dtype="bfloat16")` and its f32 result:
-    tests/test_torch_bf16.py's bound; the float32 port fails it."""
+    """`tflipnet_int8_apply(compute_dtype="bfloat16")` against the JAX one in
+    bf16 and its f32 result: tests/test_torch_bf16.py's bound; the float32
+    port fails it. The family switch under a bf16 config runs the float32
+    forward, as the JAX `make_int8_forward` of a `make_lipnet` model does:
+    equal to the port's float32 int8 forward, and within the TF int8 bound
+    (tests/test_torch_quant_tf.py) of the JAX switch's."""
+    from avsync.models import make_lipnet as jax_make_lipnet
+    from avsync_torch.models.lipnet_tf import TFModelConfig
+
     x, params = tf_tiny
     qp = jq.quantize_lipnet(params, [x])
     jcfg = JaxTFModelConfig(**TF_SMALL)
@@ -333,13 +339,19 @@ def test_tflipnet_int8_bf16_forward_matches_jax(tf_tiny):
     ours = tq.QuantLipNetParams(
         convs=tuple(quant_conv_from_jax(c) for c in qp_np.convs),
         float_params=tflipnet_params_from_jax(qp_np.float_params, TF_CONV_SHAPE))
-    fwd = tq.make_int8_forward(ModelConfig(family="tf", compute_dtype="bfloat16", **TF_SMALL))
-    got = fwd(ours, torch.from_numpy(x))
+    got = tq.tflipnet_int8_apply(ours, torch.from_numpy(x), TFModelConfig(**TF_SMALL),
+                                 compute_dtype="bfloat16")
     assert got.dtype == torch.float32 and got.shape == want16.shape == (3, 6, 32)
     _bf16_principle(got.numpy(), want16, want32, "TF int8 bf16")
     f32 = tq.make_int8_forward(ModelConfig(family="tf", **TF_SMALL))(ours, torch.from_numpy(x))
     with pytest.raises(AssertionError):
         _bf16_principle(f32.numpy(), want16, want32, "a float32 port")
+    switch = tq.make_int8_forward(ModelConfig(family="tf", compute_dtype="bfloat16", **TF_SMALL))
+    assert torch.equal(switch(ours, torch.from_numpy(x)), f32)
+    jmodel_cfg = JaxModelConfig(family="tf", compute_dtype="bfloat16", **TF_SMALL)
+    jswitch = jq.make_int8_forward(jax_make_lipnet(jmodel_cfg), jmodel_cfg)
+    np.testing.assert_allclose(f32.numpy(), np.asarray(jswitch(qp, jnp.asarray(x))),
+                               atol=1e-4, rtol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -515,8 +527,7 @@ COMMANDS = {
     "train": ([], cli._config_from_args),
     "test": (["--checkpoint", "c.pth"], cli._config_from_args),
     "quantize": (["--checkpoint", "c.pth"], cli._config_from_args),
-    "infer": (["clip.mpg", "--checkpoint", "c.pth"],
-              lambda a: cli._with_common_flags(cli._config(a.config), a)),
+    "infer": (["clip.mpg", "--checkpoint", "c.pth"], lambda a: cli._config_from_args(a, ())),
     "export": (["--checkpoint", "c.pth"], cli._serving_config),
     "serve": (["--checkpoint", "c.pth"], cli._serving_config),
     "misalign-train": ([], cli._detector_config_from_args),

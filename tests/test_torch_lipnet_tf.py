@@ -109,10 +109,14 @@ def test_make_lipnet_is_the_family_switch():
                            (46, 140))
     assert isinstance(explicit, TFLipNet) and explicit.conv3.weight.shape[0] == 96
     assert isinstance(make_lipnet(ModelConfig(hidden_dim=4), (50, 100)), LipNet)
-    # the compute dtype reaches the TF stack (bf16: tests/test_torch_bf16_tf.py)
+    # the TF stack computes in float32 whatever the config's dtype, as the JAX
+    # switch builds it; the class computes in bf16 when asked
+    # (tests/test_torch_bf16_tf.py)
     bf16 = make_lipnet(ModelConfig(family="tf", compute_dtype="bfloat16", hidden_dim=4),
                        (46, 140))
-    assert bf16.cfg.compute_dtype == "bfloat16" and bf16.compute_dtype == torch.bfloat16
+    assert bf16.cfg.compute_dtype == "float32" and bf16.compute_dtype is None
+    cls = TFLipNet(TFModelConfig(hidden_dim=4, compute_dtype="bfloat16"), img_hw=(46, 140))
+    assert cls.compute_dtype == torch.bfloat16
 
 
 # ---------------------------------------------------------------------------
