@@ -29,18 +29,19 @@
 // equals its plain version (`int8_conv_pool_ref`, ops/cuda/quantconv.py) bit
 // for bit. One rounding after a fused multiply-add would not: it differs
 // from XLA's three roundings on about a third of the values.
-// Every sum is exact int32, so no choice of tile or frames per CTA changes a
-// bit.
+// Every sum is exact int32, so no choice of tile, channel groups, stage
+// size or frames per CTA changes a bit.
 //
 // What bounds it on the H100: at LipNet's conv2 (B=8, 32 -> 64 channels,
 // 3x5x5 taps, 75 x 25 x 50) the conv is 221 G int8 operations over the
 // pre-pool positions the floor pool keeps, 0.112 ms at the card's 1,979
 // TOPS, against 24 MB of int8 input and 11.5 MB of int8 output in the int8
 // chain: the operations set the floor. conv1 (Cin = 1, K = 75) does 14.4 G
-// operations against 12 MB of f32 in and 24 MB of int8 out (0.011 ms).
+// operations against 12 MB of f32 in and 24 MB of int8 out (0.011 ms). The
+// TF stack's conv2 (128 -> 256, 3x3x3, 75 x 23 x 70) does 1,635 G (0.826 ms).
 //
-// Design (wgmma, TMA, weights in shared memory and a persistent schedule
-// are later work; numbers: H100 80GB HBM3 at 700 W, chip_smoke.py phase 11
+// Design (wgmma, warp specialisation and a persistent schedule are later
+// work; numbers: H100 80GB HBM3 at 700 W, chip_smoke.py phases 11 and 13a
 // and scripts/torch_kernel_breakdown.py --mode q1):
 //   * an implicit GEMM: M = pre-pool positions, N = output channels, K =
 //     (tap, input channel) with each tap's channels contiguous, zero-padded
@@ -67,15 +68,45 @@
 //     pre-pool values of one pooled output: their max needs no shuffle;
 //   * mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32, four n8 tiles per
 //     task. A fragments come from the ring through tables of byte offsets
-//     per k, one table per (frame t mod kt + 1, column parity jw). Where
-//     Cin % 16 == 0 (conv2, conv3) a k-chunk of 32 is two runs of 16
-//     contiguous channels of one tap each, exactly the four 8x8 b16
-//     matrices of the m16n8k32 s8 A fragment (rows 0-7 / 8-15 x k 0-15 /
-//     16-31), so one ldmatrix.x4 per (window, chunk) loads it, each lane
-//     giving one row's address; else one 32-bit load per group of four k
-//     (Cin % 4 == 0) or byte gathers (conv1). B fragments come straight from
-//     the packed (Npad, Kpad) weights (read-only path; they stay in L1/L2),
-//     the next chunk's loaded while this chunk's MMAs run;
+//     per k (one int per 16 k for ldmatrix, per 4 k for 32-bit loads, per k
+//     for byte gathers), one per column parity jw. Each entry is the k's
+//     byte as if the output frame's first input frame sat in slot 0 (dt *
+//     slot + position + channel); at the start of every output frame the
+//     CTA writes the frame's copy of both tables, the entries moved by the
+//     frame's slot and wrapped around the ring: four tables in all, whatever
+//     kt, so the halo ring gets the memory. Where Cin % 16 == 0
+//     (conv2, conv3) a k-chunk of 32 is two runs of 16 contiguous channels of
+//     one tap each, exactly the four 8x8 b16 matrices of the m16n8k32 s8 A
+//     fragment (rows 0-7 / 8-15 x k 0-15 / 16-31), so one ldmatrix.x4 per
+//     (window, chunk) loads it, each lane giving one row's address; else one
+//     32-bit load per group of four k (Cin % 4 == 0) or byte gathers (conv1);
+//   * B fragments, where Cin % 16 == 0 (ldmatrix A): staged once per CTA in
+//     a ring of two stages in shared memory, each `stage_chunks` k-chunks
+//     of the round's `groups` x 32 output channels, K-major in 16-byte rows
+//     per channel ([chunk][k half][channel][16 bytes]: the eight rows of an
+//     8x8 b16 matrix are eight channels' 16 contiguous k, 128 bytes without
+//     a bank conflict, and the K-major core matrices 8-bit wgmma reads for
+//     B). The CTA's warps are mgroups x groups, one task each per round (16
+//     pooled positions x 32 channels), so each staged byte feeds the mgroups
+//     warps of its channel group; rounds walk the channels in steps of
+//     groups x 32 and every round restreams K. Two ldmatrix.x4 give a task's
+//     four n8 tiles of a chunk. The ring fills by 16-byte cp.async
+//     (cp.async.cg, through L2 only; each thread's items stepped without a
+//     division), a commit group per stage: the next stage loads while this
+//     one's MMAs run, one __syncthreads a stage. The next frame's int8 halo
+//     rides in the second stage's commit group of the frame's first round,
+//     so it loads under the first stage's MMAs. The wrapper's planner
+//     (`quantconv.tile_for`) chooses the tile, groups and stage size from an
+//     estimate of the MMA loop, the barriers, the A loads' bank conflicts,
+//     the weight bytes each CTA reads from L2 and the warps an SM keeps
+//     resident. cp.async, not TMA: a bulk copy of the packed weights' 32
+//     contiguous bytes per channel and chunk would not interleave them into
+//     this layout, and a tensor map that does needs libcuda's
+//     cuTensorMapEncodeTiled, outside this library's plain C interface;
+//   * else (32-bit A loads, conv1's byte gathers: 3 and 1 KB of weights)
+//     eight warps walk the tasks, each reading its B fragments straight from
+//     the packed weights (read-only path, L1 hits), the next chunk's loaded
+//     while this chunk's MMAs run;
 //   * pooled positions outside the frame, rows past the tile and channels
 //     past Cout compute on zeros or in-bounds data and are not written; the
 //     pre-pool row or column a floor pool drops is never computed.
@@ -90,10 +121,11 @@
 
 namespace {
 
-constexpr int NT = 256;  // threads per CTA (8 warps)
-constexpr int NWARPS = NT / 32;
+constexpr int MAX_NT = 512;  // threads per CTA at most (16 warps)
+constexpr int DIRECT_NT = 256;  // threads per CTA without the B ring (8 warps)
 constexpr int STAGE_UNROLL = 4;  // halo loads in flight per thread
 constexpr int PREFETCH = 4;  // values per thread of the next frame loaded before the MMAs
+constexpr int B_STAGES = 2;  // stages of the B ring
 constexpr size_t MAX_SMEM = 232448;  // per-block opt-in limit on sm_90
 constexpr int MAX_DEVICES = 64;
 
@@ -128,28 +160,37 @@ struct QParams {
   int B, Cin, T, H, W, Cout, kt, kh, kw, K, Kpad, Npad;
   int PR, PC, tiles_w, tiles, F, runs;
   int IH, IW, IWh, S, R, slot_bytes, n_off, off_bytes;  // the ring (see smem_bytes)
+  int mgroups, groups, rounds, stage_chunks;  // the B ring (A_LDSM): see the header
   long long x_sb, x_sc, x_st, x_sh, x_sw;
   long long o_sb, o_sc, o_st, o_sh, o_sw;
 };
 
 __host__ __device__ inline int align16(int n) { return (n + 15) / 16 * 16; }
 
-// The kernel's shared memory: the offset tables, R x 2 of them (frame t mod
-// R, column parity), one int per k, or per group of four k when Cin % 4 == 0; then
-// the ring of R = kt + 1 frame slots, each the halo's two column planes of
-// IH x ceil(IW / 2) positions of S bytes.
-__host__ __device__ inline int offset_entries(bool words, int Kpad) {
-  return words ? Kpad / 4 : Kpad;
+// The kernel's shared memory: the offset tables, four of them (column parity
+// x (frame-independent, this frame's copy)), one int per k, per four k when
+// Cin % 4 == 0 or per sixteen when Cin % 16 == 0; then the ring of R = kt + 1
+// frame slots, each the halo's two column planes of IH x ceil(IW / 2)
+// positions of S bytes; then the B ring: B_STAGES stages of `stage_chunks`
+// k-chunks x groups x 32 channels x 32 bytes (none without it).
+__host__ __device__ inline int offset_entries(int mode, int Kpad) {
+  return mode == A_LDSM ? Kpad / 16 : mode == A_WORDS ? Kpad / 4 : Kpad;
 }
 __host__ __device__ inline int slot_bytes(int IH, int IW, int S) {
   return align16(2 * IH * ((IW + 1) / 2) * S);
 }
-__host__ __device__ inline int table_bytes(bool words, int Kpad, int kt) {
-  return align16(4 * 2 * (kt + 1) * offset_entries(words, Kpad));
+__host__ __device__ inline int table_bytes(int mode, int Kpad) {
+  return align16(4 * 4 * offset_entries(mode, Kpad));
 }
-size_t smem_bytes(bool words, int Kpad, int kt, int IH, int IW, int S) {
-  return (size_t)table_bytes(words, Kpad, kt) + (size_t)(kt + 1) * slot_bytes(IH, IW, S);
+__host__ __device__ inline int stage_bytes(int groups, int chunks) {
+  return chunks * groups * 32 * 32;
 }
+size_t smem_bytes(int mode, int Kpad, int kt, int IH, int IW, int S, int groups,
+                  int stage_chunks) {
+  return (size_t)table_bytes(mode, Kpad) + (size_t)(kt + 1) * slot_bytes(IH, IW, S) +
+         (size_t)B_STAGES * stage_bytes(groups, stage_chunks);
+}
+int mode_of(int Cin) { return Cin % 16 == 0 ? A_LDSM : Cin % 4 == 0 ? A_WORDS : A_BYTES; }
 
 // Byte of halo position (h, w) in a slot: even and odd columns in two
 // planes where Cin % 4 == 0 (the 32-bit and ldmatrix A loads), else row by
@@ -249,21 +290,22 @@ __device__ __forceinline__ void store_item(const QParams& p, unsigned char* slot
 // channels-last f32 input moves four channels per 16-byte load.
 __device__ void stage_sync(const QParams& p, unsigned char* slot, int b, int ti, int h0,
                            int w0, int first) {
+  const int nt = blockDim.x;
   if (p.stage == STAGE_F32X4) {
     const int cg = p.Cin / 4, n = p.IH * p.IW * cg;
     const float* xb = static_cast<const float*>(p.x) + b * p.x_sb;
-    for (int i0 = first + threadIdx.x; i0 < n; i0 += STAGE_UNROLL * NT) {
+    for (int i0 = first + threadIdx.x; i0 < n; i0 += STAGE_UNROLL * nt) {
       float4 v[STAGE_UNROLL];
 #pragma unroll
       for (int u = 0; u < STAGE_UNROLL; ++u) {
-        const int i = i0 + u * NT, pos = i / cg;
+        const int i = i0 + u * nt, pos = i / cg;
         const long long o = i < n ? src_offset(p, ti, h0, w0, pos / p.IW, pos % p.IW) : -1;
         v[u] = o >= 0 ? __ldg(reinterpret_cast<const float4*>(xb + o) + i % cg)
                       : make_float4(0.f, 0.f, 0.f, 0.f);
       }
 #pragma unroll
       for (int u = 0; u < STAGE_UNROLL; ++u) {
-        const int i = i0 + u * NT, pos = i / cg;
+        const int i = i0 + u * nt, pos = i / cg;
         if (i >= n) break;
         const uint32_t q = static_cast<uint8_t>(quantize(v[u].x, p.x_scale, p.x_rcp)) |
                            static_cast<uint32_t>(static_cast<uint8_t>(quantize(v[u].y, p.x_scale, p.x_rcp))) << 8 |
@@ -275,16 +317,16 @@ __device__ void stage_sync(const QParams& p, unsigned char* slot, int b, int ti,
     }
   } else {
     const int n = p.Cin * p.IH * p.IW;
-    for (int i0 = first + threadIdx.x; i0 < n; i0 += STAGE_UNROLL * NT) {
+    for (int i0 = first + threadIdx.x; i0 < n; i0 += STAGE_UNROLL * nt) {
       float v[STAGE_UNROLL];
 #pragma unroll
       for (int u = 0; u < STAGE_UNROLL; ++u) {
-        const int i = i0 + u * NT;
+        const int i = i0 + u * nt;
         v[u] = i < n ? load_item(p, b, ti, h0, w0, i) : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < STAGE_UNROLL; ++u) {
-        const int i = i0 + u * NT;
+        const int i = i0 + u * nt;
         if (i >= n) break;
         store_item(p, slot, i, v[u]);
       }
@@ -292,17 +334,47 @@ __device__ void stage_sync(const QParams& p, unsigned char* slot, int b, int ti,
   }
 }
 
-// STAGE_S8X16: frame ti into its slot by 16-byte cp.async, one commit group.
+// STAGE_S8X16: frame ti into its slot by 16-byte cp.async (the caller
+// commits them).
 __device__ void stage_async(const QParams& p, unsigned char* slot, int b, int ti, int h0,
                             int w0) {
   const int cg = p.Cin / 16, n = p.IH * p.IW * cg;
   const signed char* xb = static_cast<const signed char*>(p.x) + b * p.x_sb;
-  for (int i = threadIdx.x; i < n; i += NT) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int pos = i / cg, c = i % cg, h = pos / p.IW, w = pos % p.IW;
     const long long o = src_offset(p, ti, h0, w0, h, w);
     cp_async16(slot + halo_byte(p, h, w) + 16 * c, xb + (o < 0 ? 0 : o) + 16 * c, o >= 0);
   }
-  cp_async_commit();
+}
+
+// The B ring's stage of k-chunks kc0.. for channels n0.. (the round's
+// groups x 32), [chunk][k half][channel][16 bytes], by 16-byte cp.async;
+// channels past Npad and chunks past Kpad zero-filled. Item i of a stage is
+// (chunk c, channel ch, half) with i = (c * nct + ch) * 2 + half:
+// consecutive threads take the two halves of one channel's chunk, one
+// 32-byte sector. A thread's items are i0 = threadIdx.x, i0 + nt, ...; its
+// (c, ch, half) start and step come from `BFill` (no division per copy).
+struct BFill {
+  int c, ch, half;  // the thread's first item
+  int dc, dch;      // (c, ch) advance per step of nt items (the half stays)
+};
+__device__ __forceinline__ BFill b_fill(int nct) {
+  const int q = threadIdx.x >> 1, step = blockDim.x >> 1;
+  return {q / nct, q % nct, static_cast<int>(threadIdx.x & 1), step / nct, step % nct};
+}
+__device__ __forceinline__ void stage_b(const QParams& p, const BFill& f, unsigned char* dst,
+                                        int n0, int kc0) {
+  const int nct = p.groups * 32, chunks = p.Kpad / 32;
+  int c = f.c, ch = f.ch;
+  while (c < p.stage_chunks) {
+    const int row = n0 + ch, kc = kc0 + c;
+    const bool ok = row < p.Npad && kc < chunks;
+    cp_async16(dst + ((c * 2 + f.half) * nct + ch) * 16,
+               p.w + (ok ? (size_t)row * p.Kpad + kc * 32 + f.half * 16 : 0), ok);
+    c += f.dc;
+    ch += f.dch;
+    if (ch >= nct) ch -= nct, ++c;
+  }
 }
 
 __device__ __forceinline__ float round_bf16(float v) {
@@ -386,11 +458,170 @@ __device__ __forceinline__ void epilogue(const QParams& p, const int (&acc)[4][4
   }
 }
 
+__device__ __forceinline__ void zero(int (&acc)[4][4][4]) {
+#pragma unroll
+  for (int wdw = 0; wdw < 4; ++wdw)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[wdw][j][i] = 0;
+}
+
+// One output frame's MMAs with the B ring: rounds of groups x 32 channels,
+// each streaming K through the ring's stages (see the header); the warp's
+// task (mg, round * groups + nl) has its accumulators for the whole of K.
+// With a `halo` slot, frame `next`'s int8 halo (STAGE_S8X16) goes into it,
+// committed with the first round's second stage.
+template <bool BF16>
+__device__ __forceinline__ void frame_ring(const QParams& p, const unsigned char* ring,
+                                           unsigned char* bring, const int* off0,
+                                           const int* off1, int b, int t, int h2_0,
+                                           int w2_0, unsigned char* halo, int next, int h0,
+                                           int w0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tq = lane % 4;
+  const int mg = warp % p.mgroups, nl = warp / p.mgroups;
+  const int P = p.PR * p.PC, nct = p.groups * 32, sc = p.stage_chunks;
+  const int sb = stage_bytes(p.groups, sc), chunks = p.Kpad / 32, nst = (chunks + sc - 1) / sc;
+  const int idx[2] = {mg * 16 + lane / 4, mg * 16 + lane / 4 + 8};
+  // the lane's ldmatrix row of A: row (lane & 7) + 8 * bit 3 of the lane, k
+  // half (lane >> 4); its plane-0 byte for each pool-window row jh
+  const int row = mg * 16 + (lane & 7) + ((lane >> 3) & 1) * 8, half = lane >> 4;
+  const int q = row < P ? row : 0;
+  const int lbase[2] = {((2 * (q / p.PC)) * p.IWh + q % p.PC) * p.S,
+                        ((2 * (q / p.PC) + 1) * p.IWh + q % p.PC) * p.S};
+  // the lane's ldmatrix row of B: matrix lane >> 3 is (n8 tile 2jj + (lane >> 4),
+  // k half (lane >> 3) & 1), row lane & 7: 16-byte rows from the chunk's start
+  const int brow = ((lane >> 3) & 1) * nct + nl * 32 + (lane >> 4) * 8 + (lane & 7);
+  const BFill fill = b_fill(nct);
+  for (int rd = 0; rd < p.rounds; ++rd) {
+    const int ng = rd * p.groups + nl;
+    const bool active = ng * 32 < p.Npad;
+    int acc[4][4][4];
+    zero(acc);
+    stage_b(p, fill, bring, rd * nct, 0);
+    cp_async_commit();
+    for (int s = 0; s < nst; ++s) {
+      cp_async_wait<0>();
+      // stage s has landed for every thread; every warp is done with stage
+      // s - 1, whose slot the next fill takes
+      __syncthreads();
+      if (s + 1 < nst)
+        stage_b(p, fill, bring + ((s + 1) % B_STAGES) * sb, rd * nct, (s + 1) * sc);
+      if (halo && rd == 0 && s == 0) stage_async(p, halo, b, next, h0, w0);
+      cp_async_commit();
+      if (!active) continue;
+      const unsigned char* bs = bring + (s % B_STAGES) * sb;
+#pragma unroll 2
+      for (int c = 0; c < sc; ++c) {
+        const int kc = s * sc + c;
+        if (kc >= chunks) break;
+        uint32_t bq[2][4], bf[4][2];
+        ldmatrix_x4(bq[0], bs + (c * 2 * nct + brow) * 16);
+        ldmatrix_x4(bq[1], bs + (c * 2 * nct + brow + 16) * 16);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          bf[j][0] = bq[j >> 1][2 * (j & 1)];
+          bf[j][1] = bq[j >> 1][2 * (j & 1) + 1];
+        }
+        // A: one ldmatrix.x4 per window, from the lane's row base for its
+        // pool-window row jh and its column parity's offset
+        const int o[2] = {off0[kc * 2 + half], off1[kc * 2 + half]};
+#pragma unroll
+        for (int wdw = 0; wdw < 4; ++wdw) {
+          uint32_t a[4];
+          ldmatrix_x4(a, ring + lbase[wdw >> 1] + o[wdw & 1]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_s8(acc[wdw][j], a, bf[j][0], bf[j][1]);
+        }
+      }
+    }
+    // every warp is done with the ring before the next round's fills
+    __syncthreads();
+    if (active) epilogue<BF16>(p, acc, idx, b, t, h2_0, w2_0, ng, tq);
+  }
+}
+
+// One output frame's MMAs without the B ring (32-bit A loads or byte
+// gathers): eight warps walk the tasks (16 pooled positions x 32
+// channels), each over the whole of K, B fragments from the packed weights.
 template <int MODE, bool BF16>
-__global__ void __launch_bounds__(NT, 2) int8_conv_pool_kernel(const QParams p) {
+__device__ __forceinline__ void frame_direct(const QParams& p, const unsigned char* ring,
+                                             const int* off0, const int* off1, int b, int t,
+                                             int h2_0, int w2_0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4, nwarps = blockDim.x / 32;
+  const int P = p.PR * p.PC;
+  const int mgroups = (P + 15) / 16, ngroups = p.Npad / 32;
+  const int chunks = p.Kpad / 32;
+  for (int task = warp; task < mgroups * ngroups; task += nwarps) {
+    const int mg = task / ngroups, ng = task % ngroups;
+    // the thread's two rows: pooled positions mg*16 + g and + 8 of the tile
+    const int idx[2] = {mg * 16 + g, mg * 16 + g + 8};
+    int acc[4][4][4];  // [window (jh, jw)][n8 tile][fragment register]
+    zero(acc);
+    const int8_t* wg = p.w + (size_t)(ng * 32 + g) * p.Kpad + tq * 4;
+    uint32_t bf[4][2], bn[4][2];  // this chunk's B fragments, the next one's
+    // [window (jh, jw)][row]: the pre-pool position's byte (WORDS: in
+    // plane 0, its column pair's; the table adds the plane)
+    int base[4][2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = idx[r] < P ? idx[r] : 0;
+      const int ph = q / p.PC, pw = q % p.PC;
+#pragma unroll
+      for (int wdw = 0; wdw < 4; ++wdw) {
+        const int jh = wdw >> 1, jw = wdw & 1;
+        base[wdw][r] = MODE == A_WORDS ? ((2 * ph + jh) * p.IWh + pw) * p.S
+                                       : ((2 * ph + jh) * p.IW + 2 * pw + jw) * p.S;
+      }
+    }
+    load_b(bf, wg, p.Kpad, 0);
+    for (int kc = 0; kc < chunks; ++kc) {
+      load_b(bn, wg, p.Kpad, min(kc + 1, chunks - 1));
+      if constexpr (MODE == A_WORDS) {
+        const int o[2][2] = {{off0[kc * 8 + tq], off0[kc * 8 + tq + 4]},
+                             {off1[kc * 8 + tq], off1[kc * 8 + tq + 4]}};
+#pragma unroll
+        for (int wdw = 0; wdw < 4; ++wdw) {
+          const int jw = wdw & 1;
+          const uint32_t a[4] = {load4(ring + base[wdw][0], o[jw][0]),
+                                 load4(ring + base[wdw][1], o[jw][0]),
+                                 load4(ring + base[wdw][0], o[jw][1]),
+                                 load4(ring + base[wdw][1], o[jw][1])};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_s8(acc[wdw][j], a, bf[j][0], bf[j][1]);
+        }
+      } else {
+        int o0[4], o1[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          o0[i] = off0[kc * 32 + tq * 4 + i];
+          o1[i] = off0[kc * 32 + 16 + tq * 4 + i];
+        }
+#pragma unroll
+        for (int wdw = 0; wdw < 4; ++wdw) {
+          const uint32_t a[4] = {gather4(ring + base[wdw][0], o0),
+                                 gather4(ring + base[wdw][1], o0),
+                                 gather4(ring + base[wdw][0], o1),
+                                 gather4(ring + base[wdw][1], o1)};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_s8(acc[wdw][j], a, bf[j][0], bf[j][1]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bf[j][0] = bn[j][0], bf[j][1] = bn[j][1];
+    }
+    epilogue<BF16>(p, acc, idx, b, t, h2_0, w2_0, ng, tq);
+  }
+}
+
+template <int MODE, bool BF16>
+__global__ void __launch_bounds__(MAX_NT, 1) int8_conv_pool_kernel(const QParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  int* s_off = reinterpret_cast<int*>(smem);
+  int* s_tab = reinterpret_cast<int*>(smem);  // [parity]: frame-independent
+  int* s_off = s_tab + 2 * p.n_off;           // [parity]: this frame's copy
   unsigned char* ring = smem + p.off_bytes;
+  unsigned char* bring = ring + p.R * p.slot_bytes;
 
   // blockIdx.x -> (tile, run of F frames, clip), the tiles fastest
   const int tile = blockIdx.x % p.tiles;
@@ -400,28 +631,30 @@ __global__ void __launch_bounds__(NT, 2) int8_conv_pool_kernel(const QParams p) 
   const int h2_0 = (tile / p.tiles_w) * p.PR, w2_0 = (tile % p.tiles_w) * p.PC;
   const int pt = (p.kt - 1) / 2;
   const int h0 = 2 * h2_0 - (p.kh - 1) / 2, w0 = 2 * w2_0 - (p.kw - 1) / 2;
+  const int nt = blockDim.x;
   // frame ti (>= -pt) lives in slot (ti + pt) mod R
   auto slot = [&](int ti) { return ring + ((ti + pt) % p.R) * p.slot_bytes; };
 
-  // table (r, jw): for output frame t = r mod R, the byte of k (or of the
-  // group k = 4*kg .. 4*kg + 3) in the ring, from the row base of a pre-pool
-  // position in column plane jw (`base` below; without planes the position's
-  // own byte, and both tables are the same); -1 past K, or for ldmatrix
-  // (which cannot skip a row) 0: the packed weights are zero past K
-  const int step = MODE == A_BYTES ? 1 : 4;
-  for (int i = threadIdx.x; i < 2 * p.R * p.n_off; i += NT) {
-    const int e = i % p.n_off, jw = (i / p.n_off) % 2, r = i / (2 * p.n_off);
+  // table jw: the byte of k (or of the group k = step*e .. step*e + step -
+  // 1) from the row base of a pre-pool position in column plane jw (`base`
+  // below; without planes the position's own byte, and both tables are the
+  // same), for an output frame whose first input frame (dt = 0) is in slot
+  // 0; -1 past K, or for ldmatrix (which cannot skip a row) 0: the packed
+  // weights are zero past K
+  const int step = MODE == A_LDSM ? 16 : MODE == A_WORDS ? 4 : 1;
+  for (int i = threadIdx.x; i < 2 * p.n_off; i += nt) {
+    const int e = i % p.n_off, jw = i / p.n_off;
     const int k = e * step;
     int off = MODE == A_LDSM ? 0 : -1;
     if (k < p.K) {
       const int tap = k / p.Cin, ci = k % p.Cin;
       const int dt = tap / (p.kh * p.kw), dh = (tap / p.kw) % p.kh, dw = tap % p.kw;
       const int wc = jw + dw;
-      off = ((r + dt) % p.R) * p.slot_bytes + ci +
+      off = dt * p.slot_bytes + ci +
             (p.planes ? (((wc & 1) * p.IH + dh) * p.IWh + (wc >> 1)) * p.S
                       : (dh * p.IW + dw) * p.S);
     }
-    s_off[i] = off;
+    s_tab[i] = off;
   }
 
   // the first output frame's kt input frames
@@ -433,133 +666,52 @@ __global__ void __launch_bounds__(NT, 2) int8_conv_pool_kernel(const QParams p) 
     else
       stage_sync(p, slot(ti), b, ti, h0, w0, 0);
   }
+  if (async) cp_async_commit();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tq = lane % 4;
-  const int P = p.PR * p.PC;
-  const int mgroups = (P + 15) / 16, ngroups = p.Npad / 32;
-  const int chunks = p.Kpad / 32;
   const int n_items = p.Cin * p.IH * p.IW;  // scalar staging's items per frame
+  const int ring_bytes = p.R * p.slot_bytes;
 
   for (int t = t_begin; t < t_end; ++t) {
     if (async) cp_async_wait<0>();
     // frame t + pt has landed; every warp is done with output frame t - 1,
-    // so the slot of frame t - pt - 1 is free for frame t + pt + 1
+    // so the slot of frame t - pt - 1 is free for frame t + pt + 1, and the
+    // tables' frame copy for frame t
     __syncthreads();
+    // this frame's tables: its first input frame t - pt is in slot t mod R
+    const int fb = (t % p.R) * p.slot_bytes;
+    for (int i = threadIdx.x; i < 2 * p.n_off; i += nt) {
+      const int u = s_tab[i];
+      s_off[i] = u < 0 ? u : (u + fb >= ring_bytes ? u + fb - ring_bytes : u + fb);
+    }
     const int next = t + pt + 1;
     const bool more = t + 1 < t_end;
     float pre[PREFETCH];
-    if (more && async) stage_async(p, slot(next), b, next, h0, w0);
     if (more && scalar) {
 #pragma unroll
       for (int u = 0; u < PREFETCH; ++u) {
-        const int i = threadIdx.x + u * NT;
+        const int i = threadIdx.x + u * nt;
         pre[u] = i < n_items ? load_item(p, b, next, h0, w0, i) : 0.f;
       }
     }
-    const int* off0 = s_off + (t % p.R) * 2 * p.n_off;  // column plane 0
-    const int* off1 = off0 + p.n_off;                  // column plane 1
-
-    for (int task = warp; task < mgroups * ngroups; task += NWARPS) {
-      const int mg = task / ngroups, ng = task % ngroups;
-      // the thread's two rows: pooled positions mg*16 + g and + 8 of the tile
-      int idx[2] = {mg * 16 + g, mg * 16 + g + 8};
-      int acc[4][4][4];  // [window (jh, jw)][n8 tile][fragment register]
-#pragma unroll
-      for (int wdw = 0; wdw < 4; ++wdw)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[wdw][j][i] = 0;
-      const int8_t* wg = p.w + (size_t)(ng * 32 + g) * p.Kpad + tq * 4;
-
-      if constexpr (MODE == A_LDSM) {
-        // the lane's ldmatrix row: A row (lane & 7) + 8 * bit 3 of the lane,
-        // k half (lane >> 4); its plane-0 byte for each pool-window row jh
-        const int row = mg * 16 + (lane & 7) + ((lane >> 3) & 1) * 8, half = lane >> 4;
-        const int q = row < P ? row : 0;
-        const int lbase[2] = {((2 * (q / p.PC)) * p.IWh + q % p.PC) * p.S,
-                              ((2 * (q / p.PC) + 1) * p.IWh + q % p.PC) * p.S};
-        uint32_t bf[4][2], bn[4][2];  // this chunk's B fragments, the next one's
-        load_b(bf, wg, p.Kpad, 0);
-        for (int kc = 0; kc < chunks; ++kc) {
-          load_b(bn, wg, p.Kpad, min(kc + 1, chunks - 1));
-          const int o[2] = {off0[kc * 8 + 4 * half], off1[kc * 8 + 4 * half]};
-#pragma unroll
-          for (int wdw = 0; wdw < 4; ++wdw) {
-            uint32_t a[4];
-            ldmatrix_x4(a, ring + lbase[wdw >> 1] + o[wdw & 1]);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) mma_s8(acc[wdw][j], a, bf[j][0], bf[j][1]);
-          }
-#pragma unroll
-          for (int j = 0; j < 4; ++j) bf[j][0] = bn[j][0], bf[j][1] = bn[j][1];
-        }
-      } else {
-        // [window (jh, jw)][row]: the pre-pool position's byte (WORDS: in
-        // plane 0, its column pair's; the table adds the plane)
-        int base[4][2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int q = idx[r] < P ? idx[r] : 0;
-          const int ph = q / p.PC, pw = q % p.PC;
-#pragma unroll
-          for (int wdw = 0; wdw < 4; ++wdw) {
-            const int jh = wdw >> 1, jw = wdw & 1;
-            base[wdw][r] = MODE == A_WORDS ? ((2 * ph + jh) * p.IWh + pw) * p.S
-                                           : ((2 * ph + jh) * p.IW + 2 * pw + jw) * p.S;
-          }
-        }
-        uint32_t bf[4][2], bn[4][2];  // this chunk's B fragments, the next one's
-        load_b(bf, wg, p.Kpad, 0);
-        for (int kc = 0; kc < chunks; ++kc) {
-          load_b(bn, wg, p.Kpad, min(kc + 1, chunks - 1));
-          if constexpr (MODE == A_WORDS) {
-            const int o[2][2] = {{off0[kc * 8 + tq], off0[kc * 8 + tq + 4]},
-                                 {off1[kc * 8 + tq], off1[kc * 8 + tq + 4]}};
-#pragma unroll
-            for (int wdw = 0; wdw < 4; ++wdw) {
-              const int jw = wdw & 1;
-              const uint32_t a[4] = {load4(ring + base[wdw][0], o[jw][0]),
-                                     load4(ring + base[wdw][1], o[jw][0]),
-                                     load4(ring + base[wdw][0], o[jw][1]),
-                                     load4(ring + base[wdw][1], o[jw][1])};
-#pragma unroll
-              for (int j = 0; j < 4; ++j) mma_s8(acc[wdw][j], a, bf[j][0], bf[j][1]);
-            }
-          } else {
-            int o0[4], o1[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              o0[i] = off0[kc * 32 + tq * 4 + i];
-              o1[i] = off0[kc * 32 + 16 + tq * 4 + i];
-            }
-#pragma unroll
-            for (int wdw = 0; wdw < 4; ++wdw) {
-              const uint32_t a[4] = {gather4(ring + base[wdw][0], o0),
-                                     gather4(ring + base[wdw][1], o0),
-                                     gather4(ring + base[wdw][0], o1),
-                                     gather4(ring + base[wdw][1], o1)};
-#pragma unroll
-              for (int j = 0; j < 4; ++j) mma_s8(acc[wdw][j], a, bf[j][0], bf[j][1]);
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < 4; ++j) bf[j][0] = bn[j][0], bf[j][1] = bn[j][1];
-        }
-      }
-      epilogue<BF16>(p, acc, idx, b, t, h2_0, w2_0, ng, tq);
-    }
+    __syncthreads();  // the frame's tables
+    const int* off0 = s_off;            // column plane 0
+    const int* off1 = s_off + p.n_off;  // column plane 1
+    // an async halo (int8, Cin % 16 == 0) is always the ring's (A_LDSM)
+    if constexpr (MODE == A_LDSM)
+      frame_ring<BF16>(p, ring, bring, off0, off1, b, t, h2_0, w2_0,
+                       more && async ? slot(next) : nullptr, next, h0, w0);
+    else
+      frame_direct<MODE, BF16>(p, ring, off0, off1, b, t, h2_0, w2_0);
 
     // the next frame, while no warp reads its slot: the prefetched values,
     // then the rest of it
     if (more && scalar) {
 #pragma unroll
       for (int u = 0; u < PREFETCH; ++u) {
-        const int i = threadIdx.x + u * NT;
+        const int i = threadIdx.x + u * nt;
         if (i < n_items) store_item(p, slot(next), i, pre[u]);
       }
-      stage_sync(p, slot(next), b, next, h0, w0, PREFETCH * NT);
+      stage_sync(p, slot(next), b, next, h0, w0, PREFETCH * nt);
     } else if (more && !async) {
       stage_sync(p, slot(next), b, next, h0, w0, 0);
     }
@@ -570,7 +722,7 @@ __global__ void __launch_bounds__(NT, 2) int8_conv_pool_kernel(const QParams p) 
 template <int MODE, bool BF16>
 cudaError_t launch(const QParams& p, int device, cudaStream_t stream) {
   static std::atomic<bool> opted_in[MAX_DEVICES];
-  const size_t smem = smem_bytes(MODE != A_BYTES, p.Kpad, p.kt, p.IH, p.IW, p.S);
+  const size_t smem = smem_bytes(MODE, p.Kpad, p.kt, p.IH, p.IW, p.S, p.groups, p.stage_chunks);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   if (device >= MAX_DEVICES || !opted_in[device].load()) {
     cudaError_t e = cudaFuncSetAttribute(int8_conv_pool_kernel<MODE, BF16>,
@@ -581,29 +733,39 @@ cudaError_t launch(const QParams& p, int device, cudaStream_t stream) {
   }
   const long long blocks = (long long)p.tiles * p.runs * p.B;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  int8_conv_pool_kernel<MODE, BF16><<<(unsigned)blocks, NT, smem, stream>>>(p);
+  const int nt = MODE == A_LDSM ? 32 * p.mgroups * p.groups : DIRECT_NT;
+  int8_conv_pool_kernel<MODE, BF16><<<(unsigned)blocks, nt, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 // Grid: one CTA per (clip, run of `frames` frames, tile of tile_rows x
 // tile_cols pooled positions). x is f32 (x_int8 = 0) or int8 channels-last
 // (x_sc = 1); out is f32 (bf16 under BF16; out_int8 = 0) or int8
-// channels-last (o_sc = 1), quantized with out_scale.
+// channels-last (o_sc = 1), quantized with out_scale. Cin % 16 == 0: the B
+// ring's stages of `stage_chunks` k-chunks, groups x 32 channels a round,
+// mgroups x groups warps; else groups and stage_chunks 0, B fragments per
+// warp task, 8 warps.
 template <bool BF16>
 int run(
     const void* x, const int8_t* w, const void* scale, const void* bias, void* out,
     float x_scale, float out_scale, int x_int8, int out_int8, int B, int Cin, int T, int H,
     int W, int Cout, int kt, int kh, int kw, int Kpad, int Npad, int tile_rows, int tile_cols,
-    int pos_bytes, int frames, long long x_sb, long long x_sc, long long x_st, long long x_sh,
-    long long x_sw, long long o_sb, long long o_sc, long long o_st, long long o_sh,
-    long long o_sw, int device, void* stream) {
+    int groups, int stage_chunks, int pos_bytes, int frames, long long x_sb, long long x_sc,
+    long long x_st, long long x_sh, long long x_sw, long long o_sb, long long o_sc,
+    long long o_st, long long o_sh, long long o_sw, int device, void* stream) {
   const int K = Cin * kt * kh * kw;
+  const int mode = mode_of(Cin);
   const bool words = Cin % 4 == 0;
+  const int mgroups = (tile_rows * tile_cols + 15) / 16;
+  const bool ring = mode == A_LDSM;
   if (B < 1 || Cin < 1 || T < 1 || H < 2 || W < 2 || Cout < 1 || kt < 1 || kh < 1 ||
       kw < 1 || !(kt % 2) || !(kh % 2) || !(kw % 2) || Kpad < K || Kpad % 32 ||
       Npad < Cout || Npad % 32 || tile_rows < 1 || tile_cols < 1 || pos_bytes < Cin ||
       (words && pos_bytes % 16) || frames < 1 || (x_int8 && Cin > 1 && x_sc != 1) ||
-      (out_int8 && Cout > 1 && o_sc != 1) || (out_int8 && !(out_scale > 0.f)))
+      (out_int8 && Cout > 1 && o_sc != 1) || (out_int8 && !(out_scale > 0.f)) ||
+      (ring && (groups < 1 || stage_chunks < 1 || stage_chunks > 64 ||
+                32 * mgroups * groups > MAX_NT)) ||
+      (!ring && (groups != 0 || stage_chunks != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   int cur = -1;
   cudaError_t e = cudaGetDevice(&cur);
@@ -622,7 +784,9 @@ int run(
   p.IH = 2 * tile_rows + kh - 1; p.IW = 2 * tile_cols + kw - 1; p.IWh = (p.IW + 1) / 2;
   p.S = pos_bytes; p.R = kt + 1; p.slot_bytes = slot_bytes(p.IH, p.IW, pos_bytes);
   p.planes = words;
-  p.n_off = offset_entries(words, Kpad); p.off_bytes = table_bytes(words, Kpad, kt);
+  p.n_off = offset_entries(mode, Kpad); p.off_bytes = table_bytes(mode, Kpad);
+  p.mgroups = mgroups; p.groups = groups; p.stage_chunks = stage_chunks;
+  p.rounds = ring ? (Npad / 32 + groups - 1) / groups : 0;
   p.x_sb = x_sb; p.x_sc = x_sc; p.x_st = x_st; p.x_sh = x_sh; p.x_sw = x_sw;
   // channels-last, 16-byte aligned, whole 16-byte groups: vector staging
   const int vec = x_int8 ? 16 : 4;
@@ -635,9 +799,9 @@ int run(
                 o_sh % 2 == 0 && o_sw % 2 == 0 &&
                 reinterpret_cast<uintptr_t>(out) % (out_int8 ? 2 : (BF16 ? 4 : 8)) == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  e = Cin % 16 == 0 ? launch<A_LDSM, BF16>(p, device, s)
-      : words       ? launch<A_WORDS, BF16>(p, device, s)
-                    : launch<A_BYTES, BF16>(p, device, s);
+  e = mode == A_LDSM    ? launch<A_LDSM, BF16>(p, device, s)
+      : mode == A_WORDS ? launch<A_WORDS, BF16>(p, device, s)
+                        : launch<A_BYTES, BF16>(p, device, s);
   return static_cast<int>(e);
 }
 
@@ -646,9 +810,10 @@ int run(
 // Shared memory one CTA takes for this geometry (the wrapper's tile choice
 // mirrors it: `quantconv.shared_memory_bytes`).
 extern "C" int avs_int8_conv_pool_smem(int Cin, int Kpad, int kt, int kh, int kw,
-                                       int tile_rows, int tile_cols, int pos_bytes) {
-  return (int)smem_bytes(Cin % 4 == 0, Kpad, kt, 2 * tile_rows + kh - 1,
-                               2 * tile_cols + kw - 1, pos_bytes);
+                                       int tile_rows, int tile_cols, int pos_bytes,
+                                       int groups, int stage_chunks) {
+  return (int)smem_bytes(mode_of(Cin), Kpad, kt, 2 * tile_rows + kh - 1,
+                         2 * tile_cols + kw - 1, pos_bytes, groups, stage_chunks);
 }
 
 // bf16 = 0: f32 scale and bias, f32 or int8 out. bf16 = 1: the bf16
@@ -657,13 +822,14 @@ extern "C" int avs_int8_conv_pool(
     const void* x, const int8_t* w, const void* scale, const void* bias, void* out,
     float x_scale, float out_scale, int x_int8, int out_int8, int bf16, int B, int Cin, int T,
     int H, int W, int Cout, int kt, int kh, int kw, int Kpad, int Npad, int tile_rows,
-    int tile_cols, int pos_bytes, int frames, long long x_sb, long long x_sc, long long x_st,
-    long long x_sh, long long x_sw, long long o_sb, long long o_sc, long long o_st,
-    long long o_sh, long long o_sw, int device, void* stream) {
+    int tile_cols, int groups, int stage_chunks, int pos_bytes, int frames,
+    long long x_sb, long long x_sc, long long x_st, long long x_sh, long long x_sw,
+    long long o_sb, long long o_sc, long long o_st, long long o_sh, long long o_sw, int device,
+    void* stream) {
   return (bf16 ? run<true> : run<false>)(
       x, w, scale, bias, out, x_scale, out_scale, x_int8, out_int8, B, Cin, T, H, W, Cout, kt,
-      kh, kw, Kpad, Npad, tile_rows, tile_cols, pos_bytes, frames, x_sb, x_sc, x_st, x_sh, x_sw,
-      o_sb, o_sc, o_st, o_sh, o_sw, device, stream);
+      kh, kw, Kpad, Npad, tile_rows, tile_cols, groups, stage_chunks, pos_bytes, frames,
+      x_sb, x_sc, x_st, x_sh, x_sw, o_sb, o_sc, o_st, o_sh, o_sw, device, stream);
 }
 
 extern "C" const char* avs_error_string(int e) {

@@ -49,7 +49,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -63,16 +63,61 @@ bf16_launches = 0
 
 # avs_int8_conv_pool(x, w, scale, bias, out, x_scale, out_scale, x_int8, out_int8, bf16,
 #                    B, Cin, T, H, W, Cout, kt, kh, kw, Kpad, Npad, tile_rows,
-#                    tile_cols, pos_bytes, frames, 5 x strides, 5 out strides,
-#                    device, stream)
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_float] * 2 + [ctypes.c_int] * 18
+#                    tile_cols, groups, stage_chunks, pos_bytes, frames,
+#                    5 x strides, 5 out strides, device, stream)
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_float] * 2 + [ctypes.c_int] * 20
              + [ctypes.c_longlong] * 10 + [ctypes.c_int, ctypes.c_void_p])
-_SMEM_ARGTYPES = [ctypes.c_int] * 8
+# avs_int8_conv_pool_smem(Cin, Kpad, kt, kh, kw, tile_rows, tile_cols, pos_bytes, groups,
+#                         stage_chunks)
+_SMEM_ARGTYPES = [ctypes.c_int] * 10
 
 MAX_SMEM = 232448  # shared memory one CTA can opt in to on sm_90
-# two CTAs per SM share its 228 KB, less 1 KB reserved per CTA
-TWO_PER_SM = 113 * 1024
-MAX_TILE_POSITIONS = 128  # pooled positions per CTA: 8 warp tasks of 16 rows
+SM_SMEM = 233472  # shared memory of one SM (228 KB); each CTA on it also takes 1 KB
+TWO_PER_SM = SM_SMEM // 2 - 1024  # the most each of two CTAs on one SM can take
+SM_WARPS = 16  # warps one SM holds at the kernel's 128 registers a thread
+DIRECT_WARPS = 8  # warps of a CTA without the B ring
+MAX_WARPS = 16  # warps of a CTA at most (512 threads)
+MAX_TILE_POSITIONS = 128  # pooled positions per CTA without the ring: 8 warp tasks of 16
+RING_STAGES = 2  # the B ring's stages (the kernel's B_STAGES)
+RING_CHUNKS = (2, 4, 8, 16)  # k-chunks of 32 per stage of the B ring the planner tries
+# The planner's rates (csrc/int8_conv_pool.cu's design; fitted to the tile
+# sweep of scripts/torch_kernel_breakdown.py --mode q1 on an H100 80GB HBM3 at
+# 700 W, where the tiles the estimate chooses are within ~3% of the sweep's
+# best; its times run ~13% above the measured ones at the ring's blocks,
+# alike for every tile, since the halo loads under the MMAs): k-chunks of
+# one warp task (16 MMAs) an SM runs per microsecond with 16 warps
+# resident, through the B ring (ldmatrix A) or
+# with B per warp task (32-bit A loads and byte gathers: the rate of B per
+# warp task with ldmatrix A, 26, over their instructions per chunk, 40 and
+# 140 against 24); an SM with fewer warps runs (warps / 16) **
+# OCCUPANCY_EXP of that (latency left exposed); the share CONFLICT_COST of a
+# chunk's time each extra shared-memory wavefront of the A loads adds
+# (`a_wavefronts`); bytes of weights per microsecond one SM reads from L2,
+# into the ring (16-byte cp.async) or per warp task (4-byte loads); each
+# ring stage's cost to its CTA (its barrier: ~0.3 us); the halo's staging
+# per value without the ring (one value per load; the ring's blocks take
+# the int8 chain's 16-byte cp.async, overlapped with the first stage's
+# MMAs) and a fixed cost per CTA and frame, in microseconds
+CHUNK_RATE = {"ring": 30.0, "words": 26.0 * 24 / 40, "bytes": 26.0 * 24 / 140}
+OCCUPANCY_EXP = 0.5
+CONFLICT_COST = 0.2
+WEIGHT_RATE = {"ring": 10e3, "direct": 18e3}
+STAGE_US = 0.3
+HALO_US = 1e-3
+CTA_US = 0.33
+
+
+class Q1Tile(NamedTuple):
+    """One CTA's share of a block: a tile of `rows` x `cols` pooled
+    positions; where Cin % 16 == 0, B fragments staged once per CTA in a
+    ring of RING_STAGES stages of `chunks` k-chunks of 32, `groups` x 32
+    output channels a round, mgroups x groups warps (mgroups = ceil(rows *
+    cols / 16)); else `groups` and `chunks` 0: eight warps read B per warp
+    task from the packed weights."""
+    rows: int
+    cols: int
+    groups: int = 0
+    chunks: int = 0
 
 
 def padded(n: int, m: int = 32) -> int:
@@ -91,45 +136,143 @@ def pos_bytes(cin: int) -> int:
 
 
 def shared_memory_bytes(cin: int, kpad: int, kt: int, kh: int, kw: int, rows: int,
-                        cols: int) -> int:
-    """The kernel's `smem_bytes`: 2 (kt + 1) offset tables (an int per k, or
-    per four k when Cin % 4 == 0), then a ring of kt + 1 frame slots, each
-    the tile's int8 halo in two column planes."""
-    entries = kpad // 4 if cin % 4 == 0 else kpad
+                        cols: int, groups: int = 0, chunks: int = 0) -> int:
+    """The kernel's `smem_bytes`: four offset tables (two column parities, a
+    frame-independent copy and the frame's; an int per k, per four k when
+    Cin % 4 == 0, per sixteen when Cin % 16 == 0), a ring of kt + 1 frame
+    slots, each the tile's int8 halo in two column planes, then the B ring:
+    RING_STAGES x `chunks` k-chunks of `groups` x 32 channels."""
+    entries = kpad // 16 if cin % 16 == 0 else kpad // 4 if cin % 4 == 0 else kpad
     ih, iwh = 2 * rows + kh - 1, -(-(2 * cols + kw - 1) // 2)
-    return (padded(4 * 2 * (kt + 1) * entries, 16)
-            + (kt + 1) * padded(2 * ih * iwh * pos_bytes(cin), 16))
+    return (padded(4 * 4 * entries, 16)
+            + (kt + 1) * padded(2 * ih * iwh * pos_bytes(cin), 16)
+            + RING_STAGES * chunks * groups * 32 * 32)
+
+
+def warps(tile: Q1Tile) -> int:
+    """Warps of one CTA."""
+    return -(-tile.rows * tile.cols // 16) * tile.groups if tile.groups else DIRECT_WARPS
+
+
+def ctas_per_sm(cin: int, kt: int, kh: int, kw: int, tile: Q1Tile) -> int:
+    """CTAs one SM holds: by its warps (registers) and its shared memory."""
+    smem = shared_memory_bytes(cin, padded(cin * kt * kh * kw), kt, kh, kw, *tile)
+    return min(SM_WARPS // warps(tile), SM_SMEM // (smem + 1024))
+
+
+def weight_bytes(cin: int, cout: int, kt: int, kh: int, kw: int, tile: Q1Tile) -> int:
+    """Bytes of weights one CTA reads from L2 per output frame: the packed
+    (Npad, Kpad) weights once through the B ring; else once per pass of
+    its eight warps over the tasks (warps that read one channel group at
+    once share L1's lines, a warp's successive tasks do not)."""
+    kpad, ngroups = padded(cin * kt * kh * kw), padded(cout) // 32
+    passes = 1 if tile.groups else -(-(-(-tile.rows * tile.cols // 16) * ngroups) // DIRECT_WARPS)
+    return passes * ngroups * 32 * kpad
+
+
+def weight_traffic(B: int, T: int, H2: int, W2: int, cin: int, cout: int, kt: int, kh: int,
+                   kw: int, tile: Q1Tile) -> int:
+    """Bytes of weights one launch reads: B x T x tiles CTA-frames."""
+    tiles = -(-H2 // tile.rows) * -(-W2 // tile.cols)
+    return B * T * tiles * weight_bytes(cin, cout, kt, kh, kw, tile)
+
+
+@functools.lru_cache(maxsize=4096)
+def a_wavefronts(cin: int, kw: int, rows: int, cols: int) -> float:
+    """Shared-memory wavefronts per 8x8 matrix of the ldmatrix A loads
+    (Cin % 16 == 0), averaged over the tile's: its eight rows are pooled
+    positions of the tile (rows past it read position 0), S bytes apart
+    within a plane row, 2 ceil(IW / 2) positions from one pooled row to the
+    next; eight rows on the same 16-byte bank group of a 128-byte line at
+    distinct addresses take a wavefront each (1 where the tile's width
+    leaves none on the same group)."""
+    S, iwh = pos_bytes(cin), -(-(2 * cols + kw - 1) // 2)
+    P, total, n = rows * cols, 0, 0
+    for first in range(0, -(-P // 16) * 16, 8):
+        addrs = {(2 * (q // cols) * iwh + q % cols) * S for q in
+                 (q if q < P else 0 for q in range(first, first + 8))}
+        groups = [a // 16 % 8 for a in addrs]
+        total += max(groups.count(g) for g in set(groups))
+        n += 1
+    return total / n
+
+
+def tile_cost(H2: int, W2: int, cin: int, cout: int, kt: int, kh: int, kw: int,
+              tile: Q1Tile) -> float:
+    """The planner's estimate of one clip-frame, in SM-microseconds: per
+    CTA and frame the longer of its MMA loop (the k-chunks of its busiest
+    warp, at the rate its SM's resident warps give each: CHUNK_RATE x
+    (warps / 16) ** OCCUPANCY_EXP shared among them, slowed by the A loads'
+    bank conflicts; plus the ring's barriers) and its weights from L2 (the
+    SM's bandwidth shared by its CTAs), plus its halo's staging (without the
+    ring: with it the halo loads under the first stage's MMAs) and a fixed
+    cost; times the tiles, over the CTAs an SM runs at
+    once."""
+    kpad, ngroups = padded(cin * kt * kh * kw), padded(cout) // 32
+    chunks, mg = kpad // 32, -(-tile.rows * tile.cols // 16)
+    per_sm = ctas_per_sm(cin, kt, kh, kw, tile)
+    if tile.groups:  # ldmatrix A, slowed by its bank conflicts
+        rounds, active = -(-ngroups // tile.groups), warps(tile)
+        steps, barriers = rounds * chunks, rounds * -(-chunks // tile.chunks)
+        rate = CHUNK_RATE["ring"] / (
+            1 + CONFLICT_COST * (a_wavefronts(cin, kw, tile.rows, tile.cols) - 1))
+        bandwidth, halo = WEIGHT_RATE["ring"], 0.0
+    else:
+        steps, active = -(-mg * ngroups // DIRECT_WARPS) * chunks, min(DIRECT_WARPS, mg * ngroups)
+        rate = CHUNK_RATE["words" if cin % 4 == 0 else "bytes"]
+        bandwidth, barriers = WEIGHT_RATE["direct"], 0
+        halo = HALO_US * (2 * tile.rows + kh - 1) * (2 * tile.cols + kw - 1) * cin
+    resident = min(per_sm * active, SM_WARPS)
+    mma = (steps * per_sm * active / (rate * (resident / SM_WARPS) ** OCCUPANCY_EXP)
+           + barriers * STAGE_US)
+    weights = weight_bytes(cin, cout, kt, kh, kw, tile) * per_sm / bandwidth
+    cta = max(mma, weights) + halo + CTA_US
+    return -(-H2 // tile.rows) * -(-W2 // tile.cols) * cta / per_sm
+
+
+def tiles_to_try(H2: int, W2: int, cin: int, cout: int, kt: int, kh: int, kw: int):
+    """Every tile the kernel takes for this geometry and one CTA's shared
+    memory: where Cin % 16 == 0 with the B ring (up to 16 warps, each group
+    count up to the channels', each stage size), else
+    without (up to MAX_TILE_POSITIONS pooled positions)."""
+    kpad, ngroups = padded(cin * kt * kh * kw), padded(cout) // 32
+    for rows in range(1, H2 + 1):
+        for cols in range(1, W2 + 1):
+            mg = -(-rows * cols // 16)
+            if cin % 16 == 0:
+                cands = [Q1Tile(rows, cols, g, c)
+                         for g in range(1, min(ngroups, MAX_WARPS // mg) + 1)
+                         for c in RING_CHUNKS]
+            else:
+                cands = [Q1Tile(rows, cols)] if rows * cols <= MAX_TILE_POSITIONS else []
+            if not cands:
+                break
+            for t in cands:
+                if shared_memory_bytes(cin, kpad, kt, kh, kw, *t) <= MAX_SMEM:
+                    yield t
 
 
 @functools.lru_cache(maxsize=256)
 def tile_for(H2: int, W2: int, cin: int, cout: int, kt: int, kh: int,
-             kw: int) -> Tuple[int, int]:
-    """(tile_rows, tile_cols) of pooled positions per CTA: the tile that
-    minimises an estimate of a frame's warp instructions (MMA tasks, each
-    task-chunk ~24 for ldmatrix A fragments (Cin % 16 == 0), ~40 for 32-bit
-    A loads (Cin % 4 == 0) and ~140 for byte gathers, counted for
-    all eight warps of a CTA whether they have a task or not, plus ~0.6 per
-    halo value staged, once per frame, and a fixed 200 per CTA and frame),
-    within the shared memory of two CTAs per SM (the ring's kt + 1 frames
-    and its tables) if any tile fits there, else of one. Raises where even
-    a single pooled position's ring does not fit."""
+             kw: int) -> Q1Tile:
+    """The tile, and the B ring's shape where Cin % 16 == 0, per CTA: of
+    `tiles_to_try`, the one with the least `tile_cost`, which weighs the MMA
+    loop against the weights each CTA reads from L2 (`weight_bytes`) and
+    the warps its shared memory and registers leave resident on an SM
+    (`ctas_per_sm`: one CTA or several). Ties go to the tile that reads
+    fewer weights, then to larger stages, fewer groups, the
+    smaller tile. Raises where even a single pooled position's ring does not
+    fit."""
+    best = None
+    for t in tiles_to_try(H2, W2, cin, cout, kt, kh, kw):
+        key = (round(tile_cost(H2, W2, cin, cout, kt, kh, kw, t), 6),
+               weight_traffic(1, 1, H2, W2, cin, cout, kt, kh, kw, t), -t.chunks,
+               t.groups, t.rows * t.cols, t.rows)
+        if best is None or key < best[0]:
+            best = (key, t)
+    if best is not None:
+        return best[1]
     kpad = padded(cin * kt * kh * kw)
-    chunks, ngroups = kpad // 32, padded(cout) // 32
-    per_chunk = 24 if cin % 16 == 0 else 40 if cin % 4 == 0 else 140
-    for budget in (TWO_PER_SM, MAX_SMEM):
-        best = None
-        for rows in range(1, min(H2, MAX_TILE_POSITIONS) + 1):
-            for cols in range(1, min(W2, MAX_TILE_POSITIONS // rows) + 1):
-                if shared_memory_bytes(cin, kpad, kt, kh, kw, rows, cols) > budget:
-                    continue
-                tasks = -(-rows * cols // 16) * ngroups
-                halo = (2 * rows + kh - 1) * (2 * cols + kw - 1) * cin
-                cta = 8 * -(-tasks // 8) * chunks * per_chunk + 0.6 * halo + 200
-                cost = -(-H2 // rows) * -(-W2 // cols) * cta
-                if best is None or cost < best[0]:
-                    best = (cost, rows, cols)
-        if best is not None:
-            return best[1], best[2]
     raise ValueError(
         f"int8_conv_pool: one pooled position of a {kt}x{kh}x{kw} kernel over {cin} input "
         f"channels needs {shared_memory_bytes(cin, kpad, kt, kh, kw, 1, 1)} bytes of shared "
@@ -262,17 +405,16 @@ def _int8_conv_pool_cuda(x: torch.Tensor, packed: torch.Tensor, scale: torch.Ten
     if packed.shape != (npad, kpad):
         raise ValueError(f"int8_conv_pool: packed kernel {tuple(packed.shape)}, expected "
                          f"{(npad, kpad)}")
-    rows, cols = tile_for(H // 2, W // 2, cin, cout, kt, kh, kw)
-    tiles = -(-(H // 2) // rows) * -(-(W // 2) // cols)
-    per_sm = 2 if shared_memory_bytes(cin, kpad, kt, kh, kw, rows, cols) <= TWO_PER_SM else 1
-    frames = frames_for(B, T, tiles, _sm_count(dev.index), per_sm)
+    tile = tile_for(H // 2, W // 2, cin, cout, kt, kh, kw)
+    tiles = -(-(H // 2) // tile.rows) * -(-(W // 2) // tile.cols)
+    frames = frames_for(B, T, tiles, _sm_count(dev.index), ctas_per_sm(cin, kt, kh, kw, tile))
     out = _out_empty(x, cout, out_scale, dt)
     fn = build.function("int8_conv_pool", "avs_int8_conv_pool", _ARGTYPES)
     err = fn(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), bias.data_ptr(),
              out.data_ptr(), x_scale, 1.0 if out_scale is None else out_scale,
              int(x.dtype == torch.int8), int(out_scale is not None),
              int(dt == torch.bfloat16), B, cin, T, H, W, cout, kt,
-             kh, kw, kpad, npad, rows, cols, pos_bytes(cin), frames,
+             kh, kw, kpad, npad, *tile, pos_bytes(cin), frames,
              *x.stride(), *out.stride(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
     build.check("int8_conv_pool", err, "int8_conv_pool launch")
     if dt == torch.bfloat16:

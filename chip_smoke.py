@@ -2560,6 +2560,7 @@ def q1_equal_cases(g, dev, cases, contracts=Q1_CONTRACTS, dt=None):
         if T == 75 and cin > 1:
             x32 = channels_last(x32)
         tile = quantconv.tile_for(H // 2, W // 2, cin, cout, *k)
+        per_sm = quantconv.ctas_per_sm(cin, *k, tile)
         said = []
         for contract in contracts:
             x, out_scale = q1_contract(qc, x32, contract, mode, dt)
@@ -2575,20 +2576,29 @@ def q1_equal_cases(g, dev, cases, contracts=Q1_CONTRACTS, dt=None):
                 raise SystemExit(f"kernel check failed: Q1{'-bf16' if dt else ''} at B={B} "
                                  f"Cin={cin} {H}x{W} {mode} {contract}")
             del x, got, again, want
-        tiles = -(-(H // 2) // tile[0]) * -(-(W // 2) // tile[1])
-        print(f"  B={B} Cin={cin} Cout={cout} T={T} {H}x{W} k={k} {mode} (tile {tile[0]}x"
-              f"{tile[1]}, {quantconv.frames_for(B, T, tiles)} frames per CTA): "
-              f"{', '.join(said)} bit for bit, repeat equal", flush=True)
+        tiles = -(-(H // 2) // tile.rows) * -(-(W // 2) // tile.cols)
+        print(f"  B={B} Cin={cin} Cout={cout} T={T} {H}x{W} k={k} {mode} ({q1_tile_text(tile)}, "
+              f"{per_sm} per SM, {quantconv.frames_for(B, T, tiles, 132, per_sm)} frames per "
+              f"CTA): {', '.join(said)} bit for bit, repeat equal", flush=True)
         del qc, x32
         torch.cuda.empty_cache()
 
 
+def q1_tile_text(tile):
+    """A Q1 tile in words: its pooled positions and how B reaches the MMAs."""
+    ring = (f", B ring {tile.groups} x 32 channels, stages of {tile.chunks} k-chunks"
+            if tile.groups else ", B per warp task")
+    return f"tile {tile.rows}x{tile.cols}{ring}"
+
+
 def q1_block_times(g, dev, blocks, smi, B=8, T=75):
-    """Kernel, plain, library (im2col + `torch._int_mm`, held equal to Q1)
-    and f32 cuDNN times (CUDA events) of each of `blocks` {name: (Cin, Cout,
-    H, W, k)} at B, each in the contract the int8 forward gives it
-    (CHAIN_CONTRACTS) beside its f32-contract time, with the bounds. Returns
-    ({name: row}, bytes, int8 operations) of the chain."""
+    """Kernel (CUDA events, and on the device alone: `queued_ms`), plain,
+    library (im2col + `torch._int_mm`, held equal to Q1) and f32 cuDNN times
+    of each of `blocks` {name: (Cin, Cout, H, W, k)} at B, each in the
+    contract the int8 forward gives it (CHAIN_CONTRACTS) beside its
+    f32-contract time, with the bounds, the tile, its CTAs per SM and the
+    weight bytes the planner reckons. Returns ({name: row}, bytes, int8
+    operations) of the chain."""
     import torch
 
     from avsync_torch.ops.conv import conv_relu_pool
@@ -2608,6 +2618,7 @@ def q1_block_times(g, dev, blocks, smi, B=8, T=75):
         del lib
         w32 = (qc.kernel_q.float() * qc.k_scale.view(-1, 1, 1, 1, 1)).contiguous()
         ms = time_ms(lambda: quant_conv_block(qc, x, out_scale))
+        q_ms = queued_ms(lambda: quant_conv_block(qc, x, out_scale))
         f32c_ms = time_ms(lambda: quant_conv_block(qc, x32))
         plain = time_ms(lambda: quantconv.int8_conv_pool_ref(
             x, qc.kernel_q, qc.k_scale, qc.bias, float(qc.x_scale), out_scale), iters=3,
@@ -2618,11 +2629,14 @@ def q1_block_times(g, dev, blocks, smi, B=8, T=75):
         f32c_bytes, _ = q1_bytes_ops(B, T, cin, cout, H, W, k, "f32_f32")
         H2, W2 = H // 2, W // 2
         tile = quantconv.tile_for(H2, W2, cin, cout, *k)
-        row = {"contract": contract, "ms": ms, "plain_ms": plain, "library_ms": lib_ms,
-               "cudnn_f32_ms": f32_ms, "f32_contract_ms": f32c_ms,
+        per_sm = quantconv.ctas_per_sm(cin, *k, tile)
+        row = {"contract": contract, "ms": ms, "queued_ms": q_ms, "plain_ms": plain,
+               "library_ms": lib_ms, "cudnn_f32_ms": f32_ms, "f32_contract_ms": f32c_ms,
                "int8_gops": n_ops / 1e9, "mb": n_bytes / 1e6,
-               "f32_contract_mb": f32c_bytes / 1e6, "tile": tile,
-               "frames_per_cta": quantconv.frames_for(B, T, -(-H2 // tile[0]) * -(-W2 // tile[1])),
+               "f32_contract_mb": f32c_bytes / 1e6, "tile": list(tile), "ctas_per_sm": per_sm,
+               "weight_gb": quantconv.weight_traffic(B, T, H2, W2, cin, cout, *k, tile) / 1e9,
+               "frames_per_cta": quantconv.frames_for(
+                   B, T, -(-H2 // tile.rows) * -(-W2 // tile.cols), 132, per_sm),
                "bound_ms": max(n_bytes / HBM_BYTES_PER_S, n_ops / INT8_OPS) * 1e3,
                "f32_contract_bound_ms": max(f32c_bytes / HBM_BYTES_PER_S,
                                             n_ops / INT8_OPS) * 1e3}
@@ -2630,6 +2644,8 @@ def q1_block_times(g, dev, blocks, smi, B=8, T=75):
         total_bytes += n_bytes
         total_ops += n_ops
         print(f"  {name} B={B} T={T} {H}x{W} {cin}->{cout} {contract}: kernel_ms={ms:.4f} "
+              f"queued_ms={q_ms:.4f} ({q1_tile_text(tile)}, {per_sm} per SM, "
+              f"{row['weight_gb']:.3f} GB of weights) "
               f"(f32 contract {f32c_ms:.4f}) plain_ms={plain:.4f} library_ms={lib_ms:.4f} "
               f"(im2col + _int_mm) cudnn_f32_ms={f32_ms:.4f} bound_ms={row['bound_ms']:.4f} "
               f"(f32 contract {row['f32_contract_bound_ms']:.4f}; {n_ops / 1e9:.1f} G int8 ops, "
@@ -2643,7 +2659,8 @@ def q1_chain_row(rows, n_bytes, n_ops):
     """The chain's sums of `q1_block_times` rows and its bound."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / INT8_OPS * 1e3
     row = {key: sum(b[key] for b in rows.values())
-           for key in ("ms", "plain_ms", "library_ms", "cudnn_f32_ms", "f32_contract_ms")}
+           for key in ("ms", "queued_ms", "plain_ms", "library_ms", "cudnn_f32_ms",
+                       "f32_contract_ms")}
     return dict(row, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -3361,11 +3378,71 @@ def seeded_jax_layout_tf_params(cfg, seed: int):
     return params
 
 
+TF_Q1_SWEEP_SHAPES = 3  # 13a's sweep: the planner's best tiles with the B ring per block
+
+
+def tf_q1_sweep_tiles(cin, cout, H, W, k):
+    """The tiles 13a forces at one TF block (Cin % 16 == 0: B through the
+    ring): the planner's choice and its TF_Q1_SWEEP_SHAPES best (rows, cols,
+    groups) by its estimate, each at every stage size."""
+    from avsync_torch.ops.cuda import quantconv
+
+    H2, W2 = H // 2, W // 2
+    cands = sorted(quantconv.tiles_to_try(H2, W2, cin, cout, *k),
+                   key=lambda t: quantconv.tile_cost(H2, W2, cin, cout, *k, t))
+    shapes = list(dict.fromkeys(t[:3] for t in cands))[:TF_Q1_SWEEP_SHAPES]
+    return list(dict.fromkeys([quantconv.tile_for(H2, W2, cin, cout, *k)]
+                              + [t for t in cands if t[:3] in shapes]))
+
+
+def tf_q1_sweep(g, dev, smi, B=8, T=75):
+    """13a's sweep: at TF conv2 and conv3 (B=8, the int8 forward's
+    contracts) Q1 with its tile forced (`tile_for` swapped) to each of
+    `tf_q1_sweep_tiles`: each equal to the plain version bit for bit and
+    timed on the device alone (`queued_ms`)."""
+    import torch
+
+    from avsync_torch.ops.cuda import quantconv
+    from avsync_torch.ops.quant import quant_conv_block
+
+    out = {}
+    for name in ("conv2", "conv3"):
+        cin, cout, H, W, k = TF_INT8_BLOCKS[name]
+        qc, x32 = q1_case(g, dev, B, cin, cout, T, H, W, k)
+        x, out_scale = q1_contract(qc, channels_last(x32), CHAIN_CONTRACTS[name], "random")
+        want = quantconv.int8_conv_pool_ref(x, qc.kernel_q, qc.k_scale, qc.bias,
+                                            float(qc.x_scale), out_scale)
+        real, said = quantconv.tile_for, []
+        try:
+            for tile in tf_q1_sweep_tiles(cin, cout, H, W, k):
+                quantconv.tile_for = lambda *a, tile=tile: tile
+                got = quant_conv_block(qc, x, out_scale)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise SystemExit(f"kernel check failed: Q1 at TF {name} with its "
+                                     f"{q1_tile_text(tile)} forced differs from its plain "
+                                     "version")
+                said.append({"tile": list(tile), "ctas_per_sm": quantconv.ctas_per_sm(
+                    cin, *k, tile), "queued_ms": queued_ms(
+                        lambda: quant_conv_block(qc, x, out_scale)), "equal": True})
+        finally:
+            quantconv.tile_for = real
+        out[name] = said
+        print(f"  {name} B={B} forced tiles (torch.equal each; device alone, queued_ms): "
+              + "; ".join(f"{q1_tile_text(quantconv.Q1Tile(*r['tile']))} "
+                          f"({r['ctas_per_sm']} per SM) {r['queued_ms']:.4f}" for r in said)
+              + f" [{smi}]", flush=True)
+        del qc, x, x32, want
+        torch.cuda.empty_cache()
+    return out
+
+
 def tf_q1_blocks(dev, smi):
     """13a: Q1 at the TF stack's three blocks: equal to its plain version bit
-    for bit in every contract at B = 1 and 8, a repeat launch equal too;
-    times at B=8 beside the plain version, the library call and cuDNN f32,
-    and the bounds."""
+    for bit in every contract at B = 1 and 8, a repeat launch equal too; at
+    conv2 and conv3 the same at forced tiles and stage sizes (`tf_q1_sweep`);
+    times at B=8 (events and on the device alone) beside the plain version,
+    the library call and cuDNN f32, and the bounds."""
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(61)
@@ -3374,8 +3451,9 @@ def tf_q1_blocks(dev, smi):
           "(torch.equal required):", flush=True)
     q1_equal_cases(g, dev, [(B, cin, cout, 75, H, W, k, "random")
                             for (cin, cout, H, W, k) in TF_INT8_BLOCKS.values() for B in (1, 8)])
+    sweep = tf_q1_sweep(g, dev, smi)
     blocks, n_bytes, n_ops = q1_block_times(g, dev, TF_INT8_BLOCKS, smi)
-    return dict(q1_chain_row(blocks, n_bytes, n_ops), blocks=blocks)
+    return dict(q1_chain_row(blocks, n_bytes, n_ops), blocks=blocks, sweep=sweep)
 
 
 def tf_forward(dev, reader, frames, smi):
@@ -3625,6 +3703,7 @@ def tf_int8_forward(dev, f32, q8, frames, seeded, smi):
            "trained_snapshot": distance(f32, q8, frames),
            "seeded_weights": distance(*seeded),
            "forward_B8_ms": {"int8_ms": time_ms(lambda: q8._logprobs(clips), iters=10),
+                             "int8_queued_ms": queued_ms(lambda: q8._logprobs(clips), iters=10),
                              "f32_ms": time_ms(lambda: f32._logprobs(clips), iters=10)}}
     busy, names = traced_step(lambda: q8._logprobs(clips),
                               has_kernels("int8_conv_pool_kernel", n=3))

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of the port's kernels goes, and each kernel against an
-earlier design, on one GPU. Two modes:
+earlier design, on one GPU. Modes:
 
     git archive <commit> | tar -x -C build/parent
     python3 scripts/torch_kernel_breakdown.py --parent build/parent [--out k.json]
     python3 scripts/torch_kernel_breakdown.py --mode k5 --parent build/parent [--out k.json]
-    python3 scripts/torch_kernel_breakdown.py --mode q1 [--parent DIR] [--out k.json]
+    python3 scripts/torch_kernel_breakdown.py --mode q1 [--blocks tf|lipnet|both]
+        [--parent DIR] [--out k.json]
     python3 scripts/torch_kernel_breakdown.py --mode conv1-bf16 [--parent DIR] [--out k.json]
     python3 scripts/torch_kernel_breakdown.py --mode k2-bf16 [--out k.json]
     python3 scripts/torch_kernel_breakdown.py --mode k3-h0 --parent DIR [--out k.json]
@@ -33,31 +34,26 @@ Mode `k5`:
   * times the earlier design against the current wrapper in turns:
     earlier, current, current, earlier, at B = 32, 40 and 512.
 
-Mode `q1` (the int8 conv + dequant + ReLU + pool block of int8 serving):
-  * builds int8_conv_pool.cu and variants with one part cut out (no MMA
-    task loop: the halo staging alone; no staging: the MMA loop over
-    whatever shared memory holds; both cut: the launch and the offset
-    tables; every chunk's B fragments read from chunk 0, so from L1: what
-    the weights' traffic costs; the quantizer without its exact fallback),
-    and, with `--parent DIR`, the int8_conv_pool.cu of DIR (commit
-    78af03d's design: f32 in and out, one frame per CTA, its own C
-    interface; `--parent` is optional in this mode); prints ptxas' register
-    report for each;
-  * sweeps the frames per CTA (every block at B=8, conv2 also at B = 1 and
-    32) and the tile (conv2, conv3) in profiler device time, the wrapper's
-    choice beside;
-  * times each at LipNet's three blocks at B=8, T=75 in the contracts and
-    layouts the int8 forward gives them (conv1 f32 NCDHW in, int8 out;
-    conv2 int8 in and out; conv3 int8 in, f32 out; channels-last between
-    blocks; static scales calibrated on the input), through the package's
-    wrapper with the variant swapped in: CUDA events (median of 20) and the
-    profiler's device time per call, after checking that the full kernel
-    equals the plain version bit for bit; then the whole chain;
-  * with `--parent`, the whole chain against the parent's (three
-    f32-contract launches through its C interface, its wrapper's tiles) in
-    turns (parent, current, current, parent) at B = 8 and at the smaller
-    batches a serving daemon forms (1, 2, 4), after checking that both give
-    the same bits.
+Mode `q1` (the int8 conv + dequant + ReLU + pool block of int8 serving),
+`--blocks tf|lipnet|both` (default both) and optionally `--parent DIR`, the
+root of a checkout whose int8_conv_pool.cu has commit d3be8d9's C interface
+(a tile, no B ring):
+  * builds int8_conv_pool.cu (and DIR's) and prints ptxas' register report;
+  * at each family's three blocks at full width, B=8, T=75, in the
+    contracts and layouts the int8 forward gives them (conv1 f32 NCDHW in,
+    int8 out; conv2 int8 in and out; conv3 int8 in, f32 out; channels-last
+    between blocks; static scales calibrated on the input), prints the
+    planner's tile, warps, CTAs per SM, shared memory, estimate and the
+    weight bytes it reckons per CTA and frame and per launch (DIR's too);
+  * sweeps forced tiles (`tile_for` swapped): the planner's best few by its
+    estimate, at every stage size of the B ring where Cin % 16 == 0; each
+    held equal to the plain version bit for bit, timed on the device alone
+    (`queued_ms`: the launch queued behind a device spin, CUDA events,
+    median of 20);
+  * with `--parent`, each block and the whole chain against DIR's Q1 (its
+    wrapper's tiles) in turns (parent, current, current, parent) by
+    `queued_ms`, after holding both to the plain version; at LipNet's
+    blocks the chain with the bf16 epilogue too.
 
 Mode `conv1-bf16` (K1-bf16 and K4-bf16, the conv1 block under bf16 on the
 tensor cores, csrc/conv1_mma.cuh):
@@ -363,10 +359,13 @@ def main() -> int:
     ap.add_argument("--mode", choices=("lipnet", "k5", "q1", "conv1-bf16", "k2-bf16", "k3-h0"),
                     default="lipnet",
                     help="lipnet: K1-K4 against 6ec0e61; k5: K5 against 5e863d4; q1: Q1 "
-                         "(int8 serving) cut into parts, against --parent if given; "
+                         "(int8 serving): tiles, a sweep of forced tiles, against --parent "
+                         "in turns if given; "
                          "conv1-bf16: K1-bf16 and K4-bf16 cut into parts, against --parent "
                          "if given; k2-bf16: K2's per-step product cut out; k3-h0: K3 "
                          "without h0 against --parent's, and with h0")
+    ap.add_argument("--blocks", choices=("tf", "lipnet", "both"), default="both",
+                    help="q1: the family whose three blocks to time")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
 
@@ -383,7 +382,9 @@ def main() -> int:
     if args.parent is None and args.mode not in ("q1", "conv1-bf16", "k2-bf16"):
         ap.error(f"--mode {args.mode} needs --parent")
     parent = Path(args.parent).resolve() if args.parent else None
-    out = {"k5": k5_breakdown, "q1": q1_breakdown, "lipnet": lipnet_breakdown,
+    blocks = ("tf", "lipnet") if args.blocks == "both" else (args.blocks,)
+    out = {"k5": k5_breakdown, "q1": lambda p, d: q1_breakdown(p, d, blocks),
+           "lipnet": lipnet_breakdown,
            "conv1-bf16": conv1_bf16_breakdown, "k2-bf16": k2_bf16_breakdown,
            "k3-h0": k3_h0_breakdown}[args.mode](
                parent, dev)
@@ -669,45 +670,27 @@ def k5_breakdown(parent: Path, dev):
     return out
 
 
-# Q1's parts (anchors in csrc/int8_conv_pool.cu; each variant computes a wrong
-# result and is only timed)
-Q1_NO_MMA = ("for (int task = warp; task < mgroups * ngroups; task += NWARPS) {",
-             "for (int task = warp; task < 0; task += NWARPS) {")
-Q1_NO_STAGING = [  # the ring's fills: cp.async, the register prefetch, the rest
-    ("                           int w0, int first) {\n",
-     "                           int w0, int first) {\n  return;\n"),
-    ("                            int w0) {\n", "                            int w0) {\n  return;\n"),
-    ("if (more && scalar) {", "if (false) {")]
-# every chunk's B fragments from chunk 0 (L1 hits): what the weights' traffic costs
-# the quantizer's exact fallback (a division near half-integers) never
-# taken: what its check costs
-Q1_MUL = ("d > 1e-4f ? rintf(y) : rintf(__fdiv_rn(v, s))", "rintf(y)")
-Q1_B_ONE_CHUNK = ("load_b(bn, wg, p.Kpad, min(kc + 1, chunks - 1));", "load_b(bn, wg, p.Kpad, 0);")
-Q1_VARIANTS = {"q1_full": [], "q1_staging_only": [Q1_NO_MMA],
-               "q1_compute_only": Q1_NO_STAGING, "q1_launch_only": [Q1_NO_MMA, *Q1_NO_STAGING],
-               "q1_b_one_chunk": [Q1_B_ONE_CHUNK], "q1_quantize_no_fallback": [Q1_MUL]}
-# frames per CTA timed at B=8 (and conv2 at B = 1 and 32): the wrapper's
-# `frames_for` choice against the others
-Q1_FRAMES = (1, 2, 3, 4, 6, 8, 13, 19, 25, 38, 75)
-# tiles (pooled rows x columns) timed at B=8, the wrapper's frames per CTA
-# for each: conv3's ring of four frames of the 6 x 12 tile fits one CTA per
-# SM, smaller tiles two
-Q1_TILES = {"conv2": ((12, 5), (6, 10), (6, 5), (12, 10), (4, 16)),
-            "conv3": ((6, 12), (6, 11), (6, 8), (6, 6), (6, 4), (3, 12))}
-# LipNet's conv blocks at full width: (Cin, Cout, H, W, kernel), and the
+# Q1 (the int8 conv + dequant + ReLU + pool block of int8 serving): each
+# family's three blocks at full width, (Cin, Cout, H, W, kernel), and the
 # contract the int8 forward runs each in
-Q1_BLOCKS = {"conv1": (1, 32, 50, 100, (3, 5, 5)), "conv2": (32, 64, 25, 50, (3, 5, 5)),
-             "conv3": (64, 96, 12, 25, (3, 3, 3))}
+Q1_BLOCKS = {
+    "lipnet": {"conv1": (1, 32, 50, 100, (3, 5, 5)), "conv2": (32, 64, 25, 50, (3, 5, 5)),
+               "conv3": (64, 96, 12, 25, (3, 3, 3))},
+    "tf": {"conv1": (1, 128, 46, 140, (3, 3, 3)), "conv2": (128, 256, 23, 70, (3, 3, 3)),
+           "conv3": (256, 64, 11, 35, (3, 3, 3))}}
 Q1_CHAIN = {"conv1": "f32_s8", "conv2": "s8_s8", "conv3": "s8_f32"}
-# the C interface of the parent's Q1 (78af03d: f32 in, f32 out, one frame per CTA)
-Q1_PARENT_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_float] + [ctypes.c_int] * 14
+Q1_SWEEP_TILES = 4  # tiles (with their group counts) forced per block: the planner's best
+Q1_SWEEP_DIRECT = 3  # its best tiles where Cin % 16 != 0 (B per warp task, no ring)
+# the C interface of the parent's Q1 (d3be8d9: a tile, no B ring)
+Q1_PARENT_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_float] * 2 + [ctypes.c_int] * 18
                       + [ctypes.c_longlong] * 10 + [ctypes.c_int, ctypes.c_void_p])
 
 
 def parent_tiling(parent: Path):
-    """The parent wrapper's `tile_for` and `pos_bytes` (its quantconv.py's
-    functions and constants, executed alone: importing the module would
-    register its operator a second time)."""
+    """The parent wrapper's planner (its quantconv.py's functions and
+    constants, executed alone: importing the module would register its
+    operator a second time): (H2, W2, Cin, Cout, kt, kh, kw) -> (rows, cols,
+    CTAs per SM), and its `pos_bytes`."""
     import ast
     import functools
     import typing
@@ -720,148 +703,183 @@ def parent_tiling(parent: Path):
                                                    and t.id[0] != "_" for t in n.targets))]
     ns = {"functools": functools, "Tuple": typing.Tuple, "Optional": typing.Optional}
     exec(compile(ast.Module(body=nodes, type_ignores=[]), "parent_quantconv", "exec"), ns)
-    return ns["tile_for"], ns["pos_bytes"]
+
+    def plan(H2, W2, cin, cout, kt, kh, kw):
+        rows, cols = ns["tile_for"](H2, W2, cin, cout, kt, kh, kw)
+        smem = ns["shared_memory_bytes"](cin, ns["padded"](cin * kt * kh * kw), kt, kh, kw,
+                                         rows, cols)
+        return rows, cols, 2 if smem <= ns["TWO_PER_SM"] else 1
+    return plan, ns["pos_bytes"]
 
 
-def q1_breakdown(parent, dev):
+def q1_sweep_tiles(H2, W2, cin, cout, k):
+    """The tiles the sweep forces: where Cin % 16 == 0 the planner's
+    Q1_SWEEP_TILES best (rows, cols, groups) by its estimate, each at every
+    stage size that fits; else its Q1_SWEEP_DIRECT best."""
+    from avsync_torch.ops.cuda import quantconv
+
+    cands = sorted(quantconv.tiles_to_try(H2, W2, cin, cout, *k),
+                   key=lambda t: quantconv.tile_cost(H2, W2, cin, cout, *k, t))
+    if cin % 16:
+        return cands[:Q1_SWEEP_DIRECT]
+    shapes = list(dict.fromkeys(t[:3] for t in cands))[:Q1_SWEEP_TILES]
+    return [t for t in cands if t[:3] in shapes]
+
+
+def q1_chain_case(blocks, dev, B=8, T=75, seed=0):
+    """{name: (QuantConvParams, input, out_scale, want)} of a family's three
+    blocks with random weights, each input scale its f32 input's absmax /
+    127 (as `quantize` calibrates), in the int8 forward's contracts
+    (Q1_CHAIN; channels-last between blocks); `want` the plain version."""
     import numpy as np
     import torch
 
-    from avsync_torch.ops.cuda import build, quantconv
+    from avsync_torch.ops.cuda import quantconv
     from avsync_torch.ops.quant import quant_conv_block, quant_conv_params
 
-    specs = [(build.CSRC, "int8_conv_pool", Q1_VARIANTS, "avs_int8_conv_pool",
-              quantconv._ARGTYPES)]
-    if parent is not None:
-        specs.append((parent / "avsync_torch" / "csrc", "int8_conv_pool",
-                      {"q1_parent": []}, "avs_int8_conv_pool", Q1_PARENT_ARGTYPES))
-    fns = build_variants(specs)
-    build.build(["int8_conv_pool"])
-    out = {"ptxas_variants": {k: v[1] for k, v in fns.items()}}
-    key = ("int8_conv_pool", "avs_int8_conv_pool")
-    build.function(*key, quantconv._ARGTYPES)
-    g = torch.Generator().manual_seed(0)
-    B, T = 8, 75
-    x = torch.rand(B, T, 50, 100, 1, generator=g).to(dev).permute(0, 4, 1, 2, 3)
-    qcs, blocks, h = {}, {}, x
-    for name, (cin, cout, H, W, k) in Q1_BLOCKS.items():  # calibrated as `quantize` does
+    g = torch.Generator().manual_seed(seed)
+    cin0, _, H0, W0, _ = next(iter(blocks.values()))
+    x = torch.rand(B, T, H0, W0, cin0, generator=g).to(dev).permute(0, 4, 1, 2, 3)
+    qcs, h = {}, x
+    for name, (cin, cout, H, W, k) in blocks.items():
         kq = torch.randint(-127, 128, (cout, cin, *k), generator=g, dtype=torch.int8)
         ks = torch.rand(cout, generator=g) * 0.01 + 1e-4
         qcs[name] = quant_conv_params(kq.to(dev), ks, torch.randn(cout, generator=g) * 0.1,
                                       np.float32(float(h.abs().max()) / 127))
         h = quant_conv_block(qcs[name], h)
-    names = list(Q1_BLOCKS)
-    scales = {n: float(qcs[names[i + 1]].x_scale) if i + 1 < len(names) else None
-              for i, n in enumerate(names)}
-    h = x
-    for name, (cin, cout, H, W, k) in Q1_BLOCKS.items():
-        qc, x_in, out_scale = qcs[name], h, scales[name]
-        want = quantconv.int8_conv_pool_ref(x_in, qc.kernel_q, qc.k_scale, qc.bias,
+    names = list(blocks)
+    cases, h = {}, x
+    for i, name in enumerate(names):
+        qc = qcs[name]
+        out_scale = float(qcs[names[i + 1]].x_scale) if i + 1 < len(names) else None
+        want = quantconv.int8_conv_pool_ref(h, qc.kernel_q, qc.k_scale, qc.bias,
                                             float(qc.x_scale), out_scale)
-        tile = quantconv.tile_for(H // 2, W // 2, cin, cout, *k)
-        tiles = -(-(H // 2) // tile[0]) * -(-(W // 2) // tile[1])
-        row = {"contract": Q1_CHAIN[name], "tile": tile,
-               "frames_per_cta": quantconv.frames_for(B, T, tiles)}
-
-        def call(fn=None, qc=qc, x_in=x_in, out_scale=out_scale):
-            run = (lambda: quant_conv_block(qc, x_in, out_scale))
-            return swapped(key, fn, run) if fn is not None else run
-
-        for variant in Q1_VARIANTS:
-            fn = fns[variant][0]
-            if variant == "q1_full":
-                got = None
-
-                def keep():
-                    nonlocal got
-                    got = quant_conv_block(qc, x_in, out_scale)
-                swapped(key, fn, keep)()
-                torch.cuda.synchronize()
-                row["q1_full_equals_plain"] = bool(torch.equal(got, want))
-            row[variant] = {"event_ms": time_ms(call(fn)),
-                            "device_ms": sum(device_ms(call(fn)).values())}
-        row["wrapper_ms"] = time_ms(call())
-        real = quantconv.frames_for
-        try:
-            for Bs in ((8, 1, 32) if name == "conv2" else (8,)):
-                xs = x_in if Bs == B else x_in[:1].expand(Bs, *x_in.shape[1:]).contiguous(
-                    memory_format=torch.channels_last_3d)
-                sweep = {"chosen": real(Bs, T, tiles, quantconv._sm_count(dev.index))}
-                for F in Q1_FRAMES:
-                    quantconv.frames_for = lambda *a, F=F: F
-                    sweep[F] = sum(device_ms(lambda: quant_conv_block(qc, xs, out_scale)).values())
-                row[f"frames_sweep_device_ms_B{Bs}"] = sweep
-        finally:
-            quantconv.frames_for = real
-        real_tile = quantconv.tile_for
-        try:
-            sweep = {}
-            for tl in Q1_TILES.get(name, ()):
-                quantconv.tile_for = lambda *a, tl=tl: tl
-                kp = quantconv.padded(cin * k[0] * k[1] * k[2])
-                sweep[f"{tl[0]}x{tl[1]}"] = {
-                    "smem": quantconv.shared_memory_bytes(cin, kp, *k, *tl),
-                    "device_ms": sum(device_ms(call()).values())}
-            if sweep:
-                row["tiles_sweep_B8"] = sweep
-        finally:
-            quantconv.tile_for = real_tile
-        blocks[name] = row
-        print(f"{name}: {json.dumps(row)}", flush=True)
+        cases[name] = (qc, h, out_scale, want)
         h = want
-    out["blocks_B8"] = blocks
+    return cases
 
-    def chain(x=x):
-        h = x
-        for n in names:
-            h = quant_conv_block(qcs[n], h, scales[n])
-        return h
 
-    out["chain"] = {"event_ms": time_ms(chain), "device_ms": sum(device_ms(chain).values())}
+def q1_breakdown(parent, dev, which=("tf", "lipnet")):
+    """Q1 at each family's blocks of `which` (B=8, T=75, the int8 forward's
+    contracts): each block's tile, warps, CTAs per SM and reckoned weight
+    bytes (this tree's and, with `parent`, the parent's); a sweep of forced
+    tiles and stage sizes, each held equal to the plain version bit for
+    bit and timed on the device alone (`queued_ms`); with `parent`, each
+    block and the whole chain against the parent's in turns (parent,
+    current, current, parent), after holding both to the plain version, and
+    at LipNet's blocks the bf16 epilogue's chain too."""
+    import torch
+
+    from avsync_torch.ops.cuda import build, quantconv
+    from avsync_torch.ops.quant import quant_conv_block
+
+    out = {}
+    build.build(["int8_conv_pool"])
+    out["ptxas"] = [ln.strip() for ln in build.build_log("int8_conv_pool").splitlines()
+                    if "registers" in ln or "spill" in ln or "Function properties" in ln]
+    pfn = plan = None
     if parent is not None:
-        tile_for, pos_bytes = parent_tiling(parent)
-        pfn = fns["q1_parent"][0]
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        fns = build_variants([(parent / "avsync_torch" / "csrc", "int8_conv_pool",
+                               {"q1_parent": []}, "avs_int8_conv_pool", Q1_PARENT_ARGTYPES)])
+        pfn, out["ptxas_parent"] = fns["q1_parent"]
+        plan, ppos_bytes = parent_tiling(parent)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sms = quantconv._sm_count(dev.index)
 
-        def parent_chain(x=x):  # three f32-contract launches, as the parent's wrapper
-            h = x
+    def parent_block(qc, x, out_scale, bf16=False):
+        """One launch of the parent's Q1 as its wrapper made it."""
+        B, cin, T, H, W = x.shape
+        cout, _, kt, kh, kw = qc.kernel_q.shape
+        rows, cols, per_sm = plan(H // 2, W // 2, cin, cout, kt, kh, kw)
+        frames = quantconv.frames_for(B, T, -(-(H // 2) // rows) * -(-(W // 2) // cols), sms,
+                                      per_sm)
+        scale, bias = (qc.scale16, qc.bias16) if bf16 else (qc.scale, qc.bias)
+        o = quantconv._out_empty(x, cout, out_scale, scale.dtype)
+        checked(pfn(x.data_ptr(), qc.packed.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                    o.data_ptr(), float(qc.x_scale), 1.0 if out_scale is None else out_scale,
+                    int(x.dtype == torch.int8), int(out_scale is not None), int(bf16), B, cin,
+                    T, H, W, cout, kt, kh, kw, qc.packed.shape[1], qc.packed.shape[0], rows,
+                    cols, ppos_bytes(cin), frames, *x.stride(), *o.stride(), dev.index,
+                    stream), "parent Q1")
+        return o
+
+    def turns(old, new):
+        t = {"parent": [], "current": []}
+        for side in ("parent", "current", "current", "parent"):
+            t[side].append(queued_ms(old if side == "parent" else new))
+        return dict(t, ratio=sum(t["current"]) / sum(t["parent"]))
+
+    B, T = 8, 75
+    for family in which:
+        blocks = Q1_BLOCKS[family]
+        cases = q1_chain_case(blocks, dev, B, T)
+        fam = {}
+        for name, (cin, cout, H, W, k) in blocks.items():
+            qc, x, out_scale, want = cases[name]
+            H2, W2 = H // 2, W // 2
+            tile = quantconv.tile_for(H2, W2, cin, cout, *k)
+
+            def describe(t, per_sm):
+                return {"tile": list(t), "warps": quantconv.warps(t), "ctas_per_sm": per_sm,
+                        "smem": quantconv.shared_memory_bytes(
+                            cin, quantconv.padded(cin * k[0] * k[1] * k[2]), *k, *t),
+                        "weight_bytes_per_cta_frame": quantconv.weight_bytes(cin, cout, *k, t),
+                        "weight_gb_per_launch": quantconv.weight_traffic(
+                            B, T, H2, W2, cin, cout, *k, t) / 1e9,
+                        "estimate": quantconv.tile_cost(H2, W2, cin, cout, *k, t)}
+
+            row = {"contract": Q1_CHAIN[name],
+                   **describe(tile, quantconv.ctas_per_sm(cin, *k, tile))}
+            run = (lambda qc=qc, x=x, out_scale=out_scale: quant_conv_block(qc, x, out_scale))
+            row["equal_plain"] = bool(torch.equal(run(), want))
+            real = quantconv.tile_for
+            sweep = []
+            try:
+                for t in q1_sweep_tiles(H2, W2, cin, cout, k):
+                    quantconv.tile_for = lambda *a, t=t: t
+                    ok = bool(torch.equal(run(), want))
+                    sweep.append({**describe(t, quantconv.ctas_per_sm(cin, *k, t)),
+                                  "equal_plain": ok, "queued_ms": queued_ms(run)})
+                    if not ok:
+                        raise SystemExit(f"Q1 at {family} {name} tile {tuple(t)} differs from "
+                                         "its plain version")
+            finally:
+                quantconv.tile_for = real
+            row["sweep"] = sweep
+            if parent is not None:
+                prow, pcol, pper = plan(H2, W2, cin, cout, *k)
+                old = (lambda qc=qc, x=x, out_scale=out_scale: parent_block(qc, x, out_scale))
+                row["parent"] = {**describe(quantconv.Q1Tile(prow, pcol), pper),
+                                 "equal_plain": bool(torch.equal(old(), want))}
+                row["turns_queued_ms"] = turns(old, run)
+            else:
+                row["queued_ms"] = queued_ms(run)
+            fam[name] = row
+            print(f"{family} {name}: {json.dumps(row)}", flush=True)
+        names = list(blocks)
+
+        def chain(bf16=False, blk=None):
+            h = cases[names[0]][1]
             for n in names:
-                qc = qcs[n]
-                Bh, cin, Th, H, W = h.shape
-                cout, _, kt, kh, kw = qc.kernel_q.shape
-                rows, cols = tile_for(H // 2, W // 2, cin, cout, kt, kh, kw)
-                o = torch.empty(Bh, Th, H // 2, W // 2, cout, device=dev).permute(0, 4, 1, 2, 3)
-                checked(pfn(h.data_ptr(), qc.packed.data_ptr(), qc.scale.data_ptr(),
-                            qc.bias.data_ptr(), o.data_ptr(), float(qc.x_scale), Bh, cin, Th,
-                            H, W, cout, kt, kh, kw, qc.packed.shape[1], qc.packed.shape[0],
-                            rows, cols, pos_bytes(cin), *h.stride(), *o.stride(), dev.index,
-                            stream), "parent Q1")
-                h = o
+                qc, _, out_scale, _ = cases[n]
+                h = (blk(qc, h, out_scale, bf16) if blk is not None
+                     else quant_conv_block(qc, h, out_scale,
+                                           compute_dtype=torch.bfloat16 if bf16 else None))
             return h
 
-        same = bool(torch.equal(parent_chain(), chain()))
-        turns = {"parent": [], "current": []}
-        for side in ("parent", "current", "current", "parent"):
-            turns[side].append(time_ms(parent_chain if side == "parent" else chain))
-        out["chain_vs_parent"] = {
-            "equal_bit_for_bit": same, "turns_event_ms": turns,
-            "device_ms": {"parent": sum(device_ms(parent_chain).values()),
-                          "current": sum(device_ms(chain).values())}}
-        print(f"chain vs parent: {json.dumps(out['chain_vs_parent'])}", flush=True)
-        # the batch sizes a daemon with max_batch 8 forms
-        small = {}
-        for Bs in (1, 2, 4):
-            xs = x[:Bs]
-            pc, cc = (lambda xs=xs: parent_chain(xs)), (lambda xs=xs: chain(xs))
-            row = {"equal_bit_for_bit": bool(torch.equal(pc(), cc())),
-                   "turns_event_ms": {"parent": [], "current": []}}
-            for side in ("parent", "current", "current", "parent"):
-                row["turns_event_ms"][side].append(time_ms(pc if side == "parent" else cc))
-            row["device_ms"] = {"parent": sum(device_ms(pc).values()),
-                                "current": sum(device_ms(cc).values())}
-            small[f"B{Bs}"] = row
-        out["chain_vs_parent_small_batches"] = small
-        print(f"chain vs parent at B = 1, 2, 4: {json.dumps(small)}", flush=True)
+        if parent is not None:
+            fam["chain"] = {"equal": bool(torch.equal(chain(), chain(blk=parent_block))),
+                            "turns_queued_ms": turns(lambda: chain(blk=parent_block), chain)}
+            if family == "lipnet":
+                fam["bf16_chain"] = {
+                    "equal": bool(torch.equal(chain(True), chain(True, parent_block))),
+                    "turns_queued_ms": turns(lambda: chain(True, parent_block),
+                                             lambda: chain(True))}
+        else:
+            fam["chain"] = {"queued_ms": queued_ms(chain)}
+        print(f"{family} chain: {json.dumps({k_: fam[k_] for k_ in fam if 'chain' in k_})}",
+              flush=True)
+        out[family] = fam
     return out
 
 

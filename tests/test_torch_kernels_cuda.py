@@ -927,14 +927,19 @@ def test_int8_conv_pool_frames_per_cta_change_no_bit(dev, frames, monkeypatch):
 
 
 def test_int8_conv_pool_shared_memory_mirrors_the_kernel(dev):
-    """The wrapper's `shared_memory_bytes` (tables and the ring of kt + 1
-    frames) is the kernel's `smem_bytes`, which the launch asks for."""
+    """The wrapper's `shared_memory_bytes` (the offset tables, the ring of
+    kt + 1 frames and the B ring's two stages of `chunks` k-chunks x
+    `groups` channel groups) is the kernel's `smem_bytes`, which the launch
+    asks for."""
     fn = build.function("int8_conv_pool", "avs_int8_conv_pool_smem", quantconv._SMEM_ARGTYPES)
-    for cin, k in [(1, (3, 5, 5)), (32, (3, 5, 5)), (64, (3, 3, 3)), (3, (1, 3, 5)), (12, (3, 5, 5))]:
+    for cin, k in [(1, (3, 5, 5)), (32, (3, 5, 5)), (64, (3, 3, 3)), (3, (1, 3, 5)),
+                   (12, (3, 5, 5)), (128, (3, 3, 3)), (256, (3, 3, 3))]:
         kpad = quantconv.padded(cin * k[0] * k[1] * k[2])
-        for rows, cols in [(1, 1), (5, 25), (12, 5), (6, 12), (6, 4), (3, 7)]:
-            assert fn(cin, kpad, *k, rows, cols, quantconv.pos_bytes(cin)) == \
-                quantconv.shared_memory_bytes(cin, kpad, *k, rows, cols)
+        rings = [(1, 2), (2, 4), (4, 8), (8, 16)] if cin % 16 == 0 else [(0, 0)]
+        for rows, cols in [(1, 1), (5, 25), (12, 5), (6, 12), (6, 4), (3, 7), (11, 5), (5, 6)]:
+            for ring in rings:
+                assert fn(cin, kpad, *k, rows, cols, quantconv.pos_bytes(cin), *ring) == \
+                    quantconv.shared_memory_bytes(cin, kpad, *k, rows, cols, *ring)
 
 
 # the TF-family LipNet's three blocks at its full width (75 x 46 x 140 crops,
@@ -960,10 +965,30 @@ def test_int8_conv_pool_equals_plain_at_the_tf_blocks(dev, cin, cout, H, W, cont
     assert got.shape == want.shape == (2, cout, 75, H // 2, W // 2) and got.dtype == want.dtype
     assert torch.equal(got, want) and torch.equal(got, again)
     fn = build.function("int8_conv_pool", "avs_int8_conv_pool_smem", quantconv._SMEM_ARGTYPES)
-    rows, cols = quantconv.tile_for(H // 2, W // 2, cin, cout, 3, 3, 3)
+    tile = quantconv.tile_for(H // 2, W // 2, cin, cout, 3, 3, 3)
     kpad = quantconv.padded(cin * 27)
-    assert fn(cin, kpad, 3, 3, 3, rows, cols, quantconv.pos_bytes(cin)) == \
-        quantconv.shared_memory_bytes(cin, kpad, 3, 3, 3, rows, cols)
+    assert fn(cin, kpad, 3, 3, 3, tile.rows, tile.cols, quantconv.pos_bytes(cin),
+              *tile[2:]) == quantconv.shared_memory_bytes(cin, kpad, 3, 3, 3, *tile)
+
+
+@pytest.mark.parametrize("contract", ["s8_s8", "f32_f32"])
+@pytest.mark.parametrize("cin,cout,H,W", TF_Q1_BLOCKS, ids=["conv1", "conv2", "conv3"])
+def test_int8_conv_pool_every_tile_the_planner_may_return(dev, cin, cout, H, W, contract,
+                                                           monkeypatch):
+    """Q1 at the TF stack's blocks (B=1, T=3) equals its plain version bit
+    for bit at every tile the planner chooses from (`tiles_to_try`: each
+    tile, and each channel-group count and stage size of the B ring that
+    fits), forced by monkeypatching `tile_for`."""
+    from avsync_torch.ops.quant import quant_conv_block
+
+    qc, x = q1_case(_gen(81), dev, 1, cin, cout, 3, H, W, (3, 3, 3))
+    x, out_scale = q1_contract(qc, channels_last(x) if cin > 1 else x, contract, "random")
+    want = q1_ref(qc, x, out_scale)
+    tiles = list(quantconv.tiles_to_try(H // 2, W // 2, cin, cout, 3, 3, 3))
+    assert quantconv.tile_for(H // 2, W // 2, cin, cout, 3, 3, 3) in tiles
+    for tile in tiles:
+        monkeypatch.setattr(quantconv, "tile_for", lambda *args, tile=tile: tile)
+        assert torch.equal(quant_conv_block(qc, x, out_scale), want), tile
 
 
 def calibrated_chain(g, dev, x):

@@ -266,17 +266,27 @@ def test_operator_contracts_on_the_cpu():
 
 
 def test_tile_choice_and_its_limits():
-    """Every tile the wrapper chooses fits the shared memory of two CTAs per
-    SM at LipNet's blocks, its ring of kt + 1 frames included; a halo
-    position takes S bytes with S / 16 odd where Cin % 4 == 0; a geometry
-    whose single pooled position does not fit in one CTA raises and says
-    so."""
-    for H2, W2, cin, cout, k in [(25, 50, 1, 32, (3, 5, 5)), (12, 25, 32, 64, (3, 5, 5)),
-                                 (6, 12, 64, 96, (3, 3, 3)), (1, 1, 3, 5, (1, 1, 1))]:
-        rows, cols = quantconv.tile_for(H2, W2, cin, cout, *k)
+    """Every tile the wrapper chooses at LipNet's blocks fits the shared
+    memory of the CTAs per SM it was chosen under, its ring of kt + 1
+    frames and its B ring included: two per SM at conv1; one at conv2 (4 x
+    25 pooled positions, 14 warps, B through the ring in stages of 16
+    k-chunks) and conv3 (its whole 6 x 12 pooled frame, 15 warps, B through
+    the ring): each faster on the card than the earlier 12 x 5 and 6 x 4
+    tiles at two per SM; a halo position takes S bytes with S / 16 odd
+    where Cin % 4 == 0; a geometry whose single pooled position does not
+    fit in one CTA raises and says so."""
+    for H2, W2, cin, cout, k, budget in [
+            (25, 50, 1, 32, (3, 5, 5), quantconv.TWO_PER_SM),
+            (12, 25, 32, 64, (3, 5, 5), quantconv.MAX_SMEM),
+            (6, 12, 64, 96, (3, 3, 3), quantconv.MAX_SMEM),
+            (1, 1, 3, 5, (1, 1, 1), quantconv.TWO_PER_SM)]:
+        tile = quantconv.tile_for(H2, W2, cin, cout, *k)
+        rows, cols = tile.rows, tile.cols
         assert 1 <= rows <= H2 and 1 <= cols <= W2 and rows * cols <= 128
         kpad = quantconv.padded(cin * k[0] * k[1] * k[2])
-        assert quantconv.shared_memory_bytes(cin, kpad, *k, rows, cols) <= quantconv.TWO_PER_SM
+        assert quantconv.shared_memory_bytes(cin, kpad, *k, *tile) <= budget
+        assert quantconv.ctas_per_sm(cin, *k, tile) == (2 if budget == quantconv.TWO_PER_SM
+                                                        else 1)
     assert quantconv.pos_bytes(32) == 48 and quantconv.pos_bytes(64) == 80
     assert quantconv.pos_bytes(3) == 3 and quantconv.pos_bytes(12) == 16
     with pytest.raises(ValueError, match="shared memory"):
@@ -295,13 +305,65 @@ def test_frames_per_cta_fill_the_card(B):
     last one not empty."""
     for H2, W2, cin, cout, k in [(25, 50, 1, 32, (3, 5, 5)), (12, 25, 32, 64, (3, 5, 5)),
                                  (6, 12, 64, 96, (3, 3, 3))]:
-        rows, cols = quantconv.tile_for(H2, W2, cin, cout, *k)
-        tiles = -(-H2 // rows) * -(-W2 // cols)
+        tile = quantconv.tile_for(H2, W2, cin, cout, *k)
+        tiles = -(-H2 // tile.rows) * -(-W2 // tile.cols)
         F = quantconv.frames_for(B, 75, tiles)
         runs = -(-75 // F)
         assert 1 <= F <= 75 and (runs - 1) * F < 75
         assert B * tiles * runs >= min(132, B * tiles * 75)
     assert quantconv.frames_for(1, 75, 1) == 1 and quantconv.frames_for(1024, 75, 8) == 75
+
+
+# the TF-family LipNet's three blocks at full width (75 x 46 x 140 crops,
+# 3x3x3 kernels): (H2, W2, Cin, Cout) of the pooled frames
+TF_BLOCKS = {"conv1": (23, 70, 1, 128), "conv2": (11, 35, 128, 256),
+             "conv3": (5, 17, 256, 64)}
+
+
+@pytest.mark.parametrize("name", list(TF_BLOCKS))
+def test_tf_tiles_fit_the_budget_they_were_chosen_under(name):
+    """At the TF blocks the chosen tile's shared memory, the B ring counted,
+    fits the CTAs per SM it was chosen under (`ctas_per_sm`, at least one),
+    its warps fit the kernel and the SM; it and every candidate of
+    `tiles_to_try` have a B ring (groups, chunks) exactly where Cin
+    % 16 == 0 and fit one CTA and the kernel's limits."""
+    H2, W2, cin, cout = TF_BLOCKS[name]
+    k = (3, 3, 3)
+    kpad = quantconv.padded(cin * 27)
+    tile = quantconv.tile_for(H2, W2, cin, cout, *k)
+    per_sm = quantconv.ctas_per_sm(cin, *k, tile)
+    smem = quantconv.shared_memory_bytes(cin, kpad, *k, *tile)
+    assert per_sm >= 1 and per_sm * (smem + 1024) <= quantconv.SM_SMEM
+    assert smem <= quantconv.MAX_SMEM
+    assert per_sm * quantconv.warps(tile) <= quantconv.SM_WARPS
+    for t in [tile, *quantconv.tiles_to_try(H2, W2, cin, cout, *k)]:
+        assert (t.groups > 0) == (cin % 16 == 0)
+        assert t.groups == 0 or t.chunks in quantconv.RING_CHUNKS
+        assert quantconv.shared_memory_bytes(cin, kpad, *k, *t) <= quantconv.MAX_SMEM
+        assert quantconv.warps(t) <= quantconv.MAX_WARPS
+        assert t.groups * 32 <= quantconv.padded(cout) and t.rows <= H2 and t.cols <= W2
+
+
+def test_tf_conv3_tile_covers_16_pooled_positions():
+    """The offset tables no longer crowd out the halo ring: TF conv3's tile
+    (256 input channels) covers at least 16 pooled positions."""
+    H2, W2, cin, cout = TF_BLOCKS["conv3"]
+    tile = quantconv.tile_for(H2, W2, cin, cout, 3, 3, 3)
+    assert tile.rows * tile.cols >= 16
+
+
+@pytest.mark.parametrize("name,parent_tile,parent_gb", [("conv2", (4, 4), 14.3),
+                                                        ("conv3", (5, 1), 4.5)])
+def test_weight_traffic_at_the_tf_blocks_is_below_the_parents(name, parent_tile, parent_gb):
+    """The planner's reckoning of the weight bytes one chain call (B=8,
+    T=75) reads at TF conv2 and conv3 is below the earlier design's: its
+    tiles read B per warp task, 14.3 and 4.5 GB."""
+    H2, W2, cin, cout = TF_BLOCKS[name]
+    old = quantconv.weight_traffic(8, 75, H2, W2, cin, cout, 3, 3, 3,
+                                   quantconv.Q1Tile(*parent_tile))
+    assert round(old / 1e9, 1) == parent_gb
+    tile = quantconv.tile_for(H2, W2, cin, cout, 3, 3, 3)
+    assert quantconv.weight_traffic(8, 75, H2, W2, cin, cout, 3, 3, 3, tile) < old
 
 
 # ---------------------------------------------------------------------------
