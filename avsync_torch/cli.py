@@ -568,13 +568,16 @@ def cmd_export(args) -> int:
         geom = (h, w)
     buckets = None
     if args.batch_sizes:
+        # the JAX command's messages, on stdout, and its exit code 2
         try:
             buckets = [int(v) for v in args.batch_sizes.split(",")]
         except ValueError:
-            raise SystemExit("--batch_sizes must be a comma-separated list of positive ints, "
-                             f"got {args.batch_sizes!r}") from None
+            print("--batch_sizes must be a comma-separated list of positive ints, "
+                  f"got {args.batch_sizes!r}")
+            return 2
         if any(b <= 0 for b in buckets):
-            raise SystemExit(f"--batch_sizes entries must be positive, got {args.batch_sizes!r}")
+            print(f"--batch_sizes entries must be positive, got {args.batch_sizes!r}")
+            return 2
     if args.detector_checkpoint:
         art = export_sync_scorer(args.detector_checkpoint, args.checkpoint, cfg,
                                  num_shifts=args.shifts_per_request, frame_geometry=geom,

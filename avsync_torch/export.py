@@ -13,7 +13,8 @@ are the operators `avsync_torch::conv1_pool` and `avsync_torch::bigru_fwd`
 (`ops/cuda`), so the program launches the hand-written kernels, not their
 plain versions. `export_sync_scorer` does the same for the misalignment
 pipeline: preprocess -> conv statistics (K1) -> shift -> rfft power -> K5
-(`avsync_torch::mel_stats`) -> the detector's MLP.
+(`avsync_torch::mel_stats`) -> the detector's MLP; it holds the LipNet's
+conv blocks and the detector, not the BiGRU layers or the head.
 
 Batch: `batch_sizes=None` gives one program with a symbolic batch
 (`torch.export.Dim`); a list gives one static program per bucket, and
@@ -214,12 +215,17 @@ class _TranscriberProgram(torch.nn.Module):
 
 
 class _SyncScorerProgram(torch.nn.Module):
+    """The scoring pipeline over the scorer LipNet's conv blocks alone
+    (`models.lipnet.ConvStack`), the detector and the audio constants: the
+    program stores only what it reads."""
+
     def __init__(self, scorer, frame_hw: Tuple[int, int], native: bool):
+        from avsync_torch.models import lipnet
         from avsync_torch.ops import audio as audiolib
 
         super().__init__()
         self.prep = _Preprocess(scorer.cfg, frame_hw, scorer._localizer, scorer.device, native)
-        self.lipnet, self.detector = scorer.lipnet, scorer.detector
+        self.lipnet, self.detector = lipnet.ConvStack(scorer.lipnet), scorer.detector
         for name, t in zip(("melT", "dctT", "window"),
                            audiolib.device_constants(scorer.cfg.audio, scorer.device)):
             self.register_buffer(name, t.clone())

@@ -226,3 +226,20 @@ class LipNet(nn.Module):
     def conv_features(self, x: torch.Tensor) -> torch.Tensor:
         """Conv stack only: (B, T, C*h*w) float32 features in (C, H, W) order."""
         return self._conv_stack(x).float()
+
+
+class ConvStack(nn.Module):
+    """A LipNet's conv blocks alone (the same modules, so the same
+    parameters) with LipNet's own `conv_features`: all that the misalignment
+    detector's visual statistics read. `torch.export` stores every
+    parameter of the module it traces, read or not, so the exported sync
+    scorer holds this and no BiGRU or head weights."""
+
+    def __init__(self, lipnet: LipNet):
+        super().__init__()
+        self.cfg, self.compute_dtype = lipnet.cfg, lipnet.compute_dtype
+        for i in range(len(lipnet.cfg.conv_channels)):
+            self.add_module(f"conv{i + 1}", getattr(lipnet, f"conv{i + 1}"))
+
+    _conv_stack = LipNet._conv_stack
+    conv_features = LipNet.conv_features

@@ -1,10 +1,12 @@
 """Device-side frame preprocessing on tensors (port of `avsync/ops/image.py`).
 
-Heuristic mouth crop (rows [0.6H, H) x cols [0.3W, 0.7W)), bilinear resize
-with cv2's INTER_LINEAR half-pixel convention, /255, the TF stack's
-per-clip standardization, the crop + resize of per-frame boxes
-(`crop_resize_boxes`) and the temporal-variance mouth box
-(`variance_mouth_boxes`). Everything runs on the device the frames are on.
+BT.601 gray conversion, heuristic mouth crop (rows [0.6H, H) x cols
+[0.3W, 0.7W)), bilinear resize with cv2's INTER_LINEAR half-pixel
+convention and INTER_AREA's box average, /255, the TF stack's per-clip
+standardization, zero-padding or truncating the time axis, the crop +
+resize of per-frame boxes (`crop_resize_boxes`) and the temporal-variance
+mouth box (`variance_mouth_boxes`). Everything runs on the device the
+frames are on.
 """
 
 from __future__ import annotations
@@ -13,6 +15,21 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+
+# ITU-R BT.601 luma weights, as cv2.cvtColor's BGR2GRAY / RGB2GRAY
+_LUMA_RGB = (0.299, 0.587, 0.114)
+
+
+def rgb_to_gray(frames: torch.Tensor) -> torch.Tensor:
+    """(..., 3) RGB -> (...) gray with BT.601 weights."""
+    r, g, b = frames[..., 0], frames[..., 1], frames[..., 2]
+    return _LUMA_RGB[0] * r + _LUMA_RGB[1] * g + _LUMA_RGB[2] * b
+
+
+def bgr_to_gray(frames: torch.Tensor) -> torch.Tensor:
+    """(..., 3) BGR -> (...) gray with BT.601 weights."""
+    return rgb_to_gray(frames.flip(-1))
 
 
 def _linear_coords(out_size: int, in_size: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -87,6 +104,28 @@ def standardize_clips(clips: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
     mean = clips.mean(dim=dims, keepdim=True)
     std = clips.std(dim=dims, keepdim=True, correction=0)
     return (clips - mean) / std.clamp_min(1e-8 if eps == 0.0 else eps)
+
+
+def pad_or_truncate_time(clips: torch.Tensor,
+                         max_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, T, ...) -> ((B, max_len, ...) zero-padded at the tail or
+    truncated, (B,) int32 valid lengths), as `dataset.py:245-251`."""
+    B, T = clips.shape[:2]
+    if T >= max_len:
+        out = clips[:, :max_len]
+    else:
+        out = torch.cat([clips, clips.new_zeros((B, max_len - T) + tuple(clips.shape[2:]))], 1)
+    return out, torch.full((B,), min(T, max_len), dtype=torch.int32, device=clips.device)
+
+
+def resize_area(frames: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """cv2 INTER_AREA for integer downscale factors (the box average; the TF
+    stack resizes with it, `train.py:252`) of (..., H, W) float frames;
+    other factors fall back to `resize_bilinear`."""
+    (H, W), (h, w) = frames.shape[-2:], out_hw
+    if H % h or W % w:
+        return resize_bilinear(frames, out_hw)
+    return frames.reshape(*frames.shape[:-2], h, H // h, w, W // w).mean(dim=(-3, -1))
 
 
 def true_div(t: torch.Tensor, n: float) -> torch.Tensor:

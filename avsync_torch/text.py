@@ -112,6 +112,12 @@ def decode_batch(log_probs, blank_id: int = BLANK_ID,
             for b in range(decoded.shape[0])]
 
 
+def decode_prediction(log_probs) -> str:
+    """One (T, V) sequence of log-probs (tensor or array) -> its greedy
+    transcript (`utils.py:8-36`)."""
+    return decode_batch(torch.as_tensor(log_probs)[None])[0]
+
+
 # ---------------------------------------------------------------------------
 # TF-family vocabulary (`train.py:106-121`)
 # ---------------------------------------------------------------------------

@@ -15,10 +15,14 @@ from typing import Tuple
 
 from avsync_torch.config import ModelConfig
 
-# NVIDIA's H100 SXM data sheet: dense fp32 outside the tensor cores, at the
-# 700 W power limit (the rate chip_smoke.py's bounds use). A datasheet
-# figure, not a measurement.
+# NVIDIA's H100 SXM data sheet, dense (no sparsity), at the 700 W power
+# limit: fp32 outside the tensor cores, bf16 and int8 on them (the rates
+# chip_smoke.py's bounds use). Datasheet figures, not measurements.
 H100_FP32_PEAK_FLOPS = 67e12
+H100_BF16_PEAK_FLOPS = 989e12
+H100_INT8_PEAK_OPS = 1979e12
+_PEAKS = {"float32": H100_FP32_PEAK_FLOPS, "bfloat16": H100_BF16_PEAK_FLOPS,
+          "int8": H100_INT8_PEAK_OPS}
 
 
 def conv_stack_flops(cfg: ModelConfig, T: int, H: int, W: int, in_ch: int = 1) -> int:
@@ -60,13 +64,17 @@ def lipnet_train_flops(cfg: ModelConfig, T: int = 75, H: int = 50, W: int = 100)
     return 3 * lipnet_forward_flops(cfg, T, H, W)
 
 
-def h100_peak_flops() -> float:
-    """The H100 SXM's dense fp32 peak (the port computes in fp32)."""
-    return H100_FP32_PEAK_FLOPS
+def h100_peak_flops(dtype: str = "bfloat16") -> float:
+    """The H100 SXM's dense peak for the compute dtype (the JAX package's
+    `v5e_peak_flops(dtype)` on its chip)."""
+    if dtype not in _PEAKS:
+        raise ValueError(f"no H100 peak for dtype {dtype!r}: expected one of {sorted(_PEAKS)}")
+    return _PEAKS[dtype]
 
 
 def mfu(clips_per_sec: float, cfg: ModelConfig,
-        shape: Tuple[int, int, int] = (75, 50, 100)) -> float:
-    """Model FLOPs utilisation of one H100 at `clips_per_sec` train clips."""
+        shape: Tuple[int, int, int] = (75, 50, 100), dtype: str = "bfloat16") -> float:
+    """Model FLOPs utilisation of one H100 at `clips_per_sec` train clips
+    computed in `dtype`: the JAX count over the card's peak for that dtype."""
     T, H, W = shape
-    return clips_per_sec * lipnet_train_flops(cfg, T, H, W) / h100_peak_flops()
+    return clips_per_sec * lipnet_train_flops(cfg, T, H, W) / h100_peak_flops(dtype)

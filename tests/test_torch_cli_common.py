@@ -1,8 +1,8 @@
 """The JAX parser's common flags on every command of the port's CLI
 (`avsync/cli.py:1253-1310`): --roi_mode and --roi_host reach the config of
 each command, the perf flags are on every command and win over a config
-file, and the values the port does not run yet raise naming their ROADMAP
-item. `infer --roi_mode variance` on a container clip against the JAX
+file, and `--distributed` outside `train` exits 2 with the JAX package's
+message. `infer --roi_mode variance` on a container clip against the JAX
 LipReader, and `train --roi_mode variance --roi_host` on native frames."""
 
 import json
@@ -67,8 +67,9 @@ def test_explicit_flags_win_over_the_config_file(command, tmp_path):
 
 
 def test_unported_values_raise_naming_their_item(tmp_path, capsys):
-    # --distributed is ported for `train`: on another command it exits 2 with
-    # the JAX package's message (avsync/cli.py:1520-1531)
+    # no value is refused for want of a port any more; --distributed is ported
+    # for `train`, and on another command it exits 2 with the JAX package's
+    # message (avsync/cli.py:1520-1531)
     for command in ("test", "serve", "misalign-train"):
         extra, _ = COMMANDS[command]
         argv = [command, *extra, "--data_path", str(tmp_path), "--device", "cpu",
@@ -78,9 +79,9 @@ def test_unported_values_raise_naming_their_item(tmp_path, capsys):
 
 
 def test_int8_under_bf16_is_no_longer_refused(tmp_path):
-    """`--quantize int8` with `--compute_dtype bfloat16` (ROADMAP §1 item 14
-    is ported): each command's config keeps both, its int8 forward builds in
-    bf16, and the command gets past its flags to the missing checkpoint."""
+    """`--quantize int8` with `--compute_dtype bfloat16` runs, as in the JAX
+    CLI: each command's config keeps both, its int8 forward builds in bf16,
+    and the command gets past its flags to the missing checkpoint."""
     from avsync_torch.ops.quant import make_int8_forward
 
     for command in ("test", "serve"):

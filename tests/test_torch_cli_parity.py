@@ -151,3 +151,20 @@ def test_tf_commands_build_a_float32_model(command, line, config_file):
         out = model(x.to(torch.bfloat16))
         assert out.dtype == torch.float32
         assert torch.equal(out, model(x.to(torch.bfloat16).float()))
+
+
+@pytest.mark.parametrize("batch_sizes", ["0,2", "a,b"])
+def test_export_refuses_bad_batch_sizes_as_the_jax_cli(batch_sizes, tmp_path, capsys):
+    """`export --batch_sizes` that does not parse, or has an entry <= 0:
+    the message on stdout and exit code 2, before any checkpoint is read
+    (`avsync/cli.py:636-645`)."""
+    argv = ["export", "--checkpoint", str(tmp_path / "missing.pth"), "--out",
+            str(tmp_path / "a.zip"), "--batch_sizes", batch_sizes]
+    codes, outs = [], []
+    for m in (jax_cli.main, cli.main):
+        codes.append(m(argv))
+        captured = capsys.readouterr()
+        outs.append(captured.out)
+        assert captured.err == ""
+    assert codes == [2, 2]
+    assert outs[1] == outs[0] and "--batch_sizes" in outs[0] and repr(batch_sizes) in outs[0]

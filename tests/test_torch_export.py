@@ -274,6 +274,54 @@ def test_sync_scorer_matches_the_jax_scorer(loaded, ckpts):
         art.score_arrays(_frames(0), np.zeros(10, np.float32), 25.0, (0, 2))
 
 
+def _stored_parameters(art) -> dict:
+    """{name: numel} of the parameters each program of the artifact stores
+    (the same in every program)."""
+    stored = [{n: ep.state_dict[n].numel() for n in ep.graph_signature.parameters}
+              for ep in art._exported.values()]
+    assert all(s == stored[0] for s in stored)
+    return stored[0]
+
+
+def test_sync_scorer_stores_only_the_conv_blocks_and_the_detector(artifacts, loaded, ckpts,
+                                                                    monkeypatch, tmp_path):
+    """The program holds the LipNet's conv blocks and the detector, in
+    memory and in the saved file, and no BiGRU or head parameter; its
+    probabilities equal, bit for bit, those of the form that held the whole
+    LipNet (which stores the BiGRU layers and the head, read or not)."""
+    from avsync_torch.models import lipnet as lipnet_module
+    from avsync_torch.predictor import MisalignmentScorer
+
+    live = MisalignmentScorer(ckpts["detector"], ckpts["lipnet"], config=CFG, device="cpu")
+    lip = dict(live.lipnet.named_parameters())
+    want = {f"lipnet.{n}": p.numel() for n, p in lip.items() if n.startswith("conv")}
+    want.update({f"detector.{n}": p.numel() for n, p in live.detector.named_parameters()})
+    unread = {n: p.numel() for n, p in lip.items() if not n.startswith("conv")}
+    assert any(n.startswith("gru") for n in unread) and any(n.startswith("fc") for n in unread)
+    fresh = export_sync_scorer(ckpts["detector"], ckpts["lipnet"], CFG, num_shifts=len(SHIFTS),
+                               device="cpu")
+    for art in (fresh, loaded["scorer"]):
+        assert _stored_parameters(art) == want
+
+    # the form that held the whole LipNet
+    monkeypatch.setattr(lipnet_module, "ConvStack", lambda lipnet: lipnet)
+    whole_path = str(tmp_path / "whole.zip")
+    export_sync_scorer(ckpts["detector"], ckpts["lipnet"], CFG, num_shifts=len(SHIFTS),
+                       device="cpu").save(whole_path)
+    whole = load_exported(whole_path)
+    assert _stored_parameters(whole) == dict(want, **{f"lipnet.{n}": k
+                                                      for n, k in unread.items()})
+    saved_bytes = os.path.getsize(whole_path) - os.path.getsize(artifacts["scorer"])
+    assert saved_bytes >= 4 * sum(unread.values())
+    r = np.random.default_rng(19)
+    B = 3
+    args = (r.integers(0, 256, (B, 8, 16, 32), np.uint8),
+            (r.standard_normal((B, S)) * 0.2).astype(np.float32),
+            np.array([0, 3000, S], np.int32), np.full(B, 25.0, np.float32),
+            np.tile(np.asarray(SHIFTS, np.int32), (B, 1)))
+    np.testing.assert_array_equal(loaded["scorer"].call(*args), whole.call(*args))
+
+
 def test_loads_and_runs_without_the_model_code(artifacts, reader):
     """torch and the kernel operators suffice: the program runs with
     `avsync_torch.models` and `avsync_torch.predictor` never imported."""
@@ -407,9 +455,10 @@ def test_cli_export(ckpts, tmp_path, capsys):
                  "--batch_sizes", "1,2", "--device", "cpu"]) == 0
     assert "static buckets [1, 2]" in capsys.readouterr().out
     assert load_exported(out).batch_sizes == [1, 2]
-    with pytest.raises(SystemExit, match="positive"):
-        main(["export", "--checkpoint", ckpts["lipnet"], "--config", cfg, "--out", out,
-              "--batch_sizes", "0,2", "--device", "cpu"])
+    # a bad bucket list prints the JAX command's message on stdout and exits 2
+    assert main(["export", "--checkpoint", ckpts["lipnet"], "--config", cfg, "--out", out,
+                 "--batch_sizes", "0,2", "--device", "cpu"]) == 2
+    assert "--batch_sizes entries must be positive, got '0,2'" in capsys.readouterr().out
 
 
 # ---------------------------------------------------------------------------

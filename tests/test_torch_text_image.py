@@ -1,6 +1,9 @@
 """Greedy CTC decode and frame preprocessing: the port against the JAX
-package on the same numpy inputs."""
+package on the same numpy inputs, the JAX package's public helpers
+(`decode_prediction`, the gray conversions, `pad_or_truncate_time`,
+`resize_area`) included."""
 
+import cv2
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -66,3 +69,57 @@ def test_standardize_clips_matches_jax():
     ref = np.asarray(jax_image.standardize_clips(jnp.asarray(clips)))
     got = torch_image.standardize_clips(torch.from_numpy(clips)).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_decode_prediction_matches_jax(seed):
+    lp = _log_probs_with_repeats_and_blanks(seed)[seed]
+    want = jax_text.decode_prediction(lp)
+    assert torch_text.decode_prediction(lp) == want
+    assert torch_text.decode_prediction(torch.from_numpy(lp)) == want
+
+
+@pytest.mark.parametrize("name", ["rgb_to_gray", "bgr_to_gray"])
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8])
+def test_gray_conversions_match_jax(name, dtype):
+    frames = np.random.default_rng(6).integers(0, 256, (2, 5, 12, 16, 3)).astype(dtype)
+    ref = np.asarray(getattr(jax_image, name)(jnp.asarray(frames)))
+    got = getattr(torch_image, name)(torch.from_numpy(frames)).numpy()
+    assert got.shape == (2, 5, 12, 16) and got.dtype == ref.dtype
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_bgr_to_gray_matches_cv2():
+    """As tests/test_image.py holds the JAX function: cv2 rounds to uint8."""
+    frame = np.random.default_rng(0).integers(0, 256, size=(32, 40, 3), dtype=np.uint8)
+    ref = cv2.cvtColor(frame, cv2.COLOR_BGR2GRAY).astype(np.float32)
+    got = torch_image.bgr_to_gray(torch.from_numpy(frame).float()).numpy()
+    assert np.abs(got - ref).max() <= 0.51
+
+
+@pytest.mark.parametrize("max_len", [3, 6, 9])
+def test_pad_or_truncate_time_matches_jax(max_len):
+    clips = np.random.default_rng(7).random((3, 6, 4, 5)).astype(np.float32)
+    ref, ref_len = jax_image.pad_or_truncate_time(jnp.asarray(clips), max_len)
+    got, got_len = torch_image.pad_or_truncate_time(torch.from_numpy(clips), max_len)
+    assert got.shape == (3, max_len, 4, 5) and got_len.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(got_len.numpy(), np.asarray(ref_len))
+
+
+@pytest.mark.parametrize("in_hw,out_hw", [((24, 36), (12, 18)), ((24, 36), (8, 12)),
+                                          ((92, 280), (46, 140))])
+def test_resize_area_integer_factor_matches_jax(in_hw, out_hw):
+    frames = np.random.default_rng(8).random((2, 3, *in_hw)).astype(np.float32)
+    ref = np.asarray(jax_image.resize_area(jnp.asarray(frames), out_hw))
+    got = torch_image.resize_area(torch.from_numpy(frames), out_hw).numpy()
+    assert got.shape == (2, 3, *out_hw)
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("in_hw,out_hw", [((57, 91), (46, 140)), ((96, 112), (50, 100))])
+def test_resize_area_falls_back_to_bilinear_as_jax(in_hw, out_hw):
+    frames = np.random.default_rng(9).random((2, *in_hw)).astype(np.float32) * 255
+    ref = np.asarray(jax_image.resize_area(jnp.asarray(frames), out_hw))
+    got = torch_image.resize_area(torch.from_numpy(frames), out_hw).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-3, rtol=1e-5)

@@ -85,9 +85,30 @@ def test_flops_equal_the_jax_package(kw):
         assert flops.lipnet_train_flops(cfg, *shape) == jax_flops.lipnet_train_flops(jcfg,
                                                                                      *shape)
     # MFU against the H100's dense fp32 peak (a datasheet figure)
-    assert flops.h100_peak_flops() == 67e12
-    assert flops.mfu(100.0, cfg) == pytest.approx(
+    assert flops.h100_peak_flops("float32") == 67e12
+    assert flops.mfu(100.0, cfg, dtype="float32") == pytest.approx(
         100.0 * jax_flops.lipnet_train_flops(jcfg) / 67e12, rel=1e-12)
+
+
+@pytest.mark.parametrize("dtype,peak", [("bfloat16", 989e12), ("int8", 1979e12),
+                                        ("float32", 67e12)])
+@pytest.mark.parametrize("kw", FLOP_CONFIGS, ids=["default", "tiny", "wide"])
+def test_mfu_by_dtype_counts_the_jax_flops(kw, dtype, peak):
+    """The JAX `mfu(c, cfg, shape, dtype)` over the card's peak for the
+    dtype: the same FLOPs, another denominator; bfloat16 by default."""
+    cfg, jcfg = ModelConfig(**kw), JaxModelConfig(**kw)
+    assert flops.h100_peak_flops(dtype) == peak
+    for shape in ((75, 50, 100), (8, 16, 32)):
+        got = flops.mfu(37.5, cfg, shape, dtype=dtype) * flops.h100_peak_flops(dtype)
+        want = jax_flops.mfu(37.5, jcfg, shape, dtype=dtype) * jax_flops.v5e_peak_flops(dtype)
+        assert got == pytest.approx(want, rel=1e-12)
+    assert flops.mfu(37.5, cfg) == flops.mfu(37.5, cfg, dtype="bfloat16")
+    assert flops.h100_peak_flops() == 989e12
+
+
+def test_h100_peak_refuses_an_unknown_dtype():
+    with pytest.raises(ValueError, match="bfloat16.*float32.*int8"):
+        flops.h100_peak_flops("float16")
 
 
 def _tree_bytes(root):
