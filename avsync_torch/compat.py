@@ -39,7 +39,8 @@ mean and std column blocks are permuted; a reference detector `.pth`
 
 `localizer_params_from_jax` carries the mouth localizer's Flax params (the
 bundle's flat `conv1/kernel`, ... arrays, or the nested tree): conv kernels
-HWIO -> OIHW, Dense kernels (in, out) -> Linear weights (out, in).
+HWIO -> OIHW, Dense kernels (in, out) -> Linear weights (out, in);
+`localizer_params_to_jax` is its inverse.
 """
 
 from __future__ import annotations
@@ -218,6 +219,21 @@ def localizer_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tens
             sd[f"{layer}.bias"] = a
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in sd.items()}
+
+
+def localizer_params_to_jax(state_dict: Mapping[str, Any]) -> Dict[str, Dict[str, np.ndarray]]:
+    """The inverse of `localizer_params_from_jax` (also for a same-keyed
+    dict of gradients): the nested float32 numpy tree, conv kernels OIHW ->
+    HWIO, Linear weights transposed back to (in, out)."""
+    params: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, value in unwrap_state_dict(state_dict).items():
+        layer, kind = key.split(".")
+        a = _np32(value)
+        if kind == "weight":
+            params.setdefault(layer, {})["kernel"] = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        else:
+            params.setdefault(layer, {})["bias"] = a
+    return params
 
 
 def lipnet_params_to_jax(

@@ -159,8 +159,8 @@ def make_localizer_batch(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """(B, H, W) f32 temporal-mean frames + (B, 4) ground-truth boxes, with
     randomized mouth centers/scales — the localizer's training distribution
-    (inference also feeds clip mean frames; the localizer itself,
-    `avsync/models/localizer.py`, is not ported)."""
+    (inference also feeds clip mean frames, `models.localizer`;
+    `train.localizer_trainer` trains on them)."""
     frames = np.empty((batch, height, width), np.float32)
     boxes = np.empty((batch, 4), np.float32)
     for b in range(batch):

@@ -3,18 +3,25 @@
 A ~7k-parameter conv box regressor that stands in for dlib's landmarks on
 the device, batched over clips: the input is a clip's temporal mean frame,
 resized to a fixed 48x96; the output is one normalized (y0, y1, x0, x1)
-mouth box per clip, which `ops.image.crop_resize_boxes` crops. The weights
-are the JAX package's bundle (`localizer_weights.npz`, trained on the
-synthetic corpus where the mouth box is known), carried across by
-`compat.localizer_params_from_jax`. Selected with DataConfig.roi_mode =
-"model". The port never trains it, so its weights are buffers.
+mouth box per clip, which `ops.image.crop_resize_boxes` crops. Selected
+with DataConfig.roi_mode = "model".
+
+The weight bundle (`localizer_weights.npz`) is the JAX package's file
+layout, so one file serves both packages: flat keys `conv1/kernel` ...
+`fc2/bias`, conv kernels HWIO, dense kernels (in, out), float32.
+`save_params` writes it and `load_bundled_params` reads it into the port's
+state dict. The bundled file is trained on the synthetic corpus, where the
+mouth box is known by construction; `train/localizer_trainer.py` (and
+`scripts/torch_train_localizer.py`) retrains it. Training uses the plain
+`MouthLocalizer`, whose weights are parameters; loading for inference
+freezes them into buffers (`frozen`), as an exported program holds them.
 """
 
 from __future__ import annotations
 
 import os
 import warnings
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +51,28 @@ def center_size_to_box(cy, cx, bh, bw) -> torch.Tensor:
     """(center, size) -> clipped normalized (y0, y1, x0, x1)."""
     return torch.stack([(cy - bh / 2).clamp(0.0, 1.0), (cy + bh / 2).clamp(0.0, 1.0),
                         (cx - bw / 2).clamp(0.0, 1.0), (cx + bw / 2).clamp(0.0, 1.0)], dim=-1)
+
+
+def decode_box(raw: torch.Tensor) -> torch.Tensor:
+    """(..., 4) raw logits -> a valid normalized box through (centre, size):
+    cy, cx in (0, 1), height and width in (0.05, 0.95), clipped to the
+    frame."""
+    s = torch.sigmoid(raw)
+    return center_size_to_box(s[..., 0], s[..., 1], 0.05 + 0.9 * s[..., 2],
+                              0.05 + 0.9 * s[..., 3])
+
+
+def iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise IoU of (..., 4) (y0, y1, x0, x1) boxes; the union is
+    floored at 1e-9."""
+    iy = (torch.minimum(a[..., 1], b[..., 1]) - torch.maximum(a[..., 0], b[..., 0])).clamp_min(0.0)
+    ix = (torch.minimum(a[..., 3], b[..., 3]) - torch.maximum(a[..., 2], b[..., 2])).clamp_min(0.0)
+    inter = iy * ix
+
+    def area(z):
+        return (z[..., 1] - z[..., 0]).clamp_min(0.0) * (z[..., 3] - z[..., 2]).clamp_min(0.0)
+
+    return inter / (area(a) + area(b) - inter).clamp_min(1e-9)
 
 
 class MouthLocalizer(nn.Module):
@@ -98,28 +127,51 @@ def load_localizer(state, device=None) -> MouthLocalizer:
     return model.to(device).eval()
 
 
+def save_params(state_dict, path: str = WEIGHTS_FILE) -> None:
+    """Write the port's state dict as the JAX package's bundle (flat keys
+    `conv1/kernel` ..., HWIO kernels, (in, out) dense kernels, float32)."""
+    from avsync_torch.compat import localizer_params_to_jax
+
+    np.savez(path, **{f"{layer}/{kind}": a
+                      for layer, leaves in localizer_params_to_jax(state_dict).items()
+                      for kind, a in leaves.items()})
+
+
+def load_bundled_params(path: str = WEIGHTS_FILE) -> Dict[str, torch.Tensor]:
+    """The bundle at `path` as the port's float32 state dict. Raises
+    FileNotFoundError when it is missing."""
+    from avsync_torch.compat import localizer_params_from_jax
+
+    with np.load(path) as z:
+        return localizer_params_from_jax({k: z[k] for k in z.files})
+
+
 def load_bundled_or_none(device=None, path: str = WEIGHTS_FILE) -> Optional[MouthLocalizer]:
     """The bundled localizer on `device`, or None with a warning when the
     bundle is missing: roi_mode='model' then takes the heuristic crop. The
     one definition of that policy, shared by training, serving and export."""
-    from avsync_torch.compat import localizer_params_from_jax
-
     try:
-        with np.load(path) as z:
-            flat = {k: z[k] for k in z.files}
+        state = load_bundled_params(path)
     except FileNotFoundError:
         warnings.warn("localizer weight bundle missing; roi_mode='model' falls back to the "
                       "heuristic crop")
         return None
-    return load_localizer(localizer_params_from_jax(flat), device)
+    return load_localizer(state, device)
+
+
+def net_frames(frames: torch.Tensor,
+               coords: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+    """(B, H, W) float frames in [0, 255] or [0, 1] -> (B, 48, 96) net input:
+    each frame scaled by its own max, resized to NET_HW. `coords`:
+    `ops.image.resize_coords((H, W), NET_HW)`, made here when not given."""
+    x = frames / frames.amax(dim=(1, 2), keepdim=True).clamp_min(1e-6)
+    return resize_bilinear(x, NET_HW, coords)
 
 
 def localize_frames(model: MouthLocalizer, frames: torch.Tensor,
                     coords: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
-    """(B, H, W) float frames in [0, 255] or [0, 1] -> (B, 4) boxes. `coords`:
-    `ops.image.resize_coords((H, W), NET_HW)`, made here when not given."""
-    x = frames / frames.amax(dim=(1, 2), keepdim=True).clamp_min(1e-6)
-    return model(resize_bilinear(x, NET_HW, coords)[:, None])
+    """(B, H, W) float frames in [0, 255] or [0, 1] -> (B, 4) boxes."""
+    return model(net_frames(frames, coords)[:, None])
 
 
 def localize_clip_boxes(model: MouthLocalizer, clips: torch.Tensor,

@@ -259,7 +259,21 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      `--quantize int8`) on phase 5's corpus and checkpoint: the JSON equal to
      the one-rank command's; e. `eval.cer_wer_batch` on the card equal to the
      CPU's;
-  18. the kernels: a text line with the state of every TPU kernel of the
+  18. the mouth localizer's training (roi_mode='model''s weights): a. the
+     JAX script's dataset (2,048 synthetic frames, host numpy) and 1500
+     steps at B=128 on the card (`train.localizer_trainer`), into the
+     smoke's workdir (never the repo's bundle): dataset and training
+     seconds, steps/s, the final validation IoU; a warm step's wall ms, its
+     device busy ms, idle share and kernels from a trace; b. one step on the card
+     against the CPU from the same parameters, batch and augmentation draws
+     (loss 1e-5 relative, each gradient 1e-3 of its largest magnitude); c.
+     two 50-step runs from one seed, equal bits; d. the JAX package's
+     accuracy gates (tests/test_localizer.py:54-123) on the card-trained
+     weights, the bundled weights' figures beside them: a failed gate fails
+     the smoke; e. the retrained bundle through `load_bundled_or_none(path=)`
+     and roi_mode='model''s `make_roi_crop_fn` on phase 12's native clips:
+     boxes card vs CPU within ROI_BOX_ATOL, the gate's choices equal;
+  19. the kernels: a text line with the state of every TPU kernel of the
      JAX package (and Q1), and one JSON line with the measured numbers
      (launches from the training slices, the serving slices', the daemons',
      the graph replays', the front end's, the TF int8 daemon's and a DP
@@ -269,7 +283,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      K2's bf16-operand instantiation as rows of their own, their launches
      from phase 16's int8-bf16 daemon; K3 from h0 as a row of its own, its
      launches from phase 17's CP backward);
-  19. the card's name/power line, then the status JSON as the last line.
+  20. the card's name/power line, then the status JSON as the last line.
 
 The phases before 15 pass `--compute_dtype float32` to every command: the
 card's CLI default is bf16 without `--config`.
@@ -2951,6 +2965,11 @@ def write_container(stem: str, frames, audio, container: str) -> str:
     return path
 
 
+def front_clip_spec(i: int):
+    """Phase 12's clip i: its mouth's (centre, scale)."""
+    return (0.66 + 0.03 * (i % 4), 0.38 + 0.04 * i), 0.9 + 0.05 * (i % 3)
+
+
 def front_end_clips(workdir, container, smi, T: int, native_hw):
     """12a: FRONT_CLIPS native clips from the port's synthetic module, each
     with its mouth at a known box, written as `.npy` and as a container
@@ -2964,7 +2983,7 @@ def front_end_clips(workdir, container, smi, T: int, native_hw):
     r = np.random.default_rng(12)
     clips, boxes, npys, mp4s = [], [], [], []
     for i in range(FRONT_CLIPS):
-        center, scale = (0.66 + 0.03 * (i % 4), 0.38 + 0.04 * i), 0.9 + 0.05 * (i % 3)
+        center, scale = front_clip_spec(i)
         v, a = synthetic.make_clip(r, T, *native_hw, mouth_center=center, mouth_scale=scale,
                                    phrase=synthetic.GRID_PHRASES[i])
         clips.append(v)
@@ -5834,6 +5853,214 @@ def run_last_surfaces(dev, workdir, smi, k3):
                  "demo": demo_row, "ranks_seconds": ranks_s}
 
 
+# ---------------------------------------------------------------------------
+# 18. the mouth localizer's training
+# ---------------------------------------------------------------------------
+
+LOC_STEPS, LOC_BATCH, LOC_SEED = 1500, 128, 0  # scripts/train_localizer.py's run
+LOC_DET_STEPS = 50  # the determinism check's two runs
+# rounding noise of a leaf whose exact gradient is zero, against the largest
+# gradient (float32 sums of ~10^5 terms of the other leaves' size: ~1e-7)
+LOC_ZERO_GRAD = 1e-5
+def localizer_warm_step(dev, data, smi):
+    """18a: where a warm step's time goes: wall ms per step over 100 untraced
+    steps (host clock), and device busy ms, idle share and kernels per step
+    from a trace of 10."""
+    import copy
+
+    import torch
+
+    from avsync_torch.models.localizer import NET_HW
+    from avsync_torch.ops.conv import train_scope
+    from avsync_torch.train import localizer_trainer as lt
+
+    model = lt.init_localizer(torch.Generator().manual_seed(LOC_SEED)).to(dev)
+    opt = lt.optimizer(model)
+    draws = torch.Generator(device=dev).manual_seed(LOC_SEED)
+    rows = torch.from_numpy(next(lt.batch_indices(copy.deepcopy(data.rng), len(data.x_train),
+                                                  LOC_BATCH, 1))).to(dev)
+    x = torch.from_numpy(data.x_train).to(dev)[rows]
+    y = torch.from_numpy(data.y_train).to(dev)[rows]
+
+    def steps(n):
+        for _ in range(n):
+            lt.train_step(model, opt, lt.augment(x, lt.draw_augment(draws, LOC_BATCH, *NET_HW)), y)
+
+    with train_scope():
+        steps(20)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps(100)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 10
+        _, traced_ms, busy, _, names = traced(lambda: steps(10))
+    row = {"wall_ms_per_step": wall, "device_busy_ms_per_step": busy / 10,
+           "idle_share": max(0.0, 1.0 - busy / traced_ms),
+           "kernels_per_step": sum(names.values()) / 10}
+    print(f"  a. a warm step (B={LOC_BATCH}, one batch repeated): {wall:.4f} ms wall (host "
+          f"clock, 100 steps); traced over 10: device busy {row['device_busy_ms_per_step']:.4f} "
+          f"ms, idle share {row['idle_share']:.4f}, {row['kernels_per_step']:.1f} kernels a step "
+          f"[{smi}]", flush=True)
+    return row
+
+
+def localizer_step_card_vs_cpu(dev, data):
+    """18b: one step's loss and gradients on the card against the CPU, from
+    the same parameters, batch and augmentation draws (drawn on the CPU)."""
+    import copy
+
+    import torch
+
+    from avsync_torch.models.localizer import NET_HW
+    from avsync_torch.ops.conv import train_scope
+    from avsync_torch.train import localizer_trainer as lt
+
+    model = lt.init_localizer(torch.Generator().manual_seed(LOC_SEED))
+    idx = torch.from_numpy(next(lt.batch_indices(copy.deepcopy(data.rng), len(data.x_train),
+                                                 LOC_BATCH, 1)))
+    x, y = torch.from_numpy(data.x_train)[idx], torch.from_numpy(data.y_train)[idx]
+    draws = lt.draw_augment(torch.Generator().manual_seed(LOC_SEED), len(idx), *NET_HW)
+    grads = {}
+    for where in ("cpu", dev):
+        m = copy.deepcopy(model).to(where)
+        with train_scope():
+            loss = lt.loss_fn(m, lt.augment(x.to(where), {k: v.to(where) for k, v in
+                                                        draws.items()}), y.to(where))
+            loss.backward()
+        grads[str(where)] = (loss.item(), {k: p.grad.cpu() for k, p in m.named_parameters()})
+    (loss_c, g_c), (loss_d, g_d) = grads["cpu"], grads[str(dev)]
+    loss_rel = abs(loss_d - loss_c) / abs(loss_c)
+    top = max(g.abs().max().item() for g in g_c.values())
+    # a leaf whose exact gradient is zero (heat.bias: the softmax does not
+    # move under a shift) holds rounding noise on both devices: each device's
+    # value is held under LOC_ZERO_GRAD of the largest gradient instead
+    zero = {k for k, g in g_c.items() if g.abs().max().item() < LOC_ZERO_GRAD * top}
+    grad_rel = max(((g_d[k] - g_c[k]).abs().max() / g_c[k].abs().max()).item()
+                   for k in g_c if k not in zero)
+    noise = max((max(g_c[k].abs().max().item(), g_d[k].abs().max().item()) / top
+                 for k in zero), default=0.0)
+    print(f"  b. one step (B={len(idx)}), card vs CPU from the same parameters, batch and "
+          f"draws: loss {loss_d:.6f} vs {loss_c:.6f}, rel {loss_rel:.3e} (tol {STEP_LOSS_RTOL}); "
+          f"gradients, worst over {len(g_c) - len(zero)} leaves, {grad_rel:.3e} of the leaf's "
+          f"largest (tol {STEP_GRAD_RTOL}); {sorted(zero)}, exactly zero, {noise:.3e} of the "
+          f"largest gradient on either device (tol {LOC_ZERO_GRAD})", flush=True)
+    if loss_rel > STEP_LOSS_RTOL or grad_rel > STEP_GRAD_RTOL or noise > LOC_ZERO_GRAD:
+        raise SystemExit("the localizer's step on the card disagrees with the CPU's")
+    return {"loss_rel": loss_rel, "grad_rel": grad_rel, "zero_leaves": sorted(zero),
+            "zero_leaf_noise": noise}
+
+
+def localizer_roi(dev, bundle, front_dir, smi):
+    """18e: the retrained bundle through `load_bundled_or_none(path=...)` and
+    roi_mode='model''s `make_roi_crop_fn` on phase 12's native clips, on the
+    card and on the CPU."""
+    import numpy as np
+    import torch
+
+    from avsync_torch.config import AvsyncConfig, DataConfig
+    from avsync_torch.data import synthetic
+    from avsync_torch.data.pipeline import make_roi_crop_fn
+    from avsync_torch.models.localizer import gate_boxes, load_bundled_or_none, localize_clip_boxes
+
+    d = AvsyncConfig(data=DataConfig(roi_mode="model")).data
+    frames = np.stack([np.load(os.path.join(front_dir, f"clip{i}.npy"))
+                       for i in range(FRONT_CLIPS)])
+    known = np.stack([synthetic.mouth_box(*front_clip_spec(i), *frames.shape[2:])
+                      for i in range(FRONT_CLIPS)])
+    heur = torch.tensor([d.mouth_crop[0], 1.0, d.mouth_crop[1], d.mouth_crop[2]])
+    boxes, crops = {}, {}
+    for where in ("cpu", dev):
+        loc = load_bundled_or_none(where, path=bundle)
+        x = torch.from_numpy(frames).to(where)
+        with torch.no_grad():
+            crops[str(where)] = make_roi_crop_fn(d, "model", loc)(x).cpu()
+            xf = x.float()
+            boxes[str(where)] = gate_boxes(xf, localize_clip_boxes(loc, xf),
+                                           heur.to(where)).cpu()
+    bc, bd = boxes["cpu"], boxes[str(dev)]
+    kept_c, kept_d = ~(bc == heur).all(-1), ~(bd == heur).all(-1)
+    box_err = (bd - bc).abs().max().item()
+    crop = crops[str(dev)]
+    shape = (FRONT_CLIPS, frames.shape[1], d.img_height, d.img_width, 1)
+    res = {"box_max_abs_err": box_err, "model_boxes_kept": int(kept_d.sum()),
+           "mean_iou_known_box": float(iou(bd.numpy(), known).mean()),
+           "crop_max_abs_err": (crop - crops["cpu"]).abs().max().item()}
+    print(f"  e. roi_mode='model' on the retrained bundle (load_bundled_or_none(path=...), "
+          f"make_roi_crop_fn) over phase 12's {FRONT_CLIPS} native clips "
+          f"{tuple(frames.shape[1:])}: boxes card vs CPU within {box_err:.3e} (tol "
+          f"{ROI_BOX_ATOL}), the gate kept the model's box for {res['model_boxes_kept']} of "
+          f"{FRONT_CLIPS} on both: {torch.equal(kept_c, kept_d)}; mean IoU with the known box "
+          f"{res['mean_iou_known_box']:.3f}; crops {tuple(crop.shape)}, card vs CPU "
+          f"{res['crop_max_abs_err']:.3e} [{smi}]", flush=True)
+    if box_err > ROI_BOX_ATOL or not torch.equal(kept_c, kept_d):
+        raise SystemExit("the retrained localizer's boxes differ, card vs CPU")
+    if tuple(crop.shape) != shape or not torch.isfinite(crop).all():
+        raise SystemExit(f"bad crops from the retrained localizer: {tuple(crop.shape)}")
+    return res
+
+
+def run_localizer_training(dev, workdir, front_dir, smi):
+    """Phase 18: the mouth localizer retrained on the card at the JAX
+    script's full size (2,048 samples, B=128, 1500 steps) into `workdir`
+    (the repo's bundle is never written), its weights through the JAX
+    package's accuracy gates beside the bundled weights', one step card vs
+    CPU, two short runs' bits, and the retrained bundle in roi_mode='model'
+    on phase 12's clips (`front_dir`)."""
+    import torch
+
+    from avsync_torch.models.localizer import WEIGHTS_FILE, load_bundled_or_none, save_params
+    from avsync_torch.train import localizer_trainer as lt
+
+    t0 = time.perf_counter()
+    data = lt.build_dataset(LOC_SEED)
+    dataset_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, history = lt.train_localizer(LOC_STEPS, LOC_BATCH, LOC_SEED, dev, data=data)
+    train_s = time.perf_counter() - t0
+    bundle = os.path.join(workdir, "localizer_weights.npz")
+    save_params(state, bundle)
+    if os.path.abspath(bundle) == os.path.abspath(WEIGHTS_FILE):
+        raise SystemExit("the smoke must not write the repo's bundle")
+    res = {"dataset_s": dataset_s, "train_s": train_s, "steps_per_s": LOC_STEPS / train_s,
+           "final_val_iou": history[-1]["val_iou"], "history": history}
+    print(f"localizer training phase: a. dataset {len(data.x_train)} train + {len(data.x_val)} "
+          f"val in {dataset_s:.1f} s (host numpy); {LOC_STEPS} steps at B={LOC_BATCH} in "
+          f"{train_s:.2f} s (host clock, {res['steps_per_s']:.1f} steps/s, with "
+          f"{len(history)} validations); loss {history[0]['loss']:.4f} -> "
+          f"{history[-1]['loss']:.4f}; final val IoU {res['final_val_iou']:.4f} [{smi}]",
+          flush=True)
+    res["warm_step"] = localizer_warm_step(dev, data, smi)
+    res["step"] = localizer_step_card_vs_cpu(dev, data)
+
+    # c. determinism: two short runs from one seed
+    runs = [lt.train_localizer(LOC_DET_STEPS, LOC_BATCH, LOC_SEED, dev, data=data)
+            for _ in range(2)]
+    same = runs[0][1] == runs[1][1] and all(torch.equal(runs[0][0][k], runs[1][0][k])
+                                            for k in runs[0][0])
+    print(f"  c. two {LOC_DET_STEPS}-step runs from seed {LOC_SEED}: equal bits {same}",
+          flush=True)
+    if not same:
+        raise SystemExit("two localizer runs from one seed differ")
+
+    # d. the JAX package's accuracy gates, card-trained beside the bundled weights
+    gates = {}
+    for name, path in (("retrained", bundle), ("bundled", WEIGHTS_FILE)):
+        gates[name], failed = lt.accuracy_gates(load_bundled_or_none(dev, path=path), dev)
+        gates[name]["failed"] = failed
+    print(f"  d. the JAX package's gates (tests/test_localizer.py:54-123; mean IoU >= "
+          f"{lt.GATE_IOU} at {', '.join(f'{h}x{w}' for _, (h, w) in lt.GATE_GEOMETRIES)}, >= "
+          f"{lt.GATE_DEGRADED} degraded, >= {lt.GATE_CLIP} on one clip; mouth retention >= "
+          f"{lt.GATE_RETENTION} and above the heuristic's + {lt.GATE_RETENTION_MARGIN}): "
+          f"retrained on the card {json.dumps(gates['retrained'])}; bundled "
+          f"{json.dumps(gates['bundled'])} [{smi}]", flush=True)
+    if gates["retrained"]["failed"]:
+        raise SystemExit(f"the card-trained localizer fails {gates['retrained']['failed']}")
+    res["gates"] = gates
+    res["roi"] = localizer_roi(dev, bundle, front_dir, smi)
+    return res
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "avsync_torch", "csrc")):
         print("chip_smoke: run from a checkout of the repository (avsync_torch/ missing)",
@@ -5921,6 +6148,11 @@ def main() -> int:
         t17 = time.perf_counter()
         k3_h0, last = run_last_surfaces(dev, workdir, smi, k3)
         print(f"last JAX surfaces phase: {time.perf_counter() - t17:.1f} s", flush=True)
+        t18 = time.perf_counter()
+        loc_dir = os.path.join(workdir, "localizer")
+        os.makedirs(loc_dir)
+        loc = run_localizer_training(dev, loc_dir, front_dir, smi)
+        print(f"localizer training phase: {time.perf_counter() - t18:.1f} s", flush=True)
     for k in (k1, k2, k3, k4):
         k["launches"] = trained[k["name"]]
     k5["launches"], k5["launches_serving"] = detector["mel_stats"], served["mel_stats"]
@@ -5979,6 +6211,7 @@ def main() -> int:
     print(f"int8 under bf16: forward {json.dumps(int8_16['forward'])}; daemon "
           f"{json.dumps(int8_16['commands']['daemon'])} [{smi}]", flush=True)
     print(f"last JAX surfaces: {json.dumps(last)} [{smi}]", flush=True)
+    print(f"localizer training: {json.dumps(loc)} [{smi}]", flush=True)
 
     print("kernels: K1 conv1_pool_fused (avsync/ops/pallas/convpool.py:100)=ported+checked; "
           "K2 pallas_gru_scan (avsync/ops/pallas/gru.py:357)=ported+checked; "

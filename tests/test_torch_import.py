@@ -48,7 +48,7 @@ def test_every_module_imports_without_jax_or_avsync():
     assert {"avsync_torch.export", "avsync_torch.ops.beam"} <= set(loaded)
     assert {"avsync_torch.ops.quant", "avsync_torch.ops.cuda.quantconv"} <= set(loaded)
     assert {"avsync_torch.ingest.native", "avsync_torch.models.localizer",
-            "avsync_torch.data.mouth"} <= set(loaded)
+            "avsync_torch.data.mouth", "avsync_torch.train.localizer_trainer"} <= set(loaded)
     assert {"avsync_torch.ops.lstm", "avsync_torch.models.lipnet_tf"} <= set(loaded)
     assert {"avsync_torch.parallel", "avsync_torch.parallel.mesh",
             "avsync_torch.parallel.multihost", "avsync_torch.parallel.context"} <= set(loaded)
