@@ -21,6 +21,10 @@ forward and backward into the reducer's flat buffer) and `finish` (the
 update after the reduction) are captured as two graphs, and `reduce` runs
 eagerly between their replays. On the CPU the three run in a loop: one code
 path either way.
+
+Spans (`utils.profiling.span`): `avsync_torch.train.warmup_step` around each
+eager step before a capture, `avsync_torch.train.capture` around the
+capture, and `avsync_torch.train.replay` around the replays.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 import torch
+
+from avsync_torch.utils import profiling
 
 # Eager steps on a new program's stream before its capture.
 WARMUP_STEPS = 2
@@ -108,29 +114,33 @@ class EpochProgram:
             self.stream.wait_stream(current)
             with torch.cuda.stream(self.stream):
                 for _ in range(done):
-                    self._eager(parts, before, zero_grad)
+                    with profiling.span("avsync_torch.train.warmup_step"):
+                        self._eager(parts, before, zero_grad)
             current.wait_stream(self.stream)
             if done < steps:
-                if zero_grad is not None:
-                    zero_grad()
-                graph = torch.cuda.CUDAGraph()
-                if generator is not None:
-                    graph.register_generator_state(generator)
-                with torch.cuda.graph(graph, stream=self.stream,
-                                      capture_error_mode="thread_local"):
-                    body()
-                self.graph, self.fingerprint = graph, key()
-                if finish is not None:
-                    self.finish_graph = torch.cuda.CUDAGraph()
-                    with torch.cuda.graph(self.finish_graph, stream=self.stream,
+                with profiling.span("avsync_torch.train.capture"):
+                    if zero_grad is not None:
+                        zero_grad()
+                    graph = torch.cuda.CUDAGraph()
+                    if generator is not None:
+                        graph.register_generator_state(generator)
+                    with torch.cuda.graph(graph, stream=self.stream,
                                           capture_error_mode="thread_local"):
-                        finish()
-        for _ in range(done, steps):
-            before()
-            self.graph.replay()
-            if reduce is not None:
-                reduce()
-                self.finish_graph.replay()
+                        body()
+                    self.graph, self.fingerprint = graph, key()
+                    if finish is not None:
+                        self.finish_graph = torch.cuda.CUDAGraph()
+                        with torch.cuda.graph(self.finish_graph, stream=self.stream,
+                                              capture_error_mode="thread_local"):
+                            finish()
+        if done < steps:
+            with profiling.span("avsync_torch.train.replay"):
+                for _ in range(done, steps):
+                    before()
+                    self.graph.replay()
+                    if reduce is not None:
+                        reduce()
+                        self.finish_graph.replay()
 
     @staticmethod
     def _eager(parts, before, zero_grad) -> None:

@@ -78,12 +78,14 @@ loop (the gathers are collectives in the forward).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
+import threading
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,6 +100,7 @@ from avsync_torch.parallel.mesh import (GradientReducer, Mesh, clip_grad_norm, m
                                         shard_model, shard_rows)
 from avsync_torch.predictor import resolve_device
 from avsync_torch.train.epoch_program import EpochProgram, fingerprint
+from avsync_torch.utils import profiling
 from avsync_torch.utils.checkpoint import CheckpointManager
 from avsync_torch.utils.logging import Logger, format_time
 from avsync_torch.utils.signals import sigterm_flag
@@ -168,8 +171,10 @@ def _forward_backward(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
     flat buffer."""
     log_probs = model(batch["video"], train=True, generator=generator, remat=remat)
     loss = lipnet_ctc_loss(model, log_probs, batch)
+    _mark("head_ctc.bwd", loss.device)
     loss.backward()
     if reducer is not None:
+        _mark("reduce", loss.device)
         reducer.pack(loss.detach())
     return loss.detach()
 
@@ -177,6 +182,7 @@ def _forward_backward(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
 def _apply_update(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                   grad_clip_norm: float, mesh: Optional[Mesh]) -> torch.Tensor:
     """Global-norm clip and Adam; returns the pre-clip norm."""
+    _mark("update", next(model.parameters()).device)
     grad_norm = clip_grad_norm(model.named_parameters(), grad_clip_norm, mesh)
     optimizer.step()
     return grad_norm.detach()
@@ -195,6 +201,75 @@ def _update(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         reducer.reduce()
         loss = reducer.unpack().clone()  # the buffer is the next step's
     return loss, _apply_update(model, optimizer, grad_clip_norm, mesh)
+
+
+# The training step's marked layers in forward order (`step_marks` places
+# them): the conv blocks, either family's recurrent layers, and the head
+# with its CTC loss (LipNet's `fc`; the TF family's three Dense layers).
+STEP_LAYERS = ("conv1", "conv2", "conv3", "gru1", "gru2", "gru3", "gru4",
+               "lstm1", "lstm2", "lstm3", "lstm4", "head_ctc")
+# Every device mark of the step, in the order of `csrc/span_mark.cu`'s
+# kernels (`utils.profiling.mark`): the cache gather, each layer's forward
+# and backward, the data group's gradient reduction (pack, all-reduce,
+# unpack), the update (global-norm clip and Adam), the tail (the loss and
+# norm puts and the step counter).
+SPAN_MARKS = ("gather", *(f"{layer}.fwd" for layer in STEP_LAYERS),
+              *(f"{layer}.bwd" for layer in STEP_LAYERS), "reduce", "update", "tail")
+
+# Whether the calling thread is inside `step_marks`: a bare `train_step`
+# marks nothing.
+_marking = threading.local()
+
+
+def _mark(name: str, device) -> None:
+    """`profiling.mark(name, device)` inside `step_marks` only."""
+    if getattr(_marking, "on", False):
+        profiling.mark(name, device)
+
+
+def _marked_layers(model: torch.nn.Module) -> list:
+    """(span name, module) of the step's layers that carry marks, in forward
+    order: the conv blocks, the recurrent layers, and the first module of
+    the head (LipNet's `fc`, the TF family's `dense1`)."""
+    layers = [(name, getattr(model, name)) for name in STEP_LAYERS[:-1]
+              if isinstance(getattr(model, name, None), torch.nn.Module)]
+    return layers + [("head_ctc", model.dense1 if isinstance(model, TFLipNet) else model.fc)]
+
+
+@contextlib.contextmanager
+def step_marks(model: torch.nn.Module) -> Iterator[None]:
+    """The step's layer marks on `model` while the block runs on the
+    calling thread (`utils.profiling.mark`): a forward pre-hook on each
+    marked layer marks its `.fwd` and passes its input through
+    `mark_backward`, so the gradient reaching that input marks the previous
+    layer's `.bwd`; the step's own marks (`gather`, `head_ctc.bwd`,
+    `reduce`, `update`, `tail`) are placed only inside the block. The hooks
+    are removed when the block ends: the modules are shared (the sync
+    scorer's `ConvStack`), and export, serving and the detector see no
+    mark. A graph captured inside the block keeps its marks."""
+    layers = _marked_layers(model)
+    handles = []
+    for i, (name, module) in enumerate(layers):
+        prev = layers[i - 1][0] if i else None
+
+        def hook(_module, args, name=name, prev=prev):
+            if torch._C._current_graph_task_id() != -1:
+                return None  # remat's recompute, inside the layer's backward span
+            x = args[0]
+            profiling.mark(f"{name}.fwd", x.device)
+            if prev is not None and x.requires_grad:
+                return (profiling.mark_backward(x, f"{prev}.bwd"), *args[1:])
+            return None
+
+        handles.append(module.register_forward_pre_hook(hook))
+    was_on = getattr(_marking, "on", False)
+    _marking.on = True
+    try:
+        yield
+    finally:
+        _marking.on = was_on
+        for h in handles:
+            h.remove()
 
 
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
@@ -349,25 +424,28 @@ class LipNetTrainer:
                 metrics_writer.write(step, loss=losses[-1], grad_norm=float(gnorm),
                                      lr=self.current_lr)
 
-        for batch in loader:
-            if (stop_check is not None and pending
-                    and len(pending) % self.PREEMPT_CHECK_EVERY == 0 and stop_check()):
-                if hasattr(loader, "close"):
-                    loader.close()  # release the prefetch worker and decode pool
-                break
-            loss, gnorm = train_step(state.model, state.optimizer,
-                                     device_batch(batch, self.device), self.current_lr,
-                                     self._step_generator(state.step), cfg.grad_clip_norm,
-                                     cfg.remat, state.reducer, self.mesh)
-            state.step += 1
-            pending.append((loss, gnorm, state.step))
-            if len(pending) - len(losses) > self.LAG:
-                drain_one()
+        with step_marks(state.model):
+            for batch in loader:
+                if (stop_check is not None and pending
+                        and len(pending) % self.PREEMPT_CHECK_EVERY == 0 and stop_check()):
+                    if hasattr(loader, "close"):
+                        loader.close()  # release the prefetch worker and decode pool
+                    break
+                _mark("gather", self.device)
+                loss, gnorm = train_step(state.model, state.optimizer,
+                                         device_batch(batch, self.device), self.current_lr,
+                                         self._step_generator(state.step), cfg.grad_clip_norm,
+                                         cfg.remat, state.reducer, self.mesh)
+                state.step += 1
+                pending.append((loss, gnorm, state.step))
+                if len(pending) - len(losses) > self.LAG:
+                    drain_one()
         while len(losses) < len(pending):
             drain_one()
         return state, sum(losses) / max(len(losses), 1)
 
     def _plan_batch(self, plan: Dict, prog: EpochProgram) -> Dict[str, torch.Tensor]:
+        _mark("gather", prog.counter.device)
         row = prog.row("plan")
         return {"video": plan["gather"](row),
                 "labels": plan["labels"].index_select(0, row),
@@ -382,6 +460,7 @@ class LipNetTrainer:
             loss, gnorm = _update(state.model, state.optimizer, self._plan_batch(plan, prog),
                                   self.dropout_gen, cfg.grad_clip_norm, cfg.remat,
                                   state.reducer, self.mesh)
+        _mark("tail", prog.counter.device)
         prog.put("loss", loss)
         prog.put("grad_norm", gnorm)
         prog.counter.add_(1)
@@ -400,6 +479,7 @@ class LipNetTrainer:
             loss = state.reducer.unpack()  # put() copies it
             gnorm = _apply_update(state.model, state.optimizer, self.config.train.grad_clip_norm,
                                   self.mesh)
+        _mark("tail", prog.counter.device)
         prog.put("loss", loss)
         prog.put("grad_norm", gnorm)
         prog.counter.add_(1)
@@ -411,7 +491,10 @@ class LipNetTrainer:
         S times, no host work per step beyond the replay and the dropout
         reseed; on the CPU the eager loop of the same step. The graph is
         kept for later epochs of the same (B, S).
-        Losses and gradient norms are read once, at the epoch's end."""
+        Losses and gradient norms are read once, at the epoch's end. The
+        call is span `avsync_torch.train.plan_call` (S, B), its read of the
+        losses `avsync_torch.train.read_losses`; its steps carry the layer
+        marks (`step_marks`)."""
         state.model.train()
         idx = np.asarray(plan["idx"])
         S, B = idx.shape
@@ -421,8 +504,6 @@ class LipNetTrainer:
                 "plan": torch.zeros((S, B), dtype=torch.long, device=self.device),
                 "loss": torch.zeros((S,), dtype=torch.float32, device=self.device),
                 "grad_norm": torch.zeros((S,), dtype=torch.float32, device=self.device)})
-        set_learning_rate(state.optimizer, self.current_lr)
-        prog.buffers["plan"].copy_(torch.from_numpy(idx).long())
         step0 = state.step
 
         def before():
@@ -435,16 +516,22 @@ class LipNetTrainer:
         graph_ok = self.device.type == "cuda" and (self.mesh is None
                                                    or self.mesh.model_size == 1)
         zero_grad = lambda: state.optimizer.zero_grad(set_to_none=True)  # noqa: E731
-        if state.reducer is None:
-            prog.run(S, lambda: self._plan_step(state, plan, prog), before, graph_ok, key,
-                     zero_grad=zero_grad, generator=self.dropout_gen)
-        else:  # split at the reduction: graph, all-reduce, graph
-            prog.run(S, lambda: self._plan_forward_backward(state, plan, prog), before,
-                     graph_ok, key, zero_grad=zero_grad, generator=self.dropout_gen,
-                     reduce=state.reducer.reduce, finish=lambda: self._plan_apply(state, prog))
-        losses = prog.buffers["loss"].cpu().numpy()  # the epoch-end device sync
+        with profiling.span("avsync_torch.train.plan_call", S=S, B=B), step_marks(state.model):
+            set_learning_rate(state.optimizer, self.current_lr)
+            prog.buffers["plan"].copy_(torch.from_numpy(idx).long())
+            if state.reducer is None:
+                prog.run(S, lambda: self._plan_step(state, plan, prog), before, graph_ok, key,
+                         zero_grad=zero_grad, generator=self.dropout_gen)
+            else:  # split at the reduction: graph, all-reduce, graph
+                prog.run(S, lambda: self._plan_forward_backward(state, plan, prog), before,
+                         graph_ok, key, zero_grad=zero_grad, generator=self.dropout_gen,
+                         reduce=state.reducer.reduce,
+                         finish=lambda: self._plan_apply(state, prog))
+            with profiling.span("avsync_torch.train.read_losses"):
+                losses = prog.buffers["loss"].cpu().numpy()  # the epoch-end device sync
+                gnorms = (prog.buffers["grad_norm"].cpu().numpy() if metrics_writer is not None
+                          else None)
         if metrics_writer is not None:
-            gnorms = prog.buffers["grad_norm"].cpu().numpy()
             for i, (loss, gnorm) in enumerate(zip(losses, gnorms)):
                 metrics_writer.write(step0 + i + 1, loss=float(loss), grad_norm=float(gnorm),
                                      lr=self.current_lr)
