@@ -125,9 +125,10 @@ class ModelConfig:
     # JAX package: pack4 conv blocks (a TPU lane-filling form of the same
     # math). The port accepts the flag and computes the same result.
     packed_conv: bool = False
-    # Fused Conv3D+ReLU+MaxPool kernel where eligible (Cin=1, even H/W, odd
-    # kernel, Cout <= 32 — conv1): the pre-pool activation never reaches
-    # device memory. In the port: csrc/conv1_pool.cu.
+    # Fused Conv3D+ReLU+MaxPool kernel where eligible (conv1: Cin=1, even
+    # H/W, odd kernel; float32 any Cout whose CTAs fit, bf16 Cout <= 32,
+    # `ops/cuda/convpool.fused_takes`): the pre-pool activation never
+    # reaches device memory. In the port: csrc/conv1_pool.cu.
     fused_conv_pool: bool = False
     # Run the whole GRU recurrence in one kernel launch with w_hh and the
     # carried state on chip. In the port: csrc/gru_fwd.cu.

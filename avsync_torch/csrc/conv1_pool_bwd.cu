@@ -22,15 +22,21 @@
 // pooled tile, one CTA per SM at 166-206 registers, load, recompute and dW
 // one after another) took 2.6 ms: recompute 1.17 ms, dW 1.27 ms (one
 // shared load per FMA, a chain of dependent loads per position, 39% of its
-// tile outside the 25x50 pooled frame), the sum 0.02 ms.
+// tile outside the 25x50 pooled frame), the sum 0.02 ms. At the TF stack's
+// conv1 (B=8, T=75, 46x140, 128 channels, 3x3x3 taps) the recompute is 13.35
+// G multiply-adds (26.7 GFLOP) and the routed dW 6.7 GFLOP: 0.50 ms at 67
+// TFLOP/s.
 //
 // Design, no float atomics:
-//   * a tile of TR x TC pooled positions chosen by the wrapper so that it
-//     covers the frame with no dead positions at the LipNet shape (5 x 50:
-//     five tiles per 25 x 50 frame; any other shape keeps a ragged edge);
-//     a grid of (tile, chunk of frames), each CTA walking the frames
-//     f = chunk, chunk + n_chunks, ... and writing one partial (taps x C
-//     weights + C biases) for all of them;
+//   * a tile of TR x TC pooled positions chosen by the wrapper with the
+//     fewest dead positions (`convpool.bwd_grid`: 5 x 50 at LipNet's 25 x
+//     50, none dead; 7 x 35 at the TF stack's 23 x 70, 18% dead, which skip
+//     the recompute); a grid of (tile, chunk of frames, group of 32
+//     channels), each CTA walking the frames f = chunk, chunk + n_chunks,
+//     ... for its own channels and writing its columns of the (tile,
+//     chunk)'s partial row (taps x C weights + C biases) for all of them.
+//     Each group stages the halo again; the recompute is not repeated (a
+//     group recomputes its own channels). C <= 32 is one group;
 //   * per frame, cp.async brings the input halo of the tile for the kt
 //     frames around t (zero-filled outside the clip: SAME padding, any T)
 //     and the tile's pooled cotangent (one position's C values per thread,
@@ -42,12 +48,17 @@
 //     the routing sees the values the forward pooled, and overwrites the
 //     cotangent with the routed value (0 where nothing is routed) beside
 //     the routed position's input offset;
-//   * dW: thread (channel = lane, a run of ceil(taps/8) consecutive taps =
-//     warp) walks the tile's positions, four per iteration so that the
-//     offsets and values of the next positions are in flight while the
-//     current FMAs run, and multiplies only the routed position of each
-//     window (the 3.6 GFLOP, not 14.4). The halo is kept as pairs (x[i],
-//     x[i+1]), so two taps of one kernel row come from one 8-byte load:
+//   * dW: thread (channel = lane, a run of consecutive taps = warp) walks
+//     the tile's positions, four per iteration so that the offsets and
+//     values of the next positions are in flight while the current FMAs
+//     run, and multiplies only the routed position of each window (the 3.6
+//     GFLOP, not 14.4). At 75 taps a warp takes 10 over all the positions;
+//     at 27 (the TF stack) a warp takes all 27 over an eighth of them, so
+//     that each position's cotangent and offset loads serve 27 FMAs, not 4
+//     (on an H100 at B=8, dW took 2.0 of K4's 3.2 ms at 4 taps a warp, 0.5
+//     of 1.85 ms at 27), and the eight sums are added
+//     in order at the end. The halo is kept as pairs (x[i], x[i+1]), so two
+//     taps of one kernel row come from one 8-byte load:
 //     6 loads for a warp's 10 taps, not 10. This sparse product is bound by
 //     shared-memory loads (one gather per routed (position, channel) and
 //     pair of taps); a dense product over the zero-filled pre-pool gradient
@@ -112,8 +123,8 @@ namespace {
 
 constexpr int NT = 256;          // threads per CTA; positions per tile, at most
 constexpr int CB = 16;           // channels per register block (recompute)
-constexpr int MAXC = 32;         // channels: one lane each in the dW phase
-constexpr int NWARP = NT / 32;   // tap groups
+constexpr int MAXC = 32;         // channels of a group: one lane each in the dW phase
+constexpr int NWARP = NT / 32;   // warps: tap groups x position groups
 constexpr int MAXTQ = 16;        // taps per thread in the dW phase, at most
 constexpr int GS = MAXC + 1;     // padded row of the routing arrays
 
@@ -133,30 +144,35 @@ struct ConvPoolBwdParams {
 };
 
 // The float kernel. KT/KH/KW == 0 means "read the size from the params"
-// (generic path); TQ is the taps per warp, ceil(taps / NWARP), or MAXTQ for
-// the generic path.
-template <int KT, int KH, int KW, int TQ>
+// (generic path). The dW phase's warps are NWARP / PS tap groups of TQ taps
+// (a multiple of 2) x PS groups of the tile's positions: LipNet's 75 taps
+// take 8 x 10 over all positions (PS = 1), the TF stack's 27 all 27 (TQ 28)
+// over an eighth of them each (PS = 8); the generic path MAXTQ, PS = 1.
+template <int KT, int KH, int KW, int TQ, int PS>
 __global__ void __launch_bounds__(NT, 2)
 conv1_pool_bwd_kernel(const ConvPoolBwdParams p) {
+  // the CTA's channel group: channels [z * MAXC, z * MAXC + CL), one lane
+  // each; w, bias and g start at its first channel
+  const int CL = min(MAXC, p.C - (int)blockIdx.z * MAXC);
   const float* x = p.x;
-  const float* w = p.w;
-  const float* g = p.g;
+  const float* w = p.w + blockIdx.z * MAXC * p.w_c;
+  const float* bias = p.bias + blockIdx.z * MAXC;
+  const float* g = p.g + blockIdx.z * MAXC * p.g_sc;
   const int kt = KT ? KT : p.kt;
   const int kh = KH ? KH : p.kh;
   const int kw = KW ? KW : p.kw;
   const int taps = kt * kh * kw;
-  const int C = p.C;
-  const int cpad = (C + CB - 1) / CB * CB;
   const int TR = p.TR, TC = p.TC, NP = TR * TC;
   const int IH = 2 * TR + kh - 1;
   const int IW = 2 * TC + kw - 1;
   const int H2 = p.H / 2, W2 = p.W / 2;
 
   static_assert(TQ % 2 == 0, "the dW phase takes its taps in pairs");
+  static_assert(NWARP % PS == 0, "the warps split evenly into position groups");
   extern __shared__ float4 smem4[];
-  float* s_w = reinterpret_cast<float*>(smem4);  // [taps][cpad]
-  float* s_b = s_w + taps * cpad;                // [cpad]
-  float* s_g = s_b + cpad;                       // [NT][GS] cotangent, then routed g
+  float* s_w = reinterpret_cast<float*>(smem4);  // [taps][MAXC]
+  float* s_b = s_w + taps * MAXC;                // [MAXC]
+  float* s_g = s_b + MAXC;                       // [NT][GS] cotangent, then routed g
   float* s_acc = s_g + NT * GS;                  // [TQ + 1][NT] dW, db sums
   // [kt][IH][IW] pairs (x[i], x[i + 1]) of the input halo: one 8-byte load
   // gives two neighbouring taps (dW) or window columns (recompute)
@@ -168,11 +184,11 @@ conv1_pool_bwd_kernel(const ConvPoolBwdParams p) {
   const int h2_0 = (blockIdx.x / p.tiles_w) * TR;
   const int w2_0 = (blockIdx.x % p.tiles_w) * TC;
 
-  for (int i = tid; i < taps * cpad; i += NT) {
-    const int tap = i / cpad, c = i % cpad;
-    s_w[i] = c < C ? w[tap * p.w_tap + c * p.w_c] : 0.f;
+  for (int i = tid; i < taps * MAXC; i += NT) {
+    const int tap = i / MAXC, c = i % MAXC;
+    s_w[i] = c < CL ? w[tap * p.w_tap + c * p.w_c] : 0.f;
   }
-  for (int c = tid; c < cpad; c += NT) s_b[c] = c < C ? p.bias[c] : 0.f;
+  for (int c = tid; c < MAXC; c += NT) s_b[c] = c < CL ? bias[c] : 0.f;
 #pragma unroll
   for (int q = 0; q <= TQ; ++q) s_acc[q * NT + tid] = 0.f;
 
@@ -182,9 +198,13 @@ conv1_pool_bwd_kernel(const ConvPoolBwdParams p) {
   const int h2 = h2_0 + ty, w2 = w2_0 + tx;
   const bool live = in_tile && h2 < H2 && w2 < W2;
 
-  // dW role: channel = lane, the run of taps [tap0, tap0 + TQ) = warp
+  // dW role: channel = lane; warp wq takes the run of taps [tap0, tap0 +
+  // TQ) of tap group wq / PS over the positions [pos_b, pos_e) of position
+  // group wq % PS (with one tap group, tap0 = 0 is known at compile time)
   const int lc = tid % 32, wq = tid / 32;
-  const int tap0 = wq * TQ;
+  const int tap0 = PS == NWARP ? 0 : (wq / PS) * TQ;
+  const int pos_n = (NP + PS - 1) / PS, pos_b = (wq % PS) * pos_n;
+  const int pos_e = min(NP, pos_b + pos_n);
   // runs start at a kernel row (TQ a multiple of KW): the pairing is known
   // at compile time
   constexpr bool runs_aligned = KW != 0 && TQ % (KW ? KW : 1) == 0;
@@ -196,24 +216,31 @@ conv1_pool_bwd_kernel(const ConvPoolBwdParams p) {
     cp_async_commit();
     if (in_tile) {
       const float* gb = g + b * p.g_sb + t * p.g_st + h2 * p.g_sh + w2 * p.g_sw;
-      for (int c = 0; c < C; ++c) cp_async4(s_g + tid * GS + c, live ? gb + c * p.g_sc : g,
-                                            live);
+      for (int c = 0; c < CL; ++c)
+        cp_async4(s_g + tid * GS + c, live ? gb + c * p.g_sc : g, live);
     }
     cp_async_commit();
     cp_async_wait<1>();  // this thread's halo copies
     __syncthreads();     // everyone's
 
-    if (in_tile) {
-      for (int c0 = 0; c0 < C; c0 += CB) {
+    if (in_tile && !live) {
+      // a position past the frame: nothing routed, no recompute
+      cp_async_wait<0>();
+      for (int c = 0; c < CL; ++c) {
+        s_g[tid * GS + c] = 0.f;
+        s_o[tid * GS + c] = static_cast<unsigned short>(2 * ty * IW + 2 * tx);
+      }
+    } else if (in_tile) {
+      for (int c0 = 0; c0 < CL; c0 += CB) {
         float acc[4][CB];
         conv1_window_sums<KT, KH, KW, CB>(acc, s_x + 2 * ty * IW + 2 * tx, s_w + c0, kt, kh,
-                                          kw, IH, IW, cpad);
+                                          kw, IH, IW, MAXC);
 
         cp_async_wait<0>();  // this thread's cotangent row
 #pragma unroll
         for (int c = 0; c < CB; ++c) {
           const int ch = c0 + c;
-          if (ch < C) {
+          if (ch < CL) {
             const float bc = s_b[ch];
             float m = acc[0][c] + bc;
             int jm = 0;
@@ -235,7 +262,7 @@ conv1_pool_bwd_kernel(const ConvPoolBwdParams p) {
     }
     __syncthreads();
 
-    if (lc < C) {
+    if (lc < CL) {
       int toff[TQ];
       float acc2[TQ];
 #pragma unroll
@@ -247,7 +274,7 @@ conv1_pool_bwd_kernel(const ConvPoolBwdParams p) {
       }
       float dbacc = 0.f;
 #pragma unroll 4
-      for (int pos = 0; pos < NP; ++pos) {
+      for (int pos = pos_b; pos < pos_e; ++pos) {
         const float gv = s_g[pos * GS + lc];
         const float2* xo = s_x + s_o[pos * GS + lc];
 #pragma unroll
@@ -285,15 +312,22 @@ conv1_pool_bwd_kernel(const ConvPoolBwdParams p) {
     __syncthreads();  // s_x and the routing rows are rewritten next frame
   }
 
-  float* part = p.partial + (size_t)(blockIdx.y * gridDim.x + blockIdx.x) *
-                                (taps * C + C);
-  if (lc < C) {
+  // the (tile, chunk)'s partial row, each channel group its own columns:
+  // the position groups' sums added in order by the tap group's first warp
+  const int C = p.C;
+  float* part = p.partial + (size_t)(blockIdx.y * gridDim.x + blockIdx.x) * (taps * C + C) +
+                blockIdx.z * MAXC;
+  if (lc < CL && wq % PS == 0) {
 #pragma unroll
-    for (int q = 0; q < TQ; ++q) {
-      const int tap = tap0 + q;
-      if (tap < taps) part[tap * C + lc] = s_acc[q * NT + tid];
+    for (int q = 0; q <= TQ; ++q) {
+      const int tap = q < TQ ? tap0 + q : taps;  // q == TQ: db
+      if (tap < taps || (q == TQ && wq == 0)) {
+        float sum = s_acc[q * NT + tid];
+#pragma unroll
+        for (int k = 1; k < PS; ++k) sum += s_acc[q * NT + tid + 32 * k];
+        part[tap * C + lc] = sum;
+      }
     }
-    if (wq == 0) part[taps * C + lc] = s_acc[TQ * NT + tid];
   }
 }
 
@@ -323,9 +357,8 @@ conv1_pool_bwd_sum_kernel(const ConvPoolBwdParams p) {
   }
 }
 
-size_t smem_bytes(int kt, int kh, int kw, int C, int TR, int TC, int tq) {
-  const int cpad = (C + CB - 1) / CB * CB;
-  const size_t floats = (size_t)kt * kh * kw * cpad + cpad + (size_t)NT * GS +
+size_t smem_bytes(int kt, int kh, int kw, int TR, int TC, int tq) {
+  const size_t floats = (size_t)kt * kh * kw * MAXC + MAXC + (size_t)NT * GS +
                         (size_t)(tq + 1) * NT +
                         2 * (size_t)kt * (2 * TR + kh - 1) * (2 * TC + kw - 1);
   // the halo's offsets fit the 16-bit routing array whenever it fits here
@@ -346,14 +379,14 @@ cudaError_t opt_in(Fn fn, std::atomic<bool>* opted_in, int device) {
   return e;
 }
 
-template <int KT, int KH, int KW, int TQ>
+template <int KT, int KH, int KW, int TQ, int PS>
 cudaError_t launch(const ConvPoolBwdParams& p, dim3 grid, int device, cudaStream_t stream) {
   static std::atomic<bool> opted_in[MAX_DEVICES];
-  const size_t smem = smem_bytes(p.kt, p.kh, p.kw, p.C, p.TR, p.TC, TQ);
+  const size_t smem = smem_bytes(p.kt, p.kh, p.kw, p.TR, p.TC, TQ);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  cudaError_t e = opt_in(conv1_pool_bwd_kernel<KT, KH, KW, TQ>, opted_in, device);
+  cudaError_t e = opt_in(conv1_pool_bwd_kernel<KT, KH, KW, TQ, PS>, opted_in, device);
   if (e != cudaSuccess) return e;
-  conv1_pool_bwd_kernel<KT, KH, KW, TQ><<<grid, NT, smem, stream>>>(p);
+  conv1_pool_bwd_kernel<KT, KH, KW, TQ, PS><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -364,9 +397,10 @@ cudaError_t set_device(int device) {
   return e;
 }
 
-// Grid: (tiles of tile_rows x tile_cols pooled positions, n_chunks);
-// `partial` holds tiles * n_chunks rows of taps * C + C floats (the wrapper
-// allocates it and chooses the tile and the chunks).
+// Grid: (tiles of tile_rows x tile_cols pooled positions, n_chunks,
+// ceil(C / 32) channel groups); `partial` holds tiles * n_chunks rows of
+// taps * C + C floats, the groups of a (tile, chunk) writing one row's
+// columns (the wrapper allocates it and chooses the tile and the chunks).
 int run(const float* x, const float* w, const float* bias, const float* g,
         float* partial, float* dw, float* db,
         int B, int T, int H, int W, int kt, int kh, int kw, int C, int n_chunks,
@@ -376,7 +410,7 @@ int run(const float* x, const float* w, const float* bias, const float* g,
         long long g_sb, long long g_st, long long g_sh, long long g_sw,
         long long g_sc, long long dw_tap, long long dw_c, int device,
         void* stream) {
-  if (C < 1 || C > MAXC || kt * kh * kw > MAXTQ * NWARP || n_chunks < 1 ||
+  if (C < 1 || kt * kh * kw > MAXTQ * NWARP || n_chunks < 1 ||
       B < 1 || T < 1 || H < 2 || W < 2 || tile_rows < 1 || tile_cols < 1 ||
       tile_rows * tile_cols > NT)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -390,13 +424,13 @@ int run(const float* x, const float* w, const float* bias, const float* g,
                             x_sb, x_st, x_sh, x_sw, w_tap, w_c,
                             g_sb, g_st, g_sh, g_sw, g_sc, dw_tap, dw_c};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(tiles, n_chunks);
+  const dim3 grid(tiles, n_chunks, (C + MAXC - 1) / MAXC);
   if (kt == 3 && kh == 5 && kw == 5) {
-    e = launch<3, 5, 5, (75 + NWARP - 1) / NWARP>(p, grid, device, s);
+    e = launch<3, 5, 5, (75 + NWARP - 1) / NWARP, 1>(p, grid, device, s);
   } else if (kt == 3 && kh == 3 && kw == 3) {
-    e = launch<3, 3, 3, (27 + NWARP - 1) / NWARP>(p, grid, device, s);
+    e = launch<3, 3, 3, 28, NWARP>(p, grid, device, s);
   } else {
-    e = launch<0, 0, 0, MAXTQ>(p, grid, device, s);
+    e = launch<0, 0, 0, MAXTQ, 1>(p, grid, device, s);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_out = kt * kh * kw * C + C;

@@ -18,10 +18,12 @@ def make_lipnet(model_cfg, img_hw: Tuple[int, int],
     TF stack takes the config's resolved `conv_channels`, so an explicit
     (32, 64, 96) TF stack is representable, and computes in float32 whatever
     `model_cfg.compute_dtype` says, as the JAX switch builds it
-    (`tf_model_config`)."""
+    (`tf_model_config`); `fused_conv_pool` puts its conv1 on the fused
+    kernels as LipNet's."""
     if model_cfg.family != "tf":
         return LipNet(model_cfg, img_hw=img_hw, generator=generator)
-    return TFLipNet(tf_model_config(model_cfg), img_hw=img_hw, generator=generator)
+    return TFLipNet(tf_model_config(model_cfg), img_hw=img_hw, generator=generator,
+                    fused_conv_pool=model_cfg.fused_conv_pool)
 
 
 __all__ = ["LipNet", "TFLipNet", "MisalignmentDetector", "make_lipnet"]

@@ -23,10 +23,12 @@ return float32 (`ops/gru.py`), the head is a bf16 Dense
 logits; `conv_features` returns float32.
 
 Kernel routing (float32 and bf16):
-  * `ModelConfig.fused_conv_pool`: conv1 (Cin = 1, even H/W, odd kernel,
-    Cout <= 32 — the JAX gate of `lipnet.py:99-109`) runs the fused
-    conv+ReLU+pool kernel, one launch per forward, and its weight-gradient
-    kernel once per backward;
+  * `ModelConfig.fused_conv_pool`: conv1 runs the fused conv+ReLU+pool
+    kernel, one launch per forward, and its weight-gradient kernel once per
+    backward, where `ops/cuda/convpool.fused_takes` says the kernels take
+    the block (Cin = 1, even H/W, odd kernel; float32 any Cout whose CTAs
+    fit, bf16 Cout <= 32). LipNet's 32 channels pass the JAX gate of
+    `lipnet.py:99-109` too (4 * Cout <= 128, a TPU lane rule);
   * `ModelConfig.use_pallas_gru`: each BiGRU layer runs its recurrence in
     the GRU kernel, both directions in one launch, and its backward in the
     GRU backward kernel, one launch per layer.
@@ -56,7 +58,7 @@ from torch.utils.checkpoint import checkpoint
 
 from avsync_torch.config import ModelConfig
 from avsync_torch.ops.conv import conv_relu_pool
-from avsync_torch.ops.cuda.convpool import conv1_pool_block
+from avsync_torch.ops.cuda.convpool import conv1_pool_block, fused_takes
 from avsync_torch.ops.gru import GRUWeights, bigru
 from avsync_torch.ops.precision import compute_dtype, dense
 
@@ -87,7 +89,10 @@ def remat_block(module: nn.Module, x: torch.Tensor, remat: bool) -> torch.Tensor
 
 class ConvPoolBlock(nn.Module):
     """Conv3D(SAME) -> ReLU -> MaxPool3D(1,2,2) on NCDHW; params `weight`
-    (Cout, Cin, kt, kh, kw) and `bias` (Cout,), initialised like nn.Conv3d."""
+    (Cout, Cin, kt, kh, kw) and `bias` (Cout,), initialised like nn.Conv3d.
+    `fused`: the block may run the fused kernels (`conv1_pool_block`); it
+    does where `fused_takes` says they take its input, weight and dtype
+    (only ever a Cin = 1 block)."""
 
     def __init__(self, cin: int, cout: int, kernel_size: Tuple[int, int, int],
                  fused: bool = False, generator: Optional[torch.Generator] = None):
@@ -95,12 +100,10 @@ class ConvPoolBlock(nn.Module):
         bound = 1.0 / math.sqrt(cin * math.prod(kernel_size))
         self.weight = _uniform((cout, cin, *kernel_size), bound, generator)
         self.bias = _uniform((cout,), bound, generator)
-        kt, kh, kw = kernel_size
-        self.fused = (fused and cin == 1 and kt % 2 == 1 and kh % 2 == 1
-                      and kw % 2 == 1 and 4 * cout <= 128)
+        self.fused = fused
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.fused and x.shape[3] % 2 == 0 and x.shape[4] % 2 == 0:
+        if self.fused and fused_takes(x, self.weight):
             return conv1_pool_block(x, self.weight, self.bias)
         return conv_relu_pool(x, self.weight, self.bias)
 

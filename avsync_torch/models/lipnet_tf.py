@@ -10,9 +10,14 @@ is the LAST unit (31; `text.TF_BLANK_ID`). The default input geometry is the
 TF stack's 75 x 46 x 140 with per-clip standardization
 (`DataConfig.standardize_clips`).
 
-The conv blocks are the PyTorch family's `ConvPoolBlock` without the fused
-kernel (conv1 has 128 channels, past K1's gate): cuDNN with TF32 off. The
-LSTM recurrence is the plain step loop of `ops/lstm.py`. Inside, activations
+The conv blocks are the PyTorch family's `ConvPoolBlock`: cuDNN with TF32
+off, and with `fused_conv_pool` (`make_lipnet` passes
+`ModelConfig.fused_conv_pool`) conv1 (Cin = 1, 128 channels) in float32 on
+the fused kernels, K1 forward and K4 weight gradient (`ops/cuda/convpool.py`;
+their plain versions on the CPU); a bf16 conv1 of 128 channels stays on
+cuDNN (`convpool.fused_takes`). The flag is not a TFModelConfig field: those
+mirror the JAX TFModelConfig's, whose model has no such kernel. The LSTM
+recurrence is the plain step loop of `ops/lstm.py`. Inside, activations
 are NCDHW and the conv features flatten in (C, H, W) order, where the JAX
 package flattens (H, W, C): `compat.tflipnet_params_from_jax` permutes the
 first LSTM's input rows.
@@ -128,14 +133,15 @@ class TFLipNet(nn.Module):
 
     def __init__(self, cfg: TFModelConfig = TFModelConfig(),
                  img_hw: Tuple[int, int] = (46, 140),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 fused_conv_pool: bool = False):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = dt = compute_dtype(cfg.compute_dtype)
         cin, (h, w) = 1, img_hw
         for i, ch in enumerate(cfg.conv_channels):
-            self.add_module(f"conv{i + 1}", ConvPoolBlock(cin, ch, (3, 3, 3),
-                                                          generator=generator))
+            self.add_module(f"conv{i + 1}", ConvPoolBlock(
+                cin, ch, (3, 3, 3), fused=fused_conv_pool, generator=generator))
             cin, h, w = ch, h // 2, w // 2
         self.conv_output_dim = dim = cin * h * w
         for i in range(cfg.num_lstm_layers):

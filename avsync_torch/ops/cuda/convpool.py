@@ -6,10 +6,10 @@ gradient: CUDA kernels and their plain twins.
     frames, as `fwd_grid` chooses), plain version `conv1_pool_ref`, launches
     counted in `launches`;
   * dW/db: port of `conv1_pool_bwd`, kernel `avsync_torch/csrc/
-    conv1_pool_bwd.cu` (K4; per-CTA partials over the tile and frame chunks
-    that `bwd_grid` chooses, then a fixed-order sum in a second kernel of the
-    same launch), plain version `conv1_pool_bwd_ref`, launches counted in
-    `bwd_launches`;
+    conv1_pool_bwd.cu` (K4; per-CTA partials over the tiles, frame chunks
+    and groups of 32 channels that `bwd_grid` chooses, then a fixed-order
+    sum in a second kernel of the same launch), plain version
+    `conv1_pool_bwd_ref`, launches counted in `bwd_launches`;
   * `Conv1Pool`, the autograd Function around both that the model's fused
     conv1 block calls (the JAX package's `custom_vjp`,
     `convpool.py:154-196`). Its forward is the operator
@@ -18,7 +18,11 @@ gradient: CUDA kernels and their plain twins.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel or
 raises (for the operator, the dispatcher chooses by the tensor's device).
-The counters count kernel launches only.
+The counters count kernel launches only. `fused_takes` says which blocks the
+kernels take (the model's gate): one input channel, an odd kernel of at most
+MAX_TAPS taps, even H and W; in float32 any channel count whose K1 CTA fits
+the card's shared memory (the TF stack's 128 and more), in bf16 at most
+CHANNEL_GROUP (32) channels.
 
 The plain versions accumulate the taps with `addcmul_` in the kernels' order
 (taps dt, dh, dw from zero, then the bias). On the card that is one fused
@@ -80,28 +84,49 @@ BWD_MAX_TILE_COLS = 64
 # CTAs the backward grid aims at: two per SM of an H100 (132 SMs). A constant,
 # so that the partials (and dW's bits) do not depend on the card.
 BWD_TARGET_CTAS = 264
-MAX_CHANNELS, MAX_TAPS = 32, 128  # what the backward kernel takes
+# K4's channels per CTA (a lane each in its dW phase; more channels take more
+# groups), and all the channels K4-bf16 takes; the taps either kernel takes
+CHANNEL_GROUP, MAX_TAPS = 32, 128
 MAX_SMEM = 232448  # shared memory one CTA can opt in to on sm_90
 
 
-def bwd_grid(B: int, T: int, H2: int, W2: int):
-    """(tile_rows, tile_cols, tiles, n_chunks) of K4's grid for a pooled
-    (H2, W2) frame: full-width tiles of at most BWD_THREADS positions (5 x 50
-    for LipNet's 25 x 50: no dead position), and enough chunks of the B*T
-    frames to fill BWD_TARGET_CTAS CTAs."""
-    cols = min(W2, BWD_MAX_TILE_COLS)
-    rows = max(1, min(H2, BWD_THREADS // cols))
+def frame_tile(H2: int, W2: int, max_pos: int):
+    """(rows, cols) of a tile of at most max_pos pooled positions and 64
+    columns, a row's width split into 1-4 equal parts, with the fewest dead
+    positions (then the fewest tiles): LipNet's 25 x 50 takes 5 x 50 for
+    256 (none dead) and 5 x 25 for 128; the TF stack's 23 x 70 takes 7 x 35
+    for 256 (8 tiles, 18% dead)."""
+    best = None
+    k0 = -(-W2 // BWD_MAX_TILE_COLS)
+    for k in range(k0, k0 + 4):
+        cols = -(-W2 // k)
+        rows = max(1, min(H2, max_pos // cols))
+        tiles = -(-H2 // rows) * -(-W2 // cols)
+        key = (tiles * rows * cols - H2 * W2, tiles)
+        if best is None or key < best[0]:
+            best = (key, rows, cols)
+    return best[1], best[2]
+
+
+def bwd_grid(B: int, T: int, H2: int, W2: int, C: int):
+    """(tile_rows, tile_cols, tiles, n_chunks, groups) of K4's float grid
+    for a pooled (H2, W2) frame and C channels: `frame_tile`'s tile of at
+    most BWD_THREADS positions (5 x 50 at LipNet's 25 x 50, 7 x 35 at the TF
+    stack's 23 x 70), ceil(C / CHANNEL_GROUP) channel groups, and enough
+    chunks of the B*T frames to fill BWD_TARGET_CTAS CTAs over the tiles and
+    groups. C <= 32 is one group: LipNet's grid is the one-group grid."""
+    rows, cols = frame_tile(H2, W2, BWD_THREADS)
     tiles = -(-H2 // rows) * -(-W2 // cols)
-    return rows, cols, tiles, max(1, min(B * T, BWD_TARGET_CTAS // tiles))
+    groups = -(-C // CHANNEL_GROUP)
+    return rows, cols, tiles, max(1, min(B * T, BWD_TARGET_CTAS // (tiles * groups))), groups
 
 
-def fwd_grid(B: int, T: int, H2: int, W2: int, kt: int, kh: int, kw: int, C: int):
-    """(tile_rows, tile_cols, tiles, n_chunks) of K1's grid: K4's tile
-    (`bwd_grid`; 5 x 50 for LipNet's 25 x 50, no dead position) while the
-    CTA's shared memory (the weights and two input halos of float2 pairs,
-    `smem_bytes` in csrc/conv1_pool.cu) fits, else fewer rows, then fewer
-    columns; enough chunks of the B*T frames to fill BWD_TARGET_CTAS CTAs."""
-    rows, cols, _, _ = bwd_grid(B, T, H2, W2)
+def _fwd_tile(H2: int, W2: int, kt: int, kh: int, kw: int, C: int):
+    """(rows, cols) of K1's tile: `frame_tile`'s while the CTA's shared
+    memory (the weights and two input halos of float2 pairs, `smem_bytes` in
+    csrc/conv1_pool.cu) fits, else fewer rows, then fewer columns; None
+    where no tile fits."""
+    rows, cols = frame_tile(H2, W2, BWD_THREADS)
     cpad = -(-C // 16) * 16
 
     def smem(r, c):
@@ -112,11 +137,44 @@ def fwd_grid(B: int, T: int, H2: int, W2: int, kt: int, kh: int, kw: int, C: int
             rows = -(-rows // 2)
         else:
             cols = -(-cols // 2)
-    if smem(rows, cols) > MAX_SMEM:
+    return (rows, cols) if smem(rows, cols) <= MAX_SMEM else None
+
+
+def fwd_grid(B: int, T: int, H2: int, W2: int, kt: int, kh: int, kw: int, C: int):
+    """(tile_rows, tile_cols, tiles, n_chunks) of K1's grid: `_fwd_tile`'s
+    tile (K4's, 5 x 50 at LipNet's 25 x 50 and 7 x 35 at the TF stack's 23 x
+    70, where it fits) and enough chunks of the B*T frames to fill
+    BWD_TARGET_CTAS CTAs."""
+    tile = _fwd_tile(H2, W2, kt, kh, kw, C)
+    if tile is None:
         raise ValueError(f"conv1_pool: a {kt}x{kh}x{kw} kernel with {C} channels needs more "
                          "shared memory than the card has")
+    rows, cols = tile
     tiles = -(-H2 // rows) * -(-W2 // cols)
     return rows, cols, tiles, max(1, min(B * T, BWD_TARGET_CTAS // tiles))
+
+
+def fused_takes(x: torch.Tensor, weight: torch.Tensor) -> bool:
+    """Whether the fused kernels (K1 and K4, or K1-bf16 and K4-bf16) take
+    the NCDHW block x (B, 1, T, H, W) * weight (C, 1, kt, kh, kw) in x's
+    dtype, on the card as on the CPU (the plain versions follow the
+    kernels): one input channel, an odd kernel of at most MAX_TAPS taps,
+    even H and W; float32 any C whose K1 CTA fits (K4's holds one group of
+    channels whatever C), bf16 at most CHANNEL_GROUP channels. The model's
+    conv blocks ask it at each forward; the answer is cached per shape and
+    dtype."""
+    return _takes(x.shape[1], x.shape[3], x.shape[4], tuple(weight.shape), x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _takes(cin: int, H: int, W: int, w_shape: tuple, dtype: torch.dtype) -> bool:
+    C, kcin, kt, kh, kw = w_shape
+    if (cin != 1 or kcin != 1 or H % 2 or W % 2 or not (kt % 2 and kh % 2 and kw % 2)
+            or kt * kh * kw > MAX_TAPS):
+        return False
+    if dtype == torch.bfloat16:
+        return C <= CHANNEL_GROUP
+    return dtype == torch.float32 and _fwd_tile(H // 2, W // 2, kt, kh, kw, C) is not None
 
 
 # The bf16 kernels' CTAs resident at once: two per SM of an H100 (132 SMs).
@@ -160,34 +218,17 @@ def mma_smem_bytes(kt: int, kh: int, kw: int, C: int, TR: int, TC: int, bwd: boo
                 + (8 * ntw + 8) * 256)
 
 
-def _mma_tile(H2: int, W2: int, max_pos: int):
-    """(rows, cols) of a tile of at most max_pos pooled positions and 64
-    columns, a row's width split into 1-4 equal parts, with the fewest dead
-    positions (then the fewest tiles): LipNet's 25 x 50 takes 5 x 50 for
-    256 and 5 x 25 for 128."""
-    best = None
-    k0 = -(-W2 // BWD_MAX_TILE_COLS)
-    for k in range(k0, k0 + 4):
-        cols = -(-W2 // k)
-        rows = max(1, min(H2, max_pos // cols))
-        tiles = -(-H2 // rows) * -(-W2 // cols)
-        key = (tiles * rows * cols - H2 * W2, tiles)
-        if best is None or key < best[0]:
-            best = (key, rows, cols)
-    return best[1], best[2]
-
-
 @functools.lru_cache(maxsize=None)
 def mma_grid(B: int, T: int, H2: int, W2: int, kt: int, kh: int, kw: int, C: int,
              bwd: bool = False):
     """(tile_rows, tile_cols, tiles, runs) of K1-bf16's or (bwd) K4-bf16's
-    grid: B x tiles x runs CTAs, each a tile of pooled positions (`_mma_tile`:
+    grid: B x tiles x runs CTAs, each a tile of pooled positions (`frame_tile`:
     at most 256 for K1, 128 for K4; fewer rows, then fewer columns, while
     its shared memory does not fit) over a run of ceil(T / runs) frames. The
     runs minimise the waves of CTAs over the resident slots times the frames
     a CTA stages (its run, half its kt - 1 halo frames and one for its
     set-up); ties take fewer runs."""
-    rows, cols = _mma_tile(H2, W2, MMA_BWD_MAX_POS if bwd else BWD_THREADS)
+    rows, cols = frame_tile(H2, W2, MMA_BWD_MAX_POS if bwd else BWD_THREADS)
     while mma_smem_bytes(kt, kh, kw, C, rows, cols, bwd) > MAX_SMEM and rows * cols > 1:
         if rows > 1:
             rows = -(-rows // 2)
@@ -466,14 +507,14 @@ def _launch_bwd(x, x_strides, w, w_strides, bias, g, g_strides, dw, dw_strides, 
     if not (bias.is_contiguous() and db.is_contiguous()):
         raise ValueError("conv1_pool_bwd: bias must be contiguous")
     taps = kt * kh * kw
-    if C > MAX_CHANNELS or taps > MAX_TAPS:
-        raise ValueError(f"conv1_pool_bwd kernel takes at most {MAX_CHANNELS} channels "
-                         f"and {MAX_TAPS} taps (got C={C}, {taps} taps)")
+    if taps > MAX_TAPS or (suffix and C > CHANNEL_GROUP):
+        raise ValueError(f"conv1_pool_bwd kernel takes at most {MAX_TAPS} taps, and in bf16 "
+                         f"{CHANNEL_GROUP} channels (got C={C}, {taps} taps)")
     if suffix:  # bf16: a partial row per CTA, B x tiles x runs of frames
         rows, cols, tiles, n_chunks = mma_grid(B, T, H // 2, W // 2, kt, kh, kw, C, bwd=True)
         n_partials = B * tiles * n_chunks
-    else:
-        rows, cols, tiles, n_chunks = bwd_grid(B, T, H // 2, W // 2)
+    else:  # a partial row per (tile, chunk), its channel groups' columns side by side
+        rows, cols, tiles, n_chunks, _ = bwd_grid(B, T, H // 2, W // 2, C)
         n_partials = tiles * n_chunks
     partial = torch.empty(n_partials, taps * C + C, device=dev, dtype=torch.float32)
     fn = build.function("conv1_pool_bwd", "avs_conv1_pool_bwd" + suffix, _BWD_ARGTYPES)

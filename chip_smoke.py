@@ -18,7 +18,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      instantiation and at H = 20 through the wrapper's padding), with the
      tolerance beside the max error; K1 equal to its plain version bit for
      bit at B=8 and 128, and for K1-K4 a repeat launch that must give the
-     same bits (at B=8 and B=128);
+     same bits (at B=8 and B=128); K1 and K4 also at the TF stack's conv1
+     (B=8, T=75, 46x140, 3x3x3, 128 channels: a 7 x 35 tile, four channel
+     groups in K4) and a ragged 50x138 at 100 channels, K1 bit for bit,
+     K4 within its tolerance and bit-identical on a repeat;
      then kernel / plain / library times (CUDA events, warm-up first, median
      of 20 runs; K1 also at B=1, K2/K3 per step and once at H = 512) and the
      bound (least time the card could take: bytes over 3.35 TB/s or fp32
@@ -172,7 +175,14 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      (transcripts equal in-process readers', SIGTERM drains), Q1 three times
      per batch through an in-process int8 daemon (the counters zeroed before,
      read after), `cli export` of the TF transcriber (seconds, bytes) against
-     the live reader at B = 1 and 8 (1e-4);
+     the live reader at B = 1 and 8 (1e-4); f. the same seeded weights under
+     `fused_conv_pool` (conv1 on K1/K4) against the cuDNN route: the forward
+     at B=8 (1e-4; K1 once), two epochs of the epoch program against the
+     eager loop bit for bit (K1 and K4 once per eager step and capture, the
+     first step's loss and gradient norm within 1e-5), `cli quantize`'s
+     scales, `cli serve` as a child process (transcripts equal the cuDNN
+     reader's) and an in-process daemon (K1 once per batch), `cli export`
+     (1e-4 of the cuDNN reader at B = 1 and 8, K1 once per call);
   14. multi-device, at full width from phase 4's seeded weights, dropout 0,
      the ranks started by `parallel.multihost.spawn` (explicit rank, world
      and port; gloo when they share one card, NCCL with a card each; the
@@ -403,6 +413,12 @@ def max_err(got, want, tol, what):
 # 3. kernels
 # ---------------------------------------------------------------------------
 
+# K1's and K4's extra cases beyond LipNet's: the TF stack's conv1 at its
+# training shape (B=8, T=75, 46 x 140, 3x3x3, 128 channels) and a ragged
+# frame (25 x 69 pooled) at 100 channels
+TF_CONV1_SHAPES = [(8, 75, 46, 140, (3, 3, 3), 128), (2, 5, 50, 138, (3, 3, 3), 100)]
+
+
 def check_conv1_pool(dev):
     import torch
     import torch.nn.functional as F
@@ -417,12 +433,15 @@ def check_conv1_pool(dev):
     # at the serving shape, then odd shapes and the generic (untemplated)
     # path, then the tile's edges: a 27 x 51 pooled frame the 5 x 51 tile
     # does not divide, C = 20 and 9, a 100-wide pooled frame (two column
-    # tiles), 77 frames against 52 chunks
+    # tiles), 77 frames against 52 chunks; then the TF stack's conv1 (a 7 x
+    # 35 tile of its 23 x 70 frame, 128 channels) and a ragged 25 x 69 frame
+    # at 100 channels
     shapes = [(B, 75, 50, 100, (3, 5, 5), 32) for B in BUCKETS + TRAIN_BATCHES]
     shapes += [(3, 7, 10, 18, (3, 3, 3), 5), (2, 4, 12, 70, (1, 3, 5), 7),
                (1, 1, 2, 2, (3, 5, 5), 32), (2, 5, 54, 102, (3, 5, 5), 32),
                (1, 3, 50, 100, (3, 5, 5), 20), (1, 3, 50, 100, (3, 5, 5), 9),
                (1, 2, 20, 200, (3, 5, 5), 9), (7, 11, 50, 100, (3, 5, 5), 32)]
+    shapes += TF_CONV1_SHAPES
     for B, T, H, W, k, C in shapes:
         x = torch.rand(B, T, H, W, 1, generator=g).to(dev)
         bound = 1.0 / (k[0] * k[1] * k[2]) ** 0.5
@@ -437,13 +456,16 @@ def check_conv1_pool(dev):
         got_n = convpool.conv1_pool_block(x_n, w_n, b)
         errs.append(max_err(got_n, want.permute(0, 4, 1, 2, 3), K1_TOL,
                             f"B={B} T={T} {H}x{W} k={k} C={C} NCDHW layout"))
-        if (B, T, H, W, C) in ((8, 75, 50, 100, 32), (128, 75, 50, 100, 32)):
-            same_bits([got_n], [convpool.conv1_pool_block(x_n, w_n, b)], f"B={B} T={T} {H}x{W}")
+        if (B, T, H, W, C) in ((8, 75, 50, 100, 32), (128, 75, 50, 100, 32)) or C > 32:
+            what = f"B={B} T={T} {H}x{W} C={C}"
+            same_bits([got_n], [convpool.conv1_pool_block(x_n, w_n, b)], what)
             # the same fmaf chain per pre-pool value as the plain version
-            if not torch.equal(got_n, want.permute(0, 4, 1, 2, 3)):
-                raise SystemExit(f"kernel check failed: K1 at B={B} differs from its plain "
+            if not (torch.equal(got_n, want.permute(0, 4, 1, 2, 3)) and torch.equal(got, want)):
+                raise SystemExit(f"kernel check failed: K1 at {what} differs from its plain "
                                  "version in some bit")
-            print(f"  B={B} T=75 50x100: equal to the plain version bit for bit", flush=True)
+            print(f"  {what}: equal to the plain version bit for bit in both layouts",
+                  flush=True)
+        del want, got, got_n
 
     # times at the serving path's shape: B=8, T=75, 50x100, C=32, k=(3,5,5)
     B, T, H, W, C = 8, 75, 50, 100, 32
@@ -691,6 +713,9 @@ def check_conv1_pool_bwd(dev):
                # against 52 chunks; C < 32 at full width; columns past one tile
                (2, 5, 54, 102, (3, 5, 5), 32), (7, 11, 50, 100, (3, 5, 5), 32),
                (1, 3, 50, 100, (3, 5, 5), 20), (1, 2, 20, 200, (3, 5, 5), 9)]
+    # the TF stack's conv1 (four channel groups over a 7 x 35 tile, PS = 8 at
+    # 27 taps) and a ragged frame whose last group holds 4 channels
+    shapes += TF_CONV1_SHAPES
     for B, T, H, W, k, C in shapes:
         x, w, b, cot = case(B, T, H, W, k, C)
         want = convpool.conv1_pool_bwd_ref(x, w, b, cot)
@@ -702,8 +727,8 @@ def check_conv1_pool_bwd(dev):
                                               cot.permute(0, 4, 1, 2, 3))
         errs.append(max_err(got_n[0], want[0].permute(4, 3, 0, 1, 2), K4_TOL,
                             f"dweight B={B} T={T} {H}x{W} k={k} C={C} NCDHW layout"))
-        if B in (8, 128) and T == 75:
-            same_bits(got, convpool.conv1_pool_bwd(x, w, b, cot), f"B={B} T={T} {H}x{W}")
+        if (B in (8, 128) and T == 75) or C > 32:
+            same_bits(got, convpool.conv1_pool_bwd(x, w, b, cot), f"B={B} T={T} {H}x{W} C={C}")
         if B == 128:  # kernel and plain version against float64 sums on the same routing
             f64 = [torch.zeros_like(r, dtype=torch.float64) for r in want]
             for i in range(0, B, 16):
@@ -3856,13 +3881,194 @@ def tf_serving(dev, workdir, corpus, f32, q8, snap, cfg_path, qscales, crops, sm
     return out
 
 
+TF_FUSED_STEP_RTOL = 1e-5  # 13f: first step's loss and gradient norm, K1/K4 vs cuDNN
+TF_QSCALE_RTOL = 1e-5  # 13f: calibration scales (absmax / 127) under the flag vs without
+
+
+def tf_fused(dev, workdir, corpus, cfg, state, snap, f32, qscales, frames, crops, smi):
+    """13f: the TF stack under `fused_conv_pool` (conv1 on K1 and K4 in
+    float32) from phase 13's seeded weights, each path against the cuDNN
+    route (`f32`, `qscales`): a. the forward at B=8 (TF_CPU_ATOL), K1 once;
+    b. two epochs of the epoch program against the eager loop under
+    cudnn.deterministic, bit for bit, K1 and K4 through their wrappers once
+    per eager step and capture, and the first step's loss and gradient norm
+    against the cuDNN loop's; c. `cli quantize`'s scales; d. `cli serve` as
+    a child process (transcripts equal the cuDNN reader's) and an in-process
+    daemon (K1 once per batch, nothing else); e. `cli export`, the artifact
+    against the cuDNN reader at B = 1 and 8 (TF_ARTIFACT_ATOL), K1 once per
+    call."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from avsync_torch import cli
+    from avsync_torch.config import TrainConfig
+    from avsync_torch.data.grid import GridDataSource, split_speakers
+    from avsync_torch.data.pipeline import LipNetBatcher
+    from avsync_torch.export import load_exported
+    from avsync_torch.predictor import LipReader
+    from avsync_torch.serving import AvsyncServer, TranscribeService
+    from avsync_torch.train.lipnet_trainer import LipNetTrainer
+    from avsync_torch.utils.logging import Logger
+
+    none = {"conv1_pool": 0, "gru_fwd": 0, "gru_bwd": 0, "conv1_pool_bwd": 0, "mel_stats": 0}
+    fcfg = cfg.replace(model=dataclasses.replace(cfg.model, fused_conv_pool=True))
+    fcfg_path = os.path.join(workdir, "tf_fused_config.json")
+    with open(fcfg_path, "w") as f:
+        f.write(fcfg.to_json())
+    out = {}
+
+    # a. the forward
+    reader = LipReader(params=state, config=fcfg, device=dev)
+    clips = f32.preprocess_device(frames)
+    with torch.inference_mode():
+        zero_counts()
+        lp = reader._logprobs(clips)
+        torch.cuda.synchronize()
+        got = counts()
+        err = (lp - f32._logprobs(clips)).abs().max().item()
+    out["forward"] = {"max_abs_err_vs_cudnn": err, "launches": got,
+                      "fused_B8_ms": time_ms(lambda: reader._logprobs(clips), iters=10),
+                      "cudnn_B8_ms": time_ms(lambda: f32._logprobs(clips), iters=10)}
+    print(f"TF family phase: f. fused_conv_pool (conv1 on K1/K4) against the cuDNN route:\n"
+          f"  forward B=8: {json.dumps(out['forward'])} (tol {TF_CPU_ATOL}; K1 once) [{smi}]",
+          flush=True)
+    if not (reader.model.conv1.fused and err <= TF_CPU_ATOL and got == dict(none, conv1_pool=1)):
+        raise SystemExit("the TF forward under fused_conv_pool failed its checks")
+
+    # b. training: the epoch program against the loop, the first step against cuDNN's
+    quiet = Logger(None, console=False)
+    tcfg = cli._config(fcfg_path)
+    tcfg = tcfg.replace(data=dataclasses.replace(tcfg.data, data_path=corpus, device_cache="on"),
+                        model=dataclasses.replace(tcfg.model, dropout_rate=0.5),
+                        train=TrainConfig(seed=3))
+    train_sp, _, _ = split_speakers([f"s{i}" for i in range(1, TF_SPEAKERS + 1)],
+                                    tcfg.data.split)
+    batcher = LipNetBatcher(GridDataSource(corpus, train_sp), tcfg, device=dev)
+    runs = {}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        for path, c in (("graph", tcfg), ("loop", tcfg), ("cudnn", tcfg.replace(
+                model=dataclasses.replace(tcfg.model, fused_conv_pool=False)))):
+            trainer = LipNetTrainer(c, device=dev, log=quiet)
+            st, log = trainer.init_state(), StepLog()
+            zero_counts()
+            for e in ((1, 2) if path != "cudnn" else (1,)):
+                if path == "graph":
+                    trainer.train_epoch_scanned(st, batcher.scan_plan(shuffle=True, seed=e),
+                                                metrics_writer=log)
+                else:
+                    trainer.train_epoch(st, batcher.epoch(shuffle=True, seed=e),
+                                        metrics_writer=log)
+            torch.cuda.synchronize()
+            runs[path] = (st, log.rows, counts())
+            trainer._programs.clear()
+    (sg, rg, cg), (sl, rl, cl), (_, rc, cc) = runs["graph"], runs["loop"], runs["cudnn"]
+    S = len(rl) // 2
+    n = program_wrapper_calls(S, 2)
+    same_state(sg, sl, "TF family, fused_conv_pool")
+    gaps = {k: abs(rl[0][i] - rc[0][i]) / abs(rc[0][i]) for i, k in ((1, "loss"), (2, "grad_norm"))}
+    out["train"] = {"steps_per_epoch": S, "wrapper_calls": {"graph": cg, "loop": cl, "cudnn": cc},
+                    "first_step_rel_gap_vs_cudnn": gaps,
+                    "losses": {"fused": [r[1] for r in rl], "cudnn": [r[1] for r in rc]}}
+    print(f"  TF B=8 S={S} dropout 0.5, cudnn.deterministic, 2 epochs graph vs eager loop: "
+          f"parameters, Adam state, {len(rl)} losses and gradient norms equal bit for bit: "
+          f"{rg == rl}; {json.dumps(out['train'])} (expected wrapper calls graph conv1_pool = "
+          f"conv1_pool_bwd = {n}, loop {2 * S}, cudnn 0; first step within "
+          f"{TF_FUSED_STEP_RTOL})", flush=True)
+    if (rg != rl or cg != dict(none, conv1_pool=n, conv1_pool_bwd=n)
+            or cl != dict(none, conv1_pool=2 * S, conv1_pool_bwd=2 * S) or cc != none
+            or any(g > TF_FUSED_STEP_RTOL for g in gaps.values())):
+        raise SystemExit("TF training under fused_conv_pool failed its checks")
+    del runs, sg, sl, batcher
+    torch.cuda.empty_cache()
+
+    # c. int8 calibration runs the blocks: the scales under the flag
+    fq = os.path.join(workdir, "tf_fused_qscales.npz")
+    zero_counts()
+    rc_q = cli.main(["quantize", "--data_path", corpus, "--config", fcfg_path, "--checkpoint",
+                     snap, "--out", fq, *F32])
+    torch.cuda.synchronize()
+    got = counts()
+    with np.load(qscales) as a, np.load(fq) as b:
+        gaps = {k: float(np.max(np.abs(b[k] - a[k]) / np.maximum(np.abs(a[k]), 1e-30)))
+                for k in a.files if a[k].dtype.kind == "f"}
+        keys_same = sorted(a.files) == sorted(b.files)
+    out["quantize"] = {"rc": rc_q, "launches": got, "rel_gap_vs_cudnn": gaps}
+    print(f"  cli quantize under the flag: {json.dumps(out['quantize'])} (tol {TF_QSCALE_RTOL}; "
+          f"K1 once per calibration batch, no K4)", flush=True)
+    if (rc_q != 0 or not keys_same or not got["conv1_pool"] or got["conv1_pool_bwd"]
+            or any(g > TF_QSCALE_RTOL for g in gaps.values())):
+        raise SystemExit("cli quantize under fused_conv_pool failed its checks")
+
+    # d. serving: a child daemon against the cuDNN reader, an in-process one counted
+    t0 = time.perf_counter()
+    daemon = Daemon(["--checkpoint", snap, "--config", fcfg_path, "--model_family", "tf",
+                     "--port", "0", "--warmup", "--max_batch", str(MAX_BATCH), *F32])
+    try:
+        up = time.perf_counter() - t0
+        row = transcribe_load(daemon.url, crops, f32, "TF fused daemon vs the cuDNN reader")
+        rc_d = daemon.stop()
+    finally:
+        daemon.kill()
+    if rc_d != 0:
+        raise SystemExit(f"TF fused daemon exited {rc_d} after SIGTERM")
+    server = AvsyncServer(TranscribeService(reader, max_batch=MAX_BATCH, max_wait_ms=5.0), None,
+                          port=0)
+    server.start()
+    try:
+        zero_counts()
+        answers, _, _ = load(f"http://{server.address[0]}:{server.address[1]}",
+                             [("/v1/transcribe", npy_bytes(c), "application/x-npy")
+                              for c in crops])
+        torch.cuda.synchronize()
+        got = counts()
+        nt = sum(server.stats_snapshot()["transcribe"]["batches"].values())
+    finally:
+        server.shutdown(drain_timeout=30.0)
+    out["serve"] = dict(row, start_s=up, launches={"transcribe_batches": nt, **got})
+    print(f"  serve --model_family tf under the flag as a child process, {len(crops)} crops: "
+          f"{json.dumps(out['serve'])} (transcripts equal the cuDNN reader's; in-process: K1 "
+          f"once per batch) [{smi}]", flush=True)
+    if any(a[0] != 200 for a in answers) or got != dict(none, conv1_pool=nt):
+        raise SystemExit("TF fused daemon: answers or launch counts are wrong")
+
+    # e. export: the artifact launches K1 (avsync_torch::conv1_pool)
+    art_path = os.path.join(workdir, "tf_fused_transcriber.zip")
+    if cli.main(["export", "--checkpoint", snap, "--config", fcfg_path, "--model_family", "tf",
+                 "--out", art_path, *F32]) != 0:
+        raise SystemExit("cli export --model_family tf under fused_conv_pool failed")
+    art = load_exported(art_path)
+    errs, calls = {}, {}
+    for B in (1, 8):
+        x = np.stack(crops[:B])
+        zero_counts()
+        _, _, lp = art.call(x)
+        torch.cuda.synchronize()
+        calls[B] = counts()
+        errs[B] = float(np.abs(lp - f32._logprobs(f32.preprocess_device(x)).cpu().numpy()).max())
+    out["export"] = {"max_abs_err_vs_cudnn": errs, "launches": calls,
+                     "call_B8_ms": time_ms(lambda: art.call(np.stack(crops[:8])), iters=5,
+                                           warmup=1)}
+    print(f"  cli export under the flag: {json.dumps(out['export'])} (tol {TF_ARTIFACT_ATOL}; "
+          f"K1 once per call) [{smi}]", flush=True)
+    if (any(e > TF_ARTIFACT_ATOL for e in errs.values())
+            or any(c != dict(none, conv1_pool=1) for c in calls.values())):
+        raise SystemExit("the TF artifact under fused_conv_pool failed its checks")
+    del reader, art
+    torch.cuda.empty_cache()
+    return out
+
+
 def run_tf_family(dev, workdir, smi, cfg=None):
     """Phase 13: the TF-family LipNet at its full default width (`cfg`, the
     TF stack's default config when None), seeded weights through the weight
     bridge: a. Q1 at its three blocks; b. the f32 forward on the card
     against the CPU's; c. `cli train`, the epoch program against the loop;
     d. the commands from the trained snapshot and the int8 forward; e. the
-    daemons, f32 and int8, and the exported artifact."""
+    daemons, f32 and int8, and the exported artifact; f. `fused_conv_pool`
+    (conv1 on K1/K4) against the cuDNN route."""
     import glob
 
     import numpy as np
@@ -3916,6 +4122,8 @@ def run_tf_family(dev, workdir, smi, cfg=None):
     del trained, trained8
     out["serving"] = tf_serving(dev, workdir, corpus, f32, q8, snap, cfg_path, qscales, crops,
                                 smi)
+    out["fused"] = tf_fused(dev, workdir, corpus, cfg, state, snap, f32, qscales, frames, crops,
+                            smi)
     del f32, q8
     torch.cuda.empty_cache()
     print(f"  TF family phase numbers [{smi}]: {json.dumps(out)}", flush=True)
@@ -6188,6 +6396,11 @@ def main() -> int:
                                            "conv3 in their chain contracts")
     if not tf["serving"]["launches"]["int8_conv_pool"]:
         raise SystemExit("int8_conv_pool was not launched on the TF family's int8 path")
+    # 13f's own path: the TF stack's conv1 under fused_conv_pool
+    k1["launches_tf_fused"] = {"train_loop": tf["fused"]["train"]["wrapper_calls"]["loop"][
+        "conv1_pool"], "daemon": tf["fused"]["serve"]["launches"],
+        "export_B8": tf["fused"]["export"]["launches"][8]["conv1_pool"]}
+    k4["launches_tf_fused"] = tf["fused"]["train"]["wrapper_calls"]["loop"]["conv1_pool_bwd"]
     for k in (k1, k2, k3, k4):  # phase 14's own path: a DP rank's train step
         k["launches_dp_rank_step"] = multi["dp_counts"][k["name"]]
         if not k["launches_dp_rank_step"]:

@@ -10,6 +10,7 @@ earlier design, on one GPU. Modes:
     python3 scripts/torch_kernel_breakdown.py --mode conv1-bf16 [--parent DIR] [--out k.json]
     python3 scripts/torch_kernel_breakdown.py --mode k2-bf16 [--out k.json]
     python3 scripts/torch_kernel_breakdown.py --mode k3-h0 --parent DIR [--out k.json]
+    python3 scripts/torch_kernel_breakdown.py --mode conv1-tf [--parent DIR] [--out k.json]
 
 `--parent` is the root of an unpacked checkout whose `avsync_torch/csrc/`
 holds the earlier design. The default mode (`lipnet`) takes the LipNet
@@ -94,6 +95,28 @@ times the parent, the current call without h0 and with h0 + dh0 in turns
 (parent, current, h0, h0, current, parent): `queued_ms` and the profiler's
 device time per call.
 
+Mode `conv1-tf` (the TF stack's conv1 block in float32: Cin 1, 128 channels,
+3x3x3, 46x140, B=8, T=75, NCDHW as the model calls it), optionally `--parent
+DIR`, a checkout whose K4 takes at most 32 channels (its TF conv1 ran on
+cuDNN):
+  * prints K1's and K4's grids (and DIR's wrapper's);
+  * holds K1 to its plain version bit for bit (torch.equal), K4's dW and db
+    to theirs (largest differences, and within K4_TOL: atol 1e-3, rtol
+    1e-4), a repeat launch of each to the same bits, and cuDNN's block to
+    K1 (largest difference);
+  * times on the device alone (`queued_ms`) and by profiler device time:
+    K1, K4, and cuDNN's block as the model ran it before (forward: conv3d,
+    ReLU, `max_pool3d_with_indices`, TF32 off; backward: autograd of that
+    block for dW and db under the trainers' `train_scope`, cuDNN
+    deterministic); then cuDNN's block (forward + backward) against K1 + K4
+    in turns (cuDNN, fused, fused, cuDNN); and K4 with a part cut out (no dW
+    product, no recompute, neither: staging, cotangent loads and barriers),
+    through the wrapper with the cut library swapped in;
+  * with `--parent`, DIR's K1 at the TF shape with its wrapper's grid
+    against the current K1 in turns, and at LipNet's shape (B=8, 50x100,
+    32 channels, 3x5x5) DIR's K1, K4, K1-bf16 and K4-bf16 against the
+    current ones: torch.equal on every output, and each pair in turns.
+
 Mode `lipnet`:
   * builds the earlier design's four LipNet kernels and variants of its K3 and K1
     with parts cut out (text patches below; each variant computes a wrong
@@ -120,6 +143,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -356,14 +380,16 @@ def checked(err, what):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", default=None, help="root of the earlier design's checkout")
-    ap.add_argument("--mode", choices=("lipnet", "k5", "q1", "conv1-bf16", "k2-bf16", "k3-h0"),
+    ap.add_argument("--mode", choices=("lipnet", "k5", "q1", "conv1-bf16", "k2-bf16", "k3-h0",
+                                       "conv1-tf"),
                     default="lipnet",
                     help="lipnet: K1-K4 against 6ec0e61; k5: K5 against 5e863d4; q1: Q1 "
                          "(int8 serving): tiles, a sweep of forced tiles, against --parent "
                          "in turns if given; "
                          "conv1-bf16: K1-bf16 and K4-bf16 cut into parts, against --parent "
                          "if given; k2-bf16: K2's per-step product cut out; k3-h0: K3 "
-                         "without h0 against --parent's, and with h0")
+                         "without h0 against --parent's, and with h0; conv1-tf: K1 and K4 "
+                         "at the TF stack's conv1 against cuDNN's block (and --parent)")
     ap.add_argument("--blocks", choices=("tf", "lipnet", "both"), default="both",
                     help="q1: the family whose three blocks to time")
     ap.add_argument("--out", default=None, help="also write the JSON here")
@@ -379,14 +405,14 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
-    if args.parent is None and args.mode not in ("q1", "conv1-bf16", "k2-bf16"):
+    if args.parent is None and args.mode not in ("q1", "conv1-bf16", "k2-bf16", "conv1-tf"):
         ap.error(f"--mode {args.mode} needs --parent")
     parent = Path(args.parent).resolve() if args.parent else None
     blocks = ("tf", "lipnet") if args.blocks == "both" else (args.blocks,)
     out = {"k5": k5_breakdown, "q1": lambda p, d: q1_breakdown(p, d, blocks),
            "lipnet": lipnet_breakdown,
            "conv1-bf16": conv1_bf16_breakdown, "k2-bf16": k2_bf16_breakdown,
-           "k3-h0": k3_h0_breakdown}[args.mode](
+           "k3-h0": k3_h0_breakdown, "conv1-tf": conv1_tf_breakdown}[args.mode](
                parent, dev)
     text = json.dumps({"card": card, "torch": torch.__version__, **out}, indent=1)
     print(text)
@@ -447,7 +473,7 @@ def lipnet_breakdown(parent: Path, dev):
     def k4_old(fn, case):
         x, w, b, cot = case
         B = x.shape[0]
-        rows, cols, tiles, chunks = convpool.bwd_grid(B, T, 25, 50)
+        rows, cols, tiles, chunks, _ = convpool.bwd_grid(B, T, 25, 50, 32)
         gs = cot.stride()
 
         def run():
@@ -1193,6 +1219,190 @@ def k3_h0_breakdown(parent, dev):
                                / mean["current"]["device_ms"],
                                "current_over_parent_device": mean["current"]["device_ms"]
                                / mean["parent"]["device_ms"]}}
+
+
+# cuts of the float K4 (csrc/conv1_pool_bwd.cu), each timed through the wrapper
+K4_F32_NO_DW = ("    if (lc < CL) {\n      int toff[TQ];", "    if (lc < 0) {\n      int toff[TQ];")
+K4_F32_NO_RECOMPUTE = (
+    """        conv1_window_sums<KT, KH, KW, CB>(acc, s_x + 2 * ty * IW + 2 * tx, s_w + c0, kt, kh,
+                                          kw, IH, IW, MAXC);""",
+    """#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int c = 0; c < CB; ++c) acc[j][c] = s_w[c0 + c] * j;""")
+K4_F32_VARIANTS = {"k4_no_dw": [K4_F32_NO_DW], "k4_no_recompute": [K4_F32_NO_RECOMPUTE],
+                   "k4_staging_only": [K4_F32_NO_DW, K4_F32_NO_RECOMPUTE]}
+
+
+def conv1_tf_breakdown(parent, dev):
+    import torch
+
+    from avsync_torch.ops.conv import conv_relu_pool, fp32_step, train_scope
+    from avsync_torch.ops.cuda import build, convpool
+
+    build.build(["conv1_pool", "conv1_pool_bwd"])
+    out = {"ptxas_current": {n: [ln.strip() for ln in build.build_log(n).splitlines()
+                                 if "registers" in ln or "spill" in ln]
+                             for n in ("conv1_pool", "conv1_pool_bwd")}}
+    specs = [(build.CSRC, "conv1_pool_bwd", K4_F32_VARIANTS, "avs_conv1_pool_bwd",
+              convpool._BWD_ARGTYPES)]
+    if parent is not None:
+        csrc = parent / "avsync_torch" / "csrc"
+        specs += [
+            (csrc, "conv1_pool", {"k1_parent": []}, "avs_conv1_pool", convpool._ARGTYPES),
+            (csrc, "conv1_pool", {"k1b_parent": []}, "avs_conv1_pool_bf16", convpool._ARGTYPES),
+            (csrc, "conv1_pool_bwd", {"k4_parent": []}, "avs_conv1_pool_bwd",
+             convpool._BWD_ARGTYPES),
+            (csrc, "conv1_pool_bwd", {"k4b_parent": []}, "avs_conv1_pool_bwd_bf16",
+             convpool._BWD_ARGTYPES)]
+        fwd_grid_p, bwd_grid_p = parent_conv_grids(parent)
+    fns = build_variants(specs)
+    out["ptxas_variants"] = {k: v[1] for k, v in fns.items()}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    g = torch.Generator().manual_seed(0)
+    B, C, H, W, k = 8, 128, 46, 140, (3, 3, 3)
+    H2, W2, taps = H // 2, W // 2, 27
+    x = torch.randn(B, 1, T, H, W, generator=g).to(dev)  # standardized clips
+    w = ((torch.rand(C, 1, *k, generator=g) * 2 - 1) * taps ** -0.5).to(dev)
+    b = ((torch.rand(C, generator=g) * 2 - 1) * taps ** -0.5).to(dev)
+    cot = (torch.randn(B, C, T, H2, W2, generator=g) * 1e-3).to(dev)
+    out["grids"] = {"fwd_grid": convpool.fwd_grid(B, T, H2, W2, *k, C),
+                    "bwd_grid": convpool.bwd_grid(B, T, H2, W2, C)}
+    if parent is not None:
+        out["grids"]["parent_fwd_grid"] = fwd_grid_p(B, T, H2, W2, *k, C)
+
+    def k1():
+        return convpool.conv1_pool_block(x, w, b)
+
+    def k4():
+        return convpool.conv1_pool_block_bwd(x, w, b, cot)
+
+    def cudnn_fwd():
+        with fp32_step():
+            return conv_relu_pool(x, w, b)
+
+    wr, br = w.detach().clone().requires_grad_(), b.detach().clone().requires_grad_()
+
+    def cudnn_block():  # forward and dW, db as the trainers ran conv1 before
+        with train_scope():
+            y = conv_relu_pool(x, wr, br)
+            return torch.autograd.grad(y, (wr, br), cot)
+
+    def fused_block():
+        return k1(), k4()
+
+    # checks
+    xj, wj, cj = x.permute(0, 2, 3, 4, 1), w.permute(2, 3, 4, 1, 0), cot.permute(0, 2, 3, 4, 1)
+    got = k1()
+    want = convpool.conv1_pool_ref(xj, wj, b).permute(0, 4, 1, 2, 3)
+    checks = {"k1_equals_plain": bool(torch.equal(got, want)),
+              "k1_repeat_equal": bool(torch.equal(got, k1())),
+              "cudnn_vs_k1_max_abs_err": (cudnn_fwd() - got).abs().max().item()}
+    del want
+    dk, db = k4()
+    pk, pb = convpool.conv1_pool_bwd_ref(xj, wj, b, cj)
+    pk = pk.permute(4, 3, 0, 1, 2)
+    dk2, db2 = k4()
+    checks.update(
+        k4_dw_max_abs_err=(dk - pk).abs().max().item(), k4_db_max_abs_err=(db - pb).abs().max().item(),
+        k4_within_tol=bool(torch.allclose(dk, pk, atol=1e-3, rtol=1e-4)
+                           and torch.allclose(db, pb, atol=1e-3, rtol=1e-4)),
+        k4_repeat_equal=bool(torch.equal(dk, dk2) and torch.equal(db, db2)))
+    cw, cb = cudnn_block()
+    checks.update(cudnn_dw_vs_k4_max_abs_err=(cw - dk).abs().max().item(),
+                  cudnn_db_vs_k4_max_abs_err=(cb - db).abs().max().item(),
+                  dw_max_abs=pk.abs().max().item())
+    del got, dk, db, pk, pb, dk2, db2, cw, cb
+    torch.cuda.empty_cache()
+    out["checks_B8"] = checks
+    print(f"TF conv1 B=8 checks: {json.dumps(checks)}", flush=True)
+
+    times = {}
+    for name, fn in (("k1", k1), ("k4", k4), ("cudnn_fwd", cudnn_fwd),
+                     ("cudnn_block", cudnn_block), ("fused_block", fused_block)):
+        times[name] = {"queued_ms": queued_ms(fn, iters=10), "device_ms": device_ms(fn, n=5)}
+    for name in K4_F32_VARIANTS:  # K4 with a part cut out (its results are wrong)
+        run = swapped(("conv1_pool_bwd", "avs_conv1_pool_bwd"), fns[name][0], k4)
+        times[name] = {"queued_ms": queued_ms(run, iters=10), "device_ms": device_ms(run, n=5)}
+    t = {"cudnn_block": [], "fused_block": []}
+    for side in ("cudnn_block", "fused_block", "fused_block", "cudnn_block"):
+        t[side].append(queued_ms(cudnn_block if side == "cudnn_block" else fused_block, iters=10))
+    times["turns_queued_ms"] = t
+    out["times_B8"] = times
+    print(f"TF conv1 B=8 times: {json.dumps(times)}", flush=True)
+    if parent is None:
+        return out
+
+    def parent_k1(fn, xx, ww, bb, shape, grid, dtype=torch.float32):
+        BB, CC, HH, WW, kk = shape
+        rows, cols, _, chunks = grid
+        o = torch.empty(BB, CC, T, HH // 2, WW // 2, device=dev, dtype=dtype)
+
+        def run():
+            checked(fn(xx.data_ptr(), ww.data_ptr(), bb.data_ptr(), o.data_ptr(),
+                       BB, T, HH, WW, *kk, CC, chunks, rows, cols,
+                       xx.stride(0), xx.stride(2), xx.stride(3), xx.stride(4), 1, math.prod(kk),
+                       o.stride(0), o.stride(2), o.stride(3), o.stride(4), o.stride(1),
+                       dev.index, stream), "parent K1")
+            return o
+        return run
+
+    def in_turns(old, new):
+        t = {"parent": [], "current": []}
+        for side in ("parent", "current", "current", "parent"):
+            t[side].append(queued_ms(old if side == "parent" else new, iters=10))
+        return t
+
+    vs = {}
+    old = parent_k1(fns["k1_parent"][0], x, w, b, (B, C, H, W, k),
+                    fwd_grid_p(B, T, H2, W2, *k, C))
+    vs["tf_k1"] = {"equal": bool(torch.equal(old(), k1())), "turns": in_turns(old, k1)}
+    del old
+    torch.cuda.empty_cache()
+    # LipNet's conv1 (f32 and bf16): the parent's bits and times
+    Cl, kl = 32, (3, 5, 5)
+    for dt, suffix in ((torch.float32, ""), (torch.bfloat16, "b")):
+        xl = torch.rand(B, 1, T, 50, 100, generator=g).to(dev).to(dt)
+        wl = ((torch.rand(Cl, 1, *kl, generator=g) * 2 - 1) * 75 ** -0.5).to(dev).to(dt)
+        bl = ((torch.rand(Cl, generator=g) * 2 - 1) * 75 ** -0.5).to(dev)
+        cl = torch.randn(B, Cl, T, 25, 50, generator=g).to(dev).to(dt)
+        if dt == torch.float32:
+            fgrid = fwd_grid_p(B, T, 25, 50, *kl, Cl)
+            rows, cols, tiles, chunks = bwd_grid_p(B, T, 25, 50)
+            n_part = tiles * chunks
+        else:
+            fgrid = convpool.mma_grid(B, T, 25, 50, *kl, Cl)
+            rows, cols, tiles, chunks = convpool.mma_grid(B, T, 25, 50, *kl, Cl, bwd=True)
+            n_part = B * tiles * chunks
+        old1 = parent_k1(fns[f"k1{suffix}_parent"][0], xl, wl, bl, (B, Cl, 50, 100, kl), fgrid,
+                         dt)
+        fn4, gs = fns[f"k4{suffix}_parent"][0], cl.stride()
+
+        def old4():
+            partial = torch.empty(n_part, 75 * Cl + Cl, device=dev)
+            dw, db = torch.empty(Cl, 1, *kl, device=dev), torch.empty(Cl, device=dev)
+            checked(fn4(xl.data_ptr(), wl.data_ptr(), bl.data_ptr(), cl.data_ptr(),
+                        partial.data_ptr(), dw.data_ptr(), db.data_ptr(),
+                        B, T, 50, 100, *kl, Cl, chunks, rows, cols,
+                        xl.stride(0), xl.stride(2), xl.stride(3), xl.stride(4), 1, 75,
+                        gs[0], gs[2], gs[3], gs[4], gs[1], 1, 75, dev.index, stream),
+                    "parent K4")
+            return dw, db
+
+        def new1():
+            return convpool.conv1_pool_block(xl, wl, bl)
+
+        def new4():
+            return convpool.conv1_pool_block_bwd(xl, wl, bl, cl)
+
+        a4, b4 = old4(), new4()
+        name = "lipnet_f32" if dt == torch.float32 else "lipnet_bf16"
+        vs[name] = {"k1_equal": bool(torch.equal(old1(), new1())),
+                    "k4_equal": bool(torch.equal(a4[0], b4[0]) and torch.equal(a4[1], b4[1])),
+                    "k1_turns": in_turns(old1, new1), "k4_turns": in_turns(old4, new4)}
+        print(f"{name} vs parent: {json.dumps(vs[name])}", flush=True)
+    out["vs_parent"] = vs
+    return out
 
 
 if __name__ == "__main__":

@@ -116,6 +116,30 @@ def test_fwd_grid_covers_every_pooled_position_once(B, T, H2, W2, k, C):
         assert (rows, cols) == (5, 50) and tiles * rows * cols == H2 * W2
 
 
+@pytest.mark.parametrize("x_shape,dtype,w_shape,takes", [
+    ((2, 1, 3, 46, 140), torch.float32, (128, 1, 3, 3, 3), True),  # the TF stack's conv1
+    ((2, 1, 3, 46, 140), torch.bfloat16, (128, 1, 3, 3, 3), False),  # K4-bf16: 32 at most
+    ((2, 1, 3, 50, 100), torch.float32, (32, 1, 3, 5, 5), True),  # LipNet's
+    ((2, 1, 3, 50, 100), torch.bfloat16, (32, 1, 3, 5, 5), True),
+    ((2, 1, 3, 50, 100), torch.float32, (512, 1, 3, 5, 5), True),
+    ((2, 1, 3, 50, 100), torch.float32, (4096, 1, 3, 5, 5), False),  # K1's weights past 227 KB
+    ((2, 1, 3, 50, 99), torch.float32, (32, 1, 3, 5, 5), False),  # odd W
+    ((2, 1, 3, 50, 100), torch.float32, (32, 1, 3, 4, 5), False),  # even kernel
+    ((2, 1, 3, 50, 100), torch.float32, (32, 1, 9, 5, 5), False),  # 225 taps
+    ((2, 2, 3, 50, 100), torch.float32, (32, 2, 3, 5, 5), False),  # two input channels
+    ((2, 1, 3, 50, 100), torch.float64, (32, 1, 3, 5, 5), False)],
+    ids=["tf_f32", "tf_bf16", "lipnet_f32", "lipnet_bf16", "c512", "c4096", "odd_w",
+         "even_kernel", "taps", "cin2", "float64"])
+def test_fused_takes_what_the_kernels_take(x_shape, dtype, w_shape, takes):
+    """The model's one gate (`fused_takes`), from the input's shape and dtype
+    and the weight's shape: float32 any channel count whose K1 CTA fits (128
+    and more; no TPU lane rule), bf16 at most 32."""
+    from avsync_torch.ops.cuda import convpool
+
+    x = torch.empty(x_shape, dtype=dtype, device="meta")
+    assert convpool.fused_takes(x, torch.empty(w_shape, device="meta")) == takes
+
+
 # ---------------------------------------------------------------------------
 # the bf16 kernels' host-side pieces (csrc/conv1_mma.cuh)
 # ---------------------------------------------------------------------------
@@ -219,7 +243,7 @@ GRID_SHAPES = [(8, 75, 25, 50, (3, 5, 5), 32), (1, 75, 25, 50, (3, 5, 5), 32),
                (128, 75, 25, 50, (3, 5, 5), 32)]
 
 
-# K4 takes at most 32 channels (`MAX_CHANNELS`)
+# K4-bf16 takes at most 32 channels (`CHANNEL_GROUP`)
 @pytest.mark.parametrize("B,T,H2,W2,k,C,bwd", [
     (*shape, bwd) for shape in GRID_SHAPES for bwd in (False, True) if not bwd or shape[-1] <= 32])
 def test_mma_grid_covers_every_pooled_position_once(B, T, H2, W2, k, C, bwd):

@@ -136,15 +136,45 @@ def test_cpu_backward_does_not_count_as_a_kernel_launch():
 @pytest.mark.parametrize("B,T,H2,W2", [(8, 75, 25, 50), (2, 5, 27, 51), (7, 11, 25, 50),
                                        (1, 2, 10, 100), (3, 7, 5, 9), (1, 1, 1, 1)])
 def test_bwd_grid_covers_every_pooled_position(B, T, H2, W2):
-    """K4's grid (`bwd_grid`, chosen in Python, run on the card): tiles of at
-    most BWD_THREADS positions cover the pooled frame, the LipNet frame (25 x
-    50) with no dead position, and the chunks split the B*T frames within
-    the CTA target."""
-    rows, cols, tiles, chunks = convpool.bwd_grid(B, T, H2, W2)
-    assert 1 <= rows * cols <= convpool.BWD_THREADS
+    """K4's grid (`bwd_grid`, chosen in Python, run on the card) at 32
+    channels: tiles of at most BWD_THREADS positions cover the pooled frame,
+    the LipNet frame (25 x 50) with no dead position, one channel group, and
+    the chunks split the B*T frames within the CTA target."""
+    rows, cols, tiles, chunks, groups = convpool.bwd_grid(B, T, H2, W2, 32)
+    assert 1 <= rows * cols <= convpool.BWD_THREADS and groups == 1
     assert tiles == -(-H2 // rows) * -(-W2 // cols)
     assert rows * -(-H2 // rows) >= H2 and cols * -(-W2 // cols) >= W2
     assert 1 <= chunks <= B * T and (tiles * chunks <= convpool.BWD_TARGET_CTAS or chunks == 1)
     if (H2, W2) == (25, 50):
         assert (rows, cols) == (5, 50) and tiles * rows * cols == H2 * W2
         assert tiles * chunks > convpool.BWD_TARGET_CTAS - tiles  # the card is filled
+
+
+@pytest.mark.parametrize("B", [1, 8, 32, 128])
+def test_grids_keep_lipnet_conv1(B):
+    """LipNet's conv1 (25 x 50 pooled, 32 channels, 3x5x5) keeps its grids:
+    K1 and K4 a 5 x 50 tile, 5 tiles, min(B*T, 52) chunks, and K4 one
+    channel group, so its partials, and dW's bits, are unchanged."""
+    chunks = min(B * 75, convpool.BWD_TARGET_CTAS // 5)
+    assert convpool.bwd_grid(B, 75, 25, 50, 32) == (5, 50, 5, chunks, 1)
+    assert convpool.fwd_grid(B, 75, 25, 50, 3, 5, 5, 32) == (5, 50, 5, chunks)
+
+
+@pytest.mark.parametrize("B,T,H2,W2,C", [(8, 75, 23, 70, 128), (2, 5, 25, 69, 100),
+                                         (1, 2, 10, 100, 33), (128, 75, 23, 70, 128),
+                                         (1, 1, 1, 1, 64)],
+                         ids=["tf_conv1", "ragged", "33ch", "tf_b128", "one_position"])
+def test_bwd_grid_shares_the_ctas_over_channel_groups(B, T, H2, W2, C):
+    """More than 32 channels take ceil(C / 32) groups, and the CTA target is
+    shared out over tiles x groups x chunks. The TF stack's 23 x 70 takes
+    7 x 35 (8 tiles, 18% dead, against 48% for the full-width 4 x 64), and
+    K1 the same tile."""
+    rows, cols, tiles, chunks, groups = convpool.bwd_grid(B, T, H2, W2, C)
+    assert groups == -(-C // 32) and 1 <= rows * cols <= convpool.BWD_THREADS
+    assert tiles == -(-H2 // rows) * -(-W2 // cols)
+    assert 1 <= chunks <= B * T
+    assert tiles * groups * chunks <= convpool.BWD_TARGET_CTAS or chunks == 1
+    if (H2, W2) == (23, 70):
+        assert (rows, cols, tiles, groups) == (7, 35, 8, 4)
+        assert chunks == 8
+        assert convpool.fwd_grid(B, T, H2, W2, 3, 3, 3, C)[:3] == (7, 35, 8)

@@ -461,6 +461,115 @@ def test_conv1_pool_bwd_matches_plain(dev, B, T, H, W, k, C):
         assert torch.equal(a, r)
 
 
+# the TF stack's conv1 (Cin 1, 128 channels, 3x3x3 at 46 x 140: a 7 x 35 tile,
+# four channel groups in K4), and a ragged one (25 x 69 pooled, 100 channels:
+# dead rows and columns, a last group of 4 channels)
+TF_CONV1 = [(2, 8, 46, 140, 128), (2, 5, 50, 138, 100)]
+
+
+@pytest.mark.parametrize("B,T,H,W,C", TF_CONV1, ids=["tf", "ragged"])
+def test_conv1_pool_at_the_tf_width_equals_plain_bit_for_bit(dev, B, T, H, W, C):
+    """K1 at 128 channels runs each channel's fmaf chain as the plain
+    version does: equal bits in both layouts, and a repeat launch too."""
+    g = _gen(21)
+    x = torch.randn(B, T, H, W, 1, generator=g).to(dev)
+    w = ((torch.rand(3, 3, 3, 1, C, generator=g) * 2 - 1) / 27 ** 0.5).to(dev)
+    b = ((torch.rand(C, generator=g) * 2 - 1) / 27 ** 0.5).to(dev)
+    want = convpool.conv1_pool_ref(x, w, b)
+    got = convpool.conv1_pool_fused(x, w, b)
+    got_n = convpool.conv1_pool_block(x.permute(0, 4, 1, 2, 3),
+                                      w.permute(4, 3, 0, 1, 2).contiguous(), b)
+    assert torch.equal(got, want)
+    assert torch.equal(got_n, want.permute(0, 4, 1, 2, 3))
+    assert torch.equal(got, convpool.conv1_pool_fused(x, w, b))
+
+
+@pytest.mark.parametrize("B,T,H,W,C", TF_CONV1, ids=["tf", "ragged"])
+def test_conv1_pool_bwd_at_the_tf_width_matches_plain(dev, B, T, H, W, C):
+    """K4 over channel groups: dW and db within K4_TOL of the plain version
+    in both layouts, one launch per call, and a repeat launch gives the same
+    bits (the groups write their own columns of each partial row; no float
+    atomics)."""
+    g = _gen(22)
+    x = torch.randn(B, T, H, W, 1, generator=g).to(dev)
+    w = ((torch.rand(3, 3, 3, 1, C, generator=g) * 2 - 1) / 27 ** 0.5).to(dev)
+    b = ((torch.rand(C, generator=g) * 2 - 1) / 27 ** 0.5).to(dev)
+    cot = torch.randn(B, T, H // 2, W // 2, C, generator=g).to(dev)
+    want = convpool.conv1_pool_bwd_ref(x, w, b, cot)
+    before = convpool.bwd_launches
+    got = convpool.conv1_pool_bwd(x, w, b, cot)
+    got_n = convpool.conv1_pool_block_bwd(x.permute(0, 4, 1, 2, 3),
+                                          w.permute(4, 3, 0, 1, 2).contiguous(), b,
+                                          cot.permute(0, 4, 1, 2, 3))
+    again = convpool.conv1_pool_bwd(x, w, b, cot)
+    torch.cuda.synchronize()
+    assert convpool.bwd_launches == before + 3
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a, r, **K4_TOL)
+    torch.testing.assert_close(got_n[0], want[0].permute(4, 3, 0, 1, 2), **K4_TOL)
+    torch.testing.assert_close(got_n[1], want[1], **K4_TOL)
+    for a, r in zip(got, again):
+        assert torch.equal(a, r)
+
+
+def _tf_trainer_and_plan(dev, S=4, B=2, N=8, T=8):
+    import numpy as np
+
+    from avsync_torch.config import AvsyncConfig, DataConfig, ModelConfig, TrainConfig
+    from avsync_torch.train.lipnet_trainer import LipNetTrainer
+    from avsync_torch.utils.logging import Logger
+
+    cfg = AvsyncConfig(
+        data=DataConfig(img_height=46, img_width=140, max_video_length=T, batch_size=B,
+                        max_label_length=4, standardize_clips=True),
+        model=ModelConfig(family="tf", hidden_dim=16, fused_conv_pool=True),
+        train=TrainConfig(learning_rate=1e-3, seed=7))
+    g = _gen(23)
+    video = torch.randn(N, T, 46, 140, 1, generator=g).to(dev)
+    labels = torch.randint(1, 27, (N, 4), generator=g).to(dev)
+    plan = {"video": video, "gather": lambda row: video.index_select(0, row), "labels": labels,
+            "lengths": torch.full((N,), 4, device=dev),
+            "idx": np.arange(S * B).reshape(S, B) % N}
+    trainer = LipNetTrainer(cfg, device=dev, log=Logger(None, console=False))
+    return trainer, trainer.init_state(), plan
+
+
+def test_tf_captured_step_launches_k1_and_k4_once_per_step(dev):
+    """The TF stack with `fused_conv_pool` in an epoch program: the wrapper
+    counters see one K1 and one K4 launch per eager warm-up step and one of
+    each in the capture; the replays launch nothing through the wrappers
+    and run, per step, K1 and K4 (its main kernel) once and the pool's
+    forward only for conv2 and conv3 (no cuDNN conv1, no separate ReLU or
+    pool for it); two runs from the same weights give the same bits."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from avsync_torch.train.epoch_program import WARMUP_STEPS
+
+    trainer, state, plan = _tf_trainer_and_plan(dev)
+    assert state.model.conv1.fused
+    k1, k4 = convpool.launches, convpool.bwd_launches
+    trainer.train_epoch_scanned(state, plan)
+    torch.cuda.synchronize()
+    assert (convpool.launches - k1, convpool.bwd_launches - k4) == (WARMUP_STEPS + 1,) * 2
+    k1, k4 = convpool.launches, convpool.bwd_launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.train_epoch_scanned(state, plan)
+        torch.cuda.synchronize()
+    assert (convpool.launches, convpool.bwd_launches) == (k1, k4)
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    S = len(plan["idx"])
+    assert sum("conv1_pool_kernel<" in n for n in names) == S
+    assert sum("conv1_pool_bwd_kernel<" in n for n in names) == S
+    pools = sum("max_pool3d_with_indices" in n and "backward" not in n for n in names)
+    assert pools == 2 * S, pools
+    again, state2, _ = _tf_trainer_and_plan(dev)
+    again.train_epoch_scanned(state2, plan)
+    again.train_epoch_scanned(state2, plan)
+    torch.cuda.synchronize()
+    for (n, p), q in zip(state.model.named_parameters(), state2.model.parameters()):
+        assert torch.equal(p, q), n
+
+
 def test_conv1_pool_bwd_tie_routes_to_the_first_position(dev):
     g = _gen(10)
     x = torch.ones(1, 3, 4, 4, 1, device=dev)

@@ -42,6 +42,7 @@ from avsync_torch.models import LipNet, TFLipNet, make_lipnet
 from avsync_torch.models.lipnet_tf import TFModelConfig, tf_ctc_loss
 from avsync_torch.ops import beam
 from avsync_torch.ops.ctc import ctc_nll, optax_ctc_nll
+from avsync_torch.ops.cuda import convpool
 from avsync_torch.train.lipnet_trainer import (LipNetTrainer, eval_step, make_optimizer,
                                                train_step)
 
@@ -66,16 +67,18 @@ def _jax_params(model, x, seed):
 # forward and the weight bridge
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("hw,B,T", [((16, 32), 2, 6), ((18, 46), 3, 5)],
-                         ids=["16x32", "18x46_odd"])
-def test_forward_matches_jax(hw, B, T):
+@pytest.mark.parametrize("hw,B,T,fused", [((16, 32), 2, 6, False), ((18, 46), 3, 5, False),
+                                           ((16, 32), 2, 6, True), ((18, 46), 3, 5, True)],
+                         ids=["16x32", "18x46_odd", "16x32_fused", "18x46_odd_fused"])
+def test_forward_matches_jax(hw, B, T, fused):
     """(C, H, W) against (H, W, C) flattening: conv shape (4, 2, 4) and
-    (4, 2, 5), so the first LSTM's permuted rows matter."""
+    (4, 2, 5), so the first LSTM's permuted rows matter. `fused`: conv1 on
+    the fused kernels' plain versions (`fused_conv_pool`)."""
     x = np.random.default_rng(1).random((B, T, *hw, 1)).astype(np.float32)
     jmodel = JaxTFLipNet(JaxTFModelConfig(**SMALL))
     params = _jax_params(jmodel, x, 0)
     want = np.asarray(jmodel.apply({"params": params}, jnp.asarray(x)))
-    model = TFLipNet(TFModelConfig(**SMALL), img_hw=hw)
+    model = TFLipNet(TFModelConfig(**SMALL), img_hw=hw, fused_conv_pool=fused)
     model.load_state_dict(tflipnet_params_from_jax(params, _conv_shape(hw)))
     with torch.no_grad():
         got = model(torch.from_numpy(x))
@@ -117,6 +120,53 @@ def test_make_lipnet_is_the_family_switch():
     assert bf16.cfg.compute_dtype == "float32" and bf16.compute_dtype is None
     cls = TFLipNet(TFModelConfig(hidden_dim=4, compute_dtype="bfloat16"), img_hw=(46, 140))
     assert cls.compute_dtype == torch.bfloat16
+    # `fused_conv_pool` reaches the blocks; only conv1 (Cin = 1) can take it
+    fused = make_lipnet(ModelConfig(family="tf", hidden_dim=4, fused_conv_pool=True), (46, 140))
+    assert fused.conv1.fused and fused.conv2.fused and fused.conv3.fused
+    assert not tf.conv1.fused
+    takes = [convpool.fused_takes(torch.empty(2, cin, 3, h, w, device="meta"), blk.weight)
+             for cin, h, w, blk in ((1, 46, 140, fused.conv1), (128, 23, 70, fused.conv2),
+                                    (256, 11, 35, fused.conv3))]
+    assert takes == [True, False, False]
+
+
+WIDE = dict(conv_channels=(128, 4, 4), hidden_dim=4, dense_dim=16, dropout_rate=0.0)
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_fused_conv1_matches_the_cudnn_route(monkeypatch, remat):
+    """The TF stack's conv1 width (Cin 1, 128 channels, 3x3x3) with
+    `fused_conv_pool` on and off from the same weights: the fused block
+    (`Conv1Pool`, its forward and dW/db the kernels' plain versions on the
+    CPU) against the plain conv block, the log-probs and every gradient
+    within float32 tolerance (1e-5 of the log-probs, 1e-3 of each
+    gradient's largest magnitude: sums in another order, and a window whose
+    max or ReLU another order flips routes elsewhere). Only conv1 takes the
+    fused block, once per forward (under remat once more, its recompute)."""
+    from avsync_torch.models import lipnet as lipnet_mod
+
+    calls = []
+    real = lipnet_mod.conv1_pool_block
+    monkeypatch.setattr(lipnet_mod, "conv1_pool_block",
+                        lambda x, w, b: calls.append(tuple(w.shape)) or real(x, w, b))
+    g = torch.Generator().manual_seed(3)
+    fused = TFLipNet(TFModelConfig(**WIDE), img_hw=(18, 46), generator=g, fused_conv_pool=True)
+    plain = TFLipNet(TFModelConfig(**WIDE), img_hw=(18, 46))
+    plain.load_state_dict(fused.state_dict())
+    x = torch.randn(2, 4, 18, 46, 1, generator=g)
+    labels = torch.tensor([[3, 5, 7, 0], [9, 9, 2, 1]])
+    out, grads = [], []
+    for model in (fused, plain):
+        lp = model(x, remat=remat)
+        tf_ctc_loss(lp, labels).backward()
+        out.append(lp.detach())
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    assert calls == [(128, 1, 3, 3, 3)] * (2 if remat else 1)  # remat: again in the backward
+    torch.testing.assert_close(out[0], out[1], atol=1e-5, rtol=0)
+    for name, want in grads[1].items():
+        got = grads[0][name]
+        assert got is not None and torch.isfinite(got).all(), name
+        assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item() + 1e-7, name
 
 
 # ---------------------------------------------------------------------------
@@ -285,9 +335,9 @@ def tiny_batch():
     return x, labels, lengths, jmodel, _jax_params(jmodel, x, 8)
 
 
-def _trainer(tmp_path, **train):
+def _trainer(tmp_path, fused=False, **train):
     cfg = AvsyncConfig(data=DataConfig(img_height=16, img_width=32, max_video_length=6),
-                       model=ModelConfig(**TINY),
+                       model=ModelConfig(**TINY, fused_conv_pool=fused),
                        train=TrainConfig(learning_rate=LR, checkpoint_dir=str(tmp_path / "ck"),
                                          **train))
     return LipNetTrainer(cfg, device="cpu")
@@ -296,6 +346,16 @@ def _trainer(tmp_path, **train):
 def test_three_train_steps_match_jax(tiny_batch, tmp_path):
     """The TF-family LipNetTrainer's step against the JAX trainer's TF step
     (make_lipnet, tf_ctc_loss, clip, Adam), dropout 0."""
+    _three_train_steps_match_jax(tiny_batch, tmp_path, fused=False)
+
+
+def test_three_train_steps_with_fused_conv1_match_jax(tiny_batch, tmp_path):
+    """The same with `fused_conv_pool`: conv1 forward and dW/db on the fused
+    kernels' plain versions (`ops/cuda/convpool.Conv1Pool`)."""
+    _three_train_steps_match_jax(tiny_batch, tmp_path, fused=True)
+
+
+def _three_train_steps_match_jax(tiny_batch, tmp_path, fused):
     x, labels, lengths, jmodel, params = tiny_batch
     jopt = jax_make_optimizer(LR, 1.0)
     batch = {"video": jnp.asarray(x), "labels": jnp.asarray(labels),
@@ -312,10 +372,10 @@ def test_three_train_steps_match_jax(tiny_batch, tmp_path):
         jlosses.append(float(m["loss"]))
     jafter = jax.tree.map(np.asarray, state.params)
 
-    trainer = _trainer(tmp_path)
+    trainer = _trainer(tmp_path, fused=fused)
     tstate = trainer.init_state()
     model = tstate.model
-    assert isinstance(model, TFLipNet)
+    assert isinstance(model, TFLipNet) and model.conv1.fused == fused
     model.load_state_dict(tflipnet_params_from_jax(params, (4, 2, 4)))
     tbatch = {"video": torch.from_numpy(x), "labels": torch.from_numpy(labels).long(),
               "label_lengths": torch.from_numpy(lengths).long()}
